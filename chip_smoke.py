@@ -14,17 +14,24 @@ line):
    nvcc; print the build time and the ``-Xptxas -v`` register/spill
    report.
 3. Kernels: each kernel at the main path's shapes (n = 8 ranks,
-   P = 40 x 256,000 = 10,240,000 values) against its plain PyTorch
-   version on the same inputs, with CUDA-event times for both and the
-   card's least time for the same work.
+   P = 40 x 256,000 = 10,240,000 values; the 2-D sub-rings at dp = 4 x
+   kv = 2) against its plain PyTorch version on the same inputs, with
+   CUDA-event times for both, the card's least time for the same work,
+   and the time of one PyTorch call that computes the same function
+   where there is one.
 4. Main path: ``Postoffice("worker")`` + ``DeviceGroup(8)`` +
    ``KVWorker.push_pull``/``push``/``pull`` on the reference benchmark's
    40 x 1,024,000 B bucket under the ring (``PS_ICI_IMPL=pallas``,
-   handle ``sum``, f32 and bf16) and the fused optimizer handles
-   (``adam``, ``sgd_momentum``, ``adagrad``), each checked against a
-   float64 numpy reference.  Kernel launch counts are zeroed just before
-   and read just after; every kernel must have launched.  Then the
-   steady-state ``engine.push_pull`` time with device-resident grads.
+   handle ``sum``, f32 and bf16, and f32 with ``PS_ICI_COMPRESS=int8``)
+   and the fused optimizer handles (``adam``, ``sgd_momentum``,
+   ``adagrad``); ``CollectiveEngine`` on a ``make_group((4, 2), ("dp",
+   "kv"))`` group with ``worker_axis="dp"`` for ``sum``, int8 and
+   ``adam``; and an int8 quantize -> dequantize round trip of the
+   bucket.  Each is checked against a float64 numpy reference, and the
+   ring and quantize results also against their plain versions on the
+   card.  Kernel launch counts are zeroed just before and read just
+   after; every kernel must have launched.  Then the steady-state
+   ``engine.push_pull`` time with device-resident grads.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +90,30 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def library_time(fn, *args):
+    """(ms, None) of one PyTorch call, or (None, reason) where the call
+    does not run on this card."""
+    try:
+        return cuda_ms(lambda: fn(*args)), None
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+
+
+def mismatches(got, want, step: float) -> int:
+    """Elements where an int8 kernel and its plain version differ.  The
+    two round ``fmaf`` once each, so none are expected; a few (at most
+    1e-6 of the elements, each within one quantization step ``step`` of
+    the largest region) are tolerated and printed."""
+    bad = got != want
+    count = int(bad.sum())
+    if count:
+        worst = float((got - want).abs().max())
+        print(f"    {count} of {got.numel()} elements differ, max {worst:.3g}")
+        if count > 1e-6 * got.numel() or worst > step:
+            raise AssertionError(f"{count} elements off by up to {worst}")
+    return count
+
+
 def max_err(pairs) -> float:
     return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
 
@@ -97,7 +128,7 @@ def within(pairs, rtol: float, atol: float) -> bool:
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def kernel_phase(torch, ring, fu, dev):
+def kernel_phase(torch, ring, fu, qz, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
@@ -141,8 +172,12 @@ def kernel_phase(torch, ring, fu, dev):
                 replaces="pslite_tpu/ops/ring_collective.py:445",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
+                library_note="no single PyTorch call computes it",
             ))
         del grads, store
+
+    rows += ring_variant_rows(torch, ring, randn)
+    rows += quantize_rows(torch, qz, randn)
 
     agg = randn(P)
     store = randn(P)
@@ -165,6 +200,19 @@ def kernel_phase(torch, ring, fu, dev):
          lambda s: fu.adam_update_reference(*s, agg, alpha),
          7, 12, 1e-5),
     ]
+    # One PyTorch call computes K1 (momentum, dampening 0, no Nesterov,
+    # not the first step) and K2 (no lr decay): the private fused
+    # optimizers.  K3 has none: torch._fused_adam_ scales eps by
+    # sqrt(1 - beta2^t), the TPU kernel does not.
+    libs = {
+        "sgd_update": lambda s: torch._fused_sgd_(
+            [s[0]], [agg], [s[1]], weight_decay=0.0, momentum=0.9, lr=0.01,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False),
+        "adagrad_update": lambda s: torch._fused_adagrad_(
+            [s[0]], [agg], [s[1]], [torch.ones((), device=dev)], lr=0.01,
+            lr_decay=0.0, weight_decay=0.0, eps=1e-8, maximize=False),
+    }
     for name, line, state, kfn, pfn, words, flops, rtol in specs:
         sk = tuple(t.clone() for t in state)
         sp = tuple(t.clone() for t in state)
@@ -177,15 +225,132 @@ def kernel_phase(torch, ring, fu, dev):
             raise AssertionError(f"{name} off by {err} (rtol {rtol})")
         ms = cuda_ms(lambda: kfn(sk))
         plain_ms = cuda_ms(lambda: pfn(sp), iters=5, warmup=1)
+        lib_ms, why = None, "no single PyTorch call computes it"
+        if name in libs:
+            sl = tuple(t.clone() for t in state)
+            lib_ms, why = library_time(libs[name], sl)
         b_ms, b_by = bound(words * 4 * P, flops * P)
         rows.append(dict(
             name=name, route="cuda",
             source="pslite_tpu_torch/csrc/fused_update.cu",
             replaces=f"pslite_tpu/ops/fused_update.py:{line}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None,
+            bound_by=b_by, library_ms=lib_ms, library_note=why,
         ))
     return rows
+
+
+def ring_variant_rows(torch, ring, randn):
+    """The int8 ring (1-D, 8 ranks, push_pull and push) and the 2-D
+    sub-rings (dp = 4 x kv = 2, uncompressed and int8) at P values,
+    each against its plain version.  Bytes: n grads rows read, the
+    store read and written, pulled written: (n+3)*4P, (n+2)*4P for a
+    push (the int8 payload never crosses a link on one card)."""
+    rows = []
+    specs = [  # (name, ranks, kv_shards, compress, with_ag)
+        ("ring_push_pull_int8[float32]", N, None, True, True),
+        ("ring_push_int8[float32]", N, None, True, False),
+        ("ring_push_pull_2d[float32]", 4, 2, False, True),
+        ("ring_push_pull_2d_int8[float32]", 4, 2, True, True),
+    ]
+    for name, n, kv, compress, with_ag in specs:
+        grads = randn(n, P)
+        store = randn(P)
+        kw = dict(compress=compress, kv_shards=kv)
+        kfn = ring.ring_push_pull if with_ag else ring.ring_push
+        pfn = (ring.ring_push_pull_reference if with_ag
+               else ring.ring_push_reference)
+        sk, sp = store.clone(), store.clone()
+        outk, outp = kfn(grads, sk, "sum", **kw), pfn(grads, sp, "sum", **kw)
+        torch.cuda.synchronize()
+        pairs = [(sk, sp)] + ([(outk, outp)] if with_ag else [])
+        err = max_err(pairs)
+        if compress:
+            step = float(sp.abs().max()) / 127 * 2
+            for a, b in pairs:
+                mismatches(a, b, step)
+        elif err != 0.0:
+            raise AssertionError(f"{name} not bit-exact: {err}")
+        sk, sp = store.clone(), store.clone()
+        ms = cuda_ms(lambda: kfn(grads, sk, "sum", **kw))
+        plain_ms = cuda_ms(lambda: pfn(grads, sp, "sum", **kw), iters=3,
+                           warmup=1)
+        b_ms, b_by = bound((n + (3 if with_ag else 2)) * P * 4, n * P)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=("pslite_tpu_torch/csrc/ring_int8.cu" if compress
+                    else "pslite_tpu_torch/csrc/ring_push_pull.cu"),
+            replaces="pslite_tpu/ops/ring_collective.py:445",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library_note="no single PyTorch call computes it",
+        ))
+        del grads, store, sk, sp, outk, outp
+    return rows
+
+
+def quantize_rows(torch, qz, randn):
+    """K5 and K6 (both scale forms) at P values against their plain
+    versions.  Bytes: quantize reads 4P and writes 1P of codes and 4P of
+    lane-replicated scales; dequantize reads 1P + 4P ([R, 128] scales)
+    or 1P + 4P/128 ([R] scales) and writes 4P."""
+    x = randn(P) * 10
+    qk, sk = qz.quantize_int8(x)
+    qp, sp = qz.quantize_int8_reference(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+        raise AssertionError("quantize_int8 not bit-exact")
+    rows_ = sk.shape[0]
+    compact = sk[:, 0].contiguous()
+    ms = cuda_ms(lambda: qz.quantize_int8(x))
+    plain_ms = cuda_ms(lambda: qz.quantize_int8_reference(x), iters=5,
+                       warmup=1)
+    b_ms, b_by = bound(9 * P, 2 * P)
+    out = [dict(
+        name="quantize_int8", route="cuda",
+        source="pslite_tpu_torch/csrc/quantize_int8.cu",
+        replaces="pslite_tpu/ops/quantize.py:97", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="no PyTorch call finds the absmax scales and "
+                     "quantizes in one call",
+    )]
+    # The library yardstick of the compact form: torch's per-channel
+    # qint8 tensor of the same codes (scales per row, zero points 0),
+    # dequantized.
+    try:
+        qt = torch.quantize_per_channel(
+            qz.dequantize_int8_reference(qk, compact, rows_ * 128).view(
+                rows_, 128),
+            compact.double(), torch.zeros(rows_, dtype=torch.int64,
+                                          device=x.device), 0, torch.qint8)
+        lib = (torch.dequantize, qt)
+    except (RuntimeError, NotImplementedError) as exc:
+        lib = (None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}")
+    for name, scales, nbytes in (("dequantize_int8", sk, 9 * P),
+                                 ("dequantize_int8[compact]", compact,
+                                  5 * P + 4 * rows_)):
+        yk = qz.dequantize_int8(qk, scales, P)
+        yp = qz.dequantize_int8_reference(qk, scales, P)
+        torch.cuda.synchronize()
+        if not torch.equal(yk, yp):
+            raise AssertionError(f"{name} not bit-exact")
+        ms = cuda_ms(lambda: qz.dequantize_int8(qk, scales, P))
+        plain_ms = cuda_ms(lambda: qz.dequantize_int8_reference(qk, scales,
+                                                                P),
+                           iters=5, warmup=1)
+        lib_ms, why = None, "no PyTorch call takes lane-replicated scales"
+        if name.endswith("[compact]"):
+            lib_ms, why = (library_time(*lib) if lib[0] is not None
+                           else (None, lib[1]))
+        b_ms, b_by = bound(nbytes, P)
+        out.append(dict(
+            name=name, route="cuda",
+            source="pslite_tpu_torch/csrc/quantize_int8.cu",
+            replaces="pslite_tpu/ops/quantize.py:129", max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_note=why,
+        ))
+    return out
 
 
 # -- phase 4: the main path through the user's entry points ------------------
@@ -294,6 +459,178 @@ def drive(torch, ps, Environment, grads_steps):
     return results
 
 
+def _check_int8(label, op, k, out64, s64, bound_sum):
+    """The int8 main path against float64: within the summed error
+    bound of tests/test_ring_collective.py:172-177 and a relative error
+    below 0.05, as the JAX test's."""
+    err = float(np.abs(out64 - s64).max())
+    rel = err / float(np.abs(s64).max())
+    if not (err < bound_sum and rel < 0.05) or not np.all(np.isfinite(out64)):
+        raise AssertionError(f"{label}: {op} step {k} off float64 by {err} "
+                             f"(bound {bound_sum}, relative {rel})")
+    return err, rel
+
+
+def drive_int8(torch, ps, ring, Environment, grads_steps):
+    """KVWorker under PS_ICI_IMPL=pallas PS_ICI_COMPRESS=int8 on the
+    40 x 1 MB bucket, 8 ranks: 3 push_pulls, a push, a pull.  Each op is
+    checked against float64 and against the plain version on the card
+    (the engine's store before the op, the same grads)."""
+    keys = np.arange(KEYS, dtype=np.uint64)
+    saved = os.environ.get("PS_ICI_COMPRESS")
+    os.environ["PS_ICI_COMPRESS"] = "int8"  # the engine reads the process env
+    try:
+        po = ps.Postoffice("worker", env=Environment({"PS_ICI_IMPL":
+                                                      "pallas"}))
+        po.van.set_mesh(ps.DeviceGroup(N))
+        po.start()
+    finally:
+        if saved is None:
+            os.environ.pop("PS_ICI_COMPRESS")
+        else:
+            os.environ["PS_ICI_COMPRESS"] = saved
+    worker = ps.KVWorker(0, 0, postoffice=po)
+    eng = worker.engine
+    if eng.wire_compress != "int8":
+        raise AssertionError("PS_ICI_COMPRESS=int8 did not reach the engine")
+    worker.register_dense("grads", keys, VAL_LEN)
+    s64 = np.zeros(P)
+    outs = np.zeros(P, np.float32)
+    bound_sum, worst, worst_rel, differ = 0.0, 0.0, 0.0, 0
+    for op, k in [("push_pull", 0), ("push_pull", 1), ("push_pull", 2),
+                  ("push", 3)]:
+        g = grads_steps[k]
+        before = eng.store_array("grads")
+        g_dev = torch.from_numpy(g).cuda()
+        bound_sum += float(2 * N * (np.abs(g).max() * N
+                                    + np.abs(s64).max()) / 127)
+        s64 = s64 + g.astype(np.float64).sum(0)
+        if op == "push_pull":
+            worker.wait(worker.push_pull(keys, g, outs))
+            want = ring.ring_push_pull_reference(g_dev, before, "sum",
+                                                 compress=True)
+        else:
+            worker.wait(worker.push(keys, g))
+            want = ring.ring_push_reference(g_dev, before, "sum",
+                                            compress=True)
+            outs[:] = 0
+            worker.wait(worker.pull(keys, outs))
+        got = torch.from_numpy(outs.copy()).cuda()
+        differ += mismatches(got, want, float(want.abs().max()) / 127 * 2)
+        err, rel = _check_int8("ring int8 f32", op, k, outs.astype(np.float64),
+                               s64, bound_sum)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    worker.stop()
+    po.finalize()
+    return {"config": "ring int8 f32 (KVWorker)", "ops": 5,
+            "max_abs_err_vs_f64": worst, "max_rel_err_vs_f64": worst_rel,
+            "error_bound": bound_sum, "elements_off_plain": differ}
+
+
+def drive_2d(torch, ps, ring, grads_steps):
+    """CollectiveEngine on make_group((4, 2), ("dp", "kv")) with
+    worker_axis="dp" and the ring impl, on the 40 x 1 MB bucket: sum and
+    int8 (2 push_pulls, a push, a pull) and adam:1e-3 (2 push_pulls),
+    each against float64; the ring ops also against their plain version
+    on the card."""
+    A, B = 4, 2
+    keys = np.arange(KEYS, dtype=np.uint64)
+    group = ps.make_group((A, B), ("dp", "kv"))
+    results = []
+    for label, handle, compress, ops in (
+            ("2-D sum", "sum", None, ["push_pull", "push_pull", "push"]),
+            ("2-D int8", "sum", "int8", ["push_pull", "push_pull", "push"]),
+            ("2-D adam", "adam:1e-3", None, ["push_pull", "push_pull"])):
+        eng = ps.CollectiveEngine(group, worker_axis="dp", impl="pallas",
+                                  server_handle=handle,
+                                  wire_compress=compress)
+        eng.register_dense("grads", keys, VAL_LEN)
+        s64 = np.zeros(P)
+        st = {"m": np.zeros(P), "v": np.zeros(P)}
+        mag = np.zeros(P)
+        bound_sum, worst, differ = 0.0, 0.0, 0
+        for k, op in enumerate(ops):
+            g = grads_steps[k][:A]
+            g_dev = torch.from_numpy(g).cuda()
+            before = eng.store_array("grads")
+            if handle == "sum":
+                bound_sum += float(2 * A * (np.abs(g).max() * A
+                                            + np.abs(s64).max()) / 127)
+                s64 = s64 + g.astype(np.float64).sum(0)
+            else:
+                agg = g[0].copy()
+                for w in range(1, A):
+                    agg += g[w]
+                s64 = _adam_ref(s64, st, agg.astype(np.float64), k + 1)
+            mag += np.abs(g.astype(np.float64)).sum(0)
+            kw = dict(compress=compress == "int8", kv_shards=B)
+            if op == "push_pull":
+                out = eng.push_pull("grads", g)
+                want = (ring.ring_push_pull_reference(g_dev, before, "sum",
+                                                      **kw)
+                        if handle == "sum" else None)
+            else:
+                eng.push("grads", g)
+                out = eng.pull("grads")
+                want = (ring.ring_push_reference(g_dev, before, "sum", **kw)
+                        if handle == "sum" else None)
+            torch.cuda.synchronize()
+            if tuple(out.shape) != (P,) or out.device.type != eng.device.type:
+                raise AssertionError(f"{label}: bad result {out.shape}")
+            if want is not None:
+                if compress:
+                    differ += mismatches(out, want,
+                                         float(want.abs().max()) / 127 * 2)
+                elif not torch.equal(out, want):
+                    raise AssertionError(f"{label}: {op} differs from the "
+                                         f"plain version")
+            out64 = out.double().cpu().numpy()
+            if compress:
+                err, _ = _check_int8(label, op, k, out64, s64, bound_sum)
+            else:
+                err = float(np.abs(out64 - s64).max())
+                if handle == "sum":
+                    tol = 1e-6 + (k + 1) * (A + 1) * 2.0 ** -24 * mag
+                else:
+                    tol = 1e-6 + 1e-5 * np.abs(s64)
+                if not np.all(np.abs(out64 - s64) <= tol):
+                    raise AssertionError(f"{label}: {op} step {k} off "
+                                         f"float64 by {err}")
+            worst = max(worst, err)
+        r = {"config": f"{label} (dp=4 x kv=2)", "ops": len(ops)
+             + ops.count("push"), "max_abs_err_vs_f64": worst}
+        if compress:
+            r.update(error_bound=bound_sum, elements_off_plain=differ)
+        results.append(r)
+        eng.block()
+    return results
+
+
+def drive_quantize(torch, ps, qz, grads_steps):
+    """ps.ops.quantize_int8 -> dequantize_int8 round trip of the bucket
+    (one worker's grads), with [R, 128] and [R] scales: within half a
+    step of the input (float64), and equal to the plain versions."""
+    x = torch.from_numpy(grads_steps[0][0]).cuda()
+    q, s = ps.ops.quantize_int8(x)
+    y = ps.ops.dequantize_int8(q, s, P)
+    yc = ps.ops.dequantize_int8(q, s[:, 0], P)
+    qp, sp = qz.quantize_int8_reference(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(y, yc)
+            and torch.equal(y, qz.dequantize_int8_reference(qp, sp, P))):
+        raise AssertionError("quantize round trip differs from the plain "
+                             "versions")
+    x64 = grads_steps[0][0].astype(np.float64)
+    y64 = y.double().cpu().numpy()
+    step = s.reshape(-1)[:P].double().cpu().numpy()
+    err = np.abs(y64 - x64)
+    if tuple(y.shape) != (P,) or not np.all(
+            err <= 0.5 * step + np.spacing(np.abs(y64).astype(np.float32))):
+        raise AssertionError(f"quantize round trip off by {err.max()}")
+    return {"config": "int8 quantize -> dequantize", "ops": 3,
+            "max_abs_err_vs_f64": float(err.max())}
+
+
 def device_breakdown(torch, step, iters: int = 5):
     """torch.profiler over ``iters`` steps: (device-busy ms per step,
     [(kernel, ms per step)] by time).  The kernels run on one stream, so
@@ -327,12 +664,21 @@ def steady_state(torch, ps):
     already on the device (bench.py's _measure loop), and where the
     device time of a step goes."""
     out = []
-    for impl, handle in (("pallas", "sum"), ("xla", "sum"),
-                         ("pallas", "adam:1e-3")):
-        eng = ps.CollectiveEngine(ps.DeviceGroup(N), server_handle=handle,
-                                  impl=impl)
+    cells = [  # (label, impl, handle, group, worker_axis, wire_compress)
+        ("pallas/sum", "pallas", "sum", None, None, None),
+        ("xla/sum", "xla", "sum", None, None, None),
+        ("pallas/adam:1e-3", "pallas", "adam:1e-3", None, None, None),
+        ("pallas/sum int8", "pallas", "sum", None, None, "int8"),
+        ("pallas/sum 2-D dp4xkv2", "pallas", "sum", (4, 2), "dp", None),
+    ]
+    for label, impl, handle, shape, waxis, compress in cells:
+        group = (ps.DeviceGroup(N) if shape is None
+                 else ps.make_group(shape, ("dp", "kv")))
+        eng = ps.CollectiveEngine(group, server_handle=handle, impl=impl,
+                                  worker_axis=waxis, wire_compress=compress)
         eng.register_dense("b", np.arange(KEYS, dtype=np.uint64), VAL_LEN)
-        inp = torch.ones(N * eng.bucket("b").padded_len, device="cuda")
+        inp = torch.ones(eng.num_workers * eng.bucket("b").padded_len,
+                         device="cuda")
 
         def step():
             eng.push_pull("b", inp)
@@ -347,12 +693,13 @@ def steady_state(torch, ps):
         busy_ms, kernels = device_breakdown(torch, step)
         payload = P * 4
         out.append({
-            "impl": impl, "handle": handle, "event_ms_per_step": event_ms,
+            "cell": label, "event_ms_per_step": event_ms,
             "wall_ms_per_step": wall_ms, "busy_ms_per_step": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": kernels,
             "goodput_gbps_event": 2 * payload / event_ms / 1e6,
             "goodput_gbps_wall": 2 * payload / wall_ms / 1e6,
         })
+        del eng, inp
     return out
 
 
@@ -372,6 +719,7 @@ def main() -> int:
     from pslite_tpu_torch.environment import Environment
     from pslite_tpu_torch.ops import _native
     from pslite_tpu_torch.ops import fused_update as fu
+    from pslite_tpu_torch.ops import quantize as qz
     from pslite_tpu_torch.ops import ring_collective as ring
 
     smi = nvidia_smi()
@@ -390,23 +738,31 @@ def main() -> int:
         if "ptxas info" in line or "spill" in line:
             print(f"  {line.strip()}")
 
-    rows = kernel_phase(torch, ring, fu, torch.device("cuda:0"))
+    rows = kernel_phase(torch, ring, fu, qz, torch.device("cuda:0"))
     for r in rows:
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"none ({r['library_note']})")
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us, "
-              f"{r['bound_ms'] / r['ms']:.2f} of bound), max_abs_err "
-              f"{r['max_abs_err']:.3g}")
+              f"{r['bound_ms'] / r['ms']:.2f} of bound, library {lib}), "
+              f"max_abs_err {r['max_abs_err']:.3g}")
 
     rng = np.random.default_rng(SEED)
     grads_steps = [rng.standard_normal((N, P), dtype=np.float32)
                    for _ in range(6)]
     fu.reset_launches()
     ring.reset_launches()
+    qz.reset_launches()
     results = drive(torch, ps, Environment, grads_steps)
-    counts = {**ring.launches, **fu.launches}
+    results.append(drive_int8(torch, ps, ring, Environment, grads_steps))
+    results += drive_2d(torch, ps, ring, grads_steps)
+    results.append(drive_quantize(torch, ps, qz, grads_steps))
+    counts = {**ring.launches, **fu.launches, **qz.launches}
     for r in results:
+        extra = "".join(f", {k} {v:.4g}" for k, v in r.items()
+                        if k not in ("config", "ops", "max_abs_err_vs_f64"))
         print(f"main path {r['config']}: {r['ops']} ops, max |err| vs "
-              f"float64 {r['max_abs_err_vs_f64']:.3g}")
+              f"float64 {r['max_abs_err_vs_f64']:.3g}{extra}")
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["bound_us"] = r["bound_ms"] * 1e3
@@ -417,7 +773,7 @@ def main() -> int:
     del grads_steps
 
     for r in steady_state(torch, ps):
-        print(f"steady push_pull {r['impl']}/{r['handle']} 40x1MB: "
+        print(f"steady push_pull {r['cell']} 40x1MB: "
               f"{r['event_ms_per_step']:.4f} ms/step (CUDA events), "
               f"{r['wall_ms_per_step']:.4f} ms/step wall, "
               f"{r['goodput_gbps_event']:.1f} GB/s events, "

@@ -2,16 +2,19 @@
 PyTorch and CUDA.
 
 A port of the JAX package ``pslite_tpu`` that imports neither JAX nor
-``pslite_tpu``.  This slice covers a worker's registered dense buckets:
+``pslite_tpu``.  It covers a worker's registered dense buckets:
 ``KVWorker.push``/``pull``/``push_pull`` over the ICI van's
-``CollectiveEngine``, with the fused ring and fused optimizer kernels
-written in CUDA for Hopper (``csrc/``).  Entry points run on CUDA unless
+``CollectiveEngine``, on a 1-D group or a 2-D ``(dp, kv)`` group
+(``make_group`` + ``worker_axis``), with or without int8 wire
+compression (``PS_ICI_COMPRESS=int8``), and the int8 quantize ops; the
+fused ring, int8 ring, fused optimizer and quantize kernels are written
+in CUDA for Hopper (``csrc/``).  Entry points run on CUDA unless
 the caller passes a CPU device group, and raise without a card.
 """
 
 from .kv.kv_app import KVWorker
 from .parallel.engine import CollectiveEngine
-from .parallel.mesh import DeviceGroup, default_group
+from .parallel.mesh import DeviceGroup, default_group, make_group
 from .postoffice import Postoffice
 from .ps import finalize, postoffice, start_ps
 
@@ -22,6 +25,7 @@ __all__ = [
     "Postoffice",
     "default_group",
     "finalize",
+    "make_group",
     "postoffice",
     "start_ps",
 ]

@@ -21,12 +21,20 @@
 // updates the store in place (0 = sum, 1 = assign, 2 = sgd:lr) and, for
 // push_pull, the updated value is written to `pulled` (the all-gather).
 //
+// The (dp, kv) sub-rings of the 2-D data plane (pslite_tpu/parallel/
+// engine.py:713-752, the kernel's `mesh_axes`, :160-175) use the same kernel:
+// the grads rows are the A worker ranks, every kv shard runs its own A-rank
+// ring over sub-chunks of `ksub` elements, and the padding sits at the end of
+// each shard (ring_geometry.cuh).  The TPU runs the B sub-rings in one launch;
+// here one launch covers all of them too.  The 1-D ring is the KV = false
+// instantiation, which skips the shard division.
+//
 // Bound: HBM bandwidth.  Per element it reads n grads and the store and
 // writes the store and (push_pull) pulled: (n+3)*P*bytes, (n+2)*P*bytes for
 // push.  Design: one thread per 16-byte vector of outputs; the vector path
-// needs chunk0 to be a multiple of the vector width (so a vector never
-// straddles a chunk or direction boundary) and 16-byte aligned pointers,
-// otherwise a scalar instantiation runs.  Neighbouring threads read
+// needs the shard, chunk and split lengths to be multiples of the vector
+// width (so a vector never straddles a boundary) and 16-byte aligned
+// pointers, otherwise a scalar instantiation runs.  Neighbouring threads read
 // neighbouring addresses of each rank row, so every row streams coalesced.
 //
 // Later slice: ranks on several cards, where the TPU kernel's peer slots and
@@ -35,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "ring_geometry.cuh"
 
 namespace {
 
@@ -68,19 +78,19 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-template <typename T, int V>
+template <typename T, int V, bool KV>
 __global__ void ring_kernel(const T* __restrict__ grads, T* __restrict__ store,
-                            T* __restrict__ pulled, int n, long long chunk0,
-                            long long split, long long padded, long long nvec,
-                            int handle, float lr) {
+                            T* __restrict__ pulled, RingGeo geo,
+                            long long padded, long long nvec, int handle,
+                            float lr) {
   const long long vi = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (vi >= nvec) return;
   const long long i0 = vi * V;
-  const long long c = i0 / chunk0;
-  const long long j = i0 - c * chunk0;
+  const int n = geo.n;
+  const RingPos pos = ring_pos<KV>(geo, i0);
   // Direction 0 walks c+1, c+2, ...; direction 1 walks c-1, c-2, ...
-  const int step = (j >= split) ? n - 1 : 1;
-  int r = static_cast<int>((c + step) % n);
+  const int step = pos.step;
+  int r = ring_rank(pos, 1, n);
 
   float acc[V];
   {
@@ -118,25 +128,37 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
+template <typename T, int V>
+void launch_geo(const T* g, T* s, T* p, const RingGeo& geo, bool kv,
+                long long padded, int handle, float lr, cudaStream_t stream) {
+  const long long nvec = padded / V;
+  const auto blocks = static_cast<unsigned int>((nvec + kThreads - 1) / kThreads);
+  if (kv) {
+    ring_kernel<T, V, true><<<blocks, kThreads, 0, stream>>>(
+        g, s, p, geo, padded, nvec, handle, lr);
+  } else {
+    ring_kernel<T, V, false><<<blocks, kThreads, 0, stream>>>(
+        g, s, p, geo, padded, nvec, handle, lr);
+  }
+}
+
 template <typename T>
-cudaError_t launch(const void* grads, void* store, void* pulled, int n,
-                   long long chunk0, long long split, long long padded,
-                   int handle, float lr, cudaStream_t stream) {
+cudaError_t launch(const void* grads, void* store, void* pulled,
+                   const RingGeo& geo, bool kv, long long padded, int handle,
+                   float lr, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const bool vec = chunk0 % V == 0 && aligned16(grads) && aligned16(store) &&
+  // A vector never straddles a shard, chunk or direction boundary.
+  const bool vec = (!kv || geo.period % V == 0) && geo.sub % V == 0 &&
+                   (geo.split >= geo.sub || geo.split % V == 0) &&
+                   aligned16(grads) && aligned16(store) &&
                    (pulled == nullptr || aligned16(pulled));
   const auto* g = static_cast<const T*>(grads);
   auto* s = static_cast<T*>(store);
   auto* p = static_cast<T*>(pulled);
   if (vec) {
-    const long long nvec = padded / V;
-    const auto blocks = static_cast<unsigned int>((nvec + kThreads - 1) / kThreads);
-    ring_kernel<T, V><<<blocks, kThreads, 0, stream>>>(g, s, p, n, chunk0, split,
-                                                       padded, nvec, handle, lr);
+    launch_geo<T, V>(g, s, p, geo, kv, padded, handle, lr, stream);
   } else {
-    const auto blocks = static_cast<unsigned int>((padded + kThreads - 1) / kThreads);
-    ring_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(g, s, p, n, chunk0, split,
-                                                       padded, padded, handle, lr);
+    launch_geo<T, 1>(g, s, p, geo, kv, padded, handle, lr, stream);
   }
   return cudaGetLastError();
 }
@@ -147,25 +169,31 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  grads is [n, padded]
 // row-major (row w = rank w's whole bucket), store is [padded] and is
-// updated in place, pulled is [padded] or NULL for push-only.
+// updated in place, pulled is [padded] or NULL for push-only.  The geometry
+// (period, sub, split) is that of ring_geometry.cuh; kv = 0 is the 1-D ring
+// (period must then equal padded).
 int pstt_ring_push_pull(const void* grads, void* store, void* pulled,
-                        int dtype, int n, long long chunk0, long long split,
-                        long long padded, int handle, float lr, void* stream) {
+                        int dtype, int n, long long period, long long sub,
+                        long long split, int kv, long long padded, int handle,
+                        float lr, void* stream) {
   if (padded <= 0) return 0;
+  if (n < 1 || period <= 0 || sub <= 0 || padded % period != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RingGeo geo{period, sub, split, n};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch<float>(grads, store, pulled, n, chunk0, split, padded,
-                          handle, lr, st);
+      err = launch<float>(grads, store, pulled, geo, kv != 0, padded, handle,
+                          lr, st);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(grads, store, pulled, n, chunk0, split,
-                                  padded, handle, lr, st);
+      err = launch<__nv_bfloat16>(grads, store, pulled, geo, kv != 0, padded,
+                                  handle, lr, st);
       break;
     case 2:
-      err = launch<__half>(grads, store, pulled, n, chunk0, split, padded,
-                           handle, lr, st);
+      err = launch<__half>(grads, store, pulled, geo, kv != 0, padded, handle,
+                           lr, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

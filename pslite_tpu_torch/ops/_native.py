@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, which is
 loaded with ``ctypes``.  The library is built at first use into
-``pslite_tpu_torch/_build/`` under a name that hashes the sources and
-flags, so an edited source never loads a stale build.  The sources
-compile in parallel (one ``nvcc`` each) and are then linked.
+``pslite_tpu_torch/_build/`` under a name that hashes the sources, the
+headers they include and the flags, so an edited source never loads a
+stale build.  The sources compile in parallel (one ``nvcc`` each) and
+are then linked.
 
 Nothing here runs at import time: a host without ``nvcc`` imports the
 package and uses the plain PyTorch versions for CPU tensors.  A failed
@@ -26,7 +27,9 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_update.cu", "ring_push_pull.cu")
+SOURCES = ("fused_update.cu", "ring_push_pull.cu", "ring_int8.cu",
+           "quantize_int8.cu")
+HEADERS = ("ring_geometry.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -44,7 +47,12 @@ _SIGNATURES = {
     "pstt_sgd_update": (_P, _P, _P, _L, _F, _F, _P),
     "pstt_adagrad_update": (_P, _P, _P, _L, _F, _F, _P),
     "pstt_adam_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _P),
-    "pstt_ring_push_pull": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _F, _P),
+    "pstt_ring_push_pull": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _L, _I, _F,
+                            _P),
+    "pstt_ring_int8": (_P, _P, _P, _P, _P, _I, _L, _L, _L, _I, _L, _I, _F,
+                       _I, _I, _P),
+    "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
+    "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),
 }
 
 # Where the CUDA toolkit installs nvcc by default.
@@ -76,7 +84,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

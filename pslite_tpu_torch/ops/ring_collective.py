@@ -5,23 +5,39 @@ Counterpart of the Pallas kernel in ``pslite_tpu/ops/ring_collective.py``
 ``_ring_call`` :389 with an all-gather flag).  The JAX functions run per
 device inside ``shard_map``; here one call covers the whole group of n
 virtual ranks on one device: ``grads`` is ``[n, padded]`` (row w is rank
-w's whole bucket) and ``store`` is the ``[padded]`` store of all n
-shards.  The CUDA kernel is ``csrc/ring_push_pull.cu``; its header says
-how it reproduces the TPU ring's order of addition and what bounds it.
+w's whole bucket) and ``store`` is the ``[padded]`` store of all shards.
 
-The store is updated IN PLACE (the JAX programs donate it); ``pulled``
-is a fresh tensor.  On a CPU tensor the plain PyTorch version runs; on a
-CUDA tensor the kernel launches, or the call raises.  ``launches``
-counts kernel launches by variant (``ring_push_pull``/``ring_push``) and
-dtype, and nothing else.
+Two layouts (:func:`ring_geometry`):
 
-Not in this slice: the int8 wire-compressed ring (``compress=True``) and
-the multi-axis sub-rings (``mesh_axes``).
+- the 1-D ring (``kv_shards=None``): chunk c of ``padded / n`` elements
+  is owned by rank c;
+- the (dp, kv) sub-rings of the 2-D data plane (``kv_shards=B``, the
+  kernel's ``mesh_axes`` as ``pslite_tpu/parallel/engine.py:713-752``
+  calls it): the store is B kv shards, and each shard runs its own ring
+  over the n worker ranks, with sub-chunks of ``ring_chunk_len(shard,
+  n)`` elements and the tile padding at the end of the shard.  The new
+  store is the pulled value, as that engine keeps it.
+
+``compress=True`` is the int8 wire-compressed ring (f32 only): every
+reduce-scatter hop re-quantizes its partial sum with one absmax scale per
+half-chunk, and the all-gather quantizes the updated half-chunk once at
+its owner, so every rank pulls the same dequantized values.  The 1-D
+store keeps full precision.
+
+Kernels: ``csrc/ring_push_pull.cu`` (one launch) and ``csrc/ring_int8.cu``
+(n+1 launches in stream order); their headers say how they reproduce the
+TPU ring's order of arithmetic and what bounds them.  The store is
+updated IN PLACE (the JAX programs donate it); ``pulled`` is a fresh
+tensor.  On a CPU tensor the plain PyTorch version runs; on a CUDA tensor
+the kernel launches, or the call raises.  ``launches`` counts wrapper
+calls that launched their kernel(s), by variant
+(``ring_push_pull``/``ring_push``, ``_2d``, ``_int8``) and dtype, and
+nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,10 +50,21 @@ _SUBLANES = 8
 _TILE = _LANES * _SUBLANES  # minimum chunk granularity (fp32 elements)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INV127 = np.float32(1) / np.float32(127)  # XLA's f32 form of x / 127
+_MIN_RING_SCALE = 1e-30
+
+
+def _variant(with_ag: bool, kv: bool, compress: bool, dtype) -> str:
+    op = "ring_push_pull" if with_ag else "ring_push"
+    return (f"{op}{'_2d' if kv else ''}{'_int8' if compress else ''}"
+            f"[{str(dtype).replace('torch.', '')}]")
+
 
 launches: Dict[str, int] = {
-    f"{op}[{str(dt).replace('torch.', '')}]": 0
-    for op in ("ring_push_pull", "ring_push") for dt in _DTYPE_CODES
+    _variant(ag, kv, cp, dt): 0
+    for ag in (True, False) for kv in (False, True)
+    for cp in (False, True) for dt in _DTYPE_CODES
+    if not cp or dt == torch.float32
 }
 
 
@@ -83,98 +110,234 @@ def ring_handle(handle: str) -> Tuple[int, float]:
     raise ValueError(f"not a ring handle: {handle!r}")
 
 
-def _geometry(grads, store, bidir: bool):
-    """(n, chunk0, split) after validating the operands: the chunk
-    length, and the index within a chunk where direction 1 starts.  The
-    split comes from the TPU kernel's tile-padded chunk, so a small
-    bucket (half-chunk past its real end) runs wholly in direction 0."""
+class RingGeometry(NamedTuple):
+    """Where each element sits on the ring (``csrc/ring_geometry.cuh``):
+    kv shards of ``period`` elements, sub-chunks of ``sub`` elements
+    (sub-chunk c owned by rank c), direction 1 from ``split`` on within
+    a sub-chunk.  ``padded_sub`` is the TPU kernel's tile-padded chunk
+    and ``ndir`` its number of directions: the regions that share one
+    int8 scale are the ``padded_sub / ndir`` halves of padded chunks."""
+
+    n: int
+    period: int
+    sub: int
+    split: int
+    kv: bool
+    padded_sub: int
+    ndir: int
+
+
+def ring_geometry(n: int, padded: int, dtype, bidir: bool = True,
+                  compress: bool = False,
+                  kv_shards: Optional[int] = None) -> RingGeometry:
+    """The ring layout of an n-rank ring over a ``[padded]`` store: the
+    1-D ring (``kv_shards=None``: chunks of ``padded / n``, the split at
+    half the tile-padded chunk, computed with ``compress`` since int8
+    payloads tile coarser), or ``kv_shards`` independent sub-rings."""
+    ndir = 2 if bidir else 1
+    if kv_shards is None:
+        log.check(padded % n == 0, f"padded length {padded} not a multiple "
+                                   f"of the rank count {n}")
+        sub = padded // n
+        kchunk = ring_chunk_len(padded, n, dtype, bidir=bidir,
+                                compress=compress)
+        split = kchunk // 2 if bidir else sub
+        return RingGeometry(n, padded, sub, split, False,
+                            kchunk if bidir else sub, ndir)
+    log.check(kv_shards >= 1 and padded % kv_shards == 0,
+              f"padded length {padded} not a multiple of the kv shard "
+              f"count {kv_shards}")
+    period = padded // kv_shards
+    sub = ring_chunk_len(period, n, dtype, bidir=bidir, compress=compress)
+    return RingGeometry(n, period, sub, sub // 2 if bidir else sub, True,
+                        sub, ndir)
+
+
+def _geometry(grads, store, bidir: bool, compress: bool,
+              kv_shards: Optional[int]) -> RingGeometry:
+    """Validate the operands and return their ring geometry."""
     log.check(grads.dim() == 2, "grads must be [n, padded]")
     log.check(store.dim() == 1, "store must be [padded]")
     n, padded = int(grads.shape[0]), int(grads.shape[1])
     log.check_eq(int(store.shape[0]), padded, "grads/store length")
-    log.check(padded % n == 0, f"padded length {padded} not a multiple of "
-                               f"the rank count {n}")
     log.check(grads.dtype == store.dtype, "grads/store dtype differ")
     log.check(store.dtype in _DTYPE_CODES, f"unsupported dtype {store.dtype}")
+    if compress:
+        if store.dtype != torch.float32:
+            raise ValueError("int8 wire compression requires float32 stores")
+        log.check(n >= 2, "the compressed ring needs at least 2 ranks")
     log.check(grads.device == store.device, "grads/store on different devices")
     log.check(grads.is_contiguous() and store.is_contiguous(),
               "grads and store must be contiguous")
-    chunk0 = padded // n
-    if bidir:
-        split = ring_chunk_len(padded, n, store.dtype, bidir=True) // 2
-    else:
-        split = chunk0
-    return n, chunk0, split
+    return ring_geometry(n, padded, store.dtype, bidir, compress, kv_shards)
 
 
-def _ring_reference(grads, store, handle: str, bidir: bool, with_ag: bool):
-    """Plain PyTorch version of the ring, in the TPU kernel's order of
-    addition (see ``csrc/ring_push_pull.cu``): per chunk c, direction 0
-    sums ranks c+1, ..., c+n-1, c and direction 1 sums c-1, ..., c, each
-    add in the dtype."""
-    n, chunk0, split = _geometry(grads, store, bidir)
-    code, lr = ring_handle(handle)
-    g = grads.view(n, n, chunk0)  # [rank, chunk, element]
-    ar = torch.arange(n, device=grads.device)
-    summed = torch.empty((n, chunk0), dtype=store.dtype, device=store.device)
-    for lo, hi, step in ((0, min(split, chunk0), 1), (split, chunk0, n - 1)):
-        if lo >= hi:
-            continue
-        acc = g[(ar + step) % n, ar, lo:hi]  # advanced indexing copies
-        for k in range(2, n + 1):
-            acc += g[(ar + k * step) % n, ar, lo:hi]
-        summed[:, lo:hi] = acc
-    summed = summed.view(-1)
+# -- plain version ---------------------------------------------------------------
+
+def _to_regions(x: torch.Tensor, geo: RingGeometry) -> torch.Tensor:
+    """``[..., padded]`` -> ``[..., shards, n, ndir, h]``: each kv shard
+    padded at its end to n sub-chunks, each sub-chunk padded at its end
+    to the tile-padded chunk, cut into its ndir halves (zeros fill)."""
+    lead = x.shape[:-1]
+    nb = x.shape[-1] // geo.period
+    x = x.reshape(*lead, nb, geo.period)
+    x = torch.nn.functional.pad(x, (0, geo.n * geo.sub - geo.period))
+    x = x.reshape(*lead, nb, geo.n, geo.sub)
+    x = torch.nn.functional.pad(x, (0, geo.padded_sub - geo.sub))
+    return x.reshape(*lead, nb, geo.n, geo.ndir, geo.padded_sub // geo.ndir)
+
+
+def _from_regions(r: torch.Tensor, geo: RingGeometry) -> torch.Tensor:
+    """Inverse of :func:`_to_regions` (drops the padding)."""
+    nb = r.shape[0]
+    x = r.reshape(nb, geo.n, geo.padded_sub)[:, :, :geo.sub]
+    return x.reshape(nb, geo.n * geo.sub)[:, :geo.period].reshape(-1)
+
+
+def _walk(g: torch.Tensor, geo: RingGeometry, k: int) -> torch.Tensor:
+    """``[shards, n, ndir, h]``: for every region (shard, chunk c,
+    direction d), the grads of the k-th rank of its walk — c+k in
+    direction 0, c-k in direction 1 (mod n)."""
+    n = geo.n
+    c = torch.arange(n, device=g.device)
+    parts = [g[(c + k * step) % n, :, c, d]  # [n(c), shards, h]
+             for d, step in enumerate((1, n - 1)[:geo.ndir])]
+    return torch.stack(parts, dim=2).transpose(0, 1)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """``fmaf(a, b, c)`` of f32 tensors, rounded once: the product of two
+    f32 values is exact in float64, the sum is rounded to odd in float64
+    (TwoSum error, then the odd neighbour), and float64 -> f32 rounding
+    of a round-to-odd value is the single rounding (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _quantize_regions(v: torch.Tensor):
+    """(q, scale) of f32 regions ``[..., h]``: one absmax scale per
+    region, ``max(amax * f32(1/127), 1e-30)``, q = clip(rint(v / scale),
+    ±127) as f32 integers."""
+    inv = torch.tensor(_INV127, device=v.device)
+    scale = torch.clamp_min(v.abs().amax(dim=-1, keepdim=True) * inv,
+                            _MIN_RING_SCALE)
+    return torch.clamp(torch.round(v / scale), -127, 127), scale
+
+
+def _apply_handle(store_r, summed, code: int, lr: float):
     if code == 0:
-        store.add_(summed)
-    elif code == 1:
-        store.copy_(summed)
-    else:
-        store.sub_(lr * summed)
-    return store.clone() if with_ag else store
+        return store_r + summed
+    if code == 1:
+        return summed.clone()
+    return store_r - lr * summed
 
 
-def _ring(grads, store, handle: str, bidir: bool, with_ag: bool):
+def _ring_reference(grads, store, handle: str, bidir: bool, with_ag: bool,
+                    compress: bool = False, kv_shards: Optional[int] = None):
+    """Plain PyTorch version of the ring (both layouts, both wire
+    formats), in the TPU kernel's order of arithmetic: per region,
+    direction 0 sums ranks c+1, ..., c and direction 1 sums c-1, ..., c,
+    each add in the dtype; compressed hops re-quantize as the kernel
+    does, with ``fmaf`` emulated exactly (:func:`_fma_f32`)."""
+    geo = _geometry(grads, store, bidir, compress, kv_shards)
+    code, lr = ring_handle(handle)
+    g = _to_regions(grads, geo)  # [n(rank), shards, n(c), ndir, h]
+    s = _to_regions(store, geo)  # [shards, n, ndir, h]
+    acc = _walk(g, geo, 1).clone()
+    for k in range(2, geo.n + 1):
+        gk = _walk(g, geo, k)
+        if compress:
+            q, scale = _quantize_regions(acc)
+            acc = _fma_f32(q, scale.expand_as(q), gk)
+        else:
+            acc += gk
+    up = _apply_handle(s, acc, code, lr)
+    pulled_r = up
+    if compress and (with_ag or geo.kv):
+        q, scale = _quantize_regions(up)
+        pulled_r = q * scale
+    new_store = pulled_r if geo.kv else up
+    store.copy_(_from_regions(new_store, geo))
+    if not with_ag:
+        return store
+    return _from_regions(pulled_r, geo).clone()
+
+
+# -- kernels -----------------------------------------------------------------------
+
+def _ring(grads, store, handle: str, bidir: bool, with_ag: bool,
+          compress: bool, kv_shards: Optional[int]):
     if store.device.type == "cpu":
-        return _ring_reference(grads, store, handle, bidir, with_ag)
+        return _ring_reference(grads, store, handle, bidir, with_ag,
+                               compress, kv_shards)
     log.check(store.device.type == "cuda",
               f"unsupported device {store.device}")
-    n, chunk0, split = _geometry(grads, store, bidir)
+    geo = _geometry(grads, store, bidir, compress, kv_shards)
     code, lr = ring_handle(handle)
     pulled = torch.empty_like(store) if with_ag else None
-    _native.call(
-        "pstt_ring_push_pull", grads.data_ptr(), store.data_ptr(),
-        pulled.data_ptr() if with_ag else None, _DTYPE_CODES[store.dtype],
-        n, chunk0, split, store.numel(), code, lr,
-        _native.stream_ptr(store.device),
-    )
-    op = "ring_push_pull" if with_ag else "ring_push"
-    launches[f"{op}[{str(store.dtype).replace('torch.', '')}]"] += 1
+    pulled_ptr = pulled.data_ptr() if with_ag else None
+    stream = _native.stream_ptr(store.device)
+    if compress:
+        n, padded = geo.n, store.numel()
+        scratch = (torch.empty_like(store) if n > 2 else None)
+        nregions = (padded // geo.period) * n * 2
+        slots = torch.empty(2 * nregions, dtype=torch.int32,
+                            device=store.device)
+        _native.call(
+            "pstt_ring_int8", grads.data_ptr(), store.data_ptr(), pulled_ptr,
+            scratch.data_ptr() if scratch is not None else None,
+            slots.data_ptr(), n, geo.period, geo.sub, geo.split, int(geo.kv),
+            padded, code, lr, int(with_ag or geo.kv), int(geo.kv), stream,
+        )
+    else:
+        _native.call(
+            "pstt_ring_push_pull", grads.data_ptr(), store.data_ptr(),
+            pulled_ptr, _DTYPE_CODES[store.dtype], geo.n, geo.period,
+            geo.sub, geo.split, int(geo.kv), store.numel(), code, lr, stream,
+        )
+    launches[_variant(with_ag, geo.kv, compress, store.dtype)] += 1
     return pulled if with_ag else store
 
 
-def ring_push_pull(grads, store, handle: str = "sum", bidir: bool = True):
+def ring_push_pull(grads, store, handle: str = "sum", bidir: bool = True,
+                   compress: bool = False, kv_shards: Optional[int] = None):
     """Fused RS + update + AG over n virtual ranks.
 
     ``grads`` ``[n, padded]`` (rank w's bucket in row w), ``store``
     ``[padded]`` (updated in place); ``handle`` is ``"sum"``,
-    ``"assign"`` or ``"sgd[:lr]"``.  Returns the pulled ``[padded]``
-    tensor (a new tensor equal to the updated store)."""
-    return _ring(grads, store, handle, bidir, with_ag=True)
+    ``"assign"`` or ``"sgd[:lr]"``; ``compress`` runs the int8 ring;
+    ``kv_shards`` runs that many sub-rings (the 2-D layout).  Returns
+    the pulled ``[padded]`` tensor (a new tensor)."""
+    return _ring(grads, store, handle, bidir, True, compress, kv_shards)
 
 
-def ring_push(grads, store, handle: str = "sum", bidir: bool = True):
-    """Push-only ring: RS + update, no all-gather.  Returns ``store``."""
-    return _ring(grads, store, handle, bidir, with_ag=False)
+def ring_push(grads, store, handle: str = "sum", bidir: bool = True,
+              compress: bool = False, kv_shards: Optional[int] = None):
+    """Push-only ring: RS + update, no pulled output.  Returns ``store``,
+    which holds what :func:`ring_push_pull` would leave in it (on the
+    compressed sub-rings, the dequantized all-gather values)."""
+    return _ring(grads, store, handle, bidir, False, compress, kv_shards)
 
 
 def ring_push_pull_reference(grads, store, handle: str = "sum",
-                             bidir: bool = True):
+                             bidir: bool = True, compress: bool = False,
+                             kv_shards: Optional[int] = None):
     """Plain version of :func:`ring_push_pull` on any device."""
-    return _ring_reference(grads, store, handle, bidir, with_ag=True)
+    return _ring_reference(grads, store, handle, bidir, True, compress,
+                           kv_shards)
 
 
 def ring_push_reference(grads, store, handle: str = "sum",
-                        bidir: bool = True):
+                        bidir: bool = True, compress: bool = False,
+                        kv_shards: Optional[int] = None):
     """Plain version of :func:`ring_push` on any device."""
-    return _ring_reference(grads, store, handle, bidir, with_ag=False)
+    return _ring_reference(grads, store, handle, bidir, False, compress,
+                           kv_shards)

@@ -9,17 +9,31 @@ a bucket's store is one ``[padded]`` tensor holding the n shards back to
 back (shard d = elements ``[d*padded/n, (d+1)*padded/n)``), and grads are
 ``[W, padded]`` with one row per worker rank.
 
+With ``worker_axis`` (a 2-D ``(dp, kv)`` group, ``make_group``), the
+workers are the ``dp`` ranks and the shards the ``kv`` ranks: grads are
+``[A, padded]`` with A = the ``dp`` size, and the store holds the B kv
+shards once (the JAX engine replicates it over ``dp``).
+
 Two implementations, chosen by ``impl`` (or ``PS_ICI_IMPL``, whose JAX
 values carry over: ``xla`` means ``torch`` and ``pallas`` means
 ``ring``):
 
-- ``torch``: the counterpart of psum_scatter -> handle -> all_gather.
-  Worker rows are added in rank order, explicitly (the order the JAX
-  CPU mesh's psum_scatter uses; ``torch.sum``'s order on CUDA is
-  unspecified), then the handle updates the store, then the pull is a
-  fresh copy.
+- ``torch``: the counterpart of psum_scatter (2-D: psum over ``dp``) ->
+  handle -> all_gather.  Worker rows are added in rank order, explicitly
+  (the order the JAX CPU mesh's collectives use; ``torch.sum``'s order
+  on CUDA is unspecified), then the handle updates the store, then the
+  pull is a fresh copy.
 - ``ring``: the fused ring kernel (``ops/ring_collective.py``) for the
-  elementwise handles, with the TPU ring's order of addition.
+  elementwise handles, with the TPU ring's order of addition: one ring
+  over the kv ranks, or (2-D) one sub-ring over the ``dp`` ranks per kv
+  shard, whose pulled value becomes the store, as in the JAX engine.
+
+``wire_compress="int8"`` (or ``PS_ICI_COMPRESS=int8`` in the process
+environment) runs the int8 wire-compressed ring for f32 buckets on the
+``ring`` impl; the torch impl and the stateful handles ignore it, as in
+the JAX engine.  A compressed 1-D store keeps full precision while the
+pulled values are the dequantized all-gather; on 2-D the store takes the
+pulled values.
 
 Stateful handles (``sgd_momentum``, ``adam``, ``adagrad``) take the
 rank-order reduction and then the fused optimizer kernels
@@ -31,7 +45,7 @@ programs donate them.  Every result handed to a caller (``pull``,
 cannot change a result the caller holds.
 
 Not in this slice: zero-copy and pinned pulls, replay/stream/grouped
-programs, 2-D meshes, int8 wire compression, sparse tables, resharding.
+programs, composite (tuple) kv axes, sparse tables, resharding.
 """
 
 from __future__ import annotations
@@ -129,17 +143,36 @@ class CollectiveEngine:
         axis_name: str = "kv",
         server_handle: ServerHandle = "sum",
         impl: Optional[str] = None,
+        worker_axis: Optional[str] = None,
+        wire_compress: Optional[str] = None,
     ):
         self.group = group if group is not None else default_group(axis_name)
         self.axis = axis_name
         log.check(axis_name in self.group.axis_names,
                   f"axis {axis_name!r} not in the device group")
+        if worker_axis is not None:
+            log.check(worker_axis in self.group.axis_names,
+                      f"worker axis {worker_axis!r} not in the device group")
+            log.check(worker_axis != axis_name,
+                      "worker_axis must differ from the kv axis (leave it "
+                      "None for the 1-D colocated layout)")
+        self.worker_axis = worker_axis
         self.device = self.group.device
         self.num_shards = int(self.group.shape[axis_name])
-        self.num_workers = self.num_shards
+        # Worker fan-in rows of the grads array.
+        self.num_workers = (int(self.group.shape[worker_axis])
+                            if worker_axis is not None else self.num_shards)
         impl = impl or os.environ.get("PS_ICI_IMPL", "torch")
         log.check(impl in _IMPL_ALIASES, f"unknown engine impl {impl!r}")
         self.impl = _IMPL_ALIASES[impl]
+        # Wire compression of the ring data plane, from the argument or
+        # the process environment (as the JAX engine reads it).
+        self.wire_compress = (
+            wire_compress if wire_compress is not None
+            else os.environ.get("PS_ICI_COMPRESS", "")
+        ) or None
+        log.check(self.wire_compress in (None, "int8"),
+                  f"unknown wire_compress {self.wire_compress!r}")
         self._server_handle = server_handle
         self._buckets: Dict[str, DenseBucket] = {}
         self._stores: Dict[str, torch.Tensor] = {}
@@ -266,17 +299,23 @@ class CollectiveEngine:
     def _effective_impl(self, dtype, resolved_handle) -> str:
         """The configured impl resolved against what the ring kernel
         serves (the JAX engine's eligibility rules): a ring needs >= 2
-        ranks, a 2- or 4-byte dtype and a built-in elementwise handle;
-        everything else runs the torch path."""
+        ranks (the kv ranks, or on 2-D the dp ranks of each sub-ring), a
+        2- or 4-byte dtype and a built-in elementwise handle; everything
+        else runs the torch path."""
         if self.impl != "ring":
             return "torch"
-        if self.num_shards < 2:
+        if self.num_workers < 2:
             return "torch"
         if torch_dtype(dtype).itemsize not in (2, 4):
             return "torch"
         if callable(resolved_handle):
             return "torch"
         return "ring"
+
+    def _ring_compress(self, dtype) -> bool:
+        """Whether the ring runs int8 wire compression (f32 only)."""
+        return (self.wire_compress == "int8"
+                and torch_dtype(dtype) == torch.float32)
 
     # -- optimizer state -----------------------------------------------------
 
@@ -395,9 +434,14 @@ class CollectiveEngine:
                 self._ensure_opt_state(name, resolved, bucket)
                 fn(store, self._opt_states[name], rank_order_sum(g))
             elif self._effective_impl(bucket.dtype, resolved) == "ring":
+                kv_shards = (self.num_shards if self.worker_axis is not None
+                             else None)
+                kw = dict(compress=self._ring_compress(bucket.dtype),
+                          kv_shards=kv_shards)
                 if with_pull:
-                    return ring_collective.ring_push_pull(g, store, resolved)
-                ring_collective.ring_push(g, store, resolved)
+                    return ring_collective.ring_push_pull(g, store, resolved,
+                                                          **kw)
+                ring_collective.ring_push(g, store, resolved, **kw)
                 return None
             else:
                 self._handle_fn(resolved)(store, rank_order_sum(g))

@@ -9,17 +9,20 @@ them on the card with
 the JAX package).
 
 Tolerances: the ring ``sum``/``assign`` are bit-exact (same order of
-addition, same rounding per hop); ``sgd:lr`` and the fused updates
-differ in the last bits because nvcc contracts a*b + c into one FMA and
-eager PyTorch does not: rtol/atol 1e-6 (adam rtol 1e-5).
+addition, same rounding per hop), on the 1-D ring and on the 2-D
+sub-rings; the int8 ring and quantize/dequantize are bit-exact (the plain
+versions round ``fmaf`` once, as the kernels do); ``sgd:lr`` and the
+fused updates differ in the last bits because nvcc contracts a*b + c
+into one FMA and eager PyTorch does not: rtol/atol 1e-6 (adam rtol 1e-5).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pslite_tpu_torch import CollectiveEngine, DeviceGroup
+from pslite_tpu_torch import CollectiveEngine, DeviceGroup, make_group
 from pslite_tpu_torch.ops import fused_update as fu
+from pslite_tpu_torch.ops import quantize as qz
 from pslite_tpu_torch.ops import ring_collective as ring
 
 pytestmark = pytest.mark.gpu
@@ -154,3 +157,182 @@ def test_readme_snippet_on_the_card(dev, monkeypatch):
         worker.stop()
     finally:
         ps.finalize()
+
+
+def _fixed_ring_sum(grads, store, split):
+    """The 1-D ring sum's plain formula from before the kv-shard
+    geometry existed (per chunk, direction 0 sums ranks c+1..c, direction
+    1 sums c-1..c), kept here as a fixed oracle for the generalized
+    kernel."""
+    n, padded = grads.shape
+    chunk0 = padded // n
+    g = grads.view(n, n, chunk0)
+    ar = torch.arange(n, device=grads.device)
+    summed = torch.empty((n, chunk0), dtype=store.dtype, device=store.device)
+    for lo, hi, step in ((0, min(split, chunk0), 1), (split, chunk0, n - 1)):
+        if lo >= hi:
+            continue
+        acc = g[(ar + step) % n, ar, lo:hi]
+        for k in range(2, n + 1):
+            acc += g[(ar + k * step) % n, ar, lo:hi]
+        summed[:, lo:hi] = acc
+    return store + summed.view(-1)
+
+
+@pytest.mark.parametrize("n,padded", _SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_1d_ring_bits_unchanged_by_the_geometry(dev, n, padded, dtype):
+    grads = _randn((n, padded), 11, dev).to(dtype)
+    store = _randn((padded,), 12, dev).to(dtype)
+    split = ring.ring_geometry(n, padded, dtype).split
+    want = _fixed_ring_sum(grads, store, split)
+    got = ring.ring_push_pull(grads, store.clone(), "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# (A, padded, kv_shards): the main path's (dp=4, kv=2) layout; shards of
+# 6,196 over sub-chunks of 2,048 (the last one short, the padding at the
+# shard's end); 3 x 700 values over kv 2 (one short sub-chunk per shard,
+# odd shard length: the scalar kernel); shards that are not a multiple of
+# the vector width.
+_SHAPES_2D = [(4, 10_240_000, 2), (4, 2 * 6196, 2), (4, 2100, 2),
+              (2, 8 * 1001, 4)]
+
+
+@pytest.mark.parametrize("a,padded,kv", _SHAPES_2D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ag", [True, False])
+def test_2d_ring_kernel_bit_exact(dev, a, padded, kv, dtype, with_ag):
+    grads = _randn((a, padded), 13, dev).to(dtype)
+    store = _randn((padded,), 14, dev).to(dtype)
+    for handle in ("sum", "assign"):
+        sk, sp = store.clone(), store.clone()
+        if with_ag:
+            outk = ring.ring_push_pull(grads, sk, handle, kv_shards=kv)
+            outp = ring.ring_push_pull_reference(grads, sp, handle,
+                                                 kv_shards=kv)
+            assert torch.equal(outk, outp)
+        else:
+            ring.ring_push(grads, sk, handle, kv_shards=kv)
+            ring.ring_push_reference(grads, sp, handle, kv_shards=kv)
+        torch.cuda.synchronize()
+        assert torch.equal(sk, sp), handle
+
+
+# (n, padded, bidir, kv_shards): the main path (8 ranks, and dp=4 x kv=2),
+# the one-direction ring at n = 2, a bucket smaller than the int8 tile, a
+# chunk that is not a multiple of the vector width (the scalar kernel),
+# and 2-D sub-rings with a short last sub-chunk, with the whole shard in
+# one region, and with an odd shard length.
+_INT8_CASES = [(8, 10_240_000, True, None), (4, 10_240_000, True, 2),
+               (2, 2 * 8192, False, None), (8, 8 * 100, True, None),
+               (3, 3 * 1001, True, None), (4, 2 * 24676, True, 2),
+               (2, 8192, True, 4), (4, 2100, True, 2)]
+
+
+@pytest.mark.parametrize("n,padded,bidir,kv", _INT8_CASES)
+@pytest.mark.parametrize("with_ag", [True, False])
+def test_int8_ring_kernel_bit_exact(dev, n, padded, bidir, kv, with_ag):
+    grads = _randn((n, padded), 15, dev)
+    store = _randn((padded,), 16, dev)
+    sk, sp = store.clone(), store.clone()
+    kw = dict(bidir=bidir, compress=True, kv_shards=kv)
+    if with_ag:
+        outk = ring.ring_push_pull(grads, sk, "sum", **kw)
+        outp = ring.ring_push_pull_reference(grads, sp, "sum", **kw)
+    else:
+        ring.ring_push(grads, sk, "sum", **kw)
+        ring.ring_push_reference(grads, sp, "sum", **kw)
+    torch.cuda.synchronize()
+    assert int((sk != sp).sum()) == 0
+    if with_ag:
+        assert int((outk != outp).sum()) == 0
+        if kv is not None:
+            assert torch.equal(sk, outk)  # 2-D: the store takes pulled
+
+
+def test_int8_ring_kernel_sgd(dev):
+    grads = _randn((4, 4 * 8192), 17, dev)
+    store = _randn((4 * 8192,), 18, dev)
+    sk, sp = store.clone(), store.clone()
+    outk = ring.ring_push_pull(grads, sk, "sgd:0.05", compress=True)
+    outp = ring.ring_push_pull_reference(grads, sp, "sgd:0.05",
+                                         compress=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=1e-6)
+    # A last-bit difference in the store can move a region's scale, so
+    # the pulled values agree to within one quantization step.
+    step = store.abs().max() / 127 * 2
+    assert float((outk - outp).abs().max()) <= float(step)
+
+
+def test_ring_variants_count_launches(dev):
+    ring.reset_launches()
+    g = _randn((4, 8192), 19, dev)
+    s = torch.zeros(8192, device=dev)
+    ring.ring_push_pull(g, s, compress=True)
+    ring.ring_push(g, s, compress=True)
+    ring.ring_push_pull(g, s, kv_shards=2)
+    ring.ring_push_pull(g, s, compress=True, kv_shards=2)
+    assert ring.launches["ring_push_pull_int8[float32]"] == 1
+    assert ring.launches["ring_push_int8[float32]"] == 1
+    assert ring.launches["ring_push_pull_2d[float32]"] == 1
+    assert ring.launches["ring_push_pull_2d_int8[float32]"] == 1
+    assert sum(ring.launches.values()) == 4
+
+
+@pytest.mark.parametrize("n", [10_240_000, 100_003, 1001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_quantize_kernels_bit_exact(dev, n, offset):
+    """Aligned and (offset 1) unaligned inputs, ragged lengths, all three
+    scale forms; unaligned codes and scales too."""
+    x = (_randn((n + offset,), 20, dev) * 10)[offset:]
+    qk, sk = qz.quantize_int8(x)
+    qp, sp = qz.quantize_int8_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(qk, qp) and torch.equal(sk, sp)
+    for scales in (sk, sk[:, 0].contiguous(), sk[:, :1]):
+        outk = qz.dequantize_int8(qk, scales, n)
+        outp = qz.dequantize_int8_reference(qk, scales, n)
+        torch.cuda.synchronize()
+        assert torch.equal(outk, outp)
+    if offset:  # codes and scales starting inside a row
+        qu = torch.cat([qk.view(-1)[:1], qk.view(-1)])[1:].view_as(qk)
+        su = torch.cat([sk.view(-1)[:1], sk.view(-1)])[1:].view_as(sk)
+        assert qu.data_ptr() % 4 and su.data_ptr() % 16
+        assert torch.equal(qz.dequantize_int8(qu, su, n),
+                           qz.dequantize_int8_reference(qk, sk, n))
+
+
+def test_quantize_counts_launches(dev):
+    qz.reset_launches()
+    q, s = qz.quantize_int8(torch.ones(5000, device=dev))
+    qz.dequantize_int8(q, s, 5000)
+    qz.dequantize_int8(q, s[:, 0], 5000)
+    assert qz.launches == {"quantize_int8": 1, "dequantize_int8": 1,
+                           "dequantize_int8[compact]": 1}
+
+
+@pytest.mark.parametrize("compress", [None, "int8"])
+@pytest.mark.parametrize("shape", [None, (4, 2)])
+def test_cuda_engine_matches_cpu_engine_2d_and_int8(dev, compress, shape):
+    keys = np.arange(16, dtype=np.uint64)
+    engines = []
+    for d in (dev, "cpu"):
+        if shape is None:
+            grp, waxis = DeviceGroup(8, device=d), None
+        else:
+            grp, waxis = make_group(shape, ("dp", "kv"), device=d), "dp"
+        engines.append(CollectiveEngine(grp, impl="ring", worker_axis=waxis,
+                                        wire_compress=compress))
+    for e in engines:
+        e.register_dense("b", keys, 1000)
+    rows = engines[0].num_workers
+    for step in range(3):
+        g = np.random.RandomState(step).randn(rows, 16_000).astype(
+            np.float32)
+        got, want = (e.push_pull("b", g) for e in engines)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(engines[0].pull("b").cpu(),
+                               engines[1].pull("b"), rtol=0, atol=0)

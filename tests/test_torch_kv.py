@@ -166,4 +166,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("CLEAN")
-    assert int(res.stdout.split()[1]) >= 15
+    assert int(res.stdout.split()[1]) >= 16  # quantize included
