@@ -12,13 +12,21 @@ line):
    and count.
 2. Build every CUDA kernel of the dense data plane from ``csrc/`` with
    nvcc; print the build time and the ``-Xptxas -v`` register/spill
-   report.
+   report (expected: no spill stores; the int8 ring's cluster kernel,
+   ``ring_int8_cluster<4>`` and ``<1>``, about 136 bytes of static shared
+   memory each), then the int8 ring's launch shape at the shapes it is
+   timed at (cluster size, shared memory per CTA, co-resident clusters
+   at 8 and 16 CTAs, waves, scratch).
 3. Kernels: each kernel at the main path's shapes (n = 8 ranks,
    P = 40 x 256,000 = 10,240,000 values; the 2-D sub-rings at dp = 4 x
-   kv = 2) against its plain PyTorch version on the same inputs, with
-   CUDA-event times for both, the card's least time for the same work,
-   and the time of one PyTorch call that computes the same function
-   where there is one.
+   kv = 2; the int8 ring also at n = 2, where its regions spill out of
+   shared memory) against its plain PyTorch version on the same inputs.
+   ``ms`` is the mean of ITERS calls captured in one CUDA graph and
+   replayed, timed with CUDA events (the host is out of the timing);
+   ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
+   included).  Beside them: the plain version's time, the card's least
+   time for the same work, and the time of one PyTorch call that
+   computes the same function where there is one.
 4. Main path: ``Postoffice("worker")`` + ``DeviceGroup(8)`` +
    ``KVWorker.push_pull``/``push``/``pull`` on the reference benchmark's
    40 x 1,024,000 B bucket under the ring (``PS_ICI_IMPL=pallas``,
@@ -30,7 +38,9 @@ line):
    bucket.  Each is checked against a float64 numpy reference, and the
    ring and quantize results also against their plain versions on the
    card.  Kernel launch counts are zeroed just before and read just
-   after; every kernel must have launched.  Then the steady-state
+   after; every kernel must have launched.  Then, with the counts zeroed
+   again, the int8 ring at n = 2 (``CollectiveEngine`` on a 2-rank
+   group, the spilling shape).  Then the steady-state
    ``engine.push_pull`` time with device-resident grads.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
@@ -82,6 +92,36 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls captured
+    in one CUDA graph, from CUDA events around its replay: the launches'
+    host cost is out of the timing.  The wrappers launch on the current
+    stream, which is the capture stream inside ``torch.cuda.graph``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def kernel_times(fn):
+    """(host-free ms from graph replay, host-inclusive ms)."""
+    return graph_ms(fn), cuda_ms(fn)
+
+
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the f32 rate (every kernel computes in f32)."""
@@ -90,27 +130,31 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_time(fn, *args):
-    """(ms, None) of one PyTorch call, or (None, reason) where the call
-    does not run on this card."""
+def library_time(fn, *args, capturable: bool = True):
+    """(ms, ms_host, note) of one PyTorch call: host-free from graph
+    replay as the kernels', and host-inclusive; a call that cannot be
+    captured in a CUDA graph reads its host-inclusive time in both, and
+    the note says so; (None, None, reason) where the call does not run
+    on this card."""
     try:
-        return cuda_ms(lambda: fn(*args)), None
+        host = cuda_ms(lambda: fn(*args))
     except (RuntimeError, NotImplementedError) as exc:
-        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+        return (None, None,
+                f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}")
+    if not capturable:
+        return host, host, "host-inclusive: not capturable in a CUDA graph"
+    return graph_ms(lambda: fn(*args)), host, None
 
 
-def mismatches(got, want, step: float) -> int:
-    """Elements where an int8 kernel and its plain version differ.  The
-    two round ``fmaf`` once each, so none are expected; a few (at most
-    1e-6 of the elements, each within one quantization step ``step`` of
-    the largest region) are tolerated and printed."""
-    bad = got != want
-    count = int(bad.sum())
+def mismatches(got, want) -> int:
+    """Elements where an int8 kernel and its plain version differ: none
+    may.  The two round ``fmaf`` once each and take the same region
+    maxima, so an element off is a fault (a region boundary, say)."""
+    count = int((got != want).sum())
     if count:
         worst = float((got - want).abs().max())
-        print(f"    {count} of {got.numel()} elements differ, max {worst:.3g}")
-        if count > 1e-6 * got.numel() or worst > step:
-            raise AssertionError(f"{count} elements off by up to {worst}")
+        raise AssertionError(f"{count} of {got.numel()} elements differ "
+                             f"from the plain version, by up to {worst}")
     return count
 
 
@@ -161,7 +205,7 @@ def kernel_phase(torch, ring, fu, qz, dev):
                     raise AssertionError(
                         f"{op}[{tag}] sgd off by {max_err(sgd_pairs)}")
             sk, sp = store.clone(), store.clone()
-            ms = cuda_ms(lambda: kfn(grads, sk, "sum"))
+            ms, ms_host = kernel_times(lambda: kfn(grads, sk, "sum"))
             plain_ms = cuda_ms(lambda: pfn(grads, sp, "sum"), iters=5,
                                warmup=1)
             nbytes = (N + (3 if with_ag else 2)) * P * nb
@@ -170,8 +214,8 @@ def kernel_phase(torch, ring, fu, qz, dev):
                 name=f"{op}[{tag}]", route="cuda",
                 source="pslite_tpu_torch/csrc/ring_push_pull.cu",
                 replaces="pslite_tpu/ops/ring_collective.py:445",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library_note="no single PyTorch call computes it",
             ))
         del grads, store
@@ -223,25 +267,33 @@ def kernel_phase(torch, ring, fu, qz, dev):
         err = max_err(pairs)
         if not within(pairs, rtol, 1e-6):
             raise AssertionError(f"{name} off by {err} (rtol {rtol})")
-        ms = cuda_ms(lambda: kfn(sk))
+        ms, ms_host = kernel_times(lambda: kfn(sk))
         plain_ms = cuda_ms(lambda: pfn(sp), iters=5, warmup=1)
-        lib_ms, why = None, "no single PyTorch call computes it"
+        lib_ms, lib_host = None, None
+        why = "no single PyTorch call computes it"
         if name in libs:
             sl = tuple(t.clone() for t in state)
-            lib_ms, why = library_time(libs[name], sl)
+            lib_ms, lib_host, why = library_time(libs[name], sl)
         b_ms, b_by = bound(words * 4 * P, flops * P)
         rows.append(dict(
             name=name, route="cuda",
             source="pslite_tpu_torch/csrc/fused_update.cu",
             replaces=f"pslite_tpu/ops/fused_update.py:{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms, library_note=why,
+            max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_ms_host=lib_host, library_note=why,
         ))
     return rows
 
 
+# The int8 push_pull at 2 ranks, whose regions spill to scratch; its
+# launches are counted in its own main-path phase (drive_int8_spill).
+SPILL_ROW = "ring_push_pull_int8[float32,n=2]"
+
+
 def ring_variant_rows(torch, ring, randn):
-    """The int8 ring (1-D, 8 ranks, push_pull and push) and the 2-D
+    """The int8 ring (1-D, 8 ranks, push_pull and push; and push_pull at
+    2 ranks, where each region spills out of shared memory) and the 2-D
     sub-rings (dp = 4 x kv = 2, uncompressed and int8) at P values,
     each against its plain version.  Bytes: n grads rows read, the
     store read and written, pulled written: (n+3)*4P, (n+2)*4P for a
@@ -252,6 +304,7 @@ def ring_variant_rows(torch, ring, randn):
         ("ring_push_int8[float32]", N, None, True, False),
         ("ring_push_pull_2d[float32]", 4, 2, False, True),
         ("ring_push_pull_2d_int8[float32]", 4, 2, True, True),
+        (SPILL_ROW, 2, None, True, True),
     ]
     for name, n, kv, compress, with_ag in specs:
         grads = randn(n, P)
@@ -266,13 +319,12 @@ def ring_variant_rows(torch, ring, randn):
         pairs = [(sk, sp)] + ([(outk, outp)] if with_ag else [])
         err = max_err(pairs)
         if compress:
-            step = float(sp.abs().max()) / 127 * 2
             for a, b in pairs:
-                mismatches(a, b, step)
+                mismatches(a, b)
         elif err != 0.0:
             raise AssertionError(f"{name} not bit-exact: {err}")
         sk, sp = store.clone(), store.clone()
-        ms = cuda_ms(lambda: kfn(grads, sk, "sum", **kw))
+        ms, ms_host = kernel_times(lambda: kfn(grads, sk, "sum", **kw))
         plain_ms = cuda_ms(lambda: pfn(grads, sp, "sum", **kw), iters=3,
                            warmup=1)
         b_ms, b_by = bound((n + (3 if with_ag else 2)) * P * 4, n * P)
@@ -281,8 +333,8 @@ def ring_variant_rows(torch, ring, randn):
             source=("pslite_tpu_torch/csrc/ring_int8.cu" if compress
                     else "pslite_tpu_torch/csrc/ring_push_pull.cu"),
             replaces="pslite_tpu/ops/ring_collective.py:445",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None,
+            max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library_note="no single PyTorch call computes it",
         ))
         del grads, store, sk, sp, outk, outp
@@ -302,7 +354,7 @@ def quantize_rows(torch, qz, randn):
         raise AssertionError("quantize_int8 not bit-exact")
     rows_ = sk.shape[0]
     compact = sk[:, 0].contiguous()
-    ms = cuda_ms(lambda: qz.quantize_int8(x))
+    ms, ms_host = kernel_times(lambda: qz.quantize_int8(x))
     plain_ms = cuda_ms(lambda: qz.quantize_int8_reference(x), iters=5,
                        warmup=1)
     b_ms, b_by = bound(9 * P, 2 * P)
@@ -310,7 +362,8 @@ def quantize_rows(torch, qz, randn):
         name="quantize_int8", route="cuda",
         source="pslite_tpu_torch/csrc/quantize_int8.cu",
         replaces="pslite_tpu/ops/quantize.py:97", max_abs_err=0.0, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_host=ms_host, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
         library_note="no PyTorch call finds the absmax scales and "
                      "quantizes in one call",
     )]
@@ -334,21 +387,24 @@ def quantize_rows(torch, qz, randn):
         torch.cuda.synchronize()
         if not torch.equal(yk, yp):
             raise AssertionError(f"{name} not bit-exact")
-        ms = cuda_ms(lambda: qz.dequantize_int8(qk, scales, P))
+        ms, ms_host = kernel_times(lambda: qz.dequantize_int8(qk, scales, P))
         plain_ms = cuda_ms(lambda: qz.dequantize_int8_reference(qk, scales,
                                                                 P),
                            iters=5, warmup=1)
-        lib_ms, why = None, "no PyTorch call takes lane-replicated scales"
+        lib_ms, lib_host = None, None
+        why = "no PyTorch call takes lane-replicated scales"
         if name.endswith("[compact]"):
-            lib_ms, why = (library_time(*lib) if lib[0] is not None
-                           else (None, lib[1]))
+            lib_ms, lib_host, why = (
+                library_time(*lib, capturable=False) if lib[0] is not None
+                else (None, None, lib[1]))
         b_ms, b_by = bound(nbytes, P)
         out.append(dict(
             name=name, route="cuda",
             source="pslite_tpu_torch/csrc/quantize_int8.cu",
             replaces="pslite_tpu/ops/quantize.py:129", max_abs_err=0.0,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, library_note=why,
+            ms=ms, ms_host=ms_host, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, library_ms_host=lib_host,
+            library_note=why,
         ))
     return out
 
@@ -516,7 +572,7 @@ def drive_int8(torch, ps, ring, Environment, grads_steps):
             outs[:] = 0
             worker.wait(worker.pull(keys, outs))
         got = torch.from_numpy(outs.copy()).cuda()
-        differ += mismatches(got, want, float(want.abs().max()) / 127 * 2)
+        differ += mismatches(got, want)
         err, rel = _check_int8("ring int8 f32", op, k, outs.astype(np.float64),
                                s64, bound_sum)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
@@ -525,6 +581,48 @@ def drive_int8(torch, ps, ring, Environment, grads_steps):
     return {"config": "ring int8 f32 (KVWorker)", "ops": 5,
             "max_abs_err_vs_f64": worst, "max_rel_err_vs_f64": worst_rel,
             "error_bound": bound_sum, "elements_off_plain": differ}
+
+
+def drive_int8_spill(torch, ps, ring, grads_steps):
+    """CollectiveEngine with wire_compress="int8" on a 2-rank group over
+    the 40 x 1 MB bucket: 2 push_pulls, a push, a pull.  Its regions
+    (2,560,000 values) are longer than a cluster holds, so each CTA's
+    slice spills to scratch.  Each op against the plain version on the
+    card (0 elements may differ) and against float64."""
+    n = 2
+    keys = np.arange(KEYS, dtype=np.uint64)
+    eng = ps.CollectiveEngine(ps.DeviceGroup(n), impl="pallas",
+                              wire_compress="int8")
+    eng.register_dense("grads", keys, VAL_LEN)
+    s64 = np.zeros(P)
+    bound_sum, worst, differ = 0.0, 0.0, 0
+    for k, op in enumerate(["push_pull", "push_pull", "push"]):
+        g = grads_steps[k][:n]
+        g_dev = torch.from_numpy(g).cuda()
+        before = eng.store_array("grads")
+        bound_sum += float(2 * n * (np.abs(g).max() * n
+                                    + np.abs(s64).max()) / 127)
+        s64 = s64 + g.astype(np.float64).sum(0)
+        if op == "push_pull":
+            out = eng.push_pull("grads", g)
+            want = ring.ring_push_pull_reference(g_dev, before, "sum",
+                                                 compress=True)
+        else:
+            eng.push("grads", g)
+            out = eng.pull("grads")
+            want = ring.ring_push_reference(g_dev, before, "sum",
+                                            compress=True)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (P,):
+            raise AssertionError(f"int8 n=2: bad result {out.shape}")
+        differ += mismatches(out, want)
+        err, _ = _check_int8("ring int8 n=2", op, k,
+                             out.double().cpu().numpy(), s64, bound_sum)
+        worst = max(worst, err)
+    eng.block()
+    return {"config": "ring int8 f32 n=2 (CollectiveEngine, spilling)",
+            "ops": 4, "max_abs_err_vs_f64": worst, "error_bound": bound_sum,
+            "elements_off_plain": differ}
 
 
 def drive_2d(torch, ps, ring, grads_steps):
@@ -579,8 +677,7 @@ def drive_2d(torch, ps, ring, grads_steps):
                 raise AssertionError(f"{label}: bad result {out.shape}")
             if want is not None:
                 if compress:
-                    differ += mismatches(out, want,
-                                         float(want.abs().max()) / 127 * 2)
+                    differ += mismatches(out, want)
                 elif not torch.equal(out, want):
                     raise AssertionError(f"{label}: {op} differs from the "
                                          f"plain version")
@@ -670,6 +767,8 @@ def steady_state(torch, ps):
         ("pallas/adam:1e-3", "pallas", "adam:1e-3", None, None, None),
         ("pallas/sum int8", "pallas", "sum", None, None, "int8"),
         ("pallas/sum 2-D dp4xkv2", "pallas", "sum", (4, 2), "dp", None),
+        ("pallas/sum 2-D dp4xkv2 int8", "pallas", "sum", (4, 2), "dp",
+         "int8"),
     ]
     for label, impl, handle, shape, waxis, compress in cells:
         group = (ps.DeviceGroup(N) if shape is None
@@ -738,11 +837,24 @@ def main() -> int:
         if "ptxas info" in line or "spill" in line:
             print(f"  {line.strip()}")
 
+    for label, n, kv in (("1-D n=8", N, None), ("2-D dp4xkv2", 4, 2),
+                         ("1-D n=2", 2, None)):
+        shape = ring.int8_launch_shape(n, P, kv_shards=kv)
+        print(f"int8 ring launch shape {label} P={P}: cluster "
+              f"{shape['cluster']} CTAs x {shape['nregions']} regions, "
+              f"{shape['smem_floats'] * 4} B shared memory per CTA (slice "
+              f"{shape['slice']} values), co-resident clusters "
+              f"{shape['max_active_clusters']}, waves {shape['waves']}, "
+              f"scratch {shape['scratch']} values")
+
     rows = kernel_phase(torch, ring, fu, qz, torch.device("cuda:0"))
     for r in rows:
-        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
-               else f"none ({r['library_note']})")
-        print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
+        note = r["library_note"]
+        lib = (f"{r['library_ms']:.4f} ms (host-inclusive "
+               f"{r['library_ms_host']:.4f}{'; ' + note if note else ''})"
+               if r.get("library_ms") is not None else f"none ({note})")
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms host-free, "
+              f"{r['ms_host']:.4f} ms host-inclusive (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us, "
               f"{r['bound_ms'] / r['ms']:.2f} of bound, library {lib}), "
               f"max_abs_err {r['max_abs_err']:.3g}")
@@ -758,13 +870,18 @@ def main() -> int:
     results += drive_2d(torch, ps, ring, grads_steps)
     results.append(drive_quantize(torch, ps, qz, grads_steps))
     counts = {**ring.launches, **fu.launches, **qz.launches}
+    ring.reset_launches()
+    results.append(drive_int8_spill(torch, ps, ring, grads_steps))
+    spill_counts = dict(ring.launches)
     for r in results:
         extra = "".join(f", {k} {v:.4g}" for k, v in r.items()
                         if k not in ("config", "ops", "max_abs_err_vs_f64"))
         print(f"main path {r['config']}: {r['ops']} ops, max |err| vs "
               f"float64 {r['max_abs_err_vs_f64']:.3g}{extra}")
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = (
+            spill_counts["ring_push_pull_int8[float32]"]
+            if r["name"] == SPILL_ROW else counts[r["name"]])
         r["bound_us"] = r["bound_ms"] * 1e3
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         if r["launches"] == 0:

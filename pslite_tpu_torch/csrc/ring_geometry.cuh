@@ -1,5 +1,6 @@
-// Where an element of a bucket sits on the TPU ring, shared by the ring
-// kernels (ring_push_pull.cu, ring_int8.cu).
+// Where an element of a bucket sits on the TPU ring, for ring_push_pull.cu.
+// (ring_int8.cu takes the same layout as a table of regions, computed by
+// int8_regions in ops/ring_collective.py.)
 //
 // A bucket of `padded` elements is cut into kv shards of `period` elements
 // (1-D ring: one shard, period = padded).  Each shard is cut into sub-chunks
@@ -23,9 +24,8 @@ struct RingGeo {
 };
 
 struct RingPos {
-  long long region;  // (shard * n + chunk) * 2 + direction
-  int chunk;         // owning rank of the element's sub-chunk
-  int step;          // 1 for direction 0 (ranks c+1, c+2, ...), n-1 for 1
+  int chunk;  // owning rank of the element's sub-chunk
+  int step;   // 1 for direction 0 (ranks c+1, c+2, ...), n-1 for 1
 };
 
 template <bool KV>
@@ -41,7 +41,6 @@ __device__ __forceinline__ RingPos ring_pos(const RingGeo& g, long long i) {
   RingPos p;
   p.chunk = static_cast<int>(c);
   p.step = dir1 ? g.n - 1 : 1;
-  p.region = (b * g.n + c) * 2 + (dir1 ? 1 : 0);
   return p;
 }
 

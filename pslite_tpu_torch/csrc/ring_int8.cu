@@ -1,11 +1,12 @@
-// The int8 wire-compressed ring push_pull / push on one Hopper card.
+// The int8 wire-compressed ring push_pull / push on one Hopper card: one
+// launch per call, each region walked on chip by one thread block cluster.
 //
 // Replaces the compressed variant of the Pallas TPU ring kernel of
 // pslite_tpu/ops/ring_collective.py (_ring_call :389, pallas_call :445, with
 // compress=True: quantize_to_send :251-262, dequant_recv :268-271, the
 // reduce-scatter :285-297, the owner's sum :307-310, the all-gather
 // :343-378), for the 1-D ring and for the (dp, kv) sub-rings of the 2-D data
-// plane (geometry in ring_geometry.cuh).
+// plane (the layout of ring_geometry.cuh, as a table of regions).
 //
 // What the TPU ring computes.  Each half-chunk ("region") of each chunk walks
 // the ring as in ring_push_pull.cu, but every hop sends int8 codes with ONE
@@ -21,55 +22,107 @@
 // On a 1-D ring the store keeps the full-precision value; on the 2-D
 // sub-rings the engine keeps the pulled value as the new store
 // (pslite_tpu/parallel/engine.py:735-750), so store_takes_pulled writes it
-// back.  fmaf and the reciprocal are written out because XLA contracts the
-// TPU kernel's `q * scale + g` into one FMA and compiles `amax / 127.0` as a
-// multiplication by the f32 reciprocal.
-//
-// Why one thread per output cannot do this: a hop needs the absmax of its
-// whole region (up to 643,072 values at the main path's shapes) before the
-// next hop can quantize.  Design (simple, right first): n+1 stream-ordered
-// launches over the whole bucket.  Pass 0 reduces |g| of each region's first
-// rank; pass k (k = 1..n-1) re-quantizes the previous partial sum from the
-// region's absmax, adds rank k+1's grads with fmaf and writes the f32 partial
-// sum to a scratch tensor (the owner's pass updates the store instead); the
-// gather pass quantizes the updated store and writes the pulled values.  Each
-// pass reduces |value| over its block and does one atomicMax of the float's
-// bits into the region's slot (non-negative floats order as unsigned ints;
-// blocks that straddle two regions fall back to one atomic per thread); two
-// slot arrays alternate, and a cudaMemsetAsync clears the next one before each
-// pass.
+// (once, at the gather).  fmaf and the reciprocal are written out because XLA
+// contracts the TPU kernel's `q * scale + g` into one FMA and compiles
+// `amax / 127.0` as a multiplication by the f32 reciprocal.
 //
 // Bound: HBM bandwidth.  The function must read n grads rows and the store and
-// write the store and pulled: (n+3)*4*P bytes, as the uncompressed ring (on
-// one card the int8 payload never crosses a link).  The passes move about
-// (12n+4)*P bytes (every partial sum goes through device memory), so this
-// design can reach at most (4n+12)/(12n+4) of the bound: 0.44 at n = 8.  A
-// design that keeps each region on chip (thread block clusters, or a
-// cooperative grid with a grid-wide barrier per hop) is later work.
+// write the store and pulled: (n+3)*4*P bytes ((n+2)*4*P for a 1-D push), as
+// the uncompressed ring (on one card the int8 payload never crosses a link).
+//
+// Design.  A hop needs the absmax of its whole region (up to 643,072 values at
+// the main path's shapes) before the next hop can quantize, so no thread can
+// walk its elements alone.  The TPU keeps the region in VMEM for the whole
+// walk; here one thread block CLUSTER of C CTAs (C in 8..16, chosen per
+// geometry by the wrapper) owns one region (shard b, sub-chunk c, direction
+// d) and keeps it in shared memory:
+//   - the region [start, start + len) (a table row computed once per geometry
+//     by ops/ring_collective.py) is cut into C contiguous slices of
+//     round4(ceil(len / C)) values, one per CTA;
+//   - each CTA keeps the first `smem_floats` values of its slice in dynamic
+//     shared memory (at most kMaxSmemFloats = 57,344 f32 = 224 KiB, so one
+//     cluster holds C * 57,344 values: 917,504 at C = 16, 458,752 at C = 8);
+//     the rest of a longer slice spills to `scratch`, a [padded] f32 tensor
+//     indexed like the bucket, which the wrapper allocates only then;
+//   - every hop reads one grads row once and updates the partial sums in
+//     place; each CTA reduces |v| over its slice and writes it to its own
+//     shared slot, and after one cluster barrier every warp reads the C slots
+//     of the cluster through distributed shared memory.  Two slots alternate
+//     by hop parity, so one barrier per hop suffices (a slot is rewritten two
+//     hops later, after every peer has passed the barrier that follows its
+//     read).  The barrier is split (arrive, then wait): between the two, each
+//     thread issues its first batch of the next hop's loads, which do not
+//     depend on the scale;
+//   - each thread keeps kUnroll = 8 float4 loads in flight (64 KiB per SM);
+//   - the owner hop reads the store; the gather writes pulled (and, 2-D, the
+//     store) from the values still on chip.
+// The launch reads each grads row, the store and nothing else once and writes
+// the store and pulled once: exactly the bound's bytes when nothing spills.
+// A spilled value costs 8 more bytes per hop (written and read back).  No
+// scratch, slots, memsets or atomics; a max does not depend on order, and
+// every element's arithmetic is that of the plain version, so the result is
+// bit-exact.  The IEEE division of the quantizer is the costliest
+// instruction sequence per value; quant() replaces it by a multiplication by
+// the reciprocal wherever that provably rounds to the same integer.
+//
+// Launch: cudaLaunchKernelEx with a cluster dimension; 9-16 CTAs are
+// non-portable cluster sizes (cudaFuncAttributeNonPortableClusterSizeAllowed).
+// A CTA that holds more than 114 KiB runs alone on its SM; the wrapper queries
+// cudaOccupancyMaxActiveClusters (pstt_ring_int8_occupancy) for each size and
+// picks the one with the fewest bytes per CTA times waves.  On an H100 SXM
+// (132 SMs) 7 such clusters of 10-16 CTAs run at once, so the main path's 16
+// regions take 3 waves of 16-CTA clusters (7, 7, 2).  A refused launch
+// returns its error; nothing falls back.  -Xptxas -v: two instantiations,
+// 80 bytes of static shared memory each; the vector one (<4>) spills
+// nothing, the scalar one (<1>, odd shapes only) a few bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ring_geometry.cuh"
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kUnroll = 8;  // vectors in flight per thread
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSmemFloats = 57344;  // 224 KiB of the 227 KiB a CTA may use
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kAmax = 0, kHop = 1, kGather = 2 };
+enum Mode { kFirst = 0, kHop = 1, kOwner = 2, kGather = 3 };
 
-__device__ __forceinline__ float scale_of(unsigned slot) {
-  return fmaxf(__uint_as_float(slot) * (1.0f / 127.0f), 1e-30f);
+__device__ __forceinline__ float scale_of(float amax) {
+  return fmaxf(amax * (1.0f / 127.0f), 1e-30f);
 }
 
-__device__ __forceinline__ float quant(float x, float scale) {
-  return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
+// clip(rint(x / scale), -127, 127) of V values, with x / scale rounded as
+// IEEE division rounds it, given inv = __frcp_rn(scale).  |x| <= 127 * scale
+// (up to the rounding of the scale) wherever the kernel quantizes, so
+// t = x * inv is within 2^-16 of the true quotient and the rounded quotient
+// within 2^-18 of it: where t is farther than 2^-12 from a half-integer,
+// rint(t) is rint(x / scale).  A vector with a near-tie (or a NaN) takes the
+// division; one branch per vector keeps the loop's schedule.
+template <int V>
+__device__ __forceinline__ void quant(const float (&x)[V], float scale,
+                                      float inv, float (&q)[V]) {
+  bool near = false;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float t = x[e] * inv;
+    q[e] = rintf(t);
+    near |= !(fabsf(t - q[e]) < 0.5f - 0x1p-12f);
+  }
+  if (near) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) q[e] = rintf(__fdiv_rn(x[e], scale));
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) q[e] = fminf(fmaxf(q[e], -127.f), 127.f);
 }
 
 template <int V>
-__device__ __forceinline__ void load_v(const float* __restrict__ p, long long i,
+__device__ __forceinline__ void load_v(const float* p, long long i,
                                        float (&x)[V]) {
   if constexpr (V == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p + i);
@@ -80,7 +133,7 @@ __device__ __forceinline__ void load_v(const float* __restrict__ p, long long i,
 }
 
 template <int V>
-__device__ __forceinline__ void store_v(float* __restrict__ p, long long i,
+__device__ __forceinline__ void store_v(float* p, long long i,
                                         const float (&x)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p + i) = make_float4(x[0], x[1], x[2], x[3]);
@@ -89,153 +142,290 @@ __device__ __forceinline__ void store_v(float* __restrict__ p, long long i,
   }
 }
 
-// Max of `v` (>= 0) into slots[region] over the block.  Regions are
-// contiguous ranges of elements, so the block is in one region iff its first
-// and last elements are.
-template <bool KV>
-__device__ __forceinline__ void region_max(unsigned* __restrict__ slots,
-                                           const RingGeo& geo, long long first,
-                                           long long last, bool active,
-                                           long long region, float v) {
-  __shared__ float warp_max[kWarps];
-  const long long r0 = ring_pos<KV>(geo, first).region;
-  if (r0 != ring_pos<KV>(geo, last).region) {
-    if (active) atomicMax(slots + region, __float_as_uint(v));
-    return;
-  }
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The registers a sweep keeps per batch of kUnroll vectors a thread: the
+// hop's grads (g), the store (s, owner hop) and the partial sums when they
+// come from global memory (p, a spilled slice).  Unused arrays cost nothing.
+template <int V>
+struct Batch {
+  float g[kUnroll][V], s[kUnroll][V], p[kUnroll][V];
+};
+
+// One sweep over the slice values [lo, hi) (offsets from the slice start).
+// `src`/`dst` hold the partial sums (shared memory, or with GSRC the spill in
+// global memory), `row` the hop's grads, `st`/`pl` the store and pulled, all
+// offset to the slice start.  Each batch issues all its global loads before
+// it computes; `a` holds the first batch already when `have_pre` (issued
+// before the hop's barrier).  Returns max |value| written.
+template <int MODE, bool GSRC, int V>
+__device__ __forceinline__ float sweep(long long lo, long long hi,
+                                       const float* src, float* dst,
+                                       const float* __restrict__ row,
+                                       float* __restrict__ st,
+                                       float* __restrict__ pl, float scale,
+                                       int handle, float lr, bool write_store,
+                                       Batch<V>& a, bool have_pre) {
+  constexpr long long kStep = static_cast<long long>(kThreads) * V;
+  const float inv = __frcp_rn(scale);
+  float amax = 0.f;
+  for (long long j0 = lo + threadIdx.x * V; j0 < hi;
+       j0 += kStep * kUnroll) {
+    if (!have_pre || j0 != lo + threadIdx.x * V) {
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_max[w]);
-    atomicMax(slots + r0, __float_as_uint(m));
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long j = j0 + u * kStep;
+        if (j < hi) {
+          if (MODE != kGather) load_v<V>(row, j, a.g[u]);
+          if (MODE == kOwner) load_v<V>(st, j, a.s[u]);
+          if (GSRC && MODE != kFirst) load_v<V>(src, j, a.p[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = j0 + u * kStep;
+      if (j >= hi) break;
+      float p[V], q[V], v[V];
+      if (MODE != kFirst) {
+        if (GSRC) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) p[e] = a.p[u][e];
+        } else {
+          load_v<V>(src, j, p);
+        }
+        quant<V>(p, scale, inv, q);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (MODE == kFirst) {
+          v[e] = a.g[u][e];
+        } else if (MODE == kGather) {
+          v[e] = __fmul_rn(q[e], scale);
+        } else {
+          v[e] = fmaf(q[e], scale, a.g[u][e]);
+          if (MODE == kOwner) {
+            if (handle == 0) {
+              v[e] = a.s[u][e] + v[e];
+            } else if (handle == 2) {
+              v[e] = a.s[u][e] - lr * v[e];
+            }
+          }
+        }
+        amax = fmaxf(amax, fabsf(v[e]));
+      }
+      if (MODE == kGather) {
+        if (pl != nullptr) store_v<V>(pl, j, v);
+        if (write_store) store_v<V>(st, j, v);
+      } else {
+        if (dst != nullptr) store_v<V>(dst, j, v);
+        if (MODE == kOwner && write_store) store_v<V>(st, j, v);
+      }
+    }
+  }
+  return amax;
+}
+
+// Issue the first batch of the next hop's loads (its grads, and the store
+// on the owner hop): they do not depend on the scale the barrier brings.
+template <int MODE, int V>
+__device__ __forceinline__ void prefetch(const float* __restrict__ row,
+                                         const float* __restrict__ st,
+                                         long long hi, Batch<V>& a) {
+  constexpr long long kStep = static_cast<long long>(kThreads) * V;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long j = threadIdx.x * V + u * kStep;
+    if (j < hi) {
+      load_v<V>(row, j, a.g[u]);
+      if (MODE == kOwner) load_v<V>(st, j, a.s[u]);
+    }
   }
 }
 
-// One pass.  kAmax: |g| of each region's first rank -> slot_out.  kHop (hop
-// k = 1..n-1): partial = fmaf(q(prev), scale_in, g[rank k+1]) with prev =
-// g[first rank] (k = 1) or scratch; k < n-1 writes scratch and |partial| ->
-// slot_out; k = n-1 is the owner: the handle updates the store, and |updated|
-// -> slot_out when a gather follows.  kGather: q(store) * scale_in -> pulled
-// (if any) and, with store_takes_pulled, back into the store.
-template <int MODE, bool KV, int V>
-__global__ void int8_pass(const float* __restrict__ grads,
-                          float* __restrict__ store, float* __restrict__ pulled,
-                          float* __restrict__ scratch,
-                          const unsigned* __restrict__ slot_in,
-                          unsigned* __restrict__ slot_out, RingGeo geo,
-                          long long padded, int k, int handle, float lr,
-                          bool gather, bool store_takes_pulled) {
-  const long long nvec = padded / V;
-  const long long vi = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool active = vi < nvec;
-  const long long i0 = (active ? vi : nvec - 1) * V;
-  const int n = geo.n;
-  const RingPos pos = ring_pos<KV>(geo, i0);
-  float amax = 0.f;
+// Region table row: start, length, owning chunk c, walk step (1 or n-1).
+struct Region {
+  long long start, len, chunk, step;
+};
 
-  if (active) {
-    if (MODE == kAmax) {
-      float g[V];
-      load_v<V>(grads + ring_rank(pos, 1, n) * padded, i0, g);
-#pragma unroll
-      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(g[e]));
-    } else if (MODE == kHop) {
-      const float scale = scale_of(slot_in[pos.region]);
-      float prev[V], g[V];
-      if (k == 1) {
-        load_v<V>(grads + ring_rank(pos, 1, n) * padded, i0, prev);
-      } else {
-        load_v<V>(scratch, i0, prev);
-      }
-      load_v<V>(grads + ring_rank(pos, k + 1, n) * padded, i0, g);
-      float v[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = fmaf(quant(prev[e], scale), scale, g[e]);
-      if (k < n - 1) {
-        store_v<V>(scratch, i0, v);
-      } else {
-        float s[V];
-        load_v<V>(store, i0, s);
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          if (handle == 0) {
-            s[e] = s[e] + v[e];
-          } else if (handle == 1) {
-            s[e] = v[e];
-          } else {
-            s[e] = s[e] - lr * v[e];
-          }
-        }
-        store_v<V>(store, i0, s);
-#pragma unroll
-        for (int e = 0; e < V; ++e) v[e] = s[e];
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[e]));
-    } else {
-      const float scale = scale_of(slot_in[pos.region]);
-      float s[V];
-      load_v<V>(store, i0, s);
-#pragma unroll
-      for (int e = 0; e < V; ++e) s[e] = __fmul_rn(quant(s[e], scale), scale);
-      if (pulled != nullptr) store_v<V>(pulled, i0, s);
-      if (store_takes_pulled) store_v<V>(store, i0, s);
+// One cluster per region.  Partial sums of the slice's first smem_floats
+// values live in dynamic shared memory, the rest in scratch.
+template <int V>
+__global__ void __launch_bounds__(kThreads, 1)
+ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
+                  float* __restrict__ pulled, float* __restrict__ scratch,
+                  const Region* __restrict__ regions, int n, long long padded,
+                  int smem_floats, int handle, float lr, bool gather,
+                  bool store_takes_pulled) {
+  extern __shared__ float4 smem_vec[];
+  float* buf = reinterpret_cast<float*>(smem_vec);
+  __shared__ float warp_slot[kWarps];
+  __shared__ float slot[2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const Region reg = regions[blockIdx.x / C];
+  const long long slice = ((reg.len + C - 1) / C + 3) / 4 * 4;
+  const long long lo = min(static_cast<long long>(r) * slice, reg.len);
+  const long long m = min(lo + slice, reg.len) - lo;  // values in this slice
+  const long long nsm = min(m, static_cast<long long>(smem_floats));
+  const long long base = reg.start + lo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  auto row_of = [&](int k) {
+    return grads + ((reg.chunk + k * reg.step) % n) * padded + base;
+  };
+  // Max |value| over the cluster -> slot[par]; arrive on the cluster barrier.
+  auto publish = [&](float v, int par) {
+    v = warp_max(v);
+    if (lane == 0) warp_slot[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      v = warp_max(lane < kWarps ? warp_slot[lane] : 0.f);
+      if (lane == 0) slot[par] = v;
     }
+    cluster_arrive();
+  };
+  // Wait on the barrier, then every warp reads the C slots of the cluster.
+  auto region_scale = [&](int par) {
+    cluster_wait();
+    float v = 0.f;
+    if (lane < C) v = *cluster.map_shared_rank(&slot[par], lane);
+    return scale_of(warp_max(v));
+  };
+
+  float* spill = scratch != nullptr ? scratch + base : nullptr;
+  float* st = store + base;
+  float* pl = pulled != nullptr ? pulled + base : nullptr;
+  Batch<V> pre;
+  // Hop 1: the first rank's grads; the spilled part stays where it is.
+  const float* row1 = row_of(1);
+  float amax = sweep<kFirst, false, V>(0, nsm, nullptr, buf, row1, nullptr,
+                                       nullptr, 0.f, 0, 0.f, false, pre,
+                                       false);
+  if (m > nsm)
+    amax = fmaxf(amax, sweep<kFirst, true, V>(nsm, m, nullptr, nullptr, row1,
+                                              nullptr, nullptr, 0.f, 0, 0.f,
+                                              false, pre, false));
+  publish(amax, 0);
+  const bool kv_store = store_takes_pulled;
+  for (int k = 2; k <= n; ++k) {
+    const float* row = row_of(k);
+    const bool owner = k == n;
+    if (owner) {
+      prefetch<kOwner, V>(row, st, nsm, pre);
+    } else {
+      prefetch<kHop, V>(row, nullptr, nsm, pre);
+    }
+    const float scale = region_scale(k & 1);
+    const float* spill_src = k == 2 ? row1 : spill;
+    if (!owner) {
+      amax = sweep<kHop, false, V>(0, nsm, buf, buf, row, nullptr, nullptr,
+                                   scale, 0, 0.f, false, pre, true);
+      if (m > nsm)
+        amax = fmaxf(amax, sweep<kHop, true, V>(nsm, m, spill_src, spill, row,
+                                                nullptr, nullptr, scale, 0,
+                                                0.f, false, pre, false));
+    } else {
+      amax = sweep<kOwner, false, V>(0, nsm, buf, buf, row, st, nullptr,
+                                     scale, handle, lr, !kv_store, pre, true);
+      if (m > nsm)
+        amax = fmaxf(amax, sweep<kOwner, true, V>(nsm, m, spill_src, spill,
+                                                  row, st, nullptr, scale,
+                                                  handle, lr, !kv_store, pre,
+                                                  false));
+    }
+    if (!owner || gather) publish(amax, (k + 1) & 1);
   }
-  // The gather pass and a push's owner pass feed no later pass.  The
-  // condition is uniform over the grid: every thread takes the branch.
-  if (MODE != kGather && !(MODE == kHop && k == n - 1 && !gather)) {
-    const long long first = static_cast<long long>(blockIdx.x) * blockDim.x * V;
-    const long long last = min(first + static_cast<long long>(blockDim.x) * V,
-                               padded) - 1;
-    region_max<KV>(slot_out, geo, first, last, active, pos.region, amax);
+  if (gather) {
+    const float scale = region_scale((n + 1) & 1);
+    sweep<kGather, false, V>(0, nsm, buf, nullptr, nullptr, st, pl, scale, 0,
+                             0.f, kv_store, pre, false);
+    if (m > nsm)
+      sweep<kGather, true, V>(nsm, m, spill, nullptr, nullptr, st, pl, scale,
+                              0, 0.f, kv_store, pre, false);
   }
+  // No CTA may leave while a peer can still read its slots.
+  cluster_arrive();
+  cluster_wait();
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <bool KV, int V>
-cudaError_t run(const float* g, float* s, float* p, float* scratch,
-                unsigned* slots, long long nregions, const RingGeo& geo,
-                long long padded, int handle, float lr, bool gather,
-                bool store_takes_pulled, cudaStream_t st) {
-  const long long nvec = padded / V;
-  const auto blocks = static_cast<unsigned int>((nvec + kThreads - 1) / kThreads);
-  const int n = geo.n;
-  const size_t slot_bytes = static_cast<size_t>(nregions) * sizeof(unsigned);
-  unsigned* slot[2] = {slots, slots + nregions};
-  cudaError_t err = cudaMemsetAsync(slot[0], 0, slot_bytes, st);
+// Once per instantiation: allow the largest dynamic shared memory and the
+// non-portable cluster size (outside any stream capture: the first call
+// comes before).
+template <int V>
+cudaError_t prepare() {
+  static cudaError_t done = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ring_int8_cluster<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmemFloats * static_cast<int>(sizeof(float)));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ring_int8_cluster<V>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  }();
+  return done;
+}
+
+void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+            long long nregions, int cluster, int smem_floats,
+            cudaStream_t st) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(nregions * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_floats) * sizeof(float);
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+template <int V>
+cudaError_t run(const float* g, float* s, float* p, float* sc,
+                const Region* regions, long long nregions, int cluster,
+                int smem_floats, int n, long long padded, int handle, float lr,
+                bool gather, bool stp, cudaStream_t st) {
+  cudaError_t err = prepare<V>();
   if (err != cudaSuccess) return err;
-  int8_pass<kAmax, KV, V><<<blocks, kThreads, 0, st>>>(
-      g, s, p, scratch, nullptr, slot[0], geo, padded, 0, handle, lr, gather,
-      store_takes_pulled);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  for (int k = 1; k < n; ++k) {
-    unsigned* in = slot[(k - 1) & 1];
-    unsigned* out = slot[k & 1];
-    if (k < n - 1 || gather) {
-      if ((err = cudaMemsetAsync(out, 0, slot_bytes, st)) != cudaSuccess)
-        return err;
-    }
-    int8_pass<kHop, KV, V><<<blocks, kThreads, 0, st>>>(
-        g, s, p, scratch, in, out, geo, padded, k, handle, lr, gather,
-        store_takes_pulled);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (gather) {
-    int8_pass<kGather, KV, V><<<blocks, kThreads, 0, st>>>(
-        g, s, p, scratch, slot[(n - 1) & 1], nullptr, geo, padded, 0, handle,
-        lr, gather, store_takes_pulled);
-    err = cudaGetLastError();
-  }
-  return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  config(cfg, attr, nregions, cluster, smem_floats, st);
+  err = cudaLaunchKernelEx(&cfg, ring_int8_cluster<V>, g, s, p, sc, regions, n,
+                           padded, smem_floats, handle, lr, gather, stp);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t occupancy(int cluster, int smem_floats, int* max_clusters) {
+  cudaError_t err = prepare<V>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  config(cfg, attr, 1, cluster, smem_floats, nullptr);
+  return cudaOccupancyMaxActiveClusters(max_clusters, ring_int8_cluster<V>,
+                                        &cfg);
 }
 
 }  // namespace
@@ -243,43 +433,52 @@ cudaError_t run(const float* g, float* s, float* p, float* scratch,
 extern "C" {
 
 // grads [n, padded] f32 (row w = rank w), store [padded] f32 (updated in
-// place), pulled [padded] f32 or NULL, scratch [padded] f32 (unused when
-// n = 2), slots: 2 * nregions uint32 with nregions = (padded / period) * n * 2.
-// gather runs the all-gather pass (pulled and/or store_takes_pulled).  The
-// geometry is that of ring_geometry.cuh; kv = 0 is the 1-D ring.
+// place), pulled [padded] f32 or NULL, scratch [padded] f32 or NULL (needed
+// when a slice is longer than smem_floats), regions: nregions rows of int64
+// (start, length, chunk, step) of the non-empty regions, each a contiguous
+// range of the bucket.  cluster: CTAs per region (8, or 16 where the card
+// schedules it); smem_floats: partial sums each CTA keeps in shared memory
+// (a multiple of 4, at most 57,344).  vec: every region's start and length
+// are multiples of 4 (float4 accesses).  gather runs the all-gather (pulled
+// and/or store_takes_pulled).
 int pstt_ring_int8(const void* grads, void* store, void* pulled,
-                   void* scratch, void* slots, int n, long long period,
-                   long long sub, long long split, int kv, long long padded,
-                   int handle, float lr, int gather, int store_takes_pulled,
-                   void* stream) {
-  if (padded <= 0) return 0;
-  if (n < 2 || period <= 0 || sub <= 0 || padded % period != 0)
+                   void* scratch, const void* regions, long long nregions,
+                   int cluster, int smem_floats, int vec, int n,
+                   long long padded, int handle, float lr, int gather,
+                   int store_takes_pulled, void* stream) {
+  if (nregions <= 0) return 0;
+  if (n < 2 || cluster < 1 || cluster > 16 || smem_floats < 4 ||
+      smem_floats > kMaxSmemFloats || smem_floats % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const RingGeo geo{period, sub, split, n};
-  const long long nregions = (padded / period) * n * 2;
   const auto* g = static_cast<const float*>(grads);
   auto* s = static_cast<float*>(store);
   auto* p = static_cast<float*>(pulled);
   auto* sc = static_cast<float*>(scratch);
-  auto* sl = static_cast<unsigned*>(slots);
+  const auto* rg = static_cast<const Region*>(regions);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool vec = (kv == 0 || period % 4 == 0) && sub % 4 == 0 &&
-                   (split >= sub || split % 4 == 0) && aligned16(grads) &&
-                   aligned16(store) && (p == nullptr || aligned16(p)) &&
-                   (sc == nullptr || aligned16(sc));
+  const bool v4 = vec != 0 && aligned16(grads) && aligned16(store) &&
+                  (p == nullptr || aligned16(p)) &&
+                  (sc == nullptr || aligned16(sc)) && padded % 4 == 0;
   const bool ga = gather != 0, stp = store_takes_pulled != 0;
-  cudaError_t err;
-  if (kv) {
-    err = vec ? run<true, 4>(g, s, p, sc, sl, nregions, geo, padded, handle,
-                             lr, ga, stp, st)
-              : run<true, 1>(g, s, p, sc, sl, nregions, geo, padded, handle,
-                             lr, ga, stp, st);
-  } else {
-    err = vec ? run<false, 4>(g, s, p, sc, sl, nregions, geo, padded, handle,
-                              lr, ga, stp, st)
-              : run<false, 1>(g, s, p, sc, sl, nregions, geo, padded, handle,
-                              lr, ga, stp, st);
-  }
+  const cudaError_t err =
+      v4 ? run<4>(g, s, p, sc, rg, nregions, cluster, smem_floats, n, padded,
+                  handle, lr, ga, stp, st)
+         : run<1>(g, s, p, sc, rg, nregions, cluster, smem_floats, n, padded,
+                  handle, lr, ga, stp, st);
+  return static_cast<int>(err);
+}
+
+// How many clusters of `cluster` CTAs, each CTA with smem_floats of dynamic
+// shared memory, the card can run at once (0: none).
+int pstt_ring_int8_occupancy(int cluster, int smem_floats, int vec,
+                             int* max_clusters) {
+  *max_clusters = 0;
+  if (cluster < 1 || cluster > 16 || smem_floats < 0 ||
+      smem_floats > kMaxSmemFloats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      vec ? occupancy<4>(cluster, smem_floats, max_clusters)
+          : occupancy<1>(cluster, smem_floats, max_clusters);
   return static_cast<int>(err);
 }
 

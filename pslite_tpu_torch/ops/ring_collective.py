@@ -20,23 +20,32 @@ Two layouts (:func:`ring_geometry`):
 
 ``compress=True`` is the int8 wire-compressed ring (f32 only): every
 reduce-scatter hop re-quantizes its partial sum with one absmax scale per
-half-chunk, and the all-gather quantizes the updated half-chunk once at
-its owner, so every rank pulls the same dequantized values.  The 1-D
-store keeps full precision.
+half-chunk ("region"), and the all-gather quantizes the updated region
+once at its owner, so every rank pulls the same dequantized values.  The
+1-D store keeps full precision; the 2-D store takes the pulled values.
 
-Kernels: ``csrc/ring_push_pull.cu`` (one launch) and ``csrc/ring_int8.cu``
-(n+1 launches in stream order); their headers say how they reproduce the
-TPU ring's order of arithmetic and what bounds them.  The store is
-updated IN PLACE (the JAX programs donate it); ``pulled`` is a fresh
-tensor.  On a CPU tensor the plain PyTorch version runs; on a CUDA tensor
-the kernel launches, or the call raises.  ``launches`` counts wrapper
-calls that launched their kernel(s), by variant
+Kernels: ``csrc/ring_push_pull.cu`` and ``csrc/ring_int8.cu``, one launch
+per call each; their headers say how they reproduce the TPU ring's order
+of arithmetic and what bounds them.  The int8 kernel walks each region
+on chip with one thread block cluster of 8 to 16 CTAs, the size with the
+fewest bytes per CTA times waves on the card (:func:`int8_launch_shape`).
+The regions' bounds are computed here once per geometry
+(:func:`int8_regions`) and kept as a small device tensor.  A cluster
+keeps ``cluster * 57,344`` values of its region in shared memory; a
+longer region spills the rest of each CTA's slice to a ``[padded]`` scratch
+tensor, which the wrapper allocates only then (:func:`int8_plan`).  The
+store is updated IN PLACE (the JAX programs donate it); ``pulled`` is a
+fresh tensor.  On a CPU tensor the plain PyTorch version runs; on a CUDA
+tensor the kernel launches, or the call raises.  ``launches`` counts
+wrapper calls that launched their kernel, by variant
 (``ring_push_pull``/``ring_push``, ``_2d``, ``_int8``) and dtype, and
 nothing else.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -172,6 +181,155 @@ def _geometry(grads, store, bidir: bool, compress: bool,
     return ring_geometry(n, padded, store.dtype, bidir, compress, kv_shards)
 
 
+# -- the int8 kernel's regions and launch shape -------------------------------
+
+INT8_SMEM_FLOATS = 57_344  # csrc/ring_int8.cu kMaxSmemFloats (224 KiB)
+# CTAs per region the launcher chooses from: 8 is the largest portable
+# cluster size, 9-16 are non-portable ones.
+INT8_CLUSTERS = tuple(range(16, 7, -1))
+
+
+def int8_regions(geo: RingGeometry, padded: int):
+    """The non-empty regions of a ``[padded]`` bucket, in the order of
+    their number ``(shard * n + chunk) * 2 + direction``:
+    ``(table, ids)``, with ``table`` int64 ``[R, 4]`` rows (start,
+    length, chunk c, walk step: 1 in direction 0, n-1 in direction 1)
+    and ``ids`` the region numbers.  Each region is a contiguous range:
+    in shard b, sub-chunk c covers ``[c*sub, min((c+1)*sub, period))``,
+    direction 0 its first ``split`` values and direction 1 the rest."""
+    n = geo.n
+    b = np.arange(padded // geo.period, dtype=np.int64)[:, None, None]
+    c = np.arange(n, dtype=np.int64)[None, :, None]
+    d = np.arange(2, dtype=np.int64)[None, None, :]
+    clen = np.clip(geo.period - c * geo.sub, 0, geo.sub)
+    mid = np.minimum(geo.split, clen)
+    lo = np.where(d == 0, 0, mid)
+    hi = np.where(d == 0, mid, clen)
+    shape = np.broadcast_shapes(b.shape, c.shape, d.shape)
+    cols = [b * geo.period + c * geo.sub + lo, hi - lo, c,
+            np.where(d == 0, 1, n - 1)]
+    table = np.stack([np.broadcast_to(x, shape).reshape(-1) for x in cols],
+                     axis=1)
+    keep = table[:, 1] > 0
+    return (np.ascontiguousarray(table[keep]),
+            np.flatnonzero(keep).astype(np.int64))
+
+
+class Int8Plan(NamedTuple):
+    """How the int8 kernel lays a geometry onto clusters of ``cluster``
+    CTAs: ``slice`` values per CTA of the longest region, the first
+    ``smem_floats`` of them in shared memory, and the length of the
+    ``[padded]`` scratch the rest spills to (0 when nothing spills)."""
+
+    cluster: int
+    nregions: int
+    slice: int
+    smem_floats: int
+    scratch: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=64)
+def int8_plan(geo: RingGeometry, padded: int, cluster: int) -> Int8Plan:
+    """The :class:`Int8Plan` of a geometry at a cluster size (as
+    ``csrc/ring_int8.cu`` cuts regions: ``round4(ceil(len / cluster))``
+    values per CTA)."""
+    table, _ = int8_regions(geo, padded)
+    longest = int(table[:, 1].max()) if len(table) else 0
+    slice_ = -(-(-(-longest // cluster)) // 4) * 4
+    smem = min(slice_, INT8_SMEM_FLOATS)
+    vec = bool(np.all(table[:, :2] % 4 == 0))
+    return Int8Plan(cluster, len(table), slice_, smem,
+                    padded if slice_ > smem else 0, vec)
+
+
+def int8_cost(plan: Int8Plan, n: int, active: int) -> Optional[float]:
+    """Bytes one CTA moves in its walk times the waves the launch needs
+    with ``active`` co-resident clusters (None when none fit): the
+    launcher's measure for choosing a cluster size.  A spilled value
+    costs 8 more bytes on each of the n-1 hops that carry it."""
+    if active <= 0:
+        return None
+    spilled = plan.slice - plan.smem_floats
+    per_cta = plan.slice * (n + 3) * 4 + spilled * 8 * (n - 1)
+    return -(-plan.nregions // active) * per_cta
+
+
+def _occupancy(cluster: int, smem_floats: int, vec: bool) -> int:
+    out = ctypes.c_int(0)
+    _native.call("pstt_ring_int8_occupancy", cluster, smem_floats, int(vec),
+                 ctypes.byref(out))
+    return out.value
+
+
+def int8_pick_cluster(geo: RingGeometry, padded: int,
+                      active: Dict[int, int]) -> int:
+    """The cluster size of :data:`INT8_CLUSTERS` with the least
+    :func:`int8_cost`, given the co-resident clusters ``active`` the card
+    allows at each size (ties go to the larger cluster).  On an H100 at
+    the main path's 16 regions, 7 clusters of 16 CTAs fit (3 waves) but 8
+    of 14 do (2 waves)."""
+    costs = {c: int8_cost(int8_plan(geo, padded, c), geo.n, active[c])
+             for c in INT8_CLUSTERS}
+    fits = [c for c in INT8_CLUSTERS if costs[c] is not None]
+    if not fits:
+        raise RuntimeError(f"the card runs no cluster of {INT8_CLUSTERS} "
+                           f"CTAs for the int8 ring")
+    return min(fits, key=lambda c: costs[c])
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_shape(geo: RingGeometry, padded: int, device_index: int):
+    active = {}
+    with torch.cuda.device(device_index):
+        for c in INT8_CLUSTERS:
+            plan = int8_plan(geo, padded, c)
+            active[c] = _occupancy(c, plan.smem_floats, plan.vec)
+    return int8_pick_cluster(geo, padded, active), active
+
+
+def int8_launch_shape(n: int, padded: int, kv_shards: Optional[int] = None,
+                      bidir: bool = True, device="cuda") -> dict:
+    """The int8 kernel's launch shape on the card of ``device``: the
+    chosen cluster size, its plan, and the co-resident clusters the card
+    allows at each candidate size."""
+    geo = ring_geometry(n, padded, torch.float32, bidir, True, kv_shards)
+    dev = torch.device(device)
+    cluster, active = _launch_shape(geo, padded, _device_index(dev))
+    plan = int8_plan(geo, padded, cluster)
+    return dict(plan._asdict(), max_active_clusters=active,
+                waves=-(-plan.nregions // active[cluster]))
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=64)
+def _region_table(geo: RingGeometry, padded: int, device: torch.device):
+    """:func:`int8_regions`' table on ``device``, copied there once."""
+    return torch.from_numpy(int8_regions(geo, padded)[0]).to(device)
+
+
+def _launch_int8(grads, store, pulled, geo: RingGeometry, code: int,
+                 lr: float, with_ag: bool, cluster: int) -> None:
+    """One launch of ``pstt_ring_int8`` at a given cluster size."""
+    padded = store.numel()
+    plan = int8_plan(geo, padded, cluster)
+    if plan.nregions == 0:
+        return
+    scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                          device=store.device) if plan.scratch else None
+    _native.call(
+        "pstt_ring_int8", grads.data_ptr(), store.data_ptr(),
+        pulled.data_ptr() if pulled is not None else None,
+        scratch.data_ptr() if scratch is not None else None,
+        _region_table(geo, padded, store.device).data_ptr(), plan.nregions,
+        cluster, plan.smem_floats, int(plan.vec), geo.n, padded, code, lr,
+        int(with_ag or geo.kv), int(geo.kv), _native.stream_ptr(store.device),
+    )
+
+
 # -- plain version ---------------------------------------------------------------
 
 def _to_regions(x: torch.Tensor, geo: RingGeometry) -> torch.Tensor:
@@ -283,25 +441,17 @@ def _ring(grads, store, handle: str, bidir: bool, with_ag: bool,
     geo = _geometry(grads, store, bidir, compress, kv_shards)
     code, lr = ring_handle(handle)
     pulled = torch.empty_like(store) if with_ag else None
-    pulled_ptr = pulled.data_ptr() if with_ag else None
-    stream = _native.stream_ptr(store.device)
     if compress:
-        n, padded = geo.n, store.numel()
-        scratch = (torch.empty_like(store) if n > 2 else None)
-        nregions = (padded // geo.period) * n * 2
-        slots = torch.empty(2 * nregions, dtype=torch.int32,
-                            device=store.device)
-        _native.call(
-            "pstt_ring_int8", grads.data_ptr(), store.data_ptr(), pulled_ptr,
-            scratch.data_ptr() if scratch is not None else None,
-            slots.data_ptr(), n, geo.period, geo.sub, geo.split, int(geo.kv),
-            padded, code, lr, int(with_ag or geo.kv), int(geo.kv), stream,
-        )
+        cluster, _ = _launch_shape(geo, store.numel(),
+                                   _device_index(store.device))
+        _launch_int8(grads, store, pulled, geo, code, lr, with_ag, cluster)
     else:
         _native.call(
             "pstt_ring_push_pull", grads.data_ptr(), store.data_ptr(),
-            pulled_ptr, _DTYPE_CODES[store.dtype], geo.n, geo.period,
-            geo.sub, geo.split, int(geo.kv), store.numel(), code, lr, stream,
+            pulled.data_ptr() if with_ag else None,
+            _DTYPE_CODES[store.dtype], geo.n, geo.period, geo.sub, geo.split,
+            int(geo.kv), store.numel(), code, lr,
+            _native.stream_ptr(store.device),
         )
     launches[_variant(with_ag, geo.kv, compress, store.dtype)] += 1
     return pulled if with_ag else store

@@ -223,33 +223,79 @@ def test_2d_ring_kernel_bit_exact(dev, a, padded, kv, dtype, with_ag):
 # (n, padded, bidir, kv_shards): the main path (8 ranks, and dp=4 x kv=2),
 # the one-direction ring at n = 2, a bucket smaller than the int8 tile, a
 # chunk that is not a multiple of the vector width (the scalar kernel),
-# and 2-D sub-rings with a short last sub-chunk, with the whole shard in
-# one region, and with an odd shard length.
+# 2-D sub-rings with a short last sub-chunk, with the whole shard in one
+# region, and with an odd shard length; and n = 2 over the main path's
+# bucket, 1-D and 2-D, whose regions spill out of a cluster's shared
+# memory into scratch.
 _INT8_CASES = [(8, 10_240_000, True, None), (4, 10_240_000, True, 2),
                (2, 2 * 8192, False, None), (8, 8 * 100, True, None),
                (3, 3 * 1001, True, None), (4, 2 * 24676, True, 2),
-               (2, 8192, True, 4), (4, 2100, True, 2)]
+               (2, 8192, True, 4), (4, 2100, True, 2),
+               (2, 10_240_000, True, None), (2, 10_240_000, True, 2)]
+
+
+def _int8_check(grads, store, kw, with_ag, run):
+    """``run(grads, store, pulled)`` against the plain version: 0
+    elements may differ, for the sum and assign handles."""
+    for handle in ("sum", "assign"):
+        sk, sp = store.clone(), store.clone()
+        outk = torch.empty_like(store) if with_ag else None
+        run(grads, sk, outk, handle)
+        if with_ag:
+            outp = ring.ring_push_pull_reference(grads, sp, handle, **kw)
+        else:
+            ring.ring_push_reference(grads, sp, handle, **kw)
+        torch.cuda.synchronize()
+        assert int((sk != sp).sum()) == 0, handle
+        if with_ag:
+            assert int((outk != outp).sum()) == 0, handle
+            if kw["kv_shards"] is not None:
+                assert torch.equal(sk, outk)  # 2-D: the store takes pulled
 
 
 @pytest.mark.parametrize("n,padded,bidir,kv", _INT8_CASES)
 @pytest.mark.parametrize("with_ag", [True, False])
 def test_int8_ring_kernel_bit_exact(dev, n, padded, bidir, kv, with_ag):
-    grads = _randn((n, padded), 15, dev)
-    store = _randn((padded,), 16, dev)
-    sk, sp = store.clone(), store.clone()
     kw = dict(bidir=bidir, compress=True, kv_shards=kv)
-    if with_ag:
-        outk = ring.ring_push_pull(grads, sk, "sum", **kw)
-        outp = ring.ring_push_pull_reference(grads, sp, "sum", **kw)
-    else:
-        ring.ring_push(grads, sk, "sum", **kw)
-        ring.ring_push_reference(grads, sp, "sum", **kw)
-    torch.cuda.synchronize()
-    assert int((sk != sp).sum()) == 0
-    if with_ag:
-        assert int((outk != outp).sum()) == 0
-        if kv is not None:
-            assert torch.equal(sk, outk)  # 2-D: the store takes pulled
+
+    def run(g, s, out, handle):
+        if with_ag:
+            out.copy_(ring.ring_push_pull(g, s, handle, **kw))
+        else:
+            ring.ring_push(g, s, handle, **kw)
+
+    _int8_check(_randn((n, padded), 15, dev), _randn((padded,), 16, dev),
+                kw, with_ag, run)
+
+
+@pytest.mark.parametrize("n,padded,bidir,kv", _INT8_CASES)
+@pytest.mark.parametrize("with_ag", [True, False])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_int8_ring_cluster_sizes(dev, n, padded, bidir, kv, with_ag,
+                                 cluster):
+    """Both ends of the launcher's range, through the C entry, whichever
+    size the launcher picks for the shape."""
+    geo = ring.ring_geometry(n, padded, torch.float32, bidir, True, kv)
+    _, active = ring._launch_shape(geo, padded, dev.index or 0)
+    assert active[cluster] > 0, f"the card runs no cluster of {cluster}"
+    kw = dict(bidir=bidir, compress=True, kv_shards=kv)
+
+    def run(g, s, out, handle):
+        code, lr = ring.ring_handle(handle)
+        ring._launch_int8(g, s, out, geo, code, lr, with_ag, cluster)
+
+    _int8_check(_randn((n, padded), 21, dev), _randn((padded,), 22, dev),
+                kw, with_ag, run)
+
+
+def test_int8_ring_main_path_launch_shape(dev):
+    """At the main path's shapes the launcher allocates no scratch and
+    needs no more waves than 16-CTA clusters would."""
+    for n, kv in ((8, None), (4, 2)):
+        shape = ring.int8_launch_shape(n, 10_240_000, kv_shards=kv,
+                                       device=dev)
+        waves16 = -(-shape["nregions"] // shape["max_active_clusters"][16])
+        assert shape["scratch"] == 0 and shape["waves"] <= waves16, shape
 
 
 def test_int8_ring_kernel_sgd(dev):
