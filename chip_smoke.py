@@ -21,6 +21,10 @@ line):
    P = 40 x 256,000 = 10,240,000 values; the 2-D sub-rings at dp = 4 x
    kv = 2; the int8 ring also at n = 2, where its regions spill out of
    shared memory) against its plain PyTorch version on the same inputs.
+   Then the grouped ring over the ResNet-50 trace's 36 buckets (f32,
+   bf16, dp = 4 x kv = 2, int8), also against 36 single launches, and
+   ``ring_replay`` of 8 steps of the bucket (push_pull and push steps),
+   also against 8 single launches: 0 differing elements everywhere.
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
    replayed, timed with CUDA events (the host is out of the timing);
    ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
@@ -40,8 +44,18 @@ line):
    card.  Kernel launch counts are zeroed just before and read just
    after; every kernel must have launched.  Then, with the counts zeroed
    again, the int8 ring at n = 2 (``CollectiveEngine`` on a 2-rank
-   group, the spilling shape).  Then the steady-state
-   ``engine.push_pull`` time with device-resident grads.
+   group, the spilling shape).  Then, each path with the counts zeroed
+   before it: the ResNet-50 trace (BASELINE config 4: 36 buckets of 1,024
+   to 1,048,576 f32 values, 8 ranks) through Postoffice/KVWorker per
+   bucket, as one ``push_pull_group``, through the coalescer (36 tickets
+   from 4 threads) and from host numpy grads (serial copies, and
+   ``push_pull_multi_stream``'s pinned staging); the grouped bf16, 2-D
+   and int8 rings over the trace; ``KVWorker.replay`` (ring keep all and
+   last, torch, adam) against 8 sequential push_pulls; zero-copy and
+   registered pulls.  Then the steady-state ``engine.push_pull`` time
+   with device-resident grads, and the steady state of the trace's four
+   paths and of an 8-step replay (wall and event ms/step, the
+   profiler's device time, host-to-device GB/s).
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -52,6 +66,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -147,9 +162,10 @@ def library_time(fn, *args, capturable: bool = True):
 
 
 def mismatches(got, want) -> int:
-    """Elements where an int8 kernel and its plain version differ: none
-    may.  The two round ``fmaf`` once each and take the same region
-    maxima, so an element off is a fault (a region boundary, say)."""
+    """Elements where a kernel and its plain version (or its single
+    launches) differ: none may.  They add in the same order, and the int8
+    ones round ``fmaf`` once each and take the same region maxima, so an
+    element off is a fault (a region or bucket boundary, say)."""
     count = int((got != want).sum())
     if count:
         worst = float((got - want).abs().max())
@@ -172,7 +188,7 @@ def within(pairs, rtol: float, atol: float) -> bool:
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def kernel_phase(torch, ring, fu, qz, dev):
+def kernel_phase(torch, ring, fu, qz, rt, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
@@ -221,6 +237,8 @@ def kernel_phase(torch, ring, fu, qz, dev):
         del grads, store
 
     rows += ring_variant_rows(torch, ring, randn)
+    rows += group_rows(torch, ring, rt, randn)
+    rows += replay_rows(torch, ring, randn)
     rows += quantize_rows(torch, qz, randn)
 
     agg = randn(P)
@@ -407,6 +425,122 @@ def quantize_rows(torch, qz, randn):
             library_note=why,
         ))
     return out
+
+
+def trace_pads(rt, shards: int):
+    """The ResNet-50 trace's 36 bucket lengths, each padded to a multiple
+    of ``shards`` as the engine pads it."""
+    return [-(-n // shards) * shards for _, n in rt.make_buckets()]
+
+
+def group_rows(torch, ring, rt, randn):
+    """The grouped ring over the ResNet-50 trace's 36 buckets (8 ranks;
+    2-D dp = 4 x kv = 2): f32, bf16, the 2-D sub-rings, and int8 (one
+    cluster launch per bucket from the same call).  Each against its plain
+    version and against 36 single launches: 0 differing elements.  ``ms``
+    is host-free (graph replay), ``ms_host`` the call with its host cost;
+    ``singles_*`` the 36 single launches the group replaces.  Bytes:
+    (n+3)*P*itemsize over the trace's P values."""
+    rows = []
+    specs = [  # (name, ranks, kv_shards, compress, dtype)
+        ("ring_push_pull_group[float32]", N, None, False, torch.float32),
+        ("ring_push_pull_group[bfloat16]", N, None, False, torch.bfloat16),
+        ("ring_push_pull_group_2d[float32]", 4, 2, False, torch.float32),
+        ("ring_push_pull_group_int8[float32]", N, None, True, torch.float32),
+    ]
+    for name, n, kv, compress, dtype in specs:
+        pads = trace_pads(rt, kv or n)
+        grads = [randn(n, p).to(dtype) for p in pads]
+        stores = [randn(p).to(dtype) for p in pads]
+        kw = dict(compress=compress, kv_shards=kv)
+        sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+        outk = ring.ring_push_pull_group(grads, sk, "sum", **kw)
+        outp = ring.ring_push_pull_group_reference(grads, sp, "sum", **kw)
+        out1 = [ring.ring_push_pull(g, s, "sum", **kw)
+                for g, s in zip(grads, s1)]
+        torch.cuda.synchronize()
+        # Against the plain version, then against the single launches.
+        off_plain = sum(mismatches(a, b) for a, b in
+                        list(zip(outk, outp)) + list(zip(sk, sp)))
+        off_single = sum(mismatches(a, b) for a, b in
+                         list(zip(outk, out1)) + list(zip(sk, s1)))
+        del outk, outp, out1, sp, s1
+        ms, ms_host = kernel_times(
+            lambda: ring.ring_push_pull_group(grads, sk, "sum", **kw))
+        single_ms, single_host = kernel_times(
+            lambda: [ring.ring_push_pull(g, s, "sum", **kw)
+                     for g, s in zip(grads, sk)])
+        sp = [s.clone() for s in stores]
+        plain_ms = cuda_ms(
+            lambda: ring.ring_push_pull_group_reference(grads, sp, "sum",
+                                                        **kw),
+            iters=2, warmup=1)
+        total = sum(pads)
+        b_ms, b_by = bound((n + 3) * total * dtype.itemsize, n * total)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=("pslite_tpu_torch/csrc/ring_int8.cu" if compress
+                    else "pslite_tpu_torch/csrc/ring_push_pull.cu"),
+            replaces="pslite_tpu/ops/ring_collective.py:445",
+            max_abs_err=0.0, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library_note="no PyTorch call walks a ring",
+            buckets=len(pads), values=total, singles_ms=single_ms,
+            singles_ms_host=single_host, elements_off_plain=off_plain,
+            elements_off_singles=off_single,
+        ))
+        del grads, stores, sk, sp
+    return rows
+
+
+REPLAY_STEPS = 8
+
+
+def replay_rows(torch, ring, randn):
+    """ring_replay: T = 8 steps of the 40 x 1 MB bucket (8 ranks) in one
+    call, push_pull steps (keep="all") and push steps (keep="last"),
+    against T single launches and the plain version (0 differing
+    elements).  ``ms`` is one call of T steps; ``ms_per_step`` beside
+    it.  Bytes: T*(n+3)*4P, T*(n+2)*4P for push steps."""
+    rows = []
+    grads = randn(REPLAY_STEPS, N, P)
+    store = randn(P)
+    for keep, name in (("all", "ring_replay_push_pull[float32]"),
+                       ("last", "ring_replay_push[float32]")):
+        sk, ss, sp = store.clone(), store.clone(), store.clone()
+        out = ring.ring_replay(grads, sk, "sum", keep=keep)
+        single = ring.ring_push_pull if keep == "all" else ring.ring_push
+        seq = [single(grads[t], ss, "sum") for t in range(REPLAY_STEPS)]
+        plain = ring.ring_replay_reference(grads, sp, "sum", keep=keep)
+        torch.cuda.synchronize()
+        pairs = [(sk, ss), (sk, sp)]
+        if keep == "all":
+            pairs += [(out, torch.stack(seq)), (out, plain)]
+        for a, b in pairs:
+            mismatches(a, b)
+        del out, seq, plain, ss
+        ms, ms_host = kernel_times(
+            lambda: ring.ring_replay(grads, sk, "sum", keep=keep))
+        plain_ms = cuda_ms(
+            lambda: ring.ring_replay_reference(grads, sp, "sum", keep=keep),
+            iters=2, warmup=1)
+        words = N + (3 if keep == "all" else 2)
+        b_ms, b_by = bound(REPLAY_STEPS * words * P * 4,
+                           REPLAY_STEPS * N * P)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="pslite_tpu_torch/csrc/ring_push_pull.cu",
+            replaces="pslite_tpu/ops/ring_collective.py:445",
+            max_abs_err=0.0, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library_note="no PyTorch call walks a ring",
+            steps=REPLAY_STEPS, ms_per_step=ms / REPLAY_STEPS,
+            ms_host_per_step=ms_host / REPLAY_STEPS,
+            bound_ms_per_step=b_ms / REPLAY_STEPS,
+        ))
+        del sk, sp
+    del grads, store
+    return rows
 
 
 # -- phase 4: the main path through the user's entry points ------------------
@@ -728,6 +862,224 @@ def drive_quantize(torch, ps, qz, grads_steps):
             "max_abs_err_vs_f64": float(err.max())}
 
 
+def _check_sum(label, got, s64, mag, k, n, unit=2.0 ** -24, atol=1e-6):
+    """A ring sum against float64: each of its k ops adds n rows and the
+    store, every add rounding once by at most ``unit`` of its partial
+    sum, so the error stays within k*(n+1)*unit*sum|g| (+ atol)."""
+    got64 = np.asarray(got, dtype=np.float64)
+    err = np.abs(got64 - s64)
+    if got64.shape != s64.shape or not np.all(np.isfinite(got64)):
+        raise AssertionError(f"{label}: bad result {got64.shape}")
+    if not np.all(err <= atol + k * (n + 1) * unit * mag):
+        raise AssertionError(f"{label}: off the float64 reference by "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def trace_grads(rt, seed: int, rows: int = N):
+    """Seeded host gradients for the ResNet-50 trace: one [rows, n] f32
+    array per bucket."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((rows, n), dtype=np.float32)
+            for _, n in rt.make_buckets()]
+
+
+def drive_resnet(torch, ps, Environment, rt, host):
+    """The ResNet-50 trace (36 buckets, 8 ranks, ring sum) through
+    Postoffice/KVWorker: per-bucket ``KVWorker.push_pull``, one
+    ``push_pull_group`` of the 36 buckets, the coalescer with 36 tickets
+    from 4 threads, and the host-origin paths (36 push_pulls of numpy
+    grads, and ``push_pull_multi_stream`` with pinned staging).  Each op
+    adds the same grads, so after op k every bucket holds k*sum(g): each
+    result is checked against that in float64."""
+    env = Environment({"PS_ICI_IMPL": "pallas",
+                       "PS_ICI_SERVER_HANDLE": "sum"})
+    po = ps.Postoffice("worker", env=env)
+    po.van.set_mesh(ps.DeviceGroup(N))
+    po.start()
+    worker = ps.KVWorker(0, 0, postoffice=po)
+    eng = worker.engine
+    buckets = rt.make_buckets()
+    names = [name for name, _ in buckets]
+    keys = [np.array([i], np.uint64) for i in range(len(buckets))]
+    for k, (name, n) in zip(keys, buckets):
+        worker.register_dense(name, k, n)
+    sum64 = [g.astype(np.float64).sum(0) for g in host]
+    mag = [np.abs(g).astype(np.float64).sum(0) for g in host]
+    dev = [torch.from_numpy(g).cuda() for g in host]
+    results = []
+
+    def check(label, k, outs):
+        worst = max(_check_sum(f"{label} {name}", o, k * s, m, k, N)
+                    for name, o, s, m in zip(names, outs, sum64, mag))
+        results.append({"config": f"resnet50 {label} (36 buckets)",
+                        "ops": len(names), "max_abs_err_vs_f64": worst})
+
+    outs = [np.zeros(n, np.float32) for _, n in buckets]
+    for k, g, o in zip(keys, host, outs):
+        worker.wait(worker.push_pull(k, g, o))
+    check("per-bucket KVWorker.push_pull", 1, outs)
+
+    pulled = eng.push_pull_group(names, dev)
+    check("grouped push_pull_group", 2, [p.cpu().numpy() for p in pulled])
+
+    tickets = {}
+    with worker.coalescer(window_us=5_000) as disp:
+        def issue(tid):
+            for i in range(tid, len(names), 4):
+                tickets[names[i]] = disp.push_pull(names[i], dev[i])
+
+        threads = [threading.Thread(target=issue, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        got = [tickets[n].result().cpu().numpy() for n in names]
+    check("coalescer (4 threads)", 3, got)
+
+    got = [eng.push_pull(n, g).cpu().numpy() for n, g in zip(names, host)]
+    check("host-origin serial", 4, got)
+    got = [p.cpu().numpy() for p in eng.push_pull_multi_stream(
+        zip(names, host), depth=2)]
+    check("host-origin stream (pinned, copy stream)", 5, got)
+    worker.stop()
+    po.finalize()
+    return results
+
+
+def drive_groups(torch, ps, rt, host):
+    """``push_pull_group`` of the 36 trace buckets on the other grouped
+    configurations: bf16 (8 ranks), the 2-D sub-rings (dp = 4 x kv = 2)
+    and int8 (8 ranks), two steps each, against float64 (int8: within the
+    summed error bound, relative error < 0.05)."""
+    names = [name for name, _ in rt.make_buckets()]
+    results = []
+    for label, group, waxis, dtype, compress in (
+            ("bf16", ps.DeviceGroup(N), None, torch.bfloat16, None),
+            ("2-D dp4xkv2", ps.make_group((4, 2), ("dp", "kv")), "dp",
+             torch.float32, None),
+            ("int8", ps.DeviceGroup(N), None, torch.float32, "int8")):
+        eng = ps.CollectiveEngine(group, impl="pallas", worker_axis=waxis,
+                                  wire_compress=compress)
+        rows = eng.num_workers
+        grads = [torch.from_numpy(g[:rows]).cuda().to(dtype) for g in host]
+        for (name, n) in rt.make_buckets():
+            eng.register_dense(name, np.arange(1, dtype=np.uint64), n,
+                               dtype=dtype)
+        g64 = [g.double().sum(0).cpu().numpy() for g in grads]
+        mag = [g.double().abs().sum(0).cpu().numpy() for g in grads]
+        amax = [float(g.float().abs().max()) for g in grads]
+        worst, bound_sum = 0.0, [0.0] * len(names)
+        for k in (1, 2):
+            pulled = eng.push_pull_group(names, grads)
+            for i, (name, p) in enumerate(zip(names, pulled)):
+                got = p.double().cpu().numpy()
+                if compress:
+                    bound_sum[i] += 2 * rows * (amax[i] * rows + (k - 1)
+                                                * amax[i] * rows) / 127
+                    err, _ = _check_int8(f"group int8 {name}", "push_pull",
+                                         k, got, k * g64[i], bound_sum[i])
+                else:
+                    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+                    err = _check_sum(f"group {label} {name}", got,
+                                     k * g64[i], mag[i], k, rows, unit)
+                worst = max(worst, err)
+        results.append({"config": f"push_pull_group {label} (36 buckets)",
+                        "ops": 2 * len(names), "max_abs_err_vs_f64": worst})
+        eng.block()
+        del eng, grads
+    return results
+
+
+def drive_replay(torch, ps, Environment, dev_steps):
+    """``KVWorker.replay`` of T = 8 steps on the 40 x 1 MB bucket (8
+    ranks): the ring with keep "all" and "last", the torch path, and adam;
+    each result equal to T sequential push_pulls of a second worker (0
+    differing elements)."""
+    keys = np.arange(KEYS, dtype=np.uint64)
+    results = []
+    for label, impl, handle, keep in (
+            ("ring keep=all", "pallas", "sum", "all"),
+            ("ring keep=last", "pallas", "sum", "last"),
+            ("torch keep=all", "xla", "sum", "all"),
+            ("adam keep=all", "pallas", "adam:1e-3", "all")):
+        workers = []
+        for _ in range(2):
+            po = ps.Postoffice("worker", env=Environment({
+                "PS_ICI_IMPL": impl, "PS_ICI_SERVER_HANDLE": handle}))
+            po.van.set_mesh(ps.DeviceGroup(N))
+            po.start()
+            w = ps.KVWorker(0, 0, postoffice=po)
+            w.register_dense("grads", keys, VAL_LEN)
+            workers.append((po, w))
+        (po_a, wa), (po_b, wb) = workers
+        got = wa.replay("grads", dev_steps, keep=keep)
+        seq = [wb.engine.push_pull("grads", dev_steps[t])
+               for t in range(REPLAY_STEPS)]
+        want = torch.stack(seq) if keep == "all" else seq[-1]
+        torch.cuda.synchronize()
+        if tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"replay {label}: shape {tuple(got.shape)}")
+        results.append({"config": f"KVWorker.replay {label} (T = "
+                                  f"{REPLAY_STEPS})", "ops": REPLAY_STEPS,
+                        "elements_off_sequential": mismatches(got, want)})
+        for po, w in workers:
+            w.stop()
+            po.finalize()
+        del got, seq, want
+    return results
+
+
+def drive_zero_copy(torch, ps, Environment, grads_steps):
+    """Zero-copy and registered pulls through the user's entry points:
+    ``push_pull(zero_copy=True)`` on a 1-rank group returns the store
+    itself (same address) with the right values; a registered pull buffer
+    on the 8-rank ring receives every ``KVWorker.pull`` at one address."""
+    keys = np.arange(KEYS, dtype=np.uint64)
+    eng = ps.CollectiveEngine(ps.DeviceGroup(1), impl="xla")
+    eng.register_dense("z", keys, VAL_LEN)
+    want, mag, worst = np.zeros(P), np.zeros(P), 0.0
+    for k in range(2):
+        g = grads_steps[k][:1]
+        out = eng.push_pull("z", g, zero_copy=True)
+        want = want + g[0].astype(np.float64)
+        mag = mag + np.abs(g[0]).astype(np.float64)
+        if out.data_ptr() != eng._stores["z"].data_ptr():
+            raise AssertionError("zero_copy push_pull did not return the "
+                                 "store")
+        worst = max(worst, _check_sum("zero-copy push_pull",
+                                      out.cpu().numpy(), want, mag, k + 1,
+                                      1))
+    po = ps.Postoffice("worker", env=Environment({
+        "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
+    po.van.set_mesh(ps.DeviceGroup(N))
+    po.start()
+    worker = ps.KVWorker(0, 0, postoffice=po)
+    worker.register_dense("grads", keys, VAL_LEN)
+    buf = worker.register_pull_buffer("grads")
+    s64, mag, outs = np.zeros(P), np.zeros(P), np.zeros(P, np.float32)
+    for k in range(2):
+        g = grads_steps[k]
+        worker.wait(worker.push(keys, g))
+        worker.wait(worker.pull(keys, outs))
+        s64 = s64 + g.astype(np.float64).sum(0)
+        mag = mag + np.abs(g).astype(np.float64).sum(0)
+        if worker.engine.pinned_pull_buffer("grads").data_ptr() != \
+                buf.data_ptr():
+            raise AssertionError("the registered pull buffer moved")
+        worst = max(worst,
+                    _check_sum("registered pull buffer", outs, s64, mag,
+                               k + 1, N),
+                    _check_sum("registered pull buffer (device)",
+                               buf.cpu().numpy(), s64, mag, k + 1, N))
+    worker.stop()
+    po.finalize()
+    return [{"config": "zero-copy push_pull (1 rank) + registered pull "
+                       "buffer (8 ranks)", "ops": 6,
+             "max_abs_err_vs_f64": worst}]
+
+
 def device_breakdown(torch, step, iters: int = 5):
     """torch.profiler over ``iters`` steps: (device-busy ms per step,
     [(kernel, ms per step)] by time).  The kernels run on one stream, so
@@ -754,6 +1106,12 @@ def device_breakdown(torch, step, iters: int = 5):
     if busy_ms == 0:
         raise AssertionError("the profiler saw no device time")
     return busy_ms, kernels
+
+
+def copy_ms(kernels) -> float:
+    """The device time of memory copies and sets in a breakdown (they run
+    on the copy stream beside the kernels in the host-origin cells)."""
+    return sum(ms for k, ms in kernels if k.startswith(("Memcpy", "Memset")))
 
 
 def steady_state(torch, ps):
@@ -802,6 +1160,89 @@ def steady_state(torch, ps):
     return out
 
 
+def steady_state_trace(torch, ps, rt, Environment):
+    """Steady state of the ResNet-50 trace (36 buckets, 8 ranks, ring sum)
+    through ``resnet_trace.replay`` on a KVWorker's engine, per cell:
+    per-bucket push_pulls of device grads, one grouped push_pull, and
+    host-origin numpy grads copied serially in each push_pull or staged
+    by ``push_pull_multi_stream``; and ``replay`` of T = 8 steps of the
+    40 x 1 MB bucket.  Each cell: wall ms/step (host clock to a
+    synchronize), CUDA-event ms/step, and the profiler's device time per
+    step (kernels, and copies on their own), busy share against the wall
+    time; host-origin cells also the host-to-device GB/s of their
+    grads."""
+    po = ps.Postoffice("worker", env=Environment({
+        "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
+    po.van.set_mesh(ps.DeviceGroup(N))
+    po.start()
+    eng = ps.KVWorker(0, 0, postoffice=po).engine
+
+    def events(loop):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    out = []
+    host_bytes = sum(N * p * 4 for p in trace_pads(rt, N))
+    for cell, grouped, host_origin, overlap, steps in (
+            ("resnet50-per-bucket", False, False, False, ITERS),
+            ("resnet50-grouped", True, False, False, ITERS),
+            ("resnet50-host-serial", False, True, False, 5),
+            ("resnet50-host-overlap", False, True, True, 5)):
+        kw = dict(grouped=grouped, host_origin=host_origin, overlap=overlap)
+        nbytes, wall_s = rt.replay(eng, steps=steps, **kw)
+        _, event_s = rt.replay(eng, steps=steps, measure=events, **kw)
+        seen = {}
+
+        def profiled(loop):
+            seen["busy"], seen["kernels"] = device_breakdown(
+                torch, loop, iters=1)
+            return seen["busy"] / 1e3
+
+        rt.replay(eng, steps=3, measure=profiled, **kw)
+        busy = seen["busy"] / 3
+        kernels = [(k, ms / 3) for k, ms in seen["kernels"]]
+        wall_ms = wall_s * 1e3
+        row = {"cell": cell, "wall_ms_per_step": wall_ms,
+               "event_ms_per_step": event_s * 1e3, "busy_ms_per_step": busy,
+               "copy_ms_per_step": copy_ms(kernels),
+               "busy_share": busy / wall_ms, "kernels": kernels,
+               "goodput_gbps_wall": nbytes / wall_s / 1e9}
+        if host_origin:
+            row["h2d_gbps_wall"] = host_bytes / wall_s / 1e9
+        out.append(row)
+    po.finalize()
+
+    eng = ps.CollectiveEngine(ps.DeviceGroup(N), impl="pallas")
+    eng.register_dense("b", np.arange(KEYS, dtype=np.uint64), VAL_LEN)
+    seq = torch.ones((REPLAY_STEPS, N, P), device=eng.device)
+
+    def step():
+        eng.replay("b", seq, keep="last")
+
+    event_ms = cuda_ms(step) / REPLAY_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS / REPLAY_STEPS
+    busy, kernels = device_breakdown(torch, step)
+    busy /= REPLAY_STEPS
+    kernels = [(k, ms / REPLAY_STEPS) for k, ms in kernels]
+    out.append({"cell": "replay-40x1MB", "wall_ms_per_step": wall_ms,
+                "event_ms_per_step": event_ms, "busy_ms_per_step": busy,
+                "copy_ms_per_step": copy_ms(kernels),
+                "busy_share": busy / wall_ms, "kernels": kernels,
+                "goodput_gbps_wall": 2 * P * 4 / wall_ms / 1e6})
+    del eng, seq
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -820,6 +1261,7 @@ def main() -> int:
     from pslite_tpu_torch.ops import fused_update as fu
     from pslite_tpu_torch.ops import quantize as qz
     from pslite_tpu_torch.ops import ring_collective as ring
+    from pslite_tpu_torch.models import resnet_trace as rt
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -847,7 +1289,7 @@ def main() -> int:
               f"{shape['max_active_clusters']}, waves {shape['waves']}, "
               f"scratch {shape['scratch']} values")
 
-    rows = kernel_phase(torch, ring, fu, qz, torch.device("cuda:0"))
+    rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
     for r in rows:
         note = r["library_note"]
         lib = (f"{r['library_ms']:.4f} ms (host-inclusive "
@@ -858,36 +1300,69 @@ def main() -> int:
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us, "
               f"{r['bound_ms'] / r['ms']:.2f} of bound, library {lib}), "
               f"max_abs_err {r['max_abs_err']:.3g}")
+        if "singles_ms" in r:
+            print(f"    {r['buckets']} buckets, {r['values']} values; the "
+                  f"{r['buckets']} single launches: {r['singles_ms']:.4f} ms "
+                  f"host-free, {r['singles_ms_host']:.4f} ms host-inclusive")
+        if "steps" in r:
+            print(f"    per step of {r['steps']}: {r['ms_per_step']:.4f} ms "
+                  f"host-free, {r['ms_host_per_step']:.4f} ms "
+                  f"host-inclusive, bound "
+                  f"{r['bound_ms_per_step'] * 1e3:.1f} us")
 
     rng = np.random.default_rng(SEED)
     grads_steps = [rng.standard_normal((N, P), dtype=np.float32)
                    for _ in range(6)]
-    fu.reset_launches()
-    ring.reset_launches()
-    qz.reset_launches()
-    results = drive(torch, ps, Environment, grads_steps)
-    results.append(drive_int8(torch, ps, ring, Environment, grads_steps))
-    results += drive_2d(torch, ps, ring, grads_steps)
-    results.append(drive_quantize(torch, ps, qz, grads_steps))
-    counts = {**ring.launches, **fu.launches, **qz.launches}
-    ring.reset_launches()
-    results.append(drive_int8_spill(torch, ps, ring, grads_steps))
-    spill_counts = dict(ring.launches)
+    host = trace_grads(rt, SEED + 1)
+    dev_steps = torch.randn(
+        (REPLAY_STEPS, N, P), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+
+    # Each path of the main path runs with every count set to 0 just
+    # before it, and its counts are read just after.
+    paths = [
+        ("dense push_pull", lambda: (
+            drive(torch, ps, Environment, grads_steps)
+            + [drive_int8(torch, ps, ring, Environment, grads_steps)]
+            + drive_2d(torch, ps, ring, grads_steps)
+            + [drive_quantize(torch, ps, qz, grads_steps)])),
+        ("int8 n=2", lambda: [drive_int8_spill(torch, ps, ring,
+                                               grads_steps)]),
+        ("resnet50 trace", lambda: drive_resnet(torch, ps, Environment, rt,
+                                                host)),
+        ("groups", lambda: drive_groups(torch, ps, rt, host)),
+        ("replay", lambda: drive_replay(torch, ps, Environment, dev_steps)),
+        ("zero-copy", lambda: drive_zero_copy(torch, ps, Environment,
+                                              grads_steps)),
+    ]
+    results, path_counts = [], {}
+    for path, run in paths:
+        fu.reset_launches()
+        ring.reset_launches()
+        qz.reset_launches()
+        results += run()
+        path_counts[path] = {**ring.launches, **fu.launches, **qz.launches}
+        print(f"main path launches [{path}]: " + ", ".join(
+            f"{k} {v}" for k, v in path_counts[path].items() if v))
     for r in results:
         extra = "".join(f", {k} {v:.4g}" for k, v in r.items()
                         if k not in ("config", "ops", "max_abs_err_vs_f64"))
-        print(f"main path {r['config']}: {r['ops']} ops, max |err| vs "
-              f"float64 {r['max_abs_err_vs_f64']:.3g}{extra}")
+        err = (f"max |err| vs float64 {r['max_abs_err_vs_f64']:.3g}"
+               if "max_abs_err_vs_f64" in r else "held against sequential "
+                                                 "ops")
+        print(f"main path {r['config']}: {r['ops']} ops, {err}{extra}")
     for r in rows:
         r["launches"] = (
-            spill_counts["ring_push_pull_int8[float32]"]
-            if r["name"] == SPILL_ROW else counts[r["name"]])
+            path_counts["int8 n=2"]["ring_push_pull_int8[float32]"]
+            if r["name"] == SPILL_ROW else
+            sum(c[r["name"]] for p, c in path_counts.items()
+                if p != "int8 n=2"))
         r["bound_us"] = r["bound_ms"] * 1e3
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} never launched on the main "
                                  f"path")
-    del grads_steps
+    del grads_steps, host, dev_steps
 
     for r in steady_state(torch, ps):
         print(f"steady push_pull {r['cell']} 40x1MB: "
@@ -896,6 +1371,18 @@ def main() -> int:
               f"{r['goodput_gbps_event']:.1f} GB/s events, "
               f"{r['goodput_gbps_wall']:.1f} GB/s wall; profiler: device "
               f"busy {r['busy_ms_per_step']:.4f} ms/step, busy share "
+              f"{r['busy_share']:.3f} [{smi}]")
+        for kname, ms in r["kernels"][:6]:
+            print(f"    {ms:.4f} ms/step  {kname}")
+
+    for r in steady_state_trace(torch, ps, rt, Environment):
+        h2d = (f", host-to-device {r['h2d_gbps_wall']:.2f} GB/s wall"
+               if "h2d_gbps_wall" in r else "")
+        print(f"steady {r['cell']}: {r['wall_ms_per_step']:.4f} ms/step "
+              f"wall, {r['event_ms_per_step']:.4f} ms/step (CUDA events), "
+              f"{r['goodput_gbps_wall']:.1f} GB/s wall{h2d}; profiler: "
+              f"device busy {r['busy_ms_per_step']:.4f} ms/step (copies "
+              f"{r['copy_ms_per_step']:.4f}), busy share "
               f"{r['busy_share']:.3f} [{smi}]")
         for kname, ms in r["kernels"][:6]:
             print(f"    {ms:.4f} ms/step  {kname}")

@@ -7,9 +7,12 @@ A port of the JAX package ``pslite_tpu`` that imports neither JAX nor
 ``CollectiveEngine``, on a 1-D group or a 2-D ``(dp, kv)`` group
 (``make_group`` + ``worker_axis``), with or without int8 wire
 compression (``PS_ICI_COMPRESS=int8``), and the int8 quantize ops; the
-fused ring, int8 ring, fused optimizer and quantize kernels are written
-in CUDA for Hopper (``csrc/``).  Entry points run on CUDA unless
-the caller passes a CPU device group, and raise without a card.
+many-op surfaces (``push_pull_group``, the coalescer, ``replay``,
+host-origin streams, zero-copy and registered pulls) and the ResNet-50
+gradient trace (``models/resnet_trace.py``).  The fused ring (single and
+grouped), int8 ring, fused optimizer and quantize kernels are written in
+CUDA for Hopper (``csrc/``).  Entry points run on CUDA unless the caller
+passes a CPU device group, and raise without a card.
 """
 
 from .kv.kv_app import KVWorker

@@ -6,14 +6,22 @@ engine (``_engine_route`` :873), ``push``/``pull``/``push_pull``
 (:1203-1207, :1263-1284, :1342-1347), ``wait`` (:1540) and
 ``get_pulled`` (:951).
 
+Beside them, the engine's many-op surfaces (:860-871, :957-983):
+``register_pull_buffer`` (every ``pull`` of the bucket lands in one
+registered tensor: at most one such pull is outstanding per bucket, and
+its result is not kept for ``get_pulled``, :1263-1285), ``coalescer``,
+``replay`` and ``push_pull_stream``.
+
 Completion: after an op is issued the worker records a CUDA event on
 the current stream; one completion thread synchronises on that event,
 copies the result into ``out`` and fires the callback, so callbacks fire
 without ``wait`` and ``wait(ts)`` joins the same future.  On the CPU the
 op has already run when it returns.
 
-The message path (unregistered keys, custom ``cmd``, variable ``lens``)
-is not in this slice: such calls raise ``NotImplementedError``.
+Still missing: the message path (unregistered keys, custom ``cmd``,
+variable ``lens``), which needs the message control plane (ROADMAP
+Queue 1); such calls raise ``NotImplementedError``.  Sparse tables and
+``reshard`` are not here either.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ class KVWorker:
         self._dense_routes: Dict[tuple, str] = {}
         self._device_results: Dict[int, torch.Tensor] = {}
         self._engine_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        # Completion of the last pull of each registered-buffer bucket.
+        self._pinned_pull_futs: Dict[str, Callable[[], None]] = {}
 
     @property
     def engine(self):
@@ -62,6 +72,17 @@ class KVWorker:
                                             init=init)
         self._dense_routes[(len(keys), int(keys[0]), int(keys[-1]))] = name
         return bucket
+
+    def register_pull_buffer(self, name: str) -> torch.Tensor:
+        """Register a persistent pull buffer for a registered dense
+        bucket: every ``pull`` of the bucket then lands in this one
+        tensor (``push_pull`` keeps its fresh results).  A pull waits for
+        the previous pull of the bucket to complete (one outstanding per
+        registered buffer).  Returns the buffer; see
+        ``CollectiveEngine.register_pull_buffer``."""
+        log.check(self.engine is not None,
+                  "register_pull_buffer requires a started ici van")
+        return self.engine.register_pull_buffer(name)
 
     def _engine_route(self, keys, cmd: int = 0, lens=None) -> Optional[str]:
         """Bucket name iff these exact keys are registered and the request
@@ -92,8 +113,10 @@ class KVWorker:
 
     def _engine_dispatch(self, result: torch.Tensor, out=None,
                          callback: Optional[Callable[[], None]] = None,
-                         keep_result: bool = False) -> int:
-        """Timestamp + asynchronous completion of an issued op."""
+                         keep_result: bool = False,
+                         fut_out: Optional[list] = None) -> int:
+        """Timestamp + asynchronous completion of an issued op
+        (``fut_out`` receives the completion's ``result`` callable)."""
         event = None
         if result.device.type == "cuda":
             event = torch.cuda.Event()
@@ -110,6 +133,8 @@ class KVWorker:
                     self._device_results.pop(next(iter(self._device_results)))
         fut = self._engine_pool.submit(self._engine_complete, result, event,
                                        out, callback)
+        if fut_out is not None:
+            fut_out.append(fut.result)
         self._customer.add_wait_hook(ts, fut.result)
         return ts
 
@@ -151,9 +176,23 @@ class KVWorker:
              callback: Optional[Callable[[], None]] = None) -> int:
         """Pull a registered bucket into ``vals``."""
         route = self._route_or_raise(keys, cmd, lens)
+        pinned = self.engine.pinned_pull_buffer(route) is not None
+        if pinned:
+            # One outstanding pull per registered buffer: the next pull
+            # overwrites the buffer the completion thread may still copy.
+            prev = self._pinned_pull_futs.get(route)
+            if prev is not None:
+                prev()
         result = self.engine.pull(route)
-        return self._engine_dispatch(result, out=vals, callback=callback,
-                                     keep_result=True)
+        # A registered buffer's result is not kept for get_pulled: the
+        # next pull overwrites it.
+        holder: list = []
+        ts = self._engine_dispatch(result, out=vals, callback=callback,
+                                   keep_result=not pinned,
+                                   fut_out=holder if pinned else None)
+        if pinned:
+            self._pinned_pull_futs[route] = holder[0]
+        return ts
 
     def push_pull(self, keys, vals, outs, lens=None, cmd: int = 0,
                   callback: Optional[Callable[[], None]] = None) -> int:
@@ -162,6 +201,29 @@ class KVWorker:
         result = self.engine.push_pull(route, vals)
         return self._engine_dispatch(result, out=outs, callback=callback,
                                      keep_result=True)
+
+    def coalescer(self, handle=None, **kw):
+        """Coalescing dispatcher over the worker's engine: per-op
+        ``push_pull(name, grads)`` tickets run as groups (see
+        ``parallel/coalesce.py``)."""
+        log.check(self.engine is not None,
+                  "coalescer requires a started ici van")
+        return self.engine.coalescer(handle=handle, **kw)
+
+    def replay(self, name: str, grads_seq, keep: str = "all"):
+        """T push_pull steps of a registered dense bucket in one call
+        (``engine.replay``): ``[T, total]`` for ``keep="all"``,
+        ``[total]`` for ``keep="last"``, on the device."""
+        log.check(self.engine is not None, "replay requires a started ici van")
+        return self.engine.replay(name, grads_seq, keep=keep)
+
+    def push_pull_stream(self, name: str, grads_iter, depth: int = 2):
+        """Host-origin push_pulls of a registered dense bucket, with the
+        host-to-device staging pipelined against the reductions
+        (``engine.push_pull_stream``).  Yields device results."""
+        log.check(self.engine is not None,
+                  "push_pull_stream requires a started ici van")
+        return self.engine.push_pull_stream(name, grads_iter, depth=depth)
 
     def wait(self, timestamp: int) -> None:
         self._customer.wait_request(timestamp)

@@ -40,6 +40,13 @@ tensor the kernel launches, or the call raises.  ``launches`` counts
 wrapper calls that launched their kernel, by variant
 (``ring_push_pull``/``ring_push``, ``_2d``, ``_int8``) and dtype, and
 nothing else.
+
+Two wrappers run many rings per call, for the engine's groups and
+replays: :func:`ring_push_pull_group` (k buckets in one launch of the
+grouped kernel per dtype, bit-identical to k single launches; int8
+buckets in one cluster launch each) and :func:`ring_replay` (T steps on
+one store from one C call).  They count under ``ring_push_pull_group...``
+(one per launch) and ``ring_replay...`` (one per call).
 """
 
 from __future__ import annotations
@@ -69,11 +76,27 @@ def _variant(with_ag: bool, kv: bool, compress: bool, dtype) -> str:
             f"[{str(dtype).replace('torch.', '')}]")
 
 
+def _group_variant(kv: bool, compress: bool, dtype) -> str:
+    return (f"ring_push_pull_group{'_2d' if kv else ''}"
+            f"{'_int8' if compress else ''}"
+            f"[{str(dtype).replace('torch.', '')}]")
+
+
+def _replay_variant(with_ag: bool, kv: bool, dtype) -> str:
+    return (f"ring_replay_{'push_pull' if with_ag else 'push'}"
+            f"{'_2d' if kv else ''}[{str(dtype).replace('torch.', '')}]")
+
+
 launches: Dict[str, int] = {
-    _variant(ag, kv, cp, dt): 0
-    for ag in (True, False) for kv in (False, True)
-    for cp in (False, True) for dt in _DTYPE_CODES
-    if not cp or dt == torch.float32
+    **{_variant(ag, kv, cp, dt): 0
+       for ag in (True, False) for kv in (False, True)
+       for cp in (False, True) for dt in _DTYPE_CODES
+       if not cp or dt == torch.float32},
+    **{_group_variant(kv, cp, dt): 0
+       for kv in (False, True) for cp in (False, True) for dt in _DTYPE_CODES
+       if not cp or dt == torch.float32},
+    **{_replay_variant(ag, kv, dt): 0
+       for ag in (True, False) for kv in (False, True) for dt in _DTYPE_CODES},
 }
 
 
@@ -136,6 +159,7 @@ class RingGeometry(NamedTuple):
     ndir: int
 
 
+@functools.lru_cache(maxsize=1024)
 def ring_geometry(n: int, padded: int, dtype, bidir: bool = True,
                   compress: bool = False,
                   kv_shards: Optional[int] = None) -> RingGeometry:
@@ -491,3 +515,152 @@ def ring_push_reference(grads, store, handle: str = "sum",
     """Plain version of :func:`ring_push` on any device."""
     return _ring_reference(grads, store, handle, bidir, False, compress,
                            kv_shards)
+
+
+# -- grouped launch: push_pull over many buckets -------------------------------
+
+_GROUP_ALIGN = 16  # bytes: each pulled slot of a group starts 16-byte aligned
+
+
+def _group_geometries(grads_list, stores, bidir, compress, kv_shards):
+    """Validate a group's operands; returns ``(geometries, compress flags)``.
+    The checks of :func:`_geometry`, once per bucket."""
+    log.check(len(grads_list) == len(stores), "grads/stores count differ")
+    flags = ([bool(compress)] * len(stores)
+             if isinstance(compress, (bool, int)) else
+             [bool(c) for c in compress])
+    log.check(len(flags) == len(stores), "compress flags count differ")
+    geos = [_geometry(g, s, bidir, c, kv_shards)
+            for g, s, c in zip(grads_list, stores, flags)]
+    return geos, flags
+
+
+def ring_push_pull_group_reference(grads_list, stores, handle: str = "sum",
+                                   bidir: bool = True, compress=False,
+                                   kv_shards: Optional[int] = None):
+    """Plain version of :func:`ring_push_pull_group`: the plain ring of
+    each bucket, one after another."""
+    _, flags = _group_geometries(grads_list, stores, bidir, compress,
+                                 kv_shards)
+    return [_ring_reference(g, s, handle, bidir, True, c, kv_shards)
+            for g, s, c in zip(grads_list, stores, flags)]
+
+
+def ring_push_pull_group(grads_list, stores, handle: str = "sum",
+                         bidir: bool = True, compress=False,
+                         kv_shards: Optional[int] = None):
+    """:func:`ring_push_pull` over k buckets in one call: ``grads_list[i]``
+    ``[n, padded_i]`` and ``stores[i]`` ``[padded_i]`` (updated in place);
+    ``compress`` is one flag for every bucket or one per bucket.  Returns
+    the k pulled tensors (fresh).
+
+    On CUDA the uncompressed buckets of each dtype run in one launch of
+    ``ring_group_kernel`` per 48 buckets (``csrc/ring_push_pull.cu``),
+    bit-identical to their single launches; int8 buckets keep their own
+    cluster launch each (:func:`_launch_int8`), issued from this call.
+    ``launches`` counts each launch under ``ring_push_pull_group[...]``
+    (``_2d``, ``_int8`` variants)."""
+    if not stores:
+        return []
+    dev = stores[0].device
+    if dev.type == "cpu":
+        return ring_push_pull_group_reference(grads_list, stores, handle,
+                                              bidir, compress, kv_shards)
+    log.check(dev.type == "cuda", f"unsupported device {dev}")
+    geos, flags = _group_geometries(grads_list, stores, bidir, compress,
+                                    kv_shards)
+    log.check(all(s.device == dev for s in stores),
+              "group buckets on different devices")
+    code, lr = ring_handle(handle)
+    pulled = [None] * len(stores)
+    plain: Dict[torch.dtype, list] = {}
+    for i, (g, s, geo, c) in enumerate(zip(grads_list, stores, geos, flags)):
+        if c:
+            pulled[i] = torch.empty_like(s)
+            cluster, _ = _launch_shape(geo, s.numel(), _device_index(dev))
+            _launch_int8(g, s, pulled[i], geo, code, lr, True, cluster)
+            launches[_group_variant(geo.kv, True, s.dtype)] += 1
+        elif s.numel():
+            plain.setdefault(s.dtype, []).append(i)
+        else:
+            pulled[i] = torch.empty_like(s)
+    stream = _native.stream_ptr(dev)
+    for dtype, idx in plain.items():
+        # One allocation holds every pulled slot of the dtype, each slot
+        # starting 16-byte aligned so the bucket can take vectors.
+        step = _GROUP_ALIGN // dtype.itemsize
+        offs, total = [], 0
+        for i in idx:
+            offs.append(total)
+            total += -(-stores[i].numel() // step) * step
+        buf = torch.empty(total, dtype=dtype, device=dev)
+        desc = np.empty((len(idx), 9), dtype=np.int64)
+        for row, (i, off) in enumerate(zip(idx, offs)):
+            s, geo = stores[i], geos[i]
+            pulled[i] = buf.narrow(0, off, s.numel())
+            desc[row] = (grads_list[i].data_ptr(), s.data_ptr(),
+                         pulled[i].data_ptr(), s.numel(), geo.period,
+                         geo.sub, geo.split, geo.n, int(geo.kv))
+        made = ctypes.c_int(0)
+        _native.call("pstt_ring_group", desc.ctypes.data, len(idx),
+                     _DTYPE_CODES[dtype], code, lr, stream, ctypes.byref(made))
+        launches[_group_variant(kv_shards is not None, False, dtype)] += (
+            made.value)
+    return pulled
+
+
+# -- replay: T steps of the ring on one store, one call ------------------------
+
+def ring_replay_reference(grads_seq, store, handle: str = "sum",
+                          bidir: bool = True,
+                          kv_shards: Optional[int] = None,
+                          keep: str = "all"):
+    """Plain version of :func:`ring_replay`: the plain ring, T times."""
+    log.check(grads_seq.dim() == 3, "grads_seq must be [T, n, padded]")
+    outs = (torch.empty((grads_seq.shape[0], store.numel()),
+                        dtype=store.dtype, device=store.device)
+            if keep == "all" else None)
+    for t in range(grads_seq.shape[0]):
+        out = _ring_reference(grads_seq[t], store, handle, bidir,
+                              keep == "all", False, kv_shards)
+        if outs is not None:
+            outs[t] = out
+    return outs if outs is not None else store
+
+
+def ring_replay(grads_seq, store, handle: str = "sum", bidir: bool = True,
+                kv_shards: Optional[int] = None, keep: str = "all"):
+    """T consecutive ring steps on one store (the engine's replay):
+    ``grads_seq`` ``[T, n, padded]``, ``store`` ``[padded]`` (updated in
+    place).  ``keep="all"`` runs :func:`ring_push_pull` each step and
+    returns the ``[T, padded]`` pulled rows (fresh); ``keep="last"`` runs
+    :func:`ring_push` each step and returns ``store``.
+
+    On CUDA one C call (``pstt_ring_replay``) launches the T steps, so the
+    wrapper's host cost is paid once per replay; ``launches`` counts that
+    call once under ``ring_replay_push_pull[...]`` / ``ring_replay_push``
+    (``_2d`` on sub-rings).  Uncompressed rings only: the engine replays
+    int8 configurations on the torch path, as the JAX engine does."""
+    log.check(keep in ("all", "last"), f"bad keep {keep!r}")
+    if store.device.type == "cpu":
+        return ring_replay_reference(grads_seq, store, handle, bidir,
+                                     kv_shards, keep)
+    log.check(store.device.type == "cuda", f"unsupported device {store.device}")
+    log.check(grads_seq.dim() == 3 and grads_seq.is_contiguous(),
+              "grads_seq must be a contiguous [T, n, padded] tensor")
+    steps = int(grads_seq.shape[0])
+    outs = (torch.empty((steps, store.numel()), dtype=store.dtype,
+                        device=store.device) if keep == "all" else None)
+    if steps == 0:
+        return outs if outs is not None else store
+    geo = _geometry(grads_seq[0], store, bidir, False, kv_shards)
+    code, lr = ring_handle(handle)
+    _native.call(
+        "pstt_ring_replay", grads_seq.data_ptr(), store.data_ptr(),
+        outs.data_ptr() if outs is not None else None,
+        _DTYPE_CODES[store.dtype], geo.n, geo.period, geo.sub, geo.split,
+        int(geo.kv), store.numel(), code, lr, steps,
+        _native.stream_ptr(store.device),
+    )
+    launches[_replay_variant(keep == "all", geo.kv, store.dtype)] += 1
+    return outs if outs is not None else store

@@ -41,19 +41,31 @@ rank-order reduction and then the fused optimizer kernels
 
 The store and optimizer state are updated IN PLACE, where the JAX
 programs donate them.  Every result handed to a caller (``pull``,
-``push_pull``, ``push``'s token) is a fresh tensor, so a later push
-cannot change a result the caller holds.
+``push_pull``, ``push``'s token, the group, replay and stream results) is
+a fresh tensor, so a later push cannot change a result the caller holds;
+the two exceptions are asked for by name: ``push_pull(zero_copy=True)``
+(and ``replay(keep="last", zero_copy=True)``) where eligible, which return
+the store itself, and a registered pull buffer, which every ``pull``
+overwrites.
 
-Not in this slice: zero-copy and pinned pulls, replay/stream/grouped
-programs, composite (tuple) kv axes, sparse tables, resharding.
+Many ops per call: ``push_pull_group`` (one grouped ring launch per dtype
+for a list of buckets, ``ops/ring_collective.py``), ``coalescer`` (ops
+issued one at a time, from any thread, batched into groups,
+``parallel/coalesce.py``), ``replay`` (T steps of one bucket in one call)
+and ``push_pull_stream``/``push_pull_multi_stream`` (host gradients staged
+through pinned buffers on a copy stream while earlier buckets reduce).
+
+Not in this slice: composite (tuple) kv axes, sparse tables, resharding,
+multi-process groups and ranks on several cards.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -128,6 +140,49 @@ def rank_order_sum(grads: torch.Tensor) -> torch.Tensor:
     return acc.to(grads.dtype)
 
 
+class _HostStager:
+    """Stages host gradients onto a card through pinned buffers, for
+    :meth:`CollectiveEngine.push_pull_multi_stream`.
+
+    Ownership: a ring of ``depth + 2`` pinned buffers, each refilled only
+    after the event of its previous copy has completed; the device tensor
+    of a staged item is allocated on the copy stream, and the consumer
+    passes it to ``record_stream`` of the stream that reads it, so the
+    caching allocator does not hand its memory out again before that
+    stream is done with it."""
+
+    def __init__(self, device: torch.device, depth: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self._slots: List[list] = [[None, None] for _ in range(depth + 2)]
+        self._next = 0
+
+    def stage(self, grads, dtype: torch.dtype):
+        """``(device tensor, event)``: ``grads`` on the card, its copy
+        started on the copy stream and ``event`` recorded after it (None
+        for a tensor already on the card)."""
+        if isinstance(grads, torch.Tensor) and grads.device.type == "cuda":
+            return grads.to(dtype), None
+        host = to_tensor(grads, dtype, "cpu")
+        nbytes = host.numel() * dtype.itemsize
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % len(self._slots)
+        buf, event = slot
+        if event is not None:
+            event.synchronize()  # the buffer's last copy has landed
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        pinned = buf[:nbytes].view(dtype).view(host.shape)
+        pinned.copy_(host)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            dev = torch.empty(host.shape, dtype=dtype, device=self.device)
+            dev.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        slot[0], slot[1] = buf, event
+        return dev, event
+
+
 class CollectiveEngine:
     """Dense KV push/pull over the ranks of one device group.
 
@@ -185,6 +240,9 @@ class CollectiveEngine:
         # Per-bucket locks: each op reads and updates a bucket's store in
         # place, so one bucket's ops must not interleave.
         self._bucket_mu: Dict[str, threading.Lock] = {}
+        # Registered pull buffers (register_pull_buffer): bucket -> the
+        # [padded] tensor every pull of the bucket writes into.
+        self._pinned_pulls: Dict[str, torch.Tensor] = {}
         # Application-payload bytes through the data plane (the van's
         # send_bytes/recv_bytes counterpart).
         self.push_bytes = 0
@@ -296,6 +354,12 @@ class CollectiveEngine:
     def _resolve_handle(self, handle: Optional[ServerHandle]):
         return self._server_handle if handle is None else handle
 
+    @property
+    def handle_is_stateful(self) -> bool:
+        """Whether the engine's default handle carries optimizer state
+        (such handles cannot run in a group)."""
+        return self._is_stateful(self._server_handle)
+
     def _effective_impl(self, dtype, resolved_handle) -> str:
         """The configured impl resolved against what the ring kernel
         serves (the JAX engine's eligibility rules): a ring needs >= 2
@@ -316,6 +380,40 @@ class CollectiveEngine:
         """Whether the ring runs int8 wire compression (f32 only)."""
         return (self.wire_compress == "int8"
                 and torch_dtype(dtype) == torch.float32)
+
+    def _kv_shards(self) -> Optional[int]:
+        """The ring kernel's ``kv_shards``: the shard count on 2-D groups,
+        None on the 1-D ring."""
+        return self.num_shards if self.worker_axis is not None else None
+
+    def _zc_pull_eligible(self, dtype, resolved) -> bool:
+        """Whether the store itself can be the pulled value: one kv shard
+        (the all-gather is the identity, and ``padded_len ==
+        total_len``), and a stateful handle or the torch path (the ring
+        writes its own output)."""
+        if self.num_shards != 1:
+            return False
+        if self._is_stateful(resolved):
+            return True
+        return self._effective_impl(dtype, resolved) == "torch"
+
+    def flat_ring_eligible(self, dtype,
+                           handle: Optional[ServerHandle] = None) -> bool:
+        """Whether ``push_pull``/``push`` of this configuration run the
+        1-D ring kernel, whose grads are ``[W, padded]`` rows; a flat
+        ``[W*padded]`` tensor of them is taken without a copy."""
+        resolved = self._resolve_handle(handle)
+        return (not self._is_stateful(resolved)
+                and self.worker_axis is None
+                and self._effective_impl(dtype, resolved) == "ring")
+
+    def flat_zc_eligible(self, handle: Optional[ServerHandle] = None) -> bool:
+        """Whether a zero-copy ``push_pull`` of ``handle`` runs the
+        one-worker path, whose grads are one ``[padded]`` row."""
+        resolved = self._resolve_handle(handle)
+        return (self.num_shards == 1
+                and not self._is_stateful(resolved)
+                and self.worker_axis is None)
 
     # -- optimizer state -----------------------------------------------------
 
@@ -415,29 +513,21 @@ class CollectiveEngine:
                 self.pull_bytes += payload
 
     def _update(self, name: str, bucket: DenseBucket, grads,
-                handle: Optional[ServerHandle], with_pull: bool):
+                handle: Optional[ServerHandle], with_pull: bool,
+                zero_copy: bool = False):
         """Reduce ``grads``, apply the handle to the store in place, and
-        return the fresh pulled ``[padded]`` tensor (``with_pull``) or
-        None."""
+        return the fresh pulled ``[padded]`` tensor (``with_pull``; the
+        store itself with ``zero_copy`` where eligible) or None."""
         resolved = self._resolve_handle(handle)
+        zc = zero_copy and self._zc_pull_eligible(bucket.dtype, resolved)
         g = self._prep_grads(bucket, grads)
         with self._bucket_mu[name]:
             store = self._stores[name]
             if self._is_stateful(resolved):
-                if bucket.dtype != torch.float32:
-                    raise NotImplementedError(
-                        f"stateful handle {resolved!r} on a {bucket.dtype} "
-                        f"bucket: the fused optimizer kernels take float32 "
-                        f"(ROADMAP: bf16 stateful buckets)"
-                    )
-                _, fn = self._stateful_handle(resolved)
-                self._ensure_opt_state(name, resolved, bucket)
-                fn(store, self._opt_states[name], rank_order_sum(g))
+                self._stateful_fn(name, bucket, resolved)(rank_order_sum(g))
             elif self._effective_impl(bucket.dtype, resolved) == "ring":
-                kv_shards = (self.num_shards if self.worker_axis is not None
-                             else None)
                 kw = dict(compress=self._ring_compress(bucket.dtype),
-                          kv_shards=kv_shards)
+                          kv_shards=self._kv_shards())
                 if with_pull:
                     return ring_collective.ring_push_pull(g, store, resolved,
                                                           **kw)
@@ -445,15 +535,44 @@ class CollectiveEngine:
                 return None
             else:
                 self._handle_fn(resolved)(store, rank_order_sum(g))
-            return store.clone() if with_pull else None
+            if not with_pull:
+                return None
+            return store if zc else store.clone()
+
+    def _stateful_fn(self, name: str, bucket: DenseBucket, resolved: str):
+        """``step(agg)``: the bucket's optimizer step in place.  Call
+        with the bucket lock held."""
+        if bucket.dtype != torch.float32:
+            raise NotImplementedError(
+                f"stateful handle {resolved!r} on a {bucket.dtype} bucket: "
+                f"the fused optimizer kernels take float32 (ROADMAP: bf16 "
+                f"stateful buckets)"
+            )
+        _, fn = self._stateful_handle(resolved)
+        self._ensure_opt_state(name, resolved, bucket)
+        store, state = self._stores[name], self._opt_states[name]
+        return lambda agg: fn(store, state, agg)
 
     def push_pull(self, name: str, grads,
-                  handle: Optional[ServerHandle] = None) -> torch.Tensor:
+                  handle: Optional[ServerHandle] = None,
+                  zero_copy: bool = False) -> torch.Tensor:
         """Fused push + aggregate + update + pull; returns the pulled
-        ``[total_len]`` tensor (a fresh tensor, filled in stream order)."""
+        ``[total_len]`` tensor (a fresh tensor, filled in stream order).
+
+        ``zero_copy=True`` asks for the store itself where the
+        configuration allows it (:meth:`_zc_pull_eligible`: one kv shard,
+        a stateful handle or the torch path), and a fresh copy elsewhere:
+        the registered-buffer contract of the reference (the next pull
+        overwrites the buffer in place).  A difference of contract with
+        the JAX engine: there the next op donates the store, and a stale
+        holder raises on use; here the returned tensor IS the store, and
+        silently shows the values of the bucket's next op."""
         bucket = self._buckets[name]
-        pulled = self._update(name, bucket, grads, handle, with_pull=True)
+        pulled = self._update(name, bucket, grads, handle, with_pull=True,
+                              zero_copy=zero_copy)
         self._observe("push_pull", bucket)
+        if pulled is self._stores[name]:
+            return pulled  # padded == total on a zero-copy configuration
         return pulled[: bucket.total_len]
 
     def push(self, name: str, grads,
@@ -467,13 +586,276 @@ class CollectiveEngine:
         self._observe("push", bucket)
         return token
 
+    def coalescer(self, handle: Optional[ServerHandle] = None, **kw):
+        """A :class:`~pslite_tpu_torch.parallel.coalesce.
+        CoalescingDispatcher` over this engine: push_pulls issued one at a
+        time, from any thread, run as groups (:meth:`push_pull_group`)."""
+        from .coalesce import CoalescingDispatcher
+
+        return CoalescingDispatcher(self, handle=handle, **kw)
+
+    def push_pull_group(self, names, grads_list,
+                        handle: Optional[ServerHandle] = None
+                        ) -> List[torch.Tensor]:
+        """``push_pull`` of several buckets in one call: the pulled
+        ``[total_len]`` tensors in ``names`` order (fresh).
+
+        Stateless handles only.  Where every bucket runs the ring, the
+        buckets run in one grouped ring launch per dtype (int8 buckets in
+        their own cluster launch each), bit-identical to their single
+        push_pulls; otherwise each bucket takes the torch path.  The
+        buckets' locks are taken in sorted order for the whole call."""
+        log.check(len(names) == len(grads_list), "names/grads mismatch")
+        log.check(len(set(names)) == len(names),
+                  "duplicate bucket in group (each store is updated in "
+                  "place once per call)")
+        resolved = self._resolve_handle(handle)
+        log.check(not self._is_stateful(resolved),
+                  "push_pull_group supports stateless handles only")
+        buckets = [self._buckets[n] for n in names]
+        gs = [self._prep_grads(b, g) for b, g in zip(buckets, grads_list)]
+        use_ring = all(self._effective_impl(b.dtype, resolved) == "ring"
+                       for b in buckets)
+        ordered = sorted(names)
+        for n in ordered:
+            self._bucket_mu[n].acquire()
+        try:
+            stores = [self._stores[n] for n in names]
+            if use_ring:
+                pulled = ring_collective.ring_push_pull_group(
+                    gs, stores, resolved,
+                    compress=[self._ring_compress(b.dtype) for b in buckets],
+                    kv_shards=self._kv_shards())
+            else:
+                fn = self._handle_fn(resolved)
+                pulled = []
+                for store, g in zip(stores, gs):
+                    fn(store, rank_order_sum(g))
+                    pulled.append(store.clone())
+        finally:
+            for n in reversed(ordered):
+                self._bucket_mu[n].release()
+        for b in buckets:
+            self._observe("push_pull", b)
+        return [p[: b.total_len] for p, b in zip(pulled, buckets)]
+
+    # -- multi-step replay ----------------------------------------------------
+
+    def _replay_use_ring(self, dtype, resolved) -> bool:
+        """Whether a replay runs the ring kernel: a stateless ring
+        configuration without wire compression.  An int8 configuration
+        replays on the torch path (exact sums) while its single and
+        grouped ops keep the int8 ring, as the JAX engine rules."""
+        return (not self._is_stateful(resolved)
+                and self._effective_impl(dtype, resolved) == "ring"
+                and not self._ring_compress(dtype))
+
+    def _prep_grads_seq(self, bucket: DenseBucket, grads_seq) -> torch.Tensor:
+        """``[T, total]`` (each step broadcast to every worker) or ``[T,
+        W, total]`` (lengths ``padded_len`` too) as a contiguous ``[T, W,
+        padded]`` tensor of the bucket dtype on the group's device.
+
+        The JAX engine lays long sequences out as ``[W, T*padded]`` slabs
+        (``_flat_replay``/``_replay_unroll``) so that XLA does not slice
+        step t out of a tiled ``[T, padded]`` block on the TPU; a
+        contiguous ``[T, W, padded]`` tensor already makes every step's
+        ``[W, padded]`` slice contiguous, so the port keeps that one."""
+        W, padded, total = self.num_workers, bucket.padded_len, bucket.total_len
+        g = to_tensor(grads_seq, bucket.dtype, self.device)
+        log.check(g.dim() in (2, 3), "grads_seq must be [T, total] or "
+                                     "[T, W, total]")
+        if g.dim() == 2:
+            g = g.unsqueeze(1).expand(g.shape[0], W, g.shape[1])
+        log.check_eq(int(g.shape[1]), W, "bad worker dim")
+        if g.shape[2] != padded:
+            log.check_eq(int(g.shape[2]), total, "bad grad len")
+            g = torch.nn.functional.pad(g, (0, padded - total))
+        return g.contiguous()
+
+    def replay(self, name: str, grads_seq,
+               handle: Optional[ServerHandle] = None, keep: str = "all",
+               zero_copy: bool = False) -> torch.Tensor:
+        """T consecutive ``push_pull`` steps of one bucket in one call.
+
+        ``grads_seq`` is ``[T, total]`` (broadcast to every worker) or
+        ``[T, W, total]``.  ``keep="all"`` returns every step's pulled
+        values ``[T, total]``; ``keep="last"`` runs T pushes and one pull
+        at the end, returning ``[total]``, or with ``zero_copy`` on an
+        eligible configuration the store itself (see :meth:`push_pull`).
+
+        The ring configurations run one C call of T ring launches
+        (``ring_collective.ring_replay``: push_pull steps for ``all``,
+        push steps for ``last``); stateful handles run T x (rank-order sum
+        + fused optimizer kernel); the rest T torch steps.  The results
+        equal T sequential ``push_pull`` calls bit for bit."""
+        log.check(keep in ("all", "last"), f"bad keep {keep!r}")
+        bucket = self._buckets[name]
+        resolved = self._resolve_handle(handle)
+        zc = (zero_copy and keep == "last"
+              and self._zc_pull_eligible(bucket.dtype, resolved))
+        g = self._prep_grads_seq(bucket, grads_seq)
+        steps = int(g.shape[0])
+        with self._bucket_mu[name]:
+            store = self._stores[name]
+            if self._replay_use_ring(bucket.dtype, resolved):
+                outs = ring_collective.ring_replay(
+                    g, store, resolved, kv_shards=self._kv_shards(),
+                    keep=keep)
+            else:
+                if self._is_stateful(resolved):
+                    step = self._stateful_fn(name, bucket, resolved)
+                else:
+                    fn = self._handle_fn(resolved)
+
+                    def step(agg):
+                        fn(store, agg)
+
+                outs = (torch.empty((steps, bucket.padded_len),
+                                    dtype=bucket.dtype, device=self.device)
+                        if keep == "all" else None)
+                for t in range(steps):
+                    step(rank_order_sum(g[t]))
+                    if outs is not None:
+                        outs[t].copy_(store)
+            if keep == "last":
+                outs = store if zc else store.clone()
+        payload = bucket.total_len * bucket.dtype.itemsize
+        with self._counter_mu:
+            self.push_bytes += payload * steps
+            self.pull_bytes += payload * (steps if keep == "all" else 1)
+        if zc:
+            return outs
+        if keep == "all":
+            return outs[:, : bucket.total_len]
+        return outs[: bucket.total_len]
+
+    # -- host-origin streams --------------------------------------------------
+
+    def push_pull_stream(self, name: str, grads_iter: Iterable,
+                         handle: Optional[ServerHandle] = None,
+                         depth: int = 2):
+        """Generator over ``push_pull`` results of one bucket with the
+        host-to-device staging pipelined against the reductions (see
+        :meth:`push_pull_multi_stream`)."""
+        return self.push_pull_multi_stream(
+            ((name, g) for g in grads_iter), handle=handle, depth=depth)
+
+    def push_pull_multi_stream(self, pairs_iter: Iterable,
+                               handle: Optional[ServerHandle] = None,
+                               depth: int = 2):
+        """Generator over ``push_pull`` results for ``(bucket_name,
+        grads)`` pairs, with the staging of later pairs running ahead.
+
+        A stager thread consumes the iterator and stages up to ``depth``
+        items ahead of the caller, who launches each bucket's op on the
+        staged grads.  On a CUDA group, host grads (numpy arrays, CPU
+        tensors) go through pinned buffers: the stager copies the array
+        into a pinned buffer, starts a ``non_blocking`` copy to the card
+        on its own copy stream and records an event; the caller's stream
+        waits on that event before the op, so bucket i+1's transfer runs
+        under bucket i's reduction.  (A ``non_blocking`` copy from
+        pageable memory would be synchronous.)  See :class:`_HostStager`
+        for who owns each buffer.
+
+        Results come out in order; an exception in the stager re-raises
+        on the caller's thread; closing the generator early releases the
+        stager."""
+        log.check(depth >= 1, "depth must be >= 1")
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        done = object()
+        stop = threading.Event()
+        stager = (_HostStager(self.device, depth)
+                  if self.device.type == "cuda" else None)
+
+        def put(item) -> bool:
+            # A bounded put that notices an abandoned consumer instead of
+            # blocking forever on a full queue.
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stage():
+            try:
+                for name, g in pairs_iter:
+                    bucket = self._buckets[name]
+                    if stager is not None:
+                        staged = stager.stage(g, bucket.dtype)
+                    else:
+                        staged = (self._prep_grads(bucket, g), None)
+                    if not put(("ok", name, staged)):
+                        return
+            except BaseException as exc:  # surfaced on the caller's thread
+                put(("err", exc, None))
+                return
+            put((done, None, None))
+
+        t = threading.Thread(target=stage, name="engine-stager", daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, a, b = q.get()
+                if kind is done:
+                    break
+                if kind == "err":
+                    raise a
+                grads, event = b
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    # Allocated on the copy stream, read on this one.
+                    grads.record_stream(current)
+                yield self.push_pull(a, grads, handle=handle)
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=30)
+
+    # -- pulls ------------------------------------------------------------------
+
     def pull(self, name: str) -> torch.Tensor:
-        """The bucket's values ``[total_len]`` (a fresh tensor)."""
+        """The bucket's values ``[total_len]`` (a fresh tensor), or, when
+        a pull buffer is registered (:meth:`register_pull_buffer`), that
+        ``[padded]`` buffer, overwritten in place."""
         bucket = self._buckets[name]
         with self._bucket_mu[name]:
-            pulled = self._stores[name][: bucket.total_len].clone()
+            pinned = self._pinned_pulls.get(name)
+            if pinned is not None:
+                pulled = pinned.copy_(self._stores[name])
+            else:
+                pulled = self._stores[name][: bucket.total_len].clone()
         self._observe("pull", bucket)
         return pulled
+
+    def register_pull_buffer(self, name: str) -> torch.Tensor:
+        """Register a persistent ``[padded]`` pull buffer for ``name``
+        (the reference's registered-buffer contract, ucx_van.h:603-623):
+        every later ``pull(name)`` writes the store into this same
+        tensor and returns it.  At most one pull of the bucket may be
+        outstanding, and a holder of the buffer sees the next pull's
+        values.  Returns the buffer (zeros)."""
+        bucket = self._buckets[name]
+        buf = torch.zeros(bucket.padded_len, dtype=bucket.dtype,
+                          device=self.device)
+        with self._bucket_mu[name]:
+            self._pinned_pulls[name] = buf
+        return buf
+
+    def unregister_pull_buffer(self, name: str) -> None:
+        with self._bucket_mu[name]:
+            self._pinned_pulls.pop(name, None)
+
+    def pinned_pull_buffer(self, name: str) -> Optional[torch.Tensor]:
+        """The registered pull buffer of ``name``, or None."""
+        with self._bucket_mu[name]:
+            return self._pinned_pulls.get(name)
 
     def store_array(self, name: str) -> torch.Tensor:
         """A copy of the ``[padded]`` store (checkpointing)."""

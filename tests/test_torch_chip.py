@@ -382,3 +382,148 @@ def test_cuda_engine_matches_cpu_engine_2d_and_int8(dev, compress, shape):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
     torch.testing.assert_close(engines[0].pull("b").cpu(),
                                engines[1].pull("b"), rtol=0, atol=0)
+
+
+# -- grouped launch, replay and streams -------------------------------------------
+
+def _group_case(dev, n, pads, dtype, seed, offset=0):
+    """Grads and stores of a group; ``offset`` 1 places every tensor one
+    element past a 16-byte boundary (the scalar path)."""
+    def place(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        return buf[offset:].view(t.shape).copy_(t)
+
+    grads = [place(_randn((n, p), seed + i, dev).to(dtype))
+             for i, p in enumerate(pads)]
+    stores = [place(_randn((p,), seed + 100 + i, dev).to(dtype))
+              for i, p in enumerate(pads)]
+    return grads, stores
+
+
+# (n, pads, kv, compress): the ResNet-50 trace's 36 buckets (8 ranks;
+# dp=4 x kv=2 with its padding to 2), odd and tiny buckets, and 60 buckets,
+# more than one launch's table of 48.
+_TRACE = [1024 * (1 + i % 7) + 8 * i for i in range(36)]
+_GROUP_CASES = [(8, _TRACE, None, False), (4, [2 * -(-p // 2) for p in
+                                                _TRACE], 2, False),
+                (3, [3 * 1001, 3 * 5, 3 * 4096, 3 * 77], None, False),
+                (4, [4 * (37 + i) for i in range(60)], None, False),
+                (4, [2 * (37 + i) for i in range(60)], 2, False),
+                (8, _TRACE[:6], None, True), (4, [2 * 700, 2 * 9], 2, True)]
+
+
+@pytest.mark.parametrize("n,pads,kv,compress,dtype", [
+    (*case, dt) for case in _GROUP_CASES
+    for dt in (torch.float32, torch.bfloat16, torch.float16)
+    if not case[3] or dt == torch.float32])  # int8 takes float32 only
+@pytest.mark.parametrize("offset", [0, 1])
+def test_group_kernel_bit_exact(dev, n, pads, kv, compress, dtype, offset):
+    """The grouped launch against its plain version and against single
+    launches: 0 differing elements (sum and assign)."""
+    grads, stores = _group_case(dev, n, pads, dtype, 30, offset)
+    kw = dict(compress=compress, kv_shards=kv)
+    for handle in ("sum", "assign"):
+        sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+        ring.reset_launches()
+        outk = ring.ring_push_pull_group(grads, sk, handle, **kw)
+        made = sum(ring.launches.values())
+        outp = ring.ring_push_pull_group_reference(grads, sp, handle, **kw)
+        out1 = [ring.ring_push_pull(g, s, handle, **kw)
+                for g, s in zip(grads, s1)]
+        torch.cuda.synchronize()
+        for a, b, c in zip(outk, outp, out1):
+            assert torch.equal(a, b) and torch.equal(a, c), handle
+        for a, b, c in zip(sk, sp, s1):
+            assert torch.equal(a, b) and torch.equal(a, c), handle
+        assert made == (len(pads) if compress else -(-len(pads) // 48))
+
+
+def test_group_kernel_sgd_matches_single_launches(dev):
+    """sgd:lr: bit-identical to the single launches (the same FMA), and
+    within rtol/atol 1e-6 of the plain version."""
+    grads, stores = _group_case(dev, 8, _TRACE[:8], torch.float32, 40)
+    sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+    outk = ring.ring_push_pull_group(grads, sk, "sgd:0.05")
+    outp = ring.ring_push_pull_group_reference(grads, sp, "sgd:0.05")
+    out1 = [ring.ring_push_pull(g, s, "sgd:0.05") for g, s in zip(grads, s1)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(outk, outp, out1):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("keep", ["all", "last"])
+@pytest.mark.parametrize("n,padded,kv", [(8, 10_240_000, None),
+                                         (3, 3 * 1001, None),
+                                         (4, 2 * 6196, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_replay_kernel_equals_single_launches(dev, keep, n, padded, kv,
+                                              dtype):
+    grads = _randn((4, n, padded), 50, dev).to(dtype)
+    store = _randn((padded,), 51, dev).to(dtype)
+    sk, s1 = store.clone(), store.clone()
+    ring.reset_launches()
+    out = ring.ring_replay(grads, sk, "sum", kv_shards=kv, keep=keep)
+    assert sum(ring.launches.values()) == 1
+    single = ring.ring_push_pull if keep == "all" else ring.ring_push
+    seq = [single(grads[t], s1, "sum", kv_shards=kv) for t in range(4)]
+    torch.cuda.synchronize()
+    assert torch.equal(sk, s1)
+    if keep == "all":
+        assert torch.equal(out, torch.stack(seq))
+
+
+@pytest.mark.parametrize("impl,handle", [("ring", "sum"), ("torch", "sum"),
+                                         ("ring", "adam:1e-3")])
+def test_engine_replay_equals_sequential_on_the_card(dev, impl, handle):
+    engines = [CollectiveEngine(DeviceGroup(8, device=dev), impl=impl,
+                                server_handle=handle) for _ in range(2)]
+    for e in engines:
+        e.register_dense("b", np.arange(16, dtype=np.uint64), 1000)
+    seq = np.random.RandomState(9).randn(3, 8, 16_000).astype(np.float32)
+    got = engines[0].replay("b", seq)
+    want = torch.stack([engines[1].push_pull("b", g) for g in seq])
+    assert torch.equal(got, want)
+
+
+def test_stream_on_the_card(dev):
+    """Host grads staged through pinned buffers on the copy stream: the
+    results equal sequential push_pulls, a tensor already on the card
+    passes through, and the pinned ring holds depth + 2 buffers."""
+    from pslite_tpu_torch.parallel.engine import _HostStager
+
+    engines = [CollectiveEngine(DeviceGroup(8, device=dev), impl="ring")
+               for _ in range(2)]
+    for e in engines:
+        e.register_dense("s", np.arange(40, dtype=np.uint64), 25_600)
+    host = [np.random.RandomState(i).randn(8, 1_024_000).astype(np.float32)
+            for i in range(6)]
+    host[3] = torch.from_numpy(host[3]).to(dev)
+    got = [o.clone() for o in engines[0].push_pull_stream("s", iter(host),
+                                                          depth=2)]
+    want = [engines[1].push_pull("s", h) for h in host]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    stager = _HostStager(dev, 2)
+    staged, event = stager.stage(host[0], torch.float32)
+    event.synchronize()
+    assert torch.equal(staged.cpu(), torch.from_numpy(host[0]))
+    assert len(stager._slots) == 4 and stager._slots[0][0].is_pinned()
+
+
+def test_zero_copy_and_pinned_pulls_on_the_card(dev):
+    eng = CollectiveEngine(DeviceGroup(1, device=dev))
+    eng.register_dense("z", np.arange(2, dtype=np.uint64), 64)
+    out = eng.push_pull("z", np.ones((1, 128), np.float32), zero_copy=True)
+    assert out.data_ptr() == eng._stores["z"].data_ptr()
+    eng8 = CollectiveEngine(DeviceGroup(8, device=dev), impl="ring")
+    eng8.register_dense("p", np.arange(3, dtype=np.uint64), 33)
+    buf = eng8.register_pull_buffer("p")
+    for k in (1, 2):
+        eng8.push("p", np.ones(99, np.float32))
+        p = eng8.pull("p")
+        assert p.data_ptr() == buf.data_ptr()
+        assert torch.equal(p[:99].cpu(), torch.full((99,), 8.0 * k))

@@ -168,19 +168,29 @@ def test_ring_chunk_len_matches_jax():
 _N_UPDATE = 5000  # not a multiple of 128: the JAX kernels pad their tiles
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture()
 def update_inputs():
+    """Fresh inputs for each test, read-only: neither package may write
+    into an array the other one reads."""
     rng = np.random.RandomState(5)
-    return {
+    x = {
         "store": rng.randn(_N_UPDATE).astype(np.float32),
         "state": rng.randn(_N_UPDATE).astype(np.float32),
         "pos": rng.rand(_N_UPDATE).astype(np.float32),
         "agg": rng.randn(_N_UPDATE).astype(np.float32),
     }
+    for a in x.values():
+        a.flags.writeable = False
+    return x
 
 
 def _t(a):
     return torch.from_numpy(a.copy())
+
+
+def _j(a):
+    """A JAX array that owns a copy of ``a`` (never a view of it)."""
+    return jnp.array(a, copy=True)
 
 
 def _close(got, want):
@@ -190,8 +200,8 @@ def _close(got, want):
 
 def test_sgd_update_matches_jax(update_inputs):
     x = update_inputs
-    ws, wm = jfu.sgd_update(jnp.asarray(x["store"]), jnp.asarray(x["state"]),
-                            jnp.asarray(x["agg"]), lr=0.05, momentum=0.9)
+    ws, wm = jfu.sgd_update(_j(x["store"]), _j(x["state"]), _j(x["agg"]),
+                            lr=0.05, momentum=0.9)
     s, m = _t(x["store"]), _t(x["state"])
     out = tfu.sgd_update(s, m, _t(x["agg"]), lr=0.05, momentum=0.9)
     assert out[0] is s and out[1] is m  # updated in place
@@ -201,9 +211,8 @@ def test_sgd_update_matches_jax(update_inputs):
 
 def test_adagrad_update_matches_jax(update_inputs):
     x = update_inputs
-    ws, wa = jfu.adagrad_update(jnp.asarray(x["store"]),
-                                jnp.asarray(x["pos"]),
-                                jnp.asarray(x["agg"]), lr=0.05)
+    ws, wa = jfu.adagrad_update(_j(x["store"]), _j(x["pos"]), _j(x["agg"]),
+                                lr=0.05)
     s, a = _t(x["store"]), _t(x["pos"])
     tfu.adagrad_update(s, a, _t(x["agg"]), lr=0.05)
     _close(s, ws)
@@ -216,8 +225,8 @@ def test_adam_update_matches_jax(update_inputs, step):
     m0 = 0.1 * x["state"]
     v0 = 0.01 * x["pos"]
     ws, wm, wv = jfu.adam_update(
-        jnp.asarray(x["store"]), jnp.asarray(m0), jnp.asarray(v0),
-        jnp.asarray(x["agg"]), jnp.float32(step), lr=1e-3)
+        _j(x["store"]), _j(m0), _j(v0), _j(x["agg"]), jnp.float32(step),
+        lr=1e-3)
     s, m, v = _t(x["store"]), _t(m0), _t(v0)
     tfu.adam_update(s, m, v, _t(x["agg"]), torch.tensor([float(step)]),
                     lr=1e-3)
