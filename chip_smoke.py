@@ -12,17 +12,21 @@ line):
    and count.
 2. Build every CUDA kernel of the dense data plane from ``csrc/`` with
    nvcc; print the build time and the ``-Xptxas -v`` register/spill
-   report (expected: no spill stores; the int8 ring's cluster kernel,
-   ``ring_int8_cluster<4>`` and ``<1>``, about 136 bytes of static shared
-   memory each), then the int8 ring's launch shape at the shapes it is
-   timed at (cluster size, shared memory per CTA, co-resident clusters
-   at 8 and 16 CTAs, waves, scratch).
+   report (expected: no spill stores beyond a few bytes; the int8 ring's
+   cluster kernel, ``ring_int8_cluster<4>``, ``<1>`` and ``<0>`` (float4,
+   scalar, and per bucket), 72 bytes of static shared memory each), then
+   the int8 ring's launch shape at the shapes it is timed at (cluster
+   size, shared memory per CTA, co-resident clusters at each size 1-16,
+   waves, scratch), the ResNet-50 trace's grouped launch included (with
+   the launcher's cost of each size).
 3. Kernels: each kernel at the main path's shapes (n = 8 ranks,
    P = 40 x 256,000 = 10,240,000 values; the 2-D sub-rings at dp = 4 x
    kv = 2; the int8 ring also at n = 2, where its regions spill out of
    shared memory) against its plain PyTorch version on the same inputs.
    Then the grouped ring over the ResNet-50 trace's 36 buckets (f32,
-   bf16, dp = 4 x kv = 2, int8), also against 36 single launches, and
+   bf16, dp = 4 x kv = 2, int8: one launch each), also against 36 single
+   launches (the int8 group also at every cluster size the card runs),
+   and
    ``ring_replay`` of 8 steps of the bucket (push_pull and push steps),
    also against 8 single launches: 0 differing elements everywhere.
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
@@ -52,16 +56,20 @@ line):
    ``push_pull_multi_stream``'s pinned staging); the grouped bf16, 2-D
    and int8 rings over the trace; ``KVWorker.replay`` (ring keep all and
    last, torch, adam) against 8 sequential push_pulls; zero-copy and
-   registered pulls.  Then the steady-state ``engine.push_pull`` time
-   with device-resident grads, and the steady state of the trace's four
-   paths and of an 8-step replay (wall and event ms/step, the
-   profiler's device time, host-to-device GB/s).
+   registered pulls (a stale handle must raise).  The grouped int8 ring
+   must count one launch per ``push_pull_group``.  Then the steady-state
+   ``engine.push_pull`` time with device-resident grads, and the steady
+   state of the trace's five paths (``resnet50-grouped-int8``: one
+   ``push_pull_group`` per step under ``PS_ICI_COMPRESS=int8``) and of
+   an 8-step replay (wall and event ms/step, the profiler's device time,
+   host-to-device GB/s).
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -436,11 +444,14 @@ def trace_pads(rt, shards: int):
 def group_rows(torch, ring, rt, randn):
     """The grouped ring over the ResNet-50 trace's 36 buckets (8 ranks;
     2-D dp = 4 x kv = 2): f32, bf16, the 2-D sub-rings, and int8 (one
-    cluster launch per bucket from the same call).  Each against its plain
+    cluster launch over every bucket's regions).  Each against its plain
     version and against 36 single launches: 0 differing elements.  ``ms``
     is host-free (graph replay), ``ms_host`` the call with its host cost;
-    ``singles_*`` the 36 single launches the group replaces.  Bytes:
-    (n+3)*P*itemsize over the trace's P values."""
+    ``singles_*`` the 36 single launches the group replaces.  The int8
+    group also: its launch shape (cluster size, waves) and its host-free
+    time at every cluster size the card runs, each forced, each with 0
+    differing elements against the chosen size.  Bytes: (n+3)*P*itemsize
+    over the trace's P values."""
     rows = []
     specs = [  # (name, ranks, kv_shards, compress, dtype)
         ("ring_push_pull_group[float32]", N, None, False, torch.float32),
@@ -477,6 +488,8 @@ def group_rows(torch, ring, rt, randn):
             iters=2, warmup=1)
         total = sum(pads)
         b_ms, b_by = bound((n + 3) * total * dtype.itemsize, n * total)
+        extra = int8_group_sizes(torch, ring, grads, stores, pads) \
+            if compress else {}
         rows.append(dict(
             name=name, route="cuda",
             source=("pslite_tpu_torch/csrc/ring_int8.cu" if compress
@@ -487,10 +500,38 @@ def group_rows(torch, ring, rt, randn):
             library_note="no PyTorch call walks a ring",
             buckets=len(pads), values=total, singles_ms=single_ms,
             singles_ms_host=single_host, elements_off_plain=off_plain,
-            elements_off_singles=off_single,
+            elements_off_singles=off_single, **extra,
         ))
         del grads, stores, sk, sp
     return rows
+
+
+def int8_group_sizes(torch, ring, grads, stores, pads):
+    """The grouped int8 launch over the trace at every cluster size the
+    card runs, forced: host-free ms per size, each store equal to the
+    launcher's own choice's (0 differing elements), and the launch shape
+    (chosen size, waves, the launcher's cost of each size)."""
+    layout = ring.int8_layout(N, pads)
+    shape = ring.int8_launch_shape(N, pads)
+    geos = [geo for geo, _ in layout]
+    ms_by = {}
+    for c in ring.INT8_CLUSTERS:
+        if not shape["max_active_clusters"][c]:
+            continue
+        sc = [s.clone() for s in stores]
+        outs = [torch.empty_like(s) for s in sc]
+        ring._launch_int8(grads, sc, outs, geos, 0, 0.0, True, c)
+        want = [s.clone() for s in stores]
+        ring.ring_push_pull_group(grads, want, "sum", compress=True)
+        torch.cuda.synchronize()
+        for a, b in zip(sc, want):
+            mismatches(a, b)
+        ms_by[c] = graph_ms(lambda: ring._launch_int8(
+            grads, sc, outs, geos, 0, 0.0, True, c))
+        del sc, outs, want
+    return dict(cluster=shape["cluster"], waves=shape["waves"],
+                nregions=shape["nregions"], ms_by_cluster=ms_by,
+                cost_by_cluster=shape["cost"])
 
 
 REPLAY_STEPS = 8
@@ -661,24 +702,39 @@ def _check_int8(label, op, k, out64, s64, bound_sum):
     return err, rel
 
 
+@contextlib.contextmanager
+def int8_process_env():
+    """``PS_ICI_COMPRESS=int8`` in the process environment (where the
+    engine reads it when it is built), restored afterwards."""
+    saved = os.environ.get("PS_ICI_COMPRESS")
+    os.environ["PS_ICI_COMPRESS"] = "int8"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PS_ICI_COMPRESS")
+        else:
+            os.environ["PS_ICI_COMPRESS"] = saved
+
+
+def int8_worker_postoffice(ps, Environment, handle: str = "sum"):
+    """A started worker Postoffice on 8 ranks whose engine runs the int8
+    ring (``PS_ICI_IMPL=pallas``, ``PS_ICI_COMPRESS=int8``)."""
+    with int8_process_env():
+        po = ps.Postoffice("worker", env=Environment({
+            "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": handle}))
+        po.van.set_mesh(ps.DeviceGroup(N))
+        po.start()
+    return po
+
+
 def drive_int8(torch, ps, ring, Environment, grads_steps):
     """KVWorker under PS_ICI_IMPL=pallas PS_ICI_COMPRESS=int8 on the
     40 x 1 MB bucket, 8 ranks: 3 push_pulls, a push, a pull.  Each op is
     checked against float64 and against the plain version on the card
     (the engine's store before the op, the same grads)."""
     keys = np.arange(KEYS, dtype=np.uint64)
-    saved = os.environ.get("PS_ICI_COMPRESS")
-    os.environ["PS_ICI_COMPRESS"] = "int8"  # the engine reads the process env
-    try:
-        po = ps.Postoffice("worker", env=Environment({"PS_ICI_IMPL":
-                                                      "pallas"}))
-        po.van.set_mesh(ps.DeviceGroup(N))
-        po.start()
-    finally:
-        if saved is None:
-            os.environ.pop("PS_ICI_COMPRESS")
-        else:
-            os.environ["PS_ICI_COMPRESS"] = saved
+    po = int8_worker_postoffice(ps, Environment)
     worker = ps.KVWorker(0, 0, postoffice=po)
     eng = worker.engine
     if eng.wire_compress != "int8":
@@ -1033,13 +1089,17 @@ def drive_replay(torch, ps, Environment, dev_steps):
 
 def drive_zero_copy(torch, ps, Environment, grads_steps):
     """Zero-copy and registered pulls through the user's entry points:
-    ``push_pull(zero_copy=True)`` on a 1-rank group returns the store
-    itself (same address) with the right values; a registered pull buffer
-    on the 8-rank ring receives every ``KVWorker.pull`` at one address."""
+    ``push_pull(zero_copy=True)`` on a 1-rank group returns a handle on
+    the store's memory (same address) with the right values, which the
+    next push_pull makes stale (a use raises, ``is_deleted()``); a
+    registered pull buffer on the 8-rank ring receives every
+    ``KVWorker.pull`` at one address, each pull's handle stale after the
+    next."""
     keys = np.arange(KEYS, dtype=np.uint64)
     eng = ps.CollectiveEngine(ps.DeviceGroup(1), impl="xla")
     eng.register_dense("z", keys, VAL_LEN)
     want, mag, worst = np.zeros(P), np.zeros(P), 0.0
+    prev = None
     for k in range(2):
         g = grads_steps[k][:1]
         out = eng.push_pull("z", g, zero_copy=True)
@@ -1051,13 +1111,17 @@ def drive_zero_copy(torch, ps, Environment, grads_steps):
         worst = max(worst, _check_sum("zero-copy push_pull",
                                       out.cpu().numpy(), want, mag, k + 1,
                                       1))
+        if prev is not None:
+            expect_stale(prev, "zero-copy push_pull")
+        prev = out
     po = ps.Postoffice("worker", env=Environment({
         "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
     po.van.set_mesh(ps.DeviceGroup(N))
     po.start()
     worker = ps.KVWorker(0, 0, postoffice=po)
     worker.register_dense("grads", keys, VAL_LEN)
-    buf = worker.register_pull_buffer("grads")
+    prev = worker.register_pull_buffer("grads")
+    addr = prev.data_ptr()
     s64, mag, outs = np.zeros(P), np.zeros(P), np.zeros(P, np.float32)
     for k in range(2):
         g = grads_steps[k]
@@ -1065,19 +1129,33 @@ def drive_zero_copy(torch, ps, Environment, grads_steps):
         worker.wait(worker.pull(keys, outs))
         s64 = s64 + g.astype(np.float64).sum(0)
         mag = mag + np.abs(g).astype(np.float64).sum(0)
-        if worker.engine.pinned_pull_buffer("grads").data_ptr() != \
-                buf.data_ptr():
+        live = worker.engine.pinned_pull_buffer("grads")
+        if live.data_ptr() != addr:
             raise AssertionError("the registered pull buffer moved")
+        expect_stale(prev, "registered pull buffer")
+        prev = live
         worst = max(worst,
                     _check_sum("registered pull buffer", outs, s64, mag,
                                k + 1, N),
                     _check_sum("registered pull buffer (device)",
-                               buf.cpu().numpy(), s64, mag, k + 1, N))
+                               live.cpu().numpy(), s64, mag, k + 1, N))
     worker.stop()
     po.finalize()
     return [{"config": "zero-copy push_pull (1 rank) + registered pull "
                        "buffer (8 ranks)", "ops": 6,
              "max_abs_err_vs_f64": worst}]
+
+
+def expect_stale(handle, label):
+    """A handle replaced by its bucket's next op reports
+    ``is_deleted()`` and raises on use, as a donated JAX array."""
+    if not handle.is_deleted():
+        raise AssertionError(f"{label}: a replaced handle is not deleted")
+    try:
+        handle.cpu()
+    except RuntimeError:
+        return
+    raise AssertionError(f"{label}: a stale handle did not raise")
 
 
 def device_breakdown(torch, step, iters: int = 5):
@@ -1163,19 +1241,26 @@ def steady_state(torch, ps):
 def steady_state_trace(torch, ps, rt, Environment):
     """Steady state of the ResNet-50 trace (36 buckets, 8 ranks, ring sum)
     through ``resnet_trace.replay`` on a KVWorker's engine, per cell:
-    per-bucket push_pulls of device grads, one grouped push_pull, and
-    host-origin numpy grads copied serially in each push_pull or staged
-    by ``push_pull_multi_stream``; and ``replay`` of T = 8 steps of the
-    40 x 1 MB bucket.  Each cell: wall ms/step (host clock to a
-    synchronize), CUDA-event ms/step, and the profiler's device time per
-    step (kernels, and copies on their own), busy share against the wall
-    time; host-origin cells also the host-to-device GB/s of their
-    grads."""
+    per-bucket push_pulls of device grads, one grouped push_pull (exact,
+    and ``resnet50-grouped-int8`` on an engine built under
+    ``PS_ICI_COMPRESS=int8``), and host-origin numpy grads copied serially
+    in each push_pull or staged by ``push_pull_multi_stream``; and
+    ``replay`` of T = 8 steps of the 40 x 1 MB bucket.  Each cell: wall
+    ms/step (host clock to a synchronize), CUDA-event ms/step, and the
+    profiler's device time per step (kernels, and copies on their own),
+    busy share against the wall time; host-origin cells also the
+    host-to-device GB/s of their grads.  After the int8 cell, two more
+    grouped steps on fresh stores are pulled and checked against float64
+    within the int8 bound."""
     po = ps.Postoffice("worker", env=Environment({
         "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
     po.van.set_mesh(ps.DeviceGroup(N))
     po.start()
     eng = ps.KVWorker(0, 0, postoffice=po).engine
+    po8 = int8_worker_postoffice(ps, Environment)
+    eng8 = ps.KVWorker(0, 0, postoffice=po8).engine
+    if eng8.wire_compress != "int8":
+        raise AssertionError("PS_ICI_COMPRESS=int8 did not reach the engine")
 
     def events(loop):
         start = torch.cuda.Event(enable_timing=True)
@@ -1188,14 +1273,15 @@ def steady_state_trace(torch, ps, rt, Environment):
 
     out = []
     host_bytes = sum(N * p * 4 for p in trace_pads(rt, N))
-    for cell, grouped, host_origin, overlap, steps in (
-            ("resnet50-per-bucket", False, False, False, ITERS),
-            ("resnet50-grouped", True, False, False, ITERS),
-            ("resnet50-host-serial", False, True, False, 5),
-            ("resnet50-host-overlap", False, True, True, 5)):
+    for cell, engine, grouped, host_origin, overlap, steps in (
+            ("resnet50-per-bucket", eng, False, False, False, ITERS),
+            ("resnet50-grouped", eng, True, False, False, ITERS),
+            ("resnet50-grouped-int8", eng8, True, False, False, ITERS),
+            ("resnet50-host-serial", eng, False, True, False, 5),
+            ("resnet50-host-overlap", eng, False, True, True, 5)):
         kw = dict(grouped=grouped, host_origin=host_origin, overlap=overlap)
-        nbytes, wall_s = rt.replay(eng, steps=steps, **kw)
-        _, event_s = rt.replay(eng, steps=steps, measure=events, **kw)
+        nbytes, wall_s = rt.replay(engine, steps=steps, **kw)
+        _, event_s = rt.replay(engine, steps=steps, measure=events, **kw)
         seen = {}
 
         def profiled(loop):
@@ -1203,7 +1289,7 @@ def steady_state_trace(torch, ps, rt, Environment):
                 torch, loop, iters=1)
             return seen["busy"] / 1e3
 
-        rt.replay(eng, steps=3, measure=profiled, **kw)
+        rt.replay(engine, steps=3, measure=profiled, **kw)
         busy = seen["busy"] / 3
         kernels = [(k, ms / 3) for k, ms in seen["kernels"]]
         wall_ms = wall_s * 1e3
@@ -1215,7 +1301,24 @@ def steady_state_trace(torch, ps, rt, Environment):
         if host_origin:
             row["h2d_gbps_wall"] = host_bytes / wall_s / 1e9
         out.append(row)
+    # The int8 cell's pulled values: 2 grouped steps of ones (as the cell
+    # pushes) on fresh stores.
+    names = [name for name, _ in rt.make_buckets()]
+    for name, n in rt.make_buckets():
+        eng8.register_dense(name, np.arange(1, dtype=np.uint64), n)
+    ones = [torch.ones((N, eng8.bucket(name).padded_len), device=eng8.device)
+            for name in names]
+    for _ in range(2):
+        pulled = eng8.push_pull_group(names, ones)
+    bound_sum = sum(2 * N * (N + (k - 1) * N) / 127 for k in (1, 2))
+    out[2]["max_abs_err_vs_f64"] = max(
+        _check_int8(f"resnet50-grouped-int8 {name}", "push_pull", 2,
+                    p.double().cpu().numpy(), np.full(p.numel(), 2.0 * N),
+                    bound_sum)[0]
+        for name, p in zip(names, pulled))
+    out[2]["error_bound"] = bound_sum
     po.finalize()
+    po8.finalize()
 
     eng = ps.CollectiveEngine(ps.DeviceGroup(N), impl="pallas")
     eng.register_dense("b", np.arange(KEYS, dtype=np.uint64), VAL_LEN)
@@ -1279,15 +1382,20 @@ def main() -> int:
         if "ptxas info" in line or "spill" in line:
             print(f"  {line.strip()}")
 
-    for label, n, kv in (("1-D n=8", N, None), ("2-D dp4xkv2", 4, 2),
-                         ("1-D n=2", 2, None)):
-        shape = ring.int8_launch_shape(n, P, kv_shards=kv)
-        print(f"int8 ring launch shape {label} P={P}: cluster "
+    for label, n, kv, pads in (
+            ("1-D n=8", N, None, P), ("2-D dp4xkv2", 4, 2, P),
+            ("1-D n=2", 2, None, P),
+            ("grouped trace 1-D n=8", N, None, trace_pads(rt, N)),
+            ("grouped trace 2-D dp4xkv2", 4, 2, trace_pads(rt, 2))):
+        shape = ring.int8_launch_shape(n, pads, kv_shards=kv)
+        size = P if isinstance(pads, int) else f"{len(pads)} buckets"
+        print(f"int8 ring launch shape {label} P={size}: cluster "
               f"{shape['cluster']} CTAs x {shape['nregions']} regions, "
               f"{shape['smem_floats'] * 4} B shared memory per CTA (slice "
               f"{shape['slice']} values), co-resident clusters "
               f"{shape['max_active_clusters']}, waves {shape['waves']}, "
-              f"scratch {shape['scratch']} values")
+              f"scratch {shape['scratch']} values; launcher cost (bytes "
+              f"per CTA) {shape['cost']}")
 
     rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
     for r in rows:
@@ -1304,6 +1412,11 @@ def main() -> int:
             print(f"    {r['buckets']} buckets, {r['values']} values; the "
                   f"{r['buckets']} single launches: {r['singles_ms']:.4f} ms "
                   f"host-free, {r['singles_ms_host']:.4f} ms host-inclusive")
+        if "ms_by_cluster" in r:
+            print(f"    one launch of {r['nregions']} regions at cluster "
+                  f"{r['cluster']} ({r['waves']} waves); host-free ms by "
+                  f"forced cluster size: " + ", ".join(
+                      f"{c}: {ms:.4f}" for c, ms in r["ms_by_cluster"].items()))
         if "steps" in r:
             print(f"    per step of {r['steps']}: {r['ms_per_step']:.4f} ms "
                   f"host-free, {r['ms_host_per_step']:.4f} ms "
@@ -1362,6 +1475,12 @@ def main() -> int:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} never launched on the main "
                                  f"path")
+    # The groups path runs 2 int8 push_pull_groups of 36 buckets: one
+    # launch each.
+    grouped8 = path_counts["groups"]["ring_push_pull_group_int8[float32]"]
+    if grouped8 != 2:
+        raise AssertionError(f"the grouped int8 ring launched {grouped8} "
+                             f"times for 2 groups")
     del grads_steps, host, dev_steps
 
     for r in steady_state(torch, ps):
@@ -1378,6 +1497,9 @@ def main() -> int:
     for r in steady_state_trace(torch, ps, rt, Environment):
         h2d = (f", host-to-device {r['h2d_gbps_wall']:.2f} GB/s wall"
                if "h2d_gbps_wall" in r else "")
+        if "error_bound" in r:
+            h2d += (f", max |err| vs float64 {r['max_abs_err_vs_f64']:.3g} "
+                    f"(int8 bound {r['error_bound']:.3g})")
         print(f"steady {r['cell']}: {r['wall_ms_per_step']:.4f} ms/step "
               f"wall, {r['event_ms_per_step']:.4f} ms/step (CUDA events), "
               f"{r['goodput_gbps_wall']:.1f} GB/s wall{h2d}; profiler: "

@@ -33,52 +33,87 @@
 // Design.  A hop needs the absmax of its whole region (up to 643,072 values at
 // the main path's shapes) before the next hop can quantize, so no thread can
 // walk its elements alone.  The TPU keeps the region in VMEM for the whole
-// walk; here one thread block CLUSTER of C CTAs (C in 8..16, chosen per
-// geometry by the wrapper) owns one region (shard b, sub-chunk c, direction
-// d) and keeps it in shared memory:
-//   - the region [start, start + len) (a table row computed once per geometry
-//     by ops/ring_collective.py) is cut into C contiguous slices of
+// walk; here one thread block CLUSTER of C CTAs (C in 1..16, chosen per
+// launch by the wrapper) owns one region (shard b, sub-chunk c, direction
+// d of one bucket) and keeps it in shared memory:
+//   - the region [start, start + len) (a table row computed once per
+//     geometry by ops/ring_collective.py) is cut into C contiguous slices of
 //     round4(ceil(len / C)) values, one per CTA;
 //   - each CTA keeps the first `smem_floats` values of its slice in dynamic
 //     shared memory (at most kMaxSmemFloats = 57,344 f32 = 224 KiB, so one
-//     cluster holds C * 57,344 values: 917,504 at C = 16, 458,752 at C = 8);
-//     the rest of a longer slice spills to `scratch`, a [padded] f32 tensor
-//     indexed like the bucket, which the wrapper allocates only then;
+//     cluster holds C * 57,344 values: 917,504 at C = 16, 57,344 at C = 1);
+//     the rest of a longer slice spills to the bucket's `scratch`, a
+//     [padded] f32 tensor indexed like the bucket, which the wrapper
+//     allocates only for a bucket that spills;
 //   - every hop reads one grads row once and updates the partial sums in
 //     place; each CTA reduces |v| over its slice and writes it to its own
 //     shared slot, and after one cluster barrier every warp reads the C slots
-//     of the cluster through distributed shared memory.  Two slots alternate
-//     by hop parity, so one barrier per hop suffices (a slot is rewritten two
-//     hops later, after every peer has passed the barrier that follows its
-//     read).  The barrier is split (arrive, then wait): between the two, each
-//     thread issues its first batch of the next hop's loads, which do not
-//     depend on the scale;
+//     of the cluster through distributed shared memory (C = 1: its own
+//     slot, behind a barrier of one CTA).  Two slots alternate by hop
+//     parity, so one barrier per hop suffices (a slot is rewritten two hops
+//     later, after every peer has passed the barrier that follows its read).
+//     The barrier is split (arrive, then wait): between the two, each thread
+//     issues its first batch of the next hop's loads, which do not depend on
+//     the scale;
 //   - each thread keeps kUnroll = 8 float4 loads in flight (64 KiB per SM);
 //   - the owner hop reads the store; the gather writes pulled (and, 2-D, the
 //     store) from the values still on chip.
 // The launch reads each grads row, the store and nothing else once and writes
 // the store and pulled once: exactly the bound's bytes when nothing spills.
 // A spilled value costs 8 more bytes per hop (written and read back).  No
-// scratch, slots, memsets or atomics; a max does not depend on order, and
-// every element's arithmetic is that of the plain version, so the result is
-// bit-exact.  The IEEE division of the quantizer is the costliest
+// memsets or atomics; a max does not depend on order, and every element's
+// arithmetic is that of the plain version, so the result is bit-exact and
+// does not depend on C.  The IEEE division of the quantizer is the costliest
 // instruction sequence per value; quant() replaces it by a multiplication by
 // the reciprocal wherever that provably rounds to the same integer.
 //
+// One launch, many buckets.  A launch takes a table of up to 48 buckets
+// (pointers, length, rank count, float4 flag) BY VALUE as its parameter, as
+// ring_push_pull.cu's grouped kernel does, and a device table of region rows
+// (start, len, chunk, step, bucket) that spans all of them: one cluster per
+// row.  The single push_pull/push is a launch over a table of one bucket; the
+// engine's push_pull_group (the JAX engine's k ring kernels in one program,
+// pslite_tpu/parallel/engine.py:1333-1433) puts the regions of every int8
+// bucket of the call in one launch (the ResNet-50 trace: 528 regions of 36
+// buckets, 128 to 65,536 values each).  The wrapper sorts the rows longest
+// first, so the block scheduler hands the short regions to SMs as the long
+// walks finish, and caches the table per group geometry on the device.  A
+// bucket whose pointers or regions cannot take float4 runs the scalar walk
+// inside the same launch (the <0> instantiation branches per cluster); the
+// others keep float4.  Bound of a group: (n+3)*4*P bytes over its P values,
+// the same as its single launches (the trace at 8 ranks: 1.124 GB, 335.7 us
+// at 3.35 TB/s).
+//
+// Cluster size.  One C per launch.  C = 1 reads no peer's shared memory,
+// but holds only 57,344 values of a region on chip; a larger
+// C holds more and walks a long region faster, at C times the barriers per
+// SM of work.  The wrapper asks cudaOccupancyMaxActiveClusters
+// (pstt_ring_int8_occupancy) how many clusters of each size run at once and
+// picks the size with the least makespan of the rows' work, in bytes per
+// CTA, assigned longest first to that many cluster slots (ring_collective.py
+// int8_cost).  -Xptxas -v: the <4> instantiation takes 128 registers a
+// thread, all __launch_bounds__(512, 1) allows, so one CTA runs per SM
+// whatever its shared memory; the occupancy query sees that too.
+//
+// What still limits it.  A region's n+1 sweeps are separated by cluster
+// barriers, and after each one a CTA has only the loads it issued before the
+// barrier in flight: a short region (the trace's are 12K-65K values, a few
+// thousand per CTA) spends a large share of its walk there, and one CTA per
+// SM walks one region at a time.  The tail of the longest-first assignment
+// leaves SMs idle at the end of a launch, and a scalar bucket (odd region
+// starts) reads one float per load.  Carrying two regions per CTA, or the
+// next region's first loads across the barrier, is what would hide the
+// barriers; PERF.md records the measured share of the bound.
+//
 // Launch: cudaLaunchKernelEx with a cluster dimension; 9-16 CTAs are
 // non-portable cluster sizes (cudaFuncAttributeNonPortableClusterSizeAllowed).
-// A CTA that holds more than 114 KiB runs alone on its SM; the wrapper queries
-// cudaOccupancyMaxActiveClusters (pstt_ring_int8_occupancy) for each size and
-// picks the one with the fewest bytes per CTA times waves.  On an H100 SXM
-// (132 SMs) 7 such clusters of 10-16 CTAs run at once, so the main path's 16
-// regions take 3 waves of 16-CTA clusters (7, 7, 2).  A refused launch
-// returns its error; nothing falls back.  -Xptxas -v: two instantiations,
-// 80 bytes of static shared memory each; the vector one (<4>) spills
-// nothing, the scalar one (<1>, odd shapes only) a few bytes.
+// A refused launch returns its error; nothing falls back.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -256,29 +291,61 @@ __device__ __forceinline__ void prefetch(const float* __restrict__ row,
   }
 }
 
-// Region table row: start, length, owning chunk c, walk step (1 or n-1).
-struct Region {
-  long long start, len, chunk, step;
+// One bucket of a launch: its pointers (pulled and scratch may be NULL),
+// its length, its rank count, and whether it takes float4 accesses.
+// 48 bytes.
+struct Bucket {
+  const float* grads;  // [n, padded], row w = rank w
+  float* store;        // [padded]
+  float* pulled;       // [padded] or NULL
+  float* scratch;      // [padded] or NULL (a region of it spills)
+  long long padded;
+  int n;
+  int vec;
 };
 
-// One cluster per region.  Partial sums of the slice's first smem_floats
-// values live in dynamic shared memory, the rest in scratch.
-template <int V>
-__global__ void __launch_bounds__(kThreads, 1)
-ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
-                  float* __restrict__ pulled, float* __restrict__ scratch,
-                  const Region* __restrict__ regions, int n, long long padded,
-                  int smem_floats, int handle, float lr, bool gather,
-                  bool store_takes_pulled) {
-  extern __shared__ float4 smem_vec[];
-  float* buf = reinterpret_cast<float*>(smem_vec);
-  __shared__ float warp_slot[kWarps];
-  __shared__ float slot[2];
+// Buckets per launch.  The table is passed by value as the kernel's
+// parameter (8 + 48 * 48 = 2,312 bytes, inside the 4 KiB every CUDA 12
+// driver takes), so no copy to the device precedes the launch; longer
+// groups take several launches (ops/ring_collective.py INT8_MAX_GROUP).
+constexpr int kMaxGroup = 48;
 
+struct BucketTable {
+  int count;
+  Bucket b[kMaxGroup];
+};
+
+// Region table row: start, length, owning chunk c, walk step (1 or n-1),
+// and the bucket (an index into the launch's BucketTable).
+struct Region {
+  long long start, len, chunk, step, bucket;
+};
+
+// The CTA's reduction slots: one per warp, and the CTA's maximum for the
+// two hop parities (read by the cluster's peers through DSMEM).
+struct Slots {
+  float warp[kWarps];
+  float cta[2];
+};
+
+// One CTA's part of the walk of one region of one bucket.  Partial sums of
+// the slice's first smem_floats values live in `buf` (dynamic shared
+// memory), the rest in the bucket's scratch.  A cluster of one CTA (C = 1)
+// takes the same path: its barrier is the CTA's, its slot its own.
+template <int V>
+__device__ __forceinline__ void walk(const Bucket& bk, const Region& reg,
+                                     int smem_floats, int handle, float lr,
+                                     bool gather, bool kv_store) {
+  // Declared here, not passed in, so that a walk called out of line still
+  // addresses them as shared memory.
+  extern __shared__ float4 smem_vec[];
+  __shared__ Slots sh;
+  float* buf = reinterpret_cast<float*>(smem_vec);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int r = static_cast<int>(cluster.block_rank());
-  const Region reg = regions[blockIdx.x / C];
+  const int n = bk.n;
+  const long long padded = bk.padded;
   const long long slice = ((reg.len + C - 1) / C + 3) / 4 * 4;
   const long long lo = min(static_cast<long long>(r) * slice, reg.len);
   const long long m = min(lo + slice, reg.len) - lo;  // values in this slice
@@ -287,16 +354,16 @@ ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   auto row_of = [&](int k) {
-    return grads + ((reg.chunk + k * reg.step) % n) * padded + base;
+    return bk.grads + ((reg.chunk + k * reg.step) % n) * padded + base;
   };
-  // Max |value| over the cluster -> slot[par]; arrive on the cluster barrier.
+  // Max |value| over the CTA -> sh.cta[par]; arrive on the cluster barrier.
   auto publish = [&](float v, int par) {
     v = warp_max(v);
-    if (lane == 0) warp_slot[warp] = v;
+    if (lane == 0) sh.warp[warp] = v;
     __syncthreads();
     if (warp == 0) {
-      v = warp_max(lane < kWarps ? warp_slot[lane] : 0.f);
-      if (lane == 0) slot[par] = v;
+      v = warp_max(lane < kWarps ? sh.warp[lane] : 0.f);
+      if (lane == 0) sh.cta[par] = v;
     }
     cluster_arrive();
   };
@@ -304,13 +371,13 @@ ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
   auto region_scale = [&](int par) {
     cluster_wait();
     float v = 0.f;
-    if (lane < C) v = *cluster.map_shared_rank(&slot[par], lane);
+    if (lane < C) v = *cluster.map_shared_rank(&sh.cta[par], lane);
     return scale_of(warp_max(v));
   };
 
-  float* spill = scratch != nullptr ? scratch + base : nullptr;
-  float* st = store + base;
-  float* pl = pulled != nullptr ? pulled + base : nullptr;
+  float* spill = bk.scratch != nullptr ? bk.scratch + base : nullptr;
+  float* st = bk.store + base;
+  float* pl = bk.pulled != nullptr ? bk.pulled + base : nullptr;
   Batch<V> pre;
   // Hop 1: the first rank's grads; the spilled part stays where it is.
   const float* row1 = row_of(1);
@@ -322,7 +389,6 @@ ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
                                               nullptr, nullptr, 0.f, 0, 0.f,
                                               false, pre, false));
   publish(amax, 0);
-  const bool kv_store = store_takes_pulled;
   for (int k = 2; k <= n; ++k) {
     const float* row = row_of(k);
     const bool owner = k == n;
@@ -359,6 +425,44 @@ ring_int8_cluster(const float* __restrict__ grads, float* __restrict__ store,
       sweep<kGather, true, V>(nsm, m, spill, nullptr, nullptr, st, pl, scale,
                               0, 0.f, kv_store, pre, false);
   }
+}
+
+// The mixed instantiation calls each walk out of line, once per CTA:
+// inlined side by side they share one register allocation, and the float4
+// walk spilled 160-216 bytes.
+template <int V>
+__device__ __noinline__ void walk_call(const Bucket bk, const Region reg,
+                                       int smem_floats, int handle, float lr,
+                                       bool gather, bool kv_store) {
+  walk<V>(bk, reg, smem_floats, handle, lr, gather, kv_store);
+}
+
+// One cluster of C CTAs per region row.  VM: 4 when every bucket of the
+// launch takes float4, 1 when none does, 0 when the launch mixes both (each
+// cluster branches on its bucket's flag).  ONE: a launch of one bucket,
+// whose fields the kernel then reads at fixed offsets of its parameter
+// (constant-bank operands, as plain kernel parameters); a table index
+// known only at run time makes the compiler hold the bucket's fields in
+// registers, and the float4 walk spills (24 bytes; the single int8 rows
+// ran 2-6 % slower).
+template <int VM, bool ONE>
+__global__ void __launch_bounds__(kThreads, 1)
+ring_int8_cluster(const BucketTable table, const Region* __restrict__ regions,
+                  int smem_floats, int handle, float lr, bool gather,
+                  bool store_takes_pulled) {
+  const Region reg = regions[blockIdx.x / cg::this_cluster().num_blocks()];
+  const Bucket& bk = table.b[ONE ? 0 : reg.bucket];
+  if constexpr (VM == 0) {
+    if (bk.vec) {
+      walk_call<4>(bk, reg, smem_floats, handle, lr, gather,
+                   store_takes_pulled);
+    } else {
+      walk_call<1>(bk, reg, smem_floats, handle, lr, gather,
+                   store_takes_pulled);
+    }
+  } else {
+    walk<VM>(bk, reg, smem_floats, handle, lr, gather, store_takes_pulled);
+  }
   // No CTA may leave while a peer can still read its slots.
   cluster_arrive();
   cluster_wait();
@@ -369,16 +473,17 @@ bool aligned16(const void* p) {
 }
 
 // Once per instantiation: allow the largest dynamic shared memory and the
-// non-portable cluster size (outside any stream capture: the first call
+// non-portable cluster sizes (outside any stream capture: the first call
 // comes before).
-template <int V>
+template <int VM, bool ONE>
 cudaError_t prepare() {
   static cudaError_t done = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        ring_int8_cluster<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring_int8_cluster<VM, ONE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmemFloats * static_cast<int>(sizeof(float)));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ring_int8_cluster<V>,
+    return cudaFuncSetAttribute(ring_int8_cluster<VM, ONE>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
                                 1);
   }();
@@ -401,85 +506,117 @@ void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   cfg.numAttrs = 1;
 }
 
-template <int V>
-cudaError_t run(const float* g, float* s, float* p, float* sc,
-                const Region* regions, long long nregions, int cluster,
-                int smem_floats, int n, long long padded, int handle, float lr,
-                bool gather, bool stp, cudaStream_t st) {
-  cudaError_t err = prepare<V>();
+template <int VM, bool ONE>
+cudaError_t run(const BucketTable& table, const Region* regions,
+                long long nregions, int cluster, int smem_floats, int handle,
+                float lr, bool gather, bool stp, cudaStream_t st) {
+  cudaError_t err = prepare<VM, ONE>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   config(cfg, attr, nregions, cluster, smem_floats, st);
-  err = cudaLaunchKernelEx(&cfg, ring_int8_cluster<V>, g, s, p, sc, regions, n,
-                           padded, smem_floats, handle, lr, gather, stp);
+  err = cudaLaunchKernelEx(&cfg, ring_int8_cluster<VM, ONE>, table, regions,
+                           smem_floats, handle, lr, gather, stp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int V>
+template <int VM, bool ONE>
 cudaError_t occupancy(int cluster, int smem_floats, int* max_clusters) {
-  cudaError_t err = prepare<V>();
+  cudaError_t err = prepare<VM, ONE>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   config(cfg, attr, 1, cluster, smem_floats, nullptr);
-  return cudaOccupancyMaxActiveClusters(max_clusters, ring_int8_cluster<V>,
-                                        &cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        ring_int8_cluster<VM, ONE>, &cfg);
 }
+
+// The instantiation of a launch: `mode` 4 (every bucket float4), 1 (none)
+// or 0 (mixed), and one bucket or several.
+template <typename F>
+cudaError_t dispatch(int mode, int count, F&& f) {
+  if (count == 1) {
+    if (mode == 4) return f(std::integral_constant<int, 4>{}, std::true_type{});
+    if (mode == 1) return f(std::integral_constant<int, 1>{}, std::true_type{});
+  } else {
+    if (mode == 4) return f(std::integral_constant<int, 4>{}, std::false_type{});
+    if (mode == 1) return f(std::integral_constant<int, 1>{}, std::false_type{});
+    if (mode == 0) return f(std::integral_constant<int, 0>{}, std::false_type{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Words per bucket of pstt_ring_int8's descriptor rows.
+constexpr int kDescWords = 7;
 
 }  // namespace
 
 extern "C" {
 
-// grads [n, padded] f32 (row w = rank w), store [padded] f32 (updated in
-// place), pulled [padded] f32 or NULL, scratch [padded] f32 or NULL (needed
-// when a slice is longer than smem_floats), regions: nregions rows of int64
-// (start, length, chunk, step) of the non-empty regions, each a contiguous
-// range of the bucket.  cluster: CTAs per region (8, or 16 where the card
-// schedules it); smem_floats: partial sums each CTA keeps in shared memory
-// (a multiple of 4, at most 57,344).  vec: every region's start and length
-// are multiples of 4 (float4 accesses).  gather runs the all-gather (pulled
-// and/or store_takes_pulled).
-int pstt_ring_int8(const void* grads, void* store, void* pulled,
-                   void* scratch, const void* regions, long long nregions,
-                   int cluster, int smem_floats, int vec, int n,
-                   long long padded, int handle, float lr, int gather,
-                   int store_takes_pulled, void* stream) {
+// One launch over `count` (1..48) buckets.  desc: `count` rows of 7 int64
+// words: grads ([n, padded] f32, row w = rank w), store ([padded] f32,
+// updated in place), pulled ([padded] f32 or NULL), scratch ([padded] f32
+// or NULL; needed when a slice of one of the bucket's regions is longer
+// than smem_floats), padded, n (>= 2), and 1 when every region of the
+// bucket starts and ends on a multiple of 4 (float4 accesses, taken when
+// the pointers are 16-byte aligned too).  regions: nregions rows of int64
+// (start, length, chunk, step, bucket), each a contiguous range of its
+// bucket, in the order the clusters are launched.  cluster: CTAs per
+// region (1..16); smem_floats: partial sums each CTA keeps in shared
+// memory (a multiple of 4, at most 57,344).  gather runs the all-gather
+// (pulled and/or store_takes_pulled).
+int pstt_ring_int8(const long long* desc, int count, const void* regions,
+                   long long nregions, int cluster, int smem_floats,
+                   int handle, float lr, int gather, int store_takes_pulled,
+                   void* stream) {
   if (nregions <= 0) return 0;
-  if (n < 2 || cluster < 1 || cluster > 16 || smem_floats < 4 ||
-      smem_floats > kMaxSmemFloats || smem_floats % 4 != 0)
+  if (count < 1 || count > kMaxGroup || cluster < 1 || cluster > 16 ||
+      smem_floats < 4 || smem_floats > kMaxSmemFloats || smem_floats % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* g = static_cast<const float*>(grads);
-  auto* s = static_cast<float*>(store);
-  auto* p = static_cast<float*>(pulled);
-  auto* sc = static_cast<float*>(scratch);
+  BucketTable table{};
+  table.count = count;
+  int nvec = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* w = desc + static_cast<long long>(kDescWords) * i;
+    Bucket& b = table.b[i];
+    b.grads = reinterpret_cast<const float*>(w[0]);
+    b.store = reinterpret_cast<float*>(w[1]);
+    b.pulled = reinterpret_cast<float*>(w[2]);
+    b.scratch = reinterpret_cast<float*>(w[3]);
+    b.padded = w[4];
+    b.n = static_cast<int>(w[5]);
+    if (b.padded <= 0 || b.n < 2) return static_cast<int>(cudaErrorInvalidValue);
+    b.vec = w[6] != 0 && aligned16(b.grads) && aligned16(b.store) &&
+            (b.pulled == nullptr || aligned16(b.pulled)) &&
+            (b.scratch == nullptr || aligned16(b.scratch)) &&
+            b.padded % 4 == 0;
+    nvec += b.vec;
+  }
   const auto* rg = static_cast<const Region*>(regions);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool v4 = vec != 0 && aligned16(grads) && aligned16(store) &&
-                  (p == nullptr || aligned16(p)) &&
-                  (sc == nullptr || aligned16(sc)) && padded % 4 == 0;
   const bool ga = gather != 0, stp = store_takes_pulled != 0;
-  const cudaError_t err =
-      v4 ? run<4>(g, s, p, sc, rg, nregions, cluster, smem_floats, n, padded,
-                  handle, lr, ga, stp, st)
-         : run<1>(g, s, p, sc, rg, nregions, cluster, smem_floats, n, padded,
-                  handle, lr, ga, stp, st);
-  return static_cast<int>(err);
+  const int mode = nvec == count ? 4 : (nvec == 0 ? 1 : 0);
+  return static_cast<int>(dispatch(mode, count, [&](auto vm, auto one) {
+    return run<decltype(vm)::value, decltype(one)::value>(
+        table, rg, nregions, cluster, smem_floats, handle, lr, ga, stp, st);
+  }));
 }
 
 // How many clusters of `cluster` CTAs, each CTA with smem_floats of dynamic
-// shared memory, the card can run at once (0: none).
-int pstt_ring_int8_occupancy(int cluster, int smem_floats, int vec,
-                             int* max_clusters) {
+// shared memory, the card can run at once (0: none), for the instantiation
+// a launch of `count` buckets in `mode` runs (4: every bucket float4, 1:
+// none, 0: mixed).
+int pstt_ring_int8_occupancy(int cluster, int smem_floats, int mode,
+                             int count, int* max_clusters) {
   *max_clusters = 0;
   if (cluster < 1 || cluster > 16 || smem_floats < 0 ||
-      smem_floats > kMaxSmemFloats)
+      smem_floats > kMaxSmemFloats || count < 1 || count > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      vec ? occupancy<4>(cluster, smem_floats, max_clusters)
-          : occupancy<1>(cluster, smem_floats, max_clusters);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(mode, count, [&](auto vm, auto one) {
+    return occupancy<decltype(vm)::value, decltype(one)::value>(
+        cluster, smem_floats, max_clusters);
+  }));
 }
 
 }  // extern "C"

@@ -76,9 +76,10 @@ class KVWorker:
     def register_pull_buffer(self, name: str) -> torch.Tensor:
         """Register a persistent pull buffer for a registered dense
         bucket: every ``pull`` of the bucket then lands in this one
-        tensor (``push_pull`` keeps its fresh results).  A pull waits for
+        buffer (``push_pull`` keeps its fresh results), and the engine's
+        handle of it from the previous pull goes stale.  A pull waits for
         the previous pull of the bucket to complete (one outstanding per
-        registered buffer).  Returns the buffer; see
+        registered buffer).  Returns the first handle; see
         ``CollectiveEngine.register_pull_buffer``."""
         log.check(self.engine is not None,
                   "register_pull_buffer requires a started ici van")

@@ -52,9 +52,8 @@ _SIGNATURES = {
     "pstt_ring_group": (_P, _I, _I, _I, _F, _P, ctypes.POINTER(_I)),
     "pstt_ring_replay": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _L, _I, _F, _I,
                          _P),
-    "pstt_ring_int8": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _F,
-                       _I, _I, _P),
-    "pstt_ring_int8_occupancy": (_I, _I, _I, ctypes.POINTER(_I)),
+    "pstt_ring_int8": (_P, _I, _P, _L, _I, _I, _I, _F, _I, _I, _P),
+    "pstt_ring_int8_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
     "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),
 }

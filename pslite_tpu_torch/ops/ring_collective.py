@@ -27,32 +27,36 @@ once at its owner, so every rank pulls the same dequantized values.  The
 Kernels: ``csrc/ring_push_pull.cu`` and ``csrc/ring_int8.cu``, one launch
 per call each; their headers say how they reproduce the TPU ring's order
 of arithmetic and what bounds them.  The int8 kernel walks each region
-on chip with one thread block cluster of 8 to 16 CTAs, the size with the
-fewest bytes per CTA times waves on the card (:func:`int8_launch_shape`).
-The regions' bounds are computed here once per geometry
-(:func:`int8_regions`) and kept as a small device tensor.  A cluster
-keeps ``cluster * 57,344`` values of its region in shared memory; a
-longer region spills the rest of each CTA's slice to a ``[padded]`` scratch
-tensor, which the wrapper allocates only then (:func:`int8_plan`).  The
-store is updated IN PLACE (the JAX programs donate it); ``pulled`` is a
-fresh tensor.  On a CPU tensor the plain PyTorch version runs; on a CUDA
-tensor the kernel launches, or the call raises.  ``launches`` counts
+on chip with one thread block cluster of 1 to 16 CTAs, the size with the
+least makespan of the regions' bytes per CTA over the clusters the card
+runs at once (:func:`int8_cost`, :func:`int8_launch_shape`).  One launch
+takes a table of buckets and a table of their regions, computed here
+once per layout (:func:`int8_group_regions`, longest first) and kept as
+a small device tensor.  A cluster keeps ``cluster * 57,344`` values of its
+region in shared memory; a longer region spills the rest of each CTA's
+slice to its bucket's ``[padded]`` scratch tensor, which the wrapper
+allocates only then (:func:`int8_plan`).  The store is updated IN PLACE
+(the JAX programs donate it); ``pulled`` is a fresh tensor.  On a CPU
+tensor the plain PyTorch version runs; on a CUDA tensor the kernel
+launches, or the call raises.  ``launches`` counts
 wrapper calls that launched their kernel, by variant
 (``ring_push_pull``/``ring_push``, ``_2d``, ``_int8``) and dtype, and
 nothing else.
 
 Two wrappers run many rings per call, for the engine's groups and
 replays: :func:`ring_push_pull_group` (k buckets in one launch of the
-grouped kernel per dtype, bit-identical to k single launches; int8
-buckets in one cluster launch each) and :func:`ring_replay` (T steps on
-one store from one C call).  They count under ``ring_push_pull_group...``
-(one per launch) and ``ring_replay...`` (one per call).
+grouped kernel per dtype and one int8 cluster launch over every int8
+bucket's regions, bit-identical to k single launches) and
+:func:`ring_replay` (T steps on one store from one C call).  They count
+under ``ring_push_pull_group...`` (one per launch) and
+``ring_replay...`` (one per call).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -208,9 +212,14 @@ def _geometry(grads, store, bidir: bool, compress: bool,
 # -- the int8 kernel's regions and launch shape -------------------------------
 
 INT8_SMEM_FLOATS = 57_344  # csrc/ring_int8.cu kMaxSmemFloats (224 KiB)
-# CTAs per region the launcher chooses from: 8 is the largest portable
-# cluster size, 9-16 are non-portable ones.
-INT8_CLUSTERS = tuple(range(16, 7, -1))
+# CTAs per region the launcher chooses from: 1 (no DSMEM traffic) up to 16;
+# 8 is the largest portable cluster size, 9-16 are non-portable ones.
+INT8_CLUSTERS = tuple(range(16, 0, -1))
+INT8_MAX_GROUP = 48  # csrc/ring_int8.cu kMaxGroup: buckets per launch
+# The fixed cost of one sweep of a region (a hop's barrier, its first loads
+# in flight), counted in the bytes a CTA streams meanwhile (about 1.3 us at
+# 25 GB/s, an H100 SM's share of HBM when every SM streams).
+INT8_HOP_BYTES = 32 << 10
 
 
 def int8_regions(geo: RingGeometry, padded: int):
@@ -239,11 +248,35 @@ def int8_regions(geo: RingGeometry, padded: int):
             np.flatnonzero(keep).astype(np.int64))
 
 
+# A launch's layout: ((geometry, padded length), ...) of its buckets, in
+# the order of its bucket table.  Everything below depends on it alone.
+Int8Layout = Tuple[Tuple[RingGeometry, int], ...]
+
+
+@functools.lru_cache(maxsize=64)
+def int8_group_regions(layout: Int8Layout) -> np.ndarray:
+    """The launch's region table: int64 ``[R, 5]`` rows (start, length,
+    chunk, step, bucket index) of every bucket's :func:`int8_regions`,
+    longest first (ties in bucket and region order), the order in which
+    the kernel's clusters are launched."""
+    parts = []
+    for b, (geo, padded) in enumerate(layout):
+        rows = int8_regions(geo, padded)[0]
+        parts.append(np.column_stack(
+            [rows, np.full(len(rows), b, dtype=np.int64)]))
+    table = (np.concatenate(parts) if parts
+             else np.empty((0, 5), dtype=np.int64))
+    order = np.argsort(-table[:, 1], kind="stable")
+    return np.ascontiguousarray(table[order])
+
+
 class Int8Plan(NamedTuple):
-    """How the int8 kernel lays a geometry onto clusters of ``cluster``
+    """How the int8 kernel lays a launch onto clusters of ``cluster``
     CTAs: ``slice`` values per CTA of the longest region, the first
-    ``smem_floats`` of them in shared memory, and the length of the
-    ``[padded]`` scratch the rest spills to (0 when nothing spills)."""
+    ``smem_floats`` of them in shared memory; ``scratch`` the values of
+    scratch the spilling buckets take (each its ``[padded]``; 0 when
+    nothing spills); ``vec`` whether every bucket's regions take float4.
+    Per bucket: ``spills`` and ``vecs``."""
 
     cluster: int
     nregions: int
@@ -251,50 +284,84 @@ class Int8Plan(NamedTuple):
     smem_floats: int
     scratch: int
     vec: bool
+    spills: Tuple[bool, ...]
+    vecs: Tuple[bool, ...]
 
 
-@functools.lru_cache(maxsize=64)
-def int8_plan(geo: RingGeometry, padded: int, cluster: int) -> Int8Plan:
-    """The :class:`Int8Plan` of a geometry at a cluster size (as
-    ``csrc/ring_int8.cu`` cuts regions: ``round4(ceil(len / cluster))``
-    values per CTA)."""
-    table, _ = int8_regions(geo, padded)
-    longest = int(table[:, 1].max()) if len(table) else 0
-    slice_ = -(-(-(-longest // cluster)) // 4) * 4
-    smem = min(slice_, INT8_SMEM_FLOATS)
-    vec = bool(np.all(table[:, :2] % 4 == 0))
-    return Int8Plan(cluster, len(table), slice_, smem,
-                    padded if slice_ > smem else 0, vec)
+def _slices(lengths: np.ndarray, cluster: int) -> np.ndarray:
+    """Values per CTA: ``round4(ceil(len / cluster))``, as the kernel
+    cuts a region."""
+    return -(-(-(-lengths // cluster)) // 4) * 4
 
 
-def int8_cost(plan: Int8Plan, n: int, active: int) -> Optional[float]:
-    """Bytes one CTA moves in its walk times the waves the launch needs
-    with ``active`` co-resident clusters (None when none fit): the
-    launcher's measure for choosing a cluster size.  A spilled value
-    costs 8 more bytes on each of the n-1 hops that carry it."""
+@functools.lru_cache(maxsize=256)
+def int8_plan(layout: Int8Layout, cluster: int) -> Int8Plan:
+    """The :class:`Int8Plan` of a launch's buckets at a cluster size."""
+    table = int8_group_regions(layout)
+    slices = _slices(table[:, 1], cluster)
+    longest = int(slices.max()) if len(table) else 0
+    smem = max(min(longest, INT8_SMEM_FLOATS), 4)
+    spills = [False] * len(layout)
+    vecs = [True] * len(layout)
+    for row, sl in zip(table, slices):
+        b = int(row[4])
+        spills[b] |= bool(sl > smem)
+        vecs[b] &= bool(row[0] % 4 == 0 and row[1] % 4 == 0)
+    scratch = sum(p for (_, p), sp in zip(layout, spills) if sp)
+    return Int8Plan(cluster, len(table), longest, smem, scratch, all(vecs),
+                    tuple(spills), tuple(vecs))
+
+
+def int8_cost(layout: Int8Layout, cluster: int,
+              active: int) -> Optional[int]:
+    """The launch's makespan in bytes per CTA at ``cluster`` CTAs per
+    region with ``active`` co-resident clusters (None when none fit): the
+    launcher's measure for choosing a cluster size.  Each region row costs
+    what one of its CTAs moves, ``slice * (n+3) * 4`` bytes, plus 8 more
+    bytes per spilled value on each of the n-1 hops that carry it, plus
+    :data:`INT8_HOP_BYTES` for each of its n+1 sweeps; the rows, longest
+    first, each go to the least loaded of the ``active`` cluster slots, as
+    the block scheduler hands out clusters."""
     if active <= 0:
         return None
-    spilled = plan.slice - plan.smem_floats
-    per_cta = plan.slice * (n + 3) * 4 + spilled * 8 * (n - 1)
-    return -(-plan.nregions // active) * per_cta
+    table = int8_group_regions(layout)
+    if not len(table):
+        return 0
+    plan = int8_plan(layout, cluster)
+    n = np.array([geo.n for geo, _ in layout], dtype=np.int64)[table[:, 4]]
+    slices = _slices(table[:, 1], cluster)
+    spilled = slices - np.minimum(slices, plan.smem_floats)
+    cost = (slices * (n + 3) * 4 + spilled * 8 * (n - 1)
+            + (n + 1) * INT8_HOP_BYTES)
+    if len(cost) <= active:
+        return int(cost.max())
+    slots = [0] * active
+    for c in cost.tolist():
+        heapq.heapreplace(slots, slots[0] + c)
+    return max(slots)
 
 
-def _occupancy(cluster: int, smem_floats: int, vec: bool) -> int:
+def _occupancy(cluster: int, smem_floats: int, mode: int,
+               count: int) -> int:
     out = ctypes.c_int(0)
-    _native.call("pstt_ring_int8_occupancy", cluster, smem_floats, int(vec),
-                 ctypes.byref(out))
+    _native.call("pstt_ring_int8_occupancy", cluster, smem_floats, mode,
+                 count, ctypes.byref(out))
     return out.value
 
 
-def int8_pick_cluster(geo: RingGeometry, padded: int,
-                      active: Dict[int, int]) -> int:
+def _mode(plan: Int8Plan) -> int:
+    """The kernel instantiation a launch runs: 4 (every bucket float4), 1
+    (none) or 0 (mixed), as far as the geometry tells."""
+    return 4 if plan.vec else (0 if any(plan.vecs) else 1)
+
+
+def int8_pick_cluster(layout: Int8Layout, active: Dict[int, int]) -> int:
     """The cluster size of :data:`INT8_CLUSTERS` with the least
     :func:`int8_cost`, given the co-resident clusters ``active`` the card
     allows at each size (ties go to the larger cluster).  On an H100 at
     the main path's 16 regions, 7 clusters of 16 CTAs fit (3 waves) but 8
     of 14 do (2 waves)."""
-    costs = {c: int8_cost(int8_plan(geo, padded, c), geo.n, active[c])
-             for c in INT8_CLUSTERS}
+    costs = {c: int8_cost(layout, c, active.get(c, 0)) for c in INT8_CLUSTERS}
     fits = [c for c in INT8_CLUSTERS if costs[c] is not None]
     if not fits:
         raise RuntimeError(f"the card runs no cluster of {INT8_CLUSTERS} "
@@ -303,26 +370,42 @@ def int8_pick_cluster(geo: RingGeometry, padded: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_shape(geo: RingGeometry, padded: int, device_index: int):
+def _launch_shape(layout: Int8Layout, device_index: int):
     active = {}
     with torch.cuda.device(device_index):
         for c in INT8_CLUSTERS:
-            plan = int8_plan(geo, padded, c)
-            active[c] = _occupancy(c, plan.smem_floats, plan.vec)
-    return int8_pick_cluster(geo, padded, active), active
+            plan = int8_plan(layout, c)
+            active[c] = _occupancy(c, plan.smem_floats, _mode(plan),
+                                   len(layout))
+    return int8_pick_cluster(layout, active), active
 
 
-def int8_launch_shape(n: int, padded: int, kv_shards: Optional[int] = None,
+def int8_layout(n: int, padded, kv_shards: Optional[int] = None,
+                bidir: bool = True) -> Int8Layout:
+    """The layout of one bucket of ``padded`` values, or of a group when
+    ``padded`` is a sequence of bucket lengths, on an n-rank ring."""
+    pads = [padded] if isinstance(padded, int) else list(padded)
+    return tuple((ring_geometry(n, p, torch.float32, bidir, True, kv_shards),
+                  p) for p in pads)
+
+
+def int8_launch_shape(n: int, padded, kv_shards: Optional[int] = None,
                       bidir: bool = True, device="cuda") -> dict:
-    """The int8 kernel's launch shape on the card of ``device``: the
-    chosen cluster size, its plan, and the co-resident clusters the card
-    allows at each candidate size."""
-    geo = ring_geometry(n, padded, torch.float32, bidir, True, kv_shards)
-    dev = torch.device(device)
-    cluster, active = _launch_shape(geo, padded, _device_index(dev))
-    plan = int8_plan(geo, padded, cluster)
-    return dict(plan._asdict(), max_active_clusters=active,
-                waves=-(-plan.nregions // active[cluster]))
+    """The int8 kernel's launch shape on the card of ``device`` for one
+    bucket of ``padded`` values, or for the group of bucket lengths
+    ``padded`` (at most :data:`INT8_MAX_GROUP`): the chosen cluster size,
+    its plan, the co-resident clusters the card allows at each candidate
+    size, the waves of clusters and the cost of each candidate."""
+    layout = int8_layout(n, padded, kv_shards, bidir)
+    log.check(len(layout) <= INT8_MAX_GROUP, "more buckets than one launch")
+    cluster, active = _launch_shape(layout, _device_index(torch.device(device)))
+    plan = int8_plan(layout, cluster)
+    shape = plan._asdict()
+    del shape["spills"], shape["vecs"]
+    return dict(shape, max_active_clusters=active,
+                waves=-(-plan.nregions // active[cluster]),
+                cost={c: int8_cost(layout, c, active[c])
+                      for c in INT8_CLUSTERS})
 
 
 def _device_index(dev: torch.device) -> int:
@@ -330,28 +413,60 @@ def _device_index(dev: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _region_table(geo: RingGeometry, padded: int, device: torch.device):
-    """:func:`int8_regions`' table on ``device``, copied there once."""
-    return torch.from_numpy(int8_regions(geo, padded)[0]).to(device)
+def _region_table(layout: Int8Layout, device: torch.device):
+    """:func:`int8_group_regions` on ``device``, copied there once."""
+    return torch.from_numpy(int8_group_regions(layout)).to(device)
 
 
-def _launch_int8(grads, store, pulled, geo: RingGeometry, code: int,
-                 lr: float, with_ag: bool, cluster: int) -> None:
-    """One launch of ``pstt_ring_int8`` at a given cluster size."""
-    padded = store.numel()
-    plan = int8_plan(geo, padded, cluster)
-    if plan.nregions == 0:
-        return
-    scratch = torch.empty(plan.scratch, dtype=torch.float32,
-                          device=store.device) if plan.scratch else None
-    _native.call(
-        "pstt_ring_int8", grads.data_ptr(), store.data_ptr(),
-        pulled.data_ptr() if pulled is not None else None,
-        scratch.data_ptr() if scratch is not None else None,
-        _region_table(geo, padded, store.device).data_ptr(), plan.nregions,
-        cluster, plan.smem_floats, int(plan.vec), geo.n, padded, code, lr,
-        int(with_ag or geo.kv), int(geo.kv), _native.stream_ptr(store.device),
-    )
+def _launch_int8(grads_list, stores, pulled, geos, code: int, lr: float,
+                 with_ag: bool, cluster: Optional[int] = None) -> int:
+    """Launches of ``pstt_ring_int8`` over non-empty buckets, at most
+    :data:`INT8_MAX_GROUP` per launch, each at ``cluster`` CTAs per
+    region or at the size its layout's plan picks.  ``pulled`` holds a
+    ``[padded]`` tensor or None per bucket.  Returns the launch count."""
+    dev = stores[0].device
+    stream = _native.stream_ptr(dev)
+    live = [i for i, s in enumerate(stores) if s.numel()]
+    made = 0
+    for lo in range(0, len(live), INT8_MAX_GROUP):
+        part = live[lo:lo + INT8_MAX_GROUP]
+        layout = tuple((geos[i], stores[i].numel()) for i in part)
+        size = cluster or _launch_shape(layout, _device_index(dev))[0]
+        plan = int8_plan(layout, size)
+        spill_slots = _slots([stores[i] for i in part], plan.spills,
+                             torch.float32, dev)
+        desc = np.empty((len(part), 7), dtype=np.int64)
+        for row, i in enumerate(part):
+            p, sc = pulled[i], spill_slots[row]
+            desc[row] = (grads_list[i].data_ptr(), stores[i].data_ptr(),
+                         p.data_ptr() if p is not None else 0,
+                         sc.data_ptr() if sc is not None else 0,
+                         stores[i].numel(), geos[i].n, int(plan.vecs[row]))
+        kv = geos[part[0]].kv
+        _native.call(
+            "pstt_ring_int8", desc.ctypes.data, len(part),
+            _region_table(layout, dev).data_ptr(), plan.nregions, size,
+            plan.smem_floats, code, lr, int(with_ag or kv), int(kv), stream,
+        )
+        made += 1
+    return made
+
+
+def _slots(stores, wanted, dtype, dev):
+    """One allocation holding a ``[padded]`` slot of ``dtype`` for each
+    store whose ``wanted`` flag is set (None for the others), each slot
+    starting 16-byte aligned so its bucket can take vectors."""
+    step = _GROUP_ALIGN // dtype.itemsize
+    offs, total = [], 0
+    for s, w in zip(stores, wanted):
+        offs.append(total if w else None)
+        if w:
+            total += -(-s.numel() // step) * step
+    if not total:
+        return [None] * len(stores)
+    buf = torch.empty(total, dtype=dtype, device=dev)
+    return [buf.narrow(0, off, s.numel()) if off is not None else None
+            for s, off in zip(stores, offs)]
 
 
 # -- plain version ---------------------------------------------------------------
@@ -431,6 +546,8 @@ def _ring_reference(grads, store, handle: str, bidir: bool, with_ag: bool,
     does, with ``fmaf`` emulated exactly (:func:`_fma_f32`)."""
     geo = _geometry(grads, store, bidir, compress, kv_shards)
     code, lr = ring_handle(handle)
+    if not store.numel():  # an empty bucket has no regions
+        return store.clone() if with_ag else store
     g = _to_regions(grads, geo)  # [n(rank), shards, n(c), ndir, h]
     s = _to_regions(store, geo)  # [shards, n, ndir, h]
     acc = _walk(g, geo, 1).clone()
@@ -466,9 +583,7 @@ def _ring(grads, store, handle: str, bidir: bool, with_ag: bool,
     code, lr = ring_handle(handle)
     pulled = torch.empty_like(store) if with_ag else None
     if compress:
-        cluster, _ = _launch_shape(geo, store.numel(),
-                                   _device_index(store.device))
-        _launch_int8(grads, store, pulled, geo, code, lr, with_ag, cluster)
+        _launch_int8([grads], [store], [pulled], [geo], code, lr, with_ag)
     else:
         _native.call(
             "pstt_ring_push_pull", grads.data_ptr(), store.data_ptr(),
@@ -556,10 +671,11 @@ def ring_push_pull_group(grads_list, stores, handle: str = "sum",
 
     On CUDA the uncompressed buckets of each dtype run in one launch of
     ``ring_group_kernel`` per 48 buckets (``csrc/ring_push_pull.cu``),
-    bit-identical to their single launches; int8 buckets keep their own
-    cluster launch each (:func:`_launch_int8`), issued from this call.
-    ``launches`` counts each launch under ``ring_push_pull_group[...]``
-    (``_2d``, ``_int8`` variants)."""
+    and the int8 buckets in one launch of the cluster kernel per 48
+    buckets over all their regions (``csrc/ring_int8.cu``), each
+    bit-identical to its single launches.  ``launches`` counts each
+    launch under ``ring_push_pull_group[...]`` (``_2d``, ``_int8``
+    variants)."""
     if not stores:
         return []
     dev = stores[0].device
@@ -573,39 +689,35 @@ def ring_push_pull_group(grads_list, stores, handle: str = "sum",
               "group buckets on different devices")
     code, lr = ring_handle(handle)
     pulled = [None] * len(stores)
-    plain: Dict[torch.dtype, list] = {}
-    for i, (g, s, geo, c) in enumerate(zip(grads_list, stores, geos, flags)):
-        if c:
-            pulled[i] = torch.empty_like(s)
-            cluster, _ = _launch_shape(geo, s.numel(), _device_index(dev))
-            _launch_int8(g, s, pulled[i], geo, code, lr, True, cluster)
-            launches[_group_variant(geo.kv, True, s.dtype)] += 1
-        elif s.numel():
-            plain.setdefault(s.dtype, []).append(i)
+    kv = kv_shards is not None
+    by_kind: Dict[tuple, list] = {}  # (compress, dtype) -> bucket indices
+    for i, (s, c) in enumerate(zip(stores, flags)):
+        if s.numel():
+            by_kind.setdefault((c, s.dtype), []).append(i)
         else:
             pulled[i] = torch.empty_like(s)
     stream = _native.stream_ptr(dev)
-    for dtype, idx in plain.items():
-        # One allocation holds every pulled slot of the dtype, each slot
-        # starting 16-byte aligned so the bucket can take vectors.
-        step = _GROUP_ALIGN // dtype.itemsize
-        offs, total = [], 0
-        for i in idx:
-            offs.append(total)
-            total += -(-stores[i].numel() // step) * step
-        buf = torch.empty(total, dtype=dtype, device=dev)
+    for (compress_, dtype), idx in by_kind.items():
+        # One allocation holds every pulled slot of the kind.
+        for i, p in zip(idx, _slots([stores[i] for i in idx],
+                                    [True] * len(idx), dtype, dev)):
+            pulled[i] = p
+        if compress_:
+            launches[_group_variant(kv, True, dtype)] += _launch_int8(
+                [grads_list[i] for i in idx], [stores[i] for i in idx],
+                [pulled[i] for i in idx], [geos[i] for i in idx], code, lr,
+                True)
+            continue
         desc = np.empty((len(idx), 9), dtype=np.int64)
-        for row, (i, off) in enumerate(zip(idx, offs)):
+        for row, i in enumerate(idx):
             s, geo = stores[i], geos[i]
-            pulled[i] = buf.narrow(0, off, s.numel())
             desc[row] = (grads_list[i].data_ptr(), s.data_ptr(),
                          pulled[i].data_ptr(), s.numel(), geo.period,
                          geo.sub, geo.split, geo.n, int(geo.kv))
         made = ctypes.c_int(0)
         _native.call("pstt_ring_group", desc.ctypes.data, len(idx),
                      _DTYPE_CODES[dtype], code, lr, stream, ctypes.byref(made))
-        launches[_group_variant(kv_shards is not None, False, dtype)] += (
-            made.value)
+        launches[_group_variant(kv, False, dtype)] += made.value
     return pulled
 
 

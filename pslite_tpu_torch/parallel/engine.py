@@ -44,9 +44,14 @@ programs donate them.  Every result handed to a caller (``pull``,
 ``push_pull``, ``push``'s token, the group, replay and stream results) is
 a fresh tensor, so a later push cannot change a result the caller holds;
 the two exceptions are asked for by name: ``push_pull(zero_copy=True)``
-(and ``replay(keep="last", zero_copy=True)``) where eligible, which return
-the store itself, and a registered pull buffer, which every ``pull``
-overwrites.
+(and ``replay(keep="last", zero_copy=True)``) where eligible, and the
+``pull`` of a bucket with a registered pull buffer.  They return a
+:class:`~pslite_tpu_torch.parallel.zero_copy.ZeroCopyHandle` on the
+store's (the buffer's) memory, with no copy; the bucket's next mutating
+op (``push``, ``push_pull``, ``replay``, a group holding it,
+``set_store_array``; for a registered buffer, the next ``pull``) makes it
+stale: any use raises and ``is_deleted()`` is True, as a donated JAX
+array.
 
 Many ops per call: ``push_pull_group`` (one grouped ring launch per dtype
 for a list of buckets, ``ops/ring_collective.py``), ``coalescer`` (ops
@@ -73,6 +78,7 @@ import torch
 from ..ops import fused_update, ring_collective
 from ..utils import logging as log
 from .mesh import DeviceGroup, default_group
+from .zero_copy import Generation, ZeroCopyHandle, plain
 
 
 @dataclass
@@ -240,9 +246,13 @@ class CollectiveEngine:
         # Per-bucket locks: each op reads and updates a bucket's store in
         # place, so one bucket's ops must not interleave.
         self._bucket_mu: Dict[str, threading.Lock] = {}
-        # Registered pull buffers (register_pull_buffer): bucket -> the
-        # [padded] tensor every pull of the bucket writes into.
-        self._pinned_pulls: Dict[str, torch.Tensor] = {}
+        # Per-bucket count of mutating ops: a zero-copy handle of the
+        # store is stale once it moves on.
+        self._generations: Dict[str, Generation] = {}
+        # Registered pull buffers (register_pull_buffer): bucket -> (the
+        # [padded] tensor every pull of the bucket writes into, its count
+        # of pulls, the handle of the last pull).
+        self._pinned_pulls: Dict[str, tuple] = {}
         # Application-payload bytes through the data plane (the van's
         # send_bytes/recv_bytes counterpart).
         self.push_bytes = 0
@@ -268,6 +278,8 @@ class CollectiveEngine:
             self._buckets[name] = bucket
             self._stores[name] = store
             self._bucket_mu.setdefault(name, threading.Lock())
+            # Re-registering replaces the store: its handles go stale.
+            self._generations.setdefault(name, Generation(name)).advance()
         return bucket
 
     def bucket(self, name: str) -> DenseBucket:
@@ -502,7 +514,9 @@ class CollectiveEngine:
         if g.shape[1] != padded:
             log.check_eq(int(g.shape[1]), total, "bad grad len")
             g = torch.nn.functional.pad(g, (0, padded - total))
-        return g.contiguous()
+        # A handle of this bucket's store may be the grads: the op makes
+        # it stale before it reads them.
+        return plain(g.contiguous())
 
     def _observe(self, op: str, bucket: DenseBucket) -> None:
         payload = bucket.total_len * bucket.dtype.itemsize
@@ -516,12 +530,13 @@ class CollectiveEngine:
                 handle: Optional[ServerHandle], with_pull: bool,
                 zero_copy: bool = False):
         """Reduce ``grads``, apply the handle to the store in place, and
-        return the fresh pulled ``[padded]`` tensor (``with_pull``; the
-        store itself with ``zero_copy`` where eligible) or None."""
+        return the fresh pulled ``[padded]`` tensor (``with_pull``; a
+        handle of the store with ``zero_copy`` where eligible) or None."""
         resolved = self._resolve_handle(handle)
         zc = zero_copy and self._zc_pull_eligible(bucket.dtype, resolved)
         g = self._prep_grads(bucket, grads)
         with self._bucket_mu[name]:
+            self._generations[name].advance()
             store = self._stores[name]
             if self._is_stateful(resolved):
                 self._stateful_fn(name, bucket, resolved)(rank_order_sum(g))
@@ -537,7 +552,9 @@ class CollectiveEngine:
                 self._handle_fn(resolved)(store, rank_order_sum(g))
             if not with_pull:
                 return None
-            return store if zc else store.clone()
+            if zc:
+                return ZeroCopyHandle.wrap(store, self._generations[name])
+            return store.clone()
 
     def _stateful_fn(self, name: str, bucket: DenseBucket, resolved: str):
         """``step(agg)``: the bucket's optimizer step in place.  Call
@@ -562,16 +579,16 @@ class CollectiveEngine:
         ``zero_copy=True`` asks for the store itself where the
         configuration allows it (:meth:`_zc_pull_eligible`: one kv shard,
         a stateful handle or the torch path), and a fresh copy elsewhere:
-        the registered-buffer contract of the reference (the next pull
-        overwrites the buffer in place).  A difference of contract with
-        the JAX engine: there the next op donates the store, and a stale
-        holder raises on use; here the returned tensor IS the store, and
-        silently shows the values of the bucket's next op."""
+        the registered-buffer contract of the reference.  The result is
+        then a :class:`ZeroCopyHandle` on the store's memory, and, as in
+        the JAX engine, where the next op donates the store, the bucket's
+        next mutating op makes it stale: a use raises, ``is_deleted()`` is
+        True."""
         bucket = self._buckets[name]
         pulled = self._update(name, bucket, grads, handle, with_pull=True,
                               zero_copy=zero_copy)
         self._observe("push_pull", bucket)
-        if pulled is self._stores[name]:
+        if isinstance(pulled, ZeroCopyHandle):
             return pulled  # padded == total on a zero-copy configuration
         return pulled[: bucket.total_len]
 
@@ -601,10 +618,11 @@ class CollectiveEngine:
         ``[total_len]`` tensors in ``names`` order (fresh).
 
         Stateless handles only.  Where every bucket runs the ring, the
-        buckets run in one grouped ring launch per dtype (int8 buckets in
-        their own cluster launch each), bit-identical to their single
-        push_pulls; otherwise each bucket takes the torch path.  The
-        buckets' locks are taken in sorted order for the whole call."""
+        buckets run in one grouped ring launch per dtype (the int8
+        buckets in one cluster launch over all their regions),
+        bit-identical to their single push_pulls; otherwise each bucket
+        takes the torch path.  The buckets' locks are taken in sorted
+        order for the whole call."""
         log.check(len(names) == len(grads_list), "names/grads mismatch")
         log.check(len(set(names)) == len(names),
                   "duplicate bucket in group (each store is updated in "
@@ -620,6 +638,8 @@ class CollectiveEngine:
         for n in ordered:
             self._bucket_mu[n].acquire()
         try:
+            for n in names:
+                self._generations[n].advance()
             stores = [self._stores[n] for n in names]
             if use_ring:
                 pulled = ring_collective.ring_push_pull_group(
@@ -681,7 +701,8 @@ class CollectiveEngine:
         ``[T, W, total]``.  ``keep="all"`` returns every step's pulled
         values ``[T, total]``; ``keep="last"`` runs T pushes and one pull
         at the end, returning ``[total]``, or with ``zero_copy`` on an
-        eligible configuration the store itself (see :meth:`push_pull`).
+        eligible configuration a handle of the store, stale after the
+        bucket's next mutating op (see :meth:`push_pull`).
 
         The ring configurations run one C call of T ring launches
         (``ring_collective.ring_replay``: push_pull steps for ``all``,
@@ -696,6 +717,7 @@ class CollectiveEngine:
         g = self._prep_grads_seq(bucket, grads_seq)
         steps = int(g.shape[0])
         with self._bucket_mu[name]:
+            self._generations[name].advance()
             store = self._stores[name]
             if self._replay_use_ring(bucket.dtype, resolved):
                 outs = ring_collective.ring_replay(
@@ -718,7 +740,8 @@ class CollectiveEngine:
                     if outs is not None:
                         outs[t].copy_(store)
             if keep == "last":
-                outs = store if zc else store.clone()
+                outs = (ZeroCopyHandle.wrap(store, self._generations[name])
+                        if zc else store.clone())
         payload = bucket.total_len * bucket.dtype.itemsize
         with self._counter_mu:
             self.push_bytes += payload * steps
@@ -822,13 +845,18 @@ class CollectiveEngine:
 
     def pull(self, name: str) -> torch.Tensor:
         """The bucket's values ``[total_len]`` (a fresh tensor), or, when
-        a pull buffer is registered (:meth:`register_pull_buffer`), that
-        ``[padded]`` buffer, overwritten in place."""
+        a pull buffer is registered (:meth:`register_pull_buffer`), a
+        fresh handle of that ``[padded]`` buffer, overwritten in place:
+        the previous pull's handle is stale from then on."""
         bucket = self._buckets[name]
         with self._bucket_mu[name]:
             pinned = self._pinned_pulls.get(name)
             if pinned is not None:
-                pulled = pinned.copy_(self._stores[name])
+                buf, gen, _ = pinned
+                gen.advance()
+                buf.copy_(self._stores[name])
+                pulled = ZeroCopyHandle.wrap(buf, gen)
+                self._pinned_pulls[name] = (buf, gen, pulled)
             else:
                 pulled = self._stores[name][: bucket.total_len].clone()
         self._observe("pull", bucket)
@@ -838,24 +866,29 @@ class CollectiveEngine:
         """Register a persistent ``[padded]`` pull buffer for ``name``
         (the reference's registered-buffer contract, ucx_van.h:603-623):
         every later ``pull(name)`` writes the store into this same
-        tensor and returns it.  At most one pull of the bucket may be
-        outstanding, and a holder of the buffer sees the next pull's
-        values.  Returns the buffer (zeros)."""
+        memory and returns a new handle of it, as the JAX engine donates
+        the previous pull's array to the next.  At most one pull of the
+        bucket may be outstanding; a handle is stale after the next pull
+        (a use raises).  Returns the first handle (zeros)."""
         bucket = self._buckets[name]
         buf = torch.zeros(bucket.padded_len, dtype=bucket.dtype,
                           device=self.device)
+        gen = Generation(name)
+        handle = ZeroCopyHandle.wrap(buf, gen)
         with self._bucket_mu[name]:
-            self._pinned_pulls[name] = buf
-        return buf
+            self._pinned_pulls[name] = (buf, gen, handle)
+        return handle
 
     def unregister_pull_buffer(self, name: str) -> None:
         with self._bucket_mu[name]:
             self._pinned_pulls.pop(name, None)
 
     def pinned_pull_buffer(self, name: str) -> Optional[torch.Tensor]:
-        """The registered pull buffer of ``name``, or None."""
+        """The live handle of the registered pull buffer of ``name`` (the
+        last pull's), or None."""
         with self._bucket_mu[name]:
-            return self._pinned_pulls.get(name)
+            pinned = self._pinned_pulls.get(name)
+            return pinned[2] if pinned is not None else None
 
     def store_array(self, name: str) -> torch.Tensor:
         """A copy of the ``[padded]`` store (checkpointing)."""
@@ -874,6 +907,7 @@ class CollectiveEngine:
                             device=self.device)
         store[: flat.numel()] = flat
         with self._bucket_mu[name]:
+            self._generations[name].advance()
             self._stores[name] = store
 
     def block(self, name: Optional[str] = None) -> None:

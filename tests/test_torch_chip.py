@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from pslite_tpu_torch import CollectiveEngine, DeviceGroup, make_group
+from pslite_tpu_torch.models import resnet_trace as rt
 from pslite_tpu_torch.ops import fused_update as fu
 from pslite_tpu_torch.ops import quantize as qz
 from pslite_tpu_torch.ops import ring_collective as ring
@@ -270,19 +271,20 @@ def test_int8_ring_kernel_bit_exact(dev, n, padded, bidir, kv, with_ag):
 
 @pytest.mark.parametrize("n,padded,bidir,kv", _INT8_CASES)
 @pytest.mark.parametrize("with_ag", [True, False])
-@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
 def test_int8_ring_cluster_sizes(dev, n, padded, bidir, kv, with_ag,
                                  cluster):
-    """Both ends of the launcher's range, through the C entry, whichever
-    size the launcher picks for the shape."""
+    """Both ends of the launcher's range and the sizes the grouped launch
+    takes, through the C entry, whichever size the launcher picks for the
+    shape."""
     geo = ring.ring_geometry(n, padded, torch.float32, bidir, True, kv)
-    _, active = ring._launch_shape(geo, padded, dev.index or 0)
+    _, active = ring._launch_shape(((geo, padded),), dev.index or 0)
     assert active[cluster] > 0, f"the card runs no cluster of {cluster}"
     kw = dict(bidir=bidir, compress=True, kv_shards=kv)
 
     def run(g, s, out, handle):
         code, lr = ring.ring_handle(handle)
-        ring._launch_int8(g, s, out, geo, code, lr, with_ag, cluster)
+        ring._launch_int8([g], [s], [out], [geo], code, lr, with_ag, cluster)
 
     _int8_check(_randn((n, padded), 21, dev), _randn((padded,), 22, dev),
                 kw, with_ag, run)
@@ -437,7 +439,7 @@ def test_group_kernel_bit_exact(dev, n, pads, kv, compress, dtype, offset):
             assert torch.equal(a, b) and torch.equal(a, c), handle
         for a, b, c in zip(sk, sp, s1):
             assert torch.equal(a, b) and torch.equal(a, c), handle
-        assert made == (len(pads) if compress else -(-len(pads) // 48))
+        assert made == -(-len(pads) // 48)
 
 
 def test_group_kernel_sgd_matches_single_launches(dev):
@@ -450,6 +452,120 @@ def test_group_kernel_sgd_matches_single_launches(dev):
     out1 = [ring.ring_push_pull(g, s, "sgd:0.05") for g, s in zip(grads, s1)]
     torch.cuda.synchronize()
     for a, b, c in zip(outk, outp, out1):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# -- the grouped int8 launch ----------------------------------------------------
+
+def _trace_pads(shards):
+    return [-(-m // shards) * shards for _, m in rt.make_buckets()]
+
+
+def _int8_group_check(grads, stores, kv, handle="sum", cluster=None):
+    """The grouped int8 launch against its plain version and against the
+    buckets' single launches: 0 differing elements.  ``cluster`` forces
+    the launch's cluster size (through the launcher).  Returns the
+    launches made."""
+    kw = dict(compress=True, kv_shards=kv)
+    sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+    ring.reset_launches()
+    if cluster is None:
+        outk = ring.ring_push_pull_group(grads, sk, handle, **kw)
+    else:
+        geos = [ring.ring_geometry(g.shape[0], s.numel(), torch.float32,
+                                   True, True, kv) for g, s in zip(grads, sk)]
+        outk = [torch.empty_like(s) for s in sk]
+        code, lr = ring.ring_handle(handle)
+        ring.launches["ring_push_pull_group_int8[float32]"] += (
+            ring._launch_int8(grads, sk, outk, geos, code, lr, True,
+                              cluster))
+    made = sum(ring.launches.values())
+    outp = ring.ring_push_pull_group_reference(grads, sp, handle, **kw)
+    out1 = [ring.ring_push_pull(g, s, handle, **kw) if s.numel()
+            else torch.empty_like(s) for g, s in zip(grads, s1)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(outk, outp, out1):
+        assert a.shape == b.shape
+        assert int((a != b).sum()) == 0 and int((a != c).sum()) == 0
+    for a, b, c in zip(sk, sp, s1):
+        assert int((a != b).sum()) == 0 and int((a != c).sum()) == 0
+    return made
+
+
+@pytest.mark.parametrize("n,kv", [(8, None), (4, 2)])
+def test_int8_group_trace_one_launch(dev, n, kv):
+    """The ResNet-50 trace's 36 buckets (1-D at 8 ranks; the dp=4 x kv=2
+    sub-rings): one launch, bit-identical to the plain version and to 36
+    single launches."""
+    grads, stores = _group_case(dev, n, _trace_pads(kv or n),
+                                torch.float32, 60)
+    assert _int8_group_check(grads, stores, kv) == 1
+    key = "ring_push_pull_group_2d_int8[float32]" if kv else \
+        "ring_push_pull_group_int8[float32]"
+    assert ring.launches[key] == 1
+
+
+def test_int8_group_every_cluster_size(dev):
+    """Every candidate cluster size the card runs, forced on the trace's
+    group (C = 1 spills its 65,536-value regions)."""
+    pads = _trace_pads(8)
+    grads, stores = _group_case(dev, 8, pads, torch.float32, 61)
+    layout = ring.int8_layout(8, pads)
+    _, active = ring._launch_shape(layout, dev.index or 0)
+    sizes = [c for c in ring.INT8_CLUSTERS if active[c] > 0]
+    assert 1 in sizes and 16 in sizes, active
+    for c in sizes:
+        assert _int8_group_check(grads, stores, None, cluster=c) == 1, c
+
+
+@pytest.mark.parametrize("n,pads,kv", [
+    (3, [3 * 1001, 3 * 5, 0, 3 * 4096, 3 * 77], None),  # odd, tiny, empty
+    (2, [2 * 4_000_000, 2 * 1000, 2 * 4096], None),  # the longest spills
+    (4, [2 * 700, 2 * 9, 2 * 24676, 0], 2),  # 2-D odd shard lengths
+])
+def test_int8_group_odd_shapes(dev, n, pads, kv):
+    grads, stores = _group_case(dev, n, pads, torch.float32, 62)
+    assert _int8_group_check(grads, stores, kv) == 1
+
+
+def test_int8_group_misaligned_bucket_in_an_aligned_group(dev):
+    """One bucket one element past a 16-byte boundary takes the scalar
+    walk inside the launch; the others keep float4."""
+    pads = _trace_pads(8)[:8]
+    grads, stores = _group_case(dev, 8, pads, torch.float32, 63)
+    bad_g, bad_s = _group_case(dev, 8, pads[3:4], torch.float32, 64,
+                               offset=1)
+    grads[3], stores[3] = bad_g[0], bad_s[0]
+    assert stores[3].data_ptr() % 16 and grads[3].data_ptr() % 16
+    assert _int8_group_check(grads, stores, None) == 1
+
+
+def test_int8_group_longer_than_one_table(dev):
+    """60 buckets: two launches (48 + 12), one count per launch."""
+    pads = [4 * (37 + 64 * i) for i in range(60)]
+    grads, stores = _group_case(dev, 4, pads, torch.float32, 65)
+    assert _int8_group_check(grads, stores, None) == 2
+    assert ring.launches["ring_push_pull_group_int8[float32]"] == 2
+
+
+def test_int8_group_sgd(dev):
+    """sgd:lr: bit-identical to the single launches (the same FMA); the
+    store within rtol/atol 1e-6 of the plain version and the pulled
+    values within one quantization step."""
+    pads = _trace_pads(8)[:6]
+    grads, stores = _group_case(dev, 8, pads, torch.float32, 66)
+    kw = dict(compress=True)
+    sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+    outk = ring.ring_push_pull_group(grads, sk, "sgd:0.05", **kw)
+    outp = ring.ring_push_pull_group_reference(grads, sp, "sgd:0.05", **kw)
+    out1 = [ring.ring_push_pull(g, s, "sgd:0.05", **kw)
+            for g, s in zip(grads, s1)]
+    torch.cuda.synchronize()
+    for a, b, c, s in zip(outk, outp, out1, stores):
+        assert torch.equal(a, c)
+        assert float((a - b).abs().max()) <= float(s.abs().max() / 127 * 2)
+    for a, b, c in zip(sk, sp, s1):
         assert torch.equal(a, c)
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
@@ -515,15 +631,26 @@ def test_stream_on_the_card(dev):
 
 
 def test_zero_copy_and_pinned_pulls_on_the_card(dev):
+    """Live handles alias the store (the registered buffer) on the card;
+    the bucket's next op (next pull) makes them stale."""
     eng = CollectiveEngine(DeviceGroup(1, device=dev))
     eng.register_dense("z", np.arange(2, dtype=np.uint64), 64)
     out = eng.push_pull("z", np.ones((1, 128), np.float32), zero_copy=True)
     assert out.data_ptr() == eng._stores["z"].data_ptr()
+    assert torch.equal(out.cpu(), torch.ones(128))
+    eng.push("z", np.ones((1, 128), np.float32))
+    assert out.is_deleted()
+    with pytest.raises(RuntimeError, match="stale"):
+        out.cpu()
     eng8 = CollectiveEngine(DeviceGroup(8, device=dev), impl="ring")
     eng8.register_dense("p", np.arange(3, dtype=np.uint64), 33)
-    buf = eng8.register_pull_buffer("p")
+    addr = eng8.register_pull_buffer("p").data_ptr()
+    prev = None
     for k in (1, 2):
         eng8.push("p", np.ones(99, np.float32))
         p = eng8.pull("p")
-        assert p.data_ptr() == buf.data_ptr()
+        assert p.data_ptr() == addr
         assert torch.equal(p[:99].cpu(), torch.full((99,), 8.0 * k))
+        if prev is not None:
+            assert prev.is_deleted()
+        prev = p

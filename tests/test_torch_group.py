@@ -67,6 +67,27 @@ def test_group_matches_jax_and_singles_1d(impl):
                                                   jeng.pull_bytes)
 
 
+def test_group_int8_matches_jax_1d():
+    """The int8 ring group of two small buckets on a 4-rank mesh, one
+    step, against the JAX engine's group (interpret mode): bit-exact."""
+    specs = [("i0", 2, 300), ("i1", 3, 37)]
+    mesh = make_mesh((4,), ("kv",))
+    jeng = JaxEngine(mesh, impl="pallas", wire_compress="int8")
+    teng = CollectiveEngine(DeviceGroup(4, device="cpu"), impl="pallas",
+                            wire_compress="int8")
+    _register((jeng, teng), specs)
+    names = [n for n, _, _ in specs]
+    rng = np.random.default_rng(23)
+    grads = [rng.normal(size=(4, k * v)).astype(np.float32)
+             for _, k, v in specs]
+    got = teng.push_pull_group(names, grads)
+    want = jeng.push_pull_group(names, grads)
+    for n, a, b in zip(names, got, want):
+        assert a.shape == (teng.bucket(n).total_len,)
+        np.testing.assert_array_equal(_np(a), _np(b))
+        np.testing.assert_array_equal(_np(teng.pull(n)), _np(jeng.pull(n)))
+
+
 def test_group_matches_jax_2d_torch_path():
     """A 2-D (dp=2, kv=4) group on the torch path, as
     test_engine.py::test_two_axis_push_pull_group builds it."""
@@ -116,17 +137,20 @@ def test_group_rejects_duplicates_and_stateful_handles():
         teng.push_pull_group(["d"], [g, g])
 
 
-def test_group_plain_version_is_single_rings():
+@pytest.mark.parametrize("compress", [False, True])
+def test_group_plain_version_is_single_rings(compress):
     """On CPU tensors the grouped wrapper runs the plain ring per bucket
-    and launches nothing."""
+    (an empty bucket included) and launches nothing."""
     ring.reset_launches()
     gen = torch.Generator().manual_seed(4)
-    grads = [torch.randn(4, 4 * n, generator=gen) for n in (7, 300, 1024)]
-    stores = [torch.randn(4 * n, generator=gen) for n in (7, 300, 1024)]
+    sizes = (7, 0, 300, 1024)
+    grads = [torch.randn(4, 4 * n, generator=gen) for n in sizes]
+    stores = [torch.randn(4 * n, generator=gen) for n in sizes]
     s1 = [s.clone() for s in stores]
-    outs = ring.ring_push_pull_group(grads, stores, "sum")
+    outs = ring.ring_push_pull_group(grads, stores, "sum", compress=compress)
     for g, s, o, t in zip(grads, stores, outs, s1):
-        assert torch.equal(o, ring.ring_push_pull_reference(g, t, "sum"))
+        assert torch.equal(o, ring.ring_push_pull_reference(
+            g, t, "sum", compress=compress))
         assert torch.equal(s, t)
     assert sum(ring.launches.values()) == 0
     assert ring.ring_push_pull_group([], [], "sum") == []

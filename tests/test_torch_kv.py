@@ -154,7 +154,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import pslite_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_trace_cells\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'pslite_tpu'))\n"
         "assert not bad, bad\n"

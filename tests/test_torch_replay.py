@@ -26,9 +26,10 @@ from pslite_tpu.models import resnet_trace as jrt
 from pslite_tpu.parallel.engine import CollectiveEngine as JaxEngine
 from pslite_tpu.parallel.mesh import default_mesh, make_mesh
 from pslite_tpu_torch import CollectiveEngine, DeviceGroup, KVWorker, \
-    Postoffice
+    Postoffice, make_group
 from pslite_tpu_torch.environment import Environment
 from pslite_tpu_torch.models import resnet_trace as trt
+from pslite_tpu_torch.parallel.zero_copy import ZeroCopyHandle
 
 W = 8
 
@@ -128,8 +129,15 @@ def test_replay_zero_copy_keep_last():
         np.float32)
     want = jeng.replay("zl", seq, keep="last", zero_copy=True)
     out = teng.replay("zl", seq, keep="last", zero_copy=True)
-    assert out is teng._stores["zl"]
+    assert isinstance(out, ZeroCopyHandle)
+    assert out.data_ptr() == teng._stores["zl"].data_ptr()
     np.testing.assert_array_equal(_np(out), _np(want))
+    # The next op donates the store in JAX; here the handle goes stale.
+    jeng.push("zl", seq[0])
+    teng.push("zl", seq[0])
+    assert want.is_deleted() and out.is_deleted()
+    with pytest.raises(RuntimeError, match="'zl' is stale"):
+        out.sum()
     # Elsewhere the zero-copy request returns a fresh copy.
     _, t8 = _pair()
     _register((t8,), "zf", 2, 64)
@@ -157,17 +165,23 @@ def test_push_pull_zero_copy_single_rank_aliases_the_store():
     rng = np.random.default_rng(71)
     g1, g2 = (rng.normal(size=(1, 300)).astype(np.float32) for _ in range(2))
     out1 = teng.push_pull("zc", g1, zero_copy=True)
-    assert out1 is teng._stores["zc"]
-    np.testing.assert_array_equal(_np(out1),
-                                  _np(jeng.push_pull("zc", g1,
-                                                     zero_copy=True)))
+    assert out1.data_ptr() == teng._stores["zc"].data_ptr()
+    want1 = jeng.push_pull("zc", g1, zero_copy=True)
+    np.testing.assert_array_equal(_np(out1), _np(want1))
     out2 = teng.push_pull("zc", g2, zero_copy=True)
-    np.testing.assert_array_equal(_np(out2),
-                                  _np(jeng.push_pull("zc", g2,
-                                                     zero_copy=True)))
-    # The contract that differs from JAX: the stale holder is not deleted,
-    # it shows the next op's values.
-    assert out1 is out2 and torch.equal(out1, out2)
+    want2 = jeng.push_pull("zc", g2, zero_copy=True)
+    np.testing.assert_array_equal(_np(out2), _np(want2))
+    # The JAX contract: the first result was donated into the second
+    # step, so the stale holder is deleted and raises on use; the new one
+    # aliases the store.
+    assert want1.is_deleted() and out1.is_deleted()
+    assert not out2.is_deleted()
+    assert out2.data_ptr() == teng._stores["zc"].data_ptr()
+    for use in (lambda t: t.numpy(), lambda t: t.tolist(),
+                lambda t: t.cpu(), lambda t: t[0].item(), lambda t: t + 1,
+                lambda t: torch.equal(t, out2), lambda t: t.data_ptr()):
+        with pytest.raises(RuntimeError, match="'zc' is stale"):
+            use(out1)
     assert teng.flat_zc_eligible() and not teng.flat_ring_eligible(
         torch.float32)
 
@@ -179,6 +193,7 @@ def test_push_pull_zero_copy_falls_back_on_several_ranks():
     out1 = teng.push_pull("zf", ones, zero_copy=True)
     out2 = teng.push_pull("zf", ones, zero_copy=True)
     assert out1.data_ptr() != teng._stores["zf"].data_ptr()
+    assert type(out1) is torch.Tensor and type(out2) is torch.Tensor
     np.testing.assert_array_equal(_np(out1), 8 * np.ones(128))
     np.testing.assert_array_equal(_np(out2), 16 * np.ones(128))
     assert not teng._zc_pull_eligible(torch.float32, "sum")
@@ -195,7 +210,7 @@ def test_push_pull_zero_copy_stateful():
         np.float32)
     for g in seq:
         got = teng.push_pull("sz", g, zero_copy=True)
-        assert got is teng._stores["sz"]
+        assert got.data_ptr() == teng._stores["sz"].data_ptr()
         np.testing.assert_allclose(_np(got), _np(jeng.push_pull(
             "sz", g, zero_copy=True)), rtol=1e-5, atol=1e-6)
 
@@ -204,20 +219,145 @@ def test_pinned_pull_buffer_address_identity():
     jeng, teng = _pair()
     _register((jeng, teng), "pin0", 4, 64)
     buf = teng.register_pull_buffer("pin0")
-    jeng.register_pull_buffer("pin0")
+    jbuf = jeng.register_pull_buffer("pin0")
+    addr = buf.data_ptr()
     ones = np.ones(256, np.float32)
     for _ in range(2):
         jeng.push("pin0", ones)
         teng.push("pin0", ones)
         p = teng.pull("pin0")
-        assert p.data_ptr() == buf.data_ptr()
-        assert teng.pinned_pull_buffer("pin0") is buf
+        assert p.data_ptr() == addr
+        assert teng.pinned_pull_buffer("pin0") is p
         np.testing.assert_array_equal(_np(p), _np(jeng.pull("pin0")))
-    assert teng.pull("pin0").data_ptr() == buf.data_ptr()
+    # The first pull donated the registered array, in both engines.
+    assert jbuf.is_deleted() and buf.is_deleted()
+    assert teng.pull("pin0").data_ptr() == addr
     teng.unregister_pull_buffer("pin0")
     fresh = teng.pull("pin0")
-    assert fresh.data_ptr() != buf.data_ptr() and fresh.shape == (256,)
+    assert fresh.data_ptr() != addr and fresh.shape == (256,)
     np.testing.assert_array_equal(_np(fresh), 16 * ones)
+
+
+def test_pinned_pull_buffer_across_two_pulls():
+    """Each pull returns a fresh handle on the registered memory; the
+    previous one is stale (JAX: the next pull donates it)."""
+    jeng, teng = _pair()
+    _register((jeng, teng), "pin2", 2, 64)
+    teng.register_pull_buffer("pin2")
+    jeng.register_pull_buffer("pin2")
+    g = np.random.default_rng(79).normal(size=(W, 128)).astype(np.float32)
+    firsts = []
+    for eng in (jeng, teng):
+        eng.push("pin2", g)
+        firsts.append(eng.pull("pin2"))
+    np.testing.assert_array_equal(_np(firsts[1]), _np(firsts[0]))
+    seconds = []
+    for eng in (jeng, teng):
+        eng.push("pin2", g)
+        seconds.append(eng.pull("pin2"))
+    np.testing.assert_array_equal(_np(seconds[1]), _np(seconds[0]))
+    assert firsts[0].is_deleted() and firsts[1].is_deleted()
+    assert not seconds[1].is_deleted()
+    assert seconds[1].data_ptr() == teng._pinned_pulls["pin2"][0].data_ptr()
+    with pytest.raises(RuntimeError, match="'pin2' is stale"):
+        _np(firsts[1])
+    # A push does not touch the registered buffer: its handle stays live.
+    teng.push("pin2", g)
+    assert not seconds[1].is_deleted()
+
+
+@pytest.mark.parametrize("op", ["push", "push_pull", "replay", "group",
+                                "set_store_array", "pull"])
+def test_zero_copy_handle_goes_stale_on_mutating_ops(op):
+    """Every op that replaces a bucket's store makes its zero-copy handle
+    stale (the JAX engine deletes the array for push, push_pull, replay
+    and the group, which donate the store; ``set_store_array`` does not
+    donate there, but here the handle's memory is no longer the store);
+    a pull leaves it live."""
+    mesh1 = make_mesh((1,), ("kv",))
+    jeng = JaxEngine(mesh1)
+    teng = CollectiveEngine(DeviceGroup(1, device="cpu"))
+    _register((jeng, teng), "m", 2, 64)
+    _register((jeng, teng), "other", 1, 64)
+    g = np.ones((1, 128), np.float32)
+    outs = [eng.push_pull("m", g, zero_copy=True) for eng in (jeng, teng)]
+    for eng in (jeng, teng):
+        if op == "push":
+            eng.push("m", g)
+        elif op == "push_pull":
+            eng.push_pull("m", g)
+        elif op == "replay":
+            eng.replay("m", np.ones((2, 1, 128), np.float32))
+        elif op == "group":
+            eng.push_pull_group(["other", "m"], [g[:, :64], g])
+        elif op == "set_store_array":
+            eng.set_store_array("m", np.zeros(128, np.float32))
+        else:
+            eng.pull("m")
+    stale = op != "pull"
+    assert outs[1].is_deleted() == stale
+    if op != "set_store_array":
+        assert outs[0].is_deleted() == stale
+    if stale:
+        with pytest.raises(RuntimeError, match="'m' is stale"):
+            outs[1].numpy()
+    else:
+        np.testing.assert_array_equal(_np(outs[1]), np.ones(128))
+
+
+def test_live_zero_copy_handle_is_a_copy_source():
+    """A live handle feeds copies, views and KVWorker's completion copy
+    into ``outs`` (numpy and tensor) like any tensor; what comes out is a
+    plain tensor or array, valid after the handle goes stale."""
+    teng = CollectiveEngine(DeviceGroup(1, device="cpu"))
+    _register((teng,), "cs", 3, 10)
+    g = np.arange(30, dtype=np.float32)[None]
+    h = teng.push_pull("cs", g, zero_copy=True)
+    dst = torch.empty(30).copy_(h)
+    view = h.reshape(3, 10)
+    outs_np = np.zeros(30, np.float32)
+    outs_t = torch.zeros(30)
+    KVWorker._engine_complete(h, None, outs_np, None)
+    KVWorker._engine_complete(h, None, outs_t, None)
+    assert type(dst) is torch.Tensor and type(view) is torch.Tensor
+    teng.push_pull("cs", g, zero_copy=True)
+    assert h.is_deleted()
+    np.testing.assert_array_equal(dst.numpy(), g[0])
+    np.testing.assert_array_equal(outs_np, g[0])
+    np.testing.assert_array_equal(outs_t.numpy(), g[0])
+    # The view shares the store's memory, which the next op updated.
+    np.testing.assert_array_equal(view.reshape(-1).numpy(), 2 * g[0])
+    # Handing the handle back as grads is fine while it is live.
+    h2 = teng.push_pull("cs", np.zeros((1, 30), np.float32), zero_copy=True)
+    h3 = teng.push_pull("cs", h2, zero_copy=True)
+    np.testing.assert_array_equal(_np(h3), 4 * g[0])
+
+
+@pytest.mark.parametrize("group,impl,handle", [
+    ((8,), "xla", "sum"), ((8,), "pallas", "sum"),
+    ((4, 2), "xla", "sum"), ((4, 2), "pallas", "adam:1e-3")])
+def test_zero_copy_not_eligible_returns_a_copy(group, impl, handle):
+    """Several kv shards (1-D, or the 2-D kv axis): zero_copy returns a
+    fresh plain tensor, which the next op leaves as it was."""
+    if len(group) == 1:
+        teng = CollectiveEngine(DeviceGroup(group[0], device="cpu"),
+                                impl=impl, server_handle=handle)
+    else:
+        teng = CollectiveEngine(make_group(group, ("dp", "kv"),
+                                           device="cpu"),
+                                worker_axis="dp", impl=impl,
+                                server_handle=handle)
+    _register((teng,), "nc", 2, 64)
+    g = np.ones((teng.num_workers, 128), np.float32)
+    out = teng.push_pull("nc", g, zero_copy=True)
+    kept = out.clone()
+    assert type(out) is torch.Tensor
+    assert out.data_ptr() != teng._stores["nc"].data_ptr()
+    teng.push_pull("nc", g, zero_copy=True)
+    assert torch.equal(out, kept)
+    last = teng.replay("nc", np.ones((2, 128), np.float32), keep="last",
+                       zero_copy=True)
+    assert type(last) is torch.Tensor
 
 
 def test_pinned_pull_padded_bucket():
@@ -338,7 +478,7 @@ def worker():
 def test_worker_registered_pull_buffer(worker):
     keys = np.arange(3, dtype=np.uint64)
     worker.register_dense("b", keys, 5)
-    buf = worker.register_pull_buffer("b")
+    addr = worker.register_pull_buffer("b").data_ptr()
     outs = np.zeros(15, np.float32)
     for k in range(1, 3):
         worker.wait(worker.push(keys, np.ones(15, np.float32)))
@@ -346,8 +486,7 @@ def test_worker_registered_pull_buffer(worker):
         worker.wait(ts)
         np.testing.assert_array_equal(outs, np.full(15, 8.0 * k))
         assert worker.get_pulled(ts) is None  # not kept: overwritten next
-        assert worker.engine.pinned_pull_buffer("b").data_ptr() == \
-            buf.data_ptr()
+        assert worker.engine.pinned_pull_buffer("b").data_ptr() == addr
     # Back-to-back pulls: each waits for the previous one to complete.
     tss = [worker.pull(keys, outs) for _ in range(3)]
     for ts in tss:

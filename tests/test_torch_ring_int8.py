@@ -1,19 +1,25 @@
 """The int8 ring kernel's region table and launch plan, on the CPU.
 
 ``csrc/ring_int8.cu`` walks each region (shard, sub-chunk, direction) of
-the bucket with one thread block cluster; the regions' bounds come from
-``int8_regions`` and the shared-memory/scratch split from ``int8_plan``.
-Both are index arithmetic, so they are checked here at every geometry the
-gpu tests run, at full width too: every element of ``[padded]`` lies in
-exactly one region, the regions are those of the plain version
-(``_to_regions``) and of ``ring_geometry.cuh``'s ``ring_pos``, and the
-main path's shapes spill nothing at 16 CTAs per cluster.
+each bucket of a launch with one thread block cluster; the regions' bounds
+come from ``int8_regions`` (one bucket) and ``int8_group_regions`` (the
+launch's table over all its buckets, longest first), the shared-memory/
+scratch split from ``int8_plan`` and the cluster size from
+``int8_cost``/``int8_pick_cluster``.  All of it is index arithmetic, so it
+is checked here at every geometry the gpu tests run, at full width too:
+every element of ``[padded]`` lies in exactly one region, the regions are
+those of the plain version (``_to_regions``) and of ``ring_geometry.cuh``'s
+``ring_pos``, the main path's shapes spill nothing at 16 CTAs per cluster,
+and the ResNet-50 trace's group holds its regions on chip from 2 CTAs up.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
+from pslite_tpu_torch.models import resnet_trace as rt
 from pslite_tpu_torch.ops import ring_collective as ring
 
 P = 10_240_000
@@ -33,6 +39,11 @@ _GEOMS = [(8, P, True, None), (4, P, True, 2),
 
 def _geo(n, padded, bidir, kv):
     return ring.ring_geometry(n, padded, torch.float32, bidir, True, kv)
+
+
+def _one(n, padded, bidir=True, kv=None):
+    """The layout of a launch over one bucket."""
+    return ((_geo(n, padded, bidir, kv), padded),)
 
 
 @pytest.mark.parametrize("n,padded,bidir,kv", _GEOMS)
@@ -96,8 +107,8 @@ def test_regions_agree_with_ring_pos(n, padded, bidir, kv):
 def test_scratch_only_where_a_region_spills(n, padded, bidir, kv, cluster,
                                             scratch):
     geo = _geo(n, padded, bidir, kv)
-    plan = ring.int8_plan(geo, padded, cluster)
-    assert plan.scratch == scratch
+    plan = ring.int8_plan(_one(n, padded, bidir, kv), cluster)
+    assert plan.scratch == scratch and plan.spills == (scratch > 0,)
     longest = int(ring.int8_regions(geo, padded)[0][:, 1].max())
     assert plan.slice % 4 == 0 and plan.slice * cluster >= longest
     assert plan.smem_floats == min(plan.slice, ring.INT8_SMEM_FLOATS)
@@ -107,10 +118,10 @@ def test_scratch_only_where_a_region_spills(n, padded, bidir, kv, cluster,
 def test_main_path_plan():
     """At n = 8 over P: 16 regions of 643,072 values; 16 CTAs hold one in
     40,192 values (157 KiB) each, with float4 accesses."""
-    geo = _geo(8, P, True, None)
-    plan = ring.int8_plan(geo, P, 16)
-    assert plan == ring.Int8Plan(16, 16, 40_192, 40_192, 0, True)
-    assert not ring.int8_plan(_geo(3, 3 * 1001, True, None), 3003, 16).vec
+    plan = ring.int8_plan(_one(8, P), 16)
+    assert plan == ring.Int8Plan(16, 16, 40_192, 40_192, 0, True, (False,),
+                                 (True,))
+    assert not ring.int8_plan(_one(3, 3 * 1001), 16).vec
 
 
 @pytest.mark.parametrize("active,want", [
@@ -121,15 +132,102 @@ def test_main_path_plan():
     ({16: 8, 8: 0}, 16),
 ])
 def test_launcher_cost_picks_cluster(active, want):
-    geo = _geo(8, P, True, None)
     full = {c: active.get(c, 0) for c in ring.INT8_CLUSTERS}
-    assert ring.int8_pick_cluster(geo, P, full) == want
+    assert ring.int8_pick_cluster(_one(8, P), full) == want
 
 
 def test_launcher_raises_without_a_cluster():
     with pytest.raises(RuntimeError, match="no cluster"):
-        ring.int8_pick_cluster(_geo(8, P, True, None), P,
+        ring.int8_pick_cluster(_one(8, P),
                                {c: 0 for c in ring.INT8_CLUSTERS})
+
+
+# -- one launch over many buckets -------------------------------------------
+
+def _trace_layout(n=8, kv=None):
+    shards = kv or n
+    return ring.int8_layout(n, [-(-m // shards) * shards
+                                for _, m in rt.make_buckets()], kv)
+
+
+_GROUPS = [("trace", _trace_layout()), ("trace-2d", _trace_layout(4, 2)),
+           ("odd", ring.int8_layout(3, [3 * 1001, 3 * 5, 3 * 4096, 3 * 77])),
+           ("mixed-2d", ring.int8_layout(4, [2 * 700, 2 * 9, 2 * 24676], 2))]
+
+
+@pytest.mark.parametrize("name,layout", _GROUPS)
+def test_group_region_table(name, layout):
+    """The launch's table holds each bucket's own regions, tagged with its
+    bucket index, longest first (ties in bucket, then region order)."""
+    table = ring.int8_group_regions(layout)
+    assert table.shape[1] == 5 and table.dtype == np.int64
+    assert np.all(np.diff(table[:, 1]) <= 0)
+    for b, (geo, padded) in enumerate(layout):
+        own = table[table[:, 4] == b, :4]
+        want = ring.int8_regions(geo, padded)[0]
+        order = np.argsort(-want[:, 1], kind="stable")
+        np.testing.assert_array_equal(own, want[order])
+    assert len(table) == sum(len(ring.int8_regions(g, p)[0])
+                             for g, p in layout)
+    # Ties keep bucket order, then region order.
+    key = table[:, 1] * (1 << 20) - table[:, 4]
+    assert np.all(np.diff(key) <= 0)
+
+
+def test_trace_group_plan():
+    """The trace's 36 buckets at 8 ranks: 528 regions, the longest of
+    65,536 values.  From 2 CTAs per region up every region stays in
+    shared memory; at 1 CTA the 65,536-value regions spill 8,192 values
+    each, in the 16 buckets that hold one, and the odd-length last bucket
+    takes the scalar walk."""
+    layout = _trace_layout()
+    table = ring.int8_group_regions(layout)
+    assert len(layout) == 36 and len(table) == 528
+    assert int(table[0, 1]) == 65_536 and int(table[-1, 1]) == 128
+    for c in ring.INT8_CLUSTERS[:-1]:
+        plan = ring.int8_plan(layout, c)
+        assert plan.scratch == 0 and not any(plan.spills), c
+        assert plan.slice * c >= 65_536 and plan.smem_floats == plan.slice
+    plan = ring.int8_plan(layout, 1)
+    assert (plan.slice, plan.smem_floats) == (65_536, ring.INT8_SMEM_FLOATS)
+    assert sum(plan.spills) == 16
+    assert plan.scratch == sum(p for (_, p), s in zip(layout, plan.spills)
+                               if s)
+    assert plan.vecs.count(False) == 1 and not plan.vecs[-1]
+    assert not plan.vec and ring._mode(plan) == 0
+
+
+_H100_LIKE = {1: 132, 2: 66, 3: 44, 4: 32, 5: 24, 6: 22, 7: 16, 8: 15,
+              9: 9, **{c: 7 for c in range(10, 17)}}
+
+
+@pytest.mark.parametrize("active,want", [
+    (_H100_LIKE, 2),  # one wave of short walks beats 16-CTA clusters
+    ({**_H100_LIKE, 2: 0}, 1),  # without pairs, one CTA (spilling) next
+    ({16: 7}, 16),  # the only size the card runs
+    ({16: 7, 8: 15}, 8),  # 15 slots of 8 beat 7 of 16 on 528 regions
+])
+def test_group_cost_picks_cluster(active, want):
+    layout = _trace_layout()
+    full = {c: active.get(c, 0) for c in ring.INT8_CLUSTERS}
+    assert ring.int8_pick_cluster(layout, full) == want
+
+
+def test_group_cost_is_the_longest_first_makespan():
+    """Two buckets by hand at n = 2, one direction each: regions of 4,096
+    (x2) and 2,048 (x2) values on 2 slots of one CTA: each slot takes one
+    long and one short row."""
+    layout = ring.int8_layout(2, [8192, 4096])
+    table = ring.int8_group_regions(layout)
+    lens = table[:, 1].tolist()
+    assert lens == [4096, 4096, 2048, 2048]
+    per = [ln * 5 * 4 + 3 * ring.INT8_HOP_BYTES for ln in lens]
+    slots = [0, 0]
+    for c in per:
+        slots[slots.index(min(slots))] += c
+    assert ring.int8_cost(layout, 1, 2) == max(slots)
+    assert ring.int8_cost(layout, 1, len(lens)) == max(per)
+    assert ring.int8_cost(layout, 1, 0) is None
 
 
 def test_int8_wrapper_on_cpu_runs_the_plain_version():
@@ -141,3 +239,93 @@ def test_int8_wrapper_on_cpu_runs_the_plain_version():
     ref = ring.ring_push_pull_reference(g, s2, compress=True, kv_shards=2)
     assert torch.equal(out, ref) and torch.equal(s1, s2)
     assert sum(ring.launches.values()) == 0
+
+
+def _emulated_kernel(tensors):
+    """A stand-in for ``pstt_ring_int8`` that walks each row of the
+    launch's region table with the plain version's arithmetic, reading the
+    bucket table the wrapper passes (pointers resolved through
+    ``tensors``)."""
+    calls = []
+
+    def call(name, desc_ptr, count, regions_ptr, nregions, cluster, smem,
+             code, lr, gather, stp, stream):
+        assert name == "pstt_ring_int8"
+        calls.append((count, nregions, cluster, smem))
+        desc = np.ctypeslib.as_array(
+            (ctypes.c_longlong * (7 * count)).from_address(desc_ptr))
+        desc = desc.reshape(count, 7)
+        rows = tensors[regions_ptr].numpy()
+        assert rows.shape == (nregions, 5)
+        for start, length, chunk, step, b in rows.tolist():
+            gp, sp, pp, scp, padded, n, _ = desc[b].tolist()
+            g, st = tensors[gp].view(n, padded), tensors[sp]
+            idx = slice(start, start + length)
+            acc = g[(chunk + step) % n, idx].clone()
+            for k in range(2, n + 1):
+                q, sc = ring._quantize_regions(acc)
+                acc = ring._fma_f32(q, sc.expand_as(q),
+                                    g[(chunk + k * step) % n, idx])
+            up = ring._apply_handle(st[idx], acc, code, lr)
+            if gather:
+                q, sc = ring._quantize_regions(up)
+                pv = q * sc
+                if pp:
+                    tensors[pp][idx] = pv
+                st[idx] = pv if stp else up
+            else:
+                st[idx] = up
+    return call, calls
+
+
+@pytest.mark.parametrize("n,pads,kv,cluster,with_ag", [
+    (4, [4 * 1001, 4 * 5, 0, 4 * 4096, 4 * 77], None, 2, True),
+    (3, [3 * 1001, 3 * 8192], None, 1, False),
+    (4, [2 * 700, 2 * 9, 2 * 24676], 2, 4, True),
+    (4, [4 * (37 + i) for i in range(50)], None, 16, True),
+])
+def test_launcher_tables_drive_the_kernel(monkeypatch, n, pads, kv, cluster,
+                                          with_ag):
+    """``_launch_int8``'s bucket and region tables, run by an emulated
+    kernel, give the plain version's bits: one launch per 48 buckets, an
+    empty bucket skipped."""
+    from pslite_tpu_torch.ops import _native
+
+    gen = torch.Generator().manual_seed(7)
+    grads = [torch.randn(n, p, generator=gen) for p in pads]
+    stores = [torch.randn(p, generator=gen) for p in pads]
+    pulled = [torch.empty(p) if with_ag else None for p in pads]
+    geos = [ring.ring_geometry(n, p, torch.float32, True, True, kv)
+            for p in pads]
+    tensors = {}
+
+    def remember(t):
+        if t is not None and t.numel():
+            tensors[t.data_ptr()] = t
+
+    real_table = ring._region_table
+
+    def region_table(layout, device):
+        t = real_table(layout, device)
+        remember(t)
+        return t
+
+    for t in grads + stores + pulled:
+        remember(t)
+    call, calls = _emulated_kernel(tensors)
+    monkeypatch.setattr(_native, "call", call)
+    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(ring, "_region_table", region_table)
+    want = [s.clone() for s in stores]
+    outs = [ring._ring_reference(g, w, "sum", True, with_ag, True, kv)
+            for g, w in zip(grads, want)]
+    made = ring._launch_int8(grads, stores, pulled, geos, 0, 0.0, with_ag,
+                             cluster)
+    live = sum(1 for p in pads if p)
+    assert made == len(calls) == -(-live // ring.INT8_MAX_GROUP)
+    assert all(c[2] == cluster for c in calls)
+    for s, w in zip(stores, want):
+        assert torch.equal(s, w)
+    if with_ag:
+        for p, o in zip(pulled, outs):
+            assert torch.equal(p, o)
