@@ -28,7 +28,12 @@ line):
    launches (the int8 group also at every cluster size the card runs),
    and
    ``ring_replay`` of 8 steps of the bucket (push_pull and push steps),
-   also against 8 single launches: 0 differing elements everywhere.
+   also against 8 single launches: 0 differing elements everywhere.  The
+   sparse row kernels at BASELINE config 5's shapes (a 1,048,576 x 64 f32
+   table over 8 shards, 8 x 4,096 Zipf(1.2) rows): the sum push and the
+   pull with 0 differing elements, row-wise Adagrad within rtol 1e-5 /
+   atol 1e-6, each also timed with the L2 flushed before every launch,
+   beside the longest run's chain of dependent adds.
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
    replayed, timed with CUDA events (the host is out of the timing);
    ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
@@ -56,13 +61,22 @@ line):
    ``push_pull_multi_stream``'s pinned staging); the grouped bf16, 2-D
    and int8 rings over the trace; ``KVWorker.replay`` (ring keep all and
    last, torch, adam) against 8 sequential push_pulls; zero-copy and
-   registered pulls (a stale handle must raise).  The grouped int8 ring
-   must count one launch per ``push_pull_group``.  Then the steady-state
+   registered pulls (a stale handle must raise); the sparse tables (config
+   5 through ``KVWorker.push_sparse``/``pull_sparse``, 3 steps with the sum
+   handle and 3 with ``row_adagrad:0.01,1e-8``, against float64 numpy and
+   each push against the plain version on the card; a
+   ``push_group``/``pull_group`` of two tables against single ops; and
+   ``models.embedding.replay``).  The grouped int8 ring must count one
+   launch per ``push_pull_group``, and the sparse kernels one launch per
+   table and op.  Then the steady-state
    ``engine.push_pull`` time with device-resident grads, and the steady
    state of the trace's five paths (``resnet50-grouped-int8``: one
    ``push_pull_group`` per step under ``PS_ICI_COMPRESS=int8``) and of
    an 8-step replay (wall and event ms/step, the profiler's device time,
-   host-to-device GB/s).
+   host-to-device GB/s), and of config 5 through KVWorker: one push and
+   one pull per step with grads on the card (``embedding-1m``), under
+   ``row_adagrad`` (``embedding-1m-adagrad``) and from numpy grads
+   (``embedding-1m-host``).
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1158,32 +1172,37 @@ def expect_stale(handle, label):
     raise AssertionError(f"{label}: a stale handle did not raise")
 
 
-def device_breakdown(torch, step, iters: int = 5):
+def device_breakdown(torch, step, iters: int = 5, attempts: int = 3):
     """torch.profiler over ``iters`` steps: (device-busy ms per step,
     [(kernel, ms per step)] by time).  The kernels run on one stream, so
     their times add.  (The profiler slows the host, so the busy share is
-    taken against an unprofiled step's wall time, not this window's.)"""
+    taken against an unprofiled step's wall time, not this window's.)
+    The profiler now and then reports a window without its device events
+    (seen on an H100 for windows of a few kernels): such a window is
+    profiled again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            step()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        # Kernel events only: an aten op's self device time repeats the
-        # time of the kernels it launched.
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-            kernels.append((ev.key[:60],
-                            ev.self_device_time_total / iters / 1e3))
-    kernels.sort(key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    if busy_ms == 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy_ms, kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step()
+            torch.cuda.synchronize()
+        kernels = []
+        for ev in prof.key_averages():
+            # Kernel events only: an aten op's self device time repeats
+            # the time of the kernels it launched.
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+                kernels.append((ev.key[:60],
+                                ev.self_device_time_total / iters / 1e3))
+        kernels.sort(key=lambda kv: -kv[1])
+        busy_ms = sum(ms for _, ms in kernels)
+        if busy_ms > 0:
+            return busy_ms, kernels
+    raise AssertionError(f"the profiler saw no device time in {attempts} "
+                         f"windows")
 
 
 def copy_ms(kernels) -> float:
@@ -1346,6 +1365,327 @@ def steady_state_trace(torch, ps, rt, Environment):
     return out
 
 
+# -- sparse tables: BASELINE config 5 ------------------------------------------
+
+EMB_ROWS = 1 << 20  # BASELINE.md:30, pslite_tpu/models/embedding.py
+EMB_DIM = 64
+EMB_BATCH = 4096
+EMB_HANDLE = "row_adagrad:0.01,1e-8"
+FADD_CYCLES = 4  # dependent f32 add latency on Hopper
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def emb_layout():
+    """(S, rows_per_shard) of config 5's table, as SparseEngine lays it
+    out (dim 64: the JAX packing factor 2 rounds rps)."""
+    rps = -(-EMB_ROWS // N)
+    return N, -(-rps // 2) * 2
+
+
+def emb_stats(emb, idx_np):
+    """Distinct in-range rows and the longest run of one row among the
+    config-5 batch's updates."""
+    counts = np.bincount(idx_np.reshape(-1), minlength=EMB_ROWS)
+    return int((counts > 0).sum()), int(counts.max())
+
+
+def flush_l2(torch, dev):
+    """A function that evicts the L2 (50 MB) by writing 128 MB."""
+    buf = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    return lambda: buf.zero_()
+
+
+def cold_ms(torch, fn, flush):
+    """Host-free ms of ``fn`` with the L2 flushed before each launch: a
+    graph of flush + fn, less a graph of the flushes alone."""
+    return graph_ms(lambda: (flush(), fn())) - graph_ms(flush)
+
+
+def sparse_rows_rows(torch, sr, emb, dev):
+    """S1-S3 at config 5's shapes (1,048,576 x 64 f32 over 8 shards, 8 x
+    4,096 Zipf(1.2) rows, seed 0) against their plain versions."""
+    S, rps = emb_layout()
+    idx_np = emb.skewed_indices(EMB_ROWS, N, EMB_BATCH, seed=0)
+    distinct, max_run = emb_stats(emb, idx_np)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    idx = torch.from_numpy(idx_np).to(dev)
+    rows = torch.randn((N, EMB_BATCH, EMB_DIM), generator=gen, device=dev)
+    store = torch.randn((S * rps, EMB_DIM), generator=gen, device=dev)
+    acc = torch.rand(S * rps, generator=gen, device=dev)
+    flat = sr.target_rows(idx, S, rps).reshape(-1)
+    rows2 = rows.reshape(-1, EMB_DIM)
+    flush = flush_l2(torch, dev)
+    m = N * EMB_BATCH
+    row_b = EMB_DIM * 4
+    # The hottest row's updates are one dependent chain of adds.
+    chain_ms = max_run * FADD_CYCLES / max_sm_clock_hz() * 1e3
+    out = []
+
+    # S1: sum push.  The same function in another order of addition:
+    # index_add_ (atomics on the card), not bit-exact.
+    sk, sp = store.clone(), store.clone()
+    sr.scatter_add(sk, idx, rows, S, rps)
+    sr.scatter_add_reference(sp, idx, rows, S, rps)
+    torch.cuda.synchronize()
+    err = float(mismatches(sk, sp))
+    ms, ms_host = kernel_times(lambda: sr.scatter_add(sk, idx, rows, S, rps))
+    ms_cold = cold_ms(torch, lambda: sr.scatter_add(sk, idx, rows, S, rps),
+                      flush)
+    plain_ms = cuda_ms(lambda: sr.scatter_add_reference(sp, idx, rows, S,
+                                                        rps), iters=2,
+                       warmup=1)
+    lib = library_time(lambda s: s.index_add_(0, flat, rows2), store.clone())
+    b_ms, b_by = bound(m * row_b + m * 4 + 2 * distinct * row_b, m * EMB_DIM)
+    out.append(dict(
+        name="sparse_scatter_add", route="cuda",
+        source="pslite_tpu_torch/csrc/sparse_rows.cu",
+        replaces="pslite_tpu/parallel/sparse.py:137",
+        max_abs_err=err, ms=ms, ms_host=ms_host, ms_cold=ms_cold,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        chain_floor_ms=chain_ms, library_ms=lib[0], library_ms_host=lib[1],
+        library_note=lib[2] or "index_add_: the same sums in another order "
+                               "of addition (atomics), not bit-exact",
+        distinct_rows=distinct, max_run=max_run))
+
+    # S2: row-wise Adagrad.  No single PyTorch call computes it.
+    sk, ak = store.clone(), acc.clone()
+    sp, ap = store.clone(), acc.clone()
+    sr.row_adagrad(sk, ak, idx, rows, S, rps, 0.01, 1e-8)
+    sr.row_adagrad_reference(sp, ap, idx, rows, S, rps, 0.01, 1e-8)
+    torch.cuda.synchronize()
+    pairs = [(sk, sp), (ak, ap)]
+    err = max_err(pairs)
+    if not within(pairs, 1e-5, 1e-6):
+        raise AssertionError(f"sparse_row_adagrad off the plain version by "
+                             f"{err} (rtol 1e-5, atol 1e-6)")
+    ms, ms_host = kernel_times(
+        lambda: sr.row_adagrad(sk, ak, idx, rows, S, rps, 0.01, 1e-8))
+    ms_cold = cold_ms(
+        torch, lambda: sr.row_adagrad(sk, ak, idx, rows, S, rps, 0.01, 1e-8),
+        flush)
+    plain_ms = cuda_ms(lambda: sr.row_adagrad_reference(
+        sp, ap, idx, rows, S, rps, 0.01, 1e-8), iters=2, warmup=1)
+    b_ms, b_by = bound(m * row_b + m * 4 + 2 * distinct * (row_b + 4),
+                       m * EMB_DIM + distinct * 6 * EMB_DIM)
+    out.append(dict(
+        name="sparse_row_adagrad", route="cuda",
+        source="pslite_tpu_torch/csrc/sparse_rows.cu",
+        replaces="pslite_tpu/parallel/sparse.py:179",
+        max_abs_err=err, ms=ms, ms_host=ms_host, ms_cold=ms_cold,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        chain_floor_ms=chain_ms, library_ms=None, library_ms_host=None,
+        library_note="no single PyTorch call computes it",
+        distinct_rows=distinct, max_run=max_run))
+
+    # S3: pull.  index_select computes the same function (every index of
+    # config 5 is in range).
+    got = sr.gather_rows(store, idx, S, rps)
+    want = sr.gather_rows_reference(store, idx, S, rps)
+    torch.cuda.synchronize()
+    err = float(mismatches(got, want))
+    ms, ms_host = kernel_times(lambda: sr.gather_rows(store, idx, S, rps))
+    ms_cold = cold_ms(torch, lambda: sr.gather_rows(store, idx, S, rps),
+                      flush)
+    plain_ms = cuda_ms(lambda: sr.gather_rows_reference(store, idx, S, rps))
+    lib = library_time(lambda f: torch.index_select(store, 0, f), flat)
+    b_ms, b_by = bound(distinct * row_b + m * 4 + m * row_b, 0)
+    out.append(dict(
+        name="sparse_gather_rows", route="cuda",
+        source="pslite_tpu_torch/csrc/sparse_rows.cu",
+        replaces="pslite_tpu/parallel/sparse.py:246",
+        max_abs_err=err, ms=ms, ms_host=ms_host, ms_cold=ms_cold,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib[0],
+        library_ms_host=lib[1], library_note=lib[2] or "torch.index_select",
+        distinct_rows=distinct, max_run=max_run))
+    del store, rows, acc, sk, sp, ak, ap
+    return out
+
+
+def emb_worker(ps, Environment):
+    """A worker Postoffice on 8 virtual ranks of the card, its KVWorker
+    and the van's SparseEngine with config 5's table ``emb``."""
+    po = ps.Postoffice("worker", env=Environment({}))
+    po.van.set_mesh(ps.DeviceGroup(N))
+    po.start()
+    worker = ps.KVWorker(0, 0, postoffice=po)
+    se = worker.sparse_engine
+    if se is None or se.group is not po.van.engine.group:
+        raise AssertionError("the ici van built no SparseEngine on its group")
+    se.register_sparse("emb", EMB_ROWS, EMB_DIM)
+    return po, worker, se
+
+
+def _adagrad64(ref, acc, idx, g, lr=0.01, eps=1e-8):
+    G = np.zeros(ref.shape)
+    np.add.at(G, idx.reshape(-1), g.reshape(-1, ref.shape[1]))
+    acc += np.mean(G ** 2, axis=1)
+    ref -= lr * G / (np.sqrt(acc)[:, None] + eps)
+
+
+def drive_sparse(torch, ps, Environment, emb, sr):
+    """Config 5 through Postoffice/IciVan/KVWorker: 3 steps of
+    ``push_sparse`` + ``pull_sparse`` with the sum handle and 3 with
+    ``row_adagrad:0.01,1e-8`` (a second table), each against a float64
+    numpy reference and each push against the plain version on the card
+    (sum: 0 differing elements); one ``push_group``/``pull_group`` over two
+    tables against single pushes (0 differing elements); and
+    ``models.embedding.replay`` (2 steps)."""
+    po, worker, se = emb_worker(ps, Environment)
+    S, rps = se.num_shards, se.table("emb").rows_per_shard
+    se.register_sparse("emb_ag", EMB_ROWS, EMB_DIM)
+    idx = emb.skewed_indices(EMB_ROWS, N, EMB_BATCH, seed=0)
+    idx_dev = torch.from_numpy(idx).cuda()
+    rng = np.random.default_rng(SEED + 6)
+    results = []
+    for name, handle in (("emb", None), ("emb_ag", EMB_HANDLE)):
+        ref = np.zeros((EMB_ROWS, EMB_DIM))
+        mag = np.zeros((EMB_ROWS, EMB_DIM))
+        cnt = np.zeros(EMB_ROWS)
+        acc64 = np.zeros(EMB_ROWS)
+        worst = 0.0
+        for k in range(3):
+            g = rng.standard_normal((N, EMB_BATCH, EMB_DIM), dtype=np.float32)
+            snap = se.store_array(name)
+            acc_snap = (se.acc_array(name) if handle and k else
+                        torch.zeros(S * rps, device="cuda"))
+            worker.wait(worker.push_sparse(name, idx, g, handle=handle))
+            out = np.zeros((N, EMB_BATCH, EMB_DIM), np.float32)
+            worker.wait(worker.pull_sparse(name, idx, out=out))
+            g_dev = torch.from_numpy(g).cuda()
+            if handle is None:
+                sr.scatter_add_reference(snap, idx_dev, g_dev, S, rps)
+                mismatches(se.store_array(name), snap)
+                np.add.at(ref, idx.reshape(-1),
+                          g.reshape(-1, EMB_DIM).astype(np.float64))
+                np.add.at(mag, idx.reshape(-1),
+                          np.abs(g.reshape(-1, EMB_DIM)).astype(np.float64))
+                np.add.at(cnt, idx.reshape(-1), 1.0)
+                # Recursive summation: each add rounds by at most u of its
+                # partial sum, so |err| <= adds * u * sum|g| per row.
+                tol = (cnt * 2.0 ** -24)[:, None] * mag + 1e-6
+            else:
+                sr.row_adagrad_reference(snap, acc_snap, idx_dev, g_dev, S,
+                                         rps, 0.01, 1e-8)
+                pairs = [(se.store_array(name), snap),
+                         (se.acc_array(name), acc_snap)]
+                if not within(pairs, 1e-5, 1e-6):
+                    raise AssertionError(f"{name}: row_adagrad step {k} off "
+                                         f"the plain version by "
+                                         f"{max_err(pairs)}")
+                _adagrad64(ref, acc64, idx, g.astype(np.float64))
+                tol = 1e-4 + 1e-4 * np.abs(ref)
+            want = ref[idx]
+            err = np.abs(out.astype(np.float64) - want)
+            if not (np.all(np.isfinite(out))
+                    and np.all(err <= tol[idx])):
+                raise AssertionError(f"{name}: step {k} off the float64 "
+                                     f"reference by {float(err.max())}")
+            mismatches(torch.from_numpy(out).cuda(),
+                       sr.gather_rows_reference(se.store_array(name),
+                                                idx_dev, S, rps))
+            worst = max(worst, float(err.max()))
+        results.append({"config": f"config 5 KVWorker {handle or 'sum'} "
+                                  f"(1,048,576 x 64, 8 x 4,096 Zipf)",
+                        "ops": 6, "max_abs_err_vs_f64": worst})
+        del ref, mag, acc64
+
+    # Groups: two tables pushed and pulled together, and their twins one
+    # at a time.
+    small = emb.skewed_indices(65_536, N, 1024, seed=1)
+    g_small = rng.standard_normal((N, 1024, 16), dtype=np.float32)
+    g_big = rng.standard_normal((N, EMB_BATCH, EMB_DIM), dtype=np.float32)
+    for t in ("grp_a", "one_a"):
+        se.register_sparse(t, EMB_ROWS, EMB_DIM)
+    for t in ("grp_b", "one_b"):
+        se.register_sparse(t, 65_536, 16)
+    for handle in (None, EMB_HANDLE):
+        se.push_group(["grp_a", "grp_b"], [idx, small], [g_big, g_small],
+                      handle=handle)
+        se.push("one_a", idx, g_big, handle=handle)
+        se.push("one_b", small, g_small, handle=handle)
+    outs = se.pull_group(["grp_a", "grp_b"], [idx, small])
+    for got, twin, ix in zip(outs, ("one_a", "one_b"), (idx, small)):
+        mismatches(got, se.pull(twin, ix))
+        mismatches(se.store_array("grp" + twin[3:]), se.store_array(twin))
+    results.append({"config": "config 5 push_group/pull_group (2 tables, "
+                              "sum then row_adagrad) vs single ops",
+                    "ops": 3, "max_abs_err_vs_f64": 0.0})
+
+    nbytes, dt = emb.replay(se, num_rows=EMB_ROWS, dim=EMB_DIM,
+                            batch=EMB_BATCH, steps=2)
+    if nbytes != 2 * 4 * N * EMB_BATCH * EMB_DIM or not dt > 0:
+        raise AssertionError(f"embedding.replay: {nbytes} B, {dt} s")
+    results.append({"config": "models.embedding.replay (2 steps, host "
+                              "grads)", "ops": 6, "ms_per_step_wall":
+                    dt * 1e3})
+    worker.stop()
+    po.finalize()
+    return results
+
+
+def steady_state_sparse(torch, ps, Environment, emb):
+    """Steady state of config 5 through KVWorker: one ``push_sparse`` +
+    ``pull_sparse`` per step with grads already on the card
+    (``embedding-1m``), the same under ``row_adagrad``
+    (``embedding-1m-adagrad``), and with numpy grads and indices that the
+    push copies to the card (``embedding-1m-host``, as
+    ``models.embedding.replay``).  Each: wall ms/step (host clock to a
+    synchronize), CUDA-event ms/step, the profiler's device time per step
+    by kernel, busy share against the wall."""
+    po, worker, se = emb_worker(ps, Environment)
+    idx = emb.skewed_indices(EMB_ROWS, N, EMB_BATCH, seed=0)
+    idx_dev = torch.from_numpy(idx).cuda()
+    g_host = np.ones((N, EMB_BATCH, EMB_DIM), np.float32)
+    g_dev = torch.randn((N, EMB_BATCH, EMB_DIM), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED + 7))
+    out = []
+    for cell, ix, g, handle in (
+            ("embedding-1m", idx_dev, g_dev, None),
+            ("embedding-1m-adagrad", idx_dev, g_dev, EMB_HANDLE),
+            ("embedding-1m-host", idx, g_host, None)):
+        def step():
+            worker.push_sparse("emb", ix, g, handle=handle)
+            return worker.pull_sparse("emb", ix)
+
+        def loop(steps):
+            for _ in range(steps):
+                ts = step()
+            worker.wait(ts)
+            torch.cuda.synchronize()
+
+        loop(3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop(ITERS)
+        end.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end) / ITERS
+        t0 = time.perf_counter()
+        loop(ITERS)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+        busy, kernels = device_breakdown(torch, lambda: loop(1))
+        out.append({"cell": cell, "wall_ms_per_step": wall_ms,
+                    "event_ms_per_step": event_ms, "busy_ms_per_step": busy,
+                    "copy_ms_per_step": copy_ms(kernels),
+                    "busy_share": busy / wall_ms, "kernels": kernels,
+                    "goodput_gbps_wall": 2 * 4 * N * EMB_BATCH * EMB_DIM
+                    / wall_ms / 1e6})
+    worker.stop()
+    po.finalize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1364,6 +1704,8 @@ def main() -> int:
     from pslite_tpu_torch.ops import fused_update as fu
     from pslite_tpu_torch.ops import quantize as qz
     from pslite_tpu_torch.ops import ring_collective as ring
+    from pslite_tpu_torch.ops import sparse_rows as sr
+    from pslite_tpu_torch.models import embedding as emb
     from pslite_tpu_torch.models import resnet_trace as rt
 
     smi = nvidia_smi()
@@ -1398,6 +1740,7 @@ def main() -> int:
               f"per CTA) {shape['cost']}")
 
     rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
+    rows += sparse_rows_rows(torch, sr, emb, torch.device("cuda:0"))
     for r in rows:
         note = r["library_note"]
         lib = (f"{r['library_ms']:.4f} ms (host-inclusive "
@@ -1417,6 +1760,13 @@ def main() -> int:
                   f"{r['cluster']} ({r['waves']} waves); host-free ms by "
                   f"forced cluster size: " + ", ".join(
                       f"{c}: {ms:.4f}" for c, ms in r["ms_by_cluster"].items()))
+        if "ms_cold" in r:
+            chain = (f", chain floor {r['chain_floor_ms'] * 1e3:.1f} us "
+                     f"(longest run {r['max_run']} updates)"
+                     if "chain_floor_ms" in r else "")
+            print(f"    config 5: {r['distinct_rows']} distinct rows; "
+                  f"{r['ms_cold']:.4f} ms host-free with the L2 flushed "
+                  f"before each launch{chain}")
         if "steps" in r:
             print(f"    per step of {r['steps']}: {r['ms_per_step']:.4f} ms "
                   f"host-free, {r['ms_host_per_step']:.4f} ms "
@@ -1447,14 +1797,17 @@ def main() -> int:
         ("replay", lambda: drive_replay(torch, ps, Environment, dev_steps)),
         ("zero-copy", lambda: drive_zero_copy(torch, ps, Environment,
                                               grads_steps)),
+        ("sparse", lambda: drive_sparse(torch, ps, Environment, emb, sr)),
     ]
     results, path_counts = [], {}
     for path, run in paths:
         fu.reset_launches()
         ring.reset_launches()
         qz.reset_launches()
+        sr.reset_launches()
         results += run()
-        path_counts[path] = {**ring.launches, **fu.launches, **qz.launches}
+        path_counts[path] = {**ring.launches, **fu.launches, **qz.launches,
+                             **sr.launches}
         print(f"main path launches [{path}]: " + ", ".join(
             f"{k} {v}" for k, v in path_counts[path].items() if v))
     for r in results:
@@ -1464,6 +1817,16 @@ def main() -> int:
                if "max_abs_err_vs_f64" in r else "held against sequential "
                                                  "ops")
         print(f"main path {r['config']}: {r['ops']} ops, {err}{extra}")
+    # The sparse path launches once per table and op: 3 pushes and 3
+    # pulls of each handle, a push_group and a pull_group of 2 tables
+    # beside single ops on their twins (per handle), and the replay's 3
+    # pushes and pulls.
+    want = {"sparse_scatter_add": 3 + 2 + 2 + 3,
+            "sparse_row_adagrad": 3 + 2 + 2,
+            "sparse_gather_rows": 6 + 2 + 2 + 3}
+    got = {k: path_counts["sparse"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"sparse path launches {got}, expected {want}")
     for r in rows:
         r["launches"] = (
             path_counts["int8 n=2"]["ring_push_pull_int8[float32]"]
@@ -1507,6 +1870,17 @@ def main() -> int:
               f"{r['copy_ms_per_step']:.4f}), busy share "
               f"{r['busy_share']:.3f} [{smi}]")
         for kname, ms in r["kernels"][:6]:
+            print(f"    {ms:.4f} ms/step  {kname}")
+
+    for r in steady_state_sparse(torch, ps, Environment, emb):
+        print(f"steady {r['cell']} (1,048,576 x 64, 8 x 4,096 Zipf): "
+              f"{r['wall_ms_per_step']:.4f} ms/step wall, "
+              f"{r['event_ms_per_step']:.4f} ms/step (CUDA events), "
+              f"{r['goodput_gbps_wall']:.2f} GB/s wall; profiler: device "
+              f"busy {r['busy_ms_per_step']:.4f} ms/step (copies "
+              f"{r['copy_ms_per_step']:.4f}), busy share "
+              f"{r['busy_share']:.3f} [{smi}]")
+        for kname, ms in r["kernels"][:8]:
             print(f"    {ms:.4f} ms/step  {kname}")
 
     print(json.dumps({"kernels": rows}))

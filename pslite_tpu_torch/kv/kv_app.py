@@ -12,6 +12,12 @@ registered tensor: at most one such pull is outstanding per bucket, and
 its result is not kept for ``get_pulled``, :1263-1285), ``coalescer``,
 ``replay`` and ``push_pull_stream``.
 
+Sparse tables (:985-1000): ``push_sparse``/``pull_sparse`` ride the van's
+``sparse_engine`` (``parallel/sparse.py``) and complete like the dense
+ops.  ``push_sparse`` also takes the sparse engine's ``handle``
+(``"row_adagrad:lr,eps"``), which JAX callers reach through
+``van.sparse_engine.push``.
+
 Completion: after an op is issued the worker records a CUDA event on
 the current stream; one completion thread synchronises on that event,
 copies the result into ``out`` and fires the callback, so callbacks fire
@@ -20,8 +26,8 @@ op has already run when it returns.
 
 Still missing: the message path (unregistered keys, custom ``cmd``,
 variable ``lens``), which needs the message control plane (ROADMAP
-Queue 1); such calls raise ``NotImplementedError``.  Sparse tables and
-``reshard`` are not here either.
+Queue 1); such calls raise ``NotImplementedError``.  ``reshard`` is not
+here either.
 """
 
 from __future__ import annotations
@@ -225,6 +231,35 @@ class KVWorker:
         log.check(self.engine is not None,
                   "push_pull_stream requires a started ici van")
         return self.engine.push_pull_stream(name, grads_iter, depth=depth)
+
+    @property
+    def sparse_engine(self):
+        """The sparse-table engine of the worker's ICI van (None before
+        the van starts)."""
+        return getattr(self.po.van, "sparse_engine", None)
+
+    def push_sparse(self, name: str, indices, grads,
+                    callback: Optional[Callable[[], None]] = None,
+                    handle: Optional[str] = None) -> int:
+        """Sparse push: ``[W, n]`` rows + ``[W, n, d]`` grads scatter-added
+        into the sharded table (the aggregation server handle), or the
+        sparse engine's ``handle``; the caller must not mutate the inputs
+        until ``wait(ts)``."""
+        eng = self.sparse_engine
+        log.check(eng is not None, "push_sparse requires the ici van")
+        token = eng.push(name, indices, grads, handle=handle)
+        return self._engine_dispatch(token, callback=callback)
+
+    def pull_sparse(self, name: str, indices, out=None,
+                    callback: Optional[Callable[[], None]] = None) -> int:
+        """Sparse pull of ``[W, n]`` rows into ``out`` (``[W, n, d]``, numpy
+        or tensor) when given; the device result stays reachable through
+        ``get_pulled``."""
+        eng = self.sparse_engine
+        log.check(eng is not None, "pull_sparse requires the ici van")
+        result = eng.pull(name, indices)
+        return self._engine_dispatch(result, out=out, callback=callback,
+                                     keep_result=True)
 
     def wait(self, timestamp: int) -> None:
         self._customer.wait_request(timestamp)

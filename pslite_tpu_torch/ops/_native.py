@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_update.cu", "ring_push_pull.cu", "ring_int8.cu",
-           "quantize_int8.cu")
+           "quantize_int8.cu", "sparse_rows.cu")
 HEADERS = ("ring_geometry.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -56,6 +56,11 @@ _SIGNATURES = {
     "pstt_ring_int8_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
     "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),
+    "pstt_sparse_keys": (_P, _P, _L, _I, _I, _P, _P),
+    "pstt_sparse_scatter_add": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "pstt_sparse_row_adagrad": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F,
+                                _F, _I, _P),
+    "pstt_sparse_gather_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 # Where the CUDA toolkit installs nvcc by default.

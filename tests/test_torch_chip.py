@@ -654,3 +654,113 @@ def test_zero_copy_and_pinned_pulls_on_the_card(dev):
         if prev is not None:
             assert prev.is_deleted()
         prev = p
+
+
+# -- sparse tables: S1-S3 (csrc/sparse_rows.cu) -------------------------------
+# Sum push and pull equal their plain versions with 0 differing elements
+# (one order of addition, one rounding per add); row_adagrad within rtol
+# 1e-5 / atol 1e-6 (the order of the row's sum of squares).
+
+# (S, rps, dim, W, n): config 5 (1,048,576 rows x 64 over 8 shards, 8 x
+# 4,096 Zipf rows), small, pack-64 and ragged widths, column tiles.
+_SPARSE = [(8, 131_072, 64, 8, 4096), (8, 64, 2, 8, 40), (8, 16, 8, 8, 50),
+           (4, 10, 300, 4, 30), (1, 50, 33, 1, 80), (8, 5, 256, 8, 12)]
+
+
+def _sparse_case(dev, S, rps, dim, W, n, dtype=torch.float32, seed=0):
+    from pslite_tpu_torch.models.embedding import skewed_indices
+
+    rng = np.random.default_rng(seed)
+    idx = skewed_indices(S * rps, W, n, seed=seed).reshape(-1)
+    idx[rng.choice(idx.size, 4, replace=False)] = [-1, S * rps,
+                                                   S * rps + 9, -5]
+    idx = torch.from_numpy(idx.reshape(W, n)).to(dev)
+    rows = _randn((W, n, dim), seed + 1, dev).to(dtype)
+    store = _randn((S * rps, dim), seed + 2, dev).to(dtype)
+    return store, idx, rows
+
+
+@pytest.mark.parametrize("S,rps,dim,W,n", _SPARSE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_kernels_match_plain(dev, S, rps, dim, W, n, dtype):
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    store, idx, rows = _sparse_case(dev, S, rps, dim, W, n, dtype)
+    sr.reset_launches()
+    got = sr.scatter_add(store.clone(), idx, rows, S, rps)
+    want = sr.scatter_add_reference(store.clone(), idx, rows, S, rps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    out = sr.gather_rows(got, idx, S, rps)
+    assert torch.equal(out, sr.gather_rows_reference(got, idx, S, rps))
+    acc = torch.rand(S * rps, device=dev)
+    gs, ga = sr.row_adagrad(store.clone(), acc.clone(), idx, rows, S, rps,
+                            0.05, 1e-8)
+    ws, wa = sr.row_adagrad_reference(store.clone(), acc.clone(), idx, rows,
+                                      S, rps, 0.05, 1e-8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ga, wa, rtol=1e-5, atol=1e-6)
+    if dtype == torch.float32:
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-6)
+    else:  # a step one f32 ulp apart may round to another bf16 value
+        torch.testing.assert_close(gs.float(), ws.float(), rtol=1e-2,
+                                   atol=1e-2)
+    assert sr.launches == {"sparse_scatter_add": 1, "sparse_row_adagrad": 1,
+                           "sparse_gather_rows": 1}
+
+
+def test_sparse_kernels_are_deterministic(dev):
+    """Config 5's hot row (6,029 updates) adds in one fixed order: two
+    pushes from one store agree bit for bit."""
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    store, idx, rows = _sparse_case(dev, *_SPARSE[0])
+    a = sr.scatter_add(store.clone(), idx, rows, 8, 131_072)
+    b = sr.scatter_add(store.clone(), idx, rows, 8, 131_072)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_sparse_engine_on_the_card_matches_the_cpu(dev):
+    """SparseEngine on the card and on a CPU group: sum push and pull
+    bit-exact, row_adagrad and groups within the Adagrad bar."""
+    from pslite_tpu_torch import SparseEngine
+
+    engines = [SparseEngine(DeviceGroup(8, device=d)) for d in (dev, "cpu")]
+    rng = np.random.default_rng(3)
+    for e in engines:
+        e.register_sparse("a", 1000, 64)
+        e.register_sparse("b", 77, 4)
+    for step in range(3):
+        ia = rng.integers(0, 1000, size=(8, 300)).astype(np.int32)
+        ia[:, :40] = 7
+        ga = rng.normal(size=(8, 300, 64)).astype(np.float32)
+        ib = rng.integers(0, 77, size=(8, 9)).astype(np.int32)
+        gb = rng.normal(size=(8, 9, 4)).astype(np.float32)
+        handle = None if step < 2 else "row_adagrad:0.01,1e-8"
+        for e in engines:
+            e.push("a", ia, ga, handle=handle)
+            e.push_group(["b", "a"], [ib, ia], [gb, ga], handle=handle)
+        got, want = (e.pull("a", ia) for e in engines)
+        if handle is None:
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                       atol=1e-6)
+    gb_, wb_ = (e.pull_group(["b"], [ib])[0] for e in engines)
+    torch.testing.assert_close(gb_.cpu(), wb_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_push_takes_unaligned_rows(dev, dtype):
+    """Update rows in a contiguous view that starts one element into its
+    allocation: the push reads them one value at a time, same bits."""
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    store, idx, _ = _sparse_case(dev, 8, 64, 64, 8, 300, dtype)
+    rows = _randn((8 * 300 * 64 + 1,), 9, dev).to(dtype)[1:].view(8, 300, 64)
+    assert rows.data_ptr() % 16
+    got = sr.scatter_add(store.clone(), idx, rows, 8, 64)
+    want = sr.scatter_add_reference(store.clone(), idx, rows, 8, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
