@@ -33,7 +33,12 @@ line):
    table over 8 shards, 8 x 4,096 Zipf(1.2) rows): the sum push and the
    pull with 0 differing elements, row-wise Adagrad within rtol 1e-5 /
    atol 1e-6, each also timed with the L2 flushed before every launch,
-   beside the longest run's chain of dependent adds.
+   beside the longest run's chain of dependent adds and its SM cycles
+   per add, read by the clock probe of ``pstt_sparse_walk_probe`` (a build
+   of the long-run walk with ``clock64`` around each run, outside the
+   push's own kernels); at the end of the run, after the steady states,
+   each push split into its three kernels by the profiler (the sort, the
+   long runs' walk, the short runs beside it).
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
    replayed, timed with CUDA events (the host is out of the timing);
    ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
@@ -1410,7 +1415,54 @@ def cold_ms(torch, fn, flush):
     return graph_ms(lambda: (flush(), fn())) - graph_ms(flush)
 
 
-def sparse_rows_rows(torch, sr, emb, dev):
+# The push's kernels, by the profiler's kernel names.
+PUSH_PIECES = (("sort", "sort_kernel"), ("long runs", "long_runs_kernel"),
+               ("short runs", "_short_kernel"))
+
+
+def push_pieces(torch, sr, emb, rows):
+    """Each push's kernels at config 5, from the profiler (device ms per
+    call; the short runs overlap the long runs, so their time includes
+    waiting beside them), into the S1 and S2 rows.  Run after the steady
+    states: a profiler window taken between CUDA-graph timings has come
+    back without device events on the card."""
+    S, rps = emb_layout()
+    dev = torch.device("cuda:0")
+    idx = torch.from_numpy(emb.skewed_indices(EMB_ROWS, N, EMB_BATCH,
+                                              seed=0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    g = torch.randn((N, EMB_BATCH, EMB_DIM), generator=gen, device=dev)
+    store = torch.randn((S * rps, EMB_DIM), generator=gen, device=dev)
+    acc = torch.rand(S * rps, generator=gen, device=dev)
+    pushes = {
+        "sparse_scatter_add": lambda: sr.scatter_add(store, idx, g, S, rps),
+        "sparse_row_adagrad": lambda: sr.row_adagrad(store, acc, idx, g, S,
+                                                     rps, 0.01, 1e-8)}
+    for r in rows:
+        if r["name"] in pushes:
+            _, kernels = device_breakdown(torch, pushes[r["name"]])
+            r["pieces_ms"] = {piece: sum(ms for k, ms in kernels if key in k)
+                              for piece, key in PUSH_PIECES}
+
+
+def walk_cycles(torch, _native, store, idx, rows, sr, S, rps):
+    """(SM cycles per add, length) of the longest run's walk in a sum
+    push of ``rows``: the clock probe's build of the long-run kernel on a
+    copy of the store (its time includes the ring's first fill)."""
+    m, dim = idx.numel(), store.shape[1]
+    work = sr._sorted_runs(idx, S, rps)
+    target = store.clone()
+    probe = torch.zeros(4 * m, dtype=torch.int64, device=store.device)
+    _native.call("pstt_sparse_walk_probe", target.data_ptr(),
+                 rows.data_ptr(), work.data_ptr(), m, dim, 0,
+                 probe.data_ptr(), _native.stream_ptr(store.device))
+    torch.cuda.synchronize()
+    lens, cycles = probe.view(-1, 4).cpu()[:, :2].unbind(1)
+    h = int(lens.argmax())
+    return float(cycles[h]) / float(lens[h]), int(lens[h])
+
+
+def sparse_rows_rows(torch, sr, emb, dev, _native):
     """S1-S3 at config 5's shapes (1,048,576 x 64 f32 over 8 shards, 8 x
     4,096 Zipf(1.2) rows, seed 0) against their plain versions."""
     S, rps = emb_layout()
@@ -1445,6 +1497,7 @@ def sparse_rows_rows(torch, sr, emb, dev):
                        warmup=1)
     lib = library_time(lambda s: s.index_add_(0, flat, rows2), store.clone())
     b_ms, b_by = bound(m * row_b + m * 4 + 2 * distinct * row_b, m * EMB_DIM)
+    cpa, hot = walk_cycles(torch, _native, store, idx, rows, sr, S, rps)
     out.append(dict(
         name="sparse_scatter_add", route="cuda",
         source="pslite_tpu_torch/csrc/sparse_rows.cu",
@@ -1454,7 +1507,8 @@ def sparse_rows_rows(torch, sr, emb, dev):
         chain_floor_ms=chain_ms, library_ms=lib[0], library_ms_host=lib[1],
         library_note=lib[2] or "index_add_: the same sums in another order "
                                "of addition (atomics), not bit-exact",
-        distinct_rows=distinct, max_run=max_run))
+        distinct_rows=distinct, max_run=max_run,
+        hot_run_cycles_per_add=cpa, hot_run=hot))
 
     # S2: row-wise Adagrad.  No single PyTorch call computes it.
     sk, ak = store.clone(), acc.clone()
@@ -1740,7 +1794,8 @@ def main() -> int:
               f"per CTA) {shape['cost']}")
 
     rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
-    rows += sparse_rows_rows(torch, sr, emb, torch.device("cuda:0"))
+    rows += sparse_rows_rows(torch, sr, emb, torch.device("cuda:0"),
+                             _native)
     for r in rows:
         note = r["library_note"]
         lib = (f"{r['library_ms']:.4f} ms (host-inclusive "
@@ -1767,6 +1822,10 @@ def main() -> int:
             print(f"    config 5: {r['distinct_rows']} distinct rows; "
                   f"{r['ms_cold']:.4f} ms host-free with the L2 flushed "
                   f"before each launch{chain}")
+        if "hot_run_cycles_per_add" in r:
+            print(f"    the longest run ({r['hot_run']} updates) walks at "
+                  f"{r['hot_run_cycles_per_add']:.2f} SM cycles per add "
+                  f"(clock probe)")
         if "steps" in r:
             print(f"    per step of {r['steps']}: {r['ms_per_step']:.4f} ms "
                   f"host-free, {r['ms_host_per_step']:.4f} ms "
@@ -1883,6 +1942,12 @@ def main() -> int:
         for kname, ms in r["kernels"][:8]:
             print(f"    {ms:.4f} ms/step  {kname}")
 
+    push_pieces(torch, sr, emb, rows)
+    for r in rows:
+        if "pieces_ms" in r:
+            print(f"kernel {r['name']} pieces (profiler, ms per call): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in r["pieces_ms"].items()))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""The ResNet-50 trace's steady-state cells of one checkout, alone.
+"""The host-bound steady-state cells of one checkout, alone.
 
 Runs ``chip_smoke.steady_state_trace`` (every ``resnet50-*`` cell and
-``replay-40x1MB``) from the checkout at ``argv[1]`` and prints one JSON
-line: cell -> [wall ms/step, CUDA-event ms/step, device-busy ms/step,
-host-to-device GB/s or null].  Comparing two commits on one card: unpack
-the parent with ``git archive`` into a gitignored directory and run one
-process per pass, alternating, e.g. parent, new, new, parent, parent,
-new, new, parent; the host-bound cells spread too much between passes
-for fewer pairs.
+``replay-40x1MB``) from the checkout at ``argv[1]``, or with ``sparse``
+as ``argv[2]`` ``chip_smoke.steady_state_sparse`` (the ``embedding-1m*``
+cells), and prints one JSON line: cell -> [wall ms/step, CUDA-event
+ms/step, device-busy ms/step, host-to-device GB/s or null].  Comparing
+two commits on one card: unpack the parent with ``git archive`` into a
+gitignored directory and run one process per pass, alternating, e.g.
+parent, new, new, parent, parent, new, new, parent; the host-bound cells
+spread too much between passes for fewer pairs.
 
-    python3 chip_trace_cells.py <checkout>
+    python3 chip_trace_cells.py <checkout> [sparse]
 """
 
 import json
@@ -29,13 +30,18 @@ def main() -> int:
     import chip_smoke as cs
     import pslite_tpu_torch as ps
     from pslite_tpu_torch.environment import Environment
+    from pslite_tpu_torch.models import embedding as emb
     from pslite_tpu_torch.models import resnet_trace as rt
     from pslite_tpu_torch.ops import _native
 
     _native.lib()
+    if sys.argv[2:] == ["sparse"]:
+        rows = cs.steady_state_sparse(torch, ps, Environment, emb)
+    else:
+        rows = cs.steady_state_trace(torch, ps, rt, Environment)
     cells = {r["cell"]: [r["wall_ms_per_step"], r["event_ms_per_step"],
                          r["busy_ms_per_step"], r.get("h2d_gbps_wall")]
-             for r in cs.steady_state_trace(torch, ps, rt, Environment)}
+             for r in rows}
     print(json.dumps({"root": sys.argv[1], "cells": cells}))
     return 0
 

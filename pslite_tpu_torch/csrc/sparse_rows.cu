@@ -11,59 +11,127 @@
 // zeros).
 //
 // Order of arithmetic.  XLA's CPU scatter adds the updates one after
-// another in list order, rounding to the table's dtype after each add.  The
-// push kernels do the same per row, so a sum push equals the JAX package
-// bit for bit.  The wrapper computes each update's flat row
-// (sparse_keys_kernel) and sorts them stably (torch.sort, the counterpart
-// of jnp.argsort).  prepare_kernel then copies the update rows into sorted
-// order (as f32, so each run of equal rows is contiguous) and lists the
-// runs: up to kLong updates "short", more "long".  long_runs_kernel walks
-// each long run with one CTA (one thread per column); beside it (a
-// programmatic dependent launch), scatter_short_kernel adds each short run
-// with one thread per 4 columns (adagrad_short_kernel: one warp per run).
-// Each writes its row back once.
-// Explicit _rn intrinsics keep nvcc from contracting what XLA keeps
-// separate.  Row-wise Adagrad sums G*G over the row in a fixed order (per
-// thread over its columns, a butterfly within each warp, then the warps in
-// turn); XLA's reduction order is not reproduced, so it is held to rtol
-// 1e-5.
+// another in list order, rounding to the table's dtype after each add, and
+// row-wise Adagrad sums each row's updates over a stable jnp.argsort.  The
+// push kernels add each row's updates in list order from the stored value
+// (row-wise Adagrad: from zero), so a sum push equals the JAX package bit
+// for bit.  Explicit _rn intrinsics keep nvcc from contracting what XLA
+// keeps separate.  Row-wise Adagrad sums G*G over the row in a fixed order
+// (per lane over its columns, a butterfly within each warp, then, for a
+// long run, the CTAs of its cluster in turn); XLA's reduction order is not
+// reproduced, so it is held to rtol 1e-5.
 //
 // Bound.  Bytes: the push reads the update rows and indices once and reads
 // and writes each touched row once (BASELINE config 5, 8 x 4,096 updates of
-// dim 64 over 7,645 rows: ~12.4 MB, 3.7 us at 3.35 TB/s).  But a run is one
-// dependent chain of f32 adds: the hottest row of config 5 takes 6,028
-// updates, 6,028 x 4 cycles = 12.2 us at 1.98 GHz whatever the bytes, so
-// the chain, not the bytes, is the floor.  Design against it: a long run's
-// rows are contiguous after prepare_kernel, so the whole CTA copies the
-// next kStages - 1 stages of them into a shared-memory ring with 16-byte
-// cp.async (no registers held, no load for the compiler to sink) while the
-// column threads add the current stage, eight shared-memory values read
-// ahead of the adds: at dim 64, 7 x 64 rows in flight, one barrier per 64
-// rows.  Two earlier designs were measured on the card: a ring of two
-// 32-row batches in registers, read through the sort permutation, waited
-// on each batch's loads (config 5's push 0.30 ms); each thread streaming
-// its own column with 4-byte cp.async issued ~15 instructions per row
-// (0.20 ms).  A short run needs no ring: its thread knows the run's
-// length from the list, and a quarter of a million such threads cover
-// each other's latency.
+// dim 64 over 7,645 rows: ~12.4 MB, 3.7 us at 3.35 TB/s).  Two latencies
+// lie above that.  (1) The order: the updates must be grouped by row in
+// list order, a stable sort of 32,768 keys of 21 bits, a chain of passes
+// (rank, prefix, scatter), each step waiting on the one before.  (2) The
+// hot row: its 6,028 updates are one dependent chain of f32 adds, 6,028 x
+// 4 cycles = 12.2 us at 1.98 GHz whatever the bytes.
+//
+// Design: three launches per push.
+// - sort_kernel (pstt_sparse_sort): one thread block cluster of C <= 16
+//   CTAs of 512 threads.  CTA c takes the L = ceil(m / C) list entries from
+//   c * L (kSortGrow per CTA before the cluster grows), computes each
+//   entry's flat row (out of range: the sentinel S * rps, which sorts last)
+//   and keeps (key, list position) in shared memory.  An LSD radix sort
+//   over only bits = bit_length(S * rps) bits (21 at config 5), digits of
+//   up to 11 bits: two passes at config 5, three from 2^22 rows.  Each pass
+//   ranks the CTA's entries stably: warp w holds tile entries [w * 32R,
+//   (w + 1) * 32R) in R rounds of 32, __match_any_sync groups equal digits
+//   in a round, a popcount of the lower lanes ranks them, and a per-warp
+//   histogram in shared memory carries the count from round to round; the
+//   warps' histograms are then prefixed warp by warp.  The prefix across
+//   the cluster is split by digit slices: every CTA sends its counts to
+//   the slice owners, each owner prefixes them over the CTAs and digits and
+//   sends every CTA its offsets and the slice's total, and the entries go
+//   to their owner CTA (position / L).  All three exchanges are st.async
+//   stores into the peer's shared memory that complete on the peer's
+//   mbarrier: no fence and no cluster barrier per pass (a cluster barrier
+//   with release semantics waits for every earlier store to be visible
+//   across the card, a relaxed one only for the CTAs to arrive;
+//   tools/sparse_micro.py times both).  After the last pass the CTA
+//   writes the sorted list positions and lists its heads (where the key
+//   changes); a run's length runs to
+//   the next head, and the CTA's last run to the first head of the next CTA
+//   that has one, which the CTAs send each other with their run counts, so
+//   each places its runs in the short (<= kLong updates) and long lists in
+//   the sorted order.  Capacity in shared memory: kSortCluster x kSortTile
+//   = 65,536 entries; above that the same cluster loops over tiles of
+//   kSortTile with the entries in device memory (two sweeps per pass:
+//   counts, then ranks and scatter; a cluster barrier after each pass).
+// - long_runs_kernel: one cluster per long run, CTA g on kGroup = 16 of
+//   its columns (G = dim / 16 CTAs up to 16, so each SM streams 1/G of the
+//   run's bytes).  Five producer warps copy each update row's 16-byte pieces
+//   from where the row lies in the list (rows + pos * dim, cp.async,
+//   completing on the slot's mbarrier) into a ring of kStages slots of rb
+//   rows; bf16 rows stay bf16 and widen at the add, which is exact.  Rows
+//   that are not 16-byte aligned, or whose bytes are not a multiple of 16,
+//   are copied with plain loads and stores instead (slower, same bits).
+//   One warp adds (a lane per column), software pipelined: each row's add
+//   is followed by the load of the row kAhead on, from the same slot or,
+//   for a slot's last rows, from the next slot after its `full` wait; the
+//   ring's rows are kGroup values apart, so each load takes an immediate
+//   offset.  The order of the adds is the list order, so the bits do not
+//   change.  The loop's own instructions, not the bytes, bound it above
+//   the 4-cycle chain (tools/sparse_micro.py times the walk alone).
+// - scatter_short_kernel / adagrad_short_kernel: the short runs, launched
+//   beside the long runs (programmatic dependent launch), read their rows
+//   through the sorted positions directly: one thread per (run, 4 columns)
+//   for the sum, one warp per run for row-wise Adagrad.  The long-run
+//   kernel waits for the sort's grid (griddepcontrol.wait) before it lets
+//   the short runs start.
+// Each kernel writes each row back once.  No staging copy of the update
+// rows is made and no library sort runs.
 //
 // The pull (gather_rows_kernel) is a copy: 16-byte loads and stores where
 // the row's bytes and the pointers allow, narrower otherwise; bound by its
 // bytes (config 5: the 7,645 distinct rows read once, 1.96 MB, the indices,
 // and 8.4 MB written: 3.1 us).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLong = 32;    // runs of more updates take the staged walk
-constexpr int kStages = 4;   // ring slots of a long run's walk
-constexpr int kRingBytes = 128 * 1024;  // the ring, per long-run CTA
+constexpr int kStages = 3;   // ring slots of a long run's walk
+constexpr int kRingBytes = 96 * 1024;  // the ring, per long-run CTA
 constexpr int kTile = 256;   // columns of a long run per pass
+constexpr int kRingRows = 512;  // rows of a ring slot, at most
+constexpr int kLongThreads = 192;  // threads of a long-run CTA
+constexpr int kGroup = 16;   // columns of a long run per CTA
+constexpr int kAhead = 64;   // rows a long run's walk loads ahead
+constexpr int kSortThreads = 512;  // threads of a sort CTA
+constexpr int kSortWarps = 16;     // kSortThreads / 32
+constexpr int kSortTile = 4096;    // list entries a sort CTA holds
+constexpr int kSortCluster = 16;   // CTAs of the sort's cluster, at most
+constexpr int kSortGrow = 2048;    // entries per CTA before C grows
+constexpr int kDigitBits = 11;     // bits of a radix digit, at most
+constexpr int kDigits = 2048;      // 1 << kDigitBits
+// Dynamic shared memory of sort_kernel: the entries (key, position), the
+// per-warp digit histograms (16-bit; later the heads' positions), the
+// digits' offsets, the tile's digit counts, the counts a slice owner
+// receives (digits x CTAs), and the running counts in device memory.
+constexpr int kSortSmem = kSortTile * 8 + kSortWarps * kDigits * 2 +
+                          (4 * kDigits + kSortCluster) * 4;
+
+// x / y for x >= 0, by a shift where y is a power of two (lg = log2 y,
+// else -1): the sort divides by the shard count and its tile sizes.
+__device__ __forceinline__ int div_by(int x, int y, int lg) {
+  return lg >= 0 ? x >> lg : x / y;
+}
+
+__device__ __forceinline__ int lg_of(int y) {
+  return (y & (y - 1)) == 0 ? __ffs(y) - 1 : -1;
+}
 
 __device__ __forceinline__ int flat_row(int x, int S, int rps) {
   if (x < 0) return -1;
@@ -103,30 +171,877 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
-// The flat row of every update (the sentinel S * rps, which sorts last,
-// for a dropped one); thread 0 also zeroes the run counters of the push
-// that follows (runs may be null).
-__global__ void sparse_keys_kernel(const int* __restrict__ idx,
-                                   int* __restrict__ keys, int m, int S,
-                                   int rps, int* __restrict__ runs) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j == 0 && runs != nullptr) runs[0] = runs[1] = 0;
-  if (j >= m) return;
-  const int r = flat_row(idx[j], S, rps);
-  keys[j] = r < 0 ? S * rps : r;
+// The scratch of a push, in ints (the wrapper allocates 9m + 3):
+// two entry buffers of m (key, position) pairs and the heads' positions
+// (m + 1) for the sort in device memory, the sorted list positions, and
+// the run lists: runs[0] = short runs, runs[1] = long runs; short run
+// k as (first sorted position, length, row) at runs[2 + 3k ...], long run
+// k at runs[2 + 3(m - 1 - k) ...] (each list in no particular order).
+struct Work {
+  int2* buf0;
+  int2* buf1;
+  int* spos;
+  int* hp;
+  int* runs;
+};
+
+__host__ __device__ __forceinline__ Work work_of(int* w, int m) {
+  Work k;
+  k.buf0 = reinterpret_cast<int2*>(w);
+  k.buf1 = k.buf0 + m;
+  k.spos = w + 4 * m;
+  k.hp = w + 5 * m;
+  k.runs = w + 6 * m + 1;
+  return k;
 }
 
-// The run lists: runs[0] = short runs, runs[1] = long runs (zeroed by
-// sparse_keys_kernel); short run k as (first position, length, row) at
-// runs[2 + 3k ...], long run k's first position at runs[2 + 3m - 1 - k]
-// (each list in no particular order).
 __device__ __forceinline__ int3 short_run(const int* runs, int k) {
   const int* e = runs + 2 + 3 * k;
   return make_int3(e[0], e[1], e[2]);
 }
-__device__ __forceinline__ int long_run(const int* runs, int m, int k) {
-  return runs[2 + 3 * m - 1 - k];
+__device__ __forceinline__ int3 long_run(const int* runs, int m, int k) {
+  const int* e = runs + 2 + 3 * (m - 1 - k);
+  return make_int3(e[0], e[1], e[2]);
 }
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned r;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(r));
+  return r;
+}
+
+// -- barriers and copies between CTAs ------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+
+// Arrive on `bar` and expect `bytes` more of asynchronous completion.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Waits for data that peer CTAs sent with st.async (acquire at cluster
+// scope).
+__device__ __forceinline__ void mbar_wait_peers(unsigned long long* bar,
+                                                unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n@P1 bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}" ::"r"(
+          smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The shared::cluster address of `p` in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned peer(const void* p, int rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Stores into a peer's shared memory that complete on the peer's mbarrier
+// (`bar`, a peer address too): no fence and no cluster barrier.
+__device__ __forceinline__ void send(unsigned dst, int v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 [%0], %1, "
+      "[%2];" ::"r"(dst),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void send2(unsigned dst, int a, int b,
+                                      unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(dst),
+      "r"(a), "r"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void send4(unsigned dst, int4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// A cluster barrier with no memory ordering: only that every CTA got here.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// -- the sort: one cluster ---------------------------------------------------------
+
+// Sum of v over the CTA, and each thread's exclusive prefix (thread order).
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int pre = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    const int x = s_warp[w];
+    pre += w < warp ? x : 0;
+    tot += x;
+  }
+  __syncthreads();  // s_warp is free again
+  *total = tot;
+  return pre + incl - v;
+}
+
+// block_scan of two values at once.
+__device__ __forceinline__ int2 block_scan2(int2 v, int* s_warp,
+                                            int2* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int2 incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int tx = __shfl_up_sync(kFull, incl.x, o);
+    const int ty = __shfl_up_sync(kFull, incl.y, o);
+    if (lane >= o) {
+      incl.x += tx;
+      incl.y += ty;
+    }
+  }
+  if (lane == 31) {
+    s_warp[2 * warp] = incl.x;
+    s_warp[2 * warp + 1] = incl.y;
+  }
+  __syncthreads();
+  int2 pre = make_int2(0, 0), tot = make_int2(0, 0);
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    const int x = s_warp[2 * w], y = s_warp[2 * w + 1];
+    if (w < warp) {
+      pre.x += x;
+      pre.y += y;
+    }
+    tot.x += x;
+    tot.y += y;
+  }
+  __syncthreads();  // s_warp is free again
+  *total = tot;
+  return make_int2(pre.x + incl.x - v.x, pre.y + incl.y - v.y);
+}
+
+// The sort's shared memory beyond the entries and histograms.
+struct SortShared {
+  unsigned long long bar_cnt, bar_base, bar_ent, bar_runs;
+  int tots[kSortCluster];      // each slice's total, from its owner
+  int off[kSortCluster];       // where each slice starts
+  int4 runs_of[kSortCluster];  // each CTA's (first head, last run's head,
+                               // short runs, long runs) but its last run
+  int warp[2 * kSortWarps];
+  int prev;  // the key before this CTA's first entry
+};
+
+__global__ void __launch_bounds__(kSortThreads, 1)
+sort_kernel(const int* __restrict__ idx, int* __restrict__ work, int m, int S,
+            int rps, int bits) {
+  // The long runs' kernel may start: it waits for this grid before it
+  // reads anything.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = lanemask_lt();
+  extern __shared__ __align__(16) unsigned char sort_smem[];
+  int2* ent = reinterpret_cast<int2*>(sort_smem);
+  unsigned short* whist = reinterpret_cast<unsigned short*>(ent + kSortTile);
+  int* base = reinterpret_cast<int*>(whist + kSortWarps * kDigits);
+  int* run = base + kDigits;
+  int* pair = run + kDigits;  // kDigits + kSortCluster
+  __shared__ SortShared sh;
+
+  const int nrows = S * rps;
+  const Work wk = work_of(work, m);
+  const int L = (m + C - 1) / C;
+  const int lo = c * L;
+  const int n = max(0, min(L, m - lo));
+  const bool big = L > kSortTile;  // entries in device memory
+  const int lgS = lg_of(S), lgL = lg_of(L);
+  // Rounds per warp of a tile (warp w holds tile entries [w*32R, (w+1)*32R)).
+  const int R = big ? kSortTile / kSortThreads
+                    : (n + kSortThreads - 1) / kSortThreads;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  int key[8], pos[8], lr[8];
+  // The first pass's entries of a tile: the raw indices, their loads in
+  // flight early (rank_tile turns them into flat rows).
+  auto load_indices = [&](int t0, int tn) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= R) break;
+      const int i = (warp * R + r) * 32 + lane;
+      key[r] = i < tn ? idx[t0 + i] : -1;  // the flat row comes later
+      pos[r] = t0 + i;
+    }
+  };
+  if (!big) load_indices(lo, n);
+  if (tid == 0) {
+    mbar_init(&sh.bar_cnt, 1);
+    mbar_init(&sh.bar_base, 1);
+    mbar_init(&sh.bar_ent, 1);
+    mbar_init(&sh.bar_runs, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every CTA's barriers are ready before any peer sends.
+  cluster_arrive_relaxed();
+
+  // Ranks the tile [t0, t0 + tn) of the list in pass p (from the indices
+  // in pass 0, else from `src`, or the CTA's entries): key/pos/lr of each
+  // round, every warp's histogram, exclusive over the warps, in whist, and
+  // the tile's count of each digit in run.
+  auto rank_tile = [&](int p, int t0, int tn, const int2* src, int shift,
+                       int nd) {
+    if (p == 0 && big) load_indices(t0, tn);
+    if (p > 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {  // every round's entry, loads in flight
+        if (r >= R) break;
+        const int i = (warp * R + r) * 32 + lane;
+        int2 e = make_int2(-1, 0);
+        if (i < tn) e = big ? __ldcg(src + t0 + i) : ent[i];
+        key[r] = e.x;
+        pos[r] = e.y;
+      }
+    }
+    // Zero each warp's first nd counts (at least 8) meanwhile.
+    const int q8 = max(nd, 8) >> 3, lq = __ffs(q8) - 1;
+    for (int k = tid; k < kSortWarps * q8; k += kSortThreads)
+      reinterpret_cast<uint4*>(whist + (k >> lq) * kDigits)[k & (q8 - 1)] =
+          make_uint4(0, 0, 0, 0);
+    if (p == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= R) break;
+        if ((warp * R + r) * 32 + lane < tn) {
+          const int x = key[r], local = div_by(x, S, lgS);
+          key[r] = x < 0 || local >= rps ? nrows
+                                         : (x - local * S) * rps + local;
+        }
+      }
+    }
+    __syncthreads();
+    unsigned short* wh = whist + warp * kDigits;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= R) break;
+      const bool ok = (warp * R + r) * 32 + lane < tn;
+      const int d = ok ? (key[r] >> shift) & (nd - 1) : -1;
+      if (!ok) key[r] = -1;
+      const unsigned peers = __match_any_sync(kFull, d);
+      const int before = ok ? wh[d] : 0;
+      lr[r] = before + __popc(peers & lt);
+      __syncwarp();
+      if (ok && (peers & lt) == 0)
+        wh[d] = static_cast<unsigned short>(before + __popc(peers));
+      __syncwarp();
+    }
+    __syncthreads();
+    // Warp by warp: each warp's count becomes the count of the warps
+    // before it; two digits at a time (16-bit halves that cannot carry: a
+    // tile holds at most kSortTile entries).
+    for (int d2 = tid; 2 * d2 < nd; d2 += kSortThreads) {
+      unsigned v[kSortWarps];
+#pragma unroll
+      for (int w = 0; w < kSortWarps; ++w)
+        v[w] = reinterpret_cast<const unsigned*>(whist + w * kDigits)[d2];
+      unsigned sum = 0;
+#pragma unroll
+      for (int w = 0; w < kSortWarps; ++w) {
+        reinterpret_cast<unsigned*>(whist + w * kDigits)[d2] = sum;
+        sum += v[w];
+      }
+      run[2 * d2] = static_cast<int>(sum & 0xffffu);
+      run[2 * d2 + 1] = static_cast<int>(sum >> 16);
+    }
+    __syncthreads();
+  };
+
+  // The cluster's prefix of the digit counts (run[] of every CTA), by
+  // digit slices: CTA k owns digits [k * slice, (k + 1) * slice).  Each
+  // CTA sends its counts to the owners (pair[c][dl] there); each owner
+  // prefixes them over the CTAs and the digits and sends every CTA its
+  // offsets (base[]) and the slice's total; then base[d] holds where
+  // digit d of this CTA starts (+ the running count in device memory).
+  auto cluster_offsets = [&](int nd, int phase) {
+    const int slice = (nd + C - 1) / C;
+    const int d0 = c * slice;
+    const int ns = max(0, min(slice, nd - d0));
+    // Four digits a store where the slices allow (16-byte aligned).
+    const bool by4 = slice % 4 == 0;
+    for (int d = tid * (by4 ? 4 : 1); d < nd;
+         d += kSortThreads * (by4 ? 4 : 1)) {
+      const int k = d / slice, dl = d - k * slice;
+      const int nk = min(slice, nd - k * slice);
+      const unsigned to = peer(pair + c * nk + dl, k);
+      if (by4)
+        send4(to, *reinterpret_cast<const int4*>(run + d),
+              peer(&sh.bar_cnt, k));
+      else
+        send(to, run[d], peer(&sh.bar_cnt, k));
+    }
+    mbar_wait_peers(&sh.bar_cnt, phase);
+    const int qd = (ns + kSortThreads - 1) / kSortThreads;  // <= 4
+    const int e0 = min(tid * qd, ns), e1 = min(e0 + qd, ns);
+    int tot[4], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // each digit's prefix over the CTAs
+      tot[j] = 0;
+      if (e0 + j >= e1) continue;
+      int u[kSortCluster];
+#pragma unroll
+      for (int k = 0; k < kSortCluster; ++k)
+        u[k] = k < C ? pair[k * ns + e0 + j] : 0;
+#pragma unroll
+      for (int k = 0; k < kSortCluster; ++k) {
+        if (k < C) pair[k * ns + e0 + j] = tot[j];
+        tot[j] += u[k];
+      }
+      sum += tot[j];
+    }
+    int total;
+    int x = block_scan(sum, sh.warp, &total);
+    int* dstart = run;  // each digit's start (the counts are sent)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (e0 + j >= e1) continue;
+      dstart[e0 + j] = x;
+      x += tot[j];
+    }
+    __syncthreads();
+    for (int q = tid * (by4 ? 4 : 1); q < ns * C;
+         q += kSortThreads * (by4 ? 4 : 1)) {
+      const int k = q / ns, dl = q - k * ns;
+      const unsigned to = peer(base + d0 + dl, k);
+      if (by4) {
+        const int4 u = *reinterpret_cast<const int4*>(pair + q);
+        const int4 v = *reinterpret_cast<const int4*>(dstart + dl);
+        send4(to, make_int4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w),
+              peer(&sh.bar_base, k));
+      } else {
+        send(to, pair[q] + dstart[dl], peer(&sh.bar_base, k));
+      }
+    }
+    if (tid < C) send(peer(&sh.tots[c], tid), total, peer(&sh.bar_base, tid));
+    mbar_wait_peers(&sh.bar_base, phase);
+    if (warp == 0) {
+      const int v = lane < C ? sh.tots[lane] : 0;
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      if (lane < C) sh.off[lane] = incl - v;
+    }
+    __syncthreads();
+    const int lgs = lg_of(slice);
+    for (int d = tid; d < nd; d += kSortThreads)
+      base[d] += sh.off[div_by(d, slice, lgs)];
+    __syncthreads();
+  };
+
+  // Expected bytes of each pass's exchanges, announced on the CTA's own
+  // barriers before any peer can send them.
+  auto expect = [&](int nd, bool last) {
+    if (tid != 0) return;
+    const int slice = (nd + C - 1) / C;
+    const int ns = max(0, min(slice, nd - c * slice));
+    mbar_expect(&sh.bar_cnt, C * ns * 4);
+    mbar_expect(&sh.bar_base, (nd + C) * 4);
+    if (!big) mbar_expect(&sh.bar_ent, n * 8 + (last && c > 0 ? 4 : 0));
+  };
+
+  for (int p = 0; p < passes; ++p) {
+    const int shift = p * kDigitBits;
+    const int nd = 1 << min(kDigitBits, bits - shift);
+    const int2* src = (p & 1) ? wk.buf0 : wk.buf1;  // pass p - 1's output
+    int2* dst = (p & 1) ? wk.buf1 : wk.buf0;
+    const bool last = p + 1 == passes;
+    expect(nd, last);
+    if (!big) {
+      rank_tile(p, lo, n, src, shift, nd);
+      if (p == 0) cluster_wait();  // every peer's barriers are ready
+      cluster_offsets(nd, p & 1);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {  // into the owner's shared memory
+        if (r >= R) break;
+        if (key[r] < 0) continue;
+        const int d = (key[r] >> shift) & (nd - 1);
+        const int at = base[d] + whist[warp * kDigits + d] + lr[r];
+        const int o = div_by(at, L, lgL);
+        const unsigned bar = peer(&sh.bar_ent, o);
+        send2(peer(ent + (at - o * L), o), key[r], pos[r], bar);
+        // The last entry of CTA o - 1 is the key before CTA o's first.
+        if (last && at == o * L - 1 + L && o + 1 < C)
+          send(peer(&sh.prev, o + 1), key[r], peer(&sh.bar_ent, o + 1));
+      }
+      mbar_wait_peers(&sh.bar_ent, p & 1);
+      continue;
+    }
+    // Entries in device memory: counts over every tile, the prefix, then
+    // each tile ranked again and scattered, the running count carried.
+    int* cnt = pair + kDigits + kSortCluster;  // kDigits: running counts
+    for (int d = tid; d < nd; d += kSortThreads) cnt[d] = 0;
+    for (int t0 = lo; t0 < lo + n; t0 += kSortTile) {
+      rank_tile(p, t0, min(kSortTile, lo + n - t0), src, shift, nd);
+      for (int d = tid; d < nd; d += kSortThreads) cnt[d] += run[d];
+    }
+    for (int d = tid; d < nd; d += kSortThreads) run[d] = cnt[d];
+    __syncthreads();
+    if (p == 0) cluster_wait();
+    cluster_offsets(nd, p & 1);
+    for (int d = tid; d < nd; d += kSortThreads) cnt[d] = 0;  // running
+    for (int t0 = lo; t0 < lo + n; t0 += kSortTile) {
+      rank_tile(p, t0, min(kSortTile, lo + n - t0), src, shift, nd);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (key[r] < 0) continue;
+        const int d = (key[r] >> shift) & (nd - 1);
+        dst[base[d] + cnt[d] + whist[warp * kDigits + d] + lr[r]] =
+            make_int2(key[r], pos[r]);
+      }
+      __syncthreads();
+      for (int d = tid; d < nd; d += kSortThreads) cnt[d] += run[d];
+    }
+    __threadfence();
+    cluster.sync();  // the pass's entries are in device memory
+  }
+
+  // The runs.  Sorted entries: the CTA's shared memory, or device memory.
+  // Heads (where the key changes) are listed in order, their positions in
+  // lhp; a run's length runs to the next head, the CTA's last one to the
+  // first head of the next CTA that has one (or m).
+  const int2* sorted = ((passes - 1) & 1) ? wk.buf1 : wk.buf0;
+  auto key_at = [&](int i) {
+    return big ? __ldcg(sorted + lo + i).x : ent[i].x;
+  };
+  int* lhp = big ? wk.hp + lo : reinterpret_cast<int*>(whist);
+  const int prev0 = c == 0 || n == 0 ? -1
+                    : big            ? __ldcg(sorted + lo - 1).x
+                                     : sh.prev;
+  if (tid == 0) mbar_expect(&sh.bar_runs, C * 16);
+  // Warp w takes the CTA's entries [w * q, (w + 1) * q) in rounds of 32
+  // (coalesced): writes their positions and flags the heads; the warps'
+  // head counts are prefixed, then each warp lists its heads in order.
+  const int q = ((n + kSortWarps - 1) / kSortWarps + 31) & ~31;
+  const int w0 = min(warp * q, n), w1 = min(w0 + q, n);
+  int mine = 0;
+  for (int i0 = w0; i0 < w1; i0 += 32) {
+    const int i = i0 + lane;
+    int k = -1;
+    if (i < w1) {
+      const int2 e = big ? __ldcg(sorted + lo + i) : ent[i];
+      wk.spos[lo + i] = e.y;
+      k = e.x;
+    }
+    const int up = __shfl_up_sync(kFull, k, 1);
+    const int prev = lane ? up : (i ? key_at(i - 1) : prev0);
+    mine += __popc(__ballot_sync(kFull, i < w1 && k != prev));
+  }
+  if (lane == 0) sh.warp[warp] = mine;
+  __syncthreads();
+  int at = 0, nloc = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    at += w < warp ? sh.warp[w] : 0;
+    nloc += sh.warp[w];
+  }
+  for (int i0 = w0; i0 < w1; i0 += 32) {
+    const int i = i0 + lane;
+    const int k = i < w1 ? key_at(i) : -1;
+    const int up = __shfl_up_sync(kFull, k, 1);
+    const int prev = lane ? up : (i ? key_at(i - 1) : prev0);
+    const unsigned heads = __ballot_sync(kFull, i < w1 && k != prev);
+    if (heads >> lane & 1) lhp[at + __popc(heads & lt)] = lo + i;
+    at += __popc(heads);
+  }
+  __syncthreads();
+  // Each thread takes consecutive heads and counts its short and long runs
+  // (the CTA's last one aside: its length depends on the next CTAs).
+  const int qh = (nloc + kSortThreads - 1) / kSortThreads;
+  const int h0 = min(tid * qh, nloc), h1 = min(h0 + qh, nloc);
+  int ns = 0, nl = 0;
+  for (int h = h0; h < h1 && h + 1 < nloc; ++h) {
+    if (key_at(lhp[h] - lo) >= nrows) continue;  // dropped updates
+    if (lhp[h + 1] - lhp[h] > kLong) ++nl; else ++ns;
+  }
+  int2 tot;
+  const int2 at0 = block_scan2(make_int2(ns, nl), sh.warp, &tot);
+  const int tot_s = tot.x, tot_l = tot.y;
+  // Every CTA tells every CTA its (first head, last run's head or -1,
+  // short runs, long runs); each then places its runs in the two lists.
+  if (tid < C) {
+    const int lastv = nloc && key_at(lhp[nloc - 1] - lo) < nrows
+                          ? lhp[nloc - 1] : -1;
+    send4(peer(&sh.runs_of[c], tid),
+          make_int4(nloc ? lhp[0] : m, lastv, tot_s, tot_l),
+          peer(&sh.bar_runs, tid));
+  }
+  mbar_wait_peers(&sh.bar_runs, 0);
+  cluster_arrive_relaxed();  // done with the peers
+  int at_s = at0.x, at_l = at0.y, next = m, next_c = m;
+  int short_all = 0, long_all = 0;
+  for (int k = C - 1; k >= 0; --k) {  // each CTA's runs, its last included
+    const int4 r = sh.runs_of[k];
+    int ks = r.z, kl = r.w;
+    if (r.y >= 0) {
+      if (next - r.y > kLong) ++kl; else ++ks;
+    }
+    if (k < c) {
+      at_s += ks;
+      at_l += kl;
+    }
+    if (k == c) next_c = next;
+    short_all += ks;
+    long_all += kl;
+    if (r.x < m) next = r.x;
+  }
+  if (c == 0 && tid == 0) {
+    wk.runs[0] = short_all;
+    wk.runs[1] = long_all;
+  }
+  for (int h = h0; h < h1; ++h) {
+    const int g = lhp[h], k = key_at(g - lo);
+    if (k >= nrows) continue;
+    const int len = (h + 1 < nloc ? lhp[h + 1] : next_c) - g;
+    int* e = wk.runs + 2 + 3 * (len > kLong ? m - 1 - at_l++ : at_s++);
+    e[0] = g;
+    e[1] = len;
+    e[2] = k;
+  }
+  cluster_wait();
+}
+
+// -- long runs: one cluster each ------------------------------------------------
+
+// One 16-byte asynchronous copy into shared memory (cp.async, no
+// registers held); the compiler may move plain loads across it.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (counted as one of the barrier's expected arrivals).
+__device__ __forceinline__ void copy16_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One column's walk through a run's `len` rows, staged in the ring rb rows
+// per slot (rb a multiple of kAhead), rows 2^LG bytes apart (a constant:
+// each load takes an immediate offset, no address arithmetic per row): x
+// plus every row, in order.
+// Software pipelined: each row's add is followed by the load of the row
+// kAhead on, from this slot or, for a slot's last kAhead rows, from the
+// next one after its `full` wait; rows past a slot's last are loaded too
+// (the ring is padded by kAhead rows) but never added.  `it` counts the
+// CTA's stages; each warp's lane 0 releases a slot after the warp's last
+// adds from it.  PROBE: `waited` gathers the SM cycles spent waiting on
+// `full`.
+template <typename T, bool PROBE, int LG>
+__device__ __forceinline__ float walk(float x, const T* ring, int col, int rb,
+                                      int len, unsigned& it,
+                                      unsigned long long* full,
+                                      unsigned long long* empty, int lane,
+                                      long long& waited) {
+  constexpr int ldt = (1 << LG) / static_cast<int>(sizeof(T));
+  const int nb = (len + rb - 1) / rb;
+  unsigned s = it % kStages;
+  long long t = PROBE ? clock64() : 0;
+  mbar_wait(&full[s], (it / kStages) & 1);
+  if (PROBE) waited += clock64() - t;
+  const T* slot = ring + s * rb * ldt + col;
+  int cnt = min(rb, len);
+  float v[kAhead];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) v[i] = Elem<T>::load(slot + i * ldt);
+  for (int b = 0; b < nb; ++b) {
+    // The slot's groups of kAhead rows but its last: the rows kAhead on lie
+    // in this slot.
+    int r0 = 0;
+    for (; r0 + kAhead < cnt; r0 += kAhead) {
+      const T* ahead = slot + (r0 + kAhead) * ldt;
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        x = Elem<T>::add(x, v[i]);
+        v[i] = Elem<T>::load(ahead + i * ldt);
+      }
+    }
+    // Its last group: a full slot's hands over to the next slot's first rows.
+    unsigned s1 = s;
+    const T* slot1 = slot;
+    int cnt1 = 0;
+    if (b + 1 < nb) {
+      s1 = (it + 1) % kStages;
+      if (PROBE) t = clock64();
+      mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
+      if (PROBE) waited += clock64() - t;
+      slot1 = ring + s1 * rb * ldt + col;
+      cnt1 = min(rb, len - (b + 1) * rb);
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        x = Elem<T>::add(x, v[i]);
+        v[i] = Elem<T>::load(slot1 + i * ldt);
+      }
+    } else {  // the run's last rows
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i)
+        if (i < cnt - r0) x = Elem<T>::add(x, v[i]);
+    }
+    __syncwarp();  // every lane has added its last row from the slot
+    if (lane == 0) mbar_arrive(&empty[s]);
+    ++it;
+    s = s1;
+    slot = slot1;
+    cnt = cnt1;
+  }
+  return x;
+}
+
+// Row-wise Adagrad of a long run, by one CTA's adding warp: the row's sum
+// of squares in a fixed order (the warp's butterfly, then the CTAs of the
+// cluster in turn, their sums sent to every CTA into `part`, completing
+// on `bar`), then the step of the CTA's columns; CTA 0 writes acc[row].
+template <typename T>
+__device__ __forceinline__ void adagrad_step(
+    T* store, float* acc, int row, int dim, int g, int G, float sq,
+    float acc0, float lr, float eps, const float* s_g, float* part,
+    unsigned long long* bar, unsigned parity) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    sq = __fadd_rn(sq, __shfl_xor_sync(kFull, sq, o));
+  if (lane < G)
+    send(peer(part + g, lane), __float_as_int(sq), peer(bar, lane));
+  mbar_wait_peers(bar, parity);
+  float total = part[0];
+  for (int w = 1; w < G; ++w) total = __fadd_rn(total, part[w]);
+  const float a = __fadd_rn(acc0, __fdiv_rn(total, static_cast<float>(dim)));
+  const float denom = __fadd_rn(__fsqrt_rn(a), eps);
+  for (int c0 = 0; c0 < dim; c0 += kTile) {
+    const int c = c0 + kGroup * g + lane;
+    if (lane >= min(kGroup, min(kTile, dim - c0) - kGroup * g)) continue;
+    const float stp = Elem<T>::round(__fdiv_rn(__fmul_rn(lr, s_g[c]), denom));
+    T* dst = store + static_cast<long long>(row) * dim + c;
+    Elem<T>::store(dst, __fsub_rn(Elem<T>::load(dst), stp));
+  }
+  if (g == 0 && lane == 0) acc[row] = a;
+}
+
+// The long runs: one cluster per run, CTA g of it on the kGroup columns
+// from kGroup * g of each tile of up to kTile columns (kTile / kGroup CTAs
+// at most), so each SM streams a fraction of the run's bytes.  In each CTA
+// warp 0 adds (one lane per column) and the other warps produce: each
+// stage, rb rows of the group's columns are copied from their list
+// positions into ring slot it % kStages, 16 bytes per thread and cp.async
+// (`by16`: rows 16-byte aligned, of a multiple of 16 bytes), else plain
+// loads and stores; `full[slot]` completes on every producer thread's
+// arrival after its copies; the adding warp releases the slot on
+// `empty[slot]`.  Each producer thread loads the list positions of its
+// rows one stage ahead.  `it` counts stages over every tile and run the
+// CTA takes, so producers and the adding warp agree on slots and phases.
+// Row-wise Adagrad: each CTA's sum of squares over its columns (per lane
+// over the tiles, then a butterfly in the warp) goes to every CTA of the
+// cluster (st.async, two buffers by run parity), and each adds them in CTA
+// order.  Dynamic shared memory: the ring (kStages * rb + kAhead rows of
+// kGroup values), then for row-wise Adagrad the run's G (dim floats).
+// PROBE: for each run's first tile, CTA 0's lane 0 records the SM cycles
+// of its walk and of its waits on `full`, its producer thread 0 those of
+// its waits on `empty` (probe[4h ...] = length, walk, adder wait, producer
+// wait); the push's own instantiations read no clock.
+template <typename T, bool ADAGRAD, bool PROBE>
+__global__ void __launch_bounds__(kLongThreads, 2)
+long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
+                 const T* __restrict__ rows, const int* __restrict__ spos,
+                 const int* __restrict__ runs, int m, int dim, int rb,
+                 bool by16, float lr, float eps,
+                 long long* __restrict__ probe) {
+  // Ring rows of kGroup values, 2^kLg bytes.
+  constexpr int kLg = (sizeof(T) == 4 ? 2 : 1) + (kGroup == 32 ? 5 : 4);
+  constexpr int ldt = kGroup;
+  extern __shared__ __align__(128) unsigned char long_smem[];
+  __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
+  __shared__ __align__(8) unsigned long long bar_sq[2];
+  __shared__ float s_part[2][kTile / kGroup];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = static_cast<int>(cluster.num_blocks());
+  const int g = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pt = threadIdx.x - 32;  // producer thread
+  constexpr int np = kLongThreads - 32;  // producer threads
+  T* ring = reinterpret_cast<T*>(long_smem);
+  float* s_g = reinterpret_cast<float*>(
+      long_smem + (static_cast<size_t>(kStages * rb + kAhead) << kLg));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], np);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init(&bar_sq[0], 1);
+    mbar_init(&bar_sq[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_arrive_relaxed();
+  // The sort's grid first; then the short runs' kernel, launched next, may
+  // start beside this one: it touches other rows, and waits for this grid
+  // before it completes.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  cluster_wait();  // every CTA's barriers are ready
+  const int nruns = runs[1];
+  const int nclusters = gridDim.x / G;
+  unsigned it = 0;  // stages so far
+  int j = 0;        // runs so far
+  for (int h = blockIdx.x / G; h < nruns; h += nclusters, ++j) {
+    const int3 lrun = long_run(runs, m, h);  // (start, len, row)
+    const int start = lrun.x, len = lrun.y, row = lrun.z;
+    const int nb = (len + rb - 1) / rb;
+    float sq = 0.f, acc0 = 0.f;
+    if (ADAGRAD) {
+      acc0 = acc[row];  // before any CTA of the cluster can write it
+      if (threadIdx.x == 0) mbar_expect(&bar_sq[j & 1], G * 4);
+    }
+    for (int c0 = 0; c0 < dim; c0 += kTile) {
+      const int gc = c0 + kGroup * g;  // the group's first column
+      const int gw = min(kGroup, min(kTile, dim - c0) - kGroup * g);
+      if (gw <= 0) continue;  // this tile is narrower than the group
+      if (pt >= 0 && by16) {  // the producers, 16 bytes each per row
+        const int cpr = gw * static_cast<int>(sizeof(T)) / 16;  // per row
+        const int per = np / cpr;  // rows per sweep of the producers
+        const int rr = pt / cpr, k = pt - rr * cpr;
+        const char* src0 = reinterpret_cast<const char*>(rows + gc) + 16 * k;
+        int pk[8];  // the list positions of this thread's rows, a stage ahead
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = rr + i * per;
+          pk[i] = r < min(rb, len) ? spos[start + r] : 0;
+        }
+        long long waited = 0;
+        for (int b = 0; b < nb; ++b, ++it) {
+          const int s = it % kStages;
+          const long long t = PROBE ? clock64() : 0;
+          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+          if (PROBE) waited += clock64() - t;
+          const int cnt = min(rb, len - b * rb);
+          int cur[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) cur[i] = pk[i];
+          if (b + 1 < nb) {
+            const int next = min(rb, len - (b + 1) * rb);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int r = rr + i * per;
+              pk[i] = r < next ? spos[start + (b + 1) * rb + r] : 0;
+            }
+          }
+          char* dst0 = reinterpret_cast<char*>(ring + s * rb * ldt) + 16 * k;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = rr + i * per;
+            if (r < cnt)
+              copy16(dst0 + r * ldt * static_cast<int>(sizeof(T)),
+                     src0 + static_cast<long long>(cur[i]) * dim * sizeof(T));
+          }
+          copy16_arrive(&full[s]);
+        }
+        if (PROBE && g == 0 && pt == 0 && c0 == 0) probe[4 * h + 3] = waited;
+      } else if (pt >= 0) {  // the producers, plain loads and stores
+        const int pw = pt >> 5;
+        constexpr int nw = np >> 5;
+        for (int b = 0; b < nb; ++b, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+          const int cnt = min(rb, len - b * rb);
+          T* slot = ring + s * rb * ldt;
+          for (int r = pw; r < cnt; r += nw) {
+            const T* src =
+                rows + static_cast<long long>(spos[start + b * rb + r]) * dim +
+                gc;
+            if (lane < gw) slot[r * ldt + lane] = src[lane];
+          }
+          mbar_arrive(&full[s]);  // release: this thread's stores
+        }
+      } else {  // the adding warp, lane on column gc + lane
+        const bool mine = lane < gw;
+        T* dst = store + static_cast<long long>(row) * dim + gc + lane;
+        float x = (!ADAGRAD && mine) ? Elem<T>::load(dst) : 0.f;
+        long long t0 = PROBE ? clock64() : 0, waited = 0;
+        x = walk<T, PROBE, kLg>(x, ring, mine ? lane : 0, rb, len, it, full,
+                                empty, lane, waited);
+        if (PROBE && g == 0 && lane == 0 && c0 == 0) {
+          probe[4 * h] = len;
+          probe[4 * h + 1] = clock64() - t0;
+          probe[4 * h + 2] = waited;
+        }
+        if (mine) {
+          if (ADAGRAD) {
+            s_g[gc + lane] = x;
+            sq = __fadd_rn(sq, __fmul_rn(x, x));
+          } else {
+            Elem<T>::store(dst, x);
+          }
+        }
+      }
+    }
+    if constexpr (ADAGRAD) {
+      if (warp == 0)
+        adagrad_step(store, acc, row, dim, g, G, sq, acc0, lr, eps, s_g,
+                     s_part[j & 1], &bar_sq[j & 1], (j >> 1) & 1);
+    }
+  }
+  // No CTA leaves while a peer may still send to it.
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
+// -- short runs -------------------------------------------------------------------
 
 // Four consecutive values of an update row as floats: one 16-byte (f32)
 // or 8-byte (bf16) load when `vec` (rows of a multiple of 4 values from an
@@ -156,272 +1071,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, bool vec,
   for (int e = 0; e < 4; ++e) v[e] = e < n ? __bfloat162float(p[e]) : 0.f;
 }
 
-// The update rows in sorted order (as f32: exact for bf16 tables; rows ld =
-// dim rounded up to 4 floats apart, so each starts 16-byte aligned for the
-// bulk copies), and the run lists.  One thread per 4 columns of a taken
-// update (a warp reads whole rows); the thread of a run's first position
-// and columns 0-3 lists the run, a short one with its length (a binary
-// search over the next kLong positions).
-template <typename T>
-__global__ void prepare_kernel(const T* __restrict__ rows,
-                               const int* __restrict__ skeys,
-                               const long long* __restrict__ perm,
-                               float* __restrict__ srows,
-                               int* __restrict__ runs, int m, int dim,
-                               int ld, int nrows, bool vec) {
-  const int quads = ld / 4;
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (t >= static_cast<long long>(m) * quads) return;
-  const int j = static_cast<int>(t / quads);
-  const int c0 = static_cast<int>(t - static_cast<long long>(j) * quads) * 4;
-  const int k = skeys[j];
-  if (k >= nrows) return;  // dropped updates sort last
-  float v[4];
-  load4(rows + perm[j] * dim + c0, min(4, dim - c0), vec, v);
-  *reinterpret_cast<float4*>(srows + static_cast<long long>(j) * ld + c0) =
-      make_float4(v[0], v[1], v[2], v[3]);
-  if (c0 != 0 || (j > 0 && skeys[j - 1] == k)) return;
-  if (j + kLong < m && skeys[j + kLong] == k) {
-    runs[2 + 3 * m - 1 - atomicAdd(runs + 1, 1)] = j;
-    return;
-  }
-  int lo = j + 1, hi = min(m, j + kLong);  // the end lies in [lo, hi]
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (skeys[mid] == k) lo = mid + 1; else hi = mid;
-  }
-  int* e = runs + 2 + 3 * atomicAdd(runs, 1);
-  e[0] = j;
-  e[1] = lo - j;
-  e[2] = k;
-}
-
-// Length of the run starting at position i of the sorted keys, found by the
-// whole warp: 32 probes per round, first at strides 1, 32, 1024, ... until
-// one lands past the run, then narrowing the bracket 32-fold per round.
-// (key == k is true exactly on [i, i + len): the keys are sorted.)  The hot
-// run of config 5 takes five rounds.
-__device__ int run_length(const int* __restrict__ skeys, int i, int m) {
-  const int lane = threadIdx.x & 31;
-  const int k = skeys[i];
-  long long a = i + 1;  // skeys[a - 1] == k
-  long long b;          // first position past the run (or m)
-  for (long long s = 1;; s *= 32) {
-    const long long p = a + lane * s;
-    const int t = __popc(__ballot_sync(kFull, p < m && skeys[p] == k));
-    if (t < 32) {
-      b = a + t * s;
-      if (t > 0) a += (t - 1) * s + 1;
-      break;
-    }
-    a += 31 * s + 1;
-  }
-  if (b > m) b = m;
-  while (b > a) {
-    const long long s = (b - a + 31) / 32;
-    const long long p = a + lane * s;
-    const int t = __popc(__ballot_sync(kFull, p < b && skeys[p] == k));
-    const long long out = a + t * s;
-    if (out < b) b = out;
-    if (t > 0) a += (t - 1) * s + 1;
-  }
-  return static_cast<int>(a - i);
-}
-
-// -- long runs: one CTA each ----------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count));
-}
-
-// Arrive on `bar` and expect `bytes` more of bulk-copy completion.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One bulk copy (the Tensor Memory Accelerator) of `bytes` (a multiple of
-// 16, both addresses 16-byte aligned) into shared memory, completing on
-// `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The rows of one ring slot (stride ldt) added to x in order, eight at a
-// time: eight loads, then eight adds.
-template <typename T>
-__device__ __forceinline__ float add_slot(float x,
-                                          const float* __restrict__ slot,
-                                          int cnt, int ldt) {
-  int r0 = 0;
-  for (; r0 + 8 <= cnt; r0 += 8) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = slot[(r0 + i) * ldt];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x = Elem<T>::add(x, v[i]);
-  }
-  for (; r0 < cnt; ++r0) x = Elem<T>::add(x, slot[r0 * ldt]);
-  return x;
-}
-
-// The long runs: one CTA per run.  Warps 0..cw-1 add (one thread per
-// column of a tile of up to kTile columns); warp cw produces: each stage,
-// rb rows of the tile are bulk-copied (one copy when the tile is the whole
-// padded row, else one per row) into ring slot it % kStages, `full[slot]`
-// completing on their bytes; the consumers release the slot on
-// `empty[slot]`.  `it` counts stages over every tile and run the CTA takes,
-// so producer and consumers agree on slots and phases.  Dynamic shared
-// memory: the ring (kStages * rb * ldt floats, ldt = the tile's padded
-// width), then for row-wise Adagrad the run's G (dim floats).
-template <typename T, bool ADAGRAD>
-__global__ void long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
-                                 const float* __restrict__ srows,
-                                 const int* __restrict__ skeys,
-                                 const int* __restrict__ runs, int m, int dim,
-                                 int ld, int rb, float lr, float eps) {
-  extern __shared__ __align__(128) float smem[];
-  __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
-  __shared__ float s_part[kTile / 32];
-  const int cw = (min(dim, kTile) + 31) / 32;  // consumer warps
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ldt0 = (min(dim, kTile) + 3) & ~3;
-  float* ring = smem;
-  float* s_g = smem + kStages * rb * ldt0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], cw);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  // The short runs' kernel, launched next, may start beside this one: it
-  // touches other rows, and waits for this grid before it completes.
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-  const int nruns = runs[1];
-  unsigned it = 0;  // stages so far
-  for (int h = blockIdx.x; h < nruns; h += gridDim.x) {
-    const int start = long_run(runs, m, h);
-    const int row = skeys[start];
-    const int len = run_length(skeys, start, m);
-    const int nb = (len + rb - 1) / rb;
-    float sq = 0.f;
-    for (int c0 = 0; c0 < dim; c0 += kTile) {
-      const int tw = min(kTile, dim - c0);
-      const int ldt = (tw + 3) & ~3;
-      const float* src = srows + static_cast<long long>(start) * ld + c0;
-      if (warp == cw) {  // the producer
-        for (int b = 0; b < nb; ++b, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
-          const int cnt = min(rb, len - b * rb);
-          const float* g = src + static_cast<long long>(b) * rb * ld;
-          float* slot = ring + s * rb * ldt;
-          if (ldt == ld) {  // the stage is one contiguous block
-            if (lane == 0) {
-              mbar_expect(&full[s], cnt * ld * 4);
-              bulk_copy(slot, g, cnt * ld * 4, &full[s]);
-            }
-          } else {
-            if (lane == 0) mbar_expect(&full[s], cnt * ldt * 4);
-            __syncwarp();
-            for (int r = lane; r < cnt; r += 32)
-              bulk_copy(slot + r * ldt, g + static_cast<long long>(r) * ld,
-                        ldt * 4, &full[s]);
-          }
-          __syncwarp();
-        }
-      } else if (warp < cw) {  // the consumers
-        const bool mine = static_cast<int>(threadIdx.x) < tw;
-        T* dst = store + static_cast<long long>(row) * dim + c0 + threadIdx.x;
-        float x = (!ADAGRAD && mine) ? Elem<T>::load(dst) : 0.f;
-        for (int b = 0; b < nb; ++b, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&full[s], (it / kStages) & 1);
-          if (mine)
-            x = add_slot<T>(x, ring + s * rb * ldt + threadIdx.x,
-                            min(rb, len - b * rb), ldt);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[s]);
-        }
-        if (mine) {
-          if (ADAGRAD) {
-            s_g[c0 + threadIdx.x] = x;
-            sq = __fadd_rn(sq, __fmul_rn(x, x));
-          } else {
-            Elem<T>::store(dst, x);
-          }
-        }
-      } else {
-        it += nb;
-      }
-    }
-    if (!ADAGRAD) continue;
-    // All warps: the row's sum of squares in a fixed order, then the step.
-    const float acc0 = acc[row];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sq = __fadd_rn(sq, __shfl_xor_sync(kFull, sq, o));
-    if (lane == 0 && warp < cw) s_part[warp] = sq;
-    __syncthreads();
-    float total = s_part[0];
-    for (int w = 1; w < cw; ++w) total = __fadd_rn(total, s_part[w]);
-    const float a =
-        __fadd_rn(acc0, __fdiv_rn(total, static_cast<float>(dim)));
-    const float denom = __fadd_rn(__fsqrt_rn(a), eps);
-    for (int c = threadIdx.x; c < dim; c += blockDim.x) {
-      const float stp =
-          Elem<T>::round(__fdiv_rn(__fmul_rn(lr, s_g[c]), denom));
-      T* dst = store + static_cast<long long>(row) * dim + c;
-      Elem<T>::store(dst, __fsub_rn(Elem<T>::load(dst), stp));
-    }
-    if (threadIdx.x == 0) acc[row] = a;
-    __syncthreads();  // s_part and s_g are free for the next run
-  }
-}
-
-// -- short runs -------------------------------------------------------------------
-
 // Sum push of the short runs: one thread per (run, 4 columns), four
-// in-order chains side by side.
+// in-order chains side by side, each row read through its list position.
 template <typename T>
 __global__ void scatter_short_kernel(T* __restrict__ store,
-                                     const float* __restrict__ srows,
+                                     const T* __restrict__ rows,
+                                     const int* __restrict__ spos,
                                      const int* __restrict__ runs, int dim,
-                                     int ld) {
+                                     bool vec) {
   const int quads = (dim + 3) / 4;
   const long long work = static_cast<long long>(runs[0]) * quads;
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -435,12 +1092,13 @@ __global__ void scatter_short_kernel(T* __restrict__ store,
     float x[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[e] = e < n ? Elem<T>::load(dst + e) : 0.f;
-    const float* src = srows + static_cast<long long>(run.x) * ld + c0;
     for (int r = 0; r < run.y; ++r) {
+      float v[4];
+      load4(rows + static_cast<long long>(spos[run.x + r]) * dim + c0, n, vec,
+            v);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (e < n)
-          x[e] = Elem<T>::add(x[e], src[static_cast<long long>(r) * ld + e]);
+        if (e < n) x[e] = Elem<T>::add(x[e], v[e]);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -456,22 +1114,24 @@ __global__ void scatter_short_kernel(T* __restrict__ store,
 template <typename T>
 __global__ void adagrad_short_kernel(T* __restrict__ store,
                                      float* __restrict__ acc,
-                                     const float* __restrict__ srows,
+                                     const T* __restrict__ rows,
+                                     const int* __restrict__ spos,
                                      const int* __restrict__ runs, int dim,
-                                     int ld, float lr, float eps) {
+                                     float lr, float eps) {
   const int lane = threadIdx.x & 31;
   const int nruns = runs[0];
   const int step = gridDim.x * (blockDim.x >> 5);
   for (int h = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
        h < nruns; h += step) {
     const int3 run = short_run(runs, h);  // (start, len, row)
-    const float* src = srows + static_cast<long long>(run.x) * ld;
+    const int* ps = spos + run.x;
     float sq = 0.f;
     for (int c = lane; c - lane < dim; c += 32) {
       float g = 0.f;
       if (c < dim)
         for (int r = 0; r < run.y; ++r)
-          g = Elem<T>::add(g, src[static_cast<long long>(r) * ld + c]);
+          g = Elem<T>::add(
+              g, Elem<T>::load(rows + static_cast<long long>(ps[r]) * dim + c));
       if (c < dim) sq = __fadd_rn(sq, __fmul_rn(g, g));
     }
 #pragma unroll
@@ -484,7 +1144,8 @@ __global__ void adagrad_short_kernel(T* __restrict__ store,
     for (int c = lane; c < dim; c += 32) {
       float g = 0.f;
       for (int r = 0; r < run.y; ++r)
-        g = Elem<T>::add(g, src[static_cast<long long>(r) * ld + c]);
+        g = Elem<T>::add(
+            g, Elem<T>::load(rows + static_cast<long long>(ps[r]) * dim + c));
       const float stp = Elem<T>::round(__fdiv_rn(__fmul_rn(lr, g), denom));
       T* dst = store + static_cast<long long>(run.z) * dim + c;
       Elem<T>::store(dst, __fsub_rn(Elem<T>::load(dst), stp));
@@ -558,64 +1219,145 @@ long long resident_blocks(K kernel, int threads, size_t smem) {
   return n;
 }
 
+// Clusters of `size` CTAs of a kernel that the card runs at once, asked of
+// the occupancy API once per kernel, shared memory, size and device (the
+// dynamic shared memory limit raised as resident_blocks does; sizes above
+// 8 allowed).
+struct ResidentClusters {
+  const void* kernel;
+  int device, size;
+  size_t smem;
+  long long clusters;
+};
+ResidentClusters g_clusters[32];
+int g_nclusters = 0;
+
+template <typename K>
+long long resident_clusters(K kernel, int threads, size_t smem, int size) {
+  resident_blocks(kernel, threads, smem);  // raises the smem limit
+  std::lock_guard<std::mutex> hold(g_resident_mu);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < g_nclusters; ++i) {
+    const ResidentClusters& r = g_clusters[i];
+    if (r.kernel == key && r.device == dev && r.size == size &&
+        r.smem == smem)
+      return r.clusters;
+  }
+  if (size > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(size);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(size);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess ||
+      n < 1)
+    n = 1;
+  if (g_nclusters < 32) g_clusters[g_nclusters++] = {key, dev, size, smem, n};
+  return n;
+}
+
 unsigned int grid_of(long long resident, long long most) {
   return static_cast<unsigned int>(resident < most ? resident : most);
 }
 
-template <typename T>
-int launch_push(void* store, void* acc, const void* rows, const void* skeys,
-                const void* perm, void* srows, void* runs, long long m,
-                int dim, int nrows, bool adagrad, float lr, float eps,
-                cudaStream_t st) {
-  auto* k = static_cast<const int*>(skeys);
-  auto* r = static_cast<int*>(runs);
-  auto* sr = static_cast<float*>(srows);
+// The sort's cluster size: one CTA per kSortGrow entries, at most
+// kSortCluster (always kSortCluster above the capacity in shared memory).
+int sort_cluster(long long m) {
+  const long long c = (m + kSortGrow - 1) / kSortGrow;
+  return static_cast<int>(c < 1 ? 1 : (c > kSortCluster ? kSortCluster : c));
+}
+
+// A programmatic dependent launch: the kernel may start before the one
+// ahead of it on the stream has finished (it waits with
+// griddepcontrol.wait where it must).
+void beside(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
+            int threads, size_t smem, cudaStream_t st) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+template <typename T, bool PROBE>
+int launch_push(void* store, void* acc, const void* rows, void* work,
+                long long m, int dim, bool adagrad, float lr, float eps,
+                long long* probe, cudaStream_t st) {
+  const Work wk = work_of(static_cast<int*>(work), static_cast<int>(m));
   auto* s = static_cast<T*>(store);
   auto* a = static_cast<float*>(acc);
+  auto* rw = static_cast<const T*>(rows);
   const int mi = static_cast<int>(m);
-  const int ld = (dim + 3) & ~3;
-  const bool vec = ld == dim && aligned(rows, 4 * sizeof(T));
-  prepare_kernel<T><<<blocks_of(m * (ld / 4), 256), 256, 0, st>>>(
-      static_cast<const T*>(rows), k, static_cast<const long long*>(perm), sr,
-      r, mi, dim, ld, nrows, vec);
-  cudaError_t err = cudaGetLastError();
+  const bool by16 = aligned(rows, 16) && (dim * sizeof(T)) % 16 == 0;
+
+  // The long runs first: the hottest row's walk is the longest piece.  One
+  // cluster of G CTAs per run (kGroup columns each), as many clusters as
+  // run at once, up to the most long runs m can hold.
+  constexpr int kLg = (sizeof(T) == 4 ? 2 : 1) + (kGroup == 32 ? 5 : 4);
+  const int G = (min(dim, kTile) + kGroup - 1) / kGroup;
+  // Rows per slot: a multiple of kAhead, at most kRingRows, and at most 8
+  // per producer thread (each copies 16 bytes of a row of kGroup values).
+  const int per =
+      (kLongThreads - 32) / (kGroup * static_cast<int>(sizeof(T)) / 16);
+  const int rb = min(min(kRingRows, (kRingBytes / kStages) >> kLg), 8 * per) &
+                 ~(kAhead - 1);
+  const size_t smem =
+      (static_cast<size_t>(kStages * rb + kAhead) << kLg) +
+      (adagrad ? static_cast<size_t>(dim) * sizeof(float) : 0);
+  auto lk = adagrad ? long_runs_kernel<T, true, PROBE>
+                    : long_runs_kernel<T, false, PROBE>;
+  const long long fit = resident_clusters(lk, kLongThreads, smem, G);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  beside(cfg, attrs[0], dim3(G * static_cast<unsigned>(grid_of(
+                                      fit, m / (kLong + 1) + 1))),
+         kLongThreads, smem, st);
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = static_cast<unsigned>(G);
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, lk, s, a, rw, static_cast<const int*>(wk.spos),
+      static_cast<const int*>(wk.runs), mi, dim, rb, by16, lr, eps, probe);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // The long runs first: the hottest row's walk is the longest piece.
-  const int tw = min(dim, kTile);
-  const int ldt = (tw + 3) & ~3;
-  const int rb = kRingBytes / (kStages * ldt * static_cast<int>(sizeof(float)));
-  const int threads = ((tw + 31) / 32 + 1) * 32;
-  const size_t smem = static_cast<size_t>(kStages) * rb * ldt * sizeof(float) +
-                      (adagrad ? static_cast<size_t>(dim) * sizeof(float) : 0);
-  auto lk = adagrad ? long_runs_kernel<T, true> : long_runs_kernel<T, false>;
-  lk<<<grid_of(resident_blocks(lk, threads, smem), m / (kLong + 1) + 1),
-       threads, smem, st>>>(s, a, sr, k, r, mi, dim, ld, rb, lr, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // The short runs beside the long ones: a programmatic dependent launch
-  // starts once every long-run CTA has begun.
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute beside;
-  beside.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  beside.val.programmaticStreamSerializationAllowed = 1;
-  cfg.blockDim = dim3(256);
-  cfg.stream = st;
-  cfg.attrs = &beside;
-  cfg.numAttrs = 1;
+  // The short runs beside the long ones: they start once every long-run
+  // CTA has passed its wait for the sort.
+  const bool vec = dim % 4 == 0 && aligned(rows, 4 * sizeof(T));
   if (adagrad) {
     auto sk = adagrad_short_kernel<T>;
-    cfg.gridDim = dim3(grid_of(resident_blocks(sk, 256, 0), (m + 7) / 8));
-    err = cudaLaunchKernelEx(&cfg, sk, s, a, static_cast<const float*>(sr),
-                             static_cast<const int*>(r), dim, ld, lr, eps);
+    beside(cfg, attrs[0],
+           dim3(grid_of(resident_blocks(sk, 256, 0), (m + 7) / 8)), 256, 0,
+           st);
+    err = cudaLaunchKernelEx(&cfg, sk, s, a, rw,
+                             static_cast<const int*>(wk.spos),
+                             static_cast<const int*>(wk.runs), dim, lr, eps);
   } else {
     auto sk = scatter_short_kernel<T>;
-    const long long work = m * ((dim + 3) / 4);
-    cfg.gridDim =
-        dim3(grid_of(resident_blocks(sk, 256, 0), (work + 255) / 256));
-    err = cudaLaunchKernelEx(&cfg, sk, s, static_cast<const float*>(sr),
-                             static_cast<const int*>(r), dim, ld);
+    const long long work_items = m * ((dim + 3) / 4);
+    beside(cfg, attrs[0],
+           dim3(grid_of(resident_blocks(sk, 256, 0), (work_items + 255) / 256)),
+           256, 0, st);
+    err = cudaLaunchKernelEx(&cfg, sk, s, rw,
+                             static_cast<const int*>(wk.spos),
+                             static_cast<const int*>(wk.runs), dim, vec);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -635,43 +1377,82 @@ int launch_gather(const void* store, const void* idx, void* out, long long m,
 
 extern "C" {
 
-int pstt_sparse_keys(const void* idx, void* keys, long long m, int S, int rps,
-                     void* runs, void* stream) {
+// The sort of a push: the flat row of every update, sorted stably, and the
+// run lists, into `work` (9m + 3 ints; see Work).  One cluster launch.
+int pstt_sparse_sort(const void* idx, void* work, long long m, int S, int rps,
+                     void* stream) {
   if (m <= 0) return 0;
-  sparse_keys_kernel<<<blocks_of(m, 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<int*>(keys),
-      static_cast<int>(m), S, rps, static_cast<int*>(runs));
+  static const cudaError_t ready = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSortSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        sort_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int nrows = S * rps;
+  const int bits = 32 - __builtin_clz(static_cast<unsigned>(nrows));
+  const int C = sort_cluster(m);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kSortThreads);
+  cfg.dynamicSmemBytes = kSortSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(C);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, sort_kernel, static_cast<const int*>(idx), static_cast<int*>(work),
+      static_cast<int>(m), S, rps, bits);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 float32, 1 bfloat16.  srows: m x ((dim + 3) & ~3) floats of
-// scratch; runs: 3m + 2 ints, counters zeroed by pstt_sparse_keys.
-int pstt_sparse_scatter_add(void* store, const void* rows, const void* skeys,
-                            const void* perm, void* srows, void* runs,
-                            long long m, int dim, int nrows, int dtype,
-                            void* stream) {
+// dtype: 0 float32, 1 bfloat16.  work: filled by pstt_sparse_sort just
+// before, on the same stream.
+int pstt_sparse_scatter_add(void* store, const void* rows, void* work,
+                            long long m, int dim, int dtype, void* stream) {
   if (m <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_push<__nv_bfloat16>(store, nullptr, rows, skeys, perm,
-                                      srows, runs, m, dim, nrows, false, 0.f,
-                                      0.f, st);
-  return launch_push<float>(store, nullptr, rows, skeys, perm, srows, runs, m,
-                            dim, nrows, false, 0.f, 0.f, st);
+    return launch_push<__nv_bfloat16, false>(store, nullptr, rows, work, m,
+                                             dim, false, 0.f, 0.f, nullptr,
+                                             st);
+  return launch_push<float, false>(store, nullptr, rows, work, m, dim, false,
+                                   0.f, 0.f, nullptr, st);
 }
 
 int pstt_sparse_row_adagrad(void* store, void* acc, const void* rows,
-                            const void* skeys, const void* perm, void* srows,
-                            void* runs, long long m, int dim, int nrows,
-                            float lr, float eps, int dtype, void* stream) {
+                            void* work, long long m, int dim, float lr,
+                            float eps, int dtype, void* stream) {
   if (m <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_push<__nv_bfloat16>(store, acc, rows, skeys, perm, srows,
-                                      runs, m, dim, nrows, true, lr, eps, st);
-  return launch_push<float>(store, acc, rows, skeys, perm, srows, runs, m,
-                            dim, nrows, true, lr, eps, st);
+    return launch_push<__nv_bfloat16, false>(store, acc, rows, work, m, dim,
+                                             true, lr, eps, nullptr, st);
+  return launch_push<float, false>(store, acc, rows, work, m, dim, true, lr,
+                                   eps, nullptr, st);
+}
+
+// The sum push with the clock probe in its long-run walk (f32 or bf16):
+// probe[4h ... 4h + 3] = (length, SM cycles of the walk's first tile, of
+// its consumer thread 0's waits, of its producer thread 0's waits) of long
+// run h; 4 * (m / (kLong + 1) + 1) values.
+int pstt_sparse_walk_probe(void* store, const void* rows, void* work,
+                           long long m, int dim, int dtype, void* probe,
+                           void* stream) {
+  if (m <= 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* pr = static_cast<long long*>(probe);
+  if (dtype == 1)
+    return launch_push<__nv_bfloat16, true>(store, nullptr, rows, work, m, dim,
+                                            false, 0.f, 0.f, pr, st);
+  return launch_push<float, true>(store, nullptr, rows, work, m, dim, false,
+                                  0.f, 0.f, pr, st);
 }
 
 int pstt_sparse_gather_rows(const void* store, const void* idx, void* out,

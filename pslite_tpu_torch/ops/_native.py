@@ -56,10 +56,10 @@ _SIGNATURES = {
     "pstt_ring_int8_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
     "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),
-    "pstt_sparse_keys": (_P, _P, _L, _I, _I, _P, _P),
-    "pstt_sparse_scatter_add": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "pstt_sparse_row_adagrad": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F,
-                                _F, _I, _P),
+    "pstt_sparse_sort": (_P, _P, _L, _I, _I, _P),
+    "pstt_sparse_scatter_add": (_P, _P, _P, _L, _I, _I, _P),
+    "pstt_sparse_row_adagrad": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
+    "pstt_sparse_walk_probe": (_P, _P, _P, _L, _I, _I, _P, _P),
     "pstt_sparse_gather_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 

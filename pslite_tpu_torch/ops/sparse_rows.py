@@ -189,33 +189,25 @@ def gather_rows_reference(store, indices, num_shards: int,
 
 # -- kernels ---------------------------------------------------------------------
 
-def _push_operands(indices, dim: int, num_shards: int, rows_per_shard: int):
-    """Device glue of the push kernels: the flat target row of every
-    update (``pstt_sparse_keys``; out-of-range -> the sentinel ``S *
-    rps``, which sorts last), stably sorted, and the kernels' scratch.
-    ``torch.sort`` stays a library call, as ``jnp.argsort`` is an XLA op in
-    the JAX program.  Returns (sorted rows int32, their list positions
-    int64, the updates in sorted order ``[m, dim padded to 4]`` f32, the
-    run lists)."""
+def _sorted_runs(indices, num_shards: int, rows_per_shard: int):
+    """The sort of a push (``pstt_sparse_sort``, one cluster launch, no
+    library sort): each update's flat target row (out of range: the
+    sentinel ``S * rps``, which sorts last), sorted stably by a radix sort
+    written for the card, and the run lists the push kernels walk.
+    Returns the scratch they read (9m + 3 int32; its layout is the
+    ``Work`` struct of ``csrc/sparse_rows.cu``)."""
     m = indices.numel()
-    dev = indices.device
-    keys = torch.empty(m, dtype=torch.int32, device=dev)
-    # runs[0], runs[1]: short and long run counts (zeroed with the keys);
-    # then the lists.
-    runs = torch.empty(3 * m + 2, dtype=torch.int32, device=dev)
-    _native.call("pstt_sparse_keys", indices.data_ptr(), keys.data_ptr(), m,
-                 num_shards, rows_per_shard, runs.data_ptr(),
-                 _native.stream_ptr(dev))
-    skeys, perm = torch.sort(keys, stable=True)
-    # Rows padded to 4 floats: 16-byte aligned for the kernels' bulk copies.
-    srows = torch.empty((m, -(-dim // 4) * 4), dtype=torch.float32,
-                        device=dev)
-    return skeys, perm, srows, runs
+    work = torch.empty(9 * m + 3, dtype=torch.int32, device=indices.device)
+    _native.call("pstt_sparse_sort", indices.data_ptr(), work.data_ptr(), m,
+                 num_shards, rows_per_shard,
+                 _native.stream_ptr(indices.device))
+    return work
 
 
 def scatter_add(store, indices, rows, num_shards: int, rows_per_shard: int):
     """Sum push of ``rows`` ``[*indices.shape, dim]`` into ``store``, in
-    place; the CUDA kernels on the card."""
+    place; the CUDA kernels on the card (the sort, then the long and short
+    runs: three launches)."""
     if not _on_cuda(store, indices, rows):
         return scatter_add_reference(store, indices, rows, num_shards,
                                      rows_per_shard)
@@ -223,11 +215,10 @@ def scatter_add(store, indices, rows, num_shards: int, rows_per_shard: int):
     m, dim = indices.numel(), store.shape[1]
     if m == 0:
         return store
-    ops = _push_operands(indices, dim, num_shards, rows_per_shard)
+    work = _sorted_runs(indices, num_shards, rows_per_shard)
     _native.call("pstt_sparse_scatter_add", store.data_ptr(),
-                 rows.data_ptr(), *(t.data_ptr() for t in ops), m, dim,
-                 num_shards * rows_per_shard, _DTYPE_CODES[store.dtype],
-                 _native.stream_ptr(store.device))
+                 rows.data_ptr(), work.data_ptr(), m, dim,
+                 _DTYPE_CODES[store.dtype], _native.stream_ptr(store.device))
     launches["sparse_scatter_add"] += 1
     return store
 
@@ -247,12 +238,11 @@ def row_adagrad(store, acc, indices, rows, num_shards: int,
               f"got {dim}")
     if m == 0:
         return store, acc
-    ops = _push_operands(indices, dim, num_shards, rows_per_shard)
+    work = _sorted_runs(indices, num_shards, rows_per_shard)
     _native.call("pstt_sparse_row_adagrad", store.data_ptr(),
-                 acc.data_ptr(), rows.data_ptr(),
-                 *(t.data_ptr() for t in ops), m, dim,
-                 num_shards * rows_per_shard, lr, eps,
-                 _DTYPE_CODES[store.dtype], _native.stream_ptr(store.device))
+                 acc.data_ptr(), rows.data_ptr(), work.data_ptr(), m, dim,
+                 lr, eps, _DTYPE_CODES[store.dtype],
+                 _native.stream_ptr(store.device))
     launches["sparse_row_adagrad"] += 1
     return store, acc
 

@@ -662,9 +662,13 @@ def test_zero_copy_and_pinned_pulls_on_the_card(dev):
 # 1e-5 / atol 1e-6 (the order of the row's sum of squares).
 
 # (S, rps, dim, W, n): config 5 (1,048,576 rows x 64 over 8 shards, 8 x
-# 4,096 Zipf rows), small, pack-64 and ragged widths, column tiles.
+# 4,096 Zipf rows), small, pack-64 and ragged widths, column tiles; 80,000
+# updates, above the 65,536 the sort's cluster holds in shared memory (its
+# tile loop in device memory); and 2^22 rows, keys of 23 bits (three radix
+# digits).
 _SPARSE = [(8, 131_072, 64, 8, 4096), (8, 64, 2, 8, 40), (8, 16, 8, 8, 50),
-           (4, 10, 300, 4, 30), (1, 50, 33, 1, 80), (8, 5, 256, 8, 12)]
+           (4, 10, 300, 4, 30), (1, 50, 33, 1, 80), (8, 5, 256, 8, 12),
+           (8, 4096, 16, 8, 10_000), (8, 524_288, 4, 8, 512)]
 
 
 def _sparse_case(dev, S, rps, dim, W, n, dtype=torch.float32, seed=0):
@@ -764,3 +768,50 @@ def test_sparse_push_takes_unaligned_rows(dev, dtype):
     want = sr.scatter_add_reference(store.clone(), idx, rows, 8, 64)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_sparse_push_is_three_launches_without_a_library_sort(dev,
+                                                             monkeypatch):
+    """Each push calls the sort's C entry once and then its own (the long
+    runs and, beside them, the short runs): three kernels on the card, and
+    no torch.sort or argsort on the way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pslite_tpu_torch.ops import _native
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    store, idx, rows = _sparse_case(dev, *_SPARSE[0])
+    acc = torch.rand(store.shape[0], device=dev)
+    calls = []
+    real = _native.call
+    monkeypatch.setattr(_native, "call",
+                        lambda name, *a: (calls.append(name),
+                                          real(name, *a))[1])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library sort on the kernel path")
+
+    for owner in (torch, torch.Tensor):
+        monkeypatch.setattr(owner, "sort", refuse)
+        monkeypatch.setattr(owner, "argsort", refuse)
+    sr.scatter_add(store, idx, rows, 8, 131_072)
+    sr.row_adagrad(store, acc, idx, rows, 8, 131_072, 0.01, 1e-8)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert calls == ["pstt_sparse_sort", "pstt_sparse_scatter_add",
+                     "pstt_sparse_sort", "pstt_sparse_row_adagrad"]
+    # The profiler now and then returns a window without device events:
+    # such a window is taken again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sr.scatter_add(store, idx, rows, 8, 131_072)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 3, names
+    for k in ("sort_kernel", "long_runs_kernel", "scatter_short_kernel"):
+        assert sum(k in n for n in names) == 1, names
