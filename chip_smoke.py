@@ -39,6 +39,8 @@ line):
    push's own kernels); at the end of the run, after the steady states,
    each push split into its three kernels by the profiler (the sort, the
    long runs' walk, the short runs beside it).
+   K1-K3 also on bf16 stores (0 differing elements: kernel and plain
+   version round after every operation).
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
    replayed, timed with CUDA events (the host is out of the timing);
    ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
@@ -50,7 +52,7 @@ line):
    40 x 1,024,000 B bucket under the ring (``PS_ICI_IMPL=pallas``,
    handle ``sum``, f32 and bf16, and f32 with ``PS_ICI_COMPRESS=int8``)
    and the fused optimizer handles (``adam``, ``sgd_momentum``,
-   ``adagrad``); ``CollectiveEngine`` on a ``make_group((4, 2), ("dp",
+   ``adagrad``, on f32 and bf16 buckets); ``CollectiveEngine`` on a ``make_group((4, 2), ("dp",
    "kv"))`` group with ``worker_axis="dp"`` for ``sum``, int8 and
    ``adam``; and an int8 quantize -> dequantize round trip of the
    bucket.  Each is checked against a float64 numpy reference, and the
@@ -82,6 +84,18 @@ line):
    one pull per step with grads on the card (``embedding-1m``), under
    ``row_adagrad`` (``embedding-1m-adagrad``) and from numpy grads
    (``embedding-1m-host``).
+   The message control plane, each phase with the counts zeroed before
+   it, clusters started in this process with their own deadlines:
+   ``msg-config2`` (BASELINE config 2's topology over the loopback van:
+   1 scheduler + 2 servers + 2 workers, test_benchmark's 40 keys per
+   server of 1,024,000 B, 2 warm-up and 10 timed rounds of push, worker
+   barrier, pull, every pull checked exactly; ms/round and
+   test_benchmark's Gbit/s, beside the card's name and power limit and
+   the host CPU), ``msg-ici-mixed`` (one ``KVWorker`` on an ``ici``
+   cluster: the 40 x 1 MB bucket through K4 and 16 unregistered 1 MB
+   keys over messages to the server, 5 interleaved steps against
+   float64, K4's launches and the server's keys checked) and
+   ``msg-optimizer`` (``KVServerOptimizerHandle`` adam against float64).
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -320,6 +335,61 @@ def kernel_phase(torch, ring, fu, qz, rt, dev):
             sl = tuple(t.clone() for t in state)
             lib_ms, lib_host, why = library_time(libs[name], sl)
         b_ms, b_by = bound(words * 4 * P, flops * P)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="pslite_tpu_torch/csrc/fused_update.cu",
+            replaces=f"pslite_tpu/ops/fused_update.py:{line}",
+            max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_ms_host=lib_host, library_note=why,
+        ))
+    # K1-K3 on bf16 buckets (store and state bf16, adam's step f32): one
+    # bf16 rounding per operation in kernel and plain version alike, so
+    # 0 differing elements; the bound counts 2 bytes per value.
+    bf = torch.bfloat16
+    agg, store, mom, acc, m, v = (t.to(bf) for t in (agg, store, mom, acc,
+                                                     m, v))
+    specs = [(name + "_bf16", line, tuple(t.to(bf) for t in state), kfn,
+              pfn, words, flops)
+             for name, line, state, kfn, pfn, words, flops, _ in (
+                 ("sgd_update", 70, (store, mom),
+                  lambda s: fu.sgd_update(*s, agg, lr=0.01, momentum=0.9),
+                  lambda s: fu.sgd_update_reference(*s, agg, 0.01, 0.9),
+                  5, 4, 0),
+                 ("adagrad_update", 112, (store, acc),
+                  lambda s: fu.adagrad_update(*s, agg, lr=0.01),
+                  lambda s: fu.adagrad_update_reference(*s, agg, 0.01),
+                  5, 7, 0),
+                 ("adam_update", 170, (store, m, v),
+                  lambda s: fu.adam_update_with_alpha(*s, agg, alpha),
+                  lambda s: fu.adam_update_reference(*s, agg, alpha),
+                  7, 12, 0))]
+    libs = {
+        "sgd_update_bf16": lambda s: torch._fused_sgd_(
+            [s[0]], [agg], [s[1]], weight_decay=0.0, momentum=0.9, lr=0.01,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False),
+        "adagrad_update_bf16": lambda s: torch._fused_adagrad_(
+            [s[0]], [agg], [s[1]], [torch.ones((), device=dev)], lr=0.01,
+            lr_decay=0.0, weight_decay=0.0, eps=1e-8, maximize=False),
+    }
+    for name, line, state, kfn, pfn, words, flops in specs:
+        sk = tuple(t.clone() for t in state)
+        sp = tuple(t.clone() for t in state)
+        kfn(sk)
+        pfn(sp)
+        torch.cuda.synchronize()
+        err = max_err(list(zip(sk, sp)))
+        for a, b in zip(sk, sp):
+            mismatches(a, b)
+        ms, ms_host = kernel_times(lambda: kfn(sk))
+        plain_ms = cuda_ms(lambda: pfn(sp), iters=5, warmup=1)
+        lib_ms, lib_host = None, None
+        why = "no single PyTorch call computes it"
+        if name in libs:
+            sl = tuple(t.clone() for t in state)
+            lib_ms, lib_host, why = library_time(libs[name], sl)
+        b_ms, b_by = bound(words * 2 * P, flops * P)
         rows.append(dict(
             name=name, route="cuda",
             source="pslite_tpu_torch/csrc/fused_update.cu",
@@ -645,6 +715,17 @@ def drive(torch, ps, Environment, grads_steps):
          1e-5, 1e-5, 0),
         ("ring sum bf16", "sum", "bfloat16", 2, True, _sum_ref, 0, 1e-3,
          2.0 ** -8),
+        # bf16 stateful buckets (K1-K3 on bf16): held within 2^-6 of the
+        # value plus lr x the update magnitudes so far (|m| for
+        # sgd_momentum, 2 per step for adam and adagrad, whose steps are
+        # about lr): each step rounds m, v, the quotient's terms and the
+        # store to bf16, 2^-9 relative each.
+        ("adam bf16", "adam:1e-3", "bfloat16", 3, False, _adam_ref, 0, 0,
+         0),
+        ("sgd_momentum bf16", "sgd_momentum:0.01,0.9", "bfloat16", 2, False,
+         _sgdm_ref, 0, 0, 0),
+        ("adagrad bf16", "adagrad:0.01", "bfloat16", 2, False, _adagrad_ref,
+         0, 0, 0),
     ]
     results = []
     for (label, handle, dtype, steps, with_push, ref, rtol, atol,
@@ -662,6 +743,9 @@ def drive(torch, ps, Environment, grads_steps):
         outs = np.zeros(P, np.float32)
         worst = 0.0
         mag = np.zeros(P)  # running sum of |g| over the ops so far
+        bf16_opt = dtype == "bfloat16" and not unit
+        lr = float(handle.split(":")[1].split(",")[0]) if bf16_opt else 0.0
+        bmag = np.zeros(P)  # bf16 optimizers: update magnitudes so far
         seq = [("push_pull", k) for k in range(steps)]
         if with_push:
             seq.append(("push", steps))
@@ -676,6 +760,13 @@ def drive(torch, ps, Environment, grads_steps):
                 g_in = g
             if unit:
                 agg = g64.sum(0)
+            elif bf16_opt:
+                # The engine's aggregate: f32 rank-order sum, one bf16
+                # rounding.
+                acc32 = gt[0].float().clone()
+                for w in range(1, N):
+                    acc32 += gt[w].float()
+                agg = acc32.to(torch.bfloat16).double().numpy()
             else:
                 # Optimizers: the float64 update of the engine's own f32
                 # rank-order aggregate.  A float64 sum would differ where
@@ -695,7 +786,12 @@ def drive(torch, ps, Environment, grads_steps):
                 worker.wait(worker.pull(keys, outs))
             err = np.abs(outs.astype(np.float64) - s64)
             worst = max(worst, float(err.max()))
-            tol = atol + rtol * np.abs(s64) + (k + 1) * (N + 1) * unit * mag
+            if bf16_opt:
+                bmag += np.abs(st["m"]) if "sgd_momentum" in handle else 2.0
+                tol = 2.0 ** -6 * (np.abs(s64) + lr * bmag)
+            else:
+                tol = (atol + rtol * np.abs(s64)
+                       + (k + 1) * (N + 1) * unit * mag)
             if not np.all(err <= tol):
                 raise AssertionError(
                     f"{label}: {op} step {k} off the float64 reference by "
@@ -1740,6 +1836,281 @@ def steady_state_sparse(torch, ps, Environment, emb):
     return out
 
 
+# -- the message control plane in one process ---------------------------------
+
+MSG_ROUNDS, MSG_WARMUP = 10, 2
+MSG_KEYS_PER_SERVER = 40  # test_benchmark.cc:25-30 NUM_KEY_PER_SERVER
+MSG_LOOSE_KEYS = 16  # unregistered 1 MB keys of the mixed ici phase
+MSG_DEADLINE = 300.0
+_msg_ports = iter(range(47000, 48000))
+
+
+def cpu_model() -> str:
+    """The host CPU's model name, architecture and usable cores."""
+    name = "model unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.split(":")[0].strip() in ("model name", "Model"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return (f"{name}, {platform.machine()}, "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def run_threads(fns, what: str) -> None:
+    """Run each callable on its own thread; join all within MSG_DEADLINE
+    or fail; re-raise the first error."""
+    errors = []
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+        return run
+
+    threads = [threading.Thread(target=wrap(fn), name=f"{what}-{i}",
+                                daemon=True) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    end = time.monotonic() + MSG_DEADLINE
+    for t in threads:
+        t.join(max(0.0, end - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{what} did not finish within {MSG_DEADLINE} s")
+    if errors:
+        raise errors[0]
+
+
+def msg_cluster(ps, Environment, workers: int, servers: int,
+                van: str = "loopback"):
+    """A started scheduler + ``servers`` servers + ``workers`` workers in
+    this process (on ``ici``, each worker's engine on this card's 8
+    ranks, ring kernel)."""
+    base = {"DMLC_NUM_WORKER": str(workers), "DMLC_NUM_SERVER": str(servers),
+            "DMLC_PS_ROOT_URI": "lo",
+            "DMLC_PS_ROOT_PORT": str(next(_msg_ports)),
+            "DMLC_NODE_HOST": "lo", "PS_VAN_TYPE": van,
+            "PS_LOOPBACK_NS": f"chip-smoke-{os.getpid()}",
+            "PS_ICI_IMPL": "pallas"}
+    nodes = [ps.Postoffice("scheduler", env=Environment(base))]
+    nodes += [ps.Postoffice("server", env=Environment(base))
+              for _ in range(servers)]
+    wk = [ps.Postoffice("worker", env=Environment(base))
+          for _ in range(workers)]
+    if van == "ici":
+        for po in wk:
+            po.van.set_mesh(ps.DeviceGroup(N))
+    nodes += wk
+    run_threads([po.start for po in nodes], "cluster start")
+    return nodes
+
+
+def msg_finalize(nodes, apps) -> None:
+    for a in apps:
+        a.stop()
+    run_threads([po.finalize for po in nodes], "cluster finalize")
+
+
+def drive_msg_config2(ps, Environment, smi: str):
+    """BASELINE config 2's topology in one process over the loopback van:
+    test_benchmark's PUSH_PULL workload (40 keys per server of 1,024,000
+    B), each round both workers push on their own threads, meet at a
+    worker barrier, then pull.  Integer-valued f32 pushes, so every
+    pulled value is checked exactly, whatever order the two workers'
+    pushes arrive in."""
+    nodes = msg_cluster(ps, Environment, 2, 2)
+    srv_pos, wk_pos = nodes[1:3], nodes[3:]
+    apps = []
+    try:
+        handles = []
+        for po in srv_pos:
+            srv = ps.KVServer(0, postoffice=po)
+            handles.append(ps.KVServerDefaultHandle())
+            srv.set_request_handle(handles[-1])
+            apps.append(srv)
+        workers = [ps.KVWorker(0, 0, postoffice=po) for po in wk_pos]
+        apps += workers
+        keys = np.array([r.begin + i for r in wk_pos[0].get_server_key_ranges()
+                         for i in range(MSG_KEYS_PER_SERVER)], np.uint64)
+        rng = np.random.default_rng(SEED + 3)
+        base = [rng.integers(-8, 8, size=len(keys) * VAL_LEN).astype(
+            np.float32) for _ in range(2)]
+        bufs = [np.empty_like(b) for b in base]
+        outs = [np.zeros_like(b) for b in base]
+        base_sum = base[0].astype(np.float64) + base[1]
+
+        phases = {"push": [], "barrier": [], "pull": []}
+
+        def work(i):
+            w = workers[i]
+            t0 = time.perf_counter()
+            w.wait(w.push(keys, bufs[i]))
+            t1 = time.perf_counter()
+            wk_pos[i].barrier(0, ps.WORKER_GROUP)
+            t2 = time.perf_counter()
+            w.wait(w.pull(keys, outs[i]))
+            t3 = time.perf_counter()
+            if r >= MSG_WARMUP:
+                for name, dt in (("push", t1 - t0), ("barrier", t2 - t1),
+                                 ("pull", t3 - t2)):
+                    phases[name].append(dt)
+
+        times = []
+        for r in range(MSG_WARMUP + MSG_ROUNDS):
+            for i in range(2):
+                np.add(base[i], np.float32(r), out=bufs[i])
+            t0 = time.perf_counter()
+            run_threads([lambda i=i: work(i) for i in range(2)],
+                        f"msg-config2 round {r}")
+            times.append(time.perf_counter() - t0)
+            want = (r + 1) * base_sum + r * (r + 1)
+            for i in range(2):
+                if not np.array_equal(outs[i], want):
+                    bad = int((outs[i] != want).sum())
+                    raise AssertionError(f"msg-config2 round {r}: worker {i} "
+                                         f"pulled {bad} wrong values")
+        if [len(h.store) for h in handles] != [MSG_KEYS_PER_SERVER] * 2:
+            raise AssertionError("msg-config2: servers hold the wrong keys")
+        elapsed = sum(times[MSG_WARMUP:])
+        nbytes = VAL_LEN * 4
+        gbps = 8 * nbytes * len(keys) * MSG_ROUNDS / (elapsed * 1e9)
+        ms = elapsed / MSG_ROUNDS * 1e3
+        print(f"msg-config2 (1 scheduler + 2 servers + 2 workers, loopback "
+              f"van, {len(keys)} keys x {nbytes} B per worker and round): "
+              f"{ms:.3f} ms/round (push, worker barrier, pull; host path, "
+              f"no device work; rounds {', '.join(f'{t * 1e3:.1f}' for t in times[MSG_WARMUP:])} ms), "
+              f"{gbps:.4f} Gbit/s per worker by test_benchmark's "
+              f"8*len*total_key_num*iters/elapsed_ns, {2 * gbps:.4f} both "
+              f"workers; {MSG_WARMUP + MSG_ROUNDS} rounds checked exactly; "
+              f"per worker and round: " + ", ".join(
+                  f"{k} {sum(v) / len(v) * 1e3:.1f} ms"
+                  for k, v in phases.items()) +
+              f" [{smi}] [host CPU {cpu_model()}]")
+        return [{"config": "msg-config2", "ops": 4 * (MSG_WARMUP + MSG_ROUNDS),
+                 "max_abs_err_vs_f64": 0.0, "ms_per_round": ms,
+                 "gbps_per_worker": gbps}]
+    finally:
+        msg_finalize(nodes, apps)
+
+
+def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
+    """The JAX IciVan's contract on the card: one KVWorker on an ``ici``
+    cluster push_pulls the registered 40 x 1 MB bucket through K4 and
+    pushes/pulls 16 unregistered 1 MB keys over messages to the server,
+    interleaved for 5 steps, each against float64 numpy."""
+    nodes = msg_cluster(ps, Environment, 1, 1, van="ici")
+    apps = []
+    try:
+        srv = ps.KVServer(0, postoffice=nodes[1])
+        handle = ps.KVServerDefaultHandle()
+        srv.set_request_handle(handle)
+        apps.append(srv)
+        w = ps.KVWorker(0, 0, postoffice=nodes[2])
+        apps.append(w)
+        bucket = np.arange(KEYS, dtype=np.uint64)
+        w.register_dense("grads", bucket, VAL_LEN)
+        loose = np.arange(MSG_LOOSE_KEYS, dtype=np.uint64) + 1_000_000
+        rng = np.random.default_rng(SEED + 4)
+        lbase = rng.integers(-8, 8, size=MSG_LOOSE_KEYS * VAL_LEN).astype(
+            np.float32)
+        lbuf, lout = np.empty_like(lbase), np.zeros_like(lbase)
+        outs = np.zeros(P, np.float32)
+        s64, mag, worst = np.zeros(P), np.zeros(P), 0.0
+        t_bucket, t_push, t_pull = [], [], []
+        steps = 5
+        for k in range(steps):
+            g = grads_steps[k]
+            t0 = time.perf_counter()
+            w.wait(w.push_pull(bucket, g, outs))
+            t_bucket.append(time.perf_counter() - t0)
+            s64 += g.astype(np.float64).sum(0)
+            mag += np.abs(g).astype(np.float64).sum(0)
+            err = np.abs(outs - s64)
+            worst = max(worst, float(err.max()))
+            if not np.all(err <= 1e-6 + (k + 1) * (N + 1) * 2.0 ** -24 * mag):
+                raise AssertionError(f"msg-ici-mixed: bucket step {k} off "
+                                     f"float64 by {float(err.max())}")
+            np.add(lbase, np.float32(k), out=lbuf)
+            t0 = time.perf_counter()
+            w.wait(w.push(loose, lbuf))
+            t1 = time.perf_counter()
+            w.wait(w.pull(loose, lout))
+            t_push.append(t1 - t0)
+            t_pull.append(time.perf_counter() - t1)
+            want = (k + 1) * lbase.astype(np.float64) + k * (k + 1) / 2
+            if not np.array_equal(lout, want):
+                raise AssertionError(f"msg-ici-mixed: message step {k} "
+                                     f"pulled wrong values")
+        if sorted(handle.store) != loose.tolist():
+            raise AssertionError(f"msg-ici-mixed: the server holds keys "
+                                 f"{sorted(handle.store)[:4]}..., not exactly "
+                                 f"the unregistered ones")
+        k4 = ring.launches["ring_push_pull[float32]"]
+        if k4 < steps:
+            raise AssertionError(f"msg-ici-mixed: K4 launched {k4} times for "
+                                 f"{steps} push_pulls")
+        ms = {name: sum(t) / len(t) * 1e3 for name, t in (
+            ("bucket", t_bucket), ("push", t_push), ("pull", t_pull))}
+        print(f"msg-ici-mixed (1 scheduler + 1 server + 1 worker, ici van on "
+              f"{N} ranks of cuda:0): {steps} steps; K4 "
+              f"ring_push_pull[float32] launches {k4}; server store holds "
+              f"exactly the {MSG_LOOSE_KEYS} unregistered keys; host ms per "
+              f"op: bucket push_pull {ms['bucket']:.3f} (numpy grads, "
+              f"host-to-device copy and result copy included), message push "
+              f"{ms['push']:.3f}, message pull {ms['pull']:.3f} "
+              f"({MSG_LOOSE_KEYS} x {VAL_LEN * 4} B); bucket max |err| vs "
+              f"float64 {worst:.3g} [{smi}]")
+        return [{"config": "msg-ici-mixed", "ops": 3 * steps,
+                 "max_abs_err_vs_f64": worst, "k4_launches": k4,
+                 "bucket_ms": ms["bucket"], "msg_push_ms": ms["push"],
+                 "msg_pull_ms": ms["pull"]}]
+    finally:
+        msg_finalize(nodes, apps)
+
+
+def drive_msg_optimizer(ps, Environment):
+    """KVServerOptimizerHandle adam over loopback: 3 pushes of the 40 x
+    1 MB bucket and a pull, against float64 numpy Adam (rtol 1e-5, atol
+    1e-6: the handle updates in float32 numpy)."""
+    nodes = msg_cluster(ps, Environment, 1, 1)
+    apps = []
+    try:
+        srv = ps.KVServer(0, postoffice=nodes[1])
+        srv.set_request_handle(ps.KVServerOptimizerHandle(kind="adam",
+                                                          lr=1e-3))
+        apps.append(srv)
+        w = ps.KVWorker(0, 0, postoffice=nodes[2])
+        apps.append(w)
+        keys = np.arange(KEYS, dtype=np.uint64)
+        rng = np.random.default_rng(SEED + 5)
+        p64, m64, v64 = np.zeros(P), np.zeros(P), np.zeros(P)
+        for t in range(1, 4):
+            g = rng.standard_normal(P, dtype=np.float32)
+            w.wait(w.push(keys, g))
+            m64 = 0.9 * m64 + 0.1 * g
+            v64 = 0.999 * v64 + 0.001 * g.astype(np.float64) ** 2
+            p64 -= 1e-3 * (m64 / (1 - 0.9 ** t)) / (
+                np.sqrt(v64 / (1 - 0.999 ** t)) + 1e-8)
+        out = np.zeros(P, np.float32)
+        w.wait(w.pull(keys, out))
+        err = np.abs(out - p64)
+        if not np.all(err <= 1e-6 + 1e-5 * np.abs(p64)):
+            raise AssertionError(f"msg-optimizer: adam off float64 by "
+                                 f"{float(err.max())}")
+        print(f"msg-optimizer: adam over loopback, 3 pushes + 1 pull of "
+              f"{KEYS} x {VAL_LEN * 4} B, max |err| vs float64 "
+              f"{float(err.max()):.3g}")
+        return [{"config": "msg-optimizer adam", "ops": 4,
+                 "max_abs_err_vs_f64": float(err.max())}]
+    finally:
+        msg_finalize(nodes, apps)
+
+
 def main() -> int:
     import torch
 
@@ -1857,6 +2228,10 @@ def main() -> int:
         ("zero-copy", lambda: drive_zero_copy(torch, ps, Environment,
                                               grads_steps)),
         ("sparse", lambda: drive_sparse(torch, ps, Environment, emb, sr)),
+        ("msg-config2", lambda: drive_msg_config2(ps, Environment, smi)),
+        ("msg-ici-mixed", lambda: drive_msg_ici_mixed(
+            ps, ring, Environment, grads_steps, smi)),
+        ("msg-optimizer", lambda: drive_msg_optimizer(ps, Environment)),
     ]
     results, path_counts = [], {}
     for path, run in paths:

@@ -23,7 +23,22 @@
 // Adam's bias-corrected step size alpha_t is read from a 1-element device
 // tensor (the TPU kernel's scalar prefetch), so the step counter never
 // leaves the device.
+//
+// bf16 buckets (the *_bf16 entries): store and state in bf16, as the JAX
+// engine keeps them, adam's step counter and alpha_t in f32.  XLA's CPU
+// backend evaluates the Pallas kernels' bf16 expressions one operation at a
+// time, each in f32 and rounded to bf16, with the Python constants rounded
+// to bf16 first (the wrapper passes them so): the kernels do the same, a
+// round-to-nearest-even after every operation (so nvcc has no product to
+// contract into an FMA), which makes them bit-exact with the JAX package's
+// sgd_momentum and adagrad and with their plain versions.  adam: JAX's
+// kernel refuses a bf16 store (its alpha_t * m is f32 and the store ref is
+// bf16), so the port defines it by the same expression, the f32 quotient
+// alpha_t * m / (sqrt(v) + eps) subtracted in f32 and rounded once into the
+// store.  Bound: bytes, half of the f32 kernels' per element; one thread
+// per 16 bytes of each array (8 values).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -123,12 +138,134 @@ __global__ void adam_kernel(float* __restrict__ store, float* __restrict__ m,
   store4<VEC>(store, i, n, s);
 }
 
+// -- bf16 ---------------------------------------------------------------------
+
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
+                                      long long i, long long n, float (&x)[8]) {
+  if (VEC && i + 8 <= n) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      x[e] = (i + e < n) ? __bfloat162float(p[i + e]) : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p,
+                                       long long i, long long n,
+                                       const float (&x)[8]) {
+  if (VEC && i + 8 <= n) {
+    uint4 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h[e] = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+    *reinterpret_cast<uint4*>(p + i) = t;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (i + e < n) p[i + e] = __float2bfloat16_rn(x[e]);
+  }
+}
+
+__device__ __forceinline__ long long first_elem8() {
+  return (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 8;
+}
+
+// The constants (lr, momentum, eps, betas) arrive rounded to bf16.
+template <bool VEC>
+__global__ void sgd_bf16_kernel(__nv_bfloat16* __restrict__ store,
+                                __nv_bfloat16* __restrict__ mom,
+                                const __nv_bfloat16* __restrict__ agg,
+                                long long n, float lr, float momentum) {
+  const long long i = first_elem8();
+  if (i >= n) return;
+  float s[8], m[8], g[8];
+  load8<VEC>(store, i, n, s);
+  load8<VEC>(mom, i, n, m);
+  load8<VEC>(agg, i, n, g);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    m[e] = rb(rb(momentum * m[e]) + g[e]);
+    s[e] = rb(s[e] - rb(lr * m[e]));
+  }
+  store8<VEC>(mom, i, n, m);
+  store8<VEC>(store, i, n, s);
+}
+
+template <bool VEC>
+__global__ void adagrad_bf16_kernel(__nv_bfloat16* __restrict__ store,
+                                    __nv_bfloat16* __restrict__ acc,
+                                    const __nv_bfloat16* __restrict__ agg,
+                                    long long n, float lr, float eps) {
+  const long long i = first_elem8();
+  if (i >= n) return;
+  float s[8], a[8], g[8];
+  load8<VEC>(store, i, n, s);
+  load8<VEC>(acc, i, n, a);
+  load8<VEC>(agg, i, n, g);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    a[e] = rb(a[e] + rb(g[e] * g[e]));
+    const float den = rb(rb(sqrtf(a[e])) + eps);
+    s[e] = rb(s[e] - rb(rb(lr * g[e]) / den));
+  }
+  store8<VEC>(acc, i, n, a);
+  store8<VEC>(store, i, n, s);
+}
+
+template <bool VEC>
+__global__ void adam_bf16_kernel(__nv_bfloat16* __restrict__ store,
+                                 __nv_bfloat16* __restrict__ m,
+                                 __nv_bfloat16* __restrict__ v,
+                                 const __nv_bfloat16* __restrict__ agg,
+                                 const float* __restrict__ alpha, long long n,
+                                 float beta1, float beta2, float c1, float c2,
+                                 float eps) {
+  const long long i = first_elem8();
+  if (i >= n) return;
+  const float alpha_t = __ldg(alpha);
+  float s[8], mm[8], vv[8], g[8];
+  load8<VEC>(store, i, n, s);
+  load8<VEC>(m, i, n, mm);
+  load8<VEC>(v, i, n, vv);
+  load8<VEC>(agg, i, n, g);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    mm[e] = rb(rb(beta1 * mm[e]) + rb(c1 * g[e]));
+    vv[e] = rb(rb(beta2 * vv[e]) + rb(rb(c2 * g[e]) * g[e]));
+    const float den = rb(rb(sqrtf(vv[e])) + eps);
+    const float num = alpha_t * mm[e];
+    s[e] = s[e] - num / den;  // f32, rounded once by store8
+  }
+  store8<VEC>(m, i, n, mm);
+  store8<VEC>(v, i, n, vv);
+  store8<VEC>(store, i, n, s);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
 unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + 4LL * kThreads - 1) / (4LL * kThreads));
+}
+
+unsigned int blocks_for8(long long n) {
+  return static_cast<unsigned int>((n + 8LL * kThreads - 1) / (8LL * kThreads));
 }
 
 }  // namespace
@@ -186,6 +323,58 @@ int pstt_adam_update(void* store, void* m, void* v, const void* agg,
         s, mm, vv, g, al, n, beta1, beta2, c1, c2, eps);
   else
     adam_kernel<false><<<blocks_for(n), kThreads, 0, st>>>(
+        s, mm, vv, g, al, n, beta1, beta2, c1, c2, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pstt_sgd_update_bf16(void* store, void* mom, const void* agg, long long n,
+                         float lr, float momentum, void* stream) {
+  if (n <= 0) return 0;
+  auto* s = static_cast<__nv_bfloat16*>(store);
+  auto* m = static_cast<__nv_bfloat16*>(mom);
+  auto* g = static_cast<const __nv_bfloat16*>(agg);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (aligned16(s) && aligned16(m) && aligned16(g))
+    sgd_bf16_kernel<true><<<blocks_for8(n), kThreads, 0, st>>>(s, m, g, n, lr,
+                                                                momentum);
+  else
+    sgd_bf16_kernel<false><<<blocks_for8(n), kThreads, 0, st>>>(s, m, g, n,
+                                                                 lr, momentum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pstt_adagrad_update_bf16(void* store, void* acc, const void* agg,
+                             long long n, float lr, float eps, void* stream) {
+  if (n <= 0) return 0;
+  auto* s = static_cast<__nv_bfloat16*>(store);
+  auto* a = static_cast<__nv_bfloat16*>(acc);
+  auto* g = static_cast<const __nv_bfloat16*>(agg);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (aligned16(s) && aligned16(a) && aligned16(g))
+    adagrad_bf16_kernel<true><<<blocks_for8(n), kThreads, 0, st>>>(s, a, g, n,
+                                                                    lr, eps);
+  else
+    adagrad_bf16_kernel<false><<<blocks_for8(n), kThreads, 0, st>>>(
+        s, a, g, n, lr, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pstt_adam_update_bf16(void* store, void* m, void* v, const void* agg,
+                          const void* alpha, long long n, float beta1,
+                          float beta2, float c1, float c2, float eps,
+                          void* stream) {
+  if (n <= 0) return 0;
+  auto* s = static_cast<__nv_bfloat16*>(store);
+  auto* mm = static_cast<__nv_bfloat16*>(m);
+  auto* vv = static_cast<__nv_bfloat16*>(v);
+  auto* g = static_cast<const __nv_bfloat16*>(agg);
+  auto* al = static_cast<const float*>(alpha);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (aligned16(s) && aligned16(mm) && aligned16(vv) && aligned16(g))
+    adam_bf16_kernel<true><<<blocks_for8(n), kThreads, 0, st>>>(
+        s, mm, vv, g, al, n, beta1, beta2, c1, c2, eps);
+  else
+    adam_bf16_kernel<false><<<blocks_for8(n), kThreads, 0, st>>>(
         s, mm, vv, g, al, n, beta1, beta2, c1, c2, eps);
   return static_cast<int>(cudaGetLastError());
 }

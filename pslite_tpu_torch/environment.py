@@ -31,6 +31,12 @@ class Environment:
             return default
         return int(val)
 
+    def find_float(self, key: str, default: float = 0.0) -> float:
+        val = self.find(key)
+        if val is None or val == "":
+            return default
+        return float(val)
+
     def find_bool(self, key: str, default: bool = False) -> bool:
         val = self.find(key)
         if val is None or val == "":

@@ -47,6 +47,10 @@ _SIGNATURES = {
     "pstt_sgd_update": (_P, _P, _P, _L, _F, _F, _P),
     "pstt_adagrad_update": (_P, _P, _P, _L, _F, _F, _P),
     "pstt_adam_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _P),
+    "pstt_sgd_update_bf16": (_P, _P, _P, _L, _F, _F, _P),
+    "pstt_adagrad_update_bf16": (_P, _P, _P, _L, _F, _F, _P),
+    "pstt_adam_update_bf16": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F,
+                              _P),
     "pstt_ring_push_pull": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _L, _I, _F,
                             _P),
     "pstt_ring_group": (_P, _I, _I, _I, _F, _P, ctypes.POINTER(_I)),

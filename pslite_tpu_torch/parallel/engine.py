@@ -559,12 +559,6 @@ class CollectiveEngine:
     def _stateful_fn(self, name: str, bucket: DenseBucket, resolved: str):
         """``step(agg)``: the bucket's optimizer step in place.  Call
         with the bucket lock held."""
-        if bucket.dtype != torch.float32:
-            raise NotImplementedError(
-                f"stateful handle {resolved!r} on a {bucket.dtype} bucket: "
-                f"the fused optimizer kernels take float32 (ROADMAP: bf16 "
-                f"stateful buckets)"
-            )
         _, fn = self._stateful_handle(resolved)
         self._ensure_opt_state(name, resolved, bucket)
         store, state = self._stores[name], self._opt_states[name]

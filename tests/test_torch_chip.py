@@ -12,8 +12,12 @@ Tolerances: the ring ``sum``/``assign`` are bit-exact (same order of
 addition, same rounding per hop), on the 1-D ring and on the 2-D
 sub-rings; the int8 ring and quantize/dequantize are bit-exact (the plain
 versions round ``fmaf`` once, as the kernels do); ``sgd:lr`` and the
-fused updates differ in the last bits because nvcc contracts a*b + c
+f32 fused updates differ in the last bits because nvcc contracts a*b + c
 into one FMA and eager PyTorch does not: rtol/atol 1e-6 (adam rtol 1e-5).
+The bf16 fused updates are bit-exact: kernel and plain version round to
+bf16 after every operation, so no FMA can form.  The message-plane tests
+at the end start a cluster in this process (loopback, and ici on this
+card) under 60 s deadlines.
 """
 
 import numpy as np
@@ -815,3 +819,174 @@ def test_sparse_push_is_three_launches_without_a_library_sort(dev,
     assert len(names) == 3, names
     for k in ("sort_kernel", "long_runs_kernel", "scatter_short_kernel"):
         assert sum(k in n for n in names) == 1, names
+
+
+# -- bf16 stateful buckets and the message plane on the card ------------------
+
+@pytest.mark.parametrize("n", [10_240_000, 4096, 1001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bf16_fused_updates_bit_exact(dev, n, offset):
+    """K1-K3 on bf16 (aligned and, offset 1, unaligned views; ragged
+    lengths): one bf16 rounding per operation in kernel and plain version
+    alike, so 0 differing elements; one launch each, counted under the
+    ``_bf16`` names."""
+    bf = torch.bfloat16
+    agg = _randn((n + offset,), 16, dev).to(bf)[offset:]
+    store = _randn((n + offset,), 17, dev).to(bf)[offset:]
+    mom = _randn((n + offset,), 18, dev).to(bf)[offset:]
+    pos = torch.rand(n + offset, device=dev).to(bf)[offset:]
+    alpha = fu.adam_alpha(torch.full((1,), 3.0, device=dev), 1e-3)
+    cases = [
+        (lambda s: fu.sgd_update(*s, agg, 0.05, 0.9),
+         lambda s: fu.sgd_update_reference(*s, agg, 0.05, 0.9),
+         (store, mom)),
+        (lambda s: fu.adagrad_update(*s, agg, 0.05),
+         lambda s: fu.adagrad_update_reference(*s, agg, 0.05),
+         (store, pos)),
+        (lambda s: fu.adam_update_with_alpha(*s, agg, alpha),
+         lambda s: fu.adam_update_reference(*s, agg, alpha),
+         (store, (0.1 * mom).to(bf), (0.01 * pos).to(bf))),
+    ]
+    fu.reset_launches()
+    for kfn, pfn, state in cases:
+        sk = tuple(t.clone() for t in state)
+        sp = tuple(t.clone() for t in state)
+        kfn(sk)
+        pfn(sp)
+        torch.cuda.synchronize()
+        for a, b in zip(sk, sp):
+            assert a.dtype == bf
+            assert torch.equal(a, b)
+    assert fu.launches == {"sgd_update": 0, "adagrad_update": 0,
+                           "adam_update": 0, "sgd_update_bf16": 1,
+                           "adagrad_update_bf16": 1, "adam_update_bf16": 1}
+
+
+@pytest.mark.parametrize("handle", ["sgd_momentum:0.05,0.9", "adagrad:0.02",
+                                    "adam:1e-3"])
+def test_bf16_stateful_engine_cuda_matches_cpu(dev, handle):
+    """A bf16 stateful bucket on the card equals the CPU engine's (the
+    plain versions) bit for bit, step by step."""
+    keys = np.arange(16, dtype=np.uint64)
+    engines = [CollectiveEngine(DeviceGroup(8, device=d), server_handle=handle)
+               for d in (dev, "cpu")]
+    for e in engines:
+        e.register_dense("b", keys, 1000, dtype=torch.bfloat16)
+    for step in range(3):
+        g = torch.from_numpy(np.random.RandomState(step).randn(
+            8, 16_000).astype(np.float32)).to(torch.bfloat16)
+        got, want = (e.push_pull("b", g) for e in engines)
+        assert torch.equal(got.cpu(), want)
+
+
+def _card_cluster(van, workers, servers):
+    """Scheduler + servers + workers over ``van`` in this process,
+    started within 60 s (workers on ``ici`` get this card's 8 ranks)."""
+    import os
+    import threading
+
+    import pslite_tpu_torch as ps
+    from pslite_tpu_torch.environment import Environment
+
+    base = {"DMLC_NUM_WORKER": str(workers), "DMLC_NUM_SERVER": str(servers),
+            "DMLC_PS_ROOT_URI": "lo", "DMLC_PS_ROOT_PORT": "48500",
+            "DMLC_NODE_HOST": "lo", "PS_VAN_TYPE": van,
+            "PS_LOOPBACK_NS": f"chip-test-{os.getpid()}-{van}",
+            "PS_ICI_IMPL": "pallas"}
+    nodes = ([ps.Postoffice("scheduler", env=Environment(base))]
+             + [ps.Postoffice(r, env=Environment(base))
+                for r in ["server"] * servers + ["worker"] * workers])
+    for po in nodes[1 + servers:]:
+        if van == "ici":
+            po.van.set_mesh(DeviceGroup(8))
+    threads = [threading.Thread(target=po.start, daemon=True) for po in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads), "cluster start hung"
+    return nodes
+
+
+def _card_finalize(nodes):
+    import threading
+
+    threads = [threading.Thread(target=po.finalize, daemon=True)
+               for po in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads), "cluster finalize hung"
+
+
+def test_msg_ici_mixed_on_the_card(dev):
+    """One KVWorker on an ici cluster: the registered bucket through K4,
+    unregistered keys over messages to the server."""
+    import pslite_tpu_torch as ps
+
+    nodes = _card_cluster("ici", 1, 1)
+    srv = ps.KVServer(0, postoffice=nodes[1])
+    handle = ps.KVServerDefaultHandle()
+    srv.set_request_handle(handle)
+    try:
+        w = ps.KVWorker(0, 0, postoffice=nodes[2])
+        bucket = np.arange(40, dtype=np.uint64)
+        w.register_dense("grads", bucket, 256_000)
+        ring.reset_launches()
+        outs = np.zeros(40 * 256_000, np.float32)
+        w.wait(w.push_pull(bucket, np.ones(40 * 256_000, np.float32), outs))
+        assert ring.launches["ring_push_pull[float32]"] == 1
+        np.testing.assert_array_equal(outs, np.full_like(outs, 8.0))
+        loose = np.array([7777, 9999], np.uint64)
+        vals = np.arange(2 * 1000, dtype=np.float32)
+        w.wait(w.push(loose, vals))
+        got = np.zeros_like(vals)
+        w.wait(w.pull(loose, got))
+        np.testing.assert_array_equal(got, vals)
+        assert sorted(handle.store) == [7777, 9999]
+        w.stop()
+    finally:
+        srv.stop()
+        _card_finalize(nodes)
+
+
+def test_msg_config2_topology_on_the_card(dev):
+    """BASELINE config 2's topology over the loopback van on the card's
+    host: 2 workers push, meet at a barrier, pull the sum."""
+    import threading
+
+    import pslite_tpu_torch as ps
+
+    nodes = _card_cluster("loopback", 2, 2)
+    servers = []
+    for po in nodes[1:3]:
+        servers.append(ps.KVServer(0, postoffice=po))
+        servers[-1].set_request_handle(ps.KVServerDefaultHandle())
+    try:
+        workers = [ps.KVWorker(0, 0, postoffice=po) for po in nodes[3:]]
+        keys = np.array([r.begin + i for r in nodes[3].get_server_key_ranges()
+                         for i in range(40)], np.uint64)
+        outs = [np.zeros(80 * 1000, np.float32) for _ in workers]
+
+        def work(i):
+            workers[i].wait(workers[i].push(keys, np.full(80_000, i + 1.0,
+                                                          np.float32)))
+            nodes[3 + i].barrier(0, ps.WORKER_GROUP)
+            workers[i].wait(workers[i].pull(keys, outs[i]))
+
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        for out in outs:
+            np.testing.assert_array_equal(out, np.full_like(out, 3.0))
+        for w in workers:
+            w.stop()
+    finally:
+        for s in servers:
+            s.stop()
+        _card_finalize(nodes)

@@ -3,8 +3,9 @@
 The README's ICI snippet runs through both packages: the JAX KVWorker
 over an in-process cluster with the ici van (8 virtual CPU devices), the
 port's KVWorker over a worker Postoffice with ``DeviceGroup(8,
-device="cpu")``.  Sums are bit-exact: both add the worker rows in rank
-order.
+device="cpu")`` (alone, without a cluster) or over an ``ici`` cluster
+(``PortCluster`` of test_torch_msg_plane.py).  Sums are bit-exact: both
+add the worker rows in rank order.
 """
 
 import os
@@ -20,8 +21,11 @@ from pslite_tpu import KVWorker as JaxKVWorker
 from pslite_tpu_torch import DeviceGroup, KVWorker, Postoffice
 from pslite_tpu_torch import ps as tps
 from pslite_tpu_torch.environment import Environment
+from pslite_tpu_torch.kv import kv_app as tps_kv
 
 from helpers import LoopbackCluster
+from test_torch_msg_plane import PortCluster
+from test_torch_msg_plane import _port_loopback_isolation  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -100,23 +104,58 @@ def test_callback_fires_without_wait(port_worker):
 
 
 def test_unregistered_keys_raise(port_worker):
+    """A worker without a cluster (no DMLC_PS_ROOT_URI) runs the data
+    plane alone: a key set outside a registered bucket, ``lens`` or a
+    custom ``cmd`` has no server to go to, and raises.  In a cluster the
+    same calls fall back to messages (see
+    test_torch_msg_plane.py::test_unregistered_keys_fall_back_to_messages
+    for the comparison with the JAX IciVan)."""
     keys = np.arange(3, dtype=np.uint64)
     port_worker.register_dense("r", keys, 4)
-    with pytest.raises(NotImplementedError, match="message path"):
+    with pytest.raises(RuntimeError, match="message path needs a cluster"):
         port_worker.push(np.array([7777], np.uint64), np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="message path"):
+    with pytest.raises(RuntimeError, match="message path needs a cluster"):
         port_worker.pull(keys[:2], np.zeros(8, np.float32))
-    with pytest.raises(NotImplementedError, match="message path"):
+    with pytest.raises(RuntimeError, match="message path needs a cluster"):
         port_worker.push_pull(keys, np.ones(12, np.float32),
                               np.zeros(12, np.float32), cmd=3)
 
+    cluster = PortCluster(van_type="ici")
+    cluster.start()
+    srv = tps_kv.KVServer(0, postoffice=cluster.servers[0])
+    srv.set_request_handle(tps_kv.KVServerDefaultHandle())
+    try:
+        w = KVWorker(0, 0, postoffice=cluster.workers[0])
+        w.register_dense("r", keys, 4)
+        w.wait(w.push(np.array([7777], np.uint64), np.ones(4, np.float32)))
+        w.wait(w.push(keys, np.ones(12, np.float32), cmd=3))
+        out = np.zeros(8, np.float32)
+        w.wait(w.pull(keys[:2], out))
+        np.testing.assert_array_equal(out, np.ones(8, np.float32))
+        assert sorted(srv._handle.store) == [0, 1, 2, 7777]
+        w.stop()
+    finally:
+        srv.stop()
+        cluster.finalize()
+
 
 def test_other_roles_and_vans_not_ported():
-    for role in ("server", "scheduler"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Postoffice(role, env=Environment({}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Postoffice("worker", env=Environment({"PS_VAN_TYPE": "tcp"}))
+    """The socket and shared-memory vans still raise, naming ROADMAP
+    Queue 1 item 3; server and scheduler Postoffices now start (over the
+    ici van's loopback control plane) and finalize."""
+    for van in ("tcp", "shm", "multi", "ici_tcp", "ici_shm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+            Postoffice("worker", env=Environment({"PS_VAN_TYPE": van}))
+    cluster = PortCluster(num_workers=1, num_servers=2, van_type="ici")
+    cluster.start()
+    try:
+        assert cluster.scheduler.is_scheduler
+        assert [po.van.my_node.id for po in cluster.servers] == [8, 10]
+        assert all(po.van.engine is None
+                   for po in cluster.servers + [cluster.scheduler])
+        assert cluster.workers[0].van.engine is not None
+    finally:
+        cluster.finalize()
 
 
 def test_cuda_less_default_device_raises():
@@ -159,7 +198,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'pslite_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('ops.sparse_rows', 'parallel.sparse',\n"
-        "          'models.embedding'):\n"
+        "          'models.embedding', 'base', 'range', 'sarray',\n"
+        "          'message', 'wire', 'customer', 'postoffice', 'ps',\n"
+        "          'telemetry', 'utils.queues', 'utils.bounded',\n"
+        "          'utils.network', 'vans.van', 'vans.resender',\n"
+        "          'vans.chunking', 'vans.loopback_van', 'vans.ici_van',\n"
+        "          'kv.kv_app', 'kv.simple_app'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
         "                    if m.startswith('pslite_tpu_torch')]))\n"
@@ -169,4 +213,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("CLEAN")
-    assert int(res.stdout.split()[1]) >= 27  # the sparse modules included
+    # the message plane's modules included
+    assert int(res.stdout.split()[1]) >= 41
