@@ -96,6 +96,22 @@ line):
    keys over messages to the server, 5 interleaved steps against
    float64, K4's launches and the server's keys checked) and
    ``msg-optimizer`` (``KVServerOptimizerHandle`` adam against float64).
+   Then separate processes, one per node (``python3 chip_smoke.py
+   --node``, roles and environment from the port's ``tracker/local.py``),
+   every child under ``PROC_DEADLINE``, all killed when one fails, one
+   JSON line back from each: ``tcp-config1`` (BASELINE config 1, fused
+   push_pull of 40 x 1,024,000 B), ``tcp-config2`` (config 2, msg-config2's
+   rounds at 80 x 1,024 B, 80 x 1,024,000 B and 2 x 64 MiB per worker;
+   the 1 MB round also with ``DMLC_LOCAL=1``, no socket file left, and
+   over ``multi``, 2 tcp rails), ``shm-config3`` (config 3 on one host:
+   the scheduler + 2 ``--joint`` processes over shm, registered push
+   buffers and zero-copy pulls, no /dev/shm segment left) and
+   ``ici-tcp-mixed`` (scheduler, server and an ``ici_tcp`` worker
+   process, then ``ici_shm``: the bucket through K4 from device grads
+   against float64 and 16 x 1 MB keys over messages; K4 counted in the
+   worker process and added to the path's launches).  Every pull is
+   checked exactly; each cell's ms/round and Gbit/s are printed beside
+   the loopback ``msg-config2`` of the same run.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1846,16 +1862,23 @@ _msg_ports = iter(range(47000, 48000))
 
 
 def cpu_model() -> str:
-    """The host CPU's model name, architecture and usable cores."""
-    name = "model unknown"
+    """The host CPU's model name (or, where the host hides it, vendor,
+    family, model and stepping), architecture and usable cores."""
+    info = {}
     try:
         with open("/proc/cpuinfo") as f:
             for line in f:
-                if line.split(":")[0].strip() in ("model name", "Model"):
-                    name = line.split(":", 1)[1].strip()
-                    break
+                if not line.strip():
+                    break  # the first processor is enough
+                key, _, val = line.partition(":")
+                info[key.strip()] = val.strip()
     except OSError:
         pass
+    name = info.get("model name") or info.get("Model") or "unknown"
+    if name == "unknown" and "vendor_id" in info:
+        name = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                f"model {info.get('model', '?')} stepping "
+                f"{info.get('stepping', '?')}")
     return (f"{name}, {platform.machine()}, "
             f"{len(os.sched_getaffinity(0))} cores")
 
@@ -2111,6 +2134,370 @@ def drive_msg_optimizer(ps, Environment):
         msg_finalize(nodes, apps)
 
 
+# -- separate processes (BASELINE configs 1-3) --------------------------------
+
+PROC_DEADLINE = 240.0  # seconds for every child of one launch
+MB_LEN = VAL_LEN * 4  # 1,024,000 B per key
+SIZE_KEY_STRIDE = 100_000  # each size of a phase pushes its own keys
+
+
+def node_main() -> int:
+    """One node process of a process phase (``chip_smoke.py --node``):
+    the role from ``DMLC_ROLE`` as a launcher sets it, the workload from
+    ``SMOKE_SPEC`` (JSON).  Prints one JSON line, its last."""
+    import torch
+    import pslite_tpu_torch as ps
+    from pslite_tpu_torch.ops import ring_collective as ring
+
+    spec = json.loads(os.environ["SMOKE_SPEC"])
+    role = os.environ["DMLC_ROLE"]
+    ranks = spec.get("ranks", 0)
+    if role == "worker" and ranks:
+        # The engine on this card's virtual ranks (the main path's n).
+        pos = [ps.Postoffice("worker")]
+        pos[0].van.set_mesh(ps.DeviceGroup(ranks))
+        pos[0].start()
+    else:
+        ps.start_ps()
+        pos = None
+    report = {"role": role, "pid": os.getpid()}
+    apps = []
+    if role in ("server", "joint"):
+        srv = ps.KVServer(0)
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        apps.append(srv)
+        if os.environ.get("ENABLE_RECV_BUFFER") == "1":
+            # test_benchmark.cc:268-320: each worker's slice lands in a
+            # buffer pinned for it.
+            po = ps.postoffice("server")
+            begin = po.get_server_key_ranges()[po.my_rank()].begin
+            for wid in po.get_node_ids(ps.WORKER_GROUP):
+                for si, (per_server, nbytes) in enumerate(spec["sizes"]):
+                    srv.register_recv_buffer(
+                        int(wid), int(begin) + si * SIZE_KEY_STRIDE,
+                        np.zeros(per_server * nbytes // 4, np.float32))
+        report["delivered_in_place"] = lambda: srv.delivered_in_place
+    if role in ("worker", "joint"):
+        po = pos[0] if pos else ps.postoffice("worker")
+        kv = ps.KVWorker(0, 0, postoffice=po)
+        apps.append(kv)
+        if ranks:
+            report.update(node_ici(torch, ring, kv, spec))
+        else:
+            report.update(node_rounds(ps, po, kv, spec))
+    # finalize's barrier keeps the servers answering until every worker
+    # is done; the apps stop after it.
+    if pos:
+        pos[0].finalize()
+    else:
+        ps.finalize()
+    for a in apps:
+        a.stop()
+    if "delivered_in_place" in report:
+        report["delivered_in_place"] = report["delivered_in_place"]()
+    report["ok"] = True
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def node_rounds(ps, po, kv, spec) -> dict:
+    """test_benchmark's rounds at each ``[keys per server, bytes per
+    key]`` of ``spec["sizes"]`` (key ranges disjoint per size):
+    ``push_pull`` (fused) or ``push`` + worker barrier + ``pull``, with
+    integer-valued f32 pushes, so every pulled value is checked
+    exactly whatever order the workers' pushes arrive in."""
+    workers = po.num_workers
+    me = po.my_rank()
+    out = {}
+    for si, (per_server, nbytes) in enumerate(spec["sizes"]):
+        ranges = po.get_server_key_ranges()
+        keys = np.array([r.begin + si * SIZE_KEY_STRIDE + i for r in ranges
+                         for i in range(per_server)], np.uint64)
+        vlen = nbytes // 4
+        rng = np.random.default_rng(SEED + 7 + si)
+        bases = [rng.integers(-8, 8, size=len(keys) * vlen).astype(
+            np.float32) for _ in range(workers)]
+        base, base_sum = bases[me], sum(b.astype(np.float64) for b in bases)
+        del bases
+        buf = np.empty_like(base)
+        dst = (kv.alloc_pull_buffer(keys, vlen) if spec.get("zpull")
+               else None)
+        if spec.get("zpull") and dst is None:
+            raise AssertionError("alloc_pull_buffer returned None")
+        outs = dst if dst is not None else np.zeros_like(base)
+        times = []
+        rounds = spec["warmup"] + spec["rounds"]
+        for r in range(rounds):
+            np.add(base, np.float32(r), out=buf)
+            t0 = time.perf_counter()
+            if spec["mode"] == "push_pull":
+                kv.wait(kv.push_pull(keys, buf, outs))
+            else:
+                kv.wait(kv.push(keys, buf))
+                po.barrier(0, ps.WORKER_GROUP)
+                kv.wait(kv.pull(keys, outs))
+            times.append(time.perf_counter() - t0)
+            want = (r + 1) * base_sum + workers * r * (r + 1) / 2
+            if not np.array_equal(outs, want):
+                raise AssertionError(f"size {nbytes} B round {r}: "
+                                     f"{int((outs != want).sum())} values "
+                                     f"wrong")
+            # The next round's push must not overtake a slower worker's
+            # pull of this one.
+            if spec["mode"] != "push_pull":
+                po.barrier(0, ps.WORKER_GROUP)
+        if dst is not None:
+            kv.free_pull_buffer(keys)
+        del outs, dst
+        timed = times[spec["warmup"]:]
+        elapsed = sum(timed)
+        out[str(nbytes)] = {
+            "keys": len(keys), "ms_per_round": elapsed / len(timed) * 1e3,
+            "gbps": 8 * nbytes * len(keys) * len(timed) / (elapsed * 1e9),
+            "rounds_ms": [t * 1e3 for t in timed], "checked": rounds}
+    out["zpull_hits"] = kv.zpull_hits
+    out["chunks"] = [po.van.chunks_sent, po.van.chunks_recv]
+    return {"sizes": out}
+
+
+def node_ici(torch, ring, kv, spec) -> dict:
+    """The ``ici_tcp``/``ici_shm`` worker: the 40 x 1 MB bucket through K4
+    with grads on the card against float64, and ``MSG_LOOSE_KEYS``
+    unregistered 1 MB keys over messages to the server, exactly;
+    interleaved for ``spec["steps"]`` steps."""
+    ring.reset_launches()
+    n = spec["ranks"]
+    bucket = np.arange(KEYS, dtype=np.uint64)
+    kv.register_dense("grads", bucket, VAL_LEN)
+    loose = np.arange(MSG_LOOSE_KEYS, dtype=np.uint64) + 1_000_000
+    lbase = np.random.default_rng(SEED + 8).integers(
+        -8, 8, size=MSG_LOOSE_KEYS * VAL_LEN).astype(np.float32)
+    lbuf, lout = np.empty_like(lbase), np.zeros_like(lbase)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    outs = torch.zeros(P, device="cuda")
+    s64 = torch.zeros(P, dtype=torch.float64, device="cuda")
+    mag = torch.zeros(P, dtype=torch.float64, device="cuda")
+    worst, t_bucket, t_msg = 0.0, [], []
+    for k in range(spec["steps"]):
+        g = torch.randn((n, P), device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv.wait(kv.push_pull(bucket, g, outs))
+        t_bucket.append(time.perf_counter() - t0)
+        s64 += g.double().sum(0)
+        mag += g.double().abs().sum(0)
+        err = (outs.double() - s64).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= 1e-6 + (k + 1) * (n + 1) * 2.0 ** -24
+                     * mag).all()):
+            raise AssertionError(f"bucket step {k} off float64 by "
+                                 f"{float(err.max())}")
+        np.add(lbase, np.float32(k), out=lbuf)
+        t0 = time.perf_counter()
+        kv.wait(kv.push(loose, lbuf))
+        kv.wait(kv.pull(loose, lout))
+        t_msg.append(time.perf_counter() - t0)
+        want = (k + 1) * lbase.astype(np.float64) + k * (k + 1) / 2
+        if not np.array_equal(lout, want):
+            raise AssertionError(f"message step {k} pulled wrong values")
+    return {"launches": dict(ring.launches), "max_abs_err_vs_f64": worst,
+            "bucket_ms": sum(t_bucket) / len(t_bucket) * 1e3,
+            "msg_ms": sum(t_msg) / len(t_msg) * 1e3, "steps": spec["steps"]}
+
+
+def launch(van: str, workers: int, servers: int, spec: dict,
+           extra=None, joint: bool = False):
+    """One cluster of separate processes, roles from the port's
+    launcher (``tracker/local.py``), each child under PROC_DEADLINE;
+    every child is killed when one fails or time runs out.  Returns the
+    children's JSON reports (workers and joint nodes only)."""
+    import tempfile
+
+    from pslite_tpu_torch.tracker.local import LocalLauncher, build_env
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    port = get_available_port()
+    roles = LocalLauncher(workers, servers, [], van=van, root_port=port,
+                          joint=joint).roles()
+    logdir = tempfile.mkdtemp(prefix="smoke")
+    procs = []
+    try:
+        for i, role in enumerate(roles):
+            env = build_env(role, workers, servers, "127.0.0.1", port, van,
+                            extra=dict(extra or {}, DMLC_NODE_HOST="127.0.0.1",
+                                       SMOKE_SPEC=json.dumps(spec)))
+            log = open(os.path.join(logdir, f"{i}-{role}.log"), "w+")
+            procs.append((role, log, subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--node"], env=env, stdout=log, stderr=subprocess.STDOUT,
+                cwd=HERE)))
+        end = time.monotonic() + PROC_DEADLINE
+        failed = None
+        while failed is None and any(p.poll() is None
+                                     for _r, _l, p in procs):
+            failed = next((r for r, _l, p in procs
+                           if p.poll() not in (None, 0)), None)
+            if time.monotonic() > end:
+                failed = f"deadline of {PROC_DEADLINE:.0f} s"
+            time.sleep(0.05)
+        if failed is None:
+            failed = next((r for r, _l, p in procs if p.returncode != 0),
+                          None)
+    finally:
+        for _r, _l, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for role, log, p in procs:
+        log.seek(0)
+        outs.append((role, log.read()))
+        log.close()
+    if failed is not None:
+        for role, text in outs:
+            print(f"  [{role}] " + "\n  ".join(text.splitlines()[-15:]))
+        raise AssertionError(f"{van} cluster: {failed} failed")
+    return [json.loads(text.strip().splitlines()[-1]) for role, text in outs
+            if role in ("worker", "joint")]
+
+
+def rounds_summary(reports, nbytes: int) -> dict:
+    rows = [r["sizes"][str(nbytes)] for r in reports]
+    return {"ms_per_round": sum(x["ms_per_round"] for x in rows) / len(rows),
+            "gbps_per_worker": sum(x["gbps"] for x in rows) / len(rows),
+            "rounds_ms": rows[0]["rounds_ms"], "checked": rows[0]["checked"],
+            "keys": rows[0]["keys"]}
+
+
+def _print_rounds(label, topo, reports, sizes, smi, loopback):
+    out = []
+    for _n, nbytes in sizes:
+        s = rounds_summary(reports, nbytes)
+        print(f"{label} ({topo}, {s['keys']} keys x {nbytes} B per worker "
+              f"and round): {s['ms_per_round']:.3f} ms/round, "
+              f"{s['gbps_per_worker']:.4f} Gbit/s per worker by "
+              f"test_benchmark's 8*len*total_key_num*iters/elapsed_ns "
+              f"(rounds {', '.join(f'{t:.1f}' for t in s['rounds_ms'])} ms; "
+              f"{s['checked']} rounds checked exactly); loopback msg-config2 "
+              f"of this run {loopback} [{smi}] [host CPU {cpu_model()}]")
+        out.append({"config": f"{label} {nbytes} B", "ops": s["checked"],
+                    "max_abs_err_vs_f64": 0.0,
+                    "ms_per_round": s["ms_per_round"],
+                    "gbps_per_worker": s["gbps_per_worker"]})
+    return out
+
+
+_loopback_cell = ["not run"]
+
+
+def drive_tcp_config1(smi: str):
+    """BASELINE config 1: 1 scheduler + 1 server + 1 worker processes
+    over tcp, test_benchmark's PUSH_PULL (fused push_pull) of 40 keys x
+    1,024,000 B, 2 warm-up and 10 timed rounds."""
+    sizes = [[KEYS, MB_LEN]]
+    reports = launch("tcp", 1, 1, {"sizes": sizes, "mode": "push_pull",
+                                   "warmup": MSG_WARMUP,
+                                   "rounds": MSG_ROUNDS})
+    return _print_rounds("tcp-config1", "1 + 1 + 1 processes, tcp, "
+                         "push_pull", reports, sizes, smi, _loopback_cell[0])
+
+
+TCP2_SIZES = [[MSG_KEYS_PER_SERVER, 1024], [MSG_KEYS_PER_SERVER, MB_LEN],
+              [1, 64 << 20]]  # 64 MiB: 1 key per server, not 40
+
+
+def drive_tcp_config2(smi: str):
+    """BASELINE config 2: 1 scheduler + 2 servers + 2 workers processes
+    over tcp, msg-config2's rounds (push, worker barrier, pull) at 40
+    keys per server of 1,024 and 1,024,000 B and 1 key per server of
+    64 MiB; then the 1 MB round with ``DMLC_LOCAL=1`` (unix sockets, no
+    file left after) and over ``multi`` (2 tcp rails)."""
+    import tempfile
+
+    spec = {"mode": "push_barrier_pull", "warmup": MSG_WARMUP,
+            "rounds": MSG_ROUNDS}
+    topo = "1 + 2 + 2 processes"
+    out = _print_rounds("tcp-config2", f"{topo}, tcp", launch(
+        "tcp", 2, 2, dict(spec, sizes=TCP2_SIZES)), TCP2_SIZES, smi,
+        _loopback_cell[0])
+    mb = [[MSG_KEYS_PER_SERVER, MB_LEN]]
+    sockdir = tempfile.mkdtemp(prefix="psl")
+    if len(os.path.join(sockdir, "pslite_ipc_65535.sock")) > 100:
+        sockdir = tempfile.mkdtemp(prefix="psl", dir=HERE)
+    out += _print_rounds("tcp-config2-local", f"{topo}, tcp DMLC_LOCAL=1",
+                         launch("tcp", 2, 2, dict(spec, sizes=mb),
+                                extra={"DMLC_LOCAL": "1",
+                                       "TMPDIR": sockdir}),
+                         mb, smi, _loopback_cell[0])
+    left = [f for f in os.listdir(sockdir) if f.endswith(".sock")]
+    if left:
+        raise AssertionError(f"DMLC_LOCAL left socket files {left}")
+    out += _print_rounds("tcp-config2-multi", f"{topo}, multi (2 tcp "
+                         "rails)", launch("multi", 2, 2, dict(spec, sizes=mb),
+                                          extra={"DMLC_NUM_PORTS": "2"}),
+                         mb, smi, _loopback_cell[0])
+    return out
+
+
+def shm_leftovers(ns: str):
+    return [f for f in os.listdir("/dev/shm") if ns in f]
+
+
+def drive_shm_config3(smi: str):
+    """BASELINE config 3 on one host: 2 joint (worker + server) processes
+    and the scheduler over ``shm``, 40 keys per server x 1,024,000 B,
+    msg-config2's rounds; pushes land in registered receive buffers
+    (ENABLE_RECV_BUFFER) and pulls in ``alloc_pull_buffer`` segments
+    the servers write in place.  No segment may be left afterwards."""
+    ns = f"smoke{os.getpid()}c3"
+    sizes = [[MSG_KEYS_PER_SERVER, MB_LEN]]
+    reports = launch("shm", 2, 2, {
+        "sizes": sizes, "mode": "push_barrier_pull", "warmup": MSG_WARMUP,
+        "rounds": MSG_ROUNDS, "zpull": True},
+        extra={"PS_SHM_NS": ns, "ENABLE_RECV_BUFFER": "1"}, joint=True)
+    if shm_leftovers(ns):
+        raise AssertionError(f"shm-config3 left {shm_leftovers(ns)}")
+    hits = [r["sizes"]["zpull_hits"] for r in reports]
+    placed = [r["delivered_in_place"] for r in reports]
+    if min(hits) < MSG_WARMUP + MSG_ROUNDS or not min(placed):
+        raise AssertionError(f"shm-config3: zero-copy pulls {hits}, pushes "
+                             f"placed in registered buffers {placed}")
+    print(f"shm-config3: zero-copy pull hits per worker {hits}, pushes "
+          f"placed by the van in registered buffers per server {placed}; "
+          f"no /dev/shm segment left")
+    return _print_rounds("shm-config3", "scheduler + 2 joint processes, "
+                         "shm, registered buffers", reports, sizes, smi,
+                         _loopback_cell[0])
+
+
+def drive_ici_proc(van: str, smi: str):
+    """The ici van between processes: scheduler and server processes and
+    one worker process with ``PS_VAN_TYPE=ici_tcp`` (or ``ici_shm``) on
+    cuda:0 (8 virtual ranks), 5 steps of ``node_ici``.  K4's launches
+    are counted in the worker process and returned."""
+    extra = {"PS_ICI_IMPL": "pallas",
+             "PS_SHM_NS": f"smoke{os.getpid()}{van}"}
+    rep = launch(van, 1, 1, {"ranks": N, "steps": 5}, extra=extra)[0]
+    if van == "ici_shm" and shm_leftovers(extra["PS_SHM_NS"]):
+        raise AssertionError(f"{van} left /dev/shm segments")
+    k4 = rep["launches"]["ring_push_pull[float32]"]
+    if k4 < rep["steps"]:
+        raise AssertionError(f"ici-{van}: K4 launched {k4} times in the "
+                             f"worker process for {rep['steps']} push_pulls")
+    print(f"ici-tcp-mixed [{van}] (scheduler, server and worker processes, "
+          f"the worker's engine on {N} ranks of cuda:0): {rep['steps']} "
+          f"steps; K4 ring_push_pull[float32] launches in the worker "
+          f"process {k4}; host ms per step: bucket push_pull "
+          f"{rep['bucket_ms']:.3f} (device grads), message push + pull "
+          f"{rep['msg_ms']:.3f} ({MSG_LOOSE_KEYS} x {MB_LEN} B, checked "
+          f"exactly); bucket max |err| vs float64 "
+          f"{rep['max_abs_err_vs_f64']:.3g} [{smi}] [host CPU {cpu_model()}]")
+    return ([{"config": f"ici-tcp-mixed {van}", "ops": 3 * rep["steps"],
+              "max_abs_err_vs_f64": rep["max_abs_err_vs_f64"],
+              "k4_launches": k4, "bucket_ms": rep["bucket_ms"],
+              "msg_ms": rep["msg_ms"]}], rep["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2232,6 +2619,11 @@ def main() -> int:
         ("msg-ici-mixed", lambda: drive_msg_ici_mixed(
             ps, ring, Environment, grads_steps, smi)),
         ("msg-optimizer", lambda: drive_msg_optimizer(ps, Environment)),
+        ("tcp-config1", lambda: drive_tcp_config1(smi)),
+        ("tcp-config2", lambda: drive_tcp_config2(smi)),
+        ("shm-config3", lambda: drive_shm_config3(smi)),
+        ("ici-tcp-mixed", lambda: drive_ici_proc("ici_tcp", smi)),
+        ("ici-shm-mixed", lambda: drive_ici_proc("ici_shm", smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:
@@ -2239,9 +2631,21 @@ def main() -> int:
         ring.reset_launches()
         qz.reset_launches()
         sr.reset_launches()
-        results += run()
+        out = run()
+        # A process phase also returns the launches its worker process
+        # counted.
+        child = {}
+        if isinstance(out, tuple):
+            out, child = out
+        results += out
+        if path == "msg-config2":
+            _loopback_cell[0] = (f"{out[0]['ms_per_round']:.3f} ms/round, "
+                                 f"{out[0]['gbps_per_worker']:.4f} Gbit/s "
+                                 f"per worker")
         path_counts[path] = {**ring.launches, **fu.launches, **qz.launches,
                              **sr.launches}
+        for k, v in child.items():
+            path_counts[path][k] = path_counts[path].get(k, 0) + v
         print(f"main path launches [{path}]: " + ", ".join(
             f"{k} {v}" for k, v in path_counts[path].items() if v))
     for r in results:
@@ -2331,4 +2735,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--node"]:
+        sys.path.insert(0, HERE)
+        sys.exit(node_main())
     sys.exit(main())

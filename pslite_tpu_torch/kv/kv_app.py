@@ -26,20 +26,40 @@ per worker customer:
   (``_finish`` :2505).  ``KVServer`` (:2583) hands the handler
   ``KVMeta`` + ``KVPairs``; the handler calls ``response``.
 
+Zero-copy pulls (``alloc_pull_buffer``, :666-760): on a van with
+``alloc_pull_segment`` (shm) the buffer is a shared-memory segment, a
+pull of exactly its keys goes out as ``OPT_ZPULL`` with the buffer's id
+and this server's offset in ``addr`` (:2032-2040), each server writes
+its slice in place and ``_finish`` copies nothing; other vans return
+None, as in JAX.  ``KVServer.register_recv_buffer`` also registers the
+pair with the van (:3055), which places the push at delivery.
+
 Host numpy on the message path, as in JAX.  Not here, each raising where
 a JAX caller would reach it: wire codecs (``codec=``/``compress=`` other
 than ``"raw"``), tenants, the apply-shard pool, small-op batching,
-``multi_get`` and the hot-key cache (ROADMAP Queue 1 item 6); zero-copy
-registered pull buffers (``alloc_pull_buffer``) and streamed chunked
-pushes (item 3); request deadlines and failover, replication, elastic
-routing, snapshots and namespaces (item 8); ``reshard`` (item 7).  Apply
-is serial on the server's customer thread, which gives the same stores
-as the JAX shard pool (its contract is serial bit-exactness).
+``multi_get`` and the hot-key cache (ROADMAP Queue 1 item 6); request
+deadlines and failover, replication, elastic routing, snapshots and
+namespaces (item 8); ``reshard`` (item 7).  Apply is serial on the
+server's customer thread, which gives the same stores as the JAX shard
+pool (its contract is serial bit-exactness).
+
+Streamed apply of chunked pushes: the van delivers a chunked push's
+``OPT_XFER_PART`` partials before the reassembled message.  JAX's
+``KVServer`` feeds partials to its apply-shard pool (:4594) and, without
+a pool (``PS_APPLY_SHARDS=0``), drops them (``_stream_eligible`` :4299):
+the reassembled message always follows and applies whole.  The port's
+server is serial, so it drops partials too (item 6 brings the pool).
+The stores stay bit-equal to JAX's: each key's slice is added once, the
+same ``+=`` of the same values, whether streamed or whole; only the
+order of two senders' adds to one key can differ (by when each slice,
+or each whole message, completed), which changes nothing for exact sums
+such as integer values.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -50,11 +70,22 @@ import torch
 from .. import ps as ps_mod
 from ..base import SERVER_GROUP, server_rank_to_id
 from ..customer import Customer
-from ..message import Message, OPT_APPLY_ERROR, OPT_SEND_FAILED, Role
+from ..message import (
+    Message,
+    OPT_APPLY_ERROR,
+    OPT_SEND_FAILED,
+    OPT_XFER_PART,
+    OPT_ZPULL,
+    Role,
+    ZPULL_OFF_BITS,
+)
 from ..range import Range, find_range
 from ..sarray import SArray
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
+
+
+_ZPULL_SEQ = itertools.count(1)  # process-wide registered pull buffer ids
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -167,6 +198,11 @@ class KVWorker:
         self._engine_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         # Completion of the last pull of each registered-buffer bucket.
         self._pinned_pull_futs: Dict[str, Callable[[], None]] = {}
+        # Zero-copy pull buffers by key signature, and the timestamps
+        # that pulled into one.
+        self._zpull_bufs: Dict[Tuple[int, int, int], dict] = {}
+        self._zpull_ts: set = set()
+        self.zpull_hits = 0  # pulls completed without reassembly
 
     @property
     def engine(self):
@@ -219,6 +255,79 @@ class KVWorker:
         if not np.array_equal(self.engine.bucket(name).keys, keys):
             return None  # same signature, different key set
         return name
+
+    # -- zero-copy pull (is_worker_zpull_) -----------------------------------
+
+    def alloc_pull_buffer(self, keys, val_len: int, dtype=np.float32):
+        """A transport-backed pull destination for exactly these keys
+        (``val_len`` values each): pulls of them into the returned array
+        are written in place by the servers (kv_app.h:727-792).  None
+        when the van cannot back it (no ``alloc_pull_segment``: only shm
+        can) or a custom slicer is set.  One outstanding pull per
+        buffer."""
+        alloc = getattr(self.po.van, "alloc_pull_segment", None)
+        if alloc is None:
+            return None
+        if self._slicer is not default_slicer:
+            log.warning("alloc_pull_buffer: custom slicer set; zero-copy "
+                        "pull disabled for this worker")
+            return None
+        keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
+        log.check(len(keys) > 0, "empty key set")
+        sig = (len(keys), int(keys[0]), int(keys[-1]))
+        with self._mu:
+            old = self._zpull_bufs.get(sig)
+        # Another key set of the same signature would free a live buffer.
+        log.check(old is None or np.array_equal(old["keys"], keys),
+                  "alloc_pull_buffer: a different key set with the same "
+                  "signature is already registered; free_pull_buffer it "
+                  "first")
+        itemsize = np.dtype(dtype).itemsize
+        total = len(keys) * val_len * itemsize
+        buf_id = next(_ZPULL_SEQ)
+        raw = alloc(buf_id, total)
+        vals = raw[:total].view(np.dtype(dtype))
+        # Each server's byte offset in the buffer (fixed k, the default
+        # slicer's key ranges).
+        offsets, off = {}, 0
+        for rank, rng in enumerate(self.po.get_server_key_ranges()):
+            offsets[rank] = off
+            off += int(np.searchsorted(keys, rng.end)
+                       - np.searchsorted(keys, rng.begin)) * val_len * itemsize
+        with self._mu:
+            old = self._zpull_bufs.get(sig)
+            self._zpull_bufs[sig] = {"buf_id": buf_id, "keys": keys,
+                                     "vals": vals, "offsets": offsets}
+        if old is not None:
+            self.po.van.free_pull_segment(old["buf_id"])
+        return vals
+
+    def free_pull_buffer(self, keys) -> None:
+        """Release a registered pull buffer and its segment."""
+        keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
+        with self._mu:
+            reg = self._zpull_bufs.pop((len(keys), int(keys[0]),
+                                        int(keys[-1])), None)
+        if reg is not None:
+            self.po.van.free_pull_segment(reg["buf_id"])
+
+    def _zpull_lookup(self, keys: np.ndarray, vals) -> Optional[dict]:
+        """The registered buffer these keys pull into, if ``vals`` is it
+        (or a view of it)."""
+        if self._slicer is not default_slicer or not len(keys):
+            return None
+        with self._mu:
+            reg = self._zpull_bufs.get((len(keys), int(keys[0]),
+                                        int(keys[-1])))
+        if reg is None or not isinstance(vals, np.ndarray):
+            return None
+        if vals is not reg["vals"] and not (
+                vals.base is not None and np.shares_memory(vals,
+                                                           reg["vals"])):
+            return None
+        if not np.array_equal(reg["keys"], keys):
+            return None
+        return reg
 
     # -- engine-path completion ----------------------------------------------
 
@@ -306,12 +415,15 @@ class KVWorker:
             return self._engine_pull(route, vals, callback)
         _check_codec(codec, compress)
         ts = self._new_message_request(callback)
+        zpull = self._zpull_lookup(keys, vals) if lens is None else None
         with self._mu:
             self._pull_dst[ts] = (keys, vals, lens)
+            if zpull is not None:
+                self._zpull_ts.add(ts)
         kvs = KVPairs(keys=keys, vals=np.empty(0, vals.dtype),
                       priority=priority)
         self._send(ts, push=False, pull=True, cmd=cmd, kvs=kvs,
-                   val_nbytes=vals.nbytes)
+                   val_nbytes=vals.nbytes, zpull=zpull)
         return ts
 
     def _engine_pull(self, route: str, vals, callback) -> int:
@@ -347,9 +459,12 @@ class KVWorker:
         _check_codec(codec, compress)
         kvs = _as_kvs(keys, vals, lens, priority)
         ts = self._new_message_request(callback)
+        zpull = self._zpull_lookup(kvs.keys, outs) if lens is None else None
         with self._mu:
             self._pull_dst[ts] = (kvs.keys, outs, lens)
-        self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs)
+            if zpull is not None:
+                self._zpull_ts.add(ts)
+        self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs, zpull=zpull)
         return ts
 
     def coalescer(self, handle=None, **kw):
@@ -451,8 +566,11 @@ class KVWorker:
         return ts
 
     def _slice_msg(self, ts: int, push: bool, pull: bool, cmd: int,
-                   part: KVPairs, dest: int, val_nbytes: int) -> Message:
-        """One per-server slice message."""
+                   part: KVPairs, dest: int, val_nbytes: int,
+                   zpull: Optional[dict] = None,
+                   rank: int = 0) -> Message:
+        """One per-server slice message (``rank``: the server's group
+        rank, whose offset a zero-copy pull names)."""
         msg = Message()
         m = msg.meta
         m.priority = part.priority
@@ -466,6 +584,11 @@ class KVWorker:
         m.recver = dest
         m.key = int(part.keys[0]) if len(part.keys) else 0
         m.val_len = val_nbytes if pull and not push else part.vals.nbytes
+        if zpull is not None:
+            # The server writes its slice at (buf_id, offset).
+            m.option = OPT_ZPULL
+            m.addr = (zpull["buf_id"] << ZPULL_OFF_BITS) | zpull["offsets"][
+                rank]
         msg.add_data(SArray(part.keys))
         msg.add_data(SArray(part.vals))
         if part.lens is not None:
@@ -473,7 +596,7 @@ class KVWorker:
         return msg
 
     def _send(self, ts: int, push: bool, pull: bool, cmd: int, kvs: KVPairs,
-              val_nbytes: int = 0) -> None:
+              val_nbytes: int = 0, zpull: Optional[dict] = None) -> None:
         ranges = self.po.get_server_key_ranges()
         sliced = (self._slicer(kvs, ranges)
                   if len(ranges) > 1 or self._slicer is not default_slicer
@@ -491,7 +614,7 @@ class KVWorker:
         for rank, part in live:
             dest = server_rank_to_id(rank * gs + self.po.instance_idx)
             msg = self._slice_msg(ts, push, pull, cmd, part, dest,
-                                  val_nbytes)
+                                  val_nbytes, zpull, rank)
             try:
                 self.po.van.send(msg)
             except Exception as exc:  # noqa: BLE001 - PeerDeadError & co
@@ -535,6 +658,14 @@ class KVWorker:
         with self._mu:
             chunks = self._recv_kvs.pop(ts, [])
             dst = self._pull_dst.pop(ts, None)
+            zpull = ts in self._zpull_ts
+            self._zpull_ts.discard(ts)
+        if zpull and chunks and dst is not None and all(
+                np.shares_memory(c.vals, dst[1]) for c in chunks):
+            # Every slice was written in place: nothing to reassemble.
+            self.zpull_hits += 1
+            self._run_callback(ts)
+            return
         if dst is not None and chunks:
             _keys, vals_out, lens_out = dst
             chunks.sort(key=lambda kv: int(kv.keys[0]) if len(kv.keys) else 0)
@@ -579,6 +710,7 @@ class KVServer:
         self._handle: Optional[Callable[[KVMeta, KVPairs, "KVServer"],
                                         None]] = None
         self._recv_buffers: Dict[Tuple[int, int], np.ndarray] = {}
+        self.delivered_in_place = 0  # pushes the van placed in a buffer
         self._customer = Customer(
             app_id, app_id, self._process, self.po,
             on_request_error=self._request_error,
@@ -594,8 +726,12 @@ class KVServer:
     def register_recv_buffer(self, sender_id: int, key: int,
                              buffer: np.ndarray) -> None:
         """Pre-pin the receive buffer for (worker, key): pushes for that
-        key land in exactly this buffer (kv_app.h:396-403, 457-496)."""
+        key land in exactly this buffer (kv_app.h:396-403, 457-496),
+        placed by the van at delivery where it can (tcp, shm)."""
         self._recv_buffers[(sender_id, key)] = buffer
+        hook = getattr(self.po.van, "register_recv_buffer", None)
+        if hook is not None:
+            hook(sender_id, key, buffer)
 
     def _response_msg(self, req: KVMeta) -> Message:
         """Response skeleton echoing the request's routing fields
@@ -652,6 +788,8 @@ class KVServer:
     def _process(self, msg: Message) -> None:
         if msg.meta.simple_app or not msg.meta.request:
             return  # a response must never run the request handler
+        if msg.meta.option == OPT_XFER_PART:
+            return  # serial apply: the reassembled push follows (above)
         m = msg.meta
         if m.codec is not None:
             raise _not_ported("a codec-encoded request (EXT_CODEC)", 6)
@@ -667,7 +805,11 @@ class KVServer:
                 kvs.lens = msg.data[2].astype_view(np.int32).numpy()
         if meta.push and len(kvs.keys):
             reg = self._recv_buffers.get((meta.sender, int(kvs.keys[0])))
-            if reg is not None:
+            if reg is not None and np.shares_memory(kvs.vals, reg):
+                # The van placed it already: alias only.
+                self.delivered_in_place += 1
+                kvs.vals = kvs.vals.view(reg.dtype)
+            elif reg is not None:
                 # Copy into the pre-registered buffer and alias it, so the
                 # reference benchmark's address-identity check
                 # (test_benchmark.cc:169-181) holds.

@@ -5,10 +5,17 @@ ps.h``): role parsing (worker, server, scheduler, joint), instance-group
 fan-out with one Postoffice per instance, started on threads and joined
 (each blocks in the startup barrier until the whole cluster has
 registered), and finalize.
+
+A process whose role comes from ``DMLC_ROLE`` (one a launcher started)
+turns SIGTERM into ``SystemExit``, and at exit stops the transport of
+every instance it did not finalize, so a terminated node leaves no
+socket file or shared-memory segment behind.
 """
 
 from __future__ import annotations
 
+import atexit
+import signal
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -18,6 +25,34 @@ from .postoffice import Postoffice, parse_role
 
 _mu = threading.Lock()
 _instances: Dict[Tuple[Role, int], Postoffice] = {}
+
+
+_exit_cleanup = [False]
+
+
+def _release_transports() -> None:
+    """Stop the transports of instances never finalized (best effort)."""
+    with _mu:
+        pos = list(_instances.values())
+    for po in pos:
+        try:
+            po.van.stop_transport()
+        except Exception:  # noqa: BLE001 - the process is exiting
+            pass
+
+
+def _on_sigterm(signum, _frame):
+    raise SystemExit(128 + signum)
+
+
+def _install_exit_cleanup() -> None:
+    if _exit_cleanup[0]:
+        return
+    _exit_cleanup[0] = True
+    atexit.register(_release_transports)
+    if (threading.current_thread() is threading.main_thread()
+            and signal.getsignal(signal.SIGTERM) is signal.SIG_DFL):
+        signal.signal(signal.SIGTERM, _on_sigterm)
 
 
 def _role_list(role: Role, group_size: int):
@@ -35,6 +70,7 @@ def start_ps(customer_id: int = 0, role=None, rank: Optional[int] = None,
     to start, the error is raised and none of this call's instances is
     kept."""
     env = env or environment.get()
+    from_env = role is None
     role = parse_role(role if role is not None else env.find("DMLC_ROLE"))
     if rank is not None:
         env.set("DMLC_RANK", str(rank))
@@ -67,6 +103,8 @@ def start_ps(customer_id: int = 0, role=None, rank: Optional[int] = None,
             for key in [k for k, po in _instances.items() if po in created]:
                 del _instances[key]
         raise errors[0]
+    if from_env:
+        _install_exit_cleanup()
 
 
 def finalize(customer_id: int = 0, do_barrier: bool = True) -> None:

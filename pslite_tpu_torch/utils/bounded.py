@@ -46,6 +46,13 @@ class BoundedKeySet:
             return True
         return False
 
+    def discard_where(self, pred: Callable[[Hashable], bool]) -> int:
+        """Drop every key ``pred`` holds for; returns how many."""
+        stale = [k for k in self._d if pred(k)]
+        for k in stale:
+            del self._d[k]
+        return len(stale)
+
     def __contains__(self, key: Hashable) -> bool:
         return key in self._d
 

@@ -1,10 +1,12 @@
-"""IciVan — the collective data plane nesting the loopback control plane.
+"""ICI vans — the collective data plane nesting a control plane.
 
 Counterpart of ``pslite_tpu/vans/ici_van.py``: ``IciVan(_IciDataPlane,
-LoopbackVan)`` (``:223``), the FabricVan pattern of a data plane riding
-a nested control plane.
+LoopbackVan)`` (``:223``), ``IciTcpVan(_IciDataPlane, TcpVan)`` and
+``IciShmVan(_IciDataPlane, ShmVan)`` (``:227-241``), the FabricVan
+pattern of a data plane riding a nested control plane.
 
-- **Control plane**: the loopback van — scheduler bootstrap, ranks,
+- **Control plane**: the loopback van in one process, or the socket
+  (shared-memory) van between processes — scheduler bootstrap, ranks,
   barriers, heartbeats, and the message path on which ``KVWorker``
   sends every key outside a registered bucket to the servers.
 - **Data plane**: on worker instances only (``:83``), a
@@ -13,14 +15,18 @@ a nested control plane.
   path and the ring kernel) and, on the same group and axis, a
   :class:`SparseEngine` (``sparse_engine``).  ``set_mesh`` installs a
   device group before ``start`` (tests pass a CPU group; by default the
-  engine takes ``default_group()``, the card).
+  engine takes ``default_group()``, the card).  Scheduler and server
+  instances build no engine and touch no device.
+- **One process per card's group**: each worker process of an
+  ``ici_tcp``/``ici_shm`` cluster runs its own engine on its own group,
+  as the JAX engines do without ``PS_ICI_MULTIHOST``.  A mesh spanning
+  processes (``PS_ICI_MULTIHOST=1``, ``parallel/distributed.py``) is
+  ROADMAP Queue 1 item 9 and raises on a worker.
 
 A worker whose environment names no scheduler (``DMLC_PS_ROOT_URI``
 unset) runs the data plane alone, with no control plane at all:
 there is no cluster to join, no barrier to wait for, and a key outside a
-registered bucket has no server to go to (``KVWorker`` raises).  The
-socket-control-plane flavours (``IciTcpVan``, ``IciShmVan``) are ROADMAP
-Queue 1 item 3.
+registered bucket has no server to go to (``KVWorker`` raises).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from ..parallel.engine import CollectiveEngine
 from ..parallel.mesh import DeviceGroup
 from ..parallel.sparse import SparseEngine
 from .loopback_van import LoopbackVan
+from .shm_van import ShmVan
+from .tcp_van import TcpVan
 
 
 class _IciDataPlane:
@@ -38,6 +46,12 @@ class _IciDataPlane:
 
     def __init__(self, postoffice):
         super().__init__(postoffice)
+        if postoffice.is_worker and self.env.find_int("PS_ICI_MULTIHOST",
+                                                      0) == 1:
+            raise NotImplementedError(
+                "PS_ICI_MULTIHOST=1 (one device group across worker "
+                "processes) is not yet ported to pslite_tpu_torch (ROADMAP "
+                "Queue 1 item 9: the multi-card data plane)")
         self.engine: Optional[CollectiveEngine] = None
         self.sparse_engine: Optional[SparseEngine] = None
         self._group: Optional[DeviceGroup] = None
@@ -74,3 +88,13 @@ class _IciDataPlane:
 
 class IciVan(_IciDataPlane, LoopbackVan):
     """Collective data plane over the in-process loopback control plane."""
+
+
+class IciTcpVan(_IciDataPlane, TcpVan):
+    """Collective data plane over the socket control plane: bootstrap,
+    barriers, heartbeats and the message path ride TCP between OS
+    processes, registered buckets the worker's engine."""
+
+
+class IciShmVan(_IciDataPlane, ShmVan):
+    """Collective data plane over the same-host shared-memory van."""

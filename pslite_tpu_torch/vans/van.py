@@ -9,7 +9,18 @@ optional Resender (``PS_RESEND``), byte counters, and the receive loop
 that dispatches data messages to Customers.
 
 Transports implement ``bind_transport / connect_transport / send_msg /
-recv_msg / stop_transport``.
+recv_msg / stop_transport`` (and may hook ``post_stop``,
+``deliver_data_msg`` and ``_chunk_recv_alloc``).
+
+Chunked transfers (``PS_CHUNK_BYTES``, default 1 MiB as in JAX, 0 sends
+whole messages): a data message larger than that is split into chunk
+messages (``chunking.split_message``) that ride the peer's lane one by
+one, each with its own sid; the receive loop feeds chunks to a
+``ChunkAssembler`` and delivers the reassembled message (and the
+``OPT_XFER_PART`` partials of a plain push, which the port's serial
+server ignores).  A peer marked down drops its partial transfers.
+Zero-copy pull responses (``OPT_ZPULL``) and shm-descriptor messages go
+whole, as in JAX.
 
 Send path — per-peer send lanes (``docs/send_lanes.md``): every
 destination gets its own FIFO lane (a ``LaneQueue``, a transmit lock and
@@ -23,10 +34,9 @@ self-send; a lane's dispatch error is parked and re-raised by the next
 ``send()``.
 
 Not in this port (each raises or is absent, named by its ROADMAP Queue 1
-item): the native core's sender lanes and chunked transfers (item 3:
-message size is unbounded, as with the JAX van's ``PS_CHUNK_BYTES=0``);
-late registration and node recovery, elastic admission, routing epochs
-and removal, metrics/trace/snapshot pulls (item 8); tenants (item 6).
+item): the native core's sender lanes (item 11); late registration and
+node recovery, elastic admission, routing epochs and removal,
+metrics/trace/snapshot pulls (item 8); tenants (item 6).
 Data always rides the lanes and messages are delivered in arrival order:
 the JAX van's inline mode (``PS_SEND_LANES=0``) and its sid reordering
 (``PS_FORCE_REQ_ORDER``) are absent.
@@ -35,10 +45,13 @@ the JAX van's inline mode (``PS_SEND_LANES=0``) and its sid reordering
 from __future__ import annotations
 
 import copy
+import itertools
 import random
 import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
 
 from ..base import (
     EMPTY_ID,
@@ -50,11 +63,20 @@ from ..base import (
     server_rank_to_id,
     worker_rank_to_id,
 )
-from ..message import Command, Control, Message, Node, OPT_SEND_FAILED, Role
+from ..message import (
+    Command,
+    Control,
+    Message,
+    Node,
+    OPT_SEND_FAILED,
+    OPT_ZPULL,
+    Role,
+)
 from ..telemetry import Profiler
 from ..utils import logging as log
 from ..utils.network import get_ip
 from ..utils.queues import LaneQueue
+from .chunking import ChunkAssembler, split_message
 from .resender import Resender
 
 
@@ -95,6 +117,8 @@ class Van:
         self.ready = threading.Event()
         self.send_bytes = 0
         self.recv_bytes = 0
+        self.chunks_sent = 0
+        self.chunks_recv = 0
         self._start_mu = threading.Lock()
         self._bytes_mu = threading.Lock()
         self._init_stage = 0
@@ -125,6 +149,12 @@ class Van:
         self._down_peers: Set[int] = set()
         self._down_mu = threading.Lock()
         self._announced_dead: Set[int] = set()  # scheduler: broadcast
+        self._chunk_bytes = max(0, self.env.find_int("PS_CHUNK_BYTES",
+                                                     1 << 20))
+        self._xfer_seq = itertools.count(1)
+        self._assembler = ChunkAssembler(
+            ttl_s=self.env.find_float("PS_XFER_TIMEOUT", 120.0),
+            alloc=self._chunk_recv_alloc)
 
     # -- transport interface -------------------------------------------------
 
@@ -146,6 +176,17 @@ class Van:
     def stop_transport(self) -> None:
         raise NotImplementedError
 
+    def post_stop(self) -> None:
+        """Final teardown after the receive thread has joined."""
+
+    def deliver_data_msg(self, msg: Message) -> None:
+        """Last-mile payload placement (registered receive buffers), run
+        after drop injection, resender dedup and reassembly."""
+
+    def _chunk_recv_alloc(self, nbytes: int) -> np.ndarray:
+        """Reassembly buffers (a pooled transport overrides this)."""
+        return np.empty(nbytes, np.uint8)
+
     # -- lifecycle -----------------------------------------------------------
 
     def start(self, customer_id: int) -> None:
@@ -159,6 +200,7 @@ class Van:
                 self._announced_dead = set()
                 with self._lanes_mu:
                     self._lanes = {}
+                self._assembler.clear()  # no partial transfer of a prior run
                 self._stop_event.clear()
                 self._init_nodes()
                 port = self.bind_transport(self.my_node, max_retry=40)
@@ -263,6 +305,7 @@ class Van:
             if t is not None:
                 t.join(timeout=10)
                 setattr(self, attr, None)
+        self.post_stop()
         if self.resender is not None:
             self.resender.stop()
             self.resender = None
@@ -277,8 +320,13 @@ class Van:
             self._timestamp += 1
             return self._timestamp
 
+    def _lane_key(self, msg: Message):
+        """The send lane of a message: its destination (MultiVan widens
+        it to (destination, rail))."""
+        return msg.meta.recver
+
     def _lane_for(self, msg: Message) -> _SendLane:
-        key = msg.meta.recver
+        key = self._lane_key(msg)
         with self._lanes_mu:
             lane = self._lanes.get(key)
             if lane is None:
@@ -313,6 +361,24 @@ class Van:
             raise PeerDeadError(
                 f"node {msg.meta.recver} was declared dead by the "
                 f"failure detector")
+        m = msg.meta
+        if (self._chunk_bytes > 0 and m.control.empty() and m.chunk is None
+                and m.data_size > self._chunk_bytes
+                and m.option != OPT_ZPULL and not m.shm_data):
+            # Each chunk rides the lane on its own, so smaller ops of a
+            # higher priority can pass between them.  OPT_ZPULL goes
+            # whole: its addr places the payload in one piece.
+            chunks = split_message(msg, self._chunk_bytes,
+                                   next(self._xfer_seq))
+            if chunks is not None:
+                for c in chunks:
+                    self._submit_data(c)
+                return 0
+        return self._submit_data(msg)
+
+    def _submit_data(self, msg: Message) -> int:
+        """A data message onto its lane (or inline once the lanes
+        stopped); a control message inline."""
         if msg.meta.control.empty() and not self._lane_stop:
             # (unlocked probe; re-checked under the lane lock)
             lane = self._lane_for(msg)
@@ -346,6 +412,8 @@ class Van:
             nbytes = self.send_msg(msg)
         with self._bytes_mu:
             self.send_bytes += nbytes
+            if msg.meta.chunk is not None:
+                self.chunks_sent += 1
         return nbytes
 
     def _lane_sender(self, lane: _SendLane) -> None:
@@ -423,14 +491,21 @@ class Van:
             if node_id in self._down_peers:
                 return
             self._down_peers.add(node_id)
-        with self._lanes_mu:
-            lane = self._lanes.get(node_id)
-        if lane is not None:
+        # No further chunk can complete the dead sender's transfers.
+        self._assembler.drop_peer(node_id)
+        for lane in self._lanes_of(node_id):
             for msg, _raw in lane.q.drain():
                 self._delivery_failed(msg, PeerDeadError(
                     f"node {node_id} declared dead with the message "
                     f"parked in its send lane"))
             lane.q.wake()
+
+    def _lanes_of(self, node_id: int) -> List[_SendLane]:
+        """Every lane of a peer (MultiVan keys lanes (peer, rail))."""
+        with self._lanes_mu:
+            return [lane for key, lane in self._lanes.items()
+                    if key == node_id or (isinstance(key, tuple)
+                                          and key[0] == node_id)]
 
     def clear_peer_down(self, node_id: int) -> None:
         with self._down_mu:
@@ -542,7 +617,10 @@ class Van:
                 continue
             if msg is None:
                 break
-            self.recv_bytes += msg.meta.data_size
+            # Chunk metas carry data_size 0: count their payload.
+            self.recv_bytes += (sum(d.nbytes for d in msg.data)
+                                if msg.meta.chunk is not None
+                                else msg.meta.data_size)
             ctrl = msg.meta.control
             if (self._drop_rate > 0 and self.ready.is_set()
                     and ctrl.cmd != Command.TERMINATE
@@ -556,7 +634,7 @@ class Van:
                 break
             try:
                 if ctrl.empty():
-                    self._process_data_msg(msg)
+                    self._accept_data(msg)
                 elif ctrl.cmd == Command.ADD_NODE:
                     self._process_add_node(msg)
                 elif ctrl.cmd == Command.BARRIER:
@@ -588,7 +666,18 @@ class Van:
 
     # -- data plane dispatch -------------------------------------------------
 
+    def _accept_data(self, msg: Message) -> None:
+        """A chunk feeds the assembler, which hands back what is ready
+        (partials, and the whole message on its last chunk)."""
+        if msg.meta.chunk is None:
+            self._process_data_msg(msg)
+            return
+        self.chunks_recv += 1
+        for out in self._assembler.add(msg):
+            self._process_data_msg(out)
+
     def _process_data_msg(self, msg: Message) -> None:
+        self.deliver_data_msg(msg)
         self.profiler.record(msg.meta.key, "recv", msg.meta.push)
         app_id = msg.meta.app_id
         # Workers demux by customer_id (several KVWorker customers share

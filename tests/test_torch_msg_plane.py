@@ -145,6 +145,14 @@ class PortCluster:
                  for po in nodes], f"barrier(group={group})")
 
 
+def by_address(pos):
+    """Postoffices in the order of their bound ``host:port``: the order
+    the scheduler assigns ranks in (without preferred ranks).  Ports are
+    drawn at bind time, on each node's own start thread, so creation
+    order says nothing about it."""
+    return sorted(pos, key=lambda po: po.van.my_node.addr_key())
+
+
 JAX = types.SimpleNamespace(
     name="jax", cluster=LoopbackCluster, KVWorker=jps.KVWorker,
     KVServer=jps.KVServer, KVPairs=jps.KVPairs,
@@ -621,19 +629,26 @@ def test_joint_role_and_instance_groups_start_and_finalize():
             "start_ps")
     apps = []
     try:
-        for idx in (0, 1):
-            srv = tps.KVServer(0, postoffice=tps.postoffice("server", idx))
+        servers = [tps.postoffice("server", idx) for idx in (0, 1)]
+        workers = [tps.postoffice("worker", idx) for idx in (0, 1)]
+        # Ranks follow the sorted addresses, whichever instance bound
+        # first.
+        assert [po.van.my_node.id for po in by_address(servers)] == [
+            server_rank_to_id(0), server_rank_to_id(1)]
+        assert [po.van.my_node.id for po in by_address(workers)] == [
+            worker_rank_to_id(0), worker_rank_to_id(1)]
+        for po in servers:
+            srv = tps.KVServer(0, postoffice=po)
             srv.set_request_handle(tps.KVServerDefaultHandle())
             apps.append(srv)
-        for idx in (0, 1):
-            po = tps.postoffice("worker", idx)
-            assert po.van.my_node.id == worker_rank_to_id(idx)
+        for idx, po in enumerate(workers):
             w = tps.KVWorker(0, 0, postoffice=po)
             apps.append(w)
             w.wait(w.push(np.array([5], np.uint64),
                           np.full(4, idx + 1.0, np.float32)))
-        # Worker instance i reached server instance i only.
-        assert [float(a._handle.store[5][0]) for a in apps[:2]] == [1.0, 2.0]
+        # Worker instance i reached the server instance of rank i only.
+        assert {po.my_rank(): float(a._handle.store[5][0])
+                for po, a in zip(servers, apps)} == {0: 1.0, 1: 2.0}
         assert tps.postoffice().is_worker
         assert tps.postoffice("scheduler").is_scheduler
     finally:
@@ -652,11 +667,21 @@ def test_joint_role_and_instance_groups_start_and_finalize():
     assert not left, f"threads outlived finalize: {left}"
 
 
-@pytest.mark.parametrize("van", ["tcp", "shm", "multi", "ici_tcp",
-                                 "ici_shm"])
-def test_socket_vans_raise_naming_their_roadmap_item(van):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tps.Postoffice("worker", env=Environment({"PS_VAN_TYPE": van}))
+@pytest.mark.parametrize("van,env,item", [
+    # One device group across worker processes: the multi-card item.
+    ("ici_tcp", {"PS_ICI_MULTIHOST": "1"}, 9),
+    ("ici_shm", {"PS_ICI_MULTIHOST": "1"}, 9),
+    # The native core: its lanes, rails and shared-memory pipes.
+    ("tcp", {"PS_NATIVE": "1"}, 11),
+    ("multi", {"PS_NATIVE_RAILS": "2"}, 11),
+    ("shm", {"PS_SHM_RING": "1"}, 11),
+])
+def test_socket_vans_raise_naming_their_roadmap_item(van, env, item):
+    """The socket vans are ported (tests/test_torch_tcp.py); what they
+    leave out raises, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        tps.Postoffice("worker", env=Environment({"PS_VAN_TYPE": van,
+                                                  **env}))
 
 
 def test_unknown_van_and_role_raise_value_error():

@@ -1,0 +1,146 @@
+"""pslite_tpu_torch's shared-memory van against the JAX package's, across
+real OS processes on one host.
+
+Clusters of ``tests/torch_mixed_child.py`` processes over ``shm`` (meta
+over the socket, payloads through /dev/shm segments whose names both
+packages derive alike): a JAX worker against port servers and the
+reverse, each pulling into ``alloc_pull_buffer`` (the servers write the
+pull response straight into the worker's segment); ``multi`` with 2 shm
+rails; a port ``ici_shm`` worker process on a CPU device group.  Stores
+and pulls are bit-equal to an all-JAX tcp cluster's (tolerance: none),
+and no segment of the run is left in /dev/shm afterwards.  Every child
+has its own deadline and is killed after it.
+"""
+
+import os
+import threading
+
+import numpy as np
+import pytest
+
+import pslite_tpu_torch as tps
+from pslite_tpu_torch.environment import Environment
+from pslite_tpu_torch.utils.network import get_available_port
+from pslite_tpu_torch.vans.shm_van import SHM_DIR
+
+from test_torch_tcp import (  # noqa: F401 - jax_reference is a fixture
+    MIXES,
+    assert_bit_equal,
+    assert_chunked,
+    cluster_env,
+    jax_reference,
+    results,
+    run_cluster,
+)
+
+
+def shm_env(van="shm", **extra):
+    env = cluster_env(van, **extra)
+    env["PS_SHM_NS"] = f"torchtest{env['DMLC_PS_ROOT_PORT']}"
+    return env
+
+
+def leftover_segments(env):
+    return [f for f in os.listdir(SHM_DIR) if env["PS_SHM_NS"] in f]
+
+
+@pytest.mark.parametrize("mix", ["jax_worker_port_servers",
+                                 "port_worker_jax_servers"])
+def test_mixed_shm_cluster_with_zero_copy_pulls(tmp_path, jax_reference,
+                                                mix):
+    env = shm_env()
+    procs = [(pkg, roles, {"PSTEST_ZPULL": "1"})
+             for pkg, roles, _ in MIXES[mix]]
+    reports = run_cluster(tmp_path, env, procs)
+    assert_bit_equal(results(tmp_path), jax_reference)
+    assert_chunked(reports)
+    worker = [r for r in reports if "worker" in r["roles"]][0]
+    assert worker["zpull_hits"] == 1  # the pull skipped reassembly
+    assert not leftover_segments(env)
+
+
+def test_multi_shm_rails_and_ici_shm_worker(tmp_path, jax_reference):
+    """``multi`` over 2 shm rails (a JAX worker against port servers),
+    then a port ``ici_shm`` worker process (engine on a CPU group of 8
+    ranks) against a JAX scheduler and servers."""
+    env = shm_env("multi", DMLC_NUM_PORTS="2", PS_MULTI_RAIL_VAN="shm")
+    (tmp_path / "multi").mkdir()
+    reports = run_cluster(tmp_path / "multi", env,
+                          MIXES["jax_worker_port_servers"])
+    assert_bit_equal(results(tmp_path / "multi"), jax_reference)
+    assert_chunked(reports)
+    assert not leftover_segments(env)
+    env = shm_env("ici_shm")
+    (tmp_path / "ici").mkdir()
+    reports = run_cluster(tmp_path / "ici", env, [
+        ("jax", ["scheduler", "server", "server"], {}),
+        ("port", ["worker"], {"PSTEST_CPU_GROUP": "8"})])
+    assert_bit_equal(results(tmp_path / "ici"), jax_reference)
+    assert [r["bucket_steps"] for r in reports if r["pkg"] == "port"] == [3]
+    assert not leftover_segments(env)
+
+
+def _port_cluster(van_env):
+    env = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+           "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "DMLC_PS_ROOT_PORT": str(get_available_port()),
+           "DMLC_NODE_HOST": "127.0.0.1", "PS_VAN_TYPE": "shm", **van_env}
+    env["PS_SHM_NS"] = f"torchtest{env['DMLC_PS_ROOT_PORT']}"
+    nodes = [tps.Postoffice(r, env=Environment(env))
+             for r in ("scheduler", "server", "worker")]
+    threads = [threading.Thread(target=po.start) for po in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert all(po.van.ready.is_set() for po in nodes)
+    srv = tps.KVServer(0, postoffice=nodes[1])
+    srv.set_request_handle(tps.KVServerDefaultHandle())
+    return env, nodes, srv, tps.KVWorker(0, 0, postoffice=nodes[2])
+
+
+def _finalize(nodes, apps):
+    for a in apps:
+        a.stop()
+    threads = [threading.Thread(target=po.finalize) for po in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+
+
+@pytest.mark.parametrize("min_bytes,segments", [("4096", 2), ("1073741824",
+                                                                0)])
+def test_payloads_below_the_threshold_ride_the_socket(min_bytes, segments):
+    """A push and a pull of 64 KiB: through one segment each way, or,
+    below ``PS_SHM_MIN_BYTES``, over the socket (no segment at all)."""
+    env, nodes, srv, w = _port_cluster({"PS_SHM_MIN_BYTES": min_bytes})
+    try:
+        keys = np.array([3], np.uint64)
+        vals = np.arange(16384, dtype=np.float32)
+        w.wait(w.push(keys, vals))
+        out = np.zeros_like(vals)
+        w.wait(w.pull(keys, out))
+        np.testing.assert_array_equal(out, vals)
+        assert len(leftover_segments(env)) == segments
+    finally:
+        _finalize(nodes, [w, srv])
+    assert not leftover_segments(env)
+
+
+def test_free_pull_buffer_unlinks_its_segment():
+    env, nodes, srv, w = _port_cluster({})
+    try:
+        keys = np.array([5, 6], np.uint64)
+        w.wait(w.push(keys, np.ones(8, np.float32)))
+        buf = w.alloc_pull_buffer(keys, 4)
+        w.wait(w.pull(keys, buf))
+        np.testing.assert_array_equal(buf, np.ones(8, np.float32))
+        assert w.zpull_hits == 1
+        assert [f for f in leftover_segments(env) if "pslpull" in f]
+        del buf
+        w.free_pull_buffer(keys)
+        assert not [f for f in leftover_segments(env) if "pslpull" in f]
+    finally:
+        _finalize(nodes, [w, srv])
+    assert not leftover_segments(env)

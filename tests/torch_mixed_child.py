@@ -1,0 +1,200 @@
+"""One process of a cluster that mixes the JAX package and the port.
+
+Run by tests/test_torch_tcp.py and tests/test_torch_shm.py, never by
+pytest itself.  The parent sets the ``DMLC_*`` variables of the cluster
+and:
+
+- ``PSTEST_PKG``: ``jax`` or ``port``, the package this process runs;
+- ``PSTEST_ROLES``: the nodes this process hosts, e.g.
+  ``scheduler,worker`` or ``server,server`` (each its own Postoffice,
+  started on its own thread);
+- ``PSTEST_OUT``: a directory for the results: ``server<rank>.npz``
+  (the server's store) and ``worker<rank>.npz`` (what it pulled);
+- ``PSTEST_ZPULL=1``: the worker pulls into ``alloc_pull_buffer``;
+- ``PSTEST_CPU_GROUP=N`` (port only): the worker's ``ici_tcp``/``ici_shm``
+  engine runs on ``DeviceGroup(N, device="cpu")`` instead of the card,
+  and pushes a registered bucket beside the message keys.
+
+It prints one JSON line per process (``{"ok": true, ...}``) and exits 0,
+or prints the error and exits 1.  A process still running after
+``PSTEST_DEADLINE`` seconds (default 60) dumps its stacks and exits.
+"""
+
+import faulthandler
+import json
+import os
+import sys
+import threading
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+
+import numpy as np  # noqa: E402
+
+DEADLINE = float(os.environ.get("PSTEST_DEADLINE", "60"))
+
+VAL_LEN = 256_000  # 1,024,000 B of f32 per key: 2 keys per message chunk
+KEYS_PER_SERVER = 2
+SEED = 7
+BUCKET_KEYS = 4
+BUCKET_VAL_LEN = 64
+
+
+def api(pkg: str):
+    """The package's names this scenario uses."""
+    if pkg == "jax":
+        import pslite_tpu as ps
+        from pslite_tpu.environment import Environment
+        from pslite_tpu.message import Role
+
+        return ps, Environment, lambda name: Role[name.upper()]
+    import pslite_tpu_torch as ps
+    from pslite_tpu_torch.environment import Environment
+
+    return ps, Environment, lambda name: name
+
+
+def scenario_keys(po) -> np.ndarray:
+    ranges = po.get_server_key_ranges()
+    return np.array([r.begin + 1 + j for r in ranges
+                     for j in range(KEYS_PER_SERVER)], np.uint64)
+
+
+def scenario_pushes(n_keys: int):
+    """Three seeded pushes of normal floats: one worker, so the server
+    adds them in one order and the stores must be bit-equal."""
+    rng = np.random.default_rng(SEED)
+    return [rng.standard_normal(n_keys * VAL_LEN, dtype=np.float32)
+            for _ in range(3)]
+
+
+def run_worker(kv, po, zpull: bool = False) -> dict:
+    """push, push, push_pull, pull of the keys: each message to a server
+    is 2,048,000 B, chunked at the 1 MiB default.  Returns the pulls."""
+    keys = scenario_keys(po)
+    pushes = scenario_pushes(len(keys))
+    out = {}
+    for p in pushes[:2]:
+        kv.wait(kv.push(keys, p))
+    fused = np.zeros_like(pushes[2])
+    kv.wait(kv.push_pull(keys, pushes[2], fused))
+    out["push_pull"] = fused
+    dst = (kv.alloc_pull_buffer(keys, VAL_LEN) if zpull else None)
+    if zpull and dst is None:
+        raise AssertionError("alloc_pull_buffer returned None")
+    if dst is None:
+        dst = np.zeros_like(pushes[0])
+    kv.wait(kv.pull(keys, dst))
+    out["pull"] = np.array(dst)
+    out["keys"] = keys
+    return out
+
+
+def run_bucket(ps, kv, steps: int = 3) -> dict:
+    """The engine path beside the message path: a registered bucket of
+    integer-valued grads (exact sums in any order)."""
+    keys = np.arange(BUCKET_KEYS, dtype=np.uint64)
+    kv.register_dense("bucket", keys, BUCKET_VAL_LEN)
+    n = kv.engine.group.num_ranks
+    rng = np.random.default_rng(SEED + 1)
+    total = np.zeros(BUCKET_KEYS * BUCKET_VAL_LEN)
+    outs = np.zeros(BUCKET_KEYS * BUCKET_VAL_LEN, np.float32)
+    for _ in range(steps):
+        g = rng.integers(-8, 8, size=(n, BUCKET_KEYS * BUCKET_VAL_LEN)
+                         ).astype(np.float32)
+        kv.wait(kv.push_pull(keys, g, outs))
+        total += g.astype(np.float64).sum(0)
+        if not np.array_equal(outs, total):
+            raise AssertionError("bucket push_pull off the exact sum")
+    from pslite_tpu_torch.ops import ring_collective
+
+    return {"bucket_steps": steps,
+            "k4_launches": sum(ring_collective.launches.values())}
+
+
+def run_all(fns) -> None:
+    errors = []
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 - re-raised
+                errors.append(exc)
+        return run
+
+    threads = [threading.Thread(target=wrap(fn), daemon=True) for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(DEADLINE)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("a node did not finish within the deadline")
+    if errors:
+        raise errors[0]
+
+
+def main() -> int:
+    pkg = os.environ["PSTEST_PKG"]
+    roles = os.environ["PSTEST_ROLES"].split(",")
+    out_dir = os.environ["PSTEST_OUT"]
+    ps, Environment, role_of = api(pkg)
+    nodes = [ps.Postoffice(role_of(r), env=Environment({})) for r in roles]
+    cpu_group = int(os.environ.get("PSTEST_CPU_GROUP", "0"))
+    for po in nodes:
+        if cpu_group and po.is_worker:
+            po.van.set_mesh(ps.DeviceGroup(cpu_group, device="cpu"))
+    run_all([po.start for po in nodes])
+    apps, report = [], {"ok": True, "pkg": pkg, "roles": roles}
+    try:
+        servers = []
+        for po in nodes:
+            if po.is_server:
+                srv = ps.KVServer(0, postoffice=po)
+                srv.set_request_handle(ps.KVServerDefaultHandle())
+                servers.append((po, srv))
+                apps.append(srv)
+
+        def work(po):
+            """The worker's scenario; then every node meets, so the
+            servers save their stores after the last push."""
+            if po.is_worker:
+                worker_scenario(po)
+            po.barrier(0, ps.ALL_GROUP)
+
+        def worker_scenario(po):
+            kv = ps.KVWorker(0, 0, postoffice=po)
+            apps.append(kv)
+            if cpu_group:
+                report.update(run_bucket(ps, kv))
+            res = run_worker(kv, po, os.environ.get("PSTEST_ZPULL") == "1")
+            report["zpull_hits"] = kv.zpull_hits
+            np.savez(os.path.join(out_dir, f"worker{po.my_rank()}.npz"),
+                     **res)
+
+        run_all([lambda po=po: work(po) for po in nodes])
+        for po, srv in servers:
+            np.savez(os.path.join(out_dir, f"server{po.my_rank()}.npz"),
+                     **{str(k): v for k, v in srv._handle.store.items()})
+    finally:
+        for a in apps:
+            a.stop()
+        run_all([po.finalize for po in nodes])
+    if pkg == "port":
+        report["chunks"] = {r: [po.van.chunks_sent, po.van.chunks_recv]
+                            for r, po in zip(roles, nodes)}
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    # Armed here, not at import: the tests import this module too.
+    faulthandler.dump_traceback_later(DEADLINE, exit=True)
+    try:
+        sys.exit(main())
+    except Exception as exc:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        traceback.print_exc()
+        print(json.dumps({"ok": False, "error": repr(exc)}), flush=True)
+        sys.exit(1)
