@@ -73,9 +73,19 @@ line):
    handle and 3 with ``row_adagrad:0.01,1e-8``, against float64 numpy and
    each push against the plain version on the card; a
    ``push_group``/``pull_group`` of two tables against single ops; and
-   ``models.embedding.replay``).  The grouped int8 ring must count one
-   launch per ``push_pull_group``, and the sparse kernels one launch per
-   table and op.  Then the steady-state
+   ``models.embedding.replay``); engine state that moves (``elastic``:
+   the 40 x 1 MB adam bucket, a 40 x 1 MB sum bucket and config 5's
+   table under row_adagrad through ``KVWorker`` on the ici van, 8 ranks:
+   a ``save_engine`` restored by a fresh cluster and an
+   ``AsyncEngineCheckpointer`` file against the live run and the sync
+   file, a 4-rank restore against ``KVWorker.reshard`` 8 -> 4 and 3 more
+   steps of both, within float64's bounds, then back to 8 and onto the
+   composite ``(dp 2, kv1 2, kv2 2)`` axis against ``(dp 2, kv 4)``: 0
+   differing elements everywhere; K3, K4 at n = 4 and on the composite
+   sub-rings, S2 and S3 launched on the recut state; save/restore/async
+   and reshard times printed with the host CPU).  The grouped int8 ring
+   must count one launch per ``push_pull_group``, and the sparse kernels
+   one launch per table and op.  Then the steady-state
    ``engine.push_pull`` time with device-resident grads, and the steady
    state of the trace's five paths (``resnet50-grouped-int8``: one
    ``push_pull_group`` per step under ``PS_ICI_COMPRESS=int8``) and of
@@ -124,6 +134,7 @@ import os
 import platform
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -691,11 +702,17 @@ def replay_rows(torch, ring, randn):
 
 # -- phase 4: the main path through the user's entry points ------------------
 
-def _adam_ref(s, st, g, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+def _adam_ref(s, st, g, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+              eps_hat=False):
+    """Step t of float64 Adam on numpy arrays or tensors (``st`` holds m
+    and v): K3's form, eps added to sqrt(v), or with ``eps_hat`` the
+    host optimizer handle's, eps added to sqrt(v / (1 - b2^t))."""
     st["m"] = b1 * st["m"] + (1 - b1) * g
     st["v"] = b2 * st["v"] + (1 - b2) * g * g
-    alpha = lr * np.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-    return s - alpha * st["m"] / (np.sqrt(st["v"]) + eps)
+    c2 = np.sqrt(1 - b2 ** t)
+    alpha = lr * c2 / (1 - b1 ** t)
+    return s - alpha * st["m"] / (st["v"] ** 0.5 + (eps * c2 if eps_hat
+                                                   else eps))
 
 
 def _sgdm_ref(s, st, g, t, lr=0.01, mu=0.9):
@@ -807,7 +824,7 @@ def drive(torch, ps, Environment, grads_steps):
                 tol = 2.0 ** -6 * (np.abs(s64) + lr * bmag)
             else:
                 tol = (atol + rtol * np.abs(s64)
-                       + (k + 1) * (N + 1) * unit * mag)
+                       + _sum_bound((k + 1) * (N + 1), mag, unit))
             if not np.all(err <= tol):
                 raise AssertionError(
                     f"{label}: {op} step {k} off the float64 reference by "
@@ -1049,15 +1066,22 @@ def drive_quantize(torch, ps, qz, grads_steps):
             "max_abs_err_vs_f64": float(err.max())}
 
 
+def _sum_bound(adds, mag, unit=2.0 ** -24):
+    """How far a float sum may stray from float64: every one of its
+    ``adds`` adds (n + 1 for an op of n rows into the store) rounds once
+    by at most ``unit`` of its partial sum, which is at most ``mag``, the
+    sum of |g| over all the ops so far."""
+    return adds * unit * mag
+
+
 def _check_sum(label, got, s64, mag, k, n, unit=2.0 ** -24, atol=1e-6):
-    """A ring sum against float64: each of its k ops adds n rows and the
-    store, every add rounding once by at most ``unit`` of its partial
-    sum, so the error stays within k*(n+1)*unit*sum|g| (+ atol)."""
+    """A ring sum of k ops of n rows each against float64, within
+    :func:`_sum_bound` (+ atol)."""
     got64 = np.asarray(got, dtype=np.float64)
     err = np.abs(got64 - s64)
     if got64.shape != s64.shape or not np.all(np.isfinite(got64)):
         raise AssertionError(f"{label}: bad result {got64.shape}")
-    if not np.all(err <= atol + k * (n + 1) * unit * mag):
+    if not np.all(err <= atol + _sum_bound(k * (n + 1), mag, unit)):
         raise AssertionError(f"{label}: off the float64 reference by "
                              f"{float(err.max())}")
     return float(err.max())
@@ -1910,16 +1934,16 @@ def run_threads(fns, what: str) -> None:
 
 
 def msg_cluster(ps, Environment, workers: int, servers: int,
-                van: str = "loopback"):
+                van: str = "loopback", ranks: int = N, env=None):
     """A started scheduler + ``servers`` servers + ``workers`` workers in
-    this process (on ``ici``, each worker's engine on this card's 8
-    ranks, ring kernel)."""
+    this process (on ``ici``, each worker's engine on ``ranks`` ranks of
+    this card, ring kernel); ``env`` adds variables."""
     base = {"DMLC_NUM_WORKER": str(workers), "DMLC_NUM_SERVER": str(servers),
             "DMLC_PS_ROOT_URI": "lo",
             "DMLC_PS_ROOT_PORT": str(next(_msg_ports)),
             "DMLC_NODE_HOST": "lo", "PS_VAN_TYPE": van,
             "PS_LOOPBACK_NS": f"chip-smoke-{os.getpid()}",
-            "PS_ICI_IMPL": "pallas"}
+            "PS_ICI_IMPL": "pallas", **(env or {})}
     nodes = [ps.Postoffice("scheduler", env=Environment(base))]
     nodes += [ps.Postoffice("server", env=Environment(base))
               for _ in range(servers)]
@@ -1927,7 +1951,7 @@ def msg_cluster(ps, Environment, workers: int, servers: int,
           for _ in range(workers)]
     if van == "ici":
         for po in wk:
-            po.van.set_mesh(ps.DeviceGroup(N))
+            po.van.set_mesh(ps.DeviceGroup(ranks))
     nodes += wk
     run_threads([po.start for po in nodes], "cluster start")
     return nodes
@@ -2111,14 +2135,11 @@ def drive_msg_optimizer(ps, Environment):
         apps.append(w)
         keys = np.arange(KEYS, dtype=np.uint64)
         rng = np.random.default_rng(SEED + 5)
-        p64, m64, v64 = np.zeros(P), np.zeros(P), np.zeros(P)
+        p64, st = np.zeros(P), {"m": np.zeros(P), "v": np.zeros(P)}
         for t in range(1, 4):
             g = rng.standard_normal(P, dtype=np.float32)
             w.wait(w.push(keys, g))
-            m64 = 0.9 * m64 + 0.1 * g
-            v64 = 0.999 * v64 + 0.001 * g.astype(np.float64) ** 2
-            p64 -= 1e-3 * (m64 / (1 - 0.9 ** t)) / (
-                np.sqrt(v64 / (1 - 0.999 ** t)) + 1e-8)
+            p64 = _adam_ref(p64, st, g.astype(np.float64), t, eps_hat=True)
         out = np.zeros(P, np.float32)
         w.wait(w.pull(keys, out))
         err = np.abs(out - p64)
@@ -2132,6 +2153,397 @@ def drive_msg_optimizer(ps, Environment):
                  "max_abs_err_vs_f64": float(err.max())}]
     finally:
         msg_finalize(nodes, apps)
+
+
+# -- engine state that moves: checkpoints and reshard ---------------------------
+
+EL_KEYS = np.arange(KEYS, dtype=np.uint64)
+EL_RING_KEYS = EL_KEYS + 1_000  # the sum bucket, beside the adam one
+EL_HANDLE = "adam:1e-3"
+EL_STEPS = 3
+
+
+def elastic_cluster(ps, Environment, ranks: int):
+    """1 scheduler + 1 server + 1 worker on the ``ici`` van, the worker's
+    engines on ``ranks`` ranks of cuda:0 (ring impl, default handle
+    ``adam:1e-3``), and through its KVWorker the 40 x 1,024,000 B bucket
+    ``grads`` (adam), a bucket ``ring`` of the same size (pushed with the
+    ``sum`` handle: K4) and config 5's table ``emb``."""
+    nodes = msg_cluster(ps, Environment, 1, 1, van="ici", ranks=ranks,
+                        env={"PS_ICI_SERVER_HANDLE": EL_HANDLE})
+    srv = ps.KVServer(0, postoffice=nodes[1])
+    srv.set_request_handle(ps.KVServerDefaultHandle())
+    w = ps.KVWorker(0, 0, postoffice=nodes[2])
+    w.register_dense("grads", EL_KEYS, VAL_LEN)
+    w.register_dense("ring", EL_RING_KEYS, VAL_LEN)
+    w.sparse_engine.register_sparse("emb", EMB_ROWS, EMB_DIM)
+    return nodes, [w, srv], w
+
+
+def elastic_grads(torch, emb, k: int, rows: int):
+    """Step k's inputs for ``rows`` workers, made on the card from a seed
+    drawn with numpy from SEED: dense grads ``[rows, P]``, config 5's
+    Zipf rows ``[rows, 4096]`` and their grads ``[rows, 4096, 64]``."""
+    seed = int(np.random.default_rng([SEED, k]).integers(1 << 31))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((rows, P), device="cuda", generator=gen)
+    rows_g = torch.randn((rows, EMB_BATCH, EMB_DIM), device="cuda",
+                         generator=gen)
+    return g, emb.skewed_indices(EMB_ROWS, rows, EMB_BATCH, seed=seed), rows_g
+
+
+def elastic_step(torch, w, inputs, outs) -> int:
+    """One step through the worker: adam push_pull of ``grads``
+    (rank-order adds + K3), a ring sum push_pull of ``ring`` (K4), a
+    row-Adagrad push of the table (S2) and its pull (S3) into a tensor,
+    held bit for bit against the table's rows at the step's indices.
+    Returns the shard count the pull ran on."""
+    g, idx, rows_g = inputs
+    w.wait(w.push_pull(EL_KEYS, g, outs))
+    w.engine.push_pull("ring", g, handle="sum")
+    w.wait(w.push_sparse("emb", idx, rows_g, handle=EMB_HANDLE))
+    pulled = torch.empty(rows_g.shape, dtype=rows_g.dtype, device="cuda")
+    w.wait(w.pull_sparse("emb", idx, out=pulled))
+    se = w.sparse_engine
+    want = se.store_global_device("emb")[
+        torch.from_numpy(idx).long().cuda()]
+    bad = int((pulled != want).sum())
+    if bad:
+        raise AssertionError(f"elastic: S3 pulled {bad} elements that differ "
+                             f"from the table's rows at {se.num_shards} "
+                             f"shards")
+    return se.num_shards
+
+
+class Elastic64:
+    """The float64 reference of the elastic phase's state, on the card:
+    adam on the engine's own f32 rank-order aggregate (as ``drive``), the
+    ring bucket's exact sum, and row-wise Adagrad of the table."""
+
+    def __init__(self, torch):
+        z = lambda *s: torch.zeros(s, dtype=torch.float64, device="cuda")
+        self.torch, self.t, self.adds = torch, 0, 0
+        self.s, self.st = z(P), {"m": z(P), "v": z(P)}
+        self.r, self.mag = z(P), z(P)
+        self.table, self.acc = z(EMB_ROWS, EMB_DIM), z(EMB_ROWS)
+
+    def dense(self, g) -> None:
+        """Both buckets' step on the grads ``g`` [rows, P]."""
+        agg = g[0].clone()
+        for w in range(1, g.shape[0]):
+            agg += g[w]
+        self.t += 1
+        self.s = _adam_ref(self.s, self.st, agg.double(), self.t)
+        self.adds += g.shape[0] + 1
+        self.r += g.double().sum(0)
+        self.mag += g.abs().double().sum(0)
+
+    def step(self, inputs) -> None:
+        """A whole ``elastic_step``: the buckets and the table."""
+        torch = self.torch
+        g, idx, rows_g = inputs
+        self.dense(g)
+        G = torch.zeros_like(self.table)
+        G.index_add_(0, torch.from_numpy(idx.reshape(-1)).long().cuda(),
+                     rows_g.reshape(-1, EMB_DIM).double())
+        self.acc += (G * G).mean(1)
+        self.table -= 0.01 * G / (self.acc.sqrt()[:, None] + 1e-8)
+
+    def check(self, state) -> float:
+        """Max |err| of the buckets and, where ``state`` holds it, the
+        table against the reference, within drive's bounds: adam rtol
+        1e-5 / atol 1e-6; the sum :func:`_sum_bound` + 1e-6; the table
+        1e-4 + 1e-4 |value|."""
+        worst = 0.0
+        for key, ref, tol in (
+                ("grads", self.s, 1e-6 + 1e-5 * self.s.abs()),
+                ("ring", self.r, 1e-6 + _sum_bound(self.adds, self.mag)),
+                ("table", self.table, 1e-4 + 1e-4 * self.table.abs())):
+            if key not in state:
+                continue
+            got = state[key].double()
+            if not bool(got.isfinite().all()):
+                raise AssertionError(f"elastic: non-finite {key}")
+            err = (got - ref).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"elastic: {key} off float64 by "
+                                     f"{float(err.max())}")
+            worst = max(worst, float(err.max()))
+        return worst
+
+
+def elastic_state(w, eng=None, se=None) -> dict:
+    """Copies of the logical state (``[:P]``, tables in global row
+    order) of a worker's engines, or of ``eng``/``se``."""
+    eng = eng or w.engine
+    kind, st = eng.opt_state("grads")
+    out = {"grads": eng.store_array("grads")[:P], "m": st[0][:P],
+           "v": st[1][:P], "step": st[2][:1],
+           "ring": eng.store_array("ring")[:P]}
+    se = se or (w.sparse_engine if w is not None else None)
+    if se is not None:
+        out["table"] = se.store_global_device("emb")
+        out["acc"] = se.acc_global_device("emb")
+    return out
+
+
+def differing(a: dict, b: dict, what: str) -> int:
+    """Elements where two states differ: none may (a recut and a restore
+    move data only)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: states hold {sorted(a)} and "
+                             f"{sorted(b)}")
+    count = 0
+    for k in a:
+        if a[k].shape != b[k].shape:
+            raise AssertionError(f"{what}: {k} shapes {tuple(a[k].shape)} "
+                                 f"and {tuple(b[k].shape)}")
+        count += int((a[k] != b[k]).sum())
+    if count:
+        raise AssertionError(f"{what}: {count} elements differ")
+    return count
+
+
+def timed(torch, fn) -> float:
+    """Milliseconds of ``fn()`` on the host clock, to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def async_matches_sync(async_path: str, sync_path: str, shards: int,
+                       rps: int) -> int:
+    """Differing elements between the async checkpointer's v1 file and
+    the v2 file of the same point, each read in its layout: padded
+    stores and states cut to P, the per-shard adam step against the
+    scalar, the interleaved table and accumulator in global row order."""
+    from pslite_tpu_torch.parallel.sparse import _deinterleave_rows
+
+    count = 0
+    with np.load(async_path) as a, np.load(sync_path) as s:
+        if set(a.files) != set(s.files):
+            raise AssertionError(f"async file members {sorted(a.files)}, "
+                                 f"sync {sorted(s.files)}")
+        for k in ("dense/grads", "dense/ring", "opt/grads/0", "opt/grads/1"):
+            count += int((a[k][:P] != s[k]).sum())
+        count += int((a["opt/grads/2"] != s["opt/grads/2"][0]).sum())
+        for k in ("sparse/emb", "sparse_acc/emb"):
+            count += int((_deinterleave_rows(a[k], EMB_ROWS, rps, shards)
+                          != s[k]).sum())
+    if count:
+        raise AssertionError(f"async checkpoint: {count} elements differ "
+                             f"from the sync file of the same point")
+    return count
+
+
+def drive_elastic(torch, ps, ring, emb, Environment, smi: str):
+    """Engine state that moves, at full size on cuda:0 (the 40 x 1 MB
+    adam bucket, a 40 x 1 MB sum bucket, config 5's table under
+    row_adagrad), through KVWorker on the ici van:
+
+    1. run A (8 ranks): 3 steps, ``save_engine`` (v2) and an
+       ``AsyncEngineCheckpointer.save``, 3 more steps at once; run B, a
+       fresh cluster, restores the v2 file and runs the same 3 steps: A
+       and B bit-equal; every step's S3 pull, at 8 shards here and at 4
+       in step 3, equals the table's rows at its indices bit for bit;
+    2. the async (v1) file equals the v2 file of that point, bit for bit;
+    3. run A reshards 8 -> 4 through ``KVWorker.reshard``; a 4-rank
+       cluster C restores the v2 file that ``save_engine`` writes of run A
+       at that point: bit-equal, and after 3 more steps of the same 4-row
+       grads (K4 1-D at n = 4, K3, S2, S3) still, and within the float64
+       reference's bounds; run B's engines reshard 8 -> 4 -> 8, dense and
+       sparse apart (timed), and equal A at 4;
+    4. run A reshards back to 8; its dense state restored into a (dp 2,
+       kv 4) engine (worker_axis dp, ring) that reshards onto
+       ``make_group((2, 2, 2), ("dp", "kv1", "kv2"))`` with the composite
+       axis, and into a (dp 2, kv 4) engine: 3 steps of the same 2-row
+       grads on both, bit-equal (K4's dp sub-rings over the composite
+       axis, counted), and the composite engine's buckets within the
+       float64 reference's bounds;
+    5. 5 adam push_pulls with an async write pending against 5 without.
+
+    Prints each timing with the card and the host CPU; removes its
+    files."""
+    from pslite_tpu_torch import checkpoint as ckpt
+
+    host = cpu_model()
+    tag = f"[{smi}; host {host}]"
+    results = []
+    outs = np.zeros(P, np.float32)
+    ref = Elastic64(torch)
+    pulls = []  # the shard count of every S3 pull, each checked
+    steps = [elastic_grads(torch, emb, k, N) for k in range(2 * EL_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as tmp:
+        f3, f3a, f6 = (os.path.join(tmp, n) for n in
+                       ("step3.npz", "step3-async", "step6.npz"))
+        nodes_a, apps_a, wa = elastic_cluster(ps, Environment, N)
+        clusters = [(nodes_a, apps_a)]
+        try:
+            for k in range(EL_STEPS):
+                pulls.append(elastic_step(torch, wa, steps[k], outs))
+                ref.step(steps[k])
+            save_ms = timed(torch, lambda: ckpt.save_engine(
+                wa.engine, f3, sparse_engine=wa.sparse_engine))
+            mb = os.path.getsize(f3) / 1e6
+            ck = ckpt.AsyncEngineCheckpointer()
+            t0 = time.perf_counter()
+            ck.save(wa.engine, f3a, sparse_engine=wa.sparse_engine)
+            async_ms = (time.perf_counter() - t0) * 1e3
+            for k in range(EL_STEPS, 2 * EL_STEPS):
+                pulls.append(elastic_step(torch, wa, steps[k], outs))
+                ref.step(steps[k])
+            ck.wait()
+            print(f"elastic save_engine (v2, 40 x 1 MB adam + 40 x 1 MB sum "
+                  f"+ 1,048,576 x 64 table and accumulator): {save_ms:.1f} "
+                  f"ms, {mb:.1f} MB, {mb / save_ms * 1e3:.1f} MB/s {tag}")
+            print(f"elastic AsyncEngineCheckpointer.save: {async_ms:.3f} ms "
+                  f"host per call (clones on the card; the write ran under "
+                  f"the next 3 steps) {tag}")
+            rps8 = wa.sparse_engine.table("emb").rows_per_shard
+            results.append({"config": "elastic async v1 file vs sync v2 "
+                                      "file (step 3)", "ops": 2,
+                            "differing": async_matches_sync(
+                                f3a + ".npz", f3, N, rps8),
+                            "async_save_ms_host": async_ms})
+
+            nodes_b, apps_b, wb = elastic_cluster(ps, Environment, N)
+            clusters.append((nodes_b, apps_b))
+            restore_ms = timed(torch, lambda: ckpt.restore_engine(
+                wb.engine, f3, sparse_engine=wb.sparse_engine))
+            for k in range(EL_STEPS, 2 * EL_STEPS):
+                pulls.append(elastic_step(torch, wb, steps[k], outs))
+            print(f"elastic restore_engine (v2, 8 ranks): {restore_ms:.1f} "
+                  f"ms {tag}")
+            results.append({"config": "elastic restore + 3 steps vs live "
+                                      "(8 ranks)", "ops": 4 * EL_STEPS,
+                            "differing": differing(
+                                elastic_state(wb), elastic_state(wa),
+                                "restore vs live"),
+                            "save_ms": save_ms, "file_mb": mb,
+                            "restore_ms": restore_ms})
+
+            # 3. Cross-fleet.
+            ckpt.save_engine(wa.engine, f6, sparse_engine=wa.sparse_engine)
+            g4 = ps.DeviceGroup(4)
+            kv_ms = timed(torch, lambda: wa.reshard(g4))
+            nodes_c, apps_c, wc = elastic_cluster(ps, Environment, 4)
+            clusters.append((nodes_c, apps_c))
+            ckpt.restore_engine(wc.engine, f6, sparse_engine=wc.sparse_engine)
+            results.append({"config": "elastic restore on 4 vs reshard 8->4",
+                            "ops": 2, "differing": differing(
+                                elastic_state(wc), elastic_state(wa),
+                                "restore on 4 vs reshard to 4"),
+                            "kvworker_reshard_8to4_ms": kv_ms})
+            apart = {}
+            for label, group in (("8->4", g4), ("4->8", ps.DeviceGroup(N))):
+                apart[label] = (
+                    timed(torch, lambda: wb.engine.reshard(group)),
+                    timed(torch, lambda: wb.sparse_engine.reshard(group)))
+                if label == "8->4":
+                    differing(elastic_state(wb), elastic_state(wa),
+                              "engine.reshard vs KVWorker.reshard")
+            for label, (d_ms, s_ms) in apart.items():
+                print(f"elastic reshard {label}: dense {d_ms:.1f} ms (40 x 1 "
+                      f"MB adam + 40 x 1 MB sum), sparse {s_ms:.1f} ms "
+                      f"(table + accumulator) {tag}")
+            print(f"elastic KVWorker.reshard 8->4 (barriers, both engines): "
+                  f"{kv_ms:.1f} ms {tag}")
+            k4 = ring.launches["ring_push_pull[float32]"]
+            for k in range(2 * EL_STEPS, 3 * EL_STEPS):
+                inputs = elastic_grads(torch, emb, k, 4)
+                for w in (wa, wc):
+                    pulls.append(elastic_step(torch, w, inputs, outs))
+                ref.step(inputs)
+            k4 = ring.launches["ring_push_pull[float32]"] - k4
+            if k4 != 2 * EL_STEPS:
+                raise AssertionError(f"elastic: K4 launched {k4} times for "
+                                     f"{2 * EL_STEPS} ring steps at n = 4")
+            state_a = elastic_state(wa)
+            results.append({"config": "elastic 3 steps after restore on 4 "
+                                      "vs after reshard to 4", "ops":
+                            8 * EL_STEPS, "differing": differing(
+                                elastic_state(wc), state_a, "4-rank steps"),
+                            "max_abs_err_vs_f64": ref.check(state_a)})
+            del state_a
+            if sorted(set(pulls)) != [4, N]:
+                raise AssertionError(f"elastic: S3 pulls ran on {pulls} "
+                                     f"shards, not on both {N} and 4")
+            results.append({"config": f"elastic S3 pulls vs the table's rows "
+                                      f"({pulls.count(N)} at {N} shards, "
+                                      f"{pulls.count(4)} at 4)",
+                            "ops": len(pulls), "differing": 0})
+
+            # 4. Back to 8, then the composite axis.
+            grow_ms = timed(torch, lambda: wa.reshard(ps.DeviceGroup(N)))
+            print(f"elastic KVWorker.reshard 4->8: {grow_ms:.1f} ms {tag}")
+            f9 = os.path.join(tmp, "dense.npz")
+            ckpt.save_engine(wa.engine, f9)
+            engines = []
+            for shape, names in (((2, 4), ("dp", "kv")),
+                                 ((2, 4), ("dp", "kv"))):
+                e = ps.CollectiveEngine(ps.make_group(shape, names),
+                                        worker_axis="dp", impl="ring",
+                                        server_handle=EL_HANDLE)
+                e.register_dense("grads", EL_KEYS, VAL_LEN)
+                e.register_dense("ring", EL_RING_KEYS, VAL_LEN)
+                ckpt.restore_engine(e, f9)
+                engines.append(e)
+            comp, two_d = engines
+            comp.reshard(ps.make_group((2, 2, 2), ("dp", "kv1", "kv2")),
+                         axis_name=("kv1", "kv2"))
+            if comp.num_shards != 4 or comp.axis != ("kv1", "kv2"):
+                raise AssertionError("elastic: the composite reshard left "
+                                     f"{comp.num_shards} shards on "
+                                     f"{comp.axis}")
+            k4c = 0
+            for k in range(3 * EL_STEPS, 4 * EL_STEPS):
+                g2 = elastic_grads(torch, emb, k, 2)[0]
+                ref.dense(g2)
+                for e in (comp, two_d):
+                    before = ring.launches["ring_push_pull_2d[float32]"]
+                    e.push_pull("grads", g2)
+                    e.push_pull("ring", g2, handle="sum")
+                    if e is comp:
+                        k4c += (ring.launches["ring_push_pull_2d[float32]"]
+                                - before)
+            if k4c != EL_STEPS:
+                raise AssertionError(f"elastic: K4's sub-rings launched {k4c} "
+                                     f"times on the composite axis for "
+                                     f"{EL_STEPS} steps")
+            state_c = elastic_state(None, comp)
+            results.append({"config": "elastic composite (dp 2, kv1 2, kv2 2) "
+                                      "vs 2-D (dp 2, kv 4), 3 steps",
+                            "ops": 2 * EL_STEPS, "differing": differing(
+                                state_c, elastic_state(None, two_d),
+                                "composite vs 2-D"), "k4_composite": k4c,
+                            "max_abs_err_vs_f64": ref.check(state_c)})
+            del state_c
+            del comp, two_d, engines
+
+            # 5. Steps with a write pending, against steps without.
+            g = steps[0][0]
+            ck.save(wa.engine, os.path.join(tmp, "pending"),
+                    sparse_engine=wa.sparse_engine)
+            pending = timed(torch, lambda: [wa.wait(wa.push_pull(
+                EL_KEYS, g, outs)) for _ in range(5)]) / 5
+            still = ck._q.unfinished_tasks > 0
+            ck.close()
+            quiet = timed(torch, lambda: [wa.wait(wa.push_pull(
+                EL_KEYS, g, outs)) for _ in range(5)]) / 5
+            print(f"elastic push_pull (adam 40 x 1 MB, device grads, result "
+                  f"to numpy): {pending:.3f} ms/step with an async write "
+                  f"pending (still pending after the 5 steps: {still}), "
+                  f"{quiet:.3f} ms/step without {tag}")
+            results.append({"config": "elastic push_pull with an async write "
+                                      "pending / without", "ops": 10,
+                            "pending_ms_per_step": pending,
+                            "quiet_ms_per_step": quiet})
+        finally:
+            for nodes, apps in reversed(clusters):
+                msg_finalize(nodes, apps)
+    return results
 
 
 # -- separate processes (BASELINE configs 1-3) --------------------------------
@@ -2615,6 +3027,8 @@ def main() -> int:
         ("zero-copy", lambda: drive_zero_copy(torch, ps, Environment,
                                               grads_steps)),
         ("sparse", lambda: drive_sparse(torch, ps, Environment, emb, sr)),
+        ("elastic", lambda: drive_elastic(torch, ps, ring, emb, Environment,
+                                          smi)),
         ("msg-config2", lambda: drive_msg_config2(ps, Environment, smi)),
         ("msg-ici-mixed", lambda: drive_msg_ici_mixed(
             ps, ring, Environment, grads_steps, smi)),
@@ -2665,6 +3079,15 @@ def main() -> int:
     got = {k: path_counts["sparse"][k] for k in want}
     if got != want:
         raise AssertionError(f"sparse path launches {got}, expected {want}")
+    # The elastic path: run A 9 steps, B and C 3 each (K3, the 1-D ring,
+    # S2, S3 once per step), the composite and 2-D engines 3 adam and 3
+    # ring steps each, and 10 timed adam steps.
+    want = {"adam_update": 15 + 6 + 10, "ring_push_pull[float32]": 15,
+            "ring_push_pull_2d[float32]": 6, "sparse_row_adagrad": 15,
+            "sparse_gather_rows": 15}
+    got = {k: path_counts["elastic"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"elastic path launches {got}, expected {want}")
     for r in rows:
         r["launches"] = (
             path_counts["int8 n=2"]["ring_push_pull_int8[float32]"]

@@ -22,6 +22,12 @@ A port of the JAX package ``pslite_tpu`` that imports neither JAX nor
   ``push_sparse``/``pull_sparse``, ``models/embedding.py``).  On the
   ``ici`` van one ``KVWorker`` sends registered buckets to the engine
   and every other key over messages to the servers.
+- **Engine state that moves**: npz checkpoints of engines and server
+  handles, sync and async (``checkpoint.py``, the JAX package's npz
+  layout, v2 restoring across shard counts), composite kv axes
+  (``axis_name=("kv1", "kv2")``), and the live recut of dense buckets and
+  sparse tables onto another device group (``CollectiveEngine.reshard``,
+  ``SparseEngine.reshard``, ``KVWorker.reshard`` across a cluster).
 
 The fused ring (single and grouped), int8 ring, fused optimizer (f32 and
 bf16), quantize and sparse row kernels are written in CUDA for Hopper

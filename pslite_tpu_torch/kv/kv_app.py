@@ -39,7 +39,8 @@ a JAX caller would reach it: wire codecs (``codec=``/``compress=`` other
 than ``"raw"``), tenants, the apply-shard pool, small-op batching,
 ``multi_get`` and the hot-key cache (ROADMAP Queue 1 item 6); request
 deadlines and failover, replication, elastic routing, snapshots and
-namespaces (item 8); ``reshard`` (item 7).  Apply is serial on the
+namespaces (item 8).  ``KVWorker.reshard`` recuts the worker's engines
+onto a new device group (``IciVan.reshard_engines``).  Apply is serial on the
 server's customer thread, which gives the same stores as the JAX shard
 pool (its contract is serial bit-exactness).
 
@@ -228,6 +229,17 @@ class KVWorker:
                                             init=init)
         self._dense_routes[(len(keys), int(keys[0]), int(keys[-1]))] = name
         return bucket
+
+    def reshard(self, group) -> None:
+        """Coordinated elastic recut of the worker's engines onto a new
+        device group: every worker of the cluster calls it with the same
+        group (``_IciDataPlane.reshard_engines``).  Registered bucket and
+        table names stay valid; grads take the new worker count from the
+        next op."""
+        hook = getattr(self.po.van, "reshard_engines", None)
+        log.check(hook is not None,
+                  "reshard requires an ICI van (collective data plane)")
+        hook(group, customer_id=self._customer.customer_id)
 
     def register_pull_buffer(self, name: str) -> torch.Tensor:
         """Register a persistent pull buffer for a registered dense

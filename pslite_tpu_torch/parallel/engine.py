@@ -60,12 +60,25 @@ issued one at a time, from any thread, batched into groups,
 and ``push_pull_stream``/``push_pull_multi_stream`` (host gradients staged
 through pinned buffers on a copy stream while earlier buckets reduce).
 
-Not in this slice: composite (tuple) kv axes, sparse tables, resharding,
-multi-process groups and ranks on several cards.
+A composite kv axis (``axis_name=("kv1", "kv2")`` on a ``make_group((2,
+2, 2), ("dp", "kv1", "kv2"))`` group) shards the store over the product
+of its axes, row-major, as ``P(("kv1", "kv2"))`` does: with
+``worker_axis`` it is the 2-D layout with B = kv1 x kv2 shards, one dp
+sub-ring per shard, bit for bit; without one the workers are the shards
+and the ring gives way to the torch path (no single ring dimension), as
+in the JAX engine.
+
+``reshard``/``reshard_staged`` re-lay the live buckets onto another
+group (the elastic tier; ``KVWorker.reshard`` coordinates it across a
+cluster's workers, ``vans/ici_van.py``).
+
+Not in this slice: multi-process groups and ranks on several cards
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -77,6 +90,7 @@ import torch
 
 from ..ops import fused_update, ring_collective
 from ..utils import logging as log
+from . import placement
 from .mesh import DeviceGroup, default_group
 from .zero_copy import Generation, ZeroCopyHandle, plain
 
@@ -207,22 +221,20 @@ class CollectiveEngine:
         worker_axis: Optional[str] = None,
         wire_compress: Optional[str] = None,
     ):
+        if isinstance(axis_name, (tuple, list)):
+            # A composite kv axis (a 3-D torus with worker_axis): the
+            # store shards over the product of these axes, row-major
+            # (the first axis major), as P(("kv1", "kv2")) lays it out.
+            axis_name = tuple(axis_name)
+            log.check(len(axis_name) >= 1, "empty kv axis tuple")
+            log.check(group is not None,
+                      "tuple kv axes require an explicit device group")
         self.group = group if group is not None else default_group(axis_name)
         self.axis = axis_name
-        log.check(axis_name in self.group.axis_names,
-                  f"axis {axis_name!r} not in the device group")
-        if worker_axis is not None:
-            log.check(worker_axis in self.group.axis_names,
-                      f"worker axis {worker_axis!r} not in the device group")
-            log.check(worker_axis != axis_name,
-                      "worker_axis must differ from the kv axis (leave it "
-                      "None for the 1-D colocated layout)")
         self.worker_axis = worker_axis
+        self.num_shards, self.num_workers = self._layout(self.group,
+                                                         axis_name)
         self.device = self.group.device
-        self.num_shards = int(self.group.shape[axis_name])
-        # Worker fan-in rows of the grads array.
-        self.num_workers = (int(self.group.shape[worker_axis])
-                            if worker_axis is not None else self.num_shards)
         impl = impl or os.environ.get("PS_ICI_IMPL", "torch")
         log.check(impl in _IMPL_ALIASES, f"unknown engine impl {impl!r}")
         self.impl = _IMPL_ALIASES[impl]
@@ -258,6 +270,26 @@ class CollectiveEngine:
         self.push_bytes = 0
         self.pull_bytes = 0
         self._counter_mu = threading.Lock()
+
+    def _layout(self, group: DeviceGroup, axis) -> tuple:
+        """``(num_shards, num_workers)`` of this engine on ``group`` with
+        kv axis ``axis`` (a name or a tuple of names): the shards are the
+        product of the kv axes' sizes, the workers the worker axis's size
+        (the shards on the 1-D colocated layout)."""
+        kv_axes = axis if isinstance(axis, tuple) else (axis,)
+        for a in kv_axes:
+            log.check(a in group.axis_names,
+                      f"kv axis {a!r} not in the device group")
+        shards = int(np.prod([group.shape[a] for a in kv_axes]))
+        if self.worker_axis is None:
+            return shards, shards
+        log.check(self.worker_axis in group.axis_names,
+                  f"worker axis {self.worker_axis!r} not in the device "
+                  f"group (a 2-D engine stays 2-D across reshards)")
+        log.check(self.worker_axis not in kv_axes,
+                  "worker_axis must differ from the kv axis (leave it "
+                  "None for the 1-D colocated layout)")
+        return shards, int(group.shape[self.worker_axis])
 
     # -- registration --------------------------------------------------------
 
@@ -377,8 +409,11 @@ class CollectiveEngine:
         serves (the JAX engine's eligibility rules): a ring needs >= 2
         ranks (the kv ranks, or on 2-D the dp ranks of each sub-ring), a
         2- or 4-byte dtype and a built-in elementwise handle; everything
-        else runs the torch path."""
+        else runs the torch path.  A composite kv axis without a worker
+        axis has no single ring dimension, so it runs the torch path."""
         if self.impl != "ring":
+            return "torch"
+        if self.worker_axis is None and isinstance(self.axis, tuple):
             return "torch"
         if self.num_workers < 2:
             return "torch"
@@ -903,6 +938,96 @@ class CollectiveEngine:
         with self._bucket_mu[name]:
             self._generations[name].advance()
             self._stores[name] = store
+
+    # -- elastic tier ------------------------------------------------------------
+
+    def reshard(self, group: DeviceGroup, axis_name=None) -> None:
+        """Re-lay every registered bucket (store and optimizer state) onto
+        a new device group: the engine side of the elastic tier (JAX
+        ``CollectiveEngine.reshard``).  The key ranges are recut for the
+        new shard count (padding included) and, on a 2-D or composite
+        engine, for the new worker fan-in; callers' grads take the new
+        W from then on.  ``axis_name`` (a name or a tuple) defaults to the
+        current kv axis; a 2-D engine reshards only onto a group that
+        carries its ``worker_axis``.  See :meth:`reshard_staged` for the
+        stage/commit split."""
+        with self.reshard_staged(group, axis_name) as commit:
+            commit()
+
+    @contextlib.contextmanager
+    def reshard_staged(self, group: DeviceGroup, axis_name=None):
+        """Stage a recut and yield its commit closure.
+
+        On entry, with every bucket lock held (taken in sorted name
+        order, released when the context exits), everything that can
+        fail runs: the logical values of each store and optimizer state
+        (``[:total_len]``, never the padded tensor: padding depends on the
+        shard count) are placed, through :func:`placement.place`, as the
+        new group's tensors; the adam step becomes one scalar broadcast to
+        the new shard count; registered pull buffers get a fresh buffer
+        of the new length.  Nothing of the engine changes until
+        ``commit()``, which does plain assignments only: a coordinated
+        recut of several engines stages them all first, so that a failure
+        in any of them leaves every engine on the old group.  After the
+        commit the buckets' zero-copy handles (and the last handle of
+        each registered pull buffer) are stale.
+
+        When both groups are on one card the recut is a copy on the card;
+        a group on another device takes the state there."""
+        if isinstance(axis_name, list):
+            axis_name = tuple(axis_name)
+        axis = axis_name or self.axis
+        new_shards, new_workers = self._layout(group, axis)
+        dev = group.device
+        with self._mu:
+            ordered = sorted(self._buckets)
+        for n in ordered:
+            self._bucket_mu[n].acquire()
+        try:
+            staged = {}
+            for n in ordered:
+                b = self._buckets[n]
+                padded = -(-b.total_len // new_shards) * new_shards
+
+                def repad(t, b=b, padded=padded):
+                    return placement.place(t[: b.total_len], dev, padded)
+
+                entry = {"padded": padded, "store": repad(self._stores[n])}
+                if n in self._pinned_pulls:
+                    buf = placement.place(self._stores[n][:0], dev, padded)
+                    gen = Generation(n)
+                    entry["pinned"] = (buf, gen, ZeroCopyHandle.wrap(buf, gen))
+                if n in self._opt_states:
+                    state = self._opt_states[n]
+                    if self._opt_kinds[n] == "adam":
+                        m, v, step = state
+                        entry["opt"] = (repad(m), repad(v), placement.place(
+                            step[:1].expand(new_shards), dev))
+                    else:
+                        entry["opt"] = (repad(state[0]),)
+                staged[n] = entry
+
+            def commit() -> None:
+                self.group = group
+                self.axis = axis
+                self.device = dev
+                self.num_shards = new_shards
+                self.num_workers = new_workers
+                for n in ordered:
+                    entry = staged[n]
+                    self._buckets[n].padded_len = entry["padded"]
+                    self._stores[n] = entry["store"]
+                    self._generations[n].advance()
+                    if "pinned" in entry:
+                        self._pinned_pulls[n][1].advance()
+                        self._pinned_pulls[n] = entry["pinned"]
+                    if "opt" in entry:
+                        self._opt_states[n] = entry["opt"]
+
+            yield commit
+        finally:
+            for n in reversed(ordered):
+                self._bucket_mu[n].release()
 
     def block(self, name: Optional[str] = None) -> None:
         """Wait for outstanding device work (ZPush/Wait semantics)."""

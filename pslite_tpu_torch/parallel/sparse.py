@@ -25,13 +25,15 @@ The store and the row-wise Adagrad accumulator are updated IN PLACE,
 where the JAX programs donate them; every result handed out (``pull``,
 ``pull_group``, ``push``'s token, the snapshots) is a fresh tensor.
 
-Not in this slice: ``reshard``/``reshard_staged`` (ROADMAP Queue 1 item
-7), multi-process groups, and ``store_raw``/``store_spec`` (they serve
+``reshard``/``reshard_staged`` recut the live tables (and accumulators)
+for another group's shard count.  Not in this slice: multi-process groups
+(ROADMAP Queue 1 item 9), and ``store_raw``/``store_spec`` (they serve
 only orbax checkpoints, which the port does not read).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -41,10 +43,9 @@ import torch
 
 from ..ops import sparse_rows
 from ..utils import logging as log
+from . import placement
 from .engine import to_tensor, torch_dtype
 from .mesh import DeviceGroup, default_group
-
-_NOT_PORTED = "not yet ported to pslite_tpu_torch"
 
 
 @dataclass
@@ -63,6 +64,13 @@ class SparseTable:
         """Physical store rows per shard in the JAX package's packed
         layout."""
         return self.rows_per_shard // self.pack
+
+
+def _rows_per_shard(num_rows: int, shards: int, pack: int) -> int:
+    """Rows per shard, rounded up to the JAX package's packing factor
+    (see :attr:`SparseTable.pack`)."""
+    rps = -(-num_rows // shards)
+    return -(-rps // pack) * pack
 
 
 def _interleave_rows(glob, num_rows: int, rps: int, S: int, dtype):
@@ -115,24 +123,31 @@ def _unpack_host(phys, rps: int, S: int, pack: int, dim: int):
     ).reshape(S * rps, dim)
 
 
+def _interleave_padded(arr: torch.Tensor, rps: int, S: int) -> torch.Tensor:
+    """A fresh tensor of global rows zero-padded to ``[rps*S, ...]`` ->
+    the store layout (a copy, or ``arr`` itself when S or rps is 1)."""
+    inner = tuple(arr.shape[1:])
+    return arr.reshape((rps, S) + inner).transpose(0, 1).reshape(arr.shape)
+
+
 def _interleave_device(glob: torch.Tensor, num_rows: int, rps: int,
                        S: int) -> torch.Tensor:
     """:func:`_interleave_rows` on the device: global rows ``[num_rows]``
     or ``[num_rows, dim]`` -> the store layout (a fresh tensor)."""
-    shape = (rps * S,) + tuple(glob.shape[1:])
-    arr = torch.zeros(shape, dtype=glob.dtype, device=glob.device)
+    arr = torch.zeros((rps * S,) + tuple(glob.shape[1:]), dtype=glob.dtype,
+                      device=glob.device)
     arr[:num_rows] = glob
-    inner = tuple(glob.shape[1:])
-    return arr.reshape((rps, S) + inner).transpose(0, 1).reshape(
-        shape).contiguous()
+    return _interleave_padded(arr, rps, S)
 
 
 def _deinterleave_device(inter: torch.Tensor, num_rows: int, rps: int,
                          S: int) -> torch.Tensor:
     """:func:`_deinterleave_rows` on the device (a fresh tensor)."""
     inner = tuple(inter.shape[1:])
-    return inter.reshape((S, rps) + inner).transpose(0, 1).reshape(
-        (rps * S,) + inner)[:num_rows].clone()
+    out = inter.reshape((S, rps) + inner).transpose(0, 1).reshape(
+        (rps * S,) + inner)[:num_rows]
+    # The reshape copies unless S or rps is 1, when it is a view.
+    return out.clone() if out.data_ptr() == inter.data_ptr() else out
 
 
 class SparseEngine:
@@ -171,9 +186,7 @@ class SparseEngine:
         log.check(dt in (torch.float32, torch.bfloat16),
                   f"sparse tables take float32 or bfloat16, got {dt}")
         pack = 128 // dim if (dim < 128 and 128 % dim == 0) else 1
-        rps = -(-num_rows // self.num_shards)
-        # Round to the JAX package's packing factor (see SparseTable.pack).
-        rps = -(-rps // pack) * pack
+        rps = _rows_per_shard(num_rows, self.num_shards, pack)
         table = SparseTable(name, num_rows, dim, rps, dt, pack=pack)
         S = self.num_shards
         if init is not None:
@@ -401,23 +414,84 @@ class SparseEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- not in this slice ----------------------------------------------------
+    # -- elastic tier ------------------------------------------------------------
 
-    def reshard(self, group, axis_name: Optional[str] = None) -> None:
-        raise NotImplementedError(
-            f"SparseEngine.reshard is {_NOT_PORTED} (ROADMAP Queue 1 item 7)")
+    def reshard(self, group: DeviceGroup, axis_name: Optional[str] = None
+                ) -> None:
+        """Re-lay every registered table onto a new device group: the
+        sparse half of the elastic tier (JAX ``SparseEngine.reshard``).
+        Rows go to global order, the row-to-shard mapping is recut for
+        the new shard count (global row r on shard ``r % S``),
+        ``rows_per_shard`` is recomputed with the lane-packing rounding,
+        and the Adagrad accumulator moves with its table.  See
+        :meth:`reshard_staged`."""
+        with self.reshard_staged(group, axis_name) as commit:
+            commit()
 
-    def reshard_staged(self, group, axis_name: Optional[str] = None):
-        raise NotImplementedError(
-            f"SparseEngine.reshard_staged is {_NOT_PORTED} (ROADMAP Queue 1 "
-            f"item 7)")
+    @contextlib.contextmanager
+    def reshard_staged(self, group: DeviceGroup,
+                       axis_name: Optional[str] = None):
+        """Stage a table recut and yield its commit closure, with the
+        contract of ``CollectiveEngine.reshard_staged``: everything that
+        can fail runs on entry with every table lock held (sorted order),
+        each new table and accumulator built through
+        :func:`placement.place`; ``commit()`` assigns only."""
+        axis = axis_name or self.axis
+        log.check(axis in group.axis_names,
+                  f"axis {axis!r} not in the new device group")
+        new_shards = int(group.shape[axis])
+        dev = group.device
+        with self._mu:
+            ordered = sorted(self._tables)
+        for n in ordered:
+            self._table_mu[n].acquire()
+        try:
+            S = self.num_shards
+            staged = {}
+            for n in ordered:
+                t = self._tables[n]
+                rps = _rows_per_shard(t.num_rows, new_shards, t.pack)
+
+                def recut(inter, t=t, rps=rps):
+                    # Global order, zero-padded for the new shard count on
+                    # the new device, then interleaved: three copies.
+                    return _interleave_padded(placement.place(
+                        _deinterleave_device(inter, t.num_rows,
+                                             t.rows_per_shard, S),
+                        dev, rps * new_shards), rps, new_shards)
+
+                staged[n] = (
+                    SparseTable(n, t.num_rows, t.dim, rps, t.dtype,
+                                pack=t.pack),
+                    recut(self._stores[n]),
+                    recut(self._acc[n]) if n in self._acc else None,
+                )
+
+            def commit() -> None:
+                self.group = group
+                self.axis = axis
+                self.device = dev
+                self.num_shards = new_shards
+                for n in ordered:
+                    table, store, acc = staged[n]
+                    self._tables[n] = table
+                    self._stores[n] = store
+                    if acc is not None:
+                        self._acc[n] = acc
+
+            yield commit
+        finally:
+            for n in reversed(ordered):
+                self._table_mu[n].release()
+
+    # -- orbax (not read by this package) ---------------------------------------
 
     def store_raw(self, name: str):
         raise NotImplementedError(
-            f"store_raw serves orbax checkpoints, which pslite_tpu_torch "
-            f"does not read; use store_array (ROADMAP Queue 1 item 5)")
+            "store_raw serves orbax checkpoints, which pslite_tpu_torch "
+            "does not read; use store_array")
 
     def store_spec(self, name: str):
         raise NotImplementedError(
-            f"store_spec serves orbax checkpoints, which pslite_tpu_torch "
-            f"does not read; use store_array (ROADMAP Queue 1 item 5)")
+            "store_spec serves orbax checkpoints, which pslite_tpu_torch "
+            "does not read; use store_array")

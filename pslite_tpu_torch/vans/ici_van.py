@@ -22,6 +22,9 @@ pattern of a data plane riding a nested control plane.
   as the JAX engines do without ``PS_ICI_MULTIHOST``.  A mesh spanning
   processes (``PS_ICI_MULTIHOST=1``, ``parallel/distributed.py``) is
   ROADMAP Queue 1 item 9 and raises on a worker.
+- **Elastic recut**: ``reshard_engines`` (``KVWorker.reshard``) moves a
+  worker's engines onto a new group between WORKER_GROUP barriers, each
+  worker process recutting its own engines.
 
 A worker whose environment names no scheduler (``DMLC_PS_ROOT_URI``
 unset) runs the data plane alone, with no control plane at all:
@@ -31,11 +34,14 @@ registered bucket has no server to go to (``KVWorker`` raises).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+from ..base import WORKER_GROUP
 from ..parallel.engine import CollectiveEngine
 from ..parallel.mesh import DeviceGroup
 from ..parallel.sparse import SparseEngine
+from ..utils import logging as log
 from .loopback_van import LoopbackVan
 from .shm_van import ShmVan
 from .tcp_van import TcpVan
@@ -75,6 +81,71 @@ class _IciDataPlane:
             )
             self.sparse_engine = SparseEngine(self.engine.group,
                                               self.engine.axis)
+
+    def reshard_engines(self, group: DeviceGroup,
+                        customer_id: int = 0) -> None:
+        """Cluster-coordinated elastic recut of this worker's engines onto
+        ``group`` (JAX ``_IciDataPlane.reshard_engines``).  Every worker
+        of the cluster calls it with the same new group; each recuts its
+        own engines (one worker process, one group) between WORKER_GROUP
+        barriers, so no registered op runs anywhere during a recut and no
+        worker resumes before every worker has finished.
+
+        The sequence: the cheap invariants are checked first (a worker
+        failing them would otherwise wedge its peers); an entry barrier;
+        both engines stage (``reshard_staged``: everything fallible); a
+        commit barrier; both commit; a resume barrier.  Each barrier
+        waits ``PS_RESHARD_TMO_S`` seconds (default 900, 0 = forever).
+
+        A peer may die at any moment:
+
+        - before the entry barrier: the others time out there and raise
+          with their engines untouched;
+        - during staging: a process whose staging failed sends no further
+          barrier request (barrier rounds are anonymous counts: a stray
+          request would release the others' commit barrier), so its peers
+          time out at the commit barrier, drop their staged state, and the
+          whole cluster stays on the old group together; stores are never
+          torn and the engine pair never diverges;
+        - after the commit, before the resume barrier: every survivor
+          holds the same committed state on the new group, and the resume
+          barrier's timeout raises to report the cluster degraded."""
+        log.check(self.engine is not None,
+                  "reshard_engines: no engine (worker-only, after start)")
+        self.engine._layout(group, self.engine.axis)  # checks both axes
+        log.check(self.sparse_engine.axis in group.axis_names,
+                  f"axis {self.sparse_engine.axis!r} not in the new group")
+        tmo = float(os.environ.get("PS_RESHARD_TMO_S", "900")) or None
+        self.po.barrier(customer_id, WORKER_GROUP, timeout_s=tmo)
+        staged = done = False
+        try:
+            with self.engine.reshard_staged(group) as commit_dense, \
+                    self.sparse_engine.reshard_staged(group) as commit_sp:
+                staged = True
+                try:
+                    self.po.barrier(customer_id, WORKER_GROUP, timeout_s=tmo)
+                except log.CheckError:
+                    raise log.CheckError(
+                        "a peer failed to stage the recut (commit barrier "
+                        "timeout) — aborted together on the old group"
+                    ) from None
+                commit_dense()
+                commit_sp()
+            done = True
+        finally:
+            # A process whose staging failed stays silent (see above); the
+            # others' commit-abort error wins at the resume barrier.
+            if staged:
+                try:
+                    self.po.barrier(customer_id, WORKER_GROUP, timeout_s=tmo)
+                except Exception:  # noqa: BLE001 - degraded report
+                    if done:
+                        raise log.CheckError(
+                            "reshard completed on this process but a peer "
+                            "did not reach the resume barrier — cluster "
+                            "degraded; recover the dead rank before further "
+                            "collective ops"
+                        ) from None
 
     def stop(self) -> None:
         """Drain outstanding device work, then stop the control plane."""

@@ -990,3 +990,107 @@ def test_msg_config2_topology_on_the_card(dev):
         for s in servers:
             s.stop()
         _card_finalize(nodes)
+
+
+def _elastic_engines(device, n):
+    """On ``n`` ranks of ``device``: bucket ``a`` (the default handle,
+    adam), bucket ``s`` (pushed with ``sum``: the ring) and a table."""
+    from pslite_tpu_torch import SparseEngine
+
+    eng = CollectiveEngine(DeviceGroup(n, device=device),
+                           server_handle="adam:1e-3", impl="ring")
+    keys = np.arange(8, dtype=np.uint64)
+    eng.register_dense("a", keys, 1001)  # total 8,008: padded per n
+    eng.register_dense("s", keys[:3], 333)
+    se = SparseEngine(eng.group)
+    se.register_sparse("emb", 5000, 64)
+    return eng, se
+
+
+def _elastic_state(eng, se):
+    out = [eng.store_array("a"), eng.store_array("s"), se.store_array("emb"),
+           se.acc_array("emb")]
+    return [t.cpu() for t in out + list(eng.opt_state("a")[1])]
+
+
+def test_restore_and_reshard_on_the_card_match_the_cpu(dev, tmp_path):
+    """A v2 file written on the CPU restores onto 4 ranks of the card
+    bit for bit; 8 -> 4 reshards of the same state on the card and on the
+    CPU are bit-equal, and the steps after them too (K4 1-D at n = 4,
+    the sparse sum push); then the composite (dp 2, kv1 2, kv2 2) ring on
+    the card equals the CPU's."""
+    from pslite_tpu_torch import checkpoint as ckpt
+
+    rng = np.random.default_rng(41)
+    cpu8, cse8 = _elastic_engines("cpu", 8)
+    for _ in range(2):
+        cpu8.push_pull("a", rng.normal(size=(8, 8008)).astype(np.float32))
+        cse8.push("emb", rng.integers(0, 5000, size=(8, 256)).astype(
+            np.int32), rng.normal(size=(8, 256, 64)).astype(np.float32),
+            handle="row_adagrad:0.01,1e-8")
+    cpu8.push_pull("s", rng.normal(size=(8, 999)).astype(np.float32),
+                   handle="sum")
+    path = str(tmp_path / "ck.npz")
+    ckpt.save_engine(cpu8, path, sparse_engine=cse8)
+    card4, sse4 = _elastic_engines(dev, 4)
+    ckpt.restore_engine(card4, path, sparse_engine=sse4)
+    card8, sse8 = _elastic_engines(dev, 8)
+    ckpt.restore_engine(card8, path, sparse_engine=sse8)
+    for x, y in zip(_elastic_state(card8, sse8), _elastic_state(cpu8, cse8)):
+        assert torch.equal(x, y)
+    for e in (card8, sse8):
+        e.reshard(DeviceGroup(4, device=dev))
+    for e in (cpu8, cse8):
+        e.reshard(DeviceGroup(4, device="cpu"))
+    want = _elastic_state(cpu8, cse8)
+    for got in (_elastic_state(card4, sse4), _elastic_state(card8, sse8)):
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    g = rng.normal(size=(4, 999)).astype(np.float32)
+    idx = rng.integers(0, 5000, size=(4, 300)).astype(np.int32)
+    rows = rng.normal(size=(4, 300, 64)).astype(np.float32)
+    for eng, se in ((card8, sse8), (cpu8, cse8)):
+        eng.push_pull("s", g, handle="sum")
+        se.push("emb", idx, rows)
+    assert torch.equal(card8.store_array("s").cpu(), cpu8.store_array("s"))
+    assert torch.equal(sse8.store_array("emb").cpu(), cse8.store_array("emb"))
+    g3 = rng.normal(size=(2, 303)).astype(np.float32)
+    outs = []
+    for d in (dev, "cpu"):
+        c3 = CollectiveEngine(make_group((2, 2, 2), ("dp", "kv1", "kv2"),
+                                         device=d),
+                              axis_name=("kv1", "kv2"), worker_axis="dp",
+                              impl="ring")
+        c3.register_dense("t3", np.arange(3, dtype=np.uint64), 101)
+        outs.append(c3.push_pull("t3", g3).cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_async_checkpoint_on_the_card(dev, tmp_path):
+    """An async save followed at once by in-place pushes on the card: the
+    file holds the state of the save() call, bit for bit."""
+    from pslite_tpu_torch import checkpoint as ckpt
+
+    eng, se = _elastic_engines(dev, 8)
+    rng = np.random.default_rng(42)
+    g = torch.from_numpy(rng.normal(size=(8, 8008)).astype(np.float32)).to(dev)
+    eng.push_pull("a", g)
+    want = _elastic_state_v1(eng, se)
+    ck = ckpt.AsyncEngineCheckpointer()
+    path = str(tmp_path / "async")
+    ck.save(eng, path, sparse_engine=se)
+    for _ in range(3):
+        eng.push_pull("a", g)
+        eng.push_pull("s", g[:, :999], handle="sum")
+    ck.close()
+    with np.load(path + ".npz") as data:
+        got = [data[k] for k in ("dense/a", "dense/s", "sparse/emb",
+                                 "opt/a/0", "opt/a/1", "opt/a/2")]
+    for x, y in zip(got, want):
+        assert np.array_equal(x, y)
+
+
+def _elastic_state_v1(eng, se):
+    return [t.cpu().numpy() for t in
+            [eng.store_array("a"), eng.store_array("s"), se.store_array("emb")]
+            + list(eng.opt_state("a")[1])]
