@@ -99,11 +99,24 @@ line):
    ``msg-config2`` (BASELINE config 2's topology over the loopback van:
    1 scheduler + 2 servers + 2 workers, test_benchmark's 40 keys per
    server of 1,024,000 B, 2 warm-up and 10 timed rounds of push, worker
-   barrier, pull, every pull checked exactly; ms/round and
-   test_benchmark's Gbit/s, beside the card's name and power limit and
-   the host CPU), ``msg-ici-mixed`` (one ``KVWorker`` on an ``ici``
-   cluster: the 40 x 1 MB bucket through K4 and 16 unregistered 1 MB
-   keys over messages to the server, 5 interleaved steps against
+   barrier, pull, every pull checked exactly; the servers' apply-shard
+   pool at its default, ``min(8, cores)`` shards; ms/round,
+   test_benchmark's Gbit/s and the bytes each side sent per round,
+   beside the card's name and power limit and the host CPU),
+   ``msg-config2-serial`` (the same with ``PS_APPLY_SHARDS=0``),
+   ``msg-pool-vs-serial`` (one worker's 3 pushes of normal floats and a
+   pull, pool and serial stores and pulls bit-equal),
+   ``msg-config2-int8``/``-fp8_e4m3``/``-bf16`` (both workers
+   ``register_bucket`` the keys under the codec, normal floats; every
+   pull within the codec's bound of the float64 sum of the pushes, each
+   encode that reached it counted; a raw pull after each round gives
+   the store's mean error) and ``msg-config2-int8-noef``
+   (``PS_CODEC_EF=0``: error feedback must shrink the store's mean
+   error), ``codec-throughput`` (encode and decode GB/s of an 81.92 MB
+   f32 payload per codec, ``PS_CODEC_THREADS`` default and 1),
+   ``msg-ici-mixed`` (one ``KVWorker`` on an ``ici`` cluster: the 40 x
+   1 MB bucket through K4 and 16 unregistered 1 MB keys over messages
+   to the server under the int8 codec, 5 interleaved steps against
    float64, K4's launches and the server's keys checked) and
    ``msg-optimizer`` (``KVServerOptimizerHandle`` adam against float64).
    Then separate processes, one per node (``python3 chip_smoke.py
@@ -113,7 +126,11 @@ line):
    push_pull of 40 x 1,024,000 B), ``tcp-config2`` (config 2, msg-config2's
    rounds at 80 x 1,024 B, 80 x 1,024,000 B and 2 x 64 MiB per worker;
    the 1 MB round also with ``DMLC_LOCAL=1``, no socket file left, and
-   over ``multi``, 2 tcp rails), ``shm-config3`` (config 3 on one host:
+   over ``multi``, 2 tcp rails), ``tcp-config2-pool``/``-serial``/
+   ``-int8`` (the 1 MB round again with the pool at its default, the 1
+   MiB chunks of each push streamed into it, with ``PS_APPLY_SHARDS=0``,
+   and under the int8 codec, each pull within its bound; the servers
+   count the pushes they streamed), ``shm-config3`` (config 3 on one host:
    the scheduler + 2 ``--joint`` processes over shm, registered push
    buffers and zero-copy pulls, no /dev/shm segment left) and
    ``ici-tcp-mixed`` (scheduler, server and an ``ici_tcp`` worker
@@ -1963,33 +1980,105 @@ def msg_finalize(nodes, apps) -> None:
     run_threads([po.finalize for po in nodes], "cluster finalize")
 
 
-def drive_msg_config2(ps, Environment, smi: str):
+# What one encode of a value can be off by, per 128-value block, in units
+# of the block's largest magnitude (ops/codecs.py): int8 half a scale step
+# (1/254; 1 % more for the error-feedback residual folded in), fp8 e4m3
+# 2^-4 of the value plus the float16 step before it and the subnormal
+# floor (0.075 covers them), bf16 2^-8 of the value (0.004).
+CODEC_UNIT = {"int8": 1.01 / 254, "fp8_e4m3": 0.075, "bf16": 0.004}
+CODECS = ("int8", "fp8_e4m3", "bf16")
+
+
+def codec_block_err(codec: str, x) -> np.ndarray:
+    """Per 128-value block of ``x``: the most one encode can be off by."""
+    a = np.abs(np.asarray(x, dtype=np.float64).reshape(-1))
+    pad = (-a.size) % 128
+    if pad:
+        a = np.concatenate([a, np.zeros(pad)])
+    return CODEC_UNIT[codec] * a.reshape(-1, 128).max(axis=1)
+
+
+class CodecBound:
+    """The bound a codec pull must lie within of the float64 sum of what
+    was pushed: the encode errors of every push and of every pull
+    response that reached it, summed (each at most ``codec_block_err``;
+    with error feedback the residual folded into an encode is one such
+    error too), plus float32 rounding of the server's adds."""
+
+    def __init__(self, codec: str, n: int, pullers: int):
+        self.codec = codec
+        self.s64 = np.zeros(n)
+        self.mag = np.zeros(n)
+        self.adds = 0
+        self.push = np.zeros(-(-n // 128))
+        self.pull = [np.zeros(-(-n // 128)) for _ in range(pullers)]
+
+    def pushed(self, x) -> None:
+        self.s64 += x
+        self.mag += np.abs(x)
+        self.adds += 1
+        self.push += codec_block_err(self.codec, x)
+
+    def check(self, label: str, i: int, got) -> float:
+        """Worker ``i``'s encoded pull (adds its encode), within bound;
+        returns its max |err|."""
+        self.pull[i] += (codec_block_err(self.codec, self.s64)
+                         + CODEC_UNIT[self.codec] * self.push)
+        n = self.s64.size
+        bound = (np.repeat(self.push + self.pull[i], 128)[:n]
+                 + (self.adds + 1) * 2.0 ** -24 * self.mag)
+        err = np.abs(got.astype(np.float64) - self.s64)
+        if not np.all(err <= bound):
+            bad = int((err > bound).sum())
+            raise AssertionError(f"{label}: {bad} values off the float64 "
+                                 f"sum beyond the {self.codec} bound (max "
+                                 f"|err| {float(err.max()):.4g})")
+        return float(err.max())
+
+
+def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
+                      env=None, codec=None):
     """BASELINE config 2's topology in one process over the loopback van:
     test_benchmark's PUSH_PULL workload (40 keys per server of 1,024,000
     B), each round both workers push on their own threads, meet at a
-    worker barrier, then pull.  Integer-valued f32 pushes, so every
-    pulled value is checked exactly, whatever order the two workers'
-    pushes arrive in."""
-    nodes = msg_cluster(ps, Environment, 2, 2)
+    worker barrier, then pull.  ``env`` adds node variables (e.g.
+    ``PS_APPLY_SHARDS=0``, the serial server).  Raw: integer-valued f32
+    pushes, so every pulled value is checked exactly, whatever order the
+    two workers' pushes arrive in.  With ``codec``, both workers
+    ``register_bucket`` the keys (pushes and pulls encoded), push seeded
+    normal f32, and each pull must lie within :class:`CodecBound` of the
+    float64 sum; after each round worker 0 also pulls raw (untimed),
+    whose mean |err| is the store's."""
+    nodes = msg_cluster(ps, Environment, 2, 2, env=env)
     srv_pos, wk_pos = nodes[1:3], nodes[3:]
     apps = []
     try:
-        handles = []
+        handles, servers = [], []
         for po in srv_pos:
             srv = ps.KVServer(0, postoffice=po)
             handles.append(ps.KVServerDefaultHandle())
             srv.set_request_handle(handles[-1])
-            apps.append(srv)
+            servers.append(srv)
+        apps += servers
         workers = [ps.KVWorker(0, 0, postoffice=po) for po in wk_pos]
         apps += workers
         keys = np.array([r.begin + i for r in wk_pos[0].get_server_key_ranges()
                          for i in range(MSG_KEYS_PER_SERVER)], np.uint64)
+        n = len(keys) * VAL_LEN
         rng = np.random.default_rng(SEED + 3)
-        base = [rng.integers(-8, 8, size=len(keys) * VAL_LEN).astype(
-            np.float32) for _ in range(2)]
+        if codec is None:
+            base = [rng.integers(-8, 8, size=n).astype(np.float32)
+                    for _ in range(2)]
+        else:
+            base = [rng.standard_normal(n, dtype=np.float32)
+                    for _ in range(2)]
+            for w in workers:
+                w.register_bucket(keys, codec=codec)
         bufs = [np.empty_like(b) for b in base]
         outs = [np.zeros_like(b) for b in base]
-        base_sum = base[0].astype(np.float64) + base[1]
+        bound = CodecBound(codec, n, 2) if codec else None
+        s64 = np.zeros(n)
+        raw = np.zeros(n, np.float32)
 
         phases = {"push": [], "barrier": [], "pull": []}
 
@@ -2007,49 +2096,203 @@ def drive_msg_config2(ps, Environment, smi: str):
                                  ("pull", t3 - t2)):
                     phases[name].append(dt)
 
-        times = []
+        def sent():
+            return (sum(po.van.send_bytes for po in wk_pos),
+                    sum(po.van.send_bytes for po in srv_pos))
+
+        times, worst, store_err, wire = [], 0.0, [], [0, 0]
         for r in range(MSG_WARMUP + MSG_ROUNDS):
             for i in range(2):
                 np.add(base[i], np.float32(r), out=bufs[i])
+            before = sent()
             t0 = time.perf_counter()
             run_threads([lambda i=i: work(i) for i in range(2)],
-                        f"msg-config2 round {r}")
+                        f"{label} round {r}")
             times.append(time.perf_counter() - t0)
-            want = (r + 1) * base_sum + r * (r + 1)
+            if r >= MSG_WARMUP:
+                after = sent()
+                wire = [wire[j] + after[j] - before[j] for j in range(2)]
             for i in range(2):
-                if not np.array_equal(outs[i], want):
-                    bad = int((outs[i] != want).sum())
-                    raise AssertionError(f"msg-config2 round {r}: worker {i} "
+                s64 += bufs[i]
+                if bound is not None:
+                    bound.pushed(bufs[i])
+            for i in range(2):
+                if bound is not None:
+                    worst = max(worst, bound.check(f"{label} round {r} "
+                                                   f"worker {i}", i, outs[i]))
+                elif not np.array_equal(outs[i], s64):
+                    bad = int((outs[i] != s64).sum())
+                    raise AssertionError(f"{label} round {r}: worker {i} "
                                          f"pulled {bad} wrong values")
+            if bound is not None:
+                workers[0].wait(workers[0].pull(keys, raw, codec="raw"))
+                store_err.append(float(np.abs(raw - s64).mean()))
         if [len(h.store) for h in handles] != [MSG_KEYS_PER_SERVER] * 2:
-            raise AssertionError("msg-config2: servers hold the wrong keys")
+            raise AssertionError(f"{label}: servers hold the wrong keys")
+        streams = sum(s.streams_opened for s in servers)
+        shards = [s._apply_pool.num_shards if s._apply_pool else 0
+                  for s in servers]
         elapsed = sum(times[MSG_WARMUP:])
         nbytes = VAL_LEN * 4
         gbps = 8 * nbytes * len(keys) * MSG_ROUNDS / (elapsed * 1e9)
         ms = elapsed / MSG_ROUNDS * 1e3
-        print(f"msg-config2 (1 scheduler + 2 servers + 2 workers, loopback "
-              f"van, {len(keys)} keys x {nbytes} B per worker and round): "
+        up, down = (b / MSG_ROUNDS for b in wire)
+        detail = (f"every pull within the {codec} bound of the float64 sum "
+                  f"(max |err| {worst:.4g}); store mean |err| by round "
+                  f"(raw pulls) {', '.join(f'{e:.3g}' for e in store_err)}"
+                  if codec else f"{MSG_WARMUP + MSG_ROUNDS} rounds checked "
+                  f"exactly")
+        print(f"{label} (1 scheduler + 2 servers + 2 workers, loopback van, "
+              f"{len(keys)} keys x {nbytes} B per worker and round, apply "
+              f"shards per server {shards}, codec {codec or 'raw'}): "
               f"{ms:.3f} ms/round (push, worker barrier, pull; host path, "
-              f"no device work; rounds {', '.join(f'{t * 1e3:.1f}' for t in times[MSG_WARMUP:])} ms), "
-              f"{gbps:.4f} Gbit/s per worker by test_benchmark's "
+              f"no device work; rounds "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times[MSG_WARMUP:])} "
+              f"ms), {gbps:.4f} Gbit/s per worker by test_benchmark's "
               f"8*len*total_key_num*iters/elapsed_ns, {2 * gbps:.4f} both "
-              f"workers; {MSG_WARMUP + MSG_ROUNDS} rounds checked exactly; "
-              f"per worker and round: " + ", ".join(
-                  f"{k} {sum(v) / len(v) * 1e3:.1f} ms"
-                  for k, v in phases.items()) +
-              f" [{smi}] [host CPU {cpu_model()}]")
-        return [{"config": "msg-config2", "ops": 4 * (MSG_WARMUP + MSG_ROUNDS),
-                 "max_abs_err_vs_f64": 0.0, "ms_per_round": ms,
-                 "gbps_per_worker": gbps}]
+              f"workers; wire bytes per round: workers sent {up:.0f}, "
+              f"servers sent {down:.0f}; {detail}; per worker and round: "
+              + ", ".join(f"{k} {sum(v) / len(v) * 1e3:.1f} ms"
+                          for k, v in phases.items())
+              + f" [{smi}] [host CPU {cpu_model()}]")
+        row = {"config": label, "ops": 4 * (MSG_WARMUP + MSG_ROUNDS),
+               "max_abs_err_vs_f64": worst, "ms_per_round": ms,
+               "gbps_per_worker": gbps, "wire_up_bytes_per_round": up,
+               "wire_down_bytes_per_round": down, "streams": streams}
+        if codec:
+            row["store_mean_err"] = sum(store_err) / len(store_err)
+        return [row]
     finally:
         msg_finalize(nodes, apps)
+
+
+def drive_msg_codecs(ps, Environment, smi: str):
+    """``msg-config2`` under each codec (error feedback on), and int8 again
+    with ``PS_CODEC_EF=0``: error feedback must shrink the store's mean
+    error over the rounds."""
+    rows = []
+    for codec in CODECS:
+        rows += drive_msg_config2(ps, Environment, smi,
+                                  label=f"msg-config2-{codec}", codec=codec)
+    rows += drive_msg_config2(ps, Environment, smi,
+                              label="msg-config2-int8-noef",
+                              env={"PS_CODEC_EF": "0"}, codec="int8")
+    ef, noef = rows[0]["store_mean_err"], rows[-1]["store_mean_err"]
+    if not ef < noef:
+        raise AssertionError(f"error feedback did not shrink the store's mean "
+                             f"error: {ef:.4g} with, {noef:.4g} without")
+    print(f"msg-config2-int8: error feedback, store mean |err| over "
+          f"{MSG_WARMUP + MSG_ROUNDS} rounds {ef:.4g} against {noef:.4g} with "
+          f"PS_CODEC_EF=0 ({noef / ef:.2f}x)")
+    return rows
+
+
+def drive_msg_pool_vs_serial(ps, Environment):
+    """One worker, one server, the 80 x 1 MB keys: 3 pushes of seeded
+    normal f32 and a pull, with the apply-shard pool (the default) and
+    with ``PS_APPLY_SHARDS=0``: stores and pulls bit-equal."""
+    keys = np.arange(2 * MSG_KEYS_PER_SERVER, dtype=np.uint64)
+    rng = np.random.default_rng(SEED + 6)
+    pushes = [rng.standard_normal(len(keys) * VAL_LEN, dtype=np.float32)
+              for _ in range(3)]
+    results = []
+    for env in ({}, {"PS_APPLY_SHARDS": "0"}):
+        nodes = msg_cluster(ps, Environment, 1, 1, env=env)
+        apps = []
+        try:
+            srv = ps.KVServer(0, postoffice=nodes[1])
+            handle = ps.KVServerDefaultHandle()
+            srv.set_request_handle(handle)
+            apps.append(srv)
+            w = ps.KVWorker(0, 0, postoffice=nodes[2])
+            apps.append(w)
+            for p in pushes:
+                w.wait(w.push(keys, p))
+            out = np.zeros_like(pushes[0])
+            w.wait(w.pull(keys, out))
+            results.append((srv._apply_pool is not None, out,
+                            {k: v.tobytes() for k, v in handle.store.items()}))
+        finally:
+            msg_finalize(nodes, apps)
+    (pooled, out_a, st_a), (serial_pool, out_b, st_b) = results
+    if not pooled or serial_pool:
+        raise AssertionError("msg-pool-vs-serial: the pool did not run where "
+                             "it should")
+    if out_a.tobytes() != out_b.tobytes() or st_a != st_b:
+        raise AssertionError("msg-pool-vs-serial: pool and serial stores "
+                             "differ")
+    print(f"msg-pool-vs-serial: 1 worker, {len(keys)} x {VAL_LEN * 4} B, 3 "
+          f"pushes + pull: pool and PS_APPLY_SHARDS=0 stores and pulls "
+          f"bit-equal")
+    return [{"config": "msg-pool-vs-serial", "ops": 8,
+             "max_abs_err_vs_f64": 0.0}]
+
+
+def drive_codec_throughput(smi: str):
+    """Encode and decode GB/s (raw bytes / host time) of one 81.92 MB
+    float32 payload per codec, with ``PS_CODEC_THREADS`` at its default
+    and at 1; mean of 3 calls after one warm-up; each decode within the
+    codec's bound of the input."""
+    from pslite_tpu_torch.ops import codecs
+
+    x = np.random.default_rng(SEED + 7).standard_normal(
+        2 * MSG_KEYS_PER_SERVER * VAL_LEN, dtype=np.float32)
+    rows = []
+    saved = os.environ.get("PS_CODEC_THREADS")
+    try:
+        for threads in (None, "1"):
+            if threads is None:
+                os.environ.pop("PS_CODEC_THREADS", None)
+            else:
+                os.environ["PS_CODEC_THREADS"] = threads
+            nt = codecs.codec_threads()
+            for name in CODECS:
+                c = codecs.get_codec(name)
+                times = {"encode": [], "decode": []}
+                for rep in range(4):
+                    t0 = time.perf_counter()
+                    codes, scales, flags = c.encode(x)
+                    t1 = time.perf_counter()
+                    y = c.decode(codes, scales, x.size, flags=flags)
+                    t2 = time.perf_counter()
+                    if rep:
+                        times["encode"].append(t1 - t0)
+                        times["decode"].append(t2 - t1)
+                err = np.abs(y.astype(np.float64) - x)
+                if not np.all(err <= np.repeat(codec_block_err(name, x),
+                                               128)[:x.size]):
+                    raise AssertionError(f"codec {name}: decode off its bound")
+                wire = codes.nbytes + scales.nbytes
+                del codes, scales, y
+                gbs = {k: x.nbytes / (sum(v) / len(v)) / 1e9
+                       for k, v in times.items()}
+                print(f"codec-throughput {name} (PS_CODEC_THREADS "
+                      f"{threads or 'default'} = {nt} span threads): encode "
+                      f"{gbs['encode']:.3f} GB/s, decode {gbs['decode']:.3f} "
+                      f"GB/s of {x.nbytes} B f32 -> {wire} B on the wire "
+                      f"({x.nbytes / wire:.2f}x); max |err| "
+                      f"{float(err.max()):.3g} [{smi}] [host CPU "
+                      f"{cpu_model()}]")
+                rows.append({"config": f"codec-throughput {name} threads "
+                             f"{nt}", "ops": 6,
+                             "max_abs_err_vs_f64": float(err.max()),
+                             "encode_gbs": gbs["encode"],
+                             "decode_gbs": gbs["decode"], "wire_bytes": wire})
+    finally:
+        if saved is None:
+            os.environ.pop("PS_CODEC_THREADS", None)
+        else:
+            os.environ["PS_CODEC_THREADS"] = saved
+    return rows
 
 
 def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
     """The JAX IciVan's contract on the card: one KVWorker on an ``ici``
     cluster push_pulls the registered 40 x 1 MB bucket through K4 and
     pushes/pulls 16 unregistered 1 MB keys over messages to the server,
-    interleaved for 5 steps, each against float64 numpy."""
+    those under the int8 codec (``register_bucket``), interleaved for 5
+    steps, each against float64 numpy (the messages within the codec's
+    bound)."""
     nodes = msg_cluster(ps, Environment, 1, 1, van="ici")
     apps = []
     try:
@@ -2062,6 +2305,8 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
         bucket = np.arange(KEYS, dtype=np.uint64)
         w.register_dense("grads", bucket, VAL_LEN)
         loose = np.arange(MSG_LOOSE_KEYS, dtype=np.uint64) + 1_000_000
+        w.register_bucket(loose, codec="int8")
+        lbound = CodecBound("int8", MSG_LOOSE_KEYS * VAL_LEN, 1)
         rng = np.random.default_rng(SEED + 4)
         lbase = rng.integers(-8, 8, size=MSG_LOOSE_KEYS * VAL_LEN).astype(
             np.float32)
@@ -2089,10 +2334,9 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
             w.wait(w.pull(loose, lout))
             t_push.append(t1 - t0)
             t_pull.append(time.perf_counter() - t1)
-            want = (k + 1) * lbase.astype(np.float64) + k * (k + 1) / 2
-            if not np.array_equal(lout, want):
-                raise AssertionError(f"msg-ici-mixed: message step {k} "
-                                     f"pulled wrong values")
+            lbound.pushed(lbuf)
+            lworst = lbound.check(f"msg-ici-mixed: message step {k}", 0,
+                                  lout)
         if sorted(handle.store) != loose.tolist():
             raise AssertionError(f"msg-ici-mixed: the server holds keys "
                                  f"{sorted(handle.store)[:4]}..., not exactly "
@@ -2110,7 +2354,8 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
               f"op: bucket push_pull {ms['bucket']:.3f} (numpy grads, "
               f"host-to-device copy and result copy included), message push "
               f"{ms['push']:.3f}, message pull {ms['pull']:.3f} "
-              f"({MSG_LOOSE_KEYS} x {VAL_LEN * 4} B); bucket max |err| vs "
+              f"({MSG_LOOSE_KEYS} x {VAL_LEN * 4} B, int8 codec, within its "
+              f"bound: max |err| {lworst:.3g}); bucket max |err| vs "
               f"float64 {worst:.3g} [{smi}]")
         return [{"config": "msg-ici-mixed", "ops": 3 * steps,
                  "max_abs_err_vs_f64": worst, "k4_launches": k4,
@@ -2578,6 +2823,7 @@ def node_main() -> int:
         srv = ps.KVServer(0)
         srv.set_request_handle(ps.KVServerDefaultHandle())
         apps.append(srv)
+        report["streams_opened"] = lambda: srv.streams_opened
         if os.environ.get("ENABLE_RECV_BUFFER") == "1":
             # test_benchmark.cc:268-320: each worker's slice lands in a
             # buffer pinned for it.
@@ -2605,8 +2851,9 @@ def node_main() -> int:
         ps.finalize()
     for a in apps:
         a.stop()
-    if "delivered_in_place" in report:
-        report["delivered_in_place"] = report["delivered_in_place"]()
+    for key in ("delivered_in_place", "streams_opened"):
+        if key in report:
+            report[key] = report[key]()
     report["ok"] = True
     print(json.dumps(report), flush=True)
     return 0
@@ -2617,9 +2864,13 @@ def node_rounds(ps, po, kv, spec) -> dict:
     key]`` of ``spec["sizes"]`` (key ranges disjoint per size):
     ``push_pull`` (fused) or ``push`` + worker barrier + ``pull``, with
     integer-valued f32 pushes, so every pulled value is checked
-    exactly whatever order the workers' pushes arrive in."""
+    exactly whatever order the workers' pushes arrive in.  With
+    ``spec["codec"]`` the keys are ``register_bucket``-ed under it, the
+    pushes are seeded normal f32, and each pull must lie within
+    ``CodecBound`` of the float64 sum of every worker's pushes."""
     workers = po.num_workers
     me = po.my_rank()
+    codec = spec.get("codec")
     out = {}
     for si, (per_server, nbytes) in enumerate(spec["sizes"]):
         ranges = po.get_server_key_ranges()
@@ -2627,20 +2878,28 @@ def node_rounds(ps, po, kv, spec) -> dict:
                          for i in range(per_server)], np.uint64)
         vlen = nbytes // 4
         rng = np.random.default_rng(SEED + 7 + si)
-        bases = [rng.integers(-8, 8, size=len(keys) * vlen).astype(
-            np.float32) for _ in range(workers)]
+        if codec:
+            kv.register_bucket(keys, codec=codec)
+            bases = [rng.standard_normal(len(keys) * vlen, dtype=np.float32)
+                     for _ in range(workers)]
+            bound = CodecBound(codec, len(keys) * vlen, 1)
+        else:
+            bases = [rng.integers(-8, 8, size=len(keys) * vlen).astype(
+                np.float32) for _ in range(workers)]
         base, base_sum = bases[me], sum(b.astype(np.float64) for b in bases)
-        del bases
+        if not codec:
+            del bases
         buf = np.empty_like(base)
         dst = (kv.alloc_pull_buffer(keys, vlen) if spec.get("zpull")
                else None)
         if spec.get("zpull") and dst is None:
             raise AssertionError("alloc_pull_buffer returned None")
         outs = dst if dst is not None else np.zeros_like(base)
-        times = []
+        times, worst, wire = [], 0.0, [0, 0]
         rounds = spec["warmup"] + spec["rounds"]
         for r in range(rounds):
             np.add(base, np.float32(r), out=buf)
+            before = (po.van.send_bytes, po.van.recv_bytes)
             t0 = time.perf_counter()
             if spec["mode"] == "push_pull":
                 kv.wait(kv.push_pull(keys, buf, outs))
@@ -2649,11 +2908,20 @@ def node_rounds(ps, po, kv, spec) -> dict:
                 po.barrier(0, ps.WORKER_GROUP)
                 kv.wait(kv.pull(keys, outs))
             times.append(time.perf_counter() - t0)
-            want = (r + 1) * base_sum + workers * r * (r + 1) / 2
-            if not np.array_equal(outs, want):
-                raise AssertionError(f"size {nbytes} B round {r}: "
-                                     f"{int((outs != want).sum())} values "
-                                     f"wrong")
+            if r >= spec["warmup"]:
+                wire[0] += po.van.send_bytes - before[0]
+                wire[1] += po.van.recv_bytes - before[1]
+            if codec:
+                for b in bases:
+                    bound.pushed(b + np.float32(r))
+                worst = max(worst, bound.check(f"size {nbytes} B round {r}",
+                                               0, outs))
+            else:
+                want = (r + 1) * base_sum + workers * r * (r + 1) / 2
+                if not np.array_equal(outs, want):
+                    raise AssertionError(f"size {nbytes} B round {r}: "
+                                         f"{int((outs != want).sum())} "
+                                         f"values wrong")
             # The next round's push must not overtake a slower worker's
             # pull of this one.
             if spec["mode"] != "push_pull":
@@ -2666,7 +2934,9 @@ def node_rounds(ps, po, kv, spec) -> dict:
         out[str(nbytes)] = {
             "keys": len(keys), "ms_per_round": elapsed / len(timed) * 1e3,
             "gbps": 8 * nbytes * len(keys) * len(timed) / (elapsed * 1e9),
-            "rounds_ms": [t * 1e3 for t in timed], "checked": rounds}
+            "rounds_ms": [t * 1e3 for t in timed], "checked": rounds,
+            "max_err": worst, "sent_per_round": wire[0] / len(timed),
+            "recv_per_round": wire[1] / len(timed)}
     out["zpull_hits"] = kv.zpull_hits
     out["chunks"] = [po.van.chunks_sent, po.van.chunks_recv]
     return {"sizes": out}
@@ -2718,11 +2988,12 @@ def node_ici(torch, ring, kv, spec) -> dict:
 
 
 def launch(van: str, workers: int, servers: int, spec: dict,
-           extra=None, joint: bool = False):
+           extra=None, joint: bool = False,
+           report_roles=("worker", "joint")):
     """One cluster of separate processes, roles from the port's
     launcher (``tracker/local.py``), each child under PROC_DEADLINE;
     every child is killed when one fails or time runs out.  Returns the
-    children's JSON reports (workers and joint nodes only)."""
+    JSON reports of the children of ``report_roles``."""
     import tempfile
 
     from pslite_tpu_torch.tracker.local import LocalLauncher, build_env
@@ -2770,7 +3041,7 @@ def launch(van: str, workers: int, servers: int, spec: dict,
             print(f"  [{role}] " + "\n  ".join(text.splitlines()[-15:]))
         raise AssertionError(f"{van} cluster: {failed} failed")
     return [json.loads(text.strip().splitlines()[-1]) for role, text in outs
-            if role in ("worker", "joint")]
+            if role in report_roles]
 
 
 def rounds_summary(reports, nbytes: int) -> dict:
@@ -2778,24 +3049,34 @@ def rounds_summary(reports, nbytes: int) -> dict:
     return {"ms_per_round": sum(x["ms_per_round"] for x in rows) / len(rows),
             "gbps_per_worker": sum(x["gbps"] for x in rows) / len(rows),
             "rounds_ms": rows[0]["rounds_ms"], "checked": rows[0]["checked"],
-            "keys": rows[0]["keys"]}
+            "keys": rows[0]["keys"],
+            "max_err": max(x["max_err"] for x in rows),
+            "sent": sum(x["sent_per_round"] for x in rows) / len(rows),
+            "recv": sum(x["recv_per_round"] for x in rows) / len(rows)}
 
 
-def _print_rounds(label, topo, reports, sizes, smi, loopback):
+def _print_rounds(label, topo, reports, sizes, smi, loopback, codec=None):
     out = []
     for _n, nbytes in sizes:
         s = rounds_summary(reports, nbytes)
+        check = (f"every pull within the {codec} bound of the float64 sum, "
+                 f"max |err| {s['max_err']:.4g}" if codec else
+                 "checked exactly")
         print(f"{label} ({topo}, {s['keys']} keys x {nbytes} B per worker "
               f"and round): {s['ms_per_round']:.3f} ms/round, "
               f"{s['gbps_per_worker']:.4f} Gbit/s per worker by "
               f"test_benchmark's 8*len*total_key_num*iters/elapsed_ns "
               f"(rounds {', '.join(f'{t:.1f}' for t in s['rounds_ms'])} ms; "
-              f"{s['checked']} rounds checked exactly); loopback msg-config2 "
-              f"of this run {loopback} [{smi}] [host CPU {cpu_model()}]")
+              f"{s['checked']} rounds {check}); wire bytes per worker and "
+              f"round: sent {s['sent']:.0f}, received {s['recv']:.0f}; "
+              f"loopback msg-config2 of this run {loopback} [{smi}] [host "
+              f"CPU {cpu_model()}]")
         out.append({"config": f"{label} {nbytes} B", "ops": s["checked"],
-                    "max_abs_err_vs_f64": 0.0,
+                    "max_abs_err_vs_f64": s["max_err"],
                     "ms_per_round": s["ms_per_round"],
-                    "gbps_per_worker": s["gbps_per_worker"]})
+                    "gbps_per_worker": s["gbps_per_worker"],
+                    "wire_sent_per_round": s["sent"],
+                    "wire_recv_per_round": s["recv"]})
     return out
 
 
@@ -2848,6 +3129,36 @@ def drive_tcp_config2(smi: str):
                          "rails)", launch("multi", 2, 2, dict(spec, sizes=mb),
                                           extra={"DMLC_NUM_PORTS": "2"}),
                          mb, smi, _loopback_cell[0])
+    return out
+
+
+def drive_tcp_config2_tiers(smi: str):
+    """tcp-config2's 1,024,000 B point twice more: with the apply-shard
+    pool turned off (``PS_APPLY_SHARDS=0``; the other tcp rows run it at
+    its default, the 1 MiB chunks of each push streamed into it) and
+    under the int8 codec (``register_bucket`` on both workers, the pool
+    at its default).  The servers report the chunked pushes they
+    streamed."""
+    spec = {"mode": "push_barrier_pull", "warmup": MSG_WARMUP,
+            "rounds": MSG_ROUNDS, "sizes": [[MSG_KEYS_PER_SERVER, MB_LEN]]}
+    topo = "1 + 2 + 2 processes, tcp"
+    out = []
+    for label, extra, codec in (
+            ("tcp-config2-pool", {}, None),
+            ("tcp-config2-serial", {"PS_APPLY_SHARDS": "0"}, None),
+            ("tcp-config2-int8", {}, "int8")):
+        reports = launch("tcp", 2, 2, dict(spec, codec=codec), extra=extra,
+                         report_roles=("worker", "server"))
+        streams = sum(r.get("streams_opened", 0) for r in reports)
+        workers = [r for r in reports if r["role"] == "worker"]
+        want_streams = 0 if extra or codec else 1
+        if (streams > 0) != bool(want_streams):
+            raise AssertionError(f"{label}: servers streamed {streams} "
+                                 f"chunked pushes")
+        out += _print_rounds(label, f"{topo}, {extra or 'pool default'}, "
+                             f"streamed pushes {streams}", workers,
+                             spec["sizes"], smi, _loopback_cell[0],
+                             codec=codec)
     return out
 
 
@@ -3030,11 +3341,20 @@ def main() -> int:
         ("elastic", lambda: drive_elastic(torch, ps, ring, emb, Environment,
                                           smi)),
         ("msg-config2", lambda: drive_msg_config2(ps, Environment, smi)),
+        ("msg-config2-serial", lambda: drive_msg_config2(
+            ps, Environment, smi, label="msg-config2-serial",
+            env={"PS_APPLY_SHARDS": "0"})),
+        ("msg-pool-vs-serial", lambda: drive_msg_pool_vs_serial(
+            ps, Environment)),
+        ("msg-config2-codecs", lambda: drive_msg_codecs(ps, Environment,
+                                                        smi)),
+        ("codec-throughput", lambda: drive_codec_throughput(smi)),
         ("msg-ici-mixed", lambda: drive_msg_ici_mixed(
             ps, ring, Environment, grads_steps, smi)),
         ("msg-optimizer", lambda: drive_msg_optimizer(ps, Environment)),
         ("tcp-config1", lambda: drive_tcp_config1(smi)),
         ("tcp-config2", lambda: drive_tcp_config2(smi)),
+        ("tcp-config2-tiers", lambda: drive_tcp_config2_tiers(smi)),
         ("shm-config3", lambda: drive_shm_config3(smi)),
         ("ici-tcp-mixed", lambda: drive_ici_proc("ici_tcp", smi)),
         ("ici-shm-mixed", lambda: drive_ici_proc("ici_shm", smi)),

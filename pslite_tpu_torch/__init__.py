@@ -11,7 +11,11 @@ A port of the JAX package ``pslite_tpu`` that imports neither JAX nor
   ``KVWorker.push``/``pull``/``push_pull`` of any sorted keys, sliced
   across the servers' key ranges, with ``lens`` and ``cmd``;
   ``KVServer`` with ``KVServerDefaultHandle`` or
-  ``KVServerOptimizerHandle``; ``SimpleApp``.  Host numpy, as in JAX.
+  ``KVServerOptimizerHandle``, applying on the apply-shard pool
+  (``kv/apply_shards.py``; chunked pushes streamed into it); wire codecs
+  with error feedback (``ops/codecs.py``: int8, fp8_e4m3, bf16, by
+  ``register_bucket`` or ``codec=``); ``SimpleApp``.  Host numpy, as in
+  JAX.
 - **The ICI data plane** (``vans/ici_van.py``, ``parallel/``): a
   worker's registered dense buckets through ``CollectiveEngine``, on a
   1-D group or a 2-D ``(dp, kv)`` group, with or without int8 wire

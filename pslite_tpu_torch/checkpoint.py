@@ -123,17 +123,51 @@ def save_engine(engine, path: str, sparse_engine=None) -> None:
     np.savez(path, **arrays)
 
 
+def _check_v1_shards(meta: dict, data, engine, sparse_engine) -> None:
+    """A v1 file is laid out for its saver's shard count S, which it does
+    not record: restored onto another S its tables' interleaved rows
+    would land permuted whenever the row counts happen to agree.  Refuse
+    it when what the file does show of S disagrees with this engine's:
+    an adam step vector holds S entries, and a store longer than its
+    ``total_len`` is padded to a multiple of S."""
+    shards = {engine.num_shards}
+    if sparse_engine is not None:
+        shards.add(sparse_engine.num_shards)
+    seen = set()
+    for name, info in meta.get("opt", {}).items():
+        if info["kind"] == "adam":
+            seen.add(int(data[f"opt/{name}/2"].size))
+    for name, info in meta["dense"].items():
+        n = int(data[f"dense/{name}"].size)
+        if name in engine._buckets and n != info["total_len"]:
+            log.check(n == engine._buckets[name].padded_len,
+                      f"v1 checkpoint: bucket {name!r} is padded to {n} "
+                      f"values, not to this engine's "
+                      f"{engine._buckets[name].padded_len}: the file was "
+                      f"written on another shard count; restore a v2 file "
+                      f"(save_engine) instead")
+    bad = seen - shards
+    log.check(not bad,
+              f"v1 checkpoint written by an engine of {sorted(bad)} shards "
+              f"cannot restore onto {sorted(shards)} (its tables' rows "
+              f"would be permuted); restore a v2 file (save_engine) "
+              f"instead")
+
+
 def restore_engine(engine, path: str, sparse_engine=None) -> None:
     """Restore buckets and tables saved by :func:`save_engine` (or, v1,
     by :class:`AsyncEngineCheckpointer`).  Buckets and tables must
     already be registered; a v2 file restores onto any shard count, a v1
-    file onto the saver's only.  Without ``sparse_engine`` the tables are
-    not read."""
+    file onto the saver's only (refused before anything is restored
+    where the file shows another shard count).  Without
+    ``sparse_engine`` the tables are not read."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         v2 = meta.get("version", 1) >= 2
+        if not v2:
+            _check_v1_shards(meta, data, engine, sparse_engine)
         for name in meta["dense"]:
             log.check(name in engine._buckets,
                       f"bucket {name!r} not registered before restore")

@@ -34,34 +34,46 @@ its slice in place and ``_finish`` copies nothing; other vans return
 None, as in JAX.  ``KVServer.register_recv_buffer`` also registers the
 pair with the van (:3055), which places the push at delivery.
 
-Host numpy on the message path, as in JAX.  Not here, each raising where
-a JAX caller would reach it: wire codecs (``codec=``/``compress=`` other
-than ``"raw"``), tenants, the apply-shard pool, small-op batching,
-``multi_get`` and the hot-key cache (ROADMAP Queue 1 item 6); request
-deadlines and failover, replication, elastic routing, snapshots and
-namespaces (item 8).  ``KVWorker.reshard`` recuts the worker's engines
-onto a new device group (``IciVan.reshard_engines``).  Apply is serial on the
-server's customer thread, which gives the same stores as the JAX shard
-pool (its contract is serial bit-exactness).
+Wire codecs (``ops/codecs.py``): ``register_bucket(keys, codec=)`` (:586) or a
+call's ``codec=`` (``compress=`` is its old name; ``"raw"`` forces none)
+sends a push's float32 values as ``[keys, codes, scales(, lens)]``, each
+slice encoded once with the worker's error-feedback residual toward that
+server folded in (``_encode_part`` :635), and asks the servers for codec
+pull responses (``CodecInfo`` with ``raw_len=0``, :2042-2047), which the
+server encodes with its handle's residual toward that worker
+(``KVServer._encode_response`` :3198).  On the engine path a registered
+dense bucket ignores the codec, as in JAX.
 
-Streamed apply of chunked pushes: the van delivers a chunked push's
-``OPT_XFER_PART`` partials before the reassembled message.  JAX's
-``KVServer`` feeds partials to its apply-shard pool (:4594) and, without
-a pool (``PS_APPLY_SHARDS=0``), drops them (``_stream_eligible`` :4299):
-the reassembled message always follows and applies whole.  The port's
-server is serial, so it drops partials too (item 6 brings the pool).
-The stores stay bit-equal to JAX's: each key's slice is added once, the
-same ``+=`` of the same values, whether streamed or whole; only the
-order of two senders' adds to one key can differ (by when each slice,
-or each whole message, completed), which changes nothing for exact sums
-such as integer values.
+The apply-shard pool (``kv/apply_shards.py``, ``PS_APPLY_SHARDS``: JAX's
+default ``min(8, cores)``, 0 = serial on the customer thread; :2849-2906): requests
+split by ``key % shards`` over shard threads, responses in arrival order
+per sender.  A fixed-k codec push reaches the pool undecoded
+(``KVPairs.enc``) and each shard decodes its own keys.  A chunked push's
+``OPT_XFER_PART`` partials stream into the pool as they land
+(``KVServer._stream_part`` :4593) and the reassembled message closes the
+stream; without the pool (or with a registered receive buffer for the
+push) the partials drop and the reassembled message applies whole.
+Either way each key's slice is added once, the same ``+=`` of the same
+values, so stores are bit-equal to serial ones; only the order of two
+senders' adds to one key can follow when each slice completed.
+
+Host numpy on the message path, as in JAX.  Not here, each raising where
+a JAX caller would reach it: tenants, small-op batching, ``multi_get``
+and the hot-key cache (ROADMAP Queue 1 item 6(b)); the native codec
+kernels (item 11); request deadlines and failover, replication, elastic
+routing, snapshots, the tiered store and namespaces (item 8).
+``KVWorker.reshard`` recuts the worker's engines onto a new device group
+(``IciVan.reshard_engines``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import itertools
+import os
 import threading
+import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -72,6 +84,7 @@ from .. import ps as ps_mod
 from ..base import SERVER_GROUP, server_rank_to_id
 from ..customer import Customer
 from ..message import (
+    CodecInfo,
     Message,
     OPT_APPLY_ERROR,
     OPT_SEND_FAILED,
@@ -80,27 +93,36 @@ from ..message import (
     Role,
     ZPULL_OFF_BITS,
 )
+from ..ops import codecs as codecs_mod
 from ..range import Range, find_range
 from ..sarray import SArray
+from ..telemetry import node_registry
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
+from .apply_shards import ApplyShardPool
 
 
 _ZPULL_SEQ = itertools.count(1)  # process-wide registered pull buffer ids
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to pslite_tpu_torch (ROADMAP Queue 1 "
         f"item {item})")
 
 
-def _check_codec(codec: Optional[str], compress: Optional[str]) -> None:
-    """Only uncompressed messages are ported: ``codec``/``compress`` may
-    be None or ``"raw"``."""
-    for c in (codec, compress):
-        if c not in (None, "raw"):
-            raise _not_ported(f"wire codec {c!r} (ops/codecs.py)", 6)
+# Environment knobs of the message-path tiers of ROADMAP Queue 1 item
+# 6(b), refused where a JAX node would turn them on.
+_ITEM_6B_KNOBS = (("PS_TENANTS", "tenants"), ("PS_TENANT", "tenants"),
+                  ("PS_HOT_CACHE", "the hot-key cache"),
+                  ("PS_BATCH_BYTES", "small-op batching"),
+                  ("PS_RESP_BATCH_BYTES", "small-op batching"))
+
+
+def _refuse_item_6b(env) -> None:
+    for var, what in _ITEM_6B_KNOBS:
+        if (env.find(var) or "0") != "0":
+            raise _not_ported(f"{what} ({var})", "6(b)")
 
 
 @dataclass
@@ -111,9 +133,24 @@ class KVPairs:
     vals: np.ndarray = field(default_factory=lambda: np.empty(0, np.float32))
     lens: Optional[np.ndarray] = None
     priority: int = 0
+    # A codec push not decoded yet: ``vals`` is empty and ``enc = (codes,
+    # scales, CodecInfo)``; the apply pool's shards decode their own keys
+    # (codecs.decode_key_ranges).
+    enc: Optional[tuple] = None
 
     def empty(self) -> bool:
         return len(self.keys) == 0
+
+    def materialize(self) -> None:
+        """Decode a lazy codec payload into ``vals`` (for callers that need
+        the whole payload: global ops, plain handlers)."""
+        if self.enc is None:
+            return
+        codes, scales, info = self.enc
+        codec = codecs_mod.by_wire_id(info.codec)
+        self.vals = codec.decode(codes, scales, info.raw_len // 4,
+                                 flags=info.flags)
+        self.enc = None
 
 
 @dataclass
@@ -131,6 +168,22 @@ class KVMeta:
     val_len: int = 0
     option: int = 0
     priority: int = 0
+    # The request's CodecInfo: on a pull request (raw_len == 0) the codec
+    # the worker wants the response in; on a push what the payload
+    # traveled as.
+    codec: object = None
+
+
+@dataclass
+class _EncodedSlice:
+    """One slice's codec payload, encoded once at send time: a resend
+    carries these exact bytes (encoding again would fold the residual
+    twice)."""
+
+    codes: np.ndarray   # uint8
+    scales: np.ndarray  # float32 (empty for bf16)
+    lens: Optional[np.ndarray]
+    info: CodecInfo
 
 
 def default_slicer(kvs: KVPairs,
@@ -177,6 +230,7 @@ class KVWorker:
 
     def __init__(self, app_id: int, customer_id: int = 0, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.WORKER)
+        _refuse_item_6b(self.po.env)
         # One handler thread at most: _process's last-response detection
         # and _finish's reassembly assume responses run one at a time.
         self._customer = Customer(
@@ -204,6 +258,17 @@ class KVWorker:
         self._zpull_bufs: Dict[Tuple[int, int, int], dict] = {}
         self._zpull_ts: set = set()
         self.zpull_hits = 0  # pulls completed without reassembly
+        # Wire codecs: per key set (signature -> (keys, codec name)), and
+        # the push residuals per (server, slice).
+        self._bucket_codecs: Dict[Tuple[int, int, int], tuple] = {}
+        self._codec_ef = (
+            codecs_mod.ErrorFeedback(codecs_mod.ef_slots(self.po.env),
+                                     metrics=getattr(self.po, "metrics",
+                                                     None))
+            if codecs_mod.ef_enabled(self.po.env) else None)
+        metrics = node_registry(getattr(self.po, "metrics", None))
+        self._c_codec_raw = metrics.counter("codec.raw_bytes")
+        self._c_codec_wire = metrics.counter("codec.wire_bytes")
 
     @property
     def engine(self):
@@ -229,6 +294,70 @@ class KVWorker:
                                             init=init)
         self._dense_routes[(len(keys), int(keys[0]), int(keys[-1]))] = name
         return bucket
+
+    def register_bucket(self, keys, codec: Optional[str] = None) -> None:
+        """Register a default wire codec for exactly these keys: every
+        ``push``/``pull`` of this key set then travels encoded
+        (``'int8'``, ``'fp8_e4m3'``, ``'bf16'``) unless the call says
+        otherwise (``codec='raw'`` forces none).  ``codec=None``
+        unregisters.  The message path only: a registered dense bucket
+        on the engine ignores it."""
+        keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
+        log.check(len(keys) > 0, "register_bucket: empty key set")
+        if codec is not None:
+            codecs_mod.get_codec(codec)  # unknown names fail here
+        sig = (len(keys), int(keys[0]), int(keys[-1]))
+        with self._mu:
+            if codec is None:
+                self._bucket_codecs.pop(sig, None)
+            else:
+                self._bucket_codecs[sig] = (keys, codec)
+
+    def _resolve_codec(self, keys: np.ndarray, codec: Optional[str],
+                       compress: Optional[str]) -> Optional[str]:
+        """The op's codec: ``codec=`` (or its old name ``compress=``),
+        else the registered bucket's; ``'raw'`` forces none."""
+        if codec is None:
+            codec = compress
+        if codec == "raw":
+            return None
+        if codec is not None:
+            codecs_mod.get_codec(codec)
+            return codec
+        if not self._bucket_codecs or len(keys) == 0:
+            return None
+        with self._mu:
+            ent = self._bucket_codecs.get((len(keys), int(keys[0]),
+                                           int(keys[-1])))
+        if ent is not None and np.array_equal(ent[0], keys):
+            return ent[1]
+        return None
+
+    def _encode_part(self, codec_name: str, group_rank: int,
+                     part: KVPairs) -> _EncodedSlice:
+        """Encode one slice's payload (once), folding in the residual
+        toward this (server, slice).  The slot is keyed by the server's
+        group rank, the first key, a crc32 of the keys and the size, so
+        two buckets that share a first key and size never share a
+        residual."""
+        codec = codecs_mod.get_codec(codec_name)
+        lens = (None if part.lens is None
+                else np.asarray(part.lens, dtype=np.int64))
+        if self._codec_ef is not None:
+            key = (group_rank, int(part.keys[0]), zlib.crc32(part.keys),
+                   int(part.vals.size))
+            resid, lock = self._codec_ef.slot(key, int(part.vals.size))
+            with lock:
+                codes, scales, flags = codec.encode(part.vals, lens=lens,
+                                                    resid=resid)
+        else:
+            codes, scales, flags = codec.encode(part.vals, lens=lens)
+        self._c_codec_raw.inc(part.vals.nbytes)
+        self._c_codec_wire.inc(codes.nbytes + scales.nbytes)
+        info = CodecInfo(codec=codec.wire_id, raw_len=part.vals.nbytes,
+                         block=codec.block, flags=flags)
+        return _EncodedSlice(codes=codes, scales=scales, lens=part.lens,
+                             info=info)
 
     def reshard(self, group) -> None:
         """Coordinated elastic recut of the worker's engines onto a new
@@ -402,17 +531,26 @@ class KVWorker:
              priority: int = 0, compress: Optional[str] = None,
              codec: Optional[str] = None) -> int:
         """Push ``vals`` (kv_app.h:210-231); the caller must not mutate
-        them until ``wait(ts)``."""
+        them until ``wait(ts)``.  ``codec=`` (``compress=``) or the
+        bucket's registered codec sends float32 values encoded."""
         route = self._engine_route(np.asarray(keys, dtype=np.uint64), cmd,
                                    lens)
         if route is not None:
             token = self.engine.push(route, vals)
             return self._engine_dispatch(token, callback=callback)
-        _check_codec(codec, compress)
         kvs = _as_kvs(keys, vals, lens, priority)
+        codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
         ts = self._new_message_request(callback)
-        self._send(ts, push=True, pull=False, cmd=cmd, kvs=kvs)
+        self._send(ts, push=True, pull=False, cmd=cmd, kvs=kvs, codec=codec)
         return ts
+
+    def _checked_codec(self, keys, vals, codec, compress) -> Optional[str]:
+        codec = self._resolve_codec(keys, codec, compress)
+        if codec is not None:
+            log.check(vals.dtype == np.float32,
+                      f"codec {codec!r} requires float32 values, got "
+                      f"{vals.dtype}")
+        return codec
 
     def pull(self, keys, vals, lens: Optional[np.ndarray] = None,
              cmd: int = 0, callback: Optional[Callable[[], None]] = None,
@@ -420,14 +558,18 @@ class KVWorker:
              codec: Optional[str] = None) -> int:
         """Pull into ``vals`` (kv_app.h:241-247, 727-792): a numpy array
         on the message path; on the engine path also a tensor.  With
-        ``lens``, the per-key lengths land there."""
+        ``lens``, the per-key lengths land there.  ``codec=``
+        (``compress=``) or the bucket's registered codec asks each server
+        for an encoded response (float32 only; not into a registered
+        zero-copy buffer)."""
         keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
         route = self._engine_route(keys, cmd, lens)
         if route is not None:
             return self._engine_pull(route, vals, callback)
-        _check_codec(codec, compress)
+        codec = self._checked_codec(keys, vals, codec, compress)
         ts = self._new_message_request(callback)
-        zpull = self._zpull_lookup(keys, vals) if lens is None else None
+        zpull = (self._zpull_lookup(keys, vals)
+                 if lens is None and codec is None else None)
         with self._mu:
             self._pull_dst[ts] = (keys, vals, lens)
             if zpull is not None:
@@ -435,7 +577,7 @@ class KVWorker:
         kvs = KVPairs(keys=keys, vals=np.empty(0, vals.dtype),
                       priority=priority)
         self._send(ts, push=False, pull=True, cmd=cmd, kvs=kvs,
-                   val_nbytes=vals.nbytes, zpull=zpull)
+                   val_nbytes=vals.nbytes, zpull=zpull, codec=codec)
         return ts
 
     def _engine_pull(self, route: str, vals, callback) -> int:
@@ -461,23 +603,31 @@ class KVWorker:
                   callback: Optional[Callable[[], None]] = None,
                   priority: int = 0, compress: Optional[str] = None,
                   codec: Optional[str] = None) -> int:
-        """Fused push + pull round trip (the benchmark hot path)."""
+        """Fused push + pull round trip (the benchmark hot path).  The
+        push takes the codec as ``push`` does; the response travels raw
+        (it may land in a registered buffer in place)."""
         route = self._engine_route(np.asarray(keys, dtype=np.uint64), cmd,
                                    lens)
         if route is not None:
             result = self.engine.push_pull(route, vals)
             return self._engine_dispatch(result, out=outs, callback=callback,
                                          keep_result=True)
-        _check_codec(codec, compress)
         kvs = _as_kvs(keys, vals, lens, priority)
+        codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
         ts = self._new_message_request(callback)
         zpull = self._zpull_lookup(kvs.keys, outs) if lens is None else None
         with self._mu:
             self._pull_dst[ts] = (kvs.keys, outs, lens)
             if zpull is not None:
                 self._zpull_ts.add(ts)
-        self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs, zpull=zpull)
+        self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs, zpull=zpull,
+                   codec=codec)
         return ts
+
+    def multi_get(self, *args, **kwargs):
+        """Fan-out pull of many key lists in one batched send: not
+        here."""
+        raise _not_ported("KVWorker.multi_get", "6(b)")
 
     def coalescer(self, handle=None, **kw):
         """Coalescing dispatcher over the worker's engine: per-op
@@ -579,10 +729,13 @@ class KVWorker:
 
     def _slice_msg(self, ts: int, push: bool, pull: bool, cmd: int,
                    part: KVPairs, dest: int, val_nbytes: int,
-                   zpull: Optional[dict] = None,
-                   rank: int = 0) -> Message:
+                   zpull: Optional[dict] = None, rank: int = 0,
+                   codec: Optional[str] = None,
+                   enc: Optional[_EncodedSlice] = None) -> Message:
         """One per-server slice message (``rank``: the server's group
-        rank, whose offset a zero-copy pull names)."""
+        rank, whose offset a zero-copy pull names; ``enc``: the slice's
+        encoded push payload; ``codec``: the response codec a pull asks
+        for)."""
         msg = Message()
         m = msg.meta
         m.priority = part.priority
@@ -601,14 +754,27 @@ class KVWorker:
             m.option = OPT_ZPULL
             m.addr = (zpull["buf_id"] << ZPULL_OFF_BITS) | zpull["offsets"][
                 rank]
+        elif codec is not None and pull and not push:
+            # raw_len=0 marks the request: "encode your response so".
+            c = codecs_mod.get_codec(codec)
+            m.codec = CodecInfo(codec=c.wire_id, raw_len=0, block=c.block)
         msg.add_data(SArray(part.keys))
+        if enc is not None and push:
+            # val_len keeps the raw byte count; the codec rides EXT_CODEC.
+            m.codec = enc.info
+            msg.add_data(SArray(enc.codes))
+            msg.add_data(SArray(enc.scales))
+            if enc.lens is not None:
+                msg.add_data(SArray(np.asarray(enc.lens, dtype=np.int32)))
+            return msg
         msg.add_data(SArray(part.vals))
         if part.lens is not None:
             msg.add_data(SArray(np.asarray(part.lens, dtype=np.int32)))
         return msg
 
     def _send(self, ts: int, push: bool, pull: bool, cmd: int, kvs: KVPairs,
-              val_nbytes: int = 0, zpull: Optional[dict] = None) -> None:
+              val_nbytes: int = 0, zpull: Optional[dict] = None,
+              codec: Optional[str] = None) -> None:
         ranges = self.po.get_server_key_ranges()
         sliced = (self._slicer(kvs, ranges)
                   if len(ranges) > 1 or self._slicer is not default_slicer
@@ -622,11 +788,15 @@ class KVWorker:
         if not live:
             self._finish(ts)
             return
+        # Encode every slice before any send can fail, once.
+        encs = [self._encode_part(codec, rank, part)
+                if codec is not None and push else None
+                for rank, part in live]
         gs = self.po.group_size
-        for rank, part in live:
+        for (rank, part), enc in zip(live, encs):
             dest = server_rank_to_id(rank * gs + self.po.instance_idx)
             msg = self._slice_msg(ts, push, pull, cmd, part, dest,
-                                  val_nbytes, zpull, rank)
+                                  val_nbytes, zpull, rank, codec, enc)
             try:
                 self.po.van.send(msg)
             except Exception as exc:  # noqa: BLE001 - PeerDeadError & co
@@ -652,12 +822,28 @@ class KVWorker:
             with self._mu:
                 self._error_ts.add(ts)
         if msg.meta.pull and len(msg.data) >= 2:
-            kvs = KVPairs(
-                keys=msg.data[0].astype_view(np.uint64).numpy(),
-                vals=msg.data[1].numpy(),
-                lens=(msg.data[2].astype_view(np.int32).numpy()
-                      if len(msg.data) > 2 else None),
-            )
+            ci = msg.meta.codec
+            if ci is not None and ci.raw_len > 0 and len(msg.data) >= 3:
+                # An encoded response: raw_len sizes the decode, data[3]
+                # holds per-key lens of a ragged payload.
+                codec = codecs_mod.by_wire_id(ci.codec)
+                codecs_mod.check_block(ci)
+                lens = (msg.data[3].astype_view(np.int32).numpy()
+                        if len(msg.data) > 3 else None)
+                kvs = KVPairs(
+                    keys=msg.data[0].astype_view(np.uint64).numpy(),
+                    vals=codec.decode(
+                        msg.data[1].astype_view(np.uint8).numpy(),
+                        msg.data[2].astype_view(np.float32).numpy(),
+                        ci.raw_len // 4, lens=lens, flags=ci.flags),
+                    lens=lens)
+            else:
+                kvs = KVPairs(
+                    keys=msg.data[0].astype_view(np.uint64).numpy(),
+                    vals=msg.data[1].numpy(),
+                    lens=(msg.data[2].astype_view(np.int32).numpy()
+                          if len(msg.data) > 2 else None),
+                )
             with self._mu:
                 self._recv_kvs.setdefault(ts, []).append(kvs)
         # The Customer counts this response *after* the handle, so the
@@ -711,29 +897,65 @@ class KVWorker:
 class KVServer:
     """Holder of a key-range shard of the store (kv_app.h:304-420).
 
-    Requests apply serially on the customer's thread, in arrival order.
-    ``PS_APPLY_SHARDS`` above 1 (the JAX shard pool) raises."""
+    A handle with ``apply_shard`` (both handles below) applies on the
+    apply-shard pool (``PS_APPLY_SHARDS``, default ``min(8, cores)``);
+    with ``PS_APPLY_SHARDS=0``, or any other handle, requests apply
+    serially on the customer thread in arrival order.  Codec pushes are
+    decoded before the handler sees them (by the pool's shards where they
+    can be), and pull responses are encoded as the request asks."""
+
+    _MAX_STREAMS = 64  # open streamed pushes; the oldest is aborted
 
     def __init__(self, app_id: int, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.SERVER)
-        if self.po.env.find_int("PS_APPLY_SHARDS", 1) > 1:
-            raise _not_ported("the apply-shard pool (PS_APPLY_SHARDS > 1)",
-                              6)
+        _refuse_item_6b(self.po.env)
         self._handle: Optional[Callable[[KVMeta, KVPairs, "KVServer"],
                                         None]] = None
         self._recv_buffers: Dict[Tuple[int, int], np.ndarray] = {}
         self.delivered_in_place = 0  # pushes the van placed in a buffer
+        self.streams_opened = 0  # chunked pushes applied as they landed
+        self._apply_shards = self._resolve_apply_shards()
+        self._apply_pool: Optional[ApplyShardPool] = None
+        # Streamed chunked pushes by the van's (sender, xfer) key; the
+        # reassembled message closes its stream.  TTL as the assembler's.
+        self._streams_mu = threading.Lock()
+        self._streams: Dict[Tuple[int, int], object] = {}
+        self._stream_ttl = self.po.env.find_float("PS_XFER_TIMEOUT", 120.0)
+        self._stream_ticks = 0
+        # Pull responses are encoded here, with residuals per (worker,
+        # slice) on the handle (``ef_bank``, made at first use).
+        self._codec_ef_enabled = codecs_mod.ef_enabled(self.po.env)
+        metrics = node_registry(getattr(self.po, "metrics", None))
+        self._c_codec_raw = metrics.counter("codec.raw_bytes")
+        self._c_codec_wire = metrics.counter("codec.wire_bytes")
         self._customer = Customer(
             app_id, app_id, self._process, self.po,
             on_request_error=self._request_error,
             executor_workers=min(
                 1, self.po.env.find_int("PS_CUSTOMER_EXECUTOR", 0)),
         )
+        self.po.register_node_failure_hook(self._on_stream_peer_event)
+
+    def _resolve_apply_shards(self) -> int:
+        try:
+            # A container pinned to few cores gets few shard threads.
+            n_cores = len(os.sched_getaffinity(0))
+        except (AttributeError, OSError):
+            n_cores = os.cpu_count() or 1
+        return self.po.env.find_int("PS_APPLY_SHARDS", min(8, n_cores))
 
     def set_request_handle(
             self, handle: Callable[[KVMeta, KVPairs, "KVServer"], None]
     ) -> None:
+        if self._apply_pool is not None:
+            self._abort_streams()  # their handles hold the old pool
+            self._apply_pool.stop()
+            self._apply_pool = None
         self._handle = handle
+        if self._apply_shards > 0 and callable(getattr(handle, "apply_shard",
+                                                       None)):
+            self._apply_pool = ApplyShardPool(handle, self._apply_shards,
+                                              self)
 
     def register_recv_buffer(self, sender_id: int, key: int,
                              buffer: np.ndarray) -> None:
@@ -766,14 +988,73 @@ class KVServer:
         return msg
 
     def response(self, req: KVMeta, res: Optional[KVPairs] = None) -> None:
-        """Reply to a request (kv_app.h:536-564)."""
+        """Reply to a request (kv_app.h:536-564).  A pull that asked for a
+        codec (``req.codec`` with ``raw_len == 0``) gets float32 values
+        encoded; other values travel raw."""
         msg = self._response_msg(req)
         if res is not None and not res.empty():
+            ci = getattr(req, "codec", None)
+            enc = None
+            if (req.pull and ci is not None and ci.raw_len == 0
+                    and isinstance(res.vals, np.ndarray)
+                    and res.vals.dtype == np.float32 and res.vals.size > 0):
+                enc = self._encode_response(ci, req, res)
             msg.add_data(SArray(res.keys))
-            msg.add_data(SArray(res.vals))
+            if enc is not None:
+                codes, scales, info = enc
+                msg.meta.codec = info
+                msg.meta.val_len = res.vals.nbytes
+                msg.add_data(SArray(codes))
+                msg.add_data(SArray(scales))
+            else:
+                msg.add_data(SArray(res.vals))
             if res.lens is not None:
                 msg.add_data(SArray(np.asarray(res.lens, dtype=np.int32)))
         self.po.van.send(msg)
+
+    def _encode_response(self, ci, req: KVMeta, res: KVPairs):
+        """(codes, scales, CodecInfo) of a pull response in the request's
+        codec, with the handle's residual toward this (worker, slice)
+        folded in; None for an unknown codec id (the response then
+        travels raw)."""
+        try:
+            codec = codecs_mod.by_wire_id(ci.codec)
+        except log.CheckError:
+            log.warning(f"pull requested unknown codec id {ci.codec}; "
+                        f"responding uncompressed")
+            return None
+        lens = (None if res.lens is None
+                else np.asarray(res.lens, dtype=np.int64))
+        resid = lock = None
+        if self._codec_ef_enabled and self._handle is not None:
+            bank = getattr(self._handle, "ef_bank", None)
+            if bank is None:
+                try:
+                    bank = codecs_mod.ErrorFeedback(
+                        codecs_mod.ef_slots(self.po.env),
+                        metrics=getattr(self.po, "metrics", None))
+                    self._handle.ef_bank = bank
+                except (AttributeError, TypeError):
+                    bank = None  # the handle takes no attributes: no EF
+            if bank is not None:
+                # (sender, first key, crc32 of the keys, size), as the
+                # worker keys its residuals.
+                key = (req.sender,
+                       int(res.keys[0]) if len(res.keys) else req.key,
+                       zlib.crc32(np.ascontiguousarray(res.keys)),
+                       int(res.vals.size))
+                resid, lock = bank.slot(key, int(res.vals.size))
+        if lock is not None:
+            with lock:
+                codes, scales, flags = codec.encode(res.vals, lens=lens,
+                                                    resid=resid)
+        else:
+            codes, scales, flags = codec.encode(res.vals, lens=lens)
+        self._c_codec_raw.inc(res.vals.nbytes)
+        self._c_codec_wire.inc(codes.nbytes + scales.nbytes)
+        return codes, scales, CodecInfo(codec=codec.wire_id,
+                                        raw_len=res.vals.nbytes,
+                                        block=codec.block, flags=flags)
 
     def response_error(self, req: KVMeta) -> None:
         """Empty ``OPT_APPLY_ERROR`` response: the waiting worker gets
@@ -796,25 +1077,152 @@ class KVServer:
 
     def stop(self) -> None:
         self._customer.stop()
+        self.po.unregister_node_failure_hook(self._on_stream_peer_event)
+        self._abort_streams()
+        if self._apply_pool is not None:
+            self._apply_pool.stop()
+            self._apply_pool = None
+
+    # -- streamed chunked pushes ---------------------------------------------
+
+    def _abort_streams(self) -> None:
+        with self._streams_mu:
+            handles = list(self._streams.values())
+            self._streams.clear()
+        for h in handles:
+            h.close(respond=False)
+
+    def _sweep_stale_streams(self) -> None:
+        """Reclaim streams idle past the TTL: their transfer died at the
+        assembler, so no reassembled message will close them."""
+        now = time.monotonic()
+        with self._streams_mu:
+            stale = [k for k, h in self._streams.items()
+                     if now - h.t_last > self._stream_ttl]
+            handles = [self._streams.pop(k) for k in stale]
+        for k, h in zip(stale, handles):
+            log.warning(f"reclaiming stalled stream {k} (idle > "
+                        f"{self._stream_ttl:.0f}s)")
+            h.close(respond=False)
+
+    def _on_stream_peer_event(self, node_id: int, down: bool) -> None:
+        """Node-failure hook: a dead worker's open streams never close;
+        reclaim them without a response."""
+        if not down:
+            return
+        with self._streams_mu:
+            stale = [k for k in self._streams if k[0] == node_id]
+            handles = [self._streams.pop(k) for k in stale]
+        for h in handles:
+            log.warning(f"reclaiming open stream from dead node {node_id}")
+            h.close(respond=False)
+
+    def _stream_eligible(self, m) -> bool:
+        """Streamed apply needs the pool, no registered receive buffer
+        for this (sender, key) (those apply synchronously from the
+        buffer), and a live sender (a partial straggling in after its
+        sender was declared dead must not reopen a reclaimed stream).
+        JAX's replication and ownership terms always hold here: the port
+        has neither."""
+        return (self._apply_pool is not None
+                and (m.sender, m.key) not in self._recv_buffers
+                and not self.po.van.is_peer_down(m.sender))
+
+    def _stream_part(self, msg: Message) -> None:
+        """One ``OPT_XFER_PART`` partial: feed its whole keys to the
+        transfer's stream (opened on first touch), or drop it when not
+        eligible (the reassembled message follows and applies whole)."""
+        key = getattr(msg, "_xfer_key", None)
+        if key is None or len(msg.data) < 2:
+            return
+        self._stream_ticks += 1
+        if self._stream_ticks % 64 == 0:
+            self._sweep_stale_streams()
+        with self._streams_mu:
+            h = self._streams.get(key)
+        if h is None:
+            m = msg.meta
+            if not self._stream_eligible(m):
+                return
+            h = self._apply_pool.begin_stream(KVMeta(
+                cmd=m.head, push=True, pull=False, sender=m.sender,
+                timestamp=m.timestamp, customer_id=m.customer_id, key=m.key,
+                addr=m.addr, val_len=m.val_len, option=0,
+                priority=m.priority))
+            self.streams_opened += 1
+            evicted = None
+            with self._streams_mu:
+                if len(self._streams) >= self._MAX_STREAMS:
+                    victim = next(iter(self._streams))
+                    evicted = self._streams.pop(victim)
+                    log.warning(f"stream table full: aborting transfer "
+                                f"{victim}")
+                self._streams[key] = h
+            if evicted is not None:
+                evicted.close(respond=False)
+        h.feed(KVPairs(keys=msg.data[0].astype_view(np.uint64).numpy(),
+                       vals=msg.data[1].numpy()))
+
+    # -- requests ------------------------------------------------------------
+
+    def _intake_decode(self, meta: KVMeta, data) -> KVPairs:
+        """A request's data as KVPairs.  A codec push is decoded here, or
+        left encoded (``kvs.enc``) for the pool's shards when it is a
+        fixed-k push-only payload of a range-decodable codec with no
+        registered receive buffer."""
+        kvs = KVPairs()
+        if len(data) < 2:
+            return kvs
+        kvs.keys = data[0].astype_view(np.uint64).numpy()
+        ci = meta.codec
+        if not (ci is not None and ci.raw_len > 0 and meta.push
+                and len(data) >= 3):
+            kvs.vals = data[1].numpy()
+            if len(data) > 2:
+                kvs.lens = data[2].astype_view(np.int32).numpy()
+            return kvs
+        codec = codecs_mod.by_wire_id(ci.codec)
+        codecs_mod.check_block(ci)
+        codes = data[1].astype_view(np.uint8).numpy()
+        scales = data[2].astype_view(np.float32).numpy()
+        kvs.lens = (data[3].astype_view(np.int32).numpy()
+                    if len(data) > 3 else None)
+        n_el = ci.raw_len // 4
+        if (kvs.lens is None and not meta.pull
+                and self._apply_pool is not None and codec.range_decode
+                and len(kvs.keys) > 0 and n_el % len(kvs.keys) == 0
+                and (meta.sender, int(kvs.keys[0]))
+                not in self._recv_buffers):
+            kvs.enc = (codes, scales, ci)
+        else:
+            kvs.vals = codec.decode(codes, scales, n_el, lens=kvs.lens,
+                                    flags=ci.flags)
+        return kvs
 
     def _process(self, msg: Message) -> None:
         if msg.meta.simple_app or not msg.meta.request:
             return  # a response must never run the request handler
         if msg.meta.option == OPT_XFER_PART:
-            return  # serial apply: the reassembled push follows (above)
+            self._stream_part(msg)
+            return
+        if msg.meta.batch is not None:
+            raise _not_ported("a batched frame (EXT_BATCH)", "6(b)")
+        xfer = getattr(msg, "_xfer_key", None)
+        if xfer is not None:
+            with self._streams_mu:
+                h = self._streams.pop(xfer, None)
+            if h is not None:
+                # Every key was fed from the partials: closing releases
+                # the response once the last fed slice has applied.
+                h.close()
+                return
         m = msg.meta
-        if m.codec is not None:
-            raise _not_ported("a codec-encoded request (EXT_CODEC)", 6)
         meta = KVMeta(cmd=m.head, push=m.push, pull=m.pull, sender=m.sender,
                       timestamp=m.timestamp, customer_id=m.customer_id,
                       key=m.key, addr=m.addr, val_len=m.val_len,
-                      option=m.option, priority=m.priority)
-        kvs = KVPairs()
-        if len(msg.data) >= 2:
-            kvs.keys = msg.data[0].astype_view(np.uint64).numpy()
-            kvs.vals = msg.data[1].numpy()
-            if len(msg.data) > 2:
-                kvs.lens = msg.data[2].astype_view(np.int32).numpy()
+                      option=m.option, priority=m.priority, codec=m.codec)
+        kvs = self._intake_decode(meta, msg.data)
+        reg = None
         if meta.push and len(kvs.keys):
             reg = self._recv_buffers.get((meta.sender, int(kvs.keys[0])))
             if reg is not None and np.shares_memory(kvs.vals, reg):
@@ -829,20 +1237,29 @@ class KVServer:
                 reg.reshape(-1).view(np.uint8)[: raw.nbytes] = raw
                 kvs.vals = reg.reshape(-1)[: raw.nbytes // reg.itemsize]
         log.check(self._handle is not None, "KVServer handle not set")
+        if self._apply_pool is not None:
+            # A registered-buffer push applies before the next message:
+            # the pump overwrites the buffer with the sender's next push.
+            self._apply_pool.submit(meta, kvs, wait=reg is not None)
+            return
         self._handle(meta, kvs, self)
 
 
 # -- server handles -------------------------------------------------------------
 
-def _push_segs(meta: KVMeta, keys: np.ndarray,
-               vals: np.ndarray) -> List[np.ndarray]:
-    """Per-key value views of a fixed-k push payload (zero copy)."""
-    n = len(keys)
+def _push_segs(meta: KVMeta, all_keys: np.ndarray, vals: np.ndarray,
+               positions=None) -> List[np.ndarray]:
+    """Per-key value views of a fixed-k push payload (zero copy), the
+    currency of ``apply_shard``; ``positions`` picks a shard's keys
+    (indices into the request's keys), None all of them in order."""
+    n = len(all_keys)
     if not meta.push or n == 0:
         return []
     log.check(len(vals) % n == 0, "bad push shape")
     k = len(vals) // n
-    return [vals[i * k:(i + 1) * k] for i in range(n)]
+    if positions is None:
+        return [vals[i * k:(i + 1) * k] for i in range(n)]
+    return [vals[int(p) * k:(int(p) + 1) * k] for p in positions]
 
 
 def _pack_pull_vals(parts: List[np.ndarray],
@@ -883,8 +1300,11 @@ class KVServerDefaultHandle:
 
     def apply_shard(self, meta: KVMeta, keys: np.ndarray,
                     segs) -> Optional[List[np.ndarray]]:
-        """Apply a push (``segs``: one value view per key) and/or gather
-        pull refs for exactly ``keys``."""
+        """Apply a push (``segs``: one value segment per key, a view of
+        the payload or a shard's decode of a codec payload, which may be
+        a recycled buffer: stored by copy) and/or gather pull refs for
+        exactly ``keys``.  Each key reaches one shard thread only, so
+        per-key state takes no lock."""
         store = self.store
         if meta.push:
             for key, seg in zip(keys, segs):
@@ -974,6 +1394,8 @@ class KVServerOptimizerHandle:
 
     def apply_shard(self, meta: KVMeta, keys: np.ndarray,
                     segs) -> Optional[List[np.ndarray]]:
+        """As ``KVServerDefaultHandle.apply_shard``; the gradient segments
+        are read, never kept."""
         if meta.push:
             for key, seg in zip(keys, segs):
                 self._apply(int(key), seg.astype(np.float32, copy=False))

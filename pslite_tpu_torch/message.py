@@ -7,8 +7,8 @@ timestamp/routing/flags plus the zero-copy fields (``key``, ``addr``,
 barrier/heartbeat plane; ``Node`` describes a process.  The extension
 records (``CodecInfo``, ``BatchInfo``, ``ChunkInfo``) and the option
 markers are kept because the wire format carries them; this package
-sends chunks (``vans/chunking.py``) but none of the codec or batch kinds
-yet (ROADMAP Queue 1 item 6).
+sends chunks (``vans/chunking.py``) and codec payloads (``ops/codecs.py``)
+but no batched frames yet (ROADMAP Queue 1 item 6(b)).
 """
 
 from __future__ import annotations

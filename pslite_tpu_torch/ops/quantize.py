@@ -2,9 +2,9 @@
 
 Counterparts of the Pallas kernels in ``pslite_tpu/ops/quantize.py``
 (``quantize_int8`` :71, pallas_call :97; ``dequantize_int8`` :111,
-pallas_call :129) and of its host helpers ``np_quantize_int8`` /
-``np_dequantize_int8``.  The CUDA kernels are ``csrc/quantize_int8.cu``;
-its header says what bounds them and how.
+pallas_call :129) and of its host helpers ``np_quantize_int8``,
+``np_dequantize_int8`` and ``decode_int8_payload``.  The CUDA kernels are
+``csrc/quantize_int8.cu``; its header says what bounds them and how.
 
 Layout, as in the JAX package: the flat f32 vector is padded with zeros
 to a multiple of 32 rows of 128 values (the TPU's int8 tile), so
@@ -79,6 +79,16 @@ def np_quantize_int8(x):
 def np_dequantize_int8(q, scales, n: int):
     x = q.astype(np.float32) * np.asarray(scales, np.float32)[:, None]
     return x.reshape(-1)[:n]
+
+
+def decode_int8_payload(q_sarray, scales_sarray, val_len: int):
+    """Decode the wire layout of an int8-compressed message payload
+    (int8 codes, f32 scales per 128 values, ``val_len`` the uncompressed
+    byte count); the JAX package's helper, which has no caller there
+    either (the message path's codecs are ``ops/codecs.py``)."""
+    q = q_sarray.astype_view(np.int8).numpy().reshape(-1, QUANT_BLOCK)
+    scales = scales_sarray.astype_view(np.float32).numpy()
+    return np_dequantize_int8(q, scales, val_len // 4)
 
 
 # -- plain versions -------------------------------------------------------------

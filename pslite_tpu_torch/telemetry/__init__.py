@@ -12,9 +12,16 @@ item 8 ports the real ones.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 
 class _NullCounter:
     def inc(self, n: int = 1) -> None:
+        pass
+
+
+class _NullHistogram:
+    def observe(self, value: float) -> None:
         pass
 
 
@@ -24,16 +31,34 @@ class Registry:
     def counter(self, name: str) -> _NullCounter:
         return _NullCounter()
 
+    def histogram(self, name: str) -> _NullHistogram:
+        return _NullHistogram()
+
+    def gauge(self, name: str, fn: Optional[Callable[[], float]] = None
+              ) -> None:
+        pass
+
 
 NULL_REGISTRY = Registry()
 
 
+def node_registry(maybe_reg: Optional[Registry]) -> Registry:
+    """``maybe_reg`` when given, else a registry of one's own (the JAX
+    package's ``telemetry.metrics.node_registry``)."""
+    return maybe_reg if maybe_reg is not None else Registry()
+
+
 class Tracer:
     """Stand-in for ``pslite_tpu.telemetry.tracing.Tracer``: samples
-    nothing."""
+    nothing (``active`` stays False)."""
+
+    active = False
 
     def __init__(self):
         self.node_id = -1
+
+
+NULL_TRACER = Tracer()
 
 
 class FlightRecorder:

@@ -13,9 +13,11 @@ Counterpart of ``pslite_tpu/utils/queues.py``:
   drain/stop handshake of the van's lane scheduler.
 
 The JAX queues keep one heap per tenant for weighted-fair dequeue across
-``PS_TENANTS``; tenants are not ported (ROADMAP Queue 1), and with none
-configured the JAX pop order is the single ``(-priority, seq)`` heap
-kept here.
+``PS_TENANTS``; tenants are not ported (ROADMAP Queue 1 item 6(b)), and
+with none configured the JAX pop order is the single ``(-priority, seq)``
+heap kept here.  ``PriorityRecvQueue`` takes the tenant arguments the
+apply pool passes (``tenant_fn``, ``cost_fn``, and ``weights`` that must
+be None) and the pool's fences.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import collections
 import heapq
 import threading
 import time
-from typing import Callable, Deque, Generic, List, Optional, Tuple, TypeVar
+from typing import (Callable, Deque, Dict, Generic, List, Optional, Tuple,
+                    TypeVar)
 
 T = TypeVar("T")
 
@@ -70,28 +73,65 @@ class ThreadsafeQueue(Generic[T]):
 
 class PriorityRecvQueue(Generic[T]):
     """Highest priority first, FIFO within a level.  ``priority_fn``
-    maps an item to its level unless ``push`` is given one."""
+    maps an item to its level unless ``push`` is given one.
 
-    def __init__(self, priority_fn: Callable[[T], int]):
+    ``push(..., fence=True)``: while a fence item is queued, nothing
+    pushed after it may overtake it (pops take the best item at or
+    before the earliest fence), which keeps the apply pool's all-shard
+    barrier ops from starving under a stream of higher priority.
+    ``tenant_fn``/``cost_fn`` and ``push``'s ``tenant``/``cost`` are
+    accepted for the JAX call surface and ignored: every item is tenant
+    0, and with one tenant the cost orders nothing."""
+
+    def __init__(self, priority_fn: Callable[[T], int],
+                 tenant_fn: Optional[Callable[[T], int]] = None,
+                 cost_fn: Optional[Callable[[T], int]] = None,
+                 weights: Optional[Dict[int, float]] = None):
+        if weights is not None:
+            raise NotImplementedError(
+                "tenant weights (PS_TENANTS) are not yet ported to "
+                "pslite_tpu_torch (ROADMAP Queue 1 item 6(b))")
         self._mu = threading.Lock()
         self._cv = threading.Condition(self._mu)
         self._heap: List[tuple] = []
         self._seq = 0
         self._priority_fn = priority_fn
+        self._fences: set = set()
 
-    def push(self, item: T, priority: Optional[int] = None) -> None:
+    def push(self, item: T, priority: Optional[int] = None,
+             fence: bool = False, tenant: Optional[int] = None,
+             cost: Optional[int] = None) -> None:
         if priority is None:
             priority = self._priority_fn(item)
         with self._cv:
             heapq.heappush(self._heap, (-priority, self._seq, item))
+            if fence:
+                self._fences.add(self._seq)
             self._seq += 1
             self._cv.notify()
+
+    def _pop_locked(self) -> T:
+        if not self._fences:
+            return heapq.heappop(self._heap)[2]
+        fence = min(self._fences)
+        i = min((j for j, e in enumerate(self._heap) if e[1] <= fence),
+                key=lambda j: self._heap[j][:2])
+        entry = self._heap[i]
+        self._heap[i] = self._heap[-1]
+        self._heap.pop()
+        heapq.heapify(self._heap)
+        self._fences.discard(entry[1])
+        return entry[2]
 
     def wait_and_pop(self, timeout: Optional[float] = None) -> Optional[T]:
         with self._cv:
             if not self._cv.wait_for(lambda: self._heap, timeout):
                 return None
-            return heapq.heappop(self._heap)[2]
+            return self._pop_locked()
+
+    def try_pop(self) -> Optional[T]:
+        with self._mu:
+            return self._pop_locked() if self._heap else None
 
     def __len__(self) -> int:
         with self._mu:

@@ -22,7 +22,7 @@ Counterpart of ``pslite_tpu/vans/chunking.py``, the pure-Python half:
 
 The native descriptor and the native reassembly (``:175-275``) belong to
 the native core, ROADMAP Queue 1 item 11; the tenant and cost of a
-message are item 6's weighted-fair queues.
+message are item 6(b)'s weighted-fair queues.
 """
 
 from __future__ import annotations

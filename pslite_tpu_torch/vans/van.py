@@ -36,7 +36,7 @@ self-send; a lane's dispatch error is parked and re-raised by the next
 Not in this port (each raises or is absent, named by its ROADMAP Queue 1
 item): the native core's sender lanes (item 11); late registration and
 node recovery, elastic admission, routing epochs and removal,
-metrics/trace/snapshot pulls (item 8); tenants (item 6).
+metrics/trace/snapshot pulls (item 8); tenants (item 6(b)).
 Data always rides the lanes and messages are delivered in arrival order:
 the JAX van's inline mode (``PS_SEND_LANES=0``) and its sid reordering
 (``PS_FORCE_REQ_ORDER``) are absent.

@@ -191,6 +191,45 @@ def test_async_v1_files_match_and_restore(tmp_path, kind):
         load_engine_npz(_engines(8, kind)[1], jpath)
 
 
+@pytest.mark.parametrize("kind,val_len", [
+    ("sum", VAL_LEN),  # 594 values: padded to 600 on 8, to 596 on 4
+    ("adam", 100),     # 600 values: no padding; the step vector shows S
+])
+def test_v1_file_from_another_shard_count_is_refused(tmp_path, kind,
+                                                     val_len):
+    """A v1 file records no shard count.  At config 5 an 8-shard file's
+    table has as many rows on 4 shards (1,048,576 = 8 x 131,072 = 4 x
+    262,144), so its interleaved rows would restore permuted: the port
+    refuses it, seeing 8 shards in a store padded to a multiple of 8 or
+    in the adam step vector, before it restores anything."""
+    teng = CollectiveEngine(_group(8), server_handle=kind)
+    tse = SparseEngine(teng.group)
+    teng.register_dense("a", KEYS, val_len)
+    tse.register_sparse("emb", 1 << 20, 4)
+    rng = np.random.default_rng(3)
+    total = len(KEYS) * val_len
+    teng.set_store_array("a", rng.normal(size=total).astype(np.float32))
+    if kind == "adam":
+        teng.set_opt_state("a", "adam", [np.zeros(total, np.float32),
+                                         np.zeros(total, np.float32),
+                                         np.array([2.0], np.float32)])
+    path = str(tmp_path / "v1")
+    ck = tckpt.AsyncEngineCheckpointer()
+    ck.save(teng, path, sparse_engine=tse)
+    ck.close()
+    teng4 = CollectiveEngine(_group(4), server_handle=kind)
+    tse4 = SparseEngine(teng4.group)
+    teng4.register_dense("a", KEYS, val_len)
+    tse4.register_sparse("emb", 1 << 20, 4)
+    assert tse4.store_array("emb").shape == tse.store_array("emb").shape
+    before = tse4.store_array("emb").clone()
+    with pytest.raises(CheckError, match="v1 checkpoint"):
+        tckpt.restore_engine(teng4, path, sparse_engine=tse4)
+    assert torch.equal(tse4.store_array("emb"), before)
+    # Onto the saver's own shard count it restores.
+    tckpt.restore_engine(teng, path, sparse_engine=tse)
+
+
 def test_bf16_bucket_from_jax_restores_bit_equal(tmp_path):
     """bf16 stores and momentum: the JAX file (``V2`` members) restores
     into the port bit for bit, and the port writes the same members.  The

@@ -8,6 +8,9 @@ the JAX package's, across real OS processes.
 - Clusters over tcp (each of ``tests/torch_mixed_child.py``'s processes
   hosts some of the nodes of one package): a JAX scheduler and worker
   against port servers, a port worker against JAX servers, all-port;
+  the first two also under each wire codec (``register_bucket`` and
+  ``codec=``); all-port with and without the apply-shard pool, the
+  chunked pushes streamed into the pool;
   the ``multi`` van (2 tcp rails, mixed); ``DMLC_LOCAL`` unix sockets
   (no socket file left after it); a port ``ici_tcp`` worker process on a
   CPU device group.  Keys of 1,024,000 B, so each message is chunked at
@@ -41,6 +44,7 @@ from pslite_tpu import KVServer as JaxKVServer
 from pslite_tpu import KVServerDefaultHandle as JaxDefaultHandle
 from pslite_tpu import KVWorker as JaxKVWorker
 from pslite_tpu import wire as jwire
+from pslite_tpu.ops import codecs as jcodecs
 from pslite_tpu.vans import chunking as jchunking
 from pslite_tpu_torch import wire as twire
 from pslite_tpu_torch.environment import Environment
@@ -230,6 +234,89 @@ def test_ici_tcp_worker_process_runs_the_bucket_and_the_messages(tmp_path,
     assert_bit_equal(results(tmp_path), jax_reference)
     worker = [r for r in reports if r["roles"] == ["worker"]][0]
     assert worker["bucket_steps"] == 3
+
+
+_CODEC_REFS = {}
+
+
+def jax_codec_reference(codec):
+    """``run_codec_worker`` on an all-JAX tcp cluster (1 worker, 2
+    servers, in this process), once per codec: stores and pulls."""
+    if codec in _CODEC_REFS:
+        return _CODEC_REFS[codec]
+    # The JAX package sets its two fp8 tables one after the other, so
+    # its shard threads decoding at once may find the second unset
+    # (ROADMAP Queue 3): build them first.
+    jcodecs.Fp8E4M3Codec._luts()
+    c = LoopbackCluster(num_workers=1, num_servers=2, van_type="tcp")
+    c.start()
+    servers = []
+    try:
+        for po in c.servers:
+            srv = JaxKVServer(0, postoffice=po)
+            srv.set_request_handle(JaxDefaultHandle())
+            servers.append((po, srv))
+        kv = JaxKVWorker(0, 0, postoffice=c.workers[0])
+        out = {"worker0": child.run_codec_worker(kv, c.workers[0], codec)}
+        for po, srv in servers:
+            out[f"server{po.my_rank()}"] = {
+                str(k): v.copy() for k, v in srv._handle.store.items()}
+        kv.stop()
+    finally:
+        for _po, srv in servers:
+            srv.stop()
+        c.finalize()
+    _CODEC_REFS[codec] = out
+    return out
+
+
+@pytest.mark.parametrize("mix", ["jax_worker_port_servers",
+                                 "port_worker_jax_servers"])
+@pytest.mark.parametrize("codec", ["int8", "fp8_e4m3", "bf16"])
+def test_mixed_codec_cluster_bit_equal_to_jax(tmp_path, codec, mix):
+    """A JAX worker against port servers and a port worker against JAX
+    servers, every push and pull under ``codec`` (``register_bucket`` and
+    ``codec=``): stores and pulls bit-equal to an all-JAX cluster's, the
+    residuals of both sides' error feedback included."""
+    run_cluster(tmp_path, cluster_env("tcp"),
+                [(pkg, roles, dict(extra, PSTEST_CODEC=codec))
+                 for pkg, roles, extra in MIXES[mix]])
+    want = jax_codec_reference(codec)
+    assert_bit_equal(results(tmp_path), want)
+    pulls = want["worker0"]
+    # Lossy, but close.  With error feedback the store is off the exact
+    # sum by about the last push's encode error, and the pull adds one
+    # more encode: int8 half a scale step (max|block| / 254) twice, fp8
+    # e4m3 2^-4 of a value twice, bf16 2^-8 twice.  Stated bound: that,
+    # rounded up, times the largest exact value.  (The store holds the
+    # three pushes and the push_pull's second one again.)
+    p = child.scenario_pushes(len(pulls["keys"]))
+    exact = p[0] + p[1] + p[2] + p[1]
+    bound = {"int8": 0.02, "fp8_e4m3": 0.15, "bf16": 0.01}[codec]
+    for name in ("pull", "pull_codec_arg"):
+        want_vals = exact if name == "pull" else sum(p[:3])
+        err = np.abs(pulls[name] - want_vals).max()
+        assert err < bound * np.abs(want_vals).max(), (name, err)
+
+
+def test_chunked_push_streamed_into_the_pool(tmp_path, jax_reference):
+    """All-port tcp: each 2 MB push arrives in 1 MiB chunks; with the
+    pool (the default) the servers apply each whole key as it lands,
+    without (``PS_APPLY_SHARDS=0``) the reassembled push applies whole.
+    Both are bit-equal to the all-JAX cluster."""
+    opened = {}
+    for shards in ("default", "0"):
+        out = tmp_path / shards
+        out.mkdir()
+        extra = {} if shards == "default" else {"PS_APPLY_SHARDS": "0"}
+        reports = run_cluster(out, cluster_env("tcp", **extra),
+                              MIXES["all_port"])
+        assert_bit_equal(results(out), jax_reference)
+        opened[shards] = sum(n for r in reports
+                             for n in r.get("streams_opened", []))
+    # 2 pushes to each of 2 servers (a push_pull is not streamed: its
+    # response needs the whole request).
+    assert opened == {"default": 4, "0": 0}
 
 
 # -- frames ------------------------------------------------------------------

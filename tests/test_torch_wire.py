@@ -3,7 +3,9 @@
 Mirrors ``test_wire.py`` and ``test_sarray.py``.  The same Meta and
 Message, built in both packages from the same numpy inputs, must pack to
 the same bytes (meta and whole frame), and each package must read the
-other's bytes back to the same fields.  Tolerance: none, byte for byte.
+other's bytes back to the same fields.  Then the codec frames each
+package's KVWorker and KVServer build from the same inputs.  Tolerance:
+none, byte for byte.
 """
 
 import itertools
@@ -15,11 +17,19 @@ import pytest
 from pslite_tpu import message as jmsg
 from pslite_tpu import sarray as jsarray
 from pslite_tpu import wire as jwire
+from pslite_tpu.kv import kv_app as jkv
 from pslite_tpu_torch import message as tmsg
 from pslite_tpu_torch import sarray as tsarray
 from pslite_tpu_torch import wire as twire
+from pslite_tpu_torch.kv import kv_app as tkv
 from pslite_tpu_torch.range import Range, find_range
 from pslite_tpu_torch.sarray import DeviceType, SArray
+
+from test_torch_msg_plane import (  # noqa: F401 - the fixture applies here
+    JAX,
+    PORT,
+    _port_loopback_isolation,
+)
 
 
 def _sample_meta(m):
@@ -246,3 +256,72 @@ def test_find_range_matches_jax(begin, end):
     r, j = find_range(keys, begin, end), jfind(keys, begin, end)
     assert (r.begin, r.end) == (j.begin, j.end)
     assert Range(3, 7).size() == 4 and Range(3, 7).contains(6)
+
+
+
+# -- codec frames, as each package's KVWorker and KVServer build them -----------
+
+def _codec_frames(api, codec, kind):
+    """The frames one package's node sends for ``kind``: a codec push
+    (twice, so the second folds in the first's residual), the same with
+    ragged ``lens``, a pull request asking for the bucket's codec, or a
+    server's encoded pull response (twice).  ``addr`` is zeroed: the JAX
+    worker writes an in-process token (``id(vals)``) there."""
+    mods = (jmsg, jkv, jwire) if api is JAX else (tmsg, tkv, twire)
+    msg_mod, kv_mod, wire_mod = mods
+    cluster = api.cluster(num_workers=1, num_servers=2)
+    cluster.start()
+    sent, node = [], None
+    try:
+        ranges = cluster.workers[0].get_server_key_ranges()
+        keys = np.array([ranges[0].begin + 3, ranges[1].begin + 3,
+                         ranges[1].begin + 9], np.uint64)
+        vals = np.random.default_rng(21).standard_normal(900,
+                                                         dtype=np.float32)
+        vals[7] = np.nan
+        vals[400] = -np.inf
+        if kind == "response":
+            node = cluster.servers[0]
+            srv = api.KVServer(0, postoffice=node)
+            srv.set_request_handle(api.DefaultHandle())
+            node.van.send = sent.append
+            c = tkv.codecs_mod.get_codec(codec)
+            for _ in range(2):
+                srv.response(kv_mod.KVMeta(
+                    pull=True, sender=9, timestamp=4, key=int(keys[0]),
+                    val_len=vals.nbytes, codec=msg_mod.CodecInfo(
+                        codec=c.wire_id, raw_len=0, block=c.block)),
+                    api.KVPairs(keys=keys, vals=vals))
+        else:
+            node = cluster.workers[0]
+            w = api.KVWorker(0, 0, postoffice=node)
+            node.van.send = sent.append
+            lens = np.array([100, 500, 300], np.int32)
+            if kind == "pull":
+                w.register_bucket(keys, codec=codec)
+                w.pull(keys, np.zeros_like(vals))
+            for _ in range(2 if kind != "pull" else 0):
+                if kind == "push":
+                    w.push(keys, vals, codec=codec)
+                else:
+                    w.push(keys, vals, lens=lens, compress=codec)
+        del node.van.send  # the van's own send again, for finalize
+        frames = []
+        for msg in sent:
+            msg.meta.addr = 0
+            frames.append(b"".join(bytes(c)
+                                   for c in wire_mod.pack_frame(msg)))
+        return frames
+    finally:
+        if node is not None and "send" in vars(node.van):
+            del node.van.send
+        cluster.finalize()
+
+
+@pytest.mark.parametrize("kind", ["push", "push_lens", "pull", "response"])
+@pytest.mark.parametrize("codec", ["int8", "fp8_e4m3", "bf16"])
+def test_codec_frames_byte_identical_to_jax(codec, kind):
+    want = _codec_frames(JAX, codec, kind)
+    got = _codec_frames(PORT, codec, kind)
+    assert len(got) == len(want) == (4 if kind.startswith("push") else 2)
+    assert got == want

@@ -13,7 +13,12 @@ and:
 - ``PSTEST_ZPULL=1``: the worker pulls into ``alloc_pull_buffer``;
 - ``PSTEST_CPU_GROUP=N`` (port only): the worker's ``ici_tcp``/``ici_shm``
   engine runs on ``DeviceGroup(N, device="cpu")`` instead of the card,
-  and pushes a registered bucket beside the message keys.
+  and pushes a registered bucket beside the message keys;
+- ``PSTEST_CODEC``: a wire codec; the worker runs :func:`run_codec_worker`
+  instead of :func:`run_worker`.
+
+Port servers report ``streams_opened`` (chunked pushes applied as their
+chunks landed).
 
 It prints one JSON line per process (``{"ok": true, ...}``) and exits 0,
 or prints the error and exits 1.  A process still running after
@@ -90,6 +95,29 @@ def run_worker(kv, po, zpull: bool = False) -> dict:
     return out
 
 
+def run_codec_worker(kv, po, codec: str) -> dict:
+    """The scenario's pushes under ``codec``: the keys registered with
+    ``register_bucket``, and the same keys + 50 with ``codec=`` on each
+    call; three pushes of each, a push_pull of the registered keys (the
+    push encoded, the response raw) and a pull of each (encoded
+    responses).  Returns the pulls."""
+    keys = scenario_keys(po)
+    other = keys + np.uint64(50)
+    kv.register_bucket(keys, codec=codec)
+    pushes = scenario_pushes(len(keys))
+    for p in pushes:
+        kv.wait(kv.push(keys, p))
+        kv.wait(kv.push(other, p, codec=codec))
+    out = {"keys": keys}
+    out["push_pull"] = np.zeros_like(pushes[0])
+    kv.wait(kv.push_pull(keys, pushes[1], out["push_pull"]))
+    out["pull"] = np.zeros_like(pushes[0])
+    kv.wait(kv.pull(keys, out["pull"]))
+    out["pull_codec_arg"] = np.zeros_like(pushes[0])
+    kv.wait(kv.pull(other, out["pull_codec_arg"], codec=codec))
+    return out
+
+
 def run_bucket(ps, kv, steps: int = 3) -> dict:
     """The engine path beside the message path: a registered bucket of
     integer-valued grads (exact sums in any order)."""
@@ -139,6 +167,13 @@ def main() -> int:
     roles = os.environ["PSTEST_ROLES"].split(",")
     out_dir = os.environ["PSTEST_OUT"]
     ps, Environment, role_of = api(pkg)
+    if pkg == "jax" and os.environ.get("PSTEST_CODEC") == "fp8_e4m3":
+        # The JAX package sets its two fp8 tables one after the other,
+        # so shard threads decoding at once may find the second unset
+        # (ROADMAP Queue 3): build them before any thread starts.
+        from pslite_tpu.ops import codecs
+
+        codecs.Fp8E4M3Codec._luts()
     nodes = [ps.Postoffice(role_of(r), env=Environment({})) for r in roles]
     cpu_group = int(os.environ.get("PSTEST_CPU_GROUP", "0"))
     for po in nodes:
@@ -167,7 +202,9 @@ def main() -> int:
             apps.append(kv)
             if cpu_group:
                 report.update(run_bucket(ps, kv))
-            res = run_worker(kv, po, os.environ.get("PSTEST_ZPULL") == "1")
+            codec = os.environ.get("PSTEST_CODEC")
+            res = (run_codec_worker(kv, po, codec) if codec else
+                   run_worker(kv, po, os.environ.get("PSTEST_ZPULL") == "1"))
             report["zpull_hits"] = kv.zpull_hits
             np.savez(os.path.join(out_dir, f"worker{po.my_rank()}.npz"),
                      **res)
@@ -183,6 +220,8 @@ def main() -> int:
     if pkg == "port":
         report["chunks"] = {r: [po.van.chunks_sent, po.van.chunks_recv]
                             for r, po in zip(roles, nodes)}
+        report["streams_opened"] = [srv.streams_opened
+                                    for _po, srv in servers]
     print(json.dumps(report), flush=True)
     return 0
 
