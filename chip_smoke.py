@@ -106,8 +106,9 @@ line):
    ``msg-config2-serial`` (the same with ``PS_APPLY_SHARDS=0``),
    ``msg-pool-vs-serial`` (one worker's 3 pushes of normal floats and a
    pull, pool and serial stores and pulls bit-equal),
-   ``msg-config2-int8``/``-fp8_e4m3``/``-bf16`` (both workers
-   ``register_bucket`` the keys under the codec, normal floats; every
+   ``msg-config2-int8``/``-fp8_e4m3``/``-bf16`` (2 warm-up and 5 timed
+   rounds; both workers ``register_bucket`` the keys under the codec,
+   normal floats; every
    pull within the codec's bound of the float64 sum of the pushes, each
    encode that reached it counted; a raw pull after each round gives
    the store's mean error) and ``msg-config2-int8-noef``
@@ -139,6 +140,35 @@ line):
    worker process and added to the path's launches).  Every pull is
    checked exactly; each cell's ms/round and Gbit/s are printed beside
    the loopback ``msg-config2`` of the same run.
+   Then the message-path tiers over tcp, one process per node: each leg
+   one cluster, the two legs' clusters up at once and their 3 timed
+   windows alternating (a, b, a, b, a, b) while the other idles,
+   reported as medians, the windows' values and the round-by-round
+   ratio:
+   ``small-op-storm`` / ``-unbatched`` (1 worker + 1 server with an
+   assign handle: one-key 4,096 B pushes of each op's ordinal at depth
+   256 for 1.5 s, batched with ``PS_BATCH_BYTES=262144``,
+   ``PS_BATCH_MIN_OPS=256``, ``PS_BATCH_HOLD_US=12000`` against
+   ``PS_BATCH_BYTES=0``; ops/s, ops per frame, low-load push p50/p99,
+   and the final pull equal to the last ordinal), ``serving-fanin`` /
+   ``-unbatched`` (1 worker + 2 servers holding a 1,048,576 x 16 f32
+   embedding table on the spread key layout: ``multi_get`` of 64
+   Zipf(1.5) single-row lookups at depth 8 for 1.5 s, hot cache cold;
+   requests/s, p50/p99, frames per request each way, every 32nd request
+   and the last 8 bit-exact), ``hot-cache`` / ``-off`` (1 + 1, the serve
+   tenant, ``dlrm_serve``'s 1,024 x 16 table: the read-only storm of
+   2,000 Zipf single-row pulls, each checked exactly; p50/p99 and the
+   hit rate from the frames sent; then, untimed, 32 rows each pulled,
+   pushed +1 and pulled again: stale reads 0) and ``multi-tenant`` / ``-idle`` (2 workers + 1 server
+   under ``PS_TENANTS=serve:8,train:1``, ``PS_TENANT_QUEUE_LIMIT=8``,
+   the legs as alternating windows of one cluster: the serve worker's
+   express single-row pulls while the train worker pushes 4 MiB at
+   depth 12, or idles; serve p99 per leg, the bulk sheds and the bulk
+   store exact at its applied count after every window), then JAX's
+   admission probe (a loopback 1 + 1 at ``PS_TENANT_QUEUE_LIMIT=4``
+   offered 64 pushes at once: applied, shed, store exact).
+   ``msg-ici-mixed`` also runs with ``PS_BATCH_BYTES=262144`` and issues
+   a ``multi_get`` of 64 single-row lookups of 64 B beside the bucket.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1523,7 +1553,7 @@ def steady_state_trace(torch, ps, rt, Environment):
     return out
 
 
-# -- sparse tables: BASELINE config 5 ------------------------------------------
+# -- sparse tables: BASELINE config 5 -----------------------------------------
 
 EMB_ROWS = 1 << 20  # BASELINE.md:30, pslite_tpu/models/embedding.py
 EMB_DIM = 64
@@ -1896,6 +1926,7 @@ def steady_state_sparse(torch, ps, Environment, emb):
 # -- the message control plane in one process ---------------------------------
 
 MSG_ROUNDS, MSG_WARMUP = 10, 2
+CODEC_ROUNDS = 5  # each codec round also checks 20.48M values per worker
 MSG_KEYS_PER_SERVER = 40  # test_benchmark.cc:25-30 NUM_KEY_PER_SERVER
 MSG_LOOSE_KEYS = 16  # unregistered 1 MB keys of the mixed ici phase
 MSG_DEADLINE = 300.0
@@ -2037,7 +2068,7 @@ class CodecBound:
 
 
 def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
-                      env=None, codec=None):
+                      env=None, codec=None, rounds: int = MSG_ROUNDS):
     """BASELINE config 2's topology in one process over the loopback van:
     test_benchmark's PUSH_PULL workload (40 keys per server of 1,024,000
     B), each round both workers push on their own threads, meet at a
@@ -2048,7 +2079,8 @@ def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
     ``register_bucket`` the keys (pushes and pulls encoded), push seeded
     normal f32, and each pull must lie within :class:`CodecBound` of the
     float64 sum; after each round worker 0 also pulls raw (untimed),
-    whose mean |err| is the store's."""
+    whose mean |err| is the store's.  ``rounds`` timed rounds follow
+    ``MSG_WARMUP`` untimed ones."""
     nodes = msg_cluster(ps, Environment, 2, 2, env=env)
     srv_pos, wk_pos = nodes[1:3], nodes[3:]
     apps = []
@@ -2101,7 +2133,7 @@ def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
                     sum(po.van.send_bytes for po in srv_pos))
 
         times, worst, store_err, wire = [], 0.0, [], [0, 0]
-        for r in range(MSG_WARMUP + MSG_ROUNDS):
+        for r in range(MSG_WARMUP + rounds):
             for i in range(2):
                 np.add(base[i], np.float32(r), out=bufs[i])
             before = sent()
@@ -2134,13 +2166,13 @@ def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
                   for s in servers]
         elapsed = sum(times[MSG_WARMUP:])
         nbytes = VAL_LEN * 4
-        gbps = 8 * nbytes * len(keys) * MSG_ROUNDS / (elapsed * 1e9)
-        ms = elapsed / MSG_ROUNDS * 1e3
-        up, down = (b / MSG_ROUNDS for b in wire)
+        gbps = 8 * nbytes * len(keys) * rounds / (elapsed * 1e9)
+        ms = elapsed / rounds * 1e3
+        up, down = (b / rounds for b in wire)
         detail = (f"every pull within the {codec} bound of the float64 sum "
                   f"(max |err| {worst:.4g}); store mean |err| by round "
                   f"(raw pulls) {', '.join(f'{e:.3g}' for e in store_err)}"
-                  if codec else f"{MSG_WARMUP + MSG_ROUNDS} rounds checked "
+                  if codec else f"{MSG_WARMUP + rounds} rounds checked "
                   f"exactly")
         print(f"{label} (1 scheduler + 2 servers + 2 workers, loopback van, "
               f"{len(keys)} keys x {nbytes} B per worker and round, apply "
@@ -2155,7 +2187,7 @@ def drive_msg_config2(ps, Environment, smi: str, label: str = "msg-config2",
               + ", ".join(f"{k} {sum(v) / len(v) * 1e3:.1f} ms"
                           for k, v in phases.items())
               + f" [{smi}] [host CPU {cpu_model()}]")
-        row = {"config": label, "ops": 4 * (MSG_WARMUP + MSG_ROUNDS),
+        row = {"config": label, "ops": 4 * (MSG_WARMUP + rounds),
                "max_abs_err_vs_f64": worst, "ms_per_round": ms,
                "gbps_per_worker": gbps, "wire_up_bytes_per_round": up,
                "wire_down_bytes_per_round": down, "streams": streams}
@@ -2173,17 +2205,19 @@ def drive_msg_codecs(ps, Environment, smi: str):
     rows = []
     for codec in CODECS:
         rows += drive_msg_config2(ps, Environment, smi,
-                                  label=f"msg-config2-{codec}", codec=codec)
+                                  label=f"msg-config2-{codec}", codec=codec,
+                                  rounds=CODEC_ROUNDS)
     rows += drive_msg_config2(ps, Environment, smi,
                               label="msg-config2-int8-noef",
-                              env={"PS_CODEC_EF": "0"}, codec="int8")
+                              env={"PS_CODEC_EF": "0"}, codec="int8",
+                              rounds=CODEC_ROUNDS)
     ef, noef = rows[0]["store_mean_err"], rows[-1]["store_mean_err"]
     if not ef < noef:
         raise AssertionError(f"error feedback did not shrink the store's mean "
                              f"error: {ef:.4g} with, {noef:.4g} without")
     print(f"msg-config2-int8: error feedback, store mean |err| over "
-          f"{MSG_WARMUP + MSG_ROUNDS} rounds {ef:.4g} against {noef:.4g} with "
-          f"PS_CODEC_EF=0 ({noef / ef:.2f}x)")
+          f"{MSG_WARMUP + CODEC_ROUNDS} rounds {ef:.4g} against {noef:.4g} "
+          f"with PS_CODEC_EF=0 ({noef / ef:.2f}x)")
     return rows
 
 
@@ -2292,8 +2326,11 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
     pushes/pulls 16 unregistered 1 MB keys over messages to the server,
     those under the int8 codec (``register_bucket``), interleaved for 5
     steps, each against float64 numpy (the messages within the codec's
-    bound)."""
-    nodes = msg_cluster(ps, Environment, 1, 1, van="ici")
+    bound).  Batching is on (``PS_BATCH_BYTES=262144``): then a
+    ``multi_get`` of 64 single-row lookups of 64 B over messages, bit for
+    bit, in one batch frame."""
+    nodes = msg_cluster(ps, Environment, 1, 1, van="ici",
+                        env={"PS_BATCH_BYTES": str(256 << 10)})
     apps = []
     try:
         srv = ps.KVServer(0, postoffice=nodes[1])
@@ -2337,7 +2374,20 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
             lbound.pushed(lbuf)
             lworst = lbound.check(f"msg-ici-mixed: message step {k}", 0,
                                   lout)
-        if sorted(handle.store) != loose.tolist():
+        rows = np.arange(64, dtype=np.uint64) + 2_000_000
+        table = embedding_rows(np.arange(64)).reshape(-1)
+        w.wait(w.push(rows, table))
+        frames0 = w.combiner.flushed_frames
+        t0 = time.perf_counter()
+        got = w.multi_get([rows[i:i + 1] for i in range(64)],
+                          val_len=FANIN_DIM).wait()
+        mg_ms = (time.perf_counter() - t0) * 1e3
+        mg_frames = w.combiner.flushed_frames - frames0
+        if not np.array_equal(np.concatenate(got), table) or mg_frames != 1:
+            raise AssertionError(f"msg-ici-mixed: the multi_get of 64 rows "
+                                 f"came back wrong or in {mg_frames} batch "
+                                 f"frames")
+        if sorted(handle.store) != loose.tolist() + rows.tolist():
             raise AssertionError(f"msg-ici-mixed: the server holds keys "
                                  f"{sorted(handle.store)[:4]}..., not exactly "
                                  f"the unregistered ones")
@@ -2350,17 +2400,20 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
         print(f"msg-ici-mixed (1 scheduler + 1 server + 1 worker, ici van on "
               f"{N} ranks of cuda:0): {steps} steps; K4 "
               f"ring_push_pull[float32] launches {k4}; server store holds "
-              f"exactly the {MSG_LOOSE_KEYS} unregistered keys; host ms per "
+              f"exactly the {MSG_LOOSE_KEYS} unregistered keys and the 64 "
+              f"rows; host ms per "
               f"op: bucket push_pull {ms['bucket']:.3f} (numpy grads, "
               f"host-to-device copy and result copy included), message push "
               f"{ms['push']:.3f}, message pull {ms['pull']:.3f} "
               f"({MSG_LOOSE_KEYS} x {VAL_LEN * 4} B, int8 codec, within its "
               f"bound: max |err| {lworst:.3g}); bucket max |err| vs "
-              f"float64 {worst:.3g} [{smi}]")
+              f"float64 {worst:.3g}; multi_get of 64 x {FANIN_DIM * 4} B "
+              f"rows bit-exact in {mg_frames} batch frame, {mg_ms:.3f} ms "
+              f"[{smi}]")
         return [{"config": "msg-ici-mixed", "ops": 3 * steps,
                  "max_abs_err_vs_f64": worst, "k4_launches": k4,
                  "bucket_ms": ms["bucket"], "msg_push_ms": ms["push"],
-                 "msg_pull_ms": ms["pull"]}]
+                 "msg_pull_ms": ms["pull"], "multi_get_ms": mg_ms}]
     finally:
         msg_finalize(nodes, apps)
 
@@ -2400,7 +2453,7 @@ def drive_msg_optimizer(ps, Environment):
         msg_finalize(nodes, apps)
 
 
-# -- engine state that moves: checkpoints and reshard ---------------------------
+# -- engine state that moves: checkpoints and reshard -------------------------
 
 EL_KEYS = np.arange(KEYS, dtype=np.uint64)
 EL_RING_KEYS = EL_KEYS + 1_000  # the sum bucket, beside the adam one
@@ -2821,7 +2874,8 @@ def node_main() -> int:
     apps = []
     if role in ("server", "joint"):
         srv = ps.KVServer(0)
-        srv.set_request_handle(ps.KVServerDefaultHandle())
+        srv.set_request_handle(AssignHandle(ps) if spec.get("handle")
+                               == "assign" else ps.KVServerDefaultHandle())
         apps.append(srv)
         report["streams_opened"] = lambda: srv.streams_opened
         if os.environ.get("ENABLE_RECV_BUFFER") == "1":
@@ -2841,6 +2895,8 @@ def node_main() -> int:
         apps.append(kv)
         if ranks:
             report.update(node_ici(torch, ring, kv, spec))
+        elif spec.get("phase"):
+            report.update(TIER_NODES[spec["phase"]](ps, po, kv, spec))
         else:
             report.update(node_rounds(ps, po, kv, spec))
     # finalize's barrier keeps the servers answering until every worker
@@ -2987,61 +3043,479 @@ def node_ici(torch, ring, kv, spec) -> dict:
             "msg_ms": sum(t_msg) / len(t_msg) * 1e3, "steps": spec["steps"]}
 
 
-def launch(van: str, workers: int, servers: int, spec: dict,
-           extra=None, joint: bool = False,
-           report_roles=("worker", "joint")):
-    """One cluster of separate processes, roles from the port's
-    launcher (``tracker/local.py``), each child under PROC_DEADLINE;
-    every child is killed when one fails or time runs out.  Returns the
-    JSON reports of the children of ``report_roles``."""
-    import tempfile
+# -- message-path tiers: one process per node over tcp ------------------------
 
-    from pslite_tpu_torch.tracker.local import LocalLauncher, build_env
-    from pslite_tpu_torch.utils.network import get_available_port
+TIER_ROUNDS = 3   # interleaved rounds of each phase's two legs
+TIER_SECS = 1.5   # pipeline window of each leg and round
+SOB_DEPTH = 256
+SOB_OP_BYTES = 4096
+FANIN_ROWS = 1 << 20  # models/dlrm.py:22-28's DLRMConfig at the 1M rows
+FANIN_DIM = 16        # its comment names; 64 MiB of f32
+FANIN_OUT = 64        # lookups per request (benchmark.py:495)
+FANIN_DEPTH = 8
+HOT_ROWS = 1024       # benchmark.py:337-340's dlrm_serve table
+HOT_PULLS = 2000      # benchmark.py:2084's full-size storm
+HOT_RYW_ROWS = 32     # rows pushed then pulled after the timed storm
+MT_BULK_MB = 4
+MT_DEPTH = 12
+MT_RAMP = 0.5         # seconds the bulk pipeline runs before and after
+                      # each serve window (benchmark.py:268-276's warm)
+TIER_BATCH = {"PS_BATCH_BYTES": str(256 << 10)}
+MT_ENV = {"PS_TENANTS": "serve:8,train:1", "PS_TENANT_QUEUE_LIMIT": "8",
+          "PS_CHUNK_BYTES": str(256 << 10),
+          "PS_APPLY_TASK_BYTES": str(512 << 10),
+          "PS_TCP_SNDBUF": str(256 << 10), "PS_TCP_RCVBUF": str(256 << 10)}
 
-    port = get_available_port()
-    roles = LocalLauncher(workers, servers, [], van=van, root_port=port,
-                          joint=joint).roles()
-    logdir = tempfile.mkdtemp(prefix="smoke")
-    procs = []
-    try:
-        for i, role in enumerate(roles):
-            env = build_env(role, workers, servers, "127.0.0.1", port, van,
-                            extra=dict(extra or {}, DMLC_NODE_HOST="127.0.0.1",
-                                       SMOKE_SPEC=json.dumps(spec)))
-            log = open(os.path.join(logdir, f"{i}-{role}.log"), "w+")
-            procs.append((role, log, subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                 "--node"], env=env, stdout=log, stderr=subprocess.STDOUT,
-                cwd=HERE)))
-        end = time.monotonic() + PROC_DEADLINE
-        failed = None
-        while failed is None and any(p.poll() is None
-                                     for _r, _l, p in procs):
-            failed = next((r for r, _l, p in procs
-                           if p.poll() not in (None, 0)), None)
-            if time.monotonic() > end:
-                failed = f"deadline of {PROC_DEADLINE:.0f} s"
+
+class AssignHandle:
+    """Assign on push, echo on pull, on the customer thread (the JAX
+    benchmark's ``BenchmarkHandle``): the last push of a key is what a
+    pull returns, so a storm's final pull proves order and values."""
+
+    def __init__(self, ps):
+        self._kvpairs = ps.KVPairs
+        self.store = {}
+
+    def __call__(self, meta, kvs, server):
+        if meta.push:
+            k = len(kvs.vals) // max(len(kvs.keys), 1)
+            block = np.array(kvs.vals)
+            for i, key in enumerate(kvs.keys.tolist()):
+                self.store[key] = block[i * k:(i + 1) * k]
+        if meta.pull:
+            server.response(meta, self._kvpairs(keys=kvs.keys, vals=(
+                np.concatenate([self.store[k] for k in kvs.keys.tolist()]))))
+        else:
+            server.response(meta)
+
+
+def pctl_ms(lats) -> tuple:
+    """(p50, p99) of latencies in seconds, in ms (benchmark.py:225)."""
+    if not lats:
+        return 0.0, 0.0
+    s = sorted(lats)
+    return (s[len(s) // 2] * 1e3, s[min(len(s) - 1, int(len(s) * 0.99))]
+            * 1e3)
+
+
+def embedding_rows(rows: np.ndarray, dim: int = FANIN_DIM) -> np.ndarray:
+    """``models/dlrm.py``'s ``embedding_row`` for many rows at once, bit
+    for bit: ``arange(dim) * 1e-3 + float32(row) + 0.5`` in f32."""
+    base = np.arange(dim, dtype=np.float32) * 1e-3
+    return (base[None, :] + rows.astype(np.float32)[:, None]) + np.float32(0.5)
+
+
+def spread_row_keys(rows: int) -> np.ndarray:
+    """``models/dlrm.py``'s layout spreading rows over the u64 key space,
+    so the table shards over every server."""
+    return np.arange(rows, dtype=np.uint64) * np.uint64((1 << 64) // rows)
+
+
+def serving_rows(rows: int, n: int, seed: int) -> np.ndarray:
+    """Zipf(1.5) row ids (``models/dlrm.py``'s ``serving_keys``)."""
+    idx = np.random.default_rng(seed).zipf(1.5, size=n).astype(np.int64)
+    return ((idx - 1) % rows).astype(np.uint64)
+
+
+def push_table(kv, keys: np.ndarray, tenant=None) -> float:
+    """Publish the embedding table (one key per row); seconds taken."""
+    vals = embedding_rows(np.arange(len(keys))).reshape(-1)
+    t0 = time.perf_counter()
+    kv.wait(kv.push(keys, vals, tenant=tenant))
+    return time.perf_counter() - t0
+
+
+def node_windows(spec):
+    """After a node's set-up: print ``READY``, then yield once for each of
+    ``spec["windows"]`` windows, each after the parent's go (a line on
+    stdin; see ``Cluster``)."""
+    print("READY", flush=True)
+    for i in range(spec["windows"]):
+        if not sys.stdin.readline():
+            raise AssertionError("the parent closed the window pipe")
+        yield i
+
+
+def window_done(report: dict) -> None:
+    print("WINDOW " + json.dumps(report), flush=True)
+
+
+def node_small_op(ps, po, kv, spec) -> dict:
+    """``benchmark.py:400-468``, once per window: one key, 4,096 B pushes
+    of each op's ordinal through a depth-256 pipeline, then sequential
+    pushes for the low-load latency, then a pull that must equal the
+    last ordinal."""
+    from collections import deque
+
+    keys = np.zeros(1, np.uint64)
+    pool = [np.empty(SOB_OP_BYTES // 4, np.float32)
+            for _ in range(SOB_DEPTH + 64)]
+    seq = 0
+
+    def op_vals(v):
+        buf = pool[v % len(pool)]
+        buf.fill(np.float32(v))
+        return buf
+
+    for _ in range(32):  # warm: connections, the capability probe
+        seq += 1
+        kv.wait(kv.push(keys, op_vals(seq)))
+    comb = kv.combiner
+    out = np.zeros(SOB_OP_BYTES // 4, np.float32)
+    for _w in node_windows(spec):
+        f0, o0 = ((comb.flushed_frames, comb.flushed_ops) if comb
+                  else (0, 0))
+        sent0 = po.van.frames_sent
+        pending, n_ops = deque(), 0
+        t0 = time.perf_counter()
+        t_end = t0 + spec["secs"]
+        while time.perf_counter() < t_end:
+            seq += 1
+            pending.append(kv.push(keys, op_vals(seq)))
+            n_ops += 1
+            if len(pending) >= SOB_DEPTH:
+                kv.wait(pending.popleft())
+        while pending:
+            kv.wait(pending.popleft())
+        wall = time.perf_counter() - t0
+        frames = po.van.frames_sent - sent0
+        merged = ((comb.flushed_frames - f0, comb.flushed_ops - o0)
+                  if comb else (0, 0))
+        lats = []
+        t_end = time.perf_counter() + min(1.0, spec["secs"] / 2)
+        while time.perf_counter() < t_end:
+            seq += 1
+            v = op_vals(seq)
+            t1 = time.perf_counter()
+            kv.wait(kv.push(keys, v))
+            lats.append(time.perf_counter() - t1)
+        kv.wait(kv.pull(keys, out))
+        if not np.all(out == np.float32(seq)):
+            raise AssertionError(f"small-op storm: the final pull holds "
+                                 f"{out[0]}, not the last ordinal {seq}")
+        p50, p99 = pctl_ms(lats)
+        window_done({"ops": n_ops, "secs": wall, "ops_per_s": n_ops / wall,
+                     "frames": frames,
+                     "ops_per_frame": (merged[1] / merged[0] if merged[0]
+                                       else 1.0),
+                     "low_p50_ms": p50, "low_p99_ms": p99, "last": seq})
+    return {"store_exact": True}
+
+
+def node_fanin(ps, po, kv, spec) -> dict:
+    """``benchmark.py:470-560``: the table spread over the servers, then,
+    once per window, ``multi_get`` requests of 64 Zipf(1.5) single-row
+    lookups through a depth-8 pipeline, every 32nd and the last 8
+    checked bit for bit."""
+    from collections import deque
+
+    rows = spec["rows"]
+    row_keys = spread_row_keys(rows)
+    push_s = push_table(kv, row_keys)
+    outs_pool = [[np.zeros(FANIN_DIM, np.float32) for _ in range(FANIN_OUT)]
+                 for _ in range(FANIN_DEPTH)]
+    all_rows = serving_rows(rows, 4096 * FANIN_OUT, seed=7)
+    for i in range(16):  # warm: connections, the capability probes
+        kl = [row_keys[int(r):int(r) + 1] for r in
+              all_rows[i * FANIN_OUT:(i + 1) * FANIN_OUT]]
+        kv.multi_get(kl, outs=outs_pool[0]).wait()
+    for _w in node_windows(spec):
+        sent0, recv0 = po.van.frames_sent, po.van.frames_recv
+        lats, pending, free = [], deque(), list(range(FANIN_DEPTH))
+        n_req = checked = 0
+
+        def retire(check):
+            nonlocal checked
+            t_iss, handle, rws, slot = pending.popleft()
+            handle.wait()
+            lats.append(time.perf_counter() - t_iss)
+            if check:
+                want = embedding_rows(rws)
+                if not np.array_equal(np.stack(outs_pool[slot]), want):
+                    raise AssertionError("serving-fanin: a request's rows "
+                                         "came back wrong")
+                checked += 1
+            free.append(slot)
+
+        t0 = time.perf_counter()
+        t_end = t0 + spec["secs"]
+        while time.perf_counter() < t_end:
+            base = (n_req % 4096) * FANIN_OUT
+            rws = all_rows[base:base + FANIN_OUT]
+            slot = free.pop()
+            t1 = time.perf_counter()
+            handle = kv.multi_get([row_keys[int(r):int(r) + 1] for r in rws],
+                                  outs=outs_pool[slot])
+            pending.append((t1, handle, rws, slot))
+            n_req += 1
+            if len(pending) >= FANIN_DEPTH:
+                retire(n_req % 32 == 0)
+        while pending:
+            retire(True)
+        wall = time.perf_counter() - t0
+        p50, p99 = pctl_ms(lats)
+        window_done({"reqs": n_req, "secs": wall, "reqs_per_s": n_req / wall,
+                     "p50_ms": p50, "p99_ms": p99, "checked": checked,
+                     "frames_out_per_req": (po.van.frames_sent - sent0)
+                     / n_req,
+                     "frames_in_per_req": (po.van.frames_recv - recv0)
+                     / n_req})
+    return {"push_s": push_s, "rows": rows}
+
+
+def node_hot_cache(ps, po, kv, spec) -> dict:
+    """``benchmark.py:331-360`` as the serve tenant: the table on one
+    server, an unmeasured Zipf warm storm, ``seed_hot_cache(k=64)`` when
+    the cache is on; then, once per window (the cache cleared first, as
+    JAX clears it after seeding), the read-only storm of
+    ``models/dlrm.py:226-258``: 2,000 Zipf single-row pulls, timed, each
+    then checked exactly against its row (JAX checks every 64th).  After
+    the last window, read-your-writes: 32 of the storm's rows are each
+    pulled, pushed +1 and pulled again, and the second pull must hold
+    the push."""
+    rows = spec["rows"]
+    keys = np.arange(rows, dtype=np.uint64)
+    push_s = push_table(kv, keys, tenant="serve")
+    out = np.zeros(FANIN_DIM, np.float32)
+    for r in serving_rows(rows, 200, seed=3):
+        kv.wait(kv.pull(keys[int(r):int(r) + 1], out, tenant="serve"))
+    if kv.hot_cache is not None:
+        kv.seed_hot_cache(k=64)
+    storm = serving_rows(rows, spec["pulls"], seed=7)
+    for _w in node_windows(spec):
+        if kv.hot_cache is not None:
+            kv.hot_cache.clear()
+        lats, hits, wrong = [], 0, 0
+        for r in storm.tolist():
+            sent = po.van.frames_sent
+            t0 = time.perf_counter()
+            kv.wait(kv.pull(keys[r:r + 1], out, tenant="serve"))
+            lats.append(time.perf_counter() - t0)
+            hits += po.van.frames_sent == sent
+            wrong += not np.array_equal(out,
+                                        embedding_rows(np.array([r]))[0])
+        if wrong:
+            raise AssertionError(f"hot-cache: {wrong} of {len(lats)} storm "
+                                 f"pulls came back wrong")
+        p50, p99 = pctl_ms(lats)
+        window_done({"pulls": len(lats), "p50_ms": p50, "p99_ms": p99,
+                     "hit_rate": hits / len(lats), "hits": hits})
+    one = np.ones(FANIN_DIM, np.float32)
+    stale = 0
+    ryw = list(dict.fromkeys(storm.tolist()))[:HOT_RYW_ROWS]
+    for r in ryw:
+        kv.wait(kv.pull(keys[r:r + 1], out, tenant="serve"))
+        want = embedding_rows(np.array([r]))[0] + one  # the server's f32 +=
+        kv.wait(kv.push(keys[r:r + 1], one, tenant="serve"))
+        kv.wait(kv.pull(keys[r:r + 1], out, tenant="serve"))
+        stale += not np.array_equal(out, want)
+    if stale:
+        raise AssertionError(f"hot-cache: {stale} of {len(ryw)} pulls after "
+                             f"a push missed it")
+    return {"stale": stale, "ryw_rows": len(ryw), "push_s": push_s,
+            "rows": rows}
+
+
+def node_multi_tenant(ps, po, kv, spec) -> dict:
+    """``benchmark.py:243-300`` with its legs (``:2088-2090``) as windows
+    of one cluster: rank 0 is the serve tenant (express single-row pulls
+    for each window), rank 1 the train tenant (4 MiB pushes at depth 12,
+    counting sheds) or idle, the legs alternating round by round.  A
+    worker barrier opens each window; the bulk pipeline runs
+    ``MT_RAMP`` before and after it, and after each bulk window its
+    store must hold exactly its applied pushes so far."""
+    from collections import deque
+
+    from pslite_tpu_torch import OverloadError
+
+    secs = spec["secs"]
+    legs = ("idle", "bulk") * spec["rounds"]
+    if po.my_rank() == 0:
+        keys = np.arange(8, dtype=np.uint64)
+        kv.wait(kv.push(keys, np.full(8 * 256, 3.0, np.float32),
+                        tenant="serve"))
+        one, out = keys[3:4], np.zeros(256, np.float32)
+        t_end = time.perf_counter() + 0.5
+        while time.perf_counter() < t_end:
+            kv.wait(kv.pull(one, out, tenant="serve", priority=1))
+        windows = []
+        for leg in legs:
+            po.barrier(0, ps.WORKER_GROUP)
+            time.sleep(MT_RAMP)
+            lats = []
+            t_end = time.perf_counter() + secs
+            while time.perf_counter() < t_end:
+                t0 = time.perf_counter()
+                kv.wait(kv.pull(one, out, tenant="serve", priority=1))
+                lats.append(time.perf_counter() - t0)
+                if not np.all(out == 3.0):
+                    raise AssertionError("multi-tenant: a serving pull "
+                                         "came back wrong")
+            p50, p99 = pctl_ms(lats)
+            windows.append({"leg": leg, "samples": len(lats),
+                            "p50_ms": p50, "p99_ms": p99})
+        return {"tenant": "serve", "windows": windows}
+    nk = 8
+    vlen = MT_BULK_MB * (1 << 20) // 4 // nk
+    keys = np.arange(1000, 1000 + nk, dtype=np.uint64)
+    vals = np.ones(nk * vlen, np.float32)
+    out = np.zeros_like(vals)
+    applied = 0
+    windows = []
+    for leg in legs:
+        po.barrier(0, ps.WORKER_GROUP)
+        if leg == "idle":
+            continue
+        done = shed = 0
+        pending = deque()
+
+        def settle(ts):
+            nonlocal done, shed
+            try:
+                kv.wait(ts)
+                done += 1
+            except OverloadError:
+                shed += 1
+
+        t0 = time.perf_counter()
+        t_end = t0 + secs + 2 * MT_RAMP
+        while time.perf_counter() < t_end:
+            pending.append(kv.push(keys, vals, tenant="train"))
+            if len(pending) >= MT_DEPTH:
+                settle(pending.popleft())
+        while pending:
+            settle(pending.popleft())
+        wall = time.perf_counter() - t0
+        applied += done
+        kv.wait(kv.pull(keys, out, tenant="train"))
+        if not np.all(out == np.float32(applied)):
+            raise AssertionError(f"multi-tenant: the bulk store is not its "
+                                 f"{applied} applied pushes")
+        windows.append({"applied": done, "shed": shed,
+                        "gbps": 8.0 * done * vals.nbytes / wall / 1e9})
+    return {"tenant": "train", "windows": windows, "store_exact": True}
+
+
+TIER_NODES = {"small-op": node_small_op, "fanin": node_fanin,
+              "hot-cache": node_hot_cache, "multi-tenant": node_multi_tenant}
+
+
+class Cluster:
+    """One cluster of separate processes, roles from the port's launcher
+    (``tracker/local.py``), each child under PROC_DEADLINE; every child
+    is killed when one fails or time runs out.  With ``spec["windows"]``
+    each worker prints ``READY`` after its set-up, then waits for a line
+    on its stdin (``window()``) before each timed window and prints one
+    ``WINDOW <json>`` line after it, so the windows of two clusters,
+    both started once, can alternate while the other one idles."""
+
+    def __init__(self, van: str, workers: int, servers: int, spec: dict,
+                 extra=None, joint: bool = False):
+        from pslite_tpu_torch.tracker.local import LocalLauncher, build_env
+        from pslite_tpu_torch.utils.network import get_available_port
+
+        self.van = van
+        port = get_available_port()
+        roles = LocalLauncher(workers, servers, [], van=van, root_port=port,
+                              joint=joint).roles()
+        logdir = tempfile.mkdtemp(prefix="smoke")
+        self.procs = []
+        try:
+            for i, role in enumerate(roles):
+                env = build_env(role, workers, servers, "127.0.0.1", port,
+                                van, extra=dict(
+                                    extra or {}, DMLC_NODE_HOST="127.0.0.1",
+                                    SMOKE_SPEC=json.dumps(spec)))
+                path = os.path.join(logdir, f"{i}-{role}.log")
+                with open(path, "w") as log:
+                    self.procs.append((role, path, subprocess.Popen(
+                        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                         "--node"], env=env, stdout=log,
+                        stderr=subprocess.STDOUT, stdin=subprocess.PIPE,
+                        cwd=HERE)))
+        except BaseException:
+            self.kill()
+            raise
+        self.end = time.monotonic() + PROC_DEADLINE
+        self.windows = 0
+
+    def _text(self, path: str) -> str:
+        with open(path) as f:
+            return f.read()
+
+    def _workers(self):
+        return [(path, p) for role, path, p in self.procs
+                if role in ("worker", "joint")]
+
+    def _fail(self, failed: str):
+        self.kill()
+        for role, path, _p in self.procs:
+            print(f"  [{role}] " + "\n  ".join(
+                self._text(path).splitlines()[-15:]))
+        raise AssertionError(f"{self.van} cluster: {failed} failed")
+
+    def _check(self) -> None:
+        failed = next((r for r, _l, p in self.procs
+                       if p.poll() not in (None, 0)), None)
+        if failed is None and time.monotonic() > self.end:
+            failed = f"deadline of {PROC_DEADLINE:.0f} s"
+        if failed is not None:
+            self._fail(failed)
+
+    def _lines(self, prefix: str, n: int) -> list:
+        """Wait until every worker has printed ``n`` lines starting with
+        ``prefix``; the ``n``-th of each, after the prefix."""
+        while True:
+            got = [[ln[len(prefix):] for ln in self._text(path).splitlines()
+                    if ln.startswith(prefix)] for path, _p in self._workers()]
+            if all(len(g) >= n for g in got):
+                return [g[n - 1] for g in got]
+            self._check()
+            time.sleep(0.02)
+
+    def ready(self) -> None:
+        self._lines("READY", 1)
+
+    def window(self) -> list:
+        """Open every worker's next window; their reports."""
+        self.windows += 1
+        for _path, p in self._workers():
+            p.stdin.write(b"go\n")
+            p.stdin.flush()
+        return [json.loads(t) for t in self._lines("WINDOW ", self.windows)]
+
+    def finish(self, report_roles=("worker", "joint")) -> list:
+        """Wait for every child to exit 0; the last JSON line of each
+        child of ``report_roles``."""
+        for _role, _path, p in self.procs:
+            p.stdin.close()
+        while any(p.poll() is None for _r, _l, p in self.procs):
+            self._check()
             time.sleep(0.05)
-        if failed is None:
-            failed = next((r for r, _l, p in procs if p.returncode != 0),
-                          None)
-    finally:
-        for _r, _l, p in procs:
+        failed = next((r for r, _l, p in self.procs if p.returncode != 0),
+                      None)
+        if failed is not None:
+            self._fail(failed)
+        return [json.loads(self._text(path).strip().splitlines()[-1])
+                for role, path, _p in self.procs if role in report_roles]
+
+    def kill(self) -> None:
+        for _r, _l, p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    outs = []
-    for role, log, p in procs:
-        log.seek(0)
-        outs.append((role, log.read()))
-        log.close()
-    if failed is not None:
-        for role, text in outs:
-            print(f"  [{role}] " + "\n  ".join(text.splitlines()[-15:]))
-        raise AssertionError(f"{van} cluster: {failed} failed")
-    return [json.loads(text.strip().splitlines()[-1]) for role, text in outs
-            if role in report_roles]
+
+
+def launch(van: str, workers: int, servers: int, spec: dict,
+           extra=None, joint: bool = False,
+           report_roles=("worker", "joint")):
+    """One cluster run to its end (``Cluster``); the JSON reports of the
+    children of ``report_roles``."""
+    cluster = Cluster(van, workers, servers, spec, extra=extra, joint=joint)
+    try:
+        return cluster.finish(report_roles)
+    finally:
+        cluster.kill()
 
 
 def rounds_summary(reports, nbytes: int) -> dict:
@@ -3221,6 +3695,254 @@ def drive_ici_proc(van: str, smi: str):
               "msg_ms": rep["msg_ms"]}], rep["launches"])
 
 
+def interleaved(legs, start):
+    """Each ``(label, arg)`` of ``legs`` as one ``Cluster``
+    (``start(arg)`` with ``spec["windows"] = TIER_ROUNDS``), all started
+    at once and set up before the first window; then ``TIER_ROUNDS``
+    rounds whose windows alternate between the legs (a, b, a, b, ...),
+    as JAX's benches alternate theirs (``benchmark.py:2088-2090,
+    2297-2301``), so host drift lands on both while the other leg's
+    cluster idles.  ``({label: [window report]}, {label: final
+    report})``."""
+    clusters = {}
+    try:
+        for label, arg in legs:
+            clusters[label] = start(arg)
+        for c in clusters.values():
+            c.ready()
+        out = {label: [] for label in clusters}
+        for _ in range(TIER_ROUNDS):
+            for label, c in clusters.items():
+                out[label].append(c.window()[0])
+        return out, {label: c.finish()[0] for label, c in clusters.items()}
+    finally:
+        for c in clusters.values():
+            c.kill()
+
+
+def spread(vals) -> str:
+    """Median and the rounds' values, for a printed row."""
+    vals = list(vals)
+    return (f"median {float(np.median(vals)):.4g} (rounds "
+            + ", ".join(f"{v:.4g}" for v in vals) + ")")
+
+
+def ratio_row(row: dict, name: str, nums, dens) -> None:
+    """Round by round ratios of two legs: median, least and most."""
+    r = [a / b for a, b in zip(nums, dens)]
+    row.update({name: float(np.median(r)), f"{name}_min": min(r),
+                f"{name}_max": max(r)})
+
+
+def leg_row(label: str, reps, ops: str, keys) -> dict:
+    """A main-path row: the legs' ops summed, ``keys`` as medians."""
+    return {"config": label, "ops": sum(r[ops] for r in reps),
+            **{k: float(np.median([r[k] for r in reps])) for k in keys}}
+
+
+def tier_topo() -> str:
+    return (f"{TIER_ROUNDS} windows per leg alternating with the other "
+            f"leg's, both clusters up throughout")
+
+
+def drive_small_op_storm(smi: str):
+    """``small-op-storm`` and ``-unbatched`` (``benchmark.py:2134-2163``'s
+    legs), interleaved."""
+    envs = (("small-op-storm", dict(TIER_BATCH, PS_BATCH_MIN_OPS="256",
+                                    PS_BATCH_HOLD_US="12000")),
+            ("small-op-storm-unbatched", {"PS_BATCH_BYTES": "0"}))
+    legs, _final = interleaved(envs, lambda env: Cluster(
+        "tcp", 1, 1, {"phase": "small-op", "handle": "assign",
+                      "secs": TIER_SECS, "windows": TIER_ROUNDS},
+        extra=env))
+    rows = []
+    for label, reps in legs.items():
+        print(f"{label} (1 worker + 1 server, tcp, one process per node; "
+              f"1-key {SOB_OP_BYTES} B pushes at depth {SOB_DEPTH} for "
+              f"{TIER_SECS} s, {tier_topo()}): ops/s "
+              f"{spread(r['ops_per_s'] for r in reps)}; ops "
+              f"{sum(r['ops'] for r in reps)}, frames sent "
+              f"{sum(r['frames'] for r in reps)}, ops per batch frame "
+              f"{spread(r['ops_per_frame'] for r in reps)}; low-load push "
+              f"p50 ms {spread(r['low_p50_ms'] for r in reps)}, p99 ms "
+              f"{spread(r['low_p99_ms'] for r in reps)}; every final pull "
+              f"= its last ordinal [{smi}; host {cpu_model()}]")
+        rows.append(leg_row(label, reps, "ops", (
+            "ops_per_s", "ops_per_frame", "low_p50_ms", "low_p99_ms")))
+    ratio_row(rows[0], "ops_per_s_ratio",
+              *[[r["ops_per_s"] for r in reps] for reps in legs.values()])
+    print(f"small-op-storm ops/s batched / unbatched by round: median "
+          f"{rows[0]['ops_per_s_ratio']:.3f}, least "
+          f"{rows[0]['ops_per_s_ratio_min']:.3f}, most "
+          f"{rows[0]['ops_per_s_ratio_max']:.3f}")
+    return rows
+
+
+def drive_serving_fanin(smi: str):
+    """``serving-fanin`` and ``-unbatched`` (``benchmark.py:2227-2262``'s
+    legs), interleaved: 1 worker + 2 servers, hot cache cold."""
+    envs = (("serving-fanin", TIER_BATCH),
+            ("serving-fanin-unbatched", {"PS_BATCH_BYTES": "0"}))
+    legs, final = interleaved(envs, lambda env: Cluster(
+        "tcp", 1, 2, {"phase": "fanin", "rows": FANIN_ROWS,
+                      "secs": TIER_SECS, "windows": TIER_ROUNDS},
+        extra=dict(env, PS_HOT_CACHE="0")))
+    rows = []
+    for label, reps in legs.items():
+        print(f"{label} (1 worker + 2 servers, tcp; "
+              f"{final[label]['rows']} x {FANIN_DIM} f32 table pushed in "
+              f"{final[label]['push_s']:.2f} s as both legs' clusters set "
+              f"up; multi_get of {FANIN_OUT} Zipf(1.5) rows at depth "
+              f"{FANIN_DEPTH} for {TIER_SECS} s, {tier_topo()}): "
+              f"requests/s {spread(r['reqs_per_s'] for r in reps)}; p50 ms "
+              f"{spread(r['p50_ms'] for r in reps)}, p99 ms "
+              f"{spread(r['p99_ms'] for r in reps)}; frames per request "
+              f"out {spread(r['frames_out_per_req'] for r in reps)}, in "
+              f"{spread(r['frames_in_per_req'] for r in reps)}; "
+              f"{sum(r['checked'] for r in reps)} of "
+              f"{sum(r['reqs'] for r in reps)} requests checked bit for "
+              f"bit [{smi}; host {cpu_model()}]")
+        rows.append(leg_row(label, reps, "reqs", (
+            "reqs_per_s", "p50_ms", "p99_ms", "frames_out_per_req",
+            "frames_in_per_req")))
+        rows[-1]["push_s"] = final[label]["push_s"]
+    ratio_row(rows[0], "reqs_per_s_ratio",
+              *[[r["reqs_per_s"] for r in reps] for reps in legs.values()])
+    print(f"serving-fanin requests/s batched / unbatched by round: median "
+          f"{rows[0]['reqs_per_s_ratio']:.3f}, least "
+          f"{rows[0]['reqs_per_s_ratio_min']:.3f}, most "
+          f"{rows[0]['reqs_per_s_ratio_max']:.3f}")
+    return rows
+
+
+def drive_hot_cache(smi: str):
+    """``hot-cache`` and ``-off`` (``benchmark.py:1972-1994``'s legs of
+    ``dlrm_serve`` at its 1,024-row table, the storm read-only as
+    ``models/dlrm.py:226-258``'s): 1 + 1, interleaved.  (On the fan-in's
+    1,048,576-row table, pushed in 1 MiB streamed parts, each part
+    charges its first key with its key count in ``kv.hot_keys``, in
+    both packages: the top 64 are then the parts' first keys, and the
+    seeded cache admits row 0 alone.)"""
+    envs = (("hot-cache", {"PS_HOT_CACHE": "1", "PS_HOT_CACHE_MB": "64",
+                           "PS_HOT_CACHE_TTL_S": "1"}),
+            ("hot-cache-off", {"PS_HOT_CACHE": "0"}))
+    legs, final = interleaved(envs, lambda env: Cluster(
+        "tcp", 1, 1, {"phase": "hot-cache", "rows": HOT_ROWS,
+                      "pulls": HOT_PULLS, "windows": TIER_ROUNDS},
+        extra=dict(env, PS_TENANTS=MT_ENV["PS_TENANTS"])))
+    rows = []
+    for label, reps in legs.items():
+        print(f"{label} (1 worker + 1 server, tcp, the serve tenant of "
+              f"PS_TENANTS={MT_ENV['PS_TENANTS']}; {final[label]['rows']} "
+              f"x {FANIN_DIM} f32 table; {tier_topo()}): {HOT_PULLS} "
+              f"Zipf(1.5) single-row pulls a window, read-only, each "
+              f"checked exactly; p50 ms {spread(r['p50_ms'] for r in reps)}"
+              f", p99 ms {spread(r['p99_ms'] for r in reps)}, hit rate "
+              f"{spread(r['hit_rate'] for r in reps)} (answered without a "
+              f"frame); then read-your-writes on "
+              f"{final[label]['ryw_rows']} rows, stale reads "
+              f"{final[label]['stale']} [{smi}; host {cpu_model()}]")
+        rows.append(leg_row(label, reps, "pulls",
+                            ("p50_ms", "p99_ms", "hit_rate")))
+        rows[-1]["stale"] = final[label]["stale"]
+    ratio_row(rows[0], "p50_ratio",
+              *[[r["p50_ms"] for r in reps] for reps in reversed(
+                  list(legs.values()))])
+    print(f"hot-cache p50 off / on by round: median "
+          f"{rows[0]['p50_ratio']:.3f}, least {rows[0]['p50_ratio_min']:.3f}"
+          f", most {rows[0]['p50_ratio_max']:.3f}")
+    return rows
+
+
+def admission_probe(ps, Environment, n_pushes: int = 64, limit: int = 4):
+    """``benchmark.py:2012-2062``: a loopback cluster in this process,
+    ``PS_TENANT_QUEUE_LIMIT=4``, the train tenant offering 64 monolithic
+    32 KiB pushes without waiting; every wait ends, applied or
+    ``OverloadError``, and the store holds exactly the applied count."""
+    nodes = msg_cluster(ps, Environment, 1, 1, env={
+        "PS_TENANTS": MT_ENV["PS_TENANTS"],
+        "PS_TENANT_QUEUE_LIMIT": str(limit)})
+    srv = ps.KVServer(0, postoffice=nodes[1])
+    srv.set_request_handle(ps.KVServerDefaultHandle())
+    w = ps.KVWorker(0, 0, postoffice=nodes[2])
+    try:
+        keys = np.arange(8, dtype=np.uint64)
+        vals = np.ones(8 * 1024, np.float32)
+        t0 = time.perf_counter()
+        tss = [w.push(keys, vals, tenant="train") for _ in range(n_pushes)]
+        applied = shed = 0
+        for ts in tss:
+            try:
+                w.wait(ts)
+                applied += 1
+            except ps.OverloadError:
+                shed += 1
+        wall = time.perf_counter() - t0
+        out = np.zeros_like(vals)
+        w.wait(w.pull(keys, out, tenant="train"))
+    finally:
+        msg_finalize(nodes, [w, srv])
+    if not np.all(out == np.float32(applied)):
+        raise AssertionError(f"admission probe: the store is not its "
+                             f"{applied} applied pushes")
+    return {"offered": n_pushes, "applied": applied, "shed": shed,
+            "wall_ms": wall * 1e3}
+
+
+def drive_multi_tenant(ps, Environment, smi: str):
+    """``multi-tenant`` and ``-idle`` (``benchmark.py:1920-1935``'s legs,
+    interleaved as ``:2088-2090`` runs them): 2 workers + 1 server, the
+    legs alternating windows of one cluster; then JAX's admission
+    probe."""
+    reps = launch("tcp", 2, 1, {"phase": "multi-tenant",
+                                "rounds": TIER_ROUNDS, "secs": TIER_SECS},
+                  extra=MT_ENV)
+    serve = next(r for r in reps if r["tenant"] == "serve")["windows"]
+    train = next(r for r in reps if r["tenant"] == "train")["windows"]
+    rows = []
+    for label, leg in (("multi-tenant", "bulk"), ("multi-tenant-idle",
+                                                  "idle")):
+        ws = [w for w in serve if w["leg"] == leg]
+        bulk = (f"bulk applied {', '.join(str(t['applied']) for t in train)}"
+                f", shed {', '.join(str(t['shed']) for t in train)}, "
+                f"Gbit/s {spread(t['gbps'] for t in train)}, store exact at "
+                f"its applied count after every window" if leg == "bulk"
+                else "bulk idle")
+        print(f"{label} (2 workers + 1 server, tcp, PS_TENANTS=serve:8,"
+              f"train:1, PS_TENANT_QUEUE_LIMIT=8; {TIER_ROUNDS} windows of "
+              f"{TIER_SECS} s alternating with the other leg in one "
+              f"cluster): serve p50 ms {spread(w['p50_ms'] for w in ws)}, "
+              f"p99 ms {spread(w['p99_ms'] for w in ws)} "
+              f"({sum(w['samples'] for w in ws)} express pulls); {bulk} "
+              f"[{smi}; host {cpu_model()}]")
+        rows.append({"config": label, "ops": sum(w["samples"] for w in ws),
+                     "serve_p50_ms": float(np.median([w["p50_ms"]
+                                                      for w in ws])),
+                     "serve_p99_ms": float(np.median([w["p99_ms"]
+                                                      for w in ws])),
+                     "bulk_applied": (sum(t["applied"] for t in train)
+                                      if leg == "bulk" else 0),
+                     "bulk_shed": (sum(t["shed"] for t in train)
+                                   if leg == "bulk" else 0)})
+    ratio_row(rows[0], "serve_p99_ratio",
+              *[[w["p99_ms"] for w in serve if w["leg"] == leg]
+                for leg in ("bulk", "idle")])
+    print(f"multi-tenant serve p99 bulk / idle by round: median "
+          f"{rows[0]['serve_p99_ratio']:.3f}, least "
+          f"{rows[0]['serve_p99_ratio_min']:.3f}, most "
+          f"{rows[0]['serve_p99_ratio_max']:.3f}")
+    probe = admission_probe(ps, Environment)
+    print(f"admission probe (loopback 1 + 1 in this process, "
+          f"PS_TENANT_QUEUE_LIMIT=4, {probe['offered']} monolithic 32 KiB "
+          f"train pushes offered without waiting): applied "
+          f"{probe['applied']}, shed {probe['shed']} (OverloadError), every "
+          f"wait ended in {probe['wall_ms']:.3f} ms, store exact at the "
+          f"applied count [{smi}; host {cpu_model()}]")
+    rows.append({"config": "admission-probe", "ops": probe["offered"],
+                 "applied": probe["applied"], "shed": probe["shed"]})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3358,6 +4080,11 @@ def main() -> int:
         ("shm-config3", lambda: drive_shm_config3(smi)),
         ("ici-tcp-mixed", lambda: drive_ici_proc("ici_tcp", smi)),
         ("ici-shm-mixed", lambda: drive_ici_proc("ici_shm", smi)),
+        ("small-op-storm", lambda: drive_small_op_storm(smi)),
+        ("serving-fanin", lambda: drive_serving_fanin(smi)),
+        ("hot-cache", lambda: drive_hot_cache(smi)),
+        ("multi-tenant", lambda: drive_multi_tenant(ps, Environment,
+                                                    smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:
@@ -3365,7 +4092,9 @@ def main() -> int:
         ring.reset_launches()
         qz.reset_launches()
         sr.reset_launches()
+        t_path = time.perf_counter()
         out = run()
+        t_path = time.perf_counter() - t_path
         # A process phase also returns the launches its worker process
         # counted.
         child = {}
@@ -3380,8 +4109,9 @@ def main() -> int:
                              **sr.launches}
         for k, v in child.items():
             path_counts[path][k] = path_counts[path].get(k, 0) + v
-        print(f"main path launches [{path}]: " + ", ".join(
-            f"{k} {v}" for k, v in path_counts[path].items() if v))
+        print(f"main path launches [{path}] ({t_path:.1f} s): "
+              + ", ".join(f"{k} {v}" for k, v in path_counts[path].items()
+                          if v))
     for r in results:
         extra = "".join(f", {k} {v:.4g}" for k, v in r.items()
                         if k not in ("config", "ops", "max_abs_err_vs_f64"))

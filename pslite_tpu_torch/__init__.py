@@ -14,8 +14,12 @@ A port of the JAX package ``pslite_tpu`` that imports neither JAX nor
   ``KVServerOptimizerHandle``, applying on the apply-shard pool
   (``kv/apply_shards.py``; chunked pushes streamed into it); wire codecs
   with error feedback (``ops/codecs.py``: int8, fp8_e4m3, bf16, by
-  ``register_bucket`` or ``codec=``); ``SimpleApp``.  Host numpy, as in
-  JAX.
+  ``register_bucket`` or ``codec=``); small-op batching
+  (``PS_BATCH_BYTES``, ``kv/batching.py``), the serving fan-in
+  ``KVWorker.multi_get``, the hot-key pull cache
+  (``PS_HOT_CACHE``, ``kv/hot_cache.py``) and tenants with weighted-fair
+  queues and admission control (``PS_TENANTS``, ``tenants.py``; a shed
+  raises ``OverloadError``); ``SimpleApp``.  Host numpy, as in JAX.
 - **The ICI data plane** (``vans/ici_van.py``, ``parallel/``): a
   worker's registered dense buckets through ``CollectiveEngine``, on a
   1-D group or a 2-D ``(dp, kv)`` group, with or without int8 wire
@@ -47,6 +51,7 @@ from .kv.kv_app import (
     KVServerDefaultHandle,
     KVServerOptimizerHandle,
     KVWorker,
+    OverloadError,
 )
 from .kv.simple_app import SimpleApp, SimpleData
 from .message import Role
@@ -66,6 +71,7 @@ __all__ = [
     "KVServerDefaultHandle",
     "KVServerOptimizerHandle",
     "KVWorker",
+    "OverloadError",
     "Postoffice",
     "Role",
     "SCHEDULER_GROUP",

@@ -28,8 +28,9 @@ from typing import Callable, Dict, List, Optional
 
 from .message import Command, Message
 from .utils import logging as log
+from .tenants import table_for
 from .utils.queues import PriorityRecvQueue, ThreadsafeQueue
-from .vans.chunking import recv_priority
+from .vans.chunking import recv_cost, recv_priority, recv_tenant
 
 
 class Customer:
@@ -60,8 +61,13 @@ class Customer:
         self._cv = threading.Condition(self._mu)
         self._hooks: Dict[int, List[Callable[[], None]]] = {}
         # Intake by receive level, as the van's queue: a priority op does
-        # not wait behind the handling of earlier bulk messages.
-        self._queue = PriorityRecvQueue(recv_priority)
+        # not wait behind the handling of earlier bulk messages; bulk
+        # intake is weighted fair across PS_TENANTS, by the van's own
+        # tenant and cost model.
+        tenants = table_for(postoffice.env)
+        self._queue = PriorityRecvQueue(
+            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
+            weights=tenants.weights_by_id() if tenants.enabled else None)
         if executor_workers is None:
             executor_workers = postoffice.env.find_int(
                 "PS_CUSTOMER_EXECUTOR", 0)
@@ -214,7 +220,10 @@ class Customer:
                     log.warning(f"on_request_error hook failed: "
                                 f"{hook_exc!r}")
         finally:
-            if not msg.meta.request:
+            # A batched response envelope carries N sub-ops with N
+            # timestamps: the app counts each; the envelope's own
+            # timestamp is its first op's and must not count twice.
+            if not msg.meta.request and msg.meta.batch is None:
                 self.add_response(msg.meta.timestamp)
 
     def stop(self) -> None:

@@ -28,8 +28,13 @@ its own keys' segments (``codecs.decode_key_ranges``).  A chunked push
 can be streamed in (``begin_stream``): each whole-key slice is applied
 as it lands, and the response waits for the last.
 
-Batched frames (``submit_batch``, EXT_BATCH) and the per-tenant backlog
-of admission control are ROADMAP Queue 1 item 6(b).
+Batched frames (``submit_batch``, EXT_BATCH) enter as a group: one
+order-gate ticket for the whole frame, per-op shard tasks completing
+independently, and the last sub-op to finish publishes one batched
+response (``_BatchGroup``, ``_complete_batch_op``).  Shard queues are
+weighted fair across ``PS_TENANTS`` (each task charged its share of the
+request's bytes), and the pool counts every tenant's in-flight requests
+(``tenant_backlog``), the probe of the server's admission control.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import numpy as np
 
 from ..ops import codecs as codecs_mod
 from ..telemetry import node_registry
+from ..tenants import table_for
 from ..utils import logging as log
 from ..utils.queues import DRAIN_LEVEL, PriorityRecvQueue
 
@@ -58,7 +64,8 @@ class _Pending:
     """One in-flight request: completion counter and response slot."""
 
     __slots__ = ("meta", "kvs", "mu", "remaining", "parts", "error", "done",
-                 "response", "arrived", "barrier", "emitted", "seq")
+                 "response", "arrived", "barrier", "emitted", "tracked",
+                 "seq", "group", "op_idx", "backlog_n")
 
     def __init__(self, meta, kvs):
         self.meta = meta
@@ -73,7 +80,32 @@ class _Pending:
         self.arrived = 0
         self.barrier: Optional[threading.Event] = None
         self.emitted: Optional[threading.Event] = None  # submit(wait=True)
+        # Counted in the pool's per-tenant backlog: set at submit,
+        # released once in _finish.
+        self.tracked = False
         self.seq = 0  # submission number (quiesce)
+        # A batched sub-op reports into ``group.results[op_idx]`` instead
+        # of entering the order gate; the group's gate pending holds the
+        # frame's one ticket and ``backlog_n`` admission slots (one per
+        # sub-op that entered apply; a plain request holds 1).
+        self.group: Optional["_BatchGroup"] = None
+        self.op_idx = 0
+        self.backlog_n = 1
+
+
+class _BatchGroup:
+    """Completion fan-in of one batched frame: the gate pending (the
+    frame's one order-gate ticket), the per-op metas and result slots;
+    the last sub-op to finish publishes the frame's response."""
+
+    __slots__ = ("gate", "metas", "results", "remaining", "mu")
+
+    def __init__(self, gate: _Pending, metas, results):
+        self.gate = gate
+        self.metas = metas
+        self.results = results
+        self.remaining = 0
+        self.mu = threading.Lock()
 
 
 class _CaptureResponder:
@@ -115,13 +147,20 @@ class ApplyShardPool:
         self._task_bytes = (env.find_int("PS_APPLY_TASK_BYTES",
                                          self._TASK_BYTES)
                             if env is not None else self._TASK_BYTES)
+        tenants = table_for(env)
         # Highest meta.priority first, FIFO within a level (so one key's
-        # same-priority ops keep arrival order); the stop sentinel last.
+        # same-priority ops keep arrival order), weighted fair across
+        # tenants in the bulk band; the stop sentinel last.
         self._queues: List[PriorityRecvQueue] = [
-            PriorityRecvQueue(self._task_priority)
+            PriorityRecvQueue(self._task_priority,
+                              tenant_fn=self._task_tenant,
+                              weights=(tenants.weights_by_id()
+                                       if tenants.enabled else None))
             for _ in range(num_shards)]
-        # Quiesce: every submission gets a number, dropped in _finish.
-        self._seq_mu = threading.Lock()
+        # Per-tenant in-flight requests (admission control) and, for
+        # quiesce, every submission's number, dropped in _finish.
+        self._backlog_mu = threading.Lock()
+        self._tenant_backlog: Dict[int, int] = {}
         self._submit_seq = 0
         self._inflight_seqs: set = set()
         # Per-sender FIFO ticket gate.
@@ -154,15 +193,39 @@ class ApplyShardPool:
             return DRAIN_LEVEL
         return item[0].meta.priority
 
+    @staticmethod
+    def _task_tenant(item) -> int:
+        """The request's wire tenant; the stop sentinel is tenantless."""
+        if item is None:
+            return 0
+        return item[0].meta.tenant
+
+    @staticmethod
+    def _payload_bytes(kvs) -> int:
+        enc = kvs.enc
+        return enc[2].raw_len if enc is not None else kvs.vals.nbytes
+
+    def _task_cost(self, kvs, n_positions: int) -> int:
+        """Weighted-fair charge of one shard task: its share of the
+        request's payload bytes."""
+        n = len(kvs.keys)
+        if n == 0:
+            return 1
+        return max(1, self._payload_bytes(kvs) * n_positions // n)
+
+    def tenant_backlog(self, tenant: int) -> int:
+        """In-flight (submitted, response not yet selected) requests of
+        one tenant: the server's admission probe."""
+        with self._backlog_mu:
+            return self._tenant_backlog.get(tenant, 0)
+
     def _task_groups(self, kvs, positions) -> int:
         """How many groups of about ``_task_bytes`` one shard's positions
         split into (>= 1; a group holds at least one key)."""
         n = len(kvs.keys)
         if n == 0:
             return 1
-        enc = kvs.enc
-        total = enc[2].raw_len if enc is not None else kvs.vals.nbytes
-        bytes_here = total // n * len(positions)
+        bytes_here = self._payload_bytes(kvs) // n * len(positions)
         if bytes_here <= self._task_bytes:
             return 1
         return min(len(positions),
@@ -171,7 +234,7 @@ class ApplyShardPool:
     def submit_token(self) -> int:
         """The current submission number: :meth:`quiesce` on it waits for
         everything submitted so far, and nothing later."""
-        with self._seq_mu:
+        with self._backlog_mu:
             return self._submit_seq
 
     def quiesce(self, token: int, timeout_s: float = 30.0) -> bool:
@@ -179,7 +242,7 @@ class ApplyShardPool:
         completed (its response selected); False on timeout."""
         deadline = time.monotonic() + timeout_s
         while True:
-            with self._seq_mu:
+            with self._backlog_mu:
                 busy = any(s <= token for s in self._inflight_seqs)
             if not busy:
                 return True
@@ -215,7 +278,10 @@ class ApplyShardPool:
         pending = _Pending(meta, kvs)
         if wait:
             pending.emitted = threading.Event()
-        with self._seq_mu:
+        pending.tracked = True
+        tid = meta.tenant
+        with self._backlog_mu:
+            self._tenant_backlog[tid] = self._tenant_backlog.get(tid, 0) + 1
             self._submit_seq += 1
             pending.seq = self._submit_seq
             self._inflight_seqs.add(pending.seq)
@@ -235,7 +301,8 @@ class ApplyShardPool:
         elif len(plan) == 1 and self._task_groups(kvs, plan[0][1]) <= 1:
             self.sharded_requests += 1
             pending.remaining = 1
-            self._queues[plan[0][0]].push((pending, _ALL))
+            self._queues[plan[0][0]].push(
+                (pending, _ALL), cost=self._task_cost(kvs, len(kvs.keys)))
         else:
             self.sharded_requests += 1
             tasks = []
@@ -246,7 +313,8 @@ class ApplyShardPool:
                         tasks.append((sid, grp))
             pending.remaining = len(tasks)
             for sid, grp in tasks:
-                self._queues[sid].push((pending, ("slice", grp)))
+                self._queues[sid].push((pending, ("slice", grp)),
+                                       cost=self._task_cost(kvs, len(grp)))
         if wait and not pending.emitted.wait(timeout=60.0):
             # stop() releases a pump caught between submit and stop; the
             # timeout is the last resort.
@@ -255,10 +323,113 @@ class ApplyShardPool:
                         f"(shutting down?)")
 
     def submit_batch(self, env_meta, metas, kvss, results) -> None:
-        """Batched frames (EXT_BATCH): not here."""
-        raise NotImplementedError(
-            "batched frames (kv/batching.py, EXT_BATCH) are not yet ported "
-            "to pslite_tpu_torch (ROADMAP Queue 1 item 6(b))")
+        """Fan one batched frame's sub-ops into the shards as a group:
+        one order-gate ticket (the frame's response leaves in its
+        arrival slot), one quiesce number, an admission slot per sub-op
+        that enters apply, and per-op shard tasks completing
+        independently.  ``results[i]`` is preset for sub-ops decided at
+        intake (admission sheds) and None for those that apply; the last
+        sub-op to finish publishes one ``server.response_batch``."""
+        if self._stopping:
+            # Shard threads are retiring: apply each op inline and answer
+            # it alone (the worker takes batched and single responses
+            # alike); ops decided at intake still answer.
+            for meta, kvs, pre in zip(metas, kvss, results):
+                try:
+                    if pre is not None:
+                        if pre[0] == "overload":
+                            self._server.response_overload(meta)
+                        elif pre[0] == "error":
+                            self._server.response_error(meta)
+                        else:
+                            self._server.response(meta)
+                        continue
+                    kvs.materialize()
+                    self.handle(meta, kvs, self._server)
+                except Exception as exc:  # noqa: BLE001 - answer the worker
+                    log.warning(f"batched apply (inline, stopping) failed "
+                                f"for ts={meta.timestamp}: {exc!r}")
+                    try:
+                        self._server.response_error(meta)
+                    except Exception:  # noqa: BLE001 - transport torn down
+                        pass
+            return
+        gate = _Pending(env_meta, None)
+        gate.tracked = True
+        gate.backlog_n = sum(1 for r in results if r is None)
+        tid = env_meta.tenant
+        with self._backlog_mu:
+            self._tenant_backlog[tid] = (self._tenant_backlog.get(tid, 0)
+                                         + gate.backlog_n)
+            self._submit_seq += 1
+            gate.seq = self._submit_seq
+            self._inflight_seqs.add(gate.seq)
+        with self._order_mu:
+            self._order.setdefault(env_meta.sender,
+                                   collections.deque()).append(gate)
+        group = _BatchGroup(gate, metas, results)
+        dispatch = []
+        for i, (meta, kvs) in enumerate(zip(metas, kvss)):
+            if results[i] is not None:
+                continue
+            plan = self._split(kvs)
+            if plan is None:
+                # The combiner merges only fixed-k lens-free ops: an
+                # unsplittable sub-op is malformed; fail it alone.
+                results[i] = ("error",)
+                continue
+            p = _Pending(meta, kvs)
+            p.group = group
+            p.op_idx = i
+            tasks = []
+            for sid, positions in plan:
+                ngrp = self._task_groups(kvs, positions)
+                if ngrp <= 1:
+                    tasks.append((sid, positions))
+                else:
+                    tasks.extend((sid, grp) for grp in
+                                 np.array_split(positions, ngrp) if len(grp))
+            p.remaining = len(tasks)
+            group.remaining += 1
+            dispatch.append((p, kvs, tasks))
+        self.sharded_requests += max(1, len(dispatch))
+        if group.remaining == 0:
+            # Every sub-op was decided at intake: the response is ready
+            # (still behind earlier requests in the gate).
+            gate.response = ("batch", group)
+            self._finish(gate)
+            return
+        for p, kvs, tasks in dispatch:
+            n = len(kvs.keys)
+            for sid, grp in tasks:
+                task = (_ALL if len(tasks) == 1 and len(grp) == n
+                        else ("slice", grp))
+                self._queues[sid].push((p, task),
+                                       cost=self._task_cost(kvs, len(grp)))
+
+    def _complete_batch_op(self, pending: _Pending) -> None:
+        """A batched sub-op finished its shard tasks: record its result;
+        the last sub-op publishes the gate's response."""
+        meta = pending.meta
+        if pending.error is not None:
+            result = ("error",)
+        elif meta.pull:
+            try:
+                result = ("res", self._assemble(pending))
+            except Exception as exc:  # noqa: BLE001 - answered per op
+                log.warning(f"batched pull assembly failed for "
+                            f"ts={meta.timestamp}: {exc!r}")
+                result = ("error",)
+        else:
+            result = ("ok", None)
+        group = pending.group
+        with group.mu:
+            group.results[pending.op_idx] = result
+            group.remaining -= 1
+            last = group.remaining == 0
+        if last:
+            group.gate.response = ("batch", group)
+            self._finish(group.gate)
 
     # -- streamed chunked pushes ---------------------------------------------------
 
@@ -295,13 +466,21 @@ class ApplyShardPool:
         for sid, positions in plan:
             self._queues[sid].push(
                 (pending, ("feed", kvs, None if len(plan) == 1
-                           else positions)))
+                           else positions)),
+                cost=self._task_cost(kvs, len(positions)))
 
     def _close_stream(self, pending, error, respond: bool) -> None:
         if error is not None:
             with pending.mu:
                 if pending.error is None:
                     pending.error = error
+        if not respond:
+            # An aborted stream may have applied part of its keys with no
+            # response to come: the push version must still move on, or
+            # a hot cache keeps serving values from before the write.
+            done = getattr(self._server, "_qos_push_done", None)
+            if done is not None:
+                done(pending.meta)
         if respond and self._stopping:
             # The gate may never flush again: answer directly.
             with pending.mu:
@@ -436,6 +615,9 @@ class ApplyShardPool:
     # -- completion --------------------------------------------------------------------
 
     def _complete(self, pending: _Pending) -> None:
+        if pending.group is not None:
+            self._complete_batch_op(pending)
+            return
         meta = pending.meta
         if pending.error is not None:
             pending.response = ("error",)
@@ -486,8 +668,18 @@ class ApplyShardPool:
     def _finish(self, pending: _Pending) -> None:
         """Mark done and flush the sender's tickets in order: selected
         under the order lock, sent outside it (``_drain_emit_q``)."""
-        with self._seq_mu:
-            self._inflight_seqs.discard(pending.seq)
+        if pending.tracked:
+            # Release the admission slots once: _finish runs once per
+            # pending, when its response is selected.
+            pending.tracked = False
+            tid = pending.meta.tenant
+            with self._backlog_mu:
+                n = self._tenant_backlog.get(tid, 0) - pending.backlog_n
+                if n > 0:
+                    self._tenant_backlog[tid] = n
+                else:
+                    self._tenant_backlog.pop(tid, None)
+                self._inflight_seqs.discard(pending.seq)
         with self._order_mu:
             pending.done = True
             dq = self._order.get(pending.meta.sender)
@@ -532,6 +724,11 @@ class ApplyShardPool:
                 self._server.response(pending.meta)
             elif kind == "error":
                 self._server.response_error(pending.meta)
+            elif kind == "batch":
+                # One response frame for the whole batched request.
+                group = pending.response[1]
+                self._server.response_batch(pending.meta, group.metas,
+                                            group.results)
             # "none": the handler chose not to respond.
         except Exception as exc:  # noqa: BLE001 - keep the pool running
             log.warning(f"apply-shard response emit failed: {exc!r}")

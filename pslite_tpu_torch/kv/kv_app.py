@@ -57,11 +57,35 @@ Either way each key's slice is added once, the same ``+=`` of the same
 values, so stores are bit-equal to serial ones; only the order of two
 senders' adds to one key can follow when each slice completed.
 
+The message-path tiers (as JAX's ``kv_app.py``):
+
+- Small-op batching (``kv/batching.py``, ``PS_BATCH_BYTES``): every
+  slice toward a destination that answered the ``BATCH_PROBE_CMD`` probe
+  rides the worker's ``OpCombiner`` (``_send`` :2164-2186); a server
+  decodes an ``EXT_BATCH`` frame once, runs the per-op intake and fans
+  the sub-ops into the pool as a group (``_process_batch`` :4855), and
+  answers with one ``response_batch`` frame (:4978).  The server's
+  response combiner (``PS_RESP_BATCH_BYTES``) merges independent small
+  responses toward senders that proved batch awareness.
+- Serving fan-in: ``multi_get``/``pull_multi`` (:1374-1538) pull many key
+  lists as one operation, one frame per contacted server each way with
+  the combiner on; ``MultiGetHandle`` (:305) joins them.
+- The hot-key cache (``kv/hot_cache.py``, ``PS_HOT_CACHE=1``): pulls
+  served locally under push-version stamps (``EXT_QOS``), which servers
+  stamp only when a QoS feature is configured (``_qos_stamps``), so
+  default frames carry no ``EXT_QOS`` tail.  ``fetch_hot_keys`` asks the
+  servers for their ``kv.hot_keys`` top-k (``HOT_KEYS_CMD``).
+- Tenants (``tenants.py``, ``PS_TENANTS``/``PS_TENANT``, ``tenant=``):
+  weighted-fair queues and per-tenant admission control
+  (``PS_TENANT_QUEUE_LIMIT``): a shed request answers ``OPT_OVERLOAD``
+  and its ``wait`` raises ``OverloadError``.
+
 Host numpy on the message path, as in JAX.  Not here, each raising where
-a JAX caller would reach it: tenants, small-op batching, ``multi_get``
-and the hot-key cache (ROADMAP Queue 1 item 6(b)); the native codec
-kernels (item 11); request deadlines and failover, replication, elastic
-routing, snapshots, the tiered store and namespaces (item 8).
+a JAX caller would reach it: the native codec kernels (item 11); request
+deadlines and failover, replication (and so batching under
+``PS_KV_REPLICATION`` > 1), elastic routing (``PS_ELASTIC`` with
+batching, and the wrong-owner re-slice of a sub-get), snapshots, the
+tiered store and namespaces (item 8).
 ``KVWorker.reshard`` recuts the worker's engines onto a new device group
 (``IciVan.reshard_engines``).
 """
@@ -81,13 +105,18 @@ import numpy as np
 import torch
 
 from .. import ps as ps_mod
+from .. import tenants as tenants_mod
 from ..base import SERVER_GROUP, server_rank_to_id
 from ..customer import Customer
 from ..message import (
+    BatchInfo,
+    BatchOp,
     CodecInfo,
     Message,
     OPT_APPLY_ERROR,
+    OPT_OVERLOAD,
     OPT_SEND_FAILED,
+    OPT_WRONG_OWNER,
     OPT_XFER_PART,
     OPT_ZPULL,
     Role,
@@ -100,6 +129,9 @@ from ..telemetry import node_registry
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
 from .apply_shards import ApplyShardPool
+from .batching import (BATCH_PROBE_CMD, BATCH_WIRE_VERSION, OpCombiner,
+                       split_batch_message)
+from .hot_cache import HotKeyCache
 
 
 _ZPULL_SEQ = itertools.count(1)  # process-wide registered pull buffer ids
@@ -111,18 +143,31 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"item {item})")
 
 
-# Environment knobs of the message-path tiers of ROADMAP Queue 1 item
-# 6(b), refused where a JAX node would turn them on.
-_ITEM_6B_KNOBS = (("PS_TENANTS", "tenants"), ("PS_TENANT", "tenants"),
-                  ("PS_HOT_CACHE", "the hot-key cache"),
-                  ("PS_BATCH_BYTES", "small-op batching"),
-                  ("PS_RESP_BATCH_BYTES", "small-op batching"))
+# meta.head of the hot-key introspection pull: the server answers with
+# its kv.hot_keys top-k (keys + counts) before the handler.
+HOT_KEYS_CMD = 0x407C
 
 
-def _refuse_item_6b(env) -> None:
-    for var, what in _ITEM_6B_KNOBS:
-        if (env.find(var) or "0") != "0":
-            raise _not_ported(f"{what} ({var})", "6(b)")
+def _refuse_batching_with(env, batch_bytes: int) -> None:
+    """Batching under what the port does not run yet: JAX forwards and
+    dedups batched sub-ops down a replica chain, and declines batching
+    under elastic membership."""
+    if batch_bytes <= 0:
+        return
+    if env.find_int("PS_KV_REPLICATION", 1) > 1:
+        raise _not_ported("small-op batching under replication "
+                          "(PS_KV_REPLICATION > 1)", "8(b)")
+    if env.find_int("PS_ELASTIC", 0):
+        raise _not_ported("elastic membership (PS_ELASTIC), under which "
+                          "JAX declines batching", "8")
+
+
+class OverloadError(RuntimeError):
+    """The server shed this request under per-tenant admission control
+    (``OPT_OVERLOAD``): nothing was applied.  Retryable: back off (at
+    least ``retry_after_s``) and issue it again."""
+
+    retry_after_s = 0.005
 
 
 @dataclass
@@ -172,6 +217,13 @@ class KVMeta:
     # the worker wants the response in; on a push what the payload
     # traveled as.
     codec: object = None
+    # The request's trace id (echoed on responses; the port samples
+    # none itself), tenant (echoed, scheduled by weight, admission), and
+    # hot-cache stamp (a pull's intake-time push version; on a push the
+    # one-shot bump as its response leaves).
+    trace: int = 0
+    tenant: int = 0
+    stamp: int = 0
 
 
 @dataclass
@@ -223,6 +275,44 @@ def _as_kvs(keys, vals, lens, priority: int) -> KVPairs:
     return KVPairs(keys=keys, vals=vals, lens=lens_arr, priority=priority)
 
 
+class MultiGetHandle:
+    """Completion handle of one :meth:`KVWorker.multi_get` fan-out:
+    ``wait()`` joins every sub-get (those served from the hot cache are
+    complete already), records each failure in ``errors`` (index ->
+    exception) and raises the first only after every sibling finished,
+    so a shed sub-get never strands or aborts the others."""
+
+    __slots__ = ("_worker", "timestamps", "outs", "errors", "cached")
+
+    def __init__(self, worker: "KVWorker", n: int):
+        self._worker = worker
+        # Per-sub-get timestamp; None = answered from the hot cache.
+        self.timestamps: List[Optional[int]] = [None] * n
+        self.outs: List[Optional[np.ndarray]] = [None] * n
+        self.errors: Dict[int, Exception] = {}
+        self.cached = 0  # sub-gets served wholly from the hot cache
+
+    def __len__(self) -> int:
+        return len(self.timestamps)
+
+    def wait(self) -> List[Optional[np.ndarray]]:
+        """Join every in-flight sub-get; return the destination buffers,
+        or raise the first recorded failure once all completed."""
+        first: Optional[Exception] = None
+        for i, ts in enumerate(self.timestamps):
+            if ts is None:
+                continue
+            try:
+                self._worker.wait(ts)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                self.errors[i] = exc
+                if first is None:
+                    first = exc
+        if first is not None:
+            raise first
+        return self.outs
+
+
 class KVWorker:
     """Client of the KV store (kv_app.h:134-300)."""
 
@@ -230,7 +320,8 @@ class KVWorker:
 
     def __init__(self, app_id: int, customer_id: int = 0, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.WORKER)
-        _refuse_item_6b(self.po.env)
+        env = self.po.env
+        _refuse_batching_with(env, env.find_int("PS_BATCH_BYTES", 0))
         # One handler thread at most: _process's last-response detection
         # and _finish's reassembly assume responses run one at a time.
         self._customer = Customer(
@@ -248,6 +339,49 @@ class KVWorker:
         # whose delivery failed: wait(ts) raises, callbacks are skipped.
         self._error_ts = BoundedKeySet(4096)
         self._timeout_ts = BoundedKeySet(4096)
+        # Shed by admission control (OPT_OVERLOAD): wait raises the
+        # retryable OverloadError.
+        self._overload_ts = BoundedKeySet(4096)
+        # Bounced by a server that no longer owns the range
+        # (OPT_WRONG_OWNER, an elastic JAX server): the re-slice needs
+        # routing epochs, so wait raises naming item 8(b).
+        self._wrong_owner_ts = BoundedKeySet(4096)
+        # Tenants: this worker's default (PS_TENANT; per-op tenant=
+        # overrides) and the shared table.
+        self.tenants = tenants_mod.table_for(env)
+        self._tenant = self.tenants.resolve(env.find("PS_TENANT") or None)
+        # The hot-key pull cache (PS_HOT_CACHE=1).
+        self._hot_cache: Optional[HotKeyCache] = None
+        if env.find_int("PS_HOT_CACHE", 0):
+            self._hot_cache = HotKeyCache(
+                max_bytes=int(env.find_float("PS_HOT_CACHE_MB", 64.0)
+                              * (1 << 20)),
+                ttl_s=env.find_float("PS_HOT_CACHE_TTL_S", 1.0),
+                metrics=node_registry(getattr(self.po, "metrics", None)))
+        # Raw-response timestamps (fetch_hot_keys): _finish keeps the
+        # per-server KVPairs instead of scattering them.
+        self._raw_ts: set = set()
+        self._raw_results: Dict[int, List[KVPairs]] = {}
+        # Small-op batching (PS_BATCH_BYTES > 0): the per-(destination,
+        # tenant, priority) combiner; 0 bypasses the plane and every
+        # frame is byte-identical to an unbatched build.  Capability per
+        # destination: None while the probe is out (ops pass through
+        # unbatched), then True/False; PS_BATCH_NEGOTIATE=0 asserts a
+        # homogeneous cluster and skips the probe.
+        self._batch_bytes = max(0, env.find_int("PS_BATCH_BYTES", 0))
+        self._batch_caps: Dict[int, bool] = {}
+        self._batch_probe_ts: Dict[int, int] = {}
+        self._batch_probing: set = set()
+        self._batch_negotiate = bool(env.find_int("PS_BATCH_NEGOTIATE", 1))
+        self._combiner: Optional[OpCombiner] = None
+        if self._batch_bytes > 0:
+            self._combiner = OpCombiner(
+                lambda m: self.po.van.send(m), self._batch_send_failed,
+                max_bytes=self._batch_bytes,
+                window_us=env.find_float("PS_BATCH_WINDOW_US", 0.0),
+                min_ops=env.find_int("PS_BATCH_MIN_OPS", 32),
+                hold_max_us=env.find_float("PS_BATCH_HOLD_US", 2000.0),
+                tracer=self.po.tracer)
         self._dense_routes: Dict[tuple, str] = {}
         self._device_results: Dict[int, torch.Tensor] = {}
         self._engine_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -312,6 +446,13 @@ class KVWorker:
                 self._bucket_codecs.pop(sig, None)
             else:
                 self._bucket_codecs[sig] = (keys, codec)
+
+    def _resolve_tenant(self, tenant) -> int:
+        """One op's tenant id: ``tenant=`` (name or id) when given, else
+        this worker's ``PS_TENANT``."""
+        if tenant is None:
+            return self._tenant
+        return self.tenants.resolve(tenant)
 
     def _resolve_codec(self, keys: np.ndarray, codec: Optional[str],
                        compress: Optional[str]) -> Optional[str]:
@@ -470,6 +611,127 @@ class KVWorker:
             return None
         return reg
 
+    # -- hot-key cache --------------------------------------------------------
+
+    @property
+    def hot_cache(self) -> Optional[HotKeyCache]:
+        """The worker's hot-key pull cache (None unless PS_HOT_CACHE=1)."""
+        return self._hot_cache
+
+    def fetch_hot_keys(self, k: int = 16,
+                       timeout: Optional[float] = None) -> np.ndarray:
+        """Ask every server for its ``kv.hot_keys`` top-k (one tiny pull
+        each, ``cmd=HOT_KEYS_CMD``) and seed the hot cache's admission
+        set with the union.  Returns the keys, server by server."""
+        ranges = self.po.get_server_key_ranges()
+        ts = self._customer.new_request(SERVER_GROUP,
+                                        num_responses=len(ranges))
+        with self._mu:
+            self._raw_ts.add(ts)
+        gs = self.po.group_size
+        try:
+            for rank, rng in enumerate(ranges):
+                msg = Message()
+                m = msg.meta
+                m.app_id = self._customer.app_id
+                m.customer_id = self._customer.customer_id
+                m.request = True
+                m.pull = True
+                m.head = HOT_KEYS_CMD
+                m.timestamp = ts
+                m.recver = server_rank_to_id(rank * gs + self.po.instance_idx)
+                m.val_len = int(k)  # how many hot keys to send back
+                m.key = int(rng.begin)
+                msg.add_data(SArray(np.array([rng.begin], dtype=np.uint64)))
+                msg.add_data(SArray(np.empty(0, np.float32)))
+                self.po.van.send(msg)
+            self._customer.wait_request(ts, timeout)
+        finally:
+            with self._mu:
+                chunks = self._raw_results.pop(ts, [])
+                self._raw_ts.discard(ts)
+        keys = (np.concatenate([c.keys for c in chunks])
+                if chunks else np.empty(0, np.uint64))
+        if self._hot_cache is not None and len(keys):
+            self._hot_cache.seed(keys)
+        return keys
+
+    def seed_hot_cache(self, k: int = 16) -> np.ndarray:
+        """Fetch the servers' hot keys into the cache's admission set;
+        the caller's first pulls of them fill it."""
+        return self.fetch_hot_keys(k=k)
+
+    # -- small-op batching ----------------------------------------------------
+
+    @property
+    def combiner(self) -> Optional[OpCombiner]:
+        """The worker's op combiner (None unless PS_BATCH_BYTES > 0)."""
+        return self._combiner
+
+    def _batch_capable(self, dest: int) -> bool:
+        """May ``dest`` receive EXT_BATCH frames?  Until its probe
+        answers, ops pass through unbatched (never queued)."""
+        if not self._batch_negotiate:
+            return True
+        cap = self._batch_caps.get(dest)  # None -> bool only, GIL-atomic
+        if cap is not None:
+            return cap
+        self._probe_batch_cap(dest)
+        return False
+
+    def _probe_batch_cap(self, dest: int) -> None:
+        """One-shot capability probe: a tiny ``BATCH_PROBE_CMD`` pull the
+        server answers before its handler with its batch wire version
+        (``val_len`` declares ours).  An error answer (a build without
+        the plane routing the cmd into its handler) marks the peer
+        incapable."""
+        with self._mu:
+            if dest in self._batch_caps or dest in self._batch_probing:
+                return
+            self._batch_probing.add(dest)
+        ts = self._customer.new_request(dest)  # a node id: expects 1
+        with self._mu:
+            self._batch_probe_ts[ts] = dest
+        msg = Message()
+        m = msg.meta
+        m.app_id = self._customer.app_id
+        m.customer_id = self._customer.customer_id
+        m.request = True
+        m.pull = True
+        m.head = BATCH_PROBE_CMD
+        m.timestamp = ts
+        m.recver = dest
+        m.val_len = BATCH_WIRE_VERSION
+        msg.add_data(SArray(np.zeros(1, np.uint64)))
+        msg.add_data(SArray(np.empty(0, np.float32)))
+        try:
+            self.po.van.send(msg)
+        except Exception as exc:  # noqa: BLE001 - probed again later
+            log.warning(f"batch capability probe to {dest} failed: "
+                        f"{exc!r}")
+            with self._mu:
+                self._batch_probe_ts.pop(ts, None)
+                self._batch_probing.discard(dest)
+            self._customer.add_response(ts, 1)
+
+    def _batch_send_failed(self, msgs, exc: Exception) -> None:
+        """Combiner error hook: a flush's send raised off the caller's
+        thread; fail each member op as an inline send failure would."""
+        for m in msgs:
+            self._slice_send_failed(m.meta.timestamp, exc)
+
+    def _slice_send_failed(self, ts: int, exc: Exception) -> None:
+        """No response will come for this slice: fail the request so
+        ``wait(ts)`` raises TimeoutError instead of hanging."""
+        log.warning(f"send ts={ts} failed ({exc!r}); failing the request")
+        with self._mu:
+            self._timeout_ts.add(ts)
+            self._recv_kvs.pop(ts, None)
+            self._pull_dst.pop(ts, None)
+            self._callbacks.pop(ts, None)
+            self._zpull_ts.discard(ts)
+        self._customer.add_response(ts, 1)
+
     # -- engine-path completion ----------------------------------------------
 
     def _engine_dispatch(self, result: torch.Tensor, out=None,
@@ -529,10 +791,12 @@ class KVWorker:
     def push(self, keys, vals, lens=None, cmd: int = 0,
              callback: Optional[Callable[[], None]] = None,
              priority: int = 0, compress: Optional[str] = None,
-             codec: Optional[str] = None) -> int:
+             codec: Optional[str] = None, tenant=None) -> int:
         """Push ``vals`` (kv_app.h:210-231); the caller must not mutate
         them until ``wait(ts)``.  ``codec=`` (``compress=``) or the
-        bucket's registered codec sends float32 values encoded."""
+        bucket's registered codec sends float32 values encoded;
+        ``tenant=`` (a ``PS_TENANTS`` name or id) labels the request,
+        by default this worker's ``PS_TENANT``."""
         route = self._engine_route(np.asarray(keys, dtype=np.uint64), cmd,
                                    lens)
         if route is not None:
@@ -540,8 +804,10 @@ class KVWorker:
             return self._engine_dispatch(token, callback=callback)
         kvs = _as_kvs(keys, vals, lens, priority)
         codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
+        tid = self._resolve_tenant(tenant)
         ts = self._new_message_request(callback)
-        self._send(ts, push=True, pull=False, cmd=cmd, kvs=kvs, codec=codec)
+        self._send(ts, push=True, pull=False, cmd=cmd, kvs=kvs, codec=codec,
+                   tenant=tid)
         return ts
 
     def _checked_codec(self, keys, vals, codec, compress) -> Optional[str]:
@@ -555,18 +821,29 @@ class KVWorker:
     def pull(self, keys, vals, lens: Optional[np.ndarray] = None,
              cmd: int = 0, callback: Optional[Callable[[], None]] = None,
              priority: int = 0, compress: Optional[str] = None,
-             codec: Optional[str] = None) -> int:
+             codec: Optional[str] = None, tenant=None,
+             _batch_sink: Optional[List[Message]] = None) -> int:
         """Pull into ``vals`` (kv_app.h:241-247, 727-792): a numpy array
         on the message path; on the engine path also a tensor.  With
         ``lens``, the per-key lengths land there.  ``codec=``
         (``compress=``) or the bucket's registered codec asks each server
         for an encoded response (float32 only; not into a registered
-        zero-copy buffer)."""
+        zero-copy buffer).  With the hot cache on, a plain fixed-k pull
+        whose every key is cached fresh is answered here: no message
+        leaves, and the returned timestamp is complete."""
         keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
         route = self._engine_route(keys, cmd, lens)
         if route is not None:
             return self._engine_pull(route, vals, callback)
         codec = self._checked_codec(keys, vals, codec, compress)
+        tid = self._resolve_tenant(tenant)
+        if (self._hot_cache is not None and lens is None and codec is None
+                and cmd == 0 and isinstance(vals, np.ndarray)
+                and self._hot_cache.serve(keys, vals)):
+            ts = self._customer.new_request(SERVER_GROUP, num_responses=0)
+            if callback is not None:
+                callback()
+            return ts
         ts = self._new_message_request(callback)
         zpull = (self._zpull_lookup(keys, vals)
                  if lens is None and codec is None else None)
@@ -577,7 +854,8 @@ class KVWorker:
         kvs = KVPairs(keys=keys, vals=np.empty(0, vals.dtype),
                       priority=priority)
         self._send(ts, push=False, pull=True, cmd=cmd, kvs=kvs,
-                   val_nbytes=vals.nbytes, zpull=zpull, codec=codec)
+                   val_nbytes=vals.nbytes, zpull=zpull, codec=codec,
+                   tenant=tid, batch_sink=_batch_sink)
         return ts
 
     def _engine_pull(self, route: str, vals, callback) -> int:
@@ -602,7 +880,7 @@ class KVWorker:
     def push_pull(self, keys, vals, outs, lens=None, cmd: int = 0,
                   callback: Optional[Callable[[], None]] = None,
                   priority: int = 0, compress: Optional[str] = None,
-                  codec: Optional[str] = None) -> int:
+                  codec: Optional[str] = None, tenant=None) -> int:
         """Fused push + pull round trip (the benchmark hot path).  The
         push takes the codec as ``push`` does; the response travels raw
         (it may land in a registered buffer in place)."""
@@ -614,6 +892,7 @@ class KVWorker:
                                          keep_result=True)
         kvs = _as_kvs(keys, vals, lens, priority)
         codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
+        tid = self._resolve_tenant(tenant)
         ts = self._new_message_request(callback)
         zpull = self._zpull_lookup(kvs.keys, outs) if lens is None else None
         with self._mu:
@@ -621,13 +900,115 @@ class KVWorker:
             if zpull is not None:
                 self._zpull_ts.add(ts)
         self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs, zpull=zpull,
-                   codec=codec)
+                   codec=codec, tenant=tid)
         return ts
 
-    def multi_get(self, *args, **kwargs):
-        """Fan-out pull of many key lists in one batched send: not
-        here."""
-        raise _not_ported("KVWorker.multi_get", "6(b)")
+    def multi_get(self, key_lists, outs: Optional[List[np.ndarray]] = None,
+                  val_len: Optional[int] = None, dtype=np.float32,
+                  cmd: int = 0, priority: int = 0,
+                  compress: Optional[str] = None,
+                  codec: Optional[str] = None, tenant=None,
+                  callbacks: Optional[List[Callable[[], None]]] = None,
+                  callback: Optional[Callable[[], None]] = None
+                  ) -> MultiGetHandle:
+        """Serving fan-in: pull N independent sorted key lists (a
+        serving request's embedding lookups) as one operation.
+
+        ``key_lists[i]``'s values land in ``outs[i]`` (or a new
+        ``len(keys) * val_len`` array of ``dtype``).  Each sub-get is
+        sliced like :meth:`pull`; with the combiner on, the whole
+        fan-out's slices enter it at once (``submit_many``), so each
+        contacted server gets one ``EXT_BATCH`` frame and answers with
+        one ``response_batch`` frame.  With the hot cache, sub-gets whose
+        every key is cached fresh are answered here and partial hits
+        fetch only the misses.  ``callbacks[i]`` fires as sub-get i
+        completes (not on its failure); ``callback`` once after the last
+        succeeded.  A failure (shed, apply error, send failure) fails
+        only its sub-get.  ``codec=None`` resolves each list's
+        registered bucket codec."""
+        n = len(key_lists)
+        log.check(outs is not None or val_len is not None,
+                  "multi_get needs outs= or val_len=")
+        if outs is not None:
+            log.check(len(outs) == n, "multi_get: len(outs) != len(key_lists)")
+        if callbacks is not None:
+            log.check(len(callbacks) == n,
+                      "multi_get: len(callbacks) != len(key_lists)")
+        handle = MultiGetHandle(self, n)
+        sink: Optional[List[Message]] = (
+            [] if self._combiner is not None else None)
+        agg_mu = threading.Lock()
+        agg_left = [n]
+
+        def _complete(i: int) -> None:
+            if callbacks is not None and callbacks[i] is not None:
+                callbacks[i]()
+            if callback is not None:
+                with agg_mu:
+                    agg_left[0] -= 1
+                    fire = agg_left[0] == 0
+                if fire:
+                    callback()
+
+        want_cb = callbacks is not None or callback is not None
+        try:
+            self._multi_get_issue(key_lists, outs, val_len, dtype, cmd,
+                                  priority, compress, codec, tenant, handle,
+                                  sink, want_cb, _complete)
+        finally:
+            if sink:
+                # The whole fan-out enters the combiner at once: one frame
+                # per contacted server at the next pickup (in a finally,
+                # so a raise part way never strands queued sub-gets).
+                self._combiner.submit_many(sink)
+        return handle
+
+    def _multi_get_issue(self, key_lists, outs, val_len, dtype, cmd,
+                         priority, compress, codec, tenant, handle, sink,
+                         want_cb, _complete) -> None:
+        hc = self._hot_cache
+        for i, keys in enumerate(key_lists):
+            keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
+            out = (outs[i] if outs is not None
+                   else np.empty(len(keys) * val_len, dtype))
+            handle.outs[i] = out
+            codec_i = self._resolve_codec(keys, codec, compress)
+            mask = None
+            if (hc is not None and cmd == 0 and codec_i is None
+                    and len(keys) and isinstance(out, np.ndarray)):
+                mask = hc.serve_mask(keys, out)
+            if mask is not None and mask.all():
+                handle.cached += 1
+                _complete(i)
+                continue
+            if mask is not None and mask.any():
+                # Partial hit: fetch only the misses into a staging
+                # buffer, scattered into their rows on completion.
+                miss = np.flatnonzero(~mask)
+                k = out.reshape(-1).size // len(keys)
+                tmp = np.empty(len(miss) * k, out.dtype)
+
+                def _scatter(i=i, out=out, tmp=tmp, miss=miss, k=k):
+                    flat = out.reshape(-1)
+                    for j, pos in enumerate(miss):
+                        flat[pos * k:(pos + 1) * k] = tmp[j * k:(j + 1) * k]
+                    _complete(i)
+
+                handle.timestamps[i] = self.pull(
+                    keys[miss], tmp, cmd=cmd, priority=priority,
+                    tenant=tenant, callback=_scatter, _batch_sink=sink)
+                continue
+            handle.timestamps[i] = self.pull(
+                keys, out, cmd=cmd, priority=priority, codec=codec_i,
+                tenant=tenant,
+                callback=(lambda i=i: _complete(i)) if want_cb else None,
+                _batch_sink=sink)
+
+    def pull_multi(self, key_lists, outs: Optional[List[np.ndarray]] = None,
+                   **kw) -> MultiGetHandle:
+        """:meth:`multi_get` spelled for registered buckets: each key list
+        resolves its own bucket codec."""
+        return self.multi_get(key_lists, outs=outs, **kw)
 
     def coalescer(self, handle=None, **kw):
         """Coalescing dispatcher over the worker's engine: per-op
@@ -686,11 +1067,23 @@ class KVWorker:
         raised on it (RuntimeError) or its delivery failed
         (TimeoutError)."""
         self._customer.wait_request(timestamp)
-        if not (self._timeout_ts or self._error_ts):
+        if not (self._timeout_ts or self._error_ts or self._overload_ts
+                or self._wrong_owner_ts):
             return
         with self._mu:
             timed_out = self._timeout_ts.discard(timestamp)
             failed = self._error_ts.discard(timestamp)
+            shed = self._overload_ts.discard(timestamp)
+            bounced = self._wrong_owner_ts.discard(timestamp)
+        if bounced:
+            raise _not_ported(
+                f"request {timestamp}: the re-slice of a slice bounced "
+                f"OPT_WRONG_OWNER (routing epochs)", "8(b)")
+        if shed:
+            raise OverloadError(
+                f"request {timestamp} was shed by the server under "
+                f"per-tenant admission control (OPT_OVERLOAD); back off "
+                f"and retry")
         if timed_out:
             raise TimeoutError(f"request {timestamp} was abandoned: its "
                                f"delivery failed")
@@ -706,7 +1099,10 @@ class KVWorker:
     Wait = wait
 
     def stop(self) -> None:
-        """Retire the receive pump and the engine completion thread."""
+        """Retire the combiner (its queued ops go out: their waits expect
+        responses), the receive pump and the engine completion thread."""
+        if self._combiner is not None:
+            self._combiner.stop()
         self._customer.stop()
         with self._mu:
             pool, self._engine_pool = self._engine_pool, None
@@ -731,7 +1127,8 @@ class KVWorker:
                    part: KVPairs, dest: int, val_nbytes: int,
                    zpull: Optional[dict] = None, rank: int = 0,
                    codec: Optional[str] = None,
-                   enc: Optional[_EncodedSlice] = None) -> Message:
+                   enc: Optional[_EncodedSlice] = None,
+                   tenant: int = 0) -> Message:
         """One per-server slice message (``rank``: the server's group
         rank, whose offset a zero-copy pull names; ``enc``: the slice's
         encoded push payload; ``codec``: the response codec a pull asks
@@ -739,6 +1136,7 @@ class KVWorker:
         msg = Message()
         m = msg.meta
         m.priority = part.priority
+        m.tenant = tenant
         m.app_id = self._customer.app_id
         m.customer_id = self._customer.customer_id
         m.request = True
@@ -774,7 +1172,8 @@ class KVWorker:
 
     def _send(self, ts: int, push: bool, pull: bool, cmd: int, kvs: KVPairs,
               val_nbytes: int = 0, zpull: Optional[dict] = None,
-              codec: Optional[str] = None) -> None:
+              codec: Optional[str] = None, tenant: int = 0,
+              batch_sink: Optional[List[Message]] = None) -> None:
         ranges = self.po.get_server_key_ranges()
         sliced = (self._slicer(kvs, ranges)
                   if len(ranges) > 1 or self._slicer is not default_slicer
@@ -796,31 +1195,62 @@ class KVWorker:
         for (rank, part), enc in zip(live, encs):
             dest = server_rank_to_id(rank * gs + self.po.instance_idx)
             msg = self._slice_msg(ts, push, pull, cmd, part, dest,
-                                  val_nbytes, zpull, rank, codec, enc)
+                                  val_nbytes, zpull, rank, codec, enc,
+                                  tenant)
+            if self._combiner is not None and self._batch_capable(dest):
+                # Every slice toward a batch-capable destination rides the
+                # combiner's per-(dest, tenant, priority) stream: small
+                # compatible ops merge into EXT_BATCH frames, the rest go
+                # alone in position, so batching never reorders a lane.
+                if batch_sink is not None:
+                    batch_sink.append(msg)  # multi_get: submitted at once
+                else:
+                    self._combiner.submit(msg)
+                continue
             try:
                 self.po.van.send(msg)
             except Exception as exc:  # noqa: BLE001 - PeerDeadError & co
-                # No response will come for this slice: fail the request
-                # so wait(ts) raises instead of hanging.
-                log.warning(f"send ts={ts} failed ({exc!r}); failing the "
-                            f"request")
-                with self._mu:
-                    self._timeout_ts.add(ts)
-                    self._recv_kvs.pop(ts, None)
-                    self._pull_dst.pop(ts, None)
-                    self._callbacks.pop(ts, None)
-                self._customer.add_response(ts, 1)
+                self._slice_send_failed(ts, exc)
 
     def _process(self, msg: Message) -> None:
         if msg.meta.request:
             return  # workers only receive responses
+        if msg.meta.batch is not None:
+            self._process_batched_response(msg)
+            return
         ts = msg.meta.timestamp
-        if msg.meta.option == OPT_SEND_FAILED:
+        if self._batch_probe_ts:  # unlocked probe: empty almost always
+            with self._mu:
+                probe_dest = self._batch_probe_ts.pop(ts, None)
+            if probe_dest is not None:
+                # A clean answer carrying at least our wire version marks
+                # the peer capable; an error answer, incapable.
+                ok = False
+                if msg.meta.option == 0 and len(msg.data) >= 2:
+                    vals = msg.data[1].numpy().reshape(-1)
+                    ok = vals.size >= 1 and int(vals[0]) >= BATCH_WIRE_VERSION
+                with self._mu:
+                    self._batch_caps[probe_dest] = ok
+                    self._batch_probing.discard(probe_dest)
+                return
+        option = msg.meta.option
+        if option == OPT_SEND_FAILED:
             with self._mu:
                 self._timeout_ts.add(ts)
-        elif msg.meta.option == OPT_APPLY_ERROR:
+        elif option == OPT_APPLY_ERROR:
             with self._mu:
                 self._error_ts.add(ts)
+        elif option == OPT_OVERLOAD:
+            with self._mu:
+                self._overload_ts.add(ts)
+        elif option == OPT_WRONG_OWNER:
+            with self._mu:
+                self._wrong_owner_ts.add(ts)
+        hc = self._hot_cache
+        if hc is not None and msg.meta.stamp:
+            # Every stamped response advances its server's newest known
+            # version, invalidating older fills.
+            hc.observe(msg.meta.sender, msg.meta.stamp)
         if msg.meta.pull and len(msg.data) >= 2:
             ci = msg.meta.codec
             if ci is not None and ci.raw_len > 0 and len(msg.data) >= 3:
@@ -846,11 +1276,53 @@ class KVWorker:
                 )
             with self._mu:
                 self._recv_kvs.setdefault(ts, []).append(kvs)
+                zp = ts in self._zpull_ts
+            if (not zp and hc is not None and msg.meta.stamp
+                    and option == 0 and msg.meta.head == 0
+                    and kvs.lens is None and len(kvs.keys)
+                    and len(kvs.vals) % len(kvs.keys) == 0):
+                # The fill stamp was read at the server's intake, so it
+                # never claims more than the values saw (copied: response
+                # buffers recycle).
+                hc.fill(msg.meta.sender, msg.meta.stamp, kvs.keys, kvs.vals)
         # The Customer counts this response *after* the handle, so the
         # last response is expected - 1 (reference: kv_app.h:686-710).
         if (self._customer.num_response(ts) + 1
                 >= self._customer.num_expected(ts)):
             self._finish(ts)
+
+    def _process_batched_response(self, msg: Message) -> None:
+        """One response frame of N sub-ops: each sub-op is processed and
+        counted here (the Customer skips a batch envelope's count)."""
+        info = msg.meta.batch
+        if not msg.data and all(op.option == 0 and not op.pull
+                                for op in info.ops):
+            # All push acks (a storm's return traffic): account per op
+            # without building per-op messages.
+            sender = msg.meta.sender
+            hc = self._hot_cache
+            for op in info.ops:
+                ts = op.timestamp
+                try:
+                    if hc is not None and op.stamp:
+                        hc.observe(sender, op.stamp)
+                    if (self._customer.num_response(ts) + 1
+                            >= self._customer.num_expected(ts)):
+                        self._finish(ts)
+                except Exception as exc:  # noqa: BLE001 - count it anyway
+                    log.warning(f"batched sub-op ts={ts} response "
+                                f"handling failed: {exc!r}")
+                finally:
+                    self._customer.add_response(ts)
+            return
+        for sub in split_batch_message(msg):
+            try:
+                self._process(sub)
+            except Exception as exc:  # noqa: BLE001 - count it anyway
+                log.warning(f"batched sub-op ts={sub.meta.timestamp} "
+                            f"response handling failed: {exc!r}")
+            finally:
+                self._customer.add_response(sub.meta.timestamp)
 
     def _finish(self, ts: int) -> None:
         with self._mu:
@@ -858,6 +1330,11 @@ class KVWorker:
             dst = self._pull_dst.pop(ts, None)
             zpull = ts in self._zpull_ts
             self._zpull_ts.discard(ts)
+            if ts in self._raw_ts:
+                # fetch_hot_keys: the caller takes the per-server KVPairs.
+                self._raw_ts.discard(ts)
+                self._raw_results[ts] = chunks
+                chunks = []
         if zpull and chunks and dst is not None and all(
                 np.shares_memory(c.vals, dst[1]) for c in chunks):
             # Every slice was written in place: nothing to reassemble.
@@ -889,7 +1366,9 @@ class KVWorker:
         with self._mu:
             cb = self._callbacks.pop(ts, None)
             # A failed request's data never (fully) landed: no callback.
-            failed = ts in self._error_ts or ts in self._timeout_ts
+            failed = (ts in self._error_ts or ts in self._timeout_ts
+                      or ts in self._overload_ts
+                      or ts in self._wrong_owner_ts)
         if cb is not None and not failed:
             cb()
 
@@ -902,13 +1381,21 @@ class KVServer:
     with ``PS_APPLY_SHARDS=0``, or any other handle, requests apply
     serially on the customer thread in arrival order.  Codec pushes are
     decoded before the handler sees them (by the pool's shards where they
-    can be), and pull responses are encoded as the request asks."""
+    can be), and pull responses are encoded as the request asks.
+
+    An ``EXT_BATCH`` request runs the same per-op intake as a single one
+    (stamps, hot-key counts, decode, admission) and enters the pool as a
+    group; ``BATCH_PROBE_CMD`` and ``HOT_KEYS_CMD`` pulls are answered
+    before the handler."""
 
     _MAX_STREAMS = 64  # open streamed pushes; the oldest is aborted
 
     def __init__(self, app_id: int, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.SERVER)
-        _refuse_item_6b(self.po.env)
+        env = self.po.env
+        resp_bytes = max(0, env.find_int(
+            "PS_RESP_BATCH_BYTES", max(0, env.find_int("PS_BATCH_BYTES", 0))))
+        _refuse_batching_with(env, resp_bytes)
         self._handle: Optional[Callable[[KVMeta, KVPairs, "KVServer"],
                                         None]] = None
         self._recv_buffers: Dict[Tuple[int, int], np.ndarray] = {}
@@ -928,6 +1415,39 @@ class KVServer:
         metrics = node_registry(getattr(self.po, "metrics", None))
         self._c_codec_raw = metrics.counter("codec.raw_bytes")
         self._c_codec_wire = metrics.counter("codec.wire_bytes")
+        # The bounded hot-key tracker HOT_KEYS_CMD answers from.
+        self._hot_keys = metrics.topk("kv.hot_keys")
+        # Tenants and admission: a tenant whose apply backlog reaches
+        # PS_TENANT_QUEUE_LIMIT (default 1024 with PS_TENANTS, else off)
+        # gets OPT_OVERLOAD instead of unbounded queueing.
+        self.tenants = tenants_mod.table_for(env)
+        self._admit_limit = env.find_int(
+            "PS_TENANT_QUEUE_LIMIT", 1024 if self.tenants.enabled else 0)
+        # The push-version stamp of the hot cache: bumped after a push
+        # applied (as its response leaves), read at pull intake; it
+        # starts at 1 (0 means unstamped).  Stamping engages only with a
+        # QoS feature configured, so default frames carry no EXT_QOS.
+        self._qos_mu = threading.Lock()
+        self._push_version = 1
+        self._qos_stamps = bool(self.tenants.enabled
+                                or env.find_int("PS_HOT_CACHE", 0)
+                                or env.find_int("PS_QOS_STAMPS", 0))
+        # The response combiner (PS_RESP_BATCH_BYTES, by default
+        # PS_BATCH_BYTES): small responses toward one (sender, tenant,
+        # priority) lane merge into EXT_BATCH frames, but only toward
+        # senders that proved batch awareness (a probe or an EXT_BATCH
+        # frame), and traced ones only toward v2 decoders.
+        self._batch_senders: set = set()
+        self._batch_senders_v2: set = set()
+        self._resp_combiner: Optional[OpCombiner] = None
+        if resp_bytes > 0:
+            self._resp_combiner = OpCombiner(
+                lambda m: self.po.van.send(m), self._resp_send_failed,
+                max_bytes=resp_bytes,
+                window_us=env.find_float("PS_RESP_BATCH_WINDOW_US", 0.0),
+                min_ops=env.find_int("PS_RESP_BATCH_MIN_OPS", 32),
+                hold_max_us=env.find_float("PS_RESP_BATCH_HOLD_US", 2000.0),
+                response=True, tracer=self.po.tracer)
         self._customer = Customer(
             app_id, app_id, self._process, self.po,
             on_request_error=self._request_error,
@@ -985,12 +1505,47 @@ class KVServer:
         m.val_len = req.val_len
         m.option = req.option
         m.priority = req.priority  # the pull's bytes travel back here
+        m.tenant = req.tenant  # weighted shares hold on the way back
+        m.stamp = req.stamp
+        m.trace = req.trace
         return msg
+
+    def _resp_send_failed(self, msgs, exc: Exception) -> None:
+        """Response-combiner error hook: nothing to repair here (the
+        waiting workers own retry), but it must be loud."""
+        log.warning(f"response flush of {len(msgs)} frame(s) failed: "
+                    f"{exc!r}")
+
+    def _send_response(self, msg: Message) -> None:
+        """Send one response, on the response combiner's lane when the
+        plane is on and the sender proved batch awareness (mergeable
+        small results coalesce, the rest go alone in position); else
+        directly."""
+        m = msg.meta
+        if (self._resp_combiner is not None and m.head == 0
+                and m.control.empty() and not m.shm_data
+                and m.recver in self._batch_senders
+                and (m.trace == 0 or m.recver in self._batch_senders_v2)):
+            self._resp_combiner.submit(msg)
+            return
+        self.po.van.send(msg)
+
+    def _qos_push_done(self, req) -> None:
+        """One-shot push-version bump as an applied push's response
+        leaves (and for an aborted stream): the response carries it, so
+        a worker that saw this push can never serve an older fill."""
+        if not self._qos_stamps:
+            return
+        if req.push and req.stamp == 0:
+            with self._qos_mu:
+                self._push_version += 1
+                req.stamp = self._push_version
 
     def response(self, req: KVMeta, res: Optional[KVPairs] = None) -> None:
         """Reply to a request (kv_app.h:536-564).  A pull that asked for a
         codec (``req.codec`` with ``raw_len == 0``) gets float32 values
         encoded; other values travel raw."""
+        self._qos_push_done(req)
         msg = self._response_msg(req)
         if res is not None and not res.empty():
             ci = getattr(req, "codec", None)
@@ -1010,7 +1565,7 @@ class KVServer:
                 msg.add_data(SArray(res.vals))
             if res.lens is not None:
                 msg.add_data(SArray(np.asarray(res.lens, dtype=np.int32)))
-        self.po.van.send(msg)
+        self._send_response(msg)
 
     def _encode_response(self, ci, req: KVMeta, res: KVPairs):
         """(codes, scales, CodecInfo) of a pull response in the request's
@@ -1058,11 +1613,27 @@ class KVServer:
 
     def response_error(self, req: KVMeta) -> None:
         """Empty ``OPT_APPLY_ERROR`` response: the waiting worker gets
-        its response counted, and its ``wait`` raises."""
+        its response counted, and its ``wait`` raises.  A failed push may
+        have applied in part: the push version moves on anyway."""
+        self._qos_push_done(req)
         msg = self._response_msg(req)
         msg.meta.option = OPT_APPLY_ERROR
         msg.meta.addr = 0
         msg.meta.val_len = 0
+        # Never merges (option != 0), but keeps its place in the lane.
+        self._send_response(msg)
+
+    def response_overload(self, req: KVMeta) -> None:
+        """Empty ``OPT_OVERLOAD`` response: the request was shed under
+        per-tenant admission control, nothing applied (no version bump),
+        and the worker's ``wait`` raises ``OverloadError``.  It rides the
+        express band: a shed must not queue behind the backlog it
+        reports."""
+        msg = self._response_msg(req)
+        msg.meta.option = OPT_OVERLOAD
+        msg.meta.addr = 0
+        msg.meta.val_len = 0
+        msg.meta.priority = max(msg.meta.priority, 1)
         self.po.van.send(msg)
 
     def _request_error(self, msg: Message, exc: Exception) -> None:
@@ -1070,6 +1641,23 @@ class KVServer:
         if msg.meta.simple_app or not msg.meta.request:
             return
         m = msg.meta
+        if m.batch is not None:
+            # A batched frame failed at intake: fail every sub-op's
+            # waiter, each under its own timestamp.
+            try:
+                metas = [KVMeta(cmd=s.meta.head, push=s.meta.push,
+                                pull=s.meta.pull, sender=m.sender,
+                                timestamp=s.meta.timestamp,
+                                customer_id=m.customer_id, key=s.meta.key,
+                                trace=s.meta.trace)
+                         for s in split_batch_message(msg)]
+                env = KVMeta(sender=m.sender, customer_id=m.customer_id,
+                             priority=m.priority, tenant=m.tenant)
+                self.response_batch(env, metas, [("error",)] * len(metas))
+            except Exception as be:  # noqa: BLE001 - best effort
+                log.warning(f"batched request-error response failed: "
+                            f"{be!r}")
+            return
         self.response_error(KVMeta(
             cmd=m.head, push=m.push, pull=m.pull, sender=m.sender,
             timestamp=m.timestamp, customer_id=m.customer_id, key=m.key,
@@ -1082,6 +1670,10 @@ class KVServer:
         if self._apply_pool is not None:
             self._apply_pool.stop()
             self._apply_pool = None
+        if self._resp_combiner is not None:
+            # After the pool: its stop path still sends stranded
+            # responses through _send_response.
+            self._resp_combiner.stop()
 
     # -- streamed chunked pushes ---------------------------------------------
 
@@ -1144,11 +1736,15 @@ class KVServer:
             m = msg.meta
             if not self._stream_eligible(m):
                 return
+            if m.head == 0 and self._admission_overloaded(m.tenant):
+                # Over the tenant's bound: the partials drop and the
+                # reassembled message sheds whole at admission.
+                return
             h = self._apply_pool.begin_stream(KVMeta(
                 cmd=m.head, push=True, pull=False, sender=m.sender,
                 timestamp=m.timestamp, customer_id=m.customer_id, key=m.key,
                 addr=m.addr, val_len=m.val_len, option=0,
-                priority=m.priority))
+                priority=m.priority, trace=m.trace, tenant=m.tenant))
             self.streams_opened += 1
             evicted = None
             with self._streams_mu:
@@ -1160,16 +1756,60 @@ class KVServer:
                 self._streams[key] = h
             if evicted is not None:
                 evicted.close(respond=False)
-        h.feed(KVPairs(keys=msg.data[0].astype_view(np.uint64).numpy(),
-                       vals=msg.data[1].numpy()))
+        kvs = KVPairs(keys=msg.data[0].astype_view(np.uint64).numpy(),
+                      vals=msg.data[1].numpy())
+        if len(kvs.keys):
+            self._hot_keys.add(int(kvs.keys[0]), len(kvs.keys))
+        h.feed(kvs)
 
-    # -- requests ------------------------------------------------------------
+    # -- per-op intake (shared by single and batched requests) ----------------
 
-    def _intake_decode(self, meta: KVMeta, data) -> KVPairs:
+    def _admission_overloaded(self, tenant: int, extra: int = 0) -> bool:
+        """Per-tenant admission probe: the pool's in-flight backlog plus
+        the tenant's open streams (a streamed push holds capacity from
+        its first partial) plus ``extra``, the slots a batched frame's
+        earlier sub-ops took."""
+        if self._admit_limit <= 0 or self._apply_pool is None:
+            return False
+        n = self._apply_pool.tenant_backlog(tenant) + extra
+        if n < self._admit_limit:
+            with self._streams_mu:
+                n += sum(1 for h in self._streams.values()
+                         if h.pending.meta.tenant == tenant)
+        return n >= self._admit_limit
+
+    def _intake_admission(self, meta: KVMeta, extra: int = 0) -> bool:
+        """True when this request (or batched sub-op) must be shed."""
+        if not (self._admit_limit > 0 and self._apply_pool is not None
+                and meta.cmd == 0):
+            return False
+        return self._admission_overloaded(meta.tenant, extra=extra)
+
+    def _intake_pull_stamp(self, meta: KVMeta) -> None:
+        """A pull's hot-cache stamp, taken at intake: every push counted
+        before now has applied, so the shards' snapshot includes it."""
+        if self._qos_stamps and meta.pull and not meta.push:
+            with self._qos_mu:
+                meta.stamp = self._push_version
+
+    def _intake_hot_keys(self, keys: np.ndarray) -> None:
+        """Hot-key counts: per key for small key sets; a bulk slice
+        charges its first key with the whole weight."""
+        if not len(keys):
+            return
+        if len(keys) <= 64:
+            for k in keys.tolist():
+                self._hot_keys.add(int(k))
+        else:
+            self._hot_keys.add(int(keys[0]), len(keys))
+
+    def _intake_decode(self, meta: KVMeta, data,
+                       lazy_ok: bool = True) -> KVPairs:
         """A request's data as KVPairs.  A codec push is decoded here, or
-        left encoded (``kvs.enc``) for the pool's shards when it is a
-        fixed-k push-only payload of a range-decodable codec with no
-        registered receive buffer."""
+        left encoded (``kvs.enc``) for the pool's shards when ``lazy_ok``
+        and it is a fixed-k push-only payload of a range-decodable codec
+        with no registered receive buffer (batched sub-ops are small and
+        decode here)."""
         kvs = KVPairs()
         if len(data) < 2:
             return kvs
@@ -1188,7 +1828,7 @@ class KVServer:
         kvs.lens = (data[3].astype_view(np.int32).numpy()
                     if len(data) > 3 else None)
         n_el = ci.raw_len // 4
-        if (kvs.lens is None and not meta.pull
+        if (lazy_ok and kvs.lens is None and not meta.pull
                 and self._apply_pool is not None and codec.range_decode
                 and len(kvs.keys) > 0 and n_el % len(kvs.keys) == 0
                 and (meta.sender, int(kvs.keys[0]))
@@ -1206,7 +1846,8 @@ class KVServer:
             self._stream_part(msg)
             return
         if msg.meta.batch is not None:
-            raise _not_ported("a batched frame (EXT_BATCH)", "6(b)")
+            self._process_batch(msg)
+            return
         xfer = getattr(msg, "_xfer_key", None)
         if xfer is not None:
             with self._streams_mu:
@@ -1220,8 +1861,34 @@ class KVServer:
         meta = KVMeta(cmd=m.head, push=m.push, pull=m.pull, sender=m.sender,
                       timestamp=m.timestamp, customer_id=m.customer_id,
                       key=m.key, addr=m.addr, val_len=m.val_len,
-                      option=m.option, priority=m.priority, codec=m.codec)
-        kvs = self._intake_decode(meta, msg.data)
+                      option=m.option, priority=m.priority, codec=m.codec,
+                      trace=m.trace, tenant=m.tenant, stamp=m.stamp)
+        self._intake_pull_stamp(meta)
+        if meta.cmd == BATCH_PROBE_CMD and meta.pull:
+            # The batch capability probe, answered before the handler
+            # with this build's wire version; it also proves the sender
+            # decodes batched frames (val_len: its version).
+            self._batch_senders.add(meta.sender)
+            if meta.val_len >= 2:
+                self._batch_senders_v2.add(meta.sender)
+            self.response(meta, KVPairs(
+                keys=np.array([1], dtype=np.uint64),
+                vals=np.array([BATCH_WIRE_VERSION], dtype=np.float32)))
+            return
+        if meta.cmd == HOT_KEYS_CMD and meta.pull:
+            # The kv.hot_keys top-k (keys and counts), before the handler.
+            top = self._hot_keys.top(max(1, min(meta.val_len or 16, 128)))
+            self.response(meta, KVPairs(
+                keys=np.array([k for k, _ in top], dtype=np.uint64),
+                vals=np.array([n for _, n in top], dtype=np.float32)))
+            return
+        if self._intake_admission(meta):
+            # The tenant's bounded queue is full: shed before any apply,
+            # so the request is all or nothing.
+            self.response_overload(meta)
+            return
+        kvs = self._intake_decode(meta, msg.data, lazy_ok=True)
+        self._intake_hot_keys(kvs.keys)
         reg = None
         if meta.push and len(kvs.keys):
             reg = self._recv_buffers.get((meta.sender, int(kvs.keys[0])))
@@ -1244,8 +1911,171 @@ class KVServer:
             return
         self._handle(meta, kvs, self)
 
+    # -- batched frames -------------------------------------------------------
 
-# -- server handles -------------------------------------------------------------
+    def _process_batch(self, msg: Message) -> None:
+        """One EXT_BATCH frame: per-op intake (admission sheds per
+        sub-op, per-op stamps), then the admitted ops into the pool as a
+        group, answered by one batched response."""
+        env = msg.meta
+        # A batched frame proves its sender decodes them (this covers
+        # PS_BATCH_NEGOTIATE=0 clusters, which never probe); one with
+        # per-op traces proves the v2 table.
+        self._batch_senders.add(env.sender)
+        if any(op.trace for op in env.batch.ops):
+            self._batch_senders_v2.add(env.sender)
+        subs = split_batch_message(msg)
+        if not subs:
+            return
+        fallback = False
+        for sub in subs:
+            if self._recv_buffers and sub.meta.push and sub.data:
+                k0 = sub.data[0].astype_view(np.uint64).numpy()
+                if len(k0) and (env.sender, int(k0[0])) in self._recv_buffers:
+                    fallback = True
+                    break
+        if fallback:
+            # A registered receive buffer is per-op machinery the group
+            # apply does not carry: run each sub-op alone (per-op
+            # responses; the worker takes both shapes).
+            for sub in subs:
+                self._process(sub)
+            return
+        env_meta = KVMeta(cmd=0, push=env.push, pull=env.pull,
+                          sender=env.sender,
+                          timestamp=subs[0].meta.timestamp,
+                          customer_id=env.customer_id, key=subs[0].meta.key,
+                          priority=env.priority, tenant=env.tenant)
+        metas: List[KVMeta] = []
+        kvss: List[KVPairs] = []
+        results: List[Optional[tuple]] = []
+        admitted = 0
+        for sub in subs:
+            sm = sub.meta
+            meta = KVMeta(cmd=0, push=sm.push, pull=sm.pull,
+                          sender=env.sender, timestamp=sm.timestamp,
+                          customer_id=env.customer_id, key=sm.key,
+                          val_len=sm.val_len, option=0,
+                          priority=env.priority, codec=sm.codec,
+                          tenant=env.tenant, trace=sm.trace, stamp=sm.stamp)
+            kvs = self._intake_decode(meta, sub.data, lazy_ok=False)
+            self._intake_pull_stamp(meta)
+            self._intake_hot_keys(kvs.keys)
+            result = None
+            if self._intake_admission(meta, extra=admitted):
+                # Sheds are per sub-op: this op fails, its siblings apply.
+                result = ("overload",)
+            else:
+                admitted += 1
+            metas.append(meta)
+            kvss.append(kvs)
+            results.append(result)
+        log.check(self._handle is not None, "KVServer handle not set")
+        if self._apply_pool is not None:
+            self._apply_pool.submit_batch(env_meta, metas, kvss, results)
+            return
+        # Serial path: apply each admitted op inline, capture its
+        # response, and send one batched frame.
+        for i, (meta, kvs) in enumerate(zip(metas, kvss)):
+            if results[i] is not None:
+                continue
+            cap = _OpCapture(self)
+            try:
+                self._handle(meta, kvs, cap)
+                results[i] = cap.result
+            except Exception as exc:  # noqa: BLE001 - fails this op only
+                log.warning(f"batched apply failed for ts={meta.timestamp} "
+                            f"from {meta.sender}: {exc!r}")
+                results[i] = ("error",)
+        self.response_batch(env_meta, metas, results)
+
+    def response_batch(self, env: KVMeta, metas, results) -> None:
+        """One response frame for a batched request: per-op result
+        segments in op order, per-op error/overload codes and stamps in
+        the EXT_BATCH table.  Push sub-ops bump the push version as
+        their results leave, as single responses do; pull sub-ops carry
+        the stamp taken at intake."""
+        msg = Message()
+        m = msg.meta
+        m.app_id = self._customer.app_id
+        m.customer_id = env.customer_id
+        m.request = False
+        m.head = 0  # batched ops are plain-cmd by construction
+        m.timestamp = metas[0].timestamp
+        m.recver = env.sender
+        m.key = metas[0].key
+        m.priority = env.priority
+        m.tenant = env.tenant
+        ops = []
+        for meta, result in zip(metas, results):
+            kind = result[0] if result is not None else "ok"
+            option = 0
+            codec_info = None
+            nseg = 0
+            if kind == "overload":
+                option = OPT_OVERLOAD  # nothing applied: no bump
+            elif kind == "error":
+                self._qos_push_done(meta)  # may have applied in part
+                option = OPT_APPLY_ERROR
+            else:
+                self._qos_push_done(meta)
+                res = result[1] if kind == "res" else None
+                if meta.pull and res is not None and not res.empty():
+                    ci = meta.codec
+                    enc = None
+                    if (ci is not None and ci.raw_len == 0
+                            and isinstance(res.vals, np.ndarray)
+                            and res.vals.dtype == np.float32
+                            and res.vals.size > 0):
+                        enc = self._encode_response(ci, meta, res)
+                    msg.add_data(SArray(res.keys))
+                    if enc is not None:
+                        codes, scales, codec_info = enc
+                        msg.add_data(SArray(codes))
+                        msg.add_data(SArray(scales))
+                        nseg = 3
+                    else:
+                        msg.add_data(SArray(res.vals))
+                        nseg = 2
+                    if res.lens is not None:
+                        msg.add_data(SArray(np.asarray(res.lens,
+                                                       dtype=np.int32)))
+                        nseg += 1
+            m.push = m.push or meta.push
+            m.pull = m.pull or meta.pull
+            ops.append(BatchOp(push=meta.push, pull=meta.pull,
+                               timestamp=meta.timestamp, key=meta.key,
+                               val_len=meta.val_len, option=option,
+                               stamp=meta.stamp, nseg=nseg,
+                               codec=codec_info, trace=meta.trace))
+        m.batch = BatchInfo(ops=tuple(ops))
+        # One frame already, but it rides the sender's response lane for
+        # order with interleaved single responses.
+        self._send_response(msg)
+
+
+class _OpCapture:
+    """The server as a serial-path batched sub-op's handler sees it:
+    ``response`` is captured into ``result`` (the frame answers once);
+    everything else is the real server's."""
+
+    __slots__ = ("_server", "result")
+
+    def __init__(self, server: KVServer):
+        self._server = server
+        self.result = ("ok", None)
+
+    def response(self, req, res=None) -> None:
+        self.result = ("res", res) if res is not None else ("ok", None)
+
+    def response_error(self, req) -> None:
+        self.result = ("error",)
+
+    def __getattr__(self, name):
+        return getattr(self._server, name)
+
+
+# -- server handles -----------------------------------------------------------
 
 def _push_segs(meta: KVMeta, all_keys: np.ndarray, vals: np.ndarray,
                positions=None) -> List[np.ndarray]:

@@ -7,8 +7,10 @@ timestamp/routing/flags plus the zero-copy fields (``key``, ``addr``,
 barrier/heartbeat plane; ``Node`` describes a process.  The extension
 records (``CodecInfo``, ``BatchInfo``, ``ChunkInfo``) and the option
 markers are kept because the wire format carries them; this package
-sends chunks (``vans/chunking.py``) and codec payloads (``ops/codecs.py``)
-but no batched frames yet (ROADMAP Queue 1 item 6(b)).
+sends chunks (``vans/chunking.py``), codec payloads (``ops/codecs.py``),
+batched frames (``kv/batching.py``) and ``EXT_QOS`` tenants and stamps.
+``OPT_REPLICA`` and ``OPT_WRONG_OWNER`` belong to replication and
+elastic routing, ROADMAP Queue 1 item 8(b): the port never sends them.
 """
 
 from __future__ import annotations

@@ -20,9 +20,13 @@ Counterpart of ``pslite_tpu/vans/chunking.py``, the pure-Python half:
   transfer are tombstoned, a dead peer's partial transfers dropped
   (``drop_peer``), idle ones swept after ``ttl_s``.
 
+- :func:`recv_tenant` / :func:`recv_cost` (``:87-110``): the tenant and
+  byte charge of a decoded message in the weighted-fair receive queues
+  (``PS_TENANTS``); a chunk's meta is a copy of the original's, so
+  every chunk carries the message's tenant.
+
 The native descriptor and the native reassembly (``:175-275``) belong to
-the native core, ROADMAP Queue 1 item 11; the tenant and cost of a
-message are item 6(b)'s weighted-fair queues.
+the native core, ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -60,6 +64,27 @@ def recv_priority(msg) -> int:
             return RECV_DRAIN_LAST
         return RECV_CONTROL_PRIORITY
     return msg.meta.priority
+
+
+def recv_tenant(msg) -> int:
+    """Receive-queue tenant of a decoded message: control and the
+    shutdown sentinel are tenantless (they ride the express and drain
+    bands, never the weighted pool)."""
+    if msg is None or not msg.meta.control.empty():
+        return 0
+    return msg.meta.tenant
+
+
+def recv_cost(msg) -> int:
+    """Weighted-fair charge of a decoded message: its payload bytes
+    (chunk frames carry theirs in ``data``).  A batch frame charges its
+    whole multi-op payload: the combiner never merges across tenants or
+    priorities, so the envelope prices every sub-op."""
+    if msg is None or not msg.meta.control.empty():
+        return 1
+    if msg.data:
+        return max(1, sum(d.nbytes for d in msg.data))
+    return max(1, msg.meta.data_size)
 
 
 def _flat_u8(arr) -> np.ndarray:

@@ -22,7 +22,7 @@ from .. import wire
 from ..message import Message, Node
 from ..utils import logging as log
 from ..utils.queues import PriorityRecvQueue
-from .chunking import RECV_DRAIN_LAST, recv_priority
+from .chunking import RECV_DRAIN_LAST, recv_cost, recv_priority, recv_tenant
 from .van import Van
 
 _registry_mu = threading.Lock()
@@ -42,7 +42,8 @@ class LoopbackVan(Van):
         self._ns = self.env.find("PS_LOOPBACK_NS", "default")
         # The queue holds packed blobs, so the sender (which still has
         # the Message) computes the receive level and pushes it along.
-        self._queue = PriorityRecvQueue(lambda _b: 0)
+        self._queue = PriorityRecvQueue(lambda _b: 0,
+                                        weights=self._tenant_weights)
         self._peers: Dict[int, Tuple[str, int]] = {}
         self._bound_key: Optional[Tuple[str, str, int]] = None
 
@@ -78,7 +79,8 @@ class LoopbackVan(Van):
         # socket van.
         target = self._resolve(msg.meta.recver)
         blob = b"".join(wire.pack_frame(msg))
-        target._queue.push(blob, priority=recv_priority(msg))
+        target._queue.push(blob, priority=recv_priority(msg),
+                           tenant=recv_tenant(msg), cost=recv_cost(msg))
         return len(blob)
 
     def recv_msg(self) -> Optional[Message]:

@@ -20,7 +20,7 @@ from typing import List, Optional
 from ..message import Message, Node
 from ..utils import logging as log
 from ..utils.queues import PriorityRecvQueue
-from .chunking import recv_priority
+from .chunking import recv_cost, recv_priority, recv_tenant
 from .van import Van
 
 
@@ -49,7 +49,9 @@ class MultiVan(Van):
                 # Disjoint segment names per rail: one (sender, recver,
                 # key) round-robins across rails.
                 rail._ns = f"{rail._ns}r{i}"
-        self._queue = PriorityRecvQueue(recv_priority)
+        self._queue = PriorityRecvQueue(
+            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
+            weights=self._tenant_weights)
         self._pumps: List[threading.Thread] = []
         self._rr = itertools.count()
 

@@ -48,7 +48,7 @@ from ..message import Message, Node, OPT_COMPRESS_INT8, OPT_XFER_PART
 from ..sarray import SArray
 from ..utils import logging as log
 from ..utils.queues import PriorityRecvQueue
-from .chunking import recv_priority
+from .chunking import recv_cost, recv_priority, recv_tenant
 from .van import Van
 
 NATIVE_CORE_ITEM = "ROADMAP Queue 1 item 11: the native core"
@@ -178,7 +178,9 @@ class TcpVan(Van):
             raise native_not_ported("PS_NATIVE=1 (the native core)")
         if self.env.find_int("PS_NATIVE_RAILS", 1) > 1:
             raise native_not_ported("PS_NATIVE_RAILS > 1 (native rails)")
-        self._queue = PriorityRecvQueue(recv_priority)
+        self._queue = PriorityRecvQueue(
+            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
+            weights=self._tenant_weights)
         self._listener: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
         self._readers: List[Tuple[threading.Thread, socket.socket]] = []

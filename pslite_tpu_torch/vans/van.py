@@ -36,7 +36,9 @@ self-send; a lane's dispatch error is parked and re-raised by the next
 Not in this port (each raises or is absent, named by its ROADMAP Queue 1
 item): the native core's sender lanes (item 11); late registration and
 node recovery, elastic admission, routing epochs and removal,
-metrics/trace/snapshot pulls (item 8); tenants (item 6(b)).
+metrics/trace/snapshot pulls (item 8).  Tenants (``PS_TENANTS``,
+``tenants.py``): each lane dequeues bulk traffic weighted-fair across
+tenants by bytes (``LaneQueue(weights)``), as the receive intake does.
 Data always rides the lanes and messages are delivered in arrival order:
 the JAX van's inline mode (``PS_SEND_LANES=0``) and its sid reordering
 (``PS_FORCE_REQ_ORDER``) are absent.
@@ -75,6 +77,7 @@ from ..message import (
 from ..telemetry import Profiler
 from ..utils import logging as log
 from ..utils.network import get_ip
+from ..tenants import table_for
 from ..utils.queues import LaneQueue
 from .chunking import ChunkAssembler, split_message
 from .resender import Resender
@@ -86,16 +89,26 @@ class PeerDeadError(ConnectionError):
 
 
 class _SendLane:
-    """One per-destination send lane: the queue, the transmit lock that
+    """One per-destination send lane: the queue (weighted fair across
+    tenants when ``weights`` is given), the transmit lock that
     serializes every wire write to this peer, and the sender thread."""
 
     __slots__ = ("key", "q", "tx_mu", "thread")
 
-    def __init__(self, key):
+    def __init__(self, key, weights=None):
         self.key = key
-        self.q: LaneQueue = LaneQueue()
+        self.q: LaneQueue = LaneQueue(weights)
         self.tx_mu = threading.Lock()
         self.thread: Optional[threading.Thread] = None
+
+
+def _msg_cost(msg: Message) -> int:
+    """Weighted-fair charge of one message: its payload bytes (chunk
+    frames carry theirs in ``data``; their canonical meta zeroes
+    data_size)."""
+    if msg.data:
+        return max(1, sum(d.nbytes for d in msg.data))
+    return max(1, msg.meta.data_size)
 
 
 class Van:
@@ -117,6 +130,9 @@ class Van:
         self.ready = threading.Event()
         self.send_bytes = 0
         self.recv_bytes = 0
+        # Data frames (chunks and batch frames one each) each way.
+        self.frames_sent = 0
+        self.frames_recv = 0
         self.chunks_sent = 0
         self.chunks_recv = 0
         self._start_mu = threading.Lock()
@@ -139,6 +155,11 @@ class Van:
         self._timestamp_mu = threading.Lock()
         # Per-peer sequence ids, stamped at dispatch.
         self._send_sids: Dict[int, int] = {}
+        # The node's tenant table: lanes (and the transports' receive
+        # intake) dequeue bulk traffic weighted-fair across its tenants.
+        self.tenants = table_for(self.env)
+        self._tenant_weights = (self.tenants.weights_by_id()
+                                if self.tenants.enabled else None)
         self._lanes: Dict[object, _SendLane] = {}
         self._lanes_mu = threading.Lock()
         self._lane_stop = False
@@ -330,7 +351,8 @@ class Van:
         with self._lanes_mu:
             lane = self._lanes.get(key)
             if lane is None:
-                lane = self._lanes[key] = _SendLane(key)
+                lane = self._lanes[key] = _SendLane(key,
+                                                    self._tenant_weights)
             return lane
 
     def _ensure_lane_thread(self, lane: _SendLane) -> None:
@@ -386,7 +408,8 @@ class Van:
             # drain it would strand until the drain deadline.
             self._ensure_lane_thread(lane)
             if lane.q.push(msg.meta.priority, (msg, False),
-                           unless=lambda: self._lane_stop):
+                           unless=lambda: self._lane_stop,
+                           tenant=msg.meta.tenant, cost=_msg_cost(msg)):
                 return 0  # bytes are accounted at dispatch
         return self._dispatch_send(msg)
 
@@ -412,6 +435,8 @@ class Van:
             nbytes = self.send_msg(msg)
         with self._bytes_mu:
             self.send_bytes += nbytes
+            if msg.meta.control.empty():
+                self.frames_sent += 1
             if msg.meta.chunk is not None:
                 self.chunks_sent += 1
         return nbytes
@@ -474,7 +499,8 @@ class Van:
             lane = self._lane_for(msg)
             self._ensure_lane_thread(lane)
             if lane.q.push(msg.meta.priority, (msg, True),
-                           unless=lambda: self._lane_stop):
+                           unless=lambda: self._lane_stop,
+                           tenant=msg.meta.tenant, cost=_msg_cost(msg)):
                 return 0
         return self._transmit(msg)
 
@@ -527,19 +553,24 @@ class Van:
                     f"local request ts={m.timestamp}")
         self.flight.record("send_failed", severity="warn", peer=m.recver,
                            ts=m.timestamp, error=repr(exc)[:200])
-        fail = Message()
-        f = fail.meta
-        f.app_id, f.customer_id, f.timestamp = (m.app_id, m.customer_id,
-                                                m.timestamp)
-        f.sender, f.recver = m.recver, self.my_node.id
-        f.push, f.pull, f.simple_app, f.key = m.push, m.pull, m.simple_app, \
-            m.key
-        f.option = OPT_SEND_FAILED
-        try:
-            self._process_data_msg(fail)
-        except Exception as deliver_exc:  # noqa: BLE001
-            log.warning(f"could not fail local request ts={m.timestamp}: "
-                        f"{deliver_exc!r}")
+        # A batch frame carries one waiter per sub-op, each with its own
+        # timestamp: fail every one, not only the envelope's first.
+        subs = ([(op.timestamp, op.key, op.push, op.pull)
+                 for op in m.batch.ops] if m.batch is not None
+                else [(m.timestamp, m.key, m.push, m.pull)])
+        for ts, key, push, pull in subs:
+            fail = Message()
+            f = fail.meta
+            f.app_id, f.customer_id, f.timestamp = (m.app_id, m.customer_id,
+                                                    ts)
+            f.sender, f.recver = m.recver, self.my_node.id
+            f.push, f.pull, f.simple_app, f.key = push, pull, m.simple_app, key
+            f.option = OPT_SEND_FAILED
+            try:
+                self._process_data_msg(fail)
+            except Exception as deliver_exc:  # noqa: BLE001
+                log.warning(f"could not fail local request ts={ts}: "
+                            f"{deliver_exc!r}")
 
     def _broadcast_failure(self, nodes: List[Node], option: int = 0) -> None:
         """NODE_FAILURE (or, with NODE_REHAB_OPT, its inverse) to every
@@ -622,6 +653,8 @@ class Van:
                                 if msg.meta.chunk is not None
                                 else msg.meta.data_size)
             ctrl = msg.meta.control
+            if ctrl.empty():
+                self.frames_recv += 1
             if (self._drop_rate > 0 and self.ready.is_set()
                     and ctrl.cmd != Command.TERMINATE
                     and random.randint(0, 99) < self._drop_rate):

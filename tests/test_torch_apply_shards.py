@@ -468,16 +468,3 @@ def test_priority_queue_fence_blocks_overtaking():
     assert q.try_pop() == (1, "prio-before")
     assert q.try_pop() == (0, "global2")
     assert q.try_pop() == (9, "after")
-
-
-def test_item_6b_parts_raise_naming_it():
-    """Batched frames and tenant weights wait for item 6(b)."""
-    pool = ApplyShardPool(tps.KVServerDefaultHandle(), 2, _StubServer())
-    try:
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item 6\(b\)"):
-            pool.submit_batch(KVMeta(), [], [], [])
-    finally:
-        pool.stop()
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 6\(b\)"):
-        PriorityRecvQueue(lambda item: 0, weights={0: 1.0})

@@ -693,8 +693,7 @@ def test_unknown_van_and_role_raise_value_error():
 
 def test_codecs_raise_naming_their_roadmap_item():
     """The codecs are ported (tests/test_torch_codecs.py): an unknown
-    codec fails the call, a codec on non-float32 values too, and the
-    message-path tiers of item 6(b) raise, naming it."""
+    codec fails the call, and a codec on non-float32 values too."""
     cluster = PortCluster()
     cluster.start()
     try:
@@ -704,14 +703,7 @@ def test_codecs_raise_naming_their_roadmap_item():
             w.push(keys, np.ones(4, np.float32), compress="fp4")
         with pytest.raises(AssertionError, match="requires float32"):
             w.pull(keys, np.ones(4, np.float64), codec="bf16")
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 6\(b\)"):
-            w.multi_get([keys])
         w.stop()
-        for var in ("PS_TENANTS", "PS_HOT_CACHE", "PS_BATCH_BYTES"):
-            env = Environment({var: "1"})
-            with pytest.raises(NotImplementedError,
-                               match=rf"{var}.*Queue 1 item 6\(b\)"):
-                tps.KVWorker(0, 0, postoffice=types.SimpleNamespace(env=env))
     finally:
         cluster.finalize()
 

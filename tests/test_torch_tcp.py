@@ -299,6 +299,70 @@ def test_mixed_codec_cluster_bit_equal_to_jax(tmp_path, codec, mix):
         assert err < bound * np.abs(want_vals).max(), (name, err)
 
 
+_TIER_ENVS = {
+    "batching": {"PS_BATCH_BYTES": "65536"},
+    "tenants": {"PS_TENANTS": "serve:8,train:1"},
+    "hot_cache": {"PS_HOT_CACHE": "1", "PS_HOT_CACHE_TTL_S": "60"},
+}
+_TIER_REFS = {}
+
+
+def jax_tier_reference(tier):
+    """``run_tier_worker`` on an all-JAX tcp cluster under ``tier``'s
+    knobs (1 worker, 2 servers, in this process): stores and pulls."""
+    if tier in _TIER_REFS:
+        return _TIER_REFS[tier]
+    c = LoopbackCluster(num_workers=1, num_servers=2, van_type="tcp",
+                        env_extra=_TIER_ENVS[tier])
+    c.start()
+    servers = []
+    try:
+        for po in c.servers:
+            srv = JaxKVServer(0, postoffice=po)
+            srv.set_request_handle(JaxDefaultHandle())
+            servers.append((po, srv))
+        kv = JaxKVWorker(0, 0, postoffice=c.workers[0])
+        out = {"worker0": child.run_tier_worker(kv, c.workers[0])}
+        for po, srv in servers:
+            out[f"server{po.my_rank()}"] = {
+                str(k): v.copy() for k, v in srv._handle.store.items()}
+        kv.stop()
+    finally:
+        for _po, srv in servers:
+            srv.stop()
+        c.finalize()
+    _TIER_REFS[tier] = out
+    return out
+
+
+@pytest.mark.parametrize("mix", ["jax_worker_port_servers",
+                                 "port_worker_jax_servers"])
+@pytest.mark.parametrize("tier", sorted(_TIER_ENVS))
+def test_mixed_tier_cluster_bit_equal_to_jax(tmp_path, tier, mix):
+    """A JAX worker against port servers and the reverse, under
+    ``PS_BATCH_BYTES`` (each side answers the other's capability probe
+    before its handler, and batch frames and batched responses cross
+    packages), ``PS_TENANTS`` (``EXT_QOS`` tenants, weighted-fair queues)
+    or ``PS_HOT_CACHE`` (push-version stamps): stores and pulls bit-equal
+    to an all-JAX cluster's."""
+    reports = run_cluster(tmp_path, cluster_env("tcp", **_TIER_ENVS[tier]),
+                          [(pkg, roles, dict(extra, PSTEST_TIERS="1"))
+                           for pkg, roles, extra in MIXES[mix]])
+    want = jax_tier_reference(tier)
+    assert_bit_equal(results(tmp_path), want)
+    frames = [r["batch_frames"] for r in reports if "batch_frames" in r]
+    # The multi_get leaves as one frame per server (the storm of pushes
+    # may merge too, as the dispatcher's timing falls; the pull_multi
+    # sends one op per server, which goes alone).
+    if tier == "batching":
+        assert len(frames) == 1 and frames[0] >= 2, frames
+    else:
+        assert frames == [0]
+    pulls = want["worker0"]
+    np.testing.assert_array_equal(pulls["after_push"],
+                                  pulls["repeat"] + np.float32(5.0))
+
+
 def test_chunked_push_streamed_into_the_pool(tmp_path, jax_reference):
     """All-port tcp: each 2 MB push arrives in 1 MiB chunks; with the
     pool (the default) the servers apply each whole key as it lands,

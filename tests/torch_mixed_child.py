@@ -16,6 +16,10 @@ and:
   and pushes a registered bucket beside the message keys;
 - ``PSTEST_CODEC``: a wire codec; the worker runs :func:`run_codec_worker`
   instead of :func:`run_worker`.
+- ``PSTEST_TIERS=1``: the worker runs :func:`run_tier_worker` (small ops,
+  ``multi_get``, tenants, repeat pulls), for clusters launched with
+  ``PS_BATCH_BYTES``, ``PS_TENANTS`` or ``PS_HOT_CACHE``; it reports how
+  many batch frames its combiner sent.
 
 Port servers report ``streams_opened`` (chunked pushes applied as their
 chunks landed).
@@ -118,6 +122,45 @@ def run_codec_worker(kv, po, codec: str) -> dict:
     return out
 
 
+TIER_KEYS_PER_SERVER = 8
+TIER_VAL_LEN = 16
+
+
+def run_tier_worker(kv, po) -> dict:
+    """Small ops for the message-path tiers: 30 pushes of one-row keys
+    on each server (tenant ``train`` when tenants are configured),
+    issued before any wait; a ``multi_get`` of every row (tenant
+    ``serve``); three repeat pulls of one row; a push to it and its pull
+    (never stale); a ``pull_multi`` of two lists.  Integer-valued, so
+    every value is exact.  Returns the pulls."""
+    ranges = po.get_server_key_ranges()
+    keys = np.array([r.begin + 100 + j for r in ranges
+                     for j in range(TIER_KEYS_PER_SERVER)], np.uint64)
+    tenants = bool(os.environ.get("PS_TENANTS"))
+    bulk = {"tenant": "train"} if tenants else {}
+    serve = {"tenant": "serve"} if tenants else {}
+    rng = np.random.default_rng(SEED + 2)
+    n = len(keys) * TIER_VAL_LEN
+    pushes = [rng.integers(-8, 8, size=n).astype(np.float32)
+              for _ in range(30)]
+    for ts in [kv.push(keys, p, **bulk) for p in pushes]:
+        kv.wait(ts)
+    rows = [keys[i:i + 1] for i in range(len(keys))]
+    out = {"keys": keys}
+    out["multi_get"] = np.stack(
+        kv.multi_get(rows, val_len=TIER_VAL_LEN, **serve).wait())
+    rep = np.zeros(TIER_VAL_LEN, np.float32)
+    for _ in range(3):
+        kv.wait(kv.pull(rows[3], rep, **serve))
+    out["repeat"] = rep.copy()
+    kv.wait(kv.push(rows[3], np.full(TIER_VAL_LEN, 5.0, np.float32), **bulk))
+    kv.wait(kv.pull(rows[3], rep, **serve))
+    out["after_push"] = rep.copy()
+    out["pull_multi"] = np.concatenate(kv.pull_multi(
+        [keys[:2], keys[-3:]], val_len=TIER_VAL_LEN, **serve).wait())
+    return out
+
+
 def run_bucket(ps, kv, steps: int = 3) -> dict:
     """The engine path beside the message path: a registered bucket of
     integer-valued grads (exact sums in any order)."""
@@ -203,8 +246,15 @@ def main() -> int:
             if cpu_group:
                 report.update(run_bucket(ps, kv))
             codec = os.environ.get("PSTEST_CODEC")
-            res = (run_codec_worker(kv, po, codec) if codec else
-                   run_worker(kv, po, os.environ.get("PSTEST_ZPULL") == "1"))
+            if os.environ.get("PSTEST_TIERS") == "1":
+                res = run_tier_worker(kv, po)
+                comb = kv.combiner
+                report["batch_frames"] = (comb.flushed_frames
+                                          if comb is not None else 0)
+            else:
+                res = (run_codec_worker(kv, po, codec) if codec else
+                       run_worker(kv, po,
+                                  os.environ.get("PSTEST_ZPULL") == "1"))
             report["zpull_hits"] = kv.zpull_hits
             np.savez(os.path.join(out_dir, f"worker{po.my_rank()}.npz"),
                      **res)
