@@ -11,7 +11,10 @@ line):
 1. The card: ``nvidia-smi`` name and power limit, torch's device name
    and count.
 2. Build every CUDA kernel of the dense data plane from ``csrc/`` with
-   nvcc; print the build time and the ``-Xptxas -v`` register/spill
+   nvcc and, beside it, the native transport core
+   (``csrc/host/pslite_core.cc``) with g++ (its build time, library path
+   and ABI stamp printed); print the build time and the ``-Xptxas -v``
+   register/spill
    report (expected: no spill stores beyond a few bytes; the int8 ring's
    cluster kernel, ``ring_int8_cluster<4>``, ``<1>`` and ``<0>`` (float4,
    scalar, and per bucket), 72 bytes of static shared memory each), then
@@ -114,7 +117,8 @@ line):
    the store's mean error) and ``msg-config2-int8-noef``
    (``PS_CODEC_EF=0``: error feedback must shrink the store's mean
    error), ``codec-throughput`` (encode and decode GB/s of an 81.92 MB
-   f32 payload per codec, ``PS_CODEC_THREADS`` default and 1),
+   f32 payload per codec, ``PS_CODEC_THREADS`` default and 1, the native
+   core's kernels against numpy call by call, bit-equal),
    ``msg-ici-mixed`` (one ``KVWorker`` on an ``ici`` cluster: the 40 x
    1 MB bucket through K4 and 16 unregistered 1 MB keys over messages
    to the server under the int8 codec, 5 interleaved steps against
@@ -123,8 +127,17 @@ line):
    Then separate processes, one per node (``python3 chip_smoke.py
    --node``, roles and environment from the port's ``tracker/local.py``),
    every child under ``PROC_DEADLINE``, all killed when one fails, one
-   JSON line back from each: ``tcp-config1`` (BASELINE config 1, fused
-   push_pull of 40 x 1,024,000 B), ``tcp-config2`` (config 2, msg-config2's
+   JSON line back from each; every van on the native core unless a leg
+   says ``PS_NATIVE=0``.  ``tcp-config1``, ``tcp-config2`` and
+   ``shm-config3`` run a native and a Python leg, one cluster each, both
+   up, 3 windows of 4 rounds alternating (``plane_legs``):
+   ``tcp-config1`` (BASELINE config 1, fused
+   push_pull of 40 x 1,024,000 B), ``native-goodput`` (JAX's
+   ``native_goodput_bench``: 1 + 1 processes, 96 pipelined pushes of 64
+   MiB in 2 MiB chunks under 256 KiB socket buffers with a priority
+   pull's latency sampled beside them, native against ``PS_NATIVE=0``,
+   3 windows alternating, the store exact after each),
+   ``tcp-config2`` (config 2, msg-config2's
    rounds at 80 x 1,024 B, 80 x 1,024,000 B and 2 x 64 MiB per worker;
    the 1 MB round also with ``DMLC_LOCAL=1``, no socket file left, and
    over ``multi``, 2 tcp rails), ``tcp-config2-pool``/``-serial``/
@@ -133,7 +146,8 @@ line):
    and under the int8 codec, each pull within its bound; the servers
    count the pushes they streamed), ``shm-config3`` (config 3 on one host:
    the scheduler + 2 ``--joint`` processes over shm, registered push
-   buffers and zero-copy pulls, no /dev/shm segment left) and
+   buffers and zero-copy pulls, the native leg with ``PS_SHM_RING=1``,
+   no /dev/shm segment or pipe left) and
    ``ici-tcp-mixed`` (scheduler, server and an ``ici_tcp`` worker
    process, then ``ici_shm``: the bucket through K4 from device grads
    against float64 and 16 x 1 MB keys over messages; K4 counted in the
@@ -2262,10 +2276,28 @@ def drive_msg_pool_vs_serial(ps, Environment):
              "max_abs_err_vs_f64": 0.0}]
 
 
+@contextlib.contextmanager
+def codec_plane(codecs, native: bool):
+    """The codec module on the native core's kernels or on numpy for a
+    leg (``PS_CODEC_NATIVE=0``'s choice, made in this process without a
+    restart: the module keeps its probe in two globals)."""
+    saved = (codecs._native_lib, codecs._native_probed)
+    lib = codecs._native_codec()
+    codecs._native_lib, codecs._native_probed = (lib if native else None,
+                                                 True)
+    try:
+        yield
+    finally:
+        codecs._native_lib, codecs._native_probed = saved
+
+
 def drive_codec_throughput(smi: str):
     """Encode and decode GB/s (raw bytes / host time) of one 81.92 MB
     float32 payload per codec, with ``PS_CODEC_THREADS`` at its default
-    and at 1; mean of 3 calls after one warm-up; each decode within the
+    and at 1, on the native core's kernels and on numpy
+    (``PS_CODEC_NATIVE=0``; bf16 is numpy in both), the legs alternating
+    call by call; mean of 3 calls after one warm-up; the two legs'
+    codes, scales, flags and decodes bit-equal, each decode within the
     codec's bound of the input."""
     from pslite_tpu_torch.ops import codecs
 
@@ -2282,36 +2314,54 @@ def drive_codec_throughput(smi: str):
             nt = codecs.codec_threads()
             for name in CODECS:
                 c = codecs.get_codec(name)
-                times = {"encode": [], "decode": []}
+                legs = ("native", "numpy") if c.native_kind >= 0 else (
+                    "numpy",)
+                times = {(leg, op): [] for leg in legs
+                         for op in ("encode", "decode")}
+                last = {}
                 for rep in range(4):
-                    t0 = time.perf_counter()
-                    codes, scales, flags = c.encode(x)
-                    t1 = time.perf_counter()
-                    y = c.decode(codes, scales, x.size, flags=flags)
-                    t2 = time.perf_counter()
-                    if rep:
-                        times["encode"].append(t1 - t0)
-                        times["decode"].append(t2 - t1)
+                    for leg in legs:
+                        with codec_plane(codecs, leg == "native"):
+                            t0 = time.perf_counter()
+                            codes, scales, flags = c.encode(x)
+                            t1 = time.perf_counter()
+                            y = c.decode(codes, scales, x.size, flags=flags)
+                            t2 = time.perf_counter()
+                        if rep:
+                            times[leg, "encode"].append(t1 - t0)
+                            times[leg, "decode"].append(t2 - t1)
+                        last[leg] = (codes.tobytes(), scales.tobytes(),
+                                     flags, y.tobytes())
+                        del codes, scales
+                if len(set(last.values())) != 1:
+                    raise AssertionError(f"codec {name}: the native and "
+                                         f"numpy legs differ")
+                y = np.frombuffer(last[legs[0]][3], np.float32)
                 err = np.abs(y.astype(np.float64) - x)
                 if not np.all(err <= np.repeat(codec_block_err(name, x),
                                                128)[:x.size]):
                     raise AssertionError(f"codec {name}: decode off its bound")
-                wire = codes.nbytes + scales.nbytes
-                del codes, scales, y
+                wire = len(last[legs[0]][0]) + len(last[legs[0]][1])
                 gbs = {k: x.nbytes / (sum(v) / len(v)) / 1e9
                        for k, v in times.items()}
                 print(f"codec-throughput {name} (PS_CODEC_THREADS "
-                      f"{threads or 'default'} = {nt} span threads): encode "
-                      f"{gbs['encode']:.3f} GB/s, decode {gbs['decode']:.3f} "
-                      f"GB/s of {x.nbytes} B f32 -> {wire} B on the wire "
-                      f"({x.nbytes / wire:.2f}x); max |err| "
+                      f"{threads or 'default'} = {nt} span threads): "
+                      + "; ".join(
+                          f"{leg}: encode {gbs[leg, 'encode']:.3f} GB/s, "
+                          f"decode {gbs[leg, 'decode']:.3f} GB/s"
+                          for leg in legs)
+                      + f" of {x.nbytes} B f32 -> {wire} B on the wire "
+                      f"({x.nbytes / wire:.2f}x); legs bit-equal; max |err| "
                       f"{float(err.max()):.3g} [{smi}] [host CPU "
                       f"{cpu_model()}]")
-                rows.append({"config": f"codec-throughput {name} threads "
-                             f"{nt}", "ops": 6,
-                             "max_abs_err_vs_f64": float(err.max()),
-                             "encode_gbs": gbs["encode"],
-                             "decode_gbs": gbs["decode"], "wire_bytes": wire})
+                for leg in legs:
+                    rows.append({"config": f"codec-throughput {name} {leg} "
+                                 f"threads {nt}", "ops": 6,
+                                 "max_abs_err_vs_f64": float(err.max()),
+                                 "encode_gbs": gbs[leg, "encode"],
+                                 "decode_gbs": gbs[leg, "decode"],
+                                 "wire_bytes": wire})
+                del last, y
     finally:
         if saved is None:
             os.environ.pop("PS_CODEC_THREADS", None)
@@ -2915,6 +2965,14 @@ def node_main() -> int:
     return 0
 
 
+def van_native(van) -> bool:
+    """Whether a van (every rail of a composite) runs the native core."""
+    rails = getattr(van, "_rails", None)
+    if rails is not None:
+        return all(van_native(r) for r in rails)
+    return getattr(van, "_native", None) is not None
+
+
 def node_rounds(ps, po, kv, spec) -> dict:
     """test_benchmark's rounds at each ``[keys per server, bytes per
     key]`` of ``spec["sizes"]`` (key ranges disjoint per size):
@@ -2923,38 +2981,49 @@ def node_rounds(ps, po, kv, spec) -> dict:
     exactly whatever order the workers' pushes arrive in.  With
     ``spec["codec"]`` the keys are ``register_bucket``-ed under it, the
     pushes are seeded normal f32, and each pull must lie within
-    ``CodecBound`` of the float64 sum of every worker's pushes."""
+    ``CodecBound`` of the float64 sum of every worker's pushes.  Every
+    size runs its warm-up rounds first; then ``spec["rounds"]`` timed
+    rounds of each size, once, or once per window of
+    ``spec["windows"]`` (``node_windows``; one ``WINDOW`` report each)."""
     workers = po.num_workers
     me = po.my_rank()
     codec = spec.get("codec")
-    out = {}
+    states = []
     for si, (per_server, nbytes) in enumerate(spec["sizes"]):
         ranges = po.get_server_key_ranges()
         keys = np.array([r.begin + si * SIZE_KEY_STRIDE + i for r in ranges
                          for i in range(per_server)], np.uint64)
         vlen = nbytes // 4
         rng = np.random.default_rng(SEED + 7 + si)
+        st = {"nbytes": nbytes, "keys": keys, "r": 0, "times": [],
+              "wire": [], "worst": 0.0}
         if codec:
             kv.register_bucket(keys, codec=codec)
-            bases = [rng.standard_normal(len(keys) * vlen, dtype=np.float32)
-                     for _ in range(workers)]
-            bound = CodecBound(codec, len(keys) * vlen, 1)
+            st["bases"] = [rng.standard_normal(len(keys) * vlen,
+                                               dtype=np.float32)
+                           for _ in range(workers)]
+            st["bound"] = CodecBound(codec, len(keys) * vlen, 1)
+            bases = st["bases"]
         else:
             bases = [rng.integers(-8, 8, size=len(keys) * vlen).astype(
                 np.float32) for _ in range(workers)]
-        base, base_sum = bases[me], sum(b.astype(np.float64) for b in bases)
-        if not codec:
-            del bases
-        buf = np.empty_like(base)
-        dst = (kv.alloc_pull_buffer(keys, vlen) if spec.get("zpull")
-               else None)
-        if spec.get("zpull") and dst is None:
+        st["base"] = bases[me]
+        st["base_sum"] = sum(b.astype(np.float64) for b in bases)
+        del bases
+        st["buf"] = np.empty_like(st["base"])
+        st["dst"] = (kv.alloc_pull_buffer(keys, vlen) if spec.get("zpull")
+                     else None)
+        if spec.get("zpull") and st["dst"] is None:
             raise AssertionError("alloc_pull_buffer returned None")
-        outs = dst if dst is not None else np.zeros_like(base)
-        times, worst, wire = [], 0.0, [0, 0]
-        rounds = spec["warmup"] + spec["rounds"]
-        for r in range(rounds):
-            np.add(base, np.float32(r), out=buf)
+        st["outs"] = (st["dst"] if st["dst"] is not None
+                      else np.zeros_like(st["base"]))
+        states.append(st)
+
+    def run(st, n: int, timed: bool) -> None:
+        keys, buf, outs = st["keys"], st["buf"], st["outs"]
+        for _ in range(n):
+            r = st["r"]
+            np.add(st["base"], np.float32(r), out=buf)
             before = (po.van.send_bytes, po.van.recv_bytes)
             t0 = time.perf_counter()
             if spec["mode"] == "push_pull":
@@ -2963,39 +3032,62 @@ def node_rounds(ps, po, kv, spec) -> dict:
                 kv.wait(kv.push(keys, buf))
                 po.barrier(0, ps.WORKER_GROUP)
                 kv.wait(kv.pull(keys, outs))
-            times.append(time.perf_counter() - t0)
-            if r >= spec["warmup"]:
-                wire[0] += po.van.send_bytes - before[0]
-                wire[1] += po.van.recv_bytes - before[1]
+            dt = time.perf_counter() - t0
+            if timed:
+                st["times"].append(dt)
+                st["wire"].append((po.van.send_bytes - before[0],
+                                   po.van.recv_bytes - before[1]))
             if codec:
-                for b in bases:
-                    bound.pushed(b + np.float32(r))
-                worst = max(worst, bound.check(f"size {nbytes} B round {r}",
-                                               0, outs))
+                for b in st["bases"]:
+                    st["bound"].pushed(b + np.float32(r))
+                st["worst"] = max(st["worst"], st["bound"].check(
+                    f"size {st['nbytes']} B round {r}", 0, outs))
             else:
-                want = (r + 1) * base_sum + workers * r * (r + 1) / 2
+                want = (r + 1) * st["base_sum"] + workers * r * (r + 1) / 2
                 if not np.array_equal(outs, want):
-                    raise AssertionError(f"size {nbytes} B round {r}: "
-                                         f"{int((outs != want).sum())} "
-                                         f"values wrong")
+                    raise AssertionError(f"size {st['nbytes']} B round "
+                                         f"{r}: {int((outs != want).sum())}"
+                                         f" values wrong")
+            st["r"] += 1
             # The next round's push must not overtake a slower worker's
             # pull of this one.
             if spec["mode"] != "push_pull":
                 po.barrier(0, ps.WORKER_GROUP)
-        if dst is not None:
-            kv.free_pull_buffer(keys)
-        del outs, dst
-        timed = times[spec["warmup"]:]
+
+    def stats(st, first: int = 0) -> dict:
+        timed = st["times"][first:]
+        wire = st["wire"][first:]
         elapsed = sum(timed)
-        out[str(nbytes)] = {
-            "keys": len(keys), "ms_per_round": elapsed / len(timed) * 1e3,
-            "gbps": 8 * nbytes * len(keys) * len(timed) / (elapsed * 1e9),
-            "rounds_ms": [t * 1e3 for t in timed], "checked": rounds,
-            "max_err": worst, "sent_per_round": wire[0] / len(timed),
-            "recv_per_round": wire[1] / len(timed)}
+        nkeys = len(st["keys"])
+        return {"keys": nkeys, "ms_per_round": elapsed / len(timed) * 1e3,
+                "gbps": 8 * st["nbytes"] * nkeys * len(timed)
+                / (elapsed * 1e9),
+                "rounds_ms": [t * 1e3 for t in timed], "checked": st["r"],
+                "max_err": st["worst"],
+                "sent_per_round": sum(w[0] for w in wire) / len(timed),
+                "recv_per_round": sum(w[1] for w in wire) / len(timed)}
+
+    for st in states:
+        run(st, spec["warmup"], timed=False)
+    if spec.get("windows"):
+        for _ in node_windows(spec):
+            marks = [len(st["times"]) for st in states]
+            for st in states:
+                run(st, spec["rounds"], timed=True)
+            window_done({"sizes": {str(st["nbytes"]): stats(st, m)
+                                   for st, m in zip(states, marks)}})
+    else:
+        for st in states:
+            run(st, spec["rounds"], timed=True)
+    out = {str(st["nbytes"]): stats(st) for st in states}
+    for st in states:
+        if st["dst"] is not None:
+            kv.free_pull_buffer(st["keys"])
+    del states
     out["zpull_hits"] = kv.zpull_hits
     out["chunks"] = [po.van.chunks_sent, po.van.chunks_recv]
-    return {"sizes": out}
+    return {"sizes": out, "native": van_native(po.van),
+            "pipe_mode": getattr(po.van, "_pipe_mode", False)}
 
 
 def node_ici(torch, ring, kv, spec) -> dict:
@@ -3039,6 +3131,7 @@ def node_ici(torch, ring, kv, spec) -> dict:
         if not np.array_equal(lout, want):
             raise AssertionError(f"message step {k} pulled wrong values")
     return {"launches": dict(ring.launches), "max_abs_err_vs_f64": worst,
+            "native": van_native(kv.po.van),
             "bucket_ms": sum(t_bucket) / len(t_bucket) * 1e3,
             "msg_ms": sum(t_msg) / len(t_msg) * 1e3, "steps": spec["steps"]}
 
@@ -3396,8 +3489,82 @@ def node_multi_tenant(ps, po, kv, spec) -> dict:
     return {"tenant": "train", "windows": windows, "store_exact": True}
 
 
+GOODPUT_MB = 64        # benchmark.py:1786-1788: 96 pushes of 64 MiB,
+GOODPUT_KEYS = 16      # 16 keys each (:1657), 2 MiB chunks, at most 4
+GOODPUT_PUSHES = 96    # in flight, 256 KiB socket buffers (:1677-1685)
+GOODPUT_ENV = {"PS_CHUNK_BYTES": str(2 << 20),
+               "PS_TCP_SNDBUF": str(256 << 10),
+               "PS_TCP_RCVBUF": str(256 << 10),
+               "PS_RECV_POOL_MB": "512", "PS_BENCH_PIPELINE": "4"}
+
+
+def node_goodput(ps, po, kv, spec) -> dict:
+    """JAX's ``lane_goodput`` storm (``benchmark.py:142-212``), once per
+    window: ``spec["pushes"]`` pushes of ``spec["mb"]`` MiB over
+    ``GOODPUT_KEYS`` keys, at most ``PS_BENCH_PIPELINE`` in flight, from
+    a thread, while this one times priority-1 pulls of one 1 KiB key.
+    The pushes are integer-valued (JAX's are normal floats, which only
+    its codec legs need), so after each window the store is pulled and
+    checked exactly."""
+    n_pushes = spec["pushes"]
+    val_len = spec["mb"] * (1 << 20) // GOODPUT_KEYS // 4
+    big_keys = np.arange(100, 100 + GOODPUT_KEYS, dtype=np.uint64)
+    big = np.random.default_rng(SEED + 11).integers(
+        -8, 8, size=GOODPUT_KEYS * val_len).astype(np.float32)
+    small_key = np.array([7], dtype=np.uint64)
+    small = np.ones(256, np.float32)
+    small_out = np.zeros_like(small)
+    kv.wait(kv.push(big_keys, big))  # warm the path end to end
+    kv.wait(kv.push(small_key, small))
+    kv.wait(kv.pull(small_key, small_out, priority=1))
+    pushes = 1
+    depth = int(os.environ.get("PS_BENCH_PIPELINE", "3"))
+    check = np.empty_like(big)
+    for _ in node_windows(spec):
+        wall, errors = [0.0], []
+
+        def pusher():
+            try:
+                t0 = time.perf_counter()
+                pending = []
+                for _ in range(n_pushes):
+                    pending.append(kv.push(big_keys, big))
+                    if len(pending) >= depth:
+                        kv.wait(pending.pop(0))
+                for ts in pending:
+                    kv.wait(ts)
+                wall[0] = time.perf_counter() - t0
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        t = threading.Thread(target=pusher, daemon=True)
+        lats = []
+        t.start()
+        while t.is_alive():
+            t0 = time.perf_counter()
+            kv.wait(kv.pull(small_key, small_out, priority=1))
+            lats.append((time.perf_counter() - t0) * 1e3)
+        t.join()
+        if errors:
+            raise errors[0]
+        pushes += n_pushes
+        kv.wait(kv.pull(big_keys, check))
+        if not (np.array_equal(check, big * np.float32(pushes))
+                and np.array_equal(small_out, small)):
+            raise AssertionError(f"goodput: the store is not {pushes} "
+                                 f"pushes")
+        lats.sort()
+        window_done({
+            "push_gbps": 8.0 * n_pushes * big.nbytes / wall[0] / 1e9,
+            "pull_p50_ms": lats[len(lats) // 2],
+            "pull_p99_ms": lats[min(len(lats) - 1, int(len(lats) * 0.99))],
+            "samples": len(lats), "native": van_native(po.van)})
+    return {"pushes": pushes}
+
+
 TIER_NODES = {"small-op": node_small_op, "fanin": node_fanin,
-              "hot-cache": node_hot_cache, "multi-tenant": node_multi_tenant}
+              "hot-cache": node_hot_cache, "multi-tenant": node_multi_tenant,
+              "goodput": node_goodput}
 
 
 class Cluster:
@@ -3556,17 +3723,119 @@ def _print_rounds(label, topo, reports, sizes, smi, loopback, codec=None):
 
 _loopback_cell = ["not run"]
 
+# The two planes of a process phase: the native core (the default) and
+# the Python one.
+PLANES = (("native", {}), ("python", {"PS_NATIVE": "0"}))
+PLANE_ROUNDS = 4  # timed rounds per window; TIER_ROUNDS windows per leg
+
+
+def plane_legs(label: str, topo: str, van: str, workers: int, servers: int,
+               spec: dict, sizes, smi: str, extra=None, joint=False,
+               planes=PLANES):
+    """One round phase on each plane: a cluster per plane, all up at
+    once, ``TIER_ROUNDS`` windows of ``PLANE_ROUNDS`` rounds alternating
+    (``interleaved``); every pull checked.  Prints each plane's ms/round
+    and Gbit/s per worker (median of its windows, the windows' values,
+    and over all its rounds) and, by window, each other plane's ms over
+    the ``native`` plane's.  Every plane but ``python`` runs the core.
+    Returns ``(rows, {plane: final worker reports})``."""
+    spec = dict(spec, sizes=sizes, warmup=MSG_WARMUP, rounds=PLANE_ROUNDS,
+                windows=TIER_ROUNDS)
+    legs, finals = interleaved(
+        [(plane, env) for plane, env in planes],
+        lambda env: Cluster(van, workers, servers, spec,
+                            extra=dict(extra or {}, **env), joint=joint),
+        every_worker=True)
+    for plane, reps in finals.items():
+        if [r["native"] for r in reps] != [plane != "python"] * len(reps):
+            raise AssertionError(f"{label}: a worker of the {plane} leg ran "
+                                 f"the other plane")
+    rows = []
+    for _n, nbytes in sizes:
+        key = str(nbytes)
+        ms = {plane: [sum(w["sizes"][key]["ms_per_round"] for w in win)
+                      / len(win) for win in wins]
+              for plane, wins in legs.items()}
+        for plane, reps in finals.items():
+            s = rounds_summary(reps, nbytes)
+            gbps = [sum(w["sizes"][key]["gbps"] for w in win) / len(win)
+                    for win in legs[plane]]
+            print(f"{label} [{plane}] ({topo}, {s['keys']} keys x {nbytes} "
+                  f"B per worker and round; {TIER_ROUNDS} windows of "
+                  f"{PLANE_ROUNDS} rounds alternating with the other "
+                  f"plane's): ms/round {spread(ms[plane])}, "
+                  f"{s['ms_per_round']:.3f} over all {len(s['rounds_ms'])} "
+                  f"timed rounds; Gbit/s per worker {spread(gbps)}; "
+                  f"{s['checked']} rounds checked exactly; wire bytes per "
+                  f"worker and round: sent {s['sent']:.0f}, received "
+                  f"{s['recv']:.0f} [{smi}] [host CPU {cpu_model()}]")
+            rows.append({"config": f"{label} {nbytes} B {plane}",
+                         "ops": s["checked"],
+                         "max_abs_err_vs_f64": s["max_err"],
+                         "ms_per_round": float(np.median(ms[plane])),
+                         "ms_per_round_all": s["ms_per_round"],
+                         "gbps_per_worker": float(np.median(gbps))})
+        for plane in ms:
+            if plane == "native":
+                continue
+            name = f"{plane}_over_native_ms"
+            ratio_row(rows[-1], name, ms[plane], ms["native"])
+            print(f"{label} {nbytes} B {plane} / native ms per round by "
+                  f"window: median {rows[-1][name]:.3f}, least "
+                  f"{rows[-1][name + '_min']:.3f}, most "
+                  f"{rows[-1][name + '_max']:.3f}")
+    return rows, finals
+
 
 def drive_tcp_config1(smi: str):
     """BASELINE config 1: 1 scheduler + 1 server + 1 worker processes
     over tcp, test_benchmark's PUSH_PULL (fused push_pull) of 40 keys x
-    1,024,000 B, 2 warm-up and 10 timed rounds."""
-    sizes = [[KEYS, MB_LEN]]
-    reports = launch("tcp", 1, 1, {"sizes": sizes, "mode": "push_pull",
-                                   "warmup": MSG_WARMUP,
-                                   "rounds": MSG_ROUNDS})
-    return _print_rounds("tcp-config1", "1 + 1 + 1 processes, tcp, "
-                         "push_pull", reports, sizes, smi, _loopback_cell[0])
+    1,024,000 B, on each plane (``plane_legs``)."""
+    return plane_legs("tcp-config1", "1 + 1 + 1 processes, tcp, push_pull",
+                      "tcp", 1, 1, {"mode": "push_pull"}, [[KEYS, MB_LEN]],
+                      smi)[0]
+
+
+def drive_native_goodput(smi: str):
+    """JAX's ``native_goodput_bench`` (``benchmark.py:1738-1830``): 1
+    worker + 1 server processes over tcp, the ``lane_goodput`` storm
+    (``node_goodput``) with the native core and with ``PS_NATIVE=0``,
+    each leg one cluster, 3 windows alternating; push Gbit/s and the
+    small pull's p99 per leg (medians, the windows' values) and their
+    ratios by window.  JAX's >= 2x goodput bar was set on a CPU host: a
+    yardstick only."""
+    legs, _final = interleaved(
+        [("native-goodput", {}),
+         ("native-goodput-python", {"PS_NATIVE": "0"})],
+        lambda env: Cluster("tcp", 1, 1, {
+            "phase": "goodput", "windows": TIER_ROUNDS, "mb": GOODPUT_MB,
+            "pushes": GOODPUT_PUSHES}, extra=dict(GOODPUT_ENV, **env)))
+    rows = []
+    for (label, reps), want in zip(legs.items(), (True, False)):
+        if any(r["native"] != want for r in reps):
+            raise AssertionError(f"{label} ran the other plane")
+        print(f"{label} (1 worker + 1 server, tcp, one process per node; "
+              f"{GOODPUT_PUSHES} pushes of {GOODPUT_MB} MiB over "
+              f"{GOODPUT_KEYS} keys, 2 MiB chunks, at most 4 in flight, "
+              f"256 KiB socket buffers; {tier_topo()}): push Gbit/s "
+              f"{spread(r['push_gbps'] for r in reps)}; priority pull p50 "
+              f"ms {spread(r['pull_p50_ms'] for r in reps)}, p99 ms "
+              f"{spread(r['pull_p99_ms'] for r in reps)} over "
+              f"{sum(r['samples'] for r in reps)} pulls; the store exact "
+              f"after every window [{smi}] [host CPU {cpu_model()}]")
+        rows.append(leg_row(label, reps, "samples", (
+            "push_gbps", "pull_p50_ms", "pull_p99_ms")))
+    gb = [[r["push_gbps"] for r in reps] for reps in legs.values()]
+    p99 = [[r["pull_p99_ms"] for r in reps] for reps in legs.values()]
+    ratio_row(rows[0], "goodput_ratio", *gb)
+    ratio_row(rows[0], "p99_ratio", *p99)
+    print(f"native-goodput native / python by window: push Gbit/s median "
+          f"{rows[0]['goodput_ratio']:.3f} (least "
+          f"{rows[0]['goodput_ratio_min']:.3f}, most "
+          f"{rows[0]['goodput_ratio_max']:.3f}); priority pull p99 median "
+          f"{rows[0]['p99_ratio']:.3f} (least {rows[0]['p99_ratio_min']:.3f}"
+          f", most {rows[0]['p99_ratio_max']:.3f})")
+    return rows
 
 
 TCP2_SIZES = [[MSG_KEYS_PER_SERVER, 1024], [MSG_KEYS_PER_SERVER, MB_LEN],
@@ -3577,16 +3846,19 @@ def drive_tcp_config2(smi: str):
     """BASELINE config 2: 1 scheduler + 2 servers + 2 workers processes
     over tcp, msg-config2's rounds (push, worker barrier, pull) at 40
     keys per server of 1,024 and 1,024,000 B and 1 key per server of
-    64 MiB; then the 1 MB round with ``DMLC_LOCAL=1`` (unix sockets, no
-    file left after) and over ``multi`` (2 tcp rails)."""
+    64 MiB, on each plane and on the core with ``PS_NATIVE_REASSEMBLY=1``
+    (``plane_legs``); then the 1 MB round on the core (2 rails) with
+    ``DMLC_LOCAL=1`` (unix sockets, no file left after), and over
+    ``multi`` (2 tcp rails, each a core of its own) on each plane."""
     import tempfile
 
     spec = {"mode": "push_barrier_pull", "warmup": MSG_WARMUP,
             "rounds": MSG_ROUNDS}
     topo = "1 + 2 + 2 processes"
-    out = _print_rounds("tcp-config2", f"{topo}, tcp", launch(
-        "tcp", 2, 2, dict(spec, sizes=TCP2_SIZES)), TCP2_SIZES, smi,
-        _loopback_cell[0])
+    out = plane_legs("tcp-config2", f"{topo}, tcp", "tcp", 2, 2,
+                     {"mode": "push_barrier_pull"}, TCP2_SIZES, smi,
+                     planes=PLANES + (("reassembly",
+                                       {"PS_NATIVE_REASSEMBLY": "1"}),))[0]
     mb = [[MSG_KEYS_PER_SERVER, MB_LEN]]
     sockdir = tempfile.mkdtemp(prefix="psl")
     if len(os.path.join(sockdir, "pslite_ipc_65535.sock")) > 100:
@@ -3599,10 +3871,9 @@ def drive_tcp_config2(smi: str):
     left = [f for f in os.listdir(sockdir) if f.endswith(".sock")]
     if left:
         raise AssertionError(f"DMLC_LOCAL left socket files {left}")
-    out += _print_rounds("tcp-config2-multi", f"{topo}, multi (2 tcp "
-                         "rails)", launch("multi", 2, 2, dict(spec, sizes=mb),
-                                          extra={"DMLC_NUM_PORTS": "2"}),
-                         mb, smi, _loopback_cell[0])
+    out += plane_legs("tcp-config2-multi", f"{topo}, multi (2 tcp rails)",
+                      "multi", 2, 2, {"mode": "push_barrier_pull"}, mb, smi,
+                      extra={"DMLC_NUM_PORTS": "2"})[0]
     return out
 
 
@@ -3637,7 +3908,15 @@ def drive_tcp_config2_tiers(smi: str):
 
 
 def shm_leftovers(ns: str):
-    return [f for f in os.listdir("/dev/shm") if ns in f]
+    """Segments and pipes of namespace ``ns`` left in /dev/shm.  The
+    pipes' ``.lock`` files stay by design (unlinking one while a node
+    lives would hand the next locker another inode): once every process
+    of the phase is gone they are removed here."""
+    ours = [f for f in os.listdir("/dev/shm") if ns in f]
+    for f in ours:
+        if f.endswith(".lock"):
+            os.unlink(os.path.join("/dev/shm", f))
+    return [f for f in ours if not f.endswith(".lock")]
 
 
 def drive_shm_config3(smi: str):
@@ -3645,26 +3924,37 @@ def drive_shm_config3(smi: str):
     and the scheduler over ``shm``, 40 keys per server x 1,024,000 B,
     msg-config2's rounds; pushes land in registered receive buffers
     (ENABLE_RECV_BUFFER) and pulls in ``alloc_pull_buffer`` segments
-    the servers write in place.  No segment may be left afterwards."""
+    the servers write in place.  On each plane (``plane_legs``): the
+    native core with ``PS_SHM_RING=1`` (every frame between the
+    processes through shared-memory pipes, copies of 1 MiB and more in
+    the copy pool) and ``PS_NATIVE=0`` (the Python sockets).  No
+    segment or pipe may be left afterwards."""
     ns = f"smoke{os.getpid()}c3"
     sizes = [[MSG_KEYS_PER_SERVER, MB_LEN]]
-    reports = launch("shm", 2, 2, {
-        "sizes": sizes, "mode": "push_barrier_pull", "warmup": MSG_WARMUP,
-        "rounds": MSG_ROUNDS, "zpull": True},
-        extra={"PS_SHM_NS": ns, "ENABLE_RECV_BUFFER": "1"}, joint=True)
+    planes = (("native", {"PS_SHM_RING": "1"}),
+              ("python", {"PS_NATIVE": "0"}))
+    rows, finals = plane_legs(
+        "shm-config3", "scheduler + 2 joint processes, shm, registered "
+        "buffers", "shm", 2, 2, {"mode": "push_barrier_pull",
+                                 "zpull": True}, sizes, smi,
+        extra={"PS_SHM_NS": ns, "ENABLE_RECV_BUFFER": "1"}, joint=True,
+        planes=planes)
     if shm_leftovers(ns):
         raise AssertionError(f"shm-config3 left {shm_leftovers(ns)}")
-    hits = [r["sizes"]["zpull_hits"] for r in reports]
-    placed = [r["delivered_in_place"] for r in reports]
-    if min(hits) < MSG_WARMUP + MSG_ROUNDS or not min(placed):
-        raise AssertionError(f"shm-config3: zero-copy pulls {hits}, pushes "
-                             f"placed in registered buffers {placed}")
-    print(f"shm-config3: zero-copy pull hits per worker {hits}, pushes "
-          f"placed by the van in registered buffers per server {placed}; "
-          f"no /dev/shm segment left")
-    return _print_rounds("shm-config3", "scheduler + 2 joint processes, "
-                         "shm, registered buffers", reports, sizes, smi,
-                         _loopback_cell[0])
+    for plane, reports in finals.items():
+        hits = [r["sizes"]["zpull_hits"] for r in reports]
+        placed = [r["delivered_in_place"] for r in reports]
+        pipes = [r["pipe_mode"] for r in reports]
+        if (min(hits) < MSG_WARMUP + TIER_ROUNDS * PLANE_ROUNDS
+                or not min(placed) or pipes != [plane == "native"] * 2):
+            raise AssertionError(f"shm-config3 [{plane}]: zero-copy pulls "
+                                 f"{hits}, pushes placed in registered "
+                                 f"buffers {placed}, pipes {pipes}")
+        print(f"shm-config3 [{plane}]: zero-copy pull hits per worker "
+              f"{hits}, pushes placed by the van in registered buffers per "
+              f"server {placed}, shared-memory pipes {pipes}; no /dev/shm "
+              f"segment or pipe left")
+    return rows
 
 
 def drive_ici_proc(van: str, smi: str):
@@ -3681,8 +3971,11 @@ def drive_ici_proc(van: str, smi: str):
     if k4 < rep["steps"]:
         raise AssertionError(f"ici-{van}: K4 launched {k4} times in the "
                              f"worker process for {rep['steps']} push_pulls")
+    if not rep["native"]:
+        raise AssertionError(f"ici-{van}: the worker's van is not native")
     print(f"ici-tcp-mixed [{van}] (scheduler, server and worker processes, "
-          f"the worker's engine on {N} ranks of cuda:0): {rep['steps']} "
+          f"the worker's engine on {N} ranks of cuda:0 beside its van's "
+          f"native core): {rep['steps']} "
           f"steps; K4 ring_push_pull[float32] launches in the worker "
           f"process {k4}; host ms per step: bucket push_pull "
           f"{rep['bucket_ms']:.3f} (device grads), message push + pull "
@@ -3695,7 +3988,7 @@ def drive_ici_proc(van: str, smi: str):
               "msg_ms": rep["msg_ms"]}], rep["launches"])
 
 
-def interleaved(legs, start):
+def interleaved(legs, start, every_worker: bool = False):
     """Each ``(label, arg)`` of ``legs`` as one ``Cluster``
     (``start(arg)`` with ``spec["windows"] = TIER_ROUNDS``), all started
     at once and set up before the first window; then ``TIER_ROUNDS``
@@ -3703,7 +3996,9 @@ def interleaved(legs, start):
     as JAX's benches alternate theirs (``benchmark.py:2088-2090,
     2297-2301``), so host drift lands on both while the other leg's
     cluster idles.  ``({label: [window report]}, {label: final
-    report})``."""
+    report})``: the first worker's, or with ``every_worker`` the list
+    of every worker's."""
+    pick = (lambda reps: reps) if every_worker else (lambda reps: reps[0])
     clusters = {}
     try:
         for label, arg in legs:
@@ -3713,8 +4008,8 @@ def interleaved(legs, start):
         out = {label: [] for label in clusters}
         for _ in range(TIER_ROUNDS):
             for label, c in clusters.items():
-                out[label].append(c.window()[0])
-        return out, {label: c.finish()[0] for label, c in clusters.items()}
+                out[label].append(pick(c.window()))
+        return out, {label: pick(c.finish()) for label, c in clusters.items()}
     finally:
         for c in clusters.values():
             c.kill()
@@ -3964,6 +4259,7 @@ def main() -> int:
     from pslite_tpu_torch.ops import sparse_rows as sr
     from pslite_tpu_torch.models import embedding as emb
     from pslite_tpu_torch.models import resnet_trace as rt
+    from pslite_tpu_torch.vans import native as host_native
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -3972,11 +4268,36 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{name} count {count}")
 
+    # The host core (g++) builds beside the kernels (nvcc).
+    host_build = {}
+
+    def build_host_core():
+        t = time.perf_counter()
+        try:
+            host_native.build(force=True)
+            host_build["lib"] = host_native.load()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            host_build["error"] = exc
+        host_build["s"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host_core)
+    host_thread.start()
     t0 = time.perf_counter()
     _native.build(force=True)
     _native.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{_native.build_info['path']}")
+    host_thread.join()
+    if "error" in host_build:
+        raise host_build["error"]
+    stamp = host_build["lib"].psl_abi_version()
+    if stamp != host_native.ABI_VERSION:
+        raise AssertionError(f"native core ABI stamp {stamp}")
+    print(f"native core build ({host_native.build_info['compiler']}, "
+          f"{' '.join(host_native.CXX_FLAGS)}): {host_build['s']:.1f} s "
+          f"-> {host_native.build_info['path']}; ABI stamp {stamp} "
+          f"(vans/native.py ABI_VERSION {host_native.ABI_VERSION}) "
+          f"[host CPU {cpu_model()}]")
     for line in _native.build_info["log"].splitlines():
         if "ptxas info" in line or "spill" in line:
             print(f"  {line.strip()}")
@@ -4075,6 +4396,7 @@ def main() -> int:
             ps, ring, Environment, grads_steps, smi)),
         ("msg-optimizer", lambda: drive_msg_optimizer(ps, Environment)),
         ("tcp-config1", lambda: drive_tcp_config1(smi)),
+        ("native-goodput", lambda: drive_native_goodput(smi)),
         ("tcp-config2", lambda: drive_tcp_config2(smi)),
         ("tcp-config2-tiers", lambda: drive_tcp_config2_tiers(smi)),
         ("shm-config3", lambda: drive_shm_config3(smi)),

@@ -80,9 +80,11 @@ The message-path tiers (as JAX's ``kv_app.py``):
   (``PS_TENANT_QUEUE_LIMIT``): a shed request answers ``OPT_OVERLOAD``
   and its ``wait`` raises ``OverloadError``.
 
-Host numpy on the message path, as in JAX.  Not here, each raising where
-a JAX caller would reach it: the native codec kernels (item 11); request
-deadlines and failover, replication (and so batching under
+Host numpy on the message path, as in JAX; the default handle's large
+f32/f64 push adds run in the native core (``native.try_iadd``, the bits
+of numpy's ``+=``) unless the node's ``PS_NATIVE=0``.  Not here, each
+raising where a JAX caller would reach it: request deadlines and
+failover, replication (and so batching under
 ``PS_KV_REPLICATION`` > 1), elastic routing (``PS_ELASTIC`` with
 batching, and the wrong-owner re-slice of a sub-get), snapshots, the
 tiered store and namespaces (item 8).
@@ -128,6 +130,7 @@ from ..sarray import SArray
 from ..telemetry import node_registry
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
+from ..vans import native
 from .apply_shards import ApplyShardPool
 from .batching import (BATCH_PROBE_CMD, BATCH_WIRE_VERSION, OpCombiner,
                        split_batch_message)
@@ -1472,6 +1475,9 @@ class KVServer:
             self._apply_pool.stop()
             self._apply_pool = None
         self._handle = handle
+        if hasattr(handle, "apply_shard"):
+            # Its native add honours this node's PS_NATIVE.
+            handle._env = self.po.env
         if self._apply_shards > 0 and callable(getattr(handle, "apply_shard",
                                                        None)):
             self._apply_pool = ApplyShardPool(handle, self._apply_shards,
@@ -2147,7 +2153,11 @@ class KVServerDefaultHandle:
                     log.check(cur.dtype == seg.dtype,
                               f"push dtype {seg.dtype} != stored dtype "
                               f"{cur.dtype} for key {key}")
-                    cur += seg
+                    # Large adds without the GIL, beside the receive
+                    # pump (_env: set_request_handle's node env).
+                    if not native.try_iadd(cur, seg,
+                                           env=getattr(self, "_env", None)):
+                        cur += seg
         return _gather(store, keys) if meta.pull else None
 
     def __call__(self, req_meta: KVMeta, req_data: KVPairs,

@@ -36,8 +36,14 @@ codecs do not use (a host may lack it).  The fp8 tables are built with
 ``ml_dtypes`` (:func:`_fp8_tables`), and bf16 is encoded with bit
 arithmetic that writes NaN as ``0x7FC0 | sign``, as ``ml_dtypes`` does
 (:func:`_bf16_bits`), so every code byte equals the JAX package's.  fp8
-is always registered (torch has the type).  The C core's fused codec
-kernels are ROADMAP Queue 1 item 11 (:func:`_native_codec`).
+is always registered (torch has the type).
+
+The native core (``vans/native.py``) runs int8 and fp8 encode, decode and
+range decode in one pass each, its span pool behind a single GIL release
+(``psl_codec_*``, :func:`_native_codec`), fed this module's fp8 tables;
+its bytes equal the numpy path's, which stays for ``PS_CODEC_NATIVE=0``
+or ``PS_NATIVE=0`` and for ``lens`` payloads.  bf16 is numpy in both
+packages.
 """
 
 from __future__ import annotations
@@ -203,12 +209,40 @@ def _take_buf(nbytes: int) -> np.ndarray:
     return _buf_pool.take(nbytes)
 
 
+_native_lib = None
+_native_probed = False
+
+
 def _native_codec():
-    """The C core's fused codec kernels: not here (ROADMAP Queue 1 item
-    11, the native core).  None selects the numpy path, which the JAX
-    package holds bit-identical to its native one
-    (``tests/test_ops.py::test_codec_native_kernel_bit_identical_to_numpy``)."""
-    return None
+    """The native core's codec kernels, or None (numpy) under
+    ``PS_CODEC_NATIVE=0`` or a process-wide ``PS_NATIVE=0``.  The first
+    call hands the core this module's fp8 tables.  A core that cannot be
+    built raises."""
+    global _native_lib, _native_probed
+    if _native_probed:
+        return _native_lib
+    with _pool_mu:
+        if not _native_probed:
+            lib = None
+            if os.environ.get("PS_CODEC_NATIVE", "1") not in ("0", "false"):
+                from ..vans import native
+
+                lib = native.load()
+            if lib is not None:
+                enc, dec = Fp8E4M3Codec._luts()
+                lib.psl_codec_set_fp8_tables(enc.ctypes.data,
+                                             dec.ctypes.data)
+            _native_lib = lib
+            _native_probed = True
+    return _native_lib
+
+
+def _native_rc(rc: int, what: str) -> int:
+    """A codec kernel's flags; a negative return (a block size or kind it
+    refuses) raises rather than quietly taking numpy."""
+    if rc < 0:
+        raise RuntimeError(f"native codec {what} refused the call ({rc})")
+    return rc
 
 
 # -- blockwise scale helpers ------------------------------------------------------
@@ -247,6 +281,7 @@ class Codec:
     block: int = BLOCK
     code_bytes_per_elem: int = 1
     range_decode: bool = False  # decode_key_ranges can decode it
+    native_kind: int = -1  # psl_codec_* kind, -1: numpy only
 
     def encode(self, vals: np.ndarray, lens=None,
                resid: Optional[np.ndarray] = None
@@ -304,6 +339,14 @@ class _BlockCodec(Codec):
         n = v.size
         codes = _take_buf(n)[:n]
         scales = np.empty(n_blocks(n), np.float32)
+        lib = _native_codec()
+        if lib is not None:
+            # One call: the core's span pool behind one GIL release.
+            return codes, scales, _native_rc(lib.psl_codec_encode_mt(
+                self.native_kind, v.ctypes.data,
+                resid.ctypes.data if resid is not None else 0, n, BLOCK,
+                codes.ctypes.data, scales.ctypes.data, codec_threads()),
+                "encode")
         spans = _spans(n, BLOCK)
         flags = [False] * len(spans)
 
@@ -429,6 +472,12 @@ class _BlockCodec(Codec):
             if flags & FLAG_HAS_NAN:
                 self._apply_nan(codes, out)
             return out
+        lib = _native_codec()
+        if lib is not None:
+            _native_rc(lib.psl_codec_decode_mt(
+                self.native_kind, codes.ctypes.data, scales.ctypes.data, n,
+                BLOCK, flags, out.ctypes.data, codec_threads()), "decode")
+            return out
 
         def one(a, b):
             m = b - a
@@ -460,6 +509,7 @@ class Int8Codec(_BlockCodec):
     wire_id = 1
     qmax = 127.0
     range_decode = True
+    native_kind = 0
 
     def _quantize_into(self, y, out_u8, maybe_nonfinite):
         np.rint(y, out=y)
@@ -512,6 +562,7 @@ class Fp8E4M3Codec(_BlockCodec):
     wire_id = 2
     qmax = 448.0
     range_decode = True
+    native_kind = 1
     _tables: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @classmethod
@@ -657,6 +708,15 @@ def decode_key_ranges(codes, scales, info, n_keys: int,
     out = _take_buf(4 * m)[: 4 * m].view(np.float32)
     codes = np.ascontiguousarray(codes).reshape(-1)
     scales = np.ascontiguousarray(scales, np.float32).reshape(-1)
+    lib = _native_codec()
+    if lib is not None and m:
+        starts = (pos * k).astype(np.uint64)
+        ends = starts + np.uint64(k)
+        _native_rc(lib.psl_codec_decode_ranges(
+            codec.native_kind, codes.ctypes.data, scales.ctypes.data,
+            starts.ctypes.data, ends.ctypes.data, int(pos.size), BLOCK,
+            info.flags, out.ctypes.data), "range decode")
+        return [out[i * k: (i + 1) * k] for i in range(int(pos.size))]
     off = 0
     for p in pos:
         s = int(p) * k

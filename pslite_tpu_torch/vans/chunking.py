@@ -25,8 +25,14 @@ Counterpart of ``pslite_tpu/vans/chunking.py``, the pure-Python half:
   (``PS_TENANTS``); a chunk's meta is a copy of the original's, so
   every chunk carries the message's tenant.
 
-The native descriptor and the native reassembly (``:175-275``) belong to
-the native core, ROADMAP Queue 1 item 11.
+- :func:`native_descriptor` / :func:`finalize_native_transfer`
+  (``:175-275``): a data message prepared for the native sender lanes
+  (``vans/native.py``: the meta template whose ``EXT_CHUNK`` index and
+  offset the core patches per chunk, so native frames are byte-identical
+  to :func:`split_message`'s), and the message rebuilt from a transfer
+  the core reassembled itself (``PS_NATIVE_REASSEMBLY=1``).  The
+  assembler's scatter copies through the native copy pool above
+  ``COPY_KERNEL_MIN`` (``:349``).
 """
 
 from __future__ import annotations
@@ -44,7 +50,13 @@ from ..sarray import SArray
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
 from ..utils.queues import DRAIN_LEVEL
-from ..wire import CHUNK_MAX_SEGS
+from ..wire import (
+    CHUNK_MAX_SEGS,
+    FRAME_HEADER_SIZE,
+    chunk_ext_payload_size,
+    pack_meta,
+)
+from .native import COPY_KERNEL_MIN
 
 _UINT64_CODE = 8  # wire dtype code of the keys segment
 
@@ -146,6 +158,89 @@ def split_message(msg: Message, chunk_bytes: int,
     return out
 
 
+class NativeDescriptor:
+    """One data message prepared for the native sender lanes: the packed
+    meta template, the pinned contiguous payload arrays, and the chunk
+    parameters the core patches per chunk."""
+
+    __slots__ = ("meta_buf", "arrs", "chunk_bytes", "ext_off", "n_chunks",
+                 "wire_bytes")
+
+    def __init__(self, meta_buf, arrs, chunk_bytes, ext_off, n_chunks,
+                 wire_bytes):
+        self.meta_buf = meta_buf
+        self.arrs = arrs          # referenced until the ticket is reaped
+        self.chunk_bytes = chunk_bytes
+        self.ext_off = ext_off    # EXT_CHUNK payload offset in meta_buf
+        self.n_chunks = n_chunks
+        self.wire_bytes = wire_bytes
+
+
+def native_descriptor(msg: Message, chunk_bytes: int,
+                      xfer_seq) -> NativeDescriptor:
+    """The descriptor of one data message: the meta template (the core
+    stamps the sid at transmit), the payload arrays, and, when
+    :func:`split_message` would chunk the message, the ``EXT_CHUNK``
+    template (``xfer_seq`` is drawn from only then).  ``wire_bytes`` is
+    the exact byte count of every frame of the transfer, headers, lens
+    tables and metas included."""
+    m = msg.meta
+    arrs = [_flat_u8(d.data) for d in msg.data]
+    seg_lens = [a.nbytes for a in arrs]
+    total = sum(seg_lens)
+    n_data = len(arrs)
+    if not (chunk_bytes > 0 and m.chunk is None
+            and 0 < n_data <= CHUNK_MAX_SEGS and total > chunk_bytes):
+        meta_buf = pack_meta(m)
+        wire = FRAME_HEADER_SIZE + 8 * n_data + len(meta_buf) + total
+        return NativeDescriptor(meta_buf, arrs, 0, -1, 1, wire)
+    seg_types = tuple(m.data_type[i] if i < len(m.data_type) else 2
+                      for i in range(n_data))
+    cm = copy.copy(m)
+    cm.control = Control()
+    cm.data_type = []
+    cm.data_size = 0
+    n_chunks = (total + chunk_bytes - 1) // chunk_bytes
+    cm.chunk = ChunkInfo(xfer=next(xfer_seq), index=0, total=n_chunks,
+                         offset=0, seg_lens=tuple(seg_lens),
+                         seg_types=seg_types)
+    meta_buf = pack_meta(cm)
+    # pack_meta writes EXT_CHUNK last: its payload ends the template.
+    ext_off = len(meta_buf) - chunk_ext_payload_size(n_data)
+    bounds = [0]
+    for ln in seg_lens:
+        bounds.append(bounds[-1] + ln)
+    wire = total + n_chunks * (FRAME_HEADER_SIZE + len(meta_buf))
+    for idx in range(n_chunks):
+        lo, hi = idx * chunk_bytes, min((idx + 1) * chunk_bytes, total)
+        wire += 8 * sum(1 for si in range(n_data)
+                        if max(lo, bounds[si]) < min(hi, bounds[si + 1]))
+    return NativeDescriptor(meta_buf, arrs, chunk_bytes, ext_off, n_chunks,
+                            wire)
+
+
+# ChunkInfo.index of a frame the native core reassembled itself: its
+# segments are the whole transfer's.
+NATIVE_XFER_COMPLETE = 0xFFFFFFFF
+
+
+def finalize_native_transfer(msg: Message) -> Message:
+    """The original message of a natively reassembled frame: its
+    segments (views of the native frame) re-viewed by the ``EXT_CHUNK``
+    dtype table, and the meta fields the chunk template blanked
+    restored."""
+    ck = msg.meta.chunk
+    msg.meta.chunk = None
+    msg.meta.data_type = list(ck.seg_types)
+    msg.meta.data_size = sum(int(ln) for ln in ck.seg_lens)
+    for i, seg in enumerate(msg.data):
+        raw = seg.data if isinstance(seg, SArray) else seg
+        if not isinstance(raw, np.ndarray):
+            raw = np.frombuffer(raw, np.uint8)
+        msg.data[i] = SArray(raw.view(code_dtype(ck.seg_types[i])))
+    return msg
+
+
 class _Xfer:
     """Reassembly state of one in-flight transfer."""
 
@@ -201,8 +296,11 @@ class ChunkAssembler:
 
     MAX_ENTRIES = 256  # the stalest transfer is evicted beyond this
 
-    def __init__(self, ttl_s: float = 120.0, alloc=None):
+    def __init__(self, ttl_s: float = 120.0, alloc=None, copy_kernel=None):
         self._alloc = alloc
+        # Optional (dst, src, nbytes) copy without the GIL
+        # (native.scatter_copy_kernel) for the scatter's large pieces.
+        self._copy = copy_kernel
         self._mu = threading.Lock()
         self._xfers: Dict[Tuple[int, int], _Xfer] = {}
         # Tombstones of recently completed transfers: a stale duplicate
@@ -305,8 +403,7 @@ class ChunkAssembler:
             out.append(self._final(x, key))
         return out
 
-    @staticmethod
-    def _scatter(x: _Xfer, offset: int, data) -> int:
+    def _scatter(self, x: _Xfer, offset: int, data) -> int:
         """Copy a chunk's slices into the per-segment buffers; returns
         the chunk's byte count."""
         bounds = [0]
@@ -321,7 +418,11 @@ class ChunkAssembler:
                     si += 1
                 take = min(raw.nbytes - done, bounds[si + 1] - pos)
                 b0 = pos - bounds[si]
-                x.bufs[si][b0:b0 + take] = raw[done:done + take]
+                if self._copy is not None and take >= COPY_KERNEL_MIN:
+                    self._copy(x.bufs[si].ctypes.data + b0,
+                               raw.ctypes.data + done, take)
+                else:
+                    x.bufs[si][b0:b0 + take] = raw[done:done + take]
                 done += take
                 pos += take
             total += raw.nbytes

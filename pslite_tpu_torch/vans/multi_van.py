@@ -8,7 +8,10 @@ chunks of one transfer stripe across every rail, starting at a rail set
 by the transfer id; other data goes by its source device id, else round
 robin.  Send lanes are keyed (peer, rail), so one peer's data streams
 down every rail at once; the rails keep no order between them, and the
-chunk assembler does not need one.
+chunk assembler does not need one.  Each rail van runs the native core
+unless ``PS_NATIVE=0`` (its frames written inline by the core: the
+composite's Python lanes pick the rail), with the core's reassembly off,
+and ``post_stop`` frees the cores once the pumps have left.
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ class MultiVan(Van):
                 # Disjoint segment names per rail: one (sender, recver,
                 # key) round-robins across rails.
                 rail._ns = f"{rail._ns}r{i}"
+            if rail._native is not None:
+                # Each rail van is a core of its own and sees only its
+                # stripe of a transfer: the shared Python assembler
+                # rebuilds it.
+                rail._native.set_reassembly(False)
         self._queue = PriorityRecvQueue(
             recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
             weights=self._tenant_weights)

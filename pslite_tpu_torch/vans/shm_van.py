@@ -14,8 +14,19 @@ Zero-copy pulls: a worker's ``alloc_pull_segment`` creates its pull
 buffer as a segment (namespaced by the scheduler's port); a server's
 ``OPT_ZPULL`` response writes its values straight into it at the slice's
 offset and sends keys only.  ``stop_transport`` unlinks every segment
-this van created.  The native copy pool and ``PS_SHM_RING`` pipes are
-the native core (ROADMAP Queue 1 item 11): ``PS_SHM_RING=1`` raises.
+this van created.
+
+The native core (``docs/shm_pipes.md``) adds two tiers unless
+``PS_NATIVE=0``: payloads of 1 MiB and more are copied by the
+process-wide native copy pool (``PS_SHM_COPY_THREADS``, default 4), and
+with ``PS_SHM_RING=1`` same-host peers exchange their whole frame stream
+through shared-memory byte pipes instead of the socket
+(``pslpipe_<ns>_<sender port>_<receiver port>``, found by the receiver's
+poller by name; a writer whose reader stays silent for
+``PS_SHM_RING_DEAD_MS`` retires the pipe and goes back to the socket).
+The data of this van never rides the native sender lanes
+(``_native_submit`` declines): placement into segments happens in
+``send_msg``.
 """
 
 from __future__ import annotations
@@ -35,9 +46,12 @@ from .. import wire
 from ..message import Message, OPT_ZPULL, ZPULL_OFF_BITS
 from ..sarray import SArray
 from ..utils import logging as log
-from .tcp_van import TcpVan, native_not_ported
+from . import native
+from .tcp_van import TcpVan
 
 SHM_DIR = "/dev/shm"
+# Payloads from this size on go through the native copy pool.
+COPY_POOL_MIN = 1 << 20
 
 
 class _Segment:
@@ -80,8 +94,6 @@ class ShmVan(TcpVan):
 
     def __init__(self, postoffice):
         super().__init__(postoffice)
-        if self.env.find_int("PS_SHM_RING", 0):
-            raise native_not_ported("PS_SHM_RING=1 (shared-memory pipes)")
         self._segments: Dict[str, _Segment] = {}
         self._seg_mu = threading.Lock()
         self._ns = self.env.find("PS_SHM_NS", str(os.getpid()))
@@ -92,12 +104,53 @@ class ShmVan(TcpVan):
         # so a server derives the name the worker allocated under.
         self._pull_ns = (self.env.find("PS_SHM_NS")
                          or self.env.find("DMLC_PS_ROOT_PORT", "0"))
+        # Not gated on the core-count rule: the pool only takes copies of
+        # a MiB and more.  Process-wide and never closed, so no van's
+        # stop frees it under another van's copy.
+        self._copy_pool = None
+        n_copy = self.env.find_int("PS_SHM_COPY_THREADS", 4)
+        if n_copy > 0 and self._native_allowed:
+            self._copy_pool = native.shared_copy_pool(n_copy, self.env)
+        self._pipe_mode = False
+        self._pipe_bytes = self.env.find_int("PS_SHM_RING_BYTES", 1 << 22)
+        if self.env.find_int("PS_SHM_RING", 0):
+            if self._native_allowed:
+                # The pipes are the core's: asking for them takes the
+                # core whatever the core count.
+                if self._native is None:
+                    self._native = native.NativeTransport(self.env)
+                self._pipe_mode = True
+            else:
+                log.warning("PS_SHM_RING=1 needs the native core, and "
+                            "PS_NATIVE=0 selects the Python plane: staying "
+                            "on the socket")
+
+    def bind_transport(self, node, max_retry: int) -> int:
+        port = super().bind_transport(node, max_retry)
+        if self._pipe_mode:
+            # Found by name: a booting peer writes ADD_NODE before anyone
+            # knows its id.
+            self._native.pipe_watch(
+                SHM_DIR, f"pslpipe_{self._pull_ns}_", f"_{port}",
+                self.env.find_int("PS_SHM_RING_IDLE_US", 0))
+        return port
 
     def connect_transport(self, node, deadline: float = 60.0,
                           timeout_s: float = 30.0) -> None:
         super().connect_transport(node, deadline, timeout_s)
         if node.id >= 0:
             self._peer_hosts[node.id] = node.hostname
+            if (self._pipe_mode and node.port and self.my_node.port
+                    and node.hostname == self.my_node.hostname):
+                path = os.path.join(SHM_DIR, f"pslpipe_{self._pull_ns}_"
+                                             f"{self.my_node.port}_"
+                                             f"{node.port}")
+                try:
+                    self._native.pipe_connect(node.id, path,
+                                              self._pipe_bytes)
+                except OSError as exc:
+                    log.warning(f"shm pipe to node {node.id} unavailable "
+                                f"({exc!r}); staying on the socket")
 
     def _same_host(self, recver: int) -> bool:
         host = self._peer_hosts.get(recver)
@@ -116,6 +169,18 @@ class ShmVan(TcpVan):
             seg = _Segment(name, size, create)
             self._segments[name] = seg
             return seg
+
+    def _copy_into(self, dst_addr: int, arr: np.ndarray) -> None:
+        """Large copies in the native pool's threads, the rest inline."""
+        if self._copy_pool is not None and arr.nbytes >= COPY_POOL_MIN:
+            self._copy_pool.copy(dst_addr, arr.ctypes.data, arr.nbytes)
+        else:
+            ctypes.memmove(dst_addr, arr.ctypes.data, arr.nbytes)
+
+    def _native_submit(self, msg: Message):
+        """Segment placement, zero-copy pull descriptors and the pipes
+        live in ``send_msg``: data takes the Python lanes (as in JAX)."""
+        return None
 
     def _seg_write(self, seg: _Segment, off: int, data) -> int:
         """Copy one payload into a segment; returns the bytes written."""

@@ -1,14 +1,30 @@
 """TCP van — the socket transport between OS processes.
 
-Counterpart of ``pslite_tpu/vans/tcp_van.py``'s pure-Python path (the
-reference's ZMQVan, ``src/zmq_van.h``): a listener accepts inbound
-connections, each pumped by a reader thread into one receive queue, and
-sends go over one outbound socket per peer.  Frames are ``wire.py``'s,
-byte-identical to the JAX package's (its native core writes the same
-bytes), so port and JAX nodes meet in one cluster.  A frame goes out as
-one vectored ``sendmsg`` of memoryviews, and data segments are received
-with ``recv_into`` straight into recycled blocks of a receive pool
-(:class:`_RecvPool`).
+Counterpart of ``pslite_tpu/vans/tcp_van.py`` (the reference's ZMQVan,
+``src/zmq_van.h``).  Two planes carry the same frames (``wire.py``'s,
+byte-identical to the JAX package's), so port and JAX nodes, native or
+not, meet in one cluster:
+
+- **Native** (``vans/native.py``, ``docs/native_core.md``; the default
+  ``PS_NATIVE=auto`` on a host with 2 or more cores, ``PS_NATIVE=1``
+  anywhere): the core owns the sockets.  Data messages go to its
+  per-peer sender lanes as descriptors (:meth:`TcpVan._native_submit`)
+  which encode, chunk and ``writev`` without the GIL; their payload
+  arrays stay pinned until a reaper thread collects the lane's ticket.
+  Control frames are written inline by the core.  Receive pumps (one per
+  accepted connection, up to ``PSL_IO_THREADS``) frame what arrives and
+  ``recv_msg`` pops the core's queue, control and priority frames ahead
+  of bulk.  ``PS_NATIVE_RAILS`` (default 2, at most 4) stripes each
+  chunked transfer over that many connections per peer; with
+  ``PS_NATIVE_REASSEMBLY=1`` the core reassembles transfers itself.
+  The resender (``PS_RESEND``) clamps rails to 1 and turns reassembly
+  off, and is served by the Python lanes.
+- **Python** (``PS_NATIVE=0``): a listener thread accepts connections,
+  each pumped by a reader thread into one receive queue (priority
+  ordered, weighted fair across tenants); a frame goes out as one
+  vectored ``sendmsg``, and data segments are received with
+  ``recv_into`` into recycled blocks of a receive pool
+  (:class:`_RecvPool`).
 
 - Bind and connect retry (peers start in any order); ``DMLC_LOCAL=1``
   swaps TCP for unix sockets at ``<tmpdir>/pslite_ipc_<port>.sock``,
@@ -18,13 +34,10 @@ with ``recv_into`` straight into recycled blocks of a receive pool
   once after ``PS_RECONNECT_TMO`` ms (-1: never).
 - ``register_recv_buffer(sender, key, buf)``: that sender's pushes of
   ``key`` are placed in ``buf`` at delivery.
-- The receive queue is priority-ordered (FIFO within a level), so a
-  priority frame does not wait behind a decoded chunk backlog.
 
-The native core (``vans/native.py``, ``cpp/pslite_core.cc``: GIL-free
-lanes, rails, native reassembly) is ROADMAP Queue 1 item 11:
-``PS_NATIVE=auto`` (the default) means this Python path, and
-``PS_NATIVE=1`` or ``PS_NATIVE_RAILS`` above 1 raise.
+As in JAX, a native node's intake is the core's queue, which orders by
+priority only: ``PS_TENANTS``' weighted-fair receive queue runs on the
+Python plane (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -44,19 +57,36 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import wire
-from ..message import Message, Node, OPT_COMPRESS_INT8, OPT_XFER_PART
+from ..base import is_scheduler_id
+from ..message import (
+    Message,
+    Node,
+    OPT_COMPRESS_INT8,
+    OPT_XFER_PART,
+    OPT_ZPULL,
+)
 from ..sarray import SArray
 from ..utils import logging as log
 from ..utils.queues import PriorityRecvQueue
-from .chunking import recv_cost, recv_priority, recv_tenant
-from .van import Van
+from . import native
+from .chunking import (
+    NATIVE_XFER_COMPLETE,
+    finalize_native_transfer,
+    native_descriptor,
+    recv_cost,
+    recv_priority,
+    recv_tenant,
+)
+from .van import PeerDeadError, Van
 
-NATIVE_CORE_ITEM = "ROADMAP Queue 1 item 11: the native core"
 
-
-def native_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to pslite_tpu_torch ({NATIVE_CORE_ITEM})")
+def host_cores() -> int:
+    """Cores this process may run on (a container pinned to one core of
+    a large host counts one)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
 
 
 def local_sock_path(port: int) -> str:
@@ -174,10 +204,36 @@ class _RecvPool:
 class TcpVan(Van):
     def __init__(self, postoffice):
         super().__init__(postoffice)
-        if self.env.find("PS_NATIVE", "auto") in ("1", "true"):
-            raise native_not_ported("PS_NATIVE=1 (the native core)")
-        if self.env.find_int("PS_NATIVE_RAILS", 1) > 1:
-            raise native_not_ported("PS_NATIVE_RAILS > 1 (native rails)")
+        # PS_NATIVE through the node's Environment: an in-process
+        # cluster sets it per node.  auto takes the core where a spare
+        # core runs its threads (on one core the extra handoffs cost
+        # more than the GIL they avoid, as measured for JAX).
+        pref = self.env.find("PS_NATIVE", "auto")
+        self._native_allowed = pref not in ("0", "false")
+        self._native: Optional[native.NativeTransport] = None
+        self._native_rails = 1
+        if self._native_allowed and (pref in ("1", "true")
+                                     or host_cores() >= 2):
+            self._native = native.NativeTransport(self.env)
+            resend = self.env.find_int("PS_RESEND", 0) != 0
+            # Every transfer's last chunk (and every whole frame) rides
+            # rail 0, so completions arrive in submission order.  The
+            # resender acknowledges per connection: one rail.
+            self._native_rails = 1 if resend else max(1, min(4, (
+                self.env.find_int("PS_NATIVE_RAILS", 2))))
+            self._native.set_rails(self._native_rails)
+            # Opt-in: one delivery per transfer forfeits the server's
+            # streamed apply of a push's chunks.
+            self._native.set_reassembly(
+                not resend
+                and self.env.find_int("PS_NATIVE_REASSEMBLY", 0) != 0)
+        # Native sends: ticket -> (msg, descriptor), pinned from enqueue
+        # to reap (the caller's don't-mutate-until-wait contract).
+        self._nat_mu = threading.Lock()
+        self._nat_pins: Dict[int, tuple] = {}
+        self._nat_peers: set = set()
+        self._nat_wake = threading.Event()
+        self._nat_reaper: Optional[threading.Thread] = None
         self._queue = PriorityRecvQueue(
             recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
             weights=self._tenant_weights)
@@ -197,6 +253,8 @@ class TcpVan(Van):
         self._reconnect_ms = self.env.find_int("PS_RECONNECT_TMO", 100)
         self._sndbuf = self.env.find_int("PS_TCP_SNDBUF", 0)
         self._rcvbuf = self.env.find_int("PS_TCP_RCVBUF", 0)
+        if self._native is not None:
+            self._native.set_sockbuf(self._sndbuf, self._rcvbuf)
         # (sender, key) -> registered push buffer (zmq_van.h:206-263).
         self._push_recv_bufs: Dict[tuple, np.ndarray] = {}
         self._recv_pool = _RecvPool()
@@ -207,6 +265,14 @@ class TcpVan(Van):
         if self._local:
             return self._bind_local(node, max_retry)
         port = node.port
+        if self._native is not None:
+            for attempt in range(max_retry + 1):
+                try:
+                    return self._native.bind(port)
+                except OSError:
+                    if attempt == max_retry:
+                        raise
+                    port = 10000 + random.randint(0, 40000)
         for attempt in range(max_retry + 1):
             s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             try:
@@ -262,6 +328,9 @@ class TcpVan(Van):
             try:
                 fcntl.flock(lock_fd, fcntl.LOCK_EX)
                 self._reclaim_stale_local(path)
+                if self._native is not None:
+                    self._native.bind_local(path)  # unlinked at its stop
+                    return port
                 s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
                 s.bind(path)
                 s.listen(128)
@@ -296,6 +365,9 @@ class TcpVan(Van):
                           timeout_s: float = 30.0) -> None:
         if node.id < 0:
             return
+        if self._native is not None:
+            self._native_connect(node, deadline, timeout_s)
+            return
         if self._local:
             path = local_sock_path(node.port)
 
@@ -319,6 +391,34 @@ class TcpVan(Van):
                 self._apply_buf(s, socket.SO_SNDBUF, self._sndbuf)
                 return s
         self._dial_and_swap(node, connect_once, deadline)
+
+    def _native_connect(self, node: Node, deadline: float,
+                        timeout_s: float) -> None:
+        """Dial through the core: the main connection, then the extra
+        rails to a peer that receives bulk data (not the scheduler; by
+        id, as a redial knows the peer by id only)."""
+        ms = int(timeout_s * 1000)
+        if self._local:
+            with self._socks_mu:
+                if self._send_addrs.get(node.id) == (node.hostname,
+                                                     node.port):
+                    return
+            path = local_sock_path(node.port)
+            self._retry_connect(
+                lambda: self._native.connect_local(node.id, path, ms),
+                deadline)
+        else:
+            self._retry_connect(
+                lambda: self._native.connect(node.id, node.hostname,
+                                             node.port, ms), deadline)
+            if self._native_rails > 1 and not is_scheduler_id(node.id):
+                for idx in range(1, self._native_rails):
+                    self._retry_connect(
+                        lambda i=idx: self._native.add_rail(
+                            node.id, node.hostname, node.port, ms, i),
+                        deadline)
+        with self._socks_mu:
+            self._send_addrs[node.id] = (node.hostname, node.port)
 
     @staticmethod
     def _apply_buf(s: socket.socket, opt: int, nbytes: int) -> None:
@@ -410,11 +510,127 @@ class TcpVan(Van):
 
     def _send_msg_once(self, msg: Message) -> int:
         recver = msg.meta.recver
+        if self._native is not None:
+            # Inline, under the core's per-connection write lock.
+            data = [memoryview(np.ascontiguousarray(d.data)).cast("B")
+                    for d in msg.data]
+            return self._native.send(recver, wire.pack_meta(msg.meta), data)
         with self._sock_send_lock(recver):
             with self._socks_mu:
                 sock = self._send_socks.get(recver)
             log.check(sock is not None, f"tcp: not connected to node {recver}")
             return self._sendv(sock, wire.pack_frame(msg))
+
+    # -- native data plane (docs/native_core.md) -----------------------------
+
+    def _native_submit(self, msg: Message) -> Optional[int]:
+        """Queue a data message on the core's sender lane to its peer and
+        return 0: the core stamps the sid, splits chunks and writes
+        without the GIL, draining highest priority first as the Python
+        lanes do.  None (the Python lanes) without the core, under the
+        resender (its per-frame bookkeeping is Python), while draining,
+        or for a shared-memory descriptor."""
+        if (self._native is None or self.resender is not None
+                or self._lane_stop):
+            return None
+        m = msg.meta
+        if m.shm_data:
+            return None
+        # A zero-copy pull response is placed whole: never chunked.
+        chunk_bytes = 0 if m.option == OPT_ZPULL else self._chunk_bytes
+        desc = native_descriptor(msg, chunk_bytes, self._xfer_seq)
+        with self._nat_mu:
+            # Enqueue and pin under one lock: the reaper may collect the
+            # ticket before this thread returns, and a ticket without
+            # its pin would be dropped and its pin wedge the reaper.
+            ticket = self._native.send_enqueue(
+                m.recver, m.priority, desc.meta_buf, desc.arrs,
+                desc.chunk_bytes, desc.ext_off)
+            self._nat_pins[ticket] = (msg, desc)
+            self._nat_peers.add(m.recver)
+            if self._nat_reaper is None or not self._nat_reaper.is_alive():
+                self._nat_reaper = threading.Thread(
+                    target=self._native_reaper_loop, name="tcp-native-reap",
+                    daemon=True)
+                self._nat_reaper.start()
+        self._nat_wake.set()
+        log.vlog(2, lambda: f"NSEND {msg.debug_string()}")
+        return 0  # bytes are accounted at reap
+
+    def _reap_native(self, peers=None) -> None:
+        """Collect finished tickets: a sent frame counts its bytes and
+        frames; an abandoned one fails its request (unless the van is
+        stopping)."""
+        nt = self._native
+        if nt is None:
+            return
+        with self._nat_mu:
+            targets = list(self._nat_peers if peers is None else peers)
+        for peer in targets:
+            try:
+                done = nt.send_reap(peer)
+            except Exception:  # noqa: BLE001 - the core is being torn down
+                continue
+            for ticket, status in done:
+                with self._nat_mu:
+                    pin = self._nat_pins.pop(ticket, None)
+                if pin is None:
+                    continue
+                msg, desc = pin
+                if status == 0:
+                    with self._bytes_mu:
+                        self.send_bytes += desc.wire_bytes
+                        self.frames_sent += desc.n_chunks
+                        if desc.n_chunks > 1:
+                            self.chunks_sent += desc.n_chunks
+                    self.profiler.record(msg.meta.key, "send",
+                                         msg.meta.push)
+                    continue
+                if self._closing or self._lane_stop:
+                    log.warning(f"native lane abandoned a send to node "
+                                f"{peer} at shutdown (status {status})")
+                    continue
+                exc: Exception = (
+                    PeerDeadError(f"node {peer} declared dead with the "
+                                  f"message in its native send lane")
+                    if self.is_peer_down(peer)
+                    else OSError(-status, os.strerror(-status)))
+                self._delivery_failed(msg, exc)
+
+    def _native_reaper_loop(self) -> None:
+        """Poll completions while pins are out, park while idle, leave
+        at close after one last reap (``post_stop`` joins this thread
+        before it destroys the core)."""
+        while True:
+            if self._closing:
+                self._reap_native()
+                return
+            if self._nat_pins:
+                self._reap_native()
+                time.sleep(0.002)
+                continue
+            self._nat_wake.wait(timeout=0.2)
+            self._nat_wake.clear()
+
+    def _drain_send_lanes(self, timeout_s: float = 10.0) -> None:
+        # The Python lanes first (their control frames go through the
+        # core inline), then the native lanes: TERMINATE overtakes
+        # queued data in neither plane.
+        super()._drain_send_lanes(timeout_s)
+        if self._native is not None and self._nat_pins:
+            if not self._native.send_flush(int(timeout_s * 1000)):
+                log.warning("native send lanes did not drain before "
+                            "shutdown; abandoning the backlog")
+            self._reap_native()
+
+    def mark_peer_down(self, node_id: int) -> None:
+        super().mark_peer_down(node_id)
+        if self._native is not None:
+            try:
+                self._native.send_cancel(node_id)
+            except Exception:  # noqa: BLE001 - the core may be stopping
+                pass
+            self._reap_native([node_id])
 
     def _chunk_recv_alloc(self, nbytes: int) -> np.ndarray:
         """Reassembly buffers from the receive pool (its refcount probe
@@ -471,13 +687,30 @@ class TcpVan(Van):
                         f"{m.key}: {exc!r}; delivering unpinned")
 
     def recv_msg(self) -> Optional[Message]:
-        return self._queue.wait_and_pop()
+        if self._native is None:
+            return self._queue.wait_and_pop()
+        res = self._native.recv(-1)
+        if res is None:
+            return None
+        meta_buf, segs = res
+        msg = wire.rebuild_message(wire.unpack_meta(meta_buf), segs)
+        ck = msg.meta.chunk
+        if ck is not None and ck.index == NATIVE_XFER_COMPLETE:
+            # The core reassembled the whole transfer: its frames.
+            with self._bytes_mu:
+                self.chunks_recv += ck.total
+                self.frames_recv += ck.total - 1  # _receiving counts one
+            return finalize_native_transfer(msg)
+        return msg
 
     def stop_transport(self) -> None:
-        """Wake ``recv_msg`` and close every socket: the listener (its
-        accept thread wakes), the outbound ones, and the inbound ones
-        (their readers end)."""
+        """Wake ``recv_msg`` and close every socket: the core's (its
+        ``recv`` returns None), the listener (its accept thread wakes),
+        the outbound ones, and the inbound ones (their readers end)."""
         self._closing = True
+        self._nat_wake.set()  # the reaper leaves after a last reap
+        if self._native is not None:
+            self._native.stop()
         if self._listener is not None:
             for fn in (lambda: self._listener.shutdown(socket.SHUT_RDWR),
                        self._listener.close):
@@ -504,6 +737,14 @@ class TcpVan(Van):
         self._queue.push(None)
 
     def post_stop(self) -> None:
+        # The reaper polls the core: it retires before the core dies.
+        reaper = self._nat_reaper
+        if reaper is not None and reaper.is_alive():
+            self._nat_wake.set()
+            reaper.join(timeout=5)
+        self._nat_reaper = None
+        if self._native is not None:
+            self._native.destroy()  # after the receive thread joined
         threads = [t for t, _c in self._readers]
         if self._accept_thread is not None:
             threads.append(self._accept_thread)

@@ -33,9 +33,16 @@ peer's transmit lock; ``stop()`` drains every lane before the TERMINATE
 self-send; a lane's dispatch error is parked and re-raised by the next
 ``send()``.
 
+Native data plane (``docs/native_core.md``): ``send`` first offers a
+data message to the transport's ``_native_submit`` (the tcp van's native
+sender lanes take it whole, chunk split included); ``None`` takes the
+Python lanes below.  With ``PS_TENANTS`` the native lanes are not
+offered anything: they order by priority only.  The chunk assembler's
+large copies run in the native copy pool unless ``PS_NATIVE=0``.
+
 Not in this port (each raises or is absent, named by its ROADMAP Queue 1
-item): the native core's sender lanes (item 11); late registration and
-node recovery, elastic admission, routing epochs and removal,
+item): late registration and node recovery (so no peer's sids are ever
+reset), elastic admission, routing epochs and removal,
 metrics/trace/snapshot pulls (item 8).  Tenants (``PS_TENANTS``,
 ``tenants.py``): each lane dequeues bulk traffic weighted-fair across
 tenants by bytes (``LaneQueue(weights)``), as the receive intake does.
@@ -79,6 +86,7 @@ from ..utils import logging as log
 from ..utils.network import get_ip
 from ..tenants import table_for
 from ..utils.queues import LaneQueue
+from . import native
 from .chunking import ChunkAssembler, split_message
 from .resender import Resender
 
@@ -175,7 +183,8 @@ class Van:
         self._xfer_seq = itertools.count(1)
         self._assembler = ChunkAssembler(
             ttl_s=self.env.find_float("PS_XFER_TIMEOUT", 120.0),
-            alloc=self._chunk_recv_alloc)
+            alloc=self._chunk_recv_alloc,
+            copy_kernel=native.scatter_copy_kernel(self.env))
 
     # -- transport interface -------------------------------------------------
 
@@ -207,6 +216,13 @@ class Van:
     def _chunk_recv_alloc(self, nbytes: int) -> np.ndarray:
         """Reassembly buffers (a pooled transport overrides this)."""
         return np.empty(nbytes, np.uint8)
+
+    def _native_submit(self, msg: Message) -> Optional[int]:
+        """Hand a data message to native sender lanes and return 0, or
+        None to take the Python lanes.  A transport that accepts owns
+        the message from here: sids, chunk split, byte counters and
+        failure reporting."""
+        return None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -384,6 +400,10 @@ class Van:
                 f"node {msg.meta.recver} was declared dead by the "
                 f"failure detector")
         m = msg.meta
+        if m.control.empty() and not self.tenants.enabled:
+            nbytes = self._native_submit(msg)
+            if nbytes is not None:
+                return nbytes
         if (self._chunk_bytes > 0 and m.control.empty() and m.chunk is None
                 and m.data_size > self._chunk_bytes
                 and m.option != OPT_ZPULL and not m.shm_data):

@@ -56,7 +56,7 @@ def test_registry_names_and_wire_ids_match():
             j.wire_id, j.block, j.code_bytes_per_elem)
         assert tc.by_wire_id(t.wire_id) is t
     assert tc.BLOCK == jc.BLOCK and tc.FLAG_HAS_NAN == jc.FLAG_HAS_NAN
-    assert tc._native_codec() is None  # the native core: item 11
+    assert tc._native_codec() is not None  # the native core, by default
     with pytest.raises(AssertionError, match="unknown codec"):
         tc.get_codec("fp4")
     with pytest.raises(AssertionError, match="unknown codec wire id"):

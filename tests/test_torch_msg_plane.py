@@ -671,10 +671,6 @@ def test_joint_role_and_instance_groups_start_and_finalize():
     # One device group across worker processes: the multi-card item.
     ("ici_tcp", {"PS_ICI_MULTIHOST": "1"}, 9),
     ("ici_shm", {"PS_ICI_MULTIHOST": "1"}, 9),
-    # The native core: its lanes, rails and shared-memory pipes.
-    ("tcp", {"PS_NATIVE": "1"}, 11),
-    ("multi", {"PS_NATIVE_RAILS": "2"}, 11),
-    ("shm", {"PS_SHM_RING": "1"}, 11),
 ])
 def test_socket_vans_raise_naming_their_roadmap_item(van, env, item):
     """The socket vans are ported (tests/test_torch_tcp.py); what they

@@ -25,8 +25,10 @@ from pslite_tpu_torch.vans.shm_van import SHM_DIR
 
 from test_torch_tcp import (  # noqa: F401 - jax_reference is a fixture
     MIXES,
+    PLANES,
     assert_bit_equal,
     assert_chunked,
+    assert_plane,
     cluster_env,
     jax_reference,
     results,
@@ -44,11 +46,14 @@ def leftover_segments(env):
     return [f for f in os.listdir(SHM_DIR) if env["PS_SHM_NS"] in f]
 
 
+@pytest.mark.parametrize("plane", sorted(PLANES))
 @pytest.mark.parametrize("mix", ["jax_worker_port_servers",
                                  "port_worker_jax_servers"])
 def test_mixed_shm_cluster_with_zero_copy_pulls(tmp_path, jax_reference,
-                                                mix):
-    env = shm_env()
+                                                mix, plane):
+    """On both of the port's planes: the native core's sockets (and its
+    copy pool for the segments) or Python's."""
+    env = shm_env(**PLANES[plane])
     procs = [(pkg, roles, {"PSTEST_ZPULL": "1"})
              for pkg, roles, _ in MIXES[mix]]
     reports = run_cluster(tmp_path, env, procs)
@@ -56,6 +61,7 @@ def test_mixed_shm_cluster_with_zero_copy_pulls(tmp_path, jax_reference,
     assert_chunked(reports)
     worker = [r for r in reports if "worker" in r["roles"]][0]
     assert worker["zpull_hits"] == 1  # the pull skipped reassembly
+    assert_plane(reports, plane)
     assert not leftover_segments(env)
 
 

@@ -6,7 +6,9 @@ the JAX package's, across real OS processes.
   package's Python path for every variant of
   ``tests/test_native_plane.py:_variants``.
 - Clusters over tcp (each of ``tests/torch_mixed_child.py``'s processes
-  hosts some of the nodes of one package): a JAX scheduler and worker
+  hosts some of the nodes of one package), the key ones on both of the
+  port's planes (the native core by default, ``PS_NATIVE=0``): a JAX
+  scheduler and worker
   against port servers, a port worker against JAX servers, all-port;
   the first two also under each wire codec (``register_bucket`` and
   ``codec=``); all-port with and without the apply-shard pool, the
@@ -187,11 +189,27 @@ MIXES = {
 }
 
 
+# The port's two planes: the native core (the default on this host's
+# cores) and the Python one.
+PLANES = {"native": {}, "python": {"PS_NATIVE": "0"}}
+
+
+def assert_plane(reports, plane):
+    """Every node of the port ran the plane ``plane``."""
+    for r in reports:
+        if r["pkg"] == "port":
+            assert r["native"] == [plane == "native"] * len(r["roles"]), r
+
+
+@pytest.mark.parametrize("plane", sorted(PLANES))
 @pytest.mark.parametrize("mix", sorted(MIXES))
-def test_mixed_tcp_cluster_bit_equal_to_jax(tmp_path, jax_reference, mix):
-    reports = run_cluster(tmp_path, cluster_env("tcp"), MIXES[mix])
+def test_mixed_tcp_cluster_bit_equal_to_jax(tmp_path, jax_reference, mix,
+                                            plane):
+    reports = run_cluster(tmp_path, cluster_env("tcp", **PLANES[plane]),
+                          MIXES[mix])
     assert_bit_equal(results(tmp_path), jax_reference)
     assert_chunked(reports)
+    assert_plane(reports, plane)
 
 
 def assert_chunked(reports):
@@ -202,8 +220,10 @@ def assert_chunked(reports):
     assert sum(s + r for s, r in chunks) > 0, reports
 
 
+@pytest.mark.parametrize("plane", sorted(PLANES))
 @pytest.mark.parametrize("case", ["multi_mixed", "local_port"])
-def test_multi_rail_and_local_socket_clusters(tmp_path, jax_reference, case):
+def test_multi_rail_and_local_socket_clusters(tmp_path, jax_reference, case,
+                                              plane):
     """``multi`` with 2 tcp rails (a JAX worker against port servers:
     each transfer's chunks stripe over both rails), and ``DMLC_LOCAL``
     unix sockets under the children's own temporary directory, where no
@@ -211,14 +231,16 @@ def test_multi_rail_and_local_socket_clusters(tmp_path, jax_reference, case):
     tmpdir = tmp_path / "tmp"
     tmpdir.mkdir()
     if case == "multi_mixed":
-        env = cluster_env("multi", DMLC_NUM_PORTS="2")
+        env = cluster_env("multi", DMLC_NUM_PORTS="2", **PLANES[plane])
         procs = MIXES["jax_worker_port_servers"]
     else:
-        env = cluster_env("tcp", DMLC_LOCAL="1", TMPDIR=str(tmpdir))
+        env = cluster_env("tcp", DMLC_LOCAL="1", TMPDIR=str(tmpdir),
+                          **PLANES[plane])
         procs = MIXES["all_port"]
     reports = run_cluster(tmp_path, env, procs)
     assert_bit_equal(results(tmp_path), jax_reference)
     assert_chunked(reports)
+    assert_plane(reports, plane)
     assert not [f for f in os.listdir(tmpdir) if f.endswith(".sock")]
 
 
@@ -234,6 +256,7 @@ def test_ici_tcp_worker_process_runs_the_bucket_and_the_messages(tmp_path,
     assert_bit_equal(results(tmp_path), jax_reference)
     worker = [r for r in reports if r["roles"] == ["worker"]][0]
     assert worker["bucket_steps"] == 3
+    assert worker["native"] == [True]  # the engine beside the native core
 
 
 _CODEC_REFS = {}
@@ -415,8 +438,11 @@ def _read_exact(conn, n):
     return bytes(buf)
 
 
+@pytest.mark.parametrize("plane", sorted(PLANES))
 @pytest.mark.parametrize("variant", [v[0] for v in _variants()])
-def test_chunk_frames_byte_identical_to_jax(variant):
+def test_chunk_frames_byte_identical_to_jax(variant, plane):
+    """The port's chunks as its van writes them, inline: through the
+    core's ``psl_send`` or Python's ``sendmsg``."""
     name, jmsg, chunk_bytes = [v for v in _variants() if v[0] == variant][0]
     want, n_frames = _python_wire_bytes(jmsg, chunk_bytes, xfer_id=5,
                                         sid_start=3)
@@ -427,7 +453,8 @@ def test_chunk_frames_byte_identical_to_jax(variant):
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
     srv.listen(1)
-    van = TcpVan(_StubPo())
+    van = TcpVan(_StubPo(PLANES[plane]))
+    assert (van._native is not None) == (plane == "native")
     try:
         van.connect_transport(Node(id=77, hostname="127.0.0.1",
                                    ports=[srv.getsockname()[1]]))

@@ -7,7 +7,8 @@ and:
 - ``PSTEST_PKG``: ``jax`` or ``port``, the package this process runs;
 - ``PSTEST_ROLES``: the nodes this process hosts, e.g.
   ``scheduler,worker`` or ``server,server`` (each its own Postoffice,
-  started on its own thread);
+  started on its own thread); a role may name its own package,
+  ``server@port``, so one process hosts nodes of both;
 - ``PSTEST_OUT``: a directory for the results: ``server<rank>.npz``
   (the server's store) and ``worker<rank>.npz`` (what it pulled);
 - ``PSTEST_ZPULL=1``: the worker pulls into ``alloc_pull_buffer``;
@@ -20,9 +21,12 @@ and:
   ``multi_get``, tenants, repeat pulls), for clusters launched with
   ``PS_BATCH_BYTES``, ``PS_TENANTS`` or ``PS_HOT_CACHE``; it reports how
   many batch frames its combiner sent.
+- ``PSTEST_STORM=1``: the worker runs :func:`run_storm_worker` (bulk
+  pushes with priority pushes between them and int8-coded ones).
 
 Port servers report ``streams_opened`` (chunked pushes applied as their
-chunks landed).
+chunks landed); every process reports ``native`` and ``pipe_mode``, per
+node whether its van runs the native core and its shared-memory pipes.
 
 It prints one JSON line per process (``{"ok": true, ...}``) and exits 0,
 or prints the error and exits 1.  A process still running after
@@ -161,6 +165,39 @@ def run_tier_worker(kv, po) -> dict:
     return out
 
 
+def run_storm_worker(kv, po) -> dict:
+    """The native plane's storm (``tests/test_native_plane.py``'s
+    ``_tcp_storm`` over the scenario's keys): 4 rounds of a bulk push
+    and a priority-1 push of small keys in flight together, every other
+    round also an int8-coded bulk push; then a pull of each.  Returns
+    the pulls."""
+    keys = scenario_keys(po)
+    small = keys + np.uint64(7)
+    rng = np.random.default_rng(SEED + 3)
+    big = rng.standard_normal(len(keys) * VAL_LEN, dtype=np.float32)
+    tiny = rng.standard_normal(len(keys) * 16, dtype=np.float32)
+    for i in range(4):
+        ts1 = kv.push(keys, big)
+        ts2 = kv.push(small, tiny, priority=1)
+        kv.wait(ts1)
+        kv.wait(ts2)
+        if i % 2:
+            kv.wait(kv.push(keys, big, codec="int8"))
+    out = {"keys": keys, "pull": np.zeros_like(big),
+           "pull_small": np.zeros_like(tiny)}
+    kv.wait(kv.pull(keys, out["pull"]))
+    kv.wait(kv.pull(small, out["pull_small"]))
+    return out
+
+
+def native_of(van) -> bool:
+    """Whether a van (every rail of a composite) runs the native core."""
+    rails = getattr(van, "_rails", None)
+    if rails is not None:
+        return all(native_of(r) for r in rails)
+    return getattr(van, "_native", None) is not None
+
+
 def run_bucket(ps, kv, steps: int = 3) -> dict:
     """The engine path beside the message path: a registered bucket of
     integer-valued grads (exact sums in any order)."""
@@ -206,27 +243,40 @@ def run_all(fns) -> None:
 
 
 def main() -> int:
-    pkg = os.environ["PSTEST_PKG"]
-    roles = os.environ["PSTEST_ROLES"].split(",")
+    default_pkg = os.environ["PSTEST_PKG"]
+    roles, pkgs = [], []
+    for tok in os.environ["PSTEST_ROLES"].split(","):
+        role, _, pkg = tok.partition("@")
+        roles.append(role)
+        pkgs.append(pkg or default_pkg)
     out_dir = os.environ["PSTEST_OUT"]
-    ps, Environment, role_of = api(pkg)
-    if pkg == "jax" and os.environ.get("PSTEST_CODEC") == "fp8_e4m3":
+    if "jax" in pkgs and os.environ.get("PSTEST_CODEC") == "fp8_e4m3":
         # The JAX package sets its two fp8 tables one after the other,
         # so shard threads decoding at once may find the second unset
         # (ROADMAP Queue 3): build them before any thread starts.
         from pslite_tpu.ops import codecs
 
         codecs.Fp8E4M3Codec._luts()
-    nodes = [ps.Postoffice(role_of(r), env=Environment({})) for r in roles]
+    nodes, mods = [], {}
+    for r, pkg in zip(roles, pkgs):
+        ps, Environment, role_of = api(pkg)
+        po = ps.Postoffice(role_of(r), env=Environment({}))
+        nodes.append(po)
+        mods[id(po)] = ps
     cpu_group = int(os.environ.get("PSTEST_CPU_GROUP", "0"))
     for po in nodes:
         if cpu_group and po.is_worker:
-            po.van.set_mesh(ps.DeviceGroup(cpu_group, device="cpu"))
+            po.van.set_mesh(mods[id(po)].DeviceGroup(cpu_group, device="cpu"))
     run_all([po.start for po in nodes])
-    apps, report = [], {"ok": True, "pkg": pkg, "roles": roles}
+    apps, report = [], {"ok": True, "pkg": pkgs[0] if len(set(pkgs)) == 1
+                        else "both", "roles": roles,
+                        "native": [native_of(po.van) for po in nodes],
+                        "pipe_mode": [getattr(po.van, "_pipe_mode", False)
+                                      for po in nodes]}
     try:
         servers = []
         for po in nodes:
+            ps = mods[id(po)]
             if po.is_server:
                 srv = ps.KVServer(0, postoffice=po)
                 srv.set_request_handle(ps.KVServerDefaultHandle())
@@ -238,15 +288,18 @@ def main() -> int:
             servers save their stores after the last push."""
             if po.is_worker:
                 worker_scenario(po)
-            po.barrier(0, ps.ALL_GROUP)
+            po.barrier(0, mods[id(po)].ALL_GROUP)
 
         def worker_scenario(po):
+            ps = mods[id(po)]
             kv = ps.KVWorker(0, 0, postoffice=po)
             apps.append(kv)
             if cpu_group:
                 report.update(run_bucket(ps, kv))
             codec = os.environ.get("PSTEST_CODEC")
-            if os.environ.get("PSTEST_TIERS") == "1":
+            if os.environ.get("PSTEST_STORM") == "1":
+                res = run_storm_worker(kv, po)
+            elif os.environ.get("PSTEST_TIERS") == "1":
                 res = run_tier_worker(kv, po)
                 comb = kv.combiner
                 report["batch_frames"] = (comb.flushed_frames
@@ -267,7 +320,7 @@ def main() -> int:
         for a in apps:
             a.stop()
         run_all([po.finalize for po in nodes])
-    if pkg == "port":
+    if report["pkg"] == "port":
         report["chunks"] = {r: [po.van.chunks_sent, po.van.chunks_recv]
                             for r, po in zip(roles, nodes)}
         report["streams_opened"] = [srv.streams_opened
