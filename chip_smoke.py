@@ -109,7 +109,7 @@ line):
    ``msg-config2-serial`` (the same with ``PS_APPLY_SHARDS=0``),
    ``msg-pool-vs-serial`` (one worker's 3 pushes of normal floats and a
    pull, pool and serial stores and pulls bit-equal),
-   ``msg-config2-int8``/``-fp8_e4m3``/``-bf16`` (2 warm-up and 5 timed
+   ``msg-config2-int8``/``-fp8_e4m3``/``-bf16`` (2 warm-up and 3 timed
    rounds; both workers ``register_bucket`` the keys under the codec,
    normal floats; every
    pull within the codec's bound of the float64 sum of the pushes, each
@@ -183,6 +183,29 @@ line):
    offered 64 pushes at once: applied, shed, store exact).
    ``msg-ici-mixed`` also runs with ``PS_BATCH_BYTES=262144`` and issues
    a ``multi_get`` of 64 single-row lookups of 64 B beside the bucket.
+   Then recovery, each part with the card's name and power limit and
+   the host CPU: ``recovery-keepalive`` (JAX's
+   ``test_elastic.py::test_worker_crash_recovery_end_to_end`` through
+   the port's launcher with keepalive: 1 scheduler, 1 server and 2
+   worker processes over tcp, heartbeats 1 s / 2 s; the ``ici_tcp``
+   worker, 8 ranks on cuda:0, pushes the 40 x 1 MB bucket through K4
+   from device grads and 16 x 1 MB keys over messages in each life,
+   exits 254 twice and finishes in its third life; each life must take
+   the dead id back and launch K4, the other worker pulls until the
+   store is exact; exit -> restart, restart -> the roster carrying
+   ``is_recovery``, restart -> the first exact round),
+   ``deadline-timeout`` (JAX's ``test_fault_tolerance.py::
+   test_wait_raises_timeout_against_killed_server`` at full width: 1 +
+   1 + 1 processes over tcp, heartbeats 0.3 s / 1.0 s,
+   ``PS_REQUEST_TIMEOUT=0.3``, ``PS_REQUEST_RETRIES=2``, 8 pushes of the
+   40 x 1 MB bucket in flight when the server process is SIGKILLed:
+   every outstanding wait raises TimeoutError, none hangs, no callback
+   fires; kill -> detection, kill -> the last raise) and
+   ``chaos-matrix`` (JAX's ``test_chaos.py::
+   test_chaos_matrix_healed_by_resender`` spec over ``chaos+tcp`` with
+   ``PS_RESEND=1``: 1 worker + 2 servers in this process, 40 x 1 MB
+   keys per server pushed and pulled, every pull exact, ms/round
+   against a plain tcp leg, rounds alternating; the chaos counters).
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1940,7 +1963,7 @@ def steady_state_sparse(torch, ps, Environment, emb):
 # -- the message control plane in one process ---------------------------------
 
 MSG_ROUNDS, MSG_WARMUP = 10, 2
-CODEC_ROUNDS = 5  # each codec round also checks 20.48M values per worker
+CODEC_ROUNDS = 3  # each codec round also checks 20.48M values per worker
 MSG_KEYS_PER_SERVER = 40  # test_benchmark.cc:25-30 NUM_KEY_PER_SERVER
 MSG_LOOSE_KEYS = 16  # unregistered 1 MB keys of the mixed ici phase
 MSG_DEADLINE = 300.0
@@ -2910,6 +2933,8 @@ def node_main() -> int:
     from pslite_tpu_torch.ops import ring_collective as ring
 
     spec = json.loads(os.environ["SMOKE_SPEC"])
+    if spec.get("phase") == "recovery":
+        return node_recovery(spec)
     role = os.environ["DMLC_ROLE"]
     ranks = spec.get("ranks", 0)
     if role == "worker" and ranks:
@@ -2950,11 +2975,17 @@ def node_main() -> int:
         else:
             report.update(node_rounds(ps, po, kv, spec))
     # finalize's barrier keeps the servers answering until every worker
-    # is done; the apps stop after it.
+    # is done; the apps stop after it.  With the server killed
+    # (``deadline``) there is no barrier to meet: the scheduler (the
+    # failure detector) and the server (until it is killed) stay up
+    # until the parent closes their stdin.
+    deadline = spec.get("phase") == "deadline"
+    if deadline and role != "worker":
+        sys.stdin.read()
     if pos:
         pos[0].finalize()
     else:
-        ps.finalize()
+        ps.finalize(do_barrier=not deadline)
     for a in apps:
         a.stop()
     for key in ("delivered_in_place", "streams_opened"):
@@ -3562,9 +3593,221 @@ def node_goodput(ps, po, kv, spec) -> dict:
     return {"pushes": pushes}
 
 
+# -- recovery: keepalive restarts, request deadlines, chaos ------------------
+
+RECOVERY_CRASHES = 2  # the ici_tcp worker's crashes; it finishes in life 3
+RECOVERY_STEPS = 2    # K4 push_pulls of the bucket per life
+RECOVERY_HB = {"PS_HEARTBEAT_INTERVAL": "1", "PS_HEARTBEAT_TIMEOUT": "2"}
+DEADLINE_ENV = {"PS_HEARTBEAT_INTERVAL": "0.3", "PS_HEARTBEAT_TIMEOUT": "1.0",
+                "PS_REQUEST_TIMEOUT": "0.3", "PS_REQUEST_RETRIES": "2"}
+DEADLINE_DEPTH = 8    # pushes of the 40 x 1 MB bucket in flight
+CHAOS_SPEC = "seed=11,drop=0.15,delay=0.5:2,reorder=0.1,dup=0.1"
+CHAOS_ROUNDS = 3      # timed rounds per leg, after one warm-up round
+T_PROC = time.time()  # this process's start (a restarted node's clock)
+
+
+def recovery_vals(who: int, life: int) -> np.ndarray:
+    """A worker's push to the loose keys in one life: small integers, so
+    the store is exact whatever order the pushes land in."""
+    rng = np.random.default_rng(SEED + 100 * who + life)
+    return rng.integers(-8, 8, size=MSG_LOOSE_KEYS * VAL_LEN).astype(
+        np.float32)
+
+
+def recovery_store(crashes: int) -> np.ndarray:
+    want = recovery_vals(0, 0).astype(np.float64)
+    for life in range(crashes + 1):
+        want += recovery_vals(1, life)
+    return want
+
+
+def node_recovery(spec) -> int:
+    """One node of ``recovery-keepalive``, started (and restarted) by the
+    port's launcher with keepalive.  The first worker process to claim
+    ``crasher.claim`` is the crasher: preferred rank 1, the ``ici_tcp``
+    van with the engine on ``N`` ranks of cuda:0; in each life it pushes
+    the 40 x 1 MB bucket through K4 from device grads (against float64)
+    and its life's values to the 16 x 1 MB loose keys over messages,
+    then exits 254 until it has crashed ``spec["crashes"]`` times (its
+    claim given back, so its restart claims it again).  The other worker
+    (rank 0, tcp) pushes its values once and pulls until the server's
+    store holds every push exactly.  Lines ``EVENT <json>`` carry the
+    wall-clock times the parent reads."""
+    import torch
+    import pslite_tpu_torch as ps
+    from pslite_tpu_torch.environment import Environment
+    from pslite_tpu_torch.ops import ring_collective as ring
+
+    def event(**kv):
+        print("EVENT " + json.dumps(kv), flush=True)
+
+    role = os.environ["DMLC_ROLE"]
+    env = dict(os.environ)
+    crasher = False
+    life = 0
+    if role == "worker":
+        try:
+            os.close(os.open(os.path.join(spec["dir"], "crasher.claim"),
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+            crasher = True
+        except FileExistsError:
+            pass
+    marker = os.path.join(spec["dir"], "crashes")
+    if crasher and os.path.exists(marker):
+        with open(marker) as f:
+            life = int(f.read().strip() or "0")
+    if crasher and life:
+        # A restart: let the scheduler's detector see the old id dead.
+        time.sleep(float(env["PS_HEARTBEAT_TIMEOUT"]) + 1.5)
+    if role == "server" or (role == "worker" and not crasher):
+        env["DMLC_RANK"] = "0"
+    if crasher:
+        env.update(DMLC_RANK="1", PS_VAN_TYPE="ici_tcp")
+    t_register = time.time()
+    po = ps.Postoffice(role, env=Environment(env))
+    if crasher:
+        po.van.set_mesh(ps.DeviceGroup(N))
+    po.start()
+    t_ready = time.time()
+    apps = []
+    report = {"role": role, "crasher": crasher, "ok": True}
+    if role == "server":
+        srv = ps.KVServer(0, postoffice=po)
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        apps.append(srv)
+    loose = np.arange(MSG_LOOSE_KEYS, dtype=np.uint64) + 2_000_000
+    if role == "worker":
+        kv = ps.KVWorker(0, 0, postoffice=po)
+        apps.append(kv)
+    if crasher:
+        event(kind="life", life=life, id=po.van.my_node.id,
+              recovery=po.is_recovery, t_proc=T_PROC,
+              t_register=t_register, t_ready=t_ready)
+        ring.reset_launches()
+        bucket = np.arange(KEYS, dtype=np.uint64)
+        kv.register_dense("grads", bucket, VAL_LEN)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + life)
+        outs = torch.zeros(P, device="cuda")
+        s64 = torch.zeros(P, dtype=torch.float64, device="cuda")
+        mag = torch.zeros(P, dtype=torch.float64, device="cuda")
+        for k in range(spec["steps"]):
+            g = torch.randn((N, P), device="cuda", generator=gen)
+            kv.wait(kv.push_pull(bucket, g, outs))
+            s64 += g.double().sum(0)
+            mag += g.double().abs().sum(0)
+            err = (outs.double() - s64).abs()
+            if not bool((err <= 1e-6 + (k + 1) * (N + 1) * 2.0 ** -24
+                         * mag).all()):
+                raise AssertionError(f"life {life} step {k}: the bucket is "
+                                     f"off float64 by {float(err.max())}")
+            if k == 0:
+                kv.wait(kv.push(loose, recovery_vals(1, life)))
+                event(kind="round", life=life, t=time.time(),
+                      max_abs_err_vs_f64=float(err.max()))
+        torch.cuda.synchronize()
+        k4 = ring.launches.get("ring_push_pull[float32]", 0)
+        if life < spec["crashes"]:
+            with open(marker, "w") as f:
+                f.write(str(life + 1))
+            os.unlink(os.path.join(spec["dir"], "crasher.claim"))
+            event(kind="crash", life=life, k4=k4, t=time.time())
+            os._exit(254)  # after its pushes, before finalize
+        report.update(k4=k4, life=life)
+    elif role == "worker":
+        kv.wait(kv.push(loose, recovery_vals(0, 0)))
+        want = recovery_store(spec["crashes"])
+        out = np.zeros(MSG_LOOSE_KEYS * VAL_LEN, np.float32)
+        end = time.monotonic() + spec["poll_s"]
+        polls = 0
+        while True:
+            kv.wait(kv.pull(loose, out))
+            polls += 1
+            if np.array_equal(out, want):
+                break
+            if time.monotonic() > end:
+                raise AssertionError(f"the store never held every push "
+                                     f"({int((out != want).sum())} values "
+                                     f"short after {polls} pulls)")
+            time.sleep(0.2)
+        event(kind="poll_ok", t=time.time(), polls=polls)
+    po.finalize()
+    for a in apps:
+        a.stop()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def node_deadline(ps, po, kv, spec) -> dict:
+    """The ``deadline-timeout`` worker: after warm-up rounds, prints
+    ``READY`` and on the parent's go keeps ``DEADLINE_DEPTH`` pushes of
+    the 40 x 1 MB bucket in flight, each with a callback, until a wait
+    raises (the parent kills the server in between); then it waits every
+    outstanding push.  Every wait after the first TimeoutError must
+    raise it too, no failed push's callback may fire, and the whole
+    drain is bounded by a watchdog."""
+    import collections
+
+    from pslite_tpu_torch.base import server_rank_to_id
+
+    server = server_rank_to_id(0)
+    detected = []
+    po.register_node_failure_hook(
+        lambda nid, down: detected.append(time.time())
+        if down and nid == server else None)
+    keys = np.array([po.get_server_key_ranges()[0].begin + i
+                     for i in range(KEYS)], np.uint64)
+    vals = np.random.default_rng(SEED + 11).integers(
+        -8, 8, size=KEYS * VAL_LEN).astype(np.float32)
+    for _ in range(2):
+        kv.wait(kv.push(keys, vals))
+    for _ in node_windows({"windows": 1}):
+        pass
+    watchdog = threading.Timer(60.0, lambda: (
+        print("deadline-timeout: a wait hung", flush=True), os._exit(3)))
+    watchdog.start()
+    fired, ok, failed = set(), [], []
+    outstanding = collections.deque()
+    t_last, n = None, 0
+    while True:
+        while not failed and len(outstanding) < DEADLINE_DEPTH:
+            ts = kv.push(keys, vals, callback=lambda i=n: fired.add(i))
+            outstanding.append((n, ts))
+            n += 1
+        if not outstanding:
+            break
+        i, ts = outstanding.popleft()
+        try:
+            kv.wait(ts)
+        except TimeoutError:
+            failed.append(i)
+            t_last = time.time()
+            continue
+        if failed:
+            raise AssertionError(f"push {i} completed after push "
+                                 f"{failed[0]} timed out")
+        ok.append(i)
+    watchdog.cancel()
+    if fired & set(failed):
+        raise AssertionError(f"callbacks of failed pushes fired: "
+                             f"{sorted(fired & set(failed))}")
+    if not set(ok) <= fired:
+        raise AssertionError("a completed push's callback did not fire")
+    end = time.monotonic() + 15.0
+    while not detected and time.monotonic() < end:
+        time.sleep(0.01)  # the waits may all have raised before it
+    if not detected:
+        raise AssertionError("the failure detector never reported the "
+                             "killed server")
+    report = {"ok_pushes": len(ok), "failed_pushes": len(failed),
+              "t_detected": detected[0], "t_last_raise": t_last,
+              "pending_left": len(kv._pending)}
+    window_done(report)  # before the parent lets the scheduler go
+    return report
+
+
 TIER_NODES = {"small-op": node_small_op, "fanin": node_fanin,
               "hot-cache": node_hot_cache, "multi-tenant": node_multi_tenant,
-              "goodput": node_goodput}
+              "goodput": node_goodput, "deadline": node_deadline}
 
 
 class Cluster:
@@ -4238,6 +4481,223 @@ def drive_multi_tenant(ps, Environment, smi: str):
     return rows
 
 
+def drive_recovery_keepalive(smi: str):
+    """``recovery-keepalive`` (JAX's ``test_elastic.py::
+    test_worker_crash_recovery_end_to_end`` at full width): the port's
+    launcher (``python3 -m pslite_tpu_torch.tracker.local -n 2 -s 1``,
+    keepalive on) runs 1 scheduler, 1 server and 2 workers over tcp on
+    the native core, heartbeats 1 s / 2 s (``node_recovery``).  The
+    ``ici_tcp`` worker crashes ``RECOVERY_CRASHES`` times and finishes
+    in its next life; each life must take the dead id back, launch K4,
+    and the other worker must see the store exact.  K4's launches in
+    the crasher's lives are returned as the path's."""
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    work = tempfile.mkdtemp(prefix="smoke-recovery")
+    spec = {"phase": "recovery", "dir": work, "crashes": RECOVERY_CRASHES,
+            "steps": RECOVERY_STEPS, "poll_s": 120.0}
+    env = dict(os.environ, **RECOVERY_HB, PS_ICI_IMPL="pallas",
+               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_NODE_HOST="127.0.0.1",
+               SMOKE_SPEC=json.dumps(spec))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pslite_tpu_torch.tracker.local", "-n", "2",
+         "-s", "1", "--van", "tcp", "--root-port",
+         str(get_available_port()), "--", sys.executable,
+         os.path.join(HERE, "chip_smoke.py"),
+         "--node"], env=env, cwd=HERE, capture_output=True, text=True,
+        timeout=PROC_DEADLINE)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        print("\n".join(out.splitlines()[-40:]))
+        raise AssertionError(f"recovery-keepalive: the launcher exited "
+                             f"{proc.returncode}")
+    events = [json.loads(ln[len("EVENT "):]) for ln in out.splitlines()
+              if ln.startswith("EVENT ")]
+    lives = sorted((e for e in events if e["kind"] == "life"),
+                   key=lambda e: e["life"])
+    crashes = sorted((e for e in events if e["kind"] == "crash"),
+                     key=lambda e: e["life"])
+    rounds = {e["life"]: e for e in events if e["kind"] == "round"}
+    finals = [json.loads(ln) for ln in out.splitlines()
+              if ln.startswith("{") and '"crasher": true' in ln]
+    restarts = out.count("restarting worker (exit 254)")
+    if (len(lives) != RECOVERY_CRASHES + 1 or len(crashes) != RECOVERY_CRASHES
+            or restarts != RECOVERY_CRASHES or len(finals) != 1
+            or not any(e["kind"] == "poll_ok" for e in events)):
+        print("\n".join(out.splitlines()[-40:]))
+        raise AssertionError(f"recovery-keepalive: {len(lives)} lives, "
+                             f"{len(crashes)} crashes, {restarts} restarts")
+    ids = {e["id"] for e in lives}
+    if len(ids) != 1 or [e["recovery"] for e in lives] != (
+            [False] + [True] * RECOVERY_CRASHES):
+        raise AssertionError(f"recovery-keepalive: the lives' ids {ids}, "
+                             f"recovery marks "
+                             f"{[e['recovery'] for e in lives]}")
+    k4 = [c["k4"] for c in crashes] + [finals[0]["k4"]]
+    if min(k4) <= 0:
+        raise AssertionError(f"recovery-keepalive: K4 launches per life "
+                             f"{k4}")
+    rows = []
+    for c, nxt in zip(crashes, lives[1:]):
+        rows.append({
+            "exit_to_restart_s": nxt["t_proc"] - c["t"],
+            "restart_to_roster_s": nxt["t_ready"] - nxt["t_proc"],
+            "register_to_roster_s": nxt["t_ready"] - nxt["t_register"],
+            "restart_to_exact_round_s": (rounds[nxt["life"]]["t"]
+                                         - nxt["t_proc"])})
+    worst = max(e["max_abs_err_vs_f64"] for e in rounds.values())
+    print(f"recovery-keepalive (the port's launcher with keepalive: 1 "
+          f"scheduler, 1 server and 2 worker processes over tcp, native "
+          f"core, heartbeats 1 s / 2 s; the ici_tcp worker on {N} ranks of "
+          f"cuda:0 crashed {RECOVERY_CRASHES} times, exit 254, and took "
+          f"node id {ids.pop()} back each life): per restart, exit -> "
+          f"restart (process start) "
+          f"{spread(r['exit_to_restart_s'] for r in rows)} s, restart -> "
+          f"roster with is_recovery "
+          f"{spread(r['restart_to_roster_s'] for r in rows)} s (of which "
+          f"the child's wait for the detector "
+          f"{float(RECOVERY_HB['PS_HEARTBEAT_TIMEOUT']) + 1.5:.1f} s; "
+          f"registration -> roster "
+          f"{spread(r['register_to_roster_s'] for r in rows)} s), restart "
+          f"-> first exact round "
+          f"{spread(r['restart_to_exact_round_s'] for r in rows)} s; K4 "
+          f"ring_push_pull[float32] launches per life {k4}; the other "
+          f"worker saw the store exact ({MSG_LOOSE_KEYS} x {MB_LEN} B "
+          f"keys, {RECOVERY_CRASHES + 2} pushes); bucket max |err| vs "
+          f"float64 {worst:.3g}; {wall:.1f} s in all [{smi}] "
+          f"[host CPU {cpu_model()}]")
+    row = {"config": "recovery-keepalive", "ops": len(lives)
+           * (RECOVERY_STEPS + 1) + 2, "max_abs_err_vs_f64": worst,
+           **{f"k4_launches_life{i + 1}": n for i, n in enumerate(k4)}}
+    for key in rows[0]:
+        row[key] = float(np.median([r[key] for r in rows]))
+    return [row], {"ring_push_pull[float32]": sum(k4)}
+
+
+def drive_deadline_timeout(smi: str):
+    """``deadline-timeout`` (JAX's ``test_fault_tolerance.py::
+    test_wait_raises_timeout_against_killed_server`` at full width): 1 +
+    1 + 1 processes over tcp, heartbeats 0.3 s / 1.0 s,
+    ``PS_REQUEST_TIMEOUT=0.3``, ``PS_REQUEST_RETRIES=2``; the worker
+    keeps ``DEADLINE_DEPTH`` pushes of the 40 x 1 MB bucket in flight and
+    the server process is killed (SIGKILL) under them
+    (``node_deadline``)."""
+    import signal
+
+    cluster = Cluster("tcp", 1, 1, {"phase": "deadline"}, extra=DEADLINE_ENV)
+    try:
+        cluster.ready()
+        (_wpath, wproc), = cluster._workers()
+        wproc.stdin.write(b"go\n")
+        wproc.stdin.flush()
+        time.sleep(0.5)
+        server = next(p for role, _l, p in cluster.procs if role == "server")
+        t_kill = time.time()
+        os.kill(server.pid, signal.SIGKILL)
+        server.wait()
+        cluster.procs = [x for x in cluster.procs if x[0] != "server"]
+        rep = json.loads(cluster._lines("WINDOW ", 1)[0])
+        cluster.finish(("worker",))
+    finally:
+        cluster.kill()
+    if rep["failed_pushes"] < 1 or rep["pending_left"]:
+        raise AssertionError(f"deadline-timeout: {rep}")
+    detect = rep["t_detected"] - t_kill
+    last = rep["t_last_raise"] - t_kill
+    print(f"deadline-timeout (1 scheduler, 1 server, 1 worker process over "
+          f"tcp, native core; heartbeats 0.3 s / 1.0 s, "
+          f"PS_REQUEST_TIMEOUT=0.3, PS_REQUEST_RETRIES=2; "
+          f"{DEADLINE_DEPTH} pushes of {KEYS} x {MB_LEN} B in flight when "
+          f"the server process was killed): kill -> detection (the "
+          f"worker's NODE_FAILURE hook) {detect:.3f} s, kill -> the last "
+          f"outstanding wait raising TimeoutError {last:.3f} s; "
+          f"{rep['ok_pushes']} pushes completed before, "
+          f"{rep['failed_pushes']} raised TimeoutError, none hung, no "
+          f"failed push's callback fired [{smi}] [host CPU {cpu_model()}]")
+    return [{"config": "deadline-timeout",
+             "ops": rep["ok_pushes"] + rep["failed_pushes"],
+             "kill_to_detect_s": detect, "kill_to_last_raise_s": last,
+             "failed_pushes": rep["failed_pushes"]}]
+
+
+def drive_chaos_matrix(ps, Environment, smi: str):
+    """``chaos-matrix`` (JAX's ``test_chaos.py::
+    test_chaos_matrix_healed_by_resender`` at test_benchmark's 1 MB
+    keys): 1 worker + 2 servers in this process over ``chaos+tcp`` with
+    ``PS_CHAOS`` drop 0.15, delay 0.5-2 ms, reorder 0.1, dup 0.1 and
+    ``PS_RESEND=1`` (60 ms), beside a plain tcp leg; each round pushes
+    40 keys of 1,024,000 B per server and pulls them, every pull checked
+    exactly.  The legs alternate round by round."""
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    legs = {}
+    for label, van, extra in (
+            ("chaos+tcp", "chaos+tcp", {"PS_CHAOS": CHAOS_SPEC,
+                                        "PS_RESEND": "1",
+                                        "PS_RESEND_TIMEOUT": "60"}),
+            ("tcp", "tcp", {})):
+        env = dict(extra, DMLC_PS_ROOT_URI="127.0.0.1",
+                   DMLC_NODE_HOST="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(get_available_port()))
+        nodes = msg_cluster(ps, Environment, 1, 2, van=van, env=env)
+        servers = []
+        for po in nodes[1:3]:
+            srv = ps.KVServer(0, postoffice=po)
+            srv.set_request_handle(ps.KVServerDefaultHandle())
+            servers.append(srv)
+        w = ps.KVWorker(0, 0, postoffice=nodes[3])
+        legs[label] = {"nodes": nodes, "apps": servers + [w], "w": w,
+                       "times": [], "s64": None}
+    try:
+        wpo = legs["tcp"]["nodes"][3]
+        keys = np.array([r.begin + i for r in wpo.get_server_key_ranges()
+                         for i in range(MSG_KEYS_PER_SERVER)], np.uint64)
+        base = np.random.default_rng(SEED + 12).integers(
+            -8, 8, size=len(keys) * VAL_LEN).astype(np.float32)
+        buf, out = np.empty_like(base), np.zeros_like(base)
+        for r in range(1 + CHAOS_ROUNDS):
+            for label, leg in legs.items():
+                np.add(base, np.float32(r), out=buf)
+                t0 = time.perf_counter()
+                leg["w"].wait(leg["w"].push(keys, buf))
+                leg["w"].wait(leg["w"].pull(keys, out))
+                if r:
+                    leg["times"].append(time.perf_counter() - t0)
+                want = (r + 1) * base.astype(np.float64) + r * (r + 1) / 2
+                if not np.array_equal(out, want):
+                    raise AssertionError(
+                        f"chaos-matrix [{label}] round {r}: "
+                        f"{int((out != want).sum())} values wrong")
+        stats = {}
+        for po in legs["chaos+tcp"]["nodes"]:
+            for k, v in po.van.chaos_stats.items():
+                stats[k] = stats.get(k, 0) + v
+        if not stats:
+            raise AssertionError("chaos-matrix: chaos injected nothing")
+    finally:
+        for leg in legs.values():
+            msg_finalize(leg["nodes"], leg["apps"])
+    ms = {label: sum(leg["times"]) / len(leg["times"]) * 1e3
+          for label, leg in legs.items()}
+    print(f"chaos-matrix (1 worker + 2 servers in this process, "
+          f"{len(keys)} keys x {MB_LEN} B, push + pull per round, "
+          f"{CHAOS_ROUNDS} timed rounds per leg alternating, every pull "
+          f"exact): chaos+tcp ({CHAOS_SPEC}, PS_RESEND=1, 60 ms) "
+          f"{ms['chaos+tcp']:.1f} ms/round "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in legs['chaos+tcp']['times'])}"
+          f"), plain tcp {ms['tcp']:.1f} ms/round "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in legs['tcp']['times'])}); "
+          f"chaos counters over every node "
+          + ", ".join(f"{k} {v}" for k, v in sorted(stats.items()))
+          + f" [{smi}] [host CPU {cpu_model()}]")
+    return [{"config": "chaos-matrix", "ops": 4 * (1 + CHAOS_ROUNDS),
+             "ms_per_round_chaos": ms["chaos+tcp"],
+             "ms_per_round_tcp": ms["tcp"], **{f"chaos_{k}": v
+                                               for k, v in stats.items()}}]
+
+
 def main() -> int:
     import torch
 
@@ -4407,6 +4867,9 @@ def main() -> int:
         ("hot-cache", lambda: drive_hot_cache(smi)),
         ("multi-tenant", lambda: drive_multi_tenant(ps, Environment,
                                                     smi)),
+        ("recovery-keepalive", lambda: drive_recovery_keepalive(smi)),
+        ("deadline-timeout", lambda: drive_deadline_timeout(smi)),
+        ("chaos-matrix", lambda: drive_chaos_matrix(ps, Environment, smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:

@@ -82,12 +82,25 @@ The message-path tiers (as JAX's ``kv_app.py``):
 
 Host numpy on the message path, as in JAX; the default handle's large
 f32/f64 push adds run in the native core (``native.try_iadd``, the bits
-of numpy's ``+=``) unless the node's ``PS_NATIVE=0``.  Not here, each
-raising where a JAX caller would reach it: request deadlines and
-failover, replication (and so batching under
-``PS_KV_REPLICATION`` > 1), elastic routing (``PS_ELASTIC`` with
-batching, and the wrong-owner re-slice of a sub-get), snapshots, the
-tiered store and namespaces (item 8).
+of numpy's ``+=``) unless the node's ``PS_NATIVE=0``.
+
+Bounded requests (:480-560, the sweeper :1806-1948): with
+``PS_REQUEST_TIMEOUT`` > 0 (seconds; default 0 = off) every message-path
+request gets a deadline.  A sweeper thread retries the unresponded
+slices of an expired request, attempt *n* after ``timeout * 2**n``, and
+at once a slice whose send failed or whose server the failure detector
+declared dead (``_on_node_event``); each retry is a new message (a
+fresh sid) with the slice's encode-once payload, and the resender
+forgets the old one.  The first response per slice counts, later
+duplicates are discounted.  After ``PS_REQUEST_RETRIES`` (default 3)
+the request fails: ``wait(ts)`` raises TimeoutError and its callback
+never fires.  Without a timeout a failed send fails the request at once.
+
+Not here, each raising where a JAX caller would reach it: replication
+(and so batching, or deadlines, under ``PS_KV_REPLICATION`` > 1, whose
+retries fail over down a replica chain), elastic routing (the
+wrong-owner re-slice of a bounced slice), snapshots, the tiered store
+and namespaces (ROADMAP Queue 1 item 8(b)/(c)).
 ``KVWorker.reshard`` recuts the worker's engines onto a new device group
 (``IciVan.reshard_engines``).
 """
@@ -108,7 +121,7 @@ import torch
 
 from .. import ps as ps_mod
 from .. import tenants as tenants_mod
-from ..base import SERVER_GROUP, server_rank_to_id
+from ..base import SERVER_GROUP, is_server_id, server_rank_to_id
 from ..customer import Customer
 from ..message import (
     BatchInfo,
@@ -162,7 +175,7 @@ def _refuse_batching_with(env, batch_bytes: int) -> None:
                           "(PS_KV_REPLICATION > 1)", "8(b)")
     if env.find_int("PS_ELASTIC", 0):
         raise _not_ported("elastic membership (PS_ELASTIC), under which "
-                          "JAX declines batching", "8")
+                          "JAX declines batching", "8(b)")
 
 
 class OverloadError(RuntimeError):
@@ -231,7 +244,7 @@ class KVMeta:
 
 @dataclass
 class _EncodedSlice:
-    """One slice's codec payload, encoded once at send time: a resend
+    """One slice's codec payload, encoded once at send time: a retry
     carries these exact bytes (encoding again would fold the residual
     twice)."""
 
@@ -239,6 +252,46 @@ class _EncodedSlice:
     scales: np.ndarray  # float32 (empty for bf16)
     lens: Optional[np.ndarray]
     info: CodecInfo
+
+
+@dataclass
+class _PendingSlice:
+    """One per-server slice of an in-flight bounded request."""
+
+    group_rank: int
+    part: KVPairs
+    dest: int
+    sent_msg: Optional[Message] = None  # what the resender must forget
+    responded: bool = False
+    enc: Optional[_EncodedSlice] = None  # codec payload (encode-once)
+    # This slice's delivery is known failed (its send raised, or the
+    # van answered OPT_SEND_FAILED): the sweeper retries it at once, and
+    # only it, never its healthy siblings.
+    retry_now: bool = False
+    # JAX's re-slice of an OPT_WRONG_OWNER bounce and its spread pulls
+    # set these; the port has neither (ROADMAP Queue 1 item 8(b)).
+    wrong_owner: bool = False
+    replica_read: bool = False
+
+
+@dataclass
+class _PendingReq:
+    """Deadline bookkeeping of one timestamp (``PS_REQUEST_TIMEOUT``):
+    the sweeper retries unresponded slices with exponential backoff, and
+    after ``PS_REQUEST_RETRIES`` fails the request, so ``wait(ts)``
+    raises TimeoutError instead of hanging."""
+
+    ts: int
+    push: bool
+    pull: bool
+    cmd: int
+    deadline: float
+    attempt: int = 0
+    slices: List[_PendingSlice] = field(default_factory=list)
+    val_nbytes: int = 0
+    codec: Optional[str] = None
+    zpull: Optional[dict] = None
+    tenant: int = 0
 
 
 def default_slicer(kvs: KVPairs,
@@ -380,6 +433,7 @@ class KVWorker:
         if self._batch_bytes > 0:
             self._combiner = OpCombiner(
                 lambda m: self.po.van.send(m), self._batch_send_failed,
+                on_sent=self._batch_sent,
                 max_bytes=self._batch_bytes,
                 window_us=env.find_float("PS_BATCH_WINDOW_US", 0.0),
                 min_ops=env.find_int("PS_BATCH_MIN_OPS", 32),
@@ -406,6 +460,23 @@ class KVWorker:
         metrics = node_registry(getattr(self.po, "metrics", None))
         self._c_codec_raw = metrics.counter("codec.raw_bytes")
         self._c_codec_wire = metrics.counter("codec.wire_bytes")
+        # Bounded requests: PS_REQUEST_TIMEOUT (s, 0 = off) deadlines
+        # every message-path request, the sweeper retries expired slices
+        # and after PS_REQUEST_RETRIES fails the request.  _down_servers
+        # mirrors the failure detector's NODE_FAILURE broadcasts.
+        self._req_timeout = env.find_float("PS_REQUEST_TIMEOUT", 0.0)
+        self._req_retries = env.find_int("PS_REQUEST_RETRIES", 3)
+        if (self._req_timeout > 0
+                and env.find_int("PS_KV_REPLICATION", 1) > 1):
+            raise _not_ported("request deadlines under replication "
+                              "(PS_KV_REPLICATION > 1: retries fail over "
+                              "down the replica chain)", "8(b)")
+        self._down_servers: set = set()
+        self._pending: Dict[int, _PendingReq] = {}
+        self._sweep_thread: Optional[threading.Thread] = None
+        self._sweep_cv = threading.Condition()
+        self._sweep_stop = False
+        self.po.register_node_failure_hook(self._on_node_event)
 
     @property
     def engine(self):
@@ -717,23 +788,49 @@ class KVWorker:
                 self._batch_probing.discard(dest)
             self._customer.add_response(ts, 1)
 
+    def _batch_sent(self, msgs, wire_msg: Message) -> None:
+        """Combiner sent hook: the frame that left (for a merged frame
+        the envelope) is what a retry makes the resender forget."""
+        for m in msgs:
+            sl = getattr(m, "_batch_sl", None)
+            if sl is not None:
+                sl.sent_msg = wire_msg
+
     def _batch_send_failed(self, msgs, exc: Exception) -> None:
         """Combiner error hook: a flush's send raised off the caller's
         thread; fail each member op as an inline send failure would."""
         for m in msgs:
-            self._slice_send_failed(m.meta.timestamp, exc)
+            self._slice_send_failed(m.meta.timestamp,
+                                    getattr(m, "_batch_sl", None), exc)
 
-    def _slice_send_failed(self, ts: int, exc: Exception) -> None:
-        """No response will come for this slice: fail the request so
-        ``wait(ts)`` raises TimeoutError instead of hanging."""
-        log.warning(f"send ts={ts} failed ({exc!r}); failing the request")
+    def _slice_send_failed(self, ts: int, sl: Optional[_PendingSlice],
+                           exc: Exception) -> None:
+        """One slice's send raised.  With deadlines on (``sl`` given) the
+        sweeper retries that slice at once; without, no response will
+        come, so the request fails and ``wait(ts)`` raises TimeoutError
+        instead of hanging."""
+        if sl is not None:
+            log.warning(f"send ts={ts} failed ({exc!r}); handing it to "
+                        f"the deadline sweeper")
+            with self._mu:
+                sl.retry_now = True
+            self._wake_sweeper()
+            return
+        log.warning(f"send ts={ts} failed ({exc!r}); failing the request "
+                    f"(PS_REQUEST_TIMEOUT off)")
         with self._mu:
-            self._timeout_ts.add(ts)
-            self._recv_kvs.pop(ts, None)
-            self._pull_dst.pop(ts, None)
-            self._callbacks.pop(ts, None)
-            self._zpull_ts.discard(ts)
+            self._mark_timed_out(ts)
         self._customer.add_response(ts, 1)
+
+    def _mark_timed_out(self, ts: int) -> None:
+        """Fail an abandoned request (caller holds ``_mu``): ``wait(ts)``
+        raises TimeoutError, its callback is dropped, and its pull state
+        goes (no response will trigger ``_finish``)."""
+        self._timeout_ts.add(ts)
+        self._recv_kvs.pop(ts, None)
+        self._pull_dst.pop(ts, None)
+        self._callbacks.pop(ts, None)
+        self._zpull_ts.discard(ts)
 
     # -- engine-path completion ----------------------------------------------
 
@@ -1088,8 +1185,10 @@ class KVWorker:
                 f"per-tenant admission control (OPT_OVERLOAD); back off "
                 f"and retry")
         if timed_out:
-            raise TimeoutError(f"request {timestamp} was abandoned: its "
-                               f"delivery failed")
+            raise TimeoutError(
+                f"request {timestamp} was abandoned: its delivery failed, "
+                f"or no response came within PS_REQUEST_TIMEOUT across "
+                f"{self._req_retries} retries")
         if failed:
             raise RuntimeError(f"request {timestamp} failed server-side "
                                f"(handler raised while applying; see the "
@@ -1103,9 +1202,17 @@ class KVWorker:
 
     def stop(self) -> None:
         """Retire the combiner (its queued ops go out: their waits expect
-        responses), the receive pump and the engine completion thread."""
+        responses), the deadline sweeper, the receive pump and the
+        engine completion thread."""
+        self.po.unregister_node_failure_hook(self._on_node_event)
         if self._combiner is not None:
             self._combiner.stop()
+        with self._sweep_cv:
+            self._sweep_stop = True
+            self._sweep_cv.notify_all()
+        if self._sweep_thread is not None:
+            self._sweep_thread.join(timeout=5)
+            self._sweep_thread = None
         self._customer.stop()
         with self._mu:
             pool, self._engine_pool = self._engine_pool, None
@@ -1190,17 +1297,37 @@ class KVWorker:
         if not live:
             self._finish(ts)
             return
-        # Encode every slice before any send can fail, once.
+        # Encode every slice once, before any send can fail: a retry
+        # resends these bytes (encoding again would fold the
+        # error-feedback residual twice).
         encs = [self._encode_part(codec, rank, part)
                 if codec is not None and push else None
                 for rank, part in live]
-        gs = self.po.group_size
-        for (rank, part), enc in zip(live, encs):
-            dest = server_rank_to_id(rank * gs + self.po.instance_idx)
+        dests = [self._route(rank) for rank, _part in live]
+        req: Optional[_PendingReq] = None
+        if self._req_timeout > 0:
+            # Complete before it is published: a sweep racing this send
+            # must never see a half-built slice list.
+            req = _PendingReq(
+                ts=ts, push=push, pull=pull, cmd=cmd,
+                deadline=time.monotonic() + self._req_timeout,
+                slices=[_PendingSlice(group_rank=rank, part=part, dest=dest,
+                                      enc=enc)
+                        for (rank, part), dest, enc in zip(live, dests,
+                                                           encs)],
+                val_nbytes=val_nbytes, codec=codec, zpull=zpull,
+                tenant=tenant)
+            with self._mu:
+                self._pending[ts] = req
+            self._ensure_sweeper()
+        for idx, ((rank, part), dest, enc) in enumerate(zip(live, dests,
+                                                            encs)):
+            sl = req.slices[idx] if req is not None else None
             msg = self._slice_msg(ts, push, pull, cmd, part, dest,
                                   val_nbytes, zpull, rank, codec, enc,
                                   tenant)
             if self._combiner is not None and self._batch_capable(dest):
+                msg._batch_sl = sl
                 # Every slice toward a batch-capable destination rides the
                 # combiner's per-(dest, tenant, priority) stream: small
                 # compatible ops merge into EXT_BATCH frames, the rest go
@@ -1212,8 +1339,10 @@ class KVWorker:
                 continue
             try:
                 self.po.van.send(msg)
+                if sl is not None:
+                    sl.sent_msg = msg
             except Exception as exc:  # noqa: BLE001 - PeerDeadError & co
-                self._slice_send_failed(ts, exc)
+                self._slice_send_failed(ts, sl, exc)
 
     def _process(self, msg: Message) -> None:
         if msg.meta.request:
@@ -1236,6 +1365,10 @@ class KVWorker:
                     self._batch_caps[probe_dest] = ok
                     self._batch_probing.discard(probe_dest)
                 return
+        if self._req_timeout > 0 and self._pending_response(msg):
+            # Pre-compensate the +1 the Customer adds after this handle.
+            self._customer.add_response(ts, -1)
+            return
         option = msg.meta.option
         if option == OPT_SEND_FAILED:
             with self._mu:
@@ -1294,6 +1427,167 @@ class KVWorker:
                 >= self._customer.num_expected(ts)):
             self._finish(ts)
 
+    # -- bounded requests -----------------------------------------------------
+
+    @staticmethod
+    def _slice_of(req: _PendingReq, key: int) -> Optional[_PendingSlice]:
+        """The slice a response answers (responses echo its first key)."""
+        return next((s for s in req.slices
+                     if len(s.part.keys) and int(s.part.keys[0]) == key),
+                    None)
+
+    def _slice_answered(self, ts: int, key: int) -> bool:
+        """Mark the slice of (ts, key) answered; True for a duplicate (a
+        slow original answering after its retry did: the first counts)."""
+        with self._mu:
+            req = self._pending.get(ts)
+            sl = None if req is None else self._slice_of(req, key)
+            if sl is None:
+                return False
+            if sl.responded:
+                return True
+            sl.responded = True
+            return False
+
+    def _pending_response(self, msg: Message) -> bool:
+        """Deadline bookkeeping of one response; True when it is to be
+        discounted: a duplicate, a send failure the sweeper retries, or
+        a stale give-up of a request that completed or was abandoned."""
+        ts = msg.meta.timestamp
+        if msg.meta.option != OPT_SEND_FAILED:
+            return self._slice_answered(ts, msg.meta.key)
+        retry = False
+        with self._mu:
+            req = self._pending.get(ts)
+            if req is None:
+                return True
+            sl = self._slice_of(req, msg.meta.key)
+            if req.attempt < self._req_retries:
+                retry = True
+                if sl is not None:
+                    sl.retry_now = True
+                else:
+                    req.deadline = 0.0  # unmatched: expire every slice
+            else:
+                self._mark_timed_out(ts)
+                if sl is not None:
+                    sl.responded = True
+        if retry:
+            self._wake_sweeper()
+        return retry
+
+    def _on_node_event(self, node_id: int, down: bool) -> None:
+        """Node-failure hook: track dead servers; a death wakes the
+        sweeper, so requests toward the dead rank retry (and, with no
+        replica to fail over to, exhaust) without waiting out their
+        deadlines."""
+        if not is_server_id(node_id):
+            return
+        with self._mu:
+            if down:
+                self._down_servers.add(node_id)
+            else:
+                self._down_servers.discard(node_id)
+        if down:
+            self._wake_sweeper()
+
+    def _route(self, group_rank: int) -> int:
+        """A slice's destination: its owner rank's instance (JAX's
+        failover down a replica chain is ROADMAP Queue 1 item 8(b))."""
+        return server_rank_to_id(group_rank * self.po.group_size
+                                 + self.po.instance_idx)
+
+    def _ensure_sweeper(self) -> None:
+        if self._sweep_thread is not None and self._sweep_thread.is_alive():
+            return
+        with self._sweep_cv:
+            if self._sweep_stop or (self._sweep_thread is not None
+                                    and self._sweep_thread.is_alive()):
+                return
+            self._sweep_thread = threading.Thread(
+                target=self._sweep_loop, name="kv-deadline-sweeper",
+                daemon=True)
+            self._sweep_thread.start()
+
+    def _wake_sweeper(self) -> None:
+        with self._sweep_cv:
+            self._sweep_cv.notify_all()
+
+    def _sweep_loop(self) -> None:
+        period = max(0.02, min(self._req_timeout / 4.0, 0.5))
+        while True:
+            with self._sweep_cv:
+                if self._sweep_stop:
+                    return
+                self._sweep_cv.wait(period)
+                if self._sweep_stop:
+                    return
+            try:
+                self._sweep_once()
+            except Exception as exc:  # noqa: BLE001 - the sweeper survives
+                log.warning(f"deadline sweeper error: {exc!r}")
+
+    def _sweep_once(self) -> None:
+        now = time.monotonic()
+        retries: List[Tuple[_PendingReq, List[_PendingSlice]]] = []
+        failures: List[Tuple[int, int]] = []
+        with self._mu:
+            for ts, req in list(self._pending.items()):
+                unresp = [s for s in req.slices if not s.responded]
+                if not unresp:
+                    self._pending.pop(ts)
+                    continue
+                # Retried: every unresponded slice once the deadline
+                # passed, else only those known failed or toward a dead
+                # server (never healthy siblings: their sends would
+                # duplicate).
+                expired = now >= req.deadline
+                troubled = [s for s in unresp
+                            if expired or s.retry_now
+                            or s.dest in self._down_servers]
+                if not troubled:
+                    continue
+                if req.attempt >= self._req_retries:
+                    self._pending.pop(ts)
+                    self._mark_timed_out(ts)
+                    failures.append((ts, len(unresp)))
+                    continue
+                req.attempt += 1
+                # Exponential backoff: each attempt doubles the window.
+                req.deadline = now + self._req_timeout * (2 ** req.attempt)
+                for sl in troubled:
+                    sl.retry_now = False
+                retries.append((req, troubled))
+        resender = self.po.van.resender
+        for req, slices in retries:
+            for sl in slices:
+                old = sl.sent_msg
+                if old is not None and resender is not None:
+                    # The retry supersedes it: retransmitting the old one
+                    # would end in a give-up that fails a request its
+                    # retry already completed.
+                    resender.forget(old.meta.control.msg_sig)
+                sl.dest = self._route(sl.group_rank)
+                log.vlog(1, f"retry ts={req.ts} slice rank={sl.group_rank} "
+                            f"-> node {sl.dest} (attempt {req.attempt})")
+                # A new message, so a fresh sid at dispatch: the
+                # receiver's dedup must not swallow it.
+                msg = self._slice_msg(req.ts, req.push, req.pull, req.cmd,
+                                      sl.part, sl.dest, req.val_nbytes,
+                                      req.zpull, sl.group_rank, req.codec,
+                                      sl.enc, req.tenant)
+                try:
+                    self.po.van.send(msg)
+                    sl.sent_msg = msg
+                except Exception as exc:  # noqa: BLE001 - the next sweep
+                    log.warning(f"retry send ts={req.ts} to {sl.dest} "
+                                f"failed: {exc!r}")
+        for ts, deficit in failures:
+            log.warning(f"request ts={ts} abandoned after "
+                        f"{self._req_retries} retries; failing wait()")
+            # Square the response ledger: wait(ts) unblocks and raises.
+            self._customer.add_response(ts, deficit)
+
     def _process_batched_response(self, msg: Message) -> None:
         """One response frame of N sub-ops: each sub-op is processed and
         counted here (the Customer skips a batch envelope's count)."""
@@ -1306,9 +1600,14 @@ class KVWorker:
             hc = self._hot_cache
             for op in info.ops:
                 ts = op.timestamp
+                discount = False
                 try:
+                    if self._req_timeout > 0:
+                        discount = self._slice_answered(ts, op.key)
                     if hc is not None and op.stamp:
                         hc.observe(sender, op.stamp)
+                    if discount:
+                        continue
                     if (self._customer.num_response(ts) + 1
                             >= self._customer.num_expected(ts)):
                         self._finish(ts)
@@ -1316,7 +1615,8 @@ class KVWorker:
                     log.warning(f"batched sub-op ts={ts} response "
                                 f"handling failed: {exc!r}")
                 finally:
-                    self._customer.add_response(ts)
+                    if not discount:
+                        self._customer.add_response(ts)
             return
         for sub in split_batch_message(msg):
             try:
@@ -1329,6 +1629,7 @@ class KVWorker:
 
     def _finish(self, ts: int) -> None:
         with self._mu:
+            self._pending.pop(ts, None)  # no more deadline to keep
             chunks = self._recv_kvs.pop(ts, [])
             dst = self._pull_dst.pop(ts, None)
             zpull = ts in self._zpull_ts
@@ -1392,6 +1693,7 @@ class KVServer:
     before the handler."""
 
     _MAX_STREAMS = 64  # open streamed pushes; the oldest is aborted
+    _HANDLE_WAIT_S = 30.0  # a request's wait for set_request_handle
 
     def __init__(self, app_id: int, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.SERVER)
@@ -1401,6 +1703,10 @@ class KVServer:
         _refuse_batching_with(env, resp_bytes)
         self._handle: Optional[Callable[[KVMeta, KVPairs, "KVServer"],
                                         None]] = None
+        # Set once set_request_handle has installed the handle and its
+        # pool: the customer receives from construction on, and a
+        # request that raced the app's set_request_handle waits for it.
+        self._handle_set = threading.Event()
         self._recv_buffers: Dict[Tuple[int, int], np.ndarray] = {}
         self.delivered_in_place = 0  # pushes the van placed in a buffer
         self.streams_opened = 0  # chunked pushes applied as they landed
@@ -1482,6 +1788,7 @@ class KVServer:
                                                        None)):
             self._apply_pool = ApplyShardPool(handle, self._apply_shards,
                                               self)
+        self._handle_set.set()
 
     def register_recv_buffer(self, sender_id: int, key: int,
                              buffer: np.ndarray) -> None:
@@ -1670,6 +1977,7 @@ class KVServer:
             option=m.option))
 
     def stop(self) -> None:
+        self._handle_set.set()  # release a request still waiting for it
         self._customer.stop()
         self.po.unregister_node_failure_hook(self._on_stream_peer_event)
         self._abort_streams()
@@ -1848,6 +2156,12 @@ class KVServer:
     def _process(self, msg: Message) -> None:
         if msg.meta.simple_app or not msg.meta.request:
             return  # a response must never run the request handler
+        if not self._handle_set.is_set():
+            # The request (parked until this server's customer existed)
+            # raced set_request_handle: wait for the handle and its pool,
+            # or a chunked push's first partial would find no pool and
+            # its reassembled message no handle.
+            self._handle_set.wait(self._HANDLE_WAIT_S)
         if msg.meta.option == OPT_XFER_PART:
             self._stream_part(msg)
             return

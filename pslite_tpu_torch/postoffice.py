@@ -9,8 +9,11 @@ dropped) and the lifecycle (start/finalize).  One Postoffice exists per
 role instance: worker, server or scheduler; ``start_ps`` expands the
 joint role and ``DMLC_GROUP_SIZE`` instance groups into several.
 
-Routing epochs, snapshots, model publish/rollback, telemetry history and
-health are ROADMAP Queue 1 item 8 and absent here.
+Node recovery runs in the van (a restarted node takes its dead id back
+and skips the startup barrier: ``is_recovery``).  Elastic membership
+(``PS_ELASTIC=1``) and routing epochs are ROADMAP Queue 1 item 8(b) and
+raise here; snapshots, model publish/rollback, telemetry history and
+health are item 8(c) and absent.
 """
 
 from __future__ import annotations
@@ -61,6 +64,11 @@ class Postoffice:
                   "JOINT is expanded by start_ps, not hosted by one "
                   "Postoffice")
         self.env = env or environment.get()
+        if self.env.find_int("PS_ELASTIC", 0):
+            raise NotImplementedError(
+                "elastic membership (PS_ELASTIC=1: admission of new "
+                "servers with routing epochs) is not yet ported to "
+                "pslite_tpu_torch (ROADMAP Queue 1 item 8(b))")
         self.instance_idx = instance_idx
         self.num_workers = self.env.find_int("DMLC_NUM_WORKER", 0)
         self.num_servers = self.env.find_int("DMLC_NUM_SERVER", 0)
@@ -120,6 +128,16 @@ class Postoffice:
         if self._preferred_group_rank == EMPTY_ID:
             return EMPTY_ID
         return self._preferred_group_rank * self.group_size + self.instance_idx
+
+    def instance_rank_to_id(self, role: Role, instance_rank: int) -> int:
+        if role == Role.WORKER:
+            return worker_rank_to_id(instance_rank)
+        return server_rank_to_id(instance_rank)
+
+    @property
+    def is_recovery(self) -> bool:
+        """This node took a dead node's id back after a restart."""
+        return self.van.my_node.is_recovery
 
     def my_rank(self) -> int:
         """My instance rank within my role."""

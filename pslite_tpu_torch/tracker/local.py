@@ -3,18 +3,17 @@
 Counterpart of ``pslite_tpu/tracker/local.py`` (the reference's
 ``tracker/dmlc_local.py``): spawns 1 scheduler + S servers + W workers
 (or, with ``--joint``, W processes that each host a worker and a server)
-as OS processes wired by the ``DMLC_*`` variables, and waits for them;
-the first process to fail terminates the rest.
+as OS processes wired by the ``DMLC_*`` variables, and supervises them:
+a process exiting with 254 is started again (keepalive,
+``dmlc_local.py:16-25``), which with the scheduler's node recovery
+(``van.cc:266-332``) gives restart-based fault tolerance; the first
+other failure terminates the rest.  ``--no-keepalive`` makes 254 a
+failure like any other.
 
 Usage::
 
     python -m pslite_tpu_torch.tracker.local -n 2 -s 2 [--van tcp] -- \\
         python my_app.py args...
-
-A process exiting with 254 asks to be restarted in JAX (the keepalive
-loop, with the scheduler's node recovery): node recovery is ROADMAP
-Queue 1 item 8, so here that exit fails the run with a message naming
-it.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ def build_env(role: str, num_workers: int, num_servers: int, root_uri: str,
 class LocalLauncher:
     def __init__(self, num_workers: int, num_servers: int, cmd: List[str],
                  van: str = "tcp", root_port: int = 0, group_size: int = 1,
-                 joint: bool = False):
+                 keepalive: bool = True, joint: bool = False):
         if joint and num_workers != num_servers:
             raise ValueError(
                 "joint mode hosts one worker+server pair per process; "
@@ -64,6 +63,7 @@ class LocalLauncher:
         self.cmd = cmd
         self.van = van
         self.group_size = group_size
+        self.keepalive = keepalive
         self.root_port = root_port or get_available_port()
         self.root_uri = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
         self._procs: List[tuple] = []  # (role, Popen)
@@ -83,7 +83,8 @@ class LocalLauncher:
         self._procs.append((role, proc))
 
     def run(self) -> int:
-        """Spawn every role and wait: 0 when all exit 0, else the first
+        """Spawn every role and supervise: a process exiting 254 is
+        restarted (with keepalive on); 0 when all exit 0, else the first
         failing exit code (the others are terminated)."""
         for role in self.roles():
             self._spawn(role)
@@ -95,12 +96,11 @@ class LocalLauncher:
                 if code is None:
                     continue
                 self._procs.pop(i)
-                if code == RESTART_EXIT_CODE:
-                    print(f"[tracker] {role} exited {code}, asking for a "
-                          f"restart: restarting a node needs node recovery, "
-                          f"not yet ported to pslite_tpu_torch (ROADMAP "
-                          f"Queue 1 item 8)", file=sys.stderr, flush=True)
-                if code != 0:
+                if code == RESTART_EXIT_CODE and self.keepalive:
+                    print(f"[tracker] restarting {role} (exit 254)",
+                          file=sys.stderr, flush=True)
+                    self._spawn(role)
+                elif code != 0:
                     rc = code
                     self.terminate()
                 break
@@ -128,6 +128,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root-port", type=int, default=0)
     ap.add_argument("--joint", action="store_true",
                     help="one process per rank hosting worker+server")
+    ap.add_argument("--no-keepalive", action="store_true",
+                    help="exit 254 fails the run instead of a restart")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="program to launch (prefix with --)")
     args = ap.parse_args(argv)
@@ -138,7 +140,7 @@ def main(argv=None) -> int:
         launcher = LocalLauncher(
             args.num_workers, args.num_servers, cmd, van=args.van,
             root_port=args.root_port, group_size=args.group_size,
-            joint=args.joint)
+            keepalive=not args.no_keepalive, joint=args.joint)
     except ValueError as exc:
         ap.error(str(exc))
     try:

@@ -4,15 +4,21 @@ Counterpart of ``pslite_tpu/vans/__init__.py``'s factory (the
 reference's ``src/van.cc:43-104``): ``tcp`` (the zmq van's place:
 sockets between processes), ``loopback`` (in-process), ``ici`` (the
 collective data plane over loopback), ``ici_tcp``/``ici_shm`` (over the
-socket or shared-memory van), ``shm`` (same-host IPC) and ``multi``
-(several rails).  The chaos wrapper raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 8; an unknown name raises ``ValueError``.
+socket or shared-memory van), ``shm`` (same-host IPC), ``multi``
+(several rails), and the chaos wrapper around any of the socket or
+loopback ones (``chaos`` wraps ``PS_CHAOS_INNER``, default tcp;
+``chaos+shm`` names its inner van).  An unknown name raises
+``ValueError``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
 
-def create(van_type: str, postoffice):
+
+def transport_class(van_type: str) -> Optional[type]:
+    """The class of a van type name (None for an unknown name): the one
+    table that ``create`` and the chaos wrapper share."""
     if van_type in ("tcp", "zmq", "0", ""):
         from .tcp_van import TcpVan as cls
     elif van_type == "loopback":
@@ -27,10 +33,19 @@ def create(van_type: str, postoffice):
         from .shm_van import ShmVan as cls
     elif van_type in ("multi", "multivan"):
         from .multi_van import MultiVan as cls
-    elif van_type == "chaos" or van_type.startswith("chaos+"):
-        raise NotImplementedError(
-            f"van {van_type!r} is not yet ported to pslite_tpu_torch "
-            f"(ROADMAP Queue 1 item 8: the chaos wrapper)")
     else:
-        raise ValueError(f"unknown van type: {van_type!r}")
-    return cls(postoffice)
+        return None
+    return cls
+
+
+def create(van_type: str, postoffice):
+    cls = transport_class(van_type)
+    if cls is not None:
+        return cls(postoffice)
+    if van_type == "chaos" or van_type.startswith("chaos+"):
+        from .chaos_van import create_chaos
+
+        inner = (van_type.split("+", 1)[1] if "+" in van_type
+                 else (postoffice.env.find("PS_CHAOS_INNER") or "tcp"))
+        return create_chaos(inner, postoffice)
+    raise ValueError(f"unknown van type: {van_type!r}")

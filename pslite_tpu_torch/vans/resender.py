@@ -6,14 +6,16 @@ the receiver acks everything and drops duplicates; a monitor thread
 retransmits entries older than ``PS_RESEND_TIMEOUT`` ms, up to 10
 retries.  Off unless ``PS_RESEND=1``; exercised with the ``PS_DROP_MSG``
 fault injector.  Retransmits go through ``van.send_msg_locked``, i.e.
-the destination's send lane.
+the destination's send lane.  Unlike JAX's copy, ``reset_peer`` forgets
+a restarted peer (node recovery): its old life's signatures and the
+messages still unacked toward it.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 from ..message import Command, Control, Message
 from ..utils import logging as log
@@ -73,6 +75,11 @@ class Resender:
             max(1024, van.env.find_int("PS_RESEND_ACK_CACHE", 65536)),
             on_evict=lambda _sig: evict.inc(),
         )
+        # Per-sender epoch of the dedup keys, bumped when the sender
+        # restarts (reset_peer): its new life counts timestamps and sids
+        # from the start again, so its old life's signatures must not
+        # swallow the new one's messages.
+        self._epochs: Dict[int, int] = {}
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._monitoring, name="resender", daemon=True
@@ -127,7 +134,10 @@ class Resender:
             except Exception as exc:  # noqa: BLE001
                 log.vlog(1, f"ack to {msg.meta.sender} failed: {exc!r}")
         with self._mu:
-            duplicated = not self._acked.add(sig)
+            epoch = (self._epochs.get(msg.meta.sender, 0) if self._epochs
+                     else 0)
+            duplicated = not self._acked.add(sig if epoch == 0
+                                             else (sig, epoch))
         if duplicated:
             self._c_dup_dropped.inc()
             log.vlog(2, lambda: f"Duplicated message dropped: {msg.debug_string()}")
@@ -139,6 +149,16 @@ class Resender:
         would only end in a spurious give-up)."""
         with self._mu:
             self._send_buff.pop(sig, None)
+
+    def reset_peer(self, node_id: int) -> List[Message]:
+        """A peer restarted: move its dedup keys to a fresh epoch, and
+        drop and return the messages still unacked toward its old life
+        (the caller fails their requests)."""
+        with self._mu:
+            self._epochs[node_id] = self._epochs.get(node_id, 0) + 1
+            stale = [sig for sig, (m, _t, _r) in self._send_buff.items()
+                     if m.meta.recver == node_id]
+            return [self._send_buff.pop(sig)[0] for sig in stale]
 
     def _monitoring(self) -> None:
         while not self._stop.wait(self._timeout_s / 2):

@@ -31,7 +31,9 @@ not, meet in one cluster:
   the JAX package's paths, reclaiming a stale file under an ``flock``.
 - ``PS_TCP_SNDBUF`` / ``PS_TCP_RCVBUF`` cap the kernel buffers.
 - A send that hits a broken connection redials the peer's last address
-  once after ``PS_RECONNECT_TMO`` ms (-1: never).
+  once after ``PS_RECONNECT_TMO`` ms (-1: never).  A recovered peer's
+  new address replaces its connection (on the native plane each rail),
+  and its sids restart on both planes (``_reset_peer_sids``).
 - ``register_recv_buffer(sender, key, buf)``: that sender's pushes of
   ``key`` are placed in ``buf`` at delivery.
 
@@ -631,6 +633,15 @@ class TcpVan(Van):
             except Exception:  # noqa: BLE001 - the core may be stopping
                 pass
             self._reap_native([node_id])
+
+    def _reset_peer_sids(self, node_id: int) -> None:
+        """A restarted peer: the native lane's sid restarts at 0 too."""
+        super()._reset_peer_sids(node_id)
+        if self._native is not None:
+            try:
+                self._native.send_reset_sid(node_id)
+            except Exception:  # noqa: BLE001 - the core may be stopping
+                pass
 
     def _chunk_recv_alloc(self, nbytes: int) -> np.ndarray:
         """Reassembly buffers from the receive pool (its refcount probe

@@ -40,10 +40,15 @@ Python lanes below.  With ``PS_TENANTS`` the native lanes are not
 offered anything: they order by priority only.  The chunk assembler's
 large copies run in the native copy pool unless ``PS_NATIVE=0``.
 
-Not in this port (each raises or is absent, named by its ROADMAP Queue 1
-item): late registration and node recovery (so no peer's sids are ever
-reset), elastic admission, routing epochs and removal,
-metrics/trace/snapshot pulls (item 8).  Tenants (``PS_TENANTS``,
+Recovery (the reference's ``van.cc:266-332``): an ADD_NODE after
+bootstrap is a late registration.  Another customer on a known endpoint
+gets the roster again; a node of a role with a dead id takes that id
+back (its preferred rank ``aux_id`` wins among several), marked
+``is_recovery`` so it skips the startup barrier, and every peer resets
+its sequence state toward it (``_reset_peer_sids``) and clears its down
+mark.  Elastic admission, routing epochs and removal are ROADMAP Queue
+1 item 8(b) (``PS_ELASTIC=1`` raises at the Postoffice), the
+metrics/trace/snapshot pulls item 8(c).  Tenants (``PS_TENANTS``,
 ``tenants.py``): each lane dequeues bulk traffic weighted-fair across
 tenants by bytes (``LaneQueue(weights)``), as the receive intake does.
 Data always rides the lanes and messages are delivered in arrival order:
@@ -158,6 +163,8 @@ class Van:
         self._registrations: List[Node] = []
         self._registered_addrs: Dict[str, int] = {}  # addr -> assigned id
         self._barrier_senders: Dict[Tuple[int, bool], Set[int]] = {}
+        # The newest barrier request counted per sender (its timestamp).
+        self._barrier_last_ts: Dict[int, int] = {}
         self._connected_nodes: Dict[str, int] = {}
         self._timestamp = 0
         self._timestamp_mu = threading.Lock()
@@ -235,6 +242,7 @@ class Van:
                 with self._down_mu:
                     self._down_peers = set()
                 self._announced_dead = set()
+                self._barrier_last_ts = {}
                 with self._lanes_mu:
                     self._lanes = {}
                 self._assembler.clear()  # no partial transfer of a prior run
@@ -558,6 +566,21 @@ class Van:
             self._down_peers.discard(node_id)
         self._announced_dead.discard(node_id)
 
+    def _reset_peer_sids(self, node_id: int) -> None:
+        """Forget the sequence state toward a (re)joining peer: its send
+        sid, its partial transfers and transfer-id tombstones, and the
+        resender's record of its messages (the port delivers in arrival
+        order, so there is no expected receive sid or reorder buffer to
+        clear)."""
+        with self._timestamp_mu:
+            self._send_sids.pop(node_id, None)
+        self._barrier_last_ts.pop(node_id, None)  # timestamps restart too
+        self._assembler.drop_peer(node_id)
+        if self.resender is not None:
+            for msg in self.resender.reset_peer(node_id):
+                self._delivery_failed(msg, PeerDeadError(
+                    f"node {node_id} restarted with the message unacked"))
+
     def _delivery_failed(self, msg: Message, exc: Exception) -> None:
         """The transport gave up on ``msg``.  A data REQUEST has a local
         waiter: synthesize an empty OPT_SEND_FAILED response so its wait
@@ -758,10 +781,8 @@ class Van:
 
     def _process_add_node_at_scheduler(self, msg: Message) -> None:
         if self.ready.is_set():
-            raise NotImplementedError(
-                "ADD_NODE after bootstrap (node recovery, elastic join) is "
-                "not yet ported to pslite_tpu_torch (ROADMAP Queue 1 "
-                "item 8)")
+            self._handle_late_registration(msg.meta.control.node)
+            return
         for node in msg.meta.control.node:
             addr = node.addr_key()
             if addr in self._registered_addrs:
@@ -776,8 +797,7 @@ class Van:
             self.connect(node)
             self._registered_addrs[node.addr_key()] = node.id
             self.po.update_heartbeat(node.id, time.time())
-        roster = [copy.deepcopy(self.scheduler)] + [
-            copy.deepcopy(n) for n in self._registrations]
+        roster = self._roster()
         for node in self._registrations:
             reply = Message()
             reply.meta.recver = node.id
@@ -821,6 +841,73 @@ class Van:
         for rank, n in enumerate(sorted(workers, key=keyfn)):
             n.id = worker_rank_to_id(rank)
 
+    def _roster(self) -> List[Node]:
+        return [copy.deepcopy(self.scheduler)] + [
+            copy.deepcopy(n) for n in self._registrations]
+
+    def _send_roster(self, peer: int, nodes: List[Node], what: str) -> None:
+        """An ADD_NODE roster to ``peer`` through ``_dispatch_send``,
+        caught: a peer may be dead right now, the scheduler's pump must
+        survive it, and ``send()`` would re-raise (and so consume) an
+        unrelated parked lane error.  A fresh timestamp each time: under
+        ``PS_RESEND`` two identical rosters would dedup as one."""
+        reply = Message()
+        reply.meta.recver = peer
+        reply.meta.sender = self.my_node.id
+        reply.meta.timestamp = self.next_timestamp()
+        reply.meta.control = Control(cmd=Command.ADD_NODE, node=nodes)
+        try:
+            self._dispatch_send(reply)
+        except Exception as exc:  # noqa: BLE001 - the peer died since
+            log.warning(f"{what} to {peer} failed: {exc!r}")
+
+    def _handle_late_registration(self, nodes: List[Node]) -> None:
+        """A post-bootstrap ADD_NODE: another customer on a known node,
+        or the recovery of a dead one (reference: van.cc:266-332)."""
+        for node in nodes:
+            addr = node.addr_key()
+            known_id = self._registered_addrs.get(addr, EMPTY_ID)
+            if known_id != EMPTY_ID:
+                self._send_roster(known_id, self._roster(), "roster resend")
+                continue
+            dead = [d for d in self.po.get_dead_nodes(
+                        self.heartbeat_timeout_s())
+                    if is_server_id(d) == (node.role == Role.SERVER)]
+            if not dead:
+                log.warning(f"unexpected late ADD_NODE from "
+                            f"{node.short_debug()}")
+                continue
+            # With several dead ids of this role, the node's preferred
+            # rank names its own (reference van.cc:187-225): any other
+            # choice would hand a restarted worker 0 worker 1's place.
+            chosen = dead[0]
+            if node.aux_id != EMPTY_ID:
+                preferred = self.po.instance_rank_to_id(node.role,
+                                                        node.aux_id)
+                if preferred in dead:
+                    chosen = preferred
+            node.id = chosen
+            node.is_recovery = True
+            log.vlog(1, f"recovering node {node.short_debug()}")
+            self._reset_peer_sids(node.id)
+            # The replacement inherits the dead id: the down mark (and
+            # the detector's announced set) clears before the broadcast.
+            self.clear_peer_down(node.id)
+            self.po.notify_node_failure(node.id, False)
+            self.connect(node)
+            self._registered_addrs[addr] = node.id
+            self.po.update_heartbeat(node.id, time.time())
+            self._registrations = [n for n in self._registrations
+                                   if n.id != node.id] + [node]
+            # The whole roster to the recovered node, the recovered node
+            # alone to everyone else (reference: van.cc:266-285).
+            roster = self._roster()
+            for peer in self._registrations:
+                self._send_roster(
+                    peer.id,
+                    roster if peer.id == node.id else [copy.deepcopy(node)],
+                    "recovery broadcast")
+
     def _process_roster(self, msg: Message) -> None:
         """Non-scheduler handling of the scheduler's ADD_NODE roster."""
         my_addr = self.my_node.addr_key()
@@ -837,6 +924,13 @@ class Van:
                 continue
             if node.role == Role.SCHEDULER and not self.po.is_scheduler:
                 continue  # connected during start()
+            if node.id != self.my_node.id and node.is_recovery:
+                # A restarted peer counts its sids (and transfer ids)
+                # from the start again: stale state toward it would
+                # swallow or misplace its new life's messages.
+                self._reset_peer_sids(node.id)
+                self.clear_peer_down(node.id)
+                self.po.notify_node_failure(node.id, False)
             self.connect(node)
         log.check(self.my_node.id != EMPTY_ID,
                   "scheduler did not assign my id")
@@ -878,6 +972,15 @@ class Van:
         if not msg.meta.request:
             self.po.manage(msg)
             return
+        sender, ts = msg.meta.sender, msg.meta.timestamp
+        if ts <= self._barrier_last_ts.get(sender, -1):
+            # A retransmission of a request already counted: with
+            # PS_RESEND, a request that reached this scheduler before its
+            # resender existed was never acked nor recorded, so the
+            # resender's dedup lets the peer's retransmission through; it
+            # must not count toward the next barrier.
+            return
+        self._barrier_last_ts[sender] = ts
         group = msg.meta.control.barrier_group
         key = (group, instance)
         senders = self._barrier_senders.setdefault(key, set())

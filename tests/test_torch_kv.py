@@ -140,14 +140,22 @@ def test_unregistered_keys_raise(port_worker):
 
 
 def test_other_roles_and_vans_not_ported():
-    """The chaos wrapper still raises, naming ROADMAP Queue 1 item 8;
-    server and scheduler Postoffices start (over the ici van's loopback
-    control plane) and finalize.  The servers' ids are 8 and 10 in the
-    order of their addresses (bound on each node's own start thread, so
-    not in creation order)."""
-    for van in ("chaos", "chaos+tcp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-            Postoffice("worker", env=Environment({"PS_VAN_TYPE": van}))
+    """``chaos`` and ``chaos+tcp`` build the chaos wrapper around the
+    tcp van (``chaos+loopback`` around the loopback one); server and
+    scheduler Postoffices start (over the ici van's loopback control
+    plane) and finalize.  The servers' ids are 8 and 10 in the order of
+    their addresses (bound on each node's own start thread, so not in
+    creation order)."""
+    from pslite_tpu_torch.vans.loopback_van import LoopbackVan
+    from pslite_tpu_torch.vans.tcp_van import TcpVan
+
+    for van, inner in (("chaos", TcpVan), ("chaos+tcp", TcpVan),
+                       ("chaos+loopback", LoopbackVan)):
+        po = Postoffice("worker", env=Environment({"PS_VAN_TYPE": van,
+                                                   "PS_NATIVE": "0"}))
+        assert type(po.van).__name__ == f"Chaos{inner.__name__}"
+        assert type(po.van).__mro__[1] is inner
+        assert not po.van.chaos_crashed.is_set()
     cluster = PortCluster(num_workers=1, num_servers=2, van_type="ici")
     cluster.start()
     try:
@@ -207,6 +215,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'utils.network', 'vans.van', 'vans.resender',\n"
         "          'vans.chunking', 'vans.loopback_van', 'vans.ici_van',\n"
         "          'vans.tcp_van', 'vans.shm_van', 'vans.multi_van',\n"
+        "          'vans.chaos_van',\n"
         "          'tracker.local', 'kv.kv_app', 'kv.simple_app'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
