@@ -221,6 +221,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -2928,11 +2929,13 @@ def node_main() -> int:
     """One node process of a process phase (``chip_smoke.py --node``):
     the role from ``DMLC_ROLE`` as a launcher sets it, the workload from
     ``SMOKE_SPEC`` (JSON).  Prints one JSON line, its last."""
+    spec = json.loads(os.environ["SMOKE_SPEC"])
+    if spec.get("phase") == "failover":
+        return node_failover(spec)  # no torch: its supervisor restarts fast
     import torch
     import pslite_tpu_torch as ps
     from pslite_tpu_torch.ops import ring_collective as ring
 
-    spec = json.loads(os.environ["SMOKE_SPEC"])
     if spec.get("phase") == "recovery":
         return node_recovery(spec)
     role = os.environ["DMLC_ROLE"]
@@ -2964,6 +2967,11 @@ def node_main() -> int:
                         int(wid), int(begin) + si * SIZE_KEY_STRIDE,
                         np.zeros(per_server * nbytes // 4, np.float32))
         report["delivered_in_place"] = lambda: srv.delivered_in_place
+        if spec.get("phase") == "durable-serve":
+            report["tier"] = lambda: (
+                repr(srv._handle.store) if hasattr(srv._handle.store,
+                                                   "tier_of")
+                else f"dict of {len(srv._handle.store)} keys")
     if role in ("worker", "joint"):
         po = pos[0] if pos else ps.postoffice("worker")
         kv = ps.KVWorker(0, 0, postoffice=po)
@@ -2986,6 +2994,8 @@ def node_main() -> int:
         pos[0].finalize()
     else:
         ps.finalize(do_barrier=not deadline)
+    if "tier" in report:
+        report["tier"] = report["tier"]()  # before stop closes the tier
     for a in apps:
         a.stop()
     for key in ("delivered_in_place", "streams_opened"):
@@ -3807,7 +3817,9 @@ def node_deadline(ps, po, kv, spec) -> dict:
 
 TIER_NODES = {"small-op": node_small_op, "fanin": node_fanin,
               "hot-cache": node_hot_cache, "multi-tenant": node_multi_tenant,
-              "goodput": node_goodput, "deadline": node_deadline}
+              "goodput": node_goodput, "deadline": node_deadline,
+              "replica-read": lambda *a: node_replica_read(*a),
+              "durable-serve": lambda *a: node_durable_serve(*a)}
 
 
 class Cluster:
@@ -4231,7 +4243,8 @@ def drive_ici_proc(van: str, smi: str):
               "msg_ms": rep["msg_ms"]}], rep["launches"])
 
 
-def interleaved(legs, start, every_worker: bool = False):
+def interleaved(legs, start, every_worker: bool = False,
+                report_roles=("worker", "joint")):
     """Each ``(label, arg)`` of ``legs`` as one ``Cluster``
     (``start(arg)`` with ``spec["windows"] = TIER_ROUNDS``), all started
     at once and set up before the first window; then ``TIER_ROUNDS``
@@ -4240,7 +4253,7 @@ def interleaved(legs, start, every_worker: bool = False):
     2297-2301``), so host drift lands on both while the other leg's
     cluster idles.  ``({label: [window report]}, {label: final
     report})``: the first worker's, or with ``every_worker`` the list
-    of every worker's."""
+    of every worker's; ``report_roles`` picks whose final reports."""
     pick = (lambda reps: reps) if every_worker else (lambda reps: reps[0])
     clusters = {}
     try:
@@ -4252,7 +4265,8 @@ def interleaved(legs, start, every_worker: bool = False):
         for _ in range(TIER_ROUNDS):
             for label, c in clusters.items():
                 out[label].append(pick(c.window()))
-        return out, {label: pick(c.finish()) for label, c in clusters.items()}
+        return out, {label: pick(c.finish(report_roles))
+                     for label, c in clusters.items()}
     finally:
         for c in clusters.values():
             c.kill()
@@ -4698,6 +4712,681 @@ def drive_chaos_matrix(ps, Environment, smi: str):
                                                for k, v in stats.items()}}]
 
 
+# -- durability: replication, replica reads, the durable store ----------------
+
+FAILOVER_ENV = {"PS_KV_REPLICATION": "2", "PS_HEARTBEAT_INTERVAL": "0.3",
+                "PS_HEARTBEAT_TIMEOUT": "1.0", "PS_REQUEST_TIMEOUT": "0.5",
+                "PS_REQUEST_RETRIES": "5"}
+FAILOVER_WARM = 2       # rounds each worker runs before the parent kills
+FAILOVER_MIN_ROUNDS = 8  # rounds each worker runs at least
+FAILOVER_AFTER = 2      # exact rounds after the restored server is heard
+FAILOVER_CAP_S = 150.0  # the storm's own bound
+RR_SECS = 3.0           # benchmark.py:2516: 3 s quick, 6 s full
+RR_ROWS, RR_DIM, RR_BATCH, RR_DEPTH = 2048, 16, 16, 8  # benchmark.py:592-596
+RR_ENV = {"PS_REPLICA_READS": "1", "PS_HOT_CACHE": "0",
+          "PS_REQUEST_TIMEOUT": "5.0", "PS_REQUEST_RETRIES": "6"}
+NS_ROWS, NS_DIM = 512, 16  # benchmark.py:2397's namespace-flip storm
+DUR_ROWS, DUR_DIM = 1024, 1024  # benchmark.py:2666-2667, quick=False
+DUR_PULLS = 1500
+DUR_WARM_PULLS = 300
+
+
+def say(line: str) -> None:
+    """One output line in one write: a launcher's children share its
+    pipe, and ``print`` may write the text and the newline apart."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def failover_keys(po, who: int, per_server: int) -> np.ndarray:
+    """A worker's own keys in each server's range (disjoint per worker,
+    so each worker knows its keys' sums exactly)."""
+    return np.array([r.begin + 10_000 * (1 + who) + i
+                     for r in po.get_server_key_ranges()
+                     for i in range(per_server)], np.uint64)
+
+
+def node_failover(spec) -> int:
+    """One node of ``replication-failover``'s kill leg, launched by the
+    port's launcher with keepalive.  A server runs its node in a child
+    process (``SMOKE_INNER``) and exits 254 when that child was killed
+    (SIGKILL), so the keepalive restarts it; the restart first waits for
+    the failure detector to declare the dead id.  Workers push their 80
+    keys x 1,024,000 B each round and pull rank 0's 40 back, checked
+    exactly, until ``FAILOVER_AFTER`` rounds ran after the restored
+    server was heard.  Lines ``EVENT <json>`` carry the times."""
+    role = os.environ["DMLC_ROLE"]
+    if role == "server" and "SMOKE_INNER" not in os.environ:
+        marker = os.path.join(spec["dir"], "server-killed")
+        restart = os.path.exists(marker)
+        say("EVENT " + json.dumps({"kind": "supervisor", "t_proc": T_PROC,
+                                   "restart": restart}))
+        if restart:
+            time.sleep(float(FAILOVER_ENV["PS_HEARTBEAT_TIMEOUT"]) + 1.5)
+        rc = subprocess.call(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--node"],
+            env=dict(os.environ, SMOKE_INNER="1"))
+        if rc == -9:
+            with open(marker, "w") as f:
+                f.write("1")
+            return 254  # the crash: the launcher's keepalive restarts it
+        return rc
+    # Not before: the supervisor restarts without importing torch.
+    import pslite_tpu_torch as ps
+    from pslite_tpu_torch.base import server_rank_to_id
+
+    ps.start_ps()
+    po = ps.postoffice(role)
+    if role == "scheduler":
+        ps.finalize()
+        return 0
+    if role == "server":
+        srv = ps.KVServer(0)
+        handle = ps.KVServerDefaultHandle()
+        t_handle = time.time()
+        srv.set_request_handle(handle)  # a recovered life restores here
+        t_restored = time.time()
+        say("EVENT " + json.dumps({
+            "kind": "server", "rank": po.my_rank(), "pid": os.getpid(),
+            "recovery": po.is_recovery, "t_proc": T_PROC,
+            "t_handle": t_handle, "t_restored": t_restored,
+            "keys": len(handle.store),
+            "bytes": int(sum(v.nbytes for v in handle.store.values()))}))
+        ps.finalize()
+        say("EVENT " + json.dumps({
+            "kind": "store", "rank": po.my_rank(),
+            "crc": {str(k): zlib.crc32(v.tobytes())
+                    for k, v in handle.store.items()}}))
+        srv.stop()
+        return 0
+    kv = ps.KVWorker(0, 0)
+    me = po.my_rank()
+    victim = server_rank_to_id(0)
+    events = []
+    po.register_node_failure_hook(
+        lambda nid, down: events.append((time.time(), down))
+        if nid == victim else None)
+    keys = failover_keys(po, me, spec["keys"])
+    k0 = keys[:spec["keys"]]
+    base = np.random.default_rng(SEED + 20 + me).integers(
+        -8, 8, size=len(keys) * spec["val_len"]).astype(np.float32)
+    base64 = base.astype(np.float64)
+    buf = np.empty_like(base)
+    out = np.zeros(len(k0) * spec["val_len"], np.float32)
+    watchdog = threading.Timer(FAILOVER_CAP_S, lambda: (
+        say("replication-failover: the storm hung"), os._exit(3)))
+    watchdog.start()
+    rounds, r = [], 0
+    while True:
+        np.add(base, np.float32(r), out=buf)
+        t0 = time.time()
+        kv.wait(kv.push(keys, buf))
+        t1 = time.time()
+        kv.wait(kv.pull(k0, out))
+        t2 = time.time()
+        want = (r + 1) * base64[:len(out)] + r * (r + 1) / 2
+        if not np.array_equal(out, want):
+            raise AssertionError(f"worker {me} round {r}: "
+                                 f"{int((out != want).sum())} of rank 0's "
+                                 f"values wrong")
+        rounds.append((t0, t1, t2))
+        r += 1
+        if r == FAILOVER_WARM:
+            say("EVENT " + json.dumps({"kind": "warm", "rank": me}))
+        ups = [t for t, down in events if not down]
+        after = sum(1 for t0_, _t1, _t2 in rounds if ups and t0_ > ups[0])
+        if r >= FAILOVER_MIN_ROUNDS and after >= FAILOVER_AFTER:
+            break
+    # The whole store, both ranges, against the fault-free sums.
+    full = np.zeros_like(base)
+    kv.wait(kv.pull(keys, full))
+    want = r * base64 + (r - 1) * r / 2
+    exact = bool(np.array_equal(full, want))
+    watchdog.cancel()
+    kv.stop()
+    ps.finalize()
+    say(json.dumps({"kind": "worker", "rank": me, "rounds": rounds,
+                    "events": events, "exact": exact,
+                    "failovers": kv.stats["failovers"]}))
+    return 0 if exact else 1
+
+
+def node_replica_read(ps, po, kv, spec) -> dict:
+    """JAX's ``--mode replica_read`` (``benchmark.py:580-700``) once per
+    window: every worker aims a Zipf(1.3) storm of 16-row pulls at depth
+    8 at server rank 0's range for ``spec["secs"]``; every 64th request
+    is a read-your-writes probe (push +1 to this worker's own block,
+    pull it straight back: a miss is a violation); every 32nd pull is
+    checked against the table."""
+    from collections import deque
+
+    secs, batch, depth = spec["secs"], spec["batch"], spec["depth"]
+    rows, dim = spec["rows"], spec["dim"]
+    n_w = po.num_workers
+    wrank = po.my_rank()
+    keys = np.arange(rows, dtype=np.uint64)  # rank 0's range
+    table = np.stack([np.full(dim, 1.0 + r, np.float32)
+                      for r in range(rows)])
+    kv.wait(kv.push(keys, table.reshape(-1)))
+    po.barrier(0, ps.WORKER_GROUP)
+    expected = table * n_w
+    warm = np.zeros(batch * dim, np.float32)
+    end = time.monotonic() + 10.0
+    while True:
+        warm[:] = 0
+        kv.wait(kv.pull(keys[:batch], warm))
+        if np.array_equal(warm.reshape(batch, dim), expected[:batch]):
+            break
+        if time.monotonic() > end:
+            raise AssertionError("the base table never settled on the chain")
+        time.sleep(0.05)
+    po.barrier(0, ps.WORKER_GROUP)
+    zipf = np.minimum(np.random.RandomState(7 + wrank).zipf(
+        1.3, size=65536) - 1, rows - 8 * batch - 1).astype(np.int64)
+    pool = [np.zeros(batch * dim, np.float32) for _ in range(depth)]
+    p0 = rows - (wrank + 1) * batch
+    probe_keys = keys[p0:p0 + batch]
+    probe_expected = np.ascontiguousarray(expected[p0:p0 + batch])
+    probe_delta = np.ones(batch * dim, np.float32)
+    probe_out = np.zeros(batch * dim, np.float32)
+    zi = 0
+    for _w in node_windows(spec):
+        spread0 = kv.stats["replica_read.spread"]
+        fall0 = kv.stats["replica_read.fallbacks"]
+        pending, free, lats = deque(), list(range(depth)), []
+        n_req = violations = checked = 0
+
+        def retire(check: bool) -> None:
+            nonlocal checked
+            t_iss, ts, start, slot = pending.popleft()
+            kv.wait(ts)
+            lats.append(time.perf_counter() - t_iss)
+            if check:
+                got = pool[slot].reshape(batch, dim)
+                if not np.array_equal(got, expected[start:start + batch]):
+                    raise AssertionError(f"storm pull of rows [{start}, "
+                                         f"{start + batch}) wrong")
+                checked += 1
+            free.append(slot)
+
+        t0 = time.perf_counter()
+        t_end = t0 + secs
+        while time.perf_counter() < t_end:
+            n_req += 1
+            if n_req % 64 == 0:
+                probe_expected += 1.0
+                kv.wait(kv.push(probe_keys, probe_delta))
+                probe_out[:] = 0
+                kv.wait(kv.pull(probe_keys, probe_out))
+                if not np.array_equal(probe_out.reshape(batch, dim),
+                                      probe_expected):
+                    violations += 1
+                continue
+            start = int(zipf[zi % len(zipf)])
+            zi += 1
+            slot = free.pop()
+            pending.append((time.perf_counter(),
+                            kv.pull(keys[start:start + batch], pool[slot]),
+                            start, slot))
+            if len(pending) >= depth:
+                retire(check=n_req % 32 == 0)
+        while pending:
+            retire(check=False)
+        wall = time.perf_counter() - t0
+        p50, p99 = pctl_ms(lats)
+        window_done({"reqs": n_req, "reqs_per_s": n_req / wall,
+                     "ryw_violations": violations, "checked": checked,
+                     "spread": kv.stats["replica_read.spread"] - spread0,
+                     "fallbacks": kv.stats["replica_read.fallbacks"] - fall0,
+                     "p50_ms": p50, "p99_ms": p99})
+    return {"members": sorted(kv._read_share)}
+
+
+def node_durable_serve(ps, po, kv, spec) -> dict:
+    """JAX's ``--mode durable_serve`` (``benchmark.py:369-394``): the
+    table (``spec["rows"]`` x ``spec["dim"]`` f32, ``models/dlrm.py``'s
+    rows), an unmeasured Zipf(1.5) warm storm of 300 single-row pulls
+    (the server's hot keys learn the head, the tier settles), then once
+    per window ``spec["pulls"]`` Zipf single-row pulls, timed, every
+    64th checked exactly."""
+    rows, dim = spec["rows"], spec["dim"]
+    keys = np.arange(rows, dtype=np.uint64)
+    table = embedding_rows(np.arange(rows), dim)
+    kv.wait(kv.push(keys, table.reshape(-1)))
+    out = np.zeros(dim, np.float32)
+    for r in serving_rows(rows, spec["warm"], seed=3):
+        kv.wait(kv.pull(keys[int(r):int(r) + 1], out))
+    checked = 0
+    for w in node_windows(spec):
+        lats = []
+        for i, r in enumerate(serving_rows(rows, spec["pulls"],
+                                           seed=7 + w)):
+            t0 = time.perf_counter()
+            kv.wait(kv.pull(keys[int(r):int(r) + 1], out))
+            lats.append(time.perf_counter() - t0)
+            if i % 64 == 0:
+                if not np.array_equal(out, table[int(r)]):
+                    raise AssertionError(f"durable-serve: row {r} wrong")
+                checked += 1
+        p50, p99 = pctl_ms(lats)
+        window_done({"pulls": len(lats), "p50_ms": p50, "p99_ms": p99,
+                     "checked": checked})
+    return {"checked": checked}
+
+
+def drive_replication_failover(smi: str):
+    """``replication-failover``: 2 workers + 2 servers over tcp on the
+    native core, BASELINE config 2's pushes (80 keys x 1,024,000 B per
+    worker and round).  (1) The replication tax: push, worker barrier,
+    pull of the 80 keys at ``PS_KV_REPLICATION=2`` against 1, one
+    cluster each, 3 windows of 4 rounds alternating.  (2) The kill: the
+    port's launcher with keepalive (``node_failover``), deadlines 0.5 s
+    x 5 retries, heartbeats 0.3 s / 1.0 s; mid storm the parent SIGKILLs
+    server rank 0; its range fails over to the replica, the keepalive
+    restarts it, it takes rank 0 back and restores from the replica
+    before serving.  Every wait ends, every round's pull of rank 0's
+    keys and the final pull of both ranges are exact, and the restored
+    store equals the replica's."""
+    import signal
+
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    spec = {"mode": "push_barrier_pull", "sizes": [[MSG_KEYS_PER_SERVER,
+                                                    MB_LEN]],
+            "warmup": MSG_WARMUP, "rounds": PLANE_ROUNDS,
+            "windows": TIER_ROUNDS}
+    legs, _f = interleaved(
+        [("k1", {}), ("k2", {"PS_KV_REPLICATION": "2"})],
+        lambda env: Cluster("tcp", 2, 2, spec, extra=env),
+        every_worker=True)
+    key = str(MB_LEN)
+    ms = {leg: [sum(w["sizes"][key]["ms_per_round"] for w in win) / len(win)
+                for win in wins] for leg, wins in legs.items()}
+    row = {"config": "replication-tax", "ops": 2 * TIER_ROUNDS * PLANE_ROUNDS
+           * 2, "ms_per_round_k1": float(np.median(ms["k1"])),
+           "ms_per_round_k2": float(np.median(ms["k2"]))}
+    ratio_row(row, "tax_k2_over_k1", ms["k2"], ms["k1"])
+    print(f"replication-tax (1 scheduler + 2 servers + 2 workers, tcp, "
+          f"native core; {2 * MSG_KEYS_PER_SERVER} keys x {MB_LEN} B per "
+          f"worker and round, push + worker barrier + pull, every pull "
+          f"exact; {tier_topo()}): ms/round k=1 {spread(ms['k1'])}, k=2 "
+          f"{spread(ms['k2'])}; k=2 / k=1 by window median "
+          f"{row['tax_k2_over_k1']:.3f} (least "
+          f"{row['tax_k2_over_k1_min']:.3f}, most "
+          f"{row['tax_k2_over_k1_max']:.3f}) [{smi}] [host CPU "
+          f"{cpu_model()}]")
+
+    work = tempfile.mkdtemp(prefix="smoke-failover")
+    env = dict(os.environ, **FAILOVER_ENV, DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_NODE_HOST="127.0.0.1",
+               SMOKE_SPEC=json.dumps({"phase": "failover", "dir": work,
+                                      "keys": MSG_KEYS_PER_SERVER,
+                                      "val_len": VAL_LEN}))
+    lines: list = []
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pslite_tpu_torch.tracker.local", "-n", "2",
+         "-s", "2", "--van", "tcp", "--root-port", str(get_available_port()),
+         "--", sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--node"], env=env, cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+
+    def events(kind):
+        return [json.loads(ln[len("EVENT "):]) for ln in list(lines)
+                if ln.startswith("EVENT ") and f'"kind": "{kind}"' in ln]
+
+    t_kill = None
+    try:
+        end = time.monotonic() + PROC_DEADLINE
+        while (len(events("warm")) < 2 or len(events("server")) < 2):
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError("replication-failover: the cluster "
+                                     "did not start its storm")
+            time.sleep(0.02)
+        time.sleep(1.0)  # mid storm
+        victim = next(e for e in events("server") if e["rank"] == 0)
+        t_kill = time.time()
+        os.kill(victim["pid"], signal.SIGKILL)
+        rc = proc.wait(timeout=PROC_DEADLINE)
+        reader.join(timeout=10)
+    finally:
+        # The launcher's whole session: a server's child outlives its
+        # supervisor when the launcher terminates the run on a failure.
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    out = "".join(lines)
+    if rc != 0:
+        print("\n".join(out.splitlines()[-60:]))
+        raise AssertionError(f"replication-failover: the launcher exited "
+                             f"{rc}")
+    workers = [json.loads(ln) for ln in out.splitlines()
+               if ln.startswith('{"kind": "worker"')]
+    lives = events("server")
+    restored = [e for e in lives if e["recovery"]]
+    sup = [e for e in events("supervisor") if e["restart"]]
+    stores = {}
+    for e in events("store"):
+        stores[e["rank"]] = e["crc"]
+    if (len(workers) != 2 or not all(w["exact"] for w in workers)
+            or len(restored) != 1 or len(sup) != 1
+            or out.count("restarting server (exit 254)") != 1
+            or sorted(stores) != [0, 1]):
+        print("\n".join(out.splitlines()[-60:]))
+        raise AssertionError(f"replication-failover: {len(workers)} worker "
+                             f"reports, {len(restored)} restored lives, "
+                             f"{len(sup)} restarts, stores of "
+                             f"{sorted(stores)}")
+    if stores[0] != stores[1]:
+        diff = [k for k in stores[0] if stores[1].get(k) != stores[0][k]]
+        raise AssertionError(f"replication-failover: the restored store "
+                             f"differs from the replica's on {len(diff)} "
+                             f"of {len(stores[0])} keys")
+    rs = restored[0]
+    t_detect = min(t for w in workers for t, down in w["events"] if down)
+    t_heard = min(t for w in workers for t, down in w["events"] if not down)
+    waits = [(a, b) for w in workers for t0, t1, t2 in w["rounds"]
+             for a, b in ((t0, t1), (t1, t2))]
+    last_end = max(b for a, b in waits if a < t_kill)
+    first_fo = min(t2 for w in workers for _t0, _t1, t2 in w["rounds"]
+                   if t2 > t_detect)
+    first_exact = min(t2 for w in workers for t0, _t1, t2 in w["rounds"]
+                      if t0 > t_heard)
+    restore_s = rs["t_restored"] - rs["t_handle"]
+    kill_row = {
+        "config": "replication-failover",
+        "ops": sum(len(w["rounds"]) for w in workers) * 2,
+        "kill_to_detect_s": t_detect - t_kill,
+        "kill_to_first_failover_pull_s": first_fo - t_kill,
+        "kill_to_last_wait_end_s": last_end - t_kill,
+        "restart_to_restored_s": rs["t_restored"] - sup[0]["t_proc"],
+        "inner_start_to_restored_s": rs["t_restored"] - rs["t_proc"],
+        "restore_s": restore_s, "restored_mb": rs["bytes"] / 1e6,
+        "restore_mb_per_s": rs["bytes"] / 1e6 / max(restore_s, 1e-9),
+        "restart_to_first_exact_round_s": first_exact - sup[0]["t_proc"],
+        "max_wait_s": max(b - a for a, b in waits),
+        "failovers": sum(w["failovers"] for w in workers)}
+    print(f"replication-failover (the port's launcher with keepalive: 1 "
+          f"scheduler, 2 servers, 2 workers over tcp, native core, "
+          f"PS_KV_REPLICATION=2, heartbeats 0.3 s / 1.0 s, "
+          f"PS_REQUEST_TIMEOUT=0.5, PS_REQUEST_RETRIES=5; each worker "
+          f"pushes {2 * MSG_KEYS_PER_SERVER} keys x {MB_LEN} B per round and "
+          f"pulls rank 0's {MSG_KEYS_PER_SERVER} back; server rank 0 "
+          f"SIGKILLed mid storm): kill -> detection "
+          f"{kill_row['kill_to_detect_s']:.3f} s, kill -> first failover "
+          f"pull {kill_row['kill_to_first_failover_pull_s']:.3f} s, kill "
+          f"-> the last outstanding wait's end "
+          f"{kill_row['kill_to_last_wait_end_s']:.3f} s (longest wait "
+          f"{kill_row['max_wait_s']:.3f} s, none hung); restart "
+          f"(keepalive, exit 254; the restart waits "
+          f"{float(FAILOVER_ENV['PS_HEARTBEAT_TIMEOUT']) + 1.5:.1f} s for "
+          f"the detector) -> restored "
+          f"{kill_row['restart_to_restored_s']:.3f} s (its process start "
+          f"-> restored {kill_row['inner_start_to_restored_s']:.3f} s; the "
+          f"restore {restore_s:.3f} s for {rs['keys']} keys, "
+          f"{kill_row['restored_mb']:.1f} MB, "
+          f"{kill_row['restore_mb_per_s']:.1f} MB/s), restart -> first "
+          f"exact round {kill_row['restart_to_first_exact_round_s']:.3f} "
+          f"s; {sum(len(w['rounds']) for w in workers)} rounds, every "
+          f"pull exact, both ranges exact at the end, the restored store "
+          f"equal to the replica's ({len(stores[0])} keys, crc32 each); "
+          f"{kill_row['failovers']} failover routings [{smi}] [host CPU "
+          f"{cpu_model()}]")
+    return [row, kill_row]
+
+
+def drive_replica_read(ps, Environment, smi: str):
+    """``replica-read``: JAX's ``replica_read_bench(quick=True)``
+    (``benchmark.py:2494-2548``) over tcp processes: 3 workers + 3
+    servers, k = 3 against k = 1, one cluster each, 3 windows of
+    ``RR_SECS`` alternating; then JAX's namespace-flip leg
+    (``benchmark.py:2397-2491``): 1 worker + 3 servers in this process
+    over tcp at k = 3 with replica reads, a pull storm while the
+    scheduler snapshots v1, pushes v2, publishes v1, flips and rolls
+    back; 0 failed requests, every answer exactly v1 or v2."""
+    import shutil
+
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    spec = {"phase": "replica-read", "windows": TIER_ROUNDS,
+            "secs": RR_SECS, "rows": RR_ROWS, "dim": RR_DIM,
+            "batch": RR_BATCH, "depth": RR_DEPTH}
+    legs, finals = interleaved(
+        [("k3", dict(RR_ENV, PS_KV_REPLICATION="3")),
+         ("k1", dict(RR_ENV, PS_KV_REPLICATION="1"))],
+        lambda env: Cluster("tcp", 3, 3, spec, extra=env),
+        every_worker=True)
+    rate = {leg: [sum(w["reqs_per_s"] for w in win) for win in wins]
+            for leg, wins in legs.items()}
+    viol = sum(w["ryw_violations"] for wins in legs.values() for win in wins
+               for w in win)
+    if viol:
+        raise AssertionError(f"replica-read: {viol} read-your-writes "
+                             f"violations")
+    members = sorted({m for f in finals["k3"] for m in f["members"]})
+    if len(members) < 3:
+        raise AssertionError(f"replica-read: the k=3 workers read from "
+                             f"nodes {members} only")
+    row = {"config": "replica-read",
+           "ops": sum(w["reqs"] for wins in legs.values() for win in wins
+                      for w in win),
+           "reads_per_s_k3": float(np.median(rate["k3"])),
+           "reads_per_s_k1": float(np.median(rate["k1"])),
+           "ryw_violations": viol}
+    ratio_row(row, "k3_over_k1_reads", rate["k3"], rate["k1"])
+    p50 = {leg: [float(np.median([w["p50_ms"] for w in win]))
+                 for win in wins] for leg, wins in legs.items()}
+    spreads = sum(w["spread"] for win in legs["k3"] for w in win)
+    falls = sum(w["fallbacks"] for win in legs["k3"] for w in win)
+    checked = sum(w["checked"] for wins in legs.values() for win in wins
+                  for w in win)
+    print(f"replica-read (JAX's replica_read_bench: 3 workers + 3 servers "
+          f"over tcp, native core, each worker a Zipf(1.3) storm of "
+          f"{RR_BATCH}-row pulls at depth {RR_DEPTH} on rank 0's "
+          f"{RR_ROWS} x {RR_DIM} rows for {RR_SECS:g} s, a read-your-writes "
+          f"probe every 64th request; {tier_topo()}): reads/s k=3 "
+          f"{spread(rate['k3'])}, k=1 {spread(rate['k1'])}; k=3 / k=1 by "
+          f"window median {row['k3_over_k1_reads']:.3f} (least "
+          f"{row['k3_over_k1_reads_min']:.3f}, most "
+          f"{row['k3_over_k1_reads_max']:.3f}); p50 ms k=3 "
+          f"{spread(p50['k3'])}, k=1 {spread(p50['k1'])}; read-your-writes "
+          f"violations {viol}; k=3 spread reads {spreads}, stale-answer "
+          f"fallbacks {falls}; {checked} storm pulls checked exactly "
+          f"[{smi}] [host CPU {cpu_model()}]")
+
+    snapdir = tempfile.mkdtemp(prefix="smoke-nsflip")
+    nodes = msg_cluster(ps, Environment, 1, 3, van="tcp", env={
+        "PS_KV_REPLICATION": "3", "PS_REPLICA_READS": "1",
+        "PS_REQUEST_TIMEOUT": "2.0", "PS_REQUEST_RETRIES": "6",
+        "PS_SNAPSHOT_DIR": snapdir, "DMLC_PS_ROOT_URI": "127.0.0.1",
+        "DMLC_NODE_HOST": "127.0.0.1",
+        "DMLC_PS_ROOT_PORT": str(get_available_port())})
+    sched, worker_po = nodes[0], nodes[4]
+    servers = []
+    for po in nodes[1:4]:
+        srv = ps.KVServer(0, postoffice=po)
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        servers.append(srv)
+    w = ps.KVWorker(0, 0, postoffice=worker_po)
+    try:
+        keys = np.arange(NS_ROWS, dtype=np.uint64)
+        v1 = np.stack([np.full(NS_DIM, 1.0 + r, np.float32)
+                       for r in range(NS_ROWS)])
+        v2 = 2 * v1
+        w.wait(w.push(keys, v1.reshape(-1)))
+        time.sleep(0.3)  # the forwards land on the whole chain
+        t0 = time.perf_counter()
+        sched.snapshot()
+        snap_s = time.perf_counter() - t0
+        w.wait(w.push(keys, v1.reshape(-1)))  # the live store is v2
+        batch, stop, errors, pulls = 16, threading.Event(), [], [0]
+
+        def storm():
+            out = np.zeros(batch * NS_DIM, np.float32)
+            i = 0
+            while not stop.is_set():
+                start = (i * 7) % (NS_ROWS - batch)
+                i += 1
+                out[:] = 0
+                try:
+                    w.wait(w.pull(keys[start:start + batch], out))
+                except Exception as exc:  # noqa: BLE001 - counted
+                    errors.append(repr(exc))
+                    continue
+                got = out.reshape(batch, NS_DIM)
+                if not (np.array_equal(got, v1[start:start + batch])
+                        or np.array_equal(got, v2[start:start + batch])):
+                    errors.append(f"mixed read at row {start}")
+                pulls[0] += 1
+
+        t = threading.Thread(target=storm, daemon=True)
+        t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        pub = sched.publish_model(namespace="bench", version="v1")
+        flip_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        rb = sched.rollback_model()
+        rollback_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.5)
+        stop.set()
+        t.join(timeout=10)
+        out = np.zeros(NS_ROWS * NS_DIM, np.float32)
+        w.wait(w.pull(keys, out))
+        if (errors or pub["servers"] != 3 or rb["servers"] != 3
+                or not np.array_equal(out.reshape(NS_ROWS, NS_DIM), v2)):
+            raise AssertionError(f"namespace-flip: {errors[:3]}, {pub}, "
+                                 f"{rb}")
+    finally:
+        msg_finalize(nodes, servers + [w])
+        shutil.rmtree(snapdir, ignore_errors=True)
+    print(f"replica-read namespace-flip (1 worker + 3 servers in this "
+          f"process over tcp, k=3, replica reads; {NS_ROWS} x {NS_DIM} "
+          f"rows): snapshot {snap_s * 1e3:.1f} ms, publish (stage + flip) "
+          f"{flip_ms:.1f} ms, rollback {rollback_ms:.1f} ms under "
+          f"{pulls[0]} storm pulls, 0 failed, each exactly v1 or v2; the "
+          f"live v2 store served after the rollback [{smi}] [host CPU "
+          f"{cpu_model()}]")
+    row.update(ns_flip_ms=flip_ms, ns_rollback_ms=rollback_ms,
+               ns_pulls=pulls[0], ns_failed=0)
+    return [row]
+
+
+def drive_durable_store(ps, Environment, smi: str):
+    """``durable-store``.  (1) JAX's ``durable_store_bench(quick=False)``
+    serving legs (``benchmark.py:2649-2720``): 1 worker + 1 server
+    processes over tcp, a 1,024 x 1,024 f32 table, the server's store
+    tiered under ``PS_STORE_RAM_MB`` = a quarter of the table against
+    all in RAM, one cluster each, 3 windows of 1,500 Zipf single-row
+    pulls alternating (``node_durable_serve``); the tiered/all-RAM hot
+    p99 ratio (JAX's <= 2x bar is a yardstick).  (2) A coordinated
+    snapshot of BASELINE config 2's store (80 keys x 1,024,000 B over 2
+    servers, in this process over tcp), the whole cluster finalized, a
+    fresh one booted with ``PS_SNAPSHOT_RESTORE=1``: snapshot s,
+    restore s (each server's ``set_request_handle``), pulls bit-exact."""
+    import shutil
+
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    table_mb = DUR_ROWS * DUR_DIM * 4 / 2 ** 20
+    ram_mb = table_mb / 4.0
+    spec = {"phase": "durable-serve", "windows": TIER_ROUNDS,
+            "rows": DUR_ROWS, "dim": DUR_DIM, "pulls": DUR_PULLS,
+            "warm": DUR_WARM_PULLS}
+    legs, finals = interleaved(
+        [("tiered", {"PS_STORE_RAM_MB": str(ram_mb)}), ("all-ram", {})],
+        lambda env: Cluster("tcp", 1, 1, spec, extra=env),
+        report_roles=("server",))
+    p99 = {leg: [w["p99_ms"] for w in wins] for leg, wins in legs.items()}
+    p50 = {leg: [w["p50_ms"] for w in wins] for leg, wins in legs.items()}
+    row = {"config": "durable-store",
+           "ops": sum(w["pulls"] for wins in legs.values() for w in wins),
+           "hot_p99_tiered_ms": float(np.median(p99["tiered"])),
+           "hot_p99_allram_ms": float(np.median(p99["all-ram"])),
+           "hot_p50_tiered_ms": float(np.median(p50["tiered"])),
+           "hot_p50_allram_ms": float(np.median(p50["all-ram"]))}
+    ratio_row(row, "hot_p99_ratio", p99["tiered"], p99["all-ram"])
+    print(f"durable-store serving (JAX's durable_store_bench, quick=False: "
+          f"1 worker + 1 server over tcp, {DUR_ROWS} x {DUR_DIM} f32 "
+          f"table ({table_mb:.1f} MiB), PS_STORE_RAM_MB={ram_mb:g} against "
+          f"all-RAM, {DUR_WARM_PULLS} warm pulls, {DUR_PULLS} Zipf(1.5) "
+          f"single-row pulls per window, every 64th exact; {tier_topo()}): "
+          f"p99 ms tiered {spread(p99['tiered'])}, all-RAM "
+          f"{spread(p99['all-ram'])}; p50 ms tiered {spread(p50['tiered'])}"
+          f", all-RAM {spread(p50['all-ram'])}; tiered / all-RAM p99 by "
+          f"window median {row['hot_p99_ratio']:.3f} (least "
+          f"{row['hot_p99_ratio_min']:.3f}, most "
+          f"{row['hot_p99_ratio_max']:.3f}; JAX's bar 2.0, a yardstick) "
+          f"[{smi}] [host CPU {cpu_model()}]")
+    if "TieredStore" not in finals["tiered"]["tier"]:
+        raise AssertionError(f"durable-store: the tiered leg's store is "
+                             f"{finals['tiered']['tier']}")
+    print(f"    the servers' stores at the end: tiered "
+          f"{finals['tiered']['tier']}; all-RAM {finals['all-ram']['tier']}")
+
+    snapdir = tempfile.mkdtemp(prefix="smoke-snapshot")
+
+    def boot(extra):
+        env = dict(extra, PS_SNAPSHOT_DIR=snapdir,
+                   DMLC_PS_ROOT_URI="127.0.0.1", DMLC_NODE_HOST="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(get_available_port()))
+        nodes = msg_cluster(ps, Environment, 1, 2, van="tcp", env=env)
+        servers = [ps.KVServer(0, postoffice=po) for po in nodes[1:3]]
+        took = {}
+
+        def install(i, srv):
+            t0 = time.perf_counter()
+            srv.set_request_handle(ps.KVServerDefaultHandle())
+            took[i] = time.perf_counter() - t0
+
+        run_threads([lambda i=i, s=s: install(i, s)
+                     for i, s in enumerate(servers)], "handles")
+        return nodes, servers, ps.KVWorker(0, 0, postoffice=nodes[3]), took
+
+    try:
+        nodes, servers, w, _t = boot({})
+        keys = np.array([r.begin + i
+                         for r in nodes[3].get_server_key_ranges()
+                         for i in range(MSG_KEYS_PER_SERVER)], np.uint64)
+        vals = np.random.default_rng(SEED + 30).integers(
+            -8, 8, size=len(keys) * VAL_LEN).astype(np.float32)
+        try:
+            w.wait(w.push(keys, vals))
+            t0 = time.perf_counter()
+            res = nodes[0].snapshot()
+            snap_s = time.perf_counter() - t0
+        finally:
+            msg_finalize(nodes, servers + [w])
+        nodes, servers, w, took = boot({"PS_SNAPSHOT_RESTORE": "1"})
+        try:
+            got = np.zeros_like(vals)
+            w.wait(w.pull(keys, got))
+            if not np.array_equal(got, vals):
+                raise AssertionError(f"durable-store: the restored pull has "
+                                     f"{int((got != vals).sum())} values "
+                                     f"wrong")
+        finally:
+            msg_finalize(nodes, servers + [w])
+    finally:
+        shutil.rmtree(snapdir, ignore_errors=True)
+    mb = sum(e["nbytes"] for e in res["ranges"]) / 1e6
+    restore_s = max(took.values())
+    print(f"durable-store snapshot (BASELINE config 2's store, "
+          f"{len(keys)} keys x {MB_LEN} B over 2 servers in this process "
+          f"over tcp): snapshot {snap_s:.3f} s ({len(res['ranges'])} "
+          f"segments, {mb:.1f} MB, {mb / snap_s:.1f} MB/s), whole cluster "
+          f"finalized, restore on boot {restore_s:.3f} s (the slower "
+          f"server's set_request_handle; {mb / restore_s:.1f} MB/s), every "
+          f"pulled value exact [{smi}] [host CPU {cpu_model()}]")
+    row.update(snapshot_s=snap_s, restore_s=restore_s, snapshot_mb=mb)
+    return [row]
+
+
 def main() -> int:
     import torch
 
@@ -4870,6 +5559,9 @@ def main() -> int:
         ("recovery-keepalive", lambda: drive_recovery_keepalive(smi)),
         ("deadline-timeout", lambda: drive_deadline_timeout(smi)),
         ("chaos-matrix", lambda: drive_chaos_matrix(ps, Environment, smi)),
+        ("replication-failover", lambda: drive_replication_failover(smi)),
+        ("replica-read", lambda: drive_replica_read(ps, Environment, smi)),
+        ("durable-store", lambda: drive_durable_store(ps, Environment, smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:

@@ -704,16 +704,28 @@ class ApplyShardPool:
 
     def _drain_emit_q(self) -> None:
         """Send the selected responses in selection order, one drainer at
-        a time, never holding the order lock across a send."""
+        a time, never holding the order lock across a send.  A thread
+        that finds another draining leaves its responses to it and
+        returns to its shard (a replicated push's response waits for its
+        forwards to be written); the drainer looks once more after it
+        lets go, so nothing it missed is stranded."""
         while True:
-            with self._emit_mu:
-                with self._order_mu:
-                    if not self._emit_q:
-                        return
-                    head = self._emit_q.popleft()
-                self._emit(head)
-                if head.emitted is not None:
-                    head.emitted.set()
+            if not self._emit_mu.acquire(blocking=False):
+                return
+            try:
+                while True:
+                    with self._order_mu:
+                        if not self._emit_q:
+                            break
+                        head = self._emit_q.popleft()
+                    self._emit(head)
+                    if head.emitted is not None:
+                        head.emitted.set()
+            finally:
+                self._emit_mu.release()
+            with self._order_mu:
+                if not self._emit_q:
+                    return
 
     def _emit(self, pending: _Pending) -> None:
         kind = pending.response[0]

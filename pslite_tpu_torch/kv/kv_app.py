@@ -85,22 +85,40 @@ f32/f64 push adds run in the native core (``native.try_iadd``, the bits
 of numpy's ``+=``) unless the node's ``PS_NATIVE=0``.
 
 Bounded requests (:480-560, the sweeper :1806-1948): with
-``PS_REQUEST_TIMEOUT`` > 0 (seconds; default 0 = off) every message-path
-request gets a deadline.  A sweeper thread retries the unresponded
-slices of an expired request, attempt *n* after ``timeout * 2**n``, and
-at once a slice whose send failed or whose server the failure detector
-declared dead (``_on_node_event``); each retry is a new message (a
-fresh sid) with the slice's encode-once payload, and the resender
-forgets the old one.  The first response per slice counts, later
-duplicates are discounted.  After ``PS_REQUEST_RETRIES`` (default 3)
-the request fails: ``wait(ts)`` raises TimeoutError and its callback
-never fires.  Without a timeout a failed send fails the request at once.
+``PS_REQUEST_TIMEOUT`` > 0 (seconds; default 0 = off, 10 under replica
+reads) every message-path request gets a deadline.  A sweeper thread
+retries the unresponded slices of an expired request, attempt *n* after
+``timeout * 2**n``, and at once a slice whose send failed or whose
+server the failure detector declared dead (``_on_node_event``); each
+retry is a new message (a fresh sid) with the slice's encode-once
+payload, routed again (``_route``: a dead rank's slice fails over to
+the first live member of its replica chain), and the resender forgets
+the old one.  The first response per slice counts, later duplicates are
+discounted.  After ``PS_REQUEST_RETRIES`` (default 3) the request fails:
+``wait(ts)`` raises TimeoutError and its callback never fires.  Without
+a timeout a failed send fails the request at once.
 
-Not here, each raising where a JAX caller would reach it: replication
-(and so batching, or deadlines, under ``PS_KV_REPLICATION`` > 1, whose
-retries fail over down a replica chain), elastic routing (the
-wrong-owner re-slice of a bounced slice), snapshots, the tiered store
-and namespaces (ROADMAP Queue 1 item 8(b)/(c)).
+Durability (``kv/replication.py``, ``kv/snapshot.py``, ``kv/tiered.py``):
+- ``PS_KV_REPLICATION=k``: a server chain-forwards every accepted push
+  to the next k-1 servers from its request thread, in arrival order
+  (``_intake_replicate``, batched sub-ops too), dedups origins, and a
+  recovered server restores its ranges from its chain before serving.
+- ``PS_REPLICA_READS=1``: a worker spreads pure pulls over each range's
+  live chain (``_route_read``, ``PS_REPLICA_READ_POLICY`` sticky, rr or
+  load); a replica answers in the primary's stamp currency, and an
+  answer older than a push this worker saw acknowledged is discarded and
+  pulled again from the primary.
+- ``PS_SNAPSHOT_DIR``: the scheduler's ``Postoffice.snapshot`` fences
+  every server through its request queue (``_run_snapshot``) and commits
+  a manifest of range segments; ``PS_SNAPSHOT_RESTORE=1`` restores them
+  at boot.  ``publish_model``/``rollback_model`` stage a manifest and
+  flip it in as a model namespace.
+- ``PS_STORE_RAM_MB`` (``PS_STORE_DIR``, ``PS_STORE_SEGMENT_MB``): the
+  handle's dict becomes a ``TieredStore``.
+
+Not here, each raising where a JAX caller would reach it: elastic
+routing (``PS_ELASTIC``, the wrong-owner re-slice of a bounced slice,
+ROADMAP Queue 1 item 8(b2)) and the metrics plane (item 8(c)).
 ``KVWorker.reshard`` recuts the worker's engines onto a new device group
 (``IciVan.reshard_engines``).
 """
@@ -109,6 +127,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import itertools
+import json
 import os
 import threading
 import time
@@ -127,27 +146,36 @@ from ..message import (
     BatchInfo,
     BatchOp,
     CodecInfo,
+    Command,
+    Control,
     Message,
     OPT_APPLY_ERROR,
     OPT_OVERLOAD,
+    OPT_REPLICA,
     OPT_SEND_FAILED,
     OPT_WRONG_OWNER,
     OPT_XFER_PART,
     OPT_ZPULL,
+    REPLICA_FETCH_CMD,
     Role,
+    SNAPSHOT_LOCAL_CMD,
     ZPULL_OFF_BITS,
 )
 from ..ops import codecs as codecs_mod
 from ..range import Range, find_range
 from ..sarray import SArray
-from ..telemetry import node_registry
+from ..telemetry import LocalCounts, node_registry
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
 from ..vans import native
+from . import snapshot as snapshot_mod
 from .apply_shards import ApplyShardPool
 from .batching import (BATCH_PROBE_CMD, BATCH_WIRE_VERSION, OpCombiner,
                        split_batch_message)
 from .hot_cache import HotKeyCache
+from .replication import (Replicator, _snapshot_items, chain_ranks,
+                          export_range)
+from .tiered import TieredStore
 
 
 _ZPULL_SEQ = itertools.count(1)  # process-wide registered pull buffer ids
@@ -165,17 +193,11 @@ HOT_KEYS_CMD = 0x407C
 
 
 def _refuse_batching_with(env, batch_bytes: int) -> None:
-    """Batching under what the port does not run yet: JAX forwards and
-    dedups batched sub-ops down a replica chain, and declines batching
-    under elastic membership."""
-    if batch_bytes <= 0:
-        return
-    if env.find_int("PS_KV_REPLICATION", 1) > 1:
-        raise _not_ported("small-op batching under replication "
-                          "(PS_KV_REPLICATION > 1)", "8(b)")
-    if env.find_int("PS_ELASTIC", 0):
+    """Batching under what the port does not run yet: JAX declines
+    batching under elastic membership."""
+    if batch_bytes > 0 and env.find_int("PS_ELASTIC", 0):
         raise _not_ported("elastic membership (PS_ELASTIC), under which "
-                          "JAX declines batching", "8(b)")
+                          "JAX declines batching", "8(b2)")
 
 
 class OverloadError(RuntimeError):
@@ -240,6 +262,9 @@ class KVMeta:
     trace: int = 0
     tenant: int = 0
     stamp: int = 0
+    # A replicated push's forwards (their sent events): the
+    # acknowledgement waits for them (``KVServer._await_forwards``).
+    forwards: Optional[list] = None
 
 
 @dataclass
@@ -268,9 +293,8 @@ class _PendingSlice:
     # van answered OPT_SEND_FAILED): the sweeper retries it at once, and
     # only it, never its healthy siblings.
     retry_now: bool = False
-    # JAX's re-slice of an OPT_WRONG_OWNER bounce and its spread pulls
-    # set these; the port has neither (ROADMAP Queue 1 item 8(b)).
-    wrong_owner: bool = False
+    # A pure pull spread to a chain member (PS_REPLICA_READS): its
+    # answer is checked for staleness; every retry goes to the primary.
     replica_read: bool = False
 
 
@@ -400,7 +424,7 @@ class KVWorker:
         self._overload_ts = BoundedKeySet(4096)
         # Bounced by a server that no longer owns the range
         # (OPT_WRONG_OWNER, an elastic JAX server): the re-slice needs
-        # routing epochs, so wait raises naming item 8(b).
+        # routing epochs, so wait raises naming item 8(b2).
         self._wrong_owner_ts = BoundedKeySet(4096)
         # Tenants: this worker's default (PS_TENANT; per-op tenant=
         # overrides) and the shared table.
@@ -460,17 +484,31 @@ class KVWorker:
         metrics = node_registry(getattr(self.po, "metrics", None))
         self._c_codec_raw = metrics.counter("codec.raw_bytes")
         self._c_codec_wire = metrics.counter("codec.wire_bytes")
-        # Bounded requests: PS_REQUEST_TIMEOUT (s, 0 = off) deadlines
-        # every message-path request, the sweeper retries expired slices
-        # and after PS_REQUEST_RETRIES fails the request.  _down_servers
-        # mirrors the failure detector's NODE_FAILURE broadcasts.
-        self._req_timeout = env.find_float("PS_REQUEST_TIMEOUT", 0.0)
+        # Bounded requests: PS_REQUEST_TIMEOUT (s, 0 = off; 10 under
+        # replica reads, whose stale-answer fallback is a sweeper retry)
+        # deadlines every message-path request, the sweeper retries
+        # expired slices (failing over down the replica chain) and after
+        # PS_REQUEST_RETRIES fails the request.  _down_servers mirrors
+        # the failure detector's NODE_FAILURE broadcasts.
+        replica_reads = bool(env.find_int("PS_REPLICA_READS", 0))
+        self._req_timeout = env.find_float(
+            "PS_REQUEST_TIMEOUT", 10.0 if replica_reads else 0.0)
         self._req_retries = env.find_int("PS_REQUEST_RETRIES", 3)
-        if (self._req_timeout > 0
-                and env.find_int("PS_KV_REPLICATION", 1) > 1):
-            raise _not_ported("request deadlines under replication "
-                              "(PS_KV_REPLICATION > 1: retries fail over "
-                              "down the replica chain)", "8(b)")
+        self._replication = env.find_int("PS_KV_REPLICATION", 1)
+        # Replica reads: pure pulls spread over each range's live chain,
+        # checked against the newest push stamp this worker saw
+        # acknowledged per primary (_seen_stamps).
+        self._replica_reads = (replica_reads and self._replication >= 2
+                               and self.po.num_servers >= 2
+                               and self._req_timeout > 0)
+        self._read_policy = (env.find("PS_REPLICA_READ_POLICY")
+                             or "sticky").strip().lower()
+        self._rr_counter = itertools.count()
+        self._seen_stamps: Dict[int, int] = {}
+        self._read_share: Dict[int, int] = {}  # dest -> spread pulls
+        # JAX's kv.failovers / replica_read.spread / .fallbacks
+        # counters (the port's registry is a no-op).
+        self.stats = LocalCounts()
         self._down_servers: set = set()
         self._pending: Dict[int, _PendingReq] = {}
         self._sweep_thread: Optional[threading.Thread] = None
@@ -1178,7 +1216,7 @@ class KVWorker:
         if bounced:
             raise _not_ported(
                 f"request {timestamp}: the re-slice of a slice bounced "
-                f"OPT_WRONG_OWNER (routing epochs)", "8(b)")
+                f"OPT_WRONG_OWNER (routing epochs)", "8(b2)")
         if shed:
             raise OverloadError(
                 f"request {timestamp} was shed by the server under "
@@ -1303,7 +1341,15 @@ class KVWorker:
         encs = [self._encode_part(codec, rank, part)
                 if codec is not None and push else None
                 for rank, part in live]
-        dests = [self._route(rank) for rank, _part in live]
+        if (self._replica_reads and pull and not push and cmd == 0
+                and zpull is None and codec is None):
+            # Pure pulls spread over each range's live chain members;
+            # _process checks the answer's stamp before accepting it.
+            # Zero-copy and codec responses stay with the primary.
+            routed = [self._route_read(rank) for rank, _part in live]
+        else:
+            routed = [(self._route(rank), False) for rank, _part in live]
+        dests = [dest for dest, _rr in routed]
         req: Optional[_PendingReq] = None
         if self._req_timeout > 0:
             # Complete before it is published: a sweep racing this send
@@ -1312,9 +1358,9 @@ class KVWorker:
                 ts=ts, push=push, pull=pull, cmd=cmd,
                 deadline=time.monotonic() + self._req_timeout,
                 slices=[_PendingSlice(group_rank=rank, part=part, dest=dest,
-                                      enc=enc)
-                        for (rank, part), dest, enc in zip(live, dests,
-                                                           encs)],
+                                      enc=enc, replica_read=rr)
+                        for (rank, part), (dest, rr), enc in zip(
+                            live, routed, encs)],
                 val_nbytes=val_nbytes, codec=codec, zpull=zpull,
                 tenant=tenant)
             with self._mu:
@@ -1365,10 +1411,19 @@ class KVWorker:
                     self._batch_caps[probe_dest] = ok
                     self._batch_probing.discard(probe_dest)
                 return
-        if self._req_timeout > 0 and self._pending_response(msg):
-            # Pre-compensate the +1 the Customer adds after this handle.
-            self._customer.add_response(ts, -1)
-            return
+        cache_ident = msg.meta.sender
+        if self._req_timeout > 0:
+            discount, primary = self._pending_response(msg)
+            if discount:
+                # Pre-compensate the +1 the Customer adds after this
+                # handle.
+                self._customer.add_response(ts, -1)
+                return
+            if primary is not None:
+                # A replica-served pull: its stamp is in the primary's
+                # counter domain, so the cache files it under the
+                # primary's identity.
+                cache_ident = primary
         option = msg.meta.option
         if option == OPT_SEND_FAILED:
             with self._mu:
@@ -1382,11 +1437,18 @@ class KVWorker:
         elif option == OPT_WRONG_OWNER:
             with self._mu:
                 self._wrong_owner_ts.add(ts)
+        if self._replica_reads and msg.meta.push and msg.meta.stamp:
+            # An acknowledged push raises this worker's read-your-writes
+            # floor for the acking server.
+            with self._mu:
+                if msg.meta.stamp > self._seen_stamps.get(msg.meta.sender,
+                                                          0):
+                    self._seen_stamps[msg.meta.sender] = msg.meta.stamp
         hc = self._hot_cache
         if hc is not None and msg.meta.stamp:
             # Every stamped response advances its server's newest known
             # version, invalidating older fills.
-            hc.observe(msg.meta.sender, msg.meta.stamp)
+            hc.observe(cache_ident, msg.meta.stamp)
         if msg.meta.pull and len(msg.data) >= 2:
             ci = msg.meta.codec
             if ci is not None and ci.raw_len > 0 and len(msg.data) >= 3:
@@ -1420,7 +1482,7 @@ class KVWorker:
                 # The fill stamp was read at the server's intake, so it
                 # never claims more than the values saw (copied: response
                 # buffers recycle).
-                hc.fill(msg.meta.sender, msg.meta.stamp, kvs.keys, kvs.vals)
+                hc.fill(cache_ident, msg.meta.stamp, kvs.keys, kvs.vals)
         # The Customer counts this response *after* the handle, so the
         # last response is expected - 1 (reference: kv_app.h:686-710).
         if (self._customer.num_response(ts) + 1
@@ -1449,13 +1511,58 @@ class KVWorker:
             sl.responded = True
             return False
 
-    def _pending_response(self, msg: Message) -> bool:
-        """Deadline bookkeeping of one response; True when it is to be
-        discounted: a duplicate, a send failure the sweeper retries, or
-        a stale give-up of a request that completed or was abandoned."""
+    def _pending_response(self, msg: Message) -> Tuple[bool, Optional[int]]:
+        """Deadline bookkeeping of one response: ``(discount, primary)``.
+        Discounted are a duplicate, a send failure the sweeper retries,
+        a stale give-up of a request that completed or was abandoned,
+        and a replica's answer older than a push this worker saw
+        acknowledged (the sweeper pulls it again from the primary).
+        ``primary`` is the primary's id when a replica answered a
+        spread pull, else None."""
         ts = msg.meta.timestamp
         if msg.meta.option != OPT_SEND_FAILED:
-            return self._slice_answered(ts, msg.meta.key)
+            if not self._replica_reads:
+                return self._slice_answered(ts, msg.meta.key), None
+            return self._replica_answer(msg)
+        return self._send_failed_response(msg), None
+
+    def _replica_answer(self, msg: Message) -> Tuple[bool, Optional[int]]:
+        """``_pending_response`` of a normal response under replica
+        reads: the first answer per slice counts, unless it is a stale
+        replica answer."""
+        ts = msg.meta.timestamp
+        stale = False
+        with self._mu:
+            req = self._pending.get(ts)
+            sl = None if req is None else self._slice_of(req, msg.meta.key)
+            if sl is None:
+                return False, None
+            if sl.responded:
+                return True, None
+            primary = None
+            if sl.replica_read:
+                pid = server_rank_to_id(sl.group_rank * self.po.group_size
+                                        + self.po.instance_idx)
+                if msg.meta.sender != pid:
+                    primary = pid
+                    stale = (msg.meta.stamp
+                             < self._seen_stamps.get(pid, 0))
+            if stale:
+                sl.retry_now = True
+                sl.replica_read = False  # the sweeper -> the primary
+                self.stats.inc("replica_read.fallbacks")
+            else:
+                sl.responded = True
+        if stale:
+            self._wake_sweeper()
+            return True, None
+        return False, primary
+
+    def _send_failed_response(self, msg: Message) -> bool:
+        """``_pending_response`` of an ``OPT_SEND_FAILED`` give-up: True
+        (discount) while the sweeper retries the slice, or for a stale
+        give-up."""
+        ts = msg.meta.timestamp
         retry = False
         with self._mu:
             req = self._pending.get(ts)
@@ -1488,14 +1595,82 @@ class KVWorker:
                 self._down_servers.add(node_id)
             else:
                 self._down_servers.discard(node_id)
+                # A recovered server restarts its push stamps: the old
+                # floor would brand every replica answer stale.
+                self._seen_stamps.pop(node_id, None)
+                self._read_share.pop(node_id, None)
         if down:
             self._wake_sweeper()
 
-    def _route(self, group_rank: int) -> int:
-        """A slice's destination: its owner rank's instance (JAX's
-        failover down a replica chain is ROADMAP Queue 1 item 8(b))."""
-        return server_rank_to_id(group_rank * self.po.group_size
-                                 + self.po.instance_idx)
+    def _hold(self, sl: _PendingSlice) -> bool:
+        """Whether a slice whose send failed waits for its deadline
+        instead of a retry at once: under replication, while its route
+        has not changed.  A server that died breaks its connections
+        before the detector declares it; retrying there at once would
+        spend the retries in milliseconds, before the failover the
+        declaration brings (JAX's van reports such failures later, so
+        its sweeper never meets this)."""
+        return (self._replication > 1
+                and self._route(sl.group_rank, count=False) == sl.dest)
+
+    def _route(self, group_rank: int, count: bool = True) -> int:
+        """A slice's destination: its owner rank's instance, or, when it
+        is down and replication is on, the first live member of its
+        replica chain (``chain_ranks``, the servers' own topology)."""
+        gs = self.po.group_size
+        base = server_rank_to_id(group_rank * gs + self.po.instance_idx)
+        if base not in self._down_servers:
+            return base
+        for rank in chain_ranks(group_rank, self._replication,
+                                self.po.num_servers,
+                                active=self.po.active_server_ranks):
+            cand = server_rank_to_id(rank * gs + self.po.instance_idx)
+            if cand not in self._down_servers:
+                if count:
+                    self.stats.inc("failovers")
+                return cand
+        return base
+
+    def _route_read(self, group_rank: int) -> Tuple[int, bool]:
+        """Destination of a pure pull slice under replica reads: a live
+        member of the range's chain, picked by
+        ``PS_REPLICA_READ_POLICY``: ``sticky`` (default) pins this
+        worker's reads of the range to one member by worker rank, ``rr``
+        rotates per pull, ``load`` takes the member this worker has sent
+        the fewest reads.  Returns ``(dest, is_replica)``; with one live
+        member, or the primary down, plain primary routing."""
+        gs = self.po.group_size
+        base = server_rank_to_id(group_rank * gs + self.po.instance_idx)
+        members = [] if base in self._down_servers else [base]
+        for rank in chain_ranks(group_rank, self._replication,
+                                self.po.num_servers,
+                                active=self.po.active_server_ranks):
+            cand = server_rank_to_id(rank * gs + self.po.instance_idx)
+            if cand not in self._down_servers:
+                members.append(cand)
+        if len(members) <= 1 or base in self._down_servers:
+            return self._route(group_rank), False
+        if self._read_policy == "load":
+            dest = self._least_loaded_member(members)
+        elif self._read_policy == "rr":
+            dest = members[next(self._rr_counter) % len(members)]
+        else:
+            # Deterministic rotation by worker rank, offset by the range
+            # rank, so one worker's reads of different ranges land on
+            # different members.
+            dest = members[(self.po.my_rank() + group_rank)
+                           % len(members)]
+        self._read_share[dest] = self._read_share.get(dest, 0) + 1
+        if dest != base:
+            self.stats.inc("replica_read.spread")
+        return dest, dest != base
+
+    def _least_loaded_member(self, members) -> int:
+        """``load`` policy: the member this worker sent the fewest
+        reads.  JAX can rank by a cluster history's pull rates
+        (``attach_history``), which is the metrics plane, ROADMAP Queue
+        1 item 8(c)."""
+        return min(members, key=lambda d: self._read_share.get(d, 0))
 
     def _ensure_sweeper(self) -> None:
         if self._sweep_thread is not None and self._sweep_thread.is_alive():
@@ -1543,8 +1718,8 @@ class KVWorker:
                 # duplicate).
                 expired = now >= req.deadline
                 troubled = [s for s in unresp
-                            if expired or s.retry_now
-                            or s.dest in self._down_servers]
+                            if expired or s.dest in self._down_servers
+                            or (s.retry_now and not self._hold(s))]
                 if not troubled:
                     continue
                 if req.attempt >= self._req_retries:
@@ -1567,6 +1742,10 @@ class KVWorker:
                     # would end in a give-up that fails a request its
                     # retry already completed.
                     resender.forget(old.meta.control.msg_sig)
+                # Retries go to the primary (or its failover): a spread
+                # pull that timed out or answered stale gets no second
+                # replica.
+                sl.replica_read = False
                 sl.dest = self._route(sl.group_rank)
                 log.vlog(1, f"retry ts={req.ts} slice rank={sl.group_rank} "
                             f"-> node {sl.dest} (attempt {req.attempt})")
@@ -1604,6 +1783,12 @@ class KVWorker:
                 try:
                     if self._req_timeout > 0:
                         discount = self._slice_answered(ts, op.key)
+                    if self._replica_reads and op.stamp:
+                        # Batched push acks raise the read-your-writes
+                        # floor too (every op here is a push).
+                        with self._mu:
+                            if op.stamp > self._seen_stamps.get(sender, 0):
+                                self._seen_stamps[sender] = op.stamp
                     if hc is not None and op.stamp:
                         hc.observe(sender, op.stamp)
                     if discount:
@@ -1688,12 +1873,22 @@ class KVServer:
     can be), and pull responses are encoded as the request asks.
 
     An ``EXT_BATCH`` request runs the same per-op intake as a single one
-    (stamps, hot-key counts, decode, admission) and enters the pool as a
-    group; ``BATCH_PROBE_CMD`` and ``HOT_KEYS_CMD`` pulls are answered
-    before the handler."""
+    (stamps, hot-key counts, decode, admission, replication) and enters
+    the pool as a group; ``BATCH_PROBE_CMD`` and ``HOT_KEYS_CMD`` pulls
+    are answered before the handler.
+
+    Durability: under ``PS_KV_REPLICATION`` >= 2 a ``Replicator``
+    forwards accepted pushes and serves ``REPLICA_FETCH_CMD``; a
+    recovered server (``po.is_recovery``) restores from its chain, and
+    with ``PS_SNAPSHOT_RESTORE=1`` from the committed snapshot, in
+    ``set_request_handle`` before serving (requests arriving meanwhile
+    park and replay in arrival order).  ``Command.SNAPSHOT`` requests
+    (cuts and namespace ops) run on the request thread
+    (``_run_snapshot``)."""
 
     _MAX_STREAMS = 64  # open streamed pushes; the oldest is aborted
     _HANDLE_WAIT_S = 30.0  # a request's wait for set_request_handle
+    _FORWARD_WAIT_S = 30.0  # an acknowledgement's wait for its forwards
 
     def __init__(self, app_id: int, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.SERVER)
@@ -1764,6 +1959,38 @@ class KVServer:
                 1, self.po.env.find_int("PS_CUSTOMER_EXECUTOR", 0)),
         )
         self.po.register_node_failure_hook(self._on_stream_peer_event)
+        # Chain replication: a recovered server restores its ranges
+        # from its chain before serving.  While it restores (from the
+        # replicas or a snapshot), requests park in _restore_buffer and
+        # replay in arrival order afterwards (None: not restoring).
+        self._replicator: Optional[Replicator] = None
+        self._restored = False
+        self._restore_mu = threading.Lock()
+        self._restore_buffer: Optional[List[Message]] = None
+        # Replica reads: a replica answers pulls of another rank's range
+        # in that primary's stamp currency (stamping engages).
+        self._replica_reads = bool(env.find_int("PS_REPLICA_READS", 0))
+        self._qos_stamps = self._qos_stamps or self._replica_reads
+        # Coordinated snapshots and restore on boot.
+        self._snapshot_dir = self.po.snapshot_dir
+        self._snapshot_quiesce_s = env.find_float("PS_SNAPSHOT_QUIESCE_S",
+                                                  30.0)
+        self._snapshotting = False
+        self._snap_restored = False
+        # Model namespaces: a published manifest staged as a store of
+        # its own, flipped in on the request thread; the displaced store
+        # stays for rollback.
+        self._ns_staged: Optional[tuple] = None   # (name, version, store)
+        self._ns_prev: Optional[tuple] = None     # (name, version, store)
+        self._ns_current: Tuple[str, str] = ("live", "")
+        self._ns_staging = False
+        self.po.register_snapshot_hook(self._on_snapshot_request)
+        rep = env.find_int("PS_KV_REPLICATION", 1)
+        if rep >= 2 and self.po.num_servers >= 2:
+            self._replicator = Replicator(self, rep)
+            # A server falsely declared dead and then forgiven missed
+            # every write that failed over meanwhile: it resyncs.
+            self.po.register_node_failure_hook(self._on_self_rehab)
 
     def _resolve_apply_shards(self) -> int:
         try:
@@ -1776,19 +2003,141 @@ class KVServer:
     def set_request_handle(
             self, handle: Callable[[KVMeta, KVPairs, "KVServer"], None]
     ) -> None:
+        """Install the handle (and the apply pool for one with
+        ``apply_shard``).  Under ``PS_STORE_RAM_MB`` the handle's dict
+        store becomes a ``TieredStore`` first.  A recovered replicated
+        server, or any server under ``PS_SNAPSHOT_RESTORE=1``, restores
+        here before serving: the snapshot first, then the replicas
+        (whose newer state overwrites it); a failed snapshot restore
+        raises."""
         if self._apply_pool is not None:
             self._abort_streams()  # their handles hold the old pool
             self._apply_pool.stop()
             self._apply_pool = None
+        if self._handle is not None and handle is not self._handle:
+            # The displaced handle's tiered store releases its files.
+            old_store = getattr(self._handle, "store", None)
+            if callable(getattr(old_store, "close", None)):
+                old_store.close()
         self._handle = handle
         if hasattr(handle, "apply_shard"):
             # Its native add honours this node's PS_NATIVE.
             handle._env = self.po.env
-        if self._apply_shards > 0 and callable(getattr(handle, "apply_shard",
-                                                       None)):
+        pool_eligible = self._apply_shards > 0 and callable(
+            getattr(handle, "apply_shard", None))
+        env = self.po.env
+        ram_mb = env.find_float("PS_STORE_RAM_MB", 0.0)
+        if ram_mb > 0 and isinstance(getattr(handle, "store", None), dict):
+            # Before the pool starts, so every apply, restore and import
+            # goes through the tier.  Eviction classes are the pool's
+            # shard modulus, which keeps the tier bit-exact with RAM.
+            handle.store = TieredStore(
+                ram_bytes=int(ram_mb * (1 << 20)),
+                directory=env.find("PS_STORE_DIR") or None,
+                shards=self._apply_shards if pool_eligible else 1,
+                hot_fn=lambda k=64: [kk for kk, _ in self._hot_keys.top(k)],
+                flight=self.po.flight,
+                segment_mb=env.find_float("PS_STORE_SEGMENT_MB", 64.0))
+        if pool_eligible:
             self._apply_pool = ApplyShardPool(handle, self._apply_shards,
                                               self)
+        want_snap = (env.find_int("PS_SNAPSHOT_RESTORE", 0) != 0
+                     and bool(self._snapshot_dir) and not self._snap_restored)
+        want_repl = (self._replicator is not None and self.po.is_recovery
+                     and not self._restored)
+        if not (want_snap or want_repl):
+            self._handle_set.set()
+            return
+        # Requests arriving during either restore park, and replay after
+        # the last import: applied in between, the replica fetch would
+        # overwrite them.  The buffer exists before the handle is
+        # published, so a request released by _handle_set parks too.
+        with self._restore_mu:
+            if self._restore_buffer is None:
+                self._restore_buffer = []
         self._handle_set.set()
+        # A tiered store keeps its budget during the imports (nothing
+        # else runs then), not only on the next get.
+        tier_mode = getattr(getattr(handle, "store", None),
+                            "set_evict_on_insert", None)
+        try:
+            if callable(tier_mode):
+                tier_mode(True)
+            if want_snap:
+                self._snap_restored = True
+                self._restore_from_snapshot(handle)
+            if want_repl:
+                self._restored = True
+                self._replicator.restore(handle)
+        finally:
+            if callable(tier_mode):
+                tier_mode(False)
+            self._drain_restore_buffer()
+
+    def _restore_from_snapshot(self, handle) -> None:
+        """Boot-time restore from the committed manifest
+        (``PS_SNAPSHOT_RESTORE=1``): digest-verified import of every
+        manifest range this server owns.  A digest mismatch or a missing
+        segment raises; a missing manifest is a logged cold start."""
+        t0 = time.monotonic()
+        manifest = snapshot_mod.load_manifest(self._snapshot_dir)
+        if manifest is None:
+            log.warning(
+                f"PS_SNAPSHOT_RESTORE=1 but no committed manifest under "
+                f"{self._snapshot_dir!r}; starting with an empty store")
+            return
+        owned = self.po.server_key_ranges_of(self.po.my_group_rank())
+        n_keys, n_bytes = snapshot_mod.restore_into(
+            handle, self._snapshot_dir, owned, manifest=manifest)
+        log.vlog(1, f"snapshot restore: {n_keys} keys "
+                    f"({n_bytes >> 20} MiB) from epoch "
+                    f"{manifest.get('epoch')} in "
+                    f"{time.monotonic() - t0:.2f}s")
+
+    def _on_self_rehab(self, node_id: int, down: bool) -> None:
+        if down or node_id != self.po.van.my_node.id:
+            return
+        if self._handle is None or self._replicator is None:
+            return
+        # Off the van's pump, which must deliver the fetch responses.
+        threading.Thread(target=self._resync_from_replica,
+                         name="kv-rehab-resync", daemon=True).start()
+
+    def _resync_from_replica(self) -> None:
+        with self._restore_mu:
+            if self._restore_buffer is not None:
+                return  # a restore or resync is already running
+            self._restore_buffer = []
+        log.warning("rehabilitated after a false death declaration; "
+                    "resyncing ranges from replicas")
+        try:
+            self._replicator.restore(self._handle)
+        except Exception as exc:  # noqa: BLE001 - keep serving regardless
+            log.warning(f"rehab resync failed: {exc!r}")
+        finally:
+            self._drain_restore_buffer()
+
+    def _drain_restore_buffer(self) -> None:
+        """Replay the requests parked during a restore, in arrival order;
+        arrivals keep parking until the buffer drains dry."""
+        while True:
+            with self._restore_mu:
+                batch = self._restore_buffer
+                if not batch:
+                    self._restore_buffer = None
+                    return
+                self._restore_buffer = []
+            for msg in batch:
+                # _process_request, not _process: a replayed request must
+                # not park again on the still-active buffer.
+                try:
+                    self._process_request(msg)
+                except Exception as exc:  # noqa: BLE001
+                    log.warning(f"replayed request failed: {exc!r}")
+                    try:
+                        self._request_error(msg, exc)
+                    except Exception:  # noqa: BLE001
+                        pass
 
     def register_recv_buffer(self, sender_id: int, key: int,
                              buffer: np.ndarray) -> None:
@@ -1857,8 +2206,14 @@ class KVServer:
     def response(self, req: KVMeta, res: Optional[KVPairs] = None) -> None:
         """Reply to a request (kv_app.h:536-564).  A pull that asked for a
         codec (``req.codec`` with ``raw_len == 0``) gets float32 values
-        encoded; other values travel raw."""
+        encoded; other values travel raw.  A replica-forwarded push gets
+        no response (its stamp is marked applied)."""
         self._qos_push_done(req)
+        if req.option == OPT_REPLICA:
+            if self._replicator is not None and req.stamp:
+                self._replicator.note_applied(req.sender, req.stamp)
+            return
+        self._await_forwards(req)
         msg = self._response_msg(req)
         if res is not None and not res.empty():
             ci = getattr(req, "codec", None)
@@ -1927,8 +2282,14 @@ class KVServer:
     def response_error(self, req: KVMeta) -> None:
         """Empty ``OPT_APPLY_ERROR`` response: the waiting worker gets
         its response counted, and its ``wait`` raises.  A failed push may
-        have applied in part: the push version moves on anyway."""
+        have applied in part: the push version moves on anyway.  A
+        failed forward apply gets no response either, but counts as
+        applied (the lag measures backlog, not success)."""
         self._qos_push_done(req)
+        if req.option == OPT_REPLICA:
+            if self._replicator is not None and req.stamp:
+                self._replicator.note_applied(req.sender, req.stamp)
+            return
         msg = self._response_msg(req)
         msg.meta.option = OPT_APPLY_ERROR
         msg.meta.addr = 0
@@ -1942,6 +2303,8 @@ class KVServer:
         and the worker's ``wait`` raises ``OverloadError``.  It rides the
         express band: a shed must not queue behind the backlog it
         reports."""
+        if req.option == OPT_REPLICA:
+            return  # the replication plane never sheds
         msg = self._response_msg(req)
         msg.meta.option = OPT_OVERLOAD
         msg.meta.addr = 0
@@ -1980,14 +2343,289 @@ class KVServer:
         self._handle_set.set()  # release a request still waiting for it
         self._customer.stop()
         self.po.unregister_node_failure_hook(self._on_stream_peer_event)
+        self.po.unregister_snapshot_hook(self._on_snapshot_request)
         self._abort_streams()
         if self._apply_pool is not None:
             self._apply_pool.stop()
             self._apply_pool = None
+        # After the pool, whose shards may still read or evict through
+        # the tiered store: release its segment files.
+        store = getattr(self._handle, "store", None)
+        if callable(getattr(store, "close", None)):
+            store.close()
         if self._resp_combiner is not None:
             # After the pool: its stop path still sends stranded
             # responses through _send_response.
             self._resp_combiner.stop()
+        if self._replicator is not None:
+            self.po.unregister_node_failure_hook(self._on_self_rehab)
+            self._replicator.close()
+
+    # -- coordinated snapshots ------------------------------------------------
+
+    def _on_snapshot_request(self, msg: Message) -> bool:
+        """Postoffice snapshot hook (van pump): post the scheduler's
+        SNAPSHOT request through the request queue, so the fence runs on
+        the request thread: every request queued before it lands in the
+        cut, everything after applies once the in-memory export is
+        done."""
+        marker = Message()
+        marker.meta.request = True
+        marker.meta.app_id = self._customer.app_id
+        marker.meta.customer_id = self._customer.customer_id
+        marker.meta.head = SNAPSHOT_LOCAL_CMD
+        marker._snapshot_ctl = (msg.meta.sender, msg.meta.timestamp,
+                                msg.meta.body)
+        self._customer.accept(marker)
+        return True
+
+    def _run_snapshot(self, msg: Message) -> None:
+        """The consistent cut (request thread): quiesce every apply
+        submitted so far, export the owned ranges in memory, then hand
+        the segment writes and the reply to a background thread, so
+        serving resumes while the files are written.  Refused (an error
+        reply, which vetoes the commit): no handle, no directory, a
+        snapshot already running, instance groups, a pool that does not
+        quiesce, a failed export."""
+        sender, token, body = msg._snapshot_ctl
+        try:
+            req = json.loads(body.decode()) if body else {}
+        except Exception:  # noqa: BLE001 - a corrupt body vetoes below
+            req = {}
+        op = req.get("op")
+        if op in ("publish", "flip", "rollback"):
+            # Model-namespace ops ride the same fence.
+            self._run_namespace(sender, token, op, req)
+            return
+        directory = req.get("dir") or self._snapshot_dir
+        err = None
+        if op == "retune":
+            err = ("live apply retune is not yet ported to "
+                   "pslite_tpu_torch (ROADMAP Queue 1 item 8(c))")
+        elif op is not None:
+            err = f"unknown snapshot-channel op {op!r}"
+        elif self._handle is None:
+            err = "no request handle set"
+        elif not directory:
+            err = "no snapshot directory (PS_SNAPSHOT_DIR unset)"
+        elif self._snapshotting:
+            err = "a snapshot is already in progress"
+        elif self.po.group_size > 1:
+            # Every instance of a group rank owns the same range with a
+            # store of its own: their segment files would clobber each
+            # other.
+            err = ("snapshots do not support instance groups "
+                   "(DMLC_GROUP_SIZE > 1)")
+        if err is not None:
+            self._snapshot_reply(sender, token, {"error": err})
+            return
+        self._snapshotting = True
+        t0 = time.monotonic()
+        err = self._quiesce_applies("a torn cut")
+        if err is not None:
+            # Exporting while shard threads still mutate arrays in place
+            # would commit torn values under a digest that verifies them.
+            self._snapshotting = False
+            log.warning(f"snapshot: {err}")
+            self._snapshot_reply(sender, token, {"error": err})
+            return
+        with self._streams_mu:
+            open_streams = len(self._streams)
+        if open_streams:
+            # A chunked push mid-streaming-apply straddles the fence: its
+            # fed prefix is in the cut, its tail is not.  It is still
+            # unacked (its close has not been processed), so no
+            # acknowledged write is torn.
+            log.warning(f"snapshot cut with {open_streams} open streamed "
+                        f"push(es): their fed prefixes are in the cut")
+        exported = []
+        try:
+            for rng in self.po.server_key_ranges_of(
+                    self.po.my_group_rank()):
+                keys, vals, lens = export_range(self._handle, rng.begin,
+                                                rng.end)
+                exported.append((rng, keys, vals,
+                                 None if lens is None else np.asarray(lens)))
+        except Exception as exc:  # noqa: BLE001 - veto the commit
+            self._snapshotting = False
+            self._snapshot_reply(sender, token,
+                                 {"error": f"export failed: {exc!r}"})
+            return
+        epoch = int(req.get("epoch", -1))
+        uid = str(req.get("uid", ""))
+        fmt = self.po.env.find("PS_SNAPSHOT_FORMAT") or "npz"
+        threading.Thread(
+            target=self._write_snapshot,
+            args=(sender, token, directory, epoch, fmt, uid, exported, t0),
+            name="kv-snapshot-write", daemon=True).start()
+
+    def _write_snapshot(self, sender: int, token: int, directory: str,
+                        epoch: int, fmt: str, uid: str, exported: list,
+                        t0: float) -> None:
+        """Background half of the cut: write the exported ranges into
+        segment files named with the scheduler's attempt uid, and reply
+        with their digests (the scheduler commits only after every
+        server answered clean)."""
+        try:
+            entries = [snapshot_mod.write_range_segment(
+                directory, rng.begin, rng.end, keys, vals, lens,
+                fmt=fmt, uid=uid)
+                for rng, keys, vals, lens in exported]
+            self._snapshot_reply(sender, token, {
+                "rank": self.po.my_group_rank(),
+                "epoch": epoch,
+                "ranges": entries,
+                "duration_s": round(time.monotonic() - t0, 3),
+            })
+        except Exception as exc:  # noqa: BLE001 - veto the commit
+            self._snapshot_reply(
+                sender, token, {"error": f"segment write failed: {exc!r}"})
+        finally:
+            self._snapshotting = False
+
+    def _snapshot_reply(self, dest: int, token: int, payload: dict) -> None:
+        msg = Message()
+        msg.meta.recver = dest
+        msg.meta.sender = self.po.van.my_node.id
+        msg.meta.request = False
+        msg.meta.timestamp = token  # the scheduler's gather token
+        msg.meta.control = Control(cmd=Command.SNAPSHOT)
+        msg.meta.body = json.dumps(payload).encode()
+        try:
+            self.po.van.send(msg)
+        except Exception as exc:  # noqa: BLE001 - the scheduler times out
+            log.warning(f"snapshot reply to {dest} failed: {exc!r}")
+
+    # -- model namespaces -----------------------------------------------------
+
+    def _run_namespace(self, sender: int, token: int, op: str,
+                       req: dict) -> None:
+        """Namespace ops on the request thread, behind the fence:
+        ``publish`` stages a committed manifest into an off-line store
+        on a background thread (serving goes on), ``flip`` swaps the
+        staged store in (pool quiesced, one assignment), ``rollback``
+        swaps the displaced one back."""
+        handle = self._handle
+        if handle is None:
+            self._snapshot_reply(sender, token,
+                                 {"error": "no request handle set"})
+            return
+        if not isinstance(getattr(handle, "store", None), dict):
+            # A tiered or custom store keeps state outside a plain dict:
+            # a store swap would strand it.
+            self._snapshot_reply(sender, token, {
+                "error": "model namespaces need a plain dict store "
+                         "(tiered/custom handles decline)"})
+            return
+        if op == "publish":
+            directory = req.get("dir") or self._snapshot_dir
+            if not directory:
+                self._snapshot_reply(sender, token, {
+                    "error": "publish needs a snapshot directory"})
+                return
+            if self._ns_staging:
+                self._snapshot_reply(sender, token, {
+                    "error": "a namespace stage is already in progress"})
+                return
+            self._ns_staging = True
+            threading.Thread(
+                target=self._stage_namespace,
+                args=(sender, token, directory,
+                      str(req.get("namespace", "model")),
+                      str(req.get("version", ""))),
+                name="kv-ns-stage", daemon=True).start()
+            return
+        if op == "flip":
+            staged = self._ns_staged
+            if staged is None:
+                self._snapshot_reply(sender, token, {
+                    "error": "flip without a staged namespace "
+                             "(publish first)"})
+                return
+            err = self._quiesce_applies("namespace flip")
+            if err is not None:
+                self._snapshot_reply(sender, token, {"error": err})
+                return
+            name, version, new_store = staged
+            self._ns_prev = (*self._ns_current, handle.store)
+            handle.store = new_store
+            self._ns_current = (name, version)
+            self._ns_staged = None
+        else:  # rollback
+            prev = self._ns_prev
+            if prev is None:
+                self._snapshot_reply(sender, token, {
+                    "error": "rollback without a previous namespace"})
+                return
+            err = self._quiesce_applies("namespace rollback")
+            if err is not None:
+                self._snapshot_reply(sender, token, {"error": err})
+                return
+            name, version, old_store = prev
+            self._ns_prev = (*self._ns_current, handle.store)
+            handle.store = old_store
+            self._ns_current = (name, version)
+        self._after_namespace_swap(name, version)
+        self._snapshot_reply(sender, token, {
+            "rank": self.po.my_group_rank(),
+            "namespace": name, "version": version,
+            "keys": len(handle.store),
+        })
+
+    def _quiesce_applies(self, what: str) -> Optional[str]:
+        """Drain every apply submitted so far (request thread only); an
+        error string when the pool did not quiesce within
+        ``PS_SNAPSHOT_QUIESCE_S``, which vetoes ``what``."""
+        if self._apply_pool is None:
+            return None
+        tok = self._apply_pool.submit_token()
+        if not self._apply_pool.quiesce(
+                tok, timeout_s=self._snapshot_quiesce_s):
+            return (f"apply pool did not quiesce within "
+                    f"{self._snapshot_quiesce_s}s — refusing {what}")
+        return None
+
+    def _after_namespace_swap(self, name: str, version: str) -> None:
+        if self._qos_stamps:
+            # Every hot-cache fill of the displaced namespace fails its
+            # next check.
+            with self._qos_mu:
+                self._push_version += 1
+        self.po.model_namespace = {"name": name, "version": version}
+
+    def _serving_ranges(self) -> list:
+        """Every range this server answers reads for: its own, plus,
+        under replication, every range whose chain it is in."""
+        my = self.po.my_group_rank()
+        ranges = list(self.po.server_key_ranges_of(my))
+        if self._replicator is not None and self._replicator.k > 1:
+            for o in range(self.po.num_servers):
+                if o != my and my in chain_ranks(
+                        o, self._replicator.k, self.po.num_servers):
+                    ranges.extend(self.po.server_key_ranges_of(o))
+        return ranges
+
+    def _stage_namespace(self, sender: int, token: int, directory: str,
+                         name: str, version: str) -> None:
+        """Background half of publish: restore the manifest into an
+        off-line store while the live one serves; ``flip`` swaps it in."""
+        try:
+            manifest = snapshot_mod.load_manifest(directory)
+            if manifest is None:
+                raise RuntimeError(f"no committed manifest in {directory!r}")
+            shim = _StagingStore()
+            keys, nbytes = snapshot_mod.restore_into(
+                shim, directory, self._serving_ranges(), manifest)
+            self._ns_staged = (name, version, shim.store)
+            self._snapshot_reply(sender, token, {
+                "rank": self.po.my_group_rank(), "staged": name,
+                "version": version, "keys": keys, "bytes": nbytes,
+            })
+        except Exception as exc:  # noqa: BLE001 - veto the publish
+            self._snapshot_reply(sender, token, {
+                "error": f"namespace stage failed: {exc!r}"})
+        finally:
+            self._ns_staging = False
 
     # -- streamed chunked pushes ---------------------------------------------
 
@@ -2024,13 +2662,15 @@ class KVServer:
             h.close(respond=False)
 
     def _stream_eligible(self, m) -> bool:
-        """Streamed apply needs the pool, no registered receive buffer
-        for this (sender, key) (those apply synchronously from the
-        buffer), and a live sender (a partial straggling in after its
-        sender was declared dead must not reopen a reclaimed stream).
-        JAX's replication and ownership terms always hold here: the port
-        has neither."""
+        """Streamed apply needs the pool, no replication (a forward must
+        see the complete payload at its arrival-order slot), no
+        registered receive buffer for this (sender, key) (those apply
+        synchronously from the buffer), and a live sender (a partial
+        straggling in after its sender was declared dead must not reopen
+        a reclaimed stream).  JAX's ownership term always holds here:
+        the port has no elastic routing."""
         return (self._apply_pool is not None
+                and self._replicator is None
                 and (m.sender, m.key) not in self._recv_buffers
                 and not self.po.van.is_peer_down(m.sender))
 
@@ -2093,18 +2733,42 @@ class KVServer:
         return n >= self._admit_limit
 
     def _intake_admission(self, meta: KVMeta, extra: int = 0) -> bool:
-        """True when this request (or batched sub-op) must be shed."""
+        """True when this request (or batched sub-op) must be shed.  A
+        replica forward never is."""
         if not (self._admit_limit > 0 and self._apply_pool is not None
-                and meta.cmd == 0):
+                and meta.option != OPT_REPLICA and meta.cmd == 0):
             return False
         return self._admission_overloaded(meta.tenant, extra=extra)
 
     def _intake_pull_stamp(self, meta: KVMeta) -> None:
         """A pull's hot-cache stamp, taken at intake: every push counted
-        before now has applied, so the shards' snapshot includes it."""
-        if self._qos_stamps and meta.pull and not meta.push:
-            with self._qos_mu:
-                meta.stamp = self._push_version
+        before now has applied, so the shards' snapshot includes it.
+
+        Under replica reads a pull of a range whose live owner is
+        another rank is answered in that primary's currency, the newest
+        forward stamp claimed at intake (1 before the first: the
+        primary's initial version).  A down owner's range is answered
+        with this server's own counter, as its acting truth."""
+        if not (self._qos_stamps and meta.pull and not meta.push):
+            return
+        if (self._replica_reads and self._replicator is not None
+                and meta.cmd == 0):
+            owner = self._owner_rank_of(int(meta.key))
+            if owner is not None and owner != self.po.my_group_rank():
+                oid = server_rank_to_id(owner * self.po.group_size
+                                        + self.po.instance_idx)
+                if not self.po.van.is_peer_down(oid):
+                    meta.stamp = self._replicator.claimed_stamp(oid) or 1
+                    return
+        with self._qos_mu:
+            meta.stamp = self._push_version
+
+    def _owner_rank_of(self, key: int) -> Optional[int]:
+        """The group rank owning ``key`` under the static split."""
+        for i, rng in enumerate(self.po.get_server_key_ranges()):
+            if rng.begin <= key < rng.end:
+                return i
+        return None
 
     def _intake_hot_keys(self, keys: np.ndarray) -> None:
         """Hot-key counts: per key for small key sets; a bulk slice
@@ -2118,15 +2782,18 @@ class KVServer:
             self._hot_keys.add(int(keys[0]), len(keys))
 
     def _intake_decode(self, meta: KVMeta, data,
-                       lazy_ok: bool = True) -> KVPairs:
-        """A request's data as KVPairs.  A codec push is decoded here, or
-        left encoded (``kvs.enc``) for the pool's shards when ``lazy_ok``
-        and it is a fixed-k push-only payload of a range-decodable codec
-        with no registered receive buffer (batched sub-ops are small and
-        decode here)."""
+                       lazy_ok: bool = True
+                       ) -> Tuple[KVPairs, Optional[tuple]]:
+        """A request's data as ``(KVPairs, wire payload)``.  A codec push
+        is decoded here, or left encoded (``kvs.enc``) for the pool's
+        shards when ``lazy_ok`` and it is a fixed-k push-only payload of
+        a range-decodable codec with no registered receive buffer
+        (batched sub-ops are small and decode here).  The wire payload,
+        ``(codes, scales, lens|None, CodecInfo)`` of a codec push, else
+        None, is what a replication forward re-sends."""
         kvs = KVPairs()
         if len(data) < 2:
-            return kvs
+            return kvs, None
         kvs.keys = data[0].astype_view(np.uint64).numpy()
         ci = meta.codec
         if not (ci is not None and ci.raw_len > 0 and meta.push
@@ -2134,13 +2801,14 @@ class KVServer:
             kvs.vals = data[1].numpy()
             if len(data) > 2:
                 kvs.lens = data[2].astype_view(np.int32).numpy()
-            return kvs
+            return kvs, None
         codec = codecs_mod.by_wire_id(ci.codec)
         codecs_mod.check_block(ci)
         codes = data[1].astype_view(np.uint8).numpy()
         scales = data[2].astype_view(np.float32).numpy()
         kvs.lens = (data[3].astype_view(np.int32).numpy()
                     if len(data) > 3 else None)
+        wire = (data[1], data[2], kvs.lens, ci)
         n_el = ci.raw_len // 4
         if (lazy_ok and kvs.lens is None and not meta.pull
                 and self._apply_pool is not None and codec.range_decode
@@ -2151,17 +2819,105 @@ class KVServer:
         else:
             kvs.vals = codec.decode(codes, scales, n_el, lens=kvs.lens,
                                     flags=ci.flags)
-        return kvs
+        return kvs, wire
+
+    def _intake_replicate(self, meta: KVMeta, kvs: KVPairs,
+                          wire_payload, copy: bool = False) -> bool:
+        """Chain-replication intake of one push: dedup a duplicate
+        origin (a worker's failover retry racing the primary's forward,
+        in either order) and chain-forward accepted worker pushes in
+        arrival order on the request thread.  True when the op is a
+        pure-push duplicate (apply nothing, just ack); a duplicate with a
+        pull half loses its push half, so the pull still serves."""
+        if (self._replicator is None or not meta.push
+                or not len(kvs.keys)):
+            return False
+        if meta.option == OPT_REPLICA:
+            # Replica side: claim the forward's stamp at intake, before
+            # the dedup check (a dedup hit means its effect is in).
+            if meta.stamp:
+                self._replicator.note_claimed(meta.sender, meta.stamp)
+                if self._replicator.below_import_floor(meta):
+                    # An import's cut already holds this forward: record
+                    # its origin (a failover retry still dedups) and
+                    # skip the apply, which would add twice.
+                    self._replicator.should_apply(meta)
+                    self._replicator.note_applied(meta.sender, meta.stamp)
+                    return True
+            return not self._replicator.should_apply(meta)
+        if not self._replicator.should_apply(meta):
+            # The original apply already took a push version: ack with
+            # the current one, no bump (the replicas would lag forever
+            # behind a version no forward carries).
+            if self._qos_stamps:
+                with self._qos_mu:
+                    meta.stamp = self._push_version
+            if meta.pull:
+                meta.push = False
+                kvs.vals = np.empty(0, kvs.vals.dtype)
+                kvs.enc = None
+                return False
+            return True
+        if self._qos_stamps:
+            # The push version is assigned at intake (arrival order ==
+            # forward order), so the forward carries it; _qos_push_done
+            # then leaves it and the response carries it.
+            with self._qos_mu:
+                self._push_version += 1
+                meta.stamp = self._push_version
+        meta.forwards = self._replicator.forward(meta, kvs, copy=copy,
+                                                 wire=wire_payload)
+        return False
+
+    def _await_forwards(self, req) -> None:
+        """Hold a replicated push's acknowledgement until its forwards'
+        bytes are written (the sent events of ``Replicator.forward``),
+        for at most ``_FORWARD_WAIT_S``: an acknowledged push then
+        survives the primary's death."""
+        events = req.forwards
+        if not events:
+            return
+        req.forwards = None
+        end = time.monotonic() + self._FORWARD_WAIT_S
+        for ev in events:
+            if not ev.wait(max(0.0, end - time.monotonic())):
+                log.warning(f"push ts={req.timestamp} from {req.sender}: "
+                            f"a forward was not written within "
+                            f"{self._FORWARD_WAIT_S}s; acknowledging "
+                            f"anyway")
+                return
 
     def _process(self, msg: Message) -> None:
-        if msg.meta.simple_app or not msg.meta.request:
-            return  # a response must never run the request handler
-        if not self._handle_set.is_set():
+        if msg.meta.simple_app:
+            return
+        if not msg.meta.request:
+            # A response must never run the request handler.  Under
+            # replication servers receive one kind: a range fetch's.
+            if self._replicator is not None:
+                self._replicator.absorb_response(msg)
+            return
+        if (not self._handle_set.is_set()
+                and msg.meta.head != SNAPSHOT_LOCAL_CMD):
             # The request (parked until this server's customer existed)
             # raced set_request_handle: wait for the handle and its pool,
             # or a chunked push's first partial would find no pool and
-            # its reassembled message no handle.
+            # its reassembled message no handle.  A snapshot fence does
+            # not wait: without a handle it answers an error.
             self._handle_set.wait(self._HANDLE_WAIT_S)
+        if self._restore_buffer is not None:  # unlocked fast-path probe
+            with self._restore_mu:
+                if self._restore_buffer is not None:
+                    self._restore_buffer.append(msg)
+                    return
+        self._process_request(msg)
+
+    def _process_request(self, msg: Message) -> None:
+        if (msg.meta.head == SNAPSHOT_LOCAL_CMD
+                and hasattr(msg, "_snapshot_ctl")):
+            # The local snapshot fence: on this thread the cut
+            # serializes against every earlier queued request.
+            self._run_snapshot(msg)
+            return
         if msg.meta.option == OPT_XFER_PART:
             self._stream_part(msg)
             return
@@ -2207,7 +2963,7 @@ class KVServer:
             # so the request is all or nothing.
             self.response_overload(meta)
             return
-        kvs = self._intake_decode(meta, msg.data, lazy_ok=True)
+        kvs, wire_payload = self._intake_decode(meta, msg.data, lazy_ok=True)
         self._intake_hot_keys(kvs.keys)
         reg = None
         if meta.push and len(kvs.keys):
@@ -2224,6 +2980,15 @@ class KVServer:
                 reg.reshape(-1).view(np.uint8)[: raw.nbytes] = raw
                 kvs.vals = reg.reshape(-1)[: raw.nbytes // reg.itemsize]
         log.check(self._handle is not None, "KVServer handle not set")
+        if self._replicator is not None and meta.cmd == REPLICA_FETCH_CMD:
+            # A recovered server fetching a range's state.
+            self._replicator.handle_fetch(meta, kvs, self)
+            return
+        if self._intake_replicate(meta, kvs, wire_payload,
+                                  copy=reg is not None):
+            # A pure-push duplicate origin: apply nothing, still ack.
+            self.response(meta)
+            return
         if self._apply_pool is not None:
             # A registered-buffer push applies before the next message:
             # the pump overwrites the buffer with the sender's next push.
@@ -2259,7 +3024,7 @@ class KVServer:
             # apply does not carry: run each sub-op alone (per-op
             # responses; the worker takes both shapes).
             for sub in subs:
-                self._process(sub)
+                self._process_request(sub)
             return
         env_meta = KVMeta(cmd=0, push=env.push, pull=env.pull,
                           sender=env.sender,
@@ -2278,13 +3043,18 @@ class KVServer:
                           val_len=sm.val_len, option=0,
                           priority=env.priority, codec=sm.codec,
                           tenant=env.tenant, trace=sm.trace, stamp=sm.stamp)
-            kvs = self._intake_decode(meta, sub.data, lazy_ok=False)
+            kvs, wire_payload = self._intake_decode(meta, sub.data,
+                                                    lazy_ok=False)
             self._intake_pull_stamp(meta)
             self._intake_hot_keys(kvs.keys)
             result = None
             if self._intake_admission(meta, extra=admitted):
                 # Sheds are per sub-op: this op fails, its siblings apply.
                 result = ("overload",)
+            elif self._intake_replicate(meta, kvs, wire_payload):
+                # Forwards and dedup per sub-op, in op order on this
+                # thread, each with its own origin (ts, key).
+                result = ("ok", None)  # a pure-push duplicate: ack only
             else:
                 admitted += 1
             metas.append(meta)
@@ -2361,6 +3131,7 @@ class KVServer:
                         msg.add_data(SArray(np.asarray(res.lens,
                                                        dtype=np.int32)))
                         nseg += 1
+            self._await_forwards(meta)
             m.push = m.push or meta.push
             m.pull = m.pull or meta.pull
             ops.append(BatchOp(push=meta.push, pull=meta.pull,
@@ -2372,6 +3143,14 @@ class KVServer:
         # One frame already, but it rides the sender's response lane for
         # order with interleaved single responses.
         self._send_response(msg)
+
+
+class _StagingStore:
+    """Plain-dict handle stand-in that ``snapshot.restore_into`` fills
+    while the live store serves (model-namespace publish)."""
+
+    def __init__(self):
+        self.store: dict = {}
 
 
 class _OpCapture:
@@ -2495,8 +3274,8 @@ class KVServerOptimizerHandle:
     ``kind``: "sgd" | "sgd_momentum" | "adam", host numpy as in
     ``pslite_tpu/kv/kv_app.py:5228-5350``, updating in place.  Unknown
     keys start at zeros on their first push (or seed with ``init``).
-    The state export/import of replication and snapshots is ROADMAP
-    Queue 1 item 8."""
+    ``export_range``/``import_range`` pack the momentum/adam slots into
+    the records replica fetches and snapshots move."""
 
     def __init__(self, kind: str = "sgd", lr: float = 0.01,
                  momentum: float = 0.9, betas=(0.9, 0.999),
@@ -2555,6 +3334,152 @@ class KVServerOptimizerHandle:
                 self._apply(int(key), seg.astype(np.float32, copy=False))
         return _gather(self.store, keys) if meta.pull else None
 
+    # -- state iterator ------------------------------------------------------
+    #
+    # The export_range/import_range currency is (keys, flat vals,
+    # per-key lens): the replica fetch and cluster snapshots move state
+    # through it.  The optimizer handle packs its slots into the same
+    # per-key record, so both carry them (JAX's layout, so records move
+    # between the packages):
+    #
+    #   sgd           [param]                         (len n)
+    #   sgd_momentum  [param, m, kind_bits]           (len 2n + 1)
+    #   adam          [param, m, v, t_bits, kind_bits] (len 3n + 2)
+    #
+    # Missing slots export as zeros — bit-identical to the lazy
+    # zeros-on-first-push initialization, so a restored handle's next
+    # update is bit-exact vs an uninterrupted one.  The adam step
+    # count travels as the int32 BIT PATTERN viewed as float32 (this
+    # plane is never codec-quantized), so it round-trips exactly.
+    #
+    # Slot-carrying records are tagged TWICE — an explicit layout
+    # marker, not a length heuristic: (1) a NEGATIVE per-key len (the
+    # magnitude is still the record length; a params-only source —
+    # plain-dict peer, a DefaultHandle-written snapshot — always
+    # exports positive lens, so a parameter row can never be mistaken
+    # for a packed record, and the generic dict-store import refuses
+    # packed records loudly), and (2) a trailing kind_bits element
+    # (the _KIND_CODES int32 bit pattern as float32) inside the
+    # record, so a record packed by a DIFFERENT optimizer kind
+    # refuses loudly even when the lengths happen to collide
+    # (momentum n=2 and adam n=1 both pack to 4 floats without it).
+    # Every consumer of this currency (generic import, snapshot range
+    # filtering) reads lens through abs(); the files/wire carry
+    # int32, so the sign survives the whole journey.
+
+    _KIND_CODES = {"sgd_momentum": 0x70731, "adam": 0x70732}
+
+    def export_range(self, begin: int, end: int):
+        """Snapshot params + optimizer slots for keys in [begin, end)."""
+        items = _snapshot_items(self.store, begin, end)
+        pairs = sorted((k, p) for k, p in items if begin <= k < end)
+        keys = np.asarray([k for k, _ in pairs], dtype=np.uint64)
+        recs: List[np.ndarray] = []
+        lens: List[int] = []
+        for k, p in pairs:
+            p = np.asarray(p, dtype=np.float32).reshape(-1)
+            rec = [p]
+            if self.kind in ("sgd_momentum", "adam"):
+                m = self._m.get(k)
+                rec.append(np.zeros_like(p) if m is None
+                           else np.asarray(m, np.float32).reshape(-1))
+            if self.kind == "adam":
+                v = self._v.get(k)
+                rec.append(np.zeros_like(p) if v is None
+                           else np.asarray(v, np.float32).reshape(-1))
+                rec.append(np.asarray([self._t.get(k, 0)],
+                                      dtype=np.int32).view(np.float32))
+            if self.kind != "sgd":
+                rec.append(np.asarray([self._KIND_CODES[self.kind]],
+                                      dtype=np.int32).view(np.float32))
+            recs.append(np.concatenate(rec))
+            # Negative len == "this record carries slots" (see the
+            # layout comment above); plain sgd records are just the
+            # params and stay positive.
+            lens.append(-recs[-1].size if self.kind != "sgd"
+                        else recs[-1].size)
+        vals = (np.concatenate(recs) if recs
+                else np.empty(0, np.float32))
+        return keys, vals, np.asarray(lens, dtype=np.int32)
+
+    def import_range(self, keys, vals, lens) -> None:
+        """Load records written by :meth:`export_range` (same ``kind``
+        on both sides — the cluster runs one handle type).  A record
+        tagged slot-packed (negative len) whose length does not match
+        THIS kind's packing fails loudly — silently mis-splitting it
+        would corrupt the key.  Untagged (positive-len) records are a
+        params-only source (plain-dict peer, a DefaultHandle-written
+        snapshot) and import as params with fresh slots, exactly like
+        a first push would initialize them."""
+        off = 0
+        n_keys = len(keys)
+        for i, key in enumerate(keys):
+            key = int(key)
+            raw_len = (int(lens[i]) if lens is not None
+                       else len(vals) // max(n_keys, 1))
+            rec_len = abs(raw_len)
+            rec = np.asarray(vals[off:off + rec_len], dtype=np.float32)
+            off += rec_len
+            if raw_len >= 0:
+                # Params-only source: fresh slots, like a first push.
+                self.store[key] = rec.copy()
+                continue
+            # Slot-packed: the trailing kind_bits element names the
+            # WRITER's kind — refuse a mismatch loudly even when the
+            # record lengths collide (see the layout comment).
+            log.check(
+                self.kind != "sgd",
+                f"slot-packed record for key {key} but this handle "
+                f"is kind='sgd' — mixed optimizer kinds cannot share "
+                f"state",
+            )
+            src_code = (int(rec[-1:].view(np.int32)[0])
+                        if rec_len > 0 else -1)
+            log.check(
+                src_code == self._KIND_CODES[self.kind],
+                f"slot-packed record for key {key} was written by a "
+                f"different optimizer kind (code {src_code:#x}, this "
+                f"handle wants "
+                f"{self._KIND_CODES[self.kind]:#x}/{self.kind}) — "
+                f"mixed optimizer kinds cannot share state",
+            )
+            body = rec_len - 1  # sans kind_bits
+            if self.kind == "adam":
+                log.check(
+                    body > 1 and (body - 1) % 3 == 0,
+                    f"slot-packed record of length {rec_len} for key "
+                    f"{key} does not match the adam [p,m,v,t] layout",
+                )
+                n = (body - 1) // 3
+                self.store[key] = rec[:n].copy()
+                self._m[key] = rec[n:2 * n].copy()
+                self._v[key] = rec[2 * n:3 * n].copy()
+                self._t[key] = int(
+                    rec[3 * n:3 * n + 1].view(np.int32)[0])
+            else:  # sgd_momentum (the only other slot-packing kind)
+                log.check(
+                    body > 0 and body % 2 == 0,
+                    f"slot-packed record of length {rec_len} for key "
+                    f"{key} does not match the sgd_momentum [p,m] "
+                    f"layout",
+                )
+                n = body // 2
+                self.store[key] = rec[:n].copy()
+                self._m[key] = rec[n:2 * n].copy()
+
+    def drop_keys(self, keys) -> None:
+        """Migration drop: params AND slots leave together (a stranded
+        slot would silently corrupt the key if the range ever migrated
+        back).  A tiered param store drops cold keys O(1) via
+        ``discard`` instead of deserializing bytes nobody reads."""
+        drop = _store_drop_fn(self.store)
+        for k in np.asarray(keys).reshape(-1).tolist():
+            k = int(k)
+            drop(k)
+            self._m.pop(k, None)
+            self._v.pop(k, None)
+            self._t.pop(k, None)
+
     def __call__(self, req_meta: KVMeta, req_data: KVPairs,
                  server: KVServer):
         parts = self.apply_shard(
@@ -2565,3 +3490,13 @@ class KVServerOptimizerHandle:
                                               vals=_pack_pull_vals(parts)))
         else:
             server.response(req_meta)
+
+
+def _store_drop_fn(store):
+    """Key-drop callable of a handle's store: a tiered store's
+    ``discard`` drops cold keys without reading them; plain dicts
+    ``pop``."""
+    drop = getattr(store, "discard", None)
+    if callable(drop):
+        return drop
+    return lambda k: store.pop(k, None)

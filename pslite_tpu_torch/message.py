@@ -8,9 +8,13 @@ barrier/heartbeat plane; ``Node`` describes a process.  The extension
 records (``CodecInfo``, ``BatchInfo``, ``ChunkInfo``) and the option
 markers are kept because the wire format carries them; this package
 sends chunks (``vans/chunking.py``), codec payloads (``ops/codecs.py``),
-batched frames (``kv/batching.py``) and ``EXT_QOS`` tenants and stamps.
-``OPT_REPLICA`` and ``OPT_WRONG_OWNER`` belong to replication and
-elastic routing, ROADMAP Queue 1 item 8(b): the port never sends them.
+batched frames (``kv/batching.py``), ``EXT_QOS`` tenants and stamps, and
+``OPT_REPLICA`` chain forwards (``kv/replication.py``).  Beside the
+option markers live the ``meta.head`` values of the durability plane:
+``REPLICA_FETCH_CMD`` (a range-state fetch between servers) and
+``SNAPSHOT_LOCAL_CMD`` (a server's local snapshot fence, never on the
+wire).  ``OPT_WRONG_OWNER`` belongs to elastic routing, ROADMAP Queue 1
+item 8(b2): the port never sends it.
 """
 
 from __future__ import annotations
@@ -161,6 +165,17 @@ OPT_OVERLOAD = 7
 # deadline sweeper re-slices + re-routes the slice — never a hang,
 # never a silent apply at the wrong server.
 OPT_WRONG_OWNER = 8
+
+# meta.head (cmd) of a replica state fetch (kv/replication.py): the
+# request's two keys are [range_begin, range_end); the response carries
+# every stored key in that range with per-key lens.
+REPLICA_FETCH_CMD = 0x5EED
+
+# meta.head of the LOCAL snapshot marker a server's control hook posts
+# into its own customer queue (kv/snapshot.py): processed on the request
+# thread, it serializes the cut against every earlier queued request.
+# Never on the wire.
+SNAPSHOT_LOCAL_CMD = 0x5A47
 
 
 @dataclass(frozen=True)

@@ -10,14 +10,21 @@ role instance: worker, server or scheduler; ``start_ps`` expands the
 joint role and ``DMLC_GROUP_SIZE`` instance groups into several.
 
 Node recovery runs in the van (a restarted node takes its dead id back
-and skips the startup barrier: ``is_recovery``).  Elastic membership
-(``PS_ELASTIC=1``) and routing epochs are ROADMAP Queue 1 item 8(b) and
-raise here; snapshots, model publish/rollback, telemetry history and
-health are item 8(c) and absent.
+and skips the startup barrier: ``is_recovery``).  The scheduler
+coordinates cluster snapshots (``snapshot``, ``PS_SNAPSHOT_DIR``:
+broadcast ``Command.SNAPSHOT``, gather every server's segment digests,
+commit the manifest) and model namespaces (``publish_model``,
+``rollback_model``) over the same channel; servers take the requests
+through ``register_snapshot_hook``.  Elastic membership
+(``PS_ELASTIC=1``) and routing epochs are ROADMAP Queue 1 item 8(b2) and
+raise here (``active_server_ranks`` is None: the static split);
+``retune_apply``, telemetry history and health are item 8(c) and absent.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -36,7 +43,7 @@ from .base import (
     server_rank_to_id,
     worker_rank_to_id,
 )
-from .message import Command, Message, Node, Role
+from .message import Command, Control, Message, Node, Role
 from .range import Range
 from .telemetry import FlightRecorder, Tracer
 from .utils import logging as log
@@ -68,7 +75,7 @@ class Postoffice:
             raise NotImplementedError(
                 "elastic membership (PS_ELASTIC=1: admission of new "
                 "servers with routing epochs) is not yet ported to "
-                "pslite_tpu_torch (ROADMAP Queue 1 item 8(b))")
+                "pslite_tpu_torch (ROADMAP Queue 1 item 8(b2))")
         self.instance_idx = instance_idx
         self.num_workers = self.env.find_int("DMLC_NUM_WORKER", 0)
         self.num_servers = self.env.find_int("DMLC_NUM_SERVER", 0)
@@ -92,6 +99,17 @@ class Postoffice:
         self._server_key_ranges_mu = threading.Lock()
         self._node_ids: Dict[int, List[int]] = {}
         self._build_node_id_table()
+        # The snapshot plane: the scheduler's token-gated gather and the
+        # servers' hook registry (a KVServer takes SNAPSHOT requests off
+        # the van pump).
+        self._snapshot_mu = threading.Lock()
+        self._snapshot_cv = threading.Condition()
+        self._snapshot_token = 0
+        self._snapshot_replies: Dict[int, dict] = {}
+        self._snapshot_hooks: List[Callable[[Message], bool]] = []
+        self.snapshot_dir = self.env.find("PS_SNAPSHOT_DIR") or None
+        # The published model namespace (set by a server's flip).
+        self.model_namespace: Optional[dict] = None
         self.tracer = Tracer()
         self.flight = FlightRecorder()
         self.van = vans.create(self.env.find("PS_VAN_TYPE") or "ici", self)
@@ -253,6 +271,18 @@ class Postoffice:
                     self._server_key_ranges.append(Range(span * i, end))
             return self._server_key_ranges
 
+    def server_key_ranges_of(self, rank: int) -> List[Range]:
+        """Every key range a server group rank owns: one under static
+        routing (routing epochs are ROADMAP Queue 1 item 8(b2))."""
+        ranges = self.get_server_key_ranges()
+        return [ranges[rank]] if 0 <= rank < len(ranges) else []
+
+    @property
+    def active_server_ranks(self) -> Optional[List[int]]:
+        """Live server group ranks under elastic membership; None, the
+        static ``0..num_servers-1``, as elastic membership raises."""
+        return None
+
     # -- customers -----------------------------------------------------------
 
     def add_customer(self, customer) -> None:
@@ -338,3 +368,200 @@ class Postoffice:
                 hook(node_id, down)
             except Exception as exc:  # noqa: BLE001 - isolate hooks
                 log.warning(f"node failure hook failed: {exc!r}")
+
+    # -- coordinated snapshots ----------------------------------------------
+
+    def register_snapshot_hook(self, hook: Callable[[Message], bool]) -> None:
+        """``hook(msg)`` receives SNAPSHOT control requests on the van
+        pump and returns True when it took over the reply (KVServer
+        posts the fence through its request queue and answers from
+        there).  Keep hooks fast: never block on the van."""
+        with self._snapshot_mu:
+            self._snapshot_hooks.append(hook)
+
+    def unregister_snapshot_hook(self, hook) -> None:
+        with self._snapshot_mu:
+            if hook in self._snapshot_hooks:
+                self._snapshot_hooks.remove(hook)
+
+    def notify_snapshot(self, msg: Message) -> bool:
+        """Run the snapshot hooks; True when one took the request."""
+        with self._snapshot_mu:
+            hooks = list(self._snapshot_hooks)
+        for hook in hooks:
+            try:
+                if hook(msg):
+                    return True
+            except Exception as exc:  # noqa: BLE001 - isolate hooks
+                log.warning(f"snapshot hook failed: {exc!r}")
+        return False
+
+    def absorb_snapshot_reply(self, msg: Message) -> None:
+        """Van hook: a server's SNAPSHOT reply arrived (scheduler)."""
+        try:
+            rep = json.loads(msg.meta.body.decode())
+        except Exception as exc:  # noqa: BLE001 - one corrupt reply
+            rep = {"error": f"bad reply: {exc!r}"}
+        with self._snapshot_cv:
+            if msg.meta.timestamp != self._snapshot_token:
+                return  # a stale reply of an earlier (timed-out) op
+            self._snapshot_replies[msg.meta.sender] = rep
+            self._snapshot_cv.notify_all()
+
+    def _snapshot_gather(self, body: bytes, timeout_s: float,
+                         what: str):
+        """Broadcast one SNAPSHOT-channel request to every live server
+        and gather their replies: ``(replies, live peers)``."""
+        peers = [i for i in self.get_node_ids(SERVER_GROUP)
+                 if not self.van.is_peer_down(i)]
+        log.check(bool(peers), f"{what}: no live servers")
+        with self._snapshot_cv:
+            self._snapshot_token += 1
+            token = self._snapshot_token
+            self._snapshot_replies = {}
+        reached = []
+        for peer in peers:
+            msg = Message()
+            msg.meta.recver = peer
+            msg.meta.sender = self.van.my_node.id
+            msg.meta.request = True
+            msg.meta.timestamp = token
+            msg.meta.body = body
+            msg.meta.control = Control(cmd=Command.SNAPSHOT)
+            try:
+                self.van.send(msg)
+                reached.append(peer)
+            except Exception as exc:  # noqa: BLE001 - a dead peer vetoes
+                log.warning(f"{what} to {peer} failed: {exc!r}")
+        deadline = time.monotonic() + timeout_s
+        with self._snapshot_cv:
+            while len(self._snapshot_replies) < len(reached):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._snapshot_cv.wait(remaining)
+            replies = dict(self._snapshot_replies)
+        return replies, peers
+
+    def snapshot(self, directory: Optional[str] = None,
+                 timeout_s: float = 60.0) -> dict:
+        """Coordinate one consistent-cut cluster snapshot: broadcast
+        ``Command.SNAPSHOT`` to every live server, gather their
+        per-range digests, and commit the cut by writing the cluster
+        manifest.  Scheduler only.  Raises when any server errored or
+        did not answer: a partial snapshot is never committed (the old
+        manifest, if any, stays the restore point).  JAX defers a cut
+        while range migrations are in flight (``settle_timeout_s``); the
+        port has no migrations (ROADMAP Queue 1 item 8(b2))."""
+        log.check(self.is_scheduler, "snapshot runs on the scheduler")
+        directory = directory or self.snapshot_dir
+        log.check(bool(directory),
+                  "snapshot needs a directory (PS_SNAPSHOT_DIR or the "
+                  "directory= argument)")
+        from .kv import snapshot as snap_mod
+
+        t0 = time.monotonic()
+        epoch = -1  # no routing epochs under static routing
+        self.flight.record("snapshot_begin", severity="info",
+                           dir=directory, epoch=epoch)
+        # A per-attempt uid in every segment's name: a vetoed attempt
+        # never overwrites the committed snapshot's files.
+        uid = f"{os.getpid():x}-{int(time.time() * 1000):x}"
+        body = json.dumps({"dir": directory, "epoch": epoch,
+                           "uid": uid}).encode()
+        replies, peers = self._snapshot_gather(body, timeout_s, "SNAPSHOT")
+        entries, errors = snap_mod.snapshot_summary(replies)
+        silent = [p for p in peers if p not in replies]
+        if silent:
+            errors.append(f"no reply from node(s) {silent} within "
+                          f"{timeout_s}s")
+        if errors:
+            self.flight.record("snapshot_end", severity="warn",
+                               ok=False, errors=errors[:4])
+            log.check(False, "snapshot NOT committed: "
+                             + "; ".join(errors))
+        manifest = snap_mod.write_manifest(
+            directory, epoch, entries,
+            extra={"servers": len(replies), "uid": uid})
+        # The new manifest is durable: the previous snapshot's (and any
+        # vetoed attempt's) segment files are garbage now.
+        snap_mod.prune_segments(directory, {"ranges": entries})
+        dur = time.monotonic() - t0
+        self.flight.record("snapshot_end", severity="info", ok=True,
+                           keys=sum(e["keys"] for e in entries),
+                           duration_s=round(dur, 3))
+        return {"manifest": manifest, "epoch": epoch, "ranges": entries,
+                "servers": len(replies), "duration_s": dur}
+
+    def snapshot_status(self) -> dict:
+        """Age and summary of the newest committed manifest."""
+        from .kv import snapshot as snap_mod
+
+        manifest = snap_mod.load_manifest(self.snapshot_dir)
+        return {
+            "dir": self.snapshot_dir,
+            "age_s": snap_mod.manifest_age_s(self.snapshot_dir),
+            "epoch": manifest.get("epoch") if manifest else None,
+            "ranges": len(manifest.get("ranges", [])) if manifest else 0,
+        }
+
+    # -- model namespaces ----------------------------------------------------
+
+    def _model_ctl(self, body: dict, timeout_s: float) -> Dict[int, dict]:
+        """Broadcast one namespace op to every live server on the
+        SNAPSHOT channel and gather the replies; raises when any server
+        errors or stays silent (an op half-applied across the fleet must
+        fail loudly)."""
+        log.check(self.is_scheduler, "namespace ops run on the scheduler")
+        replies, peers = self._snapshot_gather(
+            json.dumps(body).encode(), timeout_s, "namespace op")
+        errors = [f"node {n}: {r['error']}" for n, r in replies.items()
+                  if r.get("error")]
+        silent = [p for p in peers if p not in replies]
+        if silent:
+            errors.append(f"no reply from node(s) {silent} within "
+                          f"{timeout_s}s")
+        log.check(not errors, f"namespace op {body.get('op')!r} failed: "
+                              + "; ".join(errors))
+        return replies
+
+    def publish_model(self, directory: Optional[str] = None,
+                      namespace: str = "model", version: str = "",
+                      timeout_s: float = 60.0) -> dict:
+        """Publish a committed snapshot manifest as a model version:
+        every live server stages the manifest into an off-line store
+        while serving continues, then, once every stage succeeded,
+        flips to it.  The displaced store stays for
+        :meth:`rollback_model`."""
+        directory = directory or self.snapshot_dir
+        log.check(bool(directory),
+                  "publish_model needs a snapshot directory "
+                  "(PS_SNAPSHOT_DIR or the directory= argument)")
+        if not version:
+            from .kv import snapshot as snap_mod
+
+            manifest = snap_mod.load_manifest(directory)
+            log.check(manifest is not None,
+                      f"no committed manifest in {directory!r}")
+            version = str(manifest.get("uid") or manifest.get("epoch", 0))
+        staged = self._model_ctl(
+            {"op": "publish", "dir": directory, "namespace": namespace,
+             "version": version}, timeout_s)
+        flipped = self._model_ctl(
+            {"op": "flip", "namespace": namespace, "version": version},
+            timeout_s)
+        return {
+            "namespace": namespace,
+            "version": version,
+            "servers": len(flipped),
+            "keys": sum(int(r.get("keys", 0)) for r in staged.values()),
+        }
+
+    def rollback_model(self, timeout_s: float = 60.0) -> dict:
+        """Every live server swaps the displaced store back in: one
+        pointer swap each, no disk reads."""
+        replies = self._model_ctl({"op": "rollback"}, timeout_s)
+        first = next(iter(replies.values()), {})
+        return {"namespace": first.get("namespace"),
+                "version": first.get("version"),
+                "servers": len(replies)}

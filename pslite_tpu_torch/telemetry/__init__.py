@@ -11,7 +11,9 @@ item 8(c) ports the real ones.
 
 One piece is real: ``TopK`` (``telemetry/metrics.py:223-258``), the
 Space-Saving hot-key tracker a server's ``HOT_KEYS_CMD`` answer reads,
-returned by ``Registry.topk``.
+returned by ``Registry.topk``.  ``LocalCounts`` holds the counters that
+tests and benchmarks read where JAX reads its registry (replication,
+the tiered store, replica reads) until the registry is ported.
 """
 
 from __future__ import annotations
@@ -28,6 +30,38 @@ class _NullCounter:
 class _NullHistogram:
     def observe(self, value: float) -> None:
         pass
+
+
+class _LocalCounter:
+    __slots__ = ("_counts", "_key")
+
+    def __init__(self, counts: "LocalCounts", key: str):
+        self._counts = counts
+        self._key = key
+
+    def inc(self, n: int = 1) -> None:
+        self._counts.inc(self._key, n)
+
+
+class LocalCounts:
+    """Named integer counters in a dict under a lock: ``inc(name)``,
+    ``counts[name]`` (an unseen name reads 0), and ``counter(name)``, an
+    object with the ``inc`` of JAX's registry counters."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._counts: Dict[str, int] = {}
+
+    def inc(self, key: str, n: int = 1) -> None:
+        with self._mu:
+            self._counts[key] = self._counts.get(key, 0) + n
+
+    def __getitem__(self, key: str) -> int:
+        with self._mu:
+            return self._counts.get(key, 0)
+
+    def counter(self, key: str) -> _LocalCounter:
+        return _LocalCounter(self, key)
 
 
 class TopK:

@@ -53,6 +53,11 @@ class BoundedKeySet:
             del self._d[k]
         return len(stale)
 
+    def __iter__(self):
+        """The keys, oldest first (a snapshot is the caller's: the set
+        must not change while it iterates)."""
+        return iter(self._d)
+
     def __contains__(self, key: Hashable) -> bool:
         return key in self._d
 

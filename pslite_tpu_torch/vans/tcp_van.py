@@ -579,6 +579,9 @@ class TcpVan(Van):
                 if pin is None:
                     continue
                 msg, desc = pin
+                ev = getattr(msg, "_sent_event", None)
+                if ev is not None:
+                    ev.set()  # written (or given up): see Van._transmit
                 if status == 0:
                     with self._bytes_mu:
                         self.send_bytes += desc.wire_bytes

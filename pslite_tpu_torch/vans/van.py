@@ -46,9 +46,13 @@ gets the roster again; a node of a role with a dead id takes that id
 back (its preferred rank ``aux_id`` wins among several), marked
 ``is_recovery`` so it skips the startup barrier, and every peer resets
 its sequence state toward it (``_reset_peer_sids``) and clears its down
-mark.  Elastic admission, routing epochs and removal are ROADMAP Queue
-1 item 8(b) (``PS_ELASTIC=1`` raises at the Postoffice), the
-metrics/trace/snapshot pulls item 8(c).  Tenants (``PS_TENANTS``,
+mark.  Under ``PS_KV_REPLICATION`` >= 2 servers also connect to each
+other (``_connect_server_peers``): chain forwards and replica fetches
+travel server to server.  ``Command.SNAPSHOT`` requests go to the
+Postoffice's snapshot hooks (a KVServer) and replies to the scheduler's
+gather (``_process_snapshot``).  Elastic admission, routing epochs and
+removal are ROADMAP Queue 1 item 8(b2) (``PS_ELASTIC=1`` raises at the
+Postoffice), the metrics and trace pulls item 8(c).  Tenants (``PS_TENANTS``,
 ``tenants.py``): each lane dequeues bulk traffic weighted-fair across
 tenants by bytes (``LaneQueue(weights)``), as the receive intake does.
 Data always rides the lanes and messages are delivered in arrival order:
@@ -60,6 +64,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import json
 import random
 import threading
 import time
@@ -115,6 +120,25 @@ class _SendLane:
         self.thread: Optional[threading.Thread] = None
 
 
+class _Countdown:
+    """Sets ``event`` on the ``n``-th ``set()``: a chunked message's
+    ``_sent_event`` shared by its chunks."""
+
+    __slots__ = ("_event", "_left", "_mu")
+
+    def __init__(self, event: threading.Event, n: int):
+        self._event = event
+        self._left = n
+        self._mu = threading.Lock()
+
+    def set(self) -> None:
+        with self._mu:
+            self._left -= 1
+            done = self._left == 0
+        if done:
+            self._event.set()
+
+
 def _msg_cost(msg: Message) -> int:
     """Weighted-fair charge of one message: its payload bytes (chunk
     frames carry theirs in ``data``; their canonical meta zeroes
@@ -149,6 +173,7 @@ class Van:
         self.chunks_sent = 0
         self.chunks_recv = 0
         self._start_mu = threading.Lock()
+        self._stopped = False
         self._bytes_mu = threading.Lock()
         self._init_stage = 0
         self._recv_thread: Optional[threading.Thread] = None
@@ -185,6 +210,10 @@ class Van:
         self._down_peers: Set[int] = set()
         self._down_mu = threading.Lock()
         self._announced_dead: Set[int] = set()  # scheduler: broadcast
+        # Chain replication needs server<->server connections, which the
+        # bootstrap otherwise never makes.
+        self._connect_server_peers = (
+            self.env.find_int("PS_KV_REPLICATION", 1) >= 2)
         self._chunk_bytes = max(0, self.env.find_int("PS_CHUNK_BYTES",
                                                      1 << 20))
         self._xfer_seq = itertools.count(1)
@@ -237,6 +266,7 @@ class Van:
         with self._start_mu:
             if self._init_stage == 0:
                 self._lane_stop = False  # re-arm after a prior stop()
+                self._stopped = False
                 self._lane_abort = False
                 self._lane_error = None
                 with self._down_mu:
@@ -331,7 +361,14 @@ class Van:
 
     def stop(self) -> None:
         """Drain the send lanes, self-send TERMINATE, close the transport
-        and join every thread this van started."""
+        and join every thread this van started.  Idempotent: a test that
+        crashed a node by stopping its van stops every van again at
+        teardown, and a second stop must not touch the closed
+        transport."""
+        with self._start_mu:
+            if self._stopped:
+                return
+            self._stopped = True
         self._drain_send_lanes()
         if self.resender is not None:
             self.resender.drain()
@@ -421,6 +458,13 @@ class Van:
             chunks = split_message(msg, self._chunk_bytes,
                                    next(self._xfer_seq))
             if chunks is not None:
+                ev = getattr(msg, "_sent_event", None)
+                if ev is not None:
+                    # The chunks may ride several lanes (rails): the
+                    # event is set once each of them is written.
+                    latch = _Countdown(ev, len(chunks))
+                    for c in chunks:
+                        c._sent_event = latch
                 for c in chunks:
                     self._submit_data(c)
                 return 0
@@ -457,10 +501,18 @@ class Van:
 
     def _transmit(self, msg: Message) -> int:
         """Wire write under the peer's transmit lock — the only
-        serialization on the send path, and it is per peer."""
+        serialization on the send path, and it is per peer.  A message
+        carrying ``_sent_event`` has it set once its bytes are written
+        (or the write failed): a replicated push's acknowledgement
+        waits for its forwards so."""
         lane = self._lane_for(msg)
-        with lane.tx_mu:
-            nbytes = self.send_msg(msg)
+        try:
+            with lane.tx_mu:
+                nbytes = self.send_msg(msg)
+        finally:
+            ev = getattr(msg, "_sent_event", None)
+            if ev is not None:
+                ev.set()
         with self._bytes_mu:
             self.send_bytes += nbytes
             if msg.meta.control.empty():
@@ -723,6 +775,8 @@ class Van:
                     self._process_node_failure(msg)
                 elif ctrl.cmd == Command.ACK:
                     pass  # consumed by the resender when enabled
+                elif ctrl.cmd == Command.SNAPSHOT:
+                    self._process_snapshot(msg)
                 else:
                     raise NotImplementedError(
                         f"control {ctrl.cmd.name} not yet ported to "
@@ -919,8 +973,12 @@ class Van:
                 self.po.on_id_assigned(node)
             # Never connect worker<->worker or server<->server
             # (reference: README.md:20), but do connect to self: the
-            # TERMINATE self-send rides that connection.
-            if node.id != self.my_node.id and node.role == self.my_node.role:
+            # TERMINATE self-send rides that connection.  Under chain
+            # replication servers do connect to their fellow servers.
+            if (node.id != self.my_node.id and node.role == self.my_node.role
+                    and not (self._connect_server_peers
+                             and self.po.is_server
+                             and node.role == Role.SERVER)):
                 continue
             if node.role == Role.SCHEDULER and not self.po.is_scheduler:
                 continue  # connected during start()
@@ -938,6 +996,33 @@ class Van:
         # does not age the scheduler from process start.
         self.po.update_heartbeat(SCHEDULER_ID, time.time())
         self.ready.set()
+
+    # -- snapshots -----------------------------------------------------------
+
+    def _process_snapshot(self, msg: Message) -> None:
+        """SNAPSHOT control: a request asks this server to fence and
+        export its ranges (or run a namespace op) and goes to the app
+        hook (KVServer), which replies from its request thread; a reply
+        goes to the scheduler's gather.  A node with no hook answers an
+        error, so the commit vetoes instead of waiting out its
+        timeout."""
+        if not msg.meta.request:
+            self.po.absorb_snapshot_reply(msg)
+            return
+        if self.po.notify_snapshot(msg):
+            return
+        reply = Message()
+        reply.meta.recver = msg.meta.sender
+        reply.meta.sender = self.my_node.id
+        reply.meta.request = False
+        reply.meta.timestamp = msg.meta.timestamp  # the gather token
+        reply.meta.control = Control(cmd=Command.SNAPSHOT)
+        reply.meta.body = json.dumps(
+            {"error": "no KV server registered on this node"}).encode()
+        try:
+            self._dispatch_send(reply)
+        except Exception as exc:  # noqa: BLE001 - the scheduler times out
+            log.warning(f"SNAPSHOT reply failed: {exc!r}")
 
     # -- barriers ------------------------------------------------------------
 

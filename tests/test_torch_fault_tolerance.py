@@ -7,7 +7,7 @@ it back, its preferred rank winning among several), request deadlines
 (``PS_REQUEST_TIMEOUT``/``PS_REQUEST_RETRIES``) surfacing TimeoutError
 through ``wait``, the resender's give-up failing the owning request,
 rehabilitation of a node falsely declared dead, and what stays refused
-(ROADMAP Queue 1 item 8(b)).  A retried int8 push resends the bytes it
+(ROADMAP Queue 1 item 8(b2)).  A retried int8 push resends the bytes it
 sent first, so the server applies the codes once and its store is
 bit-equal to a decode of them (tolerance: none).
 
@@ -424,17 +424,18 @@ def test_false_positive_rehabilitation_reaches_peers():
 
 
 def test_what_stays_refused_names_item_8b():
-    """Elastic membership, and deadlines under replication (their
-    retries fail over down a replica chain), raise naming 8(b)."""
+    """Elastic membership raises naming 8(b2).  Deadlines under
+    replication build a worker whose retries fail over down the replica
+    chain (``tests/test_torch_replication.py`` drives them)."""
     with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 8\(b\)"):
+                       match=r"Queue 1 item 8\(b2\)"):
         tps.Postoffice("worker", env=Environment({"PS_ELASTIC": "1"}))
     cluster = PortCluster(env_extra={"PS_REQUEST_TIMEOUT": "1",
                                      "PS_KV_REPLICATION": "2"})
     cluster.start()
     try:
-        with pytest.raises(NotImplementedError,
-                           match=r"replication.*Queue 1 item 8\(b\)"):
-            tps.KVWorker(0, 0, postoffice=cluster.workers[0])
+        w = tps.KVWorker(0, 0, postoffice=cluster.workers[0])
+        assert w._req_timeout == 1.0 and w._replication == 2
+        w.stop()
     finally:
         cluster.finalize()

@@ -215,7 +215,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'utils.network', 'vans.van', 'vans.resender',\n"
         "          'vans.chunking', 'vans.loopback_van', 'vans.ici_van',\n"
         "          'vans.tcp_van', 'vans.shm_van', 'vans.multi_van',\n"
-        "          'vans.chaos_van',\n"
+        "          'vans.chaos_van', 'kv.replication', 'kv.snapshot',\n"
+        "          'kv.tiered',\n"
         "          'tracker.local', 'kv.kv_app', 'kv.simple_app'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
@@ -226,5 +227,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("CLEAN")
-    # the message plane's modules included
-    assert int(res.stdout.split()[1]) >= 46
+    # the message plane's and durability's modules included
+    assert int(res.stdout.split()[1]) >= 49

@@ -63,6 +63,16 @@ def api(role: str):
     return ps, role
 
 
+def say(line: str) -> None:
+    """One output line in one write: every node of the cluster shares
+    the launcher's pipe, and under ``PYTHONUNBUFFERED=1`` ``print``
+    writes the text and its newline apart, so another node's line can
+    land between them (seen as ``LIFE scheduler ...LIFE worker ...`` on
+    one line, which the test's line parsing then misses)."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def main() -> int:
     role = os.environ["DMLC_ROLE"]
     marker = sys.argv[1]
@@ -77,8 +87,8 @@ def main() -> int:
     po = ps.Postoffice(role_key)
     po.start()
     rank = po.my_rank()
-    print(f"LIFE {role} rank={rank} id={po.van.my_node.id} "
-          f"recovery={int(po.is_recovery)}", flush=True)
+    say(f"LIFE {role} rank={rank} id={po.van.my_node.id} "
+        f"recovery={int(po.is_recovery)}")
     server = None
     if role == "server":
         server = ps.KVServer(0, postoffice=po)
@@ -92,7 +102,7 @@ def main() -> int:
                 f.write(str(crashes + 1))
             os._exit(254)  # after the push, before finalize
         if po.is_recovery:
-            print("RECOVERED_OK", flush=True)
+            say("RECOVERED_OK")
         if rank == 0:
             target = expected(want)
             out = np.zeros(VAL_LEN, np.float32)
@@ -100,11 +110,11 @@ def main() -> int:
             while time.monotonic() < end:
                 kv.wait(kv.pull(keys, out))
                 if out.tobytes() == target.tobytes():
-                    print("POLL_OK", flush=True)
+                    say("POLL_OK")
                     break
                 time.sleep(0.2)
             else:
-                print(f"POLL_FAIL {float(out[:4].sum())}", flush=True)
+                say(f"POLL_FAIL {float(out[:4].sum())}")
                 return 1
         kv.stop()
     po.finalize()
@@ -112,7 +122,7 @@ def main() -> int:
         np.savez(os.path.join(os.environ["PSTEST_OUT"], "server.npz"),
                  **{str(k): v for k, v in server._handle.store.items()})
         server.stop()
-    print(f"{role} ELASTIC_DONE", flush=True)
+    say(f"{role} ELASTIC_DONE")
     return 0
 
 
