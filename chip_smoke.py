@@ -848,7 +848,7 @@ def drive(torch, ps, Environment, grads_steps):
     results = []
     for (label, handle, dtype, steps, with_push, ref, rtol, atol,
          unit) in configs:
-        env = Environment({"PS_ICI_IMPL": "pallas",
+        env = Environment({"PS_VAN_TYPE": "ici", "PS_ICI_IMPL": "pallas",
                            "PS_ICI_SERVER_HANDLE": handle})
         po = ps.Postoffice("worker", env=env)
         po.van.set_mesh(ps.DeviceGroup(N))
@@ -955,7 +955,8 @@ def int8_worker_postoffice(ps, Environment, handle: str = "sum"):
     ring (``PS_ICI_IMPL=pallas``, ``PS_ICI_COMPRESS=int8``)."""
     with int8_process_env():
         po = ps.Postoffice("worker", env=Environment({
-            "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": handle}))
+            "PS_VAN_TYPE": "ici", "PS_ICI_IMPL": "pallas",
+            "PS_ICI_SERVER_HANDLE": handle}))
         po.van.set_mesh(ps.DeviceGroup(N))
         po.start()
     return po
@@ -1188,7 +1189,7 @@ def drive_resnet(torch, ps, Environment, rt, host):
     grads, and ``push_pull_multi_stream`` with pinned staging).  Each op
     adds the same grads, so after op k every bucket holds k*sum(g): each
     result is checked against that in float64."""
-    env = Environment({"PS_ICI_IMPL": "pallas",
+    env = Environment({"PS_VAN_TYPE": "ici", "PS_ICI_IMPL": "pallas",
                        "PS_ICI_SERVER_HANDLE": "sum"})
     po = ps.Postoffice("worker", env=env)
     po.van.set_mesh(ps.DeviceGroup(N))
@@ -1303,7 +1304,8 @@ def drive_replay(torch, ps, Environment, dev_steps):
         workers = []
         for _ in range(2):
             po = ps.Postoffice("worker", env=Environment({
-                "PS_ICI_IMPL": impl, "PS_ICI_SERVER_HANDLE": handle}))
+                "PS_VAN_TYPE": "ici", "PS_ICI_IMPL": impl,
+                "PS_ICI_SERVER_HANDLE": handle}))
             po.van.set_mesh(ps.DeviceGroup(N))
             po.start()
             w = ps.KVWorker(0, 0, postoffice=po)
@@ -1355,7 +1357,8 @@ def drive_zero_copy(torch, ps, Environment, grads_steps):
             expect_stale(prev, "zero-copy push_pull")
         prev = out
     po = ps.Postoffice("worker", env=Environment({
-        "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
+        "PS_VAN_TYPE": "ici", "PS_ICI_IMPL": "pallas",
+        "PS_ICI_SERVER_HANDLE": "sum"}))
     po.van.set_mesh(ps.DeviceGroup(N))
     po.start()
     worker = ps.KVWorker(0, 0, postoffice=po)
@@ -1498,7 +1501,8 @@ def steady_state_trace(torch, ps, rt, Environment):
     grouped steps on fresh stores are pulled and checked against float64
     within the int8 bound."""
     po = ps.Postoffice("worker", env=Environment({
-        "PS_ICI_IMPL": "pallas", "PS_ICI_SERVER_HANDLE": "sum"}))
+        "PS_VAN_TYPE": "ici", "PS_ICI_IMPL": "pallas",
+        "PS_ICI_SERVER_HANDLE": "sum"}))
     po.van.set_mesh(ps.DeviceGroup(N))
     po.start()
     eng = ps.KVWorker(0, 0, postoffice=po).engine
@@ -1788,7 +1792,7 @@ def sparse_rows_rows(torch, sr, emb, dev, _native):
 def emb_worker(ps, Environment):
     """A worker Postoffice on 8 virtual ranks of the card, its KVWorker
     and the van's SparseEngine with config 5's table ``emb``."""
-    po = ps.Postoffice("worker", env=Environment({}))
+    po = ps.Postoffice("worker", env=Environment({"PS_VAN_TYPE": "ici"}))
     po.van.set_mesh(ps.DeviceGroup(N))
     po.start()
     worker = ps.KVWorker(0, 0, postoffice=po)
@@ -2019,6 +2023,13 @@ def run_threads(fns, what: str) -> None:
         raise errors[0]
 
 
+# A cluster in this process hosts many nodes in one interpreter: a CHECK
+# failure takes its node dark instead of ending the run, and the phase
+# that needed the node fails.  Node processes keep the default (a CHECK
+# failure exits 134, and a launcher's keepalive restarts the node).
+IN_PROCESS = {"PS_CHECK_FATAL": "0"}
+
+
 def msg_cluster(ps, Environment, workers: int, servers: int,
                 van: str = "loopback", ranks: int = N, env=None):
     """A started scheduler + ``servers`` servers + ``workers`` workers in
@@ -2029,7 +2040,7 @@ def msg_cluster(ps, Environment, workers: int, servers: int,
             "DMLC_PS_ROOT_PORT": str(next(_msg_ports)),
             "DMLC_NODE_HOST": "lo", "PS_VAN_TYPE": van,
             "PS_LOOPBACK_NS": f"chip-smoke-{os.getpid()}",
-            "PS_ICI_IMPL": "pallas", **(env or {})}
+            "PS_ICI_IMPL": "pallas", **IN_PROCESS, **(env or {})}
     nodes = [ps.Postoffice("scheduler", env=Environment(base))]
     nodes += [ps.Postoffice("server", env=Environment(base))
               for _ in range(servers)]
@@ -5387,6 +5398,331 @@ def drive_durable_store(ps, Environment, smi: str):
     return [row]
 
 
+SCALE_KEYS = 32  # the storm's keys, spread over the key space
+SCALE_VAL_LEN = 8192  # 32 KiB of f32 per key: 1 MiB per push
+SCALE_WINDOW_S = 4.0  # the base window; the migration window is 2x + 2 s
+
+
+def drive_elastic_scale(ps, ring, Environment, smi: str):
+    """``elastic-scale``: JAX's ``elastic_scale_bench(quick=False)``
+    (``benchmark.py:1393-1508``) with the card's kernel on the worker.
+    1 scheduler + 2 servers (tcp, the native core at its default) + 1
+    worker (``ici_tcp``, ``DeviceGroup(8)`` on cuda:0) in this process,
+    ``PS_ELASTIC=1``, ``PS_REQUEST_TIMEOUT=3``, ``PS_REQUEST_RETRIES=8``.
+    A storm of 1 MiB pushes (32 keys spread over the key space, 8,192
+    f32 each) runs throughout; priority 1-key pulls are sampled every
+    2 ms over a 4 s base window, then over the migration window, in
+    which two servers join (2 -> 4), 2 s pass, and both decommission
+    (4 -> 2).  The registered 40 x 1 MB bucket goes through K4 from
+    device grads at epoch 0, after both joins and after both departures,
+    each time against the float64 sum: membership changes never touch
+    the data plane.  Fails unless the final store is exact against
+    completed pushes x payload, no storm op failed, the cluster ends at
+    epoch 6 with ranks [0, 1] and the joiners' stores are empty."""
+    import torch
+
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    base = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+            "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_NODE_HOST": "127.0.0.1",
+            "DMLC_PS_ROOT_PORT": str(get_available_port()),
+            "PS_VAN_TYPE": "tcp", "PS_ICI_IMPL": "pallas",
+            "PS_ELASTIC": "1", "PS_REQUEST_TIMEOUT": "3.0",
+            "PS_REQUEST_RETRIES": "8", **IN_PROCESS}
+    nodes = [ps.Postoffice("scheduler", env=Environment(base))]
+    nodes += [ps.Postoffice("server", env=Environment(base))
+              for _ in range(2)]
+    wpo = ps.Postoffice("worker", env=Environment(
+        dict(base, PS_VAN_TYPE="ici_tcp")))
+    wpo.van.set_mesh(ps.DeviceGroup(N))
+    nodes.append(wpo)
+    run_threads([po.start for po in nodes], "elastic-scale start")
+    apps, joiners = [], []
+    stop = threading.Event()
+    storm_t = None
+    try:
+        for po in nodes[1:3]:
+            srv = ps.KVServer(0, postoffice=po)
+            srv.set_request_handle(ps.KVServerDefaultHandle())
+            apps.append(srv)
+        w = ps.KVWorker(0, 0, postoffice=wpo)
+        apps.append(w)
+        bucket = np.arange(KEYS, dtype=np.uint64) + 7  # apart from the storm
+        w.register_dense("grads", bucket, VAL_LEN)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        s64 = np.zeros(P)
+        mag = np.zeros(P)
+        bucket_out = np.zeros(P, np.float32)
+        worst = [0.0]
+
+        def through_k4(k: int, when: str) -> None:
+            g = torch.randn((N, P), device="cuda", generator=gen)
+            w.wait(w.push_pull(bucket, g, bucket_out))
+            gh = g.double().cpu().numpy()
+            s64[:] += gh.sum(0)
+            mag[:] += np.abs(gh).sum(0)
+            err = np.abs(bucket_out - s64)
+            worst[0] = max(worst[0], float(err.max()))
+            if not np.all(err <= 1e-6 + (k + 1) * (N + 1) * 2.0 ** -24 * mag):
+                raise AssertionError(f"elastic-scale: the bucket {when} off "
+                                     f"float64 by {float(err.max())}")
+
+        through_k4(0, "at epoch 0")
+        span = (1 << 64) // SCALE_KEYS
+        keys = (np.arange(SCALE_KEYS, dtype=np.uint64) * np.uint64(span)
+                + np.uint64(3))
+        vals = (np.arange(SCALE_KEYS * SCALE_VAL_LEN, dtype=np.float32) % 97
+                + 1.0)
+        hot_key, hot_out = keys[:1], np.zeros(SCALE_VAL_LEN, np.float32)
+        pushes, errors = [0], []
+
+        def storm():
+            while not stop.is_set():
+                try:
+                    w.wait(w.push(keys, vals))
+                    pushes[0] += 1
+                except Exception as exc:  # noqa: BLE001 - checked below
+                    errors.append(repr(exc))
+                    return
+
+        def sample(lats, dur_s):
+            end = time.perf_counter() + dur_s
+            while time.perf_counter() < end:
+                t0 = time.perf_counter()
+                w.wait(w.pull(hot_key, hot_out, priority=1))
+                lats.append(time.perf_counter() - t0)
+                time.sleep(0.002)
+
+        w.wait(w.push(keys, vals))
+        pushes[0] += 1
+        storm_t = threading.Thread(target=storm, name="elastic-storm",
+                                   daemon=True)
+        storm_t.start()
+        base_lats, mig_lats = [], []
+        sample(base_lats, SCALE_WINDOW_S)
+        sampler = threading.Thread(
+            target=sample, name="elastic-sampler",
+            args=(mig_lats, SCALE_WINDOW_S * 2 + 2.0), daemon=True)
+        t_mig = time.perf_counter()
+        sampler.start()
+        moved = {}
+        for j in range(2):
+            po = ps.Postoffice("server", env=Environment(base))
+            po.start(0)
+            t_admit = time.perf_counter()
+            srv = ps.KVServer(0, postoffice=po)
+            srv.set_request_handle(ps.KVServerDefaultHandle())
+            joiners.append((po, srv))
+            if j == 0:
+                # The first join's handoff: admission to the import.
+                end = time.monotonic() + 60
+                while (srv.stats["migrated_keys_in"] == 0
+                       and time.monotonic() < end):
+                    time.sleep(0.001)
+                moved = {"s": time.perf_counter() - t_admit,
+                         "mb": srv.stats["migrated_keys_in"] * SCALE_VAL_LEN
+                         * 4 / 1e6}
+        wait_epoch(wpo, 2)
+        through_k4(1, "after both joins")
+        time.sleep(SCALE_WINDOW_S / 2)
+        for _po, srv in joiners:
+            srv.decommission(timeout_s=60)
+        rt = wait_epoch(wpo, 6)
+        change_s = time.perf_counter() - t_mig
+        through_k4(2, "after both departures")
+        sampler.join(SCALE_WINDOW_S * 4 + 20)
+        mig_wall = time.perf_counter() - t_mig
+        stop.set()
+        storm_t.join(30)
+        if storm_t.is_alive() or sampler.is_alive():
+            raise AssertionError("elastic-scale: the storm or the sampler "
+                                 "wedged")
+        n = pushes[0]
+        out = np.zeros_like(vals)
+        w.wait(w.pull(keys, out))
+        k4 = ring.launches["ring_push_pull[float32]"]
+        problems = []
+        if errors:
+            problems.append(f"storm errors {errors[:3]}")
+        if not np.array_equal(out, vals * n):
+            problems.append(f"store off completed pushes x payload in "
+                            f"{int((out != vals * n).sum())} values")
+        if rt.epoch != 6 or sorted(rt.active) != [0, 1]:
+            problems.append(f"epoch {rt.epoch}, active {list(rt.active)}")
+        if any(len(srv._handle.store) for _po, srv in joiners):
+            problems.append("a joiner's store is not empty")
+        if k4 != 3:
+            problems.append(f"K4 launched {k4} times for 3 push_pulls")
+        if problems:
+            raise AssertionError("elastic-scale: " + "; ".join(problems))
+        b50, b99 = pctl_ms(base_lats)
+        m50, m99 = pctl_ms(mig_lats)
+        ratio = m99 / b99 if b99 > 0 else float("nan")
+        bounces = w.stats["wrong_owner_bounces"]
+        print(f"elastic-scale (1 scheduler + 2 tcp servers + 1 ici_tcp "
+              f"worker on {N} ranks of cuda:0 in this process; 2 -> 4 -> 2 "
+              f"servers mid storm): base p50 {b50:.3f} / p99 {b99:.3f} ms "
+              f"({len(base_lats)} priority pulls), migration p50 "
+              f"{m50:.3f} / p99 {m99:.3f} ms ({len(mig_lats)} pulls), p99 "
+              f"ratio {ratio:.2f} (JAX's bar <= 3, a yardstick); 2 -> 4 -> "
+              f"2 {change_s:.3f} s (first join to epoch 6 at the worker), "
+              f"migration window wall {mig_wall:.3f} s (JAX's "
+              f"scale_2_4_2_wall_s); first join handed "
+              f"{moved['mb']:.3f} MB over in {moved['s'] * 1e3:.2f} ms "
+              f"(admission to import: at this size a round trip plus "
+              f"admission, not a transfer rate); {n} pushes of {vals.nbytes / 2 ** 20:.0f} MiB, "
+              f"store exact; {bounces} wrong-owner bounces; epoch "
+              f"{rt.epoch}, active {list(rt.active)}; K4 "
+              f"ring_push_pull[float32] launches {k4} (epochs 0, 2, 6), "
+              f"bucket max |err| vs float64 {worst[0]:.3g} [{smi}] "
+              f"[host CPU {cpu_model()}]")
+        return [{"config": "elastic-scale", "ops": n + len(base_lats)
+                 + len(mig_lats) + 3, "max_abs_err_vs_f64": worst[0],
+                 "base_p99_ms": b99, "migration_p99_ms": m99,
+                 "p99_ratio": ratio, "change_s": change_s,
+                 "wall_s": mig_wall,
+                 "first_join_handoff_ms": moved["s"] * 1e3}]
+    finally:
+        stop.set()
+        if storm_t is not None:
+            storm_t.join(30)
+        for a in apps + [srv for _po, srv in joiners]:
+            try:
+                a.stop()
+            except Exception as exc:  # noqa: BLE001 - stop the rest
+                print(f"elastic-scale: stop failed: {exc!r}",
+                      file=sys.stderr)
+        for po in nodes + [po for po, _srv in joiners]:
+            try:
+                po.van.stop()
+            except Exception as exc:  # noqa: BLE001 - stop the rest
+                print(f"elastic-scale: van stop failed: {exc!r}",
+                      file=sys.stderr)
+
+
+MIGRATE_KEYS = 2 * MSG_KEYS_PER_SERVER  # config 2's store: 80 x 1,024,000 B
+
+
+def drive_elastic_migrate(ps, Environment, smi: str):
+    """``elastic-scale``'s second leg: a range migration at a realistic
+    size, where ``elastic-scale``'s first join moves 0.26 MB.  BASELINE
+    config 2's store (80 keys x 1,024,000 B = 81.92 MB, spread over the
+    key space) on 1 server, 1 scheduler + 1 worker, all over tcp (native
+    core at its default) in this process, ``PS_ELASTIC=1``, no traffic
+    during the moves.  A second server joins: the range splits at
+    ``MAX_KEY // 2`` and the donor streams the keys above the cut (39
+    keys, 39.94 MB: key 40 lies 4 below it) to the joiner, timed from
+    admission to the import; then the joiner decommissions, timed over
+    ``decommission()``, and the keys stream back.  MB/s = the bytes each
+    move carried over its time.  Fails unless every pull after each
+    move is bit-exact, each move carried every key of the joiner's
+    range, and the cluster ends at epoch 3 with rank [0] alone."""
+    from pslite_tpu_torch.range import find_range
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    base = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+            "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_NODE_HOST": "127.0.0.1",
+            "DMLC_PS_ROOT_PORT": str(get_available_port()),
+            "PS_VAN_TYPE": "tcp", "PS_ELASTIC": "1", **IN_PROCESS}
+    nodes = [ps.Postoffice(role, env=Environment(base))
+             for role in ("scheduler", "server", "worker")]
+    run_threads([po.start for po in nodes], "elastic-migrate start")
+    apps, joiner = [], None
+    try:
+        srv0 = ps.KVServer(0, postoffice=nodes[1])
+        srv0.set_request_handle(ps.KVServerDefaultHandle())
+        apps.append(srv0)
+        w = ps.KVWorker(0, 0, postoffice=nodes[2])
+        apps.append(w)
+        span = (1 << 64) // MIGRATE_KEYS
+        keys = (np.arange(MIGRATE_KEYS, dtype=np.uint64) * np.uint64(span)
+                + np.uint64(3))
+        vals = np.random.default_rng(SEED + 31).integers(
+            -8, 8, size=MIGRATE_KEYS * VAL_LEN).astype(np.float32)
+        store_mb = vals.nbytes / 1e6
+        w.wait(w.push(keys, vals))
+        problems = []
+
+        def check(when: str) -> None:
+            got = np.zeros_like(vals)
+            w.wait(w.pull(keys, got))
+            if not np.array_equal(got, vals):
+                problems.append(f"{int((got != vals).sum())} values off "
+                                f"{when}")
+
+        check("before the join")
+        po = ps.Postoffice("server", env=Environment(base))
+        po.start(0)
+        t_admit = time.perf_counter()
+        srv = ps.KVServer(0, postoffice=po)
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        joiner = (po, srv)
+        end = time.monotonic() + 60
+        while (srv.stats["migrated_keys_in"] == 0
+               and time.monotonic() < end):
+            time.sleep(0.0005)
+        join_s = time.perf_counter() - t_admit
+        n_in = srv.stats["migrated_keys_in"]
+        rt1 = wait_epoch(nodes[2], 1)
+        want = sum(find_range(keys, e.begin, e.end).size()
+                   for e in rt1.entries if e.owner == 1)
+        check("after the join")
+        t_leave = time.perf_counter()
+        srv.decommission(timeout_s=60)
+        leave_s = time.perf_counter() - t_leave
+        n_out = srv.stats["migrated_keys_out"]
+        rt = wait_epoch(nodes[2], 3)
+        check("after the decommission")
+        if not 0 < want == n_in == n_out:
+            problems.append(f"moved {n_in} keys in, {n_out} back; want "
+                            f"{want} each")
+        if rt.epoch != 3 or list(rt.active) != [0]:
+            problems.append(f"epoch {rt.epoch}, active {list(rt.active)}")
+        if len(srv._handle.store):
+            problems.append("the joiner's store is not empty")
+        if problems:
+            raise AssertionError("elastic-migrate: " + "; ".join(problems))
+        join_mb = n_in * MB_LEN / 1e6
+        leave_mb = n_out * MB_LEN / 1e6
+        print(f"elastic-migrate (BASELINE config 2's store, {MIGRATE_KEYS} "
+              f"keys x {MB_LEN} B = {store_mb:.2f} MB on 1 tcp server, "
+              f"1 + 1 -> 2 -> 1 servers in this process, no traffic "
+              f"during the moves): the join moved {join_mb:.2f} MB in "
+              f"{join_s:.4f} s ({join_mb / join_s:.1f} MB/s, admission to "
+              f"import), the decommission {leave_mb:.2f} MB back in "
+              f"{leave_s:.4f} s ({leave_mb / leave_s:.1f} MB/s, the whole "
+              f"call); every pull exact; epoch {rt.epoch}, active "
+              f"{list(rt.active)} [{smi}] [host CPU {cpu_model()}]")
+        return [{"config": "elastic-migrate", "ops": 4 + 2,
+                 "join_mb": join_mb, "join_s": join_s,
+                 "join_mb_s": join_mb / join_s, "leave_mb": leave_mb,
+                 "leave_s": leave_s, "leave_mb_s": leave_mb / leave_s}]
+    finally:
+        for a in apps + ([joiner[1]] if joiner else []):
+            try:
+                a.stop()
+            except Exception as exc:  # noqa: BLE001 - stop the rest
+                print(f"elastic-migrate: stop failed: {exc!r}",
+                      file=sys.stderr)
+        for po in nodes + ([joiner[0]] if joiner else []):
+            try:
+                po.van.stop()
+            except Exception as exc:  # noqa: BLE001 - stop the rest
+                print(f"elastic-migrate: van stop failed: {exc!r}",
+                      file=sys.stderr)
+
+
+def wait_epoch(po, epoch: int, timeout: float = 60.0):
+    """The routing table once ``po`` holds ``epoch`` or a later one."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        rt = po.current_routing()
+        if rt is not None and rt.epoch >= epoch:
+            return rt
+        time.sleep(0.01)
+    raise AssertionError(f"routing epoch {epoch} not reached in {timeout} s")
+
+
 def main() -> int:
     import torch
 
@@ -5562,6 +5898,9 @@ def main() -> int:
         ("replication-failover", lambda: drive_replication_failover(smi)),
         ("replica-read", lambda: drive_replica_read(ps, Environment, smi)),
         ("durable-store", lambda: drive_durable_store(ps, Environment, smi)),
+        ("elastic-scale", lambda: (
+            drive_elastic_scale(ps, ring, Environment, smi)
+            + drive_elastic_migrate(ps, Environment, smi))),
     ]
     results, path_counts = [], {}
     for path, run in paths:

@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Optional
 from .message import Command, Message
 from .utils import logging as log
 from .tenants import table_for
-from .utils.queues import PriorityRecvQueue, ThreadsafeQueue
+from .utils.queues import ThreadsafeQueue, recv_queue
 from .vans.chunking import recv_cost, recv_priority, recv_tenant
 
 
@@ -64,9 +64,11 @@ class Customer:
         # not wait behind the handling of earlier bulk messages; bulk
         # intake is weighted fair across PS_TENANTS, by the van's own
         # tenant and cost model.
+        # PS_RECV_PRIORITY=0: strict FIFO, as the van's intake.
         tenants = table_for(postoffice.env)
-        self._queue = PriorityRecvQueue(
-            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
+        self._queue = recv_queue(
+            postoffice.env, recv_priority, tenant_fn=recv_tenant,
+            cost_fn=recv_cost,
             weights=tenants.weights_by_id() if tenants.enabled else None)
         if executor_workers is None:
             executor_workers = postoffice.env.find_int(

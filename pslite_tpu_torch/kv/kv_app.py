@@ -116,11 +116,24 @@ Durability (``kv/replication.py``, ``kv/snapshot.py``, ``kv/tiered.py``):
 - ``PS_STORE_RAM_MB`` (``PS_STORE_DIR``, ``PS_STORE_SEGMENT_MB``): the
   handle's dict becomes a ``TieredStore``.
 
-Not here, each raising where a JAX caller would reach it: elastic
-routing (``PS_ELASTIC``, the wrong-owner re-slice of a bounced slice,
-ROADMAP Queue 1 item 8(b2)) and the metrics plane (item 8(c)).
-``KVWorker.reshard`` recuts the worker's engines onto a new device group
-(``IciVan.reshard_engines``).
+Elastic membership (``PS_ELASTIC=1``, ``routing.py``): the worker
+slices over the routing table's entries and sends each slice to its
+entry's owner (``_route_entries``); a server that does not own a slice's
+range answers ``OPT_WRONG_OWNER``, and the sweeper re-slices the slice
+under the current table (``_resplit_slice``, a bounce budget apart from
+the retries) after pulling a newer table when the bounce names one.
+Deadlines default to 10 s, batching is declined with a warning, and
+``alloc_pull_buffer`` raises ``ElasticZeroCopyError``.  A server cuts
+over to each epoch on its request thread (``_apply_routing_update``):
+requests for a range it gained park until the old owner's
+``MIGRATE_CMD`` lands (``_import_migration``; ``PS_MIGRATE_TIMEOUT``
+falls back to the replica chain), ranges it lost stream out on one
+migration thread (``_migrate_out``) and are dropped once acknowledged,
+a new replica backfills from its primary (``_note_replicated_ranges``),
+and ``decommission`` moves everything out before the rank retires.
+The metrics plane is ROADMAP Queue 1 item 8(c): a snapshot ``retune``
+op is refused naming it.  ``KVWorker.reshard`` recuts the worker's
+engines onto a new device group (``IciVan.reshard_engines``).
 """
 
 from __future__ import annotations
@@ -140,7 +153,8 @@ import torch
 
 from .. import ps as ps_mod
 from .. import tenants as tenants_mod
-from ..base import SERVER_GROUP, is_server_id, server_rank_to_id
+from ..base import (SCHEDULER_ID, SERVER_GROUP, is_server_id,
+                    server_rank_to_id)
 from ..customer import Customer
 from ..message import (
     BatchInfo,
@@ -148,6 +162,8 @@ from ..message import (
     CodecInfo,
     Command,
     Control,
+    MIGRATE_CMD,
+    MIGRATE_DONE_OPT,
     Message,
     OPT_APPLY_ERROR,
     OPT_OVERLOAD,
@@ -156,7 +172,9 @@ from ..message import (
     OPT_WRONG_OWNER,
     OPT_XFER_PART,
     OPT_ZPULL,
+    REMOVE_DONE_OPT,
     REPLICA_FETCH_CMD,
+    ROUTING_LOCAL_CMD,
     Role,
     SNAPSHOT_LOCAL_CMD,
     ZPULL_OFF_BITS,
@@ -174,17 +192,11 @@ from .batching import (BATCH_PROBE_CMD, BATCH_WIRE_VERSION, OpCombiner,
                        split_batch_message)
 from .hot_cache import HotKeyCache
 from .replication import (Replicator, _snapshot_items, chain_ranks,
-                          export_range)
+                          export_range, import_range)
 from .tiered import TieredStore
 
 
 _ZPULL_SEQ = itertools.count(1)  # process-wide registered pull buffer ids
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to pslite_tpu_torch (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 # meta.head of the hot-key introspection pull: the server answers with
@@ -192,12 +204,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 HOT_KEYS_CMD = 0x407C
 
 
-def _refuse_batching_with(env, batch_bytes: int) -> None:
-    """Batching under what the port does not run yet: JAX declines
-    batching under elastic membership."""
-    if batch_bytes > 0 and env.find_int("PS_ELASTIC", 0):
-        raise _not_ported("elastic membership (PS_ELASTIC), under which "
-                          "JAX declines batching", "8(b2)")
+class ElasticZeroCopyError(RuntimeError):
+    """Zero-copy registered pull buffers (``alloc_pull_buffer``) are
+    incompatible with elastic membership (``PS_ELASTIC=1``): a buffer's
+    per-server byte offsets are fixed at registration, and the first
+    live range migration would deliver slices at stale offsets.  Pull
+    into ordinary arrays instead, or run without ``PS_ELASTIC``."""
 
 
 class OverloadError(RuntimeError):
@@ -293,6 +305,10 @@ class _PendingSlice:
     # van answered OPT_SEND_FAILED): the sweeper retries it at once, and
     # only it, never its healthy siblings.
     retry_now: bool = False
+    # The destination answered OPT_WRONG_OWNER: the sweeper re-slices
+    # the part under the current routing table before routing it again
+    # (a range split mid-flight divides one slice over two owners).
+    wrong_owner: bool = False
     # A pure pull spread to a chain member (PS_REPLICA_READS): its
     # answer is checked for staleness; every retry goes to the primary.
     replica_read: bool = False
@@ -311,6 +327,10 @@ class _PendingReq:
     cmd: int
     deadline: float
     attempt: int = 0
+    # Wrong-owner re-routes, counted apart from ``attempt``: a bounce
+    # answers at once, so a few ms of routing-table lag would otherwise
+    # spend the retry budget without one real failure.
+    bounces: int = 0
     slices: List[_PendingSlice] = field(default_factory=list)
     val_nbytes: int = 0
     codec: Optional[str] = None
@@ -397,11 +417,14 @@ class KVWorker:
     """Client of the KV store (kv_app.h:134-300)."""
 
     _MAX_DEVICE_RESULTS = 8
+    # Wrong-owner re-routes per request before it is abandoned: each
+    # bounce is a live server answering, and the table pull converges in
+    # a round trip, so this is a deep safety net.
+    _MAX_WRONG_OWNER_BOUNCES = 50
 
     def __init__(self, app_id: int, customer_id: int = 0, postoffice=None):
         self.po = postoffice or ps_mod.postoffice(Role.WORKER)
         env = self.po.env
-        _refuse_batching_with(env, env.find_int("PS_BATCH_BYTES", 0))
         # One handler thread at most: _process's last-response detection
         # and _finish's reassembly assume responses run one at a time.
         self._customer = Customer(
@@ -422,10 +445,6 @@ class KVWorker:
         # Shed by admission control (OPT_OVERLOAD): wait raises the
         # retryable OverloadError.
         self._overload_ts = BoundedKeySet(4096)
-        # Bounced by a server that no longer owns the range
-        # (OPT_WRONG_OWNER, an elastic JAX server): the re-slice needs
-        # routing epochs, so wait raises naming item 8(b2).
-        self._wrong_owner_ts = BoundedKeySet(4096)
         # Tenants: this worker's default (PS_TENANT; per-op tenant=
         # overrides) and the shared table.
         self.tenants = tenants_mod.table_for(env)
@@ -449,6 +468,13 @@ class KVWorker:
         # unbatched), then True/False; PS_BATCH_NEGOTIATE=0 asserts a
         # homogeneous cluster and skips the probe.
         self._batch_bytes = max(0, env.find_int("PS_BATCH_BYTES", 0))
+        if self._batch_bytes > 0 and self.po.elastic:
+            # Declined under elastic membership, as JAX does: the
+            # wrong-owner re-slice is per sub-op machinery a batched
+            # frame does not carry.
+            log.warning("PS_BATCH_BYTES set but PS_ELASTIC is active; "
+                        "small-op batching disabled")
+            self._batch_bytes = 0
         self._batch_caps: Dict[int, bool] = {}
         self._batch_probe_ts: Dict[int, int] = {}
         self._batch_probing: set = set()
@@ -485,14 +511,16 @@ class KVWorker:
         self._c_codec_raw = metrics.counter("codec.raw_bytes")
         self._c_codec_wire = metrics.counter("codec.wire_bytes")
         # Bounded requests: PS_REQUEST_TIMEOUT (s, 0 = off; 10 under
-        # replica reads, whose stale-answer fallback is a sweeper retry)
-        # deadlines every message-path request, the sweeper retries
+        # replica reads, whose stale-answer fallback is a sweeper retry,
+        # and under elastic membership, whose wrong-owner re-slice is
+        # one) deadlines every message-path request, the sweeper retries
         # expired slices (failing over down the replica chain) and after
         # PS_REQUEST_RETRIES fails the request.  _down_servers mirrors
         # the failure detector's NODE_FAILURE broadcasts.
         replica_reads = bool(env.find_int("PS_REPLICA_READS", 0))
         self._req_timeout = env.find_float(
-            "PS_REQUEST_TIMEOUT", 10.0 if replica_reads else 0.0)
+            "PS_REQUEST_TIMEOUT",
+            10.0 if (replica_reads or self.po.elastic) else 0.0)
         self._req_retries = env.find_int("PS_REQUEST_RETRIES", 3)
         self._replication = env.find_int("PS_KV_REPLICATION", 1)
         # Replica reads: pure pulls spread over each range's live chain,
@@ -515,6 +543,12 @@ class KVWorker:
         self._sweep_cv = threading.Condition()
         self._sweep_stop = False
         self.po.register_node_failure_hook(self._on_node_event)
+        # Elastic routing: the slicing plan of a static cluster (cached:
+        # its split never changes), throttled table pulls after a
+        # bounce, and the hook that drops migrated ranges' cache fills.
+        self._static_entries: Optional[List[Tuple[Range, int]]] = None
+        self._last_routing_pull = 0.0
+        self.po.register_routing_hook(self._on_routing)
 
     @property
     def engine(self):
@@ -658,7 +692,15 @@ class KVWorker:
         are written in place by the servers (kv_app.h:727-792).  None
         when the van cannot back it (no ``alloc_pull_segment``: only shm
         can) or a custom slicer is set.  One outstanding pull per
-        buffer."""
+        buffer.  Raises ``ElasticZeroCopyError`` under elastic
+        membership."""
+        if self.po.elastic:
+            raise ElasticZeroCopyError(
+                "alloc_pull_buffer (zero-copy pull buffers) is "
+                "incompatible with elastic membership: PS_ELASTIC=1 "
+                "migrates key ranges live, which would invalidate the "
+                "buffer's fixed per-server offsets.  Pull into ordinary "
+                "arrays instead, or disable PS_ELASTIC for this cluster.")
         alloc = getattr(self.po.van, "alloc_pull_segment", None)
         if alloc is None:
             return None
@@ -686,8 +728,8 @@ class KVWorker:
         offsets, off = {}, 0
         for rank, rng in enumerate(self.po.get_server_key_ranges()):
             offsets[rank] = off
-            off += int(np.searchsorted(keys, rng.end)
-                       - np.searchsorted(keys, rng.begin)) * val_len * itemsize
+            off += (find_range(keys, rng.begin, rng.end).size()
+                    * val_len * itemsize)
         with self._mu:
             old = self._zpull_bufs.get(sig)
             self._zpull_bufs[sig] = {"buf_id": buf_id, "keys": keys,
@@ -734,15 +776,17 @@ class KVWorker:
                        timeout: Optional[float] = None) -> np.ndarray:
         """Ask every server for its ``kv.hot_keys`` top-k (one tiny pull
         each, ``cmd=HOT_KEYS_CMD``) and seed the hot cache's admission
-        set with the union.  Returns the keys, server by server."""
-        ranges = self.po.get_server_key_ranges()
+        set with the union.  Returns the keys, range by range.  One
+        request per entry of the slicing plan, to the entry's owner:
+        under elastic membership an entry's index is not its owner's
+        rank."""
+        entries = self._route_entries()
         ts = self._customer.new_request(SERVER_GROUP,
-                                        num_responses=len(ranges))
+                                        num_responses=len(entries))
         with self._mu:
             self._raw_ts.add(ts)
-        gs = self.po.group_size
         try:
-            for rank, rng in enumerate(ranges):
+            for rng, owner in entries:
                 msg = Message()
                 m = msg.meta
                 m.app_id = self._customer.app_id
@@ -751,7 +795,7 @@ class KVWorker:
                 m.pull = True
                 m.head = HOT_KEYS_CMD
                 m.timestamp = ts
-                m.recver = server_rank_to_id(rank * gs + self.po.instance_idx)
+                m.recver = self._route(owner)
                 m.val_len = int(k)  # how many hot keys to send back
                 m.key = int(rng.begin)
                 msg.add_data(SArray(np.array([rng.begin], dtype=np.uint64)))
@@ -1205,18 +1249,12 @@ class KVWorker:
         raised on it (RuntimeError) or its delivery failed
         (TimeoutError)."""
         self._customer.wait_request(timestamp)
-        if not (self._timeout_ts or self._error_ts or self._overload_ts
-                or self._wrong_owner_ts):
+        if not (self._timeout_ts or self._error_ts or self._overload_ts):
             return
         with self._mu:
             timed_out = self._timeout_ts.discard(timestamp)
             failed = self._error_ts.discard(timestamp)
             shed = self._overload_ts.discard(timestamp)
-            bounced = self._wrong_owner_ts.discard(timestamp)
-        if bounced:
-            raise _not_ported(
-                f"request {timestamp}: the re-slice of a slice bounced "
-                f"OPT_WRONG_OWNER (routing epochs)", "8(b2)")
         if shed:
             raise OverloadError(
                 f"request {timestamp} was shed by the server under "
@@ -1243,6 +1281,7 @@ class KVWorker:
         responses), the deadline sweeper, the receive pump and the
         engine completion thread."""
         self.po.unregister_node_failure_hook(self._on_node_event)
+        self.po.unregister_routing_hook(self._on_routing)
         if self._combiner is not None:
             self._combiner.stop()
         with self._sweep_cv:
@@ -1322,13 +1361,18 @@ class KVWorker:
               val_nbytes: int = 0, zpull: Optional[dict] = None,
               codec: Optional[str] = None, tenant: int = 0,
               batch_sink: Optional[List[Message]] = None) -> None:
-        ranges = self.po.get_server_key_ranges()
+        entries = self._route_entries()
+        ranges = [rng for rng, _owner in entries]
         sliced = (self._slicer(kvs, ranges)
                   if len(ranges) > 1 or self._slicer is not default_slicer
                   else [kvs])
-        live = [(rank, part) for rank, part in enumerate(sliced)
+        # (owner rank, part): under elastic routing an owner is not the
+        # entry's index, and one owner may hold several entries.
+        live = [(entries[i][1], part) for i, part in enumerate(sliced)
                 if part is not None and not part.empty()]
-        # Pre-credit the servers that get no slice.
+        # Square the response count with what is sent: the servers that
+        # get no slice are pre-credited, and an owner of several entries
+        # raises the bar (a negative credit).
         credit = self._customer.num_expected(ts) - len(live)
         if credit:
             self._customer.add_response(ts, credit)
@@ -1435,8 +1479,10 @@ class KVWorker:
             with self._mu:
                 self._overload_ts.add(ts)
         elif option == OPT_WRONG_OWNER:
+            # A bounce past the bounce budget, or one without deadlines
+            # to re-route it: the request fails.
             with self._mu:
-                self._wrong_owner_ts.add(ts)
+                self._timeout_ts.add(ts)
         if self._replica_reads and msg.meta.push and msg.meta.stamp:
             # An acknowledged push raises this worker's read-your-writes
             # floor for the acking server.
@@ -1520,11 +1566,45 @@ class KVWorker:
         ``primary`` is the primary's id when a replica answered a
         spread pull, else None."""
         ts = msg.meta.timestamp
+        if msg.meta.option == OPT_WRONG_OWNER:
+            return self._wrong_owner_response(msg), None
         if msg.meta.option != OPT_SEND_FAILED:
             if not self._replica_reads:
                 return self._slice_answered(ts, msg.meta.key), None
             return self._replica_answer(msg)
         return self._send_failed_response(msg), None
+
+    def _wrong_owner_response(self, msg: Message) -> bool:
+        """``_pending_response`` of an ``OPT_WRONG_OWNER`` bounce: the
+        server does not own the slice's range under its epoch and
+        applied nothing.  With bounce budget left the sweeper re-slices
+        the slice under the current table (discounted, so the re-routed
+        slices' answers complete the count); a stale bounce of a request
+        that completed or was abandoned is discounted too.  The bounce
+        carries the server's epoch: a newer one than ours pulls the
+        table from the scheduler."""
+        ts = msg.meta.timestamp
+        self.stats.inc("wrong_owner_bounces")
+        discount = True
+        with self._mu:
+            req = self._pending.get(ts)
+            if req is not None:
+                sl = self._slice_of(req, msg.meta.key)
+                if req.bounces < self._MAX_WRONG_OWNER_BOUNCES:
+                    if sl is not None:
+                        sl.retry_now = True
+                        sl.wrong_owner = True
+                    else:
+                        req.deadline = 0.0  # unmatched: expire them all
+                else:
+                    discount = False
+                    self._mark_timed_out(ts)
+                    if sl is not None:
+                        sl.responded = True
+        self._maybe_pull_routing(int(msg.meta.val_len))
+        if discount and req is not None:
+            self._wake_sweeper()
+        return discount
 
     def _replica_answer(self, msg: Message) -> Tuple[bool, Optional[int]]:
         """``_pending_response`` of a normal response under replica
@@ -1601,6 +1681,49 @@ class KVWorker:
                 self._read_share.pop(node_id, None)
         if down:
             self._wake_sweeper()
+
+    def _on_routing(self, table) -> None:
+        """Routing hook: a new epoch landed.  Cache fills of every range
+        that changed hands go (their stamps were minted by the old
+        owner, whose counter the new owner's can never supersede), and
+        the sweeper wakes, so bounced slices re-route at once."""
+        if self._hot_cache is not None:
+            for e in table.entries:
+                if e.prev not in (-1, e.owner):
+                    self._hot_cache.invalidate_range(e.begin, e.end)
+        self._wake_sweeper()
+
+    def _route_entries(self) -> List[Tuple[Range, int]]:
+        """The slicing plan, ``(key range, owner rank)``: under elastic
+        membership the routing table's entries (owners are not the entry
+        index once ranges migrate), else the static split, entry i owned
+        by rank i (cached: it never changes, and this runs on every op's
+        issue path without the routing lock)."""
+        if not self.po.elastic:
+            if self._static_entries is None:
+                self._static_entries = [
+                    (rng, i)
+                    for i, rng in enumerate(self.po.get_server_key_ranges())]
+            return self._static_entries
+        rt = self.po.current_routing()
+        if rt is not None:
+            return [(Range(e.begin, e.end), e.owner) for e in rt.entries]
+        return [(rng, i)
+                for i, rng in enumerate(self.po.get_server_key_ranges())]
+
+    def _maybe_pull_routing(self, seen_epoch: int) -> None:
+        """A server bounced a slice with an epoch ahead of ours: pull the
+        table from the scheduler (one pull per 0.2 s window, not one per
+        bounced slice)."""
+        rt = self.po.current_routing()
+        if seen_epoch <= (rt.epoch if rt is not None else -1):
+            return
+        now = time.monotonic()
+        with self._mu:
+            if now - self._last_routing_pull < 0.2:
+                return
+            self._last_routing_pull = now
+        self.po.van._pull_routing()
 
     def _hold(self, sl: _PendingSlice) -> bool:
         """Whether a slice whose send failed waits for its deadline
@@ -1719,53 +1842,111 @@ class KVWorker:
                 expired = now >= req.deadline
                 troubled = [s for s in unresp
                             if expired or s.dest in self._down_servers
-                            or (s.retry_now and not self._hold(s))]
+                            or (s.retry_now and (s.wrong_owner
+                                                 or not self._hold(s)))]
                 if not troubled:
                     continue
-                if req.attempt >= self._req_retries:
+                # A pass of wrong-owner bounces only charges the bounce
+                # budget, not the retry budget.
+                bounce_only = not expired and all(s.wrong_owner
+                                                  for s in troubled)
+                if (req.bounces >= self._MAX_WRONG_OWNER_BOUNCES
+                        if bounce_only
+                        else req.attempt >= self._req_retries):
                     self._pending.pop(ts)
                     self._mark_timed_out(ts)
                     failures.append((ts, len(unresp)))
                     continue
-                req.attempt += 1
-                # Exponential backoff: each attempt doubles the window.
-                req.deadline = now + self._req_timeout * (2 ** req.attempt)
+                if bounce_only:
+                    req.bounces += 1
+                    req.deadline = max(req.deadline,
+                                       now + self._req_timeout)
+                else:
+                    req.attempt += 1
+                    # Exponential backoff: each attempt doubles the
+                    # window.
+                    req.deadline = now + self._req_timeout * (
+                        2 ** req.attempt)
                 for sl in troubled:
                     sl.retry_now = False
                 retries.append((req, troubled))
         resender = self.po.van.resender
         for req, slices in retries:
             for sl in slices:
-                old = sl.sent_msg
-                if old is not None and resender is not None:
-                    # The retry supersedes it: retransmitting the old one
-                    # would end in a give-up that fails a request its
-                    # retry already completed.
-                    resender.forget(old.meta.control.msg_sig)
-                # Retries go to the primary (or its failover): a spread
-                # pull that timed out or answered stale gets no second
-                # replica.
-                sl.replica_read = False
-                sl.dest = self._route(sl.group_rank)
-                log.vlog(1, f"retry ts={req.ts} slice rank={sl.group_rank} "
-                            f"-> node {sl.dest} (attempt {req.attempt})")
-                # A new message, so a fresh sid at dispatch: the
-                # receiver's dedup must not swallow it.
-                msg = self._slice_msg(req.ts, req.push, req.pull, req.cmd,
-                                      sl.part, sl.dest, req.val_nbytes,
-                                      req.zpull, sl.group_rank, req.codec,
-                                      sl.enc, req.tenant)
-                try:
-                    self.po.van.send(msg)
-                    sl.sent_msg = msg
-                except Exception as exc:  # noqa: BLE001 - the next sweep
-                    log.warning(f"retry send ts={req.ts} to {sl.dest} "
-                                f"failed: {exc!r}")
+                subs = [sl]
+                if sl.wrong_owner:
+                    # Re-sliced under the current table: a split that
+                    # landed inside the range divides this slice.
+                    sl.wrong_owner = False
+                    subs = self._resplit_slice(req, sl)
+                for sub in subs:
+                    self._resend_slice(req, sub, resender)
         for ts, deficit in failures:
             log.warning(f"request ts={ts} abandoned after "
                         f"{self._req_retries} retries; failing wait()")
             # Square the response ledger: wait(ts) unblocks and raises.
             self._customer.add_response(ts, deficit)
+
+    def _resend_slice(self, req: _PendingReq, sl: _PendingSlice,
+                      resender) -> None:
+        """One retry of a slice: a new message (a fresh sid at dispatch,
+        so the receiver's dedup keeps it) to the slice's route."""
+        old = sl.sent_msg
+        if old is not None and resender is not None:
+            # The retry supersedes it: retransmitting the old one would
+            # end in a give-up that fails a request its retry completed.
+            resender.forget(old.meta.control.msg_sig)
+        # Retries go to the primary (or its failover): a spread pull that
+        # timed out or answered stale gets no second replica.
+        sl.replica_read = False
+        sl.dest = self._route(sl.group_rank)
+        log.vlog(1, f"retry ts={req.ts} slice rank={sl.group_rank} -> "
+                    f"node {sl.dest} (attempt {req.attempt}, bounces "
+                    f"{req.bounces})")
+        msg = self._slice_msg(req.ts, req.push, req.pull, req.cmd, sl.part,
+                              sl.dest, req.val_nbytes, req.zpull,
+                              sl.group_rank, req.codec, sl.enc, req.tenant)
+        try:
+            self.po.van.send(msg)
+            sl.sent_msg = msg
+        except Exception as exc:  # noqa: BLE001 - the next sweep
+            log.warning(f"retry send ts={req.ts} to {sl.dest} failed: "
+                        f"{exc!r}")
+
+    def _resplit_slice(self, req: _PendingReq,
+                       sl: _PendingSlice) -> List[_PendingSlice]:
+        """A bounced slice's keys sliced again under the current routing
+        table.  One owner: the slice itself, retargeted.  Several: the
+        sub-slices replace it in the request's list and raise the
+        expected response count by the extra ones.  A codec push encodes
+        each sub-slice afresh (the first encoding's residual stays with
+        the abandoned destination's slot: one step of residual in a
+        migration window, not a loss)."""
+        entries = self._route_entries()
+        parts = self._slicer(sl.part, [rng for rng, _owner in entries])
+        live = [(entries[i][1], p) for i, p in enumerate(parts)
+                if p is not None and not p.empty()]
+        if len(live) <= 1:
+            if live:
+                sl.group_rank = live[0][0]
+            return [sl]
+        subs = [_PendingSlice(group_rank=owner, part=p, dest=-1)
+                for owner, p in live]
+        if req.codec is not None and req.push:
+            for sub in subs:
+                sub.enc = self._encode_part(req.codec, sub.group_rank,
+                                            sub.part)
+        with self._mu:
+            try:
+                idx = req.slices.index(sl)
+            except ValueError:
+                return [sl]  # replaced or retired meanwhile
+            req.slices[idx:idx + 1] = subs
+        # Each sub-slice draws its own response.
+        self._customer.add_response(req.ts, -(len(subs) - 1))
+        log.vlog(1, f"re-sliced ts={req.ts} over "
+                    f"{[s.group_rank for s in subs]} (routing change)")
+        return subs
 
     def _process_batched_response(self, msg: Message) -> None:
         """One response frame of N sub-ops: each sub-op is processed and
@@ -1856,8 +2037,7 @@ class KVWorker:
             cb = self._callbacks.pop(ts, None)
             # A failed request's data never (fully) landed: no callback.
             failed = (ts in self._error_ts or ts in self._timeout_ts
-                      or ts in self._overload_ts
-                      or ts in self._wrong_owner_ts)
+                      or ts in self._overload_ts)
         if cb is not None and not failed:
             cb()
 
@@ -1895,7 +2075,6 @@ class KVServer:
         env = self.po.env
         resp_bytes = max(0, env.find_int(
             "PS_RESP_BATCH_BYTES", max(0, env.find_int("PS_BATCH_BYTES", 0))))
-        _refuse_batching_with(env, resp_bytes)
         self._handle: Optional[Callable[[KVMeta, KVPairs, "KVServer"],
                                         None]] = None
         # Set once set_request_handle has installed the handle and its
@@ -1952,6 +2131,46 @@ class KVServer:
                 min_ops=env.find_int("PS_RESP_BATCH_MIN_OPS", 32),
                 hold_max_us=env.find_float("PS_RESP_BATCH_HOLD_US", 2000.0),
                 response=True, tracer=self.po.tracer)
+        # Elastic membership: ownership and parking.  ``_owned`` is None
+        # until a routing table lands (static: every request is ours);
+        # then a request with a key outside it bounces OPT_WRONG_OWNER,
+        # and one for a range gained but not yet migrated parks until
+        # the handoff lands.
+        self._elastic_mu = threading.Lock()
+        self._owned: Optional[List[Range]] = None
+        self._table = None  # the applied RoutingTable
+        self._routing_epoch = -1
+        # (owner, begin, end) of the ranges this server replicated under
+        # the previous epoch: the diff against a new table's chains
+        # names the ranges to backfill.  None until the first table.
+        self._replicated_prev: Optional[set] = None
+        # range begin -> {"range", "frm", "epoch", "parked", "timer"}
+        self._pending_ranges: Dict[int, dict] = {}
+        # Migrations that landed before their table (begin -> epoch).
+        self._arrived_migrations: Dict[int, int] = {}
+        self._migrate_timeout = env.find_float("PS_MIGRATE_TIMEOUT", 30.0)
+        # Migration acks that came back error-marked: the old owner
+        # keeps its copy.
+        self._migrate_nacks = BoundedKeySet(256)
+        # Outbound migrations run one batch at a time on one thread: a
+        # second epoch mid-handoff neither starts a second exporter nor
+        # lets a leaver report REMOVE_DONE early.
+        self._migrate_q: List[tuple] = []
+        self._migrating = False
+        # JAX's kv.wrong_owner, kv.migrated_keys_in/out and
+        # kv.parked_requests counters (the registry is a no-op here).
+        self.stats = LocalCounts()
+        if self.po.elastic:
+            # Ownership from the node's current table before the
+            # customer delivers any parked request: a joiner that
+            # applied early requests tableless would have them
+            # overwritten by the migration import.  A joiner whose first
+            # broadcast is still in flight owns nothing yet (it bounces).
+            table = self.po.current_routing()
+            if table is not None:
+                self._apply_routing_update(table)
+            elif self.po.elastic_join:
+                self._owned = []
         self._customer = Customer(
             app_id, app_id, self._process, self.po,
             on_request_error=self._request_error,
@@ -1967,6 +2186,10 @@ class KVServer:
         self._restored = False
         self._restore_mu = threading.Lock()
         self._restore_buffer: Optional[List[Message]] = None
+        # The buffer belongs to a replica backfill (not a restore): this
+        # server's own ranges are whole, so range fetches are served
+        # meanwhile (``_process``).
+        self._backfilling = False
         # Replica reads: a replica answers pulls of another rank's range
         # in that primary's stamp currency (stamping engages).
         self._replica_reads = bool(env.find_int("PS_REPLICA_READS", 0))
@@ -1991,6 +2214,12 @@ class KVServer:
             # A server falsely declared dead and then forgiven missed
             # every write that failed over meanwhile: it resyncs.
             self.po.register_node_failure_hook(self._on_self_rehab)
+        if self.po.elastic:
+            # Later epochs reach the request thread through the request
+            # queue (the cutover serializes against every earlier
+            # request); the registration's replay of the current table
+            # is discarded by the epoch guard.
+            self.po.register_routing_hook(self._on_routing)
 
     def _resolve_apply_shards(self) -> int:
         try:
@@ -2041,12 +2270,17 @@ class KVServer:
         if pool_eligible:
             self._apply_pool = ApplyShardPool(handle, self._apply_shards,
                                               self)
+        # An elastic joiner's state arrives by range migration: neither
+        # the (stale) manifest nor a replica restore runs for it.
+        joiner = self.po.elastic_join
         want_snap = (env.find_int("PS_SNAPSHOT_RESTORE", 0) != 0
-                     and bool(self._snapshot_dir) and not self._snap_restored)
+                     and bool(self._snapshot_dir) and not self._snap_restored
+                     and not joiner)
         want_repl = (self._replicator is not None and self.po.is_recovery
-                     and not self._restored)
+                     and not joiner and not self._restored)
         if not (want_snap or want_repl):
             self._handle_set.set()
+            self._kick_replica_backfill()
             return
         # Requests arriving during either restore park, and replay after
         # the last import: applied in between, the replica fetch would
@@ -2073,6 +2307,16 @@ class KVServer:
             if callable(tier_mode):
                 tier_mode(False)
             self._drain_restore_buffer()
+        self._kick_replica_backfill()
+
+    def _kick_replica_backfill(self) -> None:
+        """An elastic joiner's first table was applied before its handle
+        existed, so the replica backfill it owes waited: run the diff
+        now that the store can take imports."""
+        with self._elastic_mu:
+            table = self._table
+        if table is not None:
+            self._note_replicated_ranges(table, self.po.my_group_rank())
 
     def _restore_from_snapshot(self, handle) -> None:
         """Boot-time restore from the committed manifest
@@ -2344,6 +2588,13 @@ class KVServer:
         self._customer.stop()
         self.po.unregister_node_failure_hook(self._on_stream_peer_event)
         self.po.unregister_snapshot_hook(self._on_snapshot_request)
+        self.po.unregister_routing_hook(self._on_routing)
+        with self._elastic_mu:
+            pend = list(self._pending_ranges.values())
+            self._pending_ranges.clear()
+        for ent in pend:
+            if ent.get("timer") is not None:
+                ent["timer"].cancel()
         self._abort_streams()
         if self._apply_pool is not None:
             self._apply_pool.stop()
@@ -2360,6 +2611,438 @@ class KVServer:
         if self._replicator is not None:
             self.po.unregister_node_failure_hook(self._on_self_rehab)
             self._replicator.close()
+
+    # -- elastic membership ---------------------------------------------------
+
+    _MAX_PARKED = 4096  # per pending range; beyond it requests are shed
+
+    def response_wrong_owner(self, req: KVMeta, epoch: int) -> None:
+        """Empty ``OPT_WRONG_OWNER`` response: this server does not own
+        the request's range under its epoch, and applied nothing.
+        ``val_len`` carries the epoch, so a stale worker pulls a newer
+        table, and its sweeper re-slices and re-routes."""
+        if req.option == OPT_REPLICA:
+            return
+        msg = self._response_msg(req)
+        msg.meta.option = OPT_WRONG_OWNER
+        msg.meta.addr = 0
+        msg.meta.val_len = max(int(epoch), 0)
+        # A re-route signal rides the express band, as a shed does.
+        msg.meta.priority = max(msg.meta.priority, 1)
+        self.po.van.send(msg)
+
+    def _on_routing(self, table) -> None:
+        """Routing hook (van pump): post the table through the request
+        queue, so the cutover runs on the request thread.  Every request
+        queued before it applies under the old epoch, everything after
+        parks or bounces: with the apply pool's quiesce token taken at
+        the cutover, the migration's export is a consistent cut."""
+        marker = Message()
+        marker.meta.request = True
+        marker.meta.app_id = self._customer.app_id
+        marker.meta.customer_id = self._customer.customer_id
+        marker.meta.head = ROUTING_LOCAL_CMD
+        marker._routing_table = table
+        self._customer.accept(marker)
+
+    def _apply_routing_update(self, table) -> None:
+        """The cutover to a new routing epoch (request thread only):
+        ownership, the ranges gained that must wait for their data
+        (each with a ``PS_MIGRATE_TIMEOUT`` timer), the replica
+        backfill debt, and the ranges lost, queued for the migration
+        thread.  A leaver with nothing (left) to move reports done."""
+        if table is None:
+            return
+        my = self.po.my_group_rank()
+        new_pending = []
+        with self._elastic_mu:
+            if table.epoch <= self._routing_epoch:
+                return
+            self._routing_epoch = table.epoch
+            self._table = table
+            self._owned = [Range(e.begin, e.end) for e in table.entries
+                           if e.owner == my]
+            losses = [e for e in table.entries
+                      if e.prev == my and e.owner != my]
+            for e in table.entries:
+                if e.owner != my or e.prev in (-1, my):
+                    continue
+                if self._arrived_migrations.pop(e.begin, None) is not None:
+                    continue  # the data beat the table here
+                if e.begin in self._pending_ranges:
+                    continue
+                ent = {"range": Range(e.begin, e.end), "frm": e.prev,
+                       "epoch": table.epoch, "parked": [], "timer": None}
+                self._pending_ranges[e.begin] = ent
+                new_pending.append(ent)
+        for ent in new_pending:
+            t = threading.Timer(self._migrate_timeout, self._pending_timeout,
+                                args=(ent["range"].begin, ent["epoch"]))
+            t.daemon = True
+            ent["timer"] = t
+            t.start()
+        self._note_replicated_ranges(table, my)
+        if losses:
+            if self._handle is None:
+                log.warning("routing update assigns migrations but no "
+                            "handle is set; ranges stay put")
+                return
+            # The quiesce token is taken here, on the request thread:
+            # what was submitted so far is what the export waits for.
+            token = (self._apply_pool.submit_token()
+                     if self._apply_pool is not None else None)
+            with self._elastic_mu:
+                self._migrate_q.append((losses, table, token))
+                spawn = not self._migrating
+                if spawn:
+                    self._migrating = True
+            if spawn:
+                threading.Thread(target=self._migrate_out,
+                                 name="kv-migrate-out", daemon=True).start()
+            return
+        with self._elastic_mu:
+            migrating = self._migrating
+        if my in table.leaving and not migrating:
+            # With a migration in flight its thread reports when it
+            # drains: a leaver is never retired mid-handoff.
+            self._send_remove_done()
+
+    def _note_replicated_ranges(self, table, my: int) -> None:
+        """The replica backfill debt: the ranges this rank replicates
+        (another rank owns them, this one is in their chain) diffed
+        across epochs, and those newly gained backfilled from their
+        primaries, or a new replica would hold only the pushes after
+        the change.  Returns before recording the set while the handle
+        or the replicator is missing: a joiner's first table arrives
+        before its handle, and ``_kick_replica_backfill`` runs this
+        again."""
+        # getattr: the constructor's cutover runs before the replicator
+        # exists.
+        replicator = getattr(self, "_replicator", None)
+        if replicator is None or self._handle is None:
+            return
+        active = list(table.active)
+        repl_now = set()
+        for e in table.entries:
+            if e.owner == my:
+                continue
+            if my in chain_ranks(e.owner, replicator.k,
+                                 self.po.num_servers, active=active):
+                repl_now.add((e.owner, e.begin, e.end))
+        prev = self._replicated_prev
+        self._replicated_prev = repl_now
+        if prev is None:
+            # At boot everyone starts empty together: no backfill.  A
+            # live joiner enters chains that already hold state.
+            if not self.po.elastic_join:
+                return
+            gained = repl_now
+        else:
+            gained = repl_now - prev
+        if gained:
+            threading.Thread(target=self._backfill_replicas,
+                             args=(sorted(gained),),
+                             name="kv-replica-backfill", daemon=True).start()
+
+    def _backfill_replicas(self, gained) -> None:
+        """Background half of the backfill: new arrivals park (the
+        restore buffer), each newly replicated range is fetched from its
+        primary (``Replicator.backfill_range``: a quiesced cut whose
+        stamp floors forward re-applies), then the parked replay."""
+        with self._restore_mu:
+            if self._restore_buffer is not None:
+                return  # a restore or resync covers this window
+            self._restore_buffer = []
+            # Range fetches are served meanwhile (a departure from JAX,
+            # whose backfill parks them): after a join every server may
+            # backfill from the joiner while the joiner backfills from
+            # them, and parked fetches would wait each other out.
+            self._backfilling = True
+        total = 0
+        try:
+            for owner, begin, end in gained:
+                oid = server_rank_to_id(owner * self.po.group_size
+                                        + self.po.instance_idx)
+                if self.po.van.is_peer_down(oid):
+                    continue  # a dead primary's recovery restores it
+                total += self._replicator.backfill_range(
+                    self._handle, Range(begin, end), oid)
+            self.stats.inc("replica_backfill_keys", total)
+        except Exception as exc:  # noqa: BLE001 - keep serving
+            log.warning(f"replica backfill failed: {exc!r}")
+        finally:
+            self._drain_restore_buffer()
+            self._backfilling = False
+
+    def _elastic_gate(self, msg: Message) -> bool:
+        """The ownership check at intake (request thread), for plain KV
+        requests only.  True when the request was consumed: parked at a
+        range whose migration is in flight, shed when that park is full,
+        or bounced ``OPT_WRONG_OWNER``.  Every key must fall in a range
+        this server may take: one it owns, or one whose owner is down
+        with this server in its chain (the failover routes it here, and
+        the table knows nothing of crashes), or, under replica reads, a
+        pull of a live owner's range in whose chain it sits."""
+        m = msg.meta
+        if (not m.request or m.simple_app or m.head != 0
+                or m.option in (OPT_REPLICA, OPT_XFER_PART)
+                or not msg.data):
+            return False
+        keys = msg.data[0].astype_view(np.uint64).numpy()
+        if len(keys) == 0:
+            return False
+        park_full = False
+        with self._elastic_mu:
+            epoch = self._routing_epoch
+            for ent in self._pending_ranges.values():
+                r = ent["range"]
+                if find_range(keys, r.begin, r.end).size() > 0:  # a key in the pending range parks it whole
+                    if len(ent["parked"]) >= self._MAX_PARKED:
+                        park_full = True
+                        break
+                    ent["parked"].append(msg)
+                    self.stats.inc("parked_requests")
+                    return True
+            if not park_full:
+                table = self._table
+                my = self.po.my_group_rank()
+                n_in = 0
+                for e in (table.entries if table is not None else ()):
+                    n = find_range(keys, e.begin, e.end).size()
+                    if n <= 0:
+                        continue
+                    if e.owner == my:
+                        n_in += n
+                    elif self._replicator is not None:
+                        oid = server_rank_to_id(e.owner * self.po.group_size
+                                                + self.po.instance_idx)
+                        in_chain = my in chain_ranks(
+                            e.owner, self._replicator.k,
+                            self.po.num_servers,
+                            active=self.po.active_server_ranks)
+                        if in_chain and (self.po.van.is_peer_down(oid)
+                                         or (self._replica_reads
+                                             and m.pull and not m.push)):
+                            n_in += n
+                if n_in == len(keys):
+                    return False
+        meta = KVMeta(cmd=m.head, push=m.push, pull=m.pull, sender=m.sender,
+                      timestamp=m.timestamp, customer_id=m.customer_id,
+                      key=m.key, option=m.option, priority=m.priority,
+                      trace=m.trace, tenant=m.tenant)
+        if park_full:
+            # Shed retryably rather than queue unbounded memory behind a
+            # slow handoff.
+            log.warning(f"migration park buffer full: shedding ts="
+                        f"{m.timestamp} from {m.sender}")
+            self.response_overload(meta)
+            return True
+        self.stats.inc("wrong_owner")
+        self.response_wrong_owner(meta, epoch)
+        return True
+
+    def _import_migration(self, msg: Message) -> None:
+        """A range handoff landed (``MIGRATE_CMD`` from the old owner):
+        import it, release the pending range, acknowledge, tell the
+        scheduler, and replay the parked requests in arrival order (on
+        the request thread: no new arrival interleaves).  Not
+        chain-forwarded: an import is set semantics, which the
+        replicas' ordered ``+=`` cannot carry; the old owner's chain
+        still holds the range's state."""
+        m = msg.meta
+        if self._handle is None:
+            # The app has not installed its handle yet: requeue, since an
+            # error answer would read as an ack at the old owner, which
+            # would drop the only copy.
+            time.sleep(0.002)
+            self._customer.accept(msg)
+            return
+        keys = (msg.data[0].astype_view(np.uint64).numpy()
+                if len(msg.data) >= 1 else np.empty(0, np.uint64))
+        vals = (msg.data[1].numpy() if len(msg.data) >= 2
+                else np.empty(0, np.float32))
+        lens = (msg.data[2].astype_view(np.int32).numpy()
+                if len(msg.data) > 2 else None)
+        if len(keys):
+            import_range(self._handle, keys, vals, lens)
+            self.stats.inc("migrated_keys_in", len(keys))
+        with self._elastic_mu:
+            ent = self._pending_ranges.pop(m.key, None)
+            if ent is None:
+                # The data raced ahead of the routing broadcast: the
+                # table's application skips parking this range.
+                self._arrived_migrations[m.key] = int(m.addr)
+                while len(self._arrived_migrations) > 64:
+                    self._arrived_migrations.pop(
+                        next(iter(self._arrived_migrations)))
+        if ent is not None and ent.get("timer") is not None:
+            ent["timer"].cancel()
+        log.vlog(1, f"imported {len(keys)} migrated keys at {m.key} "
+                    f"(epoch {m.addr})")
+        self.response(KVMeta(cmd=m.head, push=True, pull=False,
+                             sender=m.sender, timestamp=m.timestamp,
+                             customer_id=m.customer_id, key=m.key,
+                             addr=m.addr))
+        self._notify_migrate_done(int(m.addr), int(m.key))
+        if ent is not None:
+            for parked in ent["parked"]:
+                try:
+                    self._process_request(parked)
+                except Exception as exc:  # noqa: BLE001
+                    log.warning(f"parked request replay failed: {exc!r}")
+                    try:
+                        self._request_error(parked, exc)
+                    except Exception:  # noqa: BLE001
+                        pass
+
+    def _migrate_out(self) -> None:
+        """The migration thread: queued batches in epoch order, each
+        after every apply submitted before its cutover finished (the
+        quiesce token), each lost range streamed to its new owner.  A
+        leaver reports REMOVE_DONE only once the queue is dry, judged by
+        the current table."""
+        while True:
+            with self._elastic_mu:
+                if not self._migrate_q:
+                    self._migrating = False
+                    table = self._table
+                    break
+                losses, table, token = self._migrate_q.pop(0)
+            if self._apply_pool is not None and token is not None:
+                if not self._apply_pool.quiesce(
+                        token, timeout_s=self._migrate_timeout):
+                    log.warning("migrate: apply pool did not quiesce in "
+                                "time; exporting anyway")
+            for e in losses:
+                try:
+                    self._migrate_range(e, table)
+                except Exception as exc:  # noqa: BLE001
+                    log.warning(f"migration of [{e.begin}, {e.end}) -> "
+                                f"rank {e.owner} failed: {exc!r}")
+        if table is not None and self.po.my_group_rank() in table.leaving:
+            self._send_remove_done()
+
+    def _migrate_range(self, e, table) -> None:
+        """Export one lost range and push it to its new owner
+        (``MIGRATE_CMD``; a large one travels in chunks).  The local copy
+        goes only after the new owner acknowledged the import."""
+        keys, vals, lens = export_range(self._handle, e.begin, e.end)
+        dest = server_rank_to_id(e.owner * self.po.group_size
+                                 + self.po.instance_idx)
+        ts = self._customer.new_request(dest)
+        msg = Message()
+        m = msg.meta
+        m.app_id = self._customer.app_id
+        m.customer_id = self._customer.customer_id
+        m.request = True
+        m.push = True
+        m.head = MIGRATE_CMD
+        m.timestamp = ts
+        m.recver = dest
+        m.key = int(e.begin)
+        m.addr = int(table.epoch)
+        m.val_len = vals.nbytes
+        msg.add_data(SArray(keys))
+        msg.add_data(SArray(vals))
+        msg.add_data(SArray(np.asarray(lens, dtype=np.int32)))
+        self.po.van.send(msg)
+        ok = self._customer.wait_request(ts, timeout=self._migrate_timeout)
+        if not ok or self._migrate_nacks.discard(ts):
+            log.warning(f"migration of [{e.begin}, {e.end}) to rank "
+                        f"{e.owner} "
+                        f"{'failed at the importer' if ok else 'unacked'}"
+                        f"; keeping the local copy")
+            return
+        self._drop_keys(keys)
+        self.stats.inc("migrated_keys_out", len(keys))
+        log.vlog(1, f"migrated {len(keys)} keys of [{e.begin}, {e.end}) "
+                    f"-> rank {e.owner}")
+
+    def _drop_keys(self, keys) -> None:
+        handle = self._handle
+        if callable(getattr(handle, "drop_keys", None)):
+            handle.drop_keys(keys)
+            return
+        store = getattr(handle, "store", None)
+        if store is None:
+            return
+        drop = _store_drop_fn(store)
+        for k in keys.tolist():
+            drop(int(k))
+
+    def _pending_timeout(self, begin: int, epoch: int) -> None:
+        """A gained range's data never came (its source died
+        mid-handoff?): try the old owner's replica chain, then unpark;
+        parked waiters complete or fail, never hang."""
+        with self._elastic_mu:
+            ent = self._pending_ranges.get(begin)
+            if ent is None or ent["epoch"] != epoch:
+                return
+            rng, frm = ent["range"], ent["frm"]
+        log.warning(f"migration of [{rng.begin}, {rng.end}) from rank "
+                    f"{frm} overdue; trying replica fallback")
+        if self._replicator is not None and self._handle is not None:
+            gs = self.po.group_size
+            to_id = lambda r: server_rank_to_id(  # noqa: E731
+                r * gs + self.po.instance_idx)
+            cands = [to_id(frm)] + [
+                to_id(r) for r in chain_ranks(
+                    frm, self._replicator.k, self.po.num_servers,
+                    active=self.po.active_server_ranks)]
+            try:
+                self._replicator._fetch_range(self._handle, rng, cands,
+                                              timeout_s=10.0)
+            except Exception as exc:  # noqa: BLE001
+                log.warning(f"replica fallback for [{rng.begin}, "
+                            f"{rng.end}) failed: {exc!r}")
+        with self._elastic_mu:
+            ent = self._pending_ranges.pop(begin, None)
+        if ent is None:
+            return  # the handoff landed while this fetched
+        # The range is live (degraded) from here: the scheduler's ledger
+        # releases, so snapshots stop waiting.
+        self._notify_migrate_done(epoch, begin)
+        for parked in ent["parked"]:
+            # Through the intake queue: this is a timer thread, and
+            # requests are processed on one thread.
+            self._customer.accept(parked)
+
+    def _control_to_scheduler(self, cmd: Command, option: int,
+                              body: dict, what: str) -> None:
+        msg = Message()
+        msg.meta.recver = SCHEDULER_ID
+        msg.meta.request = True
+        msg.meta.option = option
+        msg.meta.body = json.dumps(body).encode()
+        msg.meta.control = Control(cmd=cmd)
+        msg.meta.timestamp = self.po.van.next_timestamp()
+        try:
+            self.po.van.send(msg)
+        except Exception as exc:  # noqa: BLE001 - the scheduler's ledger
+            log.warning(f"{what} failed: {exc!r}")  # expires / times out
+
+    def _notify_migrate_done(self, epoch: int, begin: int) -> None:
+        """Tell the scheduler a handoff landed here (``MIGRATE_DONE_OPT``
+        on a ROUTING request): its ledger holds snapshot cuts."""
+        self._control_to_scheduler(
+            Command.ROUTING, MIGRATE_DONE_OPT,
+            {"epoch": int(epoch), "begin": int(begin),
+             "rank": self.po.my_group_rank()}, "MIGRATE_DONE note")
+
+    def _send_remove_done(self) -> None:
+        """Tell the scheduler this leaver migrated everything
+        (``REMOVE_DONE_OPT`` on REMOVE_NODE): it may retire the rank."""
+        self._control_to_scheduler(
+            Command.REMOVE_NODE, REMOVE_DONE_OPT,
+            {"rank": self.po.my_group_rank()}, "REMOVE_DONE send")
+
+    def decommission(self, timeout_s: float = 60.0) -> None:
+        """Leave the running cluster: the scheduler reassigns this
+        server's ranges, this server migrates them live, and the rank
+        retires, with no restart and no dropped request.  Then
+        ``stop()`` the server and ``finalize(do_barrier=False)`` its
+        Postoffice (a retired node counts in no barrier)."""
+        self.po.request_decommission(timeout_s)
 
     # -- coordinated snapshots ------------------------------------------------
 
@@ -2398,6 +3081,9 @@ class KVServer:
             self._run_namespace(sender, token, op, req)
             return
         directory = req.get("dir") or self._snapshot_dir
+        with self._elastic_mu:
+            migrating = (bool(self._pending_ranges) or self._migrating
+                         or bool(self._migrate_q))
         err = None
         if op == "retune":
             err = ("live apply retune is not yet ported to "
@@ -2410,6 +3096,10 @@ class KVServer:
             err = "no snapshot directory (PS_SNAPSHOT_DIR unset)"
         elif self._snapshotting:
             err = "a snapshot is already in progress"
+        elif migrating:
+            # Behind the scheduler's own wait: a cut mid-handoff would
+            # commit a range split across its old and new owner.
+            err = "range migration in flight — refusing a mid-handoff cut"
         elif self.po.group_size > 1:
             # Every instance of a group rank owns the same range with a
             # store of its own: their segment files would clobber each
@@ -2597,6 +3287,11 @@ class KVServer:
         """Every range this server answers reads for: its own, plus,
         under replication, every range whose chain it is in."""
         my = self.po.my_group_rank()
+        with self._elastic_mu:
+            owned = self._owned
+            repl = list(self._replicated_prev or ())
+        if owned is not None:
+            return list(owned) + [Range(b, e) for _, b, e in repl]
         ranges = list(self.po.server_key_ranges_of(my))
         if self._replicator is not None and self._replicator.k > 1:
             for o in range(self.po.num_servers):
@@ -2667,10 +3362,13 @@ class KVServer:
         registered receive buffer for this (sender, key) (those apply
         synchronously from the buffer), and a live sender (a partial
         straggling in after its sender was declared dead must not reopen
-        a reclaimed stream).  JAX's ownership term always holds here:
-        the port has no elastic routing."""
+        a reclaimed stream), and static routing: under elastic routing a
+        stream opened before a cutover would have applied keys that the
+        bounced and re-routed message then applies again at the new
+        owner, so the reassembled message takes the gated path."""
         return (self._apply_pool is not None
                 and self._replicator is None
+                and self._owned is None
                 and (m.sender, m.key) not in self._recv_buffers
                 and not self.po.van.is_peer_down(m.sender))
 
@@ -2764,7 +3462,16 @@ class KVServer:
             meta.stamp = self._push_version
 
     def _owner_rank_of(self, key: int) -> Optional[int]:
-        """The group rank owning ``key`` under the static split."""
+        """The group rank owning ``key``: under the applied routing table
+        once one is, else under the static split."""
+        if self._owned is not None:
+            with self._elastic_mu:
+                table = self._table
+            if table is not None:
+                for e in table.entries:
+                    if e.begin <= key < e.end:
+                        return e.owner
+            return None
         for i, rng in enumerate(self.po.get_server_key_ranges()):
             if rng.begin <= key < rng.end:
                 return i
@@ -2891,13 +3598,18 @@ class KVServer:
         if msg.meta.simple_app:
             return
         if not msg.meta.request:
-            # A response must never run the request handler.  Under
-            # replication servers receive one kind: a range fetch's.
+            # A response must never run the request handler.  Servers
+            # receive two kinds: a range fetch's, under replication, and
+            # a migration's acknowledgement (an error-marked one means
+            # the import raised: the old owner keeps its copy).
+            if msg.meta.option == OPT_APPLY_ERROR:
+                self._migrate_nacks.add(msg.meta.timestamp)
             if self._replicator is not None:
                 self._replicator.absorb_response(msg)
             return
         if (not self._handle_set.is_set()
-                and msg.meta.head != SNAPSHOT_LOCAL_CMD):
+                and msg.meta.head not in (SNAPSHOT_LOCAL_CMD,
+                                          ROUTING_LOCAL_CMD)):
             # The request (parked until this server's customer existed)
             # raced set_request_handle: wait for the handle and its pool,
             # or a chunked push's first partial would find no pool and
@@ -2906,12 +3618,20 @@ class KVServer:
             self._handle_set.wait(self._HANDLE_WAIT_S)
         if self._restore_buffer is not None:  # unlocked fast-path probe
             with self._restore_mu:
-                if self._restore_buffer is not None:
+                if self._restore_buffer is not None and not (
+                        self._backfilling
+                        and msg.meta.head == REPLICA_FETCH_CMD):
                     self._restore_buffer.append(msg)
                     return
         self._process_request(msg)
 
     def _process_request(self, msg: Message) -> None:
+        if (msg.meta.head == ROUTING_LOCAL_CMD
+                and hasattr(msg, "_routing_table")):
+            # The local cutover: the ownership flip serializes against
+            # every earlier queued request.
+            self._apply_routing_update(msg._routing_table)
+            return
         if (msg.meta.head == SNAPSHOT_LOCAL_CMD
                 and hasattr(msg, "_snapshot_ctl")):
             # The local snapshot fence: on this thread the cut
@@ -2924,6 +3644,12 @@ class KVServer:
         if msg.meta.batch is not None:
             self._process_batch(msg)
             return
+        if (msg.meta.head == MIGRATE_CMD and msg.meta.push
+                and msg.meta.option != OPT_REPLICA):
+            self._import_migration(msg)
+            return
+        if self._owned is not None and self._elastic_gate(msg):
+            return  # parked at a pending range, or bounced
         xfer = getattr(msg, "_xfer_key", None)
         if xfer is not None:
             with self._streams_mu:
@@ -3012,7 +3738,9 @@ class KVServer:
         subs = split_batch_message(msg)
         if not subs:
             return
-        fallback = False
+        # The elastic ownership gate and registered receive buffers are
+        # per-op machinery the group apply does not carry.
+        fallback = self._owned is not None
         for sub in subs:
             if self._recv_buffers and sub.meta.push and sub.data:
                 k0 = sub.data[0].astype_view(np.uint64).numpy()
@@ -3020,9 +3748,8 @@ class KVServer:
                     fallback = True
                     break
         if fallback:
-            # A registered receive buffer is per-op machinery the group
-            # apply does not carry: run each sub-op alone (per-op
-            # responses; the worker takes both shapes).
+            # Run each sub-op alone (per-op responses; the worker takes
+            # both shapes).
             for sub in subs:
                 self._process_request(sub)
             return

@@ -30,9 +30,10 @@ records, so replica restores and snapshots carry optimizer state.
 
 The port's metrics registry is a no-op stand-in (ROADMAP Queue 1 item
 8(c)), so ``forwarded``, ``deduped``, the forward lag and the stamp lag
-are counted here (``stats``), not in the registry.  Routing epochs
-(``active=``) are item 8(b2): the port's Postoffice answers
-``active_server_ranks`` with None, the static chain.
+are counted here (``stats``), not in the registry.  Under elastic
+membership chains follow the routing epoch's active ranks
+(``active=``): departed ranks drop out and joiners join, and a server
+that newly replicates a range backfills it (``backfill_range``).
 """
 
 from __future__ import annotations
@@ -482,8 +483,8 @@ class Replicator:
         primary: the primary's quiesced export makes the response stamp
         the cut, which becomes the import floor, so forwards racing the
         backfill apply once.  Returns the keys imported (0 on failure,
-        logged).  Its caller, the chain recomputation of an elastic
-        join, is ROADMAP Queue 1 item 8(b2)."""
+        logged).  Called by ``KVServer._backfill_replicas`` when an
+        elastic epoch puts this server in a new chain."""
         n, stamp, src = self._fetch_range(handle, rng, [primary_id],
                                           timeout_s)
         if src == primary_id and stamp > 0:

@@ -37,6 +37,7 @@ import numpy as np
 
 from ..checkpoint import fsync_dir, load_range_segment, save_range_segment
 from ..message import SNAPSHOT_LOCAL_CMD
+from ..range import find_range
 from ..utils import logging as log
 
 __all__ = ["MANIFEST_NAME", "SNAPSHOT_LOCAL_CMD", "load_manifest",
@@ -213,9 +214,8 @@ def _filter_to_ranges(keys: np.ndarray, vals: np.ndarray,
     Keys are sorted (export_range sorts), so each range is one slice."""
     mask = np.zeros(len(keys), dtype=bool)
     for rng in owned:
-        lo = int(np.searchsorted(keys, rng.begin))
-        hi = int(np.searchsorted(keys, rng.end))
-        mask[lo:hi] = True
+        pos = find_range(keys, rng.begin, rng.end)
+        mask[pos.begin:pos.end] = True
     if mask.all():
         return keys, vals, lens
     if lens is not None:

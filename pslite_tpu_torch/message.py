@@ -13,8 +13,12 @@ batched frames (``kv/batching.py``), ``EXT_QOS`` tenants and stamps, and
 option markers live the ``meta.head`` values of the durability plane:
 ``REPLICA_FETCH_CMD`` (a range-state fetch between servers) and
 ``SNAPSHOT_LOCAL_CMD`` (a server's local snapshot fence, never on the
-wire).  ``OPT_WRONG_OWNER`` belongs to elastic routing, ROADMAP Queue 1
-item 8(b2): the port never sends it.
+wire), and those of elastic routing: ``MIGRATE_CMD`` (a range handoff
+from its old owner to its new one) and ``ROUTING_LOCAL_CMD`` (a server's
+local routing cutover, never on the wire).  A server that does not own a
+request's range answers ``OPT_WRONG_OWNER``; the control options of the
+membership handshake (``ELASTIC_JOIN_OPT``, ``REMOVE_DONE_OPT``,
+``MIGRATE_DONE_OPT``) are JAX's values.
 """
 
 from __future__ import annotations
@@ -176,6 +180,27 @@ REPLICA_FETCH_CMD = 0x5EED
 # thread, it serializes the cut against every earlier queued request.
 # Never on the wire.
 SNAPSHOT_LOCAL_CMD = 0x5A47
+
+# meta.head of an elastic range migration: the old owner pushes a
+# range's state to the new owner the routing table names; meta.key is
+# the range's begin, meta.addr the routing epoch.  Server to server only.
+MIGRATE_CMD = 0x314D
+
+# meta.head of the local routing-cutover marker a server's routing hook
+# posts into its own request queue: the ownership flip serializes
+# against every earlier queued request.  Never on the wire.
+ROUTING_LOCAL_CMD = 0x52E9
+
+# meta.option values of the membership control plane:
+# - ELASTIC_JOIN_OPT on the ADD_NODE roster to a live joiner: it skips
+#   the startup barrier but runs no replica restore;
+# - REMOVE_DONE_OPT on a REMOVE_NODE request: the leaver migrated
+#   everything, the scheduler may retire it;
+# - MIGRATE_DONE_OPT on a ROUTING request: a handoff landed at its new
+#   owner (body: {"epoch", "begin", "rank"}).
+ELASTIC_JOIN_OPT = 0xE1A5
+REMOVE_DONE_OPT = 0xD02E
+MIGRATE_DONE_OPT = 0x4DD0
 
 
 @dataclass(frozen=True)

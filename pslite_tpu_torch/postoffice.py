@@ -16,9 +16,14 @@ broadcast ``Command.SNAPSHOT``, gather every server's segment digests,
 commit the manifest) and model namespaces (``publish_model``,
 ``rollback_model``) over the same channel; servers take the requests
 through ``register_snapshot_hook``.  Elastic membership
-(``PS_ELASTIC=1``) and routing epochs are ROADMAP Queue 1 item 8(b2) and
-raise here (``active_server_ranks`` is None: the static split);
-``retune_apply``, telemetry history and health are item 8(c) and absent.
+(``PS_ELASTIC=1``): the routing surface (``routing_table``,
+``apply_routing`` with its hooks, ``active_server_ranks``, the
+scheduler's migration ledger that a snapshot waits on, and
+``request_decommission``); the van admits joiners and retires leavers.
+The scheduler passes no load hint to ``with_join`` (it splits the widest
+range), since the metrics pulls that feed JAX's ``hot_key_hint`` are
+ROADMAP Queue 1 item 8(c), as are ``retune_apply``, telemetry history
+and health.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from .base import (
 )
 from .message import Command, Control, Message, Node, Role
 from .range import Range
+from .routing import RoutingTable
 from .telemetry import FlightRecorder, Tracer
 from .utils import logging as log
 
@@ -71,11 +77,6 @@ class Postoffice:
                   "JOINT is expanded by start_ps, not hosted by one "
                   "Postoffice")
         self.env = env or environment.get()
-        if self.env.find_int("PS_ELASTIC", 0):
-            raise NotImplementedError(
-                "elastic membership (PS_ELASTIC=1: admission of new "
-                "servers with routing epochs) is not yet ported to "
-                "pslite_tpu_torch (ROADMAP Queue 1 item 8(b2))")
         self.instance_idx = instance_idx
         self.num_workers = self.env.find_int("DMLC_NUM_WORKER", 0)
         self.num_servers = self.env.find_int("DMLC_NUM_SERVER", 0)
@@ -97,6 +98,31 @@ class Postoffice:
         self._exit_callback: Optional[Callable[[], None]] = None
         self._server_key_ranges: List[Range] = []
         self._server_key_ranges_mu = threading.Lock()
+        # Elastic membership (PS_ELASTIC=1): the scheduler keeps one
+        # versioned RoutingTable, broadcast on every membership change,
+        # and every node applies it here.  None = static routing, the
+        # uniform split below.
+        self.elastic = self.env.find_int("PS_ELASTIC", 0) != 0
+        # Set when the scheduler admitted this node as a live joiner
+        # (ELASTIC_JOIN_OPT on the roster): it skips the startup barrier
+        # as a recovered node does, but its state arrives by range
+        # migration, not by a replica restore.
+        self.elastic_join = False
+        self._routing = None  # Optional[routing.RoutingTable]
+        self._routing_mu = threading.Lock()
+        self._routing_hooks: List[Callable[[object], None]] = []
+        self._routing_hook_mu = threading.Lock()
+        # Scheduler: {(epoch, begin): wall time the epoch shipped} of
+        # every handoff not yet reported landed (MIGRATE_DONE_OPT); the
+        # snapshot coordinator defers a cut while any remain.
+        self._migrations_pending: Dict[tuple, float] = {}
+        self._migration_settle_s = self.env.find_float(
+            "PS_MIGRATION_SETTLE_S", 120.0)
+        # Live server group ranks (None = the static 0..num_servers-1);
+        # rank holes are legal after an out-of-order decommission.
+        self._active_server_ranks: Optional[List[int]] = None
+        # Completed by the scheduler's REMOVE_NODE ack.
+        self._removed_event = threading.Event()
         self._node_ids: Dict[int, List[int]] = {}
         self._build_node_id_table()
         # The snapshot plane: the scheduler's token-gated gather and the
@@ -112,7 +138,9 @@ class Postoffice:
         self.model_namespace: Optional[dict] = None
         self.tracer = Tracer()
         self.flight = FlightRecorder()
-        self.van = vans.create(self.env.find("PS_VAN_TYPE") or "ici", self)
+        van_type = (self.env.find("PS_VAN_TYPE")
+                    or self.env.find("DMLC_ENABLE_RDMA") or "tcp")
+        self.van = vans.create(van_type, self)
 
     # -- role & rank ---------------------------------------------------------
 
@@ -138,6 +166,24 @@ class Postoffice:
     @property
     def num_server_instances(self) -> int:
         return self.num_servers * self.group_size
+
+    @property
+    def active_server_ranks(self) -> Optional[List[int]]:
+        """Live server group ranks under elastic membership (None =
+        the static ``0..num_servers-1``)."""
+        return self._active_server_ranks
+
+    @property
+    def num_active_servers(self) -> int:
+        """The count of live server groups: differs from
+        ``num_servers`` only under elastic membership with rank holes."""
+        if self._active_server_ranks is not None:
+            return len(self._active_server_ranks)
+        return self.num_servers
+
+    @property
+    def num_active_server_instances(self) -> int:
+        return self.num_active_servers * self.group_size
 
     @property
     def preferred_rank(self) -> int:
@@ -180,11 +226,18 @@ class Postoffice:
 
     def _build_node_id_table(self) -> None:
         """Group bitmask -> member instance ids (reference:
-        postoffice.cc:115-137)."""
+        postoffice.cc:115-137).  Under elastic membership the server ids
+        follow the routing table's active ranks: barriers, broadcasts
+        and the failure detector's expectations read this table."""
         worker_ids = [worker_rank_to_id(i)
                       for i in range(self.num_worker_instances)]
-        server_ids = [server_rank_to_id(i)
-                      for i in range(self.num_server_instances)]
+        if self._active_server_ranks is not None:
+            server_ids = [server_rank_to_id(r * self.group_size + i)
+                          for r in self._active_server_ranks
+                          for i in range(self.group_size)]
+        else:
+            server_ids = [server_rank_to_id(i)
+                          for i in range(self.num_server_instances)]
         for group in range(1, 8):
             sched, srv, wrk = group_members(group)
             self._node_ids[group] = (([SCHEDULER_ID] if sched else [])
@@ -259,8 +312,13 @@ class Postoffice:
     # -- key ranges ----------------------------------------------------------
 
     def get_server_key_ranges(self) -> List[Range]:
-        """The uniform split of the key space over server groups
+        """The key-range partition over server groups: the routing
+        table's entries under elastic membership (one range per entry;
+        entries outnumber servers after a merge), else the uniform split
         (reference: postoffice.cc:257-268)."""
+        rt = self.current_routing()
+        if rt is not None:
+            return [Range(e.begin, e.end) for e in rt.entries]
         with self._server_key_ranges_mu:
             if not self._server_key_ranges:
                 log.check(self.num_servers > 0, "no servers configured")
@@ -272,16 +330,132 @@ class Postoffice:
             return self._server_key_ranges
 
     def server_key_ranges_of(self, rank: int) -> List[Range]:
-        """Every key range a server group rank owns: one under static
-        routing (routing epochs are ROADMAP Queue 1 item 8(b2))."""
+        """Every key range a server group rank currently owns: one under
+        static routing, possibly several under elastic."""
+        rt = self.current_routing()
+        if rt is not None:
+            return rt.ranges_of(rank)
         ranges = self.get_server_key_ranges()
         return [ranges[rank]] if 0 <= rank < len(ranges) else []
 
-    @property
-    def active_server_ranks(self) -> Optional[List[int]]:
-        """Live server group ranks under elastic membership; None, the
-        static ``0..num_servers-1``, as elastic membership raises."""
-        return None
+    # -- elastic routing -----------------------------------------------------
+
+    def current_routing(self):
+        """The routing table this node holds (None = static)."""
+        with self._routing_mu:
+            return self._routing
+
+    def routing_table(self):
+        """As :meth:`current_routing`, but the elastic scheduler builds
+        the epoch-0 table (equal to the static split) at first use, so
+        a membership change always has a base to derive from."""
+        with self._routing_mu:
+            if self._routing is None and self.elastic and self.is_scheduler:
+                self._routing = RoutingTable.initial(self.num_servers)
+            return self._routing
+
+    def apply_routing(self, table) -> bool:
+        """Adopt a strictly newer routing table: update the membership
+        state (server count, active ranks, node-id tables) and run the
+        routing hooks.  False for a stale epoch: reordered broadcasts
+        never roll routing back."""
+        with self._routing_mu:
+            cur = self._routing
+            if cur is not None and table.epoch <= cur.epoch:
+                return False
+            self._routing = table
+            if self.is_scheduler:
+                # A new epoch derives from a settled base: the pending
+                # handoffs of older epochs are superseded wholesale.
+                now = time.time()
+                self._migrations_pending = {
+                    (table.epoch, e.begin): now for e in table.migrations()}
+        if (table.num_servers != self.num_servers
+                or self._active_server_ranks != list(table.active)):
+            self.num_servers = table.num_servers
+            self._active_server_ranks = list(table.active)
+            self._build_node_id_table()
+        log.vlog(1, f"routing epoch {table.epoch}: active="
+                    f"{list(table.active)} leaving={list(table.leaving)} "
+                    f"entries={len(table.entries)}")
+        self.flight.record("epoch_change", severity="info",
+                           epoch=table.epoch, active=list(table.active),
+                           leaving=list(table.leaving))
+        with self._routing_hook_mu:
+            hooks = list(self._routing_hooks)
+        for hook in hooks:
+            try:
+                hook(table)
+            except Exception as exc:  # noqa: BLE001 - isolate hooks
+                log.warning(f"routing hook failed: {exc!r}")
+        return True
+
+    def register_routing_hook(self, hook: Callable[[object], None]) -> None:
+        """``hook(table)`` runs on every adopted epoch (on the van's
+        pump: keep it fast).  A table already held is replayed at once,
+        so a late app (a joiner's KVServer) sees the current epoch."""
+        with self._routing_hook_mu:
+            self._routing_hooks.append(hook)
+        table = self.current_routing()
+        if table is not None:
+            try:
+                hook(table)
+            except Exception as exc:  # noqa: BLE001
+                log.warning(f"routing hook failed on replay: {exc!r}")
+
+    def unregister_routing_hook(self, hook) -> None:
+        with self._routing_hook_mu:
+            if hook in self._routing_hooks:
+                self._routing_hooks.remove(hook)
+
+    def note_migration_done(self, epoch: int, begin: int) -> None:
+        """Scheduler: a range handoff landed (the new owner's
+        MIGRATE_DONE_OPT note, or its replica-fallback unpark)."""
+        with self._routing_mu:
+            if self._migrations_pending.pop((epoch, begin), None) is None:
+                return
+            left = len(self._migrations_pending)
+        log.vlog(1, f"migration of [{begin}, ...) @epoch {epoch} settled "
+                    f"({left} still in flight)")
+
+    def migrations_in_flight(self) -> List[tuple]:
+        """``(epoch, begin)`` of every handoff shipped but not seen
+        landed.  Entries older than ``PS_MIGRATION_SETTLE_S`` expire
+        with a warning: a lost note must not wedge snapshots (the
+        server's own fence still refuses a cut mid-handoff)."""
+        now = time.time()
+        expired = []
+        with self._routing_mu:
+            for key, t0 in list(self._migrations_pending.items()):
+                if now - t0 > self._migration_settle_s:
+                    del self._migrations_pending[key]
+                    expired.append(key)
+            pending = list(self._migrations_pending)
+        for epoch, begin in expired:
+            log.warning(f"migration of [{begin}, ...) @epoch {epoch} "
+                        f"unreported for {self._migration_settle_s:.0f}s; "
+                        f"assuming settled")
+            self.flight.record("migration_expired", severity="warn",
+                               epoch=epoch, begin=begin)
+        return pending
+
+    def request_decommission(self, timeout_s: float = 60.0) -> None:
+        """Leave the running cluster: ask the scheduler to reassign this
+        server's ranges and wait for the migration and retirement
+        handshake.  Afterwards finalize with ``do_barrier=False``: a
+        retired node counts in no barrier."""
+        log.check(self.is_server, "only servers decommission")
+        log.check(self.elastic, "decommission requires PS_ELASTIC=1")
+        self._removed_event.clear()
+        msg = Message()
+        msg.meta.recver = SCHEDULER_ID
+        msg.meta.request = True
+        msg.meta.body = json.dumps({"rank": self.my_group_rank()}).encode()
+        msg.meta.control = Control(cmd=Command.REMOVE_NODE)
+        msg.meta.timestamp = self.van.next_timestamp()
+        self.van.send(msg)
+        ok = self._removed_event.wait(timeout_s)
+        log.check(ok, f"decommission did not complete in {timeout_s}s")
 
     # -- customers -----------------------------------------------------------
 
@@ -444,24 +618,44 @@ class Postoffice:
         return replies, peers
 
     def snapshot(self, directory: Optional[str] = None,
-                 timeout_s: float = 60.0) -> dict:
+                 timeout_s: float = 60.0,
+                 settle_timeout_s: float = 10.0) -> dict:
         """Coordinate one consistent-cut cluster snapshot: broadcast
         ``Command.SNAPSHOT`` to every live server, gather their
         per-range digests, and commit the cut by writing the cluster
         manifest.  Scheduler only.  Raises when any server errored or
         did not answer: a partial snapshot is never committed (the old
-        manifest, if any, stays the restore point).  JAX defers a cut
-        while range migrations are in flight (``settle_timeout_s``); the
-        port has no migrations (ROADMAP Queue 1 item 8(b2))."""
+        manifest, if any, stays the restore point).  A cut waits while
+        range migrations are in flight (at most ``settle_timeout_s``,
+        then it is vetoed): it would cut a range whose state is split
+        across its old and new owner."""
         log.check(self.is_scheduler, "snapshot runs on the scheduler")
         directory = directory or self.snapshot_dir
         log.check(bool(directory),
                   "snapshot needs a directory (PS_SNAPSHOT_DIR or the "
                   "directory= argument)")
+        settle_by = time.monotonic() + settle_timeout_s
+        deferred = False
+        while True:
+            pending = self.migrations_in_flight()
+            if not pending:
+                break
+            if not deferred:
+                deferred = True
+                self.flight.record("snapshot_deferred", severity="warn",
+                                   pending=[list(p) for p in pending[:4]],
+                                   count=len(pending))
+            if time.monotonic() >= settle_by:
+                log.check(False, f"snapshot vetoed: {len(pending)} range "
+                                 f"migration(s) still in flight after "
+                                 f"{settle_timeout_s:g}s (epochs "
+                                 f"{sorted({e for e, _ in pending})})")
+            time.sleep(0.05)
         from .kv import snapshot as snap_mod
 
         t0 = time.monotonic()
-        epoch = -1  # no routing epochs under static routing
+        rt = self.current_routing()
+        epoch = rt.epoch if rt is not None else -1
         self.flight.record("snapshot_begin", severity="info",
                            dir=directory, epoch=epoch)
         # A per-attempt uid in every segment's name: a vetoed attempt

@@ -8,7 +8,8 @@ a process exiting with 254 is started again (keepalive,
 ``dmlc_local.py:16-25``), which with the scheduler's node recovery
 (``van.cc:266-332``) gives restart-based fault tolerance; the first
 other failure terminates the rest.  ``--no-keepalive`` makes 254 a
-failure like any other.
+failure like any other.  ``PS_CPU_PIN=N`` gives each spawned node its
+own block of N CPUs (``sched_setaffinity`` in the child, Linux only).
 
 Usage::
 
@@ -67,6 +68,13 @@ class LocalLauncher:
         self.root_port = root_port or get_available_port()
         self.root_uri = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
         self._procs: List[tuple] = []  # (role, Popen)
+        # PS_CPU_PIN=N: disjoint blocks of N CPUs per node, so a node's
+        # threads never share cores with another's from run to run.
+        try:
+            self._pin_cpus = int(os.environ.get("PS_CPU_PIN", "0") or 0)
+        except ValueError:
+            self._pin_cpus = 0
+        self._pin_next = 0
 
     def roles(self) -> List[str]:
         if self.joint:
@@ -79,8 +87,30 @@ class LocalLauncher:
                         self.root_uri, self.root_port, self.van,
                         self.group_size)
         env.setdefault("DMLC_NODE_HOST", self.root_uri)
-        proc = subprocess.Popen(self.cmd, env=env)
+        proc = subprocess.Popen(self.cmd, env=env,
+                                preexec_fn=self._next_pin())
         self._procs.append((role, proc))
+
+    def _next_pin(self):
+        """The child's affinity setter for the next CPU block, or None
+        (``PS_CPU_PIN`` unset or no ``sched_setaffinity``).  A block
+        past the last CPU wraps, and then overlaps an earlier node's:
+        that is warned, never silent."""
+        if self._pin_cpus <= 0 or not hasattr(os, "sched_setaffinity"):
+            return None
+        avail = sorted(os.sched_getaffinity(0))
+        if self._pin_next + self._pin_cpus > len(avail):
+            print(f"[tracker] W PS_CPU_PIN={self._pin_cpus}: node "
+                  f"#{self._pin_next // self._pin_cpus} wraps past "
+                  f"{len(avail)} available CPUs — pinned blocks now "
+                  f"OVERLAP earlier nodes", file=sys.stderr, flush=True)
+        cpus = frozenset(avail[(self._pin_next + j) % len(avail)]
+                         for j in range(min(self._pin_cpus, len(avail))))
+        self._pin_next += self._pin_cpus
+
+        def preexec(cpus=cpus):
+            os.sched_setaffinity(0, cpus)
+        return preexec
 
     def run(self) -> int:
         """Spawn every role and supervise: a process exiting 254 is

@@ -11,6 +11,9 @@ Counterpart of ``pslite_tpu/utils/queues.py``:
   queued.
 - ``LaneQueue``: one per-peer send lane, the same order, with the
   drain/stop handshake of the van's lane scheduler.
+- ``FifoRecvQueue`` and ``recv_queue``: a node's receive intake is a
+  ``PriorityRecvQueue`` unless its ``PS_RECV_PRIORITY=0``, which
+  restores the strict FIFO (JAX's ``ThreadsafeQueue`` intake).
 
 Both priority queues sit on per-tenant heaps (``_TenantHeaps``): with
 ``PS_TENANTS`` weights, bulk items (``priority <= 0``) dequeue in
@@ -183,6 +186,25 @@ class ThreadsafeQueue(Generic[T]):
             return len(self._q)
 
 
+class FifoRecvQueue(ThreadsafeQueue[T]):
+    """Strict FIFO intake with ``PriorityRecvQueue``'s ``push``
+    signature: the level, tenant, cost and fence of an item are
+    ignored (``PS_RECV_PRIORITY=0``)."""
+
+    def push(self, item: T, priority: Optional[int] = None,
+             fence: bool = False, tenant: Optional[int] = None,
+             cost: Optional[int] = None) -> None:
+        super().push(item)
+
+
+def recv_queue(env, priority_fn: Callable, tenant_fn=None, cost_fn=None,
+               weights: Optional[Dict[int, float]] = None):
+    """A receive intake: priority first (FIFO within a level, weighted
+    fair across tenants) unless ``PS_RECV_PRIORITY=0`` in ``env``."""
+    if env is not None and not env.find_int("PS_RECV_PRIORITY", 1):
+        return FifoRecvQueue()
+    return PriorityRecvQueue(priority_fn, tenant_fn=tenant_fn,
+                             cost_fn=cost_fn, weights=weights)
 
 
 class PriorityRecvQueue(Generic[T]):

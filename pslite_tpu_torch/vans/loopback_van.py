@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 from .. import wire
 from ..message import Message, Node
 from ..utils import logging as log
-from ..utils.queues import PriorityRecvQueue
+from ..utils.queues import recv_queue
 from .chunking import RECV_DRAIN_LAST, recv_cost, recv_priority, recv_tenant
 from .van import Van
 
@@ -41,9 +41,10 @@ class LoopbackVan(Van):
         super().__init__(postoffice)
         self._ns = self.env.find("PS_LOOPBACK_NS", "default")
         # The queue holds packed blobs, so the sender (which still has
-        # the Message) computes the receive level and pushes it along.
-        self._queue = PriorityRecvQueue(lambda _b: 0,
-                                        weights=self._tenant_weights)
+        # the Message) computes the receive level and pushes it along
+        # (ignored by the FIFO of PS_RECV_PRIORITY=0).
+        self._queue = recv_queue(self.env, lambda _b: 0,
+                                 weights=self._tenant_weights)
         self._peers: Dict[int, Tuple[str, int]] = {}
         self._bound_key: Optional[Tuple[str, str, int]] = None
 

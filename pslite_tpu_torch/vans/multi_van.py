@@ -22,7 +22,7 @@ from typing import List, Optional
 
 from ..message import Message, Node
 from ..utils import logging as log
-from ..utils.queues import PriorityRecvQueue
+from ..utils.queues import recv_queue
 from .chunking import recv_cost, recv_priority, recv_tenant
 from .van import Van
 
@@ -57,9 +57,9 @@ class MultiVan(Van):
                 # stripe of a transfer: the shared Python assembler
                 # rebuilds it.
                 rail._native.set_reassembly(False)
-        self._queue = PriorityRecvQueue(
-            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
-            weights=self._tenant_weights)
+        self._queue = recv_queue(
+            self.env, recv_priority, tenant_fn=recv_tenant,
+            cost_fn=recv_cost, weights=self._tenant_weights)
         self._pumps: List[threading.Thread] = []
         self._rr = itertools.count()
 

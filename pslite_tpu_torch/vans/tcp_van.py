@@ -69,7 +69,7 @@ from ..message import (
 )
 from ..sarray import SArray
 from ..utils import logging as log
-from ..utils.queues import PriorityRecvQueue
+from ..utils.queues import recv_queue
 from . import native
 from .chunking import (
     NATIVE_XFER_COMPLETE,
@@ -236,9 +236,17 @@ class TcpVan(Van):
         self._nat_peers: set = set()
         self._nat_wake = threading.Event()
         self._nat_reaper: Optional[threading.Thread] = None
-        self._queue = PriorityRecvQueue(
-            recv_priority, tenant_fn=recv_tenant, cost_fn=recv_cost,
-            weights=self._tenant_weights)
+        # Receive intake: priority first, or the strict FIFO of
+        # PS_RECV_PRIORITY=0 (the native core reads the same knob).
+        # JAX's busy-poll intake is not ported: it is refused by name.
+        for knob in ("DMLC_LOCKLESS_QUEUE", "DMLC_POLLING_IN_NANOSECOND"):
+            if self.env.find_int(knob, 0):
+                raise NotImplementedError(
+                    f"{knob} (the busy-poll receive intake) is not "
+                    f"ported to pslite_tpu_torch; unset it")
+        self._queue = recv_queue(
+            self.env, recv_priority, tenant_fn=recv_tenant,
+            cost_fn=recv_cost, weights=self._tenant_weights)
         self._listener: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
         self._readers: List[Tuple[threading.Thread, socket.socket]] = []
@@ -259,7 +267,11 @@ class TcpVan(Van):
             self._native.set_sockbuf(self._sndbuf, self._rcvbuf)
         # (sender, key) -> registered push buffer (zmq_van.h:206-263).
         self._push_recv_bufs: Dict[tuple, np.ndarray] = {}
-        self._recv_pool = _RecvPool()
+        # Pooled receive blocks for data segments (PS_RECV_POOL=0: a
+        # fresh buffer per segment), PS_RECV_POOL_MB of them at most.
+        self._recv_pool: Optional[_RecvPool] = (
+            _RecvPool(self.env.find_int("PS_RECV_POOL_MB", 128))
+            if self.env.find_int("PS_RECV_POOL", 1) else None)
 
     # -- transport interface -------------------------------------------------
 
@@ -799,7 +811,7 @@ class TcpVan(Van):
                 bufs = []
                 for ln in lens:
                     ln = int(ln)
-                    if ln:
+                    if ln and self._recv_pool is not None:
                         block = self._recv_pool.acquire(ln)
                         if not self._recv_pool.recv_exact_into(conn, block,
                                                                ln):

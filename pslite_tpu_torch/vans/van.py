@@ -50,14 +50,24 @@ mark.  Under ``PS_KV_REPLICATION`` >= 2 servers also connect to each
 other (``_connect_server_peers``): chain forwards and replica fetches
 travel server to server.  ``Command.SNAPSHOT`` requests go to the
 Postoffice's snapshot hooks (a KVServer) and replies to the scheduler's
-gather (``_process_snapshot``).  Elastic admission, routing epochs and
-removal are ROADMAP Queue 1 item 8(b2) (``PS_ELASTIC=1`` raises at the
-Postoffice), the metrics and trace pulls item 8(c).  Tenants (``PS_TENANTS``,
-``tenants.py``): each lane dequeues bulk traffic weighted-fair across
-tenants by bytes (``LaneQueue(weights)``), as the receive intake does.
-Data always rides the lanes and messages are delivered in arrival order:
-the JAX van's inline mode (``PS_SEND_LANES=0``) and its sid reordering
-(``PS_FORCE_REQ_ORDER``) are absent.
+gather (``_process_snapshot``).  Elastic membership (``PS_ELASTIC=1``): the scheduler broadcasts routing
+epoch 0 at bootstrap, admits a late server with no preferred rank as a
+joiner (``_elastic_admit``: the smallest free rank, ``ELASTIC_JOIN_OPT``
+on its roster, an epoch that splits the widest range toward it), runs
+the decommission handshake (``_process_remove_node``,
+``_finish_removal``) and answers table pulls and ``MIGRATE_DONE_OPT``
+notes (``_process_routing``); barriers count active servers and are
+re-evaluated on every epoch (``_maybe_release_barrier``), and a
+heartbeat reply carries the epoch, so a node that missed a broadcast
+pulls the table.  The metrics and trace pulls are ROADMAP Queue 1 item
+8(c).  Tenants (``PS_TENANTS``, ``tenants.py``): each lane dequeues bulk
+traffic weighted-fair across tenants by bytes (``LaneQueue(weights)``),
+as the receive intake does.  Data always rides the lanes and messages
+are delivered in arrival order: the JAX van's inline mode
+(``PS_SEND_LANES=0``) and its sid reordering (``PS_FORCE_REQ_ORDER``,
+``BYTEPS_UCX_FORCE_REQ_ORDER``) are refused by name.  A CHECK
+failure on the pump exits the process with 134 unless
+``PS_CHECK_FATAL=0``, which takes only the node dark.
 """
 
 from __future__ import annotations
@@ -65,7 +75,9 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import os
 import random
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
@@ -83,6 +95,9 @@ from ..base import (
     worker_rank_to_id,
 )
 from ..message import (
+    ELASTIC_JOIN_OPT,
+    MIGRATE_DONE_OPT,
+    REMOVE_DONE_OPT,
     Command,
     Control,
     Message,
@@ -91,6 +106,7 @@ from ..message import (
     OPT_ZPULL,
     Role,
 )
+from ..routing import RoutingTable
 from ..telemetry import Profiler
 from ..utils import logging as log
 from ..utils.network import get_ip
@@ -195,6 +211,19 @@ class Van:
         self._timestamp_mu = threading.Lock()
         # Per-peer sequence ids, stamped at dispatch.
         self._send_sids: Dict[int, int] = {}
+        # The JAX van's lane-less dispatch and sid reordering are not
+        # ported: refused by name, never silently ignored.
+        if self.env.find_int("PS_SEND_LANES", 1) == 0:
+            raise NotImplementedError(
+                "PS_SEND_LANES=0 (inline data dispatch) is not ported to "
+                "pslite_tpu_torch: data always rides the send lanes; "
+                "unset it")
+        for knob in ("PS_FORCE_REQ_ORDER", "BYTEPS_UCX_FORCE_REQ_ORDER"):
+            if self.env.find_int(knob, 0):
+                raise NotImplementedError(
+                    f"{knob} (per-sender sid reordering) is not ported "
+                    f"to pslite_tpu_torch: messages are delivered in "
+                    f"arrival order; unset it")
         # The node's tenant table: lanes (and the transports' receive
         # intake) dequeue bulk traffic weighted-fair across its tenants.
         self.tenants = table_for(self.env)
@@ -210,10 +239,15 @@ class Van:
         self._down_peers: Set[int] = set()
         self._down_mu = threading.Lock()
         self._announced_dead: Set[int] = set()  # scheduler: broadcast
-        # Chain replication needs server<->server connections, which the
-        # bootstrap otherwise never makes.
+        # Chain replication and elastic membership (range migrations
+        # travel server to server) need server<->server connections,
+        # which the bootstrap otherwise never makes.
         self._connect_server_peers = (
-            self.env.find_int("PS_KV_REPLICATION", 1) >= 2)
+            self.env.find_int("PS_KV_REPLICATION", 1) >= 2
+            or self.env.find_int("PS_ELASTIC", 0) != 0)
+        # Scheduler: decommissions mid-handshake, group rank -> the
+        # leaver's node id, resolved when its REMOVE_DONE arrives.
+        self._removals_pending: Dict[int, int] = {}
         self._chunk_bytes = max(0, self.env.find_int("PS_CHUNK_BYTES",
                                                      1 << 20))
         self._xfer_seq = itertools.count(1)
@@ -777,18 +811,27 @@ class Van:
                     pass  # consumed by the resender when enabled
                 elif ctrl.cmd == Command.SNAPSHOT:
                     self._process_snapshot(msg)
+                elif ctrl.cmd == Command.ROUTING:
+                    self._process_routing(msg)
+                elif ctrl.cmd == Command.REMOVE_NODE:
+                    self._process_remove_node(msg)
                 else:
                     raise NotImplementedError(
                         f"control {ctrl.cmd.name} not yet ported to "
-                        f"pslite_tpu_torch (ROADMAP Queue 1 item 8)")
+                        f"pslite_tpu_torch (ROADMAP Queue 1 item 8(c))")
             except log.CheckError as exc:
-                # An invariant violation takes this node dark (pump and
-                # heartbeat stop) without killing the interpreter, which
-                # may host many logical nodes (the JAX van's
-                # PS_CHECK_FATAL=0 behaviour).
+                # An invariant violation is fatal, like the reference's
+                # CHECK -> abort: the process exits 134, so the
+                # launcher's keepalive can restart it and local waits do
+                # not hang on a zombie.  PS_CHECK_FATAL=0 takes only this
+                # node dark (pump and heartbeat stop): in-process test
+                # clusters host many logical nodes in one interpreter.
                 log.fatal_log(f"CHECK failed: {exc} (while processing "
                               f"{msg.debug_string()}); node going dark")
                 self._stop_event.set()
+                if self.env.find_bool("PS_CHECK_FATAL", True):
+                    sys.stderr.flush()
+                    os._exit(134)
                 raise
             except Exception as exc:  # noqa: BLE001 - keep the pump alive
                 log.warning(f"error processing {msg.debug_string()}: "
@@ -862,6 +905,13 @@ class Van:
                     f"{self.po.num_worker_instances} workers and "
                     f"{self.po.num_server_instances} servers")
         self.ready.set()
+        if self.po.elastic:
+            # Every server holds a table from the start (epoch 0, the
+            # static split), so an ownership change is always bounced or
+            # parked by a server that knows it: a gaining server that
+            # applied requests tableless would have them overwritten by
+            # the migration import.
+            self.broadcast_routing(self.po.routing_table())
 
     def _assign_ranks(self, nodes: List[Node]) -> None:
         """Assign node ids — reference: van.cc:112-265.  Precedence:
@@ -899,7 +949,8 @@ class Van:
         return [copy.deepcopy(self.scheduler)] + [
             copy.deepcopy(n) for n in self._registrations]
 
-    def _send_roster(self, peer: int, nodes: List[Node], what: str) -> None:
+    def _send_roster(self, peer: int, nodes: List[Node], what: str,
+                     option: int = 0) -> None:
         """An ADD_NODE roster to ``peer`` through ``_dispatch_send``,
         caught: a peer may be dead right now, the scheduler's pump must
         survive it, and ``send()`` would re-raise (and so consume) an
@@ -909,6 +960,7 @@ class Van:
         reply.meta.recver = peer
         reply.meta.sender = self.my_node.id
         reply.meta.timestamp = self.next_timestamp()
+        reply.meta.option = option
         reply.meta.control = Control(cmd=Command.ADD_NODE, node=nodes)
         try:
             self._dispatch_send(reply)
@@ -928,6 +980,16 @@ class Van:
                         self.heartbeat_timeout_s())
                     if is_server_id(d) == (node.role == Role.SERVER)]
             if not dead:
+                if (self.po.elastic and node.role == Role.SERVER
+                        and node.aux_id == EMPTY_ID):
+                    # A new server joining the running cluster, not a
+                    # recovery.  A late registrant that names a
+                    # preferred rank (DMLC_RANK) is a supervised restart
+                    # that beat the detector: admitted as a joiner, it
+                    # would orphan its old rank's ranges; it waits for
+                    # the detector and the recovery path instead.
+                    self._elastic_admit(node, addr)
+                    continue
                 log.warning(f"unexpected late ADD_NODE from "
                             f"{node.short_debug()}")
                 continue
@@ -964,6 +1026,10 @@ class Van:
 
     def _process_roster(self, msg: Message) -> None:
         """Non-scheduler handling of the scheduler's ADD_NODE roster."""
+        if msg.meta.option == ELASTIC_JOIN_OPT:
+            # Admitted as a live elastic joiner: it skips the barrier
+            # (is_recovery below) but runs no replica restore.
+            self.po.elastic_join = True
         my_addr = self.my_node.addr_key()
         for node in msg.meta.control.node:
             if (self.my_node.id == EMPTY_ID and node.addr_key() == my_addr
@@ -1024,6 +1090,193 @@ class Van:
         except Exception as exc:  # noqa: BLE001 - the scheduler times out
             log.warning(f"SNAPSHOT reply failed: {exc!r}")
 
+    # -- elastic membership --------------------------------------------------
+
+    def broadcast_routing(self, table) -> None:
+        """Scheduler: adopt ``table`` and send it to every live worker
+        and server (JSON body on a ROUTING control).  Adopted first, so
+        the broadcast reaches a joiner and skips a departed rank."""
+        self.po.apply_routing(table)
+        body = table.to_json().encode()
+        for peer in self.po.get_node_ids(SERVER_GROUP + WORKER_GROUP):
+            msg = Message()
+            msg.meta.recver = peer
+            msg.meta.sender = self.my_node.id
+            msg.meta.body = body
+            msg.meta.control = Control(cmd=Command.ROUTING)
+            msg.meta.timestamp = self.next_timestamp()
+            try:
+                # On the pump: must not consume a parked lane error or
+                # die on one dead peer.
+                self._dispatch_send(msg)
+            except Exception as exc:  # noqa: BLE001
+                log.warning(f"ROUTING broadcast to {peer} failed: {exc!r}")
+        # Membership may have shrunk: re-evaluate pending barriers.
+        for group, instance in list(self._barrier_senders):
+            self._maybe_release_barrier(group, instance)
+
+    def _pull_routing(self) -> None:
+        """Ask the scheduler for its current table (a stale node)."""
+        pull = Message()
+        pull.meta.recver = SCHEDULER_ID
+        pull.meta.sender = self.my_node.id
+        pull.meta.request = True
+        pull.meta.control = Control(cmd=Command.ROUTING)
+        pull.meta.timestamp = self.next_timestamp()
+        try:
+            self._dispatch_send(pull)
+        except Exception as exc:  # noqa: BLE001 - the next beat retries
+            log.warning(f"routing pull failed: {exc!r}")
+
+    def _process_routing(self, msg: Message) -> None:
+        """ROUTING control: at the scheduler a request is a
+        ``MIGRATE_DONE_OPT`` note or a stale node's table pull; a
+        message with a body is a table to adopt."""
+        if msg.meta.request and self.po.is_scheduler:
+            if msg.meta.option == MIGRATE_DONE_OPT:
+                try:
+                    d = json.loads(msg.meta.body.decode())
+                    self.po.note_migration_done(int(d["epoch"]),
+                                                int(d["begin"]))
+                except Exception as exc:  # noqa: BLE001 - the entry expires
+                    log.warning(f"bad MIGRATE_DONE note: {exc!r}")
+                return
+            table = self.po.routing_table()
+            if table is None:
+                return
+            reply = Message()
+            reply.meta.recver = msg.meta.sender
+            reply.meta.sender = self.my_node.id
+            reply.meta.body = table.to_json().encode()
+            reply.meta.control = Control(cmd=Command.ROUTING)
+            reply.meta.timestamp = self.next_timestamp()
+            try:
+                self._dispatch_send(reply)
+            except Exception as exc:  # noqa: BLE001
+                log.warning(f"ROUTING reply failed: {exc!r}")
+            return
+        if not msg.meta.body:
+            return
+        try:
+            table = RoutingTable.from_json(msg.meta.body)
+        except Exception as exc:  # noqa: BLE001 - a corrupt broadcast
+            log.warning(f"bad ROUTING body: {exc!r}")
+            return
+        self.po.apply_routing(table)
+
+    def _process_remove_node(self, msg: Message) -> None:
+        """The decommission handshake.  At the scheduler a plain request
+        starts a removal (the leaver's ranges reassigned, an epoch
+        broadcast) and a ``REMOVE_DONE_OPT`` request finishes it (the
+        rank retired, a final epoch, the leaver acknowledged).  At the
+        leaver the acknowledgement completes
+        ``Postoffice.request_decommission``."""
+        if not msg.meta.request:
+            self.po._removed_event.set()
+            return
+        if not self.po.is_scheduler:
+            log.warning("REMOVE_NODE request at a non-scheduler; dropped")
+            return
+        try:
+            rank = int(json.loads(msg.meta.body.decode())["rank"])
+        except Exception:  # noqa: BLE001 - fall back to the sender id
+            rank = self.po.id_to_group_rank(msg.meta.sender)
+        table = self.po.routing_table()
+        if table is None:
+            log.warning("REMOVE_NODE without elastic routing; dropped")
+            return
+        if msg.meta.option == REMOVE_DONE_OPT:
+            self._finish_removal(rank)
+            return
+        if rank in self._removals_pending:
+            return  # a duplicate request
+        # Rejected, never aborted: a bad request must not kill the
+        # scheduler's pump (the caller's decommission times out).
+        survivors = [r for r in table.active
+                     if r != rank and r not in table.leaving]
+        if rank not in table.active or not survivors:
+            log.warning(f"decommission of rank {rank} rejected: "
+                        f"active={list(table.active)} "
+                        f"leaving={list(table.leaving)}")
+            return
+        log.warning(f"decommission requested for server rank {rank}")
+        self._removals_pending[rank] = msg.meta.sender
+        try:
+            self.broadcast_routing(table.with_leave(rank))
+        except Exception as exc:  # noqa: BLE001 - reject, don't abort
+            self._removals_pending.pop(rank, None)
+            log.warning(f"decommission of rank {rank} failed: {exc!r}")
+
+    def _finish_removal(self, rank: int) -> None:
+        """The leaver migrated everything: retire it (registrations,
+        heartbeats, node tables through the final epoch) and acknowledge
+        it.  Only a pending removal is acted on: a resent REMOVE_DONE
+        arriving after the retirement would strip a joiner that has
+        taken the rank since."""
+        leaver_id = self._removals_pending.pop(rank, None)
+        if leaver_id is None:
+            log.vlog(1, f"duplicate REMOVE_DONE for rank {rank}; ignored")
+            return
+        table = self.po.routing_table()
+        log.warning(f"retiring decommissioned server rank {rank} "
+                    f"(node {leaver_id})")
+        self._registrations = [n for n in self._registrations
+                               if n.id != leaver_id]
+        self._registered_addrs = {a: i for a, i in
+                                  self._registered_addrs.items()
+                                  if i != leaver_id}
+        with self.po._heartbeat_mu:
+            self.po._heartbeats.pop(leaver_id, None)
+        self._announced_dead.discard(leaver_id)
+        try:
+            self.broadcast_routing(table.with_departed(rank))
+        except Exception as exc:  # noqa: BLE001 - never abort the pump
+            log.warning(f"retirement epoch for rank {rank} failed: "
+                        f"{exc!r}")
+            return  # no ack: the leaver's decommission times out loudly
+        ack = Message()
+        ack.meta.recver = leaver_id
+        ack.meta.sender = self.my_node.id
+        ack.meta.control = Control(cmd=Command.REMOVE_NODE)
+        ack.meta.timestamp = self.next_timestamp()
+        try:
+            self._dispatch_send(ack)
+        except Exception as exc:  # noqa: BLE001
+            log.warning(f"REMOVE_NODE ack to {leaver_id} failed: {exc!r}")
+
+    def _elastic_admit(self, node: Node, addr: str) -> None:
+        """Admit a new server into the running cluster: the smallest
+        free rank, the roster broadcast as for a recovery (peers reset
+        their sequence state and connect), then a new epoch splitting
+        the widest range toward the joiner, marked for migration from
+        its donor."""
+        log.check(self.po.group_size == 1,
+                  "elastic membership requires DMLC_GROUP_SIZE=1")
+        table = self.po.routing_table()
+        taken = set(table.active) | set(self._removals_pending)
+        rank = next(r for r in itertools.count() if r not in taken)
+        node.id = server_rank_to_id(rank)
+        node.is_recovery = True  # skips the barrier; peers reset sids
+        log.warning(f"elastic join: admitting {node.short_debug()} as "
+                    f"server rank {rank}")
+        self._reset_peer_sids(node.id)
+        self.clear_peer_down(node.id)
+        self.connect(node)
+        self._registered_addrs[addr] = node.id
+        self.po.update_heartbeat(node.id, time.time())
+        self._registrations = [n for n in self._registrations
+                               if n.id != node.id] + [node]
+        roster = self._roster()
+        for peer in self._registrations:
+            joiner = peer.id == node.id
+            self._send_roster(
+                peer.id, roster if joiner else [copy.deepcopy(node)],
+                "join broadcast",
+                option=ELASTIC_JOIN_OPT if joiner else 0)
+        # No load hint: the metrics pulls behind JAX's hot_key_hint are
+        # ROADMAP Queue 1 item 8(c), so the widest range splits.
+        self.broadcast_routing(table.with_join(rank))
+
     # -- barriers ------------------------------------------------------------
 
     def request_barrier(self, group: int, instance: bool,
@@ -1045,11 +1298,13 @@ class Van:
     def _barrier_expected(self, group: int, instance: bool) -> int:
         sched, srv, wrk = group_members(group)
         count = 1 if sched else 0
+        # Active servers: under elastic membership a departed rank is
+        # not waited for and a joiner is.
         if instance:
-            count += self.po.num_server_instances if srv else 0
+            count += self.po.num_active_server_instances if srv else 0
             count += self.po.num_worker_instances if wrk else 0
         else:
-            count += self.po.num_servers if srv else 0
+            count += self.po.num_active_servers if srv else 0
             count += self.po.num_workers if wrk else 0
         return count
 
@@ -1073,6 +1328,21 @@ class Van:
             senders.discard(msg.meta.sender)
             return
         senders.add(msg.meta.sender)
+        self._maybe_release_barrier(group, instance, msg.meta.app_id,
+                                    msg.meta.customer_id)
+
+    def _maybe_release_barrier(self, group: int, instance: bool,
+                               app_id: int = 0,
+                               customer_id: int = 0) -> None:
+        """Release a pending barrier once its senders meet the current
+        expected count.  Run on every barrier request and on every
+        membership change: a barrier whose last arrival preceded a
+        retirement epoch would otherwise wait forever for a node that no
+        longer exists."""
+        key = (group, instance)
+        senders = self._barrier_senders.get(key) or set()
+        if not senders:
+            return
         # Instance barriers count instances; group barriers count
         # distinct group members, keyed by role parity too (server id 8
         # and worker id 9 are both group rank 0 — reference:
@@ -1085,13 +1355,13 @@ class Van:
         if progress < expected:
             return
         self._barrier_senders[key] = set()
+        cmd = Command.INSTANCE_BARRIER if instance else Command.BARRIER
         for member in sorted(senders):
             reply = Message()
             reply.meta.recver = member
-            reply.meta.app_id = msg.meta.app_id
-            reply.meta.customer_id = msg.meta.customer_id
-            reply.meta.control = Control(cmd=msg.meta.control.cmd,
-                                         barrier_group=group)
+            reply.meta.app_id = app_id
+            reply.meta.customer_id = customer_id
+            reply.meta.control = Control(cmd=cmd, barrier_group=group)
             reply.meta.timestamp = self.next_timestamp()
             self.send(reply)
 
@@ -1116,6 +1386,13 @@ class Van:
         sender = msg.meta.sender
         self.po.update_heartbeat(sender, time.time())
         if not (msg.meta.request and self.po.is_scheduler):
+            if not msg.meta.request and self.po.elastic:
+                # The scheduler's reply carries its routing epoch: a
+                # node whose ROUTING broadcast was lost learns it is
+                # stale here and pulls the table.
+                rt = self.po.current_routing()
+                if msg.meta.option > (rt.epoch if rt is not None else -1):
+                    self._pull_routing()
             return
         if sender in self._announced_dead:
             # Declared dead but beating (slow, not crashed): rehabilitate
@@ -1130,4 +1407,8 @@ class Van:
         reply.meta.recver = sender
         reply.meta.control = Control(cmd=Command.HEARTBEAT)
         reply.meta.timestamp = self.next_timestamp()
+        if self.po.elastic:
+            rt = self.po.routing_table()
+            if rt is not None:
+                reply.meta.option = rt.epoch
         self.send(reply)

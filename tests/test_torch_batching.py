@@ -607,41 +607,57 @@ def test_negotiation_off_sends_no_probe():
     assert ops(got, twire) == ops(want, jwire) == list(range(6))
 
 
-# -- what stays refused -------------------------------------------------------
+# -- elastic membership -------------------------------------------------------
 
 
 def test_refused_pieces_name_item_8(monkeypatch):
-    """Batching under elastic membership, and the re-slice of a slice
-    bounced ``OPT_WRONG_OWNER``, raise naming ROADMAP item 8(b2).
-    (Batching under replication runs: ``tests/test_torch_replication.py``
-    holds it.)"""
-    import types
+    """What raised naming ROADMAP item 8(b2) now runs: under elastic
+    membership a worker declines batching (no combiner, a warning), a
+    server builds with the response combiner's knob set, and a slice
+    bounced ``OPT_WRONG_OWNER`` is re-sliced to its new owner and its
+    wait completes.  (Batching under replication runs:
+    ``tests/test_torch_replication.py`` holds it.)"""
+    from test_torch_elastic_membership import (ELASTIC_ENV, Elastic,
+                                               _doctor_rank1_to_rank0)
+    import pslite_tpu_torch.routing as troute
 
-    from pslite_tpu_torch.environment import Environment
-    from pslite_tpu_torch.message import Message, OPT_WRONG_OWNER
-    from test_torch_msg_plane import PortCluster
-
-    po = types.SimpleNamespace(env=Environment({"PS_BATCH_BYTES": "1024",
-                                                "PS_ELASTIC": "1"}))
-    for cls in (tkv.KVWorker, tkv.KVServer):
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item 8\(b2\)"):
-            cls(0, postoffice=po)
-    cluster = PortCluster()
-    cluster.start()
+    env = dict(ELASTIC_ENV, PS_BATCH_BYTES="1024")
+    el = Elastic(PORT, num_workers=1, num_servers=2, env_extra=env)
     try:
-        w = tkv.KVWorker(0, 0, postoffice=cluster.workers[0])
-        ts = w._customer.new_request(SERVER_GROUP)
-        bounce = Message()
-        bm = bounce.meta
-        bm.app_id, bm.customer_id, bm.timestamp = 0, 0, ts
-        bm.sender = cluster.servers[0].van.my_node.id
-        bm.recver = cluster.workers[0].van.my_node.id
-        bm.pull, bm.option = True, OPT_WRONG_OWNER
-        cluster.workers[0].van._process_data_msg(bounce)
-        with pytest.raises(NotImplementedError,
-                           match=r"OPT_WRONG_OWNER.*Queue 1 item 8\(b2\)"):
-            w.wait(ts)
-        w.stop()
+        w = el.workers[0]
+        assert w.combiner is None and w._batch_bytes == 0
+        assert all(s._resp_combiner is not None for s in el.servers)
+        key = np.array([2**63 + 5], dtype=np.uint64)  # rank 1's range
+        vals = np.full(4, 3.0, np.float32)
+        w.wait(w.push(key, vals))
+        _doctor_rank1_to_rank0(el, troute)
+        w.wait(w.push(key, vals))  # bounced at rank 1, re-sliced to 0
+        assert w.stats["wrong_owner_bounces"] >= 1
+        out = np.zeros(4, np.float32)
+        w.wait(w.pull(key, out))
+        np.testing.assert_array_equal(out, vals * 2)
     finally:
-        cluster.finalize()
+        el.close()
+
+
+def test_elastic_declines_batching_and_zpull_raises():
+    """JAX's ``test_elastic_declines_batching_and_zpull_raises`` in both
+    packages: ``PS_ELASTIC=1`` declines the combiner and
+    ``alloc_pull_buffer`` raises ``ElasticZeroCopyError``."""
+    env = {"PS_ELASTIC": "1", "PS_BATCH_BYTES": "65536",
+           "PS_HEARTBEAT_INTERVAL": "0"}
+
+    def scenario(api, cluster):
+        mod = jkv if api is JAX else tkv
+        servers = _servers(api, cluster, api.DefaultHandle)
+        w = api.KVWorker(0, 0, postoffice=cluster.workers[0])
+        try:
+            with pytest.raises(mod.ElasticZeroCopyError):
+                w.alloc_pull_buffer(np.array([1, 2], np.uint64), 8)
+            return w.combiner is None
+        finally:
+            _stop(w, servers)
+
+    want, got = run_both(scenario, num_workers=1, num_servers=1,
+                         env_extra=env)
+    assert got is True and want is True

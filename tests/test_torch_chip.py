@@ -141,12 +141,13 @@ def test_cuda_engine_matches_cpu_engine(dev, handle):
 
 
 def test_readme_snippet_on_the_card(dev, monkeypatch):
-    """README's snippet: start_ps() with DMLC_ROLE=worker takes
-    default_group() (one rank per visible card) and a broadcast bucket."""
+    """README's snippet: start_ps() with DMLC_ROLE=worker and
+    PS_VAN_TYPE=ici takes default_group() (one rank per visible card)
+    and a broadcast bucket."""
     import pslite_tpu_torch as ps
 
     monkeypatch.setenv("DMLC_ROLE", "worker")
-    monkeypatch.delenv("PS_VAN_TYPE", raising=False)
+    monkeypatch.setenv("PS_VAN_TYPE", "ici")
     ps.start_ps()
     try:
         worker = ps.KVWorker(0, 0)

@@ -313,7 +313,8 @@ def test_kvworker_compressed_matches_jax_engine(monkeypatch):
     jeng = JaxEngine(mesh=Mesh(np.array(jax.devices()[:n]), ("kv",)),
                      impl="pallas")
     assert jeng.wire_compress == "int8"
-    po = Postoffice("worker", env=Environment({"PS_ICI_IMPL": "pallas"}))
+    po = Postoffice("worker", env=Environment({"PS_ICI_IMPL": "pallas",
+                                             "PS_VAN_TYPE": "ici"}))
     po.van.set_mesh(DeviceGroup(n, device="cpu"))
     po.start()
     worker = KVWorker(0, 0, postoffice=po)

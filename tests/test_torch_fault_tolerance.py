@@ -6,8 +6,8 @@ scheduler's failure detector, recovery of a dead id (a replacement takes
 it back, its preferred rank winning among several), request deadlines
 (``PS_REQUEST_TIMEOUT``/``PS_REQUEST_RETRIES``) surfacing TimeoutError
 through ``wait``, the resender's give-up failing the owning request,
-rehabilitation of a node falsely declared dead, and what stays refused
-(ROADMAP Queue 1 item 8(b2)).  A retried int8 push resends the bytes it
+rehabilitation of a node falsely declared dead, and the elastic
+Postoffice that item 8(b2) ported (its deadline default).  A retried int8 push resends the bytes it
 sent first, so the server applies the codes once and its store is
 bit-equal to a decode of them (tolerance: none).
 
@@ -424,12 +424,25 @@ def test_false_positive_rehabilitation_reaches_peers():
 
 
 def test_what_stays_refused_names_item_8b():
-    """Elastic membership raises naming 8(b2).  Deadlines under
-    replication build a worker whose retries fail over down the replica
-    chain (``tests/test_torch_replication.py`` drives them)."""
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 8\(b2\)"):
-        tps.Postoffice("worker", env=Environment({"PS_ELASTIC": "1"}))
+    """Elastic membership, refused until item 8(b2) was ported, builds:
+    a ``PS_ELASTIC=1`` Postoffice holds no table before its cluster
+    starts (static ranks), and a worker of an elastic cluster gets JAX's
+    default deadline of 10 s.  Deadlines under replication build a
+    worker whose retries fail over down the replica chain
+    (``tests/test_torch_replication.py`` drives them)."""
+    po = tps.Postoffice("worker", env=Environment({"PS_ELASTIC": "1",
+                                                   "PS_VAN_TYPE": "ici"}))
+    assert po.elastic and not po.elastic_join
+    assert po.current_routing() is None and po.active_server_ranks is None
+    elastic = PortCluster(env_extra={"PS_ELASTIC": "1"})
+    elastic.start()
+    try:
+        w = tps.KVWorker(0, 0, postoffice=elastic.workers[0])
+        assert w._req_timeout == 10.0
+        assert elastic.workers[0].current_routing().epoch == 0
+        w.stop()
+    finally:
+        elastic.finalize()
     cluster = PortCluster(env_extra={"PS_REQUEST_TIMEOUT": "1",
                                      "PS_KV_REPLICATION": "2"})
     cluster.start()

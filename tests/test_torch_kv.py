@@ -32,7 +32,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _port_worker(handle="sum", impl="xla"):
     po = Postoffice("worker", env=Environment({
-        "PS_ICI_SERVER_HANDLE": handle, "PS_ICI_IMPL": impl}))
+        "PS_ICI_SERVER_HANDLE": handle, "PS_ICI_IMPL": impl,
+        "PS_VAN_TYPE": "ici"}))
     po.van.set_mesh(DeviceGroup(8, device="cpu"))
     po.start()
     return po, KVWorker(0, 0, postoffice=po)
@@ -175,7 +176,8 @@ def test_cuda_less_default_device_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tps.start_ps(env=Environment({"DMLC_ROLE": "worker"}))
+        tps.start_ps(env=Environment({"DMLC_ROLE": "worker",
+                                          "PS_VAN_TYPE": "ici"}))
     with pytest.raises(KeyError):
         tps.postoffice()
     tps.finalize()
@@ -186,11 +188,11 @@ def test_start_ps_with_a_started_worker(monkeypatch):
     monkeypatch.setattr(
         "pslite_tpu_torch.vans.ici_van.IciVan.start",
         lambda self, customer_id=0: None)
-    tps.start_ps(role="worker", env=Environment({}))
+    tps.start_ps(role="worker", env=Environment({"PS_VAN_TYPE": "ici"}))
     try:
         po = tps.postoffice()
         assert po.is_worker and tps.postoffice("WORKER") is po
-        tps.start_ps(role="worker", env=Environment({}))
+        tps.start_ps(role="worker", env=Environment({"PS_VAN_TYPE": "ici"}))
         assert tps.postoffice() is po
     finally:
         tps.finalize()

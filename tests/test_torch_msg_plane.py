@@ -134,6 +134,16 @@ class PortCluster:
     def all_nodes(self):
         return [self.scheduler] + self.servers + self.workers
 
+    def join_server(self, env_extra=None):
+        """Boot one more server against the running cluster (an elastic
+        join): the base env, started at once with no barrier (the
+        scheduler admits it through its late ADD_NODE path)."""
+        env = dict(self.base_env, **(env_extra or {}))
+        po = tps.Postoffice("server", env=Environment(env))
+        po.start(0)
+        self.servers.append(po)
+        return po
+
     def start(self):
         run_all([po.start for po in self.all_nodes()], "cluster start")
 

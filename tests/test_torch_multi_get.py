@@ -406,3 +406,52 @@ def test_submit_many_flushes_whole_fanout_at_once():
     got = _submit_many_run(tmsg, tsarray, tbatch)
     assert got == want
     assert got[0] and [r for r, _ in got[1]] == [8, 10]
+
+
+def test_multi_get_wrong_owner_reslices_only_bounced_subs():
+    """JAX's test in both packages: a stale worker's multi-get spans
+    both servers while a doctored newer epoch hands rank 1's ranges to
+    rank 0.  Only the bounced sub-gets re-route (rank 0 answers its own
+    directly): rank 0 sees exactly one pull per sub-get, every wait
+    completes and every value is exact, bit-equal across packages."""
+    from test_torch_elastic_membership import (ELASTIC_ENV,
+                                               _doctor_rank1_to_rank0,
+                                               _routing_module,
+                                               _spread_keys,
+                                               run_both_elastic)
+
+    nk, vl = 8, 4
+    keys = _spread_keys(nk) + np.uint64(7)
+    vals = np.arange(nk * vl, dtype=np.float32)
+
+    def scenario(el):
+        w = el.workers[0]
+        w.wait(w.push(keys, vals))
+        _doctored, r0, r1 = _doctor_rank1_to_rank0(
+            el, _routing_module(el.api))
+        pulls = []
+        inner = r0._process_request
+
+        def count(msg):
+            if msg.meta.request and msg.meta.pull and msg.meta.head == 0:
+                pulls.append(msg.meta.timestamp)
+            return inner(msg)
+
+        r0._process_request = count
+        bounced0 = el.bounces(w)
+        handle = w.multi_get([keys[i:i + 1] for i in range(nk)],
+                             val_len=vl)
+        handle.wait()
+        return {"errors": dict(handle.errors), "outs": list(handle.outs),
+                "bounced": el.bounces(w) - bounced0 >= 1,
+                "server_bounced": el.server_bounces(r1) >= 1,
+                "r0_pulls": len(pulls)}
+
+    want, got = run_both_elastic(scenario, num_workers=1, num_servers=2,
+                                 env_extra=dict(ELASTIC_ENV))
+    assert_same(got, want)
+    assert got["errors"] == {} and got["bounced"] and got["server_bounced"]
+    assert got["r0_pulls"] == nk
+    for i in range(nk):
+        np.testing.assert_array_equal(got["outs"][i],
+                                      vals[i * vl:(i + 1) * vl])

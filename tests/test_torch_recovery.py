@@ -15,9 +15,10 @@ tombstone of the old life would swallow the new life's push.
   2 rails.
 - Mixed: JAX workers recovering into a port scheduler and server, and
   port workers into a JAX scheduler and server, with
-  ``PS_FORCE_REQ_ORDER=1`` so a JAX node that receives from a recovered
-  peer's survivors insists on sids from 0 (the port's native lane
-  resets its sid: ``send_reset_sid``).  The server's store is bit-equal
+  ``PS_FORCE_REQ_ORDER=1`` on the JAX nodes (the port refuses the knob)
+  so a JAX node that receives from a recovered peer's survivors insists
+  on sids from 0 (the port's native lane resets its sid:
+  ``send_reset_sid``).  The server's store is bit-equal
   to the all-JAX run's (tolerance: none; the pushes are small integers,
   so every order of addition gives the same bits).
 

@@ -466,7 +466,8 @@ def test_resnet_trace_replay_paths_run():
 
 @pytest.fixture()
 def worker():
-    po = Postoffice("worker", env=Environment({"PS_ICI_IMPL": "xla"}))
+    po = Postoffice("worker", env=Environment({"PS_ICI_IMPL": "xla",
+                                             "PS_VAN_TYPE": "ici"}))
     po.van.set_mesh(DeviceGroup(W, device="cpu"))
     po.start()
     w = KVWorker(0, 0, postoffice=po)

@@ -7,9 +7,10 @@ worker reaches every chain member): the spread with bit-exact answers,
 read-your-writes under a racing push storm, a stale replica answer
 pulled again from the primary, a replica crashing mid read storm, a
 model namespace flipped in and rolled back under a pull storm, and a
-hot-cache fill from a replica filed under the primary's identity.
-JAX's ``test_elastic_join_backfills_replicated_ranges`` waits for
-elastic membership (ROADMAP Queue 1 item 8(b2)).
+hot-cache fill from a replica filed under the primary's identity, and
+JAX's ``test_elastic_join_backfills_replicated_ranges``: a server that
+joins an elastic cluster backfills the ranges whose chains it enters,
+bit-equal in both packages.
 
 Beyond JAX's cases: the same read schedule through JAX's and the port's
 clusters answers bit-equal (``run_both``); clusters that mix the
@@ -446,3 +447,53 @@ def test_mixed_replica_reads_bit_equal_to_jax(tmp_path, alljax_reads, pkgs):
     every answer bit-equal to the all-JAX run's."""
     got = _run_child(tmp_path, pkgs, 3, "reads", **READ_ENV)
     assert_results_equal(got, alljax_reads)
+
+
+def test_elastic_join_backfills_replicated_ranges():
+    """JAX's test in both packages: a server joining an elastic cluster
+    at ``PS_KV_REPLICATION=2`` owes replica state for the ranges whose
+    chains it enters; the chain recomputation backfills them from their
+    primaries, so the joiner holds exact copies of keys it does not own.
+    The joiner's replicated copies are bit-equal across the packages."""
+    from test_torch_elastic_membership import run_both_elastic
+
+    from pslite_tpu_torch.kv.replication import chain_ranks
+
+    env = {"PS_ELASTIC": "1", "PS_KV_REPLICATION": "2",
+           "PS_REPLICA_READS": "1", "PS_REQUEST_TIMEOUT": "2.0",
+           "PS_REQUEST_RETRIES": "8"}
+    span = (1 << 64) // 8
+    keys = np.arange(8, dtype=np.uint64) * np.uint64(span) + np.uint64(3)
+    vals = np.arange(8 * DIM, dtype=np.float32) + 1.0
+
+    def scenario(el):
+        w = el.workers[0]
+        w.wait(w.push(keys, vals))
+        time.sleep(0.3)
+        po, joiner = el.join()
+        deadline = time.monotonic() + 20
+        got = {}
+        while time.monotonic() < deadline and not got:
+            rt = po.current_routing()
+            if rt is not None:
+                my = po.my_group_rank()
+                for e in rt.entries:
+                    if e.owner == my or my not in chain_ranks(
+                            e.owner, 2, po.num_servers,
+                            active=sorted(rt.active)):
+                        continue
+                    got = {int(k): joiner._handle.store[int(k)].copy()
+                           for k in keys if e.begin <= int(k) < e.end
+                           and int(k) in joiner._handle.store}
+                    if got:
+                        break
+            time.sleep(0.1)
+        assert got, "joiner never backfilled a replicated range"
+        return got
+
+    want, got = run_both_elastic(scenario, num_workers=1, num_servers=2,
+                                 env_extra=env)
+    assert_same(got, want)
+    for k, v in got.items():
+        i = int(np.searchsorted(keys, k))
+        np.testing.assert_array_equal(v, vals[i * DIM:(i + 1) * DIM])

@@ -243,7 +243,7 @@ def test_sparse_table_via_worker():
     finally:
         c.finalize()
 
-    po = Postoffice("worker", env=Environment({}))
+    po = Postoffice("worker", env=Environment({"PS_VAN_TYPE": "ici"}))
     po.van.set_mesh(DeviceGroup(W, device="cpu"))
     po.start()
     worker = KVWorker(0, 0, postoffice=po)

@@ -16,6 +16,7 @@ bits.
 - ``PSTEST_PKG`` (``port`` or ``jax``), or ``PSTEST_PKG_<ROLE>`` for one
   role: the package this node runs.
 - ``PSTEST_OUT``: the server writes ``server.npz`` (its store) there.
+- ``PS_FORCE_REQ_ORDER`` reaches only the JAX nodes.
 
 Each node prints ``LIFE <role> rank=<r> id=<id> recovery=<0|1>``,
 ``RECOVERED_OK`` on a recovered life, ``POLL_OK`` when the store was
@@ -58,6 +59,9 @@ def api(role: str):
         from pslite_tpu.message import Role
 
         return ps, Role[role.upper()]
+    # Sid reordering is the JAX nodes' alone: the port delivers in
+    # arrival order and refuses the knob by name.
+    os.environ.pop("PS_FORCE_REQ_ORDER", None)
     import pslite_tpu_torch as ps
 
     return ps, role
