@@ -130,7 +130,8 @@ line):
    JSON line back from each; every van on the native core unless a leg
    says ``PS_NATIVE=0``.  ``tcp-config1``, ``tcp-config2`` and
    ``shm-config3`` run a native and a Python leg, one cluster each, both
-   up, 3 windows of 4 rounds alternating (``plane_legs``):
+   up, 3 windows of 4 rounds alternating (``plane_legs``; 2 windows for
+   ``tcp-config2``'s three planes):
    ``tcp-config1`` (BASELINE config 1, fused
    push_pull of 40 x 1,024,000 B), ``native-goodput`` (JAX's
    ``native_goodput_bench``: 1 + 1 processes, 96 pipelined pushes of 64
@@ -206,6 +207,19 @@ line):
    ``PS_RESEND=1``: 1 worker + 2 servers in this process, 40 x 1 MB
    keys per server pushed and pulled, every pull exact, ms/round
    against a plain tcp leg, rounds alternating; the chaos counters).
+   Last, ``observability`` (``drive_observability``): BASELINE config
+   2 over tcp (native, 80 x 1,024,000 B per worker and round, pulls
+   exact) under ``PS_TELEMETRY=0``, ``=1`` with
+   ``PS_METRICS_INTERVAL=1`` and ``=1`` with ``PS_TRACE_TAIL=slow:p95,
+   errors,floor:0.001``, 3 windows of 4 rounds alternating: ms/round and
+   the ratio to the first leg, the wire families of one
+   ``METRICS_PULL``, and the tail-kept requests' median critical-path
+   stages; the ``ici_tcp`` worker under ``ENABLE_PROFILING=1`` (one
+   ``push_pull`` engine event of 2 x 40.96 MB per K4 launch) with
+   ``device_trace`` naming ``ring_kernel``; JAX's
+   ``autopilot_bench(quick=False)`` (skew first and last window, 0
+   operator actions, seconds to the rebalance, stores exact) and an
+   elastic join cut at the scheduler's load hint.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1968,7 +1982,7 @@ def steady_state_sparse(torch, ps, Environment, emb):
 # -- the message control plane in one process ---------------------------------
 
 MSG_ROUNDS, MSG_WARMUP = 10, 2
-CODEC_ROUNDS = 3  # each codec round also checks 20.48M values per worker
+CODEC_ROUNDS = 2  # each codec round also checks 20.48M values per worker
 MSG_KEYS_PER_SERVER = 40  # test_benchmark.cc:25-30 NUM_KEY_PER_SERVER
 MSG_LOOSE_KEYS = 16  # unregistered 1 MB keys of the mixed ici phase
 MSG_DEADLINE = 300.0
@@ -2950,6 +2964,11 @@ def node_main() -> int:
     if spec.get("phase") == "recovery":
         return node_recovery(spec)
     role = os.environ["DMLC_ROLE"]
+    if spec.get("profile_dir") and role == "worker":
+        # ENABLE_PROFILING's event log, one file per process.
+        os.environ["ENABLE_PROFILING"] = "1"
+        os.environ["PROFILE_PATH"] = os.path.join(
+            spec["profile_dir"], f"{role}-{os.getpid()}.csv")
     ranks = spec.get("ranks", 0)
     if role == "worker" and ranks:
         # The engine on this card's virtual ranks (the main path's n).
@@ -2989,6 +3008,8 @@ def node_main() -> int:
         apps.append(kv)
         if ranks:
             report.update(node_ici(torch, ring, kv, spec))
+            if spec.get("trace_steps"):
+                print("STEPS_DONE", flush=True)  # the card is idle now
         elif spec.get("phase"):
             report.update(TIER_NODES[spec["phase"]](ps, po, kv, spec))
         else:
@@ -3001,6 +3022,9 @@ def node_main() -> int:
     deadline = spec.get("phase") == "deadline"
     if deadline and role != "worker":
         sys.stdin.read()
+    if role == "scheduler" and spec.get("observe") is not None:
+        report.update(observe_cluster(ps.postoffice("scheduler"),
+                                      spec["observe"]))
     if pos:
         pos[0].finalize()
     else:
@@ -3012,6 +3036,14 @@ def node_main() -> int:
     for key in ("delivered_in_place", "streams_opened"):
         if key in report:
             report[key] = report[key]()
+    path = os.environ.get("PROFILE_PATH")
+    if spec.get("profile_dir") and path:
+        # The van closed the log at finalize.
+        with open(path) as f:
+            rows = [ln.split(",") for ln in f.read().split()]
+        report["profile_engine"] = [r[:2] + r[3:] for r in rows
+                                    if r[1].endswith("_engine")]
+        report["profile_events"] = len(rows)
     report["ok"] = True
     print(json.dumps(report), flush=True)
     return 0
@@ -3160,14 +3192,17 @@ def node_ici(torch, ring, kv, spec) -> dict:
     s64 = torch.zeros(P, dtype=torch.float64, device="cuda")
     mag = torch.zeros(P, dtype=torch.float64, device="cuda")
     worst, t_bucket, t_msg = 0.0, [], []
-    for k in range(spec["steps"]):
+    traced = spec.get("trace_steps", 0)
+
+    def step(k: int) -> None:
+        nonlocal worst
         g = torch.randn((n, P), device="cuda", generator=gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         kv.wait(kv.push_pull(bucket, g, outs))
         t_bucket.append(time.perf_counter() - t0)
-        s64 += g.double().sum(0)
-        mag += g.double().abs().sum(0)
+        s64.add_(g.double().sum(0))
+        mag.add_(g.double().abs().sum(0))
         err = (outs.double() - s64).abs()
         worst = max(worst, float(err.max()))
         if not bool((err <= 1e-6 + (k + 1) * (n + 1) * 2.0 ** -24
@@ -3182,10 +3217,42 @@ def node_ici(torch, ring, kv, spec) -> dict:
         want = (k + 1) * lbase.astype(np.float64) + k * (k + 1) / 2
         if not np.array_equal(lout, want):
             raise AssertionError(f"message step {k} pulled wrong values")
+
+    steps = spec["steps"]
+    for k in range(steps - traced):
+        step(k)
+    extra = {}
+    if traced:
+        # The observability phase: torch.profiler (device_trace) around
+        # the last steps; the van's event profiler is on.  A profiler
+        # window now and then comes back without device events: one
+        # more step, traced, then.
+        from pslite_tpu_torch.utils.profiling import device_trace
+
+        k, rings, dt = steps - traced, [], None
+        for attempt in range(3):
+            with device_trace(spec["trace_dir"]) as dt:
+                for _ in range(traced if attempt == 0 else 1):
+                    step(k)
+                    k += 1
+                torch.cuda.synchronize()
+            rings = [ev for ev in dt.events if "ring_kernel" in ev.key]
+            if rings:
+                break
+        steps = k
+        if not rings:
+            raise AssertionError("device_trace names no ring_kernel")
+        us = sum(getattr(ev, "device_time_total", 0)
+                 or getattr(ev, "cuda_time_total", 0) for ev in rings)
+        calls = sum(ev.count for ev in rings)
+        extra = {"ring_kernel_us": us / calls, "ring_kernel_calls": calls,
+                 "ring_kernel_names": sorted({ev.key for ev in rings}),
+                 "trace_path": dt.path, "traced_attempts": attempt + 1}
     return {"launches": dict(ring.launches), "max_abs_err_vs_f64": worst,
+            **extra,
             "native": van_native(kv.po.van),
             "bucket_ms": sum(t_bucket) / len(t_bucket) * 1e3,
-            "msg_ms": sum(t_msg) / len(t_msg) * 1e3, "steps": spec["steps"]}
+            "msg_ms": sum(t_msg) / len(t_msg) * 1e3, "steps": steps}
 
 
 # -- message-path tiers: one process per node over tcp ------------------------
@@ -3625,6 +3692,7 @@ DEADLINE_DEPTH = 8    # pushes of the 40 x 1 MB bucket in flight
 CHAOS_SPEC = "seed=11,drop=0.15,delay=0.5:2,reorder=0.1,dup=0.1"
 CHAOS_ROUNDS = 3      # timed rounds per leg, after one warm-up round
 T_PROC = time.time()  # this process's start (a restarted node's clock)
+T_MAIN = 0.0  # main()'s start
 
 
 def recovery_vals(who: int, life: int) -> np.ndarray:
@@ -3997,21 +4065,21 @@ PLANE_ROUNDS = 4  # timed rounds per window; TIER_ROUNDS windows per leg
 
 def plane_legs(label: str, topo: str, van: str, workers: int, servers: int,
                spec: dict, sizes, smi: str, extra=None, joint=False,
-               planes=PLANES):
+               planes=PLANES, windows: int = TIER_ROUNDS):
     """One round phase on each plane: a cluster per plane, all up at
-    once, ``TIER_ROUNDS`` windows of ``PLANE_ROUNDS`` rounds alternating
+    once, ``windows`` windows of ``PLANE_ROUNDS`` rounds alternating
     (``interleaved``); every pull checked.  Prints each plane's ms/round
     and Gbit/s per worker (median of its windows, the windows' values,
     and over all its rounds) and, by window, each other plane's ms over
     the ``native`` plane's.  Every plane but ``python`` runs the core.
     Returns ``(rows, {plane: final worker reports})``."""
     spec = dict(spec, sizes=sizes, warmup=MSG_WARMUP, rounds=PLANE_ROUNDS,
-                windows=TIER_ROUNDS)
+                windows=windows)
     legs, finals = interleaved(
         [(plane, env) for plane, env in planes],
         lambda env: Cluster(van, workers, servers, spec,
                             extra=dict(extra or {}, **env), joint=joint),
-        every_worker=True)
+        every_worker=True, windows=windows)
     for plane, reps in finals.items():
         if [r["native"] for r in reps] != [plane != "python"] * len(reps):
             raise AssertionError(f"{label}: a worker of the {plane} leg ran "
@@ -4027,7 +4095,7 @@ def plane_legs(label: str, topo: str, van: str, workers: int, servers: int,
             gbps = [sum(w["sizes"][key]["gbps"] for w in win) / len(win)
                     for win in legs[plane]]
             print(f"{label} [{plane}] ({topo}, {s['keys']} keys x {nbytes} "
-                  f"B per worker and round; {TIER_ROUNDS} windows of "
+                  f"B per worker and round; {windows} windows of "
                   f"{PLANE_ROUNDS} rounds alternating with the other "
                   f"plane's): ms/round {spread(ms[plane])}, "
                   f"{s['ms_per_round']:.3f} over all {len(s['rounds_ms'])} "
@@ -4121,10 +4189,13 @@ def drive_tcp_config2(smi: str):
     spec = {"mode": "push_barrier_pull", "warmup": MSG_WARMUP,
             "rounds": MSG_ROUNDS}
     topo = "1 + 2 + 2 processes"
+    # Two windows per plane, not TIER_ROUNDS: the script's clock (the
+    # observability phase came after it).
     out = plane_legs("tcp-config2", f"{topo}, tcp", "tcp", 2, 2,
                      {"mode": "push_barrier_pull"}, TCP2_SIZES, smi,
                      planes=PLANES + (("reassembly",
-                                       {"PS_NATIVE_REASSEMBLY": "1"}),))[0]
+                                       {"PS_NATIVE_REASSEMBLY": "1"}),),
+                     windows=2)[0]
     mb = [[MSG_KEYS_PER_SERVER, MB_LEN]]
     sockdir = tempfile.mkdtemp(prefix="psl")
     if len(os.path.join(sockdir, "pslite_ipc_65535.sock")) > 100:
@@ -4255,10 +4326,10 @@ def drive_ici_proc(van: str, smi: str):
 
 
 def interleaved(legs, start, every_worker: bool = False,
-                report_roles=("worker", "joint")):
+                report_roles=("worker", "joint"), windows: int = TIER_ROUNDS):
     """Each ``(label, arg)`` of ``legs`` as one ``Cluster``
-    (``start(arg)`` with ``spec["windows"] = TIER_ROUNDS``), all started
-    at once and set up before the first window; then ``TIER_ROUNDS``
+    (``start(arg)`` with ``spec["windows"] = windows``), all started
+    at once and set up before the first window; then ``windows``
     rounds whose windows alternate between the legs (a, b, a, b, ...),
     as JAX's benches alternate theirs (``benchmark.py:2088-2090,
     2297-2301``), so host drift lands on both while the other leg's
@@ -4273,7 +4344,7 @@ def interleaved(legs, start, every_worker: bool = False,
         for c in clusters.values():
             c.ready()
         out = {label: [] for label in clusters}
-        for _ in range(TIER_ROUNDS):
+        for _ in range(windows):
             for label, c in clusters.items():
                 out[label].append(pick(c.window()))
         return out, {label: pick(c.finish(report_roles))
@@ -5712,6 +5783,454 @@ def drive_elastic_migrate(ps, Environment, smi: str):
                       file=sys.stderr)
 
 
+# -- observability: telemetry's cost, traced rounds, the profiled kernel
+#    path, the autopilot ------------------------------------------------------
+
+OBS_LEGS = (("off", {"PS_TELEMETRY": "0"}),
+            ("metrics", {"PS_METRICS_INTERVAL": "1"}),
+            ("tail", {"PS_TRACE_TAIL": "slow:p95,errors,floor:0.001"}))
+OBS_ROUNDS = 4      # timed rounds per window; TIER_ROUNDS windows per leg
+OBS_PULL_S = 0.5    # the tail leg's scheduler pulls traces this often
+OBS_TAIL_EXTRA = 3  # untimed windows the tail leg runs after the others
+AP_KEYS, AP_VAL_LEN, AP_STORM_S = 32, 4096, 14.0  # autopilot_bench(False)
+AP_ENV = {"PS_ELASTIC": "1", "PS_AUTOPILOT": "1",
+          "PS_METRICS_INTERVAL": "0.25", "PS_AUTOPILOT_SUSTAIN": "2",
+          "PS_AUTOPILOT_SKEW_RATIO": "1.5",
+          "PS_AUTOPILOT_SKEW_COOLDOWN_S": "1.0",
+          "PS_AUTOPILOT_MIN_RATE": "5.0", "PS_AUTOPILOT_MAX_ACTIONS": "8",
+          "PS_AUTOPILOT_TRACE_EVERY": "0", "PS_REQUEST_TIMEOUT": "3.0",
+          "PS_REQUEST_RETRIES": "8"}  # benchmark.py:1549-1565
+JOIN_KEYS = 512     # the hinted join's Zipf load: distinct keys pushed
+
+
+def wire_digest(m: dict) -> dict:
+    """A node's wire families from one snapshot, both planes summed
+    (``ClusterHistory.wire_summary``'s formulas over the cumulative
+    counters)."""
+    c = m.get("counters", {})
+
+    def g(name):
+        return c.get(name, 0)
+
+    def both(suffix):
+        return g("wire." + suffix) + g("wire.native." + suffix)
+
+    ops = both("tx.ops") + g("wire.rx.ops")
+    syscalls = (both("tx.syscalls") + both("rx.syscalls"))
+    frames = both("tx.frames") + g("wire.rx.frames") + g(
+        "wire.native.rx.frames")
+    zc = both("tx.bytes_zc") + g("wire.rx.bytes_zc") + g(
+        "wire.native.rx.bytes_zc")
+    copy = (g("wire.tx.bytes_copy") + g("wire.rx.bytes_copy")
+            + g("wire.native.rx.bytes_copy"))
+    res = m.get("histograms", {}).get("wire.lane_residency_s") or {}
+    return {"ops": ops, "native_tx_ops": g("wire.native.tx.ops"),
+            "syscalls_per_op": syscalls / ops if ops else None,
+            "frames_per_op": frames / ops if ops else None,
+            "zc_share": zc / (zc + copy) if zc + copy else None,
+            "residency_p99_s": res.get("p99") if res.get("count") else None,
+            "residency_count": res.get("count", 0)}
+
+
+def observe_cluster(po, spec: dict) -> dict:
+    """The scheduler of an observed process cluster: with
+    ``spec["traces"]``, a sample of its ClusterHistory (a METRICS_PULL)
+    and a TRACE_PULL (with the history's tail hints) every OBS_PULL_S
+    while the workers run; at the end (the parent closed stdin; the
+    other nodes wait in finalize's barrier, their pumps up) one last
+    METRICS_PULL, which must reach every node, and TRACE_PULL.  Returns
+    each node's role and wire digest and the kept traces' critical-path
+    breakdowns."""
+    stop = threading.Event()
+    errors = []
+
+    def loop():
+        po.start_history()
+        while not stop.wait(OBS_PULL_S):
+            try:
+                po.history.sample_once(timeout_s=5.0)
+                po.collect_cluster_traces(timeout_s=5.0)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+
+    t = None
+    if spec.get("traces"):
+        t = threading.Thread(target=loop, name="observe", daemon=True)
+        t.start()
+    sys.stdin.read()
+    stop.set()
+    if t is not None:
+        t.join(30)
+    if errors:
+        raise AssertionError(f"observer pulls failed: {errors[:3]}")
+    t0 = time.perf_counter()
+    snaps = po.collect_cluster_metrics(timeout_s=10.0)
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    want = 1 + po.num_worker_instances + po.num_server_instances
+    if len(snaps) != want or any("error" in s for s in snaps.values()):
+        raise AssertionError(f"METRICS_PULL reached {sorted(snaps)} of "
+                             f"{want} nodes")
+    out = {"pull_ms": pull_ms, "nodes": {
+        str(nid): {"role": s["role"], "counters": len(
+            s["metrics"].get("counters", {})),
+            "wire": wire_digest(s["metrics"])}
+        for nid, s in snaps.items()}}
+    if spec.get("traces"):
+        coll = po.collect_cluster_traces(timeout_s=10.0)
+        out["breakdowns"] = coll.breakdowns()
+        out["lost_spans"] = coll.lost_spans
+    return out
+
+
+def _obs_cost(smi: str, before_windows=None):
+    """(a) and (b): BASELINE config 2 over tcp (1 + 2 + 2 processes,
+    native core) under each of OBS_LEGS, all three clusters up at once,
+    TIER_ROUNDS windows of OBS_ROUNDS rounds alternating; every pull
+    checked exactly.  Each scheduler observes (``observe_cluster``)."""
+    sizes = [[MSG_KEYS_PER_SERVER, MB_LEN]]
+    spec = {"mode": "push_barrier_pull", "sizes": sizes,
+            "warmup": MSG_WARMUP, "rounds": OBS_ROUNDS,
+            "windows": TIER_ROUNDS}
+    clusters = {}
+    try:
+        for label, env in OBS_LEGS:
+            tail = label == "tail"
+            clusters[label] = Cluster("tcp", 2, 2, dict(
+                spec, observe={"traces": tail},
+                windows=TIER_ROUNDS + (OBS_TAIL_EXTRA if tail else 0)),
+                extra=env)
+        for c in clusters.values():
+            c.ready()
+        if before_windows is not None:
+            before_windows()
+        # The tail leg's slow threshold comes from its scheduler's hints
+        # (windowed quantiles of the warm-up's latencies, fresh 30 s):
+        # let a pull deliver them before the first window.
+        time.sleep(3 * OBS_PULL_S)
+        wins = {label: [] for label in clusters}
+        for _ in range(TIER_ROUNDS):
+            for label, c in clusters.items():
+                wins[label].append(c.window())
+        # More rounds of the tail leg alone, untimed, for the traces: a
+        # request is kept when slower than the hinted p95, so few of the
+        # timed windows' are.
+        for _ in range(OBS_TAIL_EXTRA):
+            clusters["tail"].window()
+        # The tail leg's observer pulls the last windows' traces.
+        time.sleep(OBS_PULL_S + 0.5)
+        finals = {label: c.finish(("worker", "scheduler"))
+                  for label, c in clusters.items()}
+    finally:
+        for c in clusters.values():
+            c.kill()
+    key = str(MB_LEN)
+    ms = {label: [sum(w["sizes"][key]["ms_per_round"] for w in win)
+                  / len(win) for win in wl] for label, wl in wins.items()}
+    rows = []
+    sched = {label: next(r for r in reps if r["role"] == "scheduler")
+             for label, reps in finals.items()}
+    for label, reps in finals.items():
+        workers = [r for r in reps if r["role"] == "worker"]
+        if [r["native"] for r in workers] != [True, True]:
+            raise AssertionError(f"observability {label}: a worker ran the "
+                                 f"Python plane")
+        s = rounds_summary(workers, MB_LEN)
+        row = {"config": f"observability {label}", "ops": s["checked"],
+               "max_abs_err_vs_f64": s["max_err"],
+               "ms_per_round": float(np.median(ms[label]))}
+        ratio_row(row, "over_off_ms", ms[label], ms["off"])
+        rows.append(row)
+        print(f"observability [{label}: "
+              f"{dict(OBS_LEGS)[label]}] (1 + 2 + 2 processes, tcp, "
+              f"native; {s['keys']} keys x {MB_LEN} B per worker and round; "
+              f"{TIER_ROUNDS} windows of {OBS_ROUNDS} rounds alternating "
+              f"with the other legs'): ms/round {spread(ms[label])}; over "
+              f"the telemetry-off leg by window: median "
+              f"{row['over_off_ms']:.3f}, least {row['over_off_ms_min']:.3f},"
+              f" most {row['over_off_ms_max']:.3f}; {s['checked']} rounds "
+              f"checked exactly; the scheduler's last METRICS_PULL reached "
+              f"{len(sched[label]['nodes'])} nodes in "
+              f"{sched[label]['pull_ms']:.1f} ms [{smi}] [host CPU "
+              f"{cpu_model()}]")
+    off = sched["off"]["nodes"]
+    if any(n["counters"] for n in off.values()):
+        raise AssertionError("PS_TELEMETRY=0 exported counters")
+    for label in ("metrics", "tail"):
+        for nid, n in sorted(sched[label]["nodes"].items(), key=lambda kv:
+                             int(kv[0])):
+            if n["role"] == "scheduler":
+                continue
+            w = n["wire"]
+            if not w["ops"] or not w["native_tx_ops"]:
+                raise AssertionError(f"observability {label}: node {nid} "
+                                     f"exported no wire.native ops")
+            res = (f"{w['residency_p99_s'] * 1e6:.1f} us over "
+                   f"{w['residency_count']} lane dispatches"
+                   if w["residency_p99_s"] is not None else
+                   "no Python-lane dispatch (every data frame rode the "
+                   "native lanes)")
+            print(f"observability [{label}] wire, {n['role']} {nid} (one "
+                  f"METRICS_PULL, wire.native.* synced): "
+                  f"{w['ops']} ops, syscalls/op {w['syscalls_per_op']:.3f},"
+                  f" frames/op {w['frames_per_op']:.3f}, zero-copy share "
+                  f"{w['zc_share']:.4f}, lane residency p99 {res}")
+    bds = sched["tail"]["breakdowns"]
+    s_keys = 2 * MSG_KEYS_PER_SERVER
+    if not bds:
+        raise AssertionError("observability tail: no trace was kept")
+    from pslite_tpu_torch.telemetry.critical_path import STAGES
+
+    for path in ("push", "pull"):
+        sel = [b for b in bds if bool(b["pull"]) == (path == "pull")]
+        if not sel:
+            continue
+        med = {st: float(np.median([b["stages"][st] for b in sel]))
+               for st in STAGES}
+        wall = float(np.median([b["wall_us"] for b in sel]))
+        rows.append({"config": f"observability 1 MB {path} stages",
+                     "ops": len(sel), "wall_us": wall,
+                     **{f"{st}_us": v for st, v in med.items()}})
+        keeps = sorted({str(b["keep"]) for b in sel})
+        print(f"observability [tail] where a 1 MB round's {path} goes "
+              f"({s_keys} keys x {MB_LEN} B per worker over tcp; median "
+              f"over {len(sel)} tail-kept requests of its "
+              f"{TIER_ROUNDS + OBS_TAIL_EXTRA} windows, keep "
+              f"{', '.join(keeps)}; critical path, us): wall {wall:.0f}; "
+              + ", ".join(f"{st} {v:.0f}" for st, v in med.items())
+              + f" [{smi}]")
+    return rows
+
+
+def _obs_kernel_start() -> Cluster:
+    """(c): the ``ici_tcp`` worker (8 ranks on cuda:0) under
+    ``ENABLE_PROFILING=1`` pushes the 40 x 1 MB bucket through K4 for 5
+    steps, the last 2 inside ``device_trace``; its scheduler observes.
+    Started here, read by ``_obs_kernel``."""
+    tmp = tempfile.mkdtemp(prefix="smoke-obs")
+    spec = {"ranks": N, "steps": 5, "trace_steps": 2,
+            "trace_dir": os.path.join(tmp, "trace"), "profile_dir": tmp,
+            "observe": {}}
+    return Cluster("ici_tcp", 1, 1, spec, extra={"PS_ICI_IMPL": "pallas"})
+
+
+def _obs_kernel(cluster: Cluster, kernel_rows, smi: str):
+    """(c)'s checks: the worker's profile log holds one ``push_pull``
+    engine event of 2 x 40.96 MB per K4 launch, its trace names
+    ``ring_kernel``, and the scheduler's METRICS_PULL returned the
+    worker's snapshot."""
+    try:
+        reps = cluster.finish(("worker", "scheduler"))
+    finally:
+        cluster.kill()
+    rep = next(r for r in reps if r["role"] == "worker")
+    sched = next(r for r in reps if r["role"] == "scheduler")
+    k4 = rep["launches"]["ring_push_pull[float32]"]
+    pp = [r for r in rep["profile_engine"] if r[1] == "push_pull_engine"]
+    want_bytes = str(2 * P * 4)
+    if (k4 != rep["steps"] or len(pp) != k4
+            or any(r[0] != "grads" or r[2] != want_bytes for r in pp)):
+        raise AssertionError(f"observability kernel path: K4 launched {k4} "
+                             f"times, the profile holds {pp}")
+    roles = sorted(n["role"] for n in sched["nodes"].values())
+    if roles != ["scheduler", "server", "worker"]:
+        raise AssertionError(f"METRICS_PULL returned {roles}")
+    k4_row = next(r for r in kernel_rows
+                  if r["name"] == "ring_push_pull[float32]")
+    print(f"observability [kernel path] (ici_tcp worker, {N} ranks on "
+          f"cuda:0, ENABLE_PROFILING=1): K4 launches {k4}, profile "
+          f"push_pull engine events {len(pp)} of {want_bytes} B each "
+          f"(dispatch us {', '.join(r[3] for r in pp)}); device_trace of "
+          f"the last 2 steps: {rep['ring_kernel_calls']} calls of "
+          f"{', '.join(rep['ring_kernel_names'])}, "
+          f"{rep['ring_kernel_us'] / 1e3:.4f} ms each (the kernels phase: "
+          f"{k4_row['ms']:.4f} ms host-free); the scheduler's METRICS_PULL "
+          f"returned {', '.join(roles)} [{smi}]")
+    return ([{"config": "observability kernel path", "ops": k4,
+              "k4_launches": k4, "profile_events": len(pp),
+              "ring_kernel_ms_traced": rep["ring_kernel_us"] / 1e3,
+              "ring_kernel_ms_kernels_phase": k4_row["ms"]}],
+            rep["launches"])
+
+
+def _obs_autopilot(ps, Environment, smi: str):
+    """(d): JAX's ``autopilot_bench(quick=False)`` (benchmark.py:1530):
+    1 scheduler + 2 elastic servers + 1 worker over tcp in this process,
+    32 keys of 4,096 f32, a 14 s storm whose hot set (a quarter of the
+    keys, all on server 0) drifts at half time; the autopilot (act mode)
+    must rebalance with no operator action and every store stay exact.
+    Then one elastic join under a Zipf load with the scheduler's hint:
+    the cut must be the key ``with_join`` computes from that hint."""
+    from pslite_tpu_torch.cluster.autopilot import _server_rates
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    def cluster(env, servers=2):
+        base = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": str(servers),
+                "DMLC_PS_ROOT_URI": "127.0.0.1",
+                "DMLC_NODE_HOST": "127.0.0.1",
+                "DMLC_PS_ROOT_PORT": str(get_available_port()),
+                "PS_VAN_TYPE": "tcp", **IN_PROCESS, **env}
+        nodes = [ps.Postoffice(r, env=Environment(base)) for r in
+                 ["scheduler"] + ["server"] * servers + ["worker"]]
+        run_threads([po.start for po in nodes], "observability start")
+        apps = []
+        for po in nodes[1:-1]:
+            srv = ps.KVServer(0, postoffice=po)
+            srv.set_request_handle(ps.KVServerDefaultHandle())
+            apps.append(srv)
+        w = ps.KVWorker(0, 0, postoffice=nodes[-1])
+        apps.append(w)
+        return nodes, apps, w, base
+
+    def close(nodes, apps):
+        for a in apps:
+            a.stop()
+        for po in nodes:
+            po.van.stop()
+
+    def skew(rates):
+        if len(rates) < 2:
+            return None
+        return max(rates.values()) / max(sum(rates.values()) / len(rates),
+                                         1e-9)
+
+    nodes, apps, w, _base = cluster(AP_ENV)
+    try:
+        sched = nodes[0]
+        span = (1 << 64) // AP_KEYS
+        keys = (np.arange(AP_KEYS, dtype=np.uint64) * np.uint64(span)
+                + np.uint64(3))
+        vals = np.arange(AP_KEYS * AP_VAL_LEN, dtype=np.float32) % 97 + 1.0
+        hot_a, hot_b = keys[:AP_KEYS // 4], keys[AP_KEYS // 4:AP_KEYS // 2]
+        hot_out = np.zeros(AP_VAL_LEN * len(hot_a), np.float32)
+        pushes, stop, errors, first = [0], [False], [], []
+        epoch_at = []
+
+        def storm():
+            t0 = time.perf_counter()
+            while not stop[0]:
+                try:
+                    w.wait(w.push(keys, vals))
+                    pushes[0] += 1
+                    hot = (hot_a if time.perf_counter() - t0
+                           < AP_STORM_S / 2 else hot_b)
+                    for _ in range(8):
+                        w.wait(w.pull(hot, hot_out))
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(repr(exc))
+                    return
+
+        w.wait(w.push(keys, vals))
+        pushes[0] += 1
+        t = threading.Thread(target=storm, daemon=True)
+        t_storm = time.perf_counter()
+        t.start()
+        while time.perf_counter() - t_storm < AP_STORM_S:
+            if not first:
+                s = skew(_server_rates(sched.history))
+                if s is not None:
+                    first.append(s)
+            rt = sched.current_routing()
+            if not epoch_at and rt is not None and rt.epoch > 0:
+                epoch_at.append(time.perf_counter() - t_storm)
+            time.sleep(0.05)
+        stop[0] = True
+        t.join(timeout=60)
+        last = skew(_server_rates(sched.history))
+        out = np.zeros_like(vals)
+        w.wait(w.pull(keys, out))
+        exact = bool(np.array_equal(out, vals * pushes[0])) and not errors
+        counts = sched.history.autopilot.counts()
+        rt = sched.current_routing()
+        acted = [d for d in sched.history.autopilot.decision_log
+                 if d.outcome == "acted"]
+    finally:
+        close(nodes, apps)
+    if not exact or not epoch_at or not acted:
+        raise AssertionError(f"observability autopilot: exact {exact}, "
+                             f"errors {errors[:3]}, epochs {epoch_at}, "
+                             f"decisions {counts}")
+    print(f"observability [autopilot] (autopilot_bench(quick=False): 1 + 2 "
+          f"elastic tcp servers + 1 worker in this process, {AP_KEYS} keys "
+          f"x {AP_VAL_LEN} f32, {AP_STORM_S:.0f} s drifting hot-set "
+          f"storm): load_skew_ratio first window {first[0]:.2f}, last "
+          f"window {last:.2f}; operator_actions 0; first rebalance epoch "
+          f"{epoch_at[0]:.2f} s after the storm began; decisions "
+          f"{counts}; final epoch {rt.epoch}; {pushes[0]} pushes, every "
+          f"store exact [{smi}] [host CPU {cpu_model()}]")
+    rows = [{"config": "observability autopilot", "ops": pushes[0],
+             "load_skew_first": first[0], "load_skew_last": last,
+             "operator_actions": 0, "rebalance_s": epoch_at[0],
+             "decisions_acted": counts.get("acted", 0)}]
+
+    nodes, apps, w, base = cluster({"PS_ELASTIC": "1"})
+    joiner = None
+    try:
+        sched = nodes[0]
+        rng = np.random.default_rng(SEED + 41)
+        hot = np.unique((rng.zipf(1.2, 20 * JOIN_KEYS) * 104729)
+                        % (1 << 62)).astype(np.uint64)[:JOIN_KEYS]
+        for _ in range(3):
+            w.wait(w.push(hot, np.ones(len(hot) * 8, np.float32)))
+        for k in range(4):
+            sub = hot[: 16 << k]
+            w.wait(w.push(sub, np.ones(len(sub) * 8, np.float32)))
+        sched.collect_cluster_metrics(timeout_s=10.0)
+        hint = sched.hot_key_hint()
+        want = sched.routing_table().with_join(2, hot=hint)
+        po = ps.Postoffice("server", env=Environment(base))
+        po.start(0)
+        srv = ps.KVServer(0, postoffice=po)
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        joiner = (po, srv)
+        got = wait_epoch(sched, want.epoch)
+        cut = next(e.begin for e in got.entries if e.owner == 2)
+        want_cut = next(e.begin for e in want.entries if e.owner == 2)
+        check = np.zeros(len(hot) * 8, np.float32)
+        w.wait(w.pull(hot, check))
+        wsum = np.ones(len(hot) * 8, np.float32) * 3
+        for k in range(4):
+            wsum[: (16 << k) * 8] += 1
+        if cut != want_cut or got.to_json() != want.to_json() \
+                or not np.array_equal(check, wsum):
+            raise AssertionError(f"observability join: cut {cut}, "
+                                 f"with_join {want_cut}")
+    finally:
+        close(nodes + ([joiner[0]] if joiner else []),
+              apps + ([joiner[1]] if joiner else []))
+    print(f"observability [join with the hint] (1 + 2 -> 3 elastic tcp "
+          f"servers in this process, {len(hot)} Zipf(1.2) keys; the hint: "
+          f"{len(hint)} hot keys from one METRICS_PULL): cut key {cut}, "
+          f"with_join(hot=hint) {want_cut}; every pull exact [{smi}]")
+    rows.append({"config": "observability join cut", "ops": 8,
+                 "cut_key": float(cut), "hint_keys": len(hint)})
+    return rows
+
+
+def drive_observability(ps, Environment, kernel_rows, smi: str):
+    """The observability phase: (c)'s processes start with (a)'s
+    clusters, and its worker's steps end before (a)'s first timed window
+    (``STEPS_DONE``); (a)-(b) ``_obs_cost``; (d) ``_obs_autopilot``
+    alone in this process; then (c)'s checks, ``_obs_kernel`` (its K4
+    launches counted in the worker process and returned)."""
+    t = time.perf_counter()
+    kernel = _obs_kernel_start()
+    try:
+        rows = _obs_cost(smi, before_windows=lambda: kernel._lines(
+            "STEPS_DONE", 1))
+        t_cost = time.perf_counter() - t
+        rows += _obs_autopilot(ps, Environment, smi)
+        t_ap = time.perf_counter() - t - t_cost
+    except BaseException:
+        kernel.kill()
+        raise
+    krows, child = _obs_kernel(kernel, kernel_rows, smi)
+    print(f"observability seconds: the cost legs with the kernel path "
+          f"beside their start {t_cost:.1f}, the autopilot and the join "
+          f"{t_ap:.1f}, the kernel path's checks "
+          f"{time.perf_counter() - t - t_cost - t_ap:.1f}")
+    return rows + krows, child
+
+
 def wait_epoch(po, epoch: int, timeout: float = 60.0):
     """The routing table once ``po`` holds ``epoch`` or a later one."""
     end = time.monotonic() + timeout
@@ -5724,6 +6243,8 @@ def wait_epoch(po, epoch: int, timeout: float = 60.0):
 
 
 def main() -> int:
+    global T_MAIN
+    T_MAIN = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5901,6 +6422,8 @@ def main() -> int:
         ("elastic-scale", lambda: (
             drive_elastic_scale(ps, ring, Environment, smi)
             + drive_elastic_migrate(ps, Environment, smi))),
+        ("observability", lambda: drive_observability(
+            ps, Environment, rows, smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:
@@ -6016,6 +6539,7 @@ def main() -> int:
             print(f"kernel {r['name']} pieces (profiler, ms per call): "
                   + ", ".join(f"{k} {v:.4f}"
                               for k, v in r["pieces_ms"].items()))
+    print(f"chip_smoke: {time.perf_counter() - T_MAIN:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from ..ops import codecs as codecs_mod
-from ..telemetry import node_registry
+from ..telemetry.metrics import node_registry
+from ..telemetry.tracing import NULL_TRACER
 from ..tenants import table_for
 from ..utils import logging as log
 from ..utils.queues import DRAIN_LEVEL, PriorityRecvQueue
@@ -172,9 +173,10 @@ class ApplyShardPool:
         # completion.
         self._emit_mu = threading.Lock()
         self._emit_q: Deque[_Pending] = collections.deque()
-        self.sharded_requests = 0  # counted on the submitting thread
-        self.global_requests = 0
         metrics = node_registry(getattr(po, "metrics", None))
+        self._tracer = getattr(po, "tracer", None) or NULL_TRACER
+        self._c_sharded = metrics.counter("apply.sharded_requests")
+        self._c_global = metrics.counter("apply.global_requests")
         self._h_latency = metrics.histogram("apply.latency_s")
         for sid in range(num_shards):
             metrics.gauge(f"apply.shard{sid}.depth",
@@ -212,6 +214,21 @@ class ApplyShardPool:
         if n == 0:
             return 1
         return max(1, self._payload_bytes(kvs) * n_positions // n)
+
+    @property
+    def sharded_requests(self) -> int:
+        return self._c_sharded.value
+
+    @property
+    def global_requests(self) -> int:
+        return self._c_global.value
+
+    def set_task_bytes(self, n: int) -> int:
+        """Live-retune the apply quantum (the scheduler's ``retune`` op,
+        the autopilot's apply_wait actuator): the next submitted request
+        splits by it; queued tasks keep their grouping."""
+        self._task_bytes = max(1, int(n))
+        return self._task_bytes
 
     def tenant_backlog(self, tenant: int) -> int:
         """In-flight (submitted, response not yet selected) requests of
@@ -279,6 +296,10 @@ class ApplyShardPool:
         if wait:
             pending.emitted = threading.Event()
         pending.tracked = True
+        if getattr(meta, "trace", 0) and self._tracer.active:
+            # The apply span reports submission to apply start as
+            # wait_us (the shard queue's dwell).
+            meta._submit_us = self._tracer.now_us()
         tid = meta.tenant
         with self._backlog_mu:
             self._tenant_backlog[tid] = self._tenant_backlog.get(tid, 0) + 1
@@ -290,7 +311,7 @@ class ApplyShardPool:
                                    collections.deque()).append(pending)
         plan = self._split(kvs)
         if plan is None:
-            self.global_requests += 1
+            self._c_global.inc()
             pending.remaining = self.num_shards
             pending.barrier = threading.Event()
             # A fence: nothing queued later overtakes the barrier on any
@@ -299,12 +320,12 @@ class ApplyShardPool:
             for q in self._queues:
                 q.push((pending, _GLOBAL), fence=True)
         elif len(plan) == 1 and self._task_groups(kvs, plan[0][1]) <= 1:
-            self.sharded_requests += 1
+            self._c_sharded.inc()
             pending.remaining = 1
             self._queues[plan[0][0]].push(
                 (pending, _ALL), cost=self._task_cost(kvs, len(kvs.keys)))
         else:
-            self.sharded_requests += 1
+            self._c_sharded.inc()
             tasks = []
             for sid, positions in plan:
                 ngrp = self._task_groups(kvs, positions)
@@ -381,6 +402,8 @@ class ApplyShardPool:
             p = _Pending(meta, kvs)
             p.group = group
             p.op_idx = i
+            if getattr(meta, "trace", 0) and self._tracer.active:
+                meta._submit_us = self._tracer.now_us()
             tasks = []
             for sid, positions in plan:
                 ngrp = self._task_groups(kvs, positions)
@@ -392,7 +415,7 @@ class ApplyShardPool:
             p.remaining = len(tasks)
             group.remaining += 1
             dispatch.append((p, kvs, tasks))
-        self.sharded_requests += max(1, len(dispatch))
+        self._c_sharded.inc(max(1, len(dispatch)))
         if group.remaining == 0:
             # Every sub-op was decided at intake: the response is ready
             # (still behind earlier requests in the gate).
@@ -460,7 +483,7 @@ class ApplyShardPool:
         log.check(plan is not None
                   and len(kvs.vals) % max(len(kvs.keys), 1) == 0,
                   "stream feed must be a fixed-k key/val slice")
-        self.sharded_requests += 1
+        self._c_sharded.inc()
         with pending.mu:
             pending.remaining += len(plan)
         for sid, positions in plan:
@@ -577,7 +600,17 @@ class ApplyShardPool:
             segs = _push_segs(meta, kvs.keys, kvs.vals, positions)
         t0 = time.monotonic()
         parts = self.handle.apply_shard(meta, keys, segs)
-        self._h_latency.observe(time.monotonic() - t0)
+        dur = time.monotonic() - t0
+        self._h_latency.observe(dur)
+        trace = getattr(meta, "trace", 0)
+        if trace and self._tracer.active:
+            now = self._tracer.now_us()
+            args = {"keys": len(keys), "push": meta.push}
+            sub_us = getattr(meta, "_submit_us", None)
+            if sub_us is not None:
+                args["wait_us"] = round(now - dur * 1e6 - sub_us, 1)
+            self._tracer.span(trace, "apply", now - dur * 1e6, dur * 1e6,
+                              args=args)
         if not meta.pull:
             return None
         log.check(parts is not None and len(parts) == len(keys),

@@ -32,8 +32,8 @@ Capability: frames go only to peers that answered the
 ``BATCH_PROBE_CMD`` probe (``PS_BATCH_NEGOTIATE=0`` skips the probe and
 asserts a homogeneous cluster).  The server runs the same combiner with
 ``response=True`` (``PS_RESP_BATCH_BYTES``) toward senders that proved
-batch awareness.  ``combine_wait`` spans go to the tracer stand-in
-(``telemetry``), which records nothing (ROADMAP Queue 1 item 8(c)).
+batch awareness.  A traced op's wait in the combiner is a
+``combine_wait`` span on the node's tracer.
 """
 
 from __future__ import annotations

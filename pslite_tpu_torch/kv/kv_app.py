@@ -131,8 +131,11 @@ falls back to the replica chain), ranges it lost stream out on one
 migration thread (``_migrate_out``) and are dropped once acknowledged,
 a new replica backfills from its primary (``_note_replicated_ranges``),
 and ``decommission`` moves everything out before the rank retires.
-The metrics plane is ROADMAP Queue 1 item 8(c): a snapshot ``retune``
-op is refused naming it.  ``KVWorker.reshard`` recuts the worker's
+Telemetry: the worker tracks every message-path request (``kv.pushes``,
+``kv.pulls``, the latency histograms, tail-trace keep decisions at
+completion); the server counts requests, sheds and tenants, records
+``server_queue``/``apply`` spans and flight events, and answers the
+scheduler's ``retune`` op (``_run_retune``).  ``KVWorker.reshard`` recuts the worker's
 engines onto a new device group (``IciVan.reshard_engines``).
 """
 
@@ -182,7 +185,8 @@ from ..message import (
 from ..ops import codecs as codecs_mod
 from ..range import Range, find_range
 from ..sarray import SArray
-from ..telemetry import LocalCounts, node_registry
+from ..telemetry.metrics import node_registry
+from ..telemetry.views import CounterView
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
 from ..vans import native
@@ -336,6 +340,7 @@ class _PendingReq:
     codec: Optional[str] = None
     zpull: Optional[dict] = None
     tenant: int = 0
+    trace: int = 0
 
 
 def default_slicer(kvs: KVPairs,
@@ -534,9 +539,44 @@ class KVWorker:
         self._rr_counter = itertools.count()
         self._seen_stamps: Dict[int, int] = {}
         self._read_share: Dict[int, int] = {}  # dest -> spread pulls
-        # JAX's kv.failovers / replica_read.spread / .fallbacks
-        # counters (the port's registry is a no-op).
-        self.stats = LocalCounts()
+        # The load read policy's cluster truth (attach_history).
+        self._cluster_history = None
+        reg = node_registry(getattr(self.po, "metrics", None))
+        self._c_replica_reads = reg.counter("replica_read.spread")
+        self._c_replica_fallbacks = reg.counter("replica_read.fallbacks")
+        self._c_overloads = reg.counter("kv.overloads")
+        # Request latency (send to last response), the failure paths,
+        # and per-ts trace bookkeeping.
+        self._c_pushes = reg.counter("kv.pushes")
+        self._c_pulls = reg.counter("kv.pulls")
+        self._h_push_lat = reg.histogram("kv.push_latency_s")
+        self._h_pull_lat = reg.histogram("kv.pull_latency_s")
+        self._c_timeouts = reg.counter("kv.timeouts")
+        self._c_failovers = reg.counter("kv.failovers")
+        self._c_retries = reg.counter("kv.retries")
+        self._c_wrong_owner = reg.counter("kv.wrong_owner_bounces")
+        # The counters older callers read: stats["failovers"],
+        # stats["wrong_owner_bounces"], stats["replica_read.spread"].
+        self.stats = CounterView(reg, names={
+            "failovers": "kv.failovers",
+            "wrong_owner_bounces": "kv.wrong_owner_bounces"})
+        # ts -> (monotonic start, pull?, trace id, wall-aligned start us,
+        # parent trace id: a multi_get's sub-gets link to its fan-out).
+        self._req_track: Dict[int, Tuple[float, bool, int, float,
+                                         int]] = {}
+        # ts -> failure outcome ("error", "shed", "timeout", "retry",
+        # "wrong_owner", "replica_stale"), read by the tail-keep
+        # decision at completion: a failed request's trace is kept.
+        self._req_outcome: Dict[int, str] = {}
+        # Tail tracing: the rolling slow threshold falls back to these
+        # local histograms while no TRACE_PULL hint is fresh.
+        if getattr(self.po.tracer, "tail", None) is not None:
+            self.po.tracer.set_tail_source("push", self._h_push_lat)
+            self.po.tracer.set_tail_source("pull", self._h_pull_lat)
+        # Dead primaries whose failover was flight-recorded (one event
+        # per outage, re-armed when the rank recovers).
+        self._failover_logged: set = set()
+        self._fallback_logged = 0.0
         self._down_servers: set = set()
         self._pending: Dict[int, _PendingReq] = {}
         self._sweep_thread: Optional[threading.Thread] = None
@@ -913,6 +953,58 @@ class KVWorker:
         self._pull_dst.pop(ts, None)
         self._callbacks.pop(ts, None)
         self._zpull_ts.discard(ts)
+        self._c_timeouts.inc()
+        # No _finish will run: the tail-keep decision is made here (a
+        # timeout is what the tail plane keeps).
+        track = self._req_track.pop(ts, None)
+        outcome = self._req_outcome.pop(ts, None) or "timeout"
+        if track is not None:
+            t0, was_pull, trace, t0_us, parent = track
+            if trace:
+                self._finish_trace(ts, trace, was_pull,
+                                   time.monotonic() - t0, t0_us, parent,
+                                   outcome if outcome != "retry"
+                                   else "timeout", observed=False)
+
+    # -- telemetry -----------------------------------------------------------
+
+    def _track_request(self, ts: int, pull: bool, parent: int = 0) -> int:
+        """Start latency tracking of a message-path timestamp and mint
+        its trace id: every request under tail capture
+        (``PS_TRACE_TAIL``, kept or dropped at completion), else
+        head-sampled (``PS_TRACE_SAMPLE``).  Returns the id (0 =
+        untraced); ``parent`` links a multi_get sub-get to its
+        fan-out."""
+        (self._c_pulls if pull else self._c_pushes).inc()
+        trace = self.po.tracer.begin_request()
+        t0_us = self.po.tracer.now_us() if trace else 0.0
+        with self._mu:
+            self._req_track[ts] = (time.monotonic(), pull, trace, t0_us,
+                                   parent)
+        return trace
+
+    def _finish_trace(self, ts: int, trace: int, pull: bool, dur: float,
+                      t0_us: float, parent: int,
+                      outcome: Optional[str],
+                      observed: bool = True) -> None:
+        """The tail-keep decision: a failure, a request slower than the
+        rolling per-path quantile, or the uniform floor keeps its trace,
+        which gets its ``request`` root span and, when the histogram
+        observed the duration, an exemplar on its latency bucket."""
+        tracer = self.po.tracer
+        reason = tracer.tail_keep(dur, "pull" if pull else "push", outcome)
+        if reason is None:
+            return
+        args = {"ts": ts, "pull": pull, "keep": reason}
+        if outcome:
+            args["outcome"] = outcome
+        if parent:
+            args["parent"] = f"{parent:x}"
+        tracer.span(trace, "request", t0_us, dur * 1e6, args=args)
+        tracer.instant(trace, "complete", args={"ts": ts})
+        if observed:
+            (self._h_pull_lat if pull else self._h_push_lat
+             ).attach_exemplar(dur, trace)
 
     # -- engine-path completion ----------------------------------------------
 
@@ -988,8 +1080,9 @@ class KVWorker:
         codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
         tid = self._resolve_tenant(tenant)
         ts = self._new_message_request(callback)
+        trace = self._track_request(ts, pull=False)
         self._send(ts, push=True, pull=False, cmd=cmd, kvs=kvs, codec=codec,
-                   tenant=tid)
+                   tenant=tid, trace=trace)
         return ts
 
     def _checked_codec(self, keys, vals, codec, compress) -> Optional[str]:
@@ -1004,7 +1097,8 @@ class KVWorker:
              cmd: int = 0, callback: Optional[Callable[[], None]] = None,
              priority: int = 0, compress: Optional[str] = None,
              codec: Optional[str] = None, tenant=None,
-             _batch_sink: Optional[List[Message]] = None) -> int:
+             _batch_sink: Optional[List[Message]] = None,
+             _trace_parent: int = 0) -> int:
         """Pull into ``vals`` (kv_app.h:241-247, 727-792): a numpy array
         on the message path; on the engine path also a tensor.  With
         ``lens``, the per-key lengths land there.  ``codec=``
@@ -1023,10 +1117,13 @@ class KVWorker:
                 and cmd == 0 and isinstance(vals, np.ndarray)
                 and self._hot_cache.serve(keys, vals)):
             ts = self._customer.new_request(SERVER_GROUP, num_responses=0)
+            self._c_pulls.inc()
+            self._h_pull_lat.observe(0.0)
             if callback is not None:
                 callback()
             return ts
         ts = self._new_message_request(callback)
+        trace = self._track_request(ts, pull=True, parent=_trace_parent)
         zpull = (self._zpull_lookup(keys, vals)
                  if lens is None and codec is None else None)
         with self._mu:
@@ -1037,7 +1134,7 @@ class KVWorker:
                       priority=priority)
         self._send(ts, push=False, pull=True, cmd=cmd, kvs=kvs,
                    val_nbytes=vals.nbytes, zpull=zpull, codec=codec,
-                   tenant=tid, batch_sink=_batch_sink)
+                   tenant=tid, batch_sink=_batch_sink, trace=trace)
         return ts
 
     def _engine_pull(self, route: str, vals, callback) -> int:
@@ -1076,13 +1173,14 @@ class KVWorker:
         codec = self._checked_codec(kvs.keys, kvs.vals, codec, compress)
         tid = self._resolve_tenant(tenant)
         ts = self._new_message_request(callback)
+        trace = self._track_request(ts, pull=True)
         zpull = self._zpull_lookup(kvs.keys, outs) if lens is None else None
         with self._mu:
             self._pull_dst[ts] = (kvs.keys, outs, lens)
             if zpull is not None:
                 self._zpull_ts.add(ts)
         self._send(ts, push=True, pull=True, cmd=cmd, kvs=kvs, zpull=zpull,
-                   codec=codec, tenant=tid)
+                   codec=codec, tenant=tid, trace=trace)
         return ts
 
     def multi_get(self, key_lists, outs: Optional[List[np.ndarray]] = None,
@@ -1133,10 +1231,16 @@ class KVWorker:
                     callback()
 
         want_cb = callbacks is not None or callback is not None
+        # One parent trace id spans the fan-out; each sub-get mints its
+        # own and records the parent on its root span.
+        tracer = self.po.tracer
+        parent = tracer.begin_request() if tracer.active else 0
+        if parent:
+            tracer.instant(parent, "multi_get", args={"subs": n})
         try:
             self._multi_get_issue(key_lists, outs, val_len, dtype, cmd,
                                   priority, compress, codec, tenant, handle,
-                                  sink, want_cb, _complete)
+                                  sink, want_cb, _complete, parent)
         finally:
             if sink:
                 # The whole fan-out enters the combiner at once: one frame
@@ -1147,7 +1251,7 @@ class KVWorker:
 
     def _multi_get_issue(self, key_lists, outs, val_len, dtype, cmd,
                          priority, compress, codec, tenant, handle, sink,
-                         want_cb, _complete) -> None:
+                         want_cb, _complete, parent: int = 0) -> None:
         hc = self._hot_cache
         for i, keys in enumerate(key_lists):
             keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
@@ -1161,6 +1265,8 @@ class KVWorker:
                 mask = hc.serve_mask(keys, out)
             if mask is not None and mask.all():
                 handle.cached += 1
+                self._c_pulls.inc()
+                self._h_pull_lat.observe(0.0)
                 _complete(i)
                 continue
             if mask is not None and mask.any():
@@ -1178,13 +1284,14 @@ class KVWorker:
 
                 handle.timestamps[i] = self.pull(
                     keys[miss], tmp, cmd=cmd, priority=priority,
-                    tenant=tenant, callback=_scatter, _batch_sink=sink)
+                    tenant=tenant, callback=_scatter, _batch_sink=sink,
+                    _trace_parent=parent)
                 continue
             handle.timestamps[i] = self.pull(
                 keys, out, cmd=cmd, priority=priority, codec=codec_i,
                 tenant=tenant,
                 callback=(lambda i=i: _complete(i)) if want_cb else None,
-                _batch_sink=sink)
+                _batch_sink=sink, _trace_parent=parent)
 
     def pull_multi(self, key_lists, outs: Optional[List[np.ndarray]] = None,
                    **kw) -> MultiGetHandle:
@@ -1315,7 +1422,7 @@ class KVWorker:
                    zpull: Optional[dict] = None, rank: int = 0,
                    codec: Optional[str] = None,
                    enc: Optional[_EncodedSlice] = None,
-                   tenant: int = 0) -> Message:
+                   tenant: int = 0, trace: int = 0) -> Message:
         """One per-server slice message (``rank``: the server's group
         rank, whose offset a zero-copy pull names; ``enc``: the slice's
         encoded push payload; ``codec``: the response codec a pull asks
@@ -1332,6 +1439,7 @@ class KVWorker:
         m.head = cmd
         m.timestamp = ts
         m.recver = dest
+        m.trace = trace
         m.key = int(part.keys[0]) if len(part.keys) else 0
         m.val_len = val_nbytes if pull and not push else part.vals.nbytes
         if zpull is not None:
@@ -1360,7 +1468,8 @@ class KVWorker:
     def _send(self, ts: int, push: bool, pull: bool, cmd: int, kvs: KVPairs,
               val_nbytes: int = 0, zpull: Optional[dict] = None,
               codec: Optional[str] = None, tenant: int = 0,
-              batch_sink: Optional[List[Message]] = None) -> None:
+              batch_sink: Optional[List[Message]] = None,
+              trace: int = 0) -> None:
         entries = self._route_entries()
         ranges = [rng for rng, _owner in entries]
         sliced = (self._slicer(kvs, ranges)
@@ -1390,9 +1499,10 @@ class KVWorker:
             # Pure pulls spread over each range's live chain members;
             # _process checks the answer's stamp before accepting it.
             # Zero-copy and codec responses stay with the primary.
-            routed = [self._route_read(rank) for rank, _part in live]
+            routed = [self._route_read(rank, trace) for rank, _part in live]
         else:
-            routed = [(self._route(rank), False) for rank, _part in live]
+            routed = [(self._route(rank, trace=trace), False)
+                      for rank, _part in live]
         dests = [dest for dest, _rr in routed]
         req: Optional[_PendingReq] = None
         if self._req_timeout > 0:
@@ -1406,7 +1516,7 @@ class KVWorker:
                         for (rank, part), (dest, rr), enc in zip(
                             live, routed, encs)],
                 val_nbytes=val_nbytes, codec=codec, zpull=zpull,
-                tenant=tenant)
+                tenant=tenant, trace=trace)
             with self._mu:
                 self._pending[ts] = req
             self._ensure_sweeper()
@@ -1415,7 +1525,7 @@ class KVWorker:
             sl = req.slices[idx] if req is not None else None
             msg = self._slice_msg(ts, push, pull, cmd, part, dest,
                                   val_nbytes, zpull, rank, codec, enc,
-                                  tenant)
+                                  tenant, trace)
             if self._combiner is not None and self._batch_capable(dest):
                 msg._batch_sl = sl
                 # Every slice toward a batch-capable destination rides the
@@ -1472,12 +1582,21 @@ class KVWorker:
         if option == OPT_SEND_FAILED:
             with self._mu:
                 self._timeout_ts.add(ts)
+                if ts in self._req_track:
+                    self._req_outcome[ts] = "send_failed"
         elif option == OPT_APPLY_ERROR:
             with self._mu:
                 self._error_ts.add(ts)
+                if ts in self._req_track:
+                    self._req_outcome[ts] = "error"
         elif option == OPT_OVERLOAD:
+            # Shed by the server's admission control: the request
+            # completes fast and wait(ts) raises OverloadError.
+            self._c_overloads.inc()
             with self._mu:
                 self._overload_ts.add(ts)
+                if ts in self._req_track:
+                    self._req_outcome[ts] = "shed"
         elif option == OPT_WRONG_OWNER:
             # A bounce past the bounce budget, or one without deadlines
             # to re-route it: the request fails.
@@ -1584,9 +1703,11 @@ class KVWorker:
         carries the server's epoch: a newer one than ours pulls the
         table from the scheduler."""
         ts = msg.meta.timestamp
-        self.stats.inc("wrong_owner_bounces")
+        self._c_wrong_owner.inc()
         discount = True
         with self._mu:
+            if ts in self._req_track:
+                self._req_outcome[ts] = "wrong_owner"
             req = self._pending.get(ts)
             if req is not None:
                 sl = self._slice_of(req, msg.meta.key)
@@ -1630,10 +1751,22 @@ class KVWorker:
             if stale:
                 sl.retry_now = True
                 sl.replica_read = False  # the sweeper -> the primary
-                self.stats.inc("replica_read.fallbacks")
+                self._c_replica_fallbacks.inc()
+                if ts in self._req_track:
+                    self._req_outcome[ts] = "replica_stale"
             else:
                 sl.responded = True
         if stale:
+            now = time.monotonic()
+            if now - self._fallback_logged > 1.0:
+                # Throttled: a lagging replica under a read storm would
+                # wrap the flight ring.
+                self._fallback_logged = now
+                self.po.flight.record(
+                    "replica_stale_fallback", severity="warn",
+                    replica=msg.meta.sender, primary=pid,
+                    stamp=msg.meta.stamp,
+                    seen=self._seen_stamps.get(pid, 0))
             self._wake_sweeper()
             return True, None
         return False, primary
@@ -1675,6 +1808,7 @@ class KVWorker:
                 self._down_servers.add(node_id)
             else:
                 self._down_servers.discard(node_id)
+                self._failover_logged.discard(node_id)
                 # A recovered server restarts its push stamps: the old
                 # floor would brand every replica answer stale.
                 self._seen_stamps.pop(node_id, None)
@@ -1736,10 +1870,13 @@ class KVWorker:
         return (self._replication > 1
                 and self._route(sl.group_rank, count=False) == sl.dest)
 
-    def _route(self, group_rank: int, count: bool = True) -> int:
+    def _route(self, group_rank: int, count: bool = True,
+               trace: int = 0) -> int:
         """A slice's destination: its owner rank's instance, or, when it
         is down and replication is on, the first live member of its
-        replica chain (``chain_ranks``, the servers' own topology)."""
+        replica chain (``chain_ranks``, the servers' own topology).  The
+        first failover of an outage is flight-recorded, with the trace
+        id in scope."""
         gs = self.po.group_size
         base = server_rank_to_id(group_rank * gs + self.po.instance_idx)
         if base not in self._down_servers:
@@ -1750,11 +1887,18 @@ class KVWorker:
             cand = server_rank_to_id(rank * gs + self.po.instance_idx)
             if cand not in self._down_servers:
                 if count:
-                    self.stats.inc("failovers")
+                    self._c_failovers.inc()
+                    if base not in self._failover_logged:
+                        self._failover_logged.add(base)
+                        detail = {"trace": f"{trace:x}"} if trace else {}
+                        self.po.flight.record("failover", severity="warn",
+                                              dead=base, replica=cand,
+                                              **detail)
                 return cand
         return base
 
-    def _route_read(self, group_rank: int) -> Tuple[int, bool]:
+    def _route_read(self, group_rank: int,
+                    trace: int = 0) -> Tuple[int, bool]:
         """Destination of a pure pull slice under replica reads: a live
         member of the range's chain, picked by
         ``PS_REPLICA_READ_POLICY``: ``sticky`` (default) pins this
@@ -1772,7 +1916,7 @@ class KVWorker:
             if cand not in self._down_servers:
                 members.append(cand)
         if len(members) <= 1 or base in self._down_servers:
-            return self._route(group_rank), False
+            return self._route(group_rank, trace=trace), False
         if self._read_policy == "load":
             dest = self._least_loaded_member(members)
         elif self._read_policy == "rr":
@@ -1785,14 +1929,30 @@ class KVWorker:
                            % len(members)]
         self._read_share[dest] = self._read_share.get(dest, 0) + 1
         if dest != base:
-            self.stats.inc("replica_read.spread")
+            self._c_replica_reads.inc()
         return dest, dest != base
 
+    def attach_history(self, history) -> None:
+        """Give the ``load`` read policy cluster truth: rank the spread
+        set by ``history``'s windowed per-server pull rates (every
+        worker's traffic); ``None`` reverts to local send counts."""
+        self._cluster_history = history
+
     def _least_loaded_member(self, members) -> int:
-        """``load`` policy: the member this worker sent the fewest
-        reads.  JAX can rank by a cluster history's pull rates
-        (``attach_history``), which is the metrics plane, ROADMAP Queue
-        1 item 8(c)."""
+        """``load`` policy: the member with the lowest windowed
+        ``kv.server_pull_requests`` rate in the attached history (local
+        send counts break ties and rank the members it has not rated);
+        local counts alone without a history."""
+        hist = self._cluster_history
+        if hist is not None:
+            rated = {}
+            for d in members:
+                r = hist.rate(d, "kv.server_pull_requests")
+                if r is not None:
+                    rated[d] = r
+            if rated:
+                return min(members, key=lambda d: (
+                    rated.get(d, 0.0), self._read_share.get(d, 0)))
         return min(members, key=lambda d: self._read_share.get(d, 0))
 
     def _ensure_sweeper(self) -> None:
@@ -1867,8 +2027,12 @@ class KVWorker:
                     # window.
                     req.deadline = now + self._req_timeout * (
                         2 ** req.attempt)
+                    # A retried request's trace is kept even when the
+                    # retry succeeds: it shows why the first was lost.
+                    self._req_outcome.setdefault(ts, "retry")
                 for sl in troubled:
                     sl.retry_now = False
+                self._c_retries.inc(len(troubled))
                 retries.append((req, troubled))
         resender = self.po.van.resender
         for req, slices in retries:
@@ -1899,13 +2063,14 @@ class KVWorker:
         # Retries go to the primary (or its failover): a spread pull that
         # timed out or answered stale gets no second replica.
         sl.replica_read = False
-        sl.dest = self._route(sl.group_rank)
+        sl.dest = self._route(sl.group_rank, trace=req.trace)
         log.vlog(1, f"retry ts={req.ts} slice rank={sl.group_rank} -> "
                     f"node {sl.dest} (attempt {req.attempt}, bounces "
                     f"{req.bounces})")
         msg = self._slice_msg(req.ts, req.push, req.pull, req.cmd, sl.part,
                               sl.dest, req.val_nbytes, req.zpull,
-                              sl.group_rank, req.codec, sl.enc, req.tenant)
+                              sl.group_rank, req.codec, sl.enc, req.tenant,
+                              req.trace)
         try:
             self.po.van.send(msg)
             sl.sent_msg = msg
@@ -1958,9 +2123,16 @@ class KVWorker:
             # without building per-op messages.
             sender = msg.meta.sender
             hc = self._hot_cache
+            tracer = self.po.tracer
+            tr_active = tracer.active
             for op in info.ops:
                 ts = op.timestamp
                 discount = False
+                if tr_active and op.trace:
+                    # The envelope carries no trace id: the per-op
+                    # arrival instant bounds the response_wire stage.
+                    tracer.instant(op.trace, "recv",
+                                   args={"from": sender, "request": False})
                 try:
                     if self._req_timeout > 0:
                         discount = self._slice_answered(ts, op.key)
@@ -1984,7 +2156,12 @@ class KVWorker:
                     if not discount:
                         self._customer.add_response(ts)
             return
+        tracer = self.po.tracer
         for sub in split_batch_message(msg):
+            if tracer.active and sub.meta.trace:
+                tracer.instant(sub.meta.trace, "recv",
+                               args={"from": msg.meta.sender,
+                                     "request": False})
             try:
                 self._process(sub)
             except Exception as exc:  # noqa: BLE001 - count it anyway
@@ -2000,11 +2177,21 @@ class KVWorker:
             dst = self._pull_dst.pop(ts, None)
             zpull = ts in self._zpull_ts
             self._zpull_ts.discard(ts)
+            track = self._req_track.pop(ts, None)
             if ts in self._raw_ts:
                 # fetch_hot_keys: the caller takes the per-server KVPairs.
                 self._raw_ts.discard(ts)
                 self._raw_results[ts] = chunks
                 chunks = []
+        if track is not None:
+            t0, was_pull, trace, t0_us, parent = track
+            dur = time.monotonic() - t0
+            (self._h_pull_lat if was_pull else self._h_push_lat).observe(dur)
+            with self._mu:
+                outcome = self._req_outcome.pop(ts, None)
+            if trace:
+                self._finish_trace(ts, trace, was_pull, dur, t0_us,
+                                   parent, outcome)
         if zpull and chunks and dst is not None and all(
                 np.shares_memory(c.vals, dst[1]) for c in chunks):
             # Every slice was written in place: nothing to reassemble.
@@ -2100,6 +2287,19 @@ class KVServer:
         self._c_codec_wire = metrics.counter("codec.wire_bytes")
         # The bounded hot-key tracker HOT_KEYS_CMD answers from.
         self._hot_keys = metrics.topk("kv.hot_keys")
+        self._c_push_reqs = metrics.counter("kv.server_push_requests")
+        self._c_pull_reqs = metrics.counter("kv.server_pull_requests")
+        self._h_serial_apply = metrics.histogram("apply.latency_s")
+        self._c_shed = metrics.counter("qos.shed_requests")
+        # Per-tenant request/shed counters, and per tenant [last
+        # overload_shed flight event, suppressed count].
+        self._tenant_counters: Dict[int, tuple] = {}
+        self._shed_flight: Dict[int, list] = {}
+        self._c_wrong_owner = metrics.counter("kv.wrong_owner")
+        self._c_migrated_out = metrics.counter("kv.migrated_keys_out")
+        self._c_migrated_in = metrics.counter("kv.migrated_keys_in")
+        self._c_parked = metrics.counter("kv.parked_requests")
+        self._h_snapshot = metrics.histogram("snapshot.duration_s")
         # Tenants and admission: a tenant whose apply backlog reaches
         # PS_TENANT_QUEUE_LIMIT (default 1024 with PS_TENANTS, else off)
         # gets OPT_OVERLOAD instead of unbounded queueing.
@@ -2157,9 +2357,9 @@ class KVServer:
         # lets a leaver report REMOVE_DONE early.
         self._migrate_q: List[tuple] = []
         self._migrating = False
-        # JAX's kv.wrong_owner, kv.migrated_keys_in/out and
-        # kv.parked_requests counters (the registry is a no-op here).
-        self.stats = LocalCounts()
+        # stats["wrong_owner"], stats["migrated_keys_in"], ...: the kv.*
+        # counters above.
+        self.stats = CounterView(metrics, prefix="kv.")
         if self.po.elastic:
             # Ownership from the node's current table before the
             # customer delivers any parked request: a joiner that
@@ -2208,6 +2408,12 @@ class KVServer:
         self._ns_current: Tuple[str, str] = ("live", "")
         self._ns_staging = False
         self.po.register_snapshot_hook(self._on_snapshot_request)
+        if self._snapshot_dir:
+            # Sampled at METRICS_PULL: the watchdog's snapshot_age rule
+            # reads it.
+            metrics.gauge("snapshot.age_s",
+                          fn=lambda d=self._snapshot_dir:
+                          snapshot_mod.manifest_age_s(d))
         rep = env.find_int("PS_KV_REPLICATION", 1)
         if rep >= 2 and self.po.num_servers >= 2:
             self._replicator = Replicator(self, rep)
@@ -2265,7 +2471,7 @@ class KVServer:
                 directory=env.find("PS_STORE_DIR") or None,
                 shards=self._apply_shards if pool_eligible else 1,
                 hot_fn=lambda k=64: [kk for kk, _ in self._hot_keys.top(k)],
-                flight=self.po.flight,
+                metrics=self.po.metrics, flight=self.po.flight,
                 segment_mb=env.find_float("PS_STORE_SEGMENT_MB", 64.0))
         if pool_eligible:
             self._apply_pool = ApplyShardPool(handle, self._apply_shards,
@@ -2324,19 +2530,32 @@ class KVServer:
         manifest range this server owns.  A digest mismatch or a missing
         segment raises; a missing manifest is a logged cold start."""
         t0 = time.monotonic()
+        self.po.flight.record("restore_begin", severity="info",
+                              dir=self._snapshot_dir)
         manifest = snapshot_mod.load_manifest(self._snapshot_dir)
         if manifest is None:
             log.warning(
                 f"PS_SNAPSHOT_RESTORE=1 but no committed manifest under "
                 f"{self._snapshot_dir!r}; starting with an empty store")
+            self.po.flight.record("restore_end", severity="warn",
+                                  keys=0, reason="no manifest")
             return
         owned = self.po.server_key_ranges_of(self.po.my_group_rank())
-        n_keys, n_bytes = snapshot_mod.restore_into(
-            handle, self._snapshot_dir, owned, manifest=manifest)
+        try:
+            n_keys, n_bytes = snapshot_mod.restore_into(
+                handle, self._snapshot_dir, owned, manifest=manifest)
+        except Exception:
+            self.po.flight.record("restore_end", severity="crit",
+                                  keys=0, reason="restore failed")
+            raise
+        dur = time.monotonic() - t0
+        self.po.metrics.histogram("snapshot.restore_s").observe(dur)
+        self.po.flight.record("restore_end", severity="info", keys=n_keys,
+                              bytes=n_bytes, epoch=manifest.get("epoch"),
+                              duration_s=round(dur, 3))
         log.vlog(1, f"snapshot restore: {n_keys} keys "
                     f"({n_bytes >> 20} MiB) from epoch "
-                    f"{manifest.get('epoch')} in "
-                    f"{time.monotonic() - t0:.2f}s")
+                    f"{manifest.get('epoch')} in {dur:.2f}s")
 
     def _on_self_rehab(self, node_id: int, down: bool) -> None:
         if down or node_id != self.po.van.my_node.id:
@@ -2414,6 +2633,10 @@ class KVServer:
         m.tenant = req.tenant  # weighted shares hold on the way back
         m.stamp = req.stamp
         m.trace = req.trace
+        if req.trace and self.po.tracer.active:
+            self.po.tracer.instant(req.trace, "respond",
+                                   args={"to": req.sender,
+                                         "ts": req.timestamp})
         return msg
 
     def _resp_send_failed(self, msgs, exc: Exception) -> None:
@@ -2767,7 +2990,11 @@ class KVServer:
                     continue  # a dead primary's recovery restores it
                 total += self._replicator.backfill_range(
                     self._handle, Range(begin, end), oid)
-            self.stats.inc("replica_backfill_keys", total)
+            # (A port counter: made at the first backfill, so a
+            # cluster without one exports JAX's metric names.)
+            self.po.metrics.counter("kv.replica_backfill_keys").inc(total)
+            self.po.flight.record("replica_backfill", severity="info",
+                                  ranges=len(gained), keys=total)
         except Exception as exc:  # noqa: BLE001 - keep serving
             log.warning(f"replica backfill failed: {exc!r}")
         finally:
@@ -2801,7 +3028,7 @@ class KVServer:
                         park_full = True
                         break
                     ent["parked"].append(msg)
-                    self.stats.inc("parked_requests")
+                    self._c_parked.inc()
                     return True
             if not park_full:
                 table = self._table
@@ -2837,7 +3064,7 @@ class KVServer:
                         f"{m.timestamp} from {m.sender}")
             self.response_overload(meta)
             return True
-        self.stats.inc("wrong_owner")
+        self._c_wrong_owner.inc()
         self.response_wrong_owner(meta, epoch)
         return True
 
@@ -2865,7 +3092,7 @@ class KVServer:
                 if len(msg.data) > 2 else None)
         if len(keys):
             import_range(self._handle, keys, vals, lens)
-            self.stats.inc("migrated_keys_in", len(keys))
+            self._c_migrated_in.inc(len(keys))
         with self._elastic_mu:
             ent = self._pending_ranges.pop(m.key, None)
             if ent is None:
@@ -2954,7 +3181,7 @@ class KVServer:
                         f"; keeping the local copy")
             return
         self._drop_keys(keys)
-        self.stats.inc("migrated_keys_out", len(keys))
+        self._c_migrated_out.inc(len(keys))
         log.vlog(1, f"migrated {len(keys)} keys of [{e.begin}, {e.end}) "
                     f"-> rank {e.owner}")
 
@@ -3080,15 +3307,15 @@ class KVServer:
             # Model-namespace ops ride the same fence.
             self._run_namespace(sender, token, op, req)
             return
+        if op == "retune":
+            self._run_retune(sender, token, req)
+            return
         directory = req.get("dir") or self._snapshot_dir
         with self._elastic_mu:
             migrating = (bool(self._pending_ranges) or self._migrating
                          or bool(self._migrate_q))
         err = None
-        if op == "retune":
-            err = ("live apply retune is not yet ported to "
-                   "pslite_tpu_torch (ROADMAP Queue 1 item 8(c))")
-        elif op is not None:
+        if op is not None:
             err = f"unknown snapshot-channel op {op!r}"
         elif self._handle is None:
             err = "no request handle set"
@@ -3111,17 +3338,23 @@ class KVServer:
             return
         self._snapshotting = True
         t0 = time.monotonic()
+        self.po.flight.record("snapshot_begin", severity="info",
+                              dir=directory)
         err = self._quiesce_applies("a torn cut")
         if err is not None:
             # Exporting while shard threads still mutate arrays in place
             # would commit torn values under a digest that verifies them.
             self._snapshotting = False
             log.warning(f"snapshot: {err}")
+            self.po.flight.record("snapshot_end", severity="warn",
+                                  ok=False, error=err)
             self._snapshot_reply(sender, token, {"error": err})
             return
         with self._streams_mu:
             open_streams = len(self._streams)
         if open_streams:
+            self.po.flight.record("snapshot_open_streams",
+                                  severity="warn", streams=open_streams)
             # A chunked push mid-streaming-apply straddles the fence: its
             # fed prefix is in the cut, its tail is not.  It is still
             # unacked (its close has not been processed), so no
@@ -3138,6 +3371,8 @@ class KVServer:
                                  None if lens is None else np.asarray(lens)))
         except Exception as exc:  # noqa: BLE001 - veto the commit
             self._snapshotting = False
+            self.po.flight.record("snapshot_end", severity="warn",
+                                  ok=False, error=repr(exc)[:200])
             self._snapshot_reply(sender, token,
                                  {"error": f"export failed: {exc!r}"})
             return
@@ -3161,17 +3396,41 @@ class KVServer:
                 directory, rng.begin, rng.end, keys, vals, lens,
                 fmt=fmt, uid=uid)
                 for rng, keys, vals, lens in exported]
+            dur = time.monotonic() - t0
+            self._h_snapshot.observe(dur)
+            self.po.flight.record(
+                "snapshot_end", severity="info", ok=True,
+                keys=sum(e["keys"] for e in entries),
+                bytes=sum(e["nbytes"] for e in entries),
+                duration_s=round(dur, 3))
             self._snapshot_reply(sender, token, {
                 "rank": self.po.my_group_rank(),
                 "epoch": epoch,
                 "ranges": entries,
-                "duration_s": round(time.monotonic() - t0, 3),
+                "duration_s": round(dur, 3),
             })
         except Exception as exc:  # noqa: BLE001 - veto the commit
+            self.po.flight.record("snapshot_end", severity="warn",
+                                  ok=False, error=repr(exc)[:200])
             self._snapshot_reply(
                 sender, token, {"error": f"segment write failed: {exc!r}"})
         finally:
             self._snapshotting = False
+
+    def _run_retune(self, sender: int, token: int, req: dict) -> None:
+        """Live knob retune on the request thread, behind the snapshot
+        fence.  The one knob is the apply task quantum (the autopilot's
+        apply_wait actuator); a server without an apply pool answers
+        clean with nothing applied."""
+        applied = {}
+        tb = req.get("apply_task_bytes")
+        if tb is not None and self._apply_pool is not None:
+            applied["apply_task_bytes"] = \
+                self._apply_pool.set_task_bytes(int(tb))
+            self.po.flight.record("apply_retune", severity="info",
+                                  task_bytes=applied["apply_task_bytes"])
+        self._snapshot_reply(sender, token, {
+            "rank": self.po.my_group_rank(), "applied": applied})
 
     def _snapshot_reply(self, dest: int, token: int, payload: dict) -> None:
         msg = Message()
@@ -3241,6 +3500,7 @@ class KVServer:
             handle.store = new_store
             self._ns_current = (name, version)
             self._ns_staged = None
+            kind = "namespace_flip"
         else:  # rollback
             prev = self._ns_prev
             if prev is None:
@@ -3255,7 +3515,8 @@ class KVServer:
             self._ns_prev = (*self._ns_current, handle.store)
             handle.store = old_store
             self._ns_current = (name, version)
-        self._after_namespace_swap(name, version)
+            kind = "namespace_rollback"
+        self._after_namespace_swap(kind, name, version)
         self._snapshot_reply(sender, token, {
             "rank": self.po.my_group_rank(),
             "namespace": name, "version": version,
@@ -3275,13 +3536,16 @@ class KVServer:
                     f"{self._snapshot_quiesce_s}s — refusing {what}")
         return None
 
-    def _after_namespace_swap(self, name: str, version: str) -> None:
+    def _after_namespace_swap(self, kind: str, name: str,
+                              version: str) -> None:
         if self._qos_stamps:
             # Every hot-cache fill of the displaced namespace fails its
             # next check.
             with self._qos_mu:
                 self._push_version += 1
         self.po.model_namespace = {"name": name, "version": version}
+        self.po.flight.record(kind, severity="info", namespace=name,
+                              version=version)
 
     def _serving_ranges(self) -> list:
         """Every range this server answers reads for: its own, plus,
@@ -3304,6 +3568,7 @@ class KVServer:
                          name: str, version: str) -> None:
         """Background half of publish: restore the manifest into an
         off-line store while the live one serves; ``flip`` swaps it in."""
+        t0 = time.monotonic()
         try:
             manifest = snapshot_mod.load_manifest(directory)
             if manifest is None:
@@ -3312,6 +3577,10 @@ class KVServer:
             keys, nbytes = snapshot_mod.restore_into(
                 shim, directory, self._serving_ranges(), manifest)
             self._ns_staged = (name, version, shim.store)
+            self.po.flight.record(
+                "namespace_stage", severity="info", namespace=name,
+                version=version, keys=keys,
+                duration_s=round(time.monotonic() - t0, 3))
             self._snapshot_reply(sender, token, {
                 "rank": self.po.my_group_rank(), "staged": name,
                 "version": version, "keys": keys, "bytes": nbytes,
@@ -3436,7 +3705,46 @@ class KVServer:
         if not (self._admit_limit > 0 and self._apply_pool is not None
                 and meta.option != OPT_REPLICA and meta.cmd == 0):
             return False
-        return self._admission_overloaded(meta.tenant, extra=extra)
+        self._tenant_counter(meta.tenant, "requests").inc()
+        if self._admission_overloaded(meta.tenant, extra=extra):
+            self._c_shed.inc()
+            self._tenant_counter(meta.tenant, "shed").inc()
+            # Sheds are the watchdog's overload signal.
+            self._record_shed_flight(meta.tenant, meta.sender,
+                                     meta.timestamp, trace=meta.trace)
+            return True
+        return False
+
+    def _tenant_counter(self, tid: int, kind: str):
+        """``tenant.<name>.requests`` / ``.shed``, made at first use."""
+        ent = self._tenant_counters.get(tid)
+        if ent is None:
+            name = self.tenants.name(tid)
+            ent = self._tenant_counters[tid] = (
+                self.po.metrics.counter(f"tenant.{name}.requests"),
+                self.po.metrics.counter(f"tenant.{name}.shed"))
+        return ent[0] if kind == "requests" else ent[1]
+
+    # Coalescing window of overload_shed flight events (seconds).
+    _SHED_FLIGHT_WINDOW_S = 0.5
+
+    def _record_shed_flight(self, tenant_id: int, sender: int, ts: int,
+                            trace: int = 0) -> None:
+        """One overload_shed flight event per tenant per window, with
+        the count it suppressed (sheds come at request rate under a
+        storm and would wrap the ring).  The processing thread only."""
+        ent = self._shed_flight.setdefault(tenant_id, [0.0, 0])
+        now = time.monotonic()
+        if now - ent[0] >= self._SHED_FLIGHT_WINDOW_S:
+            detail = {"trace": f"{trace:x}"} if trace else {}
+            self.po.flight.record(
+                "overload_shed", severity="warn",
+                tenant=self.tenants.name(tenant_id), sender=sender, ts=ts,
+                coalesced=ent[1], **detail)
+            ent[0] = now
+            ent[1] = 0
+        else:
+            ent[1] += 1
 
     def _intake_pull_stamp(self, meta: KVMeta) -> None:
         """A pull's hot-cache stamp, taken at intake: every push counted
@@ -3524,8 +3832,16 @@ class KVServer:
                 not in self._recv_buffers):
             kvs.enc = (codes, scales, ci)
         else:
+            t0 = time.monotonic()
             kvs.vals = codec.decode(codes, scales, n_el, lens=kvs.lens,
                                     flags=ci.flags)
+            if meta.trace and self.po.tracer.active:
+                dur = time.monotonic() - t0
+                now = self.po.tracer.now_us()
+                self.po.tracer.span(
+                    meta.trace, "codec_decode", now - dur * 1e6, dur * 1e6,
+                    args={"codec": codec.name,
+                          "raw_mb": round(ci.raw_len / 2**20, 1)})
         return kvs, wire
 
     def _intake_replicate(self, meta: KVMeta, kvs: KVPairs,
@@ -3665,6 +3981,14 @@ class KVServer:
                       key=m.key, addr=m.addr, val_len=m.val_len,
                       option=m.option, priority=m.priority, codec=m.codec,
                       trace=m.trace, tenant=m.tenant, stamp=m.stamp)
+        if meta.trace and self.po.tracer.active:
+            recv_us = getattr(msg, "_recv_us", None)
+            if recv_us is not None:
+                # Wire arrival to this request thread: the customer
+                # queue's wait (the critical path's server_queue).
+                self.po.tracer.span(meta.trace, "server_queue", recv_us,
+                                    args={"ts": meta.timestamp,
+                                          "push": meta.push})
         self._intake_pull_stamp(meta)
         if meta.cmd == BATCH_PROBE_CMD and meta.pull:
             # The batch capability probe, answered before the handler
@@ -3684,11 +4008,19 @@ class KVServer:
                 keys=np.array([k for k, _ in top], dtype=np.uint64),
                 vals=np.array([n for _, n in top], dtype=np.float32)))
             return
+        if meta.option == OPT_REPLICA and self.tenants.enabled:
+            # A forward carries its origin tenant: the replica's rollup
+            # attributes the apply load to it.
+            self._tenant_counter(meta.tenant, "requests").inc()
         if self._intake_admission(meta):
             # The tenant's bounded queue is full: shed before any apply,
             # so the request is all or nothing.
             self.response_overload(meta)
             return
+        if meta.push:
+            self._c_push_reqs.inc()
+        if meta.pull:
+            self._c_pull_reqs.inc()
         kvs, wire_payload = self._intake_decode(meta, msg.data, lazy_ok=True)
         self._intake_hot_keys(kvs.keys)
         reg = None
@@ -3720,7 +4052,15 @@ class KVServer:
             # the pump overwrites the buffer with the sender's next push.
             self._apply_pool.submit(meta, kvs, wait=reg is not None)
             return
+        t0 = time.monotonic()
         self._handle(meta, kvs, self)
+        dur = time.monotonic() - t0
+        self._h_serial_apply.observe(dur)
+        if meta.trace and self.po.tracer.active:
+            now = self.po.tracer.now_us()
+            self.po.tracer.span(meta.trace, "apply", now - dur * 1e6,
+                                dur * 1e6, args={"keys": len(kvs.keys),
+                                                 "push": meta.push})
 
     # -- batched frames -------------------------------------------------------
 
@@ -3762,6 +4102,8 @@ class KVServer:
         kvss: List[KVPairs] = []
         results: List[Optional[tuple]] = []
         admitted = 0
+        recv_us = getattr(msg, "_recv_us", None)
+        tracer = self.po.tracer
         for sub in subs:
             sm = sub.meta
             meta = KVMeta(cmd=0, push=sm.push, pull=sm.pull,
@@ -3770,6 +4112,11 @@ class KVServer:
                           val_len=sm.val_len, option=0,
                           priority=env.priority, codec=sm.codec,
                           tenant=env.tenant, trace=sm.trace, stamp=sm.stamp)
+            if sm.trace and tracer.active and recv_us is not None:
+                # Off the envelope's arrival: each traced member
+                # attributes the frame's one wait.
+                tracer.span(sm.trace, "server_queue", recv_us,
+                            args={"ts": sm.timestamp, "push": sm.push})
             kvs, wire_payload = self._intake_decode(meta, sub.data,
                                                     lazy_ok=False)
             self._intake_pull_stamp(meta)
@@ -3778,12 +4125,17 @@ class KVServer:
             if self._intake_admission(meta, extra=admitted):
                 # Sheds are per sub-op: this op fails, its siblings apply.
                 result = ("overload",)
-            elif self._intake_replicate(meta, kvs, wire_payload):
-                # Forwards and dedup per sub-op, in op order on this
-                # thread, each with its own origin (ts, key).
-                result = ("ok", None)  # a pure-push duplicate: ack only
             else:
-                admitted += 1
+                if meta.push:
+                    self._c_push_reqs.inc()
+                if meta.pull:
+                    self._c_pull_reqs.inc()
+                if self._intake_replicate(meta, kvs, wire_payload):
+                    # Forwards and dedup per sub-op, in op order on this
+                    # thread, each with its own origin (ts, key).
+                    result = ("ok", None)  # a pure-push duplicate: ack
+                else:
+                    admitted += 1
             metas.append(meta)
             kvss.append(kvs)
             results.append(result)
@@ -3797,6 +4149,7 @@ class KVServer:
             if results[i] is not None:
                 continue
             cap = _OpCapture(self)
+            t0 = time.monotonic()
             try:
                 self._handle(meta, kvs, cap)
                 results[i] = cap.result
@@ -3804,6 +4157,7 @@ class KVServer:
                 log.warning(f"batched apply failed for ts={meta.timestamp} "
                             f"from {meta.sender}: {exc!r}")
                 results[i] = ("error",)
+            self._h_serial_apply.observe(time.monotonic() - t0)
         self.response_batch(env_meta, metas, results)
 
     def response_batch(self, env: KVMeta, metas, results) -> None:
@@ -3823,6 +4177,8 @@ class KVServer:
         m.key = metas[0].key
         m.priority = env.priority
         m.tenant = env.tenant
+        tracer = self.po.tracer
+        tr_active = tracer.active
         ops = []
         for meta, result in zip(metas, results):
             kind = result[0] if result is not None else "ok"
@@ -3859,6 +4215,12 @@ class KVServer:
                                                        dtype=np.int32)))
                         nseg += 1
             self._await_forwards(meta)
+            if meta.trace and tr_active:
+                # The batched analog of a single response's respond
+                # instant.
+                tracer.instant(meta.trace, "respond",
+                               args={"to": env.sender,
+                                     "ts": meta.timestamp})
             m.push = m.push or meta.push
             m.pull = m.pull or meta.pull
             ops.append(BatchOp(push=meta.push, pull=meta.pull,

@@ -28,9 +28,10 @@ Restore moves the handle's ``store`` (or the pair
 ``KVServerOptimizerHandle`` packs its momentum/adam slots into the same
 records, so replica restores and snapshots carry optimizer state.
 
-The port's metrics registry is a no-op stand-in (ROADMAP Queue 1 item
-8(c)), so ``forwarded``, ``deduped``, the forward lag and the stamp lag
-are counted here (``stats``), not in the registry.  Under elastic
+Counters and gauges go to the node registry under the JAX package's
+names (``replication.forwards``, ``.dedup_hits``, ``.lag``,
+``.applied_stamp_lag``); ``forwarded``, ``deduped`` and ``stats`` read
+them.  Under elastic
 membership chains follow the routing epoch's active ranks
 (``active=``): departed ranks drop out and joiners join, and a server
 that newly replicates a range backfills it (``backfill_range``).
@@ -46,7 +47,8 @@ import numpy as np
 from ..base import server_rank_to_id
 from ..message import Message, OPT_REPLICA, REPLICA_FETCH_CMD
 from ..sarray import SArray
-from ..telemetry import LocalCounts
+from ..telemetry.metrics import node_registry
+from ..telemetry.views import CounterView
 from ..utils import logging as log
 from ..utils.bounded import BoundedKeySet
 
@@ -122,6 +124,7 @@ def import_range(handle, keys, vals, lens) -> None:
     store = getattr(handle, "store", None)
     log.check(store is not None,
               "state import needs a handle with .store or import_range()")
+    staged = {}
     off = 0
     for i, key in enumerate(keys):
         # A negative len tags a slot-packed optimizer record (its
@@ -137,8 +140,15 @@ def import_range(handle, keys, vals, lens) -> None:
             f"import into a plain store — use the matching optimizer "
             f"handle",
         )
-        store[int(key)] = vals[off:off + raw].copy()
+        staged[int(key)] = vals[off:off + raw].copy()
         off += raw
+    # One update: a reader (a snapshot, a test's poll) never sees half a
+    # range.
+    if isinstance(store, dict):
+        store.update(staged)
+    else:
+        for key, val in staged.items():
+            store[key] = val
 
 
 class Replicator:
@@ -168,7 +178,12 @@ class Replicator:
         # After a range import cut at primary stamp F, forwards stamped
         # <= F are already in the imported state.
         self._import_floor: Dict[int, int] = {}
-        self.stats = LocalCounts()
+        reg = node_registry(getattr(self.po, "metrics", None))
+        self._c_forwarded = reg.counter("replication.forwards")
+        self._c_deduped = reg.counter("replication.dedup_hits")
+        reg.gauge("replication.lag", fn=self.pending_forwards)
+        reg.gauge("replication.applied_stamp_lag", fn=self.stamp_lag)
+        self.stats = CounterView(reg, prefix="replication.")
         # A recovered worker restarts its timestamps at 0: its new
         # pushes must not collide with its dead life's origins.
         self.po.register_node_failure_hook(self._on_node_event)
@@ -239,7 +254,7 @@ class Replicator:
         origin = self._origin(meta)
         with self._mu:
             if not self._applied.add(origin):
-                self.stats.inc("dedup_hits")
+                self._c_deduped.inc()
                 return False
         return True
 
@@ -379,7 +394,7 @@ class Replicator:
             msg._sent_event = threading.Event()
             try:
                 van.send(msg)
-                self.stats.inc("forwards")
+                self._c_forwarded.inc()
                 sent.append(msg._sent_event)
             except Exception as exc:  # noqa: BLE001 - replica may be down
                 log.warning(f"replica forward to {rid} failed: {exc!r}")

@@ -29,11 +29,11 @@ window).
 The tier is not durable: the index lives in RAM and segments go on
 ``close()``; snapshots (``kv/snapshot.py``) are the durability story.
 
-The counters JAX keeps in its registry (``kv.tier_gets``,
-``kv.cold_hits``, ``kv.cold_misses``, ``kv.promotions``,
-``kv.evictions``) are counted in ``stats`` (without the ``kv.``
-prefix), because the port's registry is a no-op (ROADMAP Queue 1 item
-8(c)); the ``tier_pressure`` flight event goes to the no-op recorder.
+Counters go to the node registry under the JAX package's names
+(``kv.tier_gets``, ``kv.cold_hits``, ``kv.cold_misses``,
+``kv.promotions``, ``kv.evictions``) and read through ``stats``
+without the ``kv.`` prefix; a cold-read burst records a
+``tier_pressure`` flight event.
 """
 
 from __future__ import annotations
@@ -49,7 +49,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..telemetry import FlightRecorder, LocalCounts
+from ..telemetry.flight import NULL_FLIGHT
+from ..telemetry.metrics import node_registry
+from ..telemetry.views import CounterView
 
 # Cold reads within one pressure window that trip a tier_pressure
 # flight event (coalesced: at most one event per window).
@@ -102,15 +104,17 @@ class TieredStore:
         # beyond-RAM restore would materialize the whole table in RAM
         # before the first get() ever runs.
         self._evict_on_insert = False
-        # ``metrics`` is accepted for the JAX call surface; the counts
-        # live here.
-        self.stats = LocalCounts()
-        self._c_gets = self.stats.counter("tier_gets")
-        self._c_cold_hits = self.stats.counter("cold_hits")
-        self._c_cold_misses = self.stats.counter("cold_misses")
-        self._c_promotions = self.stats.counter("promotions")
-        self._c_evictions = self.stats.counter("evictions")
-        self._flight = flight or FlightRecorder()
+        reg = node_registry(metrics)
+        self._c_gets = reg.counter("kv.tier_gets")
+        self._c_cold_hits = reg.counter("kv.cold_hits")
+        self._c_cold_misses = reg.counter("kv.cold_misses")
+        self._c_promotions = reg.counter("kv.promotions")
+        self._c_evictions = reg.counter("kv.evictions")
+        reg.gauge("kv.tier_ram_bytes", fn=lambda: self._ram_bytes)
+        reg.gauge("kv.tier_cold_bytes", fn=lambda: self._cold_bytes)
+        # The counters without their ``kv.`` prefix (``stats["evictions"]``).
+        self.stats = CounterView(reg, prefix="kv.")
+        self._flight = flight or NULL_FLIGHT
         # [window start monotonic, cold reads this window, reported?]
         self._pressure = [time.monotonic(), 0, False]
 

@@ -82,6 +82,7 @@ import contextlib
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Union
 
@@ -220,6 +221,7 @@ class CollectiveEngine:
         impl: Optional[str] = None,
         worker_axis: Optional[str] = None,
         wire_compress: Optional[str] = None,
+        profiler=None,
     ):
         if isinstance(axis_name, (tuple, list)):
             # A composite kv axis (a 3-D torus with worker_axis): the
@@ -269,6 +271,9 @@ class CollectiveEngine:
         # send_bytes/recv_bytes counterpart).
         self.push_bytes = 0
         self.pull_bytes = 0
+        # The van's event Profiler (ENABLE_PROFILING): one engine event
+        # per data-plane op.
+        self.profiler = profiler
         self._counter_mu = threading.Lock()
 
     def _layout(self, group: DeviceGroup, axis) -> tuple:
@@ -553,13 +558,24 @@ class CollectiveEngine:
         # it stale before it reads them.
         return plain(g.contiguous())
 
-    def _observe(self, op: str, bucket: DenseBucket) -> None:
+    def _observe(self, name: str, op: str, bucket: DenseBucket,
+                 t0: float) -> None:
+        """Account one data-plane op: the byte counters, and the
+        ``(bucket, op, bytes, us)`` event when profiling is on.  The us
+        field is dispatch latency (op entry to the launches' enqueue),
+        not device time: kernels run asynchronously, and
+        ``utils.profiling.device_trace`` times them on the card."""
         payload = bucket.total_len * bucket.dtype.itemsize
         with self._counter_mu:
             if op in ("push", "push_pull"):
                 self.push_bytes += payload
             if op in ("pull", "push_pull"):
                 self.pull_bytes += payload
+        if self.profiler is not None and getattr(self.profiler, "enabled",
+                                                 False):
+            dur_us = int((time.perf_counter() - t0) * 1e6)
+            nbytes = payload * (2 if op == "push_pull" else 1)
+            self.profiler.record_engine(name, op, nbytes, dur_us)
 
     def _update(self, name: str, bucket: DenseBucket, grads,
                 handle: Optional[ServerHandle], with_pull: bool,
@@ -613,10 +629,11 @@ class CollectiveEngine:
         the JAX engine, where the next op donates the store, the bucket's
         next mutating op makes it stale: a use raises, ``is_deleted()`` is
         True."""
+        t0 = time.perf_counter()
         bucket = self._buckets[name]
         pulled = self._update(name, bucket, grads, handle, with_pull=True,
                               zero_copy=zero_copy)
-        self._observe("push_pull", bucket)
+        self._observe(name, "push_pull", bucket, t0)
         if isinstance(pulled, ZeroCopyHandle):
             return pulled  # padded == total on a zero-copy configuration
         return pulled[: bucket.total_len]
@@ -625,11 +642,12 @@ class CollectiveEngine:
              handle: Optional[ServerHandle] = None) -> torch.Tensor:
         """Push + aggregate + update; returns a tiny completion token (a
         fresh 1-element tensor written after the update)."""
+        t0 = time.perf_counter()
         bucket = self._buckets[name]
         self._update(name, bucket, grads, handle, with_pull=False)
         with self._bucket_mu[name]:
             token = self._stores[name][:1].clone()
-        self._observe("push", bucket)
+        self._observe(name, "push", bucket, t0)
         return token
 
     def coalescer(self, handle: Optional[ServerHandle] = None, **kw):
@@ -652,6 +670,7 @@ class CollectiveEngine:
         bit-identical to their single push_pulls; otherwise each bucket
         takes the torch path.  The buckets' locks are taken in sorted
         order for the whole call."""
+        t0 = time.perf_counter()
         log.check(len(names) == len(grads_list), "names/grads mismatch")
         log.check(len(set(names)) == len(names),
                   "duplicate bucket in group (each store is updated in "
@@ -684,8 +703,11 @@ class CollectiveEngine:
         finally:
             for n in reversed(ordered):
                 self._bucket_mu[n].release()
-        for b in buckets:
-            self._observe("push_pull", b)
+        for i, (n, b) in enumerate(zip(names, buckets)):
+            # One dispatch: its latency goes to the first bucket's event
+            # (zero for the rest), so summed durations are not inflated.
+            self._observe(n, "push_pull", b,
+                          t0 if i == 0 else time.perf_counter())
         return [p[: b.total_len] for p, b in zip(pulled, buckets)]
 
     # -- multi-step replay ----------------------------------------------------
@@ -739,6 +761,7 @@ class CollectiveEngine:
         + fused optimizer kernel); the rest T torch steps.  The results
         equal T sequential ``push_pull`` calls bit for bit."""
         log.check(keep in ("all", "last"), f"bad keep {keep!r}")
+        t0 = time.perf_counter()
         bucket = self._buckets[name]
         resolved = self._resolve_handle(handle)
         zc = (zero_copy and keep == "last"
@@ -775,6 +798,11 @@ class CollectiveEngine:
         with self._counter_mu:
             self.push_bytes += payload * steps
             self.pull_bytes += payload * (steps if keep == "all" else 1)
+        if self.profiler is not None and getattr(self.profiler, "enabled",
+                                                 False):
+            dur_us = int((time.perf_counter() - t0) * 1e6)
+            nbytes = payload * (steps + (steps if keep == "all" else 1))
+            self.profiler.record_engine(name, "replay", nbytes, dur_us)
         if zc:
             return outs
         if keep == "all":
@@ -877,6 +905,7 @@ class CollectiveEngine:
         a pull buffer is registered (:meth:`register_pull_buffer`), a
         fresh handle of that ``[padded]`` buffer, overwritten in place:
         the previous pull's handle is stale from then on."""
+        t0 = time.perf_counter()
         bucket = self._buckets[name]
         with self._bucket_mu[name]:
             pinned = self._pinned_pulls.get(name)
@@ -888,7 +917,7 @@ class CollectiveEngine:
                 self._pinned_pulls[name] = (buf, gen, pulled)
             else:
                 pulled = self._stores[name][: bucket.total_len].clone()
-        self._observe("pull", bucket)
+        self._observe(name, "pull", bucket, t0)
         return pulled
 
     def register_pull_buffer(self, name: str) -> torch.Tensor:

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -155,7 +156,7 @@ class SparseEngine:
     W workers = S shards, the colocated layout)."""
 
     def __init__(self, group: Optional[DeviceGroup] = None,
-                 axis_name: str = "kv"):
+                 axis_name: str = "kv", profiler=None):
         self.group = group if group is not None else default_group(axis_name)
         log.check(axis_name in self.group.axis_names,
                   f"axis {axis_name!r} not in the device group")
@@ -166,6 +167,8 @@ class SparseEngine:
         self.push_bytes = 0
         self.pull_bytes = 0
         self._counter_mu = threading.Lock()
+        # The van's event Profiler (ENABLE_PROFILING).
+        self.profiler = profiler
         self._tables: Dict[str, SparseTable] = {}
         self._stores: Dict[str, torch.Tensor] = {}
         # Row-wise Adagrad accumulators ([rps*S] f32, the table's row
@@ -220,13 +223,21 @@ class SparseEngine:
                      "bad grads shape")
         return idx, g
 
-    def _observe(self, op: str, table: SparseTable, batch: int) -> None:
+    def _observe(self, name: str, op: str, table: SparseTable, batch: int,
+                 t0: float) -> None:
+        """Byte counters, and the ``sparse_<op>`` profiler event
+        (dispatch latency, as the dense engine's)."""
         payload = self.num_shards * batch * table.dim * table.dtype.itemsize
         with self._counter_mu:
             if op == "push":
                 self.push_bytes += payload
             else:
                 self.pull_bytes += payload
+        if self.profiler is not None and getattr(self.profiler, "enabled",
+                                                 False):
+            dur_us = int((time.perf_counter() - t0) * 1e6)
+            self.profiler.record_engine(name, f"sparse_{op}", payload,
+                                        dur_us)
 
     def _ensure_acc(self, name: str, table: SparseTable) -> None:
         if name not in self._acc:
@@ -268,24 +279,26 @@ class SparseEngine:
         accumulator (``acc += mean(G**2)``) and the row steps by ``-lr *
         G / (sqrt(acc) + eps)``.  Returns a tiny completion token (a fresh
         tensor written after the update)."""
+        t0 = time.perf_counter()
         table = self._tables[name]
         idx, g = self._prep(table, indices, grads)
         with self._table_mu[name]:
             self._push_locked(name, table, idx, g, handle)
             token = self._stores[name][:1, :1].clone()
-        self._observe("push", table, int(idx.shape[1]))
+        self._observe(name, "push", table, int(idx.shape[1]), t0)
         return token
 
     def pull(self, name: str, indices) -> torch.Tensor:
         """indices: [W, n] -> [W, n, d] rows, each worker receiving its own
         batch (a fresh tensor; zeros for out-of-range indices)."""
+        t0 = time.perf_counter()
         table = self._tables[name]
         idx, _ = self._prep(table, indices)
         with self._table_mu[name]:
             out = sparse_rows.gather_rows(self._stores[name], idx,
                                           self.num_shards,
                                           table.rows_per_shard)
-        self._observe("pull", table, int(idx.shape[1]))
+        self._observe(name, "pull", table, int(idx.shape[1]), t0)
         return out
 
     def _lock_tables(self, names):
@@ -303,6 +316,7 @@ class SparseEngine:
         """Push several tables in one call; same semantics per table as
         :meth:`push` (``handle`` applies to all).  In this slice each
         table still takes its own kernel launch."""
+        t0 = time.perf_counter()
         log.check(len(names) == len(indices_list) == len(grads_list),
                   "group length mismatch")
         log.check(len(set(names)) == len(names), "duplicate table in group")
@@ -316,13 +330,15 @@ class SparseEngine:
             token = self._stores[names[0]][:1, :1].clone()
         finally:
             self._unlock_tables(ordered)
-        for t, (idx, _) in zip(tables, prepped):
-            self._observe("push", t, int(idx.shape[1]))
+        for i, (n, t, (idx, _)) in enumerate(zip(names, tables, prepped)):
+            self._observe(n, "push", t, int(idx.shape[1]),
+                          t0 if i == 0 else time.perf_counter())
         return token
 
     def pull_group(self, names, indices_list):
         """Pull several tables in one call; returns the list of
         ``[W, n_i, d_i]`` tensors in ``names`` order."""
+        t0 = time.perf_counter()
         log.check(len(names) == len(indices_list), "group length mismatch")
         tables = [self._tables[n] for n in names]
         idxs = [self._prep(t, i)[0] for t, i in zip(tables, indices_list)]
@@ -334,8 +350,9 @@ class SparseEngine:
                     for n, t, idx in zip(names, tables, idxs)]
         finally:
             self._unlock_tables(ordered)
-        for t, idx in zip(tables, idxs):
-            self._observe("pull", t, int(idx.shape[1]))
+        for i, (n, t, idx) in enumerate(zip(names, tables, idxs)):
+            self._observe(n, "pull", t, int(idx.shape[1]),
+                          t0 if i == 0 else time.perf_counter())
         return outs
 
     # -- state ---------------------------------------------------------------

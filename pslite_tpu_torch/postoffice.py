@@ -20,10 +20,14 @@ through ``register_snapshot_hook``.  Elastic membership
 ``apply_routing`` with its hooks, ``active_server_ranks``, the
 scheduler's migration ledger that a snapshot waits on, and
 ``request_decommission``); the van admits joiners and retires leavers.
-The scheduler passes no load hint to ``with_join`` (it splits the widest
-range), since the metrics pulls that feed JAX's ``hot_key_hint`` are
-ROADMAP Queue 1 item 8(c), as are ``retune_apply``, telemetry history
-and health.
+The scheduler passes its ``hot_key_hint`` (the servers' hot-key tables
+of the last metrics pull) to ``with_join``.
+
+Telemetry: one metrics ``Registry``, ``Tracer`` and ``FlightRecorder``
+per node (``PS_TELEMETRY``), the scheduler's pulls
+(``collect_cluster_metrics``, ``collect_cluster_traces``), its
+``ClusterHistory`` sampler with the SLO watchdog (``start_history``,
+``health``) and, under ``PS_AUTOPILOT``, the autopilot.
 """
 
 from __future__ import annotations
@@ -45,13 +49,16 @@ from .base import (
     WORKER_GROUP,
     group_members,
     id_to_rank,
+    is_server_id,
     server_rank_to_id,
     worker_rank_to_id,
 )
 from .message import Command, Control, Message, Node, Role
 from .range import Range
 from .routing import RoutingTable
-from .telemetry import FlightRecorder, Tracer
+from .telemetry.flight import FlightRecorder
+from .telemetry.metrics import Registry
+from .telemetry.tracing import Tracer
 from .utils import logging as log
 
 
@@ -125,6 +132,30 @@ class Postoffice:
         self._removed_event = threading.Event()
         self._node_ids: Dict[int, List[int]] = {}
         self._build_node_id_table()
+        # Per-node telemetry: one metrics registry, tracer and flight
+        # recorder per Postoffice (per node even when many logical nodes
+        # share a process), built before the van so transports can
+        # instrument from __init__.
+        self.metrics = Registry(
+            enabled=self.env.find_bool("PS_TELEMETRY", True))
+        self.tracer = Tracer(self.env, self.role_str(),
+                             metrics=self.metrics)
+        self.flight = FlightRecorder(self.env, self.role_str())
+        # METRICS_PULL / TRACE_PULL gather state (scheduler).  Whole
+        # pulls serialize under _collect_mu: a second pull would bump
+        # the token mid-collection and discard the first one's replies.
+        self._collect_mu = threading.Lock()
+        self._metrics_cv = threading.Condition()
+        self._metrics_token = 0
+        self._metrics_replies: Dict[int, dict] = {}
+        self._metrics_last_seen: Dict[int, float] = {}
+        self._trace_token = 0
+        self._trace_replies: Dict[int, dict] = {}
+        self._trace_collector = None  # telemetry.TraceCollector
+        # The scheduler's ClusterHistory sampler and watchdog: built by
+        # start_history(), started by start() when PS_METRICS_INTERVAL
+        # > 0.
+        self.history = None
         # The snapshot plane: the scheduler's token-gated gather and the
         # servers' hook registry (a KVServer takes SNAPSHOT requests off
         # the van pump).
@@ -136,8 +167,6 @@ class Postoffice:
         self.snapshot_dir = self.env.find("PS_SNAPSHOT_DIR") or None
         # The published model namespace (set by a server's flip).
         self.model_namespace: Optional[dict] = None
-        self.tracer = Tracer()
-        self.flight = FlightRecorder()
         van_type = (self.env.find("PS_VAN_TYPE")
                     or self.env.find("DMLC_ENABLE_RDMA") or "tcp")
         self.van = vans.create(van_type, self)
@@ -256,6 +285,9 @@ class Postoffice:
         self.van.start(customer_id)
         if do_barrier and not self.van.my_node.is_recovery:
             self.barrier(customer_id, ALL_GROUP, instance=True)
+        if (self.is_scheduler
+                and self.env.find_float("PS_METRICS_INTERVAL", 0.0) > 0):
+            self.start_history()
         log.vlog(1, f"{self.role_str()}[{self.instance_idx}] started")
 
     def finalize(self, customer_id: int = 0, do_barrier: bool = True) -> None:
@@ -375,6 +407,15 @@ class Postoffice:
             self.num_servers = table.num_servers
             self._active_server_ranks = list(table.active)
             self._build_node_id_table()
+            # Departed servers must not linger as stale rows of the
+            # last-seen table the pulls keep.
+            live = set(table.active) | set(table.leaving)
+            with self._metrics_cv:
+                for nid in list(self._metrics_last_seen):
+                    if (is_server_id(nid)
+                            and id_to_rank(nid) // self.group_size
+                            not in live):
+                        del self._metrics_last_seen[nid]
         log.vlog(1, f"routing epoch {table.epoch}: active="
                     f"{list(table.active)} leaving={list(table.leaving)} "
                     f"entries={len(table.entries)}")
@@ -457,6 +498,25 @@ class Postoffice:
         ok = self._removed_event.wait(timeout_s)
         log.check(ok, f"decommission did not complete in {timeout_s}s")
 
+    def hot_key_hint(self) -> Dict[int, int]:
+        """Scheduler: the load hint of a load-weighted range split, the
+        union of the ``kv.hot_keys`` top-k tables of the last
+        METRICS_PULL replies; empty before any pull (the split then
+        falls back to the widest range)."""
+        with self._metrics_cv:
+            replies = dict(self._metrics_replies)
+        hint: Dict[int, int] = {}
+        for snap in replies.values():
+            top = (snap.get("metrics", {}) or {}).get(
+                "topk", {}).get("kv.hot_keys") or []
+            for item in top:
+                try:
+                    k, n = int(item[0]), int(item[1])
+                except (TypeError, ValueError, IndexError):
+                    continue
+                hint[k] = hint.get(k, 0) + n
+        return hint
+
     # -- customers -----------------------------------------------------------
 
     def add_customer(self, customer) -> None:
@@ -502,7 +562,13 @@ class Postoffice:
 
     def update_heartbeat(self, node_id: int, t: float) -> None:
         with self._heartbeat_mu:
+            prev = self._heartbeats.get(node_id)
             self._heartbeats[node_id] = t
+        if prev is not None and t > prev:
+            # The observed beat gap: a p99 creeping toward
+            # PS_HEARTBEAT_TIMEOUT warns before the detector fires.
+            self.metrics.histogram("heartbeat.gap_s", lo=1e-3).observe(
+                t - prev)
 
     def get_dead_nodes(self, timeout_s: float = 60) -> List[int]:
         """Nodes silent for more than ``timeout_s`` (reference:
@@ -518,6 +584,219 @@ class Postoffice:
             return [i for i in expected
                     if self._heartbeats.get(i, self._start_time) + timeout_s
                     < now]
+
+    # -- cluster telemetry (METRICS_PULL, TRACE_PULL) ------------------------
+
+    def telemetry_snapshot(self) -> dict:
+        """This node's registry snapshot with its identity: the payload
+        of a METRICS_PULL reply."""
+        # Drain the wire plane's thread shards and the native core's
+        # counter block first; a dying transport must not break the
+        # snapshot.
+        try:
+            self.van.wire_sync()
+        except Exception:  # noqa: BLE001
+            pass
+        snap = {
+            "node_id": self.van.my_node.id,
+            "role": self.role_str(),
+            "rank": (id_to_rank(self.van.my_node.id)
+                     if self.van.my_node.id > 1 else 0),
+            "wall_time": time.time(),
+            "metrics": self.metrics.snapshot(),
+        }
+        rt = self.current_routing()
+        if rt is not None:
+            routing = {"epoch": rt.epoch, "active": list(rt.active),
+                       "leaving": list(rt.leaving)}
+            if self.is_server:
+                routing["owned"] = [
+                    [r.begin, r.end]
+                    for r in rt.ranges_of(self.my_group_rank())]
+            snap["routing"] = routing
+        if self.model_namespace:
+            snap["namespace"] = self.model_namespace
+        return snap
+
+    def absorb_metrics_reply(self, msg: Message) -> None:
+        """Van hook: a node's METRICS_PULL reply arrived."""
+        try:
+            snap = json.loads(msg.meta.body.decode())
+        except Exception as exc:  # noqa: BLE001 - a corrupt reply must
+            log.warning(f"bad METRICS_PULL reply: {exc!r}")  # not wedge
+            snap = {"node_id": msg.meta.sender, "error": repr(exc)}
+        with self._metrics_cv:
+            self._metrics_last_seen[msg.meta.sender] = time.time()
+            if msg.meta.timestamp != self._metrics_token:
+                return  # a stale reply of an earlier (timed-out) pull
+            self._metrics_replies[msg.meta.sender] = snap
+            self._metrics_cv.notify_all()
+
+    def _pull(self, cmd: Command, body: bytes, timeout_s: float,
+              replies_attr: str, token_attr: str) -> Dict[int, dict]:
+        """Broadcast one pull request to every live worker and server
+        and gather the replies (absent: a node that did not answer in
+        ``timeout_s``).  The caller holds ``_collect_mu``."""
+        peers = [i for i in self.get_node_ids(WORKER_GROUP + SERVER_GROUP)
+                 if not self.van.is_peer_down(i)]
+        with self._metrics_cv:
+            token = getattr(self, token_attr) + 1
+            setattr(self, token_attr, token)
+            setattr(self, replies_attr, {})
+        reached = 0
+        for peer in peers:
+            msg = Message()
+            msg.meta.recver = peer
+            msg.meta.sender = self.van.my_node.id
+            msg.meta.request = True
+            msg.meta.timestamp = token
+            msg.meta.body = body
+            msg.meta.control = Control(cmd=cmd)
+            try:
+                self.van.send(msg)
+                reached += 1
+            except Exception as exc:  # noqa: BLE001 - a dead peer must
+                # neither fail the pull nor be waited for.
+                log.warning(f"{cmd.name} to {peer} failed: {exc!r}")
+        deadline = time.monotonic() + timeout_s
+        with self._metrics_cv:
+            while len(getattr(self, replies_attr)) < reached:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._metrics_cv.wait(remaining)
+            return dict(getattr(self, replies_attr))
+
+    def collect_cluster_metrics(self, timeout_s: float = 5.0
+                                ) -> Dict[int, dict]:
+        """Scheduler: broadcast METRICS_PULL to every live worker and
+        server and return ``{node_id: snapshot}``, the scheduler's own
+        included.  A node that does not answer within ``timeout_s`` is
+        absent."""
+        log.check(self.is_scheduler,
+                  "collect_cluster_metrics runs on the scheduler")
+        with self._collect_mu:
+            replies = self._pull(Command.METRICS_PULL, b"", timeout_s,
+                                 "_metrics_replies", "_metrics_token")
+            out = {self.van.my_node.id: self.telemetry_snapshot()}
+            out.update(replies)
+            return out
+
+    def metrics_last_seen(self) -> Dict[int, float]:
+        """Scheduler: wall time of each node's newest METRICS_PULL
+        reply."""
+        with self._metrics_cv:
+            return dict(self._metrics_last_seen)
+
+    def trace_collector(self):
+        """The scheduler's cross-node trace assembler (built at first
+        use; ``telemetry.TraceCollector``)."""
+        if self._trace_collector is None:
+            from .telemetry.trace_store import TraceCollector
+
+            self._trace_collector = TraceCollector(
+                ttl_s=self.env.find_float("PS_TRACE_TTL", 30.0),
+                max_traces=self.env.find_int("PS_TRACE_KEEP", 4096))
+        return self._trace_collector
+
+    def absorb_trace_reply(self, msg: Message) -> None:
+        """Van hook: a node's TRACE_PULL reply arrived."""
+        try:
+            rep = json.loads(msg.meta.body.decode())
+        except Exception as exc:  # noqa: BLE001 - one corrupt reply
+            log.warning(f"bad TRACE_PULL reply: {exc!r}")  # can't wedge
+            rep = {"node_id": msg.meta.sender, "error": repr(exc)}
+        with self._metrics_cv:
+            if msg.meta.timestamp != self._trace_token:
+                return  # a stale reply of an earlier (timed-out) pull
+            self._trace_replies[msg.meta.sender] = rep
+            self._metrics_cv.notify_all()
+
+    def _tail_hints(self) -> dict:
+        """Tail-keep threshold hints for the TRACE_PULL broadcast: the
+        workers' worst windowed push/pull latency quantiles from the
+        ClusterHistory sampler; empty without a history (nodes then use
+        their local histograms)."""
+        h = self.history
+        if h is None or h.samples < 2:
+            return {}
+        hints: Dict[str, dict] = {}
+        for path, hist in (("push", "kv.push_latency_s"),
+                           ("pull", "kv.pull_latency_s")):
+            for q, label in ((0.9, "p90"), (0.95, "p95"), (0.99, "p99")):
+                worst = None
+                for nid in h.node_ids():
+                    if h.role_of(nid) != "worker":
+                        continue
+                    v = h.window_quantile(nid, hist, q)
+                    if v is not None and (worst is None or v > worst):
+                        worst = v
+                if worst is not None:
+                    hints.setdefault(path, {})[label] = worst
+        return hints
+
+    def collect_cluster_traces(self, timeout_s: float = 5.0):
+        """Scheduler: broadcast TRACE_PULL (with the tail hints), drain
+        the replies' span rings into :meth:`trace_collector`, retire
+        expired partials and return the collector."""
+        log.check(self.is_scheduler,
+                  "collect_cluster_traces runs on the scheduler")
+        hints = self._tail_hints()
+        body = json.dumps({"hints": hints}).encode() if hints else b""
+        with self._collect_mu:
+            replies = self._pull(Command.TRACE_PULL, body, timeout_s,
+                                 "_trace_replies", "_trace_token")
+        coll = self.trace_collector()
+        # The scheduler's own ring drains locally.
+        spans, evicted = self.tracer.drain()
+        coll.ingest(self.van.my_node.id, self.role_str(), spans,
+                    [e for e in self.flight.events() if e.get("trace")],
+                    evicted=evicted)
+        for nid, rep in replies.items():
+            coll.ingest(nid, rep.get("role", "?"),
+                        rep.get("spans") or [], rep.get("flight") or [],
+                        evicted=rep.get("evicted") or 0)
+        coll.retire()
+        return coll
+
+    # -- continuous telemetry ------------------------------------------------
+
+    def start_history(self, interval_s: Optional[float] = None):
+        """Build (and start, when the interval is positive) the
+        scheduler's :class:`~.telemetry.ClusterHistory` sampler and
+        watchdog, with the autopilot under ``PS_AUTOPILOT``.
+        Idempotent; returns the history."""
+        log.check(self.is_scheduler, "ClusterHistory runs on the scheduler")
+        if self.history is None:
+            from .cluster.autopilot import Autopilot, parse_mode
+            from .telemetry.timeseries import ClusterHistory
+
+            self.history = ClusterHistory(po=self, env=self.env,
+                                          interval_s=interval_s)
+            # Built only when PS_AUTOPILOT opts in: unset leaves the
+            # ingest path as without the engine.
+            mode = parse_mode(self.env.find("PS_AUTOPILOT"))
+            if mode is not None:
+                self.history.autopilot = Autopilot(self, env=self.env,
+                                                   mode=mode)
+        if interval_s is not None and interval_s > 0:
+            self.history.interval_s = float(interval_s)
+        if self.history.interval_s > 0 and not self.history.running:
+            self.history.start()
+        return self.history
+
+    def stop_history(self) -> None:
+        if self.history is not None:
+            self.history.stop()
+
+    def health(self, min_severity: str = "warn",
+               since: Optional[float] = None) -> List:
+        """The watchdog's :class:`~.telemetry.HealthEvent` findings
+        (scheduler; empty without a history)."""
+        if self.history is None:
+            return []
+        return self.history.watchdog.events(min_severity=min_severity,
+                                            since=since)
 
     # -- node failure hooks --------------------------------------------------
 
@@ -681,11 +960,31 @@ class Postoffice:
         # vetoed attempt's) segment files are garbage now.
         snap_mod.prune_segments(directory, {"ranges": entries})
         dur = time.monotonic() - t0
+        self.metrics.histogram("snapshot.duration_s").observe(dur)
         self.flight.record("snapshot_end", severity="info", ok=True,
                            keys=sum(e["keys"] for e in entries),
+                           bytes=sum(e["nbytes"] for e in entries),
                            duration_s=round(dur, 3))
         return {"manifest": manifest, "epoch": epoch, "ranges": entries,
                 "servers": len(replies), "duration_s": dur}
+
+    def retune_apply(self, task_bytes: int,
+                     timeout_s: float = 30.0) -> dict:
+        """Live-retune the apply task quantum on every server: one
+        ``retune`` op on the SNAPSHOT channel, serialized behind every
+        earlier queued request as a namespace flip is.  The autopilot's
+        apply_wait actuator, and an operator's lever."""
+        task_bytes = int(task_bytes)
+        log.check(task_bytes > 0, "retune_apply needs task_bytes > 0")
+        replies = self._model_ctl(
+            {"op": "retune", "apply_task_bytes": task_bytes}, timeout_s)
+        applied = sum(1 for r in replies.values()
+                      if r.get("applied", {}).get("apply_task_bytes"))
+        self.flight.record("apply_retune", severity="info",
+                           task_bytes=task_bytes, servers=len(replies),
+                           applied=applied)
+        return {"task_bytes": task_bytes, "servers": len(replies),
+                "applied": applied}
 
     def snapshot_status(self) -> dict:
         """Age and summary of the newest committed manifest."""
@@ -744,6 +1043,9 @@ class Postoffice:
         flipped = self._model_ctl(
             {"op": "flip", "namespace": namespace, "version": version},
             timeout_s)
+        self.flight.record("model_published", severity="info",
+                           namespace=namespace, version=version,
+                           servers=len(flipped))
         return {
             "namespace": namespace,
             "version": version,
@@ -756,6 +1058,9 @@ class Postoffice:
         pointer swap each, no disk reads."""
         replies = self._model_ctl({"op": "rollback"}, timeout_s)
         first = next(iter(replies.values()), {})
+        self.flight.record("model_rollback", severity="info",
+                           namespace=first.get("namespace"),
+                           version=first.get("version"))
         return {"namespace": first.get("namespace"),
                 "version": first.get("version"),
                 "servers": len(replies)}

@@ -279,13 +279,15 @@ class LaneQueue(Generic[T]):
     shares.  The consumer loop is ``pop`` -> work -> ``done``;
     ``inflight`` covers the window between the two, so ``wait_idle``
     cannot report a drained lane while its last item is still being
-    dispatched."""
+    dispatched.  ``note_dispatch``/``bytes_below`` keep the bytes sent
+    per priority: the head-of-line ledger of ``van.hol_wait_s``."""
 
     def __init__(self, weights: Optional[Dict[int, float]] = None):
         self.cv = threading.Condition()
         self._heaps = _TenantHeaps(weights)
         self._seq = 0
         self._inflight = False
+        self._sent_bytes: Dict[int, int] = {}
 
     def push(self, priority: int, item: T,
              unless: Optional[Callable[[], bool]] = None,
@@ -332,6 +334,18 @@ class LaneQueue(Generic[T]):
                    and time.monotonic() < deadline):
                 self.cv.wait(timeout=0.1)
             return not (len(self._heaps) or self._inflight)
+
+    def note_dispatch(self, priority: int, nbytes: int) -> None:
+        """Record ``nbytes`` dispatched at ``priority``."""
+        with self.cv:
+            self._sent_bytes[priority] = (self._sent_bytes.get(priority, 0)
+                                          + nbytes)
+
+    def bytes_below(self, priority: int) -> int:
+        """Bytes this lane dispatched at priorities below ``priority``."""
+        with self.cv:
+            return sum(v for p, v in self._sent_bytes.items()
+                       if p < priority)
 
     def wake(self) -> None:
         """Nudge the consumer to re-check its stop/abort predicates."""

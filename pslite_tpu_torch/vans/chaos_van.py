@@ -30,8 +30,8 @@ Spec grammar (comma-separated ``key=value``)::
 
 Injection applies to data messages only, and only after bootstrap
 (``van.ready``); a crashed node also suppresses its heartbeats, which is
-what the failure detector notices.  Counters live in ``van.chaos_stats``
-(counted here: the port's telemetry registry records nothing); the crash
+what the failure detector notices.  Counters live in the node registry as
+``chaos.*``, read through ``van.chaos_stats``; the crash
 hook sets ``van.chaos_crashed``, a ``threading.Event``.  A chaos van
 declines the native sender lanes and turns the core's reassembly off,
 so injection sees every data message.
@@ -165,30 +165,32 @@ class ChaosPolicy:
 
 
 class _ChaosStats:
-    """The ``van.chaos_stats`` read surface of JAX's wrapper
-    (``stats["recv_dropped"]``, ``get``, ``items``, ``keys``,
-    ``values``; an unseen key reads 0), counted in a dict under a lock
-    because the port's metrics registry is a no-op stand-in."""
+    """A read view of the node registry's ``chaos.*`` counters with the
+    ``van.chaos_stats`` surface of JAX's wrapper: ``stats["recv_dropped"]``,
+    ``get``, ``items``, ``keys``, ``values``; an unseen key reads 0."""
 
-    def __init__(self):
-        self._mu = threading.Lock()
-        self._counts: Dict[str, int] = {}
+    _PREFIX = "chaos."
+
+    def __init__(self, registry):
+        from ..telemetry.metrics import node_registry
+
+        self._registry = node_registry(registry)
 
     def inc(self, key: str, n: int = 1) -> None:
-        with self._mu:
-            self._counts[key] = self._counts.get(key, 0) + n
+        self._registry.counter(self._PREFIX + key).inc(n)
 
     def __getitem__(self, key: str) -> int:
-        with self._mu:
-            return self._counts.get(key, 0)
+        return self._registry.counter(self._PREFIX + key).value
 
     def get(self, key: str, default: int = 0) -> int:
-        with self._mu:
-            return self._counts.get(key, default)
+        # dict.get: the default applies only to a counter never created.
+        vals = self._registry.counters_with_prefix(self._PREFIX)
+        return vals.get(self._PREFIX + key, default)
 
     def items(self):
-        with self._mu:
-            return dict(self._counts).items()
+        return {name[len(self._PREFIX):]: v
+                for name, v in self._registry.counters_with_prefix(
+                    self._PREFIX).items()}.items()
 
     def keys(self):
         return [k for k, _ in self.items()]
@@ -211,7 +213,7 @@ def chaos_class(inner_cls: type) -> type:
         def __init__(self, postoffice):
             super().__init__(postoffice)
             self.chaos = ChaosPolicy(self.env.find("PS_CHAOS") or "")
-            self.chaos_stats = _ChaosStats()
+            self.chaos_stats = _ChaosStats(self.metrics)
             if getattr(self, "_native", None) is not None:
                 # Drop/delay/dup act on delivered messages: the core's
                 # reassembly would collapse a transfer into one delivery.

@@ -247,7 +247,7 @@ class _Xfer:
     __slots__ = ("meta", "bufs", "seg_lens", "seg_types", "total",
                  "total_bytes", "received", "ends", "got", "contig",
                  "k_bytes", "n_keys", "streamable", "emitted_keys",
-                 "t_last")
+                 "t_last", "t0_us")
 
     def __init__(self, ck: ChunkInfo, meta, alloc=None):
         self.meta = meta  # the original meta (chunk stripped, option kept)
@@ -262,6 +262,7 @@ class _Xfer:
         self.got = 0
         self.contig = 0  # chunks contiguous from index 0
         self.t_last = time.monotonic()
+        self.t0_us = 0.0  # first chunk's arrival (traced transfers)
         # Partials only for a plain fixed-k push request of exactly a
         # keys and a vals segment.
         self.streamable = bool(
@@ -296,8 +297,12 @@ class ChunkAssembler:
 
     MAX_ENTRIES = 256  # the stalest transfer is evicted beyond this
 
-    def __init__(self, ttl_s: float = 120.0, alloc=None, copy_kernel=None):
+    def __init__(self, ttl_s: float = 120.0, alloc=None, copy_kernel=None,
+                 tracer=None):
         self._alloc = alloc
+        # A traced transfer gets an ``xfer_recv`` span from its first
+        # chunk to its reassembly.
+        self._tracer = tracer
         # Optional (dst, src, nbytes) copy without the GIL
         # (native.scatter_copy_kernel) for the scatter's large pieces.
         self._copy = copy_kernel
@@ -362,6 +367,9 @@ class ChunkAssembler:
                 meta.data_type = list(ck.seg_types)
                 meta.data_size = sum(ck.seg_lens)
                 x = _Xfer(ck, meta, self._alloc)
+                if (self._tracer is not None and meta.trace
+                        and self._tracer.active):
+                    x.t0_us = self._tracer.now_us()
                 if len(self._xfers) >= self.MAX_ENTRIES:
                     victim = min(self._xfers,
                                  key=lambda k: self._xfers[k].t_last)
@@ -458,8 +466,7 @@ class ChunkAssembler:
         msg._xfer_range = (a, b)
         return msg
 
-    @staticmethod
-    def _final(x: _Xfer, key: Tuple[int, int]) -> Message:
+    def _final(self, x: _Xfer, key: Tuple[int, int]) -> Message:
         meta = copy.copy(x.meta)
         meta.data_type = []
         meta.data_size = 0
@@ -468,4 +475,10 @@ class ChunkAssembler:
             msg.add_data(SArray(buf.view(code_dtype(code))))
         msg._xfer_key = key
         msg._xfer_streamed = x.emitted_keys
+        if (self._tracer is not None and meta.trace
+                and self._tracer.active and x.t0_us):
+            self._tracer.span(
+                meta.trace, "xfer_recv", x.t0_us,
+                args={"from": meta.sender, "chunks": x.total,
+                      "bytes": x.total_bytes, "xfer": key[1]})
         return msg

@@ -74,13 +74,17 @@ class _IciDataPlane:
         if self.control_plane:
             super().start(customer_id)
         if self.engine is None and self.po.is_worker:
+            # The van's profiler: ENABLE_PROFILING covers the kernel
+            # path too (reference: van.cc:29-77, 440-457).
             self.engine = CollectiveEngine(
                 group=self._group,
                 server_handle=self.env.find("PS_ICI_SERVER_HANDLE", "sum"),
                 impl=self.env.find("PS_ICI_IMPL", None),
+                profiler=self.profiler,
             )
             self.sparse_engine = SparseEngine(self.engine.group,
-                                              self.engine.axis)
+                                              self.engine.axis,
+                                              profiler=self.profiler)
 
     def reshard_engines(self, group: DeviceGroup,
                         customer_id: int = 0) -> None:

@@ -98,16 +98,23 @@ def local_sock_path(port: int) -> str:
     return os.path.join(tempfile.gettempdir(), f"pslite_ipc_{port}.sock")
 
 
-def _recv_exact(sock: socket.socket, n: int) -> Optional[memoryview]:
+def _recv_exact(sock: socket.socket, n: int,
+                wire_stats=None) -> Optional[memoryview]:
     buf = bytearray(n)
     view = memoryview(buf)
     got = 0
-    while got < n:
-        r = sock.recv_into(view[got:], n - got)
-        if r == 0:
-            return None
-        got += r
-    return view
+    calls = 0
+    try:
+        while got < n:
+            r = sock.recv_into(view[got:], n - got)
+            calls += 1
+            if r == 0:
+                return None
+            got += r
+        return view
+    finally:
+        if wire_stats is not None and calls:
+            wire_stats.rx_syscalls(calls)
 
 
 def _free_block_refcount() -> int:
@@ -135,13 +142,24 @@ class _RecvPool:
     _MAX_ENTRIES = 64
     _MAX_BLOCK = 128 << 20
 
-    def __init__(self, budget_mb: int = 128):
+    def __init__(self, metrics=None, budget_mb: int = 128):
+        from ..telemetry.metrics import node_registry
+
         self._mu = threading.Lock()  # reader threads share the pool
         self._entries: List[np.ndarray] = []
         self._total = 0
         self._max_total = max(1, budget_mb) << 20
-        self.hits = 0
-        self.misses = 0
+        reg = node_registry(metrics)
+        self._c_hits = reg.counter("tcp.recv_pool_hits")
+        self._c_misses = reg.counter("tcp.recv_pool_misses")
+
+    @property
+    def hits(self) -> int:
+        return self._c_hits.value
+
+    @property
+    def misses(self) -> int:
+        return self._c_misses.value
 
     @staticmethod
     def _class_of(nbytes: int) -> int:
@@ -152,7 +170,7 @@ class _RecvPool:
         free.  (The refcount probes index the list directly: a local
         name would raise the count.)"""
         if nbytes > self._MAX_BLOCK:
-            self.misses += 1
+            self._c_misses.inc()
             return np.empty(nbytes, np.uint8)
         with self._mu:
             best = -1
@@ -164,7 +182,7 @@ class _RecvPool:
                              < self._entries[best].nbytes)):
                     best = i  # the smallest free block that fits
             if best >= 0:
-                self.hits += 1
+                self._c_hits.inc()
                 return self._entries[best]
             block = np.empty(self._class_of(nbytes), np.uint8)
             live = len(self._entries)
@@ -184,23 +202,27 @@ class _RecvPool:
                     and self._total + block.nbytes <= self._max_total):
                 self._entries.append(block)
                 self._total += block.nbytes
-            self.misses += 1
+            self._c_misses.inc()
             return block
 
     @staticmethod
     def recv_exact_into(sock: socket.socket, block: np.ndarray,
-                        n: int) -> bool:
+                        n: int, wire_stats=None) -> bool:
         view = memoryview(block)
+        calls = 0
         try:
             got = 0
             while got < n:
                 r = sock.recv_into(view[got:n], n - got)
+                calls += 1
                 if r == 0:
                     return False
                 got += r
             return True
         finally:
             view.release()  # the block's refcount counts messages only
+            if wire_stats is not None and calls:
+                wire_stats.rx_syscalls(calls)
 
 
 class TcpVan(Van):
@@ -236,6 +258,11 @@ class TcpVan(Van):
         self._nat_peers: set = set()
         self._nat_wake = threading.Event()
         self._nat_reaper: Optional[threading.Thread] = None
+        self._c_native_sends = self.metrics.counter("tcp.native_sends")
+        self.metrics.gauge("tcp.native_pins",
+                           fn=lambda: len(self._nat_pins))
+        # Kernel entries of the Python plane's vectored writes.
+        self._c_syscalls = self.metrics.counter("tcp.send_syscalls")
         # Receive intake: priority first, or the strict FIFO of
         # PS_RECV_PRIORITY=0 (the native core reads the same knob).
         # JAX's busy-poll intake is not ported: it is refused by name.
@@ -270,7 +297,8 @@ class TcpVan(Van):
         # Pooled receive blocks for data segments (PS_RECV_POOL=0: a
         # fresh buffer per segment), PS_RECV_POOL_MB of them at most.
         self._recv_pool: Optional[_RecvPool] = (
-            _RecvPool(self.env.find_int("PS_RECV_POOL_MB", 128))
+            _RecvPool(self.metrics,
+                      self.env.find_int("PS_RECV_POOL_MB", 128))
             if self.env.find_int("PS_RECV_POOL", 1) else None)
 
     # -- transport interface -------------------------------------------------
@@ -510,17 +538,35 @@ class TcpVan(Van):
             if v.format != "B" or v.ndim != 1:
                 v = v.cast("B")
             views.append(v)
-        for lo in range(0, len(views), 1000):
-            part = views[lo:lo + 1000]
-            sent = sock.sendmsg(part)
-            if sent < sum(v.nbytes for v in part):
-                for v in part:
-                    if sent >= v.nbytes:
-                        sent -= v.nbytes
-                        continue
-                    sock.sendall(v[sent:] if sent else v)
-                    sent = 0
-        return sum(v.nbytes for v in views)
+        calls = 0
+        try:
+            for lo in range(0, len(views), 1000):
+                part = views[lo:lo + 1000]
+                calls += 1
+                sent = sock.sendmsg(part)
+                if sent < sum(v.nbytes for v in part):
+                    for v in part:
+                        if sent >= v.nbytes:
+                            sent -= v.nbytes
+                            continue
+                        calls += 1
+                        sock.sendall(v[sent:] if sent else v)
+                        sent = 0
+            return sum(v.nbytes for v in views)
+        finally:
+            if calls:
+                self._c_syscalls.inc(calls)
+                self.wire.tx_syscalls(calls)
+
+    def wire_sync(self) -> None:
+        """The Python shards, and the native core's counter block (one
+        struct snapshot, folded in as ``wire.native.*`` deltas)."""
+        super().wire_sync()
+        if self._native is not None and self.wire.enabled:
+            try:
+                self.wire.sync_native(self._native.stats())
+            except Exception:  # noqa: BLE001 - a core being destroyed
+                pass           # must not break a snapshot
 
     def _send_msg_once(self, msg: Message) -> int:
         recver = msg.meta.recver
@@ -567,6 +613,7 @@ class TcpVan(Van):
                     target=self._native_reaper_loop, name="tcp-native-reap",
                     daemon=True)
                 self._nat_reaper.start()
+        self._c_native_sends.inc()
         self._nat_wake.set()
         log.vlog(2, lambda: f"NSEND {msg.debug_string()}")
         return 0  # bytes are accounted at reap
@@ -598,8 +645,10 @@ class TcpVan(Van):
                     with self._bytes_mu:
                         self.send_bytes += desc.wire_bytes
                         self.frames_sent += desc.n_chunks
-                        if desc.n_chunks > 1:
-                            self.chunks_sent += desc.n_chunks
+                    self._c_sent_msgs.inc(desc.n_chunks)
+                    self._c_sent_bytes.inc(desc.wire_bytes)
+                    if desc.n_chunks > 1:
+                        self._c_chunks_sent.inc(desc.n_chunks)
                     self.profiler.record(msg.meta.key, "send",
                                          msg.meta.push)
                     continue
@@ -723,8 +772,8 @@ class TcpVan(Van):
         ck = msg.meta.chunk
         if ck is not None and ck.index == NATIVE_XFER_COMPLETE:
             # The core reassembled the whole transfer: its frames.
+            self._c_chunks_recv.inc(ck.total)
             with self._bytes_mu:
-                self.chunks_recv += ck.total
                 self.frames_recv += ck.total - 1  # _receiving counts one
             return finalize_native_transfer(msg)
         return msg
@@ -795,15 +844,16 @@ class TcpVan(Van):
             t.start()
 
     def _reader_loop(self, conn: socket.socket) -> None:
+        wstats = self.wire if self.wire.enabled else None
         try:
             while not self._closing:
-                hdr = _recv_exact(conn, wire.FRAME_HEADER_SIZE)
+                hdr = _recv_exact(conn, wire.FRAME_HEADER_SIZE, wstats)
                 if hdr is None:
                     break
                 meta_len, n_data = wire.unpack_frame_header(bytes(hdr))
-                lens_buf = _recv_exact(conn, 8 * n_data)
+                lens_buf = _recv_exact(conn, 8 * n_data, wstats)
                 meta_buf = (None if lens_buf is None
-                            else _recv_exact(conn, meta_len))
+                            else _recv_exact(conn, meta_len, wstats))
                 if meta_buf is None:
                     break
                 lens = struct.unpack(f"<{n_data}Q", bytes(lens_buf))
@@ -813,8 +863,8 @@ class TcpVan(Van):
                     ln = int(ln)
                     if ln and self._recv_pool is not None:
                         block = self._recv_pool.acquire(ln)
-                        if not self._recv_pool.recv_exact_into(conn, block,
-                                                               ln):
+                        if not self._recv_pool.recv_exact_into(
+                                conn, block, ln, wstats):
                             break
                         # A slice, so every view's base is the block.
                         bufs.append(block[:ln])

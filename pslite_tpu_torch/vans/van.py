@@ -59,8 +59,12 @@ the decommission handshake (``_process_remove_node``,
 notes (``_process_routing``); barriers count active servers and are
 re-evaluated on every epoch (``_maybe_release_barrier``), and a
 heartbeat reply carries the epoch, so a node that missed a broadcast
-pulls the table.  The metrics and trace pulls are ROADMAP Queue 1 item
-8(c).  Tenants (``PS_TENANTS``, ``tenants.py``): each lane dequeues bulk
+pulls the table.  Telemetry: the node's metrics registry, wire stats
+(``wire.*``), tracer spans (``wire_send``, ``lane_wait``, the ``recv``
+instant), the flight recorder (dumped on an abnormal stop) and the
+``ENABLE_PROFILING`` event log; ``METRICS_PULL`` and ``TRACE_PULL``
+requests are answered from them and replies go to the scheduler's
+gather.  Tenants (``PS_TENANTS``, ``tenants.py``): each lane dequeues bulk
 traffic weighted-fair across tenants by bytes (``LaneQueue(weights)``),
 as the receive intake does.  Data always rides the lanes and messages
 are delivered in arrival order: the JAX van's inline mode
@@ -107,7 +111,11 @@ from ..message import (
     Role,
 )
 from ..routing import RoutingTable
-from ..telemetry import Profiler
+from ..telemetry.flight import NULL_FLIGHT
+from ..telemetry.metrics import node_registry
+from ..telemetry.tracing import NULL_TRACER
+from ..telemetry.wire import make_wire_stats
+from ..utils.profiling import Profiler
 from ..utils import logging as log
 from ..utils.network import get_ip
 from ..tenants import table_for
@@ -186,8 +194,6 @@ class Van:
         # Data frames (chunks and batch frames one each) each way.
         self.frames_sent = 0
         self.frames_recv = 0
-        self.chunks_sent = 0
-        self.chunks_recv = 0
         self._start_mu = threading.Lock()
         self._stopped = False
         self._bytes_mu = threading.Lock()
@@ -198,8 +204,41 @@ class Van:
         self._stop_event = threading.Event()
         self._drop_rate = 0
         self.resender: Optional[Resender] = None
-        self.profiler = Profiler()
-        self.flight = postoffice.flight
+        # (A stub postoffice without a role names its log "node".)
+        self._role = getattr(postoffice, "role_str", lambda: "node")()
+        self.profiler = Profiler(self.env, self._role)
+        # Telemetry: the node's registry, tracer and flight recorder (a
+        # stub postoffice gets a private registry and the no-ops), and
+        # the wire plane's stats (PS_WIRE_TELEMETRY=0: the no-op).
+        self.metrics = node_registry(getattr(postoffice, "metrics", None))
+        self.wire = make_wire_stats(self.metrics, self.env)
+        self.tracer = getattr(postoffice, "tracer", None) or NULL_TRACER
+        self.flight = getattr(postoffice, "flight", None) or NULL_FLIGHT
+        self._c_sent_msgs = self.metrics.counter("van.sent_messages")
+        self._c_sent_bytes = self.metrics.counter("van.sent_bytes")
+        self._c_recv_msgs = self.metrics.counter("van.recv_messages")
+        self._c_recv_bytes = self.metrics.counter("van.recv_bytes")
+        self._h_lane_wait = self.metrics.histogram("van.lane_wait_s")
+        self._h_hol_wait = self.metrics.histogram("van.hol_wait_s")
+        self.metrics.gauge("van.lane_depth", fn=self._owner_lane_depth)
+        self._c_chunks_sent = self.metrics.counter("van.chunks_sent")
+        self._c_chunks_recv = self.metrics.counter("van.chunks_recv")
+        # Multi-op EXT_BATCH frames and the ops they carried, split by
+        # direction: requests are the worker's op combiner, responses
+        # the server's.
+        self._c_batched_frames = self.metrics.counter("van.batched_frames")
+        self._c_batch_ops = self.metrics.counter("van.batch_ops")
+        self._c_resp_batched_frames = self.metrics.counter(
+            "van.resp_batched_frames")
+        self._c_resp_batch_ops = self.metrics.counter("van.resp_batch_ops")
+        self.metrics.gauge("van.xfers_inflight",
+                           fn=self._owner_xfer_depth)
+        # Pull replies this node failed to send (the collector sees
+        # only absence).
+        self._c_pull_reply_failures = self.metrics.counter(
+            "van.metrics_pull_failures")
+        self._c_trace_reply_failures = self.metrics.counter(
+            "van.trace_pull_failures")
         # Scheduler-side registration state.
         self._registrations: List[Node] = []
         self._registered_addrs: Dict[str, int] = {}  # addr -> assigned id
@@ -252,6 +291,7 @@ class Van:
                                                      1 << 20))
         self._xfer_seq = itertools.count(1)
         self._assembler = ChunkAssembler(
+            tracer=self.tracer,
             ttl_s=self.env.find_float("PS_XFER_TIMEOUT", 120.0),
             alloc=self._chunk_recv_alloc,
             copy_kernel=native.scatter_copy_kernel(self.env))
@@ -283,6 +323,32 @@ class Van:
         """Last-mile payload placement (registered receive buffers), run
         after drop injection, resender dedup and reassembly."""
 
+    @property
+    def chunks_sent(self) -> int:
+        """Chunk frames sent (the ``van.chunks_sent`` counter)."""
+        return self._c_chunks_sent.value
+
+    @property
+    def chunks_recv(self) -> int:
+        """Chunk frames received (``van.chunks_recv``)."""
+        return self._c_chunks_recv.value
+
+    def _owner_lane_depth(self) -> float:
+        """Gauge fn of ``van.lane_depth``: messages queued on every send
+        lane."""
+        lanes_mu = getattr(self, "_lanes_mu", None)
+        if lanes_mu is None:
+            return 0.0
+        with lanes_mu:
+            lanes = list(self._lanes.values())
+        return float(sum(len(ln.q) for ln in lanes))
+
+    def _owner_xfer_depth(self) -> float:
+        """Gauge fn of ``van.xfers_inflight``: partially reassembled
+        chunked transfers."""
+        asm = getattr(self, "_assembler", None)
+        return float(len(asm)) if asm is not None else 0.0
+
     def _chunk_recv_alloc(self, nbytes: int) -> np.ndarray:
         """Reassembly buffers (a pooled transport overrides this)."""
         return np.empty(nbytes, np.uint8)
@@ -311,7 +377,12 @@ class Van:
                     self._lanes = {}
                 self._assembler.clear()  # no partial transfer of a prior run
                 self._stop_event.clear()
+                if self.profiler.closed:
+                    # A restarted van records again into a new log.
+                    self.profiler = Profiler(self.env, self._role)
                 self._init_nodes()
+                if self.my_node.id >= 0:
+                    self.tracer.node_id = self.my_node.id  # scheduler
                 port = self.bind_transport(self.my_node, max_retry=40)
                 if port:
                     self.my_node.ports = [port]
@@ -403,6 +474,14 @@ class Van:
             if self._stopped:
                 return
             self._stopped = True
+        # The scheduler's sampler pulls through this van: stop it first,
+        # so no METRICS_PULL broadcast races the teardown.
+        stop_history = getattr(self.po, "stop_history", None)
+        if stop_history is not None:
+            try:
+                stop_history()
+            except Exception as exc:  # noqa: BLE001 - best-effort
+                log.warning(f"history stop failed: {exc!r}")
         self._drain_send_lanes()
         if self.resender is not None:
             self.resender.drain()
@@ -426,6 +505,27 @@ class Van:
             self.resender.stop()
             self.resender = None
         self.profiler.close()
+        try:
+            # One Chrome trace file per node on a clean stop (nothing
+            # when tracing is off or recorded nothing).
+            self.tracer.export_if_any()
+        except Exception as exc:  # noqa: BLE001 - teardown best-effort
+            log.warning(f"trace export failed: {exc!r}")
+        # An abnormal stop (a CHECK failure, a chaos crash, any CRIT
+        # event) dumps the flight ring; a clean stop does not.
+        chaos_crashed = getattr(self, "chaos_crashed", None)
+        if chaos_crashed is not None and chaos_crashed.is_set():
+            self.flight.record("chaos_crash", severity="crit",
+                               phase=str(getattr(self, "chaos", None)
+                                         and self.chaos.spec.get(
+                                             "crash_phase")))
+        try:
+            path = self.flight.dump_if_abnormal()
+            if path:
+                log.warning(f"abnormal stop: flight recorder dumped to "
+                            f"{path} ({self.flight.abnormal_reason})")
+        except Exception as exc:  # noqa: BLE001 - teardown best-effort
+            log.warning(f"flight dump failed: {exc!r}")
         self.ready.clear()
         self._init_stage = 0
 
@@ -479,10 +579,28 @@ class Van:
                 f"node {msg.meta.recver} was declared dead by the "
                 f"failure detector")
         m = msg.meta
+        if m.batch is not None and m.control.empty():
+            # Counted once per frame at submission, whichever plane
+            # carries it.
+            if m.request:
+                self._c_batched_frames.inc()
+                self._c_batch_ops.inc(len(m.batch.ops))
+            else:
+                self._c_resp_batched_frames.inc()
+                self._c_resp_batch_ops.inc(len(m.batch.ops))
+        n_ops = 0
+        if m.control.empty():
+            # Ops on this frame (a singleton combiner flush is 1).
+            n_ops = len(m.batch.ops) if m.batch is not None else 1
         if m.control.empty() and not self.tenants.enabled:
             nbytes = self._native_submit(msg)
             if nbytes is not None:
+                # The op itself counts in the core's own block
+                # (wire.native.tx.ops).
+                self.wire.batch_occupancy(n_ops)
                 return nbytes
+        if n_ops:
+            self.wire.tx_msg(n_ops)
         if (self._chunk_bytes > 0 and m.control.empty() and m.chunk is None
                 and m.data_size > self._chunk_bytes
                 and m.option != OPT_ZPULL and not m.shm_data):
@@ -509,7 +627,12 @@ class Van:
         stopped); a control message inline."""
         if msg.meta.control.empty() and not self._lane_stop:
             # (unlocked probe; re-checked under the lane lock)
+            # Stamped at enqueue, read at dequeue (lane_wait).
+            msg._lane_enq = time.monotonic()
             lane = self._lane_for(msg)
+            # The HOL mark: bytes this lane sent below the message's
+            # priority so far (more at dequeue: it waited behind them).
+            msg._hol_mark = lane.q.bytes_below(msg.meta.priority)
             # Thread before push: a message pushed with no thread to
             # drain it would strand until the drain deadline.
             self._ensure_lane_thread(lane)
@@ -525,9 +648,18 @@ class Van:
                 sid = self._send_sids.get(msg.meta.recver, 0)
                 self._send_sids[msg.meta.recver] = sid + 1
             msg.meta.sid = sid
+            if msg.meta.chunk is not None:
+                self._c_chunks_sent.inc()
         if self.resender is not None:
             self.resender.add_outgoing(msg)
-        nbytes = self._transmit(msg)
+        trace = msg.meta.trace if msg.meta.control.empty() else 0
+        if trace and self.tracer.active:
+            t0 = self.tracer.now_us()
+            nbytes = self._transmit(msg)
+            self.tracer.span(trace, "wire_send", t0, args={
+                "dst": msg.meta.recver, "bytes": nbytes})
+        else:
+            nbytes = self._transmit(msg)
         if msg.meta.control.empty():
             self.profiler.record(msg.meta.key, "send", msg.meta.push)
         log.vlog(2, lambda: f"SEND {msg.debug_string()}")
@@ -549,10 +681,16 @@ class Van:
                 ev.set()
         with self._bytes_mu:
             self.send_bytes += nbytes
+            self._c_sent_msgs.inc()
+            self._c_sent_bytes.inc(nbytes)
             if msg.meta.control.empty():
                 self.frames_sent += 1
-            if msg.meta.chunk is not None:
-                self.chunks_sent += 1
+        # Payload views go to the kernel borrowed (zero-copy); the
+        # header and meta are serialized (copied).
+        zc = msg.meta.data_size if msg.meta.control.empty() else 0
+        if zc > nbytes:
+            zc = nbytes
+        self.wire.tx_frame(msg.meta.recver, zc, nbytes - zc)
         return nbytes
 
     def _lane_sender(self, lane: _SendLane) -> None:
@@ -567,11 +705,26 @@ class Van:
                                 f"{dropped} undispatched messages")
                 return
             msg, raw = item
+            enq = getattr(msg, "_lane_enq", None)
+            if enq is not None:
+                wait = time.monotonic() - enq
+                self._h_lane_wait.observe(wait)
+                self.wire.lane_residency(wait)
+                mark = getattr(msg, "_hol_mark", None)
+                if (mark is not None and msg.meta.priority >= 0
+                        and lane.q.bytes_below(msg.meta.priority) > mark):
+                    self._h_hol_wait.observe(wait)
+                if msg.meta.trace and self.tracer.active:
+                    now = self.tracer.now_us()
+                    self.tracer.span(
+                        msg.meta.trace, "lane_wait", now - wait * 1e6,
+                        wait * 1e6, args={"dst": msg.meta.recver})
             try:
                 if raw:  # resender retransmit: already sid'd + buffered
-                    self._transmit(msg)
+                    nbytes = self._transmit(msg)
                 else:
-                    self._dispatch_send(msg)
+                    nbytes = self._dispatch_send(msg)
+                lane.q.note_dispatch(msg.meta.priority, nbytes)
             except Exception as exc:  # noqa: BLE001 - parked for send()
                 log.warning(f"send lane {lane.key} dispatch failed: "
                             f"{exc!r}")
@@ -741,6 +894,9 @@ class Van:
                 self._announced_dead.add(d)
                 log.warning(f"failure detector: node {d} silent for more "
                             f"than {timeout_s}s — declaring dead")
+                self.flight.record("node_down", severity="warn", peer=d,
+                                   detector="heartbeat",
+                                   timeout_s=timeout_s)
                 self.mark_peer_down(d)
                 self.po.notify_node_failure(d, True)
             self._broadcast_failure([self._peer_node(d) for d in dead])
@@ -757,10 +913,13 @@ class Van:
                     self.po.notify_node_failure(node.id, False)
                 continue
             if rehab:
+                self.flight.record("node_up", severity="info", peer=node.id)
                 self.clear_peer_down(node.id)
             else:
                 log.warning(f"peer {node.id} declared dead by the "
                             f"scheduler")
+                self.flight.record("node_down", severity="warn",
+                                   peer=node.id)
                 self.mark_peer_down(node.id)
             self.po.notify_node_failure(node.id, not rehab)
 
@@ -774,16 +933,24 @@ class Van:
                 if self._stop_event.is_set():
                     break
                 log.warning(f"recv_msg failed: {exc!r}")
+                self.flight.record("van_error", severity="warn",
+                                   error=repr(exc)[:200])
                 continue
             if msg is None:
                 break
             # Chunk metas carry data_size 0: count their payload.
-            self.recv_bytes += (sum(d.nbytes for d in msg.data)
-                                if msg.meta.chunk is not None
-                                else msg.meta.data_size)
+            nbytes = (sum(d.nbytes for d in msg.data)
+                      if msg.meta.chunk is not None
+                      else msg.meta.data_size)
+            self.recv_bytes += nbytes
+            self._c_recv_msgs.inc()
+            self._c_recv_bytes.inc(nbytes)
             ctrl = msg.meta.control
             if ctrl.empty():
                 self.frames_recv += 1
+                self.wire.rx_msg(len(msg.meta.batch.ops)
+                                 if msg.meta.batch is not None else 1,
+                                 nbytes)
             if (self._drop_rate > 0 and self.ready.is_set()
                     and ctrl.cmd != Command.TERMINATE
                     and random.randint(0, 99) < self._drop_rate):
@@ -815,10 +982,13 @@ class Van:
                     self._process_routing(msg)
                 elif ctrl.cmd == Command.REMOVE_NODE:
                     self._process_remove_node(msg)
+                elif ctrl.cmd == Command.METRICS_PULL:
+                    self._process_metrics_pull(msg)
+                elif ctrl.cmd == Command.TRACE_PULL:
+                    self._process_trace_pull(msg)
                 else:
-                    raise NotImplementedError(
-                        f"control {ctrl.cmd.name} not yet ported to "
-                        f"pslite_tpu_torch (ROADMAP Queue 1 item 8(c))")
+                    log.warning(f"unhandled control {ctrl.cmd}: "
+                                f"{msg.debug_string()}")
             except log.CheckError as exc:
                 # An invariant violation is fatal, like the reference's
                 # CHECK -> abort: the process exits 134, so the
@@ -828,6 +998,21 @@ class Van:
                 # clusters host many logical nodes in one interpreter.
                 log.fatal_log(f"CHECK failed: {exc} (while processing "
                               f"{msg.debug_string()}); node going dark")
+                # The postmortem now: with PS_CHECK_FATAL the process
+                # exits at once and no stop() runs.  The trace ring
+                # dumps beside the flight ring.
+                trace_path = None
+                try:
+                    trace_path = self.tracer.export_if_any()
+                except Exception:  # noqa: BLE001 - dying anyway
+                    pass
+                self.flight.record("check_failure", severity="crit",
+                                   error=str(exc)[:200],
+                                   trace_file=trace_path)
+                try:
+                    self.flight.dump()
+                except Exception:  # noqa: BLE001 - dying anyway
+                    pass
                 self._stop_event.set()
                 if self.env.find_bool("PS_CHECK_FATAL", True):
                     sys.stderr.flush()
@@ -845,13 +1030,22 @@ class Van:
         if msg.meta.chunk is None:
             self._process_data_msg(msg)
             return
-        self.chunks_recv += 1
+        self._c_chunks_recv.inc()
         for out in self._assembler.add(msg):
             self._process_data_msg(out)
 
     def _process_data_msg(self, msg: Message) -> None:
         self.deliver_data_msg(msg)
         self.profiler.record(msg.meta.key, "recv", msg.meta.push)
+        if self.tracer.active:
+            # The wire-to-intake boundary every server_queue span starts
+            # from: stamped on every data message (a batch envelope
+            # carries its traces in the per-op table).
+            msg._recv_us = self.tracer.now_us()
+            if msg.meta.trace:
+                self.tracer.instant(msg.meta.trace, "recv", args={
+                    "from": msg.meta.sender, "bytes": msg.meta.data_size,
+                    "push": msg.meta.push, "request": msg.meta.request})
         app_id = msg.meta.app_id
         # Workers demux by customer_id (several KVWorker customers share
         # one app); servers demux by app_id (reference: van.cc:428-438).
@@ -1063,6 +1257,77 @@ class Van:
         self.po.update_heartbeat(SCHEDULER_ID, time.time())
         self.ready.set()
 
+    # -- cluster telemetry pulls ---------------------------------------------
+
+    def wire_sync(self) -> None:
+        """Drain the wire plane's thread-local shards into the registry
+        (a native transport also folds its core's counter block in).
+        Called on the snapshot path, from any thread."""
+        self.wire.flush()
+
+    def _reply_pull(self, msg: Message, body: bytes, failures) -> None:
+        reply = Message()
+        reply.meta.recver = msg.meta.sender
+        reply.meta.sender = self.my_node.id
+        reply.meta.request = False
+        reply.meta.timestamp = msg.meta.timestamp  # the gather token
+        reply.meta.control = Control(cmd=msg.meta.control.cmd)
+        reply.meta.body = body
+        try:
+            # _dispatch_send, not send(): this runs on the pump and must
+            # neither take a parked lane error nor die of a send error.
+            self._dispatch_send(reply)
+        except Exception as exc:  # noqa: BLE001
+            failures.inc()
+            log.warning(f"{msg.meta.control.cmd.name} reply failed: "
+                        f"{exc!r}")
+
+    def _process_metrics_pull(self, msg: Message) -> None:
+        """METRICS_PULL: a request is answered with this node's registry
+        snapshot (JSON); a reply goes to the scheduler's gather."""
+        if not msg.meta.request:
+            self.po.absorb_metrics_reply(msg)
+            return
+        try:
+            body = json.dumps(self.po.telemetry_snapshot()).encode()
+        except Exception as exc:  # noqa: BLE001 - a bad gauge must not
+            # strand the collector waiting for this node.
+            body = json.dumps({"node_id": self.my_node.id,
+                               "error": repr(exc)}).encode()
+        self._reply_pull(msg, body, self._c_pull_reply_failures)
+
+    def _process_trace_pull(self, msg: Message) -> None:
+        """TRACE_PULL: a request takes the scheduler's tail-threshold
+        hints and is answered with this node's drained span ring, its
+        trace-correlated flight events and the eviction count (JSON); a
+        reply goes to the scheduler's collector."""
+        if not msg.meta.request:
+            self.po.absorb_trace_reply(msg)
+            return
+        try:
+            req_body = (json.loads(msg.meta.body.decode())
+                        if msg.meta.body else {})
+        except Exception:  # noqa: BLE001 - hints are best-effort
+            req_body = {}
+        hints = req_body.get("hints") or {}
+        if hints:
+            try:
+                self.tracer.note_hints(hints)
+            except Exception as exc:  # noqa: BLE001
+                log.warning(f"bad TRACE_PULL hints: {exc!r}")
+        try:
+            spans, evicted = self.tracer.drain()
+            flight = [e for e in self.flight.events() if e.get("trace")]
+            body = json.dumps({
+                "node_id": self.my_node.id, "role": self.po.role_str(),
+                "spans": spans, "flight": flight, "evicted": evicted,
+            }).encode()
+        except Exception as exc:  # noqa: BLE001 - never strand the
+            # collector waiting for this node.
+            body = json.dumps({"node_id": self.my_node.id,
+                               "error": repr(exc)}).encode()
+        self._reply_pull(msg, body, self._c_trace_reply_failures)
+
     # -- snapshots -----------------------------------------------------------
 
     def _process_snapshot(self, msg: Message) -> None:
@@ -1273,9 +1538,10 @@ class Van:
                 peer.id, roster if joiner else [copy.deepcopy(node)],
                 "join broadcast",
                 option=ELASTIC_JOIN_OPT if joiner else 0)
-        # No load hint: the metrics pulls behind JAX's hot_key_hint are
-        # ROADMAP Queue 1 item 8(c), so the widest range splits.
-        self.broadcast_routing(table.with_join(rank))
+        # The load hint: the split goes to the median hot key of the
+        # last metrics pull (the widest range splits without one).
+        self.broadcast_routing(
+            table.with_join(rank, hot=self.po.hot_key_hint()))
 
     # -- barriers ------------------------------------------------------------
 

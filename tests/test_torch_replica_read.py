@@ -337,8 +337,9 @@ def test_hot_cache_fill_from_replica_carries_primary_identity():
 def test_namespace_decline_matrix(tmp_path):
     """Namespace ops refuse loudly, as in JAX: a flip with nothing
     staged, a rollback with nothing displaced, a publish of a directory
-    with no manifest, a tiered store (its state is outside a plain dict),
-    and the autopilot's ``retune`` op (ROADMAP Queue 1 item 8(c))."""
+    with no manifest, and a tiered store (its state is outside a plain
+    dict).  The autopilot's ``retune`` op on the same channel is served:
+    each server answers what it applied."""
     from pslite_tpu_torch.utils import logging as log
 
     cluster = PortCluster(num_workers=1, num_servers=1, env_extra={
@@ -349,10 +350,13 @@ def test_namespace_decline_matrix(tmp_path):
     try:
         for body, match in (
                 ({"op": "flip"}, "without a staged namespace"),
-                ({"op": "rollback"}, "without a previous namespace"),
-                ({"op": "retune", "apply_task_bytes": 1}, r"item 8\(c\)")):
+                ({"op": "rollback"}, "without a previous namespace")):
             with pytest.raises(log.CheckError, match=match):
                 sched._model_ctl(body, timeout_s=20.0)
+        pool = servers[0]._apply_pool
+        rep = sched.retune_apply(1, timeout_s=20.0)
+        assert rep["servers"] == 1
+        assert rep["applied"] == (1 if pool is not None else 0)
         with pytest.raises(log.CheckError, match="no committed manifest"):
             sched.publish_model(version="v1", timeout_s=20.0)
     finally:
