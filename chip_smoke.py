@@ -220,6 +220,28 @@ line):
    ``autopilot_bench(quick=False)`` (skew first and last window, 0
    operator actions, seconds to the rebalance, stores exact) and an
    elastic join cut at the scheduler's load hint.
+   Then ``models`` (``drive_models``): the model zoo trains through the
+   port's PS on 8 virtual ranks of cuda:0, each leg at the repo's own
+   full width: PSFormer (``ModelConfig()``, batch 8 x seq 64,
+   ``examples/train_flagship.py``'s defaults, 20 steps at lr 0.3) over
+   dp 4 x sp 2 with ring attention and TP, with Ulysses, and with 8 MoE
+   experts over EP; the GPipe pipeline over dp 2 x pp 4 (dim 64, 4
+   layers, 2 microbatches of 2 x 32, ``examples/train_pipeline.py``, lr
+   0.2); the CNN (``CNNConfig()``, dp 8, batch 64); DLRM at 1,048,576 x
+   16 rows (8 workers x 1,024 examples = 4,096 lookups each, 15 steps,
+   sgd and ``row_adagrad``); ``kv_train_loop`` over a loopback 1 + 1 +
+   1 cluster, raw and fp8_e4m3 with error feedback, 30 steps each at
+   the JAX guard's lr 0.1, the two within its 2 %.  Each leg's loss
+   must fall and its K4 (``ring_push`` f32: one per PS step, the
+   ``sgd`` handle for the flat stores, ``sum`` for DLRM's MLP), S1/S2
+   and S3 launches must match its steps (none on the kv legs).  Each
+   leg's first step holds every kernel launch it makes against the
+   kernel's plain version on clones of the same inputs: K4 ``sum``, S1
+   and S3 bit-exact, K4 ``sgd`` at rtol/atol 1e-6, S2 at rtol 1e-5 /
+   atol 1e-6.  Each leg prints its first and last loss, ms/step by CUDA
+   events and by the wall, and tokens or examples per second; on the
+   dense ring leg the profiler gives the device busy share and the top
+   kernels beside the model FLOPs per step.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -2428,6 +2450,8 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
     bound).  Batching is on (``PS_BATCH_BYTES=262144``): then a
     ``multi_get`` of 64 single-row lookups of 64 B over messages, bit for
     bit, in one batch frame."""
+    from pslite_tpu_torch.models import dlrm
+
     nodes = msg_cluster(ps, Environment, 1, 1, van="ici",
                         env={"PS_BATCH_BYTES": str(256 << 10)})
     apps = []
@@ -2474,7 +2498,7 @@ def drive_msg_ici_mixed(ps, ring, Environment, grads_steps, smi: str):
             lworst = lbound.check(f"msg-ici-mixed: message step {k}", 0,
                                   lout)
         rows = np.arange(64, dtype=np.uint64) + 2_000_000
-        table = embedding_rows(np.arange(64)).reshape(-1)
+        table = dlrm.embedding_row(dlrm.DLRMConfig(), np.arange(64)).reshape(-1)
         w.wait(w.push(rows, table))
         frames0 = w.combiner.flushed_frames
         t0 = time.perf_counter()
@@ -3310,28 +3334,12 @@ def pctl_ms(lats) -> tuple:
             * 1e3)
 
 
-def embedding_rows(rows: np.ndarray, dim: int = FANIN_DIM) -> np.ndarray:
-    """``models/dlrm.py``'s ``embedding_row`` for many rows at once, bit
-    for bit: ``arange(dim) * 1e-3 + float32(row) + 0.5`` in f32."""
-    base = np.arange(dim, dtype=np.float32) * 1e-3
-    return (base[None, :] + rows.astype(np.float32)[:, None]) + np.float32(0.5)
-
-
-def spread_row_keys(rows: int) -> np.ndarray:
-    """``models/dlrm.py``'s layout spreading rows over the u64 key space,
-    so the table shards over every server."""
-    return np.arange(rows, dtype=np.uint64) * np.uint64((1 << 64) // rows)
-
-
-def serving_rows(rows: int, n: int, seed: int) -> np.ndarray:
-    """Zipf(1.5) row ids (``models/dlrm.py``'s ``serving_keys``)."""
-    idx = np.random.default_rng(seed).zipf(1.5, size=n).astype(np.int64)
-    return ((idx - 1) % rows).astype(np.uint64)
-
-
 def push_table(kv, keys: np.ndarray, tenant=None) -> float:
     """Publish the embedding table (one key per row); seconds taken."""
-    vals = embedding_rows(np.arange(len(keys))).reshape(-1)
+    from pslite_tpu_torch.models import dlrm
+
+    vals = dlrm.embedding_row(dlrm.DLRMConfig(emb_dim=FANIN_DIM),
+                              np.arange(len(keys))).reshape(-1)
     t0 = time.perf_counter()
     kv.wait(kv.push(keys, vals, tenant=tenant))
     return time.perf_counter() - t0
@@ -3419,14 +3427,16 @@ def node_fanin(ps, po, kv, spec) -> dict:
     once per window, ``multi_get`` requests of 64 Zipf(1.5) single-row
     lookups through a depth-8 pipeline, every 32nd and the last 8
     checked bit for bit."""
+    from pslite_tpu_torch.models import dlrm
+
     from collections import deque
 
-    rows = spec["rows"]
-    row_keys = spread_row_keys(rows)
+    cfg = dlrm.DLRMConfig(num_rows=spec["rows"], emb_dim=FANIN_DIM)
+    row_keys = dlrm.spread_row_keys(cfg)
     push_s = push_table(kv, row_keys)
     outs_pool = [[np.zeros(FANIN_DIM, np.float32) for _ in range(FANIN_OUT)]
                  for _ in range(FANIN_DEPTH)]
-    all_rows = serving_rows(rows, 4096 * FANIN_OUT, seed=7)
+    all_rows = dlrm.serving_keys(cfg, 4096 * FANIN_OUT, seed=7)
     for i in range(16):  # warm: connections, the capability probes
         kl = [row_keys[int(r):int(r) + 1] for r in
               all_rows[i * FANIN_OUT:(i + 1) * FANIN_OUT]]
@@ -3442,7 +3452,7 @@ def node_fanin(ps, po, kv, spec) -> dict:
             handle.wait()
             lats.append(time.perf_counter() - t_iss)
             if check:
-                want = embedding_rows(rws)
+                want = dlrm.embedding_row(cfg, rws)
                 if not np.array_equal(np.stack(outs_pool[slot]), want):
                     raise AssertionError("serving-fanin: a request's rows "
                                          "came back wrong")
@@ -3472,7 +3482,7 @@ def node_fanin(ps, po, kv, spec) -> dict:
                      / n_req,
                      "frames_in_per_req": (po.van.frames_recv - recv0)
                      / n_req})
-    return {"push_s": push_s, "rows": rows}
+    return {"push_s": push_s, "rows": cfg.num_rows}
 
 
 def node_hot_cache(ps, po, kv, spec) -> dict:
@@ -3485,15 +3495,17 @@ def node_hot_cache(ps, po, kv, spec) -> dict:
     the last window, read-your-writes: 32 of the storm's rows are each
     pulled, pushed +1 and pulled again, and the second pull must hold
     the push."""
-    rows = spec["rows"]
-    keys = np.arange(rows, dtype=np.uint64)
+    from pslite_tpu_torch.models import dlrm
+
+    cfg = dlrm.DLRMConfig(num_rows=spec["rows"], emb_dim=FANIN_DIM)
+    keys = np.arange(cfg.num_rows, dtype=np.uint64)
     push_s = push_table(kv, keys, tenant="serve")
     out = np.zeros(FANIN_DIM, np.float32)
-    for r in serving_rows(rows, 200, seed=3):
+    for r in dlrm.serving_keys(cfg, 200, seed=3):
         kv.wait(kv.pull(keys[int(r):int(r) + 1], out, tenant="serve"))
     if kv.hot_cache is not None:
         kv.seed_hot_cache(k=64)
-    storm = serving_rows(rows, spec["pulls"], seed=7)
+    storm = dlrm.serving_keys(cfg, spec["pulls"], seed=7)
     for _w in node_windows(spec):
         if kv.hot_cache is not None:
             kv.hot_cache.clear()
@@ -3505,7 +3517,7 @@ def node_hot_cache(ps, po, kv, spec) -> dict:
             lats.append(time.perf_counter() - t0)
             hits += po.van.frames_sent == sent
             wrong += not np.array_equal(out,
-                                        embedding_rows(np.array([r]))[0])
+                                        dlrm.embedding_row(cfg, r))
         if wrong:
             raise AssertionError(f"hot-cache: {wrong} of {len(lats)} storm "
                                  f"pulls came back wrong")
@@ -3517,7 +3529,7 @@ def node_hot_cache(ps, po, kv, spec) -> dict:
     ryw = list(dict.fromkeys(storm.tolist()))[:HOT_RYW_ROWS]
     for r in ryw:
         kv.wait(kv.pull(keys[r:r + 1], out, tenant="serve"))
-        want = embedding_rows(np.array([r]))[0] + one  # the server's f32 +=
+        want = dlrm.embedding_row(cfg, r) + one  # the server's f32 +=
         kv.wait(kv.push(keys[r:r + 1], one, tenant="serve"))
         kv.wait(kv.pull(keys[r:r + 1], out, tenant="serve"))
         stale += not np.array_equal(out, want)
@@ -3525,7 +3537,7 @@ def node_hot_cache(ps, po, kv, spec) -> dict:
         raise AssertionError(f"hot-cache: {stale} of {len(ryw)} pulls after "
                              f"a push missed it")
     return {"stale": stale, "ryw_rows": len(ryw), "push_s": push_s,
-            "rows": rows}
+            "rows": cfg.num_rows}
 
 
 def node_multi_tenant(ps, po, kv, spec) -> dict:
@@ -5031,17 +5043,20 @@ def node_durable_serve(ps, po, kv, spec) -> dict:
     (the server's hot keys learn the head, the tier settles), then once
     per window ``spec["pulls"]`` Zipf single-row pulls, timed, every
     64th checked exactly."""
+    from pslite_tpu_torch.models import dlrm
+
     rows, dim = spec["rows"], spec["dim"]
+    cfg = dlrm.DLRMConfig(num_rows=rows, emb_dim=dim)
     keys = np.arange(rows, dtype=np.uint64)
-    table = embedding_rows(np.arange(rows), dim)
+    table = dlrm.embedding_row(cfg, np.arange(rows))
     kv.wait(kv.push(keys, table.reshape(-1)))
     out = np.zeros(dim, np.float32)
-    for r in serving_rows(rows, spec["warm"], seed=3):
+    for r in dlrm.serving_keys(cfg, spec["warm"], seed=3):
         kv.wait(kv.pull(keys[int(r):int(r) + 1], out))
     checked = 0
     for w in node_windows(spec):
         lats = []
-        for i, r in enumerate(serving_rows(rows, spec["pulls"],
+        for i, r in enumerate(dlrm.serving_keys(cfg, spec["pulls"],
                                            seed=7 + w)):
             t0 = time.perf_counter()
             kv.wait(kv.pull(keys[int(r):int(r) + 1], out))
@@ -6231,6 +6246,305 @@ def drive_observability(ps, Environment, kernel_rows, smi: str):
     return rows + krows, child
 
 
+# -- the models phase: the model zoo trains through the PS ---------------------
+
+MODEL_STEPS = 20   # examples/train_flagship.py's and train_pipeline.py's
+DLRM_STEPS = 15    # tests/test_model_zoo.py's DLRM runs
+KV_STEPS = 30      # the kv_train_loop leg, per codec
+KV_LR = 0.1        # tests/test_model_train.py's guard: at the loop's
+                   # default 0.5 the loss swings step to step, and the
+                   # codecs' runs part by more than any codec error
+KV_GAP = 0.02      # the guard's bar: fp8_e4m3 + EF within 2 % of raw
+PROFILED_STEPS = 5
+
+
+def psformer_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step of a dense PSFormer config over
+    ``tokens`` tokens of ``seq``-long sequences: forward 2 per
+    multiply-add of every matmul (qkv, proj, the MLP pair, the unembed,
+    and attention's scores and values over the whole sequence, as the
+    ring computes every block), backward twice that."""
+    D, L, V = cfg.dim, cfg.layers, cfg.vocab
+    per_token = (L * 2 * (3 * D * D + D * D + 2 * cfg.mlp_ratio * D * D
+                          + 2 * seq * D) + 2 * D * V)
+    return 3.0 * per_token * tokens
+
+
+# The kernel wrappers on the models' path: each one's counter, its plain
+# version, the arguments it writes in place (none: it returns its result)
+# and its bar against the plain version (None: bit-exact, as its kernel
+# row holds it).  K4's ``sgd:`` handle may round ``(lr / n) * agg`` once
+# (an FMA) on the card where the plain version rounds twice.
+HELD_KERNELS = {
+    "ring_push": ("ring_push[float32]", "ring_push_reference", (1,), None),
+    "scatter_add": ("sparse_scatter_add", "scatter_add_reference", (0,),
+                    None),
+    "row_adagrad": ("sparse_row_adagrad", "row_adagrad_reference", (0, 1),
+                    (1e-5, 1e-6)),
+    "gather_rows": ("sparse_gather_rows", "gather_rows_reference", (),
+                    None),
+}
+SGD_BAR = (1e-6, 1e-6)
+
+
+def _clones(torch, values):
+    return [v.clone() if torch.is_tensor(v) else v for v in values]
+
+
+@contextlib.contextmanager
+def hold_first_launches(torch, ring, sr):
+    """While open, record the first call of each wrapper of
+    ``HELD_KERNELS`` that the main path makes: its arguments cloned before
+    the call, and after it its arguments and its result.  Yields the
+    record, ``{wrapper: (before, kwargs, after, result)}``."""
+    held, real = {}, {}
+    for name in HELD_KERNELS:
+        mod = ring if name == "ring_push" else sr
+        real[name] = (mod, getattr(mod, name))
+
+        def wrapper(*args, _name=name, **kw):
+            fn = real[_name][1]
+            if _name in held:
+                return fn(*args, **kw)
+            before = _clones(torch, args)
+            out = fn(*args, **kw)
+            held[_name] = (before, kw, _clones(torch, args),
+                           out.clone() if torch.is_tensor(out) else None)
+            return out
+
+        setattr(mod, name, wrapper)
+    try:
+        yield held
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+
+
+def check_held(torch, ring, sr, held, label: str) -> dict:
+    """Each recorded launch against its plain version on clones of the
+    same inputs, on the card; fails on a mismatch.  Returns ``{counter:
+    max abs error}``."""
+    errs = {}
+    for name, (before, kw, after, out) in held.items():
+        counter, plain, writes, bar = HELD_KERNELS[name]
+        mod = ring if name == "ring_push" else sr
+        args = _clones(torch, before)
+        want = getattr(mod, plain)(*args, **kw)
+        pairs = ([(after[i], args[i]) for i in writes] if writes
+                 else [(out, want)])
+        if name == "ring_push":
+            handle = before[2] if len(before) > 2 else kw.get("handle", "sum")
+            bar = SGD_BAR if str(handle).startswith("sgd") else None
+        if bar is None:
+            for got, exp in pairs:
+                mismatches(got, exp)
+        elif not within(pairs, *bar):
+            raise AssertionError(
+                f"{label}: {counter} is off its plain version by "
+                f"{max_err(pairs):.3g} (rtol {bar[0]}, atol {bar[1]})")
+        errs[counter] = max_err(pairs)
+    return errs
+
+
+def drive_models(torch, ps, ring, sr, Environment, smi: str):
+    """The model zoo through the port's PS on cuda:0, 8 virtual ranks,
+    each leg at the repo's own full width; every leg's loss must fall and
+    its K4/S1/S2/S3 launches match its steps."""
+    from pslite_tpu_torch.models import cnn, dlrm, train, transformer
+
+    # Float32 matmuls and convs in full float32, as XLA runs them (the
+    # models' large products are bfloat16 anyway).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    t_phase = time.perf_counter()
+    counters = (ring.launches, sr.launches)
+    watched = ("ring_push[float32]", "sparse_scatter_add",
+               "sparse_row_adagrad", "sparse_gather_rows")
+    results = []
+
+    def counts():
+        return {k: c[k] for c in counters for k in watched if k in c}
+
+    def check_launches(label, before, want):
+        made = {k: v - before[k] for k, v in counts().items()}
+        want = {k: want.get(k, 0) for k in watched}
+        if made != want:
+            raise AssertionError(f"{label}: launches {made}, expected {want}")
+        return made
+
+    def leg(label, step, steps, units, unit, expect, after=None):
+        """``steps`` calls of ``step() -> loss``: the first untimed (first
+        use), its launch of each kernel held against the kernel's plain
+        version; the rest timed by CUDA events and the wall; then
+        ``after() -> (extra row fields, its launches)``; the launches
+        made, against ``expect`` per step plus ``after``'s."""
+        before = counts()
+        with hold_first_launches(torch, ring, sr) as held:
+            losses = [step()]
+        errs = check_held(torch, ring, sr, held, label)
+        if sorted(errs) != sorted(k for k, v in expect.items() if v):
+            raise AssertionError(f"{label}: held {sorted(errs)}, expected "
+                                 f"{sorted(expect)}")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses += [step() for _ in range(steps - 1)]
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        event = start.elapsed_time(end) / (steps - 1)
+        losses = [float(x) for x in losses]
+        extra, more = after() if after else ({}, {})
+        made = check_launches(label, before, {
+            k: expect.get(k, 0) * steps + more.get(k, 0) for k in watched})
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: the loss did not fall: {losses}")
+        row = {"config": label, "ops": steps, "first_loss": losses[0],
+               "last_loss": losses[-1], "event_ms_per_step": event,
+               "wall_ms_per_step": wall,
+               f"{unit}_per_s_wall": units / wall * 1e3,
+               **{f"launches_{k}": v for k, v in made.items() if v},
+               **{f"max_abs_err_{k}": v for k, v in errs.items()},
+               **extra}
+        print(f"models {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"over {steps} steps; {event:.3f} ms/step (CUDA events), "
+              f"{wall:.3f} ms/step wall, {units / wall * 1e3:,.0f} "
+              f"{unit}/s wall; launches "
+              + (", ".join(f"{k} {v}" for k, v in made.items() if v)
+                 or "none") + f" [{smi}]")
+        if errs:
+            print("    step 1 against the plain versions: "
+                  + ", ".join(f"{k} max |err| {v:.3g}"
+                              for k, v in errs.items()))
+        results.append(row)
+        return row
+
+    # PSFormer over dp 4 x sp 2: examples/train_flagship.py's defaults.
+    cfg = transformer.ModelConfig()
+    batch, seq = 8, 64
+    inputs, targets = (torch.as_tensor(a, device=dev)
+                       for a in train.toy_batch(cfg, batch, seq))
+    group = ps.make_group((4, 2), ("dp", "sp"), device=dev)
+    for label, mcfg, strategy in (
+            ("psformer-dp4xsp2-ring", cfg, "ring"),
+            ("psformer-dp4xsp2-ulysses", cfg, "ulysses"),
+            ("psformer-moe-dp4xsp2", transformer.ModelConfig(moe_experts=8),
+             "ring")):
+        step, store = train.make_ps_train_step(mcfg, group, lr=0.3,
+                                               sp_strategy=strategy)
+
+        def profiled(step=step, store=store, mcfg=mcfg):
+            """The profiler over PROFILED_STEPS more steps."""
+            busy, kernels = device_breakdown(
+                torch, lambda: step(inputs, targets), iters=PROFILED_STEPS)
+            return ({"busy_ms_per_step": busy, "kernels": kernels,
+                     "params": store.n_params,
+                     "model_tflop_per_step": psformer_flops(
+                         mcfg, batch * seq, seq) / 1e12},
+                    {"ring_push[float32]": PROFILED_STEPS})
+
+        row = leg(label, lambda: step(inputs, targets), MODEL_STEPS,
+                  batch * seq, "tokens", {"ring_push[float32]": 1},
+                  profiled if label.endswith("-ring") else None)
+        if "busy_ms_per_step" in row:
+            kernels = row.pop("kernels")
+            row["busy_share"] = row["busy_ms_per_step"] / row[
+                "wall_ms_per_step"]
+            row["model_tflops_wall"] = (row["model_tflop_per_step"]
+                                        / row["wall_ms_per_step"] * 1e3)
+            print(f"    {row['params']:,} params; model "
+                  f"{row['model_tflop_per_step'] * 1e3:.2f} GFLOP/step, "
+                  f"{row['model_tflops_wall']:.3f} TFLOP/s wall; "
+                  f"profiler: device busy {row['busy_ms_per_step']:.3f} "
+                  f"ms/step, busy share {row['busy_share']:.3f}")
+            for kname, ms in kernels[:8]:
+                print(f"    {ms:.4f} ms/step  {kname}")
+
+    # GPipe over dp 2 x pp 4: examples/train_pipeline.py's defaults.
+    pcfg = transformer.ModelConfig(dim=64, layers=4)
+    M, mb, pseq = 2, 2, 32
+    pstep, state = train.make_pp_train_step(
+        pcfg, ps.make_group((2, 4), ("dp", "pp"), device=dev), lr=0.2,
+        num_micro=M)
+    rng = np.random.default_rng(0)
+    pin = rng.integers(0, pcfg.vocab, size=(2, M, mb, pseq)).astype(np.int32)
+    pin, ptgt = (torch.as_tensor(a, device=dev)
+                 for a in (pin, (pin + 1) % pcfg.vocab))
+    pp_state = [state]
+
+    def pp_step():
+        pp_state[0], loss = pstep(pp_state[0], pin, ptgt)
+        return loss
+
+    leg("psformer-pp-dp2xpp4", pp_step, MODEL_STEPS, 2 * M * mb * pseq,
+        "tokens", {})
+
+    # The CNN, data parallel over 8 ranks.
+    ccfg = cnn.CNNConfig()
+    cstep, _ = cnn.make_ps_train_step(
+        ccfg, ps.DeviceGroup(N, device=dev, axis_name="dp"), lr=0.1)
+    images, labels = (torch.as_tensor(a, device=dev)
+                      for a in cnn.toy_batch(ccfg, batch=64))
+    leg("cnn-dp8", lambda: cstep(images, labels), MODEL_STEPS, 64,
+        "examples", {"ring_push[float32]": 1})
+
+    # DLRM at the benchmark's table size, config 5's lookups per worker.
+    dcfg = dlrm.DLRMConfig(num_rows=1 << 20)
+    batch_w = 1024  # x num_cat 4 = 4,096 lookups per worker
+    data = [torch.as_tensor(a, device=dev)
+            for a in dlrm.toy_batch(dcfg, workers=N, batch=batch_w, seed=1)]
+    for opt, kernel in ((None, "sparse_scatter_add"),
+                        ("row_adagrad", "sparse_row_adagrad")):
+        group = ps.DeviceGroup(N, device=dev)
+        dstep = dlrm.make_train_step(
+            dcfg, ps.CollectiveEngine(group, impl="ring"),
+            ps.SparseEngine(group), lr=0.1, emb_optimizer=opt)
+        leg(f"dlrm-1m-{opt or 'sgd'}", lambda: dstep(*data), DLRM_STEPS,
+            N * batch_w, "examples",
+            {"ring_push[float32]": 1, kernel: 1, "sparse_gather_rows": 1})
+
+    # The toy LM over a loopback message-path PS, raw and fp8 + EF.
+    finals = {}
+    for codec in (None, "fp8_e4m3"):
+        nodes = msg_cluster(ps, Environment, 1, 1)
+        srv = ps.KVServer(0, postoffice=nodes[1])
+        srv.set_request_handle(ps.KVServerDefaultHandle())
+        kv = ps.KVWorker(0, 0, postoffice=nodes[2])
+        label = f"kv-train-{codec or 'raw'}"
+        before = counts()
+        try:
+            t0 = time.perf_counter()
+            losses = train.kv_train_loop(kv, cfg, steps=KV_STEPS, lr=KV_LR,
+                                         codec=codec, device=dev)
+            wall = (time.perf_counter() - t0) * 1e3 / KV_STEPS
+        finally:
+            msg_finalize(nodes, [kv, srv])
+        # The message path's pushes run no kernel of the watched four.
+        check_launches(label, before, {})
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"kv_train_loop {codec}: {losses}")
+        finals[codec] = float(np.mean(losses[-5:]))
+        results.append({"config": label, "ops": KV_STEPS,
+                        "first_loss": losses[0], "last_loss": losses[-1],
+                        "wall_ms_per_step": wall})
+        print(f"models {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"over {KV_STEPS} steps; {wall:.2f} ms/step wall (pull, grad "
+              f"on the card, push; host CPU {cpu_model()})")
+    gap = abs(finals["fp8_e4m3"] - finals[None]) / finals[None]
+    print(f"models kv-train: fp8_e4m3 + error feedback ends "
+          f"{gap * 100:.2f} % from raw (mean of the last 5 losses; "
+          f"bar {KV_GAP * 100:g} %)")
+    if not gap <= KV_GAP:
+        raise AssertionError(f"kv-train: fp8_e4m3 + error feedback ends "
+                             f"{gap * 100:.2f} % from raw, over "
+                             f"{KV_GAP * 100:g} %")
+    print(f"models phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def wait_epoch(po, epoch: int, timeout: float = 60.0):
     """The routing table once ``po`` holds ``epoch`` or a later one."""
     end = time.monotonic() + timeout
@@ -6424,6 +6738,8 @@ def main() -> int:
             + drive_elastic_migrate(ps, Environment, smi))),
         ("observability", lambda: drive_observability(
             ps, Environment, rows, smi)),
+        ("models", lambda: drive_models(torch, ps, ring, sr, Environment,
+                                        smi)),
     ]
     results, path_counts = [], {}
     for path, run in paths:

@@ -59,3 +59,27 @@ def load_server_store(handle, store, slots=None) -> None:
                     for k, v in getattr(slots, name).items()})
     handle._t.clear()
     handle._t.update({int(k): int(t) for k, t in slots._t.items()})
+
+
+def params_from_jax(tree, device="cpu"):
+    """The JAX package's params tree (dicts and lists of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) as the port's: the
+    transformer's, the CNN's (conv weights stay HWIO), DLRM's MLP and
+    the pipeline's stacked layers and head all keep JAX's keys, shapes
+    and dtypes, so every leaf becomes a tensor on ``device``."""
+    import torch
+
+    from .models.ps_step import tree_map
+
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    tree)
+
+
+def flat_from_jax(tree) -> np.ndarray:
+    """The flat vector of a JAX params tree in ``ravel_pytree``'s order
+    (dict keys sorted, lists in order): the layout of the flat PS store
+    (``models/ps_step.py``)."""
+    from .models.ps_step import tree_leaves
+
+    leaves = [np.asarray(a).reshape(-1) for a in tree_leaves(tree)]
+    return np.concatenate(leaves) if leaves else np.zeros(0, np.float32)

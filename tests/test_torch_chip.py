@@ -1095,3 +1095,102 @@ def _elastic_state_v1(eng, se):
     return [t.cpu().numpy() for t in
             [eng.store_array("a"), eng.store_array("s"), se.store_array("emb")]
             + list(eng.opt_state("a")[1])]
+
+
+# -- the model zoo on the card -----------------------------------------------
+#
+# Each step runs from the same initial params on the card and on the CPU
+# (the plain versions).  bfloat16 products accumulate in other orders on
+# cuBLAS/cuDNN and on the CPU: the PSFormer and pp stores within 2**-8 of
+# the largest update, the CNN's within 2**-4 (six bfloat16 products along
+# its backward chain, as tests/test_torch_model_zoo.py states); DLRM is
+# float32 throughout: rtol 1e-5 / atol 1e-6.
+
+def _zoo_models():
+    from pslite_tpu_torch.models import cnn, dlrm, train, transformer
+
+    return cnn, dlrm, train, transformer
+
+
+@pytest.mark.parametrize("strategy,moe", [("ring", 0), ("ulysses", 4)])
+def test_psformer_step_on_the_card_matches_the_cpu(dev, strategy, moe):
+    _, _, train, transformer = _zoo_models()
+    cfg = transformer.ModelConfig(vocab=32, dim=32, heads=2, layers=1,
+                                  moe_experts=moe)
+    inputs, targets = train.toy_batch(cfg, batch=8, seq=16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        step, store = train.make_ps_train_step(
+            cfg, make_group((4, 2), ("dp", "sp"), device=d), lr=0.5,
+            sp_strategy=strategy)
+        flat0 = store.array().cpu()
+        ring.reset_launches()
+        loss = float(step(inputs, targets))
+        launched = ring.launches["ring_push[float32]"]
+        out[d.type] = (loss, store.array().cpu(), launched)
+    assert out["cuda"][2] == 1 and out["cpu"][2] == 0
+    upd = float((out["cpu"][1] - flat0).abs().max())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * out["cpu"][0]
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= (
+        2.0 ** -8 * upd)
+
+
+def test_pp_and_cnn_steps_on_the_card_match_the_cpu(dev):
+    cnn, _, train, transformer = _zoo_models()
+    pcfg = transformer.ModelConfig(vocab=32, dim=16, heads=2, layers=4)
+    rng = np.random.default_rng(2)
+    inputs = rng.integers(0, 32, size=(2, 2, 2, 8)).astype(np.int32)
+    ccfg = cnn.CNNConfig(num_classes=4, channels=(8, 16), image_size=8)
+    images, labels = cnn.toy_batch(ccfg, batch=32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        step, state = train.make_pp_train_step(
+            pcfg, make_group((2, 4), ("dp", "pp"), device=d), lr=0.15,
+            num_micro=2)
+        (stacked, _), loss = step(state, inputs, (inputs + 1) % 32)
+        cstep, store = cnn.make_ps_train_step(
+            ccfg, DeviceGroup(8, device=d, axis_name="dp"), lr=0.05)
+        flat0 = store.array().cpu()
+        closs = float(cstep(images, labels))
+        out[d.type] = (float(loss), stacked["qkv"].cpu(),
+                       state[0]["qkv"].cpu(), closs, store.array().cpu(),
+                       flat0)
+    g, c = out["cuda"], out["cpu"]
+    assert abs(g[0] - c[0]) <= 1e-3 * c[0]
+    upd = float((c[1] - c[2]).abs().max())
+    assert float((g[1] - c[1]).abs().max()) <= 2.0 ** -8 * upd
+    assert abs(g[3] - c[3]) <= 1e-3 * c[3]
+    upd = float((c[4] - c[5]).abs().max())
+    assert float((g[4] - c[4]).abs().max()) <= 2.0 ** -4 * upd
+
+
+@pytest.mark.parametrize("opt", [None, "row_adagrad"])
+def test_dlrm_steps_on_the_card_match_the_cpu(dev, opt):
+    from pslite_tpu_torch import SparseEngine
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    _, dlrm, _, _ = _zoo_models()
+    cfg = dlrm.DLRMConfig(num_rows=4096, emb_dim=16, num_cat=4, num_dense=8,
+                          hidden=64)
+    data = dlrm.toy_batch(cfg, workers=8, batch=256, seed=1)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        group = DeviceGroup(8, device=d)
+        engine, sparse = CollectiveEngine(group, impl="ring"), SparseEngine(
+            group)
+        step = dlrm.make_train_step(cfg, engine, sparse, lr=0.1,
+                                    emb_optimizer=opt)
+        ring.reset_launches()
+        sr.reset_launches()
+        losses = [float(step(*data)) for _ in range(3)]
+        launched = (ring.launches["ring_push[float32]"],
+                    sr.launches["sparse_row_adagrad" if opt
+                                else "sparse_scatter_add"],
+                    sr.launches["sparse_gather_rows"])
+        out[d.type] = (losses, engine.pull("dlrm_mlp").cpu(),
+                       sparse.store_array("dlrm_emb").cpu(), launched)
+    g, c = out["cuda"], out["cpu"]
+    assert g[3] == (3, 3, 3) and c[3] == (0, 0, 0)
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-5)
+    for a, b in ((g[1], c[1]), (g[2], c[2])):
+        assert bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())

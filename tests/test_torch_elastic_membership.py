@@ -82,6 +82,20 @@ def _wait_for(pred, what, timeout=DEADLINE):
     raise TimeoutError(f"{what} within {timeout}s")
 
 
+def _wait_handoff(el, jsrv):
+    """Wait until a join's handoff has finished: the joiner holds the
+    migrated keys and no other server still does.  Both packages import
+    at the joiner, acknowledge, and only then drop the donor's copy, so
+    the joiner's store turns non-empty while the donor still holds the
+    keys; a snapshot taken in that window differs between runs."""
+    def done():
+        moved = set(list(jsrv._handle.store))
+        return moved and not any(moved & set(list(s._handle.store))
+                                 for s in el.servers if s is not jsrv)
+
+    _wait_for(done, "no completed handoff")
+
+
 def _store(srv):
     return {int(k): np.array(v, copy=True)
             for k, v in srv._handle.store.items()}
@@ -323,7 +337,7 @@ def test_join_migrates_then_decommission_merges_back():
         rt1 = _wait_epoch(el.cluster.workers[0], 1)
         out = np.zeros_like(vals)
         w.wait(w.pull(keys, out))
-        _wait_for(lambda: jsrv._handle.store, "no keys migrated")
+        _wait_handoff(el, jsrv)
         joined = _by_rank(el.servers)
         for _ in range(3):
             w.wait(w.push(keys, vals))
@@ -478,7 +492,7 @@ def _mixed_join_leave(el):
         w.wait(w.push(keys, vals))
     jpo, jsrv = el.join()
     rt1 = _wait_epoch(el.cluster.workers[0], 1)
-    _wait_for(lambda: jsrv._handle.store, "no keys migrated")
+    _wait_handoff(el, jsrv)
     for _ in range(2):
         w.wait(w.push(keys, vals))
     out = np.zeros_like(vals)
@@ -542,7 +556,7 @@ def test_key_beside_the_cut_stays_with_its_owner():
         w.wait(w.push(keys, vals))
         _jpo, jsrv = el.join()
         rt = _wait_epoch(el.cluster.workers[0], 1)
-        _wait_for(lambda: jsrv._handle.store, "no keys migrated")
+        _wait_handoff(el, jsrv)
         out = np.zeros_like(vals)
         try:
             w.wait(w.pull(keys, out))

@@ -218,7 +218,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'vans.chunking', 'vans.loopback_van', 'vans.ici_van',\n"
         "          'vans.tcp_van', 'vans.shm_van', 'vans.multi_van',\n"
         "          'vans.chaos_van', 'kv.replication', 'kv.snapshot',\n"
-        "          'kv.tiered',\n"
+        "          'kv.tiered', 'parallel.mesh', 'parallel.ring_attention',\n"
+        "          'parallel.ulysses', 'parallel.moe', 'parallel.pipeline',\n"
+        "          'models.transformer', 'models.ps_step', 'models.train',\n"
+        "          'models.cnn', 'models.dlrm',\n"
         "          'tracker.local', 'kv.kv_app', 'kv.simple_app'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
