@@ -242,6 +242,19 @@ line):
    events and by the wall, and tokens or examples per second; on the
    dense ring leg the profiler gives the device busy share and the top
    kernels beside the model FLOPs per step.
+   Then ``multiprocess`` (``tools/multiproc_phase.py``): one device
+   group across worker processes (``PS_ICI_MULTIHOST=1``): 1 + 1 + 2
+   processes over ``ici_tcp``, each worker 4 ranks of cuda:0; the 40 x
+   1 MB bucket through K4 across processes (``ring_reduce_peers`` and
+   ``ring_gather_peers`` over CUDA IPC peers), 5 ``sum`` steps each
+   with 0 differing elements against the single-process K4 on all 8
+   rows and its plain version, 2 adam steps (K3 on the owned shards),
+   config 5's table pushed and pulled across the processes (bit-exact
+   against the single-process engine), ``KVWorker.reshard`` onto 2
+   ranks per process and one more exact step; the first 2 steps over
+   ``ici_shm``; the DCN tier (2 slice leaders of 4 ranks, 2 tcp
+   servers; plain bit-exact, int8 within JAX's bound).  Its two kernel
+   rows join the kernels line.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -6545,6 +6558,15 @@ def drive_models(torch, ps, ring, sr, Environment, smi: str):
     return results
 
 
+def multiproc_phase():
+    """``tools/multiproc_phase.py``: the ``multiprocess`` phase's body (one
+    group across worker processes on the card, and the DCN tier)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import multiproc_phase as mp
+
+    return mp
+
+
 def wait_epoch(po, epoch: int, timeout: float = 60.0):
     """The routing table once ``po`` holds ``epoch`` or a later one."""
     end = time.monotonic() + timeout
@@ -6722,6 +6744,8 @@ def main() -> int:
         ("shm-config3", lambda: drive_shm_config3(smi)),
         ("ici-tcp-mixed", lambda: drive_ici_proc("ici_tcp", smi)),
         ("ici-shm-mixed", lambda: drive_ici_proc("ici_shm", smi)),
+        ("multiprocess", lambda: multiproc_phase().drive_multiprocess(
+            smi, rows)),
         ("small-op-storm", lambda: drive_small_op_storm(smi)),
         ("serving-fanin", lambda: drive_serving_fanin(smi)),
         ("hot-cache", lambda: drive_hot_cache(smi)),
@@ -6865,6 +6889,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--node"]:
+        # A flushed print leaves in one write, so the lines of node
+        # processes that share a pipe never run together (unbuffered
+        # output, as PYTHONUNBUFFERED gives, writes a print's text and
+        # its newline apart).
+        sys.stdout.reconfigure(write_through=False)
         sys.path.insert(0, HERE)
         sys.exit(node_main())
     sys.exit(main())

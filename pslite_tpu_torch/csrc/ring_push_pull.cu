@@ -61,12 +61,41 @@
 // per step of engine.replay; a persistent T-step kernel that keeps the store
 // in registers between steps is later work.
 //
+// K4 across processes (pstt_ring_reduce_peers, pstt_ring_gather_peers): the
+// same TPU kernel (pallas_call :445) on a multi-process pod, where its remote
+// DMAs and credit semaphores run between devices of different processes
+// (pslite_tpu's PS_ICI_MULTIHOST=1 mesh).  Here several worker processes
+// share one card, each holding the rows and store shards of its own ranks in
+// a slab of cudaMalloc memory (pstt_ipc_alloc; outside PyTorch's caching
+// allocator, so an IPC handle's base is the slab's own) that every peer maps
+// through cudaIpcOpenMemHandle.  One op, driven by parallel/engine.py:
+// (1) each process writes its grads rows into its slab; (2) stream sync and
+// a host barrier; (3) pstt_ring_reduce_peers: each process computes only its
+// own ranks' chunks, reading every rank's row through a table of row
+// pointers passed by value (as ring_group_kernel's table), with ring_sum and
+// ring_apply, so the bits equal pstt_ring_push_pull's on the same n rows;
+// (4) sync, barrier; (5) pstt_ring_gather_peers copies every owner's store
+// shards into this process's pulled row; (6) sync, barrier before any
+// process writes its slab or store again.  No kernel spins on a flag: two
+// processes on one card without MPS time-slice, and a spinning kernel would
+// hold the card from the peer it waits for.  Bound: HBM traffic, (n+2)*P*b
+// for the reduce over all processes (n rows read, the store read and
+// written) plus 2*P*b per process for its gather; at the 40 x 1 MB bucket,
+// n = 8 ranks in 2 processes, f32: 14 * 40.96 MB = 573.4 MB, 171.2 us at
+// 3.35 TB/s.  One process's launches move their share of that: its reduce
+// (n+2)*count*b (count = its chunks' elements, P/2 here: 61.1 us), its
+// gather 2*P*b (24.5 us).  The host barriers come on top and are timed
+// apart.  Device flags with release/acquire semantics can replace them
+// later.
+//
 // Later slice: ranks on several cards, where the TPU kernel's peer slots and
 // credits become stores into NVLink peer pointers plus release/acquire flags.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "ring_geometry.cuh"
 
@@ -102,37 +131,46 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-// One thread's V consecutive outputs at element i0: the ring walk, the
-// handle, the store and pulled writes.  Shared by ring_kernel and
-// ring_group_kernel, so a bucket of a group gets the bits of its own launch.
-template <typename T, int V, bool KV>
-__device__ __forceinline__ void ring_vector(const T* __restrict__ grads,
-                                            T* __restrict__ store,
-                                            T* __restrict__ pulled,
-                                            const RingGeo& geo,
-                                            long long padded, long long i0,
-                                            int handle, float lr) {
+// Rank w's row of a grads tensor [n, padded] (one process holds every row).
+template <typename T>
+struct DenseRows {
+  const T* __restrict__ g;
+  long long padded;
+  __device__ __forceinline__ const T* row(int r) const { return g + r * padded; }
+};
+
+// The ring walk of one thread's V consecutive elements at i0: the sum of
+// every rank's values in the TPU ring's order, each hop rounded to T.
+template <typename T, int V, bool KV, typename Rows>
+__device__ __forceinline__ void ring_sum(const Rows& rows, const RingGeo& geo,
+                                         long long i0, float (&acc)[V]) {
   const int n = geo.n;
   const RingPos pos = ring_pos<KV>(geo, i0);
   // Direction 0 walks c+1, c+2, ...; direction 1 walks c-1, c-2, ...
   const int step = pos.step;
   int r = ring_rank(pos, 1, n);
-
-  float acc[V];
   {
-    const Pack<T, V> g = *reinterpret_cast<const Pack<T, V>*>(grads + r * padded + i0);
+    const Pack<T, V> g = *reinterpret_cast<const Pack<T, V>*>(rows.row(r) + i0);
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = to_f<T>(g.v[e]);
   }
   for (int k = 2; k <= n; ++k) {
     r += step;
     if (r >= n) r -= n;
-    const Pack<T, V> g = *reinterpret_cast<const Pack<T, V>*>(grads + r * padded + i0);
+    const Pack<T, V> g = *reinterpret_cast<const Pack<T, V>*>(rows.row(r) + i0);
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = rnd<T>(acc[e] + to_f<T>(g.v[e]));
   }
+}
 
-  Pack<T, V> s = *reinterpret_cast<const Pack<T, V>*>(store + i0);
+// The handle on V store values at `store` (updated in place), and the
+// all-gather's copy at `pulled` unless it is NULL.
+template <typename T, int V>
+__device__ __forceinline__ void ring_apply(const float (&acc)[V],
+                                           T* __restrict__ store,
+                                           T* __restrict__ pulled, int handle,
+                                           float lr) {
+  Pack<T, V> s = *reinterpret_cast<const Pack<T, V>*>(store);
 #pragma unroll
   for (int e = 0; e < V; ++e) {
     const float sv = to_f<T>(s.v[e]);
@@ -146,8 +184,25 @@ __device__ __forceinline__ void ring_vector(const T* __restrict__ grads,
     }
     s.v[e] = from_f<T>(out);
   }
-  *reinterpret_cast<Pack<T, V>*>(store + i0) = s;
-  if (pulled != nullptr) *reinterpret_cast<Pack<T, V>*>(pulled + i0) = s;
+  *reinterpret_cast<Pack<T, V>*>(store) = s;
+  if (pulled != nullptr) *reinterpret_cast<Pack<T, V>*>(pulled) = s;
+}
+
+// One thread's V consecutive outputs at element i0: the ring walk, the
+// handle, the store and pulled writes.  Shared by ring_kernel and
+// ring_group_kernel, so a bucket of a group gets the bits of its own launch;
+// ring_peers_kernel runs the same ring_sum and ring_apply.
+template <typename T, int V, bool KV>
+__device__ __forceinline__ void ring_vector(const T* __restrict__ grads,
+                                            T* __restrict__ store,
+                                            T* __restrict__ pulled,
+                                            const RingGeo& geo,
+                                            long long padded, long long i0,
+                                            int handle, float lr) {
+  float acc[V];
+  ring_sum<T, V, KV>(DenseRows<T>{grads, padded}, geo, i0, acc);
+  ring_apply<T, V>(acc, store + i0, pulled == nullptr ? nullptr : pulled + i0,
+                   handle, lr);
 }
 
 template <typename T, int V, bool KV>
@@ -316,6 +371,134 @@ cudaError_t launch_group(const long long* desc, int count, int handle,
   return cudaSuccess;
 }
 
+// -- K4 across processes (pstt_ring_reduce_peers, pstt_ring_gather_peers) ----
+
+// Ranks of a ring whose rows sit in several processes' memory: rank r's
+// [padded] row at rows[r], mapped into this process through CUDA IPC (its
+// own rows are plain device pointers).  2 KiB by value.
+constexpr int kMaxPeers = 256;
+
+struct PeerTable {
+  long long lo;     // first element this launch computes
+  long long count;  // elements it computes (this process's ranks' chunks)
+  const void* rows[kMaxPeers];
+};
+
+template <typename T>
+struct PeerRows {
+  const PeerTable& t;
+  __device__ __forceinline__ const T* row(int r) const {
+    return static_cast<const T*>(t.rows[r]);
+  }
+};
+
+// The chunks [lo, lo + count) of a 1-D ring: the same ring_sum over every
+// rank's row, wherever it lives, and the same ring_apply on this process's
+// store shards (store[0] is element lo).  No all-gather here: the owners'
+// stores are copied out by gather_peers_kernel once every process is done.
+template <typename T, int V>
+__global__ void ring_peers_kernel(const PeerTable table, T* __restrict__ store,
+                                  RingGeo geo, int handle, float lr) {
+  const long long vi = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vi * V >= table.count) return;
+  float acc[V];
+  ring_sum<T, V, false>(PeerRows<T>{table}, geo, table.lo + vi * V, acc);
+  ring_apply<T, V>(acc, store + vi * V, nullptr, handle, lr);
+}
+
+template <typename T>
+cudaError_t launch_peers(const PeerTable& table, void* store,
+                         const RingGeo& geo, int handle, float lr,
+                         cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  bool vec = geo.sub % V == 0 && (geo.split >= geo.sub || geo.split % V == 0) &&
+             table.lo % V == 0 && table.count % V == 0 && aligned16(store);
+  for (int r = 0; r < geo.n; ++r) vec = vec && aligned16(table.rows[r]);
+  auto* s = static_cast<T*>(store);
+  if (vec) {
+    const long long nvec = table.count / V;
+    ring_peers_kernel<T, V><<<static_cast<unsigned int>((nvec + kThreads - 1) / kThreads),
+                              kThreads, 0, stream>>>(table, s, geo, handle, lr);
+  } else {
+    ring_peers_kernel<T, 1><<<static_cast<unsigned int>((table.count + kThreads - 1) / kThreads),
+                              kThreads, 0, stream>>>(table, s, geo, handle, lr);
+  }
+  return cudaGetLastError();
+}
+
+// The all-gather across processes: segment s copies `len` elements from
+// `src` (an owner's store shards, mapped or local) to pulled[off, off+len).
+struct GatherSeg {
+  const void* src;
+  long long off;
+  long long len;          // in units of the launch's word (16 or esize bytes)
+  long long first_block;  // the launch's first block on this segment
+};
+
+constexpr int kMaxSegs = 64;  // processes per launch: 8 + 64 * 32 bytes
+constexpr int kGatherUnroll = 4;  // words per thread, all loaded before any store
+
+struct GatherTable {
+  int count;
+  GatherSeg s[kMaxSegs];
+};
+
+// A block copies kThreads * kGatherUnroll consecutive words of one segment;
+// each thread issues its kGatherUnroll loads (kThreads apart, so a warp's
+// accesses stay coalesced) before its stores, to keep more bytes in flight.
+template <typename W>
+__global__ void gather_peers_kernel(const GatherTable table, W* __restrict__ pulled) {
+  const long long blk = blockIdx.x;
+  int lo = 0;
+  int hi = table.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.s[mid].first_block <= blk) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const GatherSeg& d = table.s[lo];
+  const W* __restrict__ src = static_cast<const W*>(d.src);
+  W* __restrict__ dst = pulled + d.off;
+  const long long base =
+      (blk - d.first_block) * blockDim.x * kGatherUnroll + threadIdx.x;
+  W v[kGatherUnroll];
+#pragma unroll
+  for (int u = 0; u < kGatherUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * blockDim.x;
+    if (i < d.len) v[u] = src[i];
+  }
+#pragma unroll
+  for (int u = 0; u < kGatherUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * blockDim.x;
+    if (i < d.len) dst[i] = v[u];
+  }
+}
+
+template <typename W>
+cudaError_t launch_gather(const long long* segs, int count, void* pulled,
+                          long long unit, cudaStream_t stream) {
+  GatherTable table{};
+  long long blocks = 0;
+  constexpr long long kWordsPerBlock = static_cast<long long>(kThreads) * kGatherUnroll;
+  for (int i = 0; i < count; ++i) {
+    const long long* r = segs + 3ll * i;
+    GatherSeg& g = table.s[table.count++];
+    g.src = reinterpret_cast<const void*>(r[0]);
+    g.off = r[1] / unit;
+    g.len = r[2] / unit;
+    g.first_block = blocks;
+    blocks += (g.len + kWordsPerBlock - 1) / kWordsPerBlock;
+  }
+  if (blocks == 0) return cudaSuccess;
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  gather_peers_kernel<W><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      table, static_cast<W*>(pulled));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -403,6 +586,110 @@ int pstt_ring_replay(const void* grads, void* store, void* pulled, int dtype,
     if (err != 0) return err;
   }
   return 0;
+}
+
+// -- K4 across processes --------------------------------------------------------
+
+// The reduce of the ring over n ranks whose [padded] rows are at rows[0..n)
+// (n int64 device addresses, peers' rows mapped through pstt_ipc_open): the
+// elements [lo, lo + count) of a 1-D ring of chunks `sub` split at `split`
+// are summed in the TPU ring's order, the handle updates store[0, count) in
+// place (store[0] is element lo).  One launch.
+int pstt_ring_reduce_peers(const long long* rows, int n, void* store,
+                           long long lo, long long count, int dtype,
+                           long long sub, long long split, long long padded,
+                           int handle, float lr, void* stream) {
+  if (count <= 0) return 0;
+  if (n < 1 || n > kMaxPeers || !valid_geo(n, padded, sub, padded) || lo < 0 ||
+      lo + count > padded)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PeerTable table{};
+  table.lo = lo;
+  table.count = count;
+  for (int r = 0; r < n; ++r) table.rows[r] = reinterpret_cast<const void*>(rows[r]);
+  const RingGeo geo{padded, sub, split, n};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_peers<float>(table, store, geo, handle, lr, st));
+    case 1:
+      return static_cast<int>(launch_peers<__nv_bfloat16>(table, store, geo, handle, lr, st));
+    case 2:
+      return static_cast<int>(launch_peers<__half>(table, store, geo, handle, lr, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The all-gather across processes: `count` segments of 3 int64 words
+// (source address, destination offset, length; offsets and lengths in
+// elements of esize bytes) copied into `pulled`, one launch.  Every source
+// and the destination aligned to 16 bytes, with 16-byte multiples, take
+// 16-byte words.
+int pstt_ring_gather_peers(const long long* segs, int count, void* pulled,
+                           int esize, void* stream) {
+  if (count <= 0) return 0;
+  if (count > kMaxSegs || (esize != 2 && esize != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool vec = aligned16(pulled);
+  long long bytes[3 * kMaxSegs];
+  for (int i = 0; i < 3 * count; ++i)
+    bytes[i] = (i % 3 == 0) ? segs[i] : segs[i] * esize;
+  for (int i = 0; i < count; ++i)
+    vec = vec && aligned16(reinterpret_cast<const void*>(bytes[3 * i])) &&
+          bytes[3 * i + 1] % 16 == 0 && bytes[3 * i + 2] % 16 == 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (vec) return static_cast<int>(launch_gather<uint4>(bytes, count, pulled, 16, st));
+  if (esize == 4)
+    return static_cast<int>(launch_gather<unsigned int>(bytes, count, pulled, 4, st));
+  return static_cast<int>(launch_gather<unsigned short>(bytes, count, pulled, 2, st));
+}
+
+// Exchange memory for the cross-process ring: `bytes` of device memory from
+// cudaMalloc, outside PyTorch's caching allocator, so that an IPC handle's
+// base is the slab's own address; zero-filled.
+int pstt_ipc_alloc(int device, long long bytes, void** out) {
+  *out = nullptr;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMalloc(out, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemset(*out, 0, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
+}
+
+int pstt_ipc_free(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// The 64-byte IPC handle of a slab from pstt_ipc_alloc.
+int pstt_ipc_export(int device, void* ptr, void* handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  err = cudaIpcGetMemHandle(&h, ptr);
+  if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return static_cast<int>(err);
+}
+
+// Map another process's slab into this one; *out is its base here.
+int pstt_ipc_open(int device, const void* handle, void** out) {
+  *out = nullptr;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(out, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int pstt_ipc_close(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
 }
 
 }  // extern "C"

@@ -43,6 +43,17 @@ wrapper calls that launched their kernel, by variant
 (``ring_push_pull``/``ring_push``, ``_2d``, ``_int8``) and dtype, and
 nothing else.
 
+K4 across processes (:func:`ring_reduce_peers`, :func:`ring_gather_peers`)
+runs the 1-D ring of a group whose ranks belong to several worker
+processes on one card: each process holds its own ranks' grads rows and
+store shards in exchange memory that the others map through CUDA IPC
+(:func:`ipc_alloc`, :func:`ipc_export`, :func:`ipc_open`;
+``parallel/peers.py`` manages it, ``parallel/engine.py`` drives the op
+with its barriers).  Its plain version,
+:func:`ring_push_pull_peers_reference`, gathers the rows and store shards
+of a CPU group over gloo and runs the single-process plain ring.  They
+count under ``ring_reduce_peers[...]`` and ``ring_gather_peers[...]``.
+
 Two wrappers run many rings per call, for the engine's groups and
 replays: :func:`ring_push_pull_group` (k buckets in one launch of the
 grouped kernel per dtype and one int8 cluster launch over every int8
@@ -101,6 +112,8 @@ launches: Dict[str, int] = {
        if not cp or dt == torch.float32},
     **{_replay_variant(ag, kv, dt): 0
        for ag in (True, False) for kv in (False, True) for dt in _DTYPE_CODES},
+    **{f"ring_{part}_peers[{str(dt).replace('torch.', '')}]": 0
+       for part in ("reduce", "gather") for dt in _DTYPE_CODES},
 }
 
 
@@ -776,3 +789,143 @@ def ring_replay(grads_seq, store, handle: str = "sum", bidir: bool = True,
     )
     launches[_replay_variant(keep == "all", geo.kv, store.dtype)] += 1
     return outs if outs is not None else store
+
+
+# -- K4 across processes -----------------------------------------------------
+
+class _CudaMemory:
+    """``__cuda_array_interface__`` of ``nbytes`` bytes at a device
+    address, for ``torch.as_tensor``: a tensor on memory PyTorch did not
+    allocate (an IPC slab, or a peer's slab mapped into this process)."""
+
+    def __init__(self, addr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (int(nbytes),), "typestr": "|u1",
+            "data": (int(addr), False), "version": 3, "strides": None}
+
+
+def device_view(addr: int, shape, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on the device memory at
+    ``addr`` (no copy; the caller keeps the memory alive)."""
+    shape = tuple(int(x) for x in shape)
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    raw = torch.as_tensor(_CudaMemory(addr, nbytes), device=device)
+    return raw.view(dtype).view(shape)
+
+
+def ipc_alloc(nbytes: int, device) -> int:
+    """``nbytes`` of zeroed device memory from ``cudaMalloc``, outside
+    PyTorch's caching allocator (an IPC handle maps an allocation's base,
+    which the caching allocator's blocks do not start at)."""
+    out = ctypes.c_void_p()
+    _native.call("pstt_ipc_alloc", _device_index(torch.device(device)),
+                 int(nbytes), ctypes.byref(out))
+    return int(out.value)
+
+
+def ipc_free(addr: int, device) -> None:
+    _native.call("pstt_ipc_free", _device_index(torch.device(device)), addr)
+
+
+def ipc_export(addr: int, device) -> bytes:
+    """The 64-byte IPC handle of an :func:`ipc_alloc` allocation."""
+    buf = ctypes.create_string_buffer(64)
+    _native.call("pstt_ipc_export", _device_index(torch.device(device)),
+                 addr, buf)
+    return buf.raw
+
+
+def ipc_open(handle: bytes, device) -> int:
+    """Map another process's allocation into this one; its address here.
+    Raises with the CUDA error when the card refuses."""
+    log.check(len(handle) == 64, "an IPC handle is 64 bytes")
+    buf = ctypes.create_string_buffer(bytes(handle), 64)
+    out = ctypes.c_void_p()
+    _native.call("pstt_ipc_open", _device_index(torch.device(device)), buf,
+                 ctypes.byref(out))
+    return int(out.value)
+
+
+def ipc_close(addr: int, device) -> None:
+    _native.call("pstt_ipc_close", _device_index(torch.device(device)), addr)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def ring_reduce_peers(rows, store: torch.Tensor, lo: int, padded: int,
+                      handle: str = "sum", bidir: bool = True) -> None:
+    """The reduce of K4 across processes: ``rows`` holds the device
+    address of every rank's ``[padded]`` grads row (n of them, in rank
+    order; a peer's row mapped through :func:`ipc_open`), ``store`` this
+    process's store shards ``[count]``, element ``lo`` of the bucket
+    first.  The elements ``[lo, lo + count)`` are summed over the n rows
+    in the TPU ring's order and the handle updates ``store`` in place:
+    the bits of :func:`ring_push_pull` on the same n rows.  One launch of
+    ``pstt_ring_reduce_peers``; CUDA only."""
+    log.check(store.device.type == "cuda",
+              "ring_reduce_peers runs on the card (a CPU group takes "
+              "ring_push_pull_peers_reference)")
+    log.check(store.dim() == 1 and store.is_contiguous(),
+              "store must be a contiguous [count] tensor")
+    log.check(store.dtype in _DTYPE_CODES, f"unsupported dtype {store.dtype}")
+    n = len(rows)
+    geo = ring_geometry(n, int(padded), store.dtype, bidir, False, None)
+    log.check(lo % geo.sub == 0 and store.numel() % geo.sub == 0,
+              "the store shards must be whole chunks of the ring")
+    code, lr = ring_handle(handle)
+    table = np.asarray(rows, dtype=np.int64)
+    _native.call("pstt_ring_reduce_peers", table.ctypes.data, n,
+                 store.data_ptr(), int(lo), store.numel(),
+                 _DTYPE_CODES[store.dtype], geo.sub, geo.split, geo.period,
+                 code, lr, _native.stream_ptr(store.device))
+    launches[f"ring_reduce_peers[{_dtype_name(store.dtype)}]"] += 1
+
+
+def ring_gather_peers(segments, pulled: torch.Tensor) -> torch.Tensor:
+    """The all-gather of K4 across processes: each of ``segments``
+    ``(address, offset, length)`` (elements) copies an owner's store
+    shards into ``pulled`` at ``offset``.  One launch of
+    ``pstt_ring_gather_peers``; CUDA only.  Returns ``pulled``."""
+    log.check(pulled.device.type == "cuda",
+              "ring_gather_peers runs on the card")
+    log.check(pulled.is_contiguous(), "pulled must be contiguous")
+    table = np.asarray([tuple(int(x) for x in seg) for seg in segments],
+                       dtype=np.int64).reshape(-1, 3)
+    log.check(bool(((table[:, 1] >= 0)
+                    & (table[:, 1] + table[:, 2] <= pulled.numel())).all()),
+              "a segment falls outside pulled")
+    _native.call("pstt_ring_gather_peers", table.ctypes.data, len(table),
+                 pulled.data_ptr(), pulled.element_size(),
+                 _native.stream_ptr(pulled.device))
+    launches[f"ring_gather_peers[{_dtype_name(pulled.dtype)}]"] += 1
+    return pulled
+
+
+def ring_push_pull_peers_reference(grads, store, group, padded: int,
+                                   handle: str = "sum", bidir: bool = True,
+                                   with_ag: bool = True):
+    """Plain version of K4 across processes, for a CPU group: every
+    process's grads rows ``[L, padded]`` and store shards are gathered
+    through gloo in rank order, the single-process plain ring runs on
+    all n rows, and this process keeps its own shards (``store`` updated
+    in place).  Returns the pulled ``[padded]`` tensor (or ``store``
+    without ``with_ag``).  Every process of ``group`` calls it."""
+    from ..parallel import distributed
+
+    log.check(store.device.type == "cpu",
+              "the rows of a CUDA group never travel through gloo")
+    rows = torch.cat([torch.as_tensor(r) for r in
+                      distributed.allgather_object(grads.contiguous())])
+    shards = torch.cat([torch.as_tensor(s) for s in
+                        distributed.allgather_object(store.clone())])
+    log.check_eq(tuple(rows.shape), (group.num_ranks, padded),
+                 "gathered rows")
+    log.check_eq(int(shards.numel()), padded, "gathered store")
+    chunk = padded // group.num_ranks
+    lo = group.local_ranks[0] * chunk
+    pulled = _ring_reference(rows, shards, handle, bidir, True)
+    store.copy_(shards[lo:lo + store.numel()])
+    return pulled if with_ag else store

@@ -72,8 +72,27 @@ in the JAX engine.
 group (the elastic tier; ``KVWorker.reshard`` coordinates it across a
 cluster's workers, ``vans/ici_van.py``).
 
-Not in this slice: multi-process groups and ranks on several cards
-(ROADMAP Queue 1 item 9).
+A group spanning worker processes (``distributed.global_group``; the
+JAX engine on a ``PS_ICI_MULTIHOST=1`` mesh) holds in each process the
+store shards of that process's ranks, and takes that process's grads rows
+(``[local, total]``, or ``[total]`` broadcast to them).  Every process
+drives the same ops in the same order (SPMD lockstep, as JAX's
+multi-host contract).  On the card each bucket's rows and store shards
+live in a :class:`~pslite_tpu_torch.parallel.peers.PeerSlab` that every
+peer maps: ``sum``/``assign``/``sgd`` on the ring impl take K4 across
+processes (``ring_reduce_peers`` over every rank's row, each process its
+own chunks, then ``ring_gather_peers``), and the torch impl and the
+stateful handles run ``rank_order_sum`` over the peers' rows of each
+owned shard, the handle (K1/K2/K3) on that shard alone, and the same
+gather; each op syncs the stream and meets a host barrier after writing
+its rows, after the reduce and after the gather.  On a CPU group the rows
+travel through gloo (the plain versions).  ``pull`` gathers the owners'
+shards; ``store_array``, ``opt_state`` and recuts gather the whole
+value with ``peers.gather_global`` (device to device on the card,
+``placement.to_host_global`` on a CPU group).  A 2-D ``worker_axis``
+group and int8 wire compression across processes raise at construction
+(ROADMAP Queue 1 item 9); ranks on several cards are item 9's other
+half.
 """
 
 from __future__ import annotations
@@ -91,8 +110,9 @@ import torch
 
 from ..ops import fused_update, ring_collective
 from ..utils import logging as log
-from . import placement
+from . import distributed, placement
 from .mesh import DeviceGroup, default_group
+from .peers import PeerSlab, Retired, align, gather_global
 from .zero_copy import Generation, ZeroCopyHandle, plain
 
 
@@ -150,15 +170,16 @@ def to_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def rank_order_sum(grads: torch.Tensor) -> torch.Tensor:
+def rank_order_sum(grads) -> torch.Tensor:
     """``grads[0] + grads[1] + ... + grads[W-1]``, left to right — the
     counterpart of psum_scatter's reduction (a fresh tensor).  Like
     psum_scatter on the JAX CPU mesh, 2-byte floats accumulate in f32
-    and round to the dtype once, at the end."""
+    and round to the dtype once, at the end.  ``grads`` is a ``[W, ...]``
+    tensor or a sequence of W tensors (the peers' rows)."""
     acc = grads[0].to(torch.float32, copy=True)
-    for w in range(1, grads.shape[0]):
+    for w in range(1, len(grads)):
         acc += grads[w]
-    return acc.to(grads.dtype)
+    return acc.to(grads[0].dtype)
 
 
 class _HostStager:
@@ -234,9 +255,6 @@ class CollectiveEngine:
         self.group = group if group is not None else default_group(axis_name)
         self.axis = axis_name
         self.worker_axis = worker_axis
-        self.num_shards, self.num_workers = self._layout(self.group,
-                                                         axis_name)
-        self.device = self.group.device
         impl = impl or os.environ.get("PS_ICI_IMPL", "torch")
         log.check(impl in _IMPL_ALIASES, f"unknown engine impl {impl!r}")
         self.impl = _IMPL_ALIASES[impl]
@@ -248,6 +266,18 @@ class CollectiveEngine:
         ) or None
         log.check(self.wire_compress in (None, "int8"),
                   f"unknown wire_compress {self.wire_compress!r}")
+        self.num_shards, self.num_workers = self._layout(self.group,
+                                                         axis_name)
+        self.device = self.group.device
+        # Across processes: each bucket's exchange memory on the card, the
+        # slabs out of use, and (when a caller sets it to a dict) the last
+        # op's reduce/gather device ms, their host windows and the host
+        # barriers' ms.
+        self._mp = self.group.is_multiprocess
+        self._slabs: Dict[str, PeerSlab] = {}
+        self._retired = Retired()
+        self._closed = False
+        self.peer_timing: Optional[dict] = None
         self._server_handle = server_handle
         self._buckets: Dict[str, DenseBucket] = {}
         self._stores: Dict[str, torch.Tensor] = {}
@@ -280,7 +310,22 @@ class CollectiveEngine:
         """``(num_shards, num_workers)`` of this engine on ``group`` with
         kv axis ``axis`` (a name or a tuple of names): the shards are the
         product of the kv axes' sizes, the workers the worker axis's size
-        (the shards on the 1-D colocated layout)."""
+        (the shards on the 1-D colocated layout).  A group spanning
+        processes takes the 1-D ring layout only, without int8 wire
+        compression (ROADMAP Queue 1 item 9 ports the rest)."""
+        if group.is_multiprocess:
+            why = None
+            if self.worker_axis is not None:
+                why = "a 2-D worker_axis group across processes"
+            elif isinstance(axis, tuple) or len(group.axis_names) != 1:
+                why = "a composite or N-D kv axis across processes"
+            elif self.wire_compress == "int8":
+                why = "int8 wire compression (PS_ICI_COMPRESS=int8) across " \
+                      "processes"
+            if why is not None:
+                raise NotImplementedError(
+                    f"{why} is not yet ported to pslite_tpu_torch (ROADMAP "
+                    f"Queue 1 item 9)")
         kv_axes = axis if isinstance(axis, tuple) else (axis,)
         for a in kv_axes:
             log.check(a in group.axis_names,
@@ -308,12 +353,31 @@ class CollectiveEngine:
         padded = -(-total // self.num_shards) * self.num_shards
         bucket = DenseBucket(name=name, keys=keys, val_len=val_len, dtype=dt,
                              total_len=total, padded_len=padded)
-        store = torch.zeros(padded, dtype=dt, device=self.device)
-        if init is not None:
-            store[:total] = to_tensor(init, dt, self.device).reshape(-1)
+        slab = None
+        if self._mp:
+            # A collective: this process's shards, in exchange memory on
+            # the card.
+            lo, length = self._local_span(bucket, self.group)
+            if self.device.type == "cuda":
+                slab = self._new_slab(bucket, self.group, padded)
+                store = self._slab_store(slab, bucket, self.group,
+                                         self.group.process_index, padded)
+            else:
+                store = torch.zeros(length, dtype=dt, device=self.device)
+            if init is not None:
+                full = torch.zeros(padded, dtype=dt)
+                full[:total] = to_tensor(init, dt, "cpu").reshape(-1)
+                store.copy_(full[lo:lo + length])
+        else:
+            store = torch.zeros(padded, dtype=dt, device=self.device)
+            if init is not None:
+                store[:total] = to_tensor(init, dt, self.device).reshape(-1)
         with self._mu:
             self._buckets[name] = bucket
             self._stores[name] = store
+            self._retired.retire(self._slabs.pop(name, None))
+            if slab is not None:
+                self._slabs[name] = slab
             self._bucket_mu.setdefault(name, threading.Lock())
             # Re-registering replaces the store: its handles go stale.
             self._generations.setdefault(name, Generation(name)).advance()
@@ -321,6 +385,185 @@ class CollectiveEngine:
 
     def bucket(self, name: str) -> DenseBucket:
         return self._buckets[name]
+
+    # -- across processes -----------------------------------------------------
+
+    @staticmethod
+    def _local_span(bucket: DenseBucket, group: DeviceGroup,
+                    process: Optional[int] = None) -> tuple:
+        """``(first element, length)`` of the store shards ``process``
+        (this one by default) holds on a group spanning processes."""
+        ranks = group.ranks_of(group.process_index if process is None
+                               else process)
+        chunk = bucket.padded_len // group.num_ranks
+        return ranks[0] * chunk, len(ranks) * chunk
+
+    @staticmethod
+    def _slab_layout(bucket: DenseBucket, group: DeviceGroup, process: int,
+                     padded: int) -> tuple:
+        """``(row stride, store offset, bytes)`` of ``process``'s slab for
+        a bucket of ``padded`` values: one row per rank it owns, each
+        starting aligned, then its store shards."""
+        b = bucket.dtype.itemsize
+        ranks = len(group.ranks_of(process))
+        stride = align(padded * b)
+        store_off = ranks * stride
+        shards = ranks * (padded // group.num_ranks) * b
+        return stride, store_off, store_off + shards
+
+    def _new_slab(self, bucket: DenseBucket, group: DeviceGroup,
+                  padded: int) -> PeerSlab:
+        return PeerSlab(group, self._slab_layout(
+            bucket, group, group.process_index, padded)[2])
+
+    def _slab_store(self, slab: PeerSlab, bucket: DenseBucket,
+                    group: DeviceGroup, process: int,
+                    padded: int) -> torch.Tensor:
+        """``process``'s store shards on its slab (zeros when fresh)."""
+        _, off, nbytes = self._slab_layout(bucket, group, process, padded)
+        b = bucket.dtype.itemsize
+        return slab.view(process, off, ((nbytes - off) // b,), bucket.dtype)
+
+    def _row_addrs(self, name: str) -> List[int]:
+        """Every rank's grads row in this process's address space."""
+        bucket, slab, g = self._buckets[name], self._slabs[name], self.group
+        out = []
+        for r in range(g.num_ranks):
+            p = g.process_of(r)
+            stride = self._slab_layout(bucket, g, p, bucket.padded_len)[0]
+            out.append(slab.addr(p) + (r - g.ranks_of(p)[0]) * stride)
+        return out
+
+    def _store_segments(self, name: str) -> list:
+        """``(address, first element, length)`` of every process's store
+        shards: the all-gather's sources."""
+        bucket, slab, g = self._buckets[name], self._slabs[name], self.group
+        segs = []
+        for p in g.processes:
+            _, off, _ = self._slab_layout(bucket, g, p, bucket.padded_len)
+            lo, length = self._local_span(bucket, g, p)
+            segs.append((slab.addr(p) + off, lo, length))
+        return segs
+
+    def _peer_sync(self, key: Optional[str] = None,
+                   done: Optional[str] = None) -> None:
+        """Sync this process's stream, then a host barrier (freeing the
+        slabs retired before it); its host ms go to ``peer_timing[key]``,
+        and the sync ends the host window of the part ``done``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.monotonic()
+        timing = self.peer_timing
+        if timing is not None and done in timing:
+            timing[done + "_window"] = (timing[done + "_window"][0], t0)
+        self._retired.barrier()
+        if timing is not None and key is not None:
+            timing[key] = (time.monotonic() - t0) * 1e3
+
+    def _timed(self, key: str, fn):
+        """``fn()`` between two CUDA events when ``peer_timing`` is on; the
+        events land in ``peer_timing[key]`` (read after the next sync),
+        and ``peer_timing[key + "_window"]`` holds the host times
+        (``time.monotonic``, one clock for every process of the host) of
+        the launch and of the sync after it."""
+        if self.peer_timing is None or self.device.type != "cuda":
+            return fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        self.peer_timing[key + "_window"] = (time.monotonic(), None)
+        e0.record()
+        out = fn()
+        e1.record()
+        self.peer_timing[key] = (e0, e1)
+        return out
+
+    def _gather_full(self, name: str) -> torch.Tensor:
+        """The whole ``[padded]`` bucket from every process's shards: a
+        collective.  On the card the owners' shards are copied out by
+        ``ring_gather_peers`` between host barriers."""
+        bucket, store = self._buckets[name], self._stores[name]
+        if self.device.type != "cuda":
+            return gather_global(store, self.group)
+        self._peer_sync()
+        pulled = torch.empty(bucket.padded_len, dtype=bucket.dtype,
+                             device=self.device)
+        ring_collective.ring_gather_peers(self._store_segments(name), pulled)
+        self._peer_sync()
+        return pulled
+
+    def _apply_owned(self, name: str, bucket: DenseBucket, resolved,
+                     rows) -> None:
+        """The torch path on this process's shards: ``rows`` holds every
+        rank's values of them (n tensors), summed in rank order; then the
+        handle, the fused optimizer kernels for a stateful one."""
+        agg = rank_order_sum(rows)
+        if self._is_stateful(resolved):
+            self._stateful_fn(name, bucket, resolved)(agg)
+        else:
+            self._handle_fn(resolved)(self._stores[name], agg)
+
+    def _mp_update(self, name: str, bucket: DenseBucket, g: torch.Tensor,
+                   resolved, with_pull: bool):
+        """One op of a group spanning processes (bucket lock held); the
+        pulled ``[padded]`` tensor or None."""
+        store, padded = self._stores[name], bucket.padded_len
+        lo, length = self._local_span(bucket, self.group)
+        use_ring = (not self._is_stateful(resolved)
+                    and self._effective_impl(bucket.dtype, resolved)
+                    == "ring")
+        if self.device.type != "cuda":
+            # The plain versions: the rows travel through gloo.
+            if use_ring:
+                out = ring_collective.ring_push_pull_peers_reference(
+                    g, store, self.group, padded, resolved,
+                    with_ag=with_pull)
+                return out if with_pull else None
+            rows = torch.cat([torch.as_tensor(r) for r in
+                              distributed.allgather_object(g)])
+            self._apply_owned(name, bucket, resolved,
+                              rows[:, lo:lo + length])
+            if not with_pull:
+                return None
+            return gather_global(store, self.group)
+        slab = self._slabs[name]
+        stride = self._slab_layout(bucket, self.group,
+                                   self.group.process_index, padded)[0]
+        b = bucket.dtype.itemsize
+        rows_here = slab.view(slab.me, 0, (g.shape[0], stride // b),
+                              bucket.dtype)
+        rows_here[:, :padded].copy_(g)
+        self._peer_sync("barrier_in_ms")
+        if use_ring:
+            self._timed("reduce", lambda: ring_collective.ring_reduce_peers(
+                self._row_addrs(name), store, lo, padded, resolved))
+        else:
+            views = [ring_collective.device_view(a + lo * b, (length,),
+                                                 bucket.dtype, self.device)
+                     for a in self._row_addrs(name)]
+            self._timed("reduce", lambda: self._apply_owned(
+                name, bucket, resolved, views))
+        self._peer_sync("barrier_mid_ms", done="reduce")
+        if not with_pull:
+            return None
+        pulled = torch.empty(padded, dtype=bucket.dtype, device=self.device)
+        self._timed("gather", lambda: ring_collective.ring_gather_peers(
+            self._store_segments(name), pulled))
+        self._peer_sync("barrier_out_ms", done="gather")
+        return pulled
+
+    def close(self) -> None:
+        """Release the exchange memory of a group spanning processes (a
+        collective: every process closes its engine)."""
+        if not (self._mp and self.device.type == "cuda") or self._closed:
+            return
+        self._closed = True
+        with self._mu:
+            slabs, self._slabs = list(self._slabs.values()), {}
+        for slab in slabs:
+            slab.close_peers()
+        self._retired.barrier()
+        for slab in slabs:
+            slab.free()
 
     # -- handles -------------------------------------------------------------
 
@@ -456,7 +699,7 @@ class CollectiveEngine:
         ``[W*padded]`` tensor of them is taken without a copy."""
         resolved = self._resolve_handle(handle)
         return (not self._is_stateful(resolved)
-                and self.worker_axis is None
+                and self.worker_axis is None and not self._mp
                 and self._effective_impl(dtype, resolved) == "ring")
 
     def flat_zc_eligible(self, handle: Optional[ServerHandle] = None) -> bool:
@@ -480,25 +723,39 @@ class CollectiveEngine:
                   f"bucket {name!r} already has {have!r} state; cannot "
                   f"switch to {kind!r}")
 
+        length, shards = self._state_len(bucket)
+
         def zeros():
-            return torch.zeros(bucket.padded_len, dtype=bucket.dtype,
+            return torch.zeros(length, dtype=bucket.dtype,
                                device=self.device)
 
         if kind in ("sgd_momentum", "adagrad"):
             state = (zeros(),)
         else:  # adam
             state = (zeros(), zeros(),
-                     torch.zeros(self.num_shards, dtype=torch.float32,
+                     torch.zeros(shards, dtype=torch.float32,
                                  device=self.device))
         self._opt_states[name] = state
         self._opt_kinds[name] = kind
 
+    def _state_len(self, bucket: DenseBucket) -> tuple:
+        """(values, shards) this process holds of a bucket's state."""
+        if not self._mp:
+            return bucket.padded_len, self.num_shards
+        return (self._local_span(bucket, self.group)[1],
+                len(self.group.local_ranks))
+
     def opt_state(self, name: str):
         """(kind, copies of the state tensors), or None when the bucket
-        has no optimizer state."""
+        has no optimizer state.  Across processes a collective: the whole
+        bucket's state through ``peers.gather_global``."""
         with self._bucket_mu[name]:
             if name not in self._opt_states:
                 return None
+            if self._mp:
+                return self._opt_kinds[name], tuple(
+                    gather_global(s, self.group)
+                    for s in self._opt_states[name])
             return self._opt_kinds[name], tuple(
                 s.clone() for s in self._opt_states[name]
             )
@@ -510,13 +767,14 @@ class CollectiveEngine:
         entries."""
         log.check(name in self._buckets, f"bucket {name!r} not registered")
         bucket = self._buckets[name]
+        _, shards = self._state_len(bucket)
         placed = []
         for i, v in enumerate(values):
             if kind == "adam" and i == 2:
                 flat = to_tensor(v, torch.float32, self.device).reshape(-1)
                 step = flat[:1] if flat.numel() else torch.zeros(
                     1, device=self.device)
-                placed.append(step.expand(self.num_shards).clone())
+                placed.append(step.expand(shards).clone())
                 continue
             if isinstance(v, torch.Tensor):
                 log.check_eq(v.dtype, bucket.dtype,
@@ -531,6 +789,9 @@ class CollectiveEngine:
             if t.numel() != bucket.padded_len:
                 t = torch.nn.functional.pad(
                     t, (0, bucket.padded_len - bucket.total_len))
+            if self._mp:
+                lo, length = self._local_span(bucket, self.group)
+                t = t[lo:lo + length]
             placed.append(t.clone())
         with self._bucket_mu[name]:
             self._opt_states[name] = tuple(placed)
@@ -541,8 +802,14 @@ class CollectiveEngine:
     def _prep_grads(self, bucket: DenseBucket, grads) -> torch.Tensor:
         """Coerce grads to a contiguous ``[W, padded]`` tensor of the
         bucket dtype on the group's device (no copy when it already is
-        one, or a flat ``[W*padded]`` view of one)."""
+        one, or a flat ``[W*padded]`` view of one).  Across processes W is
+        this process's ranks: its own rows."""
         W, padded, total = self.num_workers, bucket.padded_len, bucket.total_len
+        msg = "bad worker dim"
+        if self._mp:
+            W = len(self.group.local_ranks)
+            msg = ("bad local worker dim (rows = this process's devices on "
+                   "a multi-process mesh)")
         g = to_tensor(grads, bucket.dtype, self.device)
         log.check(g.dim() in (1, 2), "bad grads rank")
         if g.dim() == 1:
@@ -550,7 +817,7 @@ class CollectiveEngine:
                 g = g.view(W, padded)
             else:
                 g = g.unsqueeze(0).expand(W, g.shape[0])
-        log.check_eq(int(g.shape[0]), W, "bad worker dim")
+        log.check_eq(int(g.shape[0]), W, msg)
         if g.shape[1] != padded:
             log.check_eq(int(g.shape[1]), total, "bad grad len")
             g = torch.nn.functional.pad(g, (0, padded - total))
@@ -588,6 +855,8 @@ class CollectiveEngine:
         g = self._prep_grads(bucket, grads)
         with self._bucket_mu[name]:
             self._generations[name].advance()
+            if self._mp:
+                return self._mp_update(name, bucket, g, resolved, with_pull)
             store = self._stores[name]
             if self._is_stateful(resolved):
                 self._stateful_fn(name, bucket, resolved)(rank_order_sum(g))
@@ -678,6 +947,11 @@ class CollectiveEngine:
         resolved = self._resolve_handle(handle)
         log.check(not self._is_stateful(resolved),
                   "push_pull_group supports stateless handles only")
+        if self._mp:
+            # Across processes each bucket is one collective op, in the
+            # order given (the same on every process).
+            return [self.push_pull(n, g, handle=handle)
+                    for n, g in zip(names, grads_list)]
         buckets = [self._buckets[n] for n in names]
         gs = [self._prep_grads(b, g) for b, g in zip(buckets, grads_list)]
         use_ring = all(self._effective_impl(b.dtype, resolved) == "ring"
@@ -761,6 +1035,14 @@ class CollectiveEngine:
         + fused optimizer kernel); the rest T torch steps.  The results
         equal T sequential ``push_pull`` calls bit for bit."""
         log.check(keep in ("all", "last"), f"bad keep {keep!r}")
+        if self._mp:
+            # Across processes: T collective ops, one per step.
+            steps = len(grads_seq)
+            outs = [self.push_pull(name, grads_seq[t], handle=handle)
+                    if keep == "all" or t == steps - 1 else
+                    self.push(name, grads_seq[t], handle=handle)
+                    for t in range(steps)]
+            return torch.stack(outs) if keep == "all" else outs[-1]
         t0 = time.perf_counter()
         bucket = self._buckets[name]
         resolved = self._resolve_handle(handle)
@@ -909,12 +1191,17 @@ class CollectiveEngine:
         bucket = self._buckets[name]
         with self._bucket_mu[name]:
             pinned = self._pinned_pulls.get(name)
+            # Across processes a collective: the owners' shards gathered.
+            full = (self._gather_full(name) if self._mp
+                    else self._stores[name])
             if pinned is not None:
                 buf, gen, _ = pinned
                 gen.advance()
-                buf.copy_(self._stores[name])
+                buf.copy_(full)
                 pulled = ZeroCopyHandle.wrap(buf, gen)
                 self._pinned_pulls[name] = (buf, gen, pulled)
+            elif self._mp:
+                pulled = full[: bucket.total_len]
             else:
                 pulled = self._stores[name][: bucket.total_len].clone()
         self._observe(name, "pull", bucket, t0)
@@ -949,8 +1236,11 @@ class CollectiveEngine:
             return pinned[2] if pinned is not None else None
 
     def store_array(self, name: str) -> torch.Tensor:
-        """A copy of the ``[padded]`` store (checkpointing)."""
+        """A copy of the ``[padded]`` store (checkpointing); across
+        processes a collective through ``peers.gather_global``."""
         with self._bucket_mu[name]:
+            if self._mp:
+                return gather_global(self._stores[name], self.group)
             return self._stores[name].clone()
 
     def set_store_array(self, name: str, value) -> None:
@@ -966,6 +1256,12 @@ class CollectiveEngine:
         store[: flat.numel()] = flat
         with self._bucket_mu[name]:
             self._generations[name].advance()
+            if self._mp:
+                # This process's shards, in place (on the card, the store
+                # lives in the bucket's exchange memory).
+                lo, length = self._local_span(bucket, self.group)
+                self._stores[name].copy_(store[lo:lo + length])
+                return
             self._stores[name] = store
 
     # -- elastic tier ------------------------------------------------------------
@@ -1002,21 +1298,35 @@ class CollectiveEngine:
         each registered pull buffer) are stale.
 
         When both groups are on one card the recut is a copy on the card;
-        a group on another device takes the state there."""
+        a group on another device takes the state there.
+
+        Across processes (either group spanning them) the recut is a
+        collective of every process: each bucket's whole value is gathered
+        in sorted name order (the owners' shards on the card,
+        ``peers.gather_global`` for the optimizer state), and each process
+        places the shards of the ranks it owns in the new group, which
+        may differ from those it owned before, in a new exchange slab; the
+        old slabs are retired at the commit."""
         if isinstance(axis_name, list):
             axis_name = tuple(axis_name)
         axis = axis_name or self.axis
         new_shards, new_workers = self._layout(group, axis)
         dev = group.device
+        old_mp, new_mp = self._mp, group.is_multiprocess
         with self._mu:
             ordered = sorted(self._buckets)
         for n in ordered:
             self._bucket_mu[n].acquire()
+        new_slabs: Dict[str, PeerSlab] = {}
         try:
             staged = {}
             for n in ordered:
                 b = self._buckets[n]
                 padded = -(-b.total_len // new_shards) * new_shards
+                if old_mp or new_mp:
+                    staged[n] = self._stage_mp(n, b, group, padded,
+                                               new_shards, new_slabs)
+                    continue
 
                 def repad(t, b=b, padded=padded):
                     return placement.place(t[: b.total_len], dev, padded)
@@ -1042,6 +1352,7 @@ class CollectiveEngine:
                 self.device = dev
                 self.num_shards = new_shards
                 self.num_workers = new_workers
+                self._mp = new_mp
                 for n in ordered:
                     entry = staged[n]
                     self._buckets[n].padded_len = entry["padded"]
@@ -1052,11 +1363,57 @@ class CollectiveEngine:
                         self._pinned_pulls[n] = entry["pinned"]
                     if "opt" in entry:
                         self._opt_states[n] = entry["opt"]
+                if old_mp or new_mp:
+                    for slab in self._slabs.values():
+                        self._retired.retire(slab)
+                    self._slabs = dict(new_slabs)
+                    new_slabs.clear()
 
             yield commit
         finally:
+            for slab in new_slabs.values():  # staged, never committed
+                self._retired.retire(slab)
             for n in reversed(ordered):
                 self._bucket_mu[n].release()
+
+    def _stage_mp(self, n: str, b: DenseBucket, group: DeviceGroup,
+                  padded: int, new_shards: int, new_slabs: dict) -> dict:
+        """One bucket's staged state on ``group`` when the old or the new
+        group spans processes (bucket locks held)."""
+        dev = group.device
+        if self._mp:
+            full = self._gather_full(n)[: b.total_len]
+        else:
+            full = self._stores[n][: b.total_len]
+        entry = {"padded": padded}
+        if group.is_multiprocess and dev.type == "cuda":
+            # Placed, then copied into this process's new exchange slab.
+            slab = PeerSlab(group, self._slab_layout(
+                b, group, group.process_index, padded)[2])
+            new_slabs[n] = slab
+            store = self._slab_store(slab, b, group, group.process_index,
+                                     padded)
+            store.copy_(placement.place_host_array(group, full, padded))
+        else:
+            store = placement.place_host_array(group, full, padded)
+        entry["store"] = store
+        if n in self._pinned_pulls:
+            buf = placement.place(full[:0], dev, padded)
+            gen = Generation(n)
+            entry["pinned"] = (buf, gen, ZeroCopyHandle.wrap(buf, gen))
+        if n in self._opt_states:
+            state = [gather_global(t, self.group) if self._mp else t
+                     for t in self._opt_states[n]]
+            vecs = tuple(placement.place_host_array(
+                group, t[: b.total_len], padded) for t in
+                (state[:2] if self._opt_kinds[n] == "adam" else state[:1]))
+            if self._opt_kinds[n] == "adam":
+                shards = (len(group.local_ranks) if group.is_multiprocess
+                          else new_shards)
+                vecs += (placement.place(state[2][:1].expand(shards).to(
+                    torch.float32), dev),)
+            entry["opt"] = vecs
+        return entry
 
     def block(self, name: Optional[str] = None) -> None:
         """Wait for outstanding device work (ZPush/Wait semantics)."""

@@ -27,12 +27,17 @@ the per-rank dims, as the JAX functions' axes do inside ``shard_map``.
 :func:`shard` cuts a global array into its per-rank blocks by a
 ``PartitionSpec``-like tuple.
 
+A group may span worker processes (``owners``: the process that owns
+each rank, in process order; ``parallel/distributed.py``'s
+``global_group``), every process's ranks on the same card: each process
+holds the data of its own ranks only, and the engines reach the other
+processes' rows through the card's memory (``parallel/peers.py``).
 Groups whose ranks live on several cards are a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -62,7 +67,9 @@ class DeviceGroup:
     rank's data."""
 
     def __init__(self, num_ranks: Union[int, Sequence[int]], device="cuda",
-                 axis_name: Union[str, Sequence[str]] = "kv"):
+                 axis_name: Union[str, Sequence[str]] = "kv",
+                 owners: Optional[Sequence[int]] = None,
+                 process_index: int = 0):
         sizes = ((int(num_ranks),) if isinstance(num_ranks, (int, np.integer))
                  else tuple(int(s) for s in num_ranks))
         names = ((axis_name,) if isinstance(axis_name, str)
@@ -76,6 +83,55 @@ class DeviceGroup:
         self.device = resolve_device(device)
         self.axis_names = names
         self.shape = dict(zip(names, sizes))
+        # The process that owns each rank (None: this process owns all).
+        self.owners: Optional[tuple] = None
+        self.process_index = int(process_index)
+        if owners is not None:
+            owners = tuple(int(p) for p in owners)
+            if len(owners) != self.num_ranks:
+                raise ValueError(f"{len(owners)} owners for "
+                                 f"{self.num_ranks} ranks")
+            if list(owners) != sorted(owners) or owners[0] < 0:
+                raise ValueError(f"owners {owners!r} are not in process "
+                                 f"order")
+            if self.process_index not in owners:
+                raise ValueError(f"process {self.process_index} owns no "
+                                 f"rank of {owners!r}")
+            if len(set(owners)) > 1:
+                self.owners = owners
+
+    @property
+    def is_multiprocess(self) -> bool:
+        """Whether the ranks belong to more than one process."""
+        return self.owners is not None
+
+    def process_of(self, rank: int) -> int:
+        """The process that owns ``rank``."""
+        if not 0 <= rank < self.num_ranks:
+            raise ValueError(f"rank {rank} not in a group of "
+                             f"{self.num_ranks}")
+        return self.owners[rank] if self.owners is not None else \
+            self.process_index
+
+    def ranks_of(self, process: int) -> range:
+        """The ranks ``process`` owns (consecutive, in process order)."""
+        if self.owners is None:
+            return (range(self.num_ranks) if process == self.process_index
+                    else range(0))
+        first = self.owners.index(process) if process in self.owners else 0
+        return range(first, first + self.owners.count(process))
+
+    @property
+    def local_ranks(self) -> range:
+        """The ranks this process owns."""
+        return self.ranks_of(self.process_index)
+
+    @property
+    def processes(self) -> tuple:
+        """The processes of the group, in order."""
+        if self.owners is None:
+            return (self.process_index,)
+        return tuple(sorted(set(self.owners)))
 
 
 def make_group(shape: Sequence[int], axis_names: Sequence[str],

@@ -26,9 +26,25 @@ where the JAX programs donate them; every result handed out (``pull``,
 ``pull_group``, ``push``'s token, the snapshots) is a fresh tensor.
 
 ``reshard``/``reshard_staged`` recut the live tables (and accumulators)
-for another group's shard count.  Not in this slice: multi-process groups
-(ROADMAP Queue 1 item 9), and ``store_raw``/``store_spec`` (they serve
-only orbax checkpoints, which the port does not read).
+for another group's shard count.
+
+A 1-D group spanning worker processes (``distributed.global_group``; the
+JAX engine on a ``PS_ICI_MULTIHOST=1`` mesh) holds in each process the
+rows of its own shards, ``[L*rps, dim]`` for its L ranks, and takes that
+process's input rows (``[L, n]`` indices, ``[L, n, d]`` grads).  A push
+gathers every process's (indices, grads) in global rank order and each
+process runs S1/S2 over the rows it owns (the other processes' rows
+masked out of range), so duplicates add in the single-process order; a
+pull gathers the indices, runs S3 on the owned rows and sends each
+process its rows back.  On the card the inputs travel through a
+:class:`~pslite_tpu_torch.parallel.peers.PeerSlab` every peer maps, with
+a host barrier after the writes and after the reads; on a CPU group
+through gloo.  ``store_array``/``acc_array`` and recuts gather the
+whole table with ``peers.gather_global`` (device to device on the card,
+``placement.to_host_global`` on a CPU group).
+
+Not in this slice: ``store_raw``/``store_spec`` (they serve only orbax
+checkpoints, which the port does not read).
 """
 
 from __future__ import annotations
@@ -44,9 +60,10 @@ import torch
 
 from ..ops import sparse_rows
 from ..utils import logging as log
-from . import placement
+from . import distributed, placement
 from .engine import to_tensor, torch_dtype
 from .mesh import DeviceGroup, default_group
+from .peers import PeerSlab, Retired, align, gather_global
 
 
 @dataclass
@@ -163,6 +180,11 @@ class SparseEngine:
         self.axis = axis_name
         self.device = self.group.device
         self.num_shards = int(self.group.shape[axis_name])
+        self._check_group(self.group)
+        self._mp = self.group.is_multiprocess
+        # Across processes on the card: the inputs' exchange memory.
+        self._xslab: Optional[PeerSlab] = None
+        self._retired = Retired()
         # Application-payload bytes (the van's send/recv counters).
         self.push_bytes = 0
         self.pull_bytes = 0
@@ -179,6 +201,130 @@ class SparseEngine:
         # table's ops must not interleave.
         self._table_mu: Dict[str, threading.Lock] = {}
 
+    @staticmethod
+    def _check_group(group: DeviceGroup) -> None:
+        if group.is_multiprocess and len(group.axis_names) != 1:
+            raise NotImplementedError(
+                "an N-D group across processes is not yet ported to "
+                "pslite_tpu_torch (ROADMAP Queue 1 item 9)")
+
+    def _local_rows(self, table: SparseTable, group=None) -> tuple:
+        """``(first flat row, rows)`` of the shards this process holds."""
+        group = group or self.group
+        if not group.is_multiprocess:
+            return 0, table.rows_per_shard * int(group.shape[self.axis])
+        ranks = group.local_ranks
+        return ranks[0] * table.rows_per_shard, len(ranks) * \
+            table.rows_per_shard
+
+    # -- across processes -----------------------------------------------------
+
+    def _share(self, parts, per_rank: bool = True):
+        """Every process's ``parts`` (a collective), in process order: a
+        list per process of tensors shaped like ``parts``, whose leading
+        dim is that process's rank count when ``per_rank``.  On the card
+        they are views of the processes' exchange slabs, valid until
+        :meth:`_release`; on a CPU group copies through gloo."""
+        parts = [p.contiguous() for p in parts]
+        g = self.group
+        if self.device.type != "cuda":
+            return [[torch.as_tensor(x) for x in got]
+                    for got in distributed.allgather_object(parts)]
+
+        def shapes(proc):
+            lead = len(g.ranks_of(proc))
+            return [((lead,) + tuple(p.shape[1:])) if per_rank
+                    else tuple(p.shape) for p in parts]
+
+        def need(proc):
+            return sum(align(int(np.prod(sh)) * p.element_size())
+                       for sh, p in zip(shapes(proc), parts))
+
+        slab = self._xslab
+        if slab is None or any(need(p) > slab.sizes[p] for p in g.processes):
+            # Every process takes the same decision: the shapes are known
+            # everywhere (SPMD lockstep), so all of them reallocate.
+            self._retired.retire(slab)
+            slab = self._xslab = PeerSlab(g, 2 * need(g.process_index))
+        off = 0
+        for p in parts:
+            slab.view(slab.me, off, tuple(p.shape), p.dtype).copy_(p)
+            off += align(p.numel() * p.element_size())
+        self._release()
+        out = []
+        for proc in g.processes:
+            views, off = [], 0
+            for sh, p in zip(shapes(proc), parts):
+                views.append(slab.view(proc, off, sh, p.dtype))
+                off += align(int(np.prod(sh)) * p.element_size())
+            out.append(views)
+        return out
+
+    def _release(self) -> None:
+        """Sync and a host barrier: every process's reads of the slabs
+        are done (on the card; nothing to wait for on a CPU group)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self._retired.barrier()
+
+    def _owned_indices(self, table: SparseTable, idx: torch.Tensor):
+        """Global rows -> this process's local table of L shards: an
+        owned row r is ``(r // S) * L + (r % S - first rank)``, which the
+        row kernels place at its flat row here; others become -1 (out of
+        range: dropped by a push, zeros in a pull)."""
+        S, ranks = self.num_shards, self.group.local_ranks
+        i = idx.to(torch.int64)
+        local = torch.div(i, S, rounding_mode="floor")
+        shard = torch.remainder(i, S)
+        owned = ((i >= 0) & (local < table.rows_per_shard)
+                 & (shard >= ranks[0]) & (shard < ranks[-1] + 1))
+        return torch.where(owned, local * len(ranks) + shard - ranks[0],
+                           -1).to(torch.int32)
+
+    def _mp_push(self, name: str, table: SparseTable, idx, g,
+                 handle: Optional[str]) -> None:
+        got = self._share([idx, g])
+        idx_all = torch.cat([p[0] for p in got])
+        g_all = torch.cat([p[1] for p in got])
+        self._release()
+        self._push_locked(name, table, self._owned_indices(table, idx_all),
+                          g_all, handle, len(self.group.local_ranks))
+
+    def _mp_pull(self, name: str, table: SparseTable, idx) -> torch.Tensor:
+        got = self._share([idx])
+        idx_all = torch.cat([p[0] for p in got])
+        self._release()
+        partial = sparse_rows.gather_rows(
+            self._stores[name], self._owned_indices(table, idx_all),
+            len(self.group.local_ranks), table.rows_per_shard)
+        ranks = self.group.local_ranks
+        mine = slice(ranks[0], ranks[-1] + 1)
+        # The owner process of each of this process's indices.
+        S = self.num_shards
+        owners = torch.tensor([self.group.process_of(r) for r in range(S)],
+                              dtype=torch.int64, device=self.device)
+        i = idx.to(torch.int64)
+        inr = (i >= 0) & (torch.div(i, S, rounding_mode="floor")
+                          < table.rows_per_shard)
+        owner = torch.where(inr, owners[torch.remainder(i, S)], -1)
+        out = torch.zeros(tuple(idx.shape) + (table.dim,), dtype=table.dtype,
+                          device=self.device)
+        for proc, (part,) in zip(self.group.processes,
+                                 self._share([partial], per_rank=False)):
+            out = torch.where((owner == proc)[..., None], part[mine], out)
+        self._release()
+        return out
+
+    def close(self) -> None:
+        """Release the exchange memory of a group spanning processes (a
+        collective: every process closes its engine)."""
+        slab, self._xslab = self._xslab, None
+        if slab is None:
+            return
+        slab.close_peers()
+        self._retired.barrier()
+        slab.free()
+
     # -- registration --------------------------------------------------------
 
     def register_sparse(self, name: str, num_rows: int, dim: int, dtype=None,
@@ -192,12 +338,13 @@ class SparseEngine:
         rps = _rows_per_shard(num_rows, self.num_shards, pack)
         table = SparseTable(name, num_rows, dim, rps, dt, pack=pack)
         S = self.num_shards
+        lo, rows = self._local_rows(table)
         if init is not None:
             store = _interleave_device(
                 to_tensor(init, dt, self.device).reshape(num_rows, dim),
-                num_rows, rps, S)
+                num_rows, rps, S)[lo:lo + rows].clone()
         else:
-            store = torch.zeros((rps * S, dim), dtype=dt, device=self.device)
+            store = torch.zeros((rows, dim), dtype=dt, device=self.device)
         with self._mu:
             self._tables[name] = table
             self._stores[name] = store
@@ -215,7 +362,12 @@ class SparseEngine:
         dtype) on the group's device, contiguous."""
         idx = to_tensor(indices, torch.int32, self.device).contiguous()
         log.check(idx.dim() == 2, "indices are [workers, n]")
-        log.check_eq(int(idx.shape[0]), self.num_shards, "bad worker dim")
+        if self._mp:
+            log.check_eq(int(idx.shape[0]), len(self.group.local_ranks),
+                         "bad local worker dim (rows = this process's "
+                         "devices on a multi-process mesh)")
+        else:
+            log.check_eq(int(idx.shape[0]), self.num_shards, "bad worker dim")
         if grads is None:
             return idx, None
         g = to_tensor(grads, table.dtype, self.device).contiguous()
@@ -242,7 +394,7 @@ class SparseEngine:
     def _ensure_acc(self, name: str, table: SparseTable) -> None:
         if name not in self._acc:
             self._acc[name] = torch.zeros(
-                table.rows_per_shard * self.num_shards, dtype=torch.float32,
+                self._local_rows(table)[1], dtype=torch.float32,
                 device=self.device)
 
     @staticmethod
@@ -258,9 +410,12 @@ class SparseEngine:
         return kind, (lr, eps)
 
     def _push_locked(self, name: str, table: SparseTable, idx, g,
-                     handle: Optional[str]) -> None:
-        """One table's push; call with its lock held."""
-        S, rps = self.num_shards, table.rows_per_shard
+                     handle: Optional[str],
+                     shards: Optional[int] = None) -> None:
+        """One table's push; call with its lock held.  ``shards``: the
+        shards of the local table the indices address (all of them on a
+        single-process group)."""
+        S, rps = shards or self.num_shards, table.rows_per_shard
         if handle is None:
             sparse_rows.scatter_add(self._stores[name], idx, g, S, rps)
             return
@@ -283,7 +438,10 @@ class SparseEngine:
         table = self._tables[name]
         idx, g = self._prep(table, indices, grads)
         with self._table_mu[name]:
-            self._push_locked(name, table, idx, g, handle)
+            if self._mp:
+                self._mp_push(name, table, idx, g, handle)
+            else:
+                self._push_locked(name, table, idx, g, handle)
             token = self._stores[name][:1, :1].clone()
         self._observe(name, "push", table, int(idx.shape[1]), t0)
         return token
@@ -295,9 +453,12 @@ class SparseEngine:
         table = self._tables[name]
         idx, _ = self._prep(table, indices)
         with self._table_mu[name]:
-            out = sparse_rows.gather_rows(self._stores[name], idx,
-                                          self.num_shards,
-                                          table.rows_per_shard)
+            if self._mp:
+                out = self._mp_pull(name, table, idx)
+            else:
+                out = sparse_rows.gather_rows(self._stores[name], idx,
+                                              self.num_shards,
+                                              table.rows_per_shard)
         self._observe(name, "pull", table, int(idx.shape[1]), t0)
         return out
 
@@ -320,6 +481,10 @@ class SparseEngine:
         log.check(len(names) == len(indices_list) == len(grads_list),
                   "group length mismatch")
         log.check(len(set(names)) == len(names), "duplicate table in group")
+        if self._mp:  # one collective push per table, in the order given
+            tokens = [self.push(n, i, g, handle=handle) for n, i, g in
+                      zip(names, indices_list, grads_list)]
+            return tokens[0]
         tables = [self._tables[n] for n in names]
         prepped = [self._prep(t, i, g)
                    for t, i, g in zip(tables, indices_list, grads_list)]
@@ -340,6 +505,8 @@ class SparseEngine:
         ``[W, n_i, d_i]`` tensors in ``names`` order."""
         t0 = time.perf_counter()
         log.check(len(names) == len(indices_list), "group length mismatch")
+        if self._mp:  # one collective pull per table, in the order given
+            return [self.pull(n, i) for n, i in zip(names, indices_list)]
         tables = [self._tables[n] for n in names]
         idxs = [self._prep(t, i)[0] for t, i in zip(tables, indices_list)]
         ordered = self._lock_tables(names)
@@ -362,25 +529,35 @@ class SparseEngine:
         with self._table_mu[name]:
             self._ensure_acc(name, self._tables[name])
 
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole table-layout value of a local one: itself (a copy),
+        or across processes the collective ``peers.gather_global``."""
+        if self._mp:
+            return gather_global(t, self.group)
+        return t.clone()
+
     def store_array(self, name: str) -> torch.Tensor:
         """A copy of the table in the shard-interleaved layout
-        ``[rps*S, dim]`` (the JAX package's logical ``store_array``)."""
+        ``[rps*S, dim]`` (the JAX package's logical ``store_array``);
+        across processes a collective."""
         with self._table_mu[name]:
-            return self._stores[name].clone()
+            return self._whole(self._stores[name])
 
     def acc_array(self, name: str) -> torch.Tensor:
         """A copy of the Adagrad accumulator ``[rps*S]``, row-interleaved
-        like the table."""
+        like the table; across processes a collective."""
         with self._table_mu[name]:
             log.check(name in self._acc, f"no accumulator for {name!r}")
-            return self._acc[name].clone()
+            return self._whole(self._acc[name])
 
     def store_global_device(self, name: str) -> torch.Tensor:
         """The table in GLOBAL row order ``[num_rows, dim]`` (a fresh
         tensor on the device)."""
         with self._table_mu[name]:
             t = self._tables[name]
-            return _deinterleave_device(self._stores[name], t.num_rows,
+            whole = (self._whole(self._stores[name]) if self._mp
+                     else self._stores[name])
+            return _deinterleave_device(whole, t.num_rows,
                                         t.rows_per_shard, self.num_shards)
 
     def acc_global_device(self, name: str) -> torch.Tensor:
@@ -388,7 +565,9 @@ class SparseEngine:
         with self._table_mu[name]:
             t = self._tables[name]
             log.check(name in self._acc, f"no accumulator for {name!r}")
-            return _deinterleave_device(self._acc[name], t.num_rows,
+            whole = (self._whole(self._acc[name]) if self._mp
+                     else self._acc[name])
+            return _deinterleave_device(whole, t.num_rows,
                                         t.rows_per_shard, self.num_shards)
 
     def _restore(self, name: str, value, global_rows: bool, inner: tuple,
@@ -400,12 +579,14 @@ class SparseEngine:
         t = self._tables[name]
         S, rps = self.num_shards, t.rows_per_shard
         v = to_tensor(value, dtype, self.device)
+        lo, rows = self._local_rows(t)
         if global_rows:
             log.check_eq(tuple(v.shape), (t.num_rows,) + inner,
                          "bad global-rows restore shape")
-            return _interleave_device(v, t.num_rows, rps, S)
+            return _interleave_device(v, t.num_rows, rps, S)[
+                lo:lo + rows].clone()
         log.check_eq(tuple(v.shape), (rps * S,) + inner, "bad restore shape")
-        return v.clone().contiguous()
+        return v[lo:lo + rows].clone().contiguous()
 
     def set_store_array(self, name: str, value,
                         global_rows: bool = False) -> None:
@@ -456,8 +637,10 @@ class SparseEngine:
         axis = axis_name or self.axis
         log.check(axis in group.axis_names,
                   f"axis {axis!r} not in the new device group")
+        self._check_group(group)
         new_shards = int(group.shape[axis])
         dev = group.device
+        new_mp = group.is_multiprocess
         with self._mu:
             ordered = sorted(self._tables)
         for n in ordered:
@@ -472,10 +655,17 @@ class SparseEngine:
                 def recut(inter, t=t, rps=rps):
                     # Global order, zero-padded for the new shard count on
                     # the new device, then interleaved: three copies.
-                    return _interleave_padded(placement.place(
-                        _deinterleave_device(inter, t.num_rows,
+                    # Across processes the old value is gathered first, and
+                    # each process keeps its new shards' rows.
+                    whole = (gather_global(inter, self.group).to(dev)
+                             if self._mp else inter)
+                    new = _interleave_padded(placement.place(
+                        _deinterleave_device(whole, t.num_rows,
                                              t.rows_per_shard, S),
                         dev, rps * new_shards), rps, new_shards)
+                    if not new_mp:
+                        return new
+                    return placement.place_host_array(group, new)
 
                 staged[n] = (
                     SparseTable(n, t.num_rows, t.dim, rps, t.dtype,
@@ -489,6 +679,9 @@ class SparseEngine:
                 self.axis = axis
                 self.device = dev
                 self.num_shards = new_shards
+                self._mp = new_mp
+                self._retired.retire(self._xslab)
+                self._xslab = None
                 for n in ordered:
                     table, store, acc = staged[n]
                     self._tables[n] = table

@@ -19,9 +19,16 @@ pattern of a data plane riding a nested control plane.
   instances build no engine and touch no device.
 - **One process per card's group**: each worker process of an
   ``ici_tcp``/``ici_shm`` cluster runs its own engine on its own group,
-  as the JAX engines do without ``PS_ICI_MULTIHOST``.  A mesh spanning
-  processes (``PS_ICI_MULTIHOST=1``, ``parallel/distributed.py``) is
-  ROADMAP Queue 1 item 9 and raises on a worker.
+  as the JAX engines do without ``PS_ICI_MULTIHOST``.
+- **One group across processes** (``PS_ICI_MULTIHOST=1``): each worker
+  process takes a lease on the ``torch.distributed`` group
+  (``parallel/distributed.py``, coordinator derived from the same
+  ``DMLC_*`` variables, ``DMLC_RANK`` per worker) and builds its engines
+  on ``global_group()`` (every process's ranks, on one card), or on the
+  group ``set_mesh`` installed.  Worker processes then drive registered
+  buckets and tables in SPMD lockstep (same ops, same order), as JAX's
+  multi-host contract has it.  The lease is released, after the engines
+  free their exchange memory, when the van stops.
 - **Elastic recut**: ``reshard_engines`` (``KVWorker.reshard``) moves a
   worker's engines onto a new group between WORKER_GROUP barriers, each
   worker process recutting its own engines.
@@ -38,6 +45,7 @@ import os
 from typing import Optional
 
 from ..base import WORKER_GROUP
+from ..parallel import distributed
 from ..parallel.engine import CollectiveEngine
 from ..parallel.mesh import DeviceGroup
 from ..parallel.sparse import SparseEngine
@@ -52,15 +60,10 @@ class _IciDataPlane:
 
     def __init__(self, postoffice):
         super().__init__(postoffice)
-        if postoffice.is_worker and self.env.find_int("PS_ICI_MULTIHOST",
-                                                      0) == 1:
-            raise NotImplementedError(
-                "PS_ICI_MULTIHOST=1 (one device group across worker "
-                "processes) is not yet ported to pslite_tpu_torch (ROADMAP "
-                "Queue 1 item 9: the multi-card data plane)")
         self.engine: Optional[CollectiveEngine] = None
         self.sparse_engine: Optional[SparseEngine] = None
         self._group: Optional[DeviceGroup] = None
+        self._dist_lease = False
         # Without a scheduler address there is no control plane to run.
         self.control_plane = (not postoffice.is_worker
                               or self.env.find("DMLC_PS_ROOT_URI")
@@ -70,6 +73,20 @@ class _IciDataPlane:
         """Install a specific device group before start()."""
         self._group = group
 
+    def _multihost(self) -> bool:
+        return self.env.find_int("PS_ICI_MULTIHOST", 0) == 1
+
+    def _make_group(self) -> Optional[DeviceGroup]:
+        """The engines' group: ``set_mesh``'s, else under
+        ``PS_ICI_MULTIHOST=1`` the global group (after joining the
+        process group, lease-counted), else None (the engine's
+        default)."""
+        if self._multihost():
+            self._dist_lease = distributed.acquire(self.env)
+            if self._group is None:
+                return distributed.global_group()
+        return self._group
+
     def start(self, customer_id: int = 0) -> None:
         if self.control_plane:
             super().start(customer_id)
@@ -77,7 +94,7 @@ class _IciDataPlane:
             # The van's profiler: ENABLE_PROFILING covers the kernel
             # path too (reference: van.cc:29-77, 440-457).
             self.engine = CollectiveEngine(
-                group=self._group,
+                group=self._make_group(),
                 server_handle=self.env.find("PS_ICI_SERVER_HANDLE", "sum"),
                 impl=self.env.find("PS_ICI_IMPL", None),
                 profiler=self.profiler,
@@ -119,6 +136,7 @@ class _IciDataPlane:
         self.engine._layout(group, self.engine.axis)  # checks both axes
         log.check(self.sparse_engine.axis in group.axis_names,
                   f"axis {self.sparse_engine.axis!r} not in the new group")
+        self.sparse_engine._check_group(group)
         tmo = float(os.environ.get("PS_RESHARD_TMO_S", "900")) or None
         self.po.barrier(customer_id, WORKER_GROUP, timeout_s=tmo)
         staged = done = False
@@ -152,13 +170,23 @@ class _IciDataPlane:
                         ) from None
 
     def stop(self) -> None:
-        """Drain outstanding device work, then stop the control plane."""
+        """Drain outstanding device work, free the engines' exchange
+        memory (a collective across processes), then stop the control
+        plane."""
         if self.engine is not None:
             self.engine.block()
+            self.engine.close()
         if self.sparse_engine is not None:
             self.sparse_engine.block()
+            self.sparse_engine.close()
         if self.control_plane:
             super().stop()
+
+    def stop_transport(self) -> None:
+        super().stop_transport()
+        if self._dist_lease:
+            self._dist_lease = False
+            distributed.release()
 
 
 class IciVan(_IciDataPlane, LoopbackVan):

@@ -1194,3 +1194,139 @@ def test_dlrm_steps_on_the_card_match_the_cpu(dev, opt):
     np.testing.assert_allclose(g[0], c[0], rtol=1e-5)
     for a, b in ((g[1], c[1]), (g[2], c[2])):
         assert bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())
+
+
+# -- K4 across processes (ring_reduce_peers, ring_gather_peers) ---------------
+
+def _peer_split(n: int) -> list:
+    """Rank ranges of two or three stand-in processes."""
+    cut = [0, n // 2, n] if n < 6 else [0, 3, 5, n]
+    return [range(a, b) for a, b in zip(cut, cut[1:])]
+
+
+# The 40 x 1 MB bucket, a bucket whose chunk is shorter than the tile, and
+# a ragged one (chunks of 1001 values: the scalar path).
+@pytest.mark.parametrize("n,padded", [(8, 10_240_000), (8, 400),
+                                      (3, 3 * 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("handle", ["sum", "assign", "sgd:0.05"])
+def test_ring_peers_match_the_single_process_ring(dev, n, padded, dtype,
+                                                   handle):
+    """A peer table pointing into one ``[n, padded]`` tensor, the ranks
+    split over stand-in processes each holding its own store shards:
+    every shard and the gathered pull equal ``pstt_ring_push_pull`` on
+    the same rows, with 0 differing elements (sgd's FMA included)."""
+    grads = _randn((n, padded), 21, dev).to(dtype)
+    store = _randn((padded,), 22, dev).to(dtype)
+    chunk = padded // n
+    addrs = [grads.data_ptr() + r * padded * grads.element_size()
+             for r in range(n)]
+    shards = [store[p[0] * chunk:(p[-1] + 1) * chunk].clone()
+              for p in _peer_split(n)]
+    for part, shard in zip(_peer_split(n), shards):
+        ring.ring_reduce_peers(addrs, shard, part[0] * chunk, padded, handle)
+    pulled = torch.empty_like(store)
+    ring.ring_gather_peers([(s.data_ptr(), p[0] * chunk, s.numel())
+                            for p, s in zip(_peer_split(n), shards)], pulled)
+    want = ring.ring_push_pull(grads, store, handle)
+    torch.cuda.synchronize()
+    assert torch.equal(pulled, want)
+    assert torch.equal(torch.cat(shards), store)
+
+
+# Segments that end inside a block's words, a segment shorter than one
+# word row, one 16-byte aligned (the vector path) and some not.
+@pytest.mark.parametrize("lens", [(5_120_000, 5_120_000), (4099, 1, 8193),
+                                  (1001, 1001, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_peers_equals_torch_cat(dev, lens, dtype):
+    """``ring_gather_peers`` of separate shards gives the bits of one
+    ``torch.cat`` of them."""
+    shards = [_randn((n,), 23 + i, dev).to(dtype) for i, n in enumerate(lens)]
+    offs = [sum(lens[:i]) for i in range(len(lens))]
+    pulled = torch.full((sum(lens),), float("nan"), device=dev, dtype=dtype)
+    ring.ring_gather_peers([(s.data_ptr(), o, s.numel())
+                            for s, o in zip(shards, offs)], pulled)
+    torch.cuda.synchronize()
+    assert torch.equal(pulled, torch.cat(shards))
+
+
+_IPC_CHILD = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from pslite_tpu_torch.ops import ring_collective as ring
+dev = torch.device("cuda:0")
+addr = ring.ipc_alloc(4096 * 4, dev)
+view = ring.device_view(addr, (4096,), torch.float32, dev)
+view.copy_(torch.arange(4096, dtype=torch.float32, device=dev))
+torch.cuda.synchronize()
+print(ring.ipc_export(addr, dev).hex(), flush=True)
+sys.stdin.readline()  # the parent has written into the slab
+torch.cuda.synchronize()
+print("SUM", float(view.sum()), flush=True)
+sys.stdin.readline()  # the parent has closed its mapping
+ring.ipc_free(addr, dev)
+print("FREED", flush=True)
+"""
+
+
+def test_ipc_round_trip_between_two_processes(dev):
+    """A slab allocated and exported in a child process, mapped here:
+    the child's values read here, this process's writes read there."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.Popen([sys.executable, "-c", _IPC_CHILD, repo],
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                         text=True)
+    try:
+        handle = bytes.fromhex(p.stdout.readline().strip())
+        addr = ring.ipc_open(handle, dev)
+        view = ring.device_view(addr, (4096,), torch.float32, dev)
+        assert torch.equal(view, torch.arange(4096, dtype=torch.float32,
+                                              device=dev))
+        view.fill_(2.0)
+        torch.cuda.synchronize()
+        p.stdin.write("written\n")
+        p.stdin.flush()
+        assert p.stdout.readline().split() == ["SUM", "8192.0"]
+        ring.ipc_close(addr, dev)
+        p.stdin.write("closed\n")
+        p.stdin.flush()
+        assert p.stdout.readline().strip() == "FREED"
+        assert p.wait(timeout=60) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+
+
+def test_refused_ipc_open_raises(dev):
+    """A handle the card refuses (a stranger's bytes, or this process's
+    own slab, which CUDA does not map twice) raises with the CUDA error;
+    nothing falls back."""
+    with pytest.raises(RuntimeError, match="pstt_ipc_open: CUDA error"):
+        ring.ipc_open(bytes(64), dev)
+    addr = ring.ipc_alloc(1 << 16, dev)
+    try:
+        with pytest.raises(RuntimeError, match="pstt_ipc_open: CUDA error"):
+            ring.ipc_open(ring.ipc_export(addr, dev), dev)
+    finally:
+        ring.ipc_free(addr, dev)
+
+
+def test_refused_peer_launch_raises(dev):
+    """A launch the C entry refuses (here a table of 0 ranks) raises with
+    the CUDA error before anything runs."""
+    import numpy as np
+
+    from pslite_tpu_torch.ops import _native
+
+    store = torch.zeros(8, device=dev)
+    table = np.zeros(1, dtype=np.int64)
+    with pytest.raises(RuntimeError, match="pstt_ring_reduce_peers: CUDA "
+                                           "error"):
+        _native.call("pstt_ring_reduce_peers", table.ctypes.data, 0,
+                     store.data_ptr(), 0, 8, 0, 8, 8, 8, 0, 0.0,
+                     _native.stream_ptr(dev))

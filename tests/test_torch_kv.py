@@ -222,7 +222,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'parallel.ulysses', 'parallel.moe', 'parallel.pipeline',\n"
         "          'models.transformer', 'models.ps_step', 'models.train',\n"
         "          'models.cnn', 'models.dlrm',\n"
-        "          'tracker.local', 'kv.kv_app', 'kv.simple_app'):\n"
+        "          'tracker.local', 'kv.kv_app', 'kv.simple_app',\n"
+        "          'parallel.distributed', 'parallel.peers', 'parallel.dcn',\n"
+        "          'tracker.ssh', 'tracker.mpi'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
         "                    if m.startswith('pslite_tpu_torch')]))\n"

@@ -45,6 +45,7 @@ from pslite_tpu_torch.base import (
     worker_rank_to_id,
 )
 from pslite_tpu_torch.environment import Environment
+from pslite_tpu_torch.utils.logging import CheckError
 from pslite_tpu_torch.vans import loopback_van as port_loopback
 
 from helpers import LoopbackCluster
@@ -677,17 +678,43 @@ def test_joint_role_and_instance_groups_start_and_finalize():
     assert not left, f"threads outlived finalize: {left}"
 
 
-@pytest.mark.parametrize("van,env,item", [
-    # One device group across worker processes: the multi-card item.
-    ("ici_tcp", {"PS_ICI_MULTIHOST": "1"}, 9),
-    ("ici_shm", {"PS_ICI_MULTIHOST": "1"}, 9),
+def _mp_group(shape=4, names="kv"):
+    """This process's view of a group of two processes (no process group
+    needed: the engines refuse it before any collective)."""
+    n = int(np.prod(shape))
+    return tps.DeviceGroup(shape, device="cpu", axis_name=names,
+                           owners=[0] * (n // 2) + [1] * (n - n // 2))
+
+
+@pytest.mark.parametrize("van,case", [
+    ("ici_tcp", "2-D"), ("ici_shm", "int8"),
+    ("ici_tcp", "no DMLC_RANK"), ("ici_shm", "no DMLC_RANK"),
 ])
-def test_socket_vans_raise_naming_their_roadmap_item(van, env, item):
-    """The socket vans are ported (tests/test_torch_tcp.py); what they
-    leave out raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        tps.Postoffice("worker", env=Environment({"PS_VAN_TYPE": van,
-                                                  **env}))
+def test_socket_vans_raise_naming_their_roadmap_item(van, case):
+    """The socket vans and one group across their worker processes
+    (``PS_ICI_MULTIHOST=1``, tests/test_torch_ici_multiprocess.py) are
+    ported; what that group leaves out raises at construction, naming
+    its ROADMAP item, and a multihost worker without ``DMLC_RANK`` fails
+    JAX's check with JAX's message."""
+    if case == "2-D":
+        with pytest.raises(NotImplementedError,
+                           match="2-D worker_axis group across processes.*"
+                                 "Queue 1 item 9"):
+            tps.CollectiveEngine(_mp_group((2, 2), ("dp", "kv")),
+                                 worker_axis="dp")
+        return
+    if case == "int8":
+        with pytest.raises(NotImplementedError,
+                           match="int8 wire compression.*Queue 1 item 9"):
+            tps.CollectiveEngine(_mp_group(), wire_compress="int8")
+        return
+    po = tps.Postoffice("worker", env=Environment({
+        "PS_VAN_TYPE": van, "PS_ICI_MULTIHOST": "1",
+        "DMLC_NUM_WORKER": "2", "DMLC_PS_ROOT_URI": "127.0.0.1",
+        "DMLC_PS_ROOT_PORT": "9"}))
+    with pytest.raises(CheckError, match="^DMLC_RANK must be set per host "
+                                         "for multi-host meshes$"):
+        po.van._make_group()
 
 
 def test_unknown_van_and_role_raise_value_error():
