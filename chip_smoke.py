@@ -6283,13 +6283,16 @@ def psformer_flops(cfg, tokens: int, seq: int) -> float:
     return 3.0 * per_token * tokens
 
 
-# The kernel wrappers on the models' path: each one's counter, its plain
-# version, the arguments it writes in place (none: it returns its result)
-# and its bar against the plain version (None: bit-exact, as its kernel
-# row holds it).  K4's ``sgd:`` handle may round ``(lr / n) * agg`` once
-# (an FMA) on the card where the plain version rounds twice.
+# The kernel wrappers on the models' and the harness's paths: each one's
+# counter, its plain version, the arguments it writes in place (none: it
+# returns its result; its result is compared too where it returns a fresh
+# tensor) and its bar against the plain version (None: bit-exact, as its
+# kernel row holds it).  K4's ``sgd:`` handle may round ``(lr / n) *
+# agg`` once (an FMA) on the card where the plain version rounds twice.
 HELD_KERNELS = {
     "ring_push": ("ring_push[float32]", "ring_push_reference", (1,), None),
+    "ring_push_pull": ("ring_push_pull[float32]", "ring_push_pull_reference",
+                       (1,), None),
     "scatter_add": ("sparse_scatter_add", "scatter_add_reference", (0,),
                     None),
     "row_adagrad": ("sparse_row_adagrad", "row_adagrad_reference", (0, 1),
@@ -6298,6 +6301,7 @@ HELD_KERNELS = {
                     None),
 }
 SGD_BAR = (1e-6, 1e-6)
+MODEL_HELD = ("ring_push", "scatter_add", "row_adagrad", "gather_rows")
 
 
 def _clones(torch, values):
@@ -6305,14 +6309,14 @@ def _clones(torch, values):
 
 
 @contextlib.contextmanager
-def hold_first_launches(torch, ring, sr):
-    """While open, record the first call of each wrapper of
-    ``HELD_KERNELS`` that the main path makes: its arguments cloned before
-    the call, and after it its arguments and its result.  Yields the
-    record, ``{wrapper: (before, kwargs, after, result)}``."""
+def hold_first_launches(torch, ring, sr, names=MODEL_HELD):
+    """While open, record the first call of each wrapper in ``names``
+    (of ``HELD_KERNELS``) that the main path makes: its arguments cloned
+    before the call, and after it its arguments and its result.  Yields
+    the record, ``{wrapper: (before, kwargs, after, result)}``."""
     held, real = {}, {}
-    for name in HELD_KERNELS:
-        mod = ring if name == "ring_push" else sr
+    for name in names:
+        mod = ring if name.startswith("ring_") else sr
         real[name] = (mod, getattr(mod, name))
 
         def wrapper(*args, _name=name, **kw):
@@ -6340,12 +6344,14 @@ def check_held(torch, ring, sr, held, label: str) -> dict:
     errs = {}
     for name, (before, kw, after, out) in held.items():
         counter, plain, writes, bar = HELD_KERNELS[name]
-        mod = ring if name == "ring_push" else sr
+        mod = ring if name.startswith("ring_") else sr
         args = _clones(torch, before)
         want = getattr(mod, plain)(*args, **kw)
         pairs = ([(after[i], args[i]) for i in writes] if writes
                  else [(out, want)])
-        if name == "ring_push":
+        if name == "ring_push_pull":
+            pairs.append((out, want))
+        if name.startswith("ring_"):
             handle = before[2] if len(before) > 2 else kw.get("handle", "sum")
             bar = SGD_BAR if str(handle).startswith("sgd") else None
         if bar is None:
@@ -6567,6 +6573,15 @@ def multiproc_phase():
     return mp
 
 
+def harness_phase():
+    """``tools/harness_phase.py``: the ``harness`` phase's body (stress,
+    the benchmark CLI, psmon/pstrace and the examples on the card)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import harness_phase as hp
+
+    return hp
+
+
 def wait_epoch(po, epoch: int, timeout: float = 60.0):
     """The routing table once ``po`` holds ``epoch`` or a later one."""
     end = time.monotonic() + timeout
@@ -6746,6 +6761,7 @@ def main() -> int:
         ("ici-shm-mixed", lambda: drive_ici_proc("ici_shm", smi)),
         ("multiprocess", lambda: multiproc_phase().drive_multiprocess(
             smi, rows)),
+        ("harness", lambda: harness_phase().drive_harness(smi)),
         ("small-op-storm", lambda: drive_small_op_storm(smi)),
         ("serving-fanin", lambda: drive_serving_fanin(smi)),
         ("hot-cache", lambda: drive_hot_cache(smi)),

@@ -272,7 +272,11 @@ unsigned int blocks_for8(long long n) {
 
 extern "C" {
 
+// The message of a failed entry's error.  A runtime call that failed also
+// left its error in this thread's last-error slot, where the next launch's
+// cudaGetLastError() would report it as its own: taken off here.
 const char* pstt_error_string(int err) {
+  cudaGetLastError();
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -172,7 +172,8 @@ def lib() -> ctypes.CDLL:
 def call(name: str, *args) -> None:
     """Launch through C entry ``name``; raise on a non-zero CUDA error
     (a refused launch never runs, and a later synchronize would not
-    report it)."""
+    report it).  ``pstt_error_string`` also clears the runtime's record
+    of the error, so the next launch does not report it again."""
     so = lib()
     err = getattr(so, name)(*args)
     if err != 0:

@@ -1316,6 +1316,20 @@ def test_refused_ipc_open_raises(dev):
         ring.ipc_free(addr, dev)
 
 
+def test_a_refused_call_leaves_no_error_for_the_next_launch(dev):
+    """After a refused IPC open (its runtime error raised), the next
+    kernel launch runs and reports nothing: the failed call's error does
+    not linger in the runtime's last-error slot."""
+    with pytest.raises(RuntimeError, match="pstt_ipc_open: CUDA error"):
+        ring.ipc_open(bytes(64), dev)
+    grads = _randn((8, 4096), 11, dev)
+    store = torch.zeros(4096, device=dev)
+    out = ring.ring_push_pull(grads, store, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ring.ring_push_pull_reference(
+        grads, torch.zeros(4096, device=dev), "sum"))
+
+
 def test_refused_peer_launch_raises(dev):
     """A launch the C entry refuses (here a table of 0 ranks) raises with
     the CUDA error before anything runs."""
@@ -1330,3 +1344,132 @@ def test_refused_peer_launch_raises(dev):
         _native.call("pstt_ring_reduce_peers", table.ctypes.data, 0,
                      store.data_ptr(), 0, 8, 0, 8, 8, 8, 0, 0.0,
                      _native.stream_ptr(dev))
+
+
+# -- the stress patterns and the device-timeline reader (harnesses) ---------
+
+_STRESS_LEN = 30_720_000  # the stress default: 7,680,000 f32 per tensor
+
+
+def _stress_model(pattern, calls, idx=None, rows=0):
+    """float64 result of ``calls`` ops of a stress pattern on fresh
+    state (ones from 8 ranks)."""
+    if pattern == "datascatter":
+        table = np.zeros((rows, 128), np.float64)
+        for _ in range(calls):
+            np.add.at(table, idx.reshape(-1), 1.0)
+        return table
+    return np.full(_STRESS_LEN // 4, 8.0 * calls)
+
+
+@pytest.mark.parametrize("pattern, wrapper, plain", [
+    ("dense", "ring_push_pull", "ring_push_pull_reference"),
+    ("scatter", "ring_push", "ring_push_reference"),
+    ("datascatter", "scatter_add", "scatter_add_reference")])
+def test_stress_pattern_kernel_matches_plain(dev, pattern, wrapper, plain,
+                                             monkeypatch):
+    """One stress pattern per kernel at the stress shape (K4 on a
+    30,720,000 B bucket over 8 ranks, S1 on 8 x 7,500 rows into 60,000
+    x 128): its first launch against the plain version on clones of the
+    same inputs (bit-exact, ``sum``), a launch per call, and the store or
+    table exact against float64."""
+    from pslite_tpu_torch import stress
+    from pslite_tpu_torch.ops import sparse_rows as sr
+    from pslite_tpu_torch.parallel.sparse import SparseEngine
+
+    mod = sr if pattern == "datascatter" else ring
+    real, held = getattr(mod, wrapper), []
+
+    def first(*args, **kw):
+        if not held:
+            held.append(([a.clone() if torch.is_tensor(a) else a
+                          for a in args], kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mod, wrapper, first)
+    eng = CollectiveEngine(DeviceGroup(8, device=dev), impl="pallas")
+    sp = SparseEngine(eng.group)
+    ring.reset_launches()
+    sr.reset_launches()
+    gbps = stress.run_pattern(eng, sp, pattern, _STRESS_LEN, 3)
+    torch.cuda.synchronize()
+    assert gbps > 0
+    counter = {"ring_push_pull": "ring_push_pull[float32]",
+               "ring_push": "ring_push[float32]",
+               "scatter_add": "sparse_scatter_add"}[wrapper]
+    assert mod.launches[counter] == 4
+    # The first launch again on clones of its inputs, kernel and plain
+    # version side by side: the pulled values and the store written in
+    # place are bit-equal.
+    args, kw = held[0]
+    kern = [a.clone() if torch.is_tensor(a) else a for a in args]
+    flat = [a.clone() if torch.is_tensor(a) else a for a in args]
+    out_k = real(*kern, **kw)
+    out_p = getattr(mod, plain)(*flat, **kw)
+    torch.cuda.synchronize()
+    written = 0 if pattern == "datascatter" else 1
+    assert torch.equal(kern[written], flat[written])
+    if pattern == "dense":
+        assert torch.equal(out_k, out_p)
+    name = f"stress_{pattern}_{_STRESS_LEN}"
+    if pattern == "datascatter":
+        t = sp.table(f"{name}_tbl")
+        rows = torch.arange(t.num_rows, dtype=torch.int32,
+                            device=dev).expand(8, -1)
+        got = sp.pull(f"{name}_tbl", rows)[0].double().cpu().numpy()
+        idx = np.random.default_rng(0).integers(
+            0, t.num_rows, size=(8, t.num_rows // 8))
+        np.testing.assert_array_equal(
+            got, _stress_model(pattern, 4, idx, t.num_rows))
+    else:
+        np.testing.assert_array_equal(
+            eng.pull(name).double().cpu().numpy(), _stress_model(pattern, 4))
+
+
+_READER_CHILD = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from pslite_tpu_torch.ops import ring_collective as ring
+from pslite_tpu_torch.utils import xplane
+from pslite_tpu_torch.utils.profiling import device_trace
+dev = torch.device("cuda:0")
+g = torch.randn((8, 7_680_000), device=dev)
+store = torch.zeros(7_680_000, device=dev)
+ring.ring_push_pull(g, store, "sum")
+torch.cuda.synchronize()
+with device_trace(sys.argv[1]) as t:
+    for _ in range(5):
+        ring.ring_push_pull(g, store, "sum")
+    torch.cuda.synchronize()
+print(json.dumps({
+    "kernels": [(e.key, e.count, e.self_device_time_total / 1e6)
+                for e in t.events if e.device_type == DeviceType.CUDA],
+    "busy": xplane.device_busy_seconds(sys.argv[1]),
+    "ops": xplane.device_op_seconds(sys.argv[1])}))
+"""
+
+
+def test_xplane_reader_matches_key_averages(dev, tmp_path):
+    """The device-timeline reader's busy seconds on a K4 trace against
+    the profiler's own ``key_averages()`` device time (its kernel events;
+    within 2 %), and its top op is the ring kernel.  In a fresh process:
+    a short profiler window late in a process's life loses its device
+    events on the card's machine (PERF.md §6, the harnesses)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _READER_CHILD,
+                          str(tmp_path / "k4")], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    [(key, count, ka)] = got["kernels"]
+    assert count == 5 and "ring_kernel" in key
+    assert list(got["busy"]) == ["/device:GPU:0"]
+    assert abs(got["busy"]["/device:GPU:0"] - ka) <= 0.02 * ka, got
+    assert list(got["ops"]) == [key]
+    assert abs(got["ops"][key] - ka) <= 0.02 * ka

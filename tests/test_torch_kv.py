@@ -207,6 +207,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, chip_trace_cells\n"
+        "import glob, importlib.util, os\n"
+        "for f in sorted(glob.glob('examples/torch/*.py')\n"
+        "                + glob.glob('tools/*_phase.py')):\n"
+        "    name = 'ex_' + os.path.basename(f)[:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import ast\n"
+        "srcs = (glob.glob('pslite_tpu_torch/**/*.py', recursive=True)\n"
+        "        + glob.glob('examples/torch/*.py')\n"
+        "        + glob.glob('tools/*_phase.py') + ['chip_smoke.py'])\n"
+        "for f in srcs:  # imports inside functions too\n"
+        "    for n in ast.walk(ast.parse(open(f).read())):\n"
+        "        names = ([a.name for a in n.names]\n"
+        "                 if isinstance(n, ast.Import) else\n"
+        "                 [n.module or ''] if isinstance(n, ast.ImportFrom)\n"
+        "                 and not n.level else [])\n"
+        "        for m in names:\n"
+        "            assert m.split('.')[0] not in ('jax', 'jaxlib',\n"
+        "                                           'pslite_tpu'), (f, m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'pslite_tpu'))\n"
         "assert not bad, bad\n"
@@ -224,7 +243,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'models.cnn', 'models.dlrm',\n"
         "          'tracker.local', 'kv.kv_app', 'kv.simple_app',\n"
         "          'parallel.distributed', 'parallel.peers', 'parallel.dcn',\n"
-        "          'tracker.ssh', 'tracker.mpi'):\n"
+        "          'tracker.ssh', 'tracker.mpi', 'stress', 'benchmark',\n"
+        "          'utils.xplane', 'tools.psmon', 'tools.pstrace'):\n"
         "    assert 'pslite_tpu_torch.' + m in sys.modules, m\n"
         "print('CLEAN', len([m for m in sys.modules\n"
         "                    if m.startswith('pslite_tpu_torch')]))\n"
