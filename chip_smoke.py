@@ -50,7 +50,10 @@ line):
    included).  Beside them: the plain version's time, the card's least
    time for the same work, and the time of one PyTorch call that
    computes the same function where there is one.
-4. Main path: ``Postoffice("worker")`` + ``DeviceGroup(8)`` +
+4. Main path (its paths in order; from ``codec-throughput`` on, the
+   paths whose every node is a child process, ``SECOND_LANE``, run in a
+   second thread beside the rest, their launches counted in their
+   children): ``Postoffice("worker")`` + ``DeviceGroup(8)`` +
    ``KVWorker.push_pull``/``push``/``pull`` on the reference benchmark's
    40 x 1,024,000 B bucket under the ring (``PS_ICI_IMPL=pallas``,
    handle ``sum``, f32 and bf16, and f32 with ``PS_ICI_COMPRESS=int8``)
@@ -130,14 +133,14 @@ line):
    JSON line back from each; every van on the native core unless a leg
    says ``PS_NATIVE=0``.  ``tcp-config1``, ``tcp-config2`` and
    ``shm-config3`` run a native and a Python leg, one cluster each, both
-   up, 3 windows of 4 rounds alternating (``plane_legs``; 2 windows for
+   up, 2 windows of 2 rounds alternating (``plane_legs``; 2 windows for
    ``tcp-config2``'s three planes):
    ``tcp-config1`` (BASELINE config 1, fused
    push_pull of 40 x 1,024,000 B), ``native-goodput`` (JAX's
    ``native_goodput_bench``: 1 + 1 processes, 96 pipelined pushes of 64
    MiB in 2 MiB chunks under 256 KiB socket buffers with a priority
    pull's latency sampled beside them, native against ``PS_NATIVE=0``,
-   3 windows alternating, the store exact after each),
+   2 windows alternating, the store exact after each),
    ``tcp-config2`` (config 2, msg-config2's
    rounds at 80 x 1,024 B, 80 x 1,024,000 B and 2 x 64 MiB per worker;
    the 1 MB round also with ``DMLC_LOCAL=1``, no socket file left, and
@@ -162,13 +165,13 @@ line):
    ratio:
    ``small-op-storm`` / ``-unbatched`` (1 worker + 1 server with an
    assign handle: one-key 4,096 B pushes of each op's ordinal at depth
-   256 for 1.5 s, batched with ``PS_BATCH_BYTES=262144``,
+   256 for 1 s, batched with ``PS_BATCH_BYTES=262144``,
    ``PS_BATCH_MIN_OPS=256``, ``PS_BATCH_HOLD_US=12000`` against
    ``PS_BATCH_BYTES=0``; ops/s, ops per frame, low-load push p50/p99,
    and the final pull equal to the last ordinal), ``serving-fanin`` /
    ``-unbatched`` (1 worker + 2 servers holding a 1,048,576 x 16 f32
    embedding table on the spread key layout: ``multi_get`` of 64
-   Zipf(1.5) single-row lookups at depth 8 for 1.5 s, hot cache cold;
+   Zipf(1.5) single-row lookups at depth 8 for 1 s, hot cache cold;
    requests/s, p50/p99, frames per request each way, every 32nd request
    and the last 8 bit-exact), ``hot-cache`` / ``-off`` (1 + 1, the serve
    tenant, ``dlrm_serve``'s 1,024 x 16 table: the read-only storm of
@@ -211,7 +214,7 @@ line):
    2 over tcp (native, 80 x 1,024,000 B per worker and round, pulls
    exact) under ``PS_TELEMETRY=0``, ``=1`` with
    ``PS_METRICS_INTERVAL=1`` and ``=1`` with ``PS_TRACE_TAIL=slow:p95,
-   errors,floor:0.001``, 3 windows of 4 rounds alternating: ms/round and
+   errors,floor:0.001``, 2 windows of 2 rounds alternating: ms/round and
    the ratio to the first leg, the wire families of one
    ``METRICS_PULL``, and the tail-kept requests' median critical-path
    stages; the ``ici_tcp`` worker under ``ENABLE_PROFILING=1`` (one
@@ -253,8 +256,18 @@ line):
    against the single-process engine), ``KVWorker.reshard`` onto 2
    ranks per process and one more exact step; the first 2 steps over
    ``ici_shm``; the DCN tier (2 slice leaders of 4 ranks, 2 tcp
-   servers; plain bit-exact, int8 within JAX's bound).  Its two kernel
-   rows join the kernels line.
+   servers; plain bit-exact, int8 within JAX's bound).  The same worker
+   processes then run the group shapes beyond the 1-D ring, each held
+   bit for bit against the single-process port on the same rows: a
+   ``(dp 4, kv 2)`` engine (5 ``sum`` steps through the dp sub-rings
+   across processes, 2 adam steps, 2 int8 steps), ``(dp 2, kv1 2, kv2
+   2)`` with and without ``worker_axis`` (2 steps each), config 5's
+   table on ``(kv 4, dp 2)`` (2 pushes and pulls); and an ``int8`` leg
+   runs ``KVWorker.push_pull`` of the bucket under
+   ``PS_ICI_COMPRESS=int8``, 5 steps.  Each new kernel's first launch is
+   held against its plain version with 0 differing elements.  Its five
+   kernel rows (the 1-D pair, the dp sub-rings' reduce, the int8 ring
+   across processes 1-D and 2-D) join the kernels line.
 5. One ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1450,37 +1463,93 @@ def expect_stale(handle, label):
     raise AssertionError(f"{label}: a stale handle did not raise")
 
 
-def device_breakdown(torch, step, iters: int = 5, attempts: int = 3):
+# Idle time, in seconds, at each end of the recorded window of
+# device_breakdown's attempts, one entry per attempt.
+PROFILE_PADS = (0.01, 0.05, 0.2, 0.5, 1.0)
+
+
+def launch_offsets(prof):
+    """(launches with no kernel event, least kernel start minus its
+    launch's start in µs) of a profiled window, from its Chrome trace:
+    a negative offset is the device clock read earlier than the host's."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    launch, kernel = {}, {}
+    for ev in events:
+        corr = (ev.get("args") or {}).get("correlation")
+        if corr is None:
+            continue
+        if ev.get("cat") == "kernel":
+            kernel[corr] = float(ev["ts"])
+        elif (ev.get("cat") == "cuda_runtime"
+              and "LaunchKernel" in ev.get("name", "")):
+            launch[corr] = float(ev["ts"])
+    offsets = [kernel[c] - t for c, t in launch.items() if c in kernel]
+    return (sum(c not in kernel for c in launch),
+            min(offsets) if offsets else None)
+
+
+def device_breakdown(torch, step, iters: int = 5, attempts: int = 5):
     """torch.profiler over ``iters`` steps: (device-busy ms per step,
     [(kernel, ms per step)] by time).  The kernels run on one stream, so
     their times add.  (The profiler slows the host, so the busy share is
     taken against an unprofiled step's wall time, not this window's.)
-    The profiler now and then reports a window without its device events
-    (seen on an H100 for windows of a few kernels): such a window is
-    profiled again, up to ``attempts`` times."""
+    The profiler drops a device event that its clock places outside the
+    recorded window, and an H100 has lost the first kernel of a window
+    of the ring's 5 steps in five windows in a row, a warm-up step
+    traced and discarded before them or not.  So the recorded window is
+    padded with idle host time at both ends, ``PROFILE_PADS[i]`` seconds
+    in attempt i.  A window whose device events do not each come in
+    multiples of ``iters`` is profiled again (the rule of
+    ``tools/harness_phase.py``'s ``traced_measure``); each such window is
+    reported with its launches that have no kernel event and its least
+    kernel-minus-launch start, and ``attempts`` incomplete windows
+    raise."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(attempts):
+    lost = []
+    for attempt in range(attempts):
+        pad = PROFILE_PADS[min(attempt, len(PROFILE_PADS) - 1)]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=iters)) as prof:
+            step()
+            # The warm-up step's kernels end before recording starts.
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(pad)
             for _ in range(iters):
                 step()
             torch.cuda.synchronize()
-        kernels = []
+            time.sleep(pad)
+        kernels, counts = [], []
         for ev in prof.key_averages():
             # Kernel events only: an aten op's self device time repeats
-            # the time of the kernels it launched.
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            # the time of the kernels it launched, and the schedule's
+            # step annotation spans them.
+            if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+                    and not ev.key.startswith("ProfilerStep")):
                 kernels.append((ev.key[:60],
                                 ev.self_device_time_total / iters / 1e3))
+                counts.append((ev.key[:60], ev.count))
         kernels.sort(key=lambda kv: -kv[1])
         busy_ms = sum(ms for _, ms in kernels)
-        if busy_ms > 0:
+        if busy_ms > 0 and all(c % iters == 0 for _, c in counts):
             return busy_ms, kernels
-    raise AssertionError(f"the profiler saw no device time in {attempts} "
-                         f"windows")
+        missing, offset_us = launch_offsets(prof)
+        lost.append({"pad_s": pad, "counts": counts,
+                     "launches_without_kernel": missing,
+                     "least_kernel_minus_launch_us": offset_us})
+        print(f"device_breakdown: window {attempt + 1} of {iters} steps "
+              f"incomplete: {lost[-1]}", file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler lost device events in {attempts} "
+                         f"windows of {iters} steps: {lost}")
 
 
 def copy_ms(kernels) -> float:
@@ -2017,7 +2086,7 @@ def steady_state_sparse(torch, ps, Environment, emb):
 # -- the message control plane in one process ---------------------------------
 
 MSG_ROUNDS, MSG_WARMUP = 10, 2
-CODEC_ROUNDS = 2  # each codec round also checks 20.48M values per worker
+CODEC_ROUNDS = 1  # each codec round also checks 20.48M values per worker
 MSG_KEYS_PER_SERVER = 40  # test_benchmark.cc:25-30 NUM_KEY_PER_SERVER
 MSG_LOOSE_KEYS = 16  # unregistered 1 MB keys of the mixed ici phase
 MSG_DEADLINE = 300.0
@@ -3294,8 +3363,8 @@ def node_ici(torch, ring, kv, spec) -> dict:
 
 # -- message-path tiers: one process per node over tcp ------------------------
 
-TIER_ROUNDS = 3   # interleaved rounds of each phase's two legs
-TIER_SECS = 1.5   # pipeline window of each leg and round
+TIER_ROUNDS = 2   # interleaved rounds of each phase's two legs
+TIER_SECS = 1.0   # pipeline window of each leg and round
 SOB_DEPTH = 256
 SOB_OP_BYTES = 4096
 FANIN_ROWS = 1 << 20  # models/dlrm.py:22-28's DLRMConfig at the 1M rows
@@ -4085,7 +4154,7 @@ _loopback_cell = ["not run"]
 # The two planes of a process phase: the native core (the default) and
 # the Python one.
 PLANES = (("native", {}), ("python", {"PS_NATIVE": "0"}))
-PLANE_ROUNDS = 4  # timed rounds per window; TIER_ROUNDS windows per leg
+PLANE_ROUNDS = 2  # timed rounds per window; TIER_ROUNDS windows per leg
 
 
 def plane_legs(label: str, topo: str, van: str, workers: int, servers: int,
@@ -4159,7 +4228,7 @@ def drive_native_goodput(smi: str):
     """JAX's ``native_goodput_bench`` (``benchmark.py:1738-1830``): 1
     worker + 1 server processes over tcp, the ``lane_goodput`` storm
     (``node_goodput``) with the native core and with ``PS_NATIVE=0``,
-    each leg one cluster, 3 windows alternating; push Gbit/s and the
+    each leg one cluster, 2 windows alternating; push Gbit/s and the
     small pull's p99 per leg (medians, the windows' values) and their
     ratios by window.  JAX's >= 2x goodput bar was set on a CPU host: a
     yardstick only."""
@@ -4828,7 +4897,8 @@ FAILOVER_WARM = 2       # rounds each worker runs before the parent kills
 FAILOVER_MIN_ROUNDS = 8  # rounds each worker runs at least
 FAILOVER_AFTER = 2      # exact rounds after the restored server is heard
 FAILOVER_CAP_S = 150.0  # the storm's own bound
-RR_SECS = 3.0           # benchmark.py:2516: 3 s quick, 6 s full
+RR_SECS = 2.0           # benchmark.py:2516: 3 s quick, 6 s full; cut
+                        # to keep the script inside its time limit
 RR_ROWS, RR_DIM, RR_BATCH, RR_DEPTH = 2048, 16, 16, 8  # benchmark.py:592-596
 RR_ENV = {"PS_REPLICA_READS": "1", "PS_HOT_CACHE": "0",
           "PS_REQUEST_TIMEOUT": "5.0", "PS_REQUEST_RETRIES": "6"}
@@ -5089,7 +5159,7 @@ def drive_replication_failover(smi: str):
     native core, BASELINE config 2's pushes (80 keys x 1,024,000 B per
     worker and round).  (1) The replication tax: push, worker barrier,
     pull of the 80 keys at ``PS_KV_REPLICATION=2`` against 1, one
-    cluster each, 3 windows of 4 rounds alternating.  (2) The kill: the
+    cluster each, 2 windows of 2 rounds alternating.  (2) The kill: the
     port's launcher with keepalive (``node_failover``), deadlines 0.5 s
     x 5 retries, heartbeats 0.3 s / 1.0 s; mid storm the parent SIGKILLs
     server rank 0; its range fails over to the replica, the keepalive
@@ -5252,7 +5322,7 @@ def drive_replication_failover(smi: str):
 def drive_replica_read(ps, Environment, smi: str):
     """``replica-read``: JAX's ``replica_read_bench(quick=True)``
     (``benchmark.py:2494-2548``) over tcp processes: 3 workers + 3
-    servers, k = 3 against k = 1, one cluster each, 3 windows of
+    servers, k = 3 against k = 1, one cluster each, 2 windows of
     ``RR_SECS`` alternating; then JAX's namespace-flip leg
     (``benchmark.py:2397-2491``): 1 worker + 3 servers in this process
     over tcp at k = 3 with replica reads, a pull storm while the
@@ -5392,7 +5462,7 @@ def drive_durable_store(ps, Environment, smi: str):
     serving legs (``benchmark.py:2649-2720``): 1 worker + 1 server
     processes over tcp, a 1,024 x 1,024 f32 table, the server's store
     tiered under ``PS_STORE_RAM_MB`` = a quarter of the table against
-    all in RAM, one cluster each, 3 windows of 1,500 Zipf single-row
+    all in RAM, one cluster each, 2 windows of 1,500 Zipf single-row
     pulls alternating (``node_durable_serve``); the tiered/all-RAM hot
     p99 ratio (JAX's <= 2x bar is a yardstick).  (2) A coordinated
     snapshot of BASELINE config 2's store (80 keys x 1,024,000 B over 2
@@ -5817,9 +5887,9 @@ def drive_elastic_migrate(ps, Environment, smi: str):
 OBS_LEGS = (("off", {"PS_TELEMETRY": "0"}),
             ("metrics", {"PS_METRICS_INTERVAL": "1"}),
             ("tail", {"PS_TRACE_TAIL": "slow:p95,errors,floor:0.001"}))
-OBS_ROUNDS = 4      # timed rounds per window; TIER_ROUNDS windows per leg
+OBS_ROUNDS = 2      # timed rounds per window; TIER_ROUNDS windows per leg
 OBS_PULL_S = 0.5    # the tail leg's scheduler pulls traces this often
-OBS_TAIL_EXTRA = 3  # untimed windows the tail leg runs after the others
+OBS_TAIL_EXTRA = 2  # untimed windows the tail leg runs after the others
 AP_KEYS, AP_VAL_LEN, AP_STORM_S = 32, 4096, 14.0  # autopilot_bench(False)
 AP_ENV = {"PS_ELASTIC": "1", "PS_AUTOPILOT": "1",
           "PS_METRICS_INTERVAL": "0.25", "PS_AUTOPILOT_SUSTAIN": "2",
@@ -6456,14 +6526,21 @@ def drive_models(torch, ps, ring, sr, Environment, smi: str):
                                                sp_strategy=strategy)
 
         def profiled(step=step, store=store, mcfg=mcfg):
-            """The profiler over PROFILED_STEPS more steps."""
-            busy, kernels = device_breakdown(
-                torch, lambda: step(inputs, targets), iters=PROFILED_STEPS)
+            """The profiler over PROFILED_STEPS more steps (and the steps
+            it runs besides: its warm-up, and any window it retraces)."""
+            calls = [0]
+
+            def counted():
+                calls[0] += 1
+                return step(inputs, targets)
+
+            busy, kernels = device_breakdown(torch, counted,
+                                             iters=PROFILED_STEPS)
             return ({"busy_ms_per_step": busy, "kernels": kernels,
                      "params": store.n_params,
                      "model_tflop_per_step": psformer_flops(
                          mcfg, batch * seq, seq) / 1e12},
-                    {"ring_push[float32]": PROFILED_STEPS})
+                    {"ring_push[float32]": calls[0]})
 
         row = leg(label, lambda: step(inputs, targets), MODEL_STEPS,
                   batch * seq, "tokens", {"ring_push[float32]": 1},
@@ -6591,6 +6668,15 @@ def wait_epoch(po, epoch: int, timeout: float = 60.0):
             return rt
         time.sleep(0.01)
     raise AssertionError(f"routing epoch {epoch} not reached in {timeout} s")
+
+
+# Phases of child processes only (see ``main``), over tcp: shm-config3
+# stays in the first lane (run beside the other lane's clusters once, its
+# first 1 MB round read 18,061,460 wrong values).
+SECOND_LANE = ("tcp-config1", "native-goodput", "tcp-config2",
+               "tcp-config2-tiers", "small-op-storm", "serving-fanin",
+               "hot-cache", "recovery-keepalive", "deadline-timeout",
+               "replication-failover")
 
 
 def main() -> int:
@@ -6781,7 +6867,43 @@ def main() -> int:
         ("models", lambda: drive_models(torch, ps, ring, sr, Environment,
                                         smi)),
     ]
+    # The phases whose every node is a child process that this process
+    # neither hands the card to nor changes the environment of run in a
+    # second lane beside the others, from codec-throughput on (the last
+    # phase that sets a variable children inherit), so that the script
+    # keeps inside its time limit on a slower host: they spend most of
+    # their time starting processes.  Their launches are their children's.
+    second = [(p, r) for p, r in paths if p in SECOND_LANE]
+    paths = [(p, r) for p, r in paths if p not in SECOND_LANE]
+    lane = {"out": [], "error": None}
+
+    def run_lane():
+        try:
+            for path, run in second:
+                t_path = time.perf_counter()
+                out = run()
+                lane["out"].append((path, out,
+                                    time.perf_counter() - t_path))
+        except BaseException as exc:  # raised again on the main thread
+            lane["error"] = exc
+
+    lane_thread = threading.Thread(target=run_lane, name="second-lane")
     results, path_counts = [], {}
+
+    def record_path(path, out, t_path, counts):
+        # A process phase also returns the launches its worker process
+        # counted.
+        child = {}
+        if isinstance(out, tuple):
+            out, child = out
+        path_counts[path] = dict(counts)
+        for k, v in child.items():
+            path_counts[path][k] = path_counts[path].get(k, 0) + v
+        print(f"main path launches [{path}] ({t_path:.1f} s): "
+              + ", ".join(f"{k} {v}" for k, v in path_counts[path].items()
+                          if v))
+        return out
+
     for path, run in paths:
         fu.reset_launches()
         ring.reset_launches()
@@ -6790,23 +6912,22 @@ def main() -> int:
         t_path = time.perf_counter()
         out = run()
         t_path = time.perf_counter() - t_path
-        # A process phase also returns the launches its worker process
-        # counted.
-        child = {}
-        if isinstance(out, tuple):
-            out, child = out
+        out = record_path(path, out, t_path, {
+            **ring.launches, **fu.launches, **qz.launches, **sr.launches})
         results += out
         if path == "msg-config2":
             _loopback_cell[0] = (f"{out[0]['ms_per_round']:.3f} ms/round, "
                                  f"{out[0]['gbps_per_worker']:.4f} Gbit/s "
                                  f"per worker")
-        path_counts[path] = {**ring.launches, **fu.launches, **qz.launches,
-                             **sr.launches}
-        for k, v in child.items():
-            path_counts[path][k] = path_counts[path].get(k, 0) + v
-        print(f"main path launches [{path}] ({t_path:.1f} s): "
-              + ", ".join(f"{k} {v}" for k, v in path_counts[path].items()
-                          if v))
+        if path == "codec-throughput":
+            lane_thread.start()
+    lane_thread.join()
+    if lane["error"] is not None:
+        raise lane["error"]
+    none = {k: 0 for k in {**ring.launches, **fu.launches, **qz.launches,
+                           **sr.launches}}
+    for path, out, t_path in lane["out"]:
+        results += record_path(path, out, t_path, none)
     for r in results:
         extra = "".join(f", {k} {v:.4g}" for k, v in r.items()
                         if k not in ("config", "ops", "max_abs_err_vs_f64"))

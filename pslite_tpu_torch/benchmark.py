@@ -812,8 +812,11 @@ def run_worker(args) -> None:
     # Correctness: the last pull must echo the last push (assign handle).
     # The workers check in turn: another worker's push landing between
     # this worker's push and pull would replace what it reads back (the
-    # JAX CLI's check races so with two or more workers).
+    # JAX CLI's check races so with two or more workers).  The barrier
+    # first: a worker still in its timed loop would push between turn 0's
+    # push and pull.
     if args.mode in ("push_then_pull", "push_pull"):
+        po.barrier(0, WORKER_GROUP)
         for turn in range(po.num_worker_instances):
             if turn == po.my_rank():
                 worker.wait(worker.push(keys, vals))

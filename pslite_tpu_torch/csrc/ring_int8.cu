@@ -105,6 +105,29 @@
 // next region's first loads across the barrier, is what would hide the
 // barriers; PERF.md records the measured share of the bound.
 //
+// Across processes (pstt_ring_int8_peers): the compressed TPU kernel on a
+// multi-process pod (pslite_tpu/parallel/engine.py:211-222 compresses the
+// ring there too), for the 1-D ring and for the dp sub-rings.  Several
+// worker processes share one card, each holding the grads rows and store
+// pieces of its ranks in exchange memory the others map (as
+// ring_push_pull.cu's K4 across processes).  The kernel is this one with the
+// PEERS instantiation: a bucket of the table is one store piece of this
+// process (its ranks' neighbouring chunks, or on 2-D a (kv shard, dp
+// sub-chunk)), whose
+// rank rows are read through a device table of n row addresses in place of
+// Bucket.grads's [n, padded] base and stride, and whose store, pulled and
+// scratch pointers address the piece (element `off` of the bucket at their
+// index 0).  The launch covers only the regions of this process's pieces;
+// each region is walked exactly as on one process, so the bits equal
+// pstt_ring_int8 on the same rows whatever the cluster size.  On the 1-D
+// ring the owner writes its full-precision store and, at the gather, the
+// dequantized values of its pieces into its pulled area, from which every
+// process's pull copies them (ring_gather_peers); on the 2-D sub-rings the
+// store takes the dequantized values, as on one process.  Bound: the same
+// bytes per owned value as one process's share of the ring, (n+3)*4 per
+// value (n rows, the store read and written, pulled written); on one card
+// the int8 payload saves no bytes, so this is a parity path.
+//
 // Launch: cudaLaunchKernelEx with a cluster dimension; 9-16 CTAs are
 // non-portable cluster sizes (cudaFuncAttributeNonPortableClusterSizeAllowed).
 // A refused launch returns its error; nothing falls back.
@@ -292,8 +315,10 @@ __device__ __forceinline__ void prefetch(const float* __restrict__ row,
 }
 
 // One bucket of a launch: its pointers (pulled and scratch may be NULL),
-// its length, its rank count, and whether it takes float4 accesses.
-// 48 bytes.
+// its length, its rank count, and whether it takes float4 accesses.  A
+// PEERS launch's bucket is a store piece: `rows` is a device table of its n
+// rank rows' addresses (grads unused), and store, pulled and scratch hold
+// bucket element `off` at their index 0.  64 bytes.
 struct Bucket {
   const float* grads;  // [n, padded], row w = rank w
   float* store;        // [padded]
@@ -302,10 +327,12 @@ struct Bucket {
   long long padded;
   int n;
   int vec;
+  const long long* rows;  // PEERS: n row addresses on the device
+  long long off;          // PEERS: the piece's first element
 };
 
 // Buckets per launch.  The table is passed by value as the kernel's
-// parameter (8 + 48 * 48 = 2,312 bytes, inside the 4 KiB every CUDA 12
+// parameter (8 + 48 * 64 = 3,080 bytes, inside the 4 KiB every CUDA 12
 // driver takes), so no copy to the device precedes the launch; longer
 // groups take several launches (ops/ring_collective.py INT8_MAX_GROUP).
 constexpr int kMaxGroup = 48;
@@ -332,7 +359,7 @@ struct Slots {
 // the slice's first smem_floats values live in `buf` (dynamic shared
 // memory), the rest in the bucket's scratch.  A cluster of one CTA (C = 1)
 // takes the same path: its barrier is the CTA's, its slot its own.
-template <int V>
+template <int V, bool PEERS>
 __device__ __forceinline__ void walk(const Bucket& bk, const Region& reg,
                                      int smem_floats, int handle, float lr,
                                      bool gather, bool kv_store) {
@@ -353,8 +380,13 @@ __device__ __forceinline__ void walk(const Bucket& bk, const Region& reg,
   const long long base = reg.start + lo;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  auto row_of = [&](int k) {
-    return bk.grads + ((reg.chunk + k * reg.step) % n) * padded + base;
+  auto row_of = [&](int k) -> const float* {
+    if constexpr (PEERS) {
+      return reinterpret_cast<const float*>(
+                 bk.rows[(reg.chunk + k * reg.step) % n]) + base;
+    } else {
+      return bk.grads + ((reg.chunk + k * reg.step) % n) * padded + base;
+    }
   };
   // Max |value| over the CTA -> sh.cta[par]; arrive on the cluster barrier.
   auto publish = [&](float v, int par) {
@@ -375,9 +407,11 @@ __device__ __forceinline__ void walk(const Bucket& bk, const Region& reg,
     return scale_of(warp_max(v));
   };
 
-  float* spill = bk.scratch != nullptr ? bk.scratch + base : nullptr;
-  float* st = bk.store + base;
-  float* pl = bk.pulled != nullptr ? bk.pulled + base : nullptr;
+  // A piece's pointers hold element bk.off at index 0.
+  const long long at = PEERS ? base - bk.off : base;
+  float* spill = bk.scratch != nullptr ? bk.scratch + at : nullptr;
+  float* st = bk.store + at;
+  float* pl = bk.pulled != nullptr ? bk.pulled + at : nullptr;
   Batch<V> pre;
   // Hop 1: the first rank's grads; the spilled part stays where it is.
   const float* row1 = row_of(1);
@@ -430,11 +464,11 @@ __device__ __forceinline__ void walk(const Bucket& bk, const Region& reg,
 // The mixed instantiation calls each walk out of line, once per CTA:
 // inlined side by side they share one register allocation, and the float4
 // walk spilled 160-216 bytes.
-template <int V>
+template <int V, bool PEERS>
 __device__ __noinline__ void walk_call(const Bucket bk, const Region reg,
                                        int smem_floats, int handle, float lr,
                                        bool gather, bool kv_store) {
-  walk<V>(bk, reg, smem_floats, handle, lr, gather, kv_store);
+  walk<V, PEERS>(bk, reg, smem_floats, handle, lr, gather, kv_store);
 }
 
 // One cluster of C CTAs per region row.  VM: 4 when every bucket of the
@@ -445,7 +479,7 @@ __device__ __noinline__ void walk_call(const Bucket bk, const Region reg,
 // known only at run time makes the compiler hold the bucket's fields in
 // registers, and the float4 walk spills (24 bytes; the single int8 rows
 // ran 2-6 % slower).
-template <int VM, bool ONE>
+template <int VM, bool ONE, bool PEERS>
 __global__ void __launch_bounds__(kThreads, 1)
 ring_int8_cluster(const BucketTable table, const Region* __restrict__ regions,
                   int smem_floats, int handle, float lr, bool gather,
@@ -454,14 +488,15 @@ ring_int8_cluster(const BucketTable table, const Region* __restrict__ regions,
   const Bucket& bk = table.b[ONE ? 0 : reg.bucket];
   if constexpr (VM == 0) {
     if (bk.vec) {
-      walk_call<4>(bk, reg, smem_floats, handle, lr, gather,
-                   store_takes_pulled);
+      walk_call<4, PEERS>(bk, reg, smem_floats, handle, lr, gather,
+                          store_takes_pulled);
     } else {
-      walk_call<1>(bk, reg, smem_floats, handle, lr, gather,
-                   store_takes_pulled);
+      walk_call<1, PEERS>(bk, reg, smem_floats, handle, lr, gather,
+                          store_takes_pulled);
     }
   } else {
-    walk<VM>(bk, reg, smem_floats, handle, lr, gather, store_takes_pulled);
+    walk<VM, PEERS>(bk, reg, smem_floats, handle, lr, gather,
+                    store_takes_pulled);
   }
   // No CTA may leave while a peer can still read its slots.
   cluster_arrive();
@@ -475,15 +510,15 @@ bool aligned16(const void* p) {
 // Once per instantiation: allow the largest dynamic shared memory and the
 // non-portable cluster sizes (outside any stream capture: the first call
 // comes before).
-template <int VM, bool ONE>
+template <int VM, bool ONE, bool PEERS>
 cudaError_t prepare() {
   static cudaError_t done = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        ring_int8_cluster<VM, ONE>,
+        ring_int8_cluster<VM, ONE, PEERS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmemFloats * static_cast<int>(sizeof(float)));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ring_int8_cluster<VM, ONE>,
+    return cudaFuncSetAttribute(ring_int8_cluster<VM, ONE, PEERS>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
                                 1);
   }();
@@ -506,30 +541,30 @@ void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   cfg.numAttrs = 1;
 }
 
-template <int VM, bool ONE>
+template <int VM, bool ONE, bool PEERS>
 cudaError_t run(const BucketTable& table, const Region* regions,
                 long long nregions, int cluster, int smem_floats, int handle,
                 float lr, bool gather, bool stp, cudaStream_t st) {
-  cudaError_t err = prepare<VM, ONE>();
+  cudaError_t err = prepare<VM, ONE, PEERS>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   config(cfg, attr, nregions, cluster, smem_floats, st);
-  err = cudaLaunchKernelEx(&cfg, ring_int8_cluster<VM, ONE>, table, regions,
-                           smem_floats, handle, lr, gather, stp);
+  err = cudaLaunchKernelEx(&cfg, ring_int8_cluster<VM, ONE, PEERS>, table,
+                           regions, smem_floats, handle, lr, gather, stp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int VM, bool ONE>
+template <int VM, bool ONE, bool PEERS>
 cudaError_t occupancy(int cluster, int smem_floats, int* max_clusters) {
-  cudaError_t err = prepare<VM, ONE>();
+  cudaError_t err = prepare<VM, ONE, PEERS>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   config(cfg, attr, 1, cluster, smem_floats, nullptr);
-  return cudaOccupancyMaxActiveClusters(max_clusters,
-                                        ring_int8_cluster<VM, ONE>, &cfg);
+  return cudaOccupancyMaxActiveClusters(
+      max_clusters, ring_int8_cluster<VM, ONE, PEERS>, &cfg);
 }
 
 // The instantiation of a launch: `mode` 4 (every bucket float4), 1 (none)
@@ -547,8 +582,73 @@ cudaError_t dispatch(int mode, int count, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// Words per bucket of pstt_ring_int8's descriptor rows.
+// Words per bucket of pstt_ring_int8's and pstt_ring_int8_peers'
+// descriptor rows.
 constexpr int kDescWords = 7;
+constexpr int kPeerDescWords = 9;
+
+// The table of a launch from its descriptor rows (`words` per bucket:
+// grads or the row table, store, pulled, scratch, padded, n, vec, and for
+// a PEERS launch the piece's first element); the count of float4 buckets,
+// or -1 for a refused row.
+int fill_table(const long long* desc, int count, int words, bool peers,
+               BucketTable& table) {
+  table.count = count;
+  int nvec = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* w = desc + static_cast<long long>(words) * i;
+    Bucket& b = table.b[i];
+    b.grads = peers ? nullptr : reinterpret_cast<const float*>(w[0]);
+    b.rows = peers ? reinterpret_cast<const long long*>(w[0]) : nullptr;
+    b.store = reinterpret_cast<float*>(w[1]);
+    b.pulled = reinterpret_cast<float*>(w[2]);
+    b.scratch = reinterpret_cast<float*>(w[3]);
+    b.padded = w[4];
+    b.n = static_cast<int>(w[5]);
+    b.off = peers ? w[7] : 0;
+    if (b.padded <= 0 || b.n < 2 || (peers && (b.rows == nullptr || b.off < 0)))
+      return -1;
+    b.vec = w[6] != 0 && aligned16(b.grads) && aligned16(b.store) &&
+            (b.pulled == nullptr || aligned16(b.pulled)) &&
+            (b.scratch == nullptr || aligned16(b.scratch)) &&
+            b.padded % 4 == 0;
+    nvec += b.vec;
+  }
+  return nvec;
+}
+
+bool valid_launch(int count, int cluster, int smem_floats) {
+  return count >= 1 && count <= kMaxGroup && cluster >= 1 && cluster <= 16 &&
+         smem_floats >= 4 && smem_floats <= kMaxSmemFloats &&
+         smem_floats % 4 == 0;
+}
+
+template <bool PEERS>
+int launch_table(const BucketTable& table, int nvec, const void* regions,
+                 long long nregions, int cluster, int smem_floats, int handle,
+                 float lr, int gather, int store_takes_pulled, void* stream) {
+  const auto* rg = static_cast<const Region*>(regions);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool ga = gather != 0, stp = store_takes_pulled != 0;
+  const int mode = nvec == table.count ? 4 : (nvec == 0 ? 1 : 0);
+  return static_cast<int>(dispatch(mode, table.count, [&](auto vm, auto one) {
+    return run<decltype(vm)::value, decltype(one)::value, PEERS>(
+        table, rg, nregions, cluster, smem_floats, handle, lr, ga, stp, st);
+  }));
+}
+
+template <bool PEERS>
+int occupancy_of(int cluster, int smem_floats, int mode, int count,
+                 int* max_clusters) {
+  *max_clusters = 0;
+  if (cluster < 1 || cluster > 16 || smem_floats < 0 ||
+      smem_floats > kMaxSmemFloats || count < 1 || count > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(mode, count, [&](auto vm, auto one) {
+    return occupancy<decltype(vm)::value, decltype(one)::value, PEERS>(
+        cluster, smem_floats, max_clusters);
+  }));
+}
 
 }  // namespace
 
@@ -571,36 +671,38 @@ int pstt_ring_int8(const long long* desc, int count, const void* regions,
                    int handle, float lr, int gather, int store_takes_pulled,
                    void* stream) {
   if (nregions <= 0) return 0;
-  if (count < 1 || count > kMaxGroup || cluster < 1 || cluster > 16 ||
-      smem_floats < 4 || smem_floats > kMaxSmemFloats || smem_floats % 4 != 0)
+  if (!valid_launch(count, cluster, smem_floats))
     return static_cast<int>(cudaErrorInvalidValue);
   BucketTable table{};
-  table.count = count;
-  int nvec = 0;
-  for (int i = 0; i < count; ++i) {
-    const long long* w = desc + static_cast<long long>(kDescWords) * i;
-    Bucket& b = table.b[i];
-    b.grads = reinterpret_cast<const float*>(w[0]);
-    b.store = reinterpret_cast<float*>(w[1]);
-    b.pulled = reinterpret_cast<float*>(w[2]);
-    b.scratch = reinterpret_cast<float*>(w[3]);
-    b.padded = w[4];
-    b.n = static_cast<int>(w[5]);
-    if (b.padded <= 0 || b.n < 2) return static_cast<int>(cudaErrorInvalidValue);
-    b.vec = w[6] != 0 && aligned16(b.grads) && aligned16(b.store) &&
-            (b.pulled == nullptr || aligned16(b.pulled)) &&
-            (b.scratch == nullptr || aligned16(b.scratch)) &&
-            b.padded % 4 == 0;
-    nvec += b.vec;
-  }
-  const auto* rg = static_cast<const Region*>(regions);
-  auto st = static_cast<cudaStream_t>(stream);
-  const bool ga = gather != 0, stp = store_takes_pulled != 0;
-  const int mode = nvec == count ? 4 : (nvec == 0 ? 1 : 0);
-  return static_cast<int>(dispatch(mode, count, [&](auto vm, auto one) {
-    return run<decltype(vm)::value, decltype(one)::value>(
-        table, rg, nregions, cluster, smem_floats, handle, lr, ga, stp, st);
-  }));
+  const int nvec = fill_table(desc, count, kDescWords, false, table);
+  if (nvec < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_table<false>(table, nvec, regions, nregions, cluster,
+                             smem_floats, handle, lr, gather,
+                             store_takes_pulled, stream);
+}
+
+// The launch across processes: `count` (1..48) store pieces of this
+// process, desc rows of 9 int64 words: the device address of a table of the
+// piece's n rank-row addresses (each row [padded] f32, a peer's mapped
+// through CUDA IPC), store, pulled (or NULL) and scratch (or NULL) of the
+// piece (bucket element `off` at index 0), padded, n (>= 2), the float4
+// flag (every region of the piece, its rows and its offset multiples of 4
+// values), off, and a zero.  regions: the rows (start, length, chunk,
+// step, piece) of the regions inside the pieces, in launch order.  The rest
+// as pstt_ring_int8.
+int pstt_ring_int8_peers(const long long* desc, int count,
+                         const void* regions, long long nregions, int cluster,
+                         int smem_floats, int handle, float lr, int gather,
+                         int store_takes_pulled, void* stream) {
+  if (nregions <= 0) return 0;
+  if (!valid_launch(count, cluster, smem_floats))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BucketTable table{};
+  const int nvec = fill_table(desc, count, kPeerDescWords, true, table);
+  if (nvec < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_table<true>(table, nvec, regions, nregions, cluster,
+                            smem_floats, handle, lr, gather,
+                            store_takes_pulled, stream);
 }
 
 // How many clusters of `cluster` CTAs, each CTA with smem_floats of dynamic
@@ -609,14 +711,13 @@ int pstt_ring_int8(const long long* desc, int count, const void* regions,
 // none, 0: mixed).
 int pstt_ring_int8_occupancy(int cluster, int smem_floats, int mode,
                              int count, int* max_clusters) {
-  *max_clusters = 0;
-  if (cluster < 1 || cluster > 16 || smem_floats < 0 ||
-      smem_floats > kMaxSmemFloats || count < 1 || count > kMaxGroup)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(mode, count, [&](auto vm, auto one) {
-    return occupancy<decltype(vm)::value, decltype(one)::value>(
-        cluster, smem_floats, max_clusters);
-  }));
+  return occupancy_of<false>(cluster, smem_floats, mode, count, max_clusters);
+}
+
+// pstt_ring_int8_occupancy for the launch across processes.
+int pstt_ring_int8_peers_occupancy(int cluster, int smem_floats, int mode,
+                                   int count, int* max_clusters) {
+  return occupancy_of<true>(cluster, smem_floats, mode, count, max_clusters);
 }
 
 }  // extern "C"

@@ -61,7 +61,7 @@
 // per step of engine.replay; a persistent T-step kernel that keeps the store
 // in registers between steps is later work.
 //
-// K4 across processes (pstt_ring_reduce_peers, pstt_ring_gather_peers): the
+// K4 across processes (pstt_ring_reduce_peers_segs, pstt_ring_gather_peers): the
 // same TPU kernel (pallas_call :445) on a multi-process pod, where its remote
 // DMAs and credit semaphores run between devices of different processes
 // (pslite_tpu's PS_ICI_MULTIHOST=1 mesh).  Here several worker processes
@@ -70,7 +70,7 @@
 // allocator, so an IPC handle's base is the slab's own) that every peer maps
 // through cudaIpcOpenMemHandle.  One op, driven by parallel/engine.py:
 // (1) each process writes its grads rows into its slab; (2) stream sync and
-// a host barrier; (3) pstt_ring_reduce_peers: each process computes only its
+// a host barrier; (3) pstt_ring_reduce_peers_segs: each process computes only its
 // own ranks' chunks, reading every rank's row through a table of row
 // pointers passed by value (as ring_group_kernel's table), with ring_sum and
 // ring_apply, so the bits equal pstt_ring_push_pull's on the same n rows;
@@ -87,6 +87,22 @@
 // gather 2*P*b (24.5 us).  The host barriers come on top and are timed
 // apart.  Device flags with release/acquire semantics can replace them
 // later.
+//
+// The dp sub-rings across processes (the same entry,
+// pstt_ring_reduce_peers_segs, extended with the sub-ring geometry and a
+// table of segments): the TPU kernel's 2-D `mesh_axes` launch
+// (pslite_tpu/parallel/engine.py:662-745, _ring_2d_shard_fn) on a
+// multi-process pod, where device (d, k) owns sub-chunk d of kv shard k
+// (its dynamic_slice(s, d*ksub)).  Here each process computes only its
+// owned (k, d) sub-chunks, over the A dp rows of shard k, in the sub-ring's
+// order of addition: the same ring_sum<KV = true> over rows[0..A) (the
+// global dp rows, each written once by one process and mapped by the
+// others), so the bits equal ring_kernel's 2-D launch on the same A rows.
+// The pieces a process owns are not contiguous in the bucket, so the launch
+// takes a table of segments (first element, length, offset in the store,
+// first block), as ring_group_kernel's blocks find their bucket.  Bound:
+// per owned value A rows read, the store read and written: (A+2)*count*b,
+// the gather 2*P*b, as the 1-D peers.
 //
 // Later slice: ranks on several cards, where the TPU kernel's peer slots and
 // credits become stores into NVLink peer pointers plus release/acquire flags.
@@ -371,16 +387,26 @@ cudaError_t launch_group(const long long* desc, int count, int handle,
   return cudaSuccess;
 }
 
-// -- K4 across processes (pstt_ring_reduce_peers, pstt_ring_gather_peers) ----
+// -- K4 across processes (pstt_ring_reduce_peers_segs, pstt_ring_gather_peers)
 
 // Ranks of a ring whose rows sit in several processes' memory: rank r's
 // [padded] row at rows[r], mapped into this process through CUDA IPC (its
-// own rows are plain device pointers).  2 KiB by value.
+// own rows are plain device pointers), and the segments of the bucket the
+// launch computes.  8 + 32 * 32 + 256 * 8 = 3,080 bytes by value, inside
+// the 4 KiB every CUDA 12 driver takes.
 constexpr int kMaxPeers = 256;
+constexpr int kMaxPeerSegs = 32;
+
+struct PeerSeg {
+  long long lo;           // first element of the bucket
+  long long count;        // elements
+  long long store_off;    // where element lo sits in the store
+  long long first_block;  // the launch's first block on this segment
+};
 
 struct PeerTable {
-  long long lo;     // first element this launch computes
-  long long count;  // elements it computes (this process's ranks' chunks)
+  int nseg;
+  PeerSeg seg[kMaxPeerSegs];
   const void* rows[kMaxPeers];
 };
 
@@ -392,38 +418,88 @@ struct PeerRows {
   }
 };
 
-// The chunks [lo, lo + count) of a 1-D ring: the same ring_sum over every
-// rank's row, wherever it lives, and the same ring_apply on this process's
-// store shards (store[0] is element lo).  No all-gather here: the owners'
-// stores are copied out by gather_peers_kernel once every process is done.
-template <typename T, int V>
+// The segments of a ring (1-D: KV = false; the dp sub-rings: KV = true):
+// the same ring_sum over every rank's row, wherever it lives, and the same
+// ring_apply on this process's store (element seg.lo at seg.store_off).
+// No all-gather here: the owners' stores are copied out by
+// gather_peers_kernel once every process is done.
+template <typename T, int V, bool KV>
 __global__ void ring_peers_kernel(const PeerTable table, T* __restrict__ store,
                                   RingGeo geo, int handle, float lr) {
-  const long long vi = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (vi * V >= table.count) return;
+  const long long blk = blockIdx.x;
+  int lo = 0;
+  int hi = table.nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.seg[mid].first_block <= blk) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const PeerSeg& s = table.seg[lo];
+  const long long vi = (blk - s.first_block) * blockDim.x + threadIdx.x;
+  if (vi * V >= s.count) return;
   float acc[V];
-  ring_sum<T, V, false>(PeerRows<T>{table}, geo, table.lo + vi * V, acc);
-  ring_apply<T, V>(acc, store + vi * V, nullptr, handle, lr);
+  ring_sum<T, V, KV>(PeerRows<T>{table}, geo, s.lo + vi * V, acc);
+  ring_apply<T, V>(acc, store + s.store_off + vi * V, nullptr, handle, lr);
+}
+
+// Fills each segment's first block for vectors of V elements; the grid.
+long long peer_blocks(PeerTable& table, int V) {
+  long long blocks = 0;
+  for (int i = 0; i < table.nseg; ++i) {
+    table.seg[i].first_block = blocks;
+    const long long units = (table.seg[i].count + V - 1) / V;
+    blocks += (units + kThreads - 1) / kThreads;
+  }
+  return blocks;
+}
+
+template <typename T, int V, bool KV>
+cudaError_t launch_peers_v(PeerTable& table, T* store, const RingGeo& geo,
+                           int handle, float lr, cudaStream_t stream) {
+  const long long blocks = peer_blocks(table, V);
+  if (blocks == 0) return cudaSuccess;
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  ring_peers_kernel<T, V, KV><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                                stream>>>(table, store, geo, handle, lr);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_peers(const PeerTable& table, void* store,
-                         const RingGeo& geo, int handle, float lr,
-                         cudaStream_t stream) {
+cudaError_t launch_peers(PeerTable& table, void* store, const RingGeo& geo,
+                         bool kv, int handle, float lr, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   bool vec = geo.sub % V == 0 && (geo.split >= geo.sub || geo.split % V == 0) &&
-             table.lo % V == 0 && table.count % V == 0 && aligned16(store);
+             (!kv || geo.period % V == 0) && aligned16(store);
+  for (int i = 0; i < table.nseg; ++i)
+    vec = vec && table.seg[i].lo % V == 0 && table.seg[i].count % V == 0 &&
+          table.seg[i].store_off % V == 0;
   for (int r = 0; r < geo.n; ++r) vec = vec && aligned16(table.rows[r]);
   auto* s = static_cast<T*>(store);
   if (vec) {
-    const long long nvec = table.count / V;
-    ring_peers_kernel<T, V><<<static_cast<unsigned int>((nvec + kThreads - 1) / kThreads),
-                              kThreads, 0, stream>>>(table, s, geo, handle, lr);
-  } else {
-    ring_peers_kernel<T, 1><<<static_cast<unsigned int>((table.count + kThreads - 1) / kThreads),
-                              kThreads, 0, stream>>>(table, s, geo, handle, lr);
+    return kv ? launch_peers_v<T, V, true>(table, s, geo, handle, lr, stream)
+              : launch_peers_v<T, V, false>(table, s, geo, handle, lr, stream);
   }
-  return cudaGetLastError();
+  return kv ? launch_peers_v<T, 1, true>(table, s, geo, handle, lr, stream)
+            : launch_peers_v<T, 1, false>(table, s, geo, handle, lr, stream);
+}
+
+int reduce_peers(PeerTable& table, int n, void* store, int dtype,
+                 const RingGeo& geo, bool kv, int handle, float lr,
+                 cudaStream_t st) {
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_peers<float>(table, store, geo, kv, handle, lr, st));
+    case 1:
+      return static_cast<int>(
+          launch_peers<__nv_bfloat16>(table, store, geo, kv, handle, lr, st));
+    case 2:
+      return static_cast<int>(launch_peers<__half>(table, store, geo, kv, handle, lr, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The all-gather across processes: segment s copies `len` elements from
@@ -591,34 +667,34 @@ int pstt_ring_replay(const void* grads, void* store, void* pulled, int dtype,
 // -- K4 across processes --------------------------------------------------------
 
 // The reduce of the ring over n ranks whose [padded] rows are at rows[0..n)
-// (n int64 device addresses, peers' rows mapped through pstt_ipc_open): the
-// elements [lo, lo + count) of a 1-D ring of chunks `sub` split at `split`
-// are summed in the TPU ring's order, the handle updates store[0, count) in
-// place (store[0] is element lo).  One launch.
-int pstt_ring_reduce_peers(const long long* rows, int n, void* store,
-                           long long lo, long long count, int dtype,
-                           long long sub, long long split, long long padded,
-                           int handle, float lr, void* stream) {
-  if (count <= 0) return 0;
-  if (n < 1 || n > kMaxPeers || !valid_geo(n, padded, sub, padded) || lo < 0 ||
-      lo + count > padded)
+// (n int64 device addresses, peers' rows mapped through pstt_ipc_open; on
+// 2-D the n dp rows), 1-D (kv = 0, period = padded) or the dp sub-rings
+// (kv = 1: B = padded / period kv shards, each an n-rank ring over
+// sub-chunks of `sub`): the elements of `nseg` segments, rows of 3 int64
+// words (first element, length, offset of that element in `store`), each
+// inside [0, padded), are summed in the TPU ring's order and the handle
+// updates them in `store` in place.  One launch.
+int pstt_ring_reduce_peers_segs(const long long* rows, int n, void* store,
+                                const long long* segs, int nseg, int dtype,
+                                long long period, long long sub,
+                                long long split, int kv, long long padded,
+                                int handle, float lr, void* stream) {
+  if (nseg <= 0) return 0;
+  if (n < 1 || n > kMaxPeers || nseg > kMaxPeerSegs ||
+      !valid_geo(n, period, sub, padded) || (kv == 0 && period != padded))
     return static_cast<int>(cudaErrorInvalidValue);
   PeerTable table{};
-  table.lo = lo;
-  table.count = count;
-  for (int r = 0; r < n; ++r) table.rows[r] = reinterpret_cast<const void*>(rows[r]);
-  const RingGeo geo{padded, sub, split, n};
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_peers<float>(table, store, geo, handle, lr, st));
-    case 1:
-      return static_cast<int>(launch_peers<__nv_bfloat16>(table, store, geo, handle, lr, st));
-    case 2:
-      return static_cast<int>(launch_peers<__half>(table, store, geo, handle, lr, st));
-    default:
+  for (int i = 0; i < nseg; ++i) {
+    const long long* w = segs + 3ll * i;
+    if (w[0] < 0 || w[1] < 0 || w[0] + w[1] > padded || w[2] < 0)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (w[1] == 0) continue;
+    table.seg[table.nseg++] = PeerSeg{w[0], w[1], w[2], 0};
   }
+  for (int r = 0; r < n; ++r) table.rows[r] = reinterpret_cast<const void*>(rows[r]);
+  const RingGeo geo{period, sub, split, n};
+  return reduce_peers(table, n, store, dtype, geo, kv != 0, handle, lr,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The all-gather across processes: `count` segments of 3 int64 words

@@ -56,8 +56,8 @@ _SIGNATURES = {
     "pstt_ring_group": (_P, _I, _I, _I, _F, _P, ctypes.POINTER(_I)),
     "pstt_ring_replay": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _L, _I, _F, _I,
                          _P),
-    "pstt_ring_reduce_peers": (_P, _I, _P, _L, _L, _I, _L, _L, _L, _I, _F,
-                               _P),
+    "pstt_ring_reduce_peers_segs": (_P, _I, _P, _P, _I, _I, _L, _L, _L, _I,
+                                    _L, _I, _F, _P),
     "pstt_ring_gather_peers": (_P, _I, _P, _I, _P),
     "pstt_ipc_alloc": (_I, _L, ctypes.POINTER(_P)),
     "pstt_ipc_free": (_I, _P),
@@ -66,6 +66,8 @@ _SIGNATURES = {
     "pstt_ipc_close": (_I, _P),
     "pstt_ring_int8": (_P, _I, _P, _L, _I, _I, _I, _F, _I, _I, _P),
     "pstt_ring_int8_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
+    "pstt_ring_int8_peers": (_P, _I, _P, _L, _I, _I, _I, _F, _I, _I, _P),
+    "pstt_ring_int8_peers_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
     "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),
     "pstt_sparse_sort": (_P, _P, _L, _I, _I, _P),

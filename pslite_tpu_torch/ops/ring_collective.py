@@ -114,6 +114,10 @@ launches: Dict[str, int] = {
        for ag in (True, False) for kv in (False, True) for dt in _DTYPE_CODES},
     **{f"ring_{part}_peers[{str(dt).replace('torch.', '')}]": 0
        for part in ("reduce", "gather") for dt in _DTYPE_CODES},
+    **{f"ring_reduce_peers_2d[{str(dt).replace('torch.', '')}]": 0
+       for dt in _DTYPE_CODES},
+    "ring_int8_peers[float32]": 0,
+    "ring_int8_peers_2d[float32]": 0,
 }
 
 
@@ -307,22 +311,48 @@ def _slices(lengths: np.ndarray, cluster: int) -> np.ndarray:
     return -(-(-(-lengths // cluster)) // 4) * 4
 
 
-@functools.lru_cache(maxsize=256)
-def int8_plan(layout: Int8Layout, cluster: int) -> Int8Plan:
-    """The :class:`Int8Plan` of a launch's buckets at a cluster size."""
-    table = int8_group_regions(layout)
+def _plan_rows(table: np.ndarray, lengths, cluster: int) -> Int8Plan:
+    """The :class:`Int8Plan` of a region table over buckets whose scratch
+    takes ``lengths[b]`` values each."""
     slices = _slices(table[:, 1], cluster)
     longest = int(slices.max()) if len(table) else 0
     smem = max(min(longest, INT8_SMEM_FLOATS), 4)
-    spills = [False] * len(layout)
-    vecs = [True] * len(layout)
+    spills = [False] * len(lengths)
+    vecs = [True] * len(lengths)
     for row, sl in zip(table, slices):
         b = int(row[4])
         spills[b] |= bool(sl > smem)
         vecs[b] &= bool(row[0] % 4 == 0 and row[1] % 4 == 0)
-    scratch = sum(p for (_, p), sp in zip(layout, spills) if sp)
+    scratch = sum(p for p, sp in zip(lengths, spills) if sp)
     return Int8Plan(cluster, len(table), longest, smem, scratch, all(vecs),
                     tuple(spills), tuple(vecs))
+
+
+@functools.lru_cache(maxsize=256)
+def int8_plan(layout: Int8Layout, cluster: int) -> Int8Plan:
+    """The :class:`Int8Plan` of a launch's buckets at a cluster size."""
+    return _plan_rows(int8_group_regions(layout), [p for _, p in layout],
+                      cluster)
+
+
+def _cost_rows(table: np.ndarray, ns: np.ndarray, plan: Int8Plan,
+               active: int) -> Optional[int]:
+    """:func:`int8_cost` of a region table whose rows walk rings of
+    ``ns[row]`` ranks."""
+    if active <= 0:
+        return None
+    if not len(table):
+        return 0
+    slices = _slices(table[:, 1], plan.cluster)
+    spilled = slices - np.minimum(slices, plan.smem_floats)
+    cost = (slices * (ns + 3) * 4 + spilled * 8 * (ns - 1)
+            + (ns + 1) * INT8_HOP_BYTES)
+    if len(cost) <= active:
+        return int(cost.max())
+    slots = [0] * active
+    for c in cost.tolist():
+        heapq.heapreplace(slots, slots[0] + c)
+    return max(slots)
 
 
 def int8_cost(layout: Int8Layout, cluster: int,
@@ -338,26 +368,15 @@ def int8_cost(layout: Int8Layout, cluster: int,
     if active <= 0:
         return None
     table = int8_group_regions(layout)
-    if not len(table):
-        return 0
-    plan = int8_plan(layout, cluster)
     n = np.array([geo.n for geo, _ in layout], dtype=np.int64)[table[:, 4]]
-    slices = _slices(table[:, 1], cluster)
-    spilled = slices - np.minimum(slices, plan.smem_floats)
-    cost = (slices * (n + 3) * 4 + spilled * 8 * (n - 1)
-            + (n + 1) * INT8_HOP_BYTES)
-    if len(cost) <= active:
-        return int(cost.max())
-    slots = [0] * active
-    for c in cost.tolist():
-        heapq.heapreplace(slots, slots[0] + c)
-    return max(slots)
+    return _cost_rows(table, n, int8_plan(layout, cluster), active)
 
 
 def _occupancy(cluster: int, smem_floats: int, mode: int,
-               count: int) -> int:
+               count: int, peers: bool = False) -> int:
     out = ctypes.c_int(0)
-    _native.call("pstt_ring_int8_occupancy", cluster, smem_floats, mode,
+    _native.call("pstt_ring_int8_peers_occupancy" if peers
+                 else "pstt_ring_int8_occupancy", cluster, smem_floats, mode,
                  count, ctypes.byref(out))
     return out.value
 
@@ -855,16 +874,29 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def ring_reduce_peers(rows, store: torch.Tensor, lo: int, padded: int,
-                      handle: str = "sum", bidir: bool = True) -> None:
+def _segments(lo, count: int) -> list:
+    """``(first element, length, store offset)`` rows: ``lo`` is one
+    first element (the store's ``count`` values from it) or the rows."""
+    if isinstance(lo, (int, np.integer)):
+        return [(int(lo), int(count), 0)]
+    return [tuple(int(x) for x in seg) for seg in lo]
+
+
+def ring_reduce_peers(rows, store: torch.Tensor, lo, padded: int,
+                      handle: str = "sum", bidir: bool = True,
+                      kv_shards: Optional[int] = None) -> None:
     """The reduce of K4 across processes: ``rows`` holds the device
-    address of every rank's ``[padded]`` grads row (n of them, in rank
-    order; a peer's row mapped through :func:`ipc_open`), ``store`` this
-    process's store shards ``[count]``, element ``lo`` of the bucket
-    first.  The elements ``[lo, lo + count)`` are summed over the n rows
-    in the TPU ring's order and the handle updates ``store`` in place:
-    the bits of :func:`ring_push_pull` on the same n rows.  One launch of
-    ``pstt_ring_reduce_peers``; CUDA only."""
+    address of every ring rank's ``[padded]`` grads row (n of them, in
+    rank order; a peer's row mapped through :func:`ipc_open`), ``store``
+    this process's store values.  ``lo`` is the first element of the
+    bucket that ``store[0]`` holds (its values one contiguous range), or
+    a list of ``(first element, length, store offset)`` segments.  Those
+    elements are summed over the n rows in the TPU ring's order and the
+    handle updates ``store`` in place: the bits of :func:`ring_push_pull`
+    on the same n rows.  ``kv_shards=B`` runs the 2-D layout's dp
+    sub-rings (the rows are then the A dp rows, and the segments this
+    process's (kv shard, sub-chunk) pieces).  One launch of
+    ``pstt_ring_reduce_peers_segs``; CUDA only."""
     log.check(store.device.type == "cuda",
               "ring_reduce_peers runs on the card (a CPU group takes "
               "ring_push_pull_peers_reference)")
@@ -872,16 +904,31 @@ def ring_reduce_peers(rows, store: torch.Tensor, lo: int, padded: int,
               "store must be a contiguous [count] tensor")
     log.check(store.dtype in _DTYPE_CODES, f"unsupported dtype {store.dtype}")
     n = len(rows)
-    geo = ring_geometry(n, int(padded), store.dtype, bidir, False, None)
-    log.check(lo % geo.sub == 0 and store.numel() % geo.sub == 0,
-              "the store shards must be whole chunks of the ring")
-    code, lr = ring_handle(handle)
+    geo = ring_geometry(n, int(padded), store.dtype, bidir, False, kv_shards)
+    segs = _segments(lo, store.numel())
+    for start, count, off in segs:
+        log.check(0 <= start and start + count <= padded and 0 <= off
+                  and off + count <= store.numel(),
+                  "a segment falls outside the bucket or the store")
+        if not geo.kv:
+            log.check(start % geo.sub == 0 and count % geo.sub == 0,
+                      "the store shards must be whole chunks of the ring")
+    _launch_reduce_peers(rows, store, segs, geo, int(padded),
+                         *ring_handle(handle))
+    part = "reduce_peers_2d" if geo.kv else "reduce_peers"
+    launches[f"ring_{part}[{_dtype_name(store.dtype)}]"] += 1
+
+
+def _launch_reduce_peers(rows, store, segs, geo: RingGeometry, padded: int,
+                         code: int, lr: float) -> None:
+    """The launch of :func:`ring_reduce_peers` (its checks done)."""
     table = np.asarray(rows, dtype=np.int64)
-    _native.call("pstt_ring_reduce_peers", table.ctypes.data, n,
-                 store.data_ptr(), int(lo), store.numel(),
-                 _DTYPE_CODES[store.dtype], geo.sub, geo.split, geo.period,
-                 code, lr, _native.stream_ptr(store.device))
-    launches[f"ring_reduce_peers[{_dtype_name(store.dtype)}]"] += 1
+    seg_table = np.asarray(segs, dtype=np.int64).reshape(-1, 3)
+    _native.call("pstt_ring_reduce_peers_segs", table.ctypes.data,
+                 len(table), store.data_ptr(), seg_table.ctypes.data,
+                 len(seg_table), _DTYPE_CODES[store.dtype], geo.period,
+                 geo.sub, geo.split, int(geo.kv), padded, code, lr,
+                 _native.stream_ptr(store.device))
 
 
 def ring_gather_peers(segments, pulled: torch.Tensor) -> torch.Tensor:
@@ -904,28 +951,253 @@ def ring_gather_peers(segments, pulled: torch.Tensor) -> torch.Tensor:
     return pulled
 
 
-def ring_push_pull_peers_reference(grads, store, group, padded: int,
-                                   handle: str = "sum", bidir: bool = True,
-                                   with_ag: bool = True):
+# -- the int8 ring across processes ------------------------------------------
+
+class Int8PeerPlan(NamedTuple):
+    """The regions of an int8 launch across processes: ``table`` int64
+    ``[R, 5]`` rows (start, length, chunk, step, piece), longest first,
+    and per piece whether its regions, offsets and rows take float4."""
+
+    table: np.ndarray
+    vecs: Tuple[bool, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def int8_peer_regions(n: int, padded: int, kv_shards: Optional[int],
+                      bidir: bool, spans: tuple) -> Int8PeerPlan:
+    """The regions of the pieces ``spans`` ``((start, length, local,
+    rows aligned), ...)`` of an n-rank compressed ring over ``padded``
+    values: each piece must be whole regions of the ring (a rank's chunk,
+    or a (kv shard, dp sub-chunk))."""
+    geo = ring_geometry(n, padded, torch.float32, bidir, True, kv_shards)
+    regions = int8_regions(geo, padded)[0]
+    parts, vecs = [], []
+    for j, (start, length, local, rows_aligned) in enumerate(spans):
+        sel = regions[(regions[:, 0] >= start)
+                      & (regions[:, 0] + regions[:, 1] <= start + length)]
+        log.check(int(sel[:, 1].sum()) == length,
+                  f"piece [{start}, {start + length}) is not whole regions "
+                  f"of the compressed ring")
+        parts.append(np.column_stack(
+            [sel, np.full(len(sel), j, dtype=np.int64)]))
+        vecs.append(bool(rows_aligned and start % 4 == 0 and local % 4 == 0
+                         and (sel[:, 0] % 4 == 0).all()
+                         and (sel[:, 1] % 4 == 0).all()))
+    table = (np.concatenate(parts) if parts
+             else np.empty((0, 5), dtype=np.int64))
+    order = np.argsort(-table[:, 1], kind="stable")
+    return Int8PeerPlan(np.ascontiguousarray(table[order]), tuple(vecs))
+
+
+@functools.lru_cache(maxsize=64)
+def _peer_launch_shape(key: tuple, lengths: tuple, n: int,
+                       device_index: int) -> tuple:
+    """``(cluster, co-resident clusters per size, cost per size)`` of an
+    int8 launch across processes: the size with the least
+    :func:`int8_cost`-style makespan over the co-resident clusters the
+    card allows (``key``: :func:`int8_peer_regions`' arguments)."""
+    plan = int8_peer_regions(*key)
+    ns = np.full(len(plan.table), n, dtype=np.int64)
+    mode = 4 if all(plan.vecs) else (0 if any(plan.vecs) else 1)
+    costs, active = {}, {}
+    with torch.cuda.device(device_index):
+        for c in INT8_CLUSTERS:
+            p = _plan_rows(plan.table, lengths, c)
+            active[c] = _occupancy(c, p.smem_floats, mode, len(lengths),
+                                   peers=True)
+            costs[c] = _cost_rows(plan.table, ns, p, active[c])
+    fits = [c for c in INT8_CLUSTERS if costs[c] is not None]
+    if not fits:
+        raise RuntimeError(f"the card runs no cluster of {INT8_CLUSTERS} "
+                           f"CTAs for the int8 ring")
+    return min(fits, key=lambda c: costs[c]), active, costs
+
+
+def _peer_key(pieces, padded: int, kv_shards, bidir: bool):
+    """``(int8_peer_regions' arguments, piece lengths, n)`` of pieces."""
+    spans = tuple((int(start), int(length), int(local),
+                   all(int(a) % 16 == 0 for a in addrs))
+                  for addrs, start, length, local in pieces)
+    return ((len(pieces[0][0]), int(padded), kv_shards, bidir, spans),
+            tuple(sp[1] for sp in spans), len(pieces[0][0]))
+
+
+def int8_peer_launch_shape(pieces, padded: int,
+                           kv_shards: Optional[int] = None,
+                           bidir: bool = True, device="cuda") -> dict:
+    """The launch shape :func:`ring_int8_peers` picks for ``pieces`` on
+    the card of ``device``: the cluster size, its regions, the clusters
+    the card runs at once at each size, the waves and each size's
+    cost."""
+    key, lengths, n = _peer_key(pieces, padded, kv_shards, bidir)
+    cluster, active, costs = _peer_launch_shape(
+        key, lengths, n, _device_index(torch.device(device)))
+    regions = len(int8_peer_regions(*key).table)
+    return {"cluster": cluster, "regions": regions,
+            "max_active_clusters": active,
+            "waves": -(-regions // active[cluster]), "cost": costs}
+
+
+@functools.lru_cache(maxsize=256)
+def _device_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 device tensor of ``values`` (addresses, region rows),
+    copied there once."""
+    return torch.tensor(values, dtype=torch.int64).to(device)
+
+
+def ring_int8_peers(pieces, store: torch.Tensor,
+                    pulled: Optional[torch.Tensor], padded: int,
+                    handle: str = "sum", with_ag: bool = True,
+                    kv_shards: Optional[int] = None, bidir: bool = True,
+                    cluster: Optional[int] = None) -> int:
+    """The int8 wire-compressed K4 across processes: ``pieces`` lists
+    this process's store pieces as ``(row addresses, first element,
+    length, store offset)``, each piece's n rank rows (``[padded]`` f32;
+    the dp rows on 2-D) given by their device addresses here, and each
+    piece whole regions of the compressed ring (a rank's chunk, or a (kv
+    shard, dp sub-chunk)).  The regions of those pieces are walked as
+    :func:`ring_push_pull` with ``compress=True`` walks them on one
+    process, bit for bit: the handle updates ``store`` in place (the
+    1-D store at full precision; the 2-D store takes the dequantized
+    all-gather) and, on the 1-D ring with ``with_ag``, ``pulled`` (laid
+    out like ``store``) takes the dequantized values of the pieces.  One
+    launch of ``pstt_ring_int8_peers`` (cluster size as :func:`int8_cost`
+    picks it, or ``cluster``); CUDA only.  Returns the cluster size."""
+    log.check(store.device.type == "cuda",
+              "ring_int8_peers runs on the card (a CPU group takes "
+              "ring_push_pull_peers_reference)")
+    log.check(store.dtype == torch.float32 and store.dim() == 1
+              and store.is_contiguous(),
+              "int8 wire compression requires a contiguous float32 store")
+    log.check(pulled is None or (pulled.dtype == torch.float32
+                                 and pulled.numel() == store.numel()),
+              "pulled must be laid out like the store")
+    log.check(0 < len(pieces) <= INT8_MAX_GROUP,
+              f"1..{INT8_MAX_GROUP} pieces per launch")
+    ns = {len(p[0]) for p in pieces}
+    log.check(len(ns) == 1 and min(ns) >= 2,
+              "every piece sums the same n >= 2 rows")
+    n = ns.pop()
+    for _, start, length, local in pieces:
+        log.check(0 <= local and local + length <= store.numel(),
+                  "a piece falls outside the store")
+    code, lr = ring_handle(handle)
+    size = _launch_int8_peers(pieces, store, pulled, int(padded), n, code,
+                              lr, with_ag, kv_shards, bidir, cluster)
+    launches["ring_int8_peers_2d[float32]" if kv_shards is not None
+             else "ring_int8_peers[float32]"] += 1
+    return size
+
+
+def _launch_int8_peers(pieces, store, pulled, padded: int, n: int,
+                       code: int, lr: float, with_ag: bool,
+                       kv_shards: Optional[int], bidir: bool,
+                       cluster: Optional[int]) -> int:
+    """The launch of :func:`ring_int8_peers` (its checks done): the
+    pieces' region table, the row-address table of each piece, the bucket
+    table with each piece's pointers; returns the cluster size."""
+    kv = kv_shards is not None
+    key, lengths, _ = _peer_key(pieces, padded, kv_shards, bidir)
+    plan = int8_peer_regions(*key)
+    dev = store.device
+    size = cluster or _peer_launch_shape(key, lengths, n,
+                                         _device_index(dev))[0]
+    p = _plan_rows(plan.table, lengths, size)
+    scratch = _slots([store.narrow(0, 0, ln) for ln in lengths], p.spills,
+                     torch.float32, dev)
+    rows = _device_table(tuple(int(a) for addrs, *_ in pieces
+                               for a in addrs), dev)
+    regions = _device_table(tuple(plan.table.reshape(-1).tolist()), dev)
+    b = store.element_size()
+    desc = np.zeros((len(pieces), 9), dtype=np.int64)
+    for j, ((_, start, length, local), sc) in enumerate(zip(pieces,
+                                                            scratch)):
+        desc[j] = (rows.data_ptr() + j * n * 8, store.data_ptr() + local * b,
+                   pulled.data_ptr() + local * b if pulled is not None
+                   else 0, sc.data_ptr() if sc is not None else 0,
+                   padded, n, int(plan.vecs[j]), int(start), 0)
+    _native.call("pstt_ring_int8_peers", desc.ctypes.data, len(pieces),
+                 regions.data_ptr(), len(plan.table), size, p.smem_floats,
+                 code, lr, int(with_ag or kv), int(kv),
+                 _native.stream_ptr(dev))
+    return size
+
+
+def ring_peers_reference(pieces, store: torch.Tensor,
+                         pulled: Optional[torch.Tensor], padded: int,
+                         handle: str = "sum", with_ag: bool = True,
+                         compress: bool = False,
+                         kv_shards: Optional[int] = None,
+                         bidir: bool = True) -> None:
+    """Plain version of :func:`ring_reduce_peers` and
+    :func:`ring_int8_peers` on any device: ``pieces`` lists ``(rows,
+    first element, length, store offset)`` with ``rows`` an ``[n,
+    padded]`` tensor of the piece's rank rows.  The single-process plain
+    ring runs once per distinct rows tensor over a store holding those
+    pieces (a region's values depend on its own values only), and each
+    piece keeps its values: ``store`` in place, ``pulled`` (laid out like
+    ``store``, or None) the pulled values."""
+    groups: Dict[int, list] = {}
+    for piece in pieces:
+        groups.setdefault(id(piece[0]), []).append(piece)
+    for part in groups.values():
+        rows = part[0][0]
+        full = torch.zeros(int(padded), dtype=store.dtype,
+                           device=store.device)
+        for _, start, length, local in part:
+            full[start:start + length] = store[local:local + length]
+        out = _ring_reference(rows.contiguous(), full, handle, bidir, True,
+                              compress, kv_shards)
+        for _, start, length, local in part:
+            store[local:local + length] = full[start:start + length]
+            if pulled is not None and with_ag:
+                pulled[local:local + length] = out[start:start + length]
+
+
+def ring_push_pull_peers_reference(grads, store, layout, handle: str = "sum",
+                                   bidir: bool = True, with_ag: bool = True,
+                                   compress: bool = False,
+                                   kv_shards: Optional[int] = None):
     """Plain version of K4 across processes, for a CPU group: every
-    process's grads rows ``[L, padded]`` and store shards are gathered
-    through gloo in rank order, the single-process plain ring runs on
-    all n rows, and this process keeps its own shards (``store`` updated
-    in place).  Returns the pulled ``[padded]`` tensor (or ``store``
-    without ``with_ag``).  Every process of ``group`` calls it."""
+    process's grads rows (one per slot of ``layout``, a
+    ``placement.DenseLayout``) and store pieces are gathered through gloo,
+    the single-process plain ring (int8 with ``compress``, the dp
+    sub-rings with ``kv_shards``) runs on each ring this process holds a
+    piece of, and this process keeps its own pieces (``store`` updated in
+    place).  Returns the pulled ``[padded]`` tensor of this process's
+    replica (or ``store`` without ``with_ag``).  Every process of the
+    group calls it."""
     from ..parallel import distributed
 
     log.check(store.device.type == "cpu",
               "the rows of a CUDA group never travel through gloo")
-    rows = torch.cat([torch.as_tensor(r) for r in
-                      distributed.allgather_object(grads.contiguous())])
-    shards = torch.cat([torch.as_tensor(s) for s in
-                        distributed.allgather_object(store.clone())])
-    log.check_eq(tuple(rows.shape), (group.num_ranks, padded),
-                 "gathered rows")
-    log.check_eq(int(shards.numel()), padded, "gathered store")
-    chunk = padded // group.num_ranks
-    lo = group.local_ranks[0] * chunk
-    pulled = _ring_reference(rows, shards, handle, bidir, True)
-    store.copy_(shards[lo:lo + store.numel()])
+    group, me = layout.group, layout.group.process_index
+    got = distributed.allgather_object(
+        (list(layout.slots[me]), grads.contiguous(), store.clone()))
+    rows = {r: torch.as_tensor(t) for slots, g, _ in got
+            for r, t in zip(slots, g)}
+    stores = {p: torch.as_tensor(got[p][2]) for p in group.processes}
+    rings = {}
+    for pc in layout.pieces[me]:
+        key = layout.rows_of(pc)
+        if key not in rings:
+            rings[key] = torch.stack([rows[r] for r in key])
+    pulled = None
+    first = layout.rows_of(layout.pieces[me][0])
+    for key, grads_n in rings.items():
+        # The ring's whole store: the pieces of every rank on it.
+        full = torch.zeros(layout.padded, dtype=store.dtype)
+        for p, pcs in layout.pieces.items():
+            for pc in pcs:
+                if layout.rows_of(pc) == key:
+                    full[pc.start:pc.start + pc.length] = \
+                        stores[p][pc.local:pc.local + pc.length]
+        out = _ring_reference(grads_n, full, handle, bidir, True, compress,
+                              kv_shards)
+        for pc in layout.pieces[me]:
+            if layout.rows_of(pc) == key:
+                store[pc.local:pc.local + pc.length] = \
+                    full[pc.start:pc.start + pc.length]
+        if key == first:
+            pulled = out
     return pulled if with_ag else store

@@ -195,21 +195,29 @@ def allgather_object(obj) -> List[object]:
     return out
 
 
-def global_group(axis_name: str = "kv", local_ranks: Optional[int] = None,
-                 device=None) -> DeviceGroup:
-    """One 1-D :class:`DeviceGroup` over every process's ranks, in
-    process order (the counterpart of ``global_mesh``; call after
-    :func:`acquire` or :func:`init_distributed`).  A collective: every
+def global_group(axis_name="kv", local_ranks: Optional[int] = None,
+                 device=None, shape=None) -> DeviceGroup:
+    """One :class:`DeviceGroup` over every process's ranks, in process
+    order (the counterpart of ``global_mesh``; call after :func:`acquire`
+    or :func:`init_distributed`): 1-D along ``axis_name``, or with
+    ``shape`` an N-D grid whose axes ``axis_name`` names (ranks row-major,
+    so a process owns a block of rows of the grid).  A collective: every
     process calls it, each contributing ``local_ranks`` ranks or, by
     default, ``default_group()``'s, on ``device`` (default: the card,
     ``cuda:0``).  Every process's ranks must live on one card, whose
-    memory each maps into the others (``parallel/peers.py``)."""
+    memory each maps into the others (``parallel/peers.py``); ranks on
+    several cards raise."""
     if local_ranks is None or device is None:
-        base = default_group(axis_name)
+        base = default_group("kv")
         local_ranks = base.num_ranks if local_ranks is None else local_ranks
         device = base.device if device is None else device
     log.check(int(local_ranks) >= 1, "every process contributes >= 1 rank")
-    counts = [int(c) for c in allgather_object(int(local_ranks))]
-    owners = tuple(p for p, c in enumerate(counts) for _ in range(c))
-    return DeviceGroup(len(owners), device=device, axis_name=axis_name,
-                       owners=owners, process_index=process_index())
+    got = allgather_object((int(local_ranks), str(device)))
+    if len({dev for _, dev in got}) > 1:
+        raise NotImplementedError(
+            f"ranks on several cards ({sorted({d for _, d in got})}) are not "
+            f"yet ported to pslite_tpu_torch (ROADMAP Queue 1 item 9)")
+    owners = tuple(p for p, (c, _) in enumerate(got) for _ in range(c))
+    return DeviceGroup(len(owners) if shape is None else tuple(shape),
+                       device=device, axis_name=axis_name, owners=owners,
+                       process_index=process_index())

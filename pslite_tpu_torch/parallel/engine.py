@@ -74,25 +74,34 @@ cluster's workers, ``vans/ici_van.py``).
 
 A group spanning worker processes (``distributed.global_group``; the
 JAX engine on a ``PS_ICI_MULTIHOST=1`` mesh) holds in each process the
-store shards of that process's ranks, and takes that process's grads rows
-(``[local, total]``, or ``[total]`` broadcast to them).  Every process
-drives the same ops in the same order (SPMD lockstep, as JAX's
-multi-host contract).  On the card each bucket's rows and store shards
-live in a :class:`~pslite_tpu_torch.parallel.peers.PeerSlab` that every
-peer maps: ``sum``/``assign``/``sgd`` on the ring impl take K4 across
-processes (``ring_reduce_peers`` over every rank's row, each process its
-own chunks, then ``ring_gather_peers``), and the torch impl and the
-stateful handles run ``rank_order_sum`` over the peers' rows of each
-owned shard, the handle (K1/K2/K3) on that shard alone, and the same
-gather; each op syncs the stream and meets a host barrier after writing
-its rows, after the reduce and after the gather.  On a CPU group the rows
-travel through gloo (the plain versions).  ``pull`` gathers the owners'
-shards; ``store_array``, ``opt_state`` and recuts gather the whole
-value with ``peers.gather_global`` (device to device on the card,
-``placement.to_host_global`` on a CPU group).  A 2-D ``worker_axis``
-group and int8 wire compression across processes raise at construction
-(ROADMAP Queue 1 item 9); ranks on several cards are item 9's other
-half.
+store pieces of that process's ranks (``placement.DenseLayout``): on a
+1-D group the chunks of its ranks; on an N-D group or a composite kv
+axis without ``worker_axis``, each rank's kv shard of its replica (the
+other axes replicate the store, as ``P(kv)`` does); on a 2-D
+``worker_axis`` group (composite kv axes too) sub-chunk d of kv shard k
+at rank (d, k), as the dp sub-rings own them.  It takes that process's
+grads rows (``[local, total]``, or ``[total]`` broadcast to them), or on
+2-D the global ``[A, total]`` rows, the same on every process (JAX's
+contract there).  Every process drives the same ops in the same order
+(SPMD lockstep, as JAX's multi-host contract).  On the card each
+bucket's rows and store pieces live in a
+:class:`~pslite_tpu_torch.parallel.peers.PeerSlab` that every peer maps:
+``sum``/``assign``/``sgd`` on the ring impl take K4 across processes
+(``ring_reduce_peers`` over the rows of each piece's ring, 1-D or the dp
+sub-rings, each process its own pieces; with int8 wire compression
+``ring_int8_peers``, the cluster kernel over the regions of those
+pieces; then ``ring_gather_peers``), and the torch impl and the stateful
+handles run ``rank_order_sum`` over the peers' rows of each owned piece,
+the handle (K1/K2/K3) on those pieces alone, and the same gather; each
+op syncs the stream and meets a host barrier after writing its rows,
+after the reduce and after the gather.  A compressed 1-D store keeps full
+precision, so its owners also write the dequantized values of their
+pieces into their slab, and the pull gathers those.  On a CPU group the
+rows travel through gloo (the plain versions).  ``pull`` gathers the
+owners' pieces; ``store_array``, ``opt_state`` and recuts gather the
+whole value with ``peers.gather_global`` (device to device on the card,
+``placement.to_host_global`` on a CPU group).  Ranks on several cards
+raise in ``distributed.global_group`` (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -113,6 +122,7 @@ from ..utils import logging as log
 from . import distributed, placement
 from .mesh import DeviceGroup, default_group
 from .peers import PeerSlab, Retired, align, gather_global
+from .placement import DenseLayout
 from .zero_copy import Generation, ZeroCopyHandle, plain
 
 
@@ -275,6 +285,7 @@ class CollectiveEngine:
         # barriers' ms.
         self._mp = self.group.is_multiprocess
         self._slabs: Dict[str, PeerSlab] = {}
+        self._layouts: Dict[str, DenseLayout] = {}
         self._retired = Retired()
         self._closed = False
         self.peer_timing: Optional[dict] = None
@@ -310,22 +321,7 @@ class CollectiveEngine:
         """``(num_shards, num_workers)`` of this engine on ``group`` with
         kv axis ``axis`` (a name or a tuple of names): the shards are the
         product of the kv axes' sizes, the workers the worker axis's size
-        (the shards on the 1-D colocated layout).  A group spanning
-        processes takes the 1-D ring layout only, without int8 wire
-        compression (ROADMAP Queue 1 item 9 ports the rest)."""
-        if group.is_multiprocess:
-            why = None
-            if self.worker_axis is not None:
-                why = "a 2-D worker_axis group across processes"
-            elif isinstance(axis, tuple) or len(group.axis_names) != 1:
-                why = "a composite or N-D kv axis across processes"
-            elif self.wire_compress == "int8":
-                why = "int8 wire compression (PS_ICI_COMPRESS=int8) across " \
-                      "processes"
-            if why is not None:
-                raise NotImplementedError(
-                    f"{why} is not yet ported to pslite_tpu_torch (ROADMAP "
-                    f"Queue 1 item 9)")
+        (the shards on the 1-D colocated layout)."""
         kv_axes = axis if isinstance(axis, tuple) else (axis,)
         for a in kv_axes:
             log.check(a in group.axis_names,
@@ -353,21 +349,22 @@ class CollectiveEngine:
         padded = -(-total // self.num_shards) * self.num_shards
         bucket = DenseBucket(name=name, keys=keys, val_len=val_len, dtype=dt,
                              total_len=total, padded_len=padded)
-        slab = None
+        slab = layout = None
         if self._mp:
-            # A collective: this process's shards, in exchange memory on
+            # A collective: this process's pieces, in exchange memory on
             # the card.
-            lo, length = self._local_span(bucket, self.group)
+            layout = self._new_layout(dt, self.group, self.axis, padded)
+            me = self.group.process_index
             if self.device.type == "cuda":
-                slab = self._new_slab(bucket, self.group, padded)
-                store = self._slab_store(slab, bucket, self.group,
-                                         self.group.process_index, padded)
+                slab = self._new_slab(bucket, layout)
+                store = self._slab_store(slab, bucket, layout, me)
             else:
-                store = torch.zeros(length, dtype=dt, device=self.device)
+                store = torch.zeros(layout.local_len(me), dtype=dt,
+                                    device=self.device)
             if init is not None:
                 full = torch.zeros(padded, dtype=dt)
                 full[:total] = to_tensor(init, dt, "cpu").reshape(-1)
-                store.copy_(full[lo:lo + length])
+                store.copy_(layout.local_of(full, me))
         else:
             store = torch.zeros(padded, dtype=dt, device=self.device)
             if init is not None:
@@ -378,6 +375,8 @@ class CollectiveEngine:
             self._retired.retire(self._slabs.pop(name, None))
             if slab is not None:
                 self._slabs[name] = slab
+            if layout is not None:
+                self._layouts[name] = layout
             self._bucket_mu.setdefault(name, threading.Lock())
             # Re-registering replaces the store: its handles go stale.
             self._generations.setdefault(name, Generation(name)).advance()
@@ -388,62 +387,98 @@ class CollectiveEngine:
 
     # -- across processes -----------------------------------------------------
 
-    @staticmethod
-    def _local_span(bucket: DenseBucket, group: DeviceGroup,
-                    process: Optional[int] = None) -> tuple:
-        """``(first element, length)`` of the store shards ``process``
-        (this one by default) holds on a group spanning processes."""
-        ranks = group.ranks_of(group.process_index if process is None
-                               else process)
-        chunk = bucket.padded_len // group.num_ranks
-        return ranks[0] * chunk, len(ranks) * chunk
+    def _new_layout(self, dtype, group: DeviceGroup, axis,
+                    padded: int) -> DenseLayout:
+        """Where a bucket of ``padded`` values of ``dtype`` lives on
+        ``group`` (spanning processes) with kv axis ``axis``.  On 2-D the
+        pieces are the sub-chunks of the bucket's ring geometry (int8's
+        when the engine compresses the dtype), whichever path an op
+        takes."""
+        kv_axes = axis if isinstance(axis, tuple) else (axis,)
+        sub = None
+        if self.worker_axis is not None:
+            shards = int(np.prod([group.shape[a] for a in kv_axes]))
+            sub = ring_collective.ring_geometry(
+                int(group.shape[self.worker_axis]), padded, dtype, True,
+                self._ring_compress(dtype), shards).sub
+        return DenseLayout(group, kv_axes, self.worker_axis, padded, sub)
 
-    @staticmethod
-    def _slab_layout(bucket: DenseBucket, group: DeviceGroup, process: int,
-                     padded: int) -> tuple:
-        """``(row stride, store offset, bytes)`` of ``process``'s slab for
-        a bucket of ``padded`` values: one row per rank it owns, each
-        starting aligned, then its store shards."""
+    def _pulled_area(self, bucket: DenseBucket) -> bool:
+        """Whether the bucket's slabs hold a pulled area: the compressed
+        1-D ring pulls dequantized values while its store keeps full
+        precision."""
+        return self.worker_axis is None and self._ring_compress(bucket.dtype)
+
+    def _slab_layout(self, bucket: DenseBucket, layout: DenseLayout,
+                     process: int) -> tuple:
+        """``(row stride, store offset, pulled offset or None, bytes)`` of
+        ``process``'s slab: one ``[padded]`` row per slot it writes, each
+        starting aligned, then its store pieces back to back (then, for a
+        compressed 1-D bucket, as many dequantized values)."""
         b = bucket.dtype.itemsize
-        ranks = len(group.ranks_of(process))
-        stride = align(padded * b)
-        store_off = ranks * stride
-        shards = ranks * (padded // group.num_ranks) * b
-        return stride, store_off, store_off + shards
+        stride = align(layout.padded * b)
+        store_off = len(layout.slots[process]) * stride
+        shards = layout.local_len(process) * b
+        if not self._pulled_area(bucket):
+            return stride, store_off, None, store_off + shards
+        pulled_off = align(store_off + shards)
+        return stride, store_off, pulled_off, pulled_off + shards
 
-    def _new_slab(self, bucket: DenseBucket, group: DeviceGroup,
-                  padded: int) -> PeerSlab:
-        return PeerSlab(group, self._slab_layout(
-            bucket, group, group.process_index, padded)[2])
+    def _new_slab(self, bucket: DenseBucket, layout: DenseLayout) -> PeerSlab:
+        return PeerSlab(layout.group, self._slab_layout(
+            bucket, layout, layout.group.process_index)[3])
 
     def _slab_store(self, slab: PeerSlab, bucket: DenseBucket,
-                    group: DeviceGroup, process: int,
-                    padded: int) -> torch.Tensor:
-        """``process``'s store shards on its slab (zeros when fresh)."""
-        _, off, nbytes = self._slab_layout(bucket, group, process, padded)
-        b = bucket.dtype.itemsize
-        return slab.view(process, off, ((nbytes - off) // b,), bucket.dtype)
+                    layout: DenseLayout, process: int,
+                    pulled: bool = False) -> torch.Tensor:
+        """``process``'s store pieces on its slab (zeros when fresh), or
+        its pulled area."""
+        _, store_off, pulled_off, _ = self._slab_layout(bucket, layout,
+                                                        process)
+        return slab.view(process, pulled_off if pulled else store_off,
+                         (layout.local_len(process),), bucket.dtype)
 
-    def _row_addrs(self, name: str) -> List[int]:
-        """Every rank's grads row in this process's address space."""
-        bucket, slab, g = self._buckets[name], self._slabs[name], self.group
-        out = []
-        for r in range(g.num_ranks):
-            p = g.process_of(r)
-            stride = self._slab_layout(bucket, g, p, bucket.padded_len)[0]
-            out.append(slab.addr(p) + (r - g.ranks_of(p)[0]) * stride)
-        return out
+    def _row_addr(self, name: str, row: int) -> int:
+        """The address here of grads row ``row`` (a rank, or a dp index on
+        2-D) in its writer's slab."""
+        bucket, layout = self._buckets[name], self._layouts[name]
+        p, slot = layout.slot_at[row]
+        stride = self._slab_layout(bucket, layout, p)[0]
+        return self._slabs[name].addr(p) + slot * stride
 
-    def _store_segments(self, name: str) -> list:
-        """``(address, first element, length)`` of every process's store
-        shards: the all-gather's sources."""
-        bucket, slab, g = self._buckets[name], self._slabs[name], self.group
-        segs = []
-        for p in g.processes:
-            _, off, _ = self._slab_layout(bucket, g, p, bucket.padded_len)
-            lo, length = self._local_span(bucket, g, p)
-            segs.append((slab.addr(p) + off, lo, length))
-        return segs
+    def _store_segments(self, name: str, pulled: bool = False) -> list:
+        """``(address, first element, length)`` of the owners' pieces
+        that make the whole bucket (their pulled areas with ``pulled``):
+        the all-gather's sources, neighbours merged."""
+        bucket, layout = self._buckets[name], self._layouts[name]
+        slab, g, b = self._slabs[name], self.group, bucket.dtype.itemsize
+        segs: List[list] = []
+        for pc in layout.full(g.process_index):
+            p = g.process_of(pc.rank)
+            _, store_off, pulled_off, _ = self._slab_layout(bucket, layout, p)
+            addr = slab.addr(p) + (pulled_off if pulled else store_off) + \
+                pc.local * b
+            last = segs[-1] if segs else None
+            if last and last[0] + last[2] * b == addr and \
+                    last[1] + last[2] == pc.start:
+                last[2] += pc.length
+            else:
+                segs.append([addr, pc.start, pc.length])
+        return [tuple(seg) for seg in segs]
+
+    def _assemble(self, layout: DenseLayout, local: torch.Tensor
+                  ) -> torch.Tensor:
+        """The whole ``[padded]`` value of a tensor laid out like the
+        store pieces, from every process's (a collective through
+        ``peers.gather_global``)."""
+        joined = gather_global(local, self.group)
+        parts, off = {}, 0
+        for p in self.group.processes:
+            n = layout.local_len(p)
+            parts[p] = joined[off:off + n]
+            off += n
+        return layout.assemble(parts, self.group.process_index).to(
+            self.device)
 
     def _peer_sync(self, key: Optional[str] = None,
                    done: Optional[str] = None) -> None:
@@ -483,7 +518,7 @@ class CollectiveEngine:
         ``ring_gather_peers`` between host barriers."""
         bucket, store = self._buckets[name], self._stores[name]
         if self.device.type != "cuda":
-            return gather_global(store, self.group)
+            return self._assemble(self._layouts[name], store)
         self._peer_sync()
         pulled = torch.empty(bucket.padded_len, dtype=bucket.dtype,
                              device=self.device)
@@ -491,12 +526,27 @@ class CollectiveEngine:
         self._peer_sync()
         return pulled
 
+    def _owned_sum(self, layout: DenseLayout, dtype: torch.dtype,
+                   row) -> torch.Tensor:
+        """``rank_order_sum`` over each of this process's pieces' rows,
+        as one tensor laid out like the store; ``row(id, start, length)``
+        is a row's values there."""
+        me = self.group.process_index
+        sums = [(seg, rank_order_sum([row(r, seg[0], seg[1])
+                                      for r in rows]))
+                for rows, segs in layout.runs(me) for seg in segs]
+        n = layout.local_len(me)
+        if len(sums) == 1 and sums[0][0][2] == 0 and sums[0][0][1] == n:
+            return sums[0][1]
+        agg = torch.zeros(n, dtype=dtype, device=self.device)
+        for (_, length, local), part in sums:
+            agg[local:local + length] = part
+        return agg
+
     def _apply_owned(self, name: str, bucket: DenseBucket, resolved,
-                     rows) -> None:
-        """The torch path on this process's shards: ``rows`` holds every
-        rank's values of them (n tensors), summed in rank order; then the
-        handle, the fused optimizer kernels for a stateful one."""
-        agg = rank_order_sum(rows)
+                     agg: torch.Tensor) -> None:
+        """The handle on this process's pieces, given the reduction of
+        their rows: the fused optimizer kernels for a stateful one."""
         if self._is_stateful(resolved):
             self._stateful_fn(name, bucket, resolved)(agg)
         else:
@@ -507,47 +557,71 @@ class CollectiveEngine:
         """One op of a group spanning processes (bucket lock held); the
         pulled ``[padded]`` tensor or None."""
         store, padded = self._stores[name], bucket.padded_len
-        lo, length = self._local_span(bucket, self.group)
+        layout, me = self._layouts[name], self.group.process_index
         use_ring = (not self._is_stateful(resolved)
                     and self._effective_impl(bucket.dtype, resolved)
                     == "ring")
+        compress = use_ring and self._ring_compress(bucket.dtype)
+        kv = self._kv_shards()
+        if self.worker_axis is not None:
+            # The global dp rows: this process writes its slots' rows.
+            g = g[layout.slots[me]]
         if self.device.type != "cuda":
             # The plain versions: the rows travel through gloo.
             if use_ring:
                 out = ring_collective.ring_push_pull_peers_reference(
-                    g, store, self.group, padded, resolved,
-                    with_ag=with_pull)
+                    g, store, layout, resolved, compress=compress,
+                    kv_shards=kv, with_ag=with_pull)
                 return out if with_pull else None
-            rows = torch.cat([torch.as_tensor(r) for r in
-                              distributed.allgather_object(g)])
-            self._apply_owned(name, bucket, resolved,
-                              rows[:, lo:lo + length])
+            got = distributed.allgather_object(
+                (list(layout.slots[me]), g.contiguous()))
+            rows = {r: torch.as_tensor(t) for slots, rs in got
+                    for r, t in zip(slots, rs)}
+            self._apply_owned(name, bucket, resolved, self._owned_sum(
+                layout, bucket.dtype, lambda r, lo, n: rows[r][lo:lo + n]))
             if not with_pull:
                 return None
-            return gather_global(store, self.group)
+            return self._assemble(layout, store)
         slab = self._slabs[name]
-        stride = self._slab_layout(bucket, self.group,
-                                   self.group.process_index, padded)[0]
+        stride, _, pulled_off, _ = self._slab_layout(bucket, layout, me)
         b = bucket.dtype.itemsize
-        rows_here = slab.view(slab.me, 0, (g.shape[0], stride // b),
-                              bucket.dtype)
-        rows_here[:, :padded].copy_(g)
+        if g.shape[0]:
+            rows_here = slab.view(slab.me, 0, (g.shape[0], stride // b),
+                                  bucket.dtype)
+            rows_here[:, :padded].copy_(g)
         self._peer_sync("barrier_in_ms")
-        if use_ring:
-            self._timed("reduce", lambda: ring_collective.ring_reduce_peers(
-                self._row_addrs(name), store, lo, padded, resolved))
+        if compress:
+            # Neighbouring pieces of one ring are one bucket of the launch
+            # (on 1-D, every chunk of this process).
+            pieces = [([self._row_addr(name, r) for r in rows], *seg)
+                      for rows, segs in layout.runs(me) for seg in segs]
+            out = (self._slab_store(slab, bucket, layout, me, pulled=True)
+                   if pulled_off is not None else None)
+            self._timed("reduce", lambda: ring_collective.ring_int8_peers(
+                pieces, store, out, padded, resolved, with_ag=with_pull,
+                kv_shards=kv))
+        elif use_ring:
+            def reduce():
+                for rows, segs in layout.runs(me):
+                    ring_collective.ring_reduce_peers(
+                        [self._row_addr(name, r) for r in rows], store,
+                        segs, padded, resolved, kv_shards=kv)
+            self._timed("reduce", reduce)
         else:
-            views = [ring_collective.device_view(a + lo * b, (length,),
-                                                 bucket.dtype, self.device)
-                     for a in self._row_addrs(name)]
+            def view(r, lo, n):
+                return ring_collective.device_view(
+                    self._row_addr(name, r) + lo * b, (n,), bucket.dtype,
+                    self.device)
             self._timed("reduce", lambda: self._apply_owned(
-                name, bucket, resolved, views))
+                name, bucket, resolved, self._owned_sum(layout, bucket.dtype,
+                                                      view)))
         self._peer_sync("barrier_mid_ms", done="reduce")
         if not with_pull:
             return None
         pulled = torch.empty(padded, dtype=bucket.dtype, device=self.device)
         self._timed("gather", lambda: ring_collective.ring_gather_peers(
-            self._store_segments(name), pulled))
+            self._store_segments(name, pulled=pulled_off is not None
+                                 and compress), pulled))
         self._peer_sync("barrier_out_ms", done="gather")
         return pulled
 
@@ -742,8 +816,8 @@ class CollectiveEngine:
         """(values, shards) this process holds of a bucket's state."""
         if not self._mp:
             return bucket.padded_len, self.num_shards
-        return (self._local_span(bucket, self.group)[1],
-                len(self.group.local_ranks))
+        return (self._layouts[bucket.name].local_len(
+            self.group.process_index), len(self.group.local_ranks))
 
     def opt_state(self, name: str):
         """(kind, copies of the state tensors), or None when the bucket
@@ -753,12 +827,23 @@ class CollectiveEngine:
             if name not in self._opt_states:
                 return None
             if self._mp:
-                return self._opt_kinds[name], tuple(
-                    gather_global(s, self.group)
-                    for s in self._opt_states[name])
+                return self._opt_kinds[name], self._gather_state(name)
             return self._opt_kinds[name], tuple(
                 s.clone() for s in self._opt_states[name]
             )
+
+    def _gather_state(self, name: str) -> tuple:
+        """The whole optimizer state of a bucket across processes (a
+        collective): each vector assembled from every process's pieces,
+        adam's step counter (the same on every rank) as ``num_shards``
+        entries."""
+        layout, state = self._layouts[name], self._opt_states[name]
+        out = tuple(self._assemble(layout, t) for t in
+                    (state[:2] if self._opt_kinds[name] == "adam"
+                     else state[:1]))
+        if self._opt_kinds[name] == "adam":
+            out += (state[2][:1].expand(self.num_shards).clone(),)
+        return out
 
     def set_opt_state(self, name: str, kind: str, values) -> None:
         """Restore optimizer state.  Vector states may arrive de-padded
@@ -790,8 +875,7 @@ class CollectiveEngine:
                 t = torch.nn.functional.pad(
                     t, (0, bucket.padded_len - bucket.total_len))
             if self._mp:
-                lo, length = self._local_span(bucket, self.group)
-                t = t[lo:lo + length]
+                t = self._layouts[name].local_of(t, self.group.process_index)
             placed.append(t.clone())
         with self._bucket_mu[name]:
             self._opt_states[name] = tuple(placed)
@@ -803,10 +887,11 @@ class CollectiveEngine:
         """Coerce grads to a contiguous ``[W, padded]`` tensor of the
         bucket dtype on the group's device (no copy when it already is
         one, or a flat ``[W*padded]`` view of one).  Across processes W is
-        this process's ranks: its own rows."""
+        this process's ranks: its own rows; on 2-D it stays the dp size
+        (the global rows, the same on every process)."""
         W, padded, total = self.num_workers, bucket.padded_len, bucket.total_len
         msg = "bad worker dim"
-        if self._mp:
+        if self._mp and self.worker_axis is None:
             W = len(self.group.local_ranks)
             msg = ("bad local worker dim (rows = this process's devices on "
                    "a multi-process mesh)")
@@ -1240,7 +1325,8 @@ class CollectiveEngine:
         processes a collective through ``peers.gather_global``."""
         with self._bucket_mu[name]:
             if self._mp:
-                return gather_global(self._stores[name], self.group)
+                return self._assemble(self._layouts[name],
+                                      self._stores[name])
             return self._stores[name].clone()
 
     def set_store_array(self, name: str, value) -> None:
@@ -1257,10 +1343,10 @@ class CollectiveEngine:
         with self._bucket_mu[name]:
             self._generations[name].advance()
             if self._mp:
-                # This process's shards, in place (on the card, the store
+                # This process's pieces, in place (on the card, the store
                 # lives in the bucket's exchange memory).
-                lo, length = self._local_span(bucket, self.group)
-                self._stores[name].copy_(store[lo:lo + length])
+                self._stores[name].copy_(self._layouts[name].local_of(
+                    store, self.group.process_index))
                 return
             self._stores[name] = store
 
@@ -1324,7 +1410,7 @@ class CollectiveEngine:
                 b = self._buckets[n]
                 padded = -(-b.total_len // new_shards) * new_shards
                 if old_mp or new_mp:
-                    staged[n] = self._stage_mp(n, b, group, padded,
+                    staged[n] = self._stage_mp(n, b, group, axis, padded,
                                                new_shards, new_slabs)
                     continue
 
@@ -1363,6 +1449,10 @@ class CollectiveEngine:
                         self._pinned_pulls[n] = entry["pinned"]
                     if "opt" in entry:
                         self._opt_states[n] = entry["opt"]
+                    if "layout" in entry:
+                        self._layouts[n] = entry["layout"]
+                    else:
+                        self._layouts.pop(n, None)
                 if old_mp or new_mp:
                     for slab in self._slabs.values():
                         self._retired.retire(slab)
@@ -1376,7 +1466,7 @@ class CollectiveEngine:
             for n in reversed(ordered):
                 self._bucket_mu[n].release()
 
-    def _stage_mp(self, n: str, b: DenseBucket, group: DeviceGroup,
+    def _stage_mp(self, n: str, b: DenseBucket, group: DeviceGroup, axis,
                   padded: int, new_shards: int, new_slabs: dict) -> dict:
         """One bucket's staged state on ``group`` when the old or the new
         group spans processes (bucket locks held)."""
@@ -1386,27 +1476,38 @@ class CollectiveEngine:
         else:
             full = self._stores[n][: b.total_len]
         entry = {"padded": padded}
-        if group.is_multiprocess and dev.type == "cuda":
-            # Placed, then copied into this process's new exchange slab.
-            slab = PeerSlab(group, self._slab_layout(
-                b, group, group.process_index, padded)[2])
-            new_slabs[n] = slab
-            store = self._slab_store(slab, b, group, group.process_index,
-                                     padded)
-            store.copy_(placement.place_host_array(group, full, padded))
+        layout = None
+        if group.is_multiprocess:
+            # Each process keeps the pieces of its ranks in the new
+            # layout; on the card they are copied into a new slab.
+            layout = entry["layout"] = self._new_layout(b.dtype, group, axis,
+                                                        padded)
+            me = group.process_index
+
+            def place(t):
+                whole = torch.zeros(padded, dtype=t.dtype, device=t.device)
+                whole[:t.numel()] = t
+                return placement.place(layout.local_of(whole, me), dev)
         else:
-            store = placement.place_host_array(group, full, padded)
+            def place(t):
+                return placement.place_host_array(group, t, padded)
+        store = place(full)
+        if layout is not None and dev.type == "cuda":
+            slab = PeerSlab(group, self._slab_layout(b, layout, me)[3])
+            new_slabs[n] = slab
+            staged, store = store, self._slab_store(slab, b, layout, me)
+            store.copy_(staged)
         entry["store"] = store
         if n in self._pinned_pulls:
             buf = placement.place(full[:0], dev, padded)
             gen = Generation(n)
             entry["pinned"] = (buf, gen, ZeroCopyHandle.wrap(buf, gen))
         if n in self._opt_states:
-            state = [gather_global(t, self.group) if self._mp else t
-                     for t in self._opt_states[n]]
-            vecs = tuple(placement.place_host_array(
-                group, t[: b.total_len], padded) for t in
-                (state[:2] if self._opt_kinds[n] == "adam" else state[:1]))
+            state = (self._gather_state(n) if self._mp
+                     else self._opt_states[n])
+            vecs = tuple(place(t[: b.total_len]) for t in
+                         (state[:2] if self._opt_kinds[n] == "adam"
+                          else state[:1]))
             if self._opt_kinds[n] == "adam":
                 shards = (len(group.local_ranks) if group.is_multiprocess
                           else new_shards)

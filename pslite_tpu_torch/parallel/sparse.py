@@ -28,15 +28,20 @@ where the JAX programs donate them; every result handed out (``pull``,
 ``reshard``/``reshard_staged`` recut the live tables (and accumulators)
 for another group's shard count.
 
-A 1-D group spanning worker processes (``distributed.global_group``; the
+A group spanning worker processes (``distributed.global_group``; the
 JAX engine on a ``PS_ICI_MULTIHOST=1`` mesh) holds in each process the
-rows of its own shards, ``[L*rps, dim]`` for its L ranks, and takes that
-process's input rows (``[L, n]`` indices, ``[L, n, d]`` grads).  A push
-gathers every process's (indices, grads) in global rank order and each
-process runs S1/S2 over the rows it owns (the other processes' rows
-masked out of range), so duplicates add in the single-process order; a
-pull gathers the indices, runs S3 on the owned rows and sends each
-process its rows back.  On the card the inputs travel through a
+rows of its own ranks' shards, ``[L*rps, dim]`` for its L ranks, and
+takes that process's input rows (``[L, n]`` indices, ``[L, n, d]``
+grads), one per rank.  On an N-D group the table shards over the kv axis
+and is replicated over the others, as JAX's ``P(axis, None)`` specs
+place it (``placement.shard_replicas``): rank r holds shard s(r) of its
+replica g(r), and the S ranks of a replica push to and pull from that
+replica's table, in shard order.  A push gathers every process's
+(indices, grads) in global rank order and each process runs S1/S2 over
+the rows it owns (the rows of other processes and other replicas masked
+out of range), so duplicates add in the single-process order; a pull
+gathers the indices, runs S3 on the owned rows and sends each process
+its rows back.  On the card the inputs travel through a
 :class:`~pslite_tpu_torch.parallel.peers.PeerSlab` every peer maps, with
 a host barrier after the writes and after the reads; on a CPU group
 through gloo.  ``store_array``/``acc_array`` and recuts gather the
@@ -180,7 +185,6 @@ class SparseEngine:
         self.axis = axis_name
         self.device = self.group.device
         self.num_shards = int(self.group.shape[axis_name])
-        self._check_group(self.group)
         self._mp = self.group.is_multiprocess
         # Across processes on the card: the inputs' exchange memory.
         self._xslab: Optional[PeerSlab] = None
@@ -201,21 +205,44 @@ class SparseEngine:
         # table's ops must not interleave.
         self._table_mu: Dict[str, threading.Lock] = {}
 
-    @staticmethod
-    def _check_group(group: DeviceGroup) -> None:
-        if group.is_multiprocess and len(group.axis_names) != 1:
-            raise NotImplementedError(
-                "an N-D group across processes is not yet ported to "
-                "pslite_tpu_torch (ROADMAP Queue 1 item 9)")
-
-    def _local_rows(self, table: SparseTable, group=None) -> tuple:
-        """``(first flat row, rows)`` of the shards this process holds."""
-        group = group or self.group
+    def _local_shards(self, group=None, axis=None) -> list:
+        """The shard each of this process's ranks holds on ``group``'s
+        ``axis`` (this engine's by default), in rank order (on a
+        single-process group every shard once)."""
+        group, axis = group or self.group, axis or self.axis
         if not group.is_multiprocess:
-            return 0, table.rows_per_shard * int(group.shape[self.axis])
-        ranks = group.local_ranks
-        return ranks[0] * table.rows_per_shard, len(ranks) * \
-            table.rows_per_shard
+            return list(range(int(group.shape[axis])))
+        shard, _ = placement.shard_replicas(group, (axis,))
+        return [int(shard[r]) for r in group.local_ranks]
+
+    def _local_of(self, table: SparseTable, inter: torch.Tensor,
+                  group=None, axis=None) -> torch.Tensor:
+        """This process's rows of a whole table-layout value ``[rps*S,
+        ...]``: its ranks' shards back to back (the value itself, or a
+        contiguous slice of it, on a 1-D group)."""
+        rps = table.rows_per_shard
+        shards = self._local_shards(group, axis)
+        if shards == list(range(shards[0], shards[0] + len(shards))):
+            return inter[shards[0] * rps:(shards[-1] + 1) * rps]
+        return torch.cat([inter[s * rps:(s + 1) * rps] for s in shards])
+
+    def _replicas(self):
+        """``(replica of each rank, local position of each (replica,
+        shard) or -1, owner process of each (replica, shard))``, the two
+        tables ``[G, S]`` int64 on the device."""
+        g = self.group
+        shard, replica = placement.shard_replicas(g, (self.axis,))
+        G, S = int(replica.max()) + 1, self.num_shards
+        pos = np.full((G, S), -1, dtype=np.int64)
+        owner = np.zeros((G, S), dtype=np.int64)
+        for r in range(g.num_ranks):
+            owner[replica[r], shard[r]] = g.process_of(r)
+        for j, r in enumerate(g.local_ranks):
+            pos[replica[r], shard[r]] = j
+        dev = self.device
+        return (torch.as_tensor(replica, device=dev),
+                torch.as_tensor(pos, device=dev),
+                torch.as_tensor(owner, device=dev))
 
     # -- across processes -----------------------------------------------------
 
@@ -268,18 +295,19 @@ class SparseEngine:
             self._retired.barrier()
 
     def _owned_indices(self, table: SparseTable, idx: torch.Tensor):
-        """Global rows -> this process's local table of L shards: an
-        owned row r is ``(r // S) * L + (r % S - first rank)``, which the
-        row kernels place at its flat row here; others become -1 (out of
-        range: dropped by a push, zeros in a pull)."""
-        S, ranks = self.num_shards, self.group.local_ranks
+        """Every rank's global rows ``[R, n]`` -> this process's local
+        table of L shards: row r of rank q is owned here when the rank of
+        q's replica holding shard ``r % S`` is this process's j-th rank,
+        and is then ``(r // S) * L + j``, which the row kernels place at
+        its flat row here; others become -1 (out of range: dropped by a
+        push, zeros in a pull)."""
+        S, L = self.num_shards, len(self.group.local_ranks)
+        replica, pos, _ = self._replicas()
         i = idx.to(torch.int64)
         local = torch.div(i, S, rounding_mode="floor")
-        shard = torch.remainder(i, S)
-        owned = ((i >= 0) & (local < table.rows_per_shard)
-                 & (shard >= ranks[0]) & (shard < ranks[-1] + 1))
-        return torch.where(owned, local * len(ranks) + shard - ranks[0],
-                           -1).to(torch.int32)
+        j = pos[replica[:, None].expand_as(i), torch.remainder(i, S)]
+        owned = (i >= 0) & (local < table.rows_per_shard) & (j >= 0)
+        return torch.where(owned, local * L + j, -1).to(torch.int32)
 
     def _mp_push(self, name: str, table: SparseTable, idx, g,
                  handle: Optional[str]) -> None:
@@ -299,14 +327,15 @@ class SparseEngine:
             len(self.group.local_ranks), table.rows_per_shard)
         ranks = self.group.local_ranks
         mine = slice(ranks[0], ranks[-1] + 1)
-        # The owner process of each of this process's indices.
+        # The owner process of each of this process's indices: the one of
+        # the rank of its replica holding the index's shard.
         S = self.num_shards
-        owners = torch.tensor([self.group.process_of(r) for r in range(S)],
-                              dtype=torch.int64, device=self.device)
+        replica, _, owners = self._replicas()
         i = idx.to(torch.int64)
         inr = (i >= 0) & (torch.div(i, S, rounding_mode="floor")
                           < table.rows_per_shard)
-        owner = torch.where(inr, owners[torch.remainder(i, S)], -1)
+        owner = torch.where(inr, owners[replica[mine, None].expand_as(i),
+                                        torch.remainder(i, S)], -1)
         out = torch.zeros(tuple(idx.shape) + (table.dim,), dtype=table.dtype,
                           device=self.device)
         for proc, (part,) in zip(self.group.processes,
@@ -338,13 +367,13 @@ class SparseEngine:
         rps = _rows_per_shard(num_rows, self.num_shards, pack)
         table = SparseTable(name, num_rows, dim, rps, dt, pack=pack)
         S = self.num_shards
-        lo, rows = self._local_rows(table)
         if init is not None:
-            store = _interleave_device(
+            store = self._local_of(table, _interleave_device(
                 to_tensor(init, dt, self.device).reshape(num_rows, dim),
-                num_rows, rps, S)[lo:lo + rows].clone()
+                num_rows, rps, S)).clone()
         else:
-            store = torch.zeros((rows, dim), dtype=dt, device=self.device)
+            store = torch.zeros((len(self._local_shards()) * rps, dim),
+                                dtype=dt, device=self.device)
         with self._mu:
             self._tables[name] = table
             self._stores[name] = store
@@ -394,8 +423,8 @@ class SparseEngine:
     def _ensure_acc(self, name: str, table: SparseTable) -> None:
         if name not in self._acc:
             self._acc[name] = torch.zeros(
-                self._local_rows(table)[1], dtype=torch.float32,
-                device=self.device)
+                len(self._local_shards()) * table.rows_per_shard,
+                dtype=torch.float32, device=self.device)
 
     @staticmethod
     def _parse_handle(handle: str) -> tuple:
@@ -531,10 +560,19 @@ class SparseEngine:
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         """The whole table-layout value of a local one: itself (a copy),
-        or across processes the collective ``peers.gather_global``."""
-        if self._mp:
-            return gather_global(t, self.group)
-        return t.clone()
+        or across processes the collective ``peers.gather_global`` (every
+        rank's shard, in rank order), read as this process's replica."""
+        if not self._mp:
+            return t.clone()
+        joined = gather_global(t, self.group)
+        per = t.shape[0] // len(self.group.local_ranks)
+        shard, replica = placement.shard_replicas(self.group, (self.axis,))
+        mine = replica[self.group.local_ranks[0]]
+        ranks = [int(np.flatnonzero((shard == s) & (replica == mine))[0])
+                 for s in range(self.num_shards)]
+        if ranks == list(range(self.num_shards)):
+            return joined
+        return torch.cat([joined[r * per:(r + 1) * per] for r in ranks])
 
     def store_array(self, name: str) -> torch.Tensor:
         """A copy of the table in the shard-interleaved layout
@@ -579,14 +617,13 @@ class SparseEngine:
         t = self._tables[name]
         S, rps = self.num_shards, t.rows_per_shard
         v = to_tensor(value, dtype, self.device)
-        lo, rows = self._local_rows(t)
         if global_rows:
             log.check_eq(tuple(v.shape), (t.num_rows,) + inner,
                          "bad global-rows restore shape")
-            return _interleave_device(v, t.num_rows, rps, S)[
-                lo:lo + rows].clone()
+            return self._local_of(t, _interleave_device(
+                v, t.num_rows, rps, S)).clone()
         log.check_eq(tuple(v.shape), (rps * S,) + inner, "bad restore shape")
-        return v[lo:lo + rows].clone().contiguous()
+        return self._local_of(t, v).clone().contiguous()
 
     def set_store_array(self, name: str, value,
                         global_rows: bool = False) -> None:
@@ -637,7 +674,6 @@ class SparseEngine:
         axis = axis_name or self.axis
         log.check(axis in group.axis_names,
                   f"axis {axis!r} not in the new device group")
-        self._check_group(group)
         new_shards = int(group.shape[axis])
         dev = group.device
         new_mp = group.is_multiprocess
@@ -665,7 +701,9 @@ class SparseEngine:
                         dev, rps * new_shards), rps, new_shards)
                     if not new_mp:
                         return new
-                    return placement.place_host_array(group, new)
+                    return placement.place(self._local_of(
+                        SparseTable(n, t.num_rows, t.dim, rps, t.dtype),
+                        new, group, axis), dev)
 
                 staged[n] = (
                     SparseTable(n, t.num_rows, t.dim, rps, t.dtype,

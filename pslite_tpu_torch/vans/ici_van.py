@@ -136,7 +136,6 @@ class _IciDataPlane:
         self.engine._layout(group, self.engine.axis)  # checks both axes
         log.check(self.sparse_engine.axis in group.axis_names,
                   f"axis {self.sparse_engine.axis!r} not in the new group")
-        self.sparse_engine._check_group(group)
         tmo = float(os.environ.get("PS_RESHARD_TMO_S", "900")) or None
         self.po.barrier(customer_id, WORKER_GROUP, timeout_s=tmo)
         staged = done = False

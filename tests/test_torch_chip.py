@@ -1251,6 +1251,144 @@ def test_gather_peers_equals_torch_cat(dev, lens, dtype):
     assert torch.equal(pulled, torch.cat(shards))
 
 
+def _kv_pieces(A: int, B: int, padded: int, dtype):
+    """The (kv shard, dp sub-chunk) pieces of a 2-D bucket, rank (d, k) =
+    d * B + k, split over two stand-in processes: per process its
+    ``(start, length, offset)`` segments, back to back in its store."""
+    geo = ring.ring_geometry(A, padded, dtype, True, False, B)
+    procs = [[], []]
+    for r in range(A * B):
+        d, k = divmod(r, B)
+        lo = min(d * geo.sub, geo.period)
+        procs[r * 2 // (A * B)].append((k * geo.period + lo,
+                                        min(geo.sub, geo.period - lo)))
+    out = []
+    for pieces in procs:
+        segs, off = [], 0
+        for start, n in pieces:
+            segs.append((start, n, off))
+            off += n
+        out.append(segs)
+    return out
+
+
+# The 40 x 1 MB bucket on (dp 4, kv 2), 3 x 700 values (sub-chunks that
+# are not tile-aligned: a shard that is not a whole sub-chunk, short and
+# empty last pieces) and an odd length on (dp 2, kv 4) (the scalar path).
+@pytest.mark.parametrize("A,B,padded", [(4, 2, 10_240_000), (4, 2, 2100),
+                                        (2, 4, 4 * 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("handle", ["sum", "sgd:0.05"])
+def test_dp_sub_ring_peers_match_the_single_process_ring(dev, A, B, padded,
+                                                         dtype, handle):
+    """``ring_reduce_peers`` with ``kv_shards`` over A dp rows, each
+    stand-in process reducing only its (kv shard, dp sub-chunk) pieces,
+    then ``ring_gather_peers``: every piece and the pull equal the 2-D
+    ``pstt_ring_push_pull`` on the same rows with 0 differing elements,
+    and the plain version too (``sgd`` within rtol/atol 1e-6: the kernels
+    contract its multiply-add into an FMA)."""
+    grads = _randn((A, padded), 31, dev).to(dtype)
+    store = _randn((padded,), 32, dev).to(dtype)
+    addrs = [grads.data_ptr() + a * padded * grads.element_size()
+             for a in range(A)]
+    procs = _kv_pieces(A, B, padded, dtype)
+    stores = [torch.cat([store[a:a + n] for a, n, _ in segs])
+              for segs in procs]
+    plain = [s.clone() for s in stores]
+    for segs, st, pl in zip(procs, stores, plain):
+        ring.ring_reduce_peers(addrs, st, segs, padded, handle, kv_shards=B)
+        ring.ring_peers_reference([(grads, a, n, o) for a, n, o in segs],
+                                  pl, None, padded, handle, kv_shards=B)
+    pulled = torch.empty_like(store)
+    ring.ring_gather_peers([(st.data_ptr() + o * st.element_size(), a, n)
+                            for segs, st in zip(procs, stores)
+                            for a, n, o in segs if n], pulled)
+    want = ring.ring_push_pull(grads, store, handle, kv_shards=B)
+    torch.cuda.synchronize()
+    assert torch.equal(pulled, want)
+    for st, pl in zip(stores, plain):
+        if handle == "sum":
+            assert torch.equal(st, pl)
+        else:
+            torch.testing.assert_close(st, pl, rtol=1e-6, atol=1e-6)
+
+
+# 1-D: the bucket on 8 ranks, and chunks of 1001 values (odd regions: the
+# scalar walk); 2-D: (dp 4, kv 2) at the bucket and at 3 x 700 values.
+@pytest.mark.parametrize("n,B,padded", [(8, None, 10_240_000),
+                                        (8, None, 8 * 1001),
+                                        (4, 2, 10_240_000), (4, 2, 2100)])
+@pytest.mark.parametrize("handle", ["sum", "sgd:0.05"])
+@pytest.mark.parametrize("with_ag", [True, False])
+def test_int8_peers_match_the_single_process_int8_ring(dev, n, B, padded,
+                                                       handle, with_ag):
+    """``ring_int8_peers`` over each stand-in process's pieces (a rank's
+    chunk, or a (kv shard, dp sub-chunk)) equals ``ring_push_pull(...,
+    compress=True)`` on the same rows bit for bit: the per-hop absmax
+    scales and the quantizer's exact division near ties included; the
+    1-D store keeps full precision and the pulled area takes the
+    dequantized chunks, the 2-D store the dequantized values.  Then at
+    1 and 16 CTAs a cluster, ``sum`` against the plain version (``sgd``'s
+    FMA is the kernels' own, which the single-process launch shares)."""
+    grads = _randn((n, padded), 33, dev)
+    store = _randn((padded,), 34, dev)
+    addrs = [grads.data_ptr() + r * padded * 4 for r in range(n)]
+    if B is None:
+        chunk = padded // n
+        procs = [[(r * chunk, chunk, (r - 4 * p) * chunk)
+                  for r in range(4 * p, 4 * p + 4)] for p in (0, 1)]
+    else:
+        geo = ring.ring_geometry(n, padded, torch.float32, True, True, B)
+        procs = [[], []]
+        for r in range(n * B):
+            d, k = divmod(r, B)
+            lo = min(d * geo.sub, geo.period)
+            procs[r * 2 // (n * B)].append(
+                [k * geo.period + lo, min(geo.sub, geo.period - lo)])
+        for segs in procs:
+            off = 0
+            for seg in segs:
+                seg.append(off)
+                off += seg[1]
+    stores = [torch.cat([store[a:a + m] for a, m, _ in segs])
+              for segs in procs]
+    before = [s.clone() for s in stores]
+    pulls = [torch.full_like(s, float("nan")) if B is None else None
+             for s in stores]
+    for segs, st, pl in zip(procs, stores, pulls):
+        if st.numel():  # short shards leave a process empty pieces only
+            ring.ring_int8_peers([(addrs, a, m, o) for a, m, o in segs if m],
+                                 st, pl, padded, handle, with_ag=with_ag,
+                                 kv_shards=B)
+    single = store.clone()
+    want = (ring.ring_push_pull if with_ag else ring.ring_push)(
+        grads, single, handle, compress=True, kv_shards=B)
+    torch.cuda.synchronize()
+    for segs, st, pl in zip(procs, stores, pulls):
+        for a, m, o in segs:
+            assert torch.equal(st[o:o + m], single[a:a + m])
+            if pl is not None and with_ag:
+                assert torch.equal(pl[o:o + m], want[a:a + m])
+    for cluster in (1, 16):
+        for segs, st, b in zip(procs, stores, before):
+            if not st.numel():
+                continue
+            st.copy_(b)
+            pl = torch.empty_like(st) if B is None else None
+            ring.ring_int8_peers([(addrs, a, m, o) for a, m, o in segs if m],
+                                 st, pl, padded, "sum", with_ag=True,
+                                 kv_shards=B, cluster=cluster)
+            ref, rpl = b.clone(), (torch.empty_like(b) if B is None
+                                   else None)
+            ring.ring_peers_reference([(grads, a, m, o) for a, m, o in segs],
+                                      ref, rpl, padded, "sum",
+                                      compress=True, kv_shards=B)
+            torch.cuda.synchronize()
+            assert torch.equal(st, ref)
+            if pl is not None:
+                assert torch.equal(pl, rpl)
+
+
 _IPC_CHILD = r"""
 import sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -1339,11 +1477,12 @@ def test_refused_peer_launch_raises(dev):
 
     store = torch.zeros(8, device=dev)
     table = np.zeros(1, dtype=np.int64)
-    with pytest.raises(RuntimeError, match="pstt_ring_reduce_peers: CUDA "
-                                           "error"):
-        _native.call("pstt_ring_reduce_peers", table.ctypes.data, 0,
-                     store.data_ptr(), 0, 8, 0, 8, 8, 8, 0, 0.0,
-                     _native.stream_ptr(dev))
+    segs = np.array([0, 8, 0], dtype=np.int64)
+    with pytest.raises(RuntimeError, match="pstt_ring_reduce_peers_segs: "
+                                           "CUDA error"):
+        _native.call("pstt_ring_reduce_peers_segs", table.ctypes.data, 0,
+                     store.data_ptr(), segs.ctypes.data, 1, 0, 8, 8, 8, 0,
+                     8, 0, 0.0, _native.stream_ptr(dev))
 
 
 # -- the stress patterns and the device-timeline reader (harnesses) ---------

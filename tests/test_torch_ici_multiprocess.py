@@ -13,7 +13,9 @@ sparse rows bit for bit, adam within rtol 1e-5 / atol 1e-6 (FMA
 contraction differs).  On the ring impl (``PS_ICI_IMPL=pallas``, the
 cross-process K4's plain version) the dense bucket is held against the
 port's single-process ring, itself bit-exact with JAX's Pallas ring
-(tests/test_torch_engine.py).
+(tests/test_torch_engine.py); under ``PS_ICI_COMPRESS=int8`` against the
+port's single-process int8 ring (bit-exact with JAX's,
+tests/test_torch_engine2d.py).
 """
 
 import os
@@ -102,14 +104,16 @@ def _cluster(tmp_path, van: str, impl: str, extra=None) -> list:
     return [dict(np.load(tmp_path / f"worker{r}.npz")) for r in (0, 1)]
 
 
-def _jax_reference(ring: bool) -> dict:
+def _jax_reference(ring: bool, compress=None) -> dict:
     """The same global rows through JAX's single-process engines (the
-    dense bucket through the port's single-process ring when ``ring``)."""
+    dense bucket through the port's single-process ring when ``ring``,
+    int8-compressed with ``compress``)."""
     r = child.rows()
     devs = jax.devices()
     jeng = JaxEngine(Mesh(np.array(devs[:8]), ("kv",)))
     jse = JaxSparse(jeng.mesh)
-    dense = (CollectiveEngine(DeviceGroup(8, device="cpu"), impl="ring")
+    dense = (CollectiveEngine(DeviceGroup(8, device="cpu"), impl="ring",
+                              wire_compress=compress)
              if ring else jeng)
     dense.register_dense("g", child.KEYS, child.VAL_LEN)
     jeng.register_dense("a", child.ADAM_KEYS, child.VAL_LEN)
@@ -144,11 +148,15 @@ def _jax_reference(ring: bool) -> dict:
     ("ici_shm", "xla", {"PS_SHM_RING": "1"}),
     # The cross-process K4's plain version (the ring impl).
     ("ici_tcp", "pallas", {}),
+    # Its int8 wire-compressed form, from the process environment, through
+    # KVWorker as the van builds the engine.
+    ("ici_tcp", "pallas", {"PS_ICI_COMPRESS": "int8"}),
 ])
 def test_two_process_group_matches_single_process_engines(
         tmp_path, van, impl, extra):
     workers = _cluster(tmp_path, van, impl, extra)
-    ref = _jax_reference(ring=impl == "pallas")
+    ref = _jax_reference(ring=impl == "pallas",
+                         compress=extra.get("PS_ICI_COMPRESS"))
     total = len(child.KEYS) * child.VAL_LEN
     for rank, got in enumerate(workers):
         for key in ("dense0", "dense1", "pull4", "dense4"):

@@ -690,23 +690,30 @@ def _mp_group(shape=4, names="kv"):
     ("ici_tcp", "2-D"), ("ici_shm", "int8"),
     ("ici_tcp", "no DMLC_RANK"), ("ici_shm", "no DMLC_RANK"),
 ])
-def test_socket_vans_raise_naming_their_roadmap_item(van, case):
+def test_socket_vans_raise_naming_their_roadmap_item(van, case,
+                                                     monkeypatch):
     """The socket vans and one group across their worker processes
-    (``PS_ICI_MULTIHOST=1``, tests/test_torch_ici_multiprocess.py) are
-    ported; what that group leaves out raises at construction, naming
-    its ROADMAP item, and a multihost worker without ``DMLC_RANK`` fails
-    JAX's check with JAX's message."""
-    if case == "2-D":
+    (``PS_ICI_MULTIHOST=1``, tests/test_torch_ici_multiprocess.py and
+    tests/test_torch_mp_shapes.py) are ported, 2-D ``worker_axis`` groups
+    and int8 wire compression included; what that group leaves out (ranks
+    on several cards) raises, naming its ROADMAP item, and a multihost
+    worker without ``DMLC_RANK`` fails JAX's check with JAX's message."""
+    from pslite_tpu_torch.parallel import distributed
+
+    if case in ("2-D", "int8"):
+        if case == "2-D":
+            eng = tps.CollectiveEngine(_mp_group((2, 2), ("dp", "kv")),
+                                       worker_axis="dp")
+            assert (eng.num_shards, eng.num_workers) == (2, 2)
+        else:
+            eng = tps.CollectiveEngine(_mp_group(), wire_compress="int8")
+            assert eng.wire_compress == "int8" and eng.num_shards == 4
+        monkeypatch.setattr(distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(distributed, "allgather_object",
+                            lambda obj: [(2, "cuda:0"), (2, "cuda:1")])
         with pytest.raises(NotImplementedError,
-                           match="2-D worker_axis group across processes.*"
-                                 "Queue 1 item 9"):
-            tps.CollectiveEngine(_mp_group((2, 2), ("dp", "kv")),
-                                 worker_axis="dp")
-        return
-    if case == "int8":
-        with pytest.raises(NotImplementedError,
-                           match="int8 wire compression.*Queue 1 item 9"):
-            tps.CollectiveEngine(_mp_group(), wire_compress="int8")
+                           match="ranks on several cards.*Queue 1 item 9"):
+            distributed.global_group(local_ranks=2, device="cpu")
         return
     po = tps.Postoffice("worker", env=Environment({
         "PS_VAN_TYPE": van, "PS_ICI_MULTIHOST": "1",

@@ -61,7 +61,7 @@ BUSY_BAR = 0.02           # the reader against key_averages()
 WINDOWS = 5               # profiler windows a measurement may take
 CLI_LEN = 1_024_000       # test_benchmark's 1 MB value per key
 CLI_KEYS = 40             # NUM_KEY_PER_SERVER
-CLI_REPEAT = 10
+CLI_REPEAT = 6
 DEADLINE = 180.0          # seconds for every process group
 HELD = ("ring_push_pull", "ring_push", "scatter_add")
 # The wrapper each pattern's first launch goes through, per engine impl

@@ -26,6 +26,26 @@ Legs, each a cluster of separate processes from the port's launcher
   versions, the gather's library call (one ``torch.cat`` of the owners'
   shards through their IPC mappings) and the single-process K4 on the 8
   rows.
+  After them, in the same processes, the group shapes beyond the 1-D
+  ring (``node_shapes``), each engine on a group of both processes'
+  ranks (``global_group(shape=)``) and each result held against the
+  single-process port on the same global rows: a ``(dp 4, kv 2)``
+  engine (``worker_axis="dp"``), 5 ``sum`` steps of the bucket through
+  the dp sub-rings across processes (``ring_reduce_peers`` with
+  ``kv_shards=2``), 2 ``adam:1e-3`` steps, 2 int8 steps
+  (``ring_int8_peers`` on the sub-rings); a ``(dp 2, kv1 2, kv2 2)``
+  engine with ``worker_axis`` (B = 4 sub-rings, 2 ``sum`` steps) and
+  without (the torch path on each rank's kv shard, 2 steps); config 5's
+  table on ``(kv 4, dp 2)`` (sharded over kv, replicated over dp), 2
+  pushes and pulls.  Each new kernel's first launch is held against its
+  plain version on clones of its inputs (``_HeldPeers``), and each
+  process times its new kernels alone, as above.
+- ``int8``: ``ici_tcp`` with ``PS_ICI_COMPRESS=int8`` in the workers'
+  environment: ``KVWorker.push_pull`` of the bucket, 5 ``sum`` steps
+  through ``ring_int8_peers`` across processes (the compressed ring on
+  each process's chunks, the owners' dequantized chunks gathered), each
+  bit-equal to the single-process compressed ``pstt_ring_int8`` on the 8
+  rows; then each process times the kernel alone.
 - ``ici_shm``: the first 2 ``sum`` steps over the shared-memory van.
 - ``dcn``: 2 slice-leader processes, each on ``DeviceGroup(4)`` of
   ``cuda:0`` (K4 with ``assign`` on its own group), and 2 tcp servers:
@@ -85,8 +105,8 @@ def node_main() -> int:
             srv.stop()
         print(json.dumps({"role": role, "ok": True}), flush=True)
         return 0
-    report = (node_dcn(ps, spec) if spec["leg"] == "dcn"
-              else node_mp(ps, spec))
+    report = {"dcn": node_dcn, "int8": node_int8}.get(
+        spec["leg"], node_mp)(ps, spec)
     report.update(role=role, ok=True)
     print(json.dumps(report), flush=True)
     return 0
@@ -105,6 +125,90 @@ class _Uncounted:
     def __exit__(self, *exc):
         for m, saved in zip(self.modules, self.saved):
             m.launches.update(saved)
+
+
+class _HeldPeers:
+    """While open, the first launch of each new cross-process variant
+    (``ring_int8_peers`` 1-D and 2-D, the dp sub-rings'
+    ``ring_reduce_peers``) is held against ``ring_peers_reference`` on
+    clones of its inputs: the rows read through their addresses, the
+    store (and pulled) cloned before the launch.  ``differing`` maps each
+    variant held to its count of differing elements; a nonzero one
+    raises."""
+
+    def __init__(self, torch, ring):
+        self.torch, self.ring = torch, ring
+        self.differing = {}
+
+    def _rows(self, addrs, padded, dtype, device):
+        views = [self.ring.device_view(a, (padded,), dtype, device)
+                 for a in addrs]
+        return self.torch.stack(views)
+
+    def _check(self, name, real, pieces, store, pulled, padded, plain_kw,
+               call):
+        torch = self.torch
+        if name in self.differing:
+            return call()
+        torch.cuda.synchronize()
+        tables = {}
+        plain_pieces = []
+        for addrs, start, length, local in pieces:
+            key = tuple(addrs)
+            if key not in tables:
+                tables[key] = self._rows(addrs, padded, store.dtype,
+                                         store.device)
+            plain_pieces.append((tables[key], start, length, local))
+        st = store.clone()
+        pl = pulled.clone() if pulled is not None else None
+        self.ring.ring_peers_reference(plain_pieces, st, pl, padded,
+                                       **plain_kw)
+        out = call()
+        torch.cuda.synchronize()
+        diff = int((store != st).sum())
+        if pulled is not None:
+            diff += int(sum((pulled[lo:lo + n] != pl[lo:lo + n]).sum()
+                            for _a, _s, n, lo in pieces))
+        self.differing[name] = diff
+        if diff:
+            raise AssertionError(f"{name}: {diff} elements differ from "
+                                 f"its plain version")
+        return out
+
+    def __enter__(self):
+        ring = self.ring
+        self.real = (ring.ring_int8_peers, ring.ring_reduce_peers)
+        real_int8, real_reduce = self.real
+
+        def int8(pieces, store, pulled, padded, handle="sum", with_ag=True,
+                 kv_shards=None, bidir=True, cluster=None):
+            name = ("ring_int8_peers_2d[float32]" if kv_shards
+                    else "ring_int8_peers[float32]")
+            return self._check(
+                name, real_int8, pieces, store, pulled, padded,
+                dict(handle=handle, with_ag=with_ag, compress=True,
+                     kv_shards=kv_shards, bidir=bidir),
+                lambda: real_int8(pieces, store, pulled, padded, handle,
+                                  with_ag, kv_shards, bidir, cluster))
+
+        def reduce(rows, store, lo, padded, handle="sum", bidir=True,
+                   kv_shards=None):
+            call = (lambda: real_reduce(rows, store, lo, padded, handle,
+                                        bidir, kv_shards))
+            if kv_shards is None:
+                return call()
+            pieces = [(rows, start, n, off) for start, n, off in
+                      ring._segments(lo, store.numel())]
+            return self._check(
+                f"ring_reduce_peers_2d[{str(store.dtype)[6:]}]", real_reduce,
+                pieces, store, None, padded,
+                dict(handle=handle, kv_shards=kv_shards, bidir=bidir), call)
+
+        ring.ring_int8_peers, ring.ring_reduce_peers = int8, reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.ring.ring_int8_peers, self.ring.ring_reduce_peers = self.real
 
 
 def _rows(torch, step: int, n: int):
@@ -132,8 +236,9 @@ def time_alone(torch, ring, eng, rows8) -> dict:
 
     bucket, store = eng._buckets["grads"], eng._stores["grads"]
     padded = bucket.padded_len
-    lo, count = eng._local_span(bucket, eng.group)
-    rows = eng._row_addrs("grads")
+    ((row_ids, local),) = eng._layouts["grads"].runs(eng.group.process_index)
+    count = sum(n for _s, n, _o in local)
+    rows = [eng._row_addr("grads", r) for r in row_ids]
     segs = sorted(eng._store_segments("grads"), key=lambda seg: seg[1])
     if [seg[1] for seg in segs] != list(np.cumsum(
             [0] + [seg[2] for seg in segs[:-1]])) or \
@@ -152,7 +257,7 @@ def time_alone(torch, ring, eng, rows8) -> dict:
 
     out = {"count": count, "padded": padded}
     out["reduce_ms"], out["reduce_ms_host"] = cs.kernel_times(
-        lambda: ring.ring_reduce_peers(rows, scratch, lo, padded, "sum"))
+        lambda: ring.ring_reduce_peers(rows, scratch, local, padded, "sum"))
     out["gather_ms"], out["gather_ms_host"] = cs.kernel_times(
         lambda: ring.ring_gather_peers(segs, pulled))
     lib = cs.library_time(lambda: torch.cat(views, out=cat_out))
@@ -297,6 +402,12 @@ def node_mp(ps, spec) -> dict:
                             "pull_differing": pull_diff}
         if store_diff or pull_diff:
             raise AssertionError(f"sparse: {report['sparse']}")
+    if spec.get("shapes"):
+        held = _HeldPeers(torch, ring)
+        with held:
+            report["shapes"] = node_shapes(ps, torch, ring, uncounted,
+                                           spec["shapes"], rank)
+        report["held"] = held.differing
     if spec.get("reshard"):
         t0 = time.perf_counter()
         kv.reshard(distributed.global_group(local_ranks=2, device=DEV))
@@ -314,6 +425,285 @@ def node_mp(ps, spec) -> dict:
                                  f"differ")
     report["launches"] = {k: v for m in (ring, fu, sr)
                           for k, v in m.launches.items() if v}
+    po.finalize()
+    distributed.release()
+    return report
+
+
+def _alone(torch, ring, cs, eng, name: str, compress: bool) -> dict:
+    """The new cross-process kernel of ``eng``'s bucket ``name`` (the dp
+    sub-rings' reduce, or the int8 ring), timed alone as ``time_alone``
+    times the 1-D pair, beside its plain version (one call: the int8
+    plain ring walks every region's quantizer in float64)."""
+    bucket, store = eng._buckets[name], eng._stores[name]
+    layout, me = eng._layouts[name], eng.group.process_index
+    padded, kv = bucket.padded_len, eng._kv_shards()
+    scratch = store.clone()
+    out = {"count": layout.local_len(me), "padded": padded,
+           "ring_n": len(layout.rows_of(layout.pieces[me][0]))}
+    if compress:
+        pieces = [([eng._row_addr(name, r) for r in rows], *seg)
+                  for rows, segs in layout.runs(me) for seg in segs]
+        pulled = torch.empty_like(store) if kv is None else None
+        shape = ring.int8_peer_launch_shape(pieces, padded, kv, device=DEV)
+        out["cluster"] = shape["cluster"]
+        out["launch_shape"] = {k: shape[k] for k in
+                               ("regions", "waves", "max_active_clusters")}
+        # Each cluster size the card could run, timed: the cost model's
+        # pick beside the measured best.
+        out["by_cluster_ms"] = {
+            c: cs.graph_ms(lambda c=c: ring.ring_int8_peers(
+                pieces, scratch, pulled, padded, "sum", kv_shards=kv,
+                cluster=c), iters=5)
+            for c in (16, 14, 12, 10, 8, 4)
+            if shape["max_active_clusters"][c]}
+
+        def fn():
+            ring.ring_int8_peers(pieces, scratch, pulled, padded, "sum",
+                                 kv_shards=kv)
+    else:
+        runs = [([eng._row_addr(name, r) for r in rows], segs)
+                for rows, segs in layout.runs(me)]
+        pieces = [(addrs, a, n, o) for addrs, segs in runs
+                  for a, n, o in segs]
+
+        def fn():
+            for addrs, segs in runs:
+                ring.ring_reduce_peers(addrs, scratch, segs, padded, "sum",
+                                       kv_shards=kv)
+    out["ms"], out["ms_host"] = cs.kernel_times(fn)
+    rows = {}
+    plain = []
+    for addrs, start, n, local in pieces:
+        if tuple(addrs) not in rows:
+            rows[tuple(addrs)] = torch.stack(
+                [ring.device_view(a, (padded,), store.dtype, store.device)
+                 for a in addrs])
+        plain.append((rows[tuple(addrs)], start, n, local))
+    pl = torch.empty_like(store) if compress and kv is None else None
+    out["plain_ms"] = cs.cuda_ms(lambda: ring.ring_peers_reference(
+        plain, scratch, pl, padded, "sum", compress=compress, kv_shards=kv),
+        iters=1, warmup=0)
+    return out
+
+
+def _check(label: str, **counts) -> dict:
+    if any(counts.values()):
+        raise AssertionError(f"{label}: differing elements {counts}")
+    return counts
+
+
+def node_shapes(ps, torch, ring, uncounted, spec, rank: int) -> dict:
+    """The group shapes beyond the 1-D ring, in a worker of the main leg
+    (module docstring); raises on any differing element."""
+    import chip_smoke as cs
+    from pslite_tpu_torch.models import embedding as emb
+    from pslite_tpu_torch.parallel import distributed, placement
+
+    sync = torch.cuda.synchronize
+    keys = np.arange(KEYS, dtype=np.uint64) + 50_000
+    out = {}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    def local(eng, name, full):
+        return eng._layouts[name].local_of(full, eng.group.process_index)
+
+    # (dp 4, kv 2): sum on the ring, adam, int8.
+    g2 = distributed.global_group(("dp", "kv"), local_ranks=LOCAL,
+                                  device=DEV, shape=(4, 2))
+    eng = ps.CollectiveEngine(g2, worker_axis="dp", impl="ring")
+    eng.register_dense("d2", keys, VAL_LEN)
+    ref_store = torch.zeros(P, device=DEV)
+    steps = []
+    for k in range(spec["sum_steps"]):
+        rows4 = _rows(torch, 400 + k, 4)
+        with uncounted:
+            ref = ring.ring_push_pull(rows4, ref_store, kv_shards=2)
+        got, wall = timed(lambda: eng.push_pull("d2", rows4))
+        steps.append(dict(wall_ms=wall,
+                          max_abs_err=float((got - ref).abs().max()), **_check(
+            f"2-D sum step {k}", differing=int((got != ref).sum()),
+            store_differing=int((eng._stores["d2"] != local(
+                eng, "d2", ref_store)).sum()))))
+    out["d2_sum"] = steps
+    adam_eng = ps.CollectiveEngine(g2, worker_axis="dp", impl="ring",
+                                   server_handle=ADAM)
+    ref_eng = ps.CollectiveEngine(ps.make_group((4, 2), ("dp", "kv"),
+                                                device=DEV),
+                                  worker_axis="dp", impl="ring",
+                                  server_handle=ADAM)
+    for e in (adam_eng, ref_eng):
+        e.register_dense("a2", keys, VAL_LEN)
+    adam = []
+    for k in range(spec["adam_steps"]):
+        rows4 = _rows(torch, 420 + k, 4)
+        with uncounted:
+            want = ref_eng.push_pull("a2", rows4)
+        got, wall = timed(lambda: adam_eng.push_pull("a2", rows4))
+        err = float((got - want).abs().max())
+        adam.append({"wall_ms": wall, "differing": int((got != want).sum()),
+                     "max_abs_err": err})
+        if not torch.allclose(got, want, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"2-D adam step {k}: {adam[-1]}")
+    out["d2_adam"] = adam
+    i8 = ps.CollectiveEngine(g2, worker_axis="dp", impl="ring",
+                             wire_compress="int8")
+    i8.register_dense("c2", keys, VAL_LEN)
+    ref8 = torch.zeros(P, device=DEV)
+    steps = []
+    for k in range(spec["int8_steps"]):
+        rows4 = _rows(torch, 440 + k, 4)
+        with uncounted:
+            ref = ring.ring_push_pull(rows4, ref8, compress=True,
+                                      kv_shards=2)
+        got, wall = timed(lambda: i8.push_pull("c2", rows4))
+        steps.append(dict(wall_ms=wall,
+                          max_abs_err=float((got - ref).abs().max()), **_check(
+            f"2-D int8 step {k}", differing=int((got != ref).sum()),
+            store_differing=int((i8._stores["c2"] != local(
+                i8, "c2", ref8)).sum()))))
+    out["d2_int8"] = steps
+    del rows4, ref, got
+    for turn in range(len(g2.processes)):
+        distributed.barrier()
+        if turn == rank:
+            with uncounted:
+                out["alone_d2"] = _alone(torch, ring, cs, eng, "d2", False)
+                out["alone_d2_int8"] = _alone(torch, ring, cs, i8, "c2", True)
+    distributed.barrier()
+    for e in (eng, adam_eng, i8):
+        e.close()
+
+    # (dp 2, kv1 2, kv2 2): with worker_axis (B = 4 dp sub-rings) and
+    # without (the torch path on each rank's kv shard of its replica).
+    g3 = distributed.global_group(("dp", "kv1", "kv2"), local_ranks=LOCAL,
+                                  device=DEV, shape=(2, 2, 2))
+    kv = ("kv1", "kv2")
+    wa_eng = ps.CollectiveEngine(g3, axis_name=kv, worker_axis="dp",
+                                 impl="ring")
+    nd_eng = ps.CollectiveEngine(g3, axis_name=kv, impl="ring")
+    ref_nd = ps.CollectiveEngine(ps.make_group((2, 2, 2), ("dp", "kv1",
+                                                           "kv2"), device=DEV),
+                                 axis_name=kv, impl="ring")
+    for e in (wa_eng, nd_eng, ref_nd):
+        e.register_dense("c3", keys, VAL_LEN)
+    shard, _ = placement.shard_replicas(g3, kv)
+    mine = [int(shard[r]) for r in g3.local_ranks]
+    ref_wa = torch.zeros(P, device=DEV)
+    comp = []
+    for k in range(2):
+        rows2 = _rows(torch, 460 + k, 2)
+        rows4 = _rows(torch, 470 + k, 4)
+        with uncounted:
+            ref = ring.ring_push_pull(rows2, ref_wa, kv_shards=4)
+            want = ref_nd.push_pull("c3", rows4)
+        got, wall = timed(lambda: wa_eng.push_pull("c3", rows2))
+        got_nd, wall_nd = timed(
+            lambda: nd_eng.push_pull("c3", rows4[mine].contiguous()))
+        comp.append(dict(wall_ms=wall, wall_nd_ms=wall_nd, **_check(
+            f"composite step {k}", differing=int((got != ref).sum()),
+            store_differing=int((wa_eng._stores["c3"] != local(
+                wa_eng, "c3", ref_wa)).sum()),
+            nd_differing=int((got_nd != want).sum()))))
+    out["composite"] = comp
+    for e in (wa_eng, nd_eng):
+        e.close()
+
+    # Config 5's table on (kv 4, dp 2): sharded over kv, replicated over dp.
+    gs = distributed.global_group(("kv", "dp"), local_ranks=LOCAL,
+                                  device=DEV, shape=(4, 2))
+    se = ps.SparseEngine(gs, "kv")
+    ref_se = ps.SparseEngine(ps.make_group((4, 2), ("kv", "dp"), device=DEV),
+                             "kv")
+    for e in (se, ref_se):
+        e.register_sparse("emb_nd", ROWS, DIM)
+    shard, _ = placement.shard_replicas(gs, ("kv",))
+    mine = [int(shard[r]) for r in gs.local_ranks]
+    sparse = []
+    for k in range(2):
+        idx = torch.from_numpy(emb.skewed_indices(ROWS, 4, BATCH,
+                                                  seed=10 + k)).to(DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 20 + k)
+        g = torch.randn((4, BATCH, DIM), device=DEV, generator=gen)
+        with uncounted:
+            ref_se.push("emb_nd", idx, g)
+            want = ref_se.pull("emb_nd", idx)
+        _, push_ms = timed(lambda: se.push("emb_nd", idx[mine].contiguous(),
+                                           g[mine].contiguous()))
+        got, pull_ms = timed(lambda: se.pull("emb_nd",
+                                             idx[mine].contiguous()))
+        table = se.table("emb_nd")
+        sparse.append(dict(push_ms=push_ms, pull_ms=pull_ms, **_check(
+            f"sparse N-D step {k}",
+            pull_differing=int((got != want[mine]).sum()),
+            store_differing=int((se._stores["emb_nd"] != se._local_of(
+                table, ref_se._stores["emb_nd"])).sum()))))
+    out["sparse_nd"] = sparse
+    se.close()
+    return out
+
+
+def node_int8(ps, spec) -> dict:
+    """A worker of the ``int8`` leg: the bucket through ``KVWorker``
+    under ``PS_ICI_COMPRESS=int8``; raises on any differing element."""
+    import torch
+    import chip_smoke as cs
+    from pslite_tpu_torch.environment import Environment
+    from pslite_tpu_torch.ops import ring_collective as ring
+    from pslite_tpu_torch.parallel import distributed
+
+    sync = torch.cuda.synchronize
+    uncounted = _Uncounted(ring)
+    keys = np.arange(KEYS, dtype=np.uint64)
+    rank = int(os.environ["DMLC_RANK"])
+    env = Environment({})
+    assert distributed.acquire(env)
+    group = distributed.global_group(local_ranks=LOCAL, device=DEV)
+    po = ps.Postoffice("worker", env=env)
+    po.van.set_mesh(group)
+    po.start()
+    kv = ps.KVWorker(0, 0, postoffice=po)
+    eng = kv.engine
+    assert eng.wire_compress == "int8", eng.wire_compress
+    ring.reset_launches()
+    mine = slice(LOCAL * rank, LOCAL * (rank + 1))
+    kv.register_dense("grads", keys, VAL_LEN)
+    ref_store = torch.zeros(P, device=DEV)
+    outs = torch.zeros(P, device=DEV)
+    held = _HeldPeers(torch, ring)
+    steps, worst = [], 0.0
+    with held:
+        for k in range(spec["sum_steps"]):
+            rows8 = _rows(torch, 500 + k, N)
+            with uncounted:
+                ref = ring.ring_push_pull(rows8, ref_store, compress=True)
+            g = rows8[mine].contiguous()
+            sync()
+            t0 = time.perf_counter()
+            kv.wait(kv.push_pull(keys, g, outs))
+            wall = (time.perf_counter() - t0) * 1e3
+            worst = max(worst, float((outs - ref).abs().max()))
+            steps.append(dict(wall_ms=wall, **_check(
+                f"int8 step {k}", differing=int((outs != ref).sum()),
+                store_differing=int((eng._stores["grads"] != eng._layouts[
+                    "grads"].local_of(ref_store, group.process_index)
+                ).sum()))))
+    report = {"steps": steps, "max_abs_err": worst, "rank": rank,
+              "held": held.differing}
+    del rows8, ref, g
+    for turn in range(len(group.processes)):
+        distributed.barrier()
+        if turn == rank:
+            with uncounted:
+                report["alone"] = _alone(torch, ring, cs, eng, "grads", True)
+    distributed.barrier()
+    report["launches"] = {k: v for k, v in ring.launches.items() if v}
     po.finalize()
     distributed.release()
     return report
@@ -464,6 +854,59 @@ def _span_ms(reports, k: int, part: str) -> float:
     return (max(w[1] for w in windows) - min(w[0] for w in windows)) * 1e3
 
 
+NEW_KERNELS = ("ring_reduce_peers_2d[float32]", "ring_int8_peers[float32]",
+               "ring_int8_peers_2d[float32]")
+
+
+def new_kernel_rows(main, int8, launches, smi) -> list:
+    """The ``kernels`` rows of the variants this phase added: each
+    process's launch alone, the slower of the two, with its bound (one
+    launch's bytes: each of its ring's rows read once over its owned
+    values, its store read and written, and the 1-D int8's pulled area
+    written) and its plain version; no PyTorch call walks a ring."""
+    b = 4
+    rows = []
+    shapes = [r["shapes"] for r in main]
+    for name, key, reports, err in (
+            ("ring_reduce_peers_2d[float32]", "alone_d2", shapes,
+             max(x["max_abs_err"] for r in shapes for x in r["d2_sum"])),
+            ("ring_int8_peers[float32]", "alone", int8,
+             max(r["max_abs_err"] for r in int8)),
+            ("ring_int8_peers_2d[float32]", "alone_d2_int8", shapes,
+             max(x["max_abs_err"] for r in shapes for x in r["d2_int8"]))):
+        alone = [r[key] for r in reports]
+        a = max(alone, key=lambda x: x["ms"])
+        pulled = 1 if name == "ring_int8_peers[float32]" else 0
+        nbytes = (a["ring_n"] + 2 + pulled) * a["count"] * b
+        src = ("ring_int8.cu" if "int8" in name else "ring_push_pull.cu")
+        row = {"name": name, "route": "cuda",
+               "source": f"pslite_tpu_torch/csrc/{src}",
+               "replaces": "pslite_tpu/ops/ring_collective.py:445",
+               "launches": launches.get(name, 0), "max_abs_err": err,
+               "ms": a["ms"], "ms_host": a["ms_host"],
+               "plain_ms": a["plain_ms"],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None,
+               "library_note": "no call walks a ring",
+               "across": "2 processes x 4 ranks, IPC peers"}
+        if "cluster" in a:
+            row.update(cluster=a["cluster"], by_cluster_ms=a["by_cluster_ms"])
+        rows.append(row)
+        print(f"kernel {name} (across 2 processes, IPC peers): alone "
+              f"{row['ms']:.4f} ms host-free, {row['ms_host']:.4f} ms "
+              f"host-inclusive (the slower process), bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: "
+              f"{a['ring_n']} rows over {a['count']} owned values), share "
+              f"{row['bound_ms'] / row['ms']:.2f}, plain "
+              f"{row['plain_ms']:.3f} ms, launches {row['launches']}"
+              + (f", cluster {a['cluster']} (regions, waves, clusters "
+                 f"the card runs at once per size: {a['launch_shape']}; "
+                 f"ms by cluster size {a['by_cluster_ms']})"
+                 if "cluster" in a else "")
+              + f" [{smi}]")
+    return rows
+
+
 def drive_multiprocess(smi: str, kernel_rows=None):
     """The phase (module docstring).  Returns ``(results, launches)``: the
     main-path result rows and the launches the worker processes counted;
@@ -472,7 +915,11 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     mp_env = {"PS_ICI_MULTIHOST": "1", "PS_ICI_IMPL": "pallas"}
     (main,) = run_legs([Leg("ici_tcp", 2, 1, dict(
         leg="mp", sum_steps=5, adam_steps=2, sparse=True, reshard=True,
-        alone=True), extra=mp_env, ranks=True)])
+        alone=True, shapes=dict(sum_steps=5, adam_steps=2, int8_steps=2)),
+        extra=mp_env, ranks=True)])
+    (int8,) = run_legs([Leg("ici_tcp", 2, 1, dict(leg="int8", sum_steps=5),
+                            extra=dict(mp_env, PS_ICI_COMPRESS="int8"),
+                            ranks=True)])
     ns = f"mp{os.getpid()}"
     shm, dcn = run_legs([
         Leg("ici_shm", 2, 1, dict(leg="mp", sum_steps=2),
@@ -486,12 +933,20 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     for f in ours:  # the pipes' lock files; the leg's processes are gone
         os.unlink(os.path.join("/dev/shm", f))
     launches: dict = {}
-    for rep in main + shm + dcn:
+    for rep in main + int8 + shm + dcn:
         _add(launches, rep["launches"])
-    for name in ("ring_reduce_peers[float32]", "ring_gather_peers[float32]"):
+    held: dict = {}
+    for rep in main + int8:
+        _add(held, rep["held"])
+    for name in ("ring_reduce_peers[float32]", "ring_gather_peers[float32]")\
+            + NEW_KERNELS:
         if not launches.get(name):
             raise AssertionError(f"{name} never launched on the "
                                  f"multiprocess path")
+    for name in NEW_KERNELS:
+        if name not in held or held[name]:
+            raise AssertionError(f"{name}'s first launch was not held "
+                                 f"against its plain version: {held}")
     steps = len(main[0]["steps"])
     print(f"multiprocess ici_tcp: 2 worker processes x {LOCAL} ranks of "
           f"{DEV} (global group of {N}), bucket {KEYS} x {VAL_LEN} f32 "
@@ -536,6 +991,32 @@ def drive_multiprocess(smi: str, kernel_rows=None):
               f"{s['pull_differing']}; reshard to 2 ranks per process "
               f"{rs['ms']:.1f} ms, then push_pull differing "
               f"{rs['differing']}; launches {r['launches']}")
+    for r in main:
+        sh = r["shapes"]
+        print(f"    worker {r['rank']} shapes: (dp 4, kv 2) sum wall "
+              + ", ".join(f"{x['wall_ms']:.3f}" for x in sh["d2_sum"])
+              + " ms, adam "
+              + ", ".join(f"{x['wall_ms']:.3f}" for x in sh["d2_adam"])
+              + f" ms (max |err| "
+              f"{max(x['max_abs_err'] for x in sh['d2_adam']):.3g} against "
+              f"the single-process engine), int8 "
+              + ", ".join(f"{x['wall_ms']:.3f}" for x in sh["d2_int8"])
+              + " ms; (dp 2, kv1 2, kv2 2) with worker_axis "
+              + ", ".join(f"{x['wall_ms']:.3f}" for x in sh["composite"])
+              + " ms, without "
+              + ", ".join(f"{x['wall_nd_ms']:.3f}" for x in sh["composite"])
+              + f" ms; sparse {ROWS} x {DIM} on (kv 4, dp 2) push/pull "
+              + ", ".join(f"{x['push_ms']:.3f}/{x['pull_ms']:.3f}"
+                          for x in sh["sparse_nd"])
+              + " ms; 0 differing elements against the single-process "
+              f"port in every step; first launches held: {r['held']}")
+    print(f"multiprocess int8: KVWorker.push_pull under PS_ICI_COMPRESS=int8"
+          f", {len(int8[0]['steps'])} sum steps, 0 differing elements "
+          f"against the single-process pstt_ring_int8 on the 8 rows; wall "
+          f"ms " + "; ".join(", ".join(f"{s['wall_ms']:.3f}"
+                                       for s in r["steps"]) for r in int8)
+          + f"; first launch held: {int8[0]['held']}; launches "
+          f"{int8[0]['launches']} [{smi}]")
     print(f"multiprocess ici_shm: {len(shm[0]['steps'])} sum steps, 0 "
           f"differing elements; wall ms " + "; ".join(
               ", ".join(f"{s['wall_ms']:.3f}" for s in r["steps"])
@@ -560,7 +1041,7 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     host = max(_median([sum(s["barrier_ms"]) for s in r["steps"]])
                for r in main)
     rows = []
-    for part, entry in (("reduce", "pstt_ring_reduce_peers"),
+    for part, entry in (("reduce", "pstt_ring_reduce_peers_segs"),
                         ("gather", "pstt_ring_gather_peers")):
         # ms: each process's launch alone, the slower of the two.
         ms = max(a[f"{part}_ms"] for a in alone)
@@ -599,8 +1080,9 @@ def drive_multiprocess(smi: str, kernel_rows=None):
               f"launch to last sync) against {r['op_bound_ms'] * 1e3:.1f} "
               f"us ({op_bytes[part] / 1e6:.1f} MB); host barriers "
               f"{host:.3f} ms per step [{smi}]")
-    op_ms = sum(r["span_ms"] for r in rows)
-    op_bound = sum(r["op_bound_ms"] for r in rows)
+    rows.extend(new_kernel_rows(main, int8, launches, smi))
+    op_ms = sum(r["span_ms"] for r in rows[:2])
+    op_bound = sum(r["op_bound_ms"] for r in rows[:2])
     print(f"multiprocess op: reduce + gather across both processes "
           f"{op_ms:.4f} ms against the op's bound {op_bound * 1e3:.1f} us "
           f"(share {op_bound / op_ms:.2f}), plus {host:.3f} ms of host "
@@ -616,9 +1098,22 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     differing += sum(r["sparse"]["store_differing"]
                      + r["sparse"]["pull_differing"]
                      + r["reshard"]["differing"] for r in main)
+    shape_diff = sum(v for r in main for leg in r["shapes"].values()
+                     if isinstance(leg, list) for x in leg
+                     for k, v in x.items() if k.endswith("differing"))
+    shape_diff += sum(s["differing"] + s["store_differing"]
+                      for r in int8 for s in r["steps"])
     results = [{"config": "multiprocess ici_tcp 2 x 4 ranks",
                 "ops": steps + 2 + 2 + 1, "differing_elements": differing,
                 "phase_s": t_phase},
+               {"config": "multiprocess group shapes 2 x 4 ranks (2-D, "
+                          "composite, N-D sparse, int8)",
+                "ops": 5 + 2 + 2 + 2 + 2 + 2 * 2 + 5,
+                "differing_elements": shape_diff,
+                "adam_max_abs_err": max(x["max_abs_err"] for r in main
+                                        for x in r["shapes"]["d2_adam"]),
+                "int8_max_abs_err_vs_exact": max(r["max_abs_err"]
+                                                 for r in int8)},
                {"config": "multiprocess dcn 2 slices x 4 ranks",
                 "ops": 2,
                 "differing_elements": sum(r["differing"] for r in dcn),
