@@ -327,14 +327,19 @@ def graph_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     """Mean device milliseconds of ``fn`` over ``iters`` calls captured
     in one CUDA graph, from CUDA events around its replay: the launches'
     host cost is out of the timing.  The wrappers launch on the current
-    stream, which is the capture stream inside ``torch.cuda.graph``."""
+    stream, which is the capture stream inside ``torch.cuda.graph``; the
+    warm-up runs there too, so what a wrapper keeps per stream (a region
+    group's exchange words) exists before the capture."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -612,6 +617,8 @@ def ring_variant_rows(torch, ring, randn):
                 mismatches(a, b)
         elif err != 0.0:
             raise AssertionError(f"{name} not bit-exact: {err}")
+        extra = (int8_shapes_timed(torch, ring, grads, store, n, kv,
+                                   with_ag, sp, outp) if compress else {})
         sk, sp = store.clone(), store.clone()
         ms, ms_host = kernel_times(lambda: kfn(grads, sk, "sum", **kw))
         plain_ms = cuda_ms(lambda: pfn(grads, sp, "sum", **kw), iters=3,
@@ -624,10 +631,50 @@ def ring_variant_rows(torch, ring, randn):
             replaces="pslite_tpu/ops/ring_collective.py:445",
             max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            library_note="no single PyTorch call computes it",
+            library_note="no single PyTorch call computes it", **extra,
         ))
         del grads, store, sk, sp, outk, outp
     return rows
+
+
+def int8_timed_shapes(ring, nregions: int, active: dict):
+    """The launch shapes an int8 row is timed at: one cluster per region
+    at each size the card runs, and at each size the largest region
+    group that fits the card at once (and half of it)."""
+    out = []
+    for c in ring.INT8_CLUSTERS:
+        if not active.get(c):
+            continue
+        out.append((c, 1))
+        g = min(max(ring.INT8_GROUPS), active[c] // nregions)
+        out += [(c, x) for x in sorted({g, g // 2}, reverse=True) if x > 1]
+    return out
+
+
+def int8_shapes_timed(torch, ring, grads, store, n, kv, with_ag, sp, outp):
+    """An int8 row's launch shape (cluster, groups, waves) and its
+    host-free time at each of ``int8_timed_shapes``, each forced and held
+    against the plain version's store ``sp`` and pulled ``outp`` (0
+    differing elements)."""
+    shape = ring.int8_launch_shape(n, P, kv_shards=kv)
+    geo = ring.ring_geometry(n, P, torch.float32, True, True, kv)
+    by = {}
+    for c, g in int8_timed_shapes(ring, shape["nregions"],
+                                  shape["max_active_clusters"]):
+        sk = store.clone()
+        out = torch.empty_like(sk) if with_ag else None
+        ring._launch_int8([grads], [sk], [out], [geo], 0, 0.0, with_ag,
+                          (c, g))
+        torch.cuda.synchronize()
+        mismatches(sk, sp)
+        if with_ag:
+            mismatches(out, outp)
+        by[f"{c}x{g}"] = graph_ms(lambda: ring._launch_int8(
+            [grads], [sk], [out], [geo], 0, 0.0, with_ag, (c, g)), iters=5)
+        del sk, out
+    return dict(cluster=shape["cluster"], groups=shape["groups"],
+                waves=shape["waves"], nregions=shape["nregions"],
+                ms_by_shape=by)
 
 
 def quantize_rows(torch, qz, randn):
@@ -4157,22 +4204,35 @@ PLANES = (("native", {}), ("python", {"PS_NATIVE": "0"}))
 PLANE_ROUNDS = 2  # timed rounds per window; TIER_ROUNDS windows per leg
 
 
+def leg_env(extra, plane: str, env: dict) -> dict:
+    """A plane leg's environment: ``extra`` with the plane's knobs.  A
+    shared-memory namespace (``PS_SHM_NS``) takes the plane's name, so
+    the legs' clusters, up at once with the same node ids and keys,
+    never name one /dev/shm segment alike (one namespace for both legs
+    let one cluster's pushes and pulls land in the other's)."""
+    out = dict(extra or {}, **env)
+    if "PS_SHM_NS" in out:
+        out["PS_SHM_NS"] = f"{out['PS_SHM_NS']}{plane}"
+    return out
+
+
 def plane_legs(label: str, topo: str, van: str, workers: int, servers: int,
                spec: dict, sizes, smi: str, extra=None, joint=False,
                planes=PLANES, windows: int = TIER_ROUNDS):
     """One round phase on each plane: a cluster per plane, all up at
-    once, ``windows`` windows of ``PLANE_ROUNDS`` rounds alternating
-    (``interleaved``); every pull checked.  Prints each plane's ms/round
-    and Gbit/s per worker (median of its windows, the windows' values,
-    and over all its rounds) and, by window, each other plane's ms over
-    the ``native`` plane's.  Every plane but ``python`` runs the core.
-    Returns ``(rows, {plane: final worker reports})``."""
+    once (each its own ``leg_env``), ``windows`` windows of
+    ``PLANE_ROUNDS`` rounds alternating (``interleaved``); every pull
+    checked.  Prints each plane's ms/round and Gbit/s per worker (median
+    of its windows, the windows' values, and over all its rounds) and, by
+    window, each other plane's ms over the ``native`` plane's.  Every
+    plane but ``python`` runs the core.  Returns ``(rows, {plane: final
+    worker reports})``."""
     spec = dict(spec, sizes=sizes, warmup=MSG_WARMUP, rounds=PLANE_ROUNDS,
                 windows=windows)
     legs, finals = interleaved(
-        [(plane, env) for plane, env in planes],
-        lambda env: Cluster(van, workers, servers, spec,
-                            extra=dict(extra or {}, **env), joint=joint),
+        [(plane, leg_env(extra, plane, env)) for plane, env in planes],
+        lambda env: Cluster(van, workers, servers, spec, extra=env,
+                            joint=joint),
         every_worker=True, windows=windows)
     for plane, reps in finals.items():
         if [r["native"] for r in reps] != [plane != "python"] * len(reps):
@@ -4370,8 +4430,11 @@ def drive_shm_config3(smi: str):
                                  "zpull": True}, sizes, smi,
         extra={"PS_SHM_NS": ns, "ENABLE_RECV_BUFFER": "1"}, joint=True,
         planes=planes)
-    if shm_leftovers(ns):
-        raise AssertionError(f"shm-config3 left {shm_leftovers(ns)}")
+    for plane, env in planes:
+        leg_ns = leg_env({"PS_SHM_NS": ns}, plane, env)["PS_SHM_NS"]
+        if shm_leftovers(leg_ns):
+            raise AssertionError(f"shm-config3 [{plane}] left "
+                                 f"{shm_leftovers(leg_ns)}")
     for plane, reports in finals.items():
         hits = [r["sizes"]["zpull_hits"] for r in reports]
         placed = [r["delivered_in_place"] for r in reports]
@@ -6753,12 +6816,13 @@ def main() -> int:
         shape = ring.int8_launch_shape(n, pads, kv_shards=kv)
         size = P if isinstance(pads, int) else f"{len(pads)} buckets"
         print(f"int8 ring launch shape {label} P={size}: cluster "
-              f"{shape['cluster']} CTAs x {shape['nregions']} regions, "
+              f"{shape['cluster']} CTAs x {shape['groups']} clusters per "
+              f"region x {shape['nregions']} regions, "
               f"{shape['smem_floats'] * 4} B shared memory per CTA (slice "
               f"{shape['slice']} values), co-resident clusters "
               f"{shape['max_active_clusters']}, waves {shape['waves']}, "
               f"scratch {shape['scratch']} values; launcher cost (bytes "
-              f"per CTA) {shape['cost']}")
+              f"per CTA) by cluster x groups {shape['cost']}")
 
     rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
     rows += sparse_rows_rows(torch, sr, emb, torch.device("cuda:0"),
@@ -6777,6 +6841,13 @@ def main() -> int:
             print(f"    {r['buckets']} buckets, {r['values']} values; the "
                   f"{r['buckets']} single launches: {r['singles_ms']:.4f} ms "
                   f"host-free, {r['singles_ms_host']:.4f} ms host-inclusive")
+        if "ms_by_shape" in r:
+            print(f"    int8 launch: {r['nregions']} regions, cluster "
+                  f"{r['cluster']} CTAs x {r['groups']} clusters per region, "
+                  f"{r['waves']} waves; host-free ms by forced cluster x "
+                  f"groups (each 0 elements off the plain version): "
+                  + ", ".join(f"{k}: {v:.4f}"
+                              for k, v in r["ms_by_shape"].items()))
         if "ms_by_cluster" in r:
             print(f"    one launch of {r['nregions']} regions at cluster "
                   f"{r['cluster']} ({r['waves']} waves); host-free ms by "

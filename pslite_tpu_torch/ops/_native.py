@@ -28,8 +28,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_update.cu", "ring_push_pull.cu", "ring_int8.cu",
-           "quantize_int8.cu", "sparse_rows.cu")
-HEADERS = ("ring_geometry.cuh",)
+           "ring_int8_group.cu", "quantize_int8.cu", "sparse_rows.cu")
+HEADERS = ("ring_geometry.cuh", "ring_int8.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -64,9 +64,10 @@ _SIGNATURES = {
     "pstt_ipc_export": (_I, _P, _P),
     "pstt_ipc_open": (_I, _P, ctypes.POINTER(_P)),
     "pstt_ipc_close": (_I, _P),
-    "pstt_ring_int8": (_P, _I, _P, _L, _I, _I, _I, _F, _I, _I, _P),
+    "pstt_ring_int8": (_P, _I, _P, _L, _I, _I, _P, _I, _I, _F, _I, _I, _P),
     "pstt_ring_int8_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
-    "pstt_ring_int8_peers": (_P, _I, _P, _L, _I, _I, _I, _F, _I, _I, _P),
+    "pstt_ring_int8_peers": (_P, _I, _P, _L, _I, _I, _P, _I, _I, _F, _I, _I,
+                             _P),
     "pstt_ring_int8_peers_occupancy": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "pstt_quantize_int8": (_P, _P, _P, _L, _L, _P),
     "pstt_dequantize_int8": (_P, _P, _L, _I, _P, _L, _P),

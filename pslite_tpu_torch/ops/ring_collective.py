@@ -27,13 +27,15 @@ once at its owner, so every rank pulls the same dequantized values.  The
 Kernels: ``csrc/ring_push_pull.cu`` and ``csrc/ring_int8.cu``, one launch
 per call each; their headers say how they reproduce the TPU ring's order
 of arithmetic and what bounds them.  The int8 kernel walks each region
-on chip with one thread block cluster of 1 to 16 CTAs, the size with the
-least makespan of the regions' bytes per CTA over the clusters the card
-runs at once (:func:`int8_cost`, :func:`int8_launch_shape`).  One launch
+on chip with G thread block clusters of C CTAs (C in 1..16; G > 1, a
+"region group", only where the whole launch fits the card at once), the
+shape with the least makespan of the regions' bytes per CTA over the
+clusters the card runs at once (:func:`int8_cost`,
+:func:`int8_launch_shape`; ``cluster=`` forces C or ``(C, G)``).  One launch
 takes a table of buckets and a table of their regions, computed here
 once per layout (:func:`int8_group_regions`, longest first) and kept as
-a small device tensor.  A cluster keeps ``cluster * 57,344`` values of its
-region in shared memory; a longer region spills the rest of each CTA's
+a small device tensor.  A region's G * C CTAs keep ``G * C * 57,344`` of
+its values in shared memory; a longer region spills the rest of each CTA's
 slice to its bucket's ``[padded]`` scratch tensor, which the wrapper
 allocates only then (:func:`int8_plan`).  The store is updated IN PLACE
 (the JAX programs donate it); ``pulled`` is a fresh tensor.  On a CPU
@@ -229,14 +231,27 @@ def _geometry(grads, store, bidir: bool, compress: bool,
 # -- the int8 kernel's regions and launch shape -------------------------------
 
 INT8_SMEM_FLOATS = 57_344  # csrc/ring_int8.cu kMaxSmemFloats (224 KiB)
-# CTAs per region the launcher chooses from: 1 (no DSMEM traffic) up to 16;
-# 8 is the largest portable cluster size, 9-16 are non-portable ones.
+# CTAs per cluster the launcher chooses from: 1 (no DSMEM traffic) up to
+# 16; 8 is the largest portable cluster size, 9-16 are non-portable ones.
 INT8_CLUSTERS = tuple(range(16, 0, -1))
+# Clusters per region (a region group): 1 up to csrc/ring_int8.cu
+# kMaxGroups, taken only where the whole launch fits the card at once.
+INT8_GROUPS = tuple(range(1, 33))
 INT8_MAX_GROUP = 48  # csrc/ring_int8.cu kMaxGroup: buckets per launch
 # The fixed cost of one sweep of a region (a hop's barrier, its first loads
 # in flight), counted in the bytes a CTA streams meanwhile (about 1.3 us at
 # 25 GB/s, an H100 SM's share of HBM when every SM streams).
 INT8_HOP_BYTES = 32 << 10
+# What a region group adds to each sweep, in the same bytes: the clusters'
+# maxima meeting in global memory (a slot written, the group's slots polled
+# from L2) and a one-wave launch's SMs sharing HBM.  Fitted on an H100 to
+# the host-free times of every launch shape of the n = 2 bucket, the
+# 8-rank and dp 4 x kv 2 buckets and both cross-process int8 launches
+# (PERF.md section 6): it picks the fastest shape of each within 0.3 %.
+INT8_GROUP_HOP_BYTES = 160 << 10
+# Bytes per spilled value per hop: 8 written and read back, and the
+# premium the same fit puts on them.
+INT8_SPILL_BYTES = 12
 
 
 def int8_regions(geo: RingGeometry, padded: int):
@@ -288,12 +303,12 @@ def int8_group_regions(layout: Int8Layout) -> np.ndarray:
 
 
 class Int8Plan(NamedTuple):
-    """How the int8 kernel lays a launch onto clusters of ``cluster``
-    CTAs: ``slice`` values per CTA of the longest region, the first
-    ``smem_floats`` of them in shared memory; ``scratch`` the values of
-    scratch the spilling buckets take (each its ``[padded]``; 0 when
-    nothing spills); ``vec`` whether every bucket's regions take float4.
-    Per bucket: ``spills`` and ``vecs``."""
+    """How the int8 kernel lays a launch onto ``groups`` clusters of
+    ``cluster`` CTAs per region: ``slice`` values per CTA of the longest
+    region, the first ``smem_floats`` of them in shared memory;
+    ``scratch`` the values of scratch the spilling buckets take (each its
+    ``[padded]``; 0 when nothing spills); ``vec`` whether every bucket's
+    regions take float4.  Per bucket: ``spills`` and ``vecs``."""
 
     cluster: int
     nregions: int
@@ -303,18 +318,33 @@ class Int8Plan(NamedTuple):
     vec: bool
     spills: Tuple[bool, ...]
     vecs: Tuple[bool, ...]
+    groups: int = 1
 
 
-def _slices(lengths: np.ndarray, cluster: int) -> np.ndarray:
-    """Values per CTA: ``round4(ceil(len / cluster))``, as the kernel
-    cuts a region."""
-    return -(-(-(-lengths // cluster)) // 4) * 4
+def _slices(lengths: np.ndarray, parts: int) -> np.ndarray:
+    """Values per CTA: ``round4(ceil(len / parts))``, as the kernel cuts a
+    region into ``parts`` = clusters x CTAs slices."""
+    return -(-(-(-lengths // parts)) // 4) * 4
 
 
-def _plan_rows(table: np.ndarray, lengths, cluster: int) -> Int8Plan:
+def int8_slices(length: int, cluster: int, groups: int = 1):
+    """The ``(first value, count)`` of each CTA's slice of a region of
+    ``length`` values, in the kernel's order (slice ``member * cluster +
+    rank``): the slices tile the region, the last ones may be empty."""
+    parts = cluster * groups
+    width = int(_slices(np.int64(length), parts))
+    out = []
+    for j in range(parts):
+        lo = min(j * width, length)
+        out.append((lo, min(lo + width, length) - lo))
+    return out
+
+
+def _plan_rows(table: np.ndarray, lengths, cluster: int,
+               groups: int = 1) -> Int8Plan:
     """The :class:`Int8Plan` of a region table over buckets whose scratch
     takes ``lengths[b]`` values each."""
-    slices = _slices(table[:, 1], cluster)
+    slices = _slices(table[:, 1], cluster * groups)
     longest = int(slices.max()) if len(table) else 0
     smem = max(min(longest, INT8_SMEM_FLOATS), 4)
     spills = [False] * len(lengths)
@@ -325,28 +355,31 @@ def _plan_rows(table: np.ndarray, lengths, cluster: int) -> Int8Plan:
         vecs[b] &= bool(row[0] % 4 == 0 and row[1] % 4 == 0)
     scratch = sum(p for p, sp in zip(lengths, spills) if sp)
     return Int8Plan(cluster, len(table), longest, smem, scratch, all(vecs),
-                    tuple(spills), tuple(vecs))
+                    tuple(spills), tuple(vecs), groups)
 
 
 @functools.lru_cache(maxsize=256)
-def int8_plan(layout: Int8Layout, cluster: int) -> Int8Plan:
-    """The :class:`Int8Plan` of a launch's buckets at a cluster size."""
+def int8_plan(layout: Int8Layout, cluster: int, groups: int = 1) -> Int8Plan:
+    """The :class:`Int8Plan` of a launch's buckets at ``groups`` clusters
+    of ``cluster`` CTAs per region."""
     return _plan_rows(int8_group_regions(layout), [p for _, p in layout],
-                      cluster)
+                      cluster, groups)
 
 
 def _cost_rows(table: np.ndarray, ns: np.ndarray, plan: Int8Plan,
                active: int) -> Optional[int]:
     """:func:`int8_cost` of a region table whose rows walk rings of
     ``ns[row]`` ranks."""
-    if active <= 0:
+    if active <= 0 or (plan.groups > 1 and len(table) * plan.groups > active):
         return None
     if not len(table):
         return 0
-    slices = _slices(table[:, 1], plan.cluster)
+    slices = _slices(table[:, 1], plan.cluster * plan.groups)
     spilled = slices - np.minimum(slices, plan.smem_floats)
-    cost = (slices * (ns + 3) * 4 + spilled * 8 * (ns - 1)
+    cost = (slices * (ns + 3) * 4 + spilled * INT8_SPILL_BYTES * (ns - 1)
             + (ns + 1) * INT8_HOP_BYTES)
+    if plan.groups > 1:
+        return int((cost + (ns + 1) * INT8_GROUP_HOP_BYTES).max())
     if len(cost) <= active:
         return int(cost.max())
     slots = [0] * active
@@ -355,21 +388,25 @@ def _cost_rows(table: np.ndarray, ns: np.ndarray, plan: Int8Plan,
     return max(slots)
 
 
-def int8_cost(layout: Int8Layout, cluster: int,
-              active: int) -> Optional[int]:
-    """The launch's makespan in bytes per CTA at ``cluster`` CTAs per
-    region with ``active`` co-resident clusters (None when none fit): the
-    launcher's measure for choosing a cluster size.  Each region row costs
-    what one of its CTAs moves, ``slice * (n+3) * 4`` bytes, plus 8 more
-    bytes per spilled value on each of the n-1 hops that carry it, plus
-    :data:`INT8_HOP_BYTES` for each of its n+1 sweeps; the rows, longest
-    first, each go to the least loaded of the ``active`` cluster slots, as
-    the block scheduler hands out clusters."""
+def int8_cost(layout: Int8Layout, cluster: int, active: int,
+              groups: int = 1) -> Optional[int]:
+    """The launch's makespan in bytes per CTA at ``groups`` clusters of
+    ``cluster`` CTAs per region with ``active`` co-resident clusters (None
+    when none fit, or when a region group's launch would not fit at once):
+    the launcher's measure for choosing a launch shape.  Each cluster of a
+    region row costs what one of its CTAs moves, ``slice * (n+3) * 4``
+    bytes, plus :data:`INT8_SPILL_BYTES` per spilled value on each of the
+    n-1 hops that carry it, plus :data:`INT8_HOP_BYTES` for each of its
+    n+1 sweeps (and :data:`INT8_GROUP_HOP_BYTES` more in a group).  One
+    cluster per region: the rows, longest first, each go to the least
+    loaded of the ``active`` cluster slots, as the block scheduler hands
+    out clusters; a group's launch runs in one wave, so its makespan is
+    its longest row."""
     if active <= 0:
         return None
     table = int8_group_regions(layout)
     n = np.array([geo.n for geo, _ in layout], dtype=np.int64)[table[:, 4]]
-    return _cost_rows(table, n, int8_plan(layout, cluster), active)
+    return _cost_rows(table, n, int8_plan(layout, cluster, groups), active)
 
 
 def _occupancy(cluster: int, smem_floats: int, mode: int,
@@ -387,22 +424,45 @@ def _mode(plan: Int8Plan) -> int:
     return 4 if plan.vec else (0 if any(plan.vecs) else 1)
 
 
-def int8_pick_cluster(layout: Int8Layout, active: Dict[int, int]) -> int:
-    """The cluster size of :data:`INT8_CLUSTERS` with the least
-    :func:`int8_cost`, given the co-resident clusters ``active`` the card
-    allows at each size (ties go to the larger cluster).  On an H100 at
-    the main path's 16 regions, 7 clusters of 16 CTAs fit (3 waves) but 8
-    of 14 do (2 waves)."""
-    costs = {c: int8_cost(layout, c, active.get(c, 0)) for c in INT8_CLUSTERS}
-    fits = [c for c in INT8_CLUSTERS if costs[c] is not None]
+def int8_shapes(nregions: int, active: Dict[int, int]):
+    """The ``(cluster, groups)`` launch shapes the card runs for
+    ``nregions`` regions: every cluster size with a co-resident cluster
+    at one cluster per region, and a region group wherever every region's
+    clusters fit the card at once; fewer groups first."""
+    return [(c, g) for g in INT8_GROUPS for c in INT8_CLUSTERS
+            if active.get(c, 0) > 0
+            and (g == 1 or nregions * g <= active[c])]
+
+
+def _pick(costs: Dict[tuple, Optional[int]]) -> Tuple[int, int]:
+    """The least costly shape of ``costs`` (ties: fewer groups, then the
+    larger cluster, as :func:`int8_shapes` orders them)."""
+    fits = [k for k, v in costs.items() if v is not None]
     if not fits:
         raise RuntimeError(f"the card runs no cluster of {INT8_CLUSTERS} "
                            f"CTAs for the int8 ring")
-    return min(fits, key=lambda c: costs[c])
+    return min(fits, key=lambda k: costs[k])
+
+
+def int8_pick_cluster(layout: Int8Layout,
+                      active: Dict[int, int]) -> Tuple[int, int]:
+    """The ``(cluster, groups)`` of :func:`int8_shapes` with the least
+    :func:`int8_cost`, given the co-resident clusters ``active`` the card
+    allows at each cluster size.  On an H100 (7 clusters of 10-16 CTAs
+    at once, 9 of 9, 15 of 8 and 7, 17 of 6, 22 of 5, 30 of 4, 39 of 3,
+    66 of 2, 132 of 1) the main path's 16 regions take 3 waves of 16
+    CTAs, and the 4 regions at n = 2 16 clusters of 2 CTAs each, in one
+    wave."""
+    nregions = len(int8_group_regions(layout))
+    return _pick({(c, g): int8_cost(layout, c, active[c], g)
+                  for c, g in int8_shapes(nregions, active)})
 
 
 @functools.lru_cache(maxsize=64)
 def _launch_shape(layout: Int8Layout, device_index: int):
+    """``((cluster, groups), co-resident clusters per cluster size)``: the
+    occupancy at a size is asked at its one-cluster plan's shared memory,
+    the most any group count of that size takes."""
     active = {}
     with torch.cuda.device(device_index):
         for c in INT8_CLUSTERS:
@@ -425,19 +485,63 @@ def int8_launch_shape(n: int, padded, kv_shards: Optional[int] = None,
                       bidir: bool = True, device="cuda") -> dict:
     """The int8 kernel's launch shape on the card of ``device`` for one
     bucket of ``padded`` values, or for the group of bucket lengths
-    ``padded`` (at most :data:`INT8_MAX_GROUP`): the chosen cluster size,
-    its plan, the co-resident clusters the card allows at each candidate
-    size, the waves of clusters and the cost of each candidate."""
+    ``padded`` (at most :data:`INT8_MAX_GROUP`): the chosen cluster size
+    and group count, its plan, the co-resident clusters the card allows
+    at each cluster size, the waves of clusters and the cost of each
+    shape the card runs (keys ``"CxG"``)."""
     layout = int8_layout(n, padded, kv_shards, bidir)
     log.check(len(layout) <= INT8_MAX_GROUP, "more buckets than one launch")
-    cluster, active = _launch_shape(layout, _device_index(torch.device(device)))
-    plan = int8_plan(layout, cluster)
+    (cluster, groups), active = _launch_shape(
+        layout, _device_index(torch.device(device)))
+    plan = int8_plan(layout, cluster, groups)
     shape = plan._asdict()
     del shape["spills"], shape["vecs"]
     return dict(shape, max_active_clusters=active,
-                waves=-(-plan.nregions // active[cluster]),
-                cost={c: int8_cost(layout, c, active[c])
-                      for c in INT8_CLUSTERS})
+                waves=_waves(plan.nregions, groups, active[cluster]),
+                cost={f"{c}x{g}": int8_cost(layout, c, active[c], g)
+                      for c, g in int8_shapes(plan.nregions, active)})
+
+
+def _waves(nregions: int, groups: int, active: int) -> int:
+    """Waves of clusters: a region group's launch runs in one."""
+    return 1 if groups > 1 else -(-nregions // active)
+
+
+def _shape_arg(cluster) -> Optional[Tuple[int, int]]:
+    """A forced launch shape: ``cluster`` CTAs (one cluster per region),
+    ``(cluster, groups)``, or None for the launcher's choice."""
+    if cluster is None:
+        return None
+    c, g = (cluster, 1) if isinstance(cluster, int) else cluster
+    log.check(c in INT8_CLUSTERS and g in INT8_GROUPS,
+              f"no int8 launch shape {cluster!r}")
+    return int(c), int(g)
+
+
+_EXCHANGE: Dict[tuple, torch.Tensor] = {}
+
+
+def _exchange(nregions: int, groups: int, device: torch.device,
+              stream: int):
+    """The zeroed exchange words of a region group's launch on ``stream``
+    (``csrc/ring_int8.cu``: 2 * groups slots and a count per region row),
+    or None for one cluster per region.  Each launch leaves them zeroed,
+    so one allocation per size and stream serves every launch of that
+    size there (launches on one stream run in order; two streams never
+    share words), and none is ever freed: a captured graph keeps its
+    address."""
+    if groups == 1:
+        return None
+    key = (nregions * (2 * groups + 1), device, stream)
+    buf = _EXCHANGE.get(key)
+    if buf is None:
+        log.check(device.type != "cuda"
+                  or not torch.cuda.is_current_stream_capturing(),
+                  "a region group's first launch of a shape on a stream "
+                  "must come before that stream's capture")
+        buf = _EXCHANGE[key] = torch.zeros(key[0], dtype=torch.int64,
+                                           device=device)
+    return buf
 
 
 def _device_index(dev: torch.device) -> int:
@@ -451,20 +555,22 @@ def _region_table(layout: Int8Layout, device: torch.device):
 
 
 def _launch_int8(grads_list, stores, pulled, geos, code: int, lr: float,
-                 with_ag: bool, cluster: Optional[int] = None) -> int:
+                 with_ag: bool, cluster=None) -> int:
     """Launches of ``pstt_ring_int8`` over non-empty buckets, at most
-    :data:`INT8_MAX_GROUP` per launch, each at ``cluster`` CTAs per
-    region or at the size its layout's plan picks.  ``pulled`` holds a
-    ``[padded]`` tensor or None per bucket.  Returns the launch count."""
+    :data:`INT8_MAX_GROUP` per launch, each at the forced ``cluster``
+    (CTAs, or ``(CTAs, groups)``) or at the shape its layout's plan
+    picks.  ``pulled`` holds a ``[padded]`` tensor or None per bucket.
+    Returns the launch count."""
     dev = stores[0].device
     stream = _native.stream_ptr(dev)
     live = [i for i, s in enumerate(stores) if s.numel()]
+    forced = _shape_arg(cluster)
     made = 0
     for lo in range(0, len(live), INT8_MAX_GROUP):
         part = live[lo:lo + INT8_MAX_GROUP]
         layout = tuple((geos[i], stores[i].numel()) for i in part)
-        size = cluster or _launch_shape(layout, _device_index(dev))[0]
-        plan = int8_plan(layout, size)
+        size, groups = forced or _launch_shape(layout, _device_index(dev))[0]
+        plan = int8_plan(layout, size, groups)
         spill_slots = _slots([stores[i] for i in part], plan.spills,
                              torch.float32, dev)
         desc = np.empty((len(part), 7), dtype=np.int64)
@@ -474,10 +580,12 @@ def _launch_int8(grads_list, stores, pulled, geos, code: int, lr: float,
                          p.data_ptr() if p is not None else 0,
                          sc.data_ptr() if sc is not None else 0,
                          stores[i].numel(), geos[i].n, int(plan.vecs[row]))
+        xchg = _exchange(plan.nregions, groups, dev, stream)
         kv = geos[part[0]].kv
         _native.call(
             "pstt_ring_int8", desc.ctypes.data, len(part),
             _region_table(layout, dev).data_ptr(), plan.nregions, size,
+            groups, xchg.data_ptr() if xchg is not None else None,
             plan.smem_floats, code, lr, int(with_ag or kv), int(kv), stream,
         )
         made += 1
@@ -989,28 +1097,34 @@ def int8_peer_regions(n: int, padded: int, kv_shards: Optional[int],
     return Int8PeerPlan(np.ascontiguousarray(table[order]), tuple(vecs))
 
 
+def _peer_costs(key: tuple, lengths: tuple, n: int,
+                active: Dict[int, int]) -> dict:
+    """:func:`int8_cost`-style makespan of each ``(cluster, groups)`` the
+    card runs for an int8 launch across processes (``key``:
+    :func:`int8_peer_regions`' arguments)."""
+    table = int8_peer_regions(*key).table
+    ns = np.full(len(table), n, dtype=np.int64)
+    return {(c, g): _cost_rows(table, ns, _plan_rows(table, lengths, c, g),
+                               active[c])
+            for c, g in int8_shapes(len(table), active)}
+
+
 @functools.lru_cache(maxsize=64)
 def _peer_launch_shape(key: tuple, lengths: tuple, n: int,
                        device_index: int) -> tuple:
-    """``(cluster, co-resident clusters per size, cost per size)`` of an
-    int8 launch across processes: the size with the least
-    :func:`int8_cost`-style makespan over the co-resident clusters the
-    card allows (``key``: :func:`int8_peer_regions`' arguments)."""
+    """``((cluster, groups), co-resident clusters per size, cost per
+    shape)`` of an int8 launch across processes: the shape with the
+    least makespan over the co-resident clusters the card allows."""
     plan = int8_peer_regions(*key)
-    ns = np.full(len(plan.table), n, dtype=np.int64)
     mode = 4 if all(plan.vecs) else (0 if any(plan.vecs) else 1)
-    costs, active = {}, {}
+    active = {}
     with torch.cuda.device(device_index):
         for c in INT8_CLUSTERS:
             p = _plan_rows(plan.table, lengths, c)
             active[c] = _occupancy(c, p.smem_floats, mode, len(lengths),
                                    peers=True)
-            costs[c] = _cost_rows(plan.table, ns, p, active[c])
-    fits = [c for c in INT8_CLUSTERS if costs[c] is not None]
-    if not fits:
-        raise RuntimeError(f"the card runs no cluster of {INT8_CLUSTERS} "
-                           f"CTAs for the int8 ring")
-    return min(fits, key=lambda c: costs[c]), active, costs
+    costs = _peer_costs(key, lengths, n, active)
+    return _pick(costs), active, costs
 
 
 def _peer_key(pieces, padded: int, kv_shards, bidir: bool):
@@ -1026,16 +1140,17 @@ def int8_peer_launch_shape(pieces, padded: int,
                            kv_shards: Optional[int] = None,
                            bidir: bool = True, device="cuda") -> dict:
     """The launch shape :func:`ring_int8_peers` picks for ``pieces`` on
-    the card of ``device``: the cluster size, its regions, the clusters
-    the card runs at once at each size, the waves and each size's
-    cost."""
+    the card of ``device``: the cluster size and group count, its
+    regions, the clusters the card runs at once at each size, the waves
+    and the cost of each shape the card runs (keys ``"CxG"``)."""
     key, lengths, n = _peer_key(pieces, padded, kv_shards, bidir)
-    cluster, active, costs = _peer_launch_shape(
+    (cluster, groups), active, costs = _peer_launch_shape(
         key, lengths, n, _device_index(torch.device(device)))
     regions = len(int8_peer_regions(*key).table)
-    return {"cluster": cluster, "regions": regions,
+    return {"cluster": cluster, "groups": groups, "regions": regions,
             "max_active_clusters": active,
-            "waves": -(-regions // active[cluster]), "cost": costs}
+            "waves": _waves(regions, groups, active[cluster]),
+            "cost": {f"{c}x{g}": v for (c, g), v in costs.items()}}
 
 
 @functools.lru_cache(maxsize=256)
@@ -1049,7 +1164,7 @@ def ring_int8_peers(pieces, store: torch.Tensor,
                     pulled: Optional[torch.Tensor], padded: int,
                     handle: str = "sum", with_ag: bool = True,
                     kv_shards: Optional[int] = None, bidir: bool = True,
-                    cluster: Optional[int] = None) -> int:
+                    cluster=None) -> Tuple[int, int]:
     """The int8 wire-compressed K4 across processes: ``pieces`` lists
     this process's store pieces as ``(row addresses, first element,
     length, store offset)``, each piece's n rank rows (``[padded]`` f32;
@@ -1061,8 +1176,9 @@ def ring_int8_peers(pieces, store: torch.Tensor,
     1-D store at full precision; the 2-D store takes the dequantized
     all-gather) and, on the 1-D ring with ``with_ag``, ``pulled`` (laid
     out like ``store``) takes the dequantized values of the pieces.  One
-    launch of ``pstt_ring_int8_peers`` (cluster size as :func:`int8_cost`
-    picks it, or ``cluster``); CUDA only.  Returns the cluster size."""
+    launch of ``pstt_ring_int8_peers`` (the shape :func:`int8_cost`
+    picks, or ``cluster``: CTAs, or ``(CTAs, groups)``); CUDA only.
+    Returns ``(cluster, groups)``."""
     log.check(store.device.type == "cuda",
               "ring_int8_peers runs on the card (a CPU group takes "
               "ring_push_pull_peers_reference)")
@@ -1092,22 +1208,25 @@ def ring_int8_peers(pieces, store: torch.Tensor,
 def _launch_int8_peers(pieces, store, pulled, padded: int, n: int,
                        code: int, lr: float, with_ag: bool,
                        kv_shards: Optional[int], bidir: bool,
-                       cluster: Optional[int]) -> int:
+                       cluster) -> Tuple[int, int]:
     """The launch of :func:`ring_int8_peers` (its checks done): the
     pieces' region table, the row-address table of each piece, the bucket
-    table with each piece's pointers; returns the cluster size."""
+    table with each piece's pointers; returns ``(cluster, groups)``."""
     kv = kv_shards is not None
     key, lengths, _ = _peer_key(pieces, padded, kv_shards, bidir)
     plan = int8_peer_regions(*key)
     dev = store.device
-    size = cluster or _peer_launch_shape(key, lengths, n,
-                                         _device_index(dev))[0]
-    p = _plan_rows(plan.table, lengths, size)
+    size, groups = (_shape_arg(cluster)
+                    or _peer_launch_shape(key, lengths, n,
+                                          _device_index(dev))[0])
+    p = _plan_rows(plan.table, lengths, size, groups)
     scratch = _slots([store.narrow(0, 0, ln) for ln in lengths], p.spills,
                      torch.float32, dev)
     rows = _device_table(tuple(int(a) for addrs, *_ in pieces
                                for a in addrs), dev)
     regions = _device_table(tuple(plan.table.reshape(-1).tolist()), dev)
+    stream = _native.stream_ptr(dev)
+    xchg = _exchange(len(plan.table), groups, dev, stream)
     b = store.element_size()
     desc = np.zeros((len(pieces), 9), dtype=np.int64)
     for j, ((_, start, length, local), sc) in enumerate(zip(pieces,
@@ -1117,10 +1236,11 @@ def _launch_int8_peers(pieces, store, pulled, padded: int, n: int,
                    else 0, sc.data_ptr() if sc is not None else 0,
                    padded, n, int(plan.vecs[j]), int(start), 0)
     _native.call("pstt_ring_int8_peers", desc.ctypes.data, len(pieces),
-                 regions.data_ptr(), len(plan.table), size, p.smem_floats,
-                 code, lr, int(with_ag or kv), int(kv),
-                 _native.stream_ptr(dev))
-    return size
+                 regions.data_ptr(), len(plan.table), size, groups,
+                 xchg.data_ptr() if xchg is not None else None,
+                 p.smem_floats, code, lr, int(with_ag or kv), int(kv),
+                 stream)
+    return size, groups
 
 
 def ring_peers_reference(pieces, store: torch.Tensor,

@@ -295,6 +295,123 @@ def test_int8_ring_cluster_sizes(dev, n, padded, bidir, kv, with_ag,
                 kw, with_ag, run)
 
 
+@pytest.mark.parametrize("n,padded,bidir,kv", [
+    (2, 10_240_000, True, None),  # n = 2: 4 regions of 2,560,000 (spill)
+    (3, 3 * 1001, True, None),  # odd regions: the scalar walk
+    (4, 2 * 24676, True, 2),  # 2-D, a short last sub-chunk
+])
+@pytest.mark.parametrize("with_ag", [True, False])
+def test_int8_every_launch_shape(dev, n, padded, bidir, kv, with_ag):
+    """Every ``(cluster, groups)`` the card runs for the bucket, forced
+    through the C entry: region groups (G clusters meeting each hop's
+    scale in global memory) and one cluster per region, each with 0
+    elements off the plain version."""
+    geo = ring.ring_geometry(n, padded, torch.float32, bidir, True, kv)
+    layout = ((geo, padded),)
+    _, active = ring._launch_shape(layout, dev.index or 0)
+    shapes = ring.int8_shapes(len(ring.int8_group_regions(layout)), active)
+    assert any(g > 1 for _, g in shapes), active
+    grads, store = _randn((n, padded), 23, dev), _randn((padded,), 24, dev)
+    kw = dict(bidir=bidir, compress=True, kv_shards=kv)
+    sp = store.clone()
+    outp = (ring.ring_push_pull_reference if with_ag
+            else ring.ring_push_reference)(grads, sp, "sum", **kw)
+    for shape in shapes:
+        sk = store.clone()
+        outk = torch.empty_like(sk) if with_ag else None
+        ring._launch_int8([grads], [sk], [outk], [geo], 0, 0.0, with_ag,
+                          shape)
+        torch.cuda.synchronize()
+        assert int((sk != sp).sum()) == 0, shape
+        if with_ag:
+            assert int((outk != outp).sum()) == 0, shape
+
+
+def test_int8_region_group_graph_replays_alike(dev):
+    """A CUDA graph of 20 region-group launches, replayed twice from the
+    same store, gives the same bits both times, and those of 20 launches
+    of one cluster per region: each launch leaves its exchange words
+    zeroed for the next (a captured launch keeps its parameters)."""
+    n, padded = 4, 4 * 4096
+    grads, store = _randn((n, padded), 25, dev), _randn((padded,), 26, dev)
+    geo = ring.ring_geometry(n, padded, torch.float32, True, True)
+    sk, out = store.clone(), torch.empty_like(store)
+    for shape in ((2, 4), (1, 8)):
+        def step():
+            ring._launch_int8([grads], [sk], [out], [geo], 0, 0.0, True,
+                              shape)
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            step()  # the stream's exchange words exist before the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(20):
+                step()
+        got = []
+        for _ in range(2):
+            sk.copy_(store)
+            graph.replay()
+            torch.cuda.synchronize()
+            got.append((sk.clone(), out.clone()))
+        sk.copy_(store)
+        for _ in range(20):
+            ring._launch_int8([grads], [sk], [out], [geo], 0, 0.0, True, 1)
+        torch.cuda.synchronize()
+        for a, b in got:
+            assert torch.equal(a, sk) and torch.equal(b, out), shape
+        del graph
+
+
+def test_int8_region_groups_on_two_streams_at_once(dev):
+    """Region-group launches of one shape on two streams at once: each
+    stream has exchange words of its own, so neither reads the other's
+    slots or counts, and both give the bits of one cluster per region."""
+    n, padded = 4, 4 * 4096
+    geo = ring.ring_geometry(n, padded, torch.float32, True, True)
+    grads = [_randn((n, padded), 41 + i, dev) for i in range(2)]
+    stores = [_randn((padded,), 43 + i, dev) for i in range(2)]
+    want = []
+    for g, s in zip(grads, stores):
+        sk, out = s.clone(), torch.empty_like(s)
+        for _ in range(10):
+            ring._launch_int8([g], [sk], [out], [geo], 0, 0.0, True, 1)
+        want.append((sk, out))
+    got = [(s.clone(), torch.empty_like(s)) for s in stores]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(10):
+        for st, g, (sk, out) in zip(streams, grads, got):
+            with torch.cuda.stream(st):
+                ring._launch_int8([g], [sk], [out], [geo], 0, 0.0, True,
+                                  (2, 2))
+    torch.cuda.synchronize()
+    used = {k[2] for k in ring._EXCHANGE}
+    assert {st.cuda_stream for st in streams} <= used
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_a_region_group_too_large_for_the_card_is_refused(dev):
+    """A group whose clusters would not all be resident at once is
+    refused by the C entry (the clusters would wait for one another
+    forever), and nothing runs."""
+    n, padded = 8, 10_240_000
+    geo = ring.ring_geometry(n, padded, torch.float32, True, True)
+    _, active = ring._launch_shape(((geo, padded),), dev.index or 0)
+    grads, store = _randn((n, padded), 27, dev), _randn((padded,), 28, dev)
+    sk = store.clone()
+    too_many = active[2] // 16 + 1  # 16 regions
+    with pytest.raises(RuntimeError):
+        ring._launch_int8([grads], [sk], [None], [geo], 0, 0.0, False,
+                          (2, too_many))
+    torch.cuda.synchronize()
+    assert torch.equal(sk, store)
+
+
 def test_int8_ring_main_path_launch_shape(dev):
     """At the main path's shapes the launcher allocates no scratch and
     needs no more waves than 16-CTA clusters would."""
@@ -780,6 +897,8 @@ def test_sparse_push_is_three_launches_without_a_library_sort(dev,
     """Each push calls the sort's C entry once and then its own (the long
     runs and, beside them, the short runs): three kernels on the card, and
     no torch.sort or argsort on the way."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -807,12 +926,17 @@ def test_sparse_push_is_three_launches_without_a_library_sort(dev,
     assert calls == ["pstt_sparse_sort", "pstt_sparse_scatter_add",
                      "pstt_sparse_sort", "pstt_sparse_row_adagrad"]
     # The profiler now and then returns a window without device events:
-    # such a window is taken again.
+    # such a window is taken again.  It may also place a kernel's start
+    # before its launch and drop a kernel that starts outside the window,
+    # so the window opens and closes on idle host time (chip_smoke.py's
+    # PROFILE_PADS).
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             sr.scatter_add(store, idx, rows, 8, 131_072)
             torch.cuda.synchronize()
+            time.sleep(0.05)
         names = [ev.name for ev in prof.events()
                  if ev.device_type == DeviceType.CUDA]
         if names:
@@ -1328,8 +1452,10 @@ def test_int8_peers_match_the_single_process_int8_ring(dev, n, B, padded,
     scales and the quantizer's exact division near ties included; the
     1-D store keeps full precision and the pulled area takes the
     dequantized chunks, the 2-D store the dequantized values.  Then at
-    1 and 16 CTAs a cluster, ``sum`` against the plain version (``sgd``'s
-    FMA is the kernels' own, which the single-process launch shares)."""
+    1 and 16 CTAs a cluster, the launcher's shape and a region group of
+    clusters of 2 CTAs (as many as fit at once), ``sum`` against the
+    plain version (``sgd``'s FMA is the kernels' own, which the
+    single-process launch shares)."""
     grads = _randn((n, padded), 33, dev)
     store = _randn((padded,), 34, dev)
     addrs = [grads.data_ptr() + r * padded * 4 for r in range(n)]
@@ -1369,7 +1495,18 @@ def test_int8_peers_match_the_single_process_int8_ring(dev, n, B, padded,
             assert torch.equal(st[o:o + m], single[a:a + m])
             if pl is not None and with_ag:
                 assert torch.equal(pl[o:o + m], want[a:a + m])
-    for cluster in (1, 16):
+    shapes = {1, 16}
+    for segs, st in zip(procs, stores):
+        if st.numel():
+            pieces = [(addrs, a, m, o) for a, m, o in segs if m]
+            shape = ring.int8_peer_launch_shape(pieces, padded, B,
+                                                device=dev)
+            regions = shape["regions"]
+            shapes |= {(shape["cluster"], shape["groups"]),
+                       (2, max(1, min(32, shape["max_active_clusters"][2]
+                                      // regions)))}
+    assert any(not isinstance(c, int) and c[1] > 1 for c in shapes)
+    for cluster in sorted(shapes, key=str):
         for segs, st, b in zip(procs, stores, before):
             if not st.numel():
                 continue
@@ -1387,6 +1524,49 @@ def test_int8_peers_match_the_single_process_int8_ring(dev, n, B, padded,
             assert torch.equal(st, ref)
             if pl is not None:
                 assert torch.equal(pl, rpl)
+
+
+@pytest.mark.parametrize("B", [None, 2])
+def test_int8_peers_every_launch_shape(dev, B):
+    """One stand-in process's pieces at the main path's width (8 ranks
+    1-D: 4 chunks; dp 4 x kv 2: 4 pieces; 8 regions either way) through
+    ``ring_int8_peers`` at every ``(cluster, groups)`` the card runs,
+    each with 0 elements off the plain version."""
+    n, padded = (8, 10_240_000) if B is None else (4, 10_240_000)
+    grads = _randn((n, padded), 35, dev)
+    store = _randn((padded,), 36, dev)
+    addrs = [grads.data_ptr() + r * padded * 4 for r in range(n)]
+    if B is None:
+        chunk = padded // n
+        segs = [(r * chunk, chunk, r * chunk) for r in range(n // 2)]
+    else:
+        geo = ring.ring_geometry(n, padded, torch.float32, True, True, B)
+        segs, off = [], 0
+        for r in range(n * B // 2):
+            d, k = divmod(r, B)
+            lo = min(d * geo.sub, geo.period)
+            m = min(geo.sub, geo.period - lo)
+            segs.append((k * geo.period + lo, m, off))
+            off += m
+    st = torch.cat([store[a:a + m] for a, m, _ in segs])
+    pieces = [(addrs, a, m, o) for a, m, o in segs]
+    ref = st.clone()
+    rpl = torch.empty_like(st) if B is None else None
+    ring.ring_peers_reference([(grads, a, m, o) for a, m, o in segs], ref,
+                              rpl, padded, "sum", compress=True, kv_shards=B)
+    shape = ring.int8_peer_launch_shape(pieces, padded, B, device=dev)
+    assert shape["regions"] == 8 and shape["groups"] > 1, shape
+    assert shape["waves"] == 1
+    for key in shape["cost"]:
+        c, g = (int(x) for x in key.split("x"))
+        got = st.clone()
+        pl = torch.empty_like(st) if B is None else None
+        assert ring.ring_int8_peers(pieces, got, pl, padded, "sum",
+                                    kv_shards=B, cluster=(c, g)) == (c, g)
+        torch.cuda.synchronize()
+        assert int((got != ref).sum()) == 0, key
+        if pl is not None:
+            assert int((pl != rpl).sum()) == 0, key
 
 
 _IPC_CHILD = r"""

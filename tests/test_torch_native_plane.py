@@ -289,6 +289,71 @@ def test_mixed_native_storm_bit_equal_to_jax(tmp_path, jax_core_dir, mix):
         assert rep["native"] == [want] * len(roles), (pkg, roles, rep)
 
 
+@pytest.mark.parametrize("plane", ["native", "python"])
+def test_chunked_push_racing_set_request_handle_applies_every_key(plane):
+    """A chunked push (2 keys of 1 MB in 256 KiB chunks, streamed to the
+    server as whole-key partials) that reaches a port server before its
+    ``set_request_handle``: the server holds it until the handle and its
+    apply pool exist, so every key is applied and the pull is exact.
+    (A JAX server drops the first partial here but opens the stream at
+    the next one, and that key is never applied: ROADMAP Queue 3.)"""
+    import threading
+
+    from pslite_tpu_torch.utils.network import get_available_port
+
+    class Watched(threading.Event):
+        """The server's handle event; ``waiting`` tells that a request
+        waits on it."""
+
+        def __init__(self):
+            super().__init__()
+            self.waiting = threading.Event()
+
+        def wait(self, timeout=None):
+            self.waiting.set()
+            return super().wait(timeout)
+
+    env = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+           "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "DMLC_PS_ROOT_PORT": str(get_available_port()),
+           "DMLC_NODE_HOST": "127.0.0.1", "PS_VAN_TYPE": "tcp",
+           "PS_CHUNK_BYTES": str(256 << 10),
+           "PS_NATIVE": "1" if plane == "native" else "0"}
+    nodes = [tps.Postoffice(r, env=Environment(env))
+             for r in ("scheduler", "server", "worker")]
+    threads = [threading.Thread(target=po.start) for po in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert all(po.van.ready.is_set() for po in nodes)
+    srv = tps.KVServer(0, postoffice=nodes[1])
+    srv._handle_set = watched = Watched()
+    w = tps.KVWorker(0, 0, postoffice=nodes[2])
+    try:
+        r = nodes[2].get_server_key_ranges()[0]
+        keys = np.array([r.begin + 1, r.begin + 2], np.uint64)
+        vals = np.random.default_rng(3).standard_normal(
+            2 * 256_000, dtype=np.float32)
+        ts = w.push(keys, vals)
+        # the push's first chunk is at the server before the handle
+        assert watched.waiting.wait(30)
+        srv.set_request_handle(tps.KVServerDefaultHandle())
+        w.wait(ts)
+        out = np.zeros_like(vals)
+        w.wait(w.pull(keys, out))
+        np.testing.assert_array_equal(out, vals)
+        assert srv.streams_opened == 1  # applied through the partials
+    finally:
+        for app in (w, srv):
+            app.stop()
+        threads = [threading.Thread(target=po.finalize) for po in nodes]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+
+
 def test_both_cores_in_one_process_export_their_own_symbols(jax_lib):
     """The JAX core exports what its Makefile leaves visible; the port's
     exports the ``psl_*`` API and nothing else, so neither interposes on

@@ -22,6 +22,8 @@ from pslite_tpu_torch.ops import _native
 from pslite_tpu_torch.ops import ring_collective as ring
 from pslite_tpu_torch.utils.logging import CheckError
 
+from test_torch_ring_int8 import _jax_compressed, check_exchange, walk_region
+
 
 class _Memory:
     """Tensors by address: resolves a pointer to (tensor, element
@@ -46,10 +48,6 @@ class _Memory:
 def _host_words(ptr: int, count: int) -> np.ndarray:
     return np.ctypeslib.as_array(
         (ctypes.c_longlong * count).from_address(ptr)).copy()
-
-
-def _walk_order(n, c, step):
-    return [(c + k * step) % n for k in range(1, n + 1)]
 
 
 def _emulate(mem: _Memory, calls: list):
@@ -77,8 +75,10 @@ def _emulate(mem: _Memory, calls: list):
                 dst.copy_(ring._apply_handle(dst, acc, code, lr))
             return
         assert name == "pstt_ring_int8_peers"
-        (desc_p, count, regions_p, nregions, cluster, smem, code, lr, gather,
-         stp, _stream) = args
+        (desc_p, count, regions_p, nregions, cluster, groups, xchg, smem,
+         code, lr, gather, stp, _stream) = args
+        check_exchange(xchg, nregions, groups,
+                       lambda p: mem.at(p)[0])
         desc = _host_words(desc_p, 9 * count).reshape(count, 9)
         regions, roff = mem.at(regions_p)
         regions = regions[roff:roff + 5 * nregions].view(nregions, 5)
@@ -88,24 +88,17 @@ def _emulate(mem: _Memory, calls: list):
             rows = [mem.at(a) for a in table[toff:toff + n].tolist()]
             st, so = mem.at(sp)
             idx = slice(so + start - off, so + start - off + length)
-            order = _walk_order(n, chunk, step)
-            t, o = rows[order[0]]
-            acc = t[o + start:o + start + length].clone()
-            for r in order[1:]:
+            pulled = None
+            if pp:
+                pl, po = mem.at(pp)
+                pulled = pl[po + start - off:po + start - off + length]
+
+            def read(r):
                 t, o = rows[r]
-                q, sc = ring._quantize_regions(acc)
-                acc = ring._fma_f32(q, sc.expand_as(q),
-                                    t[o + start:o + start + length])
-            up = ring._apply_handle(st[idx], acc, code, lr)
-            if gather:
-                q, sc = ring._quantize_regions(up)
-                pv = q * sc
-                if pp:
-                    pl, po = mem.at(pp)
-                    pl[po + start - off:po + start - off + length] = pv
-                st[idx] = pv if stp else up
-            else:
-                st[idx] = up
+                return t[o + start:o + start + length]
+
+            walk_region(read, st[idx], pulled, n, chunk, step, code, lr,
+                        gather, stp, cluster, groups)
     return call
 
 
@@ -146,6 +139,9 @@ def emulated(monkeypatch):
         return mem.add(real(values, device))
 
     monkeypatch.setattr(ring, "_device_table", table)
+    real_exchange = ring._exchange
+    monkeypatch.setattr(ring, "_exchange",
+                        lambda *a: mem.add(real_exchange(*a)))
     return mem, calls
 
 
@@ -191,11 +187,12 @@ def test_reduce_peers_tables_drive_the_kernel(emulated, n, B, padded, dtype,
                                         (2, 4, 4 * 700), (4, 2, 3 * 8192)])
 @pytest.mark.parametrize("handle,with_ag", [("sum", True), ("sgd:0.05", True),
                                             ("sum", False)])
-@pytest.mark.parametrize("cluster", [1, 16])
+@pytest.mark.parametrize("cluster", [1, 16, (2, 2), (1, 3)])
 def test_int8_peers_tables_drive_the_kernel(emulated, n, B, padded, handle,
                                             with_ag, cluster):
     """The region rows, row tables and piece offsets ``ring_int8_peers``
-    builds, walked as the cluster kernel walks them, give the single-
+    builds, walked as the cluster kernel walks them (one cluster, or a
+    region group of G clusters meeting each hop's scale), give the single-
     process compressed ring's bits: the 1-D store at full precision and
     its dequantized pulled chunks, the 2-D store the dequantized values."""
     mem, calls = emulated
@@ -225,6 +222,31 @@ def test_int8_peers_tables_drive_the_kernel(emulated, n, B, padded, handle,
     assert calls == ["pstt_ring_int8_peers"] * launched
 
 
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_int8_peer_groups_match_jax(emulated, groups):
+    """Two stand-in processes' pieces of a 4-rank compressed ring through
+    ``ring_int8_peers``' tables at G = 1, 2, 3 clusters of 2 CTAs per
+    region, against the JAX package's compressed ring on the same rows:
+    each piece of the store and of the pulled values bit-equal."""
+    mem, calls = emulated
+    grads, store, want = _jax_compressed(4, True, True)
+    padded = store.size
+    rows = [mem.add(torch.from_numpy(grads[r].copy())) for r in range(4)]
+    for segs in _pieces(4, None, padded, torch.float32, True):
+        st = mem.add(torch.from_numpy(np.concatenate(
+            [store[a:a + m] for a, m, _ in segs])))
+        pl = mem.add(torch.full_like(st, float("nan")))
+        pieces = [([t.data_ptr() for t in rows], a, m, o) for a, m, o in segs]
+        ring._launch_int8_peers(pieces, st, pl, padded, 4, 0, 0.0, True,
+                                None, True, (2, groups))
+        for a, m, o in segs:
+            np.testing.assert_array_equal(st[o:o + m].numpy(),
+                                          want[0][a:a + m])
+            np.testing.assert_array_equal(pl[o:o + m].numpy(),
+                                          want[1][a:a + m])
+    assert calls == ["pstt_ring_int8_peers"] * 2
+
+
 def test_int8_peer_regions_cover_whole_pieces():
     """A piece must be whole regions of the compressed ring; each piece's
     regions tile it, longest first across the launch."""
@@ -250,3 +272,30 @@ def test_new_peer_kernels_refuse_the_cpu():
         ring.ring_int8_peers([([0] * 4, 0, 2100, 0)], store, None, 2100,
                              kv_shards=2)
     assert sum(ring.launches.values()) == 0
+
+
+# The co-resident clusters an H100 80GB HBM3 runs at each cluster size
+# for the launch across processes (``cudaOccupancyMaxActiveClusters`` on
+# the card, PERF.md section 6).
+H100_PEERS = {**{c: 7 for c in range(10, 17)}, 9: 9, 8: 15, 7: 15, 6: 17,
+              5: 22, 4: 30, 3: 39, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("B", [None, 2])
+def test_h100_planner_walks_each_peer_region_with_a_group(B):
+    """One process's pieces at the main path's width (8 ranks 1-D: 4
+    chunks, 8 regions of 643,072 values; dp 4 x kv 2: 4 pieces, 8
+    regions) take 8 clusters of 2 CTAs per region: 64 clusters, 128
+    CTAs, one wave, no spill (one cluster of 16 CTAs per region took 2
+    waves)."""
+    P = 10_240_000
+    n = 8 if B is None else 4
+    segs = _pieces(n, B, P, torch.float32, True)[0]
+    pieces = [([16 * r for r in range(n)], a, m, o) for a, m, o in segs]
+    key, lengths, n_ = ring._peer_key(pieces, P, B, True)
+    c, g = ring._pick(ring._peer_costs(key, lengths, n_, H100_PEERS))
+    assert (c, g) == (2, 8)
+    table = ring.int8_peer_regions(*key).table
+    assert len(table) * g <= H100_PEERS[c]
+    plan = ring._plan_rows(table, lengths, c, g)
+    assert plan.scratch == 0 and plan.slice <= ring.INT8_SMEM_FLOATS

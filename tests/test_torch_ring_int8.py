@@ -14,6 +14,7 @@ and the ResNet-50 trace's group holds its regions on chip from 2 CTAs up.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -133,7 +134,7 @@ def test_main_path_plan():
 ])
 def test_launcher_cost_picks_cluster(active, want):
     full = {c: active.get(c, 0) for c in ring.INT8_CLUSTERS}
-    assert ring.int8_pick_cluster(_one(8, P), full) == want
+    assert ring.int8_pick_cluster(_one(8, P), full) == (want, 1)
 
 
 def test_launcher_raises_without_a_cluster():
@@ -210,7 +211,7 @@ _H100_LIKE = {1: 132, 2: 66, 3: 44, 4: 32, 5: 24, 6: 22, 7: 16, 8: 15,
 def test_group_cost_picks_cluster(active, want):
     layout = _trace_layout()
     full = {c: active.get(c, 0) for c in ring.INT8_CLUSTERS}
-    assert ring.int8_pick_cluster(layout, full) == want
+    assert ring.int8_pick_cluster(layout, full) == (want, 1)
 
 
 def test_group_cost_is_the_longest_first_makespan():
@@ -241,17 +242,71 @@ def test_int8_wrapper_on_cpu_runs_the_plain_version():
     assert sum(ring.launches.values()) == 0
 
 
+def _slice_scale(v, cluster, groups):
+    """The scale a region group reaches for the values ``v`` of one
+    region: each CTA's max |v| over its slice (``int8_slices``), the
+    cluster's max over its CTAs, the region's over the group's clusters;
+    then ``max(amax * f32(1/127), 1e-30)``, as the kernel's
+    ``scale_of``."""
+    cta = [float(v[a:a + m].abs().max()) if m else 0.0
+           for a, m in ring.int8_slices(len(v), cluster, groups)]
+    per_cluster = [max(cta[g * cluster:(g + 1) * cluster])
+                   for g in range(groups)]
+    amax = torch.tensor(max(per_cluster), dtype=torch.float32)
+    return torch.clamp_min(amax * torch.tensor(ring._INV127),
+                           ring._MIN_RING_SCALE)
+
+
+def _quantize_slices(v, cluster, groups):
+    scale = _slice_scale(v, cluster, groups)
+    return torch.clamp(torch.round(v / scale), -127, 127), scale
+
+
+def walk_region(read, store, pulled, n, chunk, step, code, lr, gather, stp,
+                cluster, groups):
+    """One region row walked as the kernel walks it: ``read(rank)`` the
+    rank's values of the region, every hop's scale from the slices'
+    maxima of a group of ``groups`` clusters of ``cluster`` CTAs.
+    Updates ``store`` (and ``pulled``) in place."""
+    acc = read((chunk + step) % n).clone()
+    for k in range(2, n + 1):
+        q, sc = _quantize_slices(acc, cluster, groups)
+        acc = ring._fma_f32(q, sc.expand_as(q), read((chunk + k * step) % n))
+    up = ring._apply_handle(store, acc, code, lr)
+    if gather:
+        q, sc = _quantize_slices(up, cluster, groups)
+        pv = q * sc
+        if pulled is not None:
+            pulled.copy_(pv)
+        store.copy_(pv if stp else up)
+    else:
+        store.copy_(up)
+
+
+def check_exchange(xchg, nregions, groups, tensors_at):
+    """A region group's launch gets zeroed exchange words, 2 * groups + 1
+    per region row; one cluster per region gets none."""
+    if groups == 1:
+        assert not xchg
+        return
+    words = tensors_at(xchg)
+    assert words.dtype == torch.int64
+    assert words.numel() == nregions * (2 * groups + 1)
+    assert not bool(words.any())
+
+
 def _emulated_kernel(tensors):
     """A stand-in for ``pstt_ring_int8`` that walks each row of the
-    launch's region table with the plain version's arithmetic, reading the
-    bucket table the wrapper passes (pointers resolved through
-    ``tensors``)."""
+    launch's region table with the plain version's arithmetic and the
+    kernel's slices of each region (``walk_region``), reading the bucket
+    table the wrapper passes (pointers resolved through ``tensors``)."""
     calls = []
 
-    def call(name, desc_ptr, count, regions_ptr, nregions, cluster, smem,
-             code, lr, gather, stp, stream):
+    def call(name, desc_ptr, count, regions_ptr, nregions, cluster, groups,
+             xchg, smem, code, lr, gather, stp, stream):
         assert name == "pstt_ring_int8"
-        calls.append((count, nregions, cluster, smem))
+        calls.append((count, nregions, cluster, groups, smem))
+        check_exchange(xchg, nregions, groups, tensors.__getitem__)
         desc = np.ctypeslib.as_array(
             (ctypes.c_longlong * (7 * count)).from_address(desc_ptr))
         desc = desc.reshape(count, 7)
@@ -261,21 +316,49 @@ def _emulated_kernel(tensors):
             gp, sp, pp, scp, padded, n, _ = desc[b].tolist()
             g, st = tensors[gp].view(n, padded), tensors[sp]
             idx = slice(start, start + length)
-            acc = g[(chunk + step) % n, idx].clone()
-            for k in range(2, n + 1):
-                q, sc = ring._quantize_regions(acc)
-                acc = ring._fma_f32(q, sc.expand_as(q),
-                                    g[(chunk + k * step) % n, idx])
-            up = ring._apply_handle(st[idx], acc, code, lr)
-            if gather:
-                q, sc = ring._quantize_regions(up)
-                pv = q * sc
-                if pp:
-                    tensors[pp][idx] = pv
-                st[idx] = pv if stp else up
-            else:
-                st[idx] = up
+            walk_region(lambda r: g[r, idx], st[idx],
+                        tensors[pp][idx] if pp else None, n, chunk, step,
+                        code, lr, gather, stp, cluster, groups)
     return call, calls
+
+
+@pytest.mark.parametrize("length", [1, 7, 1001, 643_072, 2_560_000])
+@pytest.mark.parametrize("cluster,groups", [(16, 1), (1, 32), (4, 4),
+                                            (3, 11), (5, 3)])
+def test_group_slices_cover_each_region_once(length, cluster, groups):
+    """The G * C slices of a region (slice ``member * C + rank``) follow
+    one another, tile it exactly once and are multiples of 4 values but
+    the last non-empty one."""
+    sl = ring.int8_slices(length, cluster, groups)
+    assert len(sl) == cluster * groups
+    ends = np.cumsum([m for _, m in sl])
+    assert [a for a, _ in sl] == [0] + ends[:-1].tolist()
+    assert int(ends[-1]) == length
+    width = int(ring._slices(np.int64(length), cluster * groups))
+    assert width % 4 == 0 and width * cluster * groups >= length
+    assert all(m == width for a, m in sl if a + m < length)
+
+
+def _drive(monkeypatch, tensors):
+    """``_native.call`` replaced by the emulated kernel, with the launch's
+    region table and exchange words remembered in ``tensors``; returns
+    the list of the emulated calls."""
+    from pslite_tpu_torch.ops import _native
+
+    def remember(t):
+        if t is not None and t.numel():
+            tensors[t.data_ptr()] = t
+        return t
+
+    real_table, real_exchange = ring._region_table, ring._exchange
+    call, calls = _emulated_kernel(tensors)
+    monkeypatch.setattr(_native, "call", call)
+    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(ring, "_region_table",
+                        lambda *a: remember(real_table(*a)))
+    monkeypatch.setattr(ring, "_exchange",
+                        lambda *a: remember(real_exchange(*a)))
+    return calls
 
 
 @pytest.mark.parametrize("n,pads,kv,cluster,with_ag", [
@@ -283,39 +366,25 @@ def _emulated_kernel(tensors):
     (3, [3 * 1001, 3 * 8192], None, 1, False),
     (4, [2 * 700, 2 * 9, 2 * 24676], 2, 4, True),
     (4, [4 * (37 + i) for i in range(50)], None, 16, True),
+    (4, [4 * 1001, 4 * 5, 0, 4 * 4096, 4 * 77], None, (2, 3), True),
+    (3, [3 * 1001, 3 * 8192], None, (1, 2), False),
+    (4, [2 * 700, 2 * 9, 2 * 24676], 2, (3, 2), True),
 ])
 def test_launcher_tables_drive_the_kernel(monkeypatch, n, pads, kv, cluster,
                                           with_ag):
     """``_launch_int8``'s bucket and region tables, run by an emulated
-    kernel, give the plain version's bits: one launch per 48 buckets, an
-    empty bucket skipped."""
-    from pslite_tpu_torch.ops import _native
-
+    kernel (each hop's scale met from the slices' maxima of G clusters of
+    C CTAs), give the plain version's bits: one launch per 48 buckets, an
+    empty bucket skipped, a region group's exchange words zeroed."""
     gen = torch.Generator().manual_seed(7)
     grads = [torch.randn(n, p, generator=gen) for p in pads]
     stores = [torch.randn(p, generator=gen) for p in pads]
     pulled = [torch.empty(p) if with_ag else None for p in pads]
     geos = [ring.ring_geometry(n, p, torch.float32, True, True, kv)
             for p in pads]
-    tensors = {}
-
-    def remember(t):
-        if t is not None and t.numel():
-            tensors[t.data_ptr()] = t
-
-    real_table = ring._region_table
-
-    def region_table(layout, device):
-        t = real_table(layout, device)
-        remember(t)
-        return t
-
-    for t in grads + stores + pulled:
-        remember(t)
-    call, calls = _emulated_kernel(tensors)
-    monkeypatch.setattr(_native, "call", call)
-    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
-    monkeypatch.setattr(ring, "_region_table", region_table)
+    tensors = {t.data_ptr(): t for t in grads + stores + pulled
+               if t is not None and t.numel()}
+    calls = _drive(monkeypatch, tensors)
     want = [s.clone() for s in stores]
     outs = [ring._ring_reference(g, w, "sum", True, with_ag, True, kv)
             for g, w in zip(grads, want)]
@@ -323,9 +392,106 @@ def test_launcher_tables_drive_the_kernel(monkeypatch, n, pads, kv, cluster,
                              cluster)
     live = sum(1 for p in pads if p)
     assert made == len(calls) == -(-live // ring.INT8_MAX_GROUP)
-    assert all(c[2] == cluster for c in calls)
+    shape = (cluster, 1) if isinstance(cluster, int) else cluster
+    assert all(c[2:4] == shape for c in calls)
     for s, w in zip(stores, want):
         assert torch.equal(s, w)
     if with_ag:
         for p, o in zip(pulled, outs):
             assert torch.equal(p, o)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_compressed(n, bidir, with_ag):
+    """``pslite_tpu.ops.ring_collective``'s compressed ring on n devices
+    of the virtual CPU mesh (interpret mode, as tests/test_ring_collective
+    runs it), over seeded inputs: ``(grads, store, [store, pulled])``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as PS
+
+    from pslite_tpu.ops import ring_collective as jring
+    from pslite_tpu.parallel.mesh import shard_map_compat as shard_map
+
+    chunk = jring.ring_chunk_len(n * 1024, n, bidir=bidir, compress=True)
+    rng = np.random.RandomState(22)
+    grads = rng.randn(n, n * chunk).astype(np.float32)
+    store = rng.randn(n * chunk).astype(np.float32)
+    fn = jring.ring_push_pull if with_ag else jring.ring_push
+
+    def body(s, g):
+        return fn(g[0].reshape(n, chunk), s, lambda s, a: s + a, "kv", n,
+                  bidir=bidir, compress=True)
+
+    f = jax.jit(shard_map(
+        body, mesh=Mesh(np.array(jax.devices()[:n]), ("kv",)),
+        in_specs=(PS("kv"), PS("kv", None)),
+        out_specs=(PS("kv"), PS(None)) if with_ag else PS("kv")))
+    outs = f(jnp.asarray(store), jnp.asarray(grads))
+    return grads, store, [np.asarray(o)
+                          for o in (outs if with_ag else (outs,))]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("n,bidir,with_ag", [(4, True, True),
+                                             (2, False, False)])
+def test_region_groups_match_jax(monkeypatch, groups, n, bidir, with_ag):
+    """One bucket through ``_launch_int8`` at G = 1, 2, 3 clusters of 2
+    CTAs per region, the emulated kernel meeting each hop's scale from
+    the slices' maxima, against the JAX package's compressed ring: the
+    store and the pulled values bit-equal."""
+    grads, store, want = _jax_compressed(n, bidir, with_ag)
+    g, st = torch.from_numpy(grads.copy()), torch.from_numpy(store.copy())
+    pulled = torch.empty_like(st) if with_ag else None
+    geo = ring.ring_geometry(n, st.numel(), torch.float32, bidir, True)
+    tensors = {t.data_ptr(): t for t in (g, st, pulled) if t is not None}
+    calls = _drive(monkeypatch, tensors)
+    ring._launch_int8([g], [st], [pulled], [geo], 0, 0.0, with_ag,
+                      (2, groups))
+    assert [c[2:4] for c in calls] == [(2, groups)]
+    np.testing.assert_array_equal(st.numpy(), want[0])
+    if with_ag:
+        np.testing.assert_array_equal(pulled.numpy(), want[1])
+
+
+# The co-resident clusters an H100 80GB HBM3 runs at each cluster size
+# for the single-process launch of one float4 bucket
+# (``cudaOccupancyMaxActiveClusters`` on the card, PERF.md section 6).
+H100 = {**{c: 7 for c in range(10, 17)}, 9: 9, 8: 15, 7: 15, 6: 17, 5: 22,
+        4: 30, 3: 39, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("n,kv,want", [
+    (2, None, (2, 16)),  # 4 regions: one wave of 128 CTAs, 28 % spilled
+    (8, None, (16, 1)),  # 16 regions: a one-wave split spills; 3 waves
+    (4, 2, (16, 1)),  # the dp sub-rings' 16 regions, likewise
+])
+def test_h100_planner_splits_regions_only_where_it_pays(n, kv, want):
+    """On the H100's occupancies the planner walks n = 2's 4 regions
+    with 16 clusters of 2 CTAs each, all 64 clusters at once; the main
+    path's 16 regions keep one cluster of 16 CTAs each, where a one-wave
+    group would spill 29 % of every slice."""
+    layout = _one(n, P, True, kv)
+    c, g = ring.int8_pick_cluster(layout, H100)
+    assert (c, g) == want
+    plan = ring.int8_plan(layout, c, g)
+    if g > 1:
+        assert plan.nregions * g <= H100[c]  # one wave
+        assert ring._waves(plan.nregions, g, H100[c]) == 1
+        assert plan.slice * c * g >= P // (2 * n)
+    assert ring.int8_cost(layout, c, H100[c], g) == min(
+        v for v in (ring.int8_cost(layout, cc, H100[cc], gg)
+                    for cc, gg in ring.int8_shapes(plan.nregions, H100))
+        if v is not None)
+
+
+def test_region_groups_only_where_the_launch_fits_at_once():
+    """A region group is priced only where every region's G clusters are
+    resident together; one cluster per region is priced at any count."""
+    shapes = ring.int8_shapes(4, H100)
+    assert (1, 32) in shapes and (2, 16) in shapes and (16, 1) in shapes
+    assert (2, 17) not in shapes and (16, 2) not in shapes
+    assert all(g == 1 or 4 * g <= H100[c] for c, g in shapes)
+    layout = _one(2, P)
+    assert ring.int8_cost(layout, 2, H100[2], 17) is None
+    assert ring.int8_cost(layout, 16, 7, 2) is None

@@ -86,12 +86,12 @@ def test_multi_shm_rails_and_ici_shm_worker(tmp_path, jax_reference):
     assert not leftover_segments(env)
 
 
-def _port_cluster(van_env):
+def _port_cluster(van_env, ns=None, handle=None):
     env = {"DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
            "DMLC_PS_ROOT_URI": "127.0.0.1",
            "DMLC_PS_ROOT_PORT": str(get_available_port()),
            "DMLC_NODE_HOST": "127.0.0.1", "PS_VAN_TYPE": "shm", **van_env}
-    env["PS_SHM_NS"] = f"torchtest{env['DMLC_PS_ROOT_PORT']}"
+    env["PS_SHM_NS"] = ns or f"torchtest{env['DMLC_PS_ROOT_PORT']}"
     nodes = [tps.Postoffice(r, env=Environment(env))
              for r in ("scheduler", "server", "worker")]
     threads = [threading.Thread(target=po.start) for po in nodes]
@@ -101,7 +101,7 @@ def _port_cluster(van_env):
         t.join(30)
     assert all(po.van.ready.is_set() for po in nodes)
     srv = tps.KVServer(0, postoffice=nodes[1])
-    srv.set_request_handle(tps.KVServerDefaultHandle())
+    srv.set_request_handle(handle or tps.KVServerDefaultHandle())
     return env, nodes, srv, tps.KVWorker(0, 0, postoffice=nodes[2])
 
 
@@ -150,3 +150,95 @@ def test_free_pull_buffer_unlinks_its_segment():
     finally:
         _finalize(nodes, [w, srv])
     assert not leftover_segments(env)
+
+
+class _HeldPushHandle(tps.KVServerDefaultHandle):
+    """The default handle, but a push's values are read only once
+    ``gate`` is set (``arrived`` tells that one is waiting): the pushed
+    payload stays a view of the sender's segment meanwhile."""
+
+    def __init__(self):
+        super().__init__()
+        self.arrived, self.gate = threading.Event(), threading.Event()
+
+    def apply_shard(self, meta, keys, segs):
+        if meta.push:
+            self.arrived.set()
+            assert self.gate.wait(30)
+        return super().apply_shard(meta, keys, segs)
+
+
+def _overlapped_pushes(ns_a, ns_b):
+    """Two shm clusters up at once, each 1 scheduler + 1 server + 1
+    worker: cluster A's push of 2 keys x 16 KiB is held at its server
+    while cluster B pushes other values to the same keys; then A's push
+    is applied, and each worker pulls into a registered (zero-copy) pull
+    buffer.  Returns both clusters' (pushed, pulled) values and their
+    environments; every node is finalized."""
+    held = _HeldPushHandle()
+    a = _port_cluster({}, ns=ns_a, handle=held)
+    b = None
+    try:
+        b = _port_cluster({}, ns=ns_b)
+        keys = np.array([3, 4], np.uint64)
+        va = np.arange(8192, dtype=np.float32)
+        vb = va + 1000
+        ts = a[3].push(keys, va)
+        assert held.arrived.wait(30)
+        b[3].wait(b[3].push(keys, vb))
+        held.gate.set()
+        a[3].wait(ts)
+        out = []
+        for (_env, _nodes, _srv, w), pushed in ((a, va), (b, vb)):
+            buf = w.alloc_pull_buffer(keys, 4096)
+            w.wait(w.pull(keys, buf))
+            out.append((pushed, np.array(buf)))
+            del buf
+            w.free_pull_buffer(keys)
+        return out, a[0], b[0]
+    finally:
+        held.gate.set()
+        for c in (b, a):
+            if c is not None:
+                _finalize(c[1], [c[3], c[2]])
+
+
+def test_two_clusters_sharing_one_namespace_share_their_segments():
+    """Queue 3's shm fault, on the CPU: a push segment is named by the
+    namespace, the sender and receiver ids and the key, so two clusters
+    up at once under one ``PS_SHM_NS`` (chip_smoke's plane legs gave
+    their two clusters one) write one segment.  Cluster A's server reads
+    cluster B's values in place of its own worker's."""
+    ns = f"torchshared{get_available_port()}"
+    ((pa, got_a), (pb, got_b)), env_a, _ = _overlapped_pushes(ns, ns)
+    np.testing.assert_array_equal(got_b, pb)
+    np.testing.assert_array_equal(got_a, pb)  # B's values, not A's
+    assert not np.array_equal(got_a, pa)
+    assert not leftover_segments(env_a)
+
+
+def test_two_clusters_with_their_own_namespaces_are_exact():
+    """The fix: each cluster under its own namespace.  The same
+    overlapped pushes, and each worker pulls exactly its own values
+    through its registered buffer; neither namespace leaves a segment."""
+    port = get_available_port()
+    ((pa, got_a), (pb, got_b)), env_a, env_b = _overlapped_pushes(
+        f"torchns{port}a", f"torchns{port}b")
+    np.testing.assert_array_equal(got_a, pa)
+    np.testing.assert_array_equal(got_b, pb)
+    assert not leftover_segments(env_a) and not leftover_segments(env_b)
+
+
+def test_chip_smoke_plane_legs_take_their_own_namespaces():
+    """``chip_smoke.py``'s plane legs (two clusters up at once) each
+    take a namespace of their own from one ``PS_SHM_NS``; a leg without
+    one gets none."""
+    import chip_smoke
+
+    planes = (("native", {"PS_SHM_RING": "1"}), ("python", {"PS_NATIVE": "0"}))
+    envs = [chip_smoke.leg_env({"PS_SHM_NS": "c3", "ENABLE_RECV_BUFFER": "1"},
+                               plane, env) for plane, env in planes]
+    assert [e["PS_SHM_NS"] for e in envs] == ["c3native", "c3python"]
+    assert all(e["ENABLE_RECV_BUFFER"] == "1" for e in envs)
+    assert envs[0]["PS_SHM_RING"] == "1" and envs[1]["PS_NATIVE"] == "0"
+    assert chip_smoke.leg_env(None, "native", {}) == {}

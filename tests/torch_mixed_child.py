@@ -284,8 +284,15 @@ def main() -> int:
                 apps.append(srv)
 
         def work(po):
-            """The worker's scenario; then every node meets, so the
-            servers save their stores after the last push."""
+            """Every node meets once the servers' handles are set, so no
+            push races a server's ``set_request_handle`` (a JAX server
+            drops a chunked push's first streamed partial when it lands
+            before its apply pool exists, yet opens the stream at the
+            next partial and answers with that key never applied:
+            ROADMAP Queue 3); the worker's scenario; then every node
+            meets again, so the servers save their stores after the last
+            push."""
+            po.barrier(0, mods[id(po)].ALL_GROUP)
             if po.is_worker:
                 worker_scenario(po)
             po.barrier(0, mods[id(po)].ALL_GROUP)

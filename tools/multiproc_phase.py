@@ -45,7 +45,10 @@ Legs, each a cluster of separate processes from the port's launcher
   through ``ring_int8_peers`` across processes (the compressed ring on
   each process's chunks, the owners' dequantized chunks gathered), each
   bit-equal to the single-process compressed ``pstt_ring_int8`` on the 8
-  rows; then each process times the kernel alone.
+  rows; then each process times the kernel alone, at the launcher's
+  ``(cluster, groups)`` and at every other shape the card runs (each
+  held against the launcher's with 0 differing elements; the int8
+  sub-rings of the main leg likewise).
 - ``ici_shm``: the first 2 ``sum`` steps over the shared-memory van.
 - ``dcn``: 2 slice-leader processes, each on ``DeviceGroup(4)`` of
   ``cuda:0`` (K4 with ``assign`` on its own group), and 2 tcp servers:
@@ -446,17 +449,33 @@ def _alone(torch, ring, cs, eng, name: str, compress: bool) -> dict:
                   for rows, segs in layout.runs(me) for seg in segs]
         pulled = torch.empty_like(store) if kv is None else None
         shape = ring.int8_peer_launch_shape(pieces, padded, kv, device=DEV)
-        out["cluster"] = shape["cluster"]
+        out.update(cluster=shape["cluster"], groups=shape["groups"],
+                   waves=shape["waves"])
         out["launch_shape"] = {k: shape[k] for k in
                                ("regions", "waves", "max_active_clusters")}
-        # Each cluster size the card could run, timed: the cost model's
-        # pick beside the measured best.
-        out["by_cluster_ms"] = {
-            c: cs.graph_ms(lambda c=c: ring.ring_int8_peers(
-                pieces, scratch, pulled, padded, "sum", kv_shards=kv,
-                cluster=c), iters=5)
-            for c in (16, 14, 12, 10, 8, 4)
-            if shape["max_active_clusters"][c]}
+        # Every (cluster, groups) the card runs, each held against the
+        # launcher's own shape (0 differing elements; that one against
+        # the plain version below) and timed: the cost model's pick
+        # beside the measured best.
+        want = store.clone()
+        wpl = torch.empty_like(store) if pulled is not None else None
+        ring.ring_int8_peers(pieces, want, wpl, padded, "sum", kv_shards=kv)
+        out["by_cluster_ms"], off = {}, 0
+        for key in shape["cost"]:
+            c, g = (int(x) for x in key.split("x"))
+            got = store.clone()
+            gpl = torch.empty_like(store) if pulled is not None else None
+            ring.ring_int8_peers(pieces, got, gpl, padded, "sum",
+                                 kv_shards=kv, cluster=(c, g))
+            off += int((got != want).sum()) + (
+                int((gpl != wpl).sum()) if gpl is not None else 0)
+            out["by_cluster_ms"][key] = cs.graph_ms(
+                lambda c=c, g=g: ring.ring_int8_peers(
+                    pieces, scratch, pulled, padded, "sum", kv_shards=kv,
+                    cluster=(c, g)), iters=5)
+        if off:
+            raise AssertionError(f"int8 peers: {off} elements differ between "
+                                 f"launch shapes")
 
         def fn():
             ring.ring_int8_peers(pieces, scratch, pulled, padded, "sum",
@@ -481,6 +500,15 @@ def _alone(torch, ring, cs, eng, name: str, compress: bool) -> dict:
                  for a in addrs])
         plain.append((rows[tuple(addrs)], start, n, local))
     pl = torch.empty_like(store) if compress and kv is None else None
+    if compress:
+        ref = store.clone()
+        ring.ring_peers_reference(plain, ref, pl, padded, "sum",
+                                  compress=True, kv_shards=kv)
+        off = int((ref != want).sum()) + (
+            int((pl != wpl).sum()) if pl is not None else 0)
+        if off:
+            raise AssertionError(f"int8 peers: {off} elements differ from "
+                                 f"the plain version")
     out["plain_ms"] = cs.cuda_ms(lambda: ring.ring_peers_reference(
         plain, scratch, pl, padded, "sum", compress=compress, kv_shards=kv),
         iters=1, warmup=0)
@@ -890,7 +918,8 @@ def new_kernel_rows(main, int8, launches, smi) -> list:
                "library_note": "no call walks a ring",
                "across": "2 processes x 4 ranks, IPC peers"}
         if "cluster" in a:
-            row.update(cluster=a["cluster"], by_cluster_ms=a["by_cluster_ms"])
+            row.update(cluster=a["cluster"], groups=a["groups"],
+                       waves=a["waves"], by_cluster_ms=a["by_cluster_ms"])
         rows.append(row)
         print(f"kernel {name} (across 2 processes, IPC peers): alone "
               f"{row['ms']:.4f} ms host-free, {row['ms_host']:.4f} ms "
@@ -899,9 +928,10 @@ def new_kernel_rows(main, int8, launches, smi) -> list:
               f"{a['ring_n']} rows over {a['count']} owned values), share "
               f"{row['bound_ms'] / row['ms']:.2f}, plain "
               f"{row['plain_ms']:.3f} ms, launches {row['launches']}"
-              + (f", cluster {a['cluster']} (regions, waves, clusters "
-                 f"the card runs at once per size: {a['launch_shape']}; "
-                 f"ms by cluster size {a['by_cluster_ms']})"
+              + (f", cluster {a['cluster']} x groups {a['groups']}, "
+                 f"waves {a['waves']} (regions, waves, clusters the card "
+                 f"runs at once per size: {a['launch_shape']}; ms by "
+                 f"cluster x groups {a['by_cluster_ms']})"
                  if "cluster" in a else "")
               + f" [{smi}]")
     return rows
