@@ -43,7 +43,16 @@ line):
    each push split into its three kernels by the profiler (the sort, the
    long runs' walk, the short runs beside it).
    K1-K3 also on bf16 stores (0 differing elements: kernel and plain
-   version round after every operation).
+   version round after every operation).  D1 and D2, the dense engine's
+   reduce programs (``ops/reduce_update.py``), at the bucket over 8
+   worker rows: D1 push_pull and push (f32), push_pull (bf16), every mode
+   with 0 differing elements against the plain version; D2 with its pull
+   for each optimizer (f32, bf16), 0 differing elements against the plain
+   reduction followed by the K1-K3 launch and within K1-K3's tolerances of
+   the all-PyTorch plain version; the trace's 36 buckets in one D1 group
+   launch against the plain version and 36 single launches; each beside
+   the engine's path before it (``earlier_ms``) and ``torch.sum(rows,
+   0)``, the reduction alone in another order.
    ``ms`` is the mean of ITERS calls captured in one CUDA graph and
    replayed, timed with CUDA events (the host is out of the timing);
    ``ms_host`` is the mean of ITERS back-to-back Python calls (the host
@@ -61,9 +70,14 @@ line):
    ``adagrad``, on f32 and bf16 buckets); ``CollectiveEngine`` on a ``make_group((4, 2), ("dp",
    "kv"))`` group with ``worker_axis="dp"`` for ``sum``, int8 and
    ``adam``; and an int8 quantize -> dequantize round trip of the
-   bucket.  Each is checked against a float64 numpy reference, and the
-   ring and quantize results also against their plain versions on the
-   card.  Kernel launch counts are zeroed just before and read just
+   bucket; K1-K3 through ``ps.ops.sgd_update``/``adam_update`` and
+   ``fused_update.adagrad_update`` (f32 and bf16, 2 steps each); and
+   ``KVWorker.push_pull`` with ``PS_ICI_IMPL`` unset (the torch impl, D1/D2:
+   ``sum`` f32 and bf16 with a push and a pull, ``adam:1e-3``, 5 steps
+   each, 0 differing elements against the plain versions on the card;
+   the stateful handles above run D2 too).  Each is checked against a
+   float64 numpy reference, and the ring and quantize results also
+   against their plain versions on the card.  Kernel launch counts are zeroed just before and read just
    after; every kernel must have launched.  Then, with the counts zeroed
    again, the int8 ring at n = 2 (``CollectiveEngine`` on a 2-rank
    group, the spilling shape).  Then, each path with the counts zeroed
@@ -72,8 +86,9 @@ line):
    bucket, as one ``push_pull_group``, through the coalescer (36 tickets
    from 4 threads) and from host numpy grads (serial copies, and
    ``push_pull_multi_stream``'s pinned staging); the grouped bf16, 2-D
-   and int8 rings over the trace; ``KVWorker.replay`` (ring keep all and
-   last, torch, adam) against 8 sequential push_pulls; zero-copy and
+   and int8 rings over the trace and the torch impl's group (one D1
+   launch); ``KVWorker.replay`` (ring keep all and last, torch: D1,
+   adam: D2) against 8 sequential push_pulls; zero-copy and
    registered pulls (a stale handle must raise); the sparse tables (config
    5 through ``KVWorker.push_sparse``/``pull_sparse``, 3 steps with the sum
    handle and 3 with ``row_adagrad:0.01,1e-8``, against float64 numpy and
@@ -87,12 +102,15 @@ line):
    file, a 4-rank restore against ``KVWorker.reshard`` 8 -> 4 and 3 more
    steps of both, within float64's bounds, then back to 8 and onto the
    composite ``(dp 2, kv1 2, kv2 2)`` axis against ``(dp 2, kv 4)``: 0
-   differing elements everywhere; K3, K4 at n = 4 and on the composite
+   differing elements everywhere; D2, K4 at n = 4 and on the composite
    sub-rings, S2 and S3 launched on the recut state; save/restore/async
    and reshard times printed with the host CPU).  The grouped int8 ring
    must count one launch per ``push_pull_group``, and the sparse kernels
    one launch per table and op.  Then the steady-state
-   ``engine.push_pull`` time with device-resident grads, and the steady
+   ``engine.push_pull`` time with device-resident grads (the ``xla/sum``
+   and ``pallas/adam:1e-3`` steps must be one D1/D2 launch: no add
+   kernel or device-to-device copy beside it but adam's step-size
+   scalars), and the steady
    state of the trace's five paths (``resnet50-grouped-int8``: one
    ``push_pull_group`` per step under ``PS_ICI_COMPRESS=int8``) and of
    an 8-step replay (wall and event ms/step, the profiler's device time,
@@ -251,7 +269,7 @@ line):
    1 MB bucket through K4 across processes (``ring_reduce_peers`` and
    ``ring_gather_peers`` over CUDA IPC peers), 5 ``sum`` steps each
    with 0 differing elements against the single-process K4 on all 8
-   rows and its plain version, 2 adam steps (K3 on the owned shards),
+   rows and its plain version, 2 adam steps (D2 on the owned pieces),
    config 5's table pushed and pulled across the processes (bit-exact
    against the single-process engine), ``KVWorker.reshard`` onto 2
    ranks per process and one more exact step; the first 2 steps over
@@ -407,6 +425,18 @@ def within(pairs, rtol: float, atol: float) -> bool:
     )
 
 
+@contextlib.contextmanager
+def uncounted(*modules):
+    """Launches inside the block (a comparison's plain version that
+    launches a kernel of its own) leave the launch counts as they were."""
+    saved = [dict(m.launches) for m in modules]
+    try:
+        yield
+    finally:
+        for m, counts in zip(modules, saved):
+            m.launches.update(counts)
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 def kernel_phase(torch, ring, fu, qz, rt, dev):
@@ -461,6 +491,8 @@ def kernel_phase(torch, ring, fu, qz, rt, dev):
     rows += group_rows(torch, ring, rt, randn)
     rows += replay_rows(torch, ring, randn)
     rows += quantize_rows(torch, qz, randn)
+    from pslite_tpu_torch.ops import reduce_update as ru
+    rows += reduce_rows(torch, ru, fu, rt, randn)
 
     agg = randn(P)
     store = randn(P)
@@ -894,6 +926,159 @@ def replay_rows(torch, ring, randn):
     return rows
 
 
+REDUCE_SRC = "pslite_tpu_torch/csrc/reduce_update.cu"
+LIBRARY_SUM = "torch.sum(rows, 0): the reduction alone, in another order"
+D2_SPECS = {  # kind: (params, rtol of K1-K3, flops per value)
+    "sgd_momentum": ((0.01, 0.9), 1e-6, 4),
+    "adagrad": ((0.01, 1e-8), 1e-6, 7),
+    "adam": ((0.9, 0.999, 1e-8), 1e-5, 12),
+}
+
+
+def _lib(torch, grads):
+    """``library_*`` of a reduce row: one ``torch.sum`` over the rows."""
+    ms, host, why = library_time(torch.sum, grads, 0)
+    return dict(library_ms=ms, library_ms_host=host,
+                library_note=LIBRARY_SUM + (f"; {why}" if why else ""))
+
+
+def reduce_rows(torch, ru, fu, rt, randn):
+    """D1 and D2 (``ops/reduce_update.py``) at the main path's shapes:
+    the 40 x 1 MB bucket over 8 worker rows (D1 push_pull and push on
+    f32, push_pull on bf16; D2 with its pull for each optimizer, f32 and
+    bf16) and the ResNet-50 trace's 36 buckets in one D1 group launch.
+    D1 against its plain version (every mode): 0 differing elements.  D2
+    against the plain reduction followed by the K1-K3 launch
+    (``fused=True``): 0 differing elements; and against the all-PyTorch
+    plain version within K1-K3's tolerances (bf16: 0 differing there
+    too), which gives ``max_abs_err``.  ``earlier_ms`` is the time of the
+    engine's path before this kernel (the plain reduction, then the
+    handle or the K1-K3 launch, then the pulled copy).  The group also
+    against 36 single D1 launches (``singles_*``).  ``library_ms`` is one
+    ``torch.sum(rows, 0)``, the reduction alone in another order (none
+    for the group: no one call reduces 36 buckets).  Bytes: (W+3)*P*b for
+    a push_pull, (W+2)*P*b for a push, (W+5)*P*b for sgd_momentum and
+    adagrad with the pull, (W+7)*P*b for adam."""
+    rows = []
+    for dtype, with_pull in ((torch.float32, True), (torch.float32, False),
+                             (torch.bfloat16, True)):
+        tag = str(dtype).replace("torch.", "")
+        grads = randn(N, P).to(dtype)
+        store = randn(P).to(dtype)
+        pk = torch.empty_like(store) if with_pull else None
+        pp = torch.empty_like(store) if with_pull else None
+        off = 0
+        for handle in ("assign", "sgd:0.05", "sum"):
+            sk, sp = store.clone(), store.clone()
+            ru.reduce_apply(grads, sk, handle, pk)
+            ru.reduce_apply_reference(grads, sp, handle, pp)
+            torch.cuda.synchronize()
+            off += mismatches(sk, sp) + (mismatches(pk, pp) if with_pull
+                                         else 0)
+        ms, ms_host = kernel_times(
+            lambda: ru.reduce_apply(grads, sk, "sum", pk))
+        plain_ms = cuda_ms(
+            lambda: ru.reduce_apply_reference(grads, sp, "sum", pp),
+            iters=5, warmup=1)
+        b_ms, b_by = bound((N + (3 if with_pull else 2)) * P
+                           * dtype.itemsize, N * P)
+        rows.append(dict(
+            name=f"reduce_{'push_pull' if with_pull else 'push'}[{tag}]",
+            route="cuda", source=REDUCE_SRC,
+            replaces="pslite_tpu/parallel/engine.py:84-109,408",
+            max_abs_err=0.0, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+            earlier_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            elements_off_plain=off, **_lib(torch, grads)))
+        del grads, store, sk, sp, pk, pp
+
+    pads = trace_pads(rt, N)
+    grads = [randn(N, p) for p in pads]
+    stores = [randn(p) for p in pads]
+    sk, sp, s1 = ([s.clone() for s in stores] for _ in range(3))
+    outk = ru.reduce_group(grads, sk, "sum")
+    outp = [torch.empty_like(s) for s in sp]
+    out1 = [torch.empty_like(s) for s in s1]
+    for g, s, o in zip(grads, sp, outp):
+        ru.reduce_apply_reference(g, s, "sum", o)
+    for g, s, o in zip(grads, s1, out1):
+        ru.reduce_apply(g, s, "sum", o)
+    torch.cuda.synchronize()
+    off_plain = sum(mismatches(a, b) for a, b in
+                    list(zip(outk, outp)) + list(zip(sk, sp)))
+    off_single = sum(mismatches(a, b) for a, b in
+                     list(zip(outk, out1)) + list(zip(sk, s1)))
+    ms, ms_host = kernel_times(lambda: ru.reduce_group(grads, sk, "sum"))
+    single_ms, single_host = kernel_times(
+        lambda: [ru.reduce_apply(g, s, "sum", o)
+                 for g, s, o in zip(grads, s1, out1)])
+    plain_ms = cuda_ms(lambda: [ru.reduce_apply_reference(g, s, "sum", o)
+                                for g, s, o in zip(grads, sp, outp)],
+                       iters=2, warmup=1)
+    total = sum(pads)
+    b_ms, b_by = bound((N + 3) * total * 4, N * total)
+    rows.append(dict(
+        name="reduce_push_pull_group[float32]", route="cuda",
+        source=REDUCE_SRC, replaces="pslite_tpu/parallel/engine.py:1333",
+        max_abs_err=0.0, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+        earlier_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note=f"no one PyTorch call reduces {len(pads)} buckets' rows",
+        buckets=len(pads), values=total, singles_ms=single_ms,
+        singles_ms_host=single_host, elements_off_plain=off_plain,
+        elements_off_singles=off_single))
+    del grads, stores, sk, sp, s1, outk, outp, out1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        grads = randn(N, P).to(dtype)
+        store = randn(P).to(dtype)
+        mom = randn(P).to(dtype)
+        pos = randn(P).abs().to(dtype)
+        alpha = fu.adam_alpha(torch.ones(1, device=store.device), 1e-3)
+        for kind, (params, rtol, flops) in D2_SPECS.items():
+            state = {"sgd_momentum": (mom,), "adagrad": (pos,),
+                     "adam": ((0.1 * mom).to(dtype),
+                              (0.01 * pos).to(dtype))}[kind]
+            runs = []
+            for fused in (None, True, False):
+                st = tuple(t.clone() for t in state)
+                s, p = store.clone(), torch.empty_like(store)
+                if fused is None:
+                    ru.reduce_update(grads, s, st, kind, params, alpha, p)
+                else:
+                    ru.reduce_update_reference(grads, s, st, kind, params,
+                                               alpha, p, fused=fused)
+                runs.append((s, p) + st)
+            torch.cuda.synchronize()
+            off = sum(mismatches(a, b) for a, b in zip(runs[0], runs[1]))
+            pairs = list(zip(runs[0], runs[2]))
+            if dtype == torch.bfloat16:
+                off += sum(mismatches(a, b) for a, b in pairs)
+            elif not within(pairs, rtol, 1e-6):
+                raise AssertionError(f"reduce_{kind}[{tag}] off the plain "
+                                     f"version by {max_err(pairs)}")
+            err = max_err(pairs)
+            (sk, pk, *stk), (sf, pf, *stf), (sp, pp, *stp) = runs
+            ms, ms_host = kernel_times(lambda: ru.reduce_update(
+                grads, sk, stk, kind, params, alpha, pk))
+            earlier_ms = cuda_ms(lambda: ru.reduce_update_reference(
+                grads, sf, stf, kind, params, alpha, pf, fused=True),
+                iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: ru.reduce_update_reference(
+                grads, sp, stp, kind, params, alpha, pp), iters=5, warmup=1)
+            words = N + (7 if kind == "adam" else 5)
+            b_ms, b_by = bound(words * P * dtype.itemsize, (N + flops) * P)
+            rows.append(dict(
+                name=f"reduce_{kind}[{tag}]", route="cuda",
+                source=REDUCE_SRC,
+                replaces="pslite_tpu/parallel/engine.py:754",
+                max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+                earlier_ms=earlier_ms, bound_ms=b_ms, bound_by=b_by,
+                elements_off_plain=off, **_lib(torch, grads)))
+            del runs, sk, pk, stk, sf, pf, stf, sp, pp, stp
+        del grads, store, mom, pos
+    return rows
+
+
 # -- phase 4: the main path through the user's entry points ------------------
 
 def _adam_ref(s, st, g, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
@@ -1261,6 +1446,105 @@ def drive_quantize(torch, ps, qz, grads_steps):
             "max_abs_err_vs_f64": float(err.max())}
 
 
+def drive_fused_ops(torch, ps, fu, grads_steps):
+    """The fused optimizer updates K1-K3 through their public entry
+    points (``ps.ops.sgd_update``, ``ps.ops.adam_update``,
+    ``ops.fused_update.adagrad_update``) on the bucket, f32 and bf16, 2
+    steps each on the rank-order sum of the 8 rows: against float64 (f32
+    rtol/atol 1e-5; bf16 within 2^-6 of the value plus lr x the update
+    magnitudes so far, as ``drive`` holds the bf16 buckets)."""
+    specs = (("sgd_update", _sgdm_ref, 0.01,
+              lambda s, st, g, t: ps.ops.sgd_update(s, st[0], g, lr=0.01,
+                                                    momentum=0.9)),
+             ("adagrad_update", _adagrad_ref, 0.01,
+              lambda s, st, g, t: fu.adagrad_update(s, st[0], g, lr=0.01)),
+             ("adam_update", _adam_ref, 1e-3,
+              lambda s, st, g, t: ps.ops.adam_update(s, st[0], st[1], g, t,
+                                                     lr=1e-3)))
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, ref, lr, op in specs:
+            store = torch.zeros(P, dtype=dtype, device="cuda")
+            state = tuple(torch.zeros_like(store) for _ in range(2))
+            s64, st = np.zeros(P), {"m": np.zeros(P), "v": np.zeros(P)}
+            bmag, worst = np.zeros(P), 0.0
+            for t in (1, 2):
+                g = torch.from_numpy(grads_steps[t]).cuda().to(dtype)
+                agg = g[0].float().clone()
+                for w in range(1, N):
+                    agg += g[w].float()
+                agg = agg.to(dtype)
+                op(store, state, agg, t)
+                s64 = ref(s64, st, agg.double().cpu().numpy(), t)
+                got = store.double().cpu().numpy()
+                err = np.abs(got - s64)
+                if dtype == torch.float32:
+                    tol = 1e-5 + 1e-5 * np.abs(s64)
+                else:
+                    bmag += np.abs(st["m"]) if name == "sgd_update" else 2.0
+                    tol = 2.0 ** -6 * (np.abs(s64) + lr * bmag)
+                if not (np.all(np.isfinite(got)) and np.all(err <= tol)):
+                    raise AssertionError(f"ps.ops {name} {dtype}: step {t} "
+                                         f"off float64 by {err.max()}")
+                worst = max(worst, float(err.max()))
+            results.append({"config": f"ps.ops {name} {dtype}", "ops": 2,
+                            "max_abs_err_vs_f64": worst})
+    return results
+
+
+def drive_default_impl(torch, ps, ru, fu, Environment, grads_steps):
+    """``KVWorker.push_pull`` with ``PS_ICI_IMPL`` unset (the torch impl:
+    D1/D2) on the 40 x 1 MB bucket, 8 ranks: ``sum`` f32 and bf16 (5
+    push_pulls, then a push and a pull) and ``adam:1e-3`` (5 push_pulls),
+    each pulled value equal to the plain versions run beside it on the
+    card (the reduction, then the handle or the K3 launch: 0 differing
+    elements), their launches left out of the counts."""
+    keys = np.arange(KEYS, dtype=np.uint64)
+    results = []
+    for handle, dtype in (("sum", torch.float32), ("sum", torch.bfloat16),
+                          ("adam:1e-3", torch.float32)):
+        po = ps.Postoffice("worker", env=Environment({
+            "PS_VAN_TYPE": "ici", "PS_ICI_SERVER_HANDLE": handle}))
+        po.van.set_mesh(ps.DeviceGroup(N))
+        po.start()
+        worker = ps.KVWorker(0, 0, postoffice=po)
+        if worker.engine.impl != "torch":
+            raise AssertionError(f"PS_ICI_IMPL unset ran {worker.engine.impl}")
+        worker.register_dense("grads", keys, VAL_LEN, dtype=dtype)
+        store = torch.zeros(P, dtype=dtype, device="cuda")
+        m, v = torch.zeros_like(store), torch.zeros_like(store)
+        step = torch.zeros(1, device="cuda")
+        outs = torch.zeros(P, dtype=dtype)
+        ops = ["push_pull"] * 5 + (["push"] if handle == "sum" else [])
+        differ = 0
+        for k, op in enumerate(ops):
+            g = torch.from_numpy(grads_steps[k]).to(dtype)
+            if op == "push_pull":
+                worker.wait(worker.push_pull(keys, g, outs))
+            else:
+                worker.wait(worker.push(keys, g))
+                worker.wait(worker.pull(keys, outs))
+            with uncounted(ru, fu):
+                rows = g.cuda()
+                if handle == "sum":
+                    ru.reduce_apply_reference(rows, store, "sum")
+                else:
+                    alpha = fu.adam_alpha(step[:1] + 1.0, 1e-3, 0.9, 0.999,
+                                          device=store.device)
+                    ru.reduce_update_reference(
+                        rows, store, (m, v), "adam", (0.9, 0.999, 1e-8),
+                        alpha, fused=True)
+                    step += 1.0
+            differ += mismatches(outs, store.cpu())
+        results.append({"config": f"KVWorker.push_pull PS_ICI_IMPL unset "
+                                  f"{handle} {dtype} (D1/D2)",
+                        "ops": len(ops) + ops.count("push"),
+                        "elements_off_plain": differ})
+        worker.stop()
+        po.finalize()
+    return results
+
+
 def _sum_bound(adds, mag, unit=2.0 ** -24):
     """How far a float sum may stray from float64: every one of its
     ``adds`` adds (n + 1 for an op of n rows into the store) rounds once
@@ -1356,17 +1640,23 @@ def drive_resnet(torch, ps, Environment, rt, host):
 
 def drive_groups(torch, ps, rt, host):
     """``push_pull_group`` of the 36 trace buckets on the other grouped
-    configurations: bf16 (8 ranks), the 2-D sub-rings (dp = 4 x kv = 2)
-    and int8 (8 ranks), two steps each, against float64 (int8: within the
-    summed error bound, relative error < 0.05)."""
+    configurations: bf16 (8 ranks), the 2-D sub-rings (dp = 4 x kv = 2),
+    int8 (8 ranks) and the torch impl (8 ranks: one D1 launch over the
+    36 buckets, JAX's _group_program off the ring), two steps each,
+    against float64 (int8: within the summed error bound, relative error
+    < 0.05)."""
     names = [name for name, _ in rt.make_buckets()]
     results = []
-    for label, group, waxis, dtype, compress in (
-            ("bf16", ps.DeviceGroup(N), None, torch.bfloat16, None),
+    for label, group, waxis, dtype, compress, impl in (
+            ("bf16", ps.DeviceGroup(N), None, torch.bfloat16, None,
+             "pallas"),
             ("2-D dp4xkv2", ps.make_group((4, 2), ("dp", "kv")), "dp",
-             torch.float32, None),
-            ("int8", ps.DeviceGroup(N), None, torch.float32, "int8")):
-        eng = ps.CollectiveEngine(group, impl="pallas", worker_axis=waxis,
+             torch.float32, None, "pallas"),
+            ("int8", ps.DeviceGroup(N), None, torch.float32, "int8",
+             "pallas"),
+            ("torch impl", ps.DeviceGroup(N), None, torch.float32, None,
+             "xla")):
+        eng = ps.CollectiveEngine(group, impl=impl, worker_axis=waxis,
                                   wire_compress=compress)
         rows = eng.num_workers
         grads = [torch.from_numpy(g[:rows]).cuda().to(dtype) for g in host]
@@ -1649,6 +1939,22 @@ def steady_state(torch, ps):
         })
         del eng, inp
     return out
+
+
+def check_reduce_breakdown(r) -> None:
+    """The torch impl's and a stateful handle's step is one D1/D2 launch:
+    ``reduce_kernel`` takes the step's device time, with no PyTorch add
+    or device-to-device copy beside it; the only other kernels allowed
+    are adam's step-size and step-counter scalars (a few microseconds)."""
+    kernels = r["kernels"]
+    if not kernels or "reduce_kernel" not in kernels[0][0]:
+        raise AssertionError(f"{r['cell']}: the step's top kernel is not "
+                             f"D1/D2: {kernels[:3]}")
+    others = [(k, ms) for k, ms in kernels[1:]
+              if ms >= 0.01 or k.startswith("Memcpy")]
+    if others:
+        raise AssertionError(f"{r['cell']}: kernels beside D1/D2 "
+                             f"{others}")
 
 
 def steady_state_trace(torch, ps, rt, Environment):
@@ -6432,6 +6738,8 @@ HELD_KERNELS = {
                     (1e-5, 1e-6)),
     "gather_rows": ("sparse_gather_rows", "gather_rows_reference", (),
                     None),
+    "reduce_apply": ("reduce_push_pull[float32]", "reduce_apply_reference",
+                     (1, 3), None),
 }
 SGD_BAR = (1e-6, 1e-6)
 MODEL_HELD = ("ring_push", "scatter_add", "row_adagrad", "gather_rows")
@@ -6439,6 +6747,14 @@ MODEL_HELD = ("ring_push", "scatter_add", "row_adagrad", "gather_rows")
 
 def _clones(torch, values):
     return [v.clone() if torch.is_tensor(v) else v for v in values]
+
+
+def _held_module(name: str, ring, sr):
+    """The module of a ``HELD_KERNELS`` wrapper."""
+    if name.startswith("reduce_"):
+        from pslite_tpu_torch.ops import reduce_update
+        return reduce_update
+    return ring if name.startswith("ring_") else sr
 
 
 @contextlib.contextmanager
@@ -6449,7 +6765,7 @@ def hold_first_launches(torch, ring, sr, names=MODEL_HELD):
     the record, ``{wrapper: (before, kwargs, after, result)}``."""
     held, real = {}, {}
     for name in names:
-        mod = ring if name.startswith("ring_") else sr
+        mod = _held_module(name, ring, sr)
         real[name] = (mod, getattr(mod, name))
 
         def wrapper(*args, _name=name, **kw):
@@ -6477,11 +6793,12 @@ def check_held(torch, ring, sr, held, label: str) -> dict:
     errs = {}
     for name, (before, kw, after, out) in held.items():
         counter, plain, writes, bar = HELD_KERNELS[name]
-        mod = ring if name.startswith("ring_") else sr
+        mod = _held_module(name, ring, sr)
         args = _clones(torch, before)
         want = getattr(mod, plain)(*args, **kw)
-        pairs = ([(after[i], args[i]) for i in writes] if writes
-                 else [(out, want)])
+        pairs = ([(after[i], args[i]) for i in writes
+                  if i < len(after) and torch.is_tensor(after[i])]
+                 if writes else [(out, want)])
         if name == "ring_push_pull":
             pairs.append((out, want))
         if name.startswith("ring_"):
@@ -6761,6 +7078,7 @@ def main() -> int:
     from pslite_tpu_torch.ops import _native
     from pslite_tpu_torch.ops import fused_update as fu
     from pslite_tpu_torch.ops import quantize as qz
+    from pslite_tpu_torch.ops import reduce_update as ru
     from pslite_tpu_torch.ops import ring_collective as ring
     from pslite_tpu_torch.ops import sparse_rows as sr
     from pslite_tpu_torch.models import embedding as emb
@@ -6864,6 +7182,11 @@ def main() -> int:
             print(f"    the longest run ({r['hot_run']} updates) walks at "
                   f"{r['hot_run_cycles_per_add']:.2f} SM cycles per add "
                   f"(clock probe)")
+        if "earlier_ms" in r:
+            print(f"    the engine's path before it (plain reduction, then "
+                  f"the handle or K1-K3, then the copy): "
+                  f"{r['earlier_ms']:.4f} ms; elements off the plain "
+                  f"version {r['elements_off_plain']}")
         if "steps" in r:
             print(f"    per step of {r['steps']}: {r['ms_per_step']:.4f} ms "
                   f"host-free, {r['ms_host_per_step']:.4f} ms "
@@ -6885,7 +7208,10 @@ def main() -> int:
             drive(torch, ps, Environment, grads_steps)
             + [drive_int8(torch, ps, ring, Environment, grads_steps)]
             + drive_2d(torch, ps, ring, grads_steps)
-            + [drive_quantize(torch, ps, qz, grads_steps)])),
+            + [drive_quantize(torch, ps, qz, grads_steps)]
+            + drive_fused_ops(torch, ps, fu, grads_steps)
+            + drive_default_impl(torch, ps, ru, fu, Environment,
+                                 grads_steps))),
         ("int8 n=2", lambda: [drive_int8_spill(torch, ps, ring,
                                                grads_steps)]),
         ("resnet50 trace", lambda: drive_resnet(torch, ps, Environment, rt,
@@ -6980,11 +7306,13 @@ def main() -> int:
         ring.reset_launches()
         qz.reset_launches()
         sr.reset_launches()
+        ru.reset_launches()
         t_path = time.perf_counter()
         out = run()
         t_path = time.perf_counter() - t_path
         out = record_path(path, out, t_path, {
-            **ring.launches, **fu.launches, **qz.launches, **sr.launches})
+            **ring.launches, **fu.launches, **qz.launches, **sr.launches,
+            **ru.launches})
         results += out
         if path == "msg-config2":
             _loopback_cell[0] = (f"{out[0]['ms_per_round']:.3f} ms/round, "
@@ -6996,7 +7324,7 @@ def main() -> int:
     if lane["error"] is not None:
         raise lane["error"]
     none = {k: 0 for k in {**ring.launches, **fu.launches, **qz.launches,
-                           **sr.launches}}
+                           **sr.launches, **ru.launches}}
     for path, out, t_path in lane["out"]:
         results += record_path(path, out, t_path, none)
     for r in results:
@@ -7016,10 +7344,11 @@ def main() -> int:
     got = {k: path_counts["sparse"][k] for k in want}
     if got != want:
         raise AssertionError(f"sparse path launches {got}, expected {want}")
-    # The elastic path: run A 9 steps, B and C 3 each (K3, the 1-D ring,
-    # S2, S3 once per step), the composite and 2-D engines 3 adam and 3
-    # ring steps each, and 10 timed adam steps.
-    want = {"adam_update": 15 + 6 + 10, "ring_push_pull[float32]": 15,
+    # The elastic path: run A 9 steps, B and C 3 each (D2 adam, the 1-D
+    # ring, S2, S3 once per step), the composite and 2-D engines 3 adam
+    # and 3 ring steps each, and 10 timed adam steps.
+    want = {"reduce_adam[float32]": 15 + 6 + 10,
+            "ring_push_pull[float32]": 15,
             "ring_push_pull_2d[float32]": 6, "sparse_row_adagrad": 15,
             "sparse_gather_rows": 15}
     got = {k: path_counts["elastic"][k] for k in want}
@@ -7044,7 +7373,11 @@ def main() -> int:
                              f"times for 2 groups")
     del grads_steps, host, dev_steps
 
-    for r in steady_state(torch, ps):
+    steady = steady_state(torch, ps)
+    for r in steady:
+        if r["cell"] in ("xla/sum", "pallas/adam:1e-3"):
+            check_reduce_breakdown(r)
+    for r in steady:
         print(f"steady push_pull {r['cell']} 40x1MB: "
               f"{r['event_ms_per_step']:.4f} ms/step (CUDA events), "
               f"{r['wall_ms_per_step']:.4f} ms/step wall, "

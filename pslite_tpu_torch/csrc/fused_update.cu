@@ -20,6 +20,9 @@
 // into one FMA as XLA does, so results may differ from an eager PyTorch
 // evaluation of the same formula in the last bit.
 //
+// The per-element arithmetic is in fused_update.cuh, shared with D2
+// (csrc/reduce_update.cu), which fuses the worker reduction in front of it.
+//
 // Adam's bias-corrected step size alpha_t is read from a 1-element device
 // tensor (the TPU kernel's scalar prefetch), so the step counter never
 // leaves the device.
@@ -40,6 +43,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "fused_update.cuh"
 
 namespace {
 
@@ -84,10 +89,7 @@ __global__ void sgd_kernel(float* __restrict__ store, float* __restrict__ mom,
   load4<VEC>(mom, i, n, m);
   load4<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    m[e] = momentum * m[e] + g[e];
-    s[e] = s[e] - lr * m[e];
-  }
+  for (int e = 0; e < 4; ++e) pstt::sgd_f32(s[e], m[e], g[e], lr, momentum);
   store4<VEC>(mom, i, n, m);
   store4<VEC>(store, i, n, s);
 }
@@ -104,10 +106,7 @@ __global__ void adagrad_kernel(float* __restrict__ store,
   load4<VEC>(acc, i, n, a);
   load4<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    a[e] = a[e] + g[e] * g[e];
-    s[e] = s[e] - lr * g[e] / (sqrtf(a[e]) + eps);
-  }
+  for (int e = 0; e < 4; ++e) pstt::adagrad_f32(s[e], a[e], g[e], lr, eps);
   store4<VEC>(acc, i, n, a);
   store4<VEC>(store, i, n, s);
 }
@@ -128,21 +127,15 @@ __global__ void adam_kernel(float* __restrict__ store, float* __restrict__ m,
   load4<VEC>(v, i, n, vv);
   load4<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    mm[e] = beta1 * mm[e] + c1 * g[e];
-    vv[e] = beta2 * vv[e] + c2 * g[e] * g[e];
-    s[e] = s[e] - alpha_t * mm[e] / (sqrtf(vv[e]) + eps);
-  }
+  for (int e = 0; e < 4; ++e)
+    pstt::adam_f32(s[e], mm[e], vv[e], g[e], alpha_t, beta1, beta2, c1, c2,
+                   eps);
   store4<VEC>(m, i, n, mm);
   store4<VEC>(v, i, n, vv);
   store4<VEC>(store, i, n, s);
 }
 
 // -- bf16 ---------------------------------------------------------------------
-
-__device__ __forceinline__ float rb(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <bool VEC>
 __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
@@ -198,10 +191,7 @@ __global__ void sgd_bf16_kernel(__nv_bfloat16* __restrict__ store,
   load8<VEC>(mom, i, n, m);
   load8<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    m[e] = rb(rb(momentum * m[e]) + g[e]);
-    s[e] = rb(s[e] - rb(lr * m[e]));
-  }
+  for (int e = 0; e < 8; ++e) pstt::sgd_bf16(s[e], m[e], g[e], lr, momentum);
   store8<VEC>(mom, i, n, m);
   store8<VEC>(store, i, n, s);
 }
@@ -218,11 +208,7 @@ __global__ void adagrad_bf16_kernel(__nv_bfloat16* __restrict__ store,
   load8<VEC>(acc, i, n, a);
   load8<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    a[e] = rb(a[e] + rb(g[e] * g[e]));
-    const float den = rb(rb(sqrtf(a[e])) + eps);
-    s[e] = rb(s[e] - rb(rb(lr * g[e]) / den));
-  }
+  for (int e = 0; e < 8; ++e) pstt::adagrad_bf16(s[e], a[e], g[e], lr, eps);
   store8<VEC>(acc, i, n, a);
   store8<VEC>(store, i, n, s);
 }
@@ -244,13 +230,9 @@ __global__ void adam_bf16_kernel(__nv_bfloat16* __restrict__ store,
   load8<VEC>(v, i, n, vv);
   load8<VEC>(agg, i, n, g);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    mm[e] = rb(rb(beta1 * mm[e]) + rb(c1 * g[e]));
-    vv[e] = rb(rb(beta2 * vv[e]) + rb(rb(c2 * g[e]) * g[e]));
-    const float den = rb(rb(sqrtf(vv[e])) + eps);
-    const float num = alpha_t * mm[e];
-    s[e] = s[e] - num / den;  // f32, rounded once by store8
-  }
+  for (int e = 0; e < 8; ++e)  // the store rounded once by store8
+    pstt::adam_bf16(s[e], mm[e], vv[e], g[e], alpha_t, beta1, beta2, c1, c2,
+                    eps);
   store8<VEC>(m, i, n, mm);
   store8<VEC>(v, i, n, vv);
   store8<VEC>(store, i, n, s);

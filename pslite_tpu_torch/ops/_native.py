@@ -27,9 +27,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_update.cu", "ring_push_pull.cu", "ring_int8.cu",
-           "ring_int8_group.cu", "quantize_int8.cu", "sparse_rows.cu")
-HEADERS = ("ring_geometry.cuh", "ring_int8.cuh")
+SOURCES = ("fused_update.cu", "reduce_update.cu", "ring_push_pull.cu",
+           "ring_int8.cu", "ring_int8_group.cu", "quantize_int8.cu",
+           "sparse_rows.cu")
+HEADERS = ("fused_update.cuh", "ring_geometry.cuh", "ring_int8.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "pstt_adagrad_update_bf16": (_P, _P, _P, _L, _F, _F, _P),
     "pstt_adam_update_bf16": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F,
                               _P),
+    "pstt_reduce_update": (_P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P,
+                           _P),
     "pstt_ring_push_pull": (_P, _P, _P, _I, _I, _L, _L, _L, _I, _L, _I, _F,
                             _P),
     "pstt_ring_group": (_P, _I, _I, _I, _F, _P, ctypes.POINTER(_I)),

@@ -3,7 +3,8 @@
 Counterparts of the Pallas kernels in ``pslite_tpu/ops/fused_update.py``
 (``sgd_update`` :51, ``adagrad_update`` :86, ``adam_update`` :128).  The
 CUDA kernels are in ``csrc/fused_update.cu``; its header says what bounds
-them and how.  Each public function updates ``store`` and the optimizer
+them and how.  Their per-element arithmetic is ``csrc/fused_update.cuh``,
+which D2 (``ops/reduce_update.py``) shares.  Each public function updates ``store`` and the optimizer
 state IN PLACE (where the JAX kernels alias their outputs to donated
 inputs) and returns them.
 

@@ -162,7 +162,7 @@ def ring_handle(handle: str) -> Tuple[int, float]:
     if isinstance(handle, str) and (handle == "sgd"
                                     or handle.startswith("sgd:")):
         return 2, float(handle.split(":", 1)[1]) if ":" in handle else 0.01
-    raise ValueError(f"not a ring handle: {handle!r}")
+    raise ValueError(f"not an elementwise server handle: {handle!r}")
 
 
 class RingGeometry(NamedTuple):

@@ -19,10 +19,13 @@ values carry over: ``xla`` means ``torch`` and ``pallas`` means
 ``ring``):
 
 - ``torch``: the counterpart of psum_scatter (2-D: psum over ``dp``) ->
-  handle -> all_gather.  Worker rows are added in rank order, explicitly
-  (the order the JAX CPU mesh's collectives use; ``torch.sum``'s order
-  on CUDA is unspecified), then the handle updates the store, then the
-  pull is a fresh copy.
+  handle -> all_gather, as the JAX engine's ``xla`` programs run it: one
+  launch of D1 (``ops/reduce_update.py``), which adds the worker rows in
+  rank order (the order the JAX CPU mesh's collectives use;
+  ``torch.sum``'s order on CUDA is unspecified), applies the handle to
+  the store and writes the pulled copy in one pass.  A group's buckets
+  take one launch together; a callable handle runs on the reduction
+  alone (D1 in its ``none`` mode, one launch a bucket).
 - ``ring``: the fused ring kernel (``ops/ring_collective.py``) for the
   elementwise handles, with the TPU ring's order of addition: one ring
   over the kv ranks, or (2-D) one sub-ring over the ``dp`` ranks per kv
@@ -35,9 +38,11 @@ the JAX engine.  A compressed 1-D store keeps full precision while the
 pulled values are the dequantized all-gather; on 2-D the store takes the
 pulled values.
 
-Stateful handles (``sgd_momentum``, ``adam``, ``adagrad``) take the
-rank-order reduction and then the fused optimizer kernels
-(``ops/fused_update.py``) on either impl, as the JAX engine does.
+Stateful handles (``sgd_momentum``, ``adam``, ``adagrad``) run D2 on
+either impl, as the JAX engine runs its ``_stateful_program``: the
+rank-order reduction fused with the optimizer arithmetic of the K1-K3
+kernels (``ops/fused_update.py``), store, state and pulled copy in one
+pass.
 
 The store and optimizer state are updated IN PLACE, where the JAX
 programs donate them.  Every result handed to a caller (``pull``,
@@ -91,8 +96,9 @@ bucket's rows and store pieces live in a
 sub-rings, each process its own pieces; with int8 wire compression
 ``ring_int8_peers``, the cluster kernel over the regions of those
 pieces; then ``ring_gather_peers``), and the torch impl and the stateful
-handles run ``rank_order_sum`` over the peers' rows of each owned piece,
-the handle (K1/K2/K3) on those pieces alone, and the same gather; each
+handles run one D1/D2 launch over this process's pieces, each piece's
+rows read through the peers' addresses (``reduce_update.reduce_peers``),
+and the same gather; each
 op syncs the stream and meets a host barrier after writing its rows,
 after the reduce and after the gather.  A compressed 1-D store keeps full
 precision, so its owners also write the dequantized values of their
@@ -117,7 +123,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
-from ..ops import fused_update, ring_collective
+from ..ops import fused_update, reduce_update, ring_collective
 from ..utils import logging as log
 from . import distributed, placement
 from .mesh import DeviceGroup, default_group
@@ -178,18 +184,6 @@ def to_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=device, dtype=dtype)
-
-
-def rank_order_sum(grads) -> torch.Tensor:
-    """``grads[0] + grads[1] + ... + grads[W-1]``, left to right — the
-    counterpart of psum_scatter's reduction (a fresh tensor).  Like
-    psum_scatter on the JAX CPU mesh, 2-byte floats accumulate in f32
-    and round to the dtype once, at the end.  ``grads`` is a ``[W, ...]``
-    tensor or a sequence of W tensors (the peers' rows)."""
-    acc = grads[0].to(torch.float32, copy=True)
-    for w in range(1, len(grads)):
-        acc += grads[w]
-    return acc.to(grads[0].dtype)
 
 
 class _HostStager:
@@ -528,12 +522,12 @@ class CollectiveEngine:
 
     def _owned_sum(self, layout: DenseLayout, dtype: torch.dtype,
                    row) -> torch.Tensor:
-        """``rank_order_sum`` over each of this process's pieces' rows,
-        as one tensor laid out like the store; ``row(id, start, length)``
-        is a row's values there."""
+        """The reduction of each of this process's pieces' rows, as one
+        tensor laid out like the store; ``row(id, start, length)`` is a
+        row's values there."""
         me = self.group.process_index
-        sums = [(seg, rank_order_sum([row(r, seg[0], seg[1])
-                                      for r in rows]))
+        sums = [(seg, reduce_update.rank_order_sum([row(r, seg[0], seg[1])
+                                                    for r in rows]))
                 for rows, segs in layout.runs(me) for seg in segs]
         n = layout.local_len(me)
         if len(sums) == 1 and sums[0][0][2] == 0 and sums[0][0][1] == n:
@@ -543,14 +537,19 @@ class CollectiveEngine:
             agg[local:local + length] = part
         return agg
 
-    def _apply_owned(self, name: str, bucket: DenseBucket, resolved,
-                     agg: torch.Tensor) -> None:
-        """The handle on this process's pieces, given the reduction of
-        their rows: the fused optimizer kernels for a stateful one."""
+    def _apply_peers(self, name: str, bucket: DenseBucket, resolved,
+                     pieces) -> None:
+        """D1 (an elementwise handle) or D2 (an optimizer) over this
+        process's pieces, ``(row addresses, store offset, length)`` each."""
+        store = self._stores[name]
         if self._is_stateful(resolved):
-            self._stateful_fn(name, bucket, resolved)(agg)
+            kind, state, params, alpha = self._optimizer(name, bucket,
+                                                         resolved)
+            reduce_update.reduce_peers(pieces, store, kind, state, params,
+                                       alpha)
+            self._advance_step(name, kind)
         else:
-            self._handle_fn(resolved)(self._stores[name], agg)
+            reduce_update.reduce_peers(pieces, store, resolved)
 
     def _mp_update(self, name: str, bucket: DenseBucket, g: torch.Tensor,
                    resolved, with_pull: bool):
@@ -577,8 +576,9 @@ class CollectiveEngine:
                 (list(layout.slots[me]), g.contiguous()))
             rows = {r: torch.as_tensor(t) for slots, rs in got
                     for r, t in zip(slots, rs)}
-            self._apply_owned(name, bucket, resolved, self._owned_sum(
-                layout, bucket.dtype, lambda r, lo, n: rows[r][lo:lo + n]))
+            self._apply(name, bucket, resolved, self._owned_sum(
+                layout, bucket.dtype,
+                lambda r, lo, n: rows[r][lo:lo + n]).unsqueeze(0))
             if not with_pull:
                 return None
             return self._assemble(layout, store)
@@ -607,14 +607,22 @@ class CollectiveEngine:
                         [self._row_addr(name, r) for r in rows], store,
                         segs, padded, resolved, kv_shards=kv)
             self._timed("reduce", reduce)
-        else:
+        elif callable(resolved):
+            # The reduction of each piece, then the callable on the store.
             def view(r, lo, n):
                 return ring_collective.device_view(
                     self._row_addr(name, r) + lo * b, (n,), bucket.dtype,
                     self.device)
-            self._timed("reduce", lambda: self._apply_owned(
-                name, bucket, resolved, self._owned_sum(layout, bucket.dtype,
-                                                      view)))
+            self._timed("reduce", lambda: self._apply(
+                name, bucket, resolved, self._owned_sum(
+                    layout, bucket.dtype, view).unsqueeze(0)))
+        else:
+            pieces = [([self._row_addr(name, r) + lo * b for r in rows],
+                       local, length)
+                      for rows, segs in layout.runs(me)
+                      for lo, length, local in segs]
+            self._timed("reduce", lambda: self._apply_peers(
+                name, bucket, resolved, pieces))
         self._peer_sync("barrier_mid_ms", done="reduce")
         if not with_pull:
             return None
@@ -641,23 +649,25 @@ class CollectiveEngine:
 
     # -- handles -------------------------------------------------------------
 
-    def _handle_fn(self, handle: ServerHandle) -> Callable:
-        """In-place server update ``fn(store, agg)`` of a stateless
-        handle."""
-        if callable(handle):
-            return lambda store, agg: store.copy_(handle(store, agg))
-        if handle == "sum":
-            return lambda store, agg: store.add_(agg)
-        if handle == "assign":
-            return lambda store, agg: store.copy_(agg)
-        if self._is_stateful(handle):
-            raise ValueError(
-                f"{handle!r} is stateful — resolved via _stateful_handle"
-            )
-        if handle.startswith("sgd"):
-            lr = float(handle.split(":", 1)[1]) if ":" in handle else 0.01
-            return lambda store, agg: store.sub_(lr * agg)
-        raise ValueError(f"unknown server handle {handle!r}")
+    def _apply(self, name: str, bucket: DenseBucket, resolved, rows,
+               pulled: Optional[torch.Tensor] = None) -> None:
+        """Reduce the worker ``rows`` (``[W, n]``) into the bucket's store
+        in place and write the new store into ``pulled`` when given (bucket
+        lock held): D2 for an optimizer handle, D1 for an elementwise one,
+        and for a callable D1's reduction, then the callable."""
+        store = self._stores[name]
+        if self._is_stateful(resolved):
+            kind, state, params, alpha = self._optimizer(name, bucket,
+                                                         resolved)
+            reduce_update.reduce_update(rows, store, state, kind, params,
+                                        alpha, pulled)
+            self._advance_step(name, kind)
+        elif callable(resolved):
+            store.copy_(resolved(store, reduce_update.rank_order_sum(rows)))
+            if pulled is not None:
+                pulled.copy_(store)
+        else:
+            reduce_update.reduce_apply(rows, store, resolved, pulled)
 
     @staticmethod
     def _handle_params(handle: str, defaults):
@@ -674,40 +684,29 @@ class CollectiveEngine:
                 vals[i] = float(tok)
         return vals
 
-    def _stateful_handle(self, handle: str):
-        """(n_state, fn) of a fused-kernel handle, where
-        ``fn(store, state, agg)`` runs the optimizer step in place on the
-        whole ``[padded]`` store (all shards in one launch)."""
+    def _optimizer(self, name: str, bucket: DenseBucket, handle: str):
+        """``(kind, state vectors, params, alpha)`` of the bucket's
+        optimizer step, as ``reduce_update.reduce_update`` takes them (the
+        state allocated at first use; bucket lock held).  Adam's step size
+        comes from the 1-based step of shard 0's counter, on the device;
+        :meth:`_advance_step` moves the counter on after the step."""
+        self._ensure_opt_state(name, handle, bucket)
+        state = self._opt_states[name]
         if handle.startswith("sgd_momentum"):
-            lr, momentum = self._handle_params(handle, (0.01, 0.9))
-
-            def fn(store, state, agg):
-                fused_update.sgd_update(store, state[0], agg, lr=lr,
-                                        momentum=momentum)
-
-            return 1, fn
-        if handle.startswith("adam"):
-            lr, b1, b2, eps = self._handle_params(
-                handle, (1e-3, 0.9, 0.999, 1e-8)
-            )
-
-            def fn(store, state, agg):
-                m, v, step = state
-                # 1-based step from shard 0's counter, on the device.
-                fused_update.adam_update(store, m, v, agg, step[:1] + 1.0,
-                                         lr=lr, beta1=b1, beta2=b2, eps=eps)
-                step += 1.0
-
-            return 3, fn
+            return ("sgd_momentum", state,
+                    self._handle_params(handle, (0.01, 0.9)), None)
         if handle.startswith("adagrad"):
-            lr, eps = self._handle_params(handle, (0.01, 1e-8))
+            return ("adagrad", state,
+                    self._handle_params(handle, (0.01, 1e-8)), None)
+        lr, b1, b2, eps = self._handle_params(handle,
+                                              (1e-3, 0.9, 0.999, 1e-8))
+        alpha = fused_update.adam_alpha(state[2][:1] + 1.0, lr, b1, b2,
+                                        device=self._stores[name].device)
+        return "adam", state[:2], (b1, b2, eps), alpha
 
-            def fn(store, state, agg):
-                fused_update.adagrad_update(store, state[0], agg, lr=lr,
-                                            eps=eps)
-
-            return 1, fn
-        raise ValueError(f"not a stateful handle: {handle!r}")
+    def _advance_step(self, name: str, kind: str) -> None:
+        if kind == "adam":
+            self._opt_states[name][2].add_(1.0)
 
     @staticmethod
     def _is_stateful(handle) -> bool:
@@ -943,9 +942,9 @@ class CollectiveEngine:
             if self._mp:
                 return self._mp_update(name, bucket, g, resolved, with_pull)
             store = self._stores[name]
-            if self._is_stateful(resolved):
-                self._stateful_fn(name, bucket, resolved)(rank_order_sum(g))
-            elif self._effective_impl(bucket.dtype, resolved) == "ring":
+            if (not self._is_stateful(resolved)
+                    and self._effective_impl(bucket.dtype, resolved)
+                    == "ring"):
                 kw = dict(compress=self._ring_compress(bucket.dtype),
                           kv_shards=self._kv_shards())
                 if with_pull:
@@ -953,21 +952,16 @@ class CollectiveEngine:
                                                           **kw)
                 ring_collective.ring_push(g, store, resolved, **kw)
                 return None
-            else:
-                self._handle_fn(resolved)(store, rank_order_sum(g))
+            # D1/D2: the pulled copy written in the same pass (none where
+            # the store itself is handed out).
+            pulled = (torch.empty_like(store) if with_pull and not zc
+                      else None)
+            self._apply(name, bucket, resolved, g, pulled)
             if not with_pull:
                 return None
             if zc:
                 return ZeroCopyHandle.wrap(store, self._generations[name])
-            return store.clone()
-
-    def _stateful_fn(self, name: str, bucket: DenseBucket, resolved: str):
-        """``step(agg)``: the bucket's optimizer step in place.  Call
-        with the bucket lock held."""
-        _, fn = self._stateful_handle(resolved)
-        self._ensure_opt_state(name, resolved, bucket)
-        store, state = self._stores[name], self._opt_states[name]
-        return lambda agg: fn(store, state, agg)
+            return pulled
 
     def push_pull(self, name: str, grads,
                   handle: Optional[ServerHandle] = None,
@@ -1053,12 +1047,15 @@ class CollectiveEngine:
                     gs, stores, resolved,
                     compress=[self._ring_compress(b.dtype) for b in buckets],
                     kv_shards=self._kv_shards())
-            else:
-                fn = self._handle_fn(resolved)
+            elif callable(resolved):
                 pulled = []
                 for store, g in zip(stores, gs):
-                    fn(store, rank_order_sum(g))
+                    store.copy_(resolved(store,
+                                         reduce_update.rank_order_sum(g)))
                     pulled.append(store.clone())
+            else:
+                # Every bucket in one D1 launch (JAX's _group_program).
+                pulled = reduce_update.reduce_group(gs, stores, resolved)
         finally:
             for n in reversed(ordered):
                 self._bucket_mu[n].release()
@@ -1116,9 +1113,10 @@ class CollectiveEngine:
 
         The ring configurations run one C call of T ring launches
         (``ring_collective.ring_replay``: push_pull steps for ``all``,
-        push steps for ``last``); stateful handles run T x (rank-order sum
-        + fused optimizer kernel); the rest T torch steps.  The results
-        equal T sequential ``push_pull`` calls bit for bit."""
+        push steps for ``last``); the rest T launches of D1 (D2 for a
+        stateful handle), each ``keep="all"`` step writing its pulled
+        values into its row of the result.  The results equal T
+        sequential ``push_pull`` calls bit for bit."""
         log.check(keep in ("all", "last"), f"bad keep {keep!r}")
         if self._mp:
             # Across processes: T collective ops, one per step.
@@ -1143,21 +1141,14 @@ class CollectiveEngine:
                     g, store, resolved, kv_shards=self._kv_shards(),
                     keep=keep)
             else:
-                if self._is_stateful(resolved):
-                    step = self._stateful_fn(name, bucket, resolved)
-                else:
-                    fn = self._handle_fn(resolved)
-
-                    def step(agg):
-                        fn(store, agg)
-
+                # One D1/D2 launch per step, writing step t's pulled
+                # values straight into outs[t].
                 outs = (torch.empty((steps, bucket.padded_len),
                                     dtype=bucket.dtype, device=self.device)
                         if keep == "all" else None)
                 for t in range(steps):
-                    step(rank_order_sum(g[t]))
-                    if outs is not None:
-                        outs[t].copy_(store)
+                    self._apply(name, bucket, resolved, g[t],
+                                outs[t] if outs is not None else None)
             if keep == "last":
                 outs = (ZeroCopyHandle.wrap(store, self._generations[name])
                         if zc else store.clone())

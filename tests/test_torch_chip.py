@@ -15,7 +15,11 @@ versions round ``fmaf`` once, as the kernels do); ``sgd:lr`` and the
 f32 fused updates differ in the last bits because nvcc contracts a*b + c
 into one FMA and eager PyTorch does not: rtol/atol 1e-6 (adam rtol 1e-5).
 The bf16 fused updates are bit-exact: kernel and plain version round to
-bf16 after every operation, so no FMA can form.  The message-plane tests
+bf16 after every operation, so no FMA can form.  D1 (the reduce with an
+elementwise handle) is bit-exact with its plain version on every dtype;
+D2 (the reduce fused with K1-K3) is bit-exact with the plain reduction
+followed by the K1-K3 launch (``reduce_update_reference(..., fused=True)``)
+and within K1-K3's tolerances of the all-PyTorch plain version.  The message-plane tests
 at the end start a cluster in this process (loopback, and ici on this
 card) under 60 s deadlines.
 """
@@ -28,6 +32,7 @@ from pslite_tpu_torch import CollectiveEngine, DeviceGroup, make_group
 from pslite_tpu_torch.models import resnet_trace as rt
 from pslite_tpu_torch.ops import fused_update as fu
 from pslite_tpu_torch.ops import quantize as qz
+from pslite_tpu_torch.ops import reduce_update as ru
 from pslite_tpu_torch.ops import ring_collective as ring
 
 pytestmark = pytest.mark.gpu
@@ -1792,3 +1797,222 @@ def test_xplane_reader_matches_key_averages(dev, tmp_path):
     assert abs(got["busy"]["/device:GPU:0"] - ka) <= 0.02 * ka, got
     assert list(got["ops"]) == [key]
     assert abs(got["ops"][key] - ka) <= 0.02 * ka
+
+
+# -- D1 and D2: the dense engine's reduce programs ------------------------------
+
+def _rows(W, n, offset, dtype, seed, dev, as_list):
+    """W rows of n values, each ``offset`` elements into its own storage
+    (offset 1: every row unaligned), as a [W, n] view or a list."""
+    g = _randn((W, n + offset), seed, dev).to(dtype)[:, offset:]
+    return list(g) if as_list else g
+
+
+_D_LENS = [10_240_000, 4099, 1001]
+
+
+@pytest.mark.parametrize("W", [2, 3, 8, 16])
+@pytest.mark.parametrize("n", _D_LENS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_d1_matches_plain(dev, W, n, dtype, offset):
+    """Every mode, pulled and not, rows as a [W, n] view and by address:
+    0 differing elements."""
+    rows = _rows(W, n, offset, dtype, 30 + W, dev, as_list=offset == 1)
+    store = _randn((n + offset,), 31, dev).to(dtype)[offset:]
+    for handle in ("sum", "assign", "sgd:0.05"):
+        for with_pull in (True, False):
+            sk, sp = store.clone(), store.clone()
+            pk = torch.empty_like(store) if with_pull else None
+            pp = torch.empty_like(store) if with_pull else None
+            ru.reduce_apply(rows, sk, handle, pk)
+            ru.reduce_apply_reference(rows, sp, handle, pp)
+            torch.cuda.synchronize()
+            assert torch.equal(sk, sp), (handle, with_pull)
+            if with_pull:
+                assert torch.equal(pk, pp)
+    assert torch.equal(ru.rank_order_sum(rows),
+                       ru.rank_order_sum_reference(rows))
+
+
+def _d2_state(kind, n, offset, dtype, dev):
+    mom = _randn((n + offset,), 32, dev).to(dtype)[offset:]
+    pos = torch.rand(n + offset, device=dev).to(dtype)[offset:]
+    if kind == "sgd_momentum":
+        return (mom,), (0.05, 0.9), 1e-6
+    if kind == "adagrad":
+        return (pos,), (0.05, 1e-8), 1e-6
+    return ((0.1 * mom).to(dtype), (0.01 * pos).to(dtype)), \
+        (0.9, 0.999, 1e-8), 1e-5
+
+
+@pytest.mark.parametrize("W", [2, 3, 8, 16])
+@pytest.mark.parametrize("n", _D_LENS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_d2_matches_plain(dev, W, n, dtype, offset):
+    """Each optimizer: 0 differing elements against the plain reduction
+    followed by the K1-K3 launch, and within K1-K3's tolerances of the
+    all-PyTorch plain version (bf16: 0 differing there too)."""
+    rows = _rows(W, n, offset, dtype, 40 + W, dev, as_list=offset == 1)
+    store = _randn((n + offset,), 41, dev).to(dtype)[offset:]
+    alpha = fu.adam_alpha(torch.full((1,), 3.0, device=dev), 1e-3)
+    for kind in ru.OPTIMIZERS:
+        state, params, rtol = _d2_state(kind, n, offset, dtype, dev)
+        outs = []
+        for run, fused in ((ru.reduce_update, None), (
+                ru.reduce_update_reference, True), (
+                ru.reduce_update_reference, False)):
+            s = store.clone()
+            st = tuple(t.clone() for t in state)
+            pulled = torch.empty_like(store)
+            kw = {} if fused is None else {"fused": fused}
+            run(rows, s, st, kind, params, alpha, pulled, **kw)
+            outs.append((s, pulled) + st)
+        torch.cuda.synchronize()
+        for a, b, c in zip(*outs):
+            assert torch.equal(a, b), kind
+            if dtype == torch.bfloat16:
+                assert torch.equal(a, c), kind
+            else:
+                torch.testing.assert_close(a, c, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d1_d2_take_a_grads_row_that_is_the_store(dev, dtype):
+    """W = 1 with the row the store itself (a stale zero-copy handle
+    passed back as grads): each thread reads before it writes."""
+    store = _randn((1001,), 50, dev).to(dtype)
+    want = store.clone()
+    ru.reduce_apply_reference(want.unsqueeze(0).clone(), want, "sum")
+    ru.reduce_apply(store.unsqueeze(0), store, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(store, want)
+    state = (torch.zeros_like(store),)
+    want, wstate = store.clone(), (torch.zeros_like(store),)
+    ru.reduce_update_reference(want.unsqueeze(0).clone(), want, wstate,
+                               "sgd_momentum", (0.05, 0.9), fused=True)
+    ru.reduce_update(store.unsqueeze(0), store, state, "sgd_momentum",
+                     (0.05, 0.9))
+    torch.cuda.synchronize()
+    assert torch.equal(store, want) and torch.equal(state[0], wstate[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d1_group_of_the_trace_is_one_launch(dev, dtype):
+    """The 36 ResNet-50 trace buckets at 8 rows: one launch, each bucket
+    0 elements off its own plain push_pull."""
+    sizes = [n for _, n in rt.make_buckets()]
+    rows = [_randn((8, n), 60 + i, dev).to(dtype) for i, n in
+            enumerate(sizes)]
+    stores = [_randn((n,), 100 + i, dev).to(dtype) for i, n in
+              enumerate(sizes)]
+    wants = [s.clone() for s in stores]
+    for r, w in zip(rows, wants):
+        ru.reduce_apply_reference(r, w, "sum")
+    ru.reset_launches()
+    pulled = ru.reduce_group(rows, stores, "sum")
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    assert {k: v for k, v in ru.launches.items() if v} == {
+        f"reduce_push_pull_group[{name}]": 1}
+    for p, s, w in zip(pulled, stores, wants):
+        assert torch.equal(s, w) and torch.equal(p, w)
+
+
+@pytest.mark.parametrize("kind", ["sum", "sgd:0.05", "adam"])
+def test_d1_d2_peer_rows_by_address(dev, kind):
+    """Pieces of a store whose 8 rows come by address from one slab, at
+    odd offsets (the scalar path), 20 pieces (two launches)."""
+    n_piece, pieces_n = 50_001, 20
+    slab = _randn((8, pieces_n * n_piece + 3), 70, dev)
+    store = _randn((pieces_n * n_piece,), 71, dev)
+    state = (_randn((store.numel(),), 72, dev) * 0.1,
+             torch.rand(store.numel(), device=dev) * 0.01)
+    alpha = fu.adam_alpha(torch.full((1,), 2.0, device=dev), 1e-3)
+    pieces = [([slab[w, 3 + k * n_piece:].data_ptr() for w in range(8)],
+               k * n_piece, n_piece) for k in range(pieces_n)]
+    kw = ({"params": (0.9, 0.999, 1e-8), "alpha": alpha}
+          if kind == "adam" else {})
+    got, gstate = store.clone(), tuple(t.clone() for t in state)
+    want, wstate = store.clone(), tuple(t.clone() for t in state)
+    ru.reset_launches()
+    ru.reduce_peers(pieces, got, kind,
+                    state=gstate if kind == "adam" else (), **kw)
+    ru.reduce_peers_reference(pieces, want, kind,
+                              state=wstate if kind == "adam" else (), **kw)
+    torch.cuda.synchronize()
+    if kind == "adam":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert sum(ru.launches.values()) == 2
+
+
+def test_d1_d2_graph_replays_alike(dev):
+    """20 launches (D1 sum with its pull, D2 adam) captured in one CUDA
+    graph, replayed twice from the same state: alike, and equal to 20
+    eager launches (the tables are kernel parameters)."""
+    rows = _randn((8, 1_000_003), 80, dev)
+    store0 = _randn((1_000_003,), 81, dev)
+    alpha = fu.adam_alpha(torch.full((1,), 2.0, device=dev), 1e-3)
+    store, pulled = store0.clone(), torch.empty_like(store0)
+    m, v = torch.zeros_like(store0), torch.zeros_like(store0)
+
+    def launches():
+        for _ in range(10):
+            ru.reduce_apply(rows, store, "sum", pulled)
+            ru.reduce_update(rows, store, (m, v), "adam", (0.9, 0.999, 1e-8),
+                             alpha)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launches()
+    torch.cuda.synchronize()
+    eager = store.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        launches()
+    results = []
+    for _ in range(2):
+        store.copy_(store0)
+        m.zero_()
+        v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        results.append(store.clone())
+    assert torch.equal(results[0], results[1])
+    assert torch.equal(results[0], eager)
+
+
+@pytest.mark.parametrize("impl", ["torch", "ring"])
+def test_engine_paths_launch_d1_d2(dev, impl):
+    """The counts on the engine's paths: the torch impl's push_pull,
+    push, group and replay launch D1, every stateful handle D2, and no
+    path launches K1-K3 or a PyTorch reduction of its own."""
+    keys = np.arange(4, dtype=np.uint64)
+    eng = CollectiveEngine(DeviceGroup(8, device=dev), impl=impl)
+    for name in ("a", "b"):
+        eng.register_dense(name, keys, 4096)
+    g = _randn((8, 4 * 4096), 90, dev)
+    ru.reset_launches()
+    fu.reset_launches()
+    eng.push_pull("a", g, handle="adam:1e-3")
+    eng.push_pull("b", g, handle="sgd_momentum:0.01,0.9")
+    made = {k: v for k, v in ru.launches.items() if v}
+    assert made == {"reduce_adam[float32]": 1,
+                    "reduce_sgd_momentum[float32]": 1}
+    assert not any(fu.launches.values())
+    if impl == "torch":
+        eng.register_dense("c", keys, 4096)
+        eng.register_dense("d", keys, 4096)
+        ru.reset_launches()
+        eng.push_pull("c", g)
+        eng.push("c", g)
+        eng.push_pull_group(["c", "d"], [g, g])
+        eng.replay("d", g.view(1, 8, -1).expand(3, 8, -1), keep="all")
+        assert {k: v for k, v in ru.launches.items() if v} == {
+            "reduce_push_pull[float32]": 4, "reduce_push[float32]": 1,
+            "reduce_push_pull_group[float32]": 1}

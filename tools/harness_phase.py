@@ -4,12 +4,13 @@
   patterns at ``--len 30720000 --repeat 5`` on ``DeviceGroup(8,
   device="cuda:0")``, once under ``PS_ICI_IMPL=pallas`` (dense launches
   K4 ``ring_push_pull``, scatter K4 ``ring_push``) and once under the
-  default impl (rank-order adds); datascatter launches S1 under both.
+  default impl (dense D1 with its pull, scatter D1 without); datascatter
+  launches S1 under both.
   Each pattern runs twice: by the host clock, then with a ``measure``
   that wraps the loop in ``utils/profiling.device_trace`` and reads the
   trace with ``utils/xplane.py`` (device-busy seconds, top ops), held
   against the profiler's own ``key_averages()`` device time within
-  ``BUSY_BAR``.  The pattern's first K4/S1 launch is held against its
+  ``BUSY_BAR``.  The pattern's first K4/S1/D1 launch is held against its
   plain version on clones of its inputs (bit-exact, ``sum``); after
   each pattern the store or table equals the float64 numpy result of
   the same calls.  Then ``--threads 2`` for dense, gather and scatter on
@@ -63,26 +64,34 @@ CLI_LEN = 1_024_000       # test_benchmark's 1 MB value per key
 CLI_KEYS = 40             # NUM_KEY_PER_SERVER
 CLI_REPEAT = 6
 DEADLINE = 180.0          # seconds for every process group
-HELD = ("ring_push_pull", "ring_push", "scatter_add")
-# The wrapper each pattern's first launch goes through, per engine impl
-# ("ring" is PS_ICI_IMPL=pallas).
+HELD = ("ring_push_pull", "ring_push", "scatter_add", "reduce_apply")
+# The wrapper each pattern's first launch goes through, and the count it
+# adds to, per engine impl ("ring" is PS_ICI_IMPL=pallas, "torch" the
+# default).
 PATTERN_KERNEL = {("dense", "ring"): "ring_push_pull",
                   ("scatter", "ring"): "ring_push",
                   ("datascatter", "ring"): "scatter_add",
-                  ("datascatter", "torch"): "scatter_add"}
-COUNTER = {"ring_push_pull": "ring_push_pull[float32]",
-           "ring_push": "ring_push[float32]",
-           "scatter_add": "sparse_scatter_add"}
+                  ("datascatter", "torch"): "scatter_add",
+                  ("dense", "torch"): "reduce_apply",
+                  ("scatter", "torch"): "reduce_apply"}
+PATTERN_COUNTER = {("dense", "ring"): "ring_push_pull[float32]",
+                   ("scatter", "ring"): "ring_push[float32]",
+                   ("datascatter", "ring"): "sparse_scatter_add",
+                   ("datascatter", "torch"): "sparse_scatter_add",
+                   ("dense", "torch"): "reduce_push_pull[float32]",
+                   ("scatter", "torch"): "reduce_push[float32]"}
 EXAMPLE_DIR = os.path.join("examples", "torch")
 
 
 def _counters():
     from pslite_tpu_torch.ops import fused_update as fu
     from pslite_tpu_torch.ops import quantize as qz
+    from pslite_tpu_torch.ops import reduce_update as ru
     from pslite_tpu_torch.ops import ring_collective as ring
     from pslite_tpu_torch.ops import sparse_rows as sr
 
-    return (ring.launches, fu.launches, qz.launches, sr.launches)
+    return (ring.launches, fu.launches, qz.launches, sr.launches,
+            ru.launches)
 
 
 def _launches() -> dict:
@@ -217,7 +226,7 @@ def stress_leg(torch, ps, ring, sr, cs, impl, smi: str, root: str):
         calls[pattern] = n
         made = {k: v - before.get(k, 0) for k, v in _launches().items()
                 if v != before.get(k, 0)}
-        want = {COUNTER[kernel]: n} if kernel else {}
+        want = {PATTERN_COUNTER[(pattern, eng.impl)]: n} if kernel else {}
         if made != want:
             raise AssertionError(f"{label}: launches {made}, expected "
                                  f"{want}")
@@ -289,8 +298,8 @@ def threads_leg(torch, eng, sp, calls: dict, smi: str):
         made = {k: v - before.get(k, 0) for k, v in _launches().items()
                 if v != before.get(k, 0)}
         kernel = PATTERN_KERNEL.get((pattern, eng.impl))
-        want = ({COUNTER[kernel]: STRESS_THREADS * (1 + STRESS_REPEAT)}
-                if kernel else {})
+        want = ({PATTERN_COUNTER[(pattern, eng.impl)]:
+                 STRESS_THREADS * (1 + STRESS_REPEAT)} if kernel else {})
         if made != want:
             raise AssertionError(f"{label}: launches {made}, expected "
                                  f"{want}")

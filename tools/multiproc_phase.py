@@ -11,8 +11,8 @@ Legs, each a cluster of separate processes from the port's launcher
   across processes, each held against the single-process
   ``pstt_ring_push_pull`` on all 8 rows (rebuilt from the seed in every
   worker) with 0 differing elements, and that against its plain version;
-  2 ``adam:1e-3`` steps (the owned-shard K3 path) against the
-  single-process engine; config 5's table (1,048,576 x 64 f32, 4,096
+  2 ``adam:1e-3`` steps (D2 over the owned pieces, their rows read
+  through the peers' addresses) against the single-process engine; config 5's table (1,048,576 x 64 f32, 4,096
   Zipf(1.2) rows per rank, seed 0) pushed and pulled across both
   processes against the single-process ``SparseEngine``, bit for bit;
   ``KVWorker.reshard`` onto 2 ranks of each process, then one more exact
@@ -286,12 +286,13 @@ def node_mp(ps, spec) -> dict:
     from pslite_tpu_torch.environment import Environment
     from pslite_tpu_torch.models import embedding as emb
     from pslite_tpu_torch.ops import fused_update as fu
+    from pslite_tpu_torch.ops import reduce_update as ru
     from pslite_tpu_torch.ops import ring_collective as ring
     from pslite_tpu_torch.ops import sparse_rows as sr
     from pslite_tpu_torch.parallel import distributed
 
     sync = torch.cuda.synchronize
-    uncounted = _Uncounted(ring, fu, sr)
+    uncounted = _Uncounted(ring, fu, sr, ru)
     keys = np.arange(KEYS, dtype=np.uint64)
     rank = int(os.environ["DMLC_RANK"])
     env = Environment({})
@@ -302,7 +303,7 @@ def node_mp(ps, spec) -> dict:
     po.start()
     kv = ps.KVWorker(0, 0, postoffice=po)
     eng, se = kv.engine, kv.sparse_engine
-    for m in (ring, fu, sr):
+    for m in (ring, fu, sr, ru):
         m.reset_launches()
     mine = slice(LOCAL * rank, LOCAL * (rank + 1))
     kv.register_dense("grads", keys, VAL_LEN)
@@ -426,7 +427,7 @@ def node_mp(ps, spec) -> dict:
         if diff:
             raise AssertionError(f"after the reshard: {diff} elements "
                                  f"differ")
-    report["launches"] = {k: v for m in (ring, fu, sr)
+    report["launches"] = {k: v for m in (ring, fu, sr, ru)
                           for k, v in m.launches.items() if v}
     po.finalize()
     distributed.release()
@@ -968,8 +969,10 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     held: dict = {}
     for rep in main + int8:
         _add(held, rep["held"])
-    for name in ("ring_reduce_peers[float32]", "ring_gather_peers[float32]")\
-            + NEW_KERNELS:
+    # D2 across processes: the adam steps of the main leg (2 on the 1-D
+    # group, 2 on the (dp 4, kv 2) group), one launch per process each.
+    for name in ("ring_reduce_peers[float32]", "ring_gather_peers[float32]",
+                 "reduce_adam[float32]") + NEW_KERNELS:
         if not launches.get(name):
             raise AssertionError(f"{name} never launched on the "
                                  f"multiprocess path")
