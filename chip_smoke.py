@@ -41,7 +41,15 @@ line):
    of the long-run walk with ``clock64`` around each run, outside the
    push's own kernels); at the end of the run, after the steady states,
    each push split into its three kernels by the profiler (the sort, the
-   long runs' walk, the short runs beside it).
+   long runs' walk, the short runs beside it).  The group kernels (one
+   chain of three launches for every table of a ``push_group``, one
+   launch for a ``pull_group``) at group (a), the embedding layer of
+   facebookresearch/dlrm's Criteo Kaggle run (26 tables, 3 to 10,131,227
+   rows at dim 16, 8 x 1,024 Zipf(1.2) lookups each), and (b), config 5's
+   table beside the DLRM table (1,048,576 x 16): each against the
+   per-table kernels (0 differing elements, row-wise Adagrad included)
+   and the plain group version, beside the per-table loop's time
+   (``earlier_ms``) and the hottest run's chain of adds.
    K1-K3 also on bf16 stores (0 differing elements: kernel and plain
    version round after every operation).  D1 and D2, the dense engine's
    reduce programs (``ops/reduce_update.py``), at the bucket over 8
@@ -94,7 +102,13 @@ line):
    handle and 3 with ``row_adagrad:0.01,1e-8``, against float64 numpy and
    each push against the plain version on the card; a
    ``push_group``/``pull_group`` of two tables against single ops; and
-   ``models.embedding.replay``); engine state that moves (``elastic``:
+   ``models.embedding.replay``); the sparse groups (``sparse-groups``:
+   groups (a), (b) and (c), an f32 and a bf16 table, through
+   ``SparseEngine.push_group``/``pull_group``, 3 sum and 3 row-wise
+   Adagrad steps, each group op's launches counted (3 per dtype, 1 for
+   the pull, whatever the number of tables), every table against a twin
+   pushed and pulled alone, the plain group version and float64);
+   engine state that moves (``elastic``:
    the 40 x 1 MB adam bucket, a 40 x 1 MB sum bucket and config 5's
    table under row_adagrad through ``KVWorker`` on the ici van, 8 ranks:
    a ``save_engine`` restored by a fresh cluster and an
@@ -117,7 +131,8 @@ line):
    host-to-device GB/s), and of config 5 through KVWorker: one push and
    one pull per step with grads on the card (``embedding-1m``), under
    ``row_adagrad`` (``embedding-1m-adagrad``) and from numpy grads
-   (``embedding-1m-host``).
+   (``embedding-1m-host``), and of each sparse group: the wall of a
+   ``push_group`` + ``pull_group`` against the per-table loop.
    The message control plane, each phase with the counts zeroed before
    it, clusters started in this process with their own deadlines:
    ``msg-config2`` (BASELINE config 2's topology over the loopback van:
@@ -2431,6 +2446,396 @@ def steady_state_sparse(torch, ps, Environment, emb):
                     "busy_share": busy / wall_ms, "kernels": kernels,
                     "goodput_gbps_wall": 2 * 4 * N * EMB_BATCH * EMB_DIM
                     / wall_ms / 1e6})
+    worker.stop()
+    po.finalize()
+    return out
+
+
+# -- sparse groups: the group program, one chain per push_group --------------
+
+# The embedding layer of facebookresearch/dlrm's Criteo Kaggle run
+# (--data-set=kaggle, --arch-sparse-feature-size=16): the rows of its 26
+# categorical features after its preprocessing (33,762,577 rows: 2.16 GB
+# of f32 stores at dim 16).
+KAGGLE_ROWS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
+               5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
+               7046547, 18, 15, 286181, 105, 142572)
+KAGGLE_DIM = 16
+KAGGLE_BATCH = 1024  # examples per rank, one lookup per table
+DLRM_ROWS, DLRM_DIM = 1 << 20, 16  # models/dlrm.py's table at its 1M rows
+GROUP_STEPS = 3      # steps of each handle
+
+
+def group_specs():
+    """The sparse groups: name -> [(table, rows, dim, batch per rank,
+    dtype, index seed)]: (a) the Kaggle embedding layer, (b) config 5's
+    table beside the DLRM table (mixed dims), (c) an f32 and a bf16 table
+    (one chain per dtype)."""
+    return {
+        "kaggle26": [(f"kaggle{t}", r, KAGGLE_DIM, KAGGLE_BATCH, "float32",
+                      t) for t, r in enumerate(KAGGLE_ROWS)],
+        "c5+dlrm": [("c5", EMB_ROWS, EMB_DIM, EMB_BATCH, "float32", 0),
+                    ("dlrm", DLRM_ROWS, DLRM_DIM, EMB_BATCH, "float32", 1)],
+        "f32+bf16": [("small_f32", 65_536, 32, 1024, "float32", 2),
+                     ("small_bf16", 65_536, 32, 1024, "bfloat16", 3)],
+    }
+
+
+def table_rps(rows: int, dim: int) -> int:
+    """rows_per_shard of a table on N shards, as SparseEngine lays it out
+    (rounded to the JAX packing factor)."""
+    pack = 128 // dim if (dim < 128 and 128 % dim == 0) else 1
+    rps = -(-rows // N)
+    return -(-rps // pack) * pack
+
+
+def group_stats(emb, spec):
+    """Per table (indices [N, b], distinct rows, longest run)."""
+    out = []
+    for _, rows, _, b, _, seed in spec:
+        idx = emb.skewed_indices(rows, N, b, seed=seed)
+        counts = np.bincount(idx.reshape(-1), minlength=rows)
+        out.append((idx, int((counts > 0).sum()), int(counts.max())))
+    return out
+
+
+def sparse_group_rows(torch, sr, emb, dev):
+    """The grouped kernels (one chain for every table of a group) at
+    group (a), the Kaggle embedding layer, and (b), config 5's table
+    beside the DLRM table: held against the per-table kernels (0
+    differing elements, row-wise Adagrad too) and the plain group
+    versions (sum and pull 0 differing, row-wise Adagrad rtol 1e-5 / atol
+    1e-6); timed host-free and host-inclusive beside the per-table loop
+    on the same inputs (``earlier_ms``) and the plain version."""
+    out = []
+    clock = max_sm_clock_hz()
+    for gname in ("kaggle26", "c5+dlrm"):
+        spec = group_specs()[gname]
+        stats = group_stats(emb, spec)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        rps = [table_rps(r, d) for _, r, d, _, _, _ in spec]
+        stores = [torch.randn((N * p, d), generator=gen, device=dev)
+                  for p, (_, _, d, _, _, _) in zip(rps, spec)]
+        accs = [torch.rand(N * p, generator=gen, device=dev) for p in rps]
+        idxs = [torch.from_numpy(i).to(dev) for i, _, _ in stats]
+        rows = [torch.randn((N, b, d), generator=gen, device=dev)
+                for _, _, d, b, _, _ in spec]
+        row_b = [d * 4 for _, _, d, _, _, _ in spec]
+        ms_ = [N * b for _, _, _, b, _, _ in spec]
+        push_b = sum(m * rb + m * 4 + 2 * dist * rb
+                     for m, rb, (_, dist, _) in zip(ms_, row_b, stats))
+        ops = sum(m * d for m, (_, _, d, _, _, _) in zip(ms_, spec))
+        dist_ops = sum(dist * 6 * d for (_, dist, _), (_, _, d, _, _, _)
+                       in zip(stats, spec))
+        hot = max(h for _, _, h in stats)
+        chain_ms = hot * FADD_CYCLES / clock * 1e3
+        k = len(spec)
+
+        def clones(ts):
+            return [t.clone() for t in ts]
+
+        def loop_push(ss, aa, adagrad):
+            for s, a, ix, g, p in zip(ss, aa, idxs, rows, rps):
+                if adagrad:
+                    sr.row_adagrad(s, a, ix, g, N, p, 0.01, 1e-8)
+                else:
+                    sr.scatter_add(s, ix, g, N, p)
+
+        cases = (
+            ("sparse_scatter_add_group", False,
+             lambda ss, aa: sr.scatter_add_group(ss, idxs, rows, N, rps),
+             lambda ss, aa: sr.scatter_add_group_reference(ss, idxs, rows,
+                                                           N, rps),
+             push_b, ops),
+            ("sparse_row_adagrad_group", True,
+             lambda ss, aa: sr.row_adagrad_group(ss, aa, idxs, rows, N, rps,
+                                                 0.01, 1e-8),
+             lambda ss, aa: sr.row_adagrad_group_reference(
+                 ss, aa, idxs, rows, N, rps, 0.01, 1e-8),
+             push_b + sum(2 * dist * 4 for _, dist, _ in stats),
+             ops + dist_ops))
+        for name, adagrad, group, plain, nbytes, nops in cases:
+            sk, ak = clones(stores), clones(accs)
+            group(sk, ak)
+            sl, al = clones(stores), clones(accs)
+            loop_push(sl, al, adagrad)
+            sp, ap = clones(stores), clones(accs)
+            plain(sp, ap)
+            torch.cuda.synchronize()
+            for a, b in zip(sk + ak, sl + al):
+                mismatches(a, b)  # the per-table kernels: 0 differing
+            pairs = list(zip(sk + ak, sp + ap))
+            err = max_err(pairs)
+            if adagrad:
+                if not within(pairs, 1e-5, 1e-6):
+                    raise AssertionError(f"{name}[{gname}] off the plain "
+                                         f"version by {err}")
+            else:
+                for a, b in pairs:
+                    mismatches(a, b)
+            del sl, al, sp, ap
+            ms, ms_host = kernel_times(lambda: group(sk, ak))
+            loop_ms, loop_host = kernel_times(
+                lambda: loop_push(sk, ak, adagrad))
+            sp, ap = clones(stores), clones(accs)
+            plain_ms = cuda_ms(lambda: plain(sp, ap), iters=2, warmup=1)
+            del sp, ap, sk, ak
+            b_ms, b_by = bound(nbytes, nops)
+            out.append(dict(
+                name=f"{name}[{gname}]", counter=name, route="cuda",
+                source="pslite_tpu_torch/csrc/sparse_rows.cu",
+                replaces="pslite_tpu/parallel/sparse.py:670",
+                max_abs_err=err, ms=ms, ms_host=ms_host, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, chain_floor_ms=chain_ms,
+                library_ms=None, library_ms_host=None,
+                library_note="no single PyTorch call pushes several tables",
+                earlier_ms=loop_ms, earlier_ms_host=loop_host,
+                earlier_note=f"the per-table loop ({k} pushes, {3 * k} "
+                             f"launches)", tables=k, max_run=hot,
+                distinct_rows=sum(d for _, d, _ in stats)))
+
+        # The pull: one launch for every table.
+        got = sr.gather_rows_group(stores, idxs, N, rps)
+        want = sr.gather_rows_group_reference(stores, idxs, N, rps)
+        loop = [sr.gather_rows(s, ix, N, p)
+                for s, ix, p in zip(stores, idxs, rps)]
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, loop):
+            mismatches(a, b)
+            mismatches(a, c)
+        ms, ms_host = kernel_times(
+            lambda: sr.gather_rows_group(stores, idxs, N, rps))
+        loop_ms, loop_host = kernel_times(
+            lambda: [sr.gather_rows(s, ix, N, p)
+                     for s, ix, p in zip(stores, idxs, rps)])
+        plain_ms = cuda_ms(
+            lambda: sr.gather_rows_group_reference(stores, idxs, N, rps))
+        b_ms, b_by = bound(sum(dist * rb + m * 4 + m * rb for m, rb,
+                               (_, dist, _) in zip(ms_, row_b, stats)), 0)
+        out.append(dict(
+            name=f"sparse_gather_rows_group[{gname}]",
+            counter="sparse_gather_rows_group", route="cuda",
+            source="pslite_tpu_torch/csrc/sparse_rows.cu",
+            replaces="pslite_tpu/parallel/sparse.py:670", max_abs_err=0.0,
+            ms=ms, ms_host=ms_host, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, library_ms_host=None,
+            library_note="no single PyTorch call gathers several tables",
+            earlier_ms=loop_ms, earlier_ms_host=loop_host,
+            earlier_note=f"the per-table loop ({k} launches)", tables=k,
+            distinct_rows=sum(d for _, d, _ in stats)))
+        del stores, accs, rows, got, want, loop
+    return out
+
+
+def _touched(idx):
+    """(distinct rows, each index's position among them, occurrences of
+    each) of a table's indices."""
+    u, inv, cnt = np.unique(idx.reshape(-1), return_inverse=True,
+                            return_counts=True)
+    return u, inv.reshape(idx.shape), cnt
+
+
+def drive_sparse_groups(torch, ps, Environment, emb, sr):
+    """The three groups of ``group_specs`` through
+    ``SparseEngine.push_group``/``pull_group`` of the ici van's engine (8
+    ranks of the card): ``GROUP_STEPS`` steps of the sum handle, then as
+    many of ``row_adagrad:0.01,1e-8``, each a group push and a group
+    pull.  Each step: the launches of the group ops counted (3 per dtype
+    for the push, 1 for the pull, whatever the number of tables); every
+    table against its twin pushed and pulled alone (S1/S2/S3: 0 differing
+    elements in pulls, stores and accumulators); the first step of each
+    handle against the plain group version on snapshots (sum and pull 0
+    differing, row-wise Adagrad rtol 1e-5 / atol 1e-6); every pull
+    against a float64 numpy reference of the touched rows."""
+    po, worker, se = emb_worker(ps, Environment)
+    rng = np.random.default_rng(SEED + 31)
+    lr, eps = 0.01, 1e-8
+    results = []
+    for gname, spec in group_specs().items():
+        names = [t[0] for t in spec]
+        for n, rows, dim, _, dt, _ in spec:
+            se.register_sparse(n, rows, dim, dtype=dt)
+            se.register_sparse("twin_" + n, rows, dim, dtype=dt)
+        idx = [i for i, _, _ in group_stats(emb, spec)]
+        idx_dev = [torch.from_numpy(i).cuda() for i in idx]
+        touched = [_touched(i) for i in idx]
+        rps = [se.table(n).rows_per_shard for n in names]
+        dtypes = {dt for _, _, _, _, dt, _ in spec}
+        worst, launches, wall = 0.0, [], []
+        for handle in (None, EMB_HANDLE):
+            counter = ("sparse_row_adagrad_group" if handle
+                       else "sparse_scatter_add_group")
+            # float64 reference of the touched rows, from the stores now.
+            ref = [se._stores[n][sr.target_rows(torch.from_numpy(u).cuda(),
+                                                N, p)].double().cpu().numpy()
+                   for n, (u, _, _), p in zip(names, touched, rps)]
+            mag = [np.abs(r) for r in ref]
+            adds = [np.zeros(len(u)) for u, _, _ in touched]
+            acc64 = [np.zeros(len(u)) for u, _, _ in touched]
+            dacc = [np.zeros(len(u)) for u, _, _ in touched]
+            dstep = [np.zeros_like(r) for r in ref]
+            for k in range(GROUP_STEPS):
+                gs = [rng.standard_normal((N, b, d), dtype=np.float32)
+                      for _, _, d, b, _, _ in spec]
+                g_dev = [torch.from_numpy(g).cuda().to(getattr(torch, dt))
+                         for g, (_, _, _, _, dt, _) in zip(gs, spec)]
+                if k == 0:
+                    snaps = [se._stores[n].clone() for n in names]
+                    accs = [se._acc[n].clone() if n in se._acc else
+                            torch.zeros(se._stores[n].shape[0],
+                                        device="cuda") for n in names]
+                before = dict(sr.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                se.push_group(names, idx_dev, g_dev, handle=handle)
+                outs = se.pull_group(names, idx_dev)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                launches.append((sr.launches[counter] - before[counter],
+                                 sr.launches["sparse_gather_rows_group"]
+                                 - before["sparse_gather_rows_group"]))
+                if launches[-1] != (3 * len(dtypes), 1):
+                    raise AssertionError(f"{gname}: push_group/pull_group "
+                                         f"launched {launches[-1]}")
+                for n, ix, g, o in zip(names, idx_dev, g_dev, outs):
+                    se.push("twin_" + n, ix, g, handle=handle)
+                    mismatches(o, se.pull("twin_" + n, ix))
+                    mismatches(se._stores[n], se._stores["twin_" + n])
+                    if handle:
+                        mismatches(se._acc[n], se._acc["twin_" + n])
+                if k == 0:
+                    if handle:
+                        sr.row_adagrad_group_reference(snaps, accs, idx_dev,
+                                                       g_dev, N, rps, lr, eps)
+                        pairs = list(zip([se._stores[n] for n in names]
+                                         + [se._acc[n] for n in names],
+                                         snaps + accs))
+                        if not within(pairs, 1e-5, 1e-6):
+                            raise AssertionError(
+                                f"{gname}: row_adagrad off the plain group "
+                                f"version by {max_err(pairs)}")
+                    else:
+                        sr.scatter_add_group_reference(snaps, idx_dev, g_dev,
+                                                       N, rps)
+                        for n, sn in zip(names, snaps):
+                            mismatches(se._stores[n], sn)
+                        for o, w in zip(outs, sr.gather_rows_group_reference(
+                                snaps, idx_dev, N, rps)):
+                            mismatches(o, w)
+                    del snaps, accs
+                for t, ((u, inv, cnt), g, o) in enumerate(
+                        zip(touched, g_dev, outs)):
+                    g64 = g.double().cpu().numpy().reshape(-1, g.shape[-1])
+                    G = np.zeros_like(ref[t])
+                    np.add.at(G, inv.reshape(-1), g64)
+                    bf = spec[t][4] == "bfloat16"
+                    unit = 2.0 ** -8 if bf else 2.0 ** -24
+                    Gabs = np.zeros_like(G)
+                    np.add.at(Gabs, inv.reshape(-1), np.abs(g64))
+                    if handle:
+                        acc64[t] += np.mean(G ** 2, axis=1)
+                        step = lr * G / (np.sqrt(acc64[t])[:, None] + eps)
+                        ref[t] -= step
+                        if bf:
+                            # The row's G summed in bf16 (each add off by
+                            # at most u of its partial sum), its error
+                            # carried into acc and the step, then the
+                            # step's and the store's roundings.
+                            dG = (cnt * unit)[:, None] * Gabs
+                            dacc[t] += np.mean(2 * np.abs(G) * dG + dG ** 2,
+                                               axis=1)
+                            dstep[t] += lr * (dG + np.abs(G) * (
+                                dacc[t] / (2 * acc64[t]))[:, None]) / (
+                                np.sqrt(acc64[t])[:, None]) + unit * (
+                                np.abs(step) + np.abs(ref[t]))
+                            tol = 1e-4 + dstep[t]
+                        else:
+                            tol = 1e-4 + 1e-4 * np.abs(ref[t])
+                    else:
+                        ref[t] += G
+                        mag[t] += Gabs
+                        adds[t] += cnt
+                        # Each add rounds by at most u of its partial sum.
+                        tol = ((adds[t] + 1) * unit)[:, None] * mag[t] + 1e-6
+                    got = o.double().cpu().numpy()
+                    err = np.abs(got - ref[t][inv])
+                    if not (np.all(np.isfinite(got)) and np.all(
+                            err <= tol[inv])):
+                        raise AssertionError(
+                            f"{gname} {spec[t][0]}: {handle or 'sum'} step "
+                            f"{k} off the float64 reference by "
+                            f"{float(err.max())}")
+                    worst = max(worst, float(err.max()))
+        for n in names:
+            for t in (n, "twin_" + n):
+                se._stores.pop(t)
+                se._acc.pop(t, None)
+        results.append({
+            "config": f"sparse group {gname} ({len(names)} tables, "
+                      f"{len(dtypes)} dtype{'s' * (len(dtypes) > 1)}) "
+                      f"push_group/pull_group sum then row_adagrad vs "
+                      f"per-table twins and the plain group version",
+            "ops": 4 * GROUP_STEPS, "max_abs_err_vs_f64": worst,
+            "push_group_launches": launches[0][0],
+            "pull_group_launches": launches[0][1],
+            "wall_ms_first": wall[0], "wall_ms_median": float(
+                np.median(wall[1:]))})
+        torch.cuda.empty_cache()
+    worker.stop()
+    po.finalize()
+    return results
+
+
+def steady_state_groups(torch, ps, Environment, emb):
+    """The wall of one ``push_group`` + ``pull_group`` (grads on the
+    card) against the per-table loop (``push`` + ``pull`` per table) on
+    the same engine and inputs, each group and handle: 4 windows of ITERS
+    steps, grouped and loop in turns (group, loop, loop, group), each a
+    host clock to a synchronize; medians."""
+    po, worker, se = emb_worker(ps, Environment)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    out = []
+    for gname, spec in group_specs().items():
+        names = [t[0] for t in spec]
+        for n, rows, dim, _, dt, _ in spec:
+            se.register_sparse(n, rows, dim, dtype=dt)
+        idx = [torch.from_numpy(i).cuda() for i, _, _ in group_stats(emb,
+                                                                      spec)]
+        gs = [torch.randn((N, b, d), generator=gen, device="cuda").to(
+            getattr(torch, dt)) for _, _, d, b, dt, _ in spec]
+        for handle in (None, EMB_HANDLE):
+            def grouped():
+                se.push_group(names, idx, gs, handle=handle)
+                return se.pull_group(names, idx)
+
+            def loop():
+                for n, ix, g in zip(names, idx, gs):
+                    se.push(n, ix, g, handle=handle)
+                return [se.pull(n, ix) for n, ix in zip(names, idx)]
+
+            def window(fn):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ITERS):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / ITERS
+
+            walls = {"group": [], "loop": []}
+            for leg in ("group", "loop", "loop", "group"):
+                walls[leg].append(window(grouped if leg == "group"
+                                         else loop))
+            out.append({"cell": f"sparse-group-{gname}-{handle and 'adagrad' or 'sum'}",
+                        "tables": len(names),
+                        "group_wall_ms": float(np.median(walls["group"])),
+                        "loop_wall_ms": float(np.median(walls["loop"])),
+                        "group_walls": walls["group"],
+                        "loop_walls": walls["loop"]})
+        for n in names:
+            se._stores.pop(n)
+            se._acc.pop(n, None)
+        torch.cuda.empty_cache()
     worker.stop()
     po.finalize()
     return out
@@ -7145,6 +7550,7 @@ def main() -> int:
     rows = kernel_phase(torch, ring, fu, qz, rt, torch.device("cuda:0"))
     rows += sparse_rows_rows(torch, sr, emb, torch.device("cuda:0"),
                              _native)
+    rows += sparse_group_rows(torch, sr, emb, torch.device("cuda:0"))
     for r in rows:
         note = r["library_note"]
         lib = (f"{r['library_ms']:.4f} ms (host-inclusive "
@@ -7182,7 +7588,15 @@ def main() -> int:
             print(f"    the longest run ({r['hot_run']} updates) walks at "
                   f"{r['hot_run_cycles_per_add']:.2f} SM cycles per add "
                   f"(clock probe)")
-        if "earlier_ms" in r:
+        if "earlier_note" in r:
+            chain = (f"; chain floor {r['chain_floor_ms'] * 1e3:.1f} us "
+                     f"(longest run {r['max_run']} updates)"
+                     if "chain_floor_ms" in r else "")
+            print(f"    {r['tables']} tables, {r['distinct_rows']} distinct "
+                  f"rows; {r['earlier_note']}: {r['earlier_ms']:.4f} ms "
+                  f"host-free, {r['earlier_ms_host']:.4f} ms "
+                  f"host-inclusive{chain}")
+        elif "earlier_ms" in r:
             print(f"    the engine's path before it (plain reduction, then "
                   f"the handle or K1-K3, then the copy): "
                   f"{r['earlier_ms']:.4f} ms; elements off the plain "
@@ -7221,6 +7635,8 @@ def main() -> int:
         ("zero-copy", lambda: drive_zero_copy(torch, ps, Environment,
                                               grads_steps)),
         ("sparse", lambda: drive_sparse(torch, ps, Environment, emb, sr)),
+        ("sparse-groups", lambda: drive_sparse_groups(torch, ps, Environment,
+                                                      emb, sr)),
         ("elastic", lambda: drive_elastic(torch, ps, ring, emb, Environment,
                                           smi)),
         ("msg-config2", lambda: drive_msg_config2(ps, Environment, smi)),
@@ -7335,15 +7751,31 @@ def main() -> int:
                                                  "ops")
         print(f"main path {r['config']}: {r['ops']} ops, {err}{extra}")
     # The sparse path launches once per table and op: 3 pushes and 3
-    # pulls of each handle, a push_group and a pull_group of 2 tables
-    # beside single ops on their twins (per handle), and the replay's 3
-    # pushes and pulls.
-    want = {"sparse_scatter_add": 3 + 2 + 2 + 3,
-            "sparse_row_adagrad": 3 + 2 + 2,
-            "sparse_gather_rows": 6 + 2 + 2 + 3}
+    # pulls of each handle, single ops on two twin tables (per handle),
+    # and the replay's 3 pushes and pulls; its push_group of 2 tables is
+    # one chain of 3 launches per handle, its pull_group one launch.
+    want = {"sparse_scatter_add": 3 + 2 + 3, "sparse_row_adagrad": 3 + 2,
+            "sparse_gather_rows": 6 + 2 + 3,
+            "sparse_scatter_add_group": 3, "sparse_row_adagrad_group": 3,
+            "sparse_gather_rows_group": 1}
     got = {k: path_counts["sparse"][k] for k in want}
     if got != want:
         raise AssertionError(f"sparse path launches {got}, expected {want}")
+    # The sparse-groups path: GROUP_STEPS steps of each handle over the
+    # three groups, each a push_group (3 launches per dtype: 3, 3 and 6)
+    # and a pull_group (1), whatever the number of tables (26, 2, 2); the
+    # twins one launch per table and op.
+    tables = sum(len(v) for v in group_specs().values())
+    want = {"sparse_scatter_add_group": GROUP_STEPS * (3 + 3 + 6),
+            "sparse_row_adagrad_group": GROUP_STEPS * (3 + 3 + 6),
+            "sparse_gather_rows_group": 2 * GROUP_STEPS * 3,
+            "sparse_scatter_add": GROUP_STEPS * tables,
+            "sparse_row_adagrad": GROUP_STEPS * tables,
+            "sparse_gather_rows": 2 * GROUP_STEPS * tables}
+    got = {k: path_counts["sparse-groups"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"sparse-groups path launches {got}, "
+                             f"expected {want}")
     # The elastic path: run A 9 steps, B and C 3 each (D2 adam, the 1-D
     # ring, S2, S3 once per step), the composite and 2-D engines 3 adam
     # and 3 ring steps each, and 10 timed adam steps.
@@ -7358,7 +7790,7 @@ def main() -> int:
         r["launches"] = (
             path_counts["int8 n=2"]["ring_push_pull_int8[float32]"]
             if r["name"] == SPILL_ROW else
-            sum(c[r["name"]] for p, c in path_counts.items()
+            sum(c[r.get("counter", r["name"])] for p, c in path_counts.items()
                 if p != "int8 n=2"))
         r["bound_us"] = r["bound_ms"] * 1e3
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -7413,6 +7845,13 @@ def main() -> int:
               f"{r['busy_share']:.3f} [{smi}]")
         for kname, ms in r["kernels"][:8]:
             print(f"    {ms:.4f} ms/step  {kname}")
+
+    for r in steady_state_groups(torch, ps, Environment, emb):
+        print(f"steady {r['cell']} ({r['tables']} tables): push_group + "
+              f"pull_group {r['group_wall_ms']:.4f} ms/step wall, the "
+              f"per-table loop {r['loop_wall_ms']:.4f} ms/step wall "
+              f"(windows {spread(r['group_walls'])} / "
+              f"{spread(r['loop_walls'])}) [{smi}]")
 
     push_pieces(torch, sr, emb, rows)
     for r in rows:

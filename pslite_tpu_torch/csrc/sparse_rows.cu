@@ -85,7 +85,46 @@
 // Each kernel writes each row back once.  No staging copy of the update
 // rows is made and no library sort runs.
 //
-// The pull (gather_rows_kernel) is a copy: 16-byte loads and stores where
+// Groups.  _sparse_group_program (sparse.py:670) runs S1/S2/S3 over the k
+// tables of a push_group/pull_group as one XLA program; here a group push
+// is the same three launches over every table of one dtype (a table by
+// value per table, PushGroup: up to kMaxTables), and a push of one table is
+// a group of one.  The hard parts, and what the design does about them:
+// - Tables of very different sizes (the Criteo Kaggle layer: 3 to
+//   10,131,227 rows, 8,192 updates each).  One sort over the concatenated
+//   key space (~33.8 M rows, 26 bits) would hold 212,992 entries, above the
+//   65,536 a cluster keeps in shared memory: its tile loop in device
+//   memory, three passes.  Instead cluster q sorts table q over that
+//   table's own bits, in its own entry range: one launch, every cluster at
+//   once (26 clusters of 4 CTAs for Kaggle).  A cluster's size is one for
+//   the launch, so the largest table sets it; a small table's cluster then
+//   has CTAs past its list's end, which take no entries (nor the key
+//   before their first).
+// - A run list that spans tables without a host sync.  Each table keeps
+//   its own run lists in its own Work (the scratch is one allocation, each
+//   table at its offset); the long-run clusters and the short-run threads
+//   prefix the tables' run counts from device memory at their start and
+//   find their table by walking that prefix (the grid is sized from every
+//   table's m, as for one table).
+// - Dims that differ within a launch.  The long-run cluster is sized for
+//   the launch's widest table (G = ceil(min(dim, 256) / 16) CTAs), and a
+//   cluster takes G / Gt runs at once of a table whose runs need Gt CTAs
+//   (a bundle: CTA g walks run g / Gt of it as rank g % Gt).  Row-wise
+//   Adagrad's exchange still spans the cluster; each run sums its own Gt
+//   parts in the single push's order, so every table's bits are those of
+//   its own push.  Measured first with one run per cluster (the CTAs past
+//   a narrower run's width idle): at the Kaggle layer beside config 5's
+//   table that was 13 % slower than a chain per width class
+//   (tools/sparse_rows_cmp.py --width-classes); bundles keep the three
+//   launches.
+// - Mixed dtypes: one chain per dtype (the ring of a long run and the
+//   kernels' element type are compile-time).
+// - The pull: one gather_group_kernel over every table's entries, each
+//   table at its own width (16, 8, 4 or 2 bytes a thread, as its row bytes
+//   and pointers allow), the table found by a binary search of the
+//   launch's first item per table.
+//
+// The pull (gather_group_kernel) is a copy: 16-byte loads and stores where
 // the row's bytes and the pointers allow, narrower otherwise; bound by its
 // bytes (config 5: the 7,645 distinct rows read once, 1.96 MB, the indices,
 // and 8.4 MB written: 3.1 us).
@@ -202,6 +241,54 @@ __device__ __forceinline__ int3 short_run(const int* runs, int k) {
 __device__ __forceinline__ int3 long_run(const int* runs, int m, int k) {
   const int* e = runs + 2 + 3 * (m - 1 - k);
   return make_int3(e[0], e[1], e[2]);
+}
+
+// One table of a push: its store and accumulator, its update rows and
+// indices, its scratch (a Work of its own m, at its offset in the group's
+// one allocation), its layout and how its rows may be loaded.
+struct PushTable {
+  void* store;
+  float* acc;
+  const void* rows;
+  const int* idx;
+  int* work;
+  int m, dim, S, rps;
+  int bits;  // bit_length(S * rps): the sort's key bits
+  int by16;  // long runs: rows 16-byte aligned, of a multiple of 16 bytes
+  int vec;   // short runs: 4 values a load
+};
+
+// The tables of one push, passed by value (a kernel parameter: no copy to
+// the device precedes the launch).  A push of one table is a group of one
+// (N = 1); a group push takes up to kMaxTables (8 + 48 * 72 = 3,464 bytes,
+// inside the 4 KiB of kernel parameters every CUDA 12 release takes).
+constexpr int kMaxTables = 48;
+template <int N>
+struct PushGroup {
+  int count;
+  PushTable t[N];
+};
+static_assert(sizeof(PushTable) == 72, "table layout");
+static_assert(sizeof(PushGroup<kMaxTables>) + 32 <= 4096,
+              "kernel parameter size");
+
+// Table i of a group.  A group of one reads table 0 by a constant index:
+// a run-time index into a one-table parameter made nvcc copy the table to
+// the stack (80 bytes a thread), read back at every use.
+template <int N>
+__device__ __forceinline__ const PushTable& table_at(const PushGroup<N>& g,
+                                                    int i) {
+  return g.t[N == 1 ? 0 : i];
+}
+
+__host__ __device__ __forceinline__ const int* runs_of_table(
+    const PushTable& t) {
+  return t.work + 6 * t.m + 1;
+}
+
+// Long-run CTAs of a table's clusters: kGroup columns each, up to kTile.
+__host__ __device__ __forceinline__ int long_ctas(int dim) {
+  return ((dim < kTile ? dim : kTile) + kGroup - 1) / kGroup;
 }
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -376,12 +463,11 @@ struct SortShared {
   int prev;  // the key before this CTA's first entry
 };
 
-__global__ void __launch_bounds__(kSortThreads, 1)
-sort_kernel(const int* __restrict__ idx, int* __restrict__ work, int m, int S,
-            int rps, int bits) {
-  // The long runs' kernel may start: it waits for this grid before it
-  // reads anything.
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+// One table's sort by the CTAs of one cluster.  A CTA may hold no entries
+// (a small table in a group whose cluster size a larger one set).
+__device__ __forceinline__ void sort_table(const int* __restrict__ idx,
+                                           int* __restrict__ work, int m,
+                                           int S, int rps, int bits) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
@@ -592,7 +678,10 @@ sort_kernel(const int* __restrict__ idx, int* __restrict__ work, int m, int S,
     const int ns = max(0, min(slice, nd - c * slice));
     mbar_expect(&sh.bar_cnt, C * ns * 4);
     mbar_expect(&sh.bar_base, (nd + C) * 4);
-    if (!big) mbar_expect(&sh.bar_ent, n * 8 + (last && c > 0 ? 4 : 0));
+    // The key before the CTA's first entry comes from the entry at lo - 1,
+    // where there is one (a CTA past the list's end gets none).
+    if (!big)
+      mbar_expect(&sh.bar_ent, n * 8 + (last && c > 0 && lo <= m ? 4 : 0));
   };
 
   for (int p = 0; p < passes; ++p) {
@@ -756,6 +845,19 @@ sort_kernel(const int* __restrict__ idx, int* __restrict__ work, int m, int S,
   cluster_wait();
 }
 
+// The sorts of a push: cluster q of the grid sorts table q.  The cluster
+// size is one for the launch, set by its largest table (sort_cluster).
+template <int N>
+__global__ void __launch_bounds__(kSortThreads, 1)
+sort_kernel(const PushGroup<N> grp) {
+  // The long runs' kernel may start: it waits for this grid before it
+  // reads anything.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const PushTable& t =
+      table_at(grp, blockIdx.x / cg::this_cluster().num_blocks());
+  sort_table(t.idx, t.work, t.m, t.S, t.rps, t.bits);
+}
+
 // -- long runs: one cluster each ------------------------------------------------
 
 // One 16-byte asynchronous copy into shared memory (cp.async, no
@@ -848,12 +950,18 @@ __device__ __forceinline__ float walk(float x, const T* ring, int col, int rb,
 // Row-wise Adagrad of a long run, by one CTA's adding warp: the row's sum
 // of squares in a fixed order (the warp's butterfly, then the CTAs of the
 // cluster in turn, their sums sent to every CTA into `part`, completing
-// on `bar`), then the step of the CTA's columns; CTA 0 writes acc[row].
+// on `bar`), then the step of the CTA's columns; the run's first CTA
+// writes acc[row].  Every one of the cluster's G CTAs (rank g) sends; the
+// sum takes the Gt parts from `first`, the run's CTAs in the single push's
+// order (a group's cluster is as wide as its widest table, and takes
+// G / Gt runs of a narrower one at once); rank gt among them picks the
+// columns.  A CTA without a run (`live` false) sends zero and stops.
 template <typename T>
 __device__ __forceinline__ void adagrad_step(
-    T* store, float* acc, int row, int dim, int g, int G, float sq,
-    float acc0, float lr, float eps, const float* s_g, float* part,
-    unsigned long long* bar, unsigned parity) {
+    T* store, float* acc, int row, int dim, int g, int G, int first, int Gt,
+    int gt, bool live, float sq, float acc0, float lr, float eps,
+    const float* s_g, float* part, unsigned long long* bar,
+    unsigned parity) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -861,18 +969,19 @@ __device__ __forceinline__ void adagrad_step(
   if (lane < G)
     send(peer(part + g, lane), __float_as_int(sq), peer(bar, lane));
   mbar_wait_peers(bar, parity);
-  float total = part[0];
-  for (int w = 1; w < G; ++w) total = __fadd_rn(total, part[w]);
+  if (!live) return;
+  float total = part[first];
+  for (int w = 1; w < Gt; ++w) total = __fadd_rn(total, part[first + w]);
   const float a = __fadd_rn(acc0, __fdiv_rn(total, static_cast<float>(dim)));
   const float denom = __fadd_rn(__fsqrt_rn(a), eps);
   for (int c0 = 0; c0 < dim; c0 += kTile) {
-    const int c = c0 + kGroup * g + lane;
-    if (lane >= min(kGroup, min(kTile, dim - c0) - kGroup * g)) continue;
+    const int c = c0 + kGroup * gt + lane;
+    if (lane >= min(kGroup, min(kTile, dim - c0) - kGroup * gt)) continue;
     const float stp = Elem<T>::round(__fdiv_rn(__fmul_rn(lr, s_g[c]), denom));
     T* dst = store + static_cast<long long>(row) * dim + c;
     Elem<T>::store(dst, __fsub_rn(Elem<T>::load(dst), stp));
   }
-  if (g == 0 && lane == 0) acc[row] = a;
+  if (gt == 0 && lane == 0) acc[row] = a;
 }
 
 // The long runs: one cluster per run, CTA g of it on the kGroup columns
@@ -896,12 +1005,9 @@ __device__ __forceinline__ void adagrad_step(
 // of its walk and of its waits on `full`, its producer thread 0 those of
 // its waits on `empty` (probe[4h ...] = length, walk, adder wait, producer
 // wait); the push's own instantiations read no clock.
-template <typename T, bool ADAGRAD, bool PROBE>
+template <typename T, bool ADAGRAD, bool PROBE, int N>
 __global__ void __launch_bounds__(kLongThreads, 2)
-long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
-                 const T* __restrict__ rows, const int* __restrict__ spos,
-                 const int* __restrict__ runs, int m, int dim, int rb,
-                 bool by16, float lr, float eps,
+long_runs_kernel(const PushGroup<N> grp, int rb, float lr, float eps,
                  long long* __restrict__ probe) {
   // Ring rows of kGroup values, 2^kLg bytes.
   constexpr int kLg = (sizeof(T) == 4 ? 2 : 1) + (kGroup == 32 ? 5 : 4);
@@ -910,6 +1016,8 @@ long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
   __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
   __shared__ __align__(8) unsigned long long bar_sq[2];
   __shared__ float s_part[2][kTile / kGroup];
+  __shared__ int s_first[N + 1];  // the group's bundles before table i
+  __shared__ int s_runs[N];       // each table's long runs
   cg::cluster_group cluster = cg::this_cluster();
   const int G = static_cast<int>(cluster.num_blocks());
   const int g = static_cast<int>(cluster.block_rank());
@@ -934,23 +1042,70 @@ long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
   // before it completes.
   asm volatile("griddepcontrol.wait;" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  // The group's list of bundles: a cluster takes G / Gt runs of a table
+  // whose runs need Gt of its G CTAs at once (a bundle), and table i's
+  // bundles follow those of the tables before it (their run counts, from
+  // the sort, prefixed here: no host sync).  A push of one table walks its
+  // runs one a cluster, as before groups.
+  if constexpr (N > 1) {
+    if (threadIdx.x < grp.count) {
+      const PushTable& t = grp.t[threadIdx.x];
+      const int pb = G / long_ctas(t.dim), runs = runs_of_table(t)[1];
+      s_runs[threadIdx.x] = runs;
+      s_first[threadIdx.x + 1] = (runs + pb - 1) / pb;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_first[0] = 0;
+      for (int i = 0; i < grp.count; ++i) s_first[i + 1] += s_first[i];
+    }
+    __syncthreads();
+  }
   cluster_wait();  // every CTA's barriers are ready
-  const int nruns = runs[1];
+  const int nbundles =
+      N == 1 ? runs_of_table(grp.t[0])[1] : s_first[grp.count];
   const int nclusters = gridDim.x / G;
   unsigned it = 0;  // stages so far
-  int j = 0;        // runs so far
-  for (int h = blockIdx.x / G; h < nruns; h += nclusters, ++j) {
-    const int3 lrun = long_run(runs, m, h);  // (start, len, row)
-    const int start = lrun.x, len = lrun.y, row = lrun.z;
+  int j = 0;        // bundles so far
+  int tb = 0;       // the table of bundle u (u only grows)
+  for (int u = blockIdx.x / G; u < nbundles; u += nclusters, ++j) {
+    if constexpr (N > 1)
+      while (u >= s_first[tb + 1]) ++tb;
+    const PushTable& tt = table_at(grp, tb);
+    T* __restrict__ store = static_cast<T*>(tt.store);
+    float* __restrict__ acc = tt.acc;
+    const T* __restrict__ rows = static_cast<const T*>(tt.rows);
+    const int m = tt.m, dim = tt.dim;
+    const bool by16 = tt.by16 != 0;
+    const int* __restrict__ spos = tt.work + 4 * m;
+    // This CTA's run of the bundle and its rank among that run's Gt CTAs
+    // (CTAs past the bundle's runs idle: they take part in the exchange).
+    int Gt = G, sub = 0, gt = g, h = u;  // a push of one table: Gt == G
+    bool live = true;
+    if constexpr (N > 1) {
+      Gt = long_ctas(dim);
+      const int pb = G / Gt;
+      sub = g / Gt;
+      gt = g - sub * Gt;
+      h = (u - s_first[tb]) * pb + sub;  // the table's long run
+      live = sub < pb && h < s_runs[tb];
+    }
+    int start = 0, len = 0, row = 0;
+    if (live) {
+      const int3 lrun = long_run(runs_of_table(tt), m, h);
+      start = lrun.x;
+      len = lrun.y;
+      row = lrun.z;
+    }
     const int nb = (len + rb - 1) / rb;
     float sq = 0.f, acc0 = 0.f;
     if (ADAGRAD) {
-      acc0 = acc[row];  // before any CTA of the cluster can write it
+      if (live) acc0 = acc[row];  // before any CTA can write it
       if (threadIdx.x == 0) mbar_expect(&bar_sq[j & 1], G * 4);
     }
-    for (int c0 = 0; c0 < dim; c0 += kTile) {
-      const int gc = c0 + kGroup * g;  // the group's first column
-      const int gw = min(kGroup, min(kTile, dim - c0) - kGroup * g);
+    for (int c0 = 0; live && c0 < dim; c0 += kTile) {
+      const int gc = c0 + kGroup * gt;  // the group's first column
+      const int gw = min(kGroup, min(kTile, dim - c0) - kGroup * gt);
       if (gw <= 0) continue;  // this tile is narrower than the group
       if (pt >= 0 && by16) {  // the producers, 16 bytes each per row
         const int cpr = gw * static_cast<int>(sizeof(T)) / 16;  // per row
@@ -991,7 +1146,7 @@ long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
           }
           copy16_arrive(&full[s]);
         }
-        if (PROBE && g == 0 && pt == 0 && c0 == 0) probe[4 * h + 3] = waited;
+        if (PROBE && gt == 0 && pt == 0 && c0 == 0) probe[4 * h + 3] = waited;
       } else if (pt >= 0) {  // the producers, plain loads and stores
         const int pw = pt >> 5;
         constexpr int nw = np >> 5;
@@ -1015,7 +1170,7 @@ long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
         long long t0 = PROBE ? clock64() : 0, waited = 0;
         x = walk<T, PROBE, kLg>(x, ring, mine ? lane : 0, rb, len, it, full,
                                 empty, lane, waited);
-        if (PROBE && g == 0 && lane == 0 && c0 == 0) {
+        if (PROBE && gt == 0 && lane == 0 && c0 == 0) {
           probe[4 * h] = len;
           probe[4 * h + 1] = clock64() - t0;
           probe[4 * h + 2] = waited;
@@ -1032,8 +1187,9 @@ long_runs_kernel(T* __restrict__ store, float* __restrict__ acc,
     }
     if constexpr (ADAGRAD) {
       if (warp == 0)
-        adagrad_step(store, acc, row, dim, g, G, sq, acc0, lr, eps, s_g,
-                     s_part[j & 1], &bar_sq[j & 1], (j >> 1) & 1);
+        adagrad_step(store, acc, row, dim, g, G, sub * Gt, Gt, gt, live, sq,
+                     acc0, lr, eps, s_g, s_part[j & 1], &bar_sq[j & 1],
+                     (j >> 1) & 1);
     }
   }
   // No CTA leaves while a peer may still send to it.
@@ -1071,31 +1227,77 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, bool vec,
   for (int e = 0; e < 4; ++e) v[e] = e < n ? __bfloat162float(p[e]) : 0.f;
 }
 
+// The items (thread-quads or warps) of a short-run launch: for a group,
+// s_first[i] counts those of the tables before table i, prefixed from the
+// sort's run counts in device memory (needs blockDim.x >= N); a group of
+// one reads its count alone, with no barrier and no prefix (their
+// registers cost a single push's Adagrad short runs resident warps).
+template <int N, typename F>
+__device__ __forceinline__ long long short_items(const PushGroup<N>& grp,
+                                                 long long* s_first,
+                                                 F items) {
+  if constexpr (N == 1) {
+    const PushTable& t = grp.t[0];
+    return items(runs_of_table(t)[0], t.dim);
+  } else {
+    if (threadIdx.x < grp.count) {
+      const PushTable& t = grp.t[threadIdx.x];
+      s_first[threadIdx.x + 1] = items(runs_of_table(t)[0], t.dim);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_first[0] = 0;
+      for (int i = 0; i < grp.count; ++i) s_first[i + 1] += s_first[i];
+    }
+    __syncthreads();
+    return s_first[grp.count];
+  }
+}
+
+// Item t's index in its table, whose position tb advances from the last
+// item's (t only grows).
+template <int N>
+__device__ __forceinline__ long long item_in_table(long long t, int& tb,
+                                                   const long long* s_first) {
+  if constexpr (N == 1) {
+    return t;
+  } else {
+    while (t >= s_first[tb + 1]) ++tb;
+    return t - s_first[tb];
+  }
+}
+
 // Sum push of the short runs: one thread per (run, 4 columns), four
-// in-order chains side by side, each row read through its list position.
-template <typename T>
-__global__ void scatter_short_kernel(T* __restrict__ store,
-                                     const T* __restrict__ rows,
-                                     const int* __restrict__ spos,
-                                     const int* __restrict__ runs, int dim,
-                                     bool vec) {
-  const int quads = (dim + 3) / 4;
-  const long long work = static_cast<long long>(runs[0]) * quads;
+// in-order chains side by side, each row read through its list position;
+// the group's tables one after another.
+template <typename T, int N>
+__global__ void scatter_short_kernel(const PushGroup<N> grp) {
+  __shared__ long long s_first[N + 1];
+  const long long work = short_items(grp, s_first, [](int runs, int dim) {
+    return static_cast<long long>(runs) * ((dim + 3) / 4);
+  });
+  int tb = 0;  // the table of item t
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        t < work; t += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int h = static_cast<int>(t / quads);
-    const int c0 = static_cast<int>(t - static_cast<long long>(h) * quads) * 4;
-    const int3 run = short_run(runs, h);  // (start, len, row)
+    const long long u = item_in_table<N>(t, tb, s_first);
+    const PushTable& tt = table_at(grp, tb);
+    const int dim = tt.dim, quads = (dim + 3) / 4;
+    const T* __restrict__ rows = static_cast<const T*>(tt.rows);
+    const int* __restrict__ spos = tt.work + 4 * tt.m;
+    const int h = static_cast<int>(u / quads);
+    const int c0 = static_cast<int>(u - static_cast<long long>(h) * quads) * 4;
+    const int3 run = short_run(runs_of_table(tt), h);  // (start, len, row)
     const int n = min(4, dim - c0);
-    T* dst = store + static_cast<long long>(run.z) * dim + c0;
+    T* dst = static_cast<T*>(tt.store) + static_cast<long long>(run.z) * dim +
+             c0;
     float x[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[e] = e < n ? Elem<T>::load(dst + e) : 0.f;
     for (int r = 0; r < run.y; ++r) {
       float v[4];
-      load4(rows + static_cast<long long>(spos[run.x + r]) * dim + c0, n, vec,
-            v);
+      load4(rows + static_cast<long long>(spos[run.x + r]) * dim + c0, n,
+            tt.vec != 0, v);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (e < n) x[e] = Elem<T>::add(x[e], v[e]);
@@ -1111,20 +1313,26 @@ __global__ void scatter_short_kernel(T* __restrict__ store,
 // in chunks of 32.  Pass 1 sums each column of G (from zero, in list
 // order) and the squares; pass 2 sums G again, the same way, and steps the
 // row.
-template <typename T>
-__global__ void adagrad_short_kernel(T* __restrict__ store,
-                                     float* __restrict__ acc,
-                                     const T* __restrict__ rows,
-                                     const int* __restrict__ spos,
-                                     const int* __restrict__ runs, int dim,
-                                     float lr, float eps) {
+template <typename T, int N>
+__global__ void adagrad_short_kernel(const PushGroup<N> grp, float lr,
+                                     float eps) {
+  __shared__ long long s_first[N + 1];
+  const int nruns = static_cast<int>(short_items(
+      grp, s_first,
+      [](int runs, int) { return static_cast<long long>(runs); }));
   const int lane = threadIdx.x & 31;
-  const int nruns = runs[0];
   const int step = gridDim.x * (blockDim.x >> 5);
+  int tb = 0;  // the table of run h
   for (int h = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
        h < nruns; h += step) {
-    const int3 run = short_run(runs, h);  // (start, len, row)
-    const int* ps = spos + run.x;
+    const int k = static_cast<int>(item_in_table<N>(h, tb, s_first));
+    const PushTable& tt = table_at(grp, tb);
+    const int dim = tt.dim;
+    const T* __restrict__ rows = static_cast<const T*>(tt.rows);
+    T* __restrict__ store = static_cast<T*>(tt.store);
+    float* __restrict__ acc = tt.acc;
+    const int3 run = short_run(runs_of_table(tt), k);
+    const int* ps = tt.work + 4 * tt.m + run.x;
     float sq = 0.f;
     for (int c = lane; c - lane < dim; c += 32) {
       float g = 0.f;
@@ -1156,18 +1364,54 @@ __global__ void adagrad_short_kernel(T* __restrict__ store,
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the long runs' grid
 }
 
+// One table of a group pull: its store, indices and fresh output, the
+// launch's first item on it, and its items (pieces of 2^lgw bytes: 16, 8,
+// 4 or 2, as its row bytes and pointers allow) per row.
+struct GatherTable {
+  const void* store;
+  const int* idx;
+  void* out;
+  long long first;
+  int vpr, lgw, S, rps;
+};
+struct GatherGroup {
+  int count;
+  GatherTable t[kMaxTables];
+};
+static_assert(sizeof(GatherTable) == 48, "table layout");
+static_assert(sizeof(GatherGroup) + 16 <= 4096, "kernel parameter size");
+
 template <typename V>
-__global__ void gather_rows_kernel(const V* __restrict__ store,
-                                   const int* __restrict__ idx,
-                                   V* __restrict__ out, long long m, int vpr,
-                                   int S, int rps) {
+__device__ __forceinline__ void copy_item(const GatherTable& d, long long u) {
+  const long long j = u / d.vpr;
+  const int v = static_cast<int>(u - j * d.vpr);
+  const int r = flat_row(d.idx[j], d.S, d.rps);
+  static_cast<V*>(d.out)[u] =
+      r >= 0 ? static_cast<const V*>(d.store)[static_cast<long long>(r) *
+                                                   d.vpr + v]
+             : V();
+}
+
+// The pull of every table of a group in one launch: thread t copies item
+// t of the launch, in the table whose first item is the last at or below
+// t (a binary search of the table), at that table's width.
+__global__ void gather_group_kernel(const GatherGroup grp, long long items) {
   const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
-  if (t >= m * vpr) return;
-  const long long j = t / vpr;
-  const int v = static_cast<int>(t - j * vpr);
-  const int r = flat_row(idx[j], S, rps);
-  out[t] = r >= 0 ? store[static_cast<long long>(r) * vpr + v] : V();
+  if (t >= items) return;
+  int lo = 0, hi = grp.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (grp.t[mid].first <= t) lo = mid; else hi = mid - 1;
+  }
+  const GatherTable& d = grp.t[lo];
+  const long long u = t - d.first;
+  switch (d.lgw) {
+    case 4: copy_item<uint4>(d, u); break;
+    case 3: copy_item<uint2>(d, u); break;
+    case 2: copy_item<unsigned int>(d, u); break;
+    default: copy_item<unsigned short>(d, u); break;
+  }
 }
 
 bool aligned(const void* p, unsigned long long n) {
@@ -1294,22 +1538,62 @@ void beside(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
   cfg.numAttrs = 1;
 }
 
-template <typename T, bool PROBE>
-int launch_push(void* store, void* acc, const void* rows, void* work,
-                long long m, int dim, bool adagrad, float lr, float eps,
-                long long* probe, cudaStream_t st) {
-  const Work wk = work_of(static_cast<int*>(work), static_cast<int>(m));
-  auto* s = static_cast<T*>(store);
-  auto* a = static_cast<float*>(acc);
-  auto* rw = static_cast<const T*>(rows);
-  const int mi = static_cast<int>(m);
-  const bool by16 = aligned(rows, 16) && (dim * sizeof(T)) % 16 == 0;
+// The sorts of a push's tables: one launch, one cluster per table, its
+// size set by the largest table.
+template <int N>
+int launch_sort(const PushGroup<N>& grp, cudaStream_t st) {
+  static const cudaError_t ready = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        sort_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSortSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        sort_kernel<N>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  int C = 1;
+  for (int i = 0; i < grp.count; ++i) C = max(C, sort_cluster(grp.t[i].m));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(C * grp.count);
+  cfg.blockDim = dim3(kSortThreads);
+  cfg.dynamicSmemBytes = kSortSmem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(C);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, sort_kernel<N>, grp);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  // The long runs first: the hottest row's walk is the longest piece.  One
-  // cluster of G CTAs per run (kGroup columns each), as many clusters as
-  // run at once, up to the most long runs m can hold.
+// The long and short runs of a push's tables (sorted just before on the
+// same stream): two launches.
+template <typename T, bool PROBE, int N>
+int launch_push(const PushGroup<N>& grp, bool adagrad, float lr, float eps,
+                long long* probe, cudaStream_t st) {
+  // The long runs first: the hottest row's walk is the longest piece.
+  // Clusters of G CTAs, kGroup columns each, G for the launch's widest
+  // table; a cluster takes G / Gt runs at once of a table whose runs need
+  // Gt CTAs (a bundle).  As many clusters as run at once, up to the most
+  // bundles the tables' lists can hold.
   constexpr int kLg = (sizeof(T) == 4 ? 2 : 1) + (kGroup == 32 ? 5 : 4);
-  const int G = (min(dim, kTile) + kGroup - 1) / kGroup;
+  int G = 1, widest = 0;
+  long long most_long = 0, short_items = 0, m_all = 0;
+  for (int i = 0; i < grp.count; ++i) {
+    const PushTable& t = grp.t[i];
+    G = max(G, long_ctas(t.dim));
+    widest = max(widest, t.dim);
+    short_items += static_cast<long long>(t.m) * ((t.dim + 3) / 4);
+    m_all += t.m;
+  }
+  for (int i = 0; i < grp.count; ++i) {  // bundles of G / Gt runs
+    const int pb = G / long_ctas(grp.t[i].dim);
+    most_long += (grp.t[i].m / (kLong + 1) + 1 + pb - 1) / pb;
+  }
   // Rows per slot: a multiple of kAhead, at most kRingRows, and at most 8
   // per producer thread (each copies 16 bytes of a row of kGroup values).
   const int per =
@@ -1318,58 +1602,132 @@ int launch_push(void* store, void* acc, const void* rows, void* work,
                  ~(kAhead - 1);
   const size_t smem =
       (static_cast<size_t>(kStages * rb + kAhead) << kLg) +
-      (adagrad ? static_cast<size_t>(dim) * sizeof(float) : 0);
-  auto lk = adagrad ? long_runs_kernel<T, true, PROBE>
-                    : long_runs_kernel<T, false, PROBE>;
+      (adagrad ? static_cast<size_t>(widest) * sizeof(float) : 0);
+  auto lk = adagrad ? long_runs_kernel<T, true, PROBE, N>
+                    : long_runs_kernel<T, false, PROBE, N>;
   const long long fit = resident_clusters(lk, kLongThreads, smem, G);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
-  beside(cfg, attrs[0], dim3(G * static_cast<unsigned>(grid_of(
-                                      fit, m / (kLong + 1) + 1))),
-         kLongThreads, smem, st);
+  beside(cfg, attrs[0], dim3(G * grid_of(fit, most_long)), kLongThreads, smem,
+         st);
   attrs[1].id = cudaLaunchAttributeClusterDimension;
   attrs[1].val.clusterDim.x = static_cast<unsigned>(G);
   attrs[1].val.clusterDim.y = 1;
   attrs[1].val.clusterDim.z = 1;
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, lk, s, a, rw, static_cast<const int*>(wk.spos),
-      static_cast<const int*>(wk.runs), mi, dim, rb, by16, lr, eps, probe);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, lk, grp, rb, lr, eps, probe);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // The short runs beside the long ones: they start once every long-run
   // CTA has passed its wait for the sort.
-  const bool vec = dim % 4 == 0 && aligned(rows, 4 * sizeof(T));
   if (adagrad) {
-    auto sk = adagrad_short_kernel<T>;
+    auto sk = adagrad_short_kernel<T, N>;
     beside(cfg, attrs[0],
-           dim3(grid_of(resident_blocks(sk, 256, 0), (m + 7) / 8)), 256, 0,
-           st);
-    err = cudaLaunchKernelEx(&cfg, sk, s, a, rw,
-                             static_cast<const int*>(wk.spos),
-                             static_cast<const int*>(wk.runs), dim, lr, eps);
+           dim3(grid_of(resident_blocks(sk, 256, 0), (m_all + 7) / 8)), 256,
+           0, st);
+    err = cudaLaunchKernelEx(&cfg, sk, grp, lr, eps);
   } else {
-    auto sk = scatter_short_kernel<T>;
-    const long long work_items = m * ((dim + 3) / 4);
+    auto sk = scatter_short_kernel<T, N>;
     beside(cfg, attrs[0],
-           dim3(grid_of(resident_blocks(sk, 256, 0), (work_items + 255) / 256)),
+           dim3(grid_of(resident_blocks(sk, 256, 0), (short_items + 255) / 256)),
            256, 0, st);
-    err = cudaLaunchKernelEx(&cfg, sk, s, rw,
-                             static_cast<const int*>(wk.spos),
-                             static_cast<const int*>(wk.runs), dim, vec);
+    err = cudaLaunchKernelEx(&cfg, sk, grp);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename V>
-int launch_gather(const void* store, const void* idx, void* out, long long m,
-                  int row_bytes, int S, int rps, cudaStream_t st) {
-  const int vpr = row_bytes / static_cast<int>(sizeof(V));
-  gather_rows_kernel<V><<<blocks_of(m * vpr, 256), 256, 0, st>>>(
-      static_cast<const V*>(store), static_cast<const int*>(idx),
-      static_cast<V*>(out), m, vpr, S, rps);
+// A push's descriptor of one table: rows of int64 words (store, acc or 0,
+// rows, indices, work, m, dim, S, rps).  The tables must not share a store.
+template <typename T>
+bool push_table(const long long* w, PushTable& t) {
+  t.store = reinterpret_cast<void*>(w[0]);
+  t.acc = reinterpret_cast<float*>(w[1]);
+  t.rows = reinterpret_cast<const void*>(w[2]);
+  t.idx = reinterpret_cast<const int*>(w[3]);
+  t.work = reinterpret_cast<int*>(w[4]);
+  const long long m = w[5], dim = w[6], S = w[7], rps = w[8];
+  const bool ok = m >= 1 && m < (1ll << 31) && dim >= 1 && dim < (1ll << 31) &&
+                  S >= 1 && rps >= 1 && S * rps < (1ll << 31) - 1;
+  t.m = static_cast<int>(m);
+  t.dim = static_cast<int>(dim);
+  t.S = static_cast<int>(S);
+  t.rps = static_cast<int>(rps);
+  t.bits = ok ? 32 - __builtin_clz(static_cast<unsigned>(S * rps)) : 0;
+  t.by16 = aligned(t.rows, 16) && (dim * sizeof(T)) % 16 == 0;
+  t.vec = dim % 4 == 0 && aligned(t.rows, 4 * sizeof(T));
+  return ok;
+}
+
+template <typename T>
+bool push_group(const long long* tables, int count, bool adagrad,
+                PushGroup<kMaxTables>& grp) {
+  if (count < 1 || count > kMaxTables) return false;
+  grp.count = count;
+  for (int i = 0; i < count; ++i) {
+    const PushTable& t = grp.t[i];
+    if (!push_table<T>(tables + 9ll * i, grp.t[i]) || t.store == nullptr ||
+        t.rows == nullptr || t.idx == nullptr || t.work == nullptr ||
+        (adagrad && t.acc == nullptr))
+      return false;
+  }
+  return true;
+}
+
+// A single table's sort or push: a group of one (the C entries of one table
+// check their own arguments).
+template <typename T>
+PushGroup<1> one_table(void* store, void* acc, const void* rows,
+                       const void* idx, void* work, long long m, int dim,
+                       int S, int rps) {
+  const long long w[9] = {reinterpret_cast<long long>(store),
+                          reinterpret_cast<long long>(acc),
+                          reinterpret_cast<long long>(rows),
+                          reinterpret_cast<long long>(idx),
+                          reinterpret_cast<long long>(work),
+                          m, dim, S, rps};
+  PushGroup<1> grp{};
+  grp.count = 1;
+  push_table<T>(w, grp.t[0]);
+  return grp;
+}
+
+// The pull of `count` (<= 48) tables in one launch, each a row of 7 int64
+// words: (store, indices, out, m, row bytes, S, rps); one table's is a
+// group of one.
+int gather_group(const long long* tables, int count, cudaStream_t st) {
+  if (count < 1 || count > kMaxTables)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GatherGroup grp{};
+  long long items = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* w = tables + 7ll * i;
+    GatherTable& d = grp.t[grp.count];
+    d.store = reinterpret_cast<const void*>(w[0]);
+    d.idx = reinterpret_cast<const int*>(w[1]);
+    d.out = reinterpret_cast<void*>(w[2]);
+    const long long m = w[3], row_bytes = w[4];
+    if (m < 0 || row_bytes < 2 || row_bytes >= (1ll << 31) || w[5] < 1 ||
+        w[6] < 1 || d.store == nullptr || d.idx == nullptr ||
+        d.out == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    int lgw = 4;
+    while (lgw > 0 && (row_bytes % (1 << lgw) || !aligned(d.store, 1 << lgw) ||
+                       !aligned(d.out, 1 << lgw)))
+      --lgw;
+    if (lgw == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (m == 0) continue;
+    d.first = items;
+    d.vpr = static_cast<int>(row_bytes >> lgw);
+    d.lgw = lgw;
+    d.S = static_cast<int>(w[5]);
+    d.rps = static_cast<int>(w[6]);
+    items += m * d.vpr;
+    ++grp.count;
+  }
+  if (items == 0) return 0;
+  gather_group_kernel<<<blocks_of(items, 256), 256, 0, st>>>(grp, items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1382,34 +1740,11 @@ extern "C" {
 int pstt_sparse_sort(const void* idx, void* work, long long m, int S, int rps,
                      void* stream) {
   if (m <= 0) return 0;
-  static const cudaError_t ready = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSortSmem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        sort_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  const int nrows = S * rps;
-  const int bits = 32 - __builtin_clz(static_cast<unsigned>(nrows));
-  const int C = sort_cluster(m);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(kSortThreads);
-  cfg.dynamicSmemBytes = kSortSmem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(C);
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, sort_kernel, static_cast<const int*>(idx), static_cast<int*>(work),
-      static_cast<int>(m), S, rps, bits);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (m >= (1ll << 31) || S < 1 || rps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_sort(one_table<float>(nullptr, nullptr, nullptr, idx, work, m,
+                                      1, S, rps),
+                     static_cast<cudaStream_t>(stream));
 }
 
 // dtype: 0 float32, 1 bfloat16.  work: filled by pstt_sparse_sort just
@@ -1419,11 +1754,13 @@ int pstt_sparse_scatter_add(void* store, const void* rows, void* work,
   if (m <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_push<__nv_bfloat16, false>(store, nullptr, rows, work, m,
-                                             dim, false, 0.f, 0.f, nullptr,
-                                             st);
-  return launch_push<float, false>(store, nullptr, rows, work, m, dim, false,
-                                   0.f, 0.f, nullptr, st);
+    return launch_push<__nv_bfloat16, false>(
+        one_table<__nv_bfloat16>(store, nullptr, rows, nullptr, work, m, dim,
+                                 1, 1),
+        false, 0.f, 0.f, nullptr, st);
+  return launch_push<float, false>(
+      one_table<float>(store, nullptr, rows, nullptr, work, m, dim, 1, 1),
+      false, 0.f, 0.f, nullptr, st);
 }
 
 int pstt_sparse_row_adagrad(void* store, void* acc, const void* rows,
@@ -1432,10 +1769,13 @@ int pstt_sparse_row_adagrad(void* store, void* acc, const void* rows,
   if (m <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_push<__nv_bfloat16, false>(store, acc, rows, work, m, dim,
-                                             true, lr, eps, nullptr, st);
-  return launch_push<float, false>(store, acc, rows, work, m, dim, true, lr,
-                                   eps, nullptr, st);
+    return launch_push<__nv_bfloat16, false>(
+        one_table<__nv_bfloat16>(store, acc, rows, nullptr, work, m, dim, 1,
+                                 1),
+        true, lr, eps, nullptr, st);
+  return launch_push<float, false>(
+      one_table<float>(store, acc, rows, nullptr, work, m, dim, 1, 1), true,
+      lr, eps, nullptr, st);
 }
 
 // The sum push with the clock probe in its long-run walk (f32 or bf16):
@@ -1449,30 +1789,61 @@ int pstt_sparse_walk_probe(void* store, const void* rows, void* work,
   auto st = static_cast<cudaStream_t>(stream);
   auto* pr = static_cast<long long*>(probe);
   if (dtype == 1)
-    return launch_push<__nv_bfloat16, true>(store, nullptr, rows, work, m, dim,
-                                            false, 0.f, 0.f, pr, st);
-  return launch_push<float, true>(store, nullptr, rows, work, m, dim, false,
-                                  0.f, 0.f, pr, st);
+    return launch_push<__nv_bfloat16, true>(
+        one_table<__nv_bfloat16>(store, nullptr, rows, nullptr, work, m, dim,
+                                 1, 1),
+        false, 0.f, 0.f, pr, st);
+  return launch_push<float, true>(
+      one_table<float>(store, nullptr, rows, nullptr, work, m, dim, 1, 1),
+      false, 0.f, 0.f, pr, st);
+}
+
+// The sorts of a group push of `count` (<= 48) tables, each described by a
+// row of 9 int64 words: (store, acc or 0, update rows, indices, work, m,
+// dim, S, rps); each table's work (9m + 3 ints) is its own.  One cluster
+// launch.
+int pstt_sparse_sort_group(const long long* tables, int count, void* stream) {
+  PushGroup<kMaxTables> grp;
+  if (!push_group<float>(tables, count, false, grp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_sort(grp, static_cast<cudaStream_t>(stream));
+}
+
+// The long and short runs of a group push, after pstt_sparse_sort_group on
+// the same tables and stream: every table of one dtype (0 float32, 1
+// bfloat16); adagrad: 0 the sum push, 1 row-wise Adagrad (each table's acc
+// given).  Two launches.
+int pstt_sparse_push_group(const long long* tables, int count, int dtype,
+                           int adagrad, float lr, float eps, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  PushGroup<kMaxTables> grp;
+  if (dtype == 1) {
+    if (!push_group<__nv_bfloat16>(tables, count, adagrad != 0, grp))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_push<__nv_bfloat16, false>(grp, adagrad != 0, lr, eps,
+                                             nullptr, st);
+  }
+  if (!push_group<float>(tables, count, adagrad != 0, grp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_push<float, false>(grp, adagrad != 0, lr, eps, nullptr, st);
 }
 
 int pstt_sparse_gather_rows(const void* store, const void* idx, void* out,
                             long long m, int row_bytes, int S, int rps,
                             void* stream) {
   if (m <= 0) return 0;
-  auto st = static_cast<cudaStream_t>(stream);
-  for (int w = 16; w >= 2; w >>= 1) {
-    if (row_bytes % w || !aligned(store, w) || !aligned(out, w)) continue;
-    if (w == 16)
-      return launch_gather<uint4>(store, idx, out, m, row_bytes, S, rps, st);
-    if (w == 8)
-      return launch_gather<uint2>(store, idx, out, m, row_bytes, S, rps, st);
-    if (w == 4)
-      return launch_gather<unsigned int>(store, idx, out, m, row_bytes, S,
-                                         rps, st);
-    return launch_gather<unsigned short>(store, idx, out, m, row_bytes, S,
-                                         rps, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);  // rows of odd bytes
+  const long long w[7] = {reinterpret_cast<long long>(store),
+                          reinterpret_cast<long long>(idx),
+                          reinterpret_cast<long long>(out), m, row_bytes, S,
+                          rps};
+  return gather_group(w, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The pull of a group of `count` (<= 48) tables in one launch, each a row
+// of 7 int64 words: (store, indices, out, m, row bytes, S, rps).
+int pstt_sparse_gather_group(const long long* tables, int count,
+                             void* stream) {
+  return gather_group(tables, count, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -79,6 +79,9 @@ _SIGNATURES = {
     "pstt_sparse_row_adagrad": (_P, _P, _P, _P, _L, _I, _F, _F, _I, _P),
     "pstt_sparse_walk_probe": (_P, _P, _P, _L, _I, _I, _P, _P),
     "pstt_sparse_gather_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
+    "pstt_sparse_sort_group": (_P, _I, _P),
+    "pstt_sparse_push_group": (_P, _I, _I, _I, _F, _F, _P),
+    "pstt_sparse_gather_group": (_P, _I, _P),
 }
 
 # Where the CUDA toolkit installs nvcc by default.

@@ -34,18 +34,29 @@ Order of arithmetic, which decides the bits:
   the step rounded to the table's dtype before the add.
 - pull: a copy of the owned row, or zeros: exact.
 
+Groups.  ``scatter_add_group``, ``row_adagrad_group`` and
+``gather_rows_group`` run the same functions over several tables at
+once, the counterpart of ``_sparse_group_program`` (:670, one XLA program
+over the k tables of ``push_group``/``pull_group``): a group push is three
+launches per dtype present (the sorts, the long runs, the short runs),
+whatever k is, and a group pull one.  The tables are disjoint, so each
+table's bits are those of its own push or pull.
+
 On a CPU tensor each function runs its plain PyTorch version
 (``*_reference``), which writes the order out (rounds of ``index_add_``
 by occurrence rank: no row appears twice in a round); on a CUDA tensor it
 launches the kernel, or raises.  ``launches`` counts kernel launches per
-function, and nothing else.  The push functions update the store (and
-accumulator) IN PLACE, where the JAX programs donate them.
+function, and nothing else: one per push (three kernels) or pull of one
+table, and for a group every kernel launched (three per push chain, one
+per pull).  The push functions update the store (and accumulator) IN
+PLACE, where the JAX programs donate them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from ..utils import logging as log
@@ -53,8 +64,13 @@ from . import _native
 
 launches: Dict[str, int] = {
     "sparse_scatter_add": 0, "sparse_row_adagrad": 0,
-    "sparse_gather_rows": 0,
+    "sparse_gather_rows": 0, "sparse_scatter_add_group": 0,
+    "sparse_row_adagrad_group": 0, "sparse_gather_rows_group": 0,
 }
+
+# Tables of one group launch: the kernels take them by value
+# (csrc/sparse_rows.cu kMaxTables); a longer group takes a chain per 48.
+MAX_GROUP = 48
 
 # Widest row of a row-wise Adagrad push on the card: its long-run kernel
 # keeps the row's summed gradient in 48 KB of shared memory beside its
@@ -73,31 +89,43 @@ def _on_cuda(store, indices, rows=None, acc=None) -> bool:
     """Validate the operands: a contiguous 2-D store of f32 or bf16,
     int32 indices, ``rows`` ``[*indices.shape, dim]`` of the store's
     dtype and an f32 accumulator of one value per store row, all
-    contiguous on one device.  True when they live on a CUDA device."""
-    log.check(store.dim() == 2, "the store is [rows, dim]")
-    log.check(store.dtype in _DTYPE_CODES,
-              f"sparse tables take float32 or bfloat16, got {store.dtype}")
-    log.check(indices.dtype == torch.int32, "indices must be int32")
+    contiguous on one device.  True when they live on a CUDA device.
+    (Each message is built only on a failure: a group validates every
+    table on each call.)"""
+    if store.dim() != 2:
+        log.check(False, "the store is [rows, dim]")
+    if store.dtype not in _DTYPE_CODES:
+        log.check(False, f"sparse tables take float32 or bfloat16, got "
+                         f"{store.dtype}")
+    if indices.dtype != torch.int32:
+        log.check(False, "indices must be int32")
     operands = [store, indices]
     if rows is not None:
-        log.check(rows.dtype == store.dtype, "rows and store dtypes differ")
-        log.check(tuple(rows.shape) == tuple(indices.shape) + (store.shape[1],),
-                  f"rows {tuple(rows.shape)} do not match indices "
-                  f"{tuple(indices.shape)} x dim {store.shape[1]}")
+        if rows.dtype != store.dtype:
+            log.check(False, "rows and store dtypes differ")
+        if tuple(rows.shape) != tuple(indices.shape) + (store.shape[1],):
+            log.check(False, f"rows {tuple(rows.shape)} do not match "
+                             f"indices {tuple(indices.shape)} x dim "
+                             f"{store.shape[1]}")
         operands.append(rows)
     if acc is not None:
-        log.check(acc.dtype == torch.float32, "the accumulator is float32")
-        log.check(tuple(acc.shape) == (store.shape[0],),
-                  "one accumulator value per store row")
+        if acc.dtype != torch.float32:
+            log.check(False, "the accumulator is float32")
+        if tuple(acc.shape) != (store.shape[0],):
+            log.check(False, "one accumulator value per store row")
         operands.append(acc)
+    dev = store.device
     for t in operands:
-        log.check(t.device == store.device, "operands on different devices")
-        log.check(t.is_contiguous(), "operands must be contiguous")
-    log.check(store.shape[0] < 2 ** 31 - 1 and indices.numel() < 2 ** 31,
-              "more rows or updates than int32 indexes")
-    if store.device.type == "cuda":
+        if t.device != dev:
+            log.check(False, "operands on different devices")
+        if not t.is_contiguous():
+            log.check(False, "operands must be contiguous")
+    if not (store.shape[0] < 2 ** 31 - 1 and indices.numel() < 2 ** 31):
+        log.check(False, "more rows or updates than int32 indexes")
+    if dev.type == "cuda":
         return True
-    log.check(store.device.type == "cpu", f"unsupported device {store.device}")
+    if dev.type != "cpu":
+        log.check(False, f"unsupported device {dev}")
     return False
 
 
@@ -264,3 +292,159 @@ def gather_rows(store, indices, num_shards: int, rows_per_shard: int):
                  rows_per_shard, _native.stream_ptr(store.device))
     launches["sparse_gather_rows"] += 1
     return out
+
+
+# -- groups ----------------------------------------------------------------------
+
+def _group_args(stores, indices_list, rows_list=None, accs=None) -> bool:
+    """Validate a group's operands table by table (as the single
+    functions do), on one device, and for a push (``rows_list`` given) no
+    store twice.  True on a CUDA device."""
+    k = len(stores)
+    log.check(len(indices_list) == k, "group length mismatch")
+    log.check(rows_list is None or len(rows_list) == k,
+              "group length mismatch")
+    log.check(accs is None or len(accs) == k, "group length mismatch")
+    cuda = [_on_cuda(stores[i], indices_list[i],
+                     None if rows_list is None else rows_list[i],
+                     None if accs is None else accs[i]) for i in range(k)]
+    log.check(len({s.device for s in stores}) <= 1,
+              "a group's tables on different devices")
+    log.check(rows_list is None or len({s.data_ptr() for s in stores}) == k,
+              "a store twice in one group push")
+    return bool(cuda) and cuda[0]
+
+
+def _chains(stores, indices_list):
+    """The tables a group push launches, as chains of at most MAX_GROUP
+    table positions of one dtype (tables without updates left out)."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, (s, ix) in enumerate(zip(stores, indices_list)):
+        if ix.numel():
+            by_dtype.setdefault(s.dtype, []).append(i)
+    for dt, pos in by_dtype.items():
+        for c in range(0, len(pos), MAX_GROUP):
+            yield dt, pos[c:c + MAX_GROUP]
+
+
+def _work_offsets(ms: Sequence[int]):
+    """Each table's scratch offset (ints) in one allocation: a Work of its
+    own m (9m + 3 ints), rounded to 4 ints so every table's entry buffers
+    are 16-byte aligned; and the total."""
+    offs, at = [], 0
+    for m in ms:
+        offs.append(at)
+        at += (9 * m + 3 + 3) & ~3
+    return offs, at
+
+
+def _push_group(stores, accs, indices_list, rows_list, num_shards: int,
+                rps_list, adagrad: bool, lr: float, eps: float,
+                counter: str) -> None:
+    dev = stores[0].device
+    stream = _native.stream_ptr(dev)
+    for dt, pos in _chains(stores, indices_list):
+        ms = [indices_list[i].numel() for i in pos]
+        offs, total = _work_offsets(ms)
+        work = torch.empty(total, dtype=torch.int32, device=dev)
+        base = work.data_ptr()
+        table = np.array([[
+            stores[i].data_ptr(), accs[i].data_ptr() if adagrad else 0,
+            rows_list[i].data_ptr(), indices_list[i].data_ptr(),
+            base + 4 * off, m, stores[i].shape[1], num_shards, rps_list[i]]
+            for i, off, m in zip(pos, offs, ms)], dtype=np.int64)
+        _native.call("pstt_sparse_sort_group", table.ctypes.data, len(pos),
+                     stream)
+        launches[counter] += 1
+        _native.call("pstt_sparse_push_group", table.ctypes.data, len(pos),
+                     _DTYPE_CODES[dt], int(adagrad), lr, eps, stream)
+        launches[counter] += 2
+
+
+def scatter_add_group_reference(stores, indices_list, rows_list,
+                                num_shards: int, rps_list):
+    """Plain version of :func:`scatter_add_group`: each table's plain sum
+    push in turn."""
+    for s, ix, r, rps in zip(stores, indices_list, rows_list, rps_list):
+        scatter_add_reference(s, ix, r, num_shards, rps)
+    return stores
+
+
+def scatter_add_group(stores, indices_list, rows_list, num_shards: int,
+                      rps_list):
+    """Sum push of several tables (``rows_list[i]`` into ``stores[i]``, in
+    place; ``num_shards`` shards of ``rps_list[i]`` rows each); on the
+    card the sorts, long runs and short runs of every table of a dtype in
+    three launches."""
+    if not _group_args(stores, indices_list, rows_list):
+        return scatter_add_group_reference(stores, indices_list, rows_list,
+                                           num_shards, rps_list)
+    for s, rps in zip(stores, rps_list):
+        _check_layout(s, num_shards, rps)
+    _push_group(stores, None, indices_list, rows_list, num_shards, rps_list,
+                False, 0.0, 0.0, "sparse_scatter_add_group")
+    return stores
+
+
+def row_adagrad_group_reference(stores, accs, indices_list, rows_list,
+                                num_shards: int, rps_list, lr: float,
+                                eps: float):
+    """Plain version of :func:`row_adagrad_group`: each table's plain
+    row-wise Adagrad push in turn."""
+    for s, a, ix, r, rps in zip(stores, accs, indices_list, rows_list,
+                                rps_list):
+        row_adagrad_reference(s, a, ix, r, num_shards, rps, lr, eps)
+    return stores, accs
+
+
+def row_adagrad_group(stores, accs, indices_list, rows_list, num_shards: int,
+                      rps_list, lr: float, eps: float):
+    """Row-wise Adagrad push of several tables, in place; on the card
+    three launches per dtype.  Each table's dim is checked against
+    ``MAX_ADAGRAD_DIM`` as a single push checks it."""
+    if not _group_args(stores, indices_list, rows_list, accs):
+        return row_adagrad_group_reference(stores, accs, indices_list,
+                                           rows_list, num_shards, rps_list,
+                                           lr, eps)
+    for s, rps in zip(stores, rps_list):
+        _check_layout(s, num_shards, rps)
+        log.check(s.shape[1] <= MAX_ADAGRAD_DIM,
+                  f"row_adagrad on the card takes dim <= {MAX_ADAGRAD_DIM}, "
+                  f"got {s.shape[1]}")
+    _push_group(stores, accs, indices_list, rows_list, num_shards, rps_list,
+                True, lr, eps, "sparse_row_adagrad_group")
+    return stores, accs
+
+
+def gather_rows_group_reference(stores, indices_list, num_shards: int,
+                                rps_list):
+    """Plain version of :func:`gather_rows_group`: each table's plain
+    pull."""
+    return [gather_rows_reference(s, ix, num_shards, rps)
+            for s, ix, rps in zip(stores, indices_list, rps_list)]
+
+
+def gather_rows_group(stores, indices_list, num_shards: int, rps_list):
+    """Pull of several tables: a fresh ``[*indices_list[i].shape, dim_i]``
+    tensor per table; on the card one launch for every table (per
+    ``MAX_GROUP`` tables)."""
+    if not _group_args(stores, indices_list):
+        return gather_rows_group_reference(stores, indices_list, num_shards,
+                                           rps_list)
+    outs = []
+    for s, ix, rps in zip(stores, indices_list, rps_list):
+        _check_layout(s, num_shards, rps)
+        outs.append(torch.empty(tuple(ix.shape) + (s.shape[1],),
+                                dtype=s.dtype, device=s.device))
+    live = [i for i, ix in enumerate(indices_list) if ix.numel()]
+    for c in range(0, len(live), MAX_GROUP):
+        pos = live[c:c + MAX_GROUP]
+        table = np.array([[
+            stores[i].data_ptr(), indices_list[i].data_ptr(),
+            outs[i].data_ptr(), indices_list[i].numel(),
+            stores[i].shape[1] * stores[i].element_size(), num_shards,
+            rps_list[i]] for i in pos], dtype=np.int64)
+        _native.call("pstt_sparse_gather_group", table.ctypes.data, len(pos),
+                     _native.stream_ptr(stores[0].device))
+        launches["sparse_gather_rows_group"] += 1
+    return outs

@@ -41,7 +41,8 @@ replica's table, in shard order.  A push gathers every process's
 the rows it owns (the rows of other processes and other replicas masked
 out of range), so duplicates add in the single-process order; a pull
 gathers the indices, runs S3 on the owned rows and sends each process
-its rows back.  On the card the inputs travel through a
+its rows back.  Each is one exchange for every table of a
+``push_group``/``pull_group`` (a single push or pull: a group of one).  On the card the inputs travel through a
 :class:`~pslite_tpu_torch.parallel.peers.PeerSlab` every peer maps, with
 a host barrier after the writes and after the reads; on a CPU group
 through gloo.  ``store_array``/``acc_array`` and recuts gather the
@@ -189,6 +190,10 @@ class SparseEngine:
         # Across processes on the card: the inputs' exchange memory.
         self._xslab: Optional[PeerSlab] = None
         self._retired = Retired()
+        # Across processes: the exchanges of inputs or rows (``_share``)
+        # and the host barriers, counted.
+        self.exchanges = 0
+        self.barriers = 0
         # Application-payload bytes (the van's send/recv counters).
         self.push_bytes = 0
         self.pull_bytes = 0
@@ -254,6 +259,7 @@ class SparseEngine:
         :meth:`_release`; on a CPU group copies through gloo."""
         parts = [p.contiguous() for p in parts]
         g = self.group
+        self.exchanges += 1
         if self.device.type != "cuda":
             return [[torch.as_tensor(x) for x in got]
                     for got in distributed.allgather_object(parts)]
@@ -293,6 +299,7 @@ class SparseEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             self._retired.barrier()
+            self.barriers += 1
 
     def _owned_indices(self, table: SparseTable, idx: torch.Tensor):
         """Every rank's global rows ``[R, n]`` -> this process's local
@@ -308,41 +315,6 @@ class SparseEngine:
         j = pos[replica[:, None].expand_as(i), torch.remainder(i, S)]
         owned = (i >= 0) & (local < table.rows_per_shard) & (j >= 0)
         return torch.where(owned, local * L + j, -1).to(torch.int32)
-
-    def _mp_push(self, name: str, table: SparseTable, idx, g,
-                 handle: Optional[str]) -> None:
-        got = self._share([idx, g])
-        idx_all = torch.cat([p[0] for p in got])
-        g_all = torch.cat([p[1] for p in got])
-        self._release()
-        self._push_locked(name, table, self._owned_indices(table, idx_all),
-                          g_all, handle, len(self.group.local_ranks))
-
-    def _mp_pull(self, name: str, table: SparseTable, idx) -> torch.Tensor:
-        got = self._share([idx])
-        idx_all = torch.cat([p[0] for p in got])
-        self._release()
-        partial = sparse_rows.gather_rows(
-            self._stores[name], self._owned_indices(table, idx_all),
-            len(self.group.local_ranks), table.rows_per_shard)
-        ranks = self.group.local_ranks
-        mine = slice(ranks[0], ranks[-1] + 1)
-        # The owner process of each of this process's indices: the one of
-        # the rank of its replica holding the index's shard.
-        S = self.num_shards
-        replica, _, owners = self._replicas()
-        i = idx.to(torch.int64)
-        inr = (i >= 0) & (torch.div(i, S, rounding_mode="floor")
-                          < table.rows_per_shard)
-        owner = torch.where(inr, owners[replica[mine, None].expand_as(i),
-                                        torch.remainder(i, S)], -1)
-        out = torch.zeros(tuple(idx.shape) + (table.dim,), dtype=table.dtype,
-                          device=self.device)
-        for proc, (part,) in zip(self.group.processes,
-                                 self._share([partial], per_rank=False)):
-            out = torch.where((owner == proc)[..., None], part[mine], out)
-        self._release()
-        return out
 
     def close(self) -> None:
         """Release the exchange memory of a group spanning processes (a
@@ -467,8 +439,8 @@ class SparseEngine:
         table = self._tables[name]
         idx, g = self._prep(table, indices, grads)
         with self._table_mu[name]:
-            if self._mp:
-                self._mp_push(name, table, idx, g, handle)
+            if self._mp:  # a group of one across processes
+                self._mp_push_group([name], [table], [idx], [g], handle)
             else:
                 self._push_locked(name, table, idx, g, handle)
             token = self._stores[name][:1, :1].clone()
@@ -482,8 +454,8 @@ class SparseEngine:
         table = self._tables[name]
         idx, _ = self._prep(table, indices)
         with self._table_mu[name]:
-            if self._mp:
-                out = self._mp_pull(name, table, idx)
+            if self._mp:  # a group of one across processes
+                out = self._mp_pull_group([name], [table], [idx])[0]
             else:
                 out = sparse_rows.gather_rows(self._stores[name], idx,
                                               self.num_shards,
@@ -501,49 +473,123 @@ class SparseEngine:
         for n in reversed(ordered):
             self._table_mu[n].release()
 
+    def _push_group_locked(self, names, tables, idxs, gs,
+                           handle: Optional[str],
+                           shards: Optional[int] = None) -> None:
+        """Several tables' push as one group (three launches per dtype on
+        the card); call with their locks held.  ``shards`` as in
+        :meth:`_push_locked`."""
+        S = shards or self.num_shards
+        stores = [self._stores[n] for n in names]
+        rps = [t.rows_per_shard for t in tables]
+        if handle is None:
+            sparse_rows.scatter_add_group(stores, idxs, gs, S, rps)
+            return
+        _, (lr, eps) = self._parse_handle(handle)
+        for n, t in zip(names, tables):
+            self._ensure_acc(n, t)
+        sparse_rows.row_adagrad_group(stores, [self._acc[n] for n in names],
+                                      idxs, gs, S, rps, lr, eps)
+
+    def _mp_push_group(self, names, tables, idxs, gs,
+                       handle: Optional[str]) -> None:
+        """A group push across processes: one exchange of every table's
+        (indices, grads), then one group push of the owned rows."""
+        k = len(names)
+        got = self._share([x for pair in zip(idxs, gs) for x in pair])
+        idx_all = [torch.cat([p[2 * i] for p in got]) for i in range(k)]
+        g_all = [torch.cat([p[2 * i + 1] for p in got]) for i in range(k)]
+        self._release()
+        owned = [self._owned_indices(t, ia) for t, ia in zip(tables, idx_all)]
+        self._push_group_locked(names, tables, owned, g_all, handle,
+                                len(self.group.local_ranks))
+
+    def _mp_pull_group(self, names, tables, idxs) -> list:
+        """A group pull across processes: one exchange of every table's
+        indices, one group gather of the owned rows, one exchange of the
+        partials."""
+        k = len(names)
+        got = self._share(idxs)
+        idx_all = [torch.cat([p[i] for p in got]) for i in range(k)]
+        self._release()
+        partials = sparse_rows.gather_rows_group(
+            [self._stores[n] for n in names],
+            [self._owned_indices(t, ia) for t, ia in zip(tables, idx_all)],
+            len(self.group.local_ranks), [t.rows_per_shard for t in tables])
+        ranks = self.group.local_ranks
+        mine = slice(ranks[0], ranks[-1] + 1)
+        # The owner process of each of this process's indices: the one of
+        # the rank of its replica holding the index's shard.
+        S = self.num_shards
+        replica, _, owners = self._replicas()
+        rep = replica[mine, None]
+        owner, outs = [], []
+        for t, idx in zip(tables, idxs):
+            i = idx.to(torch.int64)
+            inr = (i >= 0) & (torch.div(i, S, rounding_mode="floor")
+                              < t.rows_per_shard)
+            owner.append(torch.where(inr, owners[rep.expand_as(i),
+                                                 torch.remainder(i, S)], -1))
+            outs.append(torch.zeros(tuple(idx.shape) + (t.dim,),
+                                    dtype=t.dtype, device=self.device))
+        for proc, parts in zip(self.group.processes,
+                               self._share(partials, per_rank=False)):
+            for j in range(k):
+                outs[j] = torch.where((owner[j] == proc)[..., None],
+                                      parts[j][mine], outs[j])
+        self._release()
+        return outs
+
     def push_group(self, names, indices_list, grads_list,
                    handle: Optional[str] = None):
         """Push several tables in one call; same semantics per table as
-        :meth:`push` (``handle`` applies to all).  In this slice each
-        table still takes its own kernel launch."""
+        :meth:`push` (``handle`` applies to all).  On the card the group
+        takes three kernel launches per dtype present, whatever the number
+        of tables; across processes one exchange of every table's inputs
+        (two host barriers)."""
         t0 = time.perf_counter()
         log.check(len(names) == len(indices_list) == len(grads_list),
                   "group length mismatch")
-        log.check(len(set(names)) == len(names), "duplicate table in group")
-        if self._mp:  # one collective push per table, in the order given
-            tokens = [self.push(n, i, g, handle=handle) for n, i, g in
-                      zip(names, indices_list, grads_list)]
-            return tokens[0]
+        log.check(len(set(names)) == len(names),
+                  "duplicate table in group (stores are updated in place)")
         tables = [self._tables[n] for n in names]
         prepped = [self._prep(t, i, g)
                    for t, i, g in zip(tables, indices_list, grads_list)]
+        idxs = [p[0] for p in prepped]
+        gs = [p[1] for p in prepped]
         ordered = self._lock_tables(names)
         try:
-            for n, t, (idx, g) in zip(names, tables, prepped):
-                self._push_locked(n, t, idx, g, handle)
+            if self._mp:
+                self._mp_push_group(names, tables, idxs, gs, handle)
+            else:
+                self._push_group_locked(names, tables, idxs, gs, handle)
             token = self._stores[names[0]][:1, :1].clone()
         finally:
             self._unlock_tables(ordered)
-        for i, (n, t, (idx, _)) in enumerate(zip(names, tables, prepped)):
+        # One call: latency is attributed to the first table only, so
+        # summed profiler durations are not inflated k-fold.
+        for i, (n, t, idx) in enumerate(zip(names, tables, idxs)):
             self._observe(n, "push", t, int(idx.shape[1]),
                           t0 if i == 0 else time.perf_counter())
         return token
 
     def pull_group(self, names, indices_list):
         """Pull several tables in one call; returns the list of
-        ``[W, n_i, d_i]`` tensors in ``names`` order."""
+        ``[W, n_i, d_i]`` tensors in ``names`` order.  On the card one
+        kernel launch for the group; across processes one exchange of the
+        indices and one of the rows (four host barriers)."""
         t0 = time.perf_counter()
         log.check(len(names) == len(indices_list), "group length mismatch")
-        if self._mp:  # one collective pull per table, in the order given
-            return [self.pull(n, i) for n, i in zip(names, indices_list)]
         tables = [self._tables[n] for n in names]
         idxs = [self._prep(t, i)[0] for t, i in zip(tables, indices_list)]
         ordered = self._lock_tables(names)
         try:
-            outs = [sparse_rows.gather_rows(self._stores[n], idx,
-                                            self.num_shards,
-                                            t.rows_per_shard)
-                    for n, t, idx in zip(names, tables, idxs)]
+            if self._mp:
+                outs = self._mp_pull_group(names, tables, idxs)
+            else:
+                outs = sparse_rows.gather_rows_group(
+                    [self._stores[n] for n in names], idxs, self.num_shards,
+                    [t.rows_per_shard for t in tables])
         finally:
             self._unlock_tables(ordered)
         for i, (n, t, idx) in enumerate(zip(names, tables, idxs)):

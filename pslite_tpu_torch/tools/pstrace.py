@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import List, Optional
 
 from ..telemetry.critical_path import STAGES
@@ -189,6 +190,9 @@ def export_chrome(coll, path: str, tid: Optional[str] = None) -> str:
 
 # -- CLI demo ----------------------------------------------------------------
 
+# Seconds the demo storms on, past its rounds, until a trace is kept.
+DEMO_WAIT_S = 30.0
+
 
 def _demo_cluster(slow_server_delay_ms=(5, 15)):
     """Boot a live 2w+2s cluster over REAL TCP sockets with tail
@@ -249,13 +253,29 @@ def _demo(args) -> int:
                         dtype=np.uint64)
         vals = np.ones(len(keys) * 256, dtype=np.float32)
         out = np.zeros_like(vals)
-        for i in range(args.rounds):
-            tss = [w.push(keys, vals) for w in workers]
-            for w, ts in zip(workers, tss):
-                w.wait(ts)
-            if i % 4 == 3:
-                workers[0].wait(workers[0].pull(keys, out))
+
+        def storm():
+            for i in range(args.rounds):
+                tss = [w.push(keys, vals) for w in workers]
+                for w, ts in zip(workers, tss):
+                    w.wait(ts)
+                if i % 4 == 3:
+                    workers[0].wait(workers[0].pull(keys, out))
+
+        # The tail sampler keeps a request only past its rules (p90 of
+        # what it has seen, the floor, errors), so a short storm may keep
+        # none: storm again until a trace is assembled, within
+        # DEMO_WAIT_S, or raise.
+        deadline = time.monotonic() + DEMO_WAIT_S
+        storm()
         coll = collect(scheduler, timeout_s=10.0)
+        while not coll.aggregate()["count"]:
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"pstrace: no trace kept after {DEMO_WAIT_S:.0f} s of "
+                    f"storm rounds")
+            storm()
+            coll = collect(scheduler, timeout_s=10.0)
         if args.export:
             path = export_chrome(coll, args.export, tid=args.path)
             print(f"pstrace: wrote {path}")

@@ -836,8 +836,11 @@ def test_sparse_kernels_match_plain(dev, S, rps, dim, W, n, dtype):
     else:  # a step one f32 ulp apart may round to another bf16 value
         torch.testing.assert_close(gs.float(), ws.float(), rtol=1e-2,
                                    atol=1e-2)
-    assert sr.launches == {"sparse_scatter_add": 1, "sparse_row_adagrad": 1,
-                           "sparse_gather_rows": 1}
+    assert {k: sr.launches[k] for k in ("sparse_scatter_add",
+                                        "sparse_row_adagrad",
+                                        "sparse_gather_rows")} == {
+        "sparse_scatter_add": 1, "sparse_row_adagrad": 1,
+        "sparse_gather_rows": 1}
 
 
 def test_sparse_kernels_are_deterministic(dev):
@@ -949,6 +952,175 @@ def test_sparse_push_is_three_launches_without_a_library_sort(dev,
     assert len(names) == 3, names
     for k in ("sort_kernel", "long_runs_kernel", "scatter_short_kernel"):
         assert sum(k in n for n in names) == 1, names
+
+
+# -- sparse groups: every table of a push_group/pull_group in one chain ---------
+# The group kernels against the per-table kernels (0 differing elements,
+# row_adagrad too: each table's sum of squares adds its own CTAs' parts in
+# the per-table order) and against the plain group versions (sum and pull
+# 0 differing, row_adagrad rtol 1e-5 / atol 1e-6).
+
+# (rows, dim, W, n) per table: different rows, dims 1, 3, 16, 48, 64 and
+# 300 (column tiles; the long runs' clusters of 16 CTAs take 16 runs of a
+# narrow table at once, 4 of dim 64, 5 of dim 48 with one CTA idle), a
+# table without updates, one of 8 updates beside one of 32,768 (the sort's
+# cluster of 16 CTAs, most of them without entries for the small table),
+# 3-row and 10-row tables whose runs are all long.
+_SPARSE_GROUP = [(1000, 64, 8, 4096), (3, 16, 8, 1024), (77, 1, 8, 9),
+          (500, 3, 8, 0), (10, 300, 8, 40), (1, 16, 8, 1),
+          (65_536, 16, 8, 1024), (200, 48, 8, 300)]
+
+
+def _sparse_group_case(dev, spec, dtypes, seed=0):
+    from pslite_tpu_torch.models.embedding import skewed_indices
+
+    S, out = 8, []
+    for t, ((rows, dim, W, n), dt) in enumerate(zip(spec, dtypes)):
+        rps = -(-rows // S)
+        idx = skewed_indices(rows, W, n, seed=seed + t).reshape(-1)
+        if idx.size >= 8:
+            idx[:4] = [-1, S * rps, S * rps + 9, -5]
+        idx = torch.from_numpy(idx.reshape(W, n)).to(dev)
+        g = _randn((W, n, dim), seed + 100 + t, dev).to(dt)
+        store = _randn((S * rps, dim), seed + 200 + t, dev).to(dt)
+        acc = torch.rand(S * rps, device=dev)
+        out.append((store, acc, idx, g, rps))
+    return S, out
+
+
+def _sparse_group_push_pull(sr, S, tables, handle, group: bool):
+    stores = [t[0].clone() for t in tables]
+    accs = [t[1].clone() for t in tables]
+    idxs = [t[2] for t in tables]
+    gs = [t[3] for t in tables]
+    rps = [t[4] for t in tables]
+    if group == "plain":
+        if handle:
+            sr.row_adagrad_group_reference(stores, accs, idxs, gs, S, rps,
+                                           0.05, 1e-8)
+        else:
+            sr.scatter_add_group_reference(stores, idxs, gs, S, rps)
+        outs = sr.gather_rows_group_reference(stores, idxs, S, rps)
+    elif group:
+        if handle:
+            sr.row_adagrad_group(stores, accs, idxs, gs, S, rps, 0.05, 1e-8)
+        else:
+            sr.scatter_add_group(stores, idxs, gs, S, rps)
+        outs = sr.gather_rows_group(stores, idxs, S, rps)
+    else:
+        for s, a, ix, g, r in zip(stores, accs, idxs, gs, rps):
+            if handle:
+                sr.row_adagrad(s, a, ix, g, S, r, 0.05, 1e-8)
+            else:
+                sr.scatter_add(s, ix, g, S, r)
+        outs = [sr.gather_rows(s, ix, S, r)
+                for s, ix, r in zip(stores, idxs, rps)]
+    torch.cuda.synchronize()
+    return stores, accs, outs
+
+
+def _assert_sparse_group(got, want, exact: bool):
+    for a, b in zip(*(x[0] + x[1] + x[2] for x in (got, want))):
+        if exact:
+            assert torch.equal(a, b)
+        elif a.dtype == torch.bfloat16:
+            torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                       atol=1e-2)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("handle", [None, "row_adagrad"])
+def test_sparse_group_kernels_match_per_table(dev, dtype, handle):
+    """One chain for seven tables: three launches for the push and one
+    for the pull, equal to the per-table kernels bit for bit and to the
+    plain group versions."""
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    S, tables = _sparse_group_case(dev, _SPARSE_GROUP, [dtype] * len(_SPARSE_GROUP))
+    sr.reset_launches()
+    got = _sparse_group_push_pull(sr, S, tables, handle, True)
+    counter = ("sparse_row_adagrad_group" if handle
+               else "sparse_scatter_add_group")
+    assert sr.launches[counter] == 3
+    assert sr.launches["sparse_gather_rows_group"] == 1
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, False), True)
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, "plain"),
+                  handle is None)
+
+
+@pytest.mark.parametrize("handle", [None, "row_adagrad"])
+def test_sparse_group_mixed_dims(dev, handle):
+    """Group (b) of chip_smoke.py: config 5's table (1,048,576 x 64) and
+    the DLRM table (1,048,576 x 16) in one group, 8 x 4,096 Zipf rows
+    each: the long runs' clusters sized for dim 64, the dim-16 runs on
+    their first CTA."""
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    spec = [(1 << 20, 64, 8, 4096), (1 << 20, 16, 8, 4096)]
+    S, tables = _sparse_group_case(dev, spec, [torch.float32] * 2, seed=5)
+    got = _sparse_group_push_pull(sr, S, tables, handle, True)
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, False), True)
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, "plain"),
+                  handle is None)
+
+
+@pytest.mark.parametrize("handle", [None, "row_adagrad"])
+def test_sparse_group_dtype_split(dev, handle):
+    """An f32 and a bf16 table: one chain per dtype (six launches for the
+    push), one pull launch; 50 tables take two chains per dtype present
+    (48 tables a launch)."""
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    spec = [(4000, 32, 8, 512), (4000, 32, 8, 512)]
+    S, tables = _sparse_group_case(dev, spec, [torch.float32, torch.bfloat16], 9)
+    sr.reset_launches()
+    got = _sparse_group_push_pull(sr, S, tables, handle, True)
+    counter = ("sparse_row_adagrad_group" if handle
+               else "sparse_scatter_add_group")
+    assert sr.launches[counter] == 6
+    assert sr.launches["sparse_gather_rows_group"] == 1
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, False), True)
+    many = [(50 + 3 * t, 4 + t % 5, 8, 20 + t) for t in range(50)]
+    S, tables = _sparse_group_case(dev, many, [torch.float32] * 50, 11)
+    sr.reset_launches()
+    got = _sparse_group_push_pull(sr, S, tables, handle, True)
+    assert sr.launches[counter] == 6
+    assert sr.launches["sparse_gather_rows_group"] == 2
+    _assert_sparse_group(got, _sparse_group_push_pull(sr, S, tables, handle, False), True)
+
+
+def test_sparse_group_engine_takes_one_chain(dev):
+    """SparseEngine.push_group/pull_group on the card: one chain of three
+    launches and one pull launch for four tables, equal to single pushes
+    and pulls on twin tables."""
+    from pslite_tpu_torch import SparseEngine
+    from pslite_tpu_torch.ops import sparse_rows as sr
+
+    e = SparseEngine(DeviceGroup(8, device=dev))
+    rng = np.random.default_rng(4)
+    spec = [("a", 1000, 64), ("b", 3, 16), ("c", 77, 4), ("d", 20_000, 8)]
+    for name, rows, dim in spec:
+        for pre in ("g_", "t_"):
+            e.register_sparse(pre + name, rows, dim)
+    for handle in (None, "row_adagrad:0.01,1e-8"):
+        idx = [rng.integers(0, r, size=(8, 300)).astype(np.int32)
+               for _, r, _ in spec]
+        gs = [rng.normal(size=(8, 300, d)).astype(np.float32)
+              for _, _, d in spec]
+        sr.reset_launches()
+        e.push_group(["g_" + n for n, _, _ in spec], idx, gs, handle=handle)
+        outs = e.pull_group(["g_" + n for n, _, _ in spec], idx)
+        counter = ("sparse_row_adagrad_group" if handle
+                   else "sparse_scatter_add_group")
+        assert sr.launches[counter] == 3
+        assert sr.launches["sparse_gather_rows_group"] == 1
+        for (n, _, _), ix, g, out in zip(spec, idx, gs, outs):
+            e.push("t_" + n, ix, g, handle=handle)
+            assert torch.equal(out, e.pull("t_" + n, ix))
+            assert torch.equal(e.store_array("g_" + n),
+                               e.store_array("t_" + n))
 
 
 # -- bf16 stateful buckets and the message plane on the card ------------------

@@ -37,7 +37,12 @@ Legs, each a cluster of separate processes from the port's launcher
   engine with ``worker_axis`` (B = 4 sub-rings, 2 ``sum`` steps) and
   without (the torch path on each rank's kv shard, 2 steps); config 5's
   table on ``(kv 4, dp 2)`` (sharded over kv, replicated over dp), 2
-  pushes and pulls.  Each new kernel's first launch is held against its
+  pushes and pulls; on the 1-D group and on ``(kv 4, dp 2)`` a
+  ``push_group``/``pull_group`` of two tables (config 5's and a 65,536 x
+  16 one) against the single-process group and the same tables pushed and
+  pulled one by one, bit for bit, with the host barriers of each op
+  counted (a group push 2 and a group pull 4, whatever the number of
+  tables; one by one 2 and 4 per table).  Each new kernel's first launch is held against its
   plain version on clones of its inputs (``_HeldPeers``), and each
   process times its new kernels alone, as above.
 - ``int8``: ``ici_tcp`` with ``PS_ICI_COMPRESS=int8`` in the workers'
@@ -279,6 +284,58 @@ def time_alone(torch, ring, eng, rows8) -> dict:
     return out
 
 
+GROUP_TABLES = (("grp_a", ROWS, DIM), ("grp_b", 65_536, 16))
+
+
+def sparse_group_leg(torch, se, ref_se, idxs, gs, mine, uncounted,
+                     local_of) -> dict:
+    """A ``push_group``/``pull_group`` of :data:`GROUP_TABLES` across the
+    processes (global inputs ``idxs``/``gs``, this process's worker rows
+    ``mine``), bit-equal to the single-process ``ref_se``; the host
+    barriers of each group op, and those of the same tables pushed and
+    pulled one by one (the path before groups took one exchange)."""
+    names = [t[0] for t in GROUP_TABLES]
+    loops = ["loop_" + n for n in names]
+    for e in (se, ref_se):
+        for (n, rows, dim), ln in zip(GROUP_TABLES, loops):
+            e.register_sparse(n, rows, dim)
+            e.register_sparse(ln, rows, dim)
+    with uncounted:
+        ref_se.push_group(names, idxs, gs)
+        want = ref_se.pull_group(names, idxs)
+    mi = [x[mine].contiguous() for x in idxs]
+    mg = [x[mine].contiguous() for x in gs]
+    torch.cuda.synchronize()
+    out = {}
+    for label, run in (
+            ("push", lambda: se.push_group(names, mi, mg)),
+            ("pull", lambda: se.pull_group(names, mi)),
+            ("loop_push", lambda: [se.push(n, i, g)
+                                   for n, i, g in zip(loops, mi, mg)]),
+            ("loop_pull", lambda: [se.pull(n, i)
+                                   for n, i in zip(loops, mi)])):
+        b0, x0 = se.barriers, se.exchanges
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        out[f"{label}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{label}_barriers"] = se.barriers - b0
+        out[f"{label}_exchanges"] = se.exchanges - x0
+        if label == "pull":
+            pulled = got
+        if label == "loop_pull":
+            looped = got
+    return dict(out, tables=len(names), **_check(
+        "sparse group",
+        pull_differing=sum(int((g != w[mine]).sum())
+                           for g, w in zip(pulled, want)),
+        loop_differing=sum(int((g != w).sum())
+                           for g, w in zip(pulled, looped)),
+        store_differing=sum(
+            int((se._stores[n] != local_of(n, ref_se._stores[n])).sum())
+            for n in names)))
+
+
 def node_mp(ps, spec) -> dict:
     """A worker of the ``ici_tcp``/``ici_shm`` legs (see the module
     docstring); raises on any differing element."""
@@ -406,6 +463,18 @@ def node_mp(ps, spec) -> dict:
                             "pull_differing": pull_diff}
         if store_diff or pull_diff:
             raise AssertionError(f"sparse: {report['sparse']}")
+        sidx = torch.from_numpy(emb.skewed_indices(65_536, N, 1024,
+                                                   seed=2)).to(DEV)
+        sg = torch.randn((N, 1024, 16), device=DEV, generator=gen)
+
+        def local_of(name, full):
+            rps_n = se.table(name).rows_per_shard
+            lo = LOCAL * rank * rps_n
+            return full[lo:lo + LOCAL * rps_n]
+
+        report["sparse_group"] = sparse_group_leg(
+            torch, se, ref_se, [idx, sidx], [g, sg], mine, uncounted,
+            local_of)
     if spec.get("shapes"):
         held = _HeldPeers(torch, ring)
         with held:
@@ -674,6 +743,16 @@ def node_shapes(ps, torch, ring, uncounted, spec, rank: int) -> dict:
             store_differing=int((se._stores["emb_nd"] != se._local_of(
                 table, ref_se._stores["emb_nd"])).sum()))))
     out["sparse_nd"] = sparse
+    idx = torch.from_numpy(emb.skewed_indices(ROWS, 4, BATCH,
+                                              seed=30)).to(DEV)
+    sidx = torch.from_numpy(emb.skewed_indices(65_536, 4, 1024,
+                                               seed=31)).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    grads = [torch.randn((4, BATCH, DIM), device=DEV, generator=gen),
+             torch.randn((4, 1024, 16), device=DEV, generator=gen)]
+    out["sparse_group_nd"] = sparse_group_leg(
+        torch, se, ref_se, [idx, sidx], grads, mine, uncounted,
+        lambda name, full: se._local_of(se.table(name), full))
     se.close()
     return out
 
@@ -1043,6 +1122,28 @@ def drive_multiprocess(smi: str, kernel_rows=None):
                           for x in sh["sparse_nd"])
               + " ms; 0 differing elements against the single-process "
               f"port in every step; first launches held: {r['held']}")
+    for r in main:
+        for label, sg in (("1-D kv", r["sparse_group"]),
+                          ("(kv 4, dp 2)", r["shapes"]["sparse_group_nd"])):
+            print(f"    worker {r['rank']} sparse push_group/pull_group of "
+                  f"{sg['tables']} tables on {label}: push "
+                  f"{sg['push_ms']:.3f} ms wall, {sg['push_barriers']} host "
+                  f"barriers ({sg['push_exchanges']} exchange); pull "
+                  f"{sg['pull_ms']:.3f} ms, {sg['pull_barriers']} barriers "
+                  f"({sg['pull_exchanges']} exchanges); the tables one by "
+                  f"one: push {sg['loop_push_ms']:.3f} ms, "
+                  f"{sg['loop_push_barriers']} barriers, pull "
+                  f"{sg['loop_pull_ms']:.3f} ms, {sg['loop_pull_barriers']} "
+                  f"barriers; 0 differing elements against the "
+                  f"single-process group and the one-by-one ops [{smi}]")
+            k = sg["tables"]
+            want = (2, 1, 4, 2, 2 * k, 4 * k)
+            got = tuple(sg[x] for x in (
+                "push_barriers", "push_exchanges", "pull_barriers",
+                "pull_exchanges", "loop_push_barriers", "loop_pull_barriers"))
+            if got != want:
+                raise AssertionError(f"sparse group barriers/exchanges "
+                                     f"{got}, expected {want}")
     print(f"multiprocess int8: KVWorker.push_pull under PS_ICI_COMPRESS=int8"
           f", {len(int8[0]['steps'])} sum steps, 0 differing elements "
           f"against the single-process pstt_ring_int8 on the 8 rows; wall "
@@ -1131,9 +1232,14 @@ def drive_multiprocess(smi: str, kernel_rows=None):
     differing += sum(r["sparse"]["store_differing"]
                      + r["sparse"]["pull_differing"]
                      + r["reshard"]["differing"] for r in main)
+    differing += sum(v for r in main for leg in (r["sparse_group"],)
+                     for k, v in leg.items() if k.endswith("differing"))
     shape_diff = sum(v for r in main for leg in r["shapes"].values()
                      if isinstance(leg, list) for x in leg
                      for k, v in x.items() if k.endswith("differing"))
+    shape_diff += sum(v for r in main
+                      for k, v in r["shapes"]["sparse_group_nd"].items()
+                      if k.endswith("differing"))
     shape_diff += sum(s["differing"] + s["store_differing"]
                       for r in int8 for s in r["steps"])
     results = [{"config": "multiprocess ici_tcp 2 x 4 ranks",
